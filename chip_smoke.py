@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, then drives the port's
-main path through its query runners: TPC-H Q1 and Q6 at SF10 and the Q18
-group-by (``group by l_orderkey, sum(l_quantity) having sum > 300``) at SF1,
-each answer checked against pandas on the host from the same generated
-rows, and each query checked to run up to its collect without a host sync.
+Builds the port's CUDA kernels from the sources in this checkout (B1
+compaction, B2 hash aggregation, B3/B4 hash join build and probe), holds
+each kernel against its plain PyTorch version on the card, then drives the
+port's main path through its query runners: TPC-H Q1, Q6, Q3 and Q4 at SF10
+and the Q18 group-by (``group by l_orderkey, sum(l_quantity) having sum >
+300``) at SF1, each answer checked against pandas on the host from the same
+generated rows. Each query also runs up to its collect under PyTorch's sync
+debug mode "error", where the only host waits allowed are the counted ones
+(``obs/syncledger.sync_scope``): Q3 must count one per join (2), every other
+query none.
 
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
@@ -207,6 +211,127 @@ def check_hash_agg(n: int, nkeys: int, q18_rows: int, gen: torch.Generator,
             "check_table": T, "timed_rows": m, "timed_table": T18}
 
 
+def _join_inputs(case: str, n: int, gen: torch.Generator, dev):
+    """(build images, build valid, stream images, stream valid)."""
+    if case == "empty":
+        z = torch.zeros(0, dtype=torch.int64, device=dev)
+        zb = torch.zeros(0, dtype=torch.bool, device=dev)
+        return [z], zb, [z], zb
+    k = {"k2": 2, "k3": 3}.get(case, 1)
+    hi = {"skewed": 4, "k2": 1024, "k3": 128}.get(case, n // 2)
+    ns = 64 if case == "skewed" else n  # one key expands to ~n/4 rows
+    bimg = [torch.randint(0, hi, (n,), generator=gen, device=dev)
+            ^ -(1 << 63) for _ in range(k)]
+    simg = [torch.randint(0, hi + hi // 4, (ns,), generator=gen, device=dev)
+            ^ -(1 << 63) for _ in range(k)]
+    bv = torch.rand(n, generator=gen, device=dev) < (
+        0.0 if case == "all_invalid" else 0.9)
+    sv = torch.rand(ns, generator=gen, device=dev) < 0.95
+    return bimg, bv, simg, sv
+
+
+def _compare_build(images, valid, T) -> tuple:
+    """B3 against its plain version, by key; returns the kernel's build."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.testing import hashcheck
+    slot, rank, table, counts = K.hash_table_build(images, valid, T)
+    _s, _r, table_p, counts_p = K.hash_table_build_plain(images, valid, T)
+    torch.cuda.synchronize()
+    require(rank is None, "hash_table_build returned a rank")
+    hashcheck.check_build(images, valid, slot, table, counts)
+    require(torch.equal(hashcheck.table_by_key(table, counts),
+                        hashcheck.table_by_key(table_p, counts_p)),
+            "hash_table_build: table differs from plain by key")
+    return slot, table, counts, table_p, counts_p
+
+
+def _compare_probe(table, counts, table_p, counts_p, images, valid, T):
+    from spark_rapids_tpu_torch.ops import kernels as K
+    got = K.hash_table_probe(table, counts, images, valid, T)
+    want = K.hash_table_probe_plain(table_p, counts_p, images, valid, T)
+    hit = got < T
+    require(torch.equal(hit, want < T), "hash_table_probe: hits differ "
+            "from plain")
+    for j, img in enumerate(images):
+        require(torch.equal(table[j][got[hit].long()], img[hit]),
+                "hash_table_probe: a hit slot holds another key")
+    require(torch.equal(counts[got[hit].long()], counts_p[want[hit].long()]),
+            "hash_table_probe: match counts differ from plain")
+
+
+def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
+                    gen: torch.Generator, dev=torch.device("cuda")):
+    """B3 and B4 against their plain versions (k = 1, 2, 3, a skewed key,
+    all-invalid and empty inputs, then the timed shape), and their times at
+    Q3's lineitem build shape: ``cap`` rows of capacity, the first
+    ``live_rows`` live, about 54% of those valid (l_shipdate > 1995-03-15),
+    keys l_orderkey-like in [1, 4 * orders); the probe streams
+    ``probe_rows`` o_orderkey-like keys (multiples of 4)."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.testing import hashcheck
+    cases = {}
+    for case in ("k1", "k2", "k3", "skewed", "all_invalid", "empty"):
+        bimg, bv, simg, sv = _join_inputs(case, n, gen, dev)
+        T = K.hash_table_size(bv.shape[0])
+        _slot, table, counts, table_p, counts_p = _compare_build(bimg, bv, T)
+        _compare_probe(table, counts, table_p, counts_p, simg, sv, T)
+        c, rows = hashcheck.join_matches(*K.hash_join_probe(bimg, bv, simg,
+                                                            sv, T))
+        c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
+            bimg, bv, simg, sv, T))
+        require(torch.equal(c, c_p) and torch.equal(rows, rows_p),
+                f"hash_join_probe differs from plain ({case})")
+        cases[case] = {"groups": int((counts > 0).sum()),
+                       "matches": int(c.sum())}
+
+    orders = live_rows // 4
+    T = K.hash_table_size(cap)
+    key = torch.randint(1, 4 * orders, (cap,), generator=gen, device=dev)
+    img = [key ^ -(1 << 63)]
+    valid = ((torch.arange(cap, device=dev) < live_rows)
+             & (torch.rand(cap, generator=gen, device=dev) < 0.537))
+    nvalid = int(valid.sum())
+    skey = 4 * torch.randint(1, orders + 1, (probe_rows,), generator=gen,
+                             device=dev)
+    simg = [skey ^ -(1 << 63)]
+    sv = torch.ones(probe_rows, dtype=torch.bool, device=dev)
+    _slot, table, counts, table_p, counts_p = _compare_build(img, valid, T)
+    _compare_probe(table, counts, table_p, counts_p, simg, sv, T)
+    del table_p, counts_p
+    build_ms = time_ms(lambda: K.hash_table_build(img, valid, T), 10)
+    build_plain_ms = time_ms(lambda: K.hash_table_build_plain(img, valid, T),
+                             1)
+    probe_ms = time_ms(lambda: K.hash_table_probe(table, counts, simg, sv, T),
+                       20)
+    probe_plain_ms = time_ms(lambda: K.hash_table_probe_plain(
+        table, counts, simg, sv, T), 2)
+    k = len(img)
+    # B3: keys and the valid byte read once, the slot written once, the
+    # T-wide state, count and key words initialised once, and per valid row
+    # one random 32 B sector for the claim or compare and one for the count
+    b3_bytes = cap * (8 * k + 1) + cap * 4 + T * (4 + 4 + 8 * k) \
+        + nvalid * 2 * 32
+    # B4: keys and valid read once, the slot written once, one random 32 B
+    # sector per valid row
+    b4_bytes = probe_rows * (8 * k + 1) + probe_rows * 4 + probe_rows * 32
+    common = {"route": "cuda",
+              "source": "spark_rapids_tpu_torch/csrc/hash_join.cu",
+              "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
+              "check_rows": n, "check_cases": cases, "timed_table": T}
+    b3 = dict(common, name="hash_table_build",
+              replaces="spark_rapids_tpu/ops/pallas_kernels.py:335",
+              ms=build_ms, plain_ms=build_plain_ms,
+              bound_ms=bound_ms(b3_bytes), timed_rows=cap,
+              timed_valid_rows=nvalid, timed_groups=int((counts > 0).sum()))
+    b4 = dict(common, name="hash_table_probe",
+              replaces="spark_rapids_tpu/ops/pallas_kernels.py:391",
+              ms=probe_ms, plain_ms=probe_plain_ms,
+              bound_ms=bound_ms(b4_bytes), timed_rows=probe_rows,
+              timed_hits=int((K.hash_table_probe(table, counts, simg, sv, T)
+                              < T).sum()))
+    return [b3, b4]
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
@@ -253,6 +378,50 @@ def check_q1(got, want) -> float:
     return err
 
 
+def q3_reference(li, o, c):
+    """TPC-H Q3 in pandas, every group in the query's order."""
+    cut = np.datetime64("1995-03-15")
+    m = (c[c.c_mktsegment == "BUILDING"][["c_custkey"]]
+         .merge(o[o.o_orderdate < cut][["o_orderkey", "o_custkey",
+                                        "o_orderdate", "o_shippriority"]],
+                left_on="c_custkey", right_on="o_custkey")
+         .merge(li[li.l_shipdate > cut][["l_orderkey", "l_extendedprice",
+                                         "l_discount"]],
+                left_on="o_orderkey", right_on="l_orderkey"))
+    m = m.assign(revenue=m.l_extendedprice * (1 - m.l_discount))
+    g = m.groupby(["l_orderkey", "o_orderdate", "o_shippriority"],
+                  as_index=False).revenue.sum()
+    return g.sort_values(["revenue", "o_orderdate"],
+                         ascending=[False, True]).reset_index(drop=True)
+
+
+def check_q3(got, want) -> float:
+    """Rows in the query's order: revenue at rtol 1e-9, dates exact, and
+    the keys of rows tied on (revenue, o_orderdate) as a set."""
+    want = want.head(len(got))
+    require(len(got) == 10 and len(want) == 10, "Q3 returned too few rows")
+    err = _rel_err(got.revenue, want.revenue)
+    require(err <= F64_RTOL, f"Q3 revenue differs: rel {err}")
+    require(np.array_equal(got.o_orderdate.to_numpy("datetime64[us]"),
+                           want.o_orderdate.to_numpy("datetime64[us]")),
+            "Q3 order dates differ")
+    for _, grp in want.groupby(["revenue", "o_orderdate"], sort=False):
+        rows = grp.index
+        for c in ("l_orderkey", "o_shippriority"):
+            require(sorted(got.loc[rows, c]) == sorted(want.loc[rows, c]),
+                    f"Q3 {c} differs")
+    return err
+
+
+def q4_reference(li, o):
+    late = li.l_orderkey[li.l_commitdate < li.l_receiptdate]
+    oo = o[(o.o_orderdate >= np.datetime64("1993-07-01"))
+           & (o.o_orderdate < np.datetime64("1993-10-01"))]
+    oo = oo[oo.o_orderkey.isin(late)]
+    return (oo.groupby("o_orderpriority").size().rename("order_count")
+            .reset_index())
+
+
 def run_query(name: str, fn, runs: int) -> tuple:
     """Run ``fn`` once to warm up, then ``runs`` times, with the launch
     counts zeroed just before each run and read just after. Returns (the
@@ -278,17 +447,24 @@ def run_query(name: str, fn, runs: int) -> tuple:
     return out, walls, launches
 
 
-def require_no_host_sync(fn) -> None:
+def require_syncs(name: str, fn, expected: int) -> None:
     """Run ``fn`` (a query up to, not including, its collect) with
-    PyTorch's sync debug mode set to error: any call in it that would make
-    the host wait for the device raises. The row counts stay on the
-    device, so the steps, the concat and the merge need no sync."""
+    PyTorch's sync debug mode set to error: any call in it that makes the
+    host wait for the device raises, except inside ``sync_scope``, which
+    counts it. The row counts stay on the device, so filters, aggregates,
+    concats, sorts and semi joins need no sync; an inner or outer join
+    fetches its expansion totals once."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
     torch.cuda.synchronize()
+    before = SYNCS.total()
     torch.cuda.set_sync_debug_mode("error")
     try:
         fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    got = SYNCS.total() - before
+    require(got == expected, f"{name}: {got} counted host syncs before the "
+            f"collect, expected {expected}")
 
 
 def query_record(sf, rows: int, nbatches: int, upload_s: float, walls,
@@ -310,7 +486,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from spark_rapids_tpu_torch.models import q1_step as Q
-    from spark_rapids_tpu_torch.models.tpch_data import gen_lineitem
+    from spark_rapids_tpu_torch.models import tpch_joins as J
+    from spark_rapids_tpu_torch.models.tpch_data import (
+        gen_customer, gen_lineitem, gen_orders,
+    )
     from spark_rapids_tpu_torch.ops import cudalib
 
     card = card_line()
@@ -320,12 +499,18 @@ def main() -> int:
     if args.quick:
         b1_rows, b2_rows, b2_keys, q18_part = (1 << 20, 1 << 18, 160_000,
                                                1 << 18)
+        b34_rows, b34_cap, b34_live, b34_probe = (1 << 16, 1 << 21,
+                                                  1_200_000, 1 << 18)
         sf_q1, q1_batch, sf_q18, q18_batch = 0.2, 1 << 20, 0.1, 1 << 18
     else:
         # B1 at a Q1/Q6 batch, B2 on SF1 rows with ~3.8M keys and at the
-        # Q18 partial shape; batches as the queries below take them
+        # Q18 partial shape, B3 at Q3's lineitem build (8 batches of 2^23
+        # rows, SF10's 60M live) and B4 probing a 2^23-row batch;
+        # batches as the queries below take them
         b1_rows, b2_rows, b2_keys, q18_part = (1 << 23, 6_000_000,
                                                6_000_000, 1 << 22)
+        b34_rows, b34_cap, b34_live, b34_probe = (1 << 20, 1 << 26,
+                                                  60_000_000, 1 << 23)
         sf_q1, q1_batch, sf_q18, q18_batch = 10, 1 << 23, 1, 1 << 22
     report = {"card": card, "quick": args.quick}
 
@@ -342,6 +527,8 @@ def main() -> int:
     gen.manual_seed(20261016)
     kernels = [check_compaction(b1_rows, gen),
                check_hash_agg(b2_rows, b2_keys, q18_part, gen)]
+    torch.cuda.empty_cache()
+    kernels += check_hash_join(b34_rows, b34_cap, b34_live, b34_probe, gen)
     for k in kernels:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
             f" bound {k['bound_ms']:.4f} err {k['max_abs_err']}")
@@ -363,7 +550,7 @@ def main() -> int:
     out, walls, launches = run_query(
         "Q1", lambda: Q.q1_from_batches(batches).to_pandas(), runs)
     err = check_q1(out, q1_reference(df))
-    require_no_host_sync(lambda: Q.q1_from_batches(batches))
+    require_syncs("Q1", lambda: Q.q1_from_batches(batches), 0)
     require(launches["compact_permutation"] > 0, "Q1 ran no compaction")
     queries["q1"] = query_record(sf_q1, len(df), len(batches), up, walls,
                                  err, launches)
@@ -383,11 +570,61 @@ def main() -> int:
     want = float((df.l_extendedprice[m] * df.l_discount[m]).sum())
     err = _rel_err([out.revenue[0]], [want])
     require(len(out) == 1 and err <= F64_RTOL, f"Q6 revenue differs: {err}")
-    require_no_host_sync(lambda: Q.q6_from_batches(batches))
+    require_syncs("Q6", lambda: Q.q6_from_batches(batches), 0)
     require(launches["compact_permutation"] > 0, "Q6 ran no compaction")
     queries["q6"] = query_record(sf_q1, len(df), len(batches), up, walls,
                                  err, launches)
-    del batches, df
+    del batches
+    torch.cuda.empty_cache()
+
+    # Q3 and Q4 reuse the lineitem frame of Q1/Q6
+    t0 = time.perf_counter()
+    frames = {"lineitem": df, "orders": gen_orders(sf_q1),
+              "customer": gen_customer(sf_q1)}
+    report["gen_q3_s"] = time.perf_counter() - t0
+    log(f"orders, customer SF{sf_q1}: {len(frames['orders'])}, "
+        f"{len(frames['customer'])} rows, {report['gen_q3_s']:.1f} s")
+    q3_rows = sum(len(f) for f in frames.values())
+    t0 = time.perf_counter()
+    tables = J.upload_q3(frames, q1_batch)
+    torch.cuda.synchronize()
+    up = time.perf_counter() - t0
+    out, walls, launches = run_query(
+        "Q3", lambda: J.q3_from_batches(tables).to_pandas(), runs)
+    err = check_q3(out, q3_reference(df, frames["orders"],
+                                     frames["customer"]))
+    require_syncs("Q3", lambda: J.q3_from_batches(tables), 2)
+    require(launches["hash_table_build"] > 0
+            and launches["hash_table_probe"] > 0
+            and launches["hash_grouped_aggregate"] > 0
+            and launches["compact_permutation"] > 0,
+            "Q3 did not run B1, B2, B3 and B4")
+    queries["q3"] = query_record(sf_q1, q3_rows, sum(map(len,
+                                                         tables.values())),
+                                 up, walls, err, launches)
+    del tables
+    torch.cuda.empty_cache()
+
+    q4_rows = len(df) + len(frames["orders"])
+    t0 = time.perf_counter()
+    tables = J.upload_q4(frames, q1_batch)
+    torch.cuda.synchronize()
+    up = time.perf_counter() - t0
+    out, walls, launches = run_query(
+        "Q4", lambda: J.q4_from_batches(tables).to_pandas(), runs)
+    want = q4_reference(df, frames["orders"])
+    require(list(out.o_orderpriority) == list(want.o_orderpriority)
+            and list(out.order_count) == list(want.order_count),
+            f"Q4 differs from pandas: {out} vs {want}")
+    require_syncs("Q4", lambda: J.q4_from_batches(tables), 0)
+    require(launches["hash_table_build"] > 0
+            and launches["hash_table_probe"] > 0,
+            "Q4 did not run B3 and B4")
+    queries["q4"] = query_record(sf_q1, q4_rows, sum(map(len,
+                                                         tables.values())),
+                                 up, walls, 0.0, launches)
+    queries["q4"]["order_count"] = int(out.order_count.sum())
+    del tables, frames, df
     torch.cuda.empty_cache()
 
     df = gen_lineitem(sf_q18)
@@ -413,7 +650,7 @@ def main() -> int:
                            want_h.index.to_numpy())
             and np.allclose(got_h.sum_qty, want_h.to_numpy(),
                             rtol=F64_RTOL, atol=0), "Q18 having differs")
-    require_no_host_sync(lambda: Q.q18_agg_from_batches(batches))
+    require_syncs("Q18", lambda: Q.q18_agg_from_batches(batches), 0)
     require(launches["hash_grouped_aggregate"] > 0
             and launches["compact_permutation"] > 0,
             "Q18 did not run both kernels")

@@ -12,9 +12,8 @@
 // row and the table lives in device memory, so no cap applies:
 //   * slot = (splitmix64 chain over the k key words + probe) & (T - 1),
 //     linear probing, load <= 1/2 (the caller sizes T);
-//   * a per-slot state word makes a k-word key appear atomically: CAS
-//     empty -> claiming, write the key words, __threadfence, publish.
-//     Readers spin while a slot is claiming, then compare the key words;
+//   * a per-slot state word makes a k-word key appear atomically (the
+//     claim/publish probe of hash_table.cuh, shared with hash_join.cu);
 //   * count: atomicAdd; rep: atomicMin of the row index, which is the first
 //     arrival (the jnp twin's segment_min, :738-739);
 //   * per job, where eligible: the eligible count, then sum by atomicAdd
@@ -33,34 +32,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hash_table.cuh"
+
 namespace {
 
-constexpr int kMaxKeys = 8;
+using srt::kMaxKeys;
+using srt::load_word;
 constexpr int kThreads = 256;
-constexpr unsigned long long kSeed = 0x243F6A8885A308D3ull;
-constexpr int kEmpty = 0;
-constexpr int kClaiming = 1;
-constexpr int kPublished = 2;
 // job table row: kind, dtype, data ptr, eligible ptr, acc ptr, nel ptr
 constexpr int kJobFields = 6;
 enum Kind { kSum = 0, kMin = 1, kMax = 2 };
 enum Dtype { kI64 = 0, kF64 = 1, kI32 = 2 };
-
-__device__ __forceinline__ unsigned long long splitmix64(unsigned long long x) {
-  x += 0x9E3779B97F4A7C15ull;
-  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
-  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
-  return x ^ (x >> 31);
-}
-
-__device__ __forceinline__ int load_state(const int* p) {
-  return *reinterpret_cast<const volatile int*>(p);
-}
-
-__device__ __forceinline__ unsigned long long load_word(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
 
 // min (want_less) or max of a float64 accumulator; NaN is sticky, as in the
 // segment ops of the plain version
@@ -134,36 +116,8 @@ __global__ void hash_agg(const unsigned long long* __restrict__ keys, int k,
        i += gridDim.x * blockDim.x) {
     if (!valid[i]) continue;
     unsigned long long key[kMaxKeys];
-    unsigned long long h = kSeed;
-    for (int j = 0; j < k; ++j) {
-      key[j] = keys[static_cast<size_t>(j) * n + i];
-      h = splitmix64(h ^ key[j]);
-    }
-    unsigned long long probe = h;
-    int s;
-    while (true) {
-      s = static_cast<int>(probe & mask);
-      int st = load_state(&state[s]);
-      if (st == kEmpty) {
-        st = atomicCAS(&state[s], kEmpty, kClaiming);
-        if (st == kEmpty) {
-          for (int j = 0; j < k; ++j) {
-            table[static_cast<size_t>(j) * T + s] = key[j];
-          }
-          __threadfence();
-          atomicExch(&state[s], kPublished);
-          break;
-        }
-      }
-      while (st == kClaiming) st = load_state(&state[s]);
-      __threadfence();
-      bool eq = true;
-      for (int j = 0; j < k && eq; ++j) {
-        eq = load_word(&table[static_cast<size_t>(j) * T + s]) == key[j];
-      }
-      if (eq) break;
-      ++probe;
-    }
+    const unsigned long long h = srt::load_key(keys, k, n, i, key);
+    const int s = srt::claim_or_find(key, k, h, table, state, mask, T);
     atomicAdd(&counts[s], 1);
     atomicMin(&rep[s], i);
     for (int j = 0; j < nj; ++j) accumulate(jobs + j * kJobFields, i, s);

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` (Hopper) into
 its own shared library with a plain C interface, loaded with ``ctypes``. A
-library is named by a hash of its source, so a changed source rebuilds and
-an unchanged one is reused. Builds go to ``spark_rapids_tpu_torch/build/``
-at first use; ``build()`` compiles every missing library at once, one
-``nvcc`` process per source, all started together.
+library is named by a hash of its source and the shared ``csrc/*.cuh``
+headers, so a changed source rebuilds and an unchanged one is reused.
+Builds go to ``spark_rapids_tpu_torch/build/`` at first use; ``build()``
+compiles every missing library at once, one ``nvcc`` process per source,
+all started together.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine with no ``nvcc``.
@@ -25,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("compact", "hash_agg")
+SOURCES = ("compact", "hash_agg", "hash_join")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,12 @@ _SIGNATURES = {
         "srt_hash_agg": (_I, [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                               _P]),
         "srt_hash_agg_max_keys": (_I, []),
+        "srt_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "hash_join": {
+        "srt_hash_build": (_I, [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
+        "srt_hash_probe": (_I, [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
+        "srt_hash_join_max_keys": (_I, []),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
 }
@@ -64,6 +71,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # the shared headers too: a changed header rebuilds its includers
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -1,5 +1,5 @@
-"""Row-level batch operations: gather, compaction (filter), concatenation
-(counterpart of the JAX package's ``ops/rowops.py``).
+"""Row-level batch operations: gather, compaction (filter), concatenation,
+slicing (counterpart of the JAX package's ``ops/rowops.py``).
 
 All capacity-static: outputs share the input capacity (or a target one)
 and carry a new 0-d ``num_rows`` device tensor, so none of them waits for
@@ -8,13 +8,25 @@ the host. Compaction runs on the B1 kernel (``kernels.compact_permutation``).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, host_to_device
 from spark_rapids_tpu_torch.ops.kernels import compact_permutation
+
+
+def rank_of_iota(sorted_vals: torch.Tensor, out_len: int) -> torch.Tensor:
+    """``searchsorted(sorted_vals, arange(out_len), side='right')`` as a
+    histogram + cumsum, int32 (out_len,). Values below 0 count toward every
+    position, values above out_len toward none, as searchsorted's clip
+    does for an iota query vector."""
+    hist = torch.zeros(out_len + 1, dtype=torch.int32,
+                       device=sorted_vals.device)
+    idx = sorted_vals.to(torch.int64).clamp(0, out_len)
+    hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return torch.cumsum(hist[:out_len], 0, dtype=torch.int32)
 
 
 def gather_columns(cols: Sequence[DeviceColumn], perm: torch.Tensor,
@@ -134,3 +146,36 @@ def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
             torch.cat(codes) if codes is not None else None, vals))
     cols = gather_columns(flat_cols, src, live)
     return DeviceBatch(schema, cols, total)
+
+
+Count = Union[int, torch.Tensor]
+
+
+def _dev_int(v: Count, dev) -> torch.Tensor:
+    """0-d int32 on ``dev``; a host int is filled on the device (a copy
+    from pageable memory would synchronize the stream)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.int32)
+    return torch.full((), int(v), dtype=torch.int32, device=dev)
+
+
+def slice_batch(batch: DeviceBatch, start: Count, count: Count
+                ) -> DeviceBatch:
+    """Rows [start, start + count) compacted to the front, at the input
+    capacity (the limit's slice)."""
+    return slice_batch_to(batch, start, count, batch.capacity)
+
+
+def slice_batch_to(batch: DeviceBatch, start: Count, count: Count,
+                   out_capacity: int) -> DeviceBatch:
+    """``slice_batch`` gathering into an ``out_capacity``-row batch. ``start``
+    and ``count`` are host ints or 0-d device tensors; the row count stays
+    on the device."""
+    dev = batch.device
+    idx = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    start, count = _dev_int(start, dev), _dev_int(count, dev)
+    perm = (idx + start).clamp(0, batch.capacity - 1)
+    n = torch.minimum(count, (batch.num_rows - start).clamp(min=0))
+    live = idx < n
+    cols = gather_columns(batch.columns, perm, live)
+    return DeviceBatch(batch.schema, cols, n.to(torch.int32))

@@ -1,5 +1,7 @@
 """Predicates and boolean logic (counterpart of the JAX package's
 ``sql/exprs/predicates.py``; comparisons and Kleene AND are ported).
+String ``=`` and ``!=`` go to ``ops/strings.string_equal`` (dictionary
+columns against a literal); the other string comparisons raise.
 
 SQL three-valued logic is computed explicitly on (data, validity) pairs.
 """
@@ -30,13 +32,22 @@ class BinaryComparison(Expression):
         lv = self.children[0].eval_device(ctx)
         rv = self.children[1].eval_device(ctx)
         if lv.dtype.is_string or rv.dtype.is_string:
-            raise NotImplementedError(
-                "string comparisons are not ported yet")
+            return self._eval_device_string(ctx, lv, rv)
         ct = common_type(lv.dtype, rv.dtype) if lv.dtype != rv.dtype \
             else lv.dtype
         data = self.compute(_promote(ctx, lv, ct), _promote(ctx, rv, ct))
         return DevCol(dtypes.BOOL, data.expand(ctx.capacity),
                       valid_and(ctx, lv, rv))
+
+    def _eval_device_string(self, ctx: EvalContext, lv: DevValue,
+                            rv: DevValue) -> DevValue:
+        if not isinstance(self, (Eq, Neq)):
+            raise NotImplementedError(
+                f"string comparison {self.symbol} is not ported yet")
+        from spark_rapids_tpu_torch.ops import strings as string_ops
+        eq, validity = string_ops.string_equal(ctx, lv, rv)
+        return DevCol(dtypes.BOOL, eq if isinstance(self, Eq) else ~eq,
+                      validity)
 
 
 class Eq(BinaryComparison):

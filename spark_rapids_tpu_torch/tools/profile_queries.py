@@ -1,4 +1,4 @@
-"""Where a query's time goes on the card: TPC-H Q1, Q6 and the Q18
+"""Where a query's time goes on the card: TPC-H Q1, Q6, Q3, Q4 and the Q18
 group-by through the port's query runners under ``torch.profiler``.
 
 For each query: upload its columns, run it once to warm up, then profile
@@ -9,8 +9,8 @@ as one JSON line; writes a Chrome trace per query under ``chiprun_out/``.
 
     python3 -m spark_rapids_tpu_torch.tools.profile_queries
 
-Sizes are chip_smoke.py's: Q1 and Q6 at SF10 in 2^23-row batches, the Q18
-group-by at SF1 in 2^22-row batches.
+Sizes are chip_smoke.py's: Q1, Q6, Q3 and Q4 at SF10 in 2^23-row batches,
+the Q18 group-by at SF1 in 2^22-row batches.
 """
 
 from __future__ import annotations
@@ -61,7 +61,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: no CUDA device")
     from spark_rapids_tpu_torch.models import q1_step as Q
-    from spark_rapids_tpu_torch.models.tpch_data import gen_lineitem
+    from spark_rapids_tpu_torch.models import tpch_joins as J
+    from spark_rapids_tpu_torch.models.tpch_data import (
+        gen_customer, gen_lineitem, gen_orders,
+    )
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     results = []
@@ -72,7 +75,16 @@ def main() -> None:
     batches = Q.upload_batches(df, Q.Q6_COLUMNS, 1 << 23)
     results.append(profile("q6", lambda: Q.q6_from_batches(
         batches).to_pandas(), TOP, out_dir))
-    del batches, df
+    del batches
+    frames = {"lineitem": df, "orders": gen_orders(10),
+              "customer": gen_customer(10)}
+    tables = J.upload_q3(frames)
+    results.append(profile("q3", lambda: J.q3_from_batches(
+        tables).to_pandas(), TOP, out_dir))
+    tables = J.upload_q4(frames)
+    results.append(profile("q4", lambda: J.q4_from_batches(
+        tables).to_pandas(), TOP, out_dir))
+    del tables, frames, df
     df = gen_lineitem(1)
     batches = Q.upload_batches(df, Q.Q18_COLUMNS, 1 << 22)
     results.append(profile("q18_groupby", lambda: [

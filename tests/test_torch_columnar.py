@@ -143,9 +143,21 @@ def test_port_imports_no_jax_and_no_reference_package():
     code = (
         "import sys\n"
         "from spark_rapids_tpu_torch.models import q1_step as Q\n"
-        "from spark_rapids_tpu_torch.models.tpch_data import gen_lineitem\n"
-        "out = Q.run_q1(gen_lineitem(0.0005), 1024, device='cpu')\n"
+        "from spark_rapids_tpu_torch.models import tpch_data as G\n"
+        "from spark_rapids_tpu_torch.models import tpch_joins as J\n"
+        "import spark_rapids_tpu_torch.exec.tpujoin\n"
+        "import spark_rapids_tpu_torch.ops.joins\n"
+        "import spark_rapids_tpu_torch.ops.strings\n"
+        "import spark_rapids_tpu_torch.ops.sortops\n"
+        "import spark_rapids_tpu_torch.testing.hashcheck\n"
+        "import spark_rapids_tpu_torch.tools.profile_queries\n"
+        "out = Q.run_q1(G.gen_lineitem(0.0005), 1024, device='cpu')\n"
         "assert len(out) == 6, out\n"
+        "fr = {'lineitem': G.gen_lineitem(0.0005),\n"
+        "      'orders': G.gen_orders(0.0005),\n"
+        "      'customer': G.gen_customer(0.0005)}\n"
+        "assert len(J.run_q3(fr, 1024, device='cpu')) == 10\n"
+        "assert len(J.run_q4(fr, 1024, device='cpu')) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

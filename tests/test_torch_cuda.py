@@ -4,7 +4,9 @@ Every test here carries the ``cuda`` marker and skips where there is no
 CUDA device. The file imports nothing of JAX, so it runs where JAX is not
 installed: ``python3 -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest -q``. Exact equality for permutations, counts and integers;
-float64 sums at rtol 1e-9 (atomics add in another order).
+float64 sums at rtol 1e-9 (atomics add in another order). Hash tables
+compare by key (``testing/hashcheck.py``): the kernels claim slots in
+another order than the plain versions.
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from spark_rapids_tpu_torch.ops import kernels as K
+from spark_rapids_tpu_torch.testing import hashcheck
 
 F64_RTOL = 1e-9
 
@@ -68,3 +71,48 @@ def test_hash_agg_kernel_matches_plain(cuda_device, nkeys):
     for row, (cnt, accs, nels) in want.items():
         assert got[row][0] == cnt and got[row][2] == nels
         np.testing.assert_allclose(got[row][1], accs, rtol=F64_RTOL)
+
+
+def _join_case(case, rng, dev):
+    """(build images, build valid, stream images, stream valid)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nb, ns = 30_000, 40_000
+    if case == "empty":
+        nb = ns = 0
+    elif case == "skewed":  # one key: every hit expands to ~nb rows
+        ns = 64
+    k = {"k2": 2, "k3": 3}.get(case, 1)
+    hi = {"skewed": 1, "k2": 40, "k3": 12}.get(case, 20_000)
+    bimg = [t(rng.integers(0, hi, nb)) for _ in range(k)]
+    simg = [t(rng.integers(0, hi + hi // 4 + 1, ns)) for _ in range(k)]
+    bv = t(rng.random(nb) < (0.0 if case == "all_invalid" else 0.9))
+    sv = t(rng.random(ns) < 0.95)
+    return bimg, bv, simg, sv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "skewed", "k2", "k3",
+                                  "all_invalid", "empty"])
+def test_hash_join_kernels_match_plain(cuda_device, case):
+    rng = np.random.default_rng(7)
+    bimg, bv, simg, sv = _join_case(case, rng, cuda_device)
+    T = K.hash_table_size(bv.shape[0])
+    slot, rank, table, counts = K.hash_table_build(bimg, bv, T)
+    slot_p, _r, table_p, counts_p = K.hash_table_build_plain(bimg, bv, T)
+    assert rank is None
+    hashcheck.check_build(bimg, bv, slot, table, counts)
+    assert torch.equal(hashcheck.table_by_key(table, counts),
+                       hashcheck.table_by_key(table_p, counts_p))
+    got = K.hash_table_probe(table, counts, simg, sv, T)
+    want = K.hash_table_probe_plain(table_p, counts_p, simg, sv, T)
+    hit = got < T
+    assert torch.equal(hit, want < T)
+    for j, img in enumerate(simg):
+        assert torch.equal(table[j][got[hit].long()], img[hit])
+    assert torch.equal(counts[got[hit].long()], counts_p[want[hit].long()])
+    c, rows = hashcheck.join_matches(*K.hash_join_probe(bimg, bv, simg, sv,
+                                                        T))
+    c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
+        bimg, bv, simg, sv, T))
+    assert torch.equal(c, c_p) and torch.equal(rows, rows_p)
