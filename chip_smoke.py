@@ -2,15 +2,27 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout (B1
-compaction, B2 hash aggregation, B3/B4 hash join build and probe), holds
+compaction, B2 hash aggregation, B3/B4 hash join build and probe, B5-B8 the
+Parquet decode: hybrid expand, delta unpack, plain fixed, slab pack), holds
 each kernel against its plain PyTorch version on the card, then drives the
-port's main path through its query runners: TPC-H Q1, Q6, Q3 and Q4 at SF10
-and the Q18 group-by (``group by l_orderkey, sum(l_quantity) having sum >
-300``) at SF1, each answer checked against pandas on the host from the same
-generated rows. Each query also runs up to its collect under PyTorch's sync
-debug mode "error", where the only host waits allowed are the counted ones
+port's main path through its query runners:
+
+  * the pandas upload path: TPC-H Q1, Q6, Q3 and Q4 at SF10 and the Q18
+    group-by (``group by l_orderkey, sum(l_quantity) having sum > 300``) at
+    SF1, each answer checked against pandas on the host from the same
+    generated rows;
+  * the device Parquet scan: the same rows written as Parquet files with
+    ``models/tpch_data.PARQUET_SPEC`` into the ignored
+    ``spark_rapids_tpu_torch/build/tpch_parquet/``, then Q1, Q6, Q3 and Q4
+    at SF10, the Q18 group-by at SF1 and a customer filter-and-collect at
+    SF10 (every column, strings included) read from those files, with zero
+    columns falling back to the host decode, checked against the same
+    pandas references.
+
+Each query also runs up to its collect under PyTorch's sync debug mode
+"error", where the only host waits allowed are the counted ones
 (``obs/syncledger.sync_scope``): Q3 must count one per join (2), every other
-query none.
+query none, and a Parquet scan one per row group (its upload).
 
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
@@ -333,6 +345,290 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the decode kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _to_dev(a: np.ndarray) -> torch.Tensor:
+    """A host array on the card; u32/u64 words as int32/int64 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a).cuda()
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype and bytes (floats compared bit for bit)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def column_plan(path: str, column: str, rg: int = 0) -> dict:
+    """The port's decode plan of one column chunk, its arrays on the card
+    (a DELTA plan's as the merged chunk table ``delta_unpack`` takes)."""
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    from spark_rapids_tpu_torch.sql.sources import ParquetSource
+    md = praw.file_metadata(path)
+    names = [md.schema.column(i).name for i in range(md.num_columns)]
+    chunk = praw.read_column_chunk(path, rg, names.index(column))
+    plan = PD.plan_column(chunk, ParquetSource(path).schema.dtype_of(column),
+                          md.schema.to_arrow_schema().field(column).type,
+                          upload_blocked_chars())
+    host = PD._device_upload(plan)
+    plan["host"] = host
+    plan["dev"] = {k: _to_dev(v) for k, v in host.items()}
+    return plan
+
+
+def _hybrid_args(up: dict, prefix: str) -> list:
+    return [up[f"{prefix}_{k}"] for k in ("words", "out_start", "kind",
+                                          "value", "bit_start", "bw")]
+
+
+def _run_table(rng, nruns: int, bws, kinds, nwords: int) -> tuple:
+    """A synthetic hybrid run table with its guard row (run lengths 1..600,
+    bit-packed runs at random bit offsets) and its value count."""
+    counts = rng.integers(1, 600, nruns)
+    out_start = np.concatenate([[0], np.cumsum(counts),
+                                [np.iinfo(np.int32).max]]).astype(np.int32)
+    kind = np.append(rng.choice(kinds, nruns), 0).astype(np.uint8)
+    value = np.append(rng.integers(-3, 1 << 20, nruns), 0).astype(np.int32)
+    bw = np.append(rng.choice(bws, nruns), 0).astype(np.int32)
+    bit_start = np.append(rng.integers(0, (nwords - 2) * 32 - 600 * 32,
+                                       nruns), 0).astype(np.int64)
+    return (out_start, kind, value, bit_start, bw), int(counts.sum())
+
+
+def _delta_table(rng, totals, bws, nwords: int) -> tuple:
+    """A synthetic merged DELTA chunk table (32-delta miniblocks at random
+    bit offsets, min deltas of both signs) and its value count."""
+    mstart, bw, mind, bits, first = [], [], [], [], []
+    page_start = [0]
+    for t in totals:
+        base = page_start[-1]
+        for s in range(0, max(t - 1, 0), 32):
+            mstart.append(base + 1 + s)
+            bw.append(rng.choice(bws))
+            mind.append(rng.integers(-(1 << 40), 1 << 40))
+            bits.append(rng.integers(0, (nwords - 2) * 32 - 32 * 32))
+        first.append(rng.integers(-(1 << 62), 1 << 62))
+        page_start.append(base + t)
+    mstart.append(np.iinfo(np.int32).max)
+    bw.append(0)
+    mind.append(0)
+    bits.append(0)
+    return ((np.asarray(mstart, np.int32), np.asarray(bw, np.int32),
+             np.asarray(mind, np.int64), np.asarray(bits, np.int64),
+             np.asarray(page_start, np.int32), np.asarray(first, np.int64)),
+            int(sum(totals)))
+
+
+def _delta_args(up: dict) -> list:
+    return [up[k] for k in ("dl_words", "dc_mstart", "dc_bw", "dc_min_delta",
+                            "dc_bit_start", "dc_page_start", "dc_first")]
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def write_edge_files(out_dir: str) -> dict:
+    """Small Parquet files of the decode's edge cases: an INT32 DELTA
+    column whose deltas wrap in 32 bits, an INT64 one with negative deltas,
+    and PLAIN strings with empty values and nulls."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(5)
+    n = 50_003
+    wrap = np.where(np.arange(n) % 2 == 0, np.iinfo(np.int32).max,
+                    np.iinfo(np.int32).min).astype(np.int32)
+    wrap[::7] = rng.integers(-(1 << 31), 1 << 31, len(wrap[::7]))
+    down = (10 ** 12 - np.cumsum(rng.integers(0, 1000, n))).astype(np.int64)
+    strs = np.array(["", "a", "bb", "x" * 31, "yz" * 16, None],
+                    dtype=object)[rng.integers(0, 6, n)]
+    paths = {"delta": os.path.join(out_dir, "delta.parquet"),
+             "strings": os.path.join(out_dir, "strings.parquet")}
+    pq.write_table(pa.table({"wrap": wrap, "down": down}), paths["delta"],
+                   use_dictionary=False, data_page_version="1.0",
+                   column_encoding={"wrap": "DELTA_BINARY_PACKED",
+                                    "down": "DELTA_BINARY_PACKED"})
+    pq.write_table(pa.table({"s": pa.array(strs, pa.string())}),
+                   paths["strings"], use_dictionary=False,
+                   data_page_version="1.0")
+    return paths
+
+
+def check_decode(paths: dict, edge: dict, cap: int) -> list:
+    """B5-B8 against their plain versions, exactly, on real plans of the
+    SF files (l_returnflag codes, l_shipdate codes and definition levels,
+    l_orderkey DELTA pages, l_extendedprice PLAIN values, the l_shipdate
+    dictionary page, c_name byte arrays) and on edge cases (bit widths 0,
+    1, 17 and 32, all-RLE and all-bit-packed streams, n not a multiple of
+    8, negative min deltas, 32-bit wrap, empty strings and nulls); then
+    each kernel's time at its row-group shape (``cap`` outputs)."""
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(20261016)
+    checked = {"hybrid_expand": 0, "delta_unpack": 0, "plain_fixed": 0,
+               "slab_pack": 0}
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        require(_bits_equal(got, want), f"{name} differs from plain: {what}")
+        checked[name] += 1
+
+    # B5: real plans, then synthetic run tables
+    flag = column_plan(paths["lineitem"], "l_returnflag")
+    ship = column_plan(paths["lineitem"], "l_shipdate")
+    for plan, prefix, n in ((flag, "cd", bucket_capacity(flag["meta"]["nn"])),
+                            (ship, "cd", bucket_capacity(ship["meta"]["nn"])),
+                            (ship, "lv", bucket_capacity(ship["meta"]["n"]))):
+        args = _hybrid_args(plan["dev"], prefix)
+        hold("hybrid_expand", K.hybrid_expand(*args, n),
+             K.hybrid_expand_plain(*args, n), f"real {prefix} n={n}")
+    nwords = 40_000
+    words = _to_dev(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
+                    .astype(np.uint32))
+    for bws, kinds in (([0], [1]), ([1], [1]), ([17], [1]), ([32], [1]),
+                       ([0, 1, 17, 32], [0]), ([3, 17, 32], [0, 1])):
+        table, total = _run_table(rng, 800, bws, kinds, nwords)
+        args = [words] + [_to_dev(a) for a in table]
+        for n in (total, total + 1, 12_345, 1 << 20):
+            hold("hybrid_expand", K.hybrid_expand(*args, n),
+                 K.hybrid_expand_plain(*args, n), f"bw {bws} kinds {kinds}"
+                 f" n={n}")
+
+    # B6: the l_orderkey chunk, the edge file, synthetic tables
+    okey = column_plan(paths["lineitem"], "l_orderkey")
+    args = _delta_args(okey["dev"])
+    n_ok = okey["meta"]["nn"]
+    got = K.delta_unpack(*args, n_ok)
+    hold("delta_unpack", got, K.delta_unpack_plain(*args, n_ok), "l_orderkey")
+    want = pq.ParquetFile(paths["lineitem"]).read_row_group(
+        0, columns=["l_orderkey"]).column(0).to_numpy()
+    require(np.array_equal(got.cpu().numpy(), want),
+            "l_orderkey decode differs from pyarrow")
+    for col in ("wrap", "down"):
+        plan = column_plan(edge["delta"], col)
+        a = _delta_args(plan["dev"])
+        n = plan["meta"]["nn"]
+        got = K.delta_unpack(*a, n)
+        hold("delta_unpack", got, K.delta_unpack_plain(*a, n), col)
+        want = pq.read_table(edge["delta"], columns=[col]).column(0)
+        got = got.to(torch.int32) if col == "wrap" else got
+        require(np.array_equal(got.cpu().numpy(), want.to_numpy()),
+                f"{col} decode differs from pyarrow")
+    for totals in ([100_000], [20_000] * 13 + [777],
+                   [1, 2, 0, 33, 1, 2048, 2049, 4095, 1, 5]):
+        table, n = _delta_table(rng, totals, [0, 1, 17, 27, 32], 200_000)
+        a = [_to_dev(rng.integers(0, 1 << 32, 200_000, dtype=np.uint64)
+                     .astype(np.uint32))] + [_to_dev(x) for x in table]
+        hold("delta_unpack", K.delta_unpack(*a, n),
+             K.delta_unpack_plain(*a, n), f"pages {len(totals)}")
+
+    # B7: l_extendedprice values, the l_shipdate dictionary page, all kinds
+    price = column_plan(paths["lineitem"], "l_extendedprice")
+    n_pr = bucket_capacity(price["meta"]["nn"])
+    vals = price["dev"]["vals"]
+    hold("plain_fixed", K.plain_fixed(vals, "f64", n_pr),
+         K.plain_fixed_plain(vals, "f64", n_pr), "l_extendedprice")
+    dv = ship["dev"]["dv_words"]
+    hold("plain_fixed", K.plain_fixed(dv, "i64", ship["meta"]["card"]),
+         K.plain_fixed_plain(dv, "i64", ship["meta"]["card"]),
+         "l_shipdate dictionary")
+    for kind in ("i32", "f32", "i64", "f64", "bool"):
+        for n in (1, 8191, nwords, 1 << 20):
+            hold("plain_fixed", K.plain_fixed(words, kind, n),
+                 K.plain_fixed_plain(words, kind, n), f"{kind} n={n}")
+
+    # B8: c_name byte arrays, the edge file's empty strings and nulls
+    name = column_plan(paths["customer"], "c_name")
+    edge_s = column_plan(edge["strings"], "s")
+    for plan, what in ((name, "c_name"), (edge_s, "empty strings")):
+        up = plan["dev"]
+        a = [up["chars"], up["st"], up["ln"], up["st"].shape[0],
+             plan["meta"]["stride"]]
+        hold("slab_pack", K.slab_pack(*a), K.slab_pack_plain(*a), what)
+
+    # times at the row-group shapes, and at 8 outputs: the floor a launch
+    # through the wrapper costs whatever the work
+    tiny_tbl, _n = _delta_table(rng, [8], [27], 64)
+    tiny_delta = [words[:64]] + [_to_dev(x) for x in tiny_tbl]
+    tiny_chars = _to_dev(np.zeros(64, np.uint8))
+    tiny_rows = _to_dev(np.zeros(8, np.int64))
+    tiny_lens = _to_dev(np.zeros(8, np.int32))
+    floors = {
+        "hybrid_expand": time_ms(lambda: K.hybrid_expand(
+            *_hybrid_args(ship["dev"], "cd"), 8), 200),
+        "delta_unpack": time_ms(lambda: K.delta_unpack(*tiny_delta, 8), 200),
+        "plain_fixed": time_ms(lambda: K.plain_fixed(vals, "f64", 8), 200),
+        "slab_pack": time_ms(lambda: K.slab_pack(
+            tiny_chars, tiny_rows, tiny_lens, 8, 8), 200)}
+    out = []
+    common = {"route": "cuda",
+              "source": "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+              "max_abs_err": 0.0, "bound_by": "bytes"}
+    args = _hybrid_args(ship["dev"], "cd")
+    n = cap
+    out.append(dict(
+        common, name="hybrid_expand",
+        replaces="spark_rapids_tpu/ops/pallas_kernels.py:929",
+        ms=time_ms(lambda: K.hybrid_expand(*args, n), 50),
+        plain_ms=time_ms(lambda: K.hybrid_expand_plain(*args, n), 5),
+        # the packed words and the run table read once, n int32 written
+        bound_ms=bound_ms(_nbytes(args) + 4 * n), library_ms=None,
+        timed="l_shipdate codes, row group 0", timed_rows=n,
+        timed_runs=int(args[2].shape[0]), checks=checked["hybrid_expand"]))
+    args = _delta_args(okey["dev"])
+    out.append(dict(
+        common, name="delta_unpack",
+        replaces="spark_rapids_tpu/ops/pallas_kernels.py:999",
+        ms=time_ms(lambda: K.delta_unpack(*args, n_ok), 50),
+        plain_ms=time_ms(lambda: K.delta_unpack_plain(*args, n_ok), 5),
+        # the packed words, miniblock and page tables read once, n int64
+        # written
+        bound_ms=bound_ms(_nbytes(args) + 8 * n_ok), library_ms=None,
+        timed="l_orderkey, row group 0", timed_rows=n_ok,
+        timed_pages=int(args[6].shape[0]),
+        timed_miniblocks=int(args[1].shape[0]) - 1,
+        checks=checked["delta_unpack"]))
+    out.append(dict(
+        common, name="plain_fixed",
+        replaces="spark_rapids_tpu/ops/pallas_kernels.py:1075",
+        ms=time_ms(lambda: K.plain_fixed(vals, "f64", n_pr), 50),
+        plain_ms=time_ms(lambda: K.plain_fixed_plain(vals, "f64", n_pr), 5),
+        # the values' words read once, n float64 written
+        bound_ms=bound_ms(16 * min(n_pr, vals.shape[0] // 2)),
+        library_ms=time_ms(
+            lambda: vals.view(torch.float64)[:n_pr].clone(), 50),
+        timed="l_extendedprice, row group 0", timed_rows=n_pr,
+        checks=checked["plain_fixed"]))
+    up = name["dev"]
+    a = [up["chars"], up["st"], up["ln"], up["st"].shape[0],
+         name["meta"]["stride"]]
+    live_chars = int(name["host"]["ln"].astype(np.int64).sum())
+    out.append(dict(
+        common, name="slab_pack",
+        replaces="spark_rapids_tpu/ops/pallas_kernels.py:1140",
+        ms=time_ms(lambda: K.slab_pack(*a), 50),
+        plain_ms=time_ms(lambda: K.slab_pack_plain(*a), 5),
+        # the rows' chars, starts and lens read once, cap x stride written
+        bound_ms=bound_ms(live_chars + 12 * a[3] + a[3] * a[4]),
+        library_ms=None, timed="c_name, row group 0", timed_rows=a[3],
+        timed_stride=a[4], checks=checked["slab_pack"]))
+    for k in out:
+        k["floor_ms"] = floors[k["name"]]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 3-5: the main path
 # ---------------------------------------------------------------------------
 
@@ -476,6 +772,98 @@ def query_record(sf, rows: int, nbatches: int, upload_s: float, walls,
             "launches": launches}
 
 
+def check_encodings(paths: dict) -> dict:
+    """Each column's encodings in the footer of row group 0, required to be
+    those of ``tpch_data.PARQUET_SPEC``: dictionary columns RLE_DICTIONARY,
+    DELTA columns DELTA_BINARY_PACKED, PLAIN columns neither."""
+    from spark_rapids_tpu_torch.models.tpch_data import PARQUET_SPEC
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    dict_encs = {"RLE_DICTIONARY", "PLAIN_DICTIONARY"}
+    out = {}
+    for table, path in paths.items():
+        rg = praw.file_metadata(path).row_group(0)
+        encs = {rg.column(i).path_in_schema: set(rg.column(i).encodings)
+                for i in range(rg.num_columns)}
+        spec = PARQUET_SPEC[table]
+        for c in spec["dictionary"]:
+            require(bool(encs[c] & dict_encs), f"{c}: {encs[c]}")
+        for c in spec["delta"]:
+            require("DELTA_BINARY_PACKED" in encs[c]
+                    and not encs[c] & dict_encs, f"{c}: {encs[c]}")
+        for c in spec["plain"]:
+            require("PLAIN" in encs[c] and not encs[c] & dict_encs
+                    and "DELTA_BINARY_PACKED" not in encs[c],
+                    f"{c}: {encs[c]}")
+        out[table] = {c: sorted(e) for c, e in encs.items()}
+        log(f"encodings {table}: " + ", ".join(
+            f"{c} {'/'.join(sorted(e))}" for c, e in encs.items()))
+    return out
+
+
+def _batch_bytes(tables) -> int:
+    """Device bytes of decoded batches (data, validity, codes, slabs)."""
+    total = 0
+    for b in tables:
+        for c in b.columns:
+            for t in (c.data, c.validity, c.dict_codes, c.slab64, c.lens):
+                if t is not None:
+                    total += t.numel() * t.element_size()
+    return total
+
+
+def run_parquet_query(name: str, scan, query, runs: int,
+                      row_groups: int, own_syncs: int) -> dict:
+    """``query(scan())`` once to warm up, then ``runs`` times: the launch
+    counts zeroed before each run and read after, the scan's seconds (files
+    to device batches, synchronized) and the wall of scan + query (to the
+    collect). Then the scan and the query up to its collect under the sync
+    debug mode "error": one counted sync per row group (its upload) plus
+    the query's own. Returns the record and the last result."""
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY, delta
+    from spark_rapids_tpu_torch.ops import kernels as K
+    walls, scans, launches, stats = [], [], None, None
+    for i in range(runs + 1):
+        K.reset_launches()
+        before = REGISTRY.values()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = scan()
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+        out = query(tables, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if launches is not None:
+            require(dict(K.LAUNCHES) == launches,
+                    f"{name}: launch counts differ between runs")
+        launches = dict(K.LAUNCHES)
+        stats = delta(before, REGISTRY.values())
+        require(stats.get("scan.device.fallbackColumns", 0) == 0,
+                f"{name}: columns fell back to the host decode")
+        require(stats.get("scan.device.splits", 0) == row_groups,
+                f"{name}: {stats.get('scan.device.splits')} row groups "
+                f"decoded, expected {row_groups}")
+        decoded = sum(_batch_bytes(t) for t in (
+            tables.values() if isinstance(tables, dict) else [tables]))
+        del tables
+        if i:
+            walls.append(wall)
+            scans.append(t_scan)
+    require_syncs(name, lambda: query(scan(), False),
+                  row_groups + own_syncs)
+    require(launches["hybrid_expand"] > 0, f"{name}: the scan ran no B5")
+    med = float(np.median(walls))
+    log(f"{name}: scan+query median {med:.4f} s of {walls}, scan "
+        f"{np.median(scans):.4f} s of {scans}, launches {launches}")
+    return out, {"wall_s": med, "wall_runs_s": walls,
+                 "scan_s": float(np.median(scans)), "scan_runs_s": scans,
+                 "plan_s": stats.get("scan.device.prepTime", 0.0),
+                 "encoded_bytes": stats.get("scan.device.bytesDevice", 0),
+                 "decoded_bytes": decoded, "row_groups": row_groups,
+                 "counted_syncs": row_groups + own_syncs,
+                 "launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -485,17 +873,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import pyarrow
     from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.models import tpch_joins as J
-    from spark_rapids_tpu_torch.models.tpch_data import (
-        gen_customer, gen_lineitem, gen_orders,
-    )
+    from spark_rapids_tpu_torch.models import tpch_scan as S
     from spark_rapids_tpu_torch.ops import cudalib
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
 
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]} pyarrow {pyarrow.__version__}")
     if args.quick:
         b1_rows, b2_rows, b2_keys, q18_part = (1 << 20, 1 << 18, 160_000,
                                                1 << 18)
@@ -512,7 +901,9 @@ def main() -> int:
         b34_rows, b34_cap, b34_live, b34_probe = (1 << 20, 1 << 26,
                                                   60_000_000, 1 << 23)
         sf_q1, q1_batch, sf_q18, q18_batch = 10, 1 << 23, 1, 1 << 22
-    report = {"card": card, "quick": args.quick}
+    report = {"card": card, "quick": args.quick,
+              "pyarrow": pyarrow.__version__}
+    pq_dir = os.path.join("spark_rapids_tpu_torch", "build", "tpch_parquet")
 
     t0 = time.perf_counter()
     secs = cudalib.build()
@@ -535,11 +926,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     queries = {}
-    launches_total = {k["name"]: 0 for k in kernels}
     runs = 1 if args.quick else 5
+    pq_runs = 1 if args.quick else 3
 
     t0 = time.perf_counter()
-    df = gen_lineitem(sf_q1)
+    df = G.gen_lineitem(sf_q1)
     report["gen_q1_s"] = time.perf_counter() - t0
     log(f"lineitem SF{sf_q1}: {len(df)} rows, {report['gen_q1_s']:.1f} s")
 
@@ -549,7 +940,8 @@ def main() -> int:
     up = time.perf_counter() - t0
     out, walls, launches = run_query(
         "Q1", lambda: Q.q1_from_batches(batches).to_pandas(), runs)
-    err = check_q1(out, q1_reference(df))
+    q1_want = q1_reference(df)
+    err = check_q1(out, q1_want)
     require_syncs("Q1", lambda: Q.q1_from_batches(batches), 0)
     require(launches["compact_permutation"] > 0, "Q1 ran no compaction")
     queries["q1"] = query_record(sf_q1, len(df), len(batches), up, walls,
@@ -567,8 +959,8 @@ def main() -> int:
          & (sd < np.datetime64("1995-01-01"))
          & (df.l_discount >= 0.05) & (df.l_discount <= 0.07)
          & (df.l_quantity < 24.0))
-    want = float((df.l_extendedprice[m] * df.l_discount[m]).sum())
-    err = _rel_err([out.revenue[0]], [want])
+    q6_want = float((df.l_extendedprice[m] * df.l_discount[m]).sum())
+    err = _rel_err([out.revenue[0]], [q6_want])
     require(len(out) == 1 and err <= F64_RTOL, f"Q6 revenue differs: {err}")
     require_syncs("Q6", lambda: Q.q6_from_batches(batches), 0)
     require(launches["compact_permutation"] > 0, "Q6 ran no compaction")
@@ -579,8 +971,8 @@ def main() -> int:
 
     # Q3 and Q4 reuse the lineitem frame of Q1/Q6
     t0 = time.perf_counter()
-    frames = {"lineitem": df, "orders": gen_orders(sf_q1),
-              "customer": gen_customer(sf_q1)}
+    frames = {"lineitem": df, "orders": G.gen_orders(sf_q1),
+              "customer": G.gen_customer(sf_q1)}
     report["gen_q3_s"] = time.perf_counter() - t0
     log(f"orders, customer SF{sf_q1}: {len(frames['orders'])}, "
         f"{len(frames['customer'])} rows, {report['gen_q3_s']:.1f} s")
@@ -591,8 +983,8 @@ def main() -> int:
     up = time.perf_counter() - t0
     out, walls, launches = run_query(
         "Q3", lambda: J.q3_from_batches(tables).to_pandas(), runs)
-    err = check_q3(out, q3_reference(df, frames["orders"],
-                                     frames["customer"]))
+    q3_want = q3_reference(df, frames["orders"], frames["customer"])
+    err = check_q3(out, q3_want)
     require_syncs("Q3", lambda: J.q3_from_batches(tables), 2)
     require(launches["hash_table_build"] > 0
             and launches["hash_table_probe"] > 0
@@ -612,10 +1004,10 @@ def main() -> int:
     up = time.perf_counter() - t0
     out, walls, launches = run_query(
         "Q4", lambda: J.q4_from_batches(tables).to_pandas(), runs)
-    want = q4_reference(df, frames["orders"])
-    require(list(out.o_orderpriority) == list(want.o_orderpriority)
-            and list(out.order_count) == list(want.order_count),
-            f"Q4 differs from pandas: {out} vs {want}")
+    q4_want = q4_reference(df, frames["orders"])
+    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
+            and list(out.order_count) == list(q4_want.order_count),
+            f"Q4 differs from pandas: {out} vs {q4_want}")
     require_syncs("Q4", lambda: J.q4_from_batches(tables), 0)
     require(launches["hash_table_build"] > 0
             and launches["hash_table_probe"] > 0,
@@ -624,10 +1016,89 @@ def main() -> int:
                                                          tables.values())),
                                  up, walls, 0.0, launches)
     queries["q4"]["order_count"] = int(out.order_count.sum())
-    del tables, frames, df
+    del tables
     torch.cuda.empty_cache()
 
-    df = gen_lineitem(sf_q18)
+    # the device Parquet scan: the same rows as Parquet files
+    t0 = time.perf_counter()
+    paths = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q1}"), sf_q1,
+                            frames=frames)
+    edge = write_edge_files(os.path.join(pq_dir, "edge"))
+    report["write_parquet_s"] = time.perf_counter() - t0
+    log(f"parquet SF{sf_q1}: {report['write_parquet_s']:.1f} s, "
+        + ", ".join(f"{t} {os.path.getsize(p) / 1e6:.1f} MB "
+                    f"{praw.file_metadata(p).num_row_groups} row groups"
+                    for t, p in paths.items()))
+    report["encodings"] = check_encodings(paths)
+    kernels += check_decode(paths, edge, G.ROW_GROUP_ROWS)
+    for k in kernels[-4:]:
+        log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
+            f" bound {k['bound_ms']:.4f} floor {k['floor_ms']:.4f} checks "
+            f"{k['checks']}")
+    torch.cuda.empty_cache()
+    rgs = {t: praw.file_metadata(p).num_row_groups for t, p in paths.items()}
+
+    def collect(batch, full):
+        return batch.to_pandas() if full else batch
+
+    out, rec = run_parquet_query(
+        "Q1 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q1_COLUMNS),
+        lambda t, full: collect(Q.q1_from_batches(t), full), pq_runs,
+        rgs["lineitem"], 0)
+    rec.update(sf=sf_q1, rows=len(df), max_rel_err=check_q1(out, q1_want))
+    queries["q1_parquet"] = rec
+
+    out, rec = run_parquet_query(
+        "Q6 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q6_COLUMNS),
+        lambda t, full: collect(Q.q6_from_batches(t), full), pq_runs,
+        rgs["lineitem"], 0)
+    err = _rel_err([out.revenue[0]], [q6_want])
+    require(len(out) == 1 and err <= F64_RTOL, f"Q6 parquet differs: {err}")
+    rec.update(sf=sf_q1, rows=len(df), max_rel_err=err)
+    queries["q6_parquet"] = rec
+    torch.cuda.empty_cache()
+
+    out, rec = run_parquet_query(
+        "Q3 parquet", lambda: S.scan_tables(paths, J.Q3_COLUMNS),
+        lambda t, full: collect(J.q3_from_batches(t), full), pq_runs,
+        sum(rgs.values()), 2)
+    rec.update(sf=sf_q1, rows=q3_rows, max_rel_err=check_q3(out, q3_want))
+    require(rec["launches"]["hash_table_build"] > 0,
+            "Q3 parquet ran no join")
+    queries["q3_parquet"] = rec
+    torch.cuda.empty_cache()
+
+    out, rec = run_parquet_query(
+        "Q4 parquet", lambda: S.scan_tables(paths, J.Q4_COLUMNS),
+        lambda t, full: collect(J.q4_from_batches(t), full), pq_runs,
+        rgs["lineitem"] + rgs["orders"], 0)
+    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
+            and list(out.order_count) == list(q4_want.order_count),
+            f"Q4 parquet differs from pandas: {out} vs {q4_want}")
+    rec.update(sf=sf_q1, rows=q4_rows, max_rel_err=0.0)
+    queries["q4_parquet"] = rec
+    torch.cuda.empty_cache()
+
+    cust = frames["customer"]
+    out, rec = run_parquet_query(
+        "customer collect parquet",
+        lambda: S.scan_table(paths["customer"]),
+        lambda t, full: collect(S.customer_segment_batches(t), full),
+        pq_runs, rgs["customer"], 0)
+    want = cust[cust.c_mktsegment == "BUILDING"].reset_index(drop=True)
+    require(list(out.columns) == list(want.columns)
+            and len(out) == len(want), "customer collect: shape differs")
+    for c in want.columns:
+        require(list(out[c]) == list(want[c]),
+                f"customer collect: {c} differs from pandas")
+    require(rec["launches"]["slab_pack"] > 0, "customer scan ran no B8")
+    rec.update(sf=sf_q1, rows=len(cust), max_rel_err=0.0,
+               rows_out=len(out))
+    queries["customer_parquet"] = rec
+    del frames, df, cust
+    torch.cuda.empty_cache()
+
+    df = G.gen_lineitem(sf_q18)
     t0 = time.perf_counter()
     batches = Q.upload_batches(df, Q.Q18_COLUMNS, q18_batch)
     torch.cuda.synchronize()
@@ -638,30 +1109,59 @@ def main() -> int:
         return grouped.to_pandas(), having.to_pandas()
     (grouped, having), walls, launches = run_query("Q18 group-by", q18,
                                                    runs)
-    want = df.groupby("l_orderkey").l_quantity.sum()
-    got = grouped.sort_values("l_orderkey")
-    require(np.array_equal(got.l_orderkey.to_numpy(),
-                           want.index.to_numpy()), "Q18 group keys differ")
-    err = _rel_err(got.sum_qty, want.to_numpy())
-    require(err <= F64_RTOL, f"Q18 sums differ: rel {err}")
-    want_h = want[want > 300]
-    got_h = having.sort_values("l_orderkey")
-    require(np.array_equal(got_h.l_orderkey.to_numpy(),
-                           want_h.index.to_numpy())
-            and np.allclose(got_h.sum_qty, want_h.to_numpy(),
-                            rtol=F64_RTOL, atol=0), "Q18 having differs")
+    q18_want = df.groupby("l_orderkey").l_quantity.sum()
+
+    def check_q18(grouped, having) -> float:
+        got = grouped.sort_values("l_orderkey")
+        require(np.array_equal(got.l_orderkey.to_numpy(),
+                               q18_want.index.to_numpy()),
+                "Q18 group keys differ")
+        err = _rel_err(got.sum_qty, q18_want.to_numpy())
+        require(err <= F64_RTOL, f"Q18 sums differ: rel {err}")
+        want_h = q18_want[q18_want > 300]
+        got_h = having.sort_values("l_orderkey")
+        require(np.array_equal(got_h.l_orderkey.to_numpy(),
+                               want_h.index.to_numpy())
+                and np.allclose(got_h.sum_qty, want_h.to_numpy(),
+                                rtol=F64_RTOL, atol=0), "Q18 having differs")
+        return err
+    err = check_q18(grouped, having)
     require_syncs("Q18", lambda: Q.q18_agg_from_batches(batches), 0)
     require(launches["hash_grouped_aggregate"] > 0
             and launches["compact_permutation"] > 0,
             "Q18 did not run both kernels")
     queries["q18_groupby"] = query_record(sf_q18, len(df), len(batches), up,
                                           walls, err, launches)
-    queries["q18_groupby"].update(groups=len(got), having_rows=len(got_h))
-    del batches, df
+    queries["q18_groupby"].update(groups=len(grouped), having_rows=len(having))
+    del batches
 
-    for q in queries.values():
+    path18 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
+                             tables=["lineitem"],
+                             frames={"lineitem": df})["lineitem"]
+
+    def q18_query(t, full):
+        grouped, having = Q.q18_agg_from_batches(t)
+        return (grouped.to_pandas(), having.to_pandas()) if full else having
+    (grouped, having), rec = run_parquet_query(
+        "Q18 group-by parquet",
+        lambda: S.scan_table(path18, Q.Q18_COLUMNS), q18_query, pq_runs,
+        praw.file_metadata(path18).num_row_groups, 0)
+    rec.update(sf=sf_q18, rows=len(df), max_rel_err=check_q18(grouped,
+                                                              having))
+    queries["q18_groupby_parquet"] = rec
+    del df
+
+    launches_total = {k["name"]: 0 for k in kernels}
+    parquet_launches = dict(launches_total)
+    for qname, q in queries.items():
         for name, n in q["launches"].items():
             launches_total[name] += n
+            if qname.endswith("_parquet"):
+                parquet_launches[name] += n
+    for name in ("hybrid_expand", "delta_unpack", "plain_fixed",
+                 "slab_pack"):
+        require(parquet_launches[name] > 0,
+                f"{name} never ran on the Parquet path")
     for k in kernels:
         k["launches"] = launches_total[k["name"]]
         k["max_err"] = k["max_abs_err"]
@@ -673,8 +1173,12 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     for name, q in queries.items():
+        extra = (f"upload {q['upload_s']:.1f} s" if "upload_s" in q else
+                 f"scan {q['scan_s']:.3f} s, {q['row_groups']} row groups, "
+                 f"{q['encoded_bytes'] / 1e6:.1f} MB encoded -> "
+                 f"{q['decoded_bytes'] / 1e6:.1f} MB decoded")
         log(f"{name}: SF{q['sf']} {q['rows']} rows, {q['wall_s']:.4f} s, "
-            f"{q['rows_per_s']:.4g} rows/s, upload {q['upload_s']:.1f} s")
+            f"{q['rows'] / q['wall_s']:.4g} rows/s, {extra}")
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{f: k[f] for f in keep}

@@ -153,9 +153,8 @@ class DeviceBatch:
         """Device -> host (the collect): the row count, then every column's
         leading rows."""
         n = self.num_rows_host()
-        nbytes = sum(c.validity[:n].numel() * (
-            4 if c.dtype.is_string else c.dtype.itemsize)
-            for c in self.columns)
+        nbytes = sum(c.validity[:n].numel() * _row_bytes(c)
+                     for c in self.columns)
         with sync_scope("batch.fetch", nbytes=nbytes):
             series: List[pd.Series] = []
             for dt, col in zip(self.schema.dtypes, self.columns):
@@ -167,6 +166,14 @@ class DeviceBatch:
         df = pd.concat(series, axis=1)
         df.columns = list(self.schema.names)
         return df
+
+
+def _row_bytes(col: DeviceColumn) -> int:
+    """Device bytes a collect fetches per row of ``col`` (besides its
+    validity byte): the slab row and its length, a code, or the value."""
+    if col.has_slab:
+        return col.char_stride + 4
+    return 4 if col.dtype.is_string else col.dtype.itemsize
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,19 @@ dictionary-encoded columns ``dict_codes`` int32 (capacity,) against
 (code == len(dict_values) is the NULL/padding sentinel). Capacity is static
 and the live row count rides on the batch, as in the JAX package.
 
-String columns exist only as dictionary codes in this slice: ``data`` is
-None and every consumer works on the codes. Plain strings (offsets + chars,
-char slabs) wait for a later slice; building one raises NotImplementedError.
+A string column has ``data`` None and one of two device forms:
+
+  * dictionary codes, as above;
+  * a char slab (the JAX package's blocked chars): ``slab64`` int64
+    (capacity, stride/8) holding uint64 bit patterns, row i's byte j at bit
+    8*(j%8) of word j//8 and zero past the row's length, plus ``lens`` int32
+    (capacity,). The device Parquet scan builds slabs for plain byte-array
+    columns (kernel B8) and for dictionaries too large to hold on the host.
+    Rows move as one 2-D gather; ``to_numpy`` unpacks them on the host.
+
+Byte-level string expressions over slabs wait for a later slice, and the
+pandas upload (``DeviceBatch.from_pandas``) still takes strings only as
+dictionaries: a plain string column there raises NotImplementedError.
 
 The host dictionary encoding (``dict_factorize_hint``, ``host_dict_encode``,
 ``host_dict_encode_stateful``) is a copy of the JAX package's numpy code.
@@ -18,7 +28,7 @@ The host dictionary encoding (``dict_factorize_hint``, ``host_dict_encode``,
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,9 +59,12 @@ class DeviceColumn:
     def __init__(self, dtype: DType, data: Optional[torch.Tensor],
                  validity: torch.Tensor,
                  dict_codes: Optional[torch.Tensor] = None,
-                 dict_values: Optional[tuple] = None):
+                 dict_values: Optional[tuple] = None,
+                 slab64: Optional[torch.Tensor] = None,
+                 lens: Optional[torch.Tensor] = None):
         if dtype.is_string:
-            if dict_values is None or dict_codes is None:
+            has_dict = dict_values is not None and dict_codes is not None
+            if not has_dict and (slab64 is None or lens is None):
                 raise plain_strings_unsupported("DeviceColumn")
             data = None
         elif data is None:
@@ -61,6 +74,19 @@ class DeviceColumn:
         self.validity = validity
         self.dict_codes = dict_codes
         self.dict_values = dict_values
+        self.slab64 = slab64
+        self.lens = lens
+
+    @property
+    def has_slab(self) -> bool:
+        """True for a char-slab string column (no dictionary codes)."""
+        return self.slab64 is not None and self.dict_values is None
+
+    @property
+    def char_stride(self) -> int:
+        """Per-row byte stride of the slab layout."""
+        assert self.slab64 is not None
+        return int(self.slab64.shape[1]) * 8
 
     @property
     def capacity(self) -> int:
@@ -125,6 +151,11 @@ class DeviceColumn:
         columns decode their codes through the static dictionary into an
         object array of python str (None where null)."""
         validity = self.validity[:num_rows].cpu().numpy()
+        if self.has_slab:
+            slab = self.slab64[:num_rows].cpu().numpy().view(np.uint64)
+            lens = self.lens[:num_rows].cpu().numpy()
+            chars, offsets = np_slab_to_packed(slab, lens, validity)
+            return strings_from_packed(chars, offsets, validity), validity
         if self.dtype.is_string:
             codes = self.dict_codes[:num_rows].cpu().numpy()
             card = len(self.dict_values)
@@ -133,6 +164,70 @@ class DeviceColumn:
             out[~validity] = None
             return out, validity
         return self.data[:num_rows].cpu().numpy(), validity
+
+
+# ---------------------------------------------------------------------------
+# char slabs (copies of the JAX package's host helpers)
+# ---------------------------------------------------------------------------
+
+def slab_stride_for(max_len: int, max_stride: int) -> int:
+    """Power-of-two per-row byte stride (>= 8) for the char-slab layout, or
+    0 when the column's longest row exceeds ``max_stride``."""
+    stride = 8
+    while stride < max_len:
+        stride <<= 1
+    return stride if stride <= max_stride else 0
+
+
+def np_build_slab(chars: np.ndarray, offsets: np.ndarray, capacity: int,
+                  stride: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side packed -> fixed-stride slab conversion: (slab uint64
+    (capacity, stride/8), lens int32 (capacity,)). Bytes past each row's
+    length are zero; byte j of a row sits at bit 8*(j%8) of word j//8."""
+    lens = (offsets[1:] - offsets[:-1]).astype(np.int64)
+    starts = offsets[:-1].astype(np.int64)
+    nc = max(len(chars), 1)
+    j = np.arange(stride)
+    idx = np.clip(starts[:, None] + j[None, :], 0, nc - 1)
+    mask = j[None, :] < lens[:, None]
+    bytes_ = np.where(mask, chars[idx], 0).astype(np.uint64)
+    shifts = np.uint64(8) * np.arange(8, dtype=np.uint64)
+    words = (bytes_.reshape(capacity, stride // 8, 8)
+             << shifts[None, None, :]).sum(axis=2, dtype=np.uint64)
+    return words, lens.astype(np.int32)
+
+
+def np_slab_to_packed(slab: np.ndarray, lens: np.ndarray,
+                      validity: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side slab (uint64) -> packed chars + int32 offsets."""
+    n, w = slab.shape
+    stride = w * 8
+    lens = np.clip(np.asarray(lens, np.int64), 0, stride)
+    lens = np.where(validity, lens, 0)
+    shifts = np.uint64(8) * np.arange(8, dtype=np.uint64)
+    bytes_ = ((slab[:, :, None] >> shifts[None, None, :])
+              & np.uint64(0xFF)).astype(np.uint8).reshape(n, stride)
+    mask = np.arange(stride)[None, :] < lens[:, None]
+    chars = np.ascontiguousarray(bytes_[mask])
+    offsets = np.zeros(n + 1, np.int32)
+    offsets[1:] = np.cumsum(lens).astype(np.int32)
+    return chars, offsets
+
+
+def strings_from_packed(chars: np.ndarray, offsets: np.ndarray,
+                        validity: np.ndarray) -> np.ndarray:
+    """Packed chars + offsets -> object array of python str (None where
+    null), through pyarrow."""
+    import pyarrow as pa
+    n = len(validity)
+    null_count = int(n - validity.sum())
+    vbuf = (pa.py_buffer(np.packbits(validity, bitorder="little"))
+            if null_count else None)
+    arr = pa.StringArray.from_buffers(
+        n, pa.py_buffer(np.ascontiguousarray(offsets)),
+        pa.py_buffer(np.ascontiguousarray(chars)), vbuf, null_count)
+    return arr.to_numpy(zero_copy_only=False)
 
 
 def string_values_have_nul(values: np.ndarray, validity: np.ndarray) -> bool:

@@ -1,0 +1,444 @@
+// Device Parquet decode: the four value-expansion kernels of the scan.
+//
+// Replaces the TPU kernels of spark_rapids_tpu/ops/pallas_kernels.py:
+//   B5 _hybrid_expand_kernel (:929), launched by _hybrid_expand_pallas
+//      (:956); public entry hybrid_expand (:966);
+//   B6 _delta_unpack_kernel (:999), launched by _delta_unpack_pallas
+//      (:1028); public entry delta_unpack (:1038);
+//   B7 _plain_fixed_kernel (:1075), launched by _plain_fixed_pallas
+//      (:1102); public entry plain_fixed (:1111);
+//   B8 _slab_pack_kernel (:1140), launched by _slab_pack_pallas (:1164);
+//      public entry slab_pack (:1174).
+//
+// The TPU kernels walk one scalar cursor over the output on a one-step grid
+// (fori_loop over every element, a run or miniblock cursor carried in the
+// loop state, a running sum for DELTA). None of that carries over: here
+// every output element finds its run by a binary search over the run
+// starts, and DELTA's running sum is a tiled segmented scan.
+//   * B5 hybrid_expand: one thread per output element. Run r is
+//     searchsorted(out_start, k, right) - 1 clipped to the guard row; a
+//     bit-packed run extracts bw bits from the u64 window of two adjacent
+//     u32 words at bit_start + (k - out_start) * bw, an RLE run writes its
+//     value.
+//   * B6 delta_unpack: one launch per column chunk, not per page. Pages are
+//     segments: element k is its page's head (the page's first value) or
+//     raw + min_delta of its miniblock (u64 arithmetic). Three kernels as in
+//     compact.cu: each 2048-element tile scans its elements with the
+//     segmented operator (f1, v1) + (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2)
+//     and stores the tile's aggregate; one block scans the tile aggregates;
+//     the elements of a tile that precede its first page head add the
+//     tile's carry. Sums wrap in 64 bits, as the jnp twin's int64 cumsum.
+//   * B7 plain_fixed: one thread per output value, 4 or 8 bytes re-blocked
+//     from the u32 words; a bool is bit k&31 of word k>>5.
+//   * B8 slab_pack: one thread per output word (row r, word w): the 8 bytes
+//     at chars[starts[r] + 8w ...], zero at and past lens[r], packed
+//     little-endian (byte j at bit 8j), as columnar.column.np_build_slab.
+// Every index is clipped exactly as the jnp twins clip, so padding rows and
+// guard rows give the twins' values bit for bit.
+// What bounds them on an H100: bytes. Each reads its packed input once and
+// writes its output once; the run, miniblock and page tables are small and
+// stay in L1/L2 across the binary searches. B6 writes its output twice
+// (tile pass, then the carry pass reads and rewrites it) and rereads the
+// tables in the carry pass. At 2^20 outputs every kernel is a few
+// microseconds, so launch latency is a large share of its time.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 16;  // grid-stride beyond 16 blocks an SM
+constexpr int kDeltaItems = 8;        // elements per thread in a B6 tile
+constexpr int kDeltaTile = kThreads * kDeltaItems;
+constexpr int kScanThreads = 1024;
+
+int grid_for(long long n) {
+  long long b = (n + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+// Index of the first entry of sorted a[0..len) greater than x, as
+// searchsorted(a, x, side="right").
+__device__ __forceinline__ int upper_bound(const int* __restrict__ a,
+                                           int len, long long x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (static_cast<long long>(a[mid]) <= x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int clip_int(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// bw bits at absolute bit position `bit` of the u32 word stream (the jnp
+// twins' _extract_bits: negative bits clip to 0, word indices to the
+// stream, the window is words[w] | words[w + 1] << 32).
+__device__ __forceinline__ unsigned long long extract_bits(
+    const uint32_t* __restrict__ words, long long nwords, long long bit,
+    int bw) {
+  if (bit < 0) bit = 0;
+  const long long top = nwords - 1;
+  long long w = static_cast<long long>(static_cast<int>(bit >> 5));
+  w = w < 0 ? 0 : (w > top ? top : w);
+  long long w1 = w + 1 > top ? top : w + 1;
+  unsigned long long window =
+      static_cast<unsigned long long>(words[w]) |
+      (static_cast<unsigned long long>(words[w1]) << 32);
+  const unsigned off = static_cast<unsigned>(bit & 31);
+  const unsigned long long ubw = static_cast<unsigned long long>(
+      static_cast<long long>(bw));
+  const unsigned long long mask = ubw >= 64 ? ~0ull : (1ull << ubw) - 1ull;
+  return (window >> off) & mask;
+}
+
+// ---------------------------------------------------------------------------
+// B5: RLE/bit-packed hybrid expansion
+// ---------------------------------------------------------------------------
+
+__global__ void hybrid_expand_kernel(
+    const uint32_t* __restrict__ words, long long nwords,
+    const int* __restrict__ out_start, int nstarts,
+    const uint8_t* __restrict__ kind, const int* __restrict__ value,
+    const long long* __restrict__ bit_start, const int* __restrict__ bw,
+    int nruns, int* __restrict__ out, long long n) {
+  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
+    int r = clip_int(upper_bound(out_start, nstarts, k) - 1, 0, nruns - 1);
+    // (k - out_start[r]) in int32, as the twin subtracts two int32 arrays
+    const int rel = static_cast<int>(static_cast<unsigned>(k) -
+                                     static_cast<unsigned>(out_start[r]));
+    const long long bit =
+        bit_start[r] + static_cast<long long>(rel) * bw[r];
+    const int bp = static_cast<int>(static_cast<uint32_t>(
+        extract_bits(words, nwords, bit, bw[r])));
+    out[k] = kind[r] == 1 ? bp : value[r];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B6: DELTA_BINARY_PACKED, one launch per column chunk
+// ---------------------------------------------------------------------------
+
+struct Seg {
+  unsigned long long v;
+  int f;  // 1 when a page head lies in the span
+};
+
+__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {
+  Seg out;
+  out.v = b.f ? b.v : a.v + b.v;
+  out.f = a.f | b.f;
+  return out;
+}
+
+__device__ __forceinline__ Seg seg_shfl_up(Seg s, int o) {
+  Seg out;
+  out.v = __shfl_up_sync(0xffffffffu, s.v, o);
+  out.f = __shfl_up_sync(0xffffffffu, s.f, o);
+  return out;
+}
+
+// Exclusive segmented scan of one Seg per thread across the block; the
+// block's total goes to *total for every thread.
+template <int THREADS>
+__device__ Seg block_exclusive_seg_scan(Seg x, Seg* total) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ unsigned long long warp_v[kWarps];
+  __shared__ int warp_f[kWarps];
+  __shared__ Seg block_total;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const Seg identity = {0ull, 0};
+  Seg incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    Seg y = seg_shfl_up(incl, o);
+    if (lane >= o) incl = seg_combine(y, incl);
+  }
+  Seg ex_lane = seg_shfl_up(incl, 1);
+  if (lane == 0) ex_lane = identity;
+  if (lane == 31) {
+    warp_v[warp] = incl.v;
+    warp_f[warp] = incl.f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    Seg w = identity;
+    if (lane < kWarps) {
+      w.v = warp_v[lane];
+      w.f = warp_f[lane];
+    }
+    Seg wi = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      Seg y = seg_shfl_up(wi, o);
+      if (lane >= o) wi = seg_combine(y, wi);
+    }
+    Seg we = seg_shfl_up(wi, 1);
+    if (lane == 0) we = identity;
+    if (lane < kWarps) {
+      warp_v[lane] = we.v;
+      warp_f[lane] = we.f;
+    }
+    if (lane == 31) block_total = wi;
+  }
+  __syncthreads();
+  Seg warp_prefix;
+  warp_prefix.v = warp_v[warp];
+  warp_prefix.f = warp_f[warp];
+  Seg ex = seg_combine(warp_prefix, ex_lane);
+  *total = block_total;
+  __syncthreads();  // the shared arrays may be reused by the next call
+  return ex;
+}
+
+// Element k of the chunk: (value, is a page head). Heads carry their page's
+// first value; every other element its delta raw + min_delta.
+__device__ __forceinline__ Seg delta_element(
+    long long k, const uint32_t* __restrict__ words, long long nwords,
+    const int* __restrict__ mstart, const int* __restrict__ mbw,
+    const long long* __restrict__ min_delta,
+    const long long* __restrict__ bit_start, int nmini,
+    const int* __restrict__ page_start, const long long* __restrict__ first,
+    int npages) {
+  const int j = clip_int(upper_bound(page_start, npages + 1, k) - 1, 0,
+                         npages - 1);
+  Seg e;
+  if (k == page_start[j]) {
+    e.v = static_cast<unsigned long long>(first[j]);
+    e.f = 1;
+    return e;
+  }
+  const int m = clip_int(upper_bound(mstart, nmini, k) - 1, 0, nmini - 1);
+  const int rel = static_cast<int>(static_cast<unsigned>(k) -
+                                   static_cast<unsigned>(mstart[m]));
+  const long long bit = bit_start[m] + static_cast<long long>(rel) * mbw[m];
+  e.v = extract_bits(words, nwords, bit, mbw[m]) +
+        static_cast<unsigned long long>(min_delta[m]);
+  e.f = 0;
+  return e;
+}
+
+__global__ void delta_tiles(const uint32_t* __restrict__ words,
+                            long long nwords, const int* __restrict__ mstart,
+                            const int* __restrict__ mbw,
+                            const long long* __restrict__ min_delta,
+                            const long long* __restrict__ bit_start,
+                            int nmini, const int* __restrict__ page_start,
+                            const long long* __restrict__ first, int npages,
+                            long long* __restrict__ out, long long n,
+                            unsigned long long* __restrict__ tile_v,
+                            int* __restrict__ tile_f) {
+  const long long base = static_cast<long long>(blockIdx.x) * kDeltaTile +
+                         static_cast<long long>(threadIdx.x) * kDeltaItems;
+  Seg local[kDeltaItems];
+  Seg acc = {0ull, 0};
+#pragma unroll
+  for (int j = 0; j < kDeltaItems; ++j) {
+    const long long k = base + j;
+    Seg e = {0ull, 0};
+    if (k < n) {
+      e = delta_element(k, words, nwords, mstart, mbw, min_delta, bit_start,
+                        nmini, page_start, first, npages);
+    }
+    acc = seg_combine(acc, e);
+    local[j] = acc;
+  }
+  Seg tot;
+  const Seg ex = block_exclusive_seg_scan<kThreads>(acc, &tot);
+#pragma unroll
+  for (int j = 0; j < kDeltaItems; ++j) {
+    const long long k = base + j;
+    if (k < n) out[k] = static_cast<long long>(seg_combine(ex, local[j]).v);
+  }
+  if (threadIdx.x == 0) {
+    tile_v[blockIdx.x] = tot.v;
+    tile_f[blockIdx.x] = tot.f;
+  }
+}
+
+__global__ void delta_scan_tiles(const unsigned long long* __restrict__ tile_v,
+                                 const int* __restrict__ tile_f, int ntiles,
+                                 unsigned long long* __restrict__ carry) {
+  Seg run = {0ull, 0};
+  for (int base = 0; base < ntiles; base += kScanThreads) {
+    const int i = base + static_cast<int>(threadIdx.x);
+    Seg x = {0ull, 0};
+    if (i < ntiles) {
+      x.v = tile_v[i];
+      x.f = tile_f[i];
+    }
+    Seg tot;
+    const Seg ex = block_exclusive_seg_scan<kScanThreads>(x, &tot);
+    if (i < ntiles) carry[i] = seg_combine(run, ex).v;
+    run = seg_combine(run, tot);
+  }
+}
+
+__global__ void delta_add_carry(const int* __restrict__ page_start,
+                                int npages,
+                                const unsigned long long* __restrict__ carry,
+                                long long* __restrict__ out, long long n) {
+  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long tile = k / kDeltaTile;
+    if (tile == 0) continue;
+    const int j = clip_int(upper_bound(page_start, npages + 1, k) - 1, 0,
+                           npages - 1);
+    // no page head in [tile start, k]: the element continues a segment
+    // that began in an earlier tile
+    if (static_cast<long long>(page_start[j]) < tile * kDeltaTile) {
+      out[k] = static_cast<long long>(
+          static_cast<unsigned long long>(out[k]) + carry[tile]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7: PLAIN fixed-width re-blocking
+// ---------------------------------------------------------------------------
+
+__global__ void plain_fixed_kernel(const uint32_t* __restrict__ words,
+                                   long long nwords, int width,
+                                   void* __restrict__ out, long long n) {
+  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (width == 4) {
+      static_cast<uint32_t*>(out)[k] = words[k];
+    } else if (width == 8) {
+      static_cast<unsigned long long*>(out)[k] =
+          static_cast<unsigned long long>(words[2 * k]) |
+          (static_cast<unsigned long long>(words[2 * k + 1]) << 32);
+    } else {  // bool: bit k & 31 of word k >> 5, the word index clamped
+      long long w = k >> 5;
+      if (w > nwords - 1) w = nwords - 1;
+      static_cast<uint8_t*>(out)[k] =
+          static_cast<uint8_t>((words[w] >> (k & 31)) & 1u);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B8: PLAIN byte arrays -> char slab
+// ---------------------------------------------------------------------------
+
+__global__ void slab_pack_kernel(const uint8_t* __restrict__ chars,
+                                 long long nchars,
+                                 const long long* __restrict__ starts,
+                                 const int* __restrict__ lens, long long cap,
+                                 int nwords,
+                                 unsigned long long* __restrict__ out) {
+  const long long total = cap * nwords;
+  const long long top = nchars > 0 ? nchars - 1 : 0;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = i / nwords;
+    const int w = static_cast<int>(i - r * nwords);
+    const long long s = starts[r];
+    const int ln = lens[r];
+    unsigned long long word = 0ull;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int pos = 8 * w + j;
+      if (pos < ln && nchars > 0) {
+        long long src = s + pos;
+        src = src < 0 ? 0 : (src > top ? top : src);
+        word |= static_cast<unsigned long long>(chars[src]) << (8 * j);
+      }
+    }
+    out[i] = word;
+  }
+}
+
+}  // namespace
+
+extern "C" const char* srt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int srt_delta_tile_rows() { return kDeltaTile; }
+
+// words: nwords u32; out_start: nstarts int32 (the runs' starts, the guard
+// row's start and INT32_MAX); kind, value, bit_start, bw: nruns rows (the
+// guard row last); out: n int32. n < 2^31.
+extern "C" int srt_hybrid_expand(const uint32_t* words, long long nwords,
+                                 const int* out_start, int nstarts,
+                                 const uint8_t* kind, const int* value,
+                                 const long long* bit_start, const int* bw,
+                                 int nruns, int* out, long long n,
+                                 cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  hybrid_expand_kernel<<<grid_for(n), kThreads, 0, stream>>>(
+      words, nwords, out_start, nstarts, kind, value, bit_start, bw, nruns,
+      out, n);
+  return cudaGetLastError();
+}
+
+// The chunk's miniblock table (nmini rows, the guard row last: mstart int32
+// in element space, bw int32, min_delta int64, bit_start int64), its pages
+// (page_start int32 (npages + 1,), the last entry n; first int64
+// (npages,)); out: n int64. Scratch: tile_v, tile_f and carry of
+// ceil(n / srt_delta_tile_rows()) entries. n < 2^31.
+extern "C" int srt_delta_unpack(const uint32_t* words, long long nwords,
+                                const int* mstart, const int* mbw,
+                                const long long* min_delta,
+                                const long long* bit_start, int nmini,
+                                const int* page_start,
+                                const long long* first, int npages,
+                                long long* out, long long n,
+                                unsigned long long* tile_v, int* tile_f,
+                                unsigned long long* carry,
+                                cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  const int ntiles = static_cast<int>((n + kDeltaTile - 1) / kDeltaTile);
+  cudaError_t err;
+  delta_tiles<<<ntiles, kThreads, 0, stream>>>(
+      words, nwords, mstart, mbw, min_delta, bit_start, nmini, page_start,
+      first, npages, out, n, tile_v, tile_f);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (ntiles > 1) {
+    delta_scan_tiles<<<1, kScanThreads, 0, stream>>>(tile_v, tile_f, ntiles,
+                                                     carry);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    delta_add_carry<<<grid_for(n), kThreads, 0, stream>>>(
+        page_start, npages, carry, out, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// width 4 (i32, f32), 8 (i64, f64) or 1 (bool, one byte per value); out:
+// n values of that width.
+extern "C" int srt_plain_fixed(const uint32_t* words, long long nwords,
+                               int width, void* out, long long n,
+                               cudaStream_t stream) {
+  if (n <= 0) return cudaSuccess;
+  plain_fixed_kernel<<<grid_for(n), kThreads, 0, stream>>>(words, nwords,
+                                                           width, out, n);
+  return cudaGetLastError();
+}
+
+// chars: nchars bytes; starts int64 and lens int32: cap rows; out: cap x
+// nwords u64.
+extern "C" int srt_slab_pack(const uint8_t* chars, long long nchars,
+                             const long long* starts, const int* lens,
+                             long long cap, int nwords,
+                             unsigned long long* out, cudaStream_t stream) {
+  const long long total = cap * nwords;
+  if (total <= 0) return cudaSuccess;
+  slab_pack_kernel<<<grid_for(total), kThreads, 0, stream>>>(
+      chars, nchars, starts, lens, cap, nwords, out);
+  return cudaGetLastError();
+}

@@ -1,7 +1,8 @@
 """Synthetic TPC-H-like generators for lineitem, orders and customer (copies
 of the JAX package's ``models/tpch_data.gen_lineitem``, ``gen_orders`` and
 ``gen_customer``, so both packages see the same rows for the same scale
-factor and seed).
+factor and seed), and ``write_parquet``, which writes them as Parquet files
+for the device scan.
 
 Distributions follow the TPC-H spec shapes (uniform quantities 1..50,
 discounts 0..0.10, 7-year date range, A/N/R return flags), not dbgen's exact
@@ -96,3 +97,79 @@ def gen_customer(sf: float, seed: int = 13) -> pd.DataFrame:
         "c_mktsegment": segment,
         "c_phone": phone,
     })
+
+
+GENERATORS = {"lineitem": gen_lineitem, "orders": gen_orders,
+              "customer": gen_customer}
+
+# Per-table Parquet encodings, chosen so that every column rides the device
+# decode: low-cardinality columns as dictionaries (the hybrid expander,
+# B5, with their dictionary pages re-blocked by B7), keys as
+# DELTA_BINARY_PACKED (B6), wide-ranging prices and c_name as PLAIN (B7 for
+# doubles, B8 for the byte array). c_phone (~22k values) is a dictionary
+# larger than the port holds on the host, so the decode builds a char slab
+# of its dictionary and gathers it by code. Under pyarrow's defaults
+# (dictionary for every column) the high-cardinality columns (l_orderkey,
+# l_extendedprice, o_totalprice, ...) overflow their dictionary page and
+# switch to PLAIN mid-chunk; such chunks fall back to the host decode as
+# ``mixedEncoding``, in the port as in the JAX package.
+PARQUET_SPEC = {
+    "lineitem": {
+        "dictionary": ["l_returnflag", "l_linestatus", "l_shipmode",
+                       "l_shipinstruct", "l_quantity", "l_discount", "l_tax",
+                       "l_linenumber", "l_shipdate", "l_commitdate",
+                       "l_receiptdate"],
+        "delta": ["l_orderkey", "l_partkey", "l_suppkey"],
+        "plain": ["l_extendedprice"],
+    },
+    "orders": {
+        "dictionary": ["o_orderstatus", "o_orderpriority", "o_shippriority",
+                       "o_orderdate", "o_comment"],
+        "delta": ["o_orderkey", "o_custkey"],
+        "plain": ["o_totalprice"],
+    },
+    "customer": {
+        "dictionary": ["c_mktsegment", "c_nationkey", "c_phone"],
+        "delta": ["c_custkey"],
+        "plain": ["c_acctbal", "c_name"],
+    },
+}
+
+# rows per row group: pyarrow's default (1 << 20), stated so that every
+# pyarrow version cuts the files alike
+ROW_GROUP_ROWS = 1 << 20
+
+
+def write_table(df: pd.DataFrame, path: str, spec=None) -> None:
+    """Write ``df`` as one Parquet file: v1 data pages, snappy, row groups
+    of ``ROW_GROUP_ROWS``, and the per-column encodings of ``spec`` (a
+    ``PARQUET_SPEC`` entry), or pyarrow's defaults when ``spec`` is None."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    kw = {}
+    if spec is not None:
+        enc = {c: "DELTA_BINARY_PACKED" for c in spec["delta"]}
+        enc.update({c: "PLAIN" for c in spec["plain"]})
+        kw = {"use_dictionary": list(spec["dictionary"]),
+              "column_encoding": enc}
+    pq.write_table(pa.Table.from_pandas(df, preserve_index=False), path,
+                   row_group_size=ROW_GROUP_ROWS, compression="snappy",
+                   data_page_version="1.0", **kw)
+
+
+def write_parquet(out_dir: str, sf: float, tables=None, frames=None,
+                  spec: bool = True) -> dict:
+    """Write ``tables`` (default: lineitem, orders, customer) at scale
+    factor ``sf`` as ``<out_dir>/<table>.parquet`` with ``PARQUET_SPEC``
+    (``spec=False``: pyarrow's default encodings). ``frames`` may hold
+    already generated tables to reuse. Returns {table: path}."""
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name in tables or list(GENERATORS):
+        df = (frames or {}).get(name)
+        if df is None:
+            df = GENERATORS[name](sf)
+        paths[name] = os.path.join(out_dir, f"{name}.parquet")
+        write_table(df, paths[name], PARQUET_SPEC[name] if spec else None)
+    return paths

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("compact", "hash_agg", "hash_join")
+SOURCES = ("compact", "hash_agg", "hash_join", "parquet_decode")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,16 @@ _SIGNATURES = {
         "srt_hash_build": (_I, [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
         "srt_hash_probe": (_I, [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
         "srt_hash_join_max_keys": (_I, []),
+        "srt_error_string": (ctypes.c_char_p, [_I]),
+    },
+    "parquet_decode": {
+        "srt_hybrid_expand": (_I, [_P, _LL, _P, _I, _P, _P, _P, _P, _I, _P,
+                                   _LL, _P]),
+        "srt_delta_unpack": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I,
+                                  _P, _LL, _P, _P, _P, _P]),
+        "srt_delta_tile_rows": (_I, []),
+        "srt_plain_fixed": (_I, [_P, _LL, _I, _P, _LL, _P]),
+        "srt_slab_pack": (_I, [_P, _LL, _P, _P, _LL, _I, _P, _P]),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
 }

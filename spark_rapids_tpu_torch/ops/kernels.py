@@ -1,7 +1,7 @@
 """The port's hand-written kernels and their plain versions (counterpart of
 the JAX package's ``ops/pallas_kernels.py``).
 
-Four of the JAX package's eight Pallas kernels are on the port's path:
+All eight of the JAX package's Pallas kernels have a counterpart here:
 
   * ``compact_permutation`` (B1; TPU kernel ``_dual_prefix_kernel``): the
     stable-partition permutation of a keep mask, run by every filter, every
@@ -13,19 +13,33 @@ Four of the JAX package's eight Pallas kernels are on the port's path:
     ``hash_table_probe`` (B4; TPU kernel ``_hash_probe_kernel``): the hash
     join's table build and read-only probe, composed by
     ``hash_join_probe``. CUDA source ``csrc/hash_join.cu``.
+  * the device Parquet decode (``ops/parquet_decode.py``), CUDA source
+    ``csrc/parquet_decode.cu``: ``hybrid_expand`` (B5;
+    ``_hybrid_expand_kernel``) expands RLE/bit-packed hybrid streams
+    (definition levels, dictionary indices, PLAIN booleans);
+    ``delta_unpack`` (B6; ``_delta_unpack_kernel``) decodes a whole
+    DELTA_BINARY_PACKED column chunk in one launch, its pages as segments;
+    ``plain_fixed`` (B7; ``_plain_fixed_kernel``) re-blocks PLAIN words
+    into i32/i64/f32/f64/bool; ``slab_pack`` (B8; ``_slab_pack_kernel``)
+    packs PLAIN byte arrays into char slabs.
 
 Each public function takes the kernel's plain PyTorch version for a tensor
 that lies on the CPU, and launches the CUDA kernel for a CUDA tensor, or
 raises: there is no switch and no fallback. The plain versions
 (``*_plain``) copy the JAX package's jnp twins (``_dual_prefix_jnp``,
-``_hash_build_jnp``, ``_hash_probe_jnp``, ``_hash_agg_jnp``) and are the
-yardstick the kernels are held to on the card. The three hash kernels share
+``_hash_build_jnp``, ``_hash_probe_jnp``, ``_hash_agg_jnp``,
+``_hybrid_expand_jnp``, ``_delta_unpack_jnp``, ``_plain_fixed_jnp``,
+``_slab_pack_jnp``) and are the yardstick the kernels are held to on the
+card. The three hash kernels share
 the plain versions' hash and slot chain but claim slots in another order,
 so their outputs compare by key, not by slot. ``LAUNCHES`` counts kernel
 launches per wrapper.
 
 64-bit key images are int64 tensors holding uint64 bit patterns (see
-ops/hashing.py).
+ops/hashing.py). The decode kernels take the encoded streams as int32
+tensors holding the uint32 words, and slabs are int64 tensors holding the
+uint64 words: torch has no general unsigned 32/64-bit arithmetic, so the
+plain versions widen words to int64 and mask them with 0xFFFFFFFF.
 """
 
 from __future__ import annotations
@@ -41,7 +55,11 @@ from spark_rapids_tpu_torch.ops.hashing import as_signed, splitmix64
 LAUNCHES: Dict[str, int] = {"compact_permutation": 0,
                             "hash_grouped_aggregate": 0,
                             "hash_table_build": 0,
-                            "hash_table_probe": 0}
+                            "hash_table_probe": 0,
+                            "hybrid_expand": 0,
+                            "delta_unpack": 0,
+                            "plain_fixed": 0,
+                            "slab_pack": 0}
 
 
 def reset_launches() -> None:
@@ -513,3 +531,287 @@ def hash_grouped_aggregate(images: Sequence[torch.Tensor],
     cudalib.check(lib, err, "hash_grouped_aggregate")
     LAUNCHES["hash_grouped_aggregate"] += 1
     return counts, rep, accs, nels
+
+
+# ---------------------------------------------------------------------------
+# B5-B8: device Parquet decode
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _u64_window(words: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """words (W,) int32 holding u32, w word indices -> the u64 little-endian
+    window words[w] | words[w + 1] << 32 as an int64 bit pattern, both
+    indices clipped to the stream (the jnp twin's ``_u64_window``)."""
+    top = words.shape[0] - 1
+    wc = w.clamp(0, top)
+    lo = words[wc].to(torch.int64) & _U32
+    hi = words[(wc + 1).clamp(0, top)].to(torch.int64) & _U32
+    return lo | (hi << 32)
+
+
+def _extract_bits(words: torch.Tensor, bit: torch.Tensor,
+                  bw: torch.Tensor) -> torch.Tensor:
+    """bw-bit little-endian fields (bw <= 32, int64) at absolute bit
+    positions ``bit`` (int64), as int64 (the jnp twin's ``_extract_bits``).
+    The right shift of a negative window is arithmetic, but the mask keeps
+    at most 32 bits of a shift by at most 31, below any sign fill."""
+    bit = bit.clamp(min=0)
+    w = (bit >> 5).to(torch.int32).to(torch.int64)
+    window = _u64_window(words, w)
+    mask = (torch.ones_like(bw) << bw) - 1
+    return (window >> (bit & 31)) & mask
+
+
+def _decode_check(what: str, tensors) -> None:
+    """Every tensor on one CUDA device and contiguous."""
+    dev = tensors[0].device
+    _require_cuda(tensors[0], what)
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _check_dtypes(what: str, pairs) -> None:
+    for name, t, dtype in pairs:
+        if t.dtype != dtype or t.dim() != 1:
+            raise TypeError(f"{what}: {name} must be 1-d {dtype}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+
+
+def hybrid_expand_plain(words, out_start, kind, value, bit_start, bw,
+                        n: int) -> torch.Tensor:
+    """Plain version of ``hybrid_expand`` (the jnp twin
+    ``_hybrid_expand_jnp``)."""
+    dev = words.device
+    k = torch.arange(n, dtype=torch.int32, device=dev)
+    r = torch.searchsorted(out_start, k, right=True) - 1
+    r = r.clamp(0, kind.shape[0] - 1)
+    rel = (k - out_start[r]).to(torch.int64)
+    bwr = bw[r].to(torch.int64)
+    bp = _extract_bits(words, bit_start[r] + rel * bwr, bwr).to(torch.int32)
+    return torch.where(kind[r] == 1, bp, value[r])
+
+
+def hybrid_expand(words, out_start, kind, value, bit_start, bw,
+                  n: int) -> torch.Tensor:
+    """Expand an RLE/bit-packed hybrid stream to (n,) int32.
+
+    ``words`` (W,) int32 holding the stream's u32 words; the run table has
+    R + 1 rows, the last a guard row: ``out_start`` int32 (R + 2,) (each
+    run's first output index, the guard row's, then INT32_MAX), ``kind``
+    uint8 (0 RLE, 1 bit-packed), ``value`` int32, ``bit_start`` int64 and
+    ``bw`` int32 (<= 32, per run). Output k takes run
+    searchsorted(out_start, k, right) - 1 clipped to the guard row."""
+    if words.device.type == "cpu":
+        return hybrid_expand_plain(words, out_start, kind, value, bit_start,
+                                   bw, n)
+    what = "hybrid_expand"
+    _decode_check(what, [words, out_start, kind, value, bit_start, bw])
+    _check_dtypes(what, [("words", words, torch.int32),
+                         ("out_start", out_start, torch.int32),
+                         ("kind", kind, torch.uint8),
+                         ("value", value, torch.int32),
+                         ("bit_start", bit_start, torch.int64),
+                         ("bw", bw, torch.int32)])
+    nruns = kind.shape[0]
+    if (value.shape[0] != nruns or bit_start.shape[0] != nruns
+            or bw.shape[0] != nruns or nruns == 0 or words.shape[0] == 0
+            or n >= 1 << 31):
+        raise ValueError(f"{what}: run table rows differ, or no runs, no "
+                         f"words, or {n} outputs exceed int32")
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    out = torch.empty(n, dtype=torch.int32, device=words.device)
+    err = lib.srt_hybrid_expand(
+        words.data_ptr(), words.shape[0], out_start.data_ptr(),
+        out_start.shape[0], kind.data_ptr(), value.data_ptr(),
+        bit_start.data_ptr(), bw.data_ptr(), nruns, out.data_ptr(), n,
+        _stream())
+    cudalib.check(lib, err, what)
+    LAUNCHES["hybrid_expand"] += 1
+    return out
+
+
+def delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,
+                       page_start, first, n: int) -> torch.Tensor:
+    """Plain version of ``delta_unpack``: the jnp twin ``_delta_unpack_jnp``
+    over every page of a chunk at once. Each element is its page's first
+    value (at a page head) or raw + min_delta of its miniblock; one cumsum
+    over the chunk, less the cumsum before each page's head, gives every
+    page's own running sum (int64 sums wrap, as the twin's)."""
+    dev = words.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    k = torch.arange(n, dtype=torch.int32, device=dev)
+    j = (torch.searchsorted(page_start, k, right=True) - 1).clamp(
+        0, first.shape[0] - 1)
+    ps = page_start[j].to(torch.int64)
+    m = (torch.searchsorted(mstart, k, right=True) - 1).clamp(
+        0, mstart.shape[0] - 1)
+    rel = (k - mstart[m]).to(torch.int64)
+    bwm = bwid[m].to(torch.int64)
+    raw = _extract_bits(words, bit_start[m] + rel * bwm, bwm)
+    x = torch.where(k.to(torch.int64) == ps, first[j], raw + min_delta[m])
+    c = torch.cumsum(x, 0)
+    before = torch.where(ps > 0, c[(ps - 1).clamp(min=0)],
+                         torch.zeros_like(c))
+    return c - before
+
+
+def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
+                 first, n: int) -> torch.Tensor:
+    """DELTA_BINARY_PACKED column chunk -> (n,) int64 values, one launch
+    for all its pages.
+
+    ``words`` (W,) int32 holding the chunk's u32 words. The miniblock table
+    (``ops/parquet_decode.delta_chunk_table``) has M + 1 rows, the last a
+    guard row: ``mstart`` int32 (the element index of each miniblock's
+    first delta, then INT32_MAX), ``bwid`` int32 (<= 32), ``min_delta``
+    int64, ``bit_start`` int64. Pages: ``page_start`` int32 (P + 1,) (the
+    last entry n) and ``first`` int64 (P,). Element page_start[p] is
+    first[p]; every later element of page p adds its delta to the one
+    before it. The output is the JAX package's per-page ``delta_unpack``
+    results concatenated."""
+    if words.device.type == "cpu":
+        return delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,
+                                  page_start, first, n)
+    what = "delta_unpack"
+    _decode_check(what, [words, mstart, bwid, min_delta, bit_start,
+                         page_start, first])
+    _check_dtypes(what, [("words", words, torch.int32),
+                         ("mstart", mstart, torch.int32),
+                         ("bwid", bwid, torch.int32),
+                         ("min_delta", min_delta, torch.int64),
+                         ("bit_start", bit_start, torch.int64),
+                         ("page_start", page_start, torch.int32),
+                         ("first", first, torch.int64)])
+    nmini, npages = mstart.shape[0], first.shape[0]
+    if (bwid.shape[0] != nmini or min_delta.shape[0] != nmini
+            or bit_start.shape[0] != nmini or nmini == 0
+            or page_start.shape[0] != npages + 1 or npages == 0
+            or words.shape[0] == 0 or n >= 1 << 31):
+        raise ValueError(f"{what}: miniblock or page table shapes differ, "
+                         f"or {n} outputs exceed int32")
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    dev = words.device
+    ntiles = max(1, -(-n // lib.srt_delta_tile_rows()))
+    tile_v = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
+    carry = torch.empty(ntiles, dtype=torch.int64, device=dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    err = lib.srt_delta_unpack(
+        words.data_ptr(), words.shape[0], mstart.data_ptr(),
+        bwid.data_ptr(), min_delta.data_ptr(), bit_start.data_ptr(), nmini,
+        page_start.data_ptr(), first.data_ptr(), npages, out.data_ptr(), n,
+        tile_v.data_ptr(), tile_f.data_ptr(), carry.data_ptr(), _stream())
+    cudalib.check(lib, err, what)
+    LAUNCHES["delta_unpack"] += 1
+    return out
+
+
+_PLAIN_KINDS = {"i32": (torch.int32, 4), "f32": (torch.float32, 4),
+                "i64": (torch.int64, 8), "f64": (torch.float64, 8),
+                "bool": (torch.bool, 1)}
+
+
+def _plain_out_len(words: torch.Tensor, kind: str, n: int) -> int:
+    """The jnp twin's output length: ``[:n]`` of the re-blocked words (a
+    bool reads past the stream's end through clipped word indices)."""
+    if kind not in _PLAIN_KINDS:
+        raise ValueError(f"plain_fixed kind {kind}")
+    width = _PLAIN_KINDS[kind][1]
+    nw = words.shape[0]
+    if width == 8 and nw % 2:
+        raise ValueError("plain_fixed: 64-bit values need an even number "
+                         f"of words, got {nw}")
+    return n if width == 1 else min(n, nw * 4 // width)
+
+
+def plain_fixed_plain(words, kind: str, n: int) -> torch.Tensor:
+    """Plain version of ``plain_fixed`` (the jnp twin ``_plain_fixed_jnp``);
+    a new tensor, not a view of ``words``."""
+    m = _plain_out_len(words, kind, n)
+    if kind in ("i32", "f32"):
+        out = words[:m].clone()
+        return out.view(torch.float32) if kind == "f32" else out
+    if kind in ("i64", "f64"):
+        lo = words[0::2].to(torch.int64) & _U32
+        hi = words[1::2].to(torch.int64) & _U32
+        out = (lo | (hi << 32))[:m].contiguous()
+        return out.view(torch.float64) if kind == "f64" else out
+    k = torch.arange(n, dtype=torch.int64, device=words.device)
+    w = words[(k >> 5).clamp(max=words.shape[0] - 1)]
+    return ((w >> (k & 31).to(torch.int32)) & 1).to(torch.bool)
+
+
+def plain_fixed(words, kind: str, n: int) -> torch.Tensor:
+    """Reassemble a PLAIN fixed-width value stream from its u32 words
+    (int32 ``words``): ``kind`` in {i32, i64, f32, f64, bool}. Returns the
+    first n values (fewer when the stream holds fewer; a bool is bit k & 31
+    of word k >> 5)."""
+    if words.device.type == "cpu":
+        return plain_fixed_plain(words, kind, n)
+    what = "plain_fixed"
+    _decode_check(what, [words])
+    _check_dtypes(what, [("words", words, torch.int32)])
+    m = _plain_out_len(words, kind, n)
+    if words.shape[0] == 0 or m >= 1 << 31:
+        raise ValueError(f"{what}: no words, or {m} outputs exceed int32")
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    dtype, width = _PLAIN_KINDS[kind]
+    out = torch.empty(m, dtype=dtype, device=words.device)
+    err = lib.srt_plain_fixed(words.data_ptr(), words.shape[0], width,
+                              out.data_ptr(), m, _stream())
+    cudalib.check(lib, err, what)
+    LAUNCHES["plain_fixed"] += 1
+    return out
+
+
+def slab_pack_plain(chars, starts, lens, cap: int,
+                    stride: int) -> torch.Tensor:
+    """Plain version of ``slab_pack`` (the jnp twin ``_slab_pack_jnp``)."""
+    dev = chars.device
+    bytepos = torch.arange(stride, dtype=torch.int32, device=dev)
+    if chars.shape[0] == 0:
+        return torch.zeros((cap, stride // 8), dtype=torch.int64, device=dev)
+    src = (starts[:, None] + bytepos.to(torch.int64)[None, :]).clamp(
+        0, chars.shape[0] - 1)
+    byte = torch.where(bytepos[None, :] < lens[:, None], chars[src],
+                       torch.zeros((), dtype=torch.uint8, device=dev))
+    # little-endian words: byte j of a row lands at bit 8*(j%8)
+    return byte.contiguous().view(torch.int64)
+
+
+def slab_pack(chars, starts, lens, cap: int, stride: int) -> torch.Tensor:
+    """Gather PLAIN byte-array values into a (cap, stride/8) char slab
+    (int64 holding u64 words; ``np_build_slab`` packing: byte j of a row
+    at bit 8*(j%8) of word j//8, zero past the row's length). ``chars``
+    uint8; ``starts`` int64 and ``lens`` int32 padded to ``cap`` rows with
+    0-length rows."""
+    if chars.device.type == "cpu":
+        return slab_pack_plain(chars, starts, lens, cap, stride)
+    what = "slab_pack"
+    _decode_check(what, [chars, starts, lens])
+    _check_dtypes(what, [("chars", chars, torch.uint8),
+                         ("starts", starts, torch.int64),
+                         ("lens", lens, torch.int32)])
+    if (starts.shape[0] != cap or lens.shape[0] != cap or stride <= 0
+            or stride % 8):
+        raise ValueError(f"{what}: starts and lens must hold {cap} rows and "
+                         f"the stride {stride} be a positive multiple of 8")
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    out = torch.empty((cap, stride // 8), dtype=torch.int64,
+                      device=chars.device)
+    err = lib.srt_slab_pack(chars.data_ptr(), chars.shape[0],
+                            starts.data_ptr(), lens.data_ptr(), cap,
+                            stride // 8, out.data_ptr(), _stream())
+    cudalib.check(lib, err, what)
+    LAUNCHES["slab_pack"] += 1
+    return out

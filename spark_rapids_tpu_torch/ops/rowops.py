@@ -10,10 +10,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn, host_to_device
+from spark_rapids_tpu_torch.columnar.column import (
+    DeviceColumn, host_to_device, np_build_slab, slab_stride_for,
+)
 from spark_rapids_tpu_torch.ops.kernels import compact_permutation
 
 
@@ -33,11 +36,22 @@ def gather_columns(cols: Sequence[DeviceColumn], perm: torch.Tensor,
                    live: torch.Tensor) -> List[DeviceColumn]:
     """Gather many columns by one index vector. ``live`` marks which output
     slots are real rows; dead slots become invalid (codes: the NULL
-    sentinel)."""
+    sentinel; slab rows: zero words and length)."""
     idx = perm.long()
     out: List[DeviceColumn] = []
     for c in cols:
         validity = c.validity[idx] & live
+        if c.has_slab:
+            # one 2-D row gather moves every word of a slab row
+            slab = torch.where(live[:, None], c.slab64[idx],
+                               torch.zeros((), dtype=torch.int64,
+                                           device=idx.device))
+            lens = torch.where(live, c.lens[idx],
+                               torch.zeros((), dtype=torch.int32,
+                                           device=idx.device))
+            out.append(DeviceColumn(c.dtype, None, validity, slab64=slab,
+                                    lens=lens))
+            continue
         codes = None
         if c.dict_values is not None:
             codes = torch.where(live, c.dict_codes[idx],
@@ -96,6 +110,48 @@ def _concat_dict(parts: Sequence[DeviceColumn]):
     return vals, codes
 
 
+def dict_to_slab(col: DeviceColumn, stride: int) -> DeviceColumn:
+    """A dictionary string column as a char slab of ``stride`` bytes: the
+    dictionary's slab is built on the host (one row per value plus an empty
+    NULL row) and gathered by code."""
+    vals = [v.encode("utf-8") for v in col.dict_values]
+    card = len(vals)
+    offs = np.zeros(card + 2, np.int32)
+    offs[1:card + 1] = np.cumsum([len(v) for v in vals])
+    offs[card + 1] = offs[card]
+    slab_h, lens_h = np_build_slab(
+        np.frombuffer(b"".join(vals) or b"\0", np.uint8), offs, card + 1,
+        stride)
+    rows = col.dict_codes.clamp(0, card).long()
+    slab = host_to_device(slab_h.view(np.int64), col.device)[rows]
+    lens = torch.where(col.validity,
+                       host_to_device(lens_h, col.device)[rows],
+                       torch.zeros((), dtype=torch.int32, device=col.device))
+    return DeviceColumn(col.dtype, None, col.validity, slab64=slab, lens=lens)
+
+
+def _concat_slabs(parts: Sequence[DeviceColumn]):
+    """(slab, lens) of string parts of which at least one is a slab: every
+    part padded to the widest stride (the JAX package's ``_widen_slab``),
+    dictionary parts converted to slabs first. (None, None) when no part is
+    a slab."""
+    if not any(p.has_slab for p in parts):
+        return None, None
+    max_len = max(max((len(v.encode("utf-8")) for v in p.dict_values),
+                      default=0) if not p.has_slab else p.char_stride
+                  for p in parts)
+    stride = slab_stride_for(max_len, 1 << 30)  # no cap: parts fit already
+    slabs, lens = [], []
+    for p in parts:
+        if not p.has_slab:
+            p = dict_to_slab(p, stride)
+        pad = (stride - p.char_stride) // 8
+        slabs.append(torch.nn.functional.pad(p.slab64, (0, pad))
+                     if pad else p.slab64)
+        lens.append(p.lens)
+    return torch.cat(slabs), torch.cat(lens)
+
+
 def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
                    keep_masks: Optional[Sequence[torch.Tensor]] = None
                    ) -> DeviceBatch:
@@ -139,10 +195,16 @@ def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
     flat_cols: List[DeviceColumn] = []
     for ci, dt in enumerate(schema.dtypes):
         parts = [b.columns[ci] for b in batches]
+        validity = torch.cat([p.validity for p in parts])
+        slab, lens = _concat_slabs(parts) if dt.is_string else (None, None)
+        if slab is not None:
+            flat_cols.append(DeviceColumn(dt, None, validity, slab64=slab,
+                                          lens=lens))
+            continue
         vals, codes = _concat_dict(parts)
         data = None if dt.is_string else torch.cat([p.data for p in parts])
         flat_cols.append(DeviceColumn(
-            dt, data, torch.cat([p.validity for p in parts]),
+            dt, data, validity,
             torch.cat(codes) if codes is not None else None, vals))
     cols = gather_columns(flat_cols, src, live)
     return DeviceBatch(schema, cols, total)

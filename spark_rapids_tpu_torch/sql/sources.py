@@ -1,0 +1,130 @@
+"""Parquet files as a scan source (the ``ParquetSource`` of the JAX
+package's ``sql/sources.py``, for its device decode path).
+
+Footer work and split planning run on the host: one split per row group.
+``raw_partitions`` hands each split's planning to the scan pipeline
+(``sql/scan_pipeline``), which yields ``ops/parquet_decode.RawRowGroup``
+decode plans, or a pandas frame for a row group whose columns all fall
+back to the host. Row-group pruning (``prune_splits``, ``pushdown.py``),
+directories and hive partition columns are not ported yet: a source is a
+list of files.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import pandas as pd
+
+from spark_rapids_tpu_torch.columnar import dtype as dtmod
+from spark_rapids_tpu_torch.columnar.batch import Schema
+from spark_rapids_tpu_torch.sql import parquet_raw as praw
+from spark_rapids_tpu_torch.sql.scan_pipeline import (
+    DEFAULT_DEPTH, Partition, build_partitions,
+)
+
+
+class ParquetSource:
+    """Parquet scan: one split per row group (reference:
+    GpuParquetScan.scala parses footers and clips row groups on the CPU
+    before the device decode)."""
+
+    def __init__(self, paths, columns: Optional[List[str]] = None):
+        self.paths = [paths] if isinstance(paths, str) else list(paths)
+        if not self.paths:
+            raise FileNotFoundError("no parquet files given")
+        arrow_schema = praw.file_metadata(
+            self.paths[0]).schema.to_arrow_schema()
+        names, dts = [], []
+        for field in arrow_schema:
+            if columns and field.name not in columns:
+                continue
+            names.append(field.name)
+            dts.append(dtmod.from_arrow(field.type))
+        self.columns = list(names)
+        self.schema = Schema(names, dts)
+        # partition plan: (path, row group index)
+        self.splits = [(p, rg) for p in self.paths
+                       for rg in range(praw.file_metadata(p).num_row_groups)]
+
+    def with_columns(self, columns: List[str]) -> "ParquetSource":
+        """Projection view (no footer re-parse): read only ``columns``, in
+        the file's column order."""
+        import copy
+        src = copy.copy(self)
+        src.columns = [c for c in self.columns if c in columns]
+        src.schema = Schema(src.columns, [self.schema.dtype_of(c)
+                                          for c in src.columns])
+        return src
+
+    def raw_partitions(self, blocked: int, depth: int = DEFAULT_DEPTH,
+                       threads: Optional[int] = None) -> List[Partition]:
+        """Device-decode split plan: planning threads produce RawRowGroup
+        decode plans (raw page bytes + run tables) that the consumer
+        decodes on the device (``exec/transitions.upload_partition``).
+        ``blocked`` is the widest char-slab stride a plain string column
+        may take. A row group where NO column rides the device path comes
+        back as its pandas frame."""
+        columns = list(self.columns)
+        dtypes_by_name = dict(zip(self.schema.names, self.schema.dtypes))
+
+        def decode_task(path: str, rg: int):
+            def decode():
+                from spark_rapids_tpu_torch.ops.parquet_decode import (
+                    prepare_rowgroup,
+                )
+                return prepare_rowgroup(path, rg, columns, dtypes_by_name,
+                                        blocked)
+            return decode
+        return build_partitions(
+            [decode_task(p, rg) for p, rg in self.splits], depth, threads)
+
+
+# ---------------------------------------------------------------------------
+# host decode of fallback columns (copies of the JAX package's helpers)
+# ---------------------------------------------------------------------------
+
+def _types_mapper(pa_type):
+    import pyarrow as pa
+    # nullable ints map to pandas extension dtypes so nulls survive
+    m = {pa.int8(): pd.Int8Dtype(), pa.int16(): pd.Int16Dtype(),
+         pa.int32(): pd.Int32Dtype(), pa.int64(): pd.Int64Dtype(),
+         pa.float32(): pd.Float32Dtype(), pa.float64(): pd.Float64Dtype(),
+         pa.bool_(): pd.BooleanDtype()}
+    return m.get(pa_type)
+
+
+def _arrow_to_pandas(table) -> pd.DataFrame:
+    return table.to_pandas(types_mapper=_types_mapper)
+
+
+def _arrow_decode(table) -> pd.DataFrame:
+    """arrow Table -> pandas for the host-decoded columns: non-nullable
+    primitive (int/float/bool) columns convert arrow -> numpy -> Series
+    directly, skipping the pandas nullable extension; columns with nulls,
+    strings, dates/timestamps and dictionaries go through
+    ``_arrow_to_pandas``, so values and null masks are the JAX package's
+    (its ``direct`` decode)."""
+    if table.num_rows == 0 or table.num_columns == 0:
+        return _arrow_to_pandas(table)
+    import pyarrow as pa
+    series: List = []
+    fallback_idx = []
+    for i in range(table.num_columns):
+        col = table.column(i)
+        t = col.type
+        if (col.null_count == 0
+                and (pa.types.is_integer(t) or pa.types.is_floating(t)
+                     or pa.types.is_boolean(t))):
+            series.append(pd.Series(col.to_numpy(zero_copy_only=False),
+                                    copy=False))
+        else:
+            series.append(None)
+            fallback_idx.append(i)
+    if fallback_idx:
+        fb = _arrow_to_pandas(table.select(fallback_idx))
+        for j, i in enumerate(fallback_idx):
+            series[i] = fb.iloc[:, j].reset_index(drop=True)
+    df = pd.concat(series, axis=1)
+    df.columns = list(table.column_names)
+    return df

@@ -1,16 +1,22 @@
 """Where a query's time goes on the card: TPC-H Q1, Q6, Q3, Q4 and the Q18
-group-by through the port's query runners under ``torch.profiler``.
+group-by through the port's query runners under ``torch.profiler``, on
+the pandas upload path and on the device Parquet scan.
 
-For each query: upload its columns, run it once to warm up, then profile
-one run that ends in ``torch.cuda.synchronize()``. Prints, per query, the
-wall seconds, the device busy seconds (the sum of the device-side kernel
-and copy times), the idle share, and the top device-side events by time,
-as one JSON line; writes a Chrome trace per query under ``chiprun_out/``.
+For each query: upload its columns (or, for a ``*_parquet`` query, nothing:
+the scan is part of the profiled run), run it once to warm up, then
+profile one run that ends in ``torch.cuda.synchronize()``. Prints, per
+query, the wall seconds, the device busy seconds (the sum of the
+device-side kernel and copy times), the idle share, and the top
+device-side events by time, as one JSON line; writes a Chrome trace per
+query under ``chiprun_out/``.
 
     python3 -m spark_rapids_tpu_torch.tools.profile_queries
 
 Sizes are chip_smoke.py's: Q1, Q6, Q3 and Q4 at SF10 in 2^23-row batches,
-the Q18 group-by at SF1 in 2^22-row batches.
+the Q18 group-by at SF1 in 2^22-row batches; the Parquet files are
+``models/tpch_data.write_parquet``'s, in
+``spark_rapids_tpu_torch/build/tpch_parquet/`` (written when missing),
+one batch per row group of 2^20 rows.
 """
 
 from __future__ import annotations
@@ -57,11 +63,26 @@ def profile(name: str, fn, top: int, out_dir: str) -> dict:
                      "device_ms": _device_us(e) / 1e3} for e in events[:top]]}
 
 
+def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
+    """{table: path} of the scale factor's Parquet files, written from
+    ``frames`` unless a file is there already."""
+    d = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build",
+                     "tpch_parquet", tag)
+    names = tables or list(G.GENERATORS)
+    paths = {t: os.path.join(d, f"{t}.parquet") for t in names}
+    missing = [t for t in names if not os.path.exists(paths[t])]
+    if missing:
+        G.write_parquet(d, sf, tables=missing, frames=frames)
+    return paths
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: no CUDA device")
     from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.models import tpch_joins as J
+    from spark_rapids_tpu_torch.models import tpch_scan as S
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
@@ -84,12 +105,32 @@ def main() -> None:
     tables = J.upload_q4(frames)
     results.append(profile("q4", lambda: J.q4_from_batches(
         tables).to_pandas(), TOP, out_dir))
-    del tables, frames, df
+    del tables
+    paths = _parquet_files(G, "sf10", 10, frames)
+    del frames, df
+    results.append(profile("q1_parquet", lambda: Q.q1_from_batches(
+        S.scan_table(paths["lineitem"], Q.Q1_COLUMNS)).to_pandas(), TOP,
+        out_dir))
+    results.append(profile("q6_parquet", lambda: Q.q6_from_batches(
+        S.scan_table(paths["lineitem"], Q.Q6_COLUMNS)).to_pandas(), TOP,
+        out_dir))
+    results.append(profile("q3_parquet", lambda: J.q3_from_batches(
+        S.scan_tables(paths, J.Q3_COLUMNS)).to_pandas(), TOP, out_dir))
+    results.append(profile("q4_parquet", lambda: J.q4_from_batches(
+        S.scan_tables(paths, J.Q4_COLUMNS)).to_pandas(), TOP, out_dir))
+    results.append(profile("customer_parquet", lambda: (
+        S.customer_segment_collect(paths["customer"])), TOP, out_dir))
     df = gen_lineitem(1)
     batches = Q.upload_batches(df, Q.Q18_COLUMNS, 1 << 22)
     results.append(profile("q18_groupby", lambda: [
         b.to_pandas() for b in Q.q18_agg_from_batches(batches)],
         TOP, out_dir))
+    del batches
+    path18 = _parquet_files(G, "sf1", 1, {"lineitem": df},
+                            ["lineitem"])["lineitem"]
+    results.append(profile("q18_groupby_parquet", lambda: [
+        b.to_pandas() for b in Q.q18_agg_from_batches(
+            S.scan_table(path18, Q.Q18_COLUMNS))], TOP, out_dir))
     for r in results:
         print(json.dumps(r))
 

@@ -139,6 +139,85 @@ def test_concat_with_keep_masks_matches_reference(rng):
     pd.testing.assert_frame_equal(got.to_pandas(), want.to_pandas())
 
 
+def _slab_batch(strs, other, dict_values=None):
+    """A port batch of a string column (a char slab, or dictionary codes
+    when ``dict_values`` is given) and an int64 column, on the CPU."""
+    from spark_rapids_tpu_torch.columnar import dtype as dtypes
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.columnar.column import (
+        DeviceColumn, np_build_slab, slab_stride_for,
+    )
+    n = len(strs)
+    cap = bucket_capacity(n)
+    valid = np.zeros(cap, bool)
+    valid[:n] = [v is not None for v in strs]
+    if dict_values is None:
+        raw = [(v or "").encode() for v in strs]
+        offs = np.zeros(cap + 1, np.int32)
+        offs[1:n + 1] = np.cumsum([len(v) for v in raw])
+        offs[n + 1:] = offs[n]
+        stride = slab_stride_for(max(map(len, raw), default=0), 64)
+        slab, lens = np_build_slab(
+            np.frombuffer(b"".join(raw) or b"\0", np.uint8), offs, cap,
+            stride)
+        col = DeviceColumn(dtypes.STRING, None, torch.from_numpy(valid),
+                           slab64=torch.from_numpy(slab.view(np.int64)),
+                           lens=torch.from_numpy(lens))
+    else:
+        codes = np.full(cap, len(dict_values), np.int32)
+        codes[:n] = [dict_values.index(v) if v is not None
+                     else len(dict_values) for v in strs]
+        col = DeviceColumn(dtypes.STRING, None, torch.from_numpy(valid),
+                           dict_codes=torch.from_numpy(codes),
+                           dict_values=tuple(dict_values))
+    data = np.zeros(cap, np.int64)
+    data[:n] = other
+    ints = DeviceColumn(dtypes.INT64, torch.from_numpy(data),
+                        torch.from_numpy(np.arange(cap) < n))
+    return DeviceBatch(Schema(["s", "k"], [dtypes.STRING, dtypes.INT64]),
+                       [col, ints], torch.tensor(n, dtype=torch.int32))
+
+
+def _strings(rng, n, width):
+    pool = ["", "a", "bc", "x" * width, "Customer#" + "9" * (width - 9),
+            None, "\u00e9t\u00e9"]
+    return [pool[i] for i in rng.integers(0, len(pool), n)]
+
+
+def test_slab_column_round_trip_and_filter(rng):
+    strs = _strings(rng, 300, 24)
+    b = _slab_batch(strs, np.arange(300))
+    assert b.column("s").has_slab and b.column("s").char_stride == 32
+    got = b.to_pandas()
+    assert [None if pd.isna(v) else v for v in got.s] == strs
+    keep = torch.from_numpy(rng.random(b.capacity) < 0.5)
+    out = rowops.filter_batch(b, keep).to_pandas()
+    sel = [i for i in range(300) if keep[i]]
+    assert list(out.k) == sel
+    assert [None if pd.isna(v) else v for v in out.s] == \
+        [strs[i] for i in sel]
+    sl = rowops.slice_batch(b, 10, 5).to_pandas()
+    assert [None if pd.isna(v) else v for v in sl.s] == strs[10:15]
+
+
+def test_slab_concat_widens_and_converts_dictionaries(rng):
+    a = _strings(rng, 100, 12)   # stride 16
+    c = _strings(rng, 70, 40)    # stride 64
+    d = ["ab", None, "zz", "ab"]
+    parts = [_slab_batch(a, np.arange(100)),
+             _slab_batch(c, np.arange(70)),
+             _slab_batch(d, np.arange(4), dict_values=["ab", "zz"])]
+    out = rowops.concat_batches(parts, 256)
+    assert out.column("s").has_slab and out.column("s").char_stride == 64
+    got = [None if pd.isna(v) else v for v in out.to_pandas().s]
+    assert got == a + c + d
+    masks = [torch.from_numpy(rng.random(p.capacity) < 0.6) for p in parts]
+    out = rowops.concat_batches(parts, 256, keep_masks=masks)
+    want = [v for p, m, vals in zip(parts, masks, (a, c, d))
+            for i, v in enumerate(vals) if m[i]]
+    assert [None if pd.isna(v) else v for v in out.to_pandas().s] == want
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     code = (
         "import sys\n"
@@ -151,6 +230,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import spark_rapids_tpu_torch.ops.sortops\n"
         "import spark_rapids_tpu_torch.testing.hashcheck\n"
         "import spark_rapids_tpu_torch.tools.profile_queries\n"
+        "import spark_rapids_tpu_torch.exec.transitions\n"
+        "import spark_rapids_tpu_torch.obs.metrics\n"
+        "import spark_rapids_tpu_torch.ops.parquet_decode\n"
+        "import spark_rapids_tpu_torch.sql.parquet_raw\n"
+        "import spark_rapids_tpu_torch.sql.scan_pipeline\n"
+        "import spark_rapids_tpu_torch.sql.sources\n"
+        "from spark_rapids_tpu_torch.models import tpch_scan as S\n"
+        "import tempfile\n"
         "out = Q.run_q1(G.gen_lineitem(0.0005), 1024, device='cpu')\n"
         "assert len(out) == 6, out\n"
         "fr = {'lineitem': G.gen_lineitem(0.0005),\n"
@@ -158,6 +245,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "      'customer': G.gen_customer(0.0005)}\n"
         "assert len(J.run_q3(fr, 1024, device='cpu')) == 10\n"
         "assert len(J.run_q4(fr, 1024, device='cpu')) > 0\n"
+        "p = G.write_parquet(tempfile.mkdtemp(), 0.0005, frames=fr)\n"
+        "assert len(S.run_q1_parquet(p['lineitem'], device='cpu')) == 6\n"
+        "assert len(S.run_q3_parquet(p, device='cpu')) == 10\n"
+        "assert len(S.customer_segment_collect(p['customer'],\n"
+        "                                      device='cpu')) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

@@ -116,3 +116,128 @@ def test_hash_join_kernels_match_plain(cuda_device, case):
     c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
         bimg, bv, simg, sv, T))
     assert torch.equal(c, c_p) and torch.equal(rows, rows_p)
+
+
+# ---------------------------------------------------------------------------
+# B5-B8: the device Parquet decode kernels, exact against the plain versions
+# ---------------------------------------------------------------------------
+
+def _dev(a, dev):
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    if a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a).to(dev)
+
+
+def _run_table(rng, nruns, bws, kinds, nwords):
+    """A hybrid run table with a guard row, as ops/parquet_decode plans it:
+    run lengths 1..600, bit-packed runs at random bit offsets."""
+    counts = rng.integers(1, 600, nruns)
+    out_start = np.concatenate([[0], np.cumsum(counts),
+                                [np.iinfo(np.int32).max]]).astype(np.int32)
+    kind = np.append(rng.choice(kinds, nruns), 0).astype(np.uint8)
+    value = np.append(rng.integers(-3, 1 << 20, nruns), 0).astype(np.int32)
+    bw = np.append(rng.choice(bws, nruns), 0).astype(np.int32)
+    bit_start = np.append(rng.integers(0, (nwords - 2) * 32 - 600 * 32,
+                                       nruns), 0).astype(np.int64)
+    return out_start, kind, value, bit_start, bw, int(counts.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bws,kinds", [([0], [1]), ([1], [1]), ([17], [1]),
+                                       ([32], [1]), ([0, 1, 17, 32], [0]),
+                                       ([3, 9, 32], [0, 1])])
+def test_hybrid_expand_kernel_matches_plain(cuda_device, bws, kinds):
+    rng = np.random.default_rng(len(bws) * 10 + len(kinds))
+    nwords = 40_000
+    words = _dev(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
+                 .astype(np.uint32), cuda_device)
+    table = _run_table(rng, 800, bws, kinds, nwords)
+    args = [words] + [_dev(a, cuda_device) for a in table[:5]]
+    total = table[5]
+    # exact length, one past, a padded capacity (guard-row rows), n % 8 != 0
+    for n in (total, total + 1, 1 << 20, 12_345, 1):
+        got = K.hybrid_expand(*args, n)
+        want = K.hybrid_expand_plain(*args, n)
+        assert torch.equal(got, want), n
+
+
+def _delta_chunk(rng, totals, bws, nwords):
+    """A merged DELTA chunk table (ops/parquet_decode.delta_chunk_table's
+    layout): 32-delta miniblocks at random bit offsets, min deltas of both
+    signs."""
+    mstart, bw, mind, bits, first = [], [], [], [], []
+    page_start = [0]
+    for t in totals:
+        base = page_start[-1]
+        for s in range(0, max(t - 1, 0), 32):
+            mstart.append(base + 1 + s)
+            bw.append(rng.choice(bws))
+            mind.append(rng.integers(-(1 << 40), 1 << 40))
+            bits.append(rng.integers(0, (nwords - 2) * 32 - 32 * 32))
+        first.append(rng.integers(-(1 << 62), 1 << 62))
+        page_start.append(base + t)
+    mstart.append(np.iinfo(np.int32).max)
+    bw.append(0)
+    mind.append(0)
+    bits.append(0)
+    return (np.asarray(mstart, np.int32), np.asarray(bw, np.int32),
+            np.asarray(mind, np.int64), np.asarray(bits, np.int64),
+            np.asarray(page_start, np.int32), np.asarray(first, np.int64),
+            int(sum(totals)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_page", "many_pages", "tiny_pages",
+                                  "bw0", "bw32", "wrap32"])
+def test_delta_unpack_kernel_matches_plain(cuda_device, case):
+    rng = np.random.default_rng(len(case))
+    nwords = 200_000
+    totals = {"one_page": [100_000], "many_pages": [20_000] * 13 + [777],
+              "tiny_pages": [1, 2, 0, 33, 1, 2048, 2049, 4095, 1, 5],
+              "bw0": [70_000, 3], "bw32": [9_000, 50_001],
+              "wrap32": [30_000]}[case]
+    bws = {"bw0": [0], "bw32": [32]}.get(case, [0, 1, 17, 27, 32])
+    words = _dev(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
+                 .astype(np.uint32), cuda_device)
+    *table, n = _delta_chunk(rng, totals, bws, nwords)
+    args = [words] + [_dev(a, cuda_device) for a in table]
+    got = K.delta_unpack(*args, n)
+    want = K.delta_unpack_plain(*args, n)
+    assert torch.equal(got, want)
+    if case == "wrap32":  # an INT32 column takes the low 32 bits
+        assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["i32", "f32", "i64", "f64", "bool"])
+def test_plain_fixed_kernel_matches_plain(cuda_device, kind):
+    rng = np.random.default_rng(3)
+    words = _dev(rng.integers(0, 1 << 32, 100_002, dtype=np.uint64)
+                 .astype(np.uint32), cuda_device)
+    for n in (1, 8191, 100_002, 1 << 20):
+        got = K.plain_fixed(words, kind, n)
+        want = K.plain_fixed_plain(words, kind, n)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [8, 16, 32, 64])
+def test_slab_pack_kernel_matches_plain(cuda_device, stride):
+    rng = np.random.default_rng(stride)
+    rows, cap = 50_001, 1 << 16
+    lens = rng.integers(0, stride + 1, rows)
+    lens[::7] = 0  # empty strings
+    starts = np.concatenate([[0], np.cumsum(lens + 4)[:-1]]) + 4
+    chars = rng.integers(0, 256, int(starts[-1] + lens[-1]) + stride + 8)
+    st = np.zeros(cap, np.int64)
+    ln = np.zeros(cap, np.int32)
+    st[:rows], ln[:rows] = starts, lens
+    args = [_dev(chars.astype(np.uint8), cuda_device),
+            _dev(st, cuda_device), _dev(ln, cuda_device)]
+    got = K.slab_pack(*args, cap, stride)
+    want = K.slab_pack_plain(*args, cap, stride)
+    assert torch.equal(got, want)
