@@ -24,6 +24,13 @@ Each query also runs up to its collect under PyTorch's sync debug mode
 (``obs/syncledger.sync_scope``): Q3 must count one per join (2), every other
 query none, and a Parquet scan one per row group (its upload).
 
+B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
+group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
+and the stable argsort of ``~keep`` (the one PyTorch call with B1's
+result); B7 on one stream and on all the PLAIN fixed streams of a Q1 row
+group in one ``plain_fixed_many`` call, beside their clones. A Parquet
+query may make at most one B7 launch per row group.
+
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
 its error against the plain version and its times beside its bound, and as
@@ -90,38 +97,79 @@ def require(cond: bool, what: str) -> None:
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_compaction(n: int, gen: torch.Generator) -> dict:
+def check_compaction(n: int, small: int, gen: torch.Generator) -> dict:
+    """B1 against its plain version (densities 0, 1, 0.5, 0.02; ragged,
+    unaligned and empty masks; sizes around the 4096-row tile, unaligned),
+    then its time at ``n`` rows (a Q1/Q6 batch of the upload path), at
+    ``small`` rows (a Parquet row group's batch) and at 8 rows (its floor:
+    a launch through the wrapper, whatever the work), beside the two
+    PyTorch calls: the stable argsort of ~keep, which computes the same
+    permutation (``library_ms``), and the cumsum of the mask, which
+    computes its scan alone."""
+    from spark_rapids_tpu_torch.ops import cudalib
     from spark_rapids_tpu_torch.ops import kernels as K
     dev = torch.device("cuda")
+    tile = K.COMPACT_TILE_ROWS
+    require(cudalib.load("compact").srt_compact_tile_rows() == tile,
+            "compact_permutation: tile rows differ from the library's")
+
+    def hold(view, what):
+        perm, total = K.compact_permutation(view)
+        perm_p, total_p = K.compact_permutation_plain(view)
+        torch.cuda.synchronize()
+        require(torch.equal(perm, perm_p) and int(total) == int(total_p),
+                f"compact_permutation differs from plain: {what}")
+        return int(total)
+
     cases = {}
     for density in (0.0, 1.0, 0.5, 0.02):
         keep = torch.rand(n, generator=gen, device=dev) < density
-        perm, total = K.compact_permutation(keep)
-        perm_p, total_p = K.compact_permutation_plain(keep)
-        torch.cuda.synchronize()
-        require(torch.equal(perm, perm_p) and int(total) == int(total_p),
-                f"compact_permutation differs from plain at density "
-                f"{density}")
-        cases[str(density)] = int(total)
+        cases[str(density)] = hold(keep, f"density {density}")
     # ragged, unaligned and empty masks
     keep = torch.rand(n + 77, generator=gen, device=dev) < 0.3
     for view in (keep[1:], keep[:0], keep[:5]):
-        perm, total = K.compact_permutation(view)
-        perm_p, total_p = K.compact_permutation_plain(view)
-        require(torch.equal(perm, perm_p) and int(total) == int(total_p),
-                f"compact_permutation differs from plain at n={view.numel()}")
+        hold(view, f"n={view.numel()}")
+    keep = torch.rand(4 * tile, generator=gen, device=dev) < 0.5
+    edges = 0
+    for m in (1, tile - 1, tile, tile + 1, 3 * tile + 1):
+        for start in (0, 1, 3):
+            hold(keep[start:start + m], f"n={m} at byte {start}")
+            edges += 1
     keep = torch.rand(n, generator=gen, device=dev) < 0.5
-    ms = time_ms(lambda: K.compact_permutation(keep), 20)
+    keep_s = keep[:small].clone()
+    keep_8 = keep[:8].clone()
+
+    def b1(k):
+        return lambda: K.compact_permutation(k)
+
+    def argsort(k):
+        return lambda: torch.argsort((~k).to(torch.uint8), stable=True)
+
+    def cumsum(k):
+        return lambda: torch.cumsum(k, 0, dtype=torch.int32)
+    ms = time_ms(b1(keep), 50)
+    ms_small = time_ms(b1(keep_s), 200)
+    floor_ms = time_ms(b1(keep_8), 200)
     plain_ms = time_ms(lambda: K.compact_permutation_plain(keep), 5)
-    library_ms = time_ms(lambda: torch.cumsum(keep, 0, dtype=torch.int32),
-                         20)
+    argsort_ms = time_ms(argsort(keep), 50)
+    cumsum_ms = time_ms(cumsum(keep), 50)
+    argsort_small = time_ms(argsort(keep_s), 200)
+    cumsum_small = time_ms(cumsum(keep_s), 200)
     return {"name": "compact_permutation", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/compact.cu",
             "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:68",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             # read the mask once (1 B a row), write perm once (4 B a row)
             "bound_ms": bound_ms(n * (1 + 4) + 4), "bound_by": "bytes",
-            "library_ms": library_ms, "rows": n, "kept_totals": cases}
+            "library_ms": argsort_ms,
+            "library_call": "torch.argsort((~keep).to(torch.uint8), "
+                            "stable=True)",
+            "cumsum_ms": cumsum_ms, "rows": n, "floor_ms": floor_ms,
+            "small_rows": small, "small_ms": ms_small,
+            "small_bound_ms": bound_ms(small * 5 + 4),
+            "small_argsort_ms": argsort_small,
+            "small_cumsum_ms": cumsum_small, "kept_totals": cases,
+            "tile_edge_checks": edges}
 
 
 def _by_rep(counts, rep, accs, nels):
@@ -436,6 +484,28 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _q1_plain_streams(path: str) -> list:
+    """The (words, kind, n) of row group 0's PLAIN fixed streams over Q1's
+    columns (values and dictionary pages), as ``decode_rowgroup`` hands
+    them to one ``plain_fixed_many`` call."""
+    from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    plans = {c: column_plan(path, c) for c in Q.Q1_COLUMNS}
+    streams = PD.plain_streams(plans, {c: p["dev"] for c, p in plans.items()})
+    require(bool(streams), "Q1's columns hold no PLAIN fixed stream")
+    return [s for _name, s in streams]
+
+
+_CLONE_DTYPES = {"i32": torch.int32, "f32": torch.float32,
+                 "i64": torch.int64, "f64": torch.float64}
+
+
+def _clone_of(words: torch.Tensor, kind: str, n: int) -> torch.Tensor:
+    """One PyTorch call with B7's result for a fixed-width kind: the words
+    viewed as the values, cut to n and cloned."""
+    return words.view(_CLONE_DTYPES[kind])[:n].clone()
+
+
 def write_edge_files(out_dir: str) -> dict:
     """Small Parquet files of the decode's edge cases: an INT32 DELTA
     column whose deltas wrap in 32 bits, an INT64 one with negative deltas,
@@ -547,6 +617,19 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
         for n in (1, 8191, nwords, 1 << 20):
             hold("plain_fixed", K.plain_fixed(words, kind, n),
                  K.plain_fixed_plain(words, kind, n), f"{kind} n={n}")
+    # a Q1 row group's PLAIN fixed streams in one launch, as decode_rowgroup
+    # hands them over; then more streams than a launch takes, every kind,
+    # sources aligned and not
+    rg_streams = _q1_plain_streams(paths["lineitem"])
+    for got, want in zip(K.plain_fixed_many(rg_streams),
+                         K.plain_fixed_many_plain(rg_streams)):
+        hold("plain_fixed", got, want, "Q1 row group streams")
+    mixed = [(words[off:off + 2 * (97 * j + 1)],
+              ("i32", "f32", "i64", "f64", "bool")[j % 5], 150 * j)
+             for j in range(40) for off in (0, 1)]
+    for got, want in zip(K.plain_fixed_many(mixed),
+                         K.plain_fixed_many_plain(mixed)):
+        hold("plain_fixed", got, want, "80 mixed streams")
 
     # B8: c_name byte arrays, the edge file's empty strings and nulls
     name = column_plan(paths["customer"], "c_name")
@@ -599,6 +682,9 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
         timed_pages=int(args[6].shape[0]),
         timed_miniblocks=int(args[1].shape[0]) - 1,
         checks=checked["delta_unpack"]))
+    # each stream's values read once and written once
+    rg_bytes = sum(2 * t.numel() * t.element_size()
+                   for t in K.plain_fixed_many_plain(rg_streams))
     out.append(dict(
         common, name="plain_fixed",
         replaces="spark_rapids_tpu/ops/pallas_kernels.py:1075",
@@ -609,6 +695,14 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
         library_ms=time_ms(
             lambda: vals.view(torch.float64)[:n_pr].clone(), 50),
         timed="l_extendedprice, row group 0", timed_rows=n_pr,
+        rowgroup="lineitem row group 0, Q1's PLAIN fixed streams",
+        rowgroup_segments=len(rg_streams),
+        rowgroup_ms=time_ms(lambda: K.plain_fixed_many(rg_streams), 200),
+        rowgroup_plain_ms=time_ms(
+            lambda: K.plain_fixed_many_plain(rg_streams), 20),
+        rowgroup_clones_ms=time_ms(lambda: [
+            _clone_of(*s) for s in rg_streams], 200),
+        rowgroup_bound_ms=bound_ms(rg_bytes),
         checks=checked["plain_fixed"]))
     up = name["dev"]
     a = [up["chars"], up["st"], up["ln"], up["st"].shape[0],
@@ -852,6 +946,9 @@ def run_parquet_query(name: str, scan, query, runs: int,
     require_syncs(name, lambda: query(scan(), False),
                   row_groups + own_syncs)
     require(launches["hybrid_expand"] > 0, f"{name}: the scan ran no B5")
+    require(launches["plain_fixed"] <= row_groups, f"{name}: "
+            f"{launches['plain_fixed']} B7 launches for {row_groups} row "
+            "groups")
     med = float(np.median(walls))
     log(f"{name}: scan+query median {med:.4f} s of {walls}, scan "
         f"{np.median(scans):.4f} s of {scans}, launches {launches}")
@@ -916,13 +1013,19 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261016)
-    kernels = [check_compaction(b1_rows, gen),
+    kernels = [check_compaction(b1_rows, 1 << 20, gen),
                check_hash_agg(b2_rows, b2_keys, q18_part, gen)]
     torch.cuda.empty_cache()
     kernels += check_hash_join(b34_rows, b34_cap, b34_live, b34_probe, gen)
     for k in kernels:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
             f" bound {k['bound_ms']:.4f} err {k['max_abs_err']}")
+    b1 = kernels[0]
+    log(f"kernel compact_permutation: {b1['rows']} rows ms {b1['ms']:.4f} "
+        f"argsort {b1['library_ms']:.4f} cumsum {b1['cumsum_ms']:.4f}; "
+        f"{b1['small_rows']} rows ms {b1['small_ms']:.4f} argsort "
+        f"{b1['small_argsort_ms']:.4f} cumsum {b1['small_cumsum_ms']:.4f} "
+        f"bound {b1['small_bound_ms']:.4f}; floor {b1['floor_ms']:.4f}")
     torch.cuda.empty_cache()
 
     queries = {}
@@ -1035,6 +1138,12 @@ def main() -> int:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
             f" bound {k['bound_ms']:.4f} floor {k['floor_ms']:.4f} checks "
             f"{k['checks']}")
+    b7 = kernels[-2]
+    log(f"kernel plain_fixed row group: {b7['rowgroup_segments']} streams "
+        f"ms {b7['rowgroup_ms']:.4f} clones {b7['rowgroup_clones_ms']:.4f} "
+        f"plain {b7['rowgroup_plain_ms']:.4f} bound "
+        f"{b7['rowgroup_bound_ms']:.4f}; one stream ms {b7['ms']:.4f} "
+        f"clone {b7['library_ms']:.4f}")
     torch.cuda.empty_cache()
     rgs = {t: praw.file_metadata(p).num_row_groups for t, p in paths.items()}
 

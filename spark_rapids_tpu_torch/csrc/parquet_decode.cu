@@ -28,8 +28,18 @@
 //     and stores the tile's aggregate; one block scans the tile aggregates;
 //     the elements of a tile that precede its first page head add the
 //     tile's carry. Sums wrap in 64 bits, as the jnp twin's int64 cumsum.
-//   * B7 plain_fixed: one thread per output value, 4 or 8 bytes re-blocked
-//     from the u32 words; a bool is bit k&31 of word k>>5.
+//   * B7 plain_fixed: one launch decodes all the PLAIN fixed-width streams
+//     of a row group (up to 32 segments, their descriptors passed by value
+//     in the kernel's parameters). PLAIN i32/f32/i64/f64 is a byte copy of
+//     the first m * width bytes of the words, so each thread copies 16-byte
+//     chunks of the outputs laid end to end: one 16-byte load and store
+//     where source and output are 16-byte aligned (upload_arrays aligns
+//     every source; each output is its own allocation), word by word in
+//     the ragged tail and for unaligned sources. A bool is bit k & 31 of word min(k >> 5, nwords - 1); a
+//     chunk's 16 bools share one word. The stream's bytes are few (16 MB at
+//     a row group's 2^20 float64 values: ~5 us at 3.35 TB/s), so one launch
+//     per stream cost its dispatch, not its bytes: one launch per row group
+//     pays it once.
 //   * B8 slab_pack: one thread per output word (row r, word w): the 8 bytes
 //     at chars[starts[r] + 8w ...], zero at and past lens[r], packed
 //     little-endian (byte j at bit 8j), as columnar.column.np_build_slab.
@@ -51,6 +61,9 @@ constexpr int kMaxBlocks = 132 * 16;  // grid-stride beyond 16 blocks an SM
 constexpr int kDeltaItems = 8;        // elements per thread in a B6 tile
 constexpr int kDeltaTile = kThreads * kDeltaItems;
 constexpr int kScanThreads = 1024;
+constexpr int kMaxPlainSegments = 32;  // B7 streams per launch
+constexpr int kCopyChunksPerThread = 4;  // B7: 16-byte chunks a thread
+constexpr int kCopyBlockChunks = kThreads * kCopyChunksPerThread;
 
 int grid_for(long long n) {
   long long b = (n + kThreads - 1) / kThreads;
@@ -308,23 +321,75 @@ __global__ void delta_add_carry(const int* __restrict__ page_start,
 // B7: PLAIN fixed-width re-blocking
 // ---------------------------------------------------------------------------
 
-__global__ void plain_fixed_kernel(const uint32_t* __restrict__ words,
-                                   long long nwords, int width,
-                                   void* __restrict__ out, long long n) {
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (width == 4) {
-      static_cast<uint32_t*>(out)[k] = words[k];
-    } else if (width == 8) {
-      static_cast<unsigned long long*>(out)[k] =
-          static_cast<unsigned long long>(words[2 * k]) |
-          (static_cast<unsigned long long>(words[2 * k + 1]) << 32);
-    } else {  // bool: bit k & 31 of word k >> 5, the word index clamped
-      long long w = k >> 5;
-      if (w > nwords - 1) w = nwords - 1;
-      static_cast<uint8_t*>(out)[k] =
-          static_cast<uint8_t>((words[w] >> (k & 31)) & 1u);
+// One output stream of a plain_fixed_many launch. Its blocks are
+// [block0, block0 + ceil(chunks / kCopyBlockChunks)) of the grid.
+struct PlainSeg {
+  const uint32_t* src;
+  void* dst;
+  long long nwords;  // source words
+  long long n;       // output values
+  int width;         // 4 (i32, f32), 8 (i64, f64) or 1 (bool)
+  int block0;
+};
+
+struct PlainBatch {
+  PlainSeg seg[kMaxPlainSegments];
+  int nseg;
+};
+
+__global__ void plain_fixed_many_kernel(
+    const __grid_constant__ PlainBatch b) {
+  int s = 0;  // the block's segment: the last whose first block is <= it
+  for (int i = 1; i < b.nseg; ++i) {
+    if (b.seg[i].block0 <= static_cast<int>(blockIdx.x)) s = i;
+  }
+  const PlainSeg& g = b.seg[s];
+  const long long out_bytes = g.n * g.width;
+  const long long chunks = (out_bytes + 15) >> 4;
+  const long long c0 =
+      static_cast<long long>(static_cast<int>(blockIdx.x) - g.block0) *
+          kCopyBlockChunks + threadIdx.x;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(g.src) |
+                         reinterpret_cast<uintptr_t>(g.dst)) & 15) == 0;
+#pragma unroll
+  for (int it = 0; it < kCopyChunksPerThread; ++it) {
+    const long long c = c0 + static_cast<long long>(it) * kThreads;
+    if (c >= chunks) break;
+    if (g.width == 1) {
+      // output bytes 16c .. 16c + 15 are bits of one (clamped) word
+      long long w = c >> 1;
+      if (w > g.nwords - 1) w = g.nwords - 1;
+      const uint32_t bits = g.src[w] >> ((c & 1) * 16);
+      uint8_t* out = static_cast<uint8_t*>(g.dst) + 16 * c;
+      if (aligned && 16 * c + 16 <= g.n) {
+        uint32_t q[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          q[j] = 0;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            q[j] |= ((bits >> (4 * j + t)) & 1u) << (8 * t);
+          }
+        }
+        *reinterpret_cast<uint4*>(out) = make_uint4(q[0], q[1], q[2], q[3]);
+      } else {
+        for (int j = 0; j < 16 && 16 * c + j < g.n; ++j) {
+          out[j] = static_cast<uint8_t>((bits >> j) & 1u);
+        }
+      }
+    } else {
+      // a byte copy of the first n * width bytes, as u32 words
+      const long long out_words = out_bytes >> 2;
+      const long long w = 4 * c;
+      if (aligned && w + 4 <= out_words) {
+        reinterpret_cast<uint4*>(g.dst)[c] =
+            __ldg(reinterpret_cast<const uint4*>(g.src) + c);
+      } else {
+        uint32_t* out = static_cast<uint32_t*>(g.dst);
+        for (long long j = w; j < w + 4 && j < out_words; ++j) {
+          out[j] = g.src[j];
+        }
+      }
     }
   }
 }
@@ -419,14 +484,38 @@ extern "C" int srt_delta_unpack(const uint32_t* words, long long nwords,
   return cudaSuccess;
 }
 
-// width 4 (i32, f32), 8 (i64, f64) or 1 (bool, one byte per value); out:
-// n values of that width.
-extern "C" int srt_plain_fixed(const uint32_t* words, long long nwords,
-                               int width, void* out, long long n,
-                               cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  plain_fixed_kernel<<<grid_for(n), kThreads, 0, stream>>>(words, nwords,
-                                                           width, out, n);
+extern "C" int srt_plain_fixed_max_segments() { return kMaxPlainSegments; }
+
+// desc: nseg rows of five int64 {words, nwords, width, out, n}: the u32
+// source words, their count, the output width (4 for i32/f32, 8 for
+// i64/f64, 1 for bool, one byte per value) and n output values of that
+// width; nseg <= srt_plain_fixed_max_segments(). One launch for all rows.
+extern "C" int srt_plain_fixed_many(const long long* desc, int nseg,
+                                    cudaStream_t stream) {
+  if (nseg < 0 || nseg > kMaxPlainSegments) return cudaErrorInvalidValue;
+  PlainBatch b;
+  b.nseg = 0;
+  long long blocks = 0;
+  for (int i = 0; i < nseg; ++i) {
+    const long long* d = desc + 5 * i;
+    const int width = static_cast<int>(d[2]);
+    if (width != 1 && width != 4 && width != 8) return cudaErrorInvalidValue;
+    const long long chunks = (d[4] * width + 15) >> 4;
+    const long long nb = (chunks + kCopyBlockChunks - 1) / kCopyBlockChunks;
+    if (nb <= 0) continue;
+    PlainSeg& g = b.seg[b.nseg++];
+    g.src = reinterpret_cast<const uint32_t*>(d[0]);
+    g.nwords = d[1];
+    g.width = width;
+    g.dst = reinterpret_cast<void*>(d[3]);
+    g.n = d[4];
+    g.block0 = static_cast<int>(blocks);
+    blocks += nb;
+    if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return cudaSuccess;
+  plain_fixed_many_kernel<<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+      b);
   return cudaGetLastError();
 }
 

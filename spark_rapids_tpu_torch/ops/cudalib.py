@@ -34,7 +34,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: name -> {function: (restype, argtypes)}
 _SIGNATURES = {
     "compact": {
-        "srt_compact_permutation": (_I, [_P, _LL, _P, _P, _P, _P, _P]),
+        "srt_compact_permutation": (_I, [_P, _LL, _P, _P, _P, _P, _P,
+                                           _P]),
         "srt_compact_tile_rows": (_I, []),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
@@ -56,7 +57,8 @@ _SIGNATURES = {
         "srt_delta_unpack": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I,
                                   _P, _LL, _P, _P, _P, _P]),
         "srt_delta_tile_rows": (_I, []),
-        "srt_plain_fixed": (_I, [_P, _LL, _I, _P, _LL, _P]),
+        "srt_plain_fixed_many": (_I, [_P, _I, _P]),
+        "srt_plain_fixed_max_segments": (_I, []),
         "srt_slab_pack": (_I, [_P, _LL, _P, _P, _LL, _I, _P, _P]),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -20,8 +20,9 @@ All eight of the JAX package's Pallas kernels have a counterpart here:
     ``delta_unpack`` (B6; ``_delta_unpack_kernel``) decodes a whole
     DELTA_BINARY_PACKED column chunk in one launch, its pages as segments;
     ``plain_fixed`` (B7; ``_plain_fixed_kernel``) re-blocks PLAIN words
-    into i32/i64/f32/f64/bool; ``slab_pack`` (B8; ``_slab_pack_kernel``)
-    packs PLAIN byte arrays into char slabs.
+    into i32/i64/f32/f64/bool, and ``plain_fixed_many`` decodes a row
+    group's PLAIN streams in one launch; ``slab_pack`` (B8;
+    ``_slab_pack_kernel``) packs PLAIN byte arrays into char slabs.
 
 Each public function takes the kernel's plain PyTorch version for a tensor
 that lies on the CPU, and launches the CUDA kernel for a CUDA tensor, or
@@ -44,12 +45,14 @@ plain versions widen words to int64 and mask them with 0xFFFFFFFF.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.column import host_to_device
+from spark_rapids_tpu_torch.ops import cudalib
 from spark_rapids_tpu_torch.ops.hashing import as_signed, splitmix64
 
 LAUNCHES: Dict[str, int] = {"compact_permutation": 0,
@@ -68,13 +71,15 @@ def reset_launches() -> None:
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{what}: tensors must lie on the CPU (plain "
                          f"version) or on a CUDA device, got {t.device}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream on ``device``, without
+    building a Python Stream object (the call Triton makes)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +104,19 @@ def compact_permutation_plain(keep: torch.Tensor
     return perm, total
 
 
+# rows per B1 tile (csrc/compact.cu kTile)
+COMPACT_TILE_ROWS = 4096
+# B1's ticket counters, one zeroed int32 per (device, stream), kept: the
+# last count block of a call resets its ticket for the next call
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
 def compact_permutation(keep: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable-partition permutation: kept row indices first (in order), then
-    the rest. Returns (perm int32 (n,), kept_total int32 0-d)."""
-    if keep.device.type == "cpu":
+    the rest. Returns (perm int32 (n,), kept_total int32 0-d); on the card
+    both are views of one allocation with the kernel's tile scratch."""
+    if keep.is_cpu:
         return compact_permutation_plain(keep)
     _require_cuda(keep, "compact_permutation")
     if keep.dtype != torch.bool or keep.dim() != 1:
@@ -112,20 +125,25 @@ def compact_permutation(keep: torch.Tensor
     n = keep.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"compact_permutation: {n} rows exceed int32")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("compact")
     keep = keep.contiguous()
-    tile = lib.srt_compact_tile_rows()
-    ntiles = max(1, -(-n // tile))
-    scratch = torch.empty(2 * ntiles, dtype=torch.int32, device=keep.device)
-    total = torch.empty((), dtype=torch.int32, device=keep.device)
-    perm = torch.empty(n, dtype=torch.int32, device=keep.device)
+    dev = keep.device
+    stream = _stream(dev)
+    ticket = _TICKETS.get((dev.index, stream))
+    if ticket is None:
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        _TICKETS[(dev.index, stream)] = ticket
+    ntiles = max(1, -(-n // COMPACT_TILE_ROWS))
+    # [perm (n) | total | tile counts (ntiles) | tile offsets (ntiles)]
+    buf = torch.empty(n + 1 + 2 * ntiles, dtype=torch.int32, device=dev)
+    base = buf.data_ptr()
+    tiles = base + 4 * (n + 1)
     err = lib.srt_compact_permutation(
-        keep.data_ptr(), n, scratch.data_ptr(), scratch[ntiles:].data_ptr(),
-        total.data_ptr(), perm.data_ptr(), _stream())
+        keep.data_ptr(), n, tiles, tiles + 4 * ntiles, base + 4 * n,
+        ticket.data_ptr(), base, stream)
     cudalib.check(lib, err, "compact_permutation")
     LAUNCHES["compact_permutation"] += 1
-    return perm, total
+    return buf[:n], buf[n]
 
 
 # ---------------------------------------------------------------------------
@@ -243,10 +261,9 @@ def hash_table_build(images: Sequence[torch.Tensor], valid: torch.Tensor,
     T) int64 key words (0 where unused), counts (T,) int32 rows per slot).
     The TPU kernel's exact arrival rank needs its sequential insert; a
     parallel build has none, so ``rank`` is None as in the jnp twin."""
-    if valid.device.type == "cpu":
+    if valid.is_cpu:
         return hash_table_build_plain(images, valid, table_size)
     _require_cuda(valid, "hash_table_build")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("hash_join")
     T = table_size
     keys, valid = _key_words(images, valid, lib.srt_hash_join_max_keys(),
@@ -261,7 +278,7 @@ def hash_table_build(images: Sequence[torch.Tensor], valid: torch.Tensor,
     err = lib.srt_hash_build(keys.data_ptr(), len(images), n,
                              valid.data_ptr(), table.data_ptr(),
                              state.data_ptr(), T, counts.data_ptr(),
-                             slot.data_ptr(), _stream())
+                             slot.data_ptr(), _stream(dev))
     cudalib.check(lib, err, "hash_table_build")
     LAUNCHES["hash_table_build"] += 1
     return slot, None, table, counts
@@ -299,11 +316,10 @@ def hash_table_probe(table: torch.Tensor, counts: torch.Tensor,
                      table_size: int) -> torch.Tensor:
     """Slot of each probe row's key in a ``hash_table_build`` table, or
     ``table_size`` where the key is absent or the row invalid."""
-    if valid.device.type == "cpu":
+    if valid.is_cpu:
         return hash_table_probe_plain(table, counts, images, valid,
                                       table_size)
     _require_cuda(valid, "hash_table_probe")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("hash_join")
     T = table_size
     k = len(images)
@@ -323,7 +339,7 @@ def hash_table_probe(table: torch.Tensor, counts: torch.Tensor,
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     err = lib.srt_hash_probe(table.data_ptr(), counts.data_ptr(),
                              keys.data_ptr(), k, n, valid.data_ptr(), T,
-                             slot.data_ptr(), _stream())
+                             slot.data_ptr(), _stream(dev))
     cudalib.check(lib, err, "hash_table_probe")
     LAUNCHES["hash_table_probe"] += 1
     return slot
@@ -488,12 +504,11 @@ def hash_grouped_aggregate(images: Sequence[torch.Tensor],
     (T,) accumulators, nels: per-job (T,) int32 eligible counts). acc holds
     the kind's neutral where its nel == 0; the caller compacts used slots
     (counts > 0) into group rows and masks by nel."""
-    if valid.device.type == "cpu":
+    if valid.is_cpu:
         return hash_grouped_aggregate_plain(images, valid, jobs, table_size)
     _require_cuda(valid, "hash_grouped_aggregate")
     T = table_size
     k = len(images)
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("hash_agg")
     keys, valid = _key_words(images, valid, lib.srt_hash_agg_max_keys(),
                              "hash_grouped_aggregate")
@@ -527,7 +542,7 @@ def hash_grouped_aggregate(images: Sequence[torch.Tensor],
     err = lib.srt_hash_agg(keys.data_ptr(), k, n, valid.data_ptr(),
                            table.data_ptr(), state.data_ptr(), T,
                            counts.data_ptr(), rep.data_ptr(),
-                           job_table.data_ptr(), len(rows), _stream())
+                           job_table.data_ptr(), len(rows), _stream(dev))
     cudalib.check(lib, err, "hash_grouped_aggregate")
     LAUNCHES["hash_grouped_aggregate"] += 1
     return counts, rep, accs, nels
@@ -606,7 +621,7 @@ def hybrid_expand(words, out_start, kind, value, bit_start, bw,
     uint8 (0 RLE, 1 bit-packed), ``value`` int32, ``bit_start`` int64 and
     ``bw`` int32 (<= 32, per run). Output k takes run
     searchsorted(out_start, k, right) - 1 clipped to the guard row."""
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return hybrid_expand_plain(words, out_start, kind, value, bit_start,
                                    bw, n)
     what = "hybrid_expand"
@@ -623,14 +638,13 @@ def hybrid_expand(words, out_start, kind, value, bit_start, bw,
             or n >= 1 << 31):
         raise ValueError(f"{what}: run table rows differ, or no runs, no "
                          f"words, or {n} outputs exceed int32")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("parquet_decode")
     out = torch.empty(n, dtype=torch.int32, device=words.device)
     err = lib.srt_hybrid_expand(
         words.data_ptr(), words.shape[0], out_start.data_ptr(),
         out_start.shape[0], kind.data_ptr(), value.data_ptr(),
         bit_start.data_ptr(), bw.data_ptr(), nruns, out.data_ptr(), n,
-        _stream())
+        _stream(words.device))
     cudalib.check(lib, err, what)
     LAUNCHES["hybrid_expand"] += 1
     return out
@@ -676,7 +690,7 @@ def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
     first[p]; every later element of page p adds its delta to the one
     before it. The output is the JAX package's per-page ``delta_unpack``
     results concatenated."""
-    if words.device.type == "cpu":
+    if words.is_cpu:
         return delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,
                                   page_start, first, n)
     what = "delta_unpack"
@@ -696,7 +710,6 @@ def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
             or words.shape[0] == 0 or n >= 1 << 31):
         raise ValueError(f"{what}: miniblock or page table shapes differ, "
                          f"or {n} outputs exceed int32")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("parquet_decode")
     dev = words.device
     ntiles = max(1, -(-n // lib.srt_delta_tile_rows()))
@@ -708,7 +721,7 @@ def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
         words.data_ptr(), words.shape[0], mstart.data_ptr(),
         bwid.data_ptr(), min_delta.data_ptr(), bit_start.data_ptr(), nmini,
         page_start.data_ptr(), first.data_ptr(), npages, out.data_ptr(), n,
-        tile_v.data_ptr(), tile_f.data_ptr(), carry.data_ptr(), _stream())
+        tile_v.data_ptr(), tile_f.data_ptr(), carry.data_ptr(), _stream(dev))
     cudalib.check(lib, err, what)
     LAUNCHES["delta_unpack"] += 1
     return out
@@ -749,28 +762,68 @@ def plain_fixed_plain(words, kind: str, n: int) -> torch.Tensor:
     return ((w >> (k & 31).to(torch.int32)) & 1).to(torch.bool)
 
 
+def plain_fixed_many_plain(streams) -> List[torch.Tensor]:
+    """Plain version of ``plain_fixed_many``: ``plain_fixed_plain`` of each
+    stream."""
+    return [plain_fixed_plain(words, kind, n) for words, kind, n in streams]
+
+
+# streams per B7 launch (csrc/parquet_decode.cu kMaxPlainSegments)
+PLAIN_MAX_SEGMENTS = 32
+
+
+def plain_fixed_many(streams) -> List[torch.Tensor]:
+    """``plain_fixed`` of each ``(words, kind, n)`` of ``streams``, all in
+    one launch (one per 32 streams)."""
+    if not streams:
+        return []
+    if streams[0][0].is_cpu:
+        return plain_fixed_many_plain(streams)
+    what = "plain_fixed"
+    _require_cuda(streams[0][0], what)
+    dev = streams[0][0].device
+    index = dev.index
+    outs, desc = [], []
+    for words, kind, n in streams:
+        if words.get_device() != index:
+            raise ValueError(f"{what}: tensors on {words.device} and {dev}")
+        if (words.dtype != torch.int32 or words.dim() != 1
+                or not words.is_contiguous()):
+            raise TypeError(f"{what}: words must be contiguous 1-d int32, "
+                            f"got {words.dtype} {tuple(words.shape)}")
+        m = _plain_out_len(words, kind, n)
+        if words.shape[0] == 0 or m >= 1 << 31:
+            raise ValueError(f"{what}: no words, or {m} outputs exceed "
+                             "int32")
+        dtype, width = _PLAIN_KINDS[kind]
+        # its own allocation: 16-byte aligned, as the 16-byte stores want,
+        # and one allocator call, cheaper on the host than a view of a
+        # shared buffer cut and retyped
+        out = torch.empty(m, dtype=dtype, device=dev)
+        outs.append(out)
+        if m:
+            desc.append((words.data_ptr(), words.shape[0], width,
+                         out.data_ptr(), m))
+    lib = cudalib.load("parquet_decode")
+    stream = _stream(dev)
+    for i in range(0, len(desc), PLAIN_MAX_SEGMENTS):
+        part = desc[i:i + PLAIN_MAX_SEGMENTS]
+        rows = (ctypes.c_longlong * (5 * len(part)))(
+            *[v for row in part for v in row])
+        err = lib.srt_plain_fixed_many(rows, len(part), stream)
+        cudalib.check(lib, err, what)
+        LAUNCHES["plain_fixed"] += 1
+    return outs
+
+
 def plain_fixed(words, kind: str, n: int) -> torch.Tensor:
     """Reassemble a PLAIN fixed-width value stream from its u32 words
     (int32 ``words``): ``kind`` in {i32, i64, f32, f64, bool}. Returns the
     first n values (fewer when the stream holds fewer; a bool is bit k & 31
-    of word k >> 5)."""
-    if words.device.type == "cpu":
+    of word k >> 5). On the card, ``plain_fixed_many`` with one stream."""
+    if words.is_cpu:
         return plain_fixed_plain(words, kind, n)
-    what = "plain_fixed"
-    _decode_check(what, [words])
-    _check_dtypes(what, [("words", words, torch.int32)])
-    m = _plain_out_len(words, kind, n)
-    if words.shape[0] == 0 or m >= 1 << 31:
-        raise ValueError(f"{what}: no words, or {m} outputs exceed int32")
-    from spark_rapids_tpu_torch.ops import cudalib
-    lib = cudalib.load("parquet_decode")
-    dtype, width = _PLAIN_KINDS[kind]
-    out = torch.empty(m, dtype=dtype, device=words.device)
-    err = lib.srt_plain_fixed(words.data_ptr(), words.shape[0], width,
-                              out.data_ptr(), m, _stream())
-    cudalib.check(lib, err, what)
-    LAUNCHES["plain_fixed"] += 1
-    return out
+    return plain_fixed_many([(words, kind, n)])[0]
 
 
 def slab_pack_plain(chars, starts, lens, cap: int,
@@ -794,7 +847,7 @@ def slab_pack(chars, starts, lens, cap: int, stride: int) -> torch.Tensor:
     at bit 8*(j%8) of word j//8, zero past the row's length). ``chars``
     uint8; ``starts`` int64 and ``lens`` int32 padded to ``cap`` rows with
     0-length rows."""
-    if chars.device.type == "cpu":
+    if chars.is_cpu:
         return slab_pack_plain(chars, starts, lens, cap, stride)
     what = "slab_pack"
     _decode_check(what, [chars, starts, lens])
@@ -805,13 +858,13 @@ def slab_pack(chars, starts, lens, cap: int, stride: int) -> torch.Tensor:
             or stride % 8):
         raise ValueError(f"{what}: starts and lens must hold {cap} rows and "
                          f"the stride {stride} be a positive multiple of 8")
-    from spark_rapids_tpu_torch.ops import cudalib
     lib = cudalib.load("parquet_decode")
     out = torch.empty((cap, stride // 8), dtype=torch.int64,
                       device=chars.device)
     err = lib.srt_slab_pack(chars.data_ptr(), chars.shape[0],
                             starts.data_ptr(), lens.data_ptr(), cap,
-                            stride // 8, out.data_ptr(), _stream())
+                            stride // 8, out.data_ptr(),
+                            _stream(chars.device))
     cudalib.check(lib, err, what)
     LAUNCHES["slab_pack"] += 1
     return out

@@ -617,9 +617,28 @@ def _zero(dtype, device) -> torch.Tensor:
     return torch.zeros((), dtype=dtype, device=device)
 
 
+def plain_streams(plans: dict, dev_tree: dict) -> List[tuple]:
+    """[(column, (words, kind, n))] of a row group's PLAIN fixed-width
+    streams: ``fixed_plain`` value streams and ``fixed_dict`` dictionary
+    pages, the arguments of one ``plain_fixed_many`` call."""
+    out = []
+    for name, plan in plans.items():
+        meta = plan["meta"]
+        if plan["kind"] == "fixed_plain":
+            out.append((name, (dev_tree[name]["vals"], meta["pkind"],
+                               bucket_capacity(max(meta["nn"], 1)))))
+        elif plan["kind"] == "fixed_dict":
+            out.append((name, (dev_tree[name]["dv_words"], meta["pkind"],
+                               max(meta["card"], 1))))
+    return out
+
+
 def _decode_column(plan: dict, up: dict, dt, cap: int,
-                   dict_state: Optional[dict], i: int, dev) -> DeviceColumn:
-    """One uploaded plan -> DeviceColumn."""
+                   dict_state: Optional[dict], i: int, dev,
+                   plain_vals: Optional[torch.Tensor]) -> DeviceColumn:
+    """One uploaded plan -> DeviceColumn. ``plain_vals``: the decoded PLAIN
+    stream of a ``fixed_plain`` or ``fixed_dict`` plan (``plain_streams``),
+    else None."""
     meta = plan["meta"]
     kind = plan["kind"]
     validity = _decode_levels(up, meta, cap, meta["n"], dev)
@@ -632,9 +651,7 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
                             validity)
 
     if kind == "fixed_plain":
-        nv = bucket_capacity(max(meta["nn"], 1))
-        vals_v = K.plain_fixed(up["vals"], meta["pkind"], nv)
-        return _finish_fixed(dt, vals_v, validity, meta, fill)
+        return _finish_fixed(dt, plain_vals, validity, meta, fill)
 
     if kind == "fixed_delta":
         vals_v = K.delta_unpack(up["dl_words"], up["dc_mstart"],
@@ -648,9 +665,7 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
     if kind == "fixed_dict":
         nv = bucket_capacity(max(meta["nn"], 1))
         codes_v = _decode_codes(up, nv)
-        dvals = K.plain_fixed(up["dv_words"], meta["pkind"],
-                              max(meta["card"], 1))
-        vals_v = dvals[codes_v.clamp(0, max(meta["card"] - 1, 0)).long()]
+        vals_v = plain_vals[codes_v.clamp(0, max(meta["card"] - 1, 0)).long()]
         return _finish_fixed(dt, vals_v, validity, meta, fill)
 
     if kind == "str_plain":
@@ -752,7 +767,8 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
                     device="cuda") -> DeviceBatch:
     """RawRowGroup -> one DeviceBatch at ``bucket_capacity(rows)``: one
     host-to-device copy of every plan's buffers and every fallback
-    column's host buffers, then the kernel decode (no host sync).
+    column's host buffers, then the kernel decode (no host sync), with
+    every PLAIN fixed-width stream in one B7 launch.
     ``dict_state`` is the scan's dictionary and slab-stride registry,
     shared by all its row groups."""
     n = raw.n
@@ -771,12 +787,18 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
     _DEV_COLS.add(len(raw.plans))
     _DEV_SPLITS.add(1)
     with _DEC_TIME.time():
+        plain = {}
+        streams = plain_streams(raw.plans, dev_tree)
+        if streams:
+            names, args = zip(*streams)
+            plain = dict(zip(names, K.plain_fixed_many(list(args))))
         cols = []
         for i, name in enumerate(schema.names):
             dt = dt_by_name[name]
             if name in raw.plans:
                 cols.append(_decode_column(raw.plans[name], dev_tree[name],
-                                           dt, cap, dict_state, i, device))
+                                           dt, cap, dict_state, i, device,
+                                           plain.get(name)))
             else:
                 cols.append(_fallback_column(dt, dev_tree[name]))
     num_rows = torch.full((), n, dtype=torch.int32, device=device)

@@ -47,6 +47,39 @@ def test_compact_kernel_matches_plain(cuda_device, density):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5, 1.0])
+def test_compact_kernel_tile_edges_and_unaligned_views(cuda_device, density):
+    """Sizes around the 4096-row tile and views whose first byte is not
+    16-byte aligned (the kernel's byte-load path); repeated calls on one
+    stream reuse its ticket."""
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("compact")
+    assert lib.srt_compact_tile_rows() == K.COMPACT_TILE_ROWS
+    tile = K.COMPACT_TILE_ROWS
+    keep = torch.rand(5 * tile + 64, device=cuda_device) < density
+    for n in (1, 15, 16, 17, tile - 1, tile, tile + 1, 3 * tile + 1):
+        for view in (keep[:n], keep[1:n + 1], keep[3:n + 3]):
+            perm, total = K.compact_permutation(view)
+            perm_p, total_p = K.compact_permutation_plain(view)
+            assert torch.equal(perm, perm_p) and int(total) == int(total_p)
+            assert torch.equal(perm.long(), torch.argsort(
+                (~view).to(torch.uint8), stable=True))
+
+
+@pytest.mark.cuda
+def test_compact_kernel_on_a_second_stream(cuda_device):
+    keep = torch.rand(100_003, device=cuda_device) < 0.4
+    want = K.compact_permutation_plain(keep)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [K.compact_permutation(keep) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    for perm, total in got:
+        assert torch.equal(perm, want[0]) and int(total) == int(want[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nkeys", [1, 50, 5000])
 def test_hash_agg_kernel_matches_plain(cuda_device, nkeys):
     rng = np.random.default_rng(nkeys)
@@ -222,6 +255,37 @@ def test_plain_fixed_kernel_matches_plain(cuda_device, kind):
         want = K.plain_fixed_plain(words, kind, n)
         assert got.dtype == want.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_plain_fixed_many_kernel_matches_plain(cuda_device, offset):
+    """More streams than one launch takes (32), of every kind and length,
+    their sources at ``offset`` words from a 16-byte boundary (offset 0:
+    the 16-byte copies; else the word path)."""
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    assert lib.srt_plain_fixed_max_segments() == K.PLAIN_MAX_SEGMENTS
+    rng = np.random.default_rng(offset)
+    base = _dev(rng.integers(0, 1 << 32, 300_008, dtype=np.uint64)
+                .astype(np.uint32), cuda_device)
+    kinds = ("i32", "f32", "i64", "f64", "bool")
+    streams = []
+    for j in range(70):
+        nw = int(rng.integers(1, 5000)) * 2 if j % 9 else 200_000
+        n = int(rng.integers(0, 3 * nw))
+        streams.append((base[offset:offset + nw], kinds[j % 5], n))
+    before = K.LAUNCHES["plain_fixed"]
+    got = K.plain_fixed_many(streams)
+    assert K.LAUNCHES["plain_fixed"] - before == 3  # 70 streams: 32 + 32 + 6
+    want = K.plain_fixed_many_plain(streams)
+    for g, w, (_words, kind, n) in zip(got, want, streams):
+        assert _bits_equal(g, w), (kind, n, offset)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from spark_rapids_tpu.ops import floatbits as ref_floatbits
@@ -93,6 +94,30 @@ def test_compact_permutation_matches_reference(case, rng):
     want_perm, want_total = ref_pk.compact_permutation(jnp.asarray(keep))
     np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
     assert int(total) == int(want_total) == int(keep.sum())
+
+
+# one compiled program per size, not one per operation
+_REF_COMPACT = jax.jit(ref_pk.compact_permutation)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5, 1.0])
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 3 * 4096 + 1,
+                               (1 << 16) + 13])
+def test_compact_permutation_tile_edges(n, density):
+    """Sizes around the kernel's 4096-row tile: the plain version equals
+    the JAX package's ``compact_permutation`` and the one PyTorch call
+    that computes the same permutation (a stable argsort of ~keep)."""
+    keep = np.random.default_rng(n + int(density * 100)).random(n) < density
+    keep_t = torch.from_numpy(keep)
+    perm, total = K.compact_permutation(keep_t)
+    assert perm.dtype == torch.int32 and total.dtype == torch.int32
+    argsort = torch.argsort((~keep_t).to(torch.uint8), stable=True)
+    np.testing.assert_array_equal(perm.numpy(), argsort.numpy())
+    assert int(total) == int(keep.sum())
+    if n:
+        want_perm, want_total = _REF_COMPACT(jnp.asarray(keep))
+        np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
+        assert int(total) == int(want_total)
 
 
 def test_hash_table_size_matches_reference():

@@ -31,6 +31,7 @@ import pyarrow.parquet as pq
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from spark_rapids_tpu.ops import pallas_kernels as ref_pk
@@ -413,6 +414,98 @@ def test_plain_fixed_plain_matches_jnp_twin(kind):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got.view(np.uint8),
                                       want.view(np.uint8))
+
+
+def _words(seed: int, count: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 1 << 32, count, dtype=np.uint64).astype(np.uint32)
+
+
+# (words, kind, n): every kind, n shorter than, equal to and past the stream
+_MANY_STREAMS = {
+    "row_group": [(64, "f64", 32), (20, "f64", 9), (24, "f64", 11),
+                  (2530, "i32", 2526), (64, "bool", 100)],
+    "short": [(64, "i32", 31), (64, "f32", 63), (64, "i64", 7),
+              (64, "f64", 1), (64, "bool", 5)],
+    "exact": [(64, "i32", 64), (64, "f32", 64), (64, "i64", 32),
+              (64, "f64", 32), (64, "bool", 2048)],
+    "past": [(64, "i32", 4096), (66, "f32", 100), (64, "i64", 33),
+             (2, "f64", 8), (3, "bool", 200)],
+}
+# more streams than one launch takes (32)
+_MANY_STREAMS["many"] = _MANY_STREAMS["short"] * 8
+
+
+# one compiled program per stream shape, not one per operation
+_REF_PLAIN_FIXED = jax.jit(ref_pk.plain_fixed, static_argnums=(1, 2),
+                           static_argnames=("mode",))
+
+
+@pytest.mark.parametrize("case", sorted(_MANY_STREAMS))
+def test_plain_fixed_many_plain_matches_jnp_twin(case):
+    """Each output of one ``plain_fixed_many`` call equals the JAX
+    package's ``plain_fixed`` of its stream, bit for bit."""
+    spec = _MANY_STREAMS[case]
+    words = [_words(j, nw) for j, (nw, _k, _n) in enumerate(spec)]
+    got = K.plain_fixed_many([(_t(w), kind, n)
+                              for w, (_nw, kind, n) in zip(words, spec)])
+    assert len(got) == len(spec)
+    for g, w, (_nw, kind, n) in zip(got, words, spec):
+        want = np.asarray(_REF_PLAIN_FIXED(jnp.asarray(w), kind, n,
+                                           mode="jnp"))
+        g = g.numpy()
+        assert g.dtype == want.dtype and g.shape == want.shape, (kind, n)
+        np.testing.assert_array_equal(g.view(np.uint8), want.view(np.uint8))
+
+
+def test_plain_fixed_many_refuses_odd_64_bit_streams():
+    words = _t(_words(0, 64))
+    assert K.plain_fixed_many([]) == []
+    for kind in ("i64", "f64"):
+        with pytest.raises(ValueError, match="even number of words"):
+            K.plain_fixed_many([(words, "i32", 8), (words[:63], kind, 8)])
+    with pytest.raises(ValueError, match="kind"):
+        K.plain_fixed_many([(words, "u8", 8)])
+
+
+@pytest.mark.parametrize("shape", ["lineitem_spec", "customer_spec",
+                                   "types"])
+def test_row_group_decodes_plain_streams_in_one_call(session, files, shape,
+                                                     monkeypatch):
+    """``decode_rowgroup`` hands every PLAIN fixed-width stream of a row
+    group (values and dictionary pages) to one ``plain_fixed_many`` call,
+    and the scan still equals pyarrow and the JAX package's device-decode
+    scan."""
+    calls = []
+    many = K.plain_fixed_many
+
+    def counted(streams):
+        calls.append(len(streams))
+        return many(streams)
+    monkeypatch.setattr(K, "plain_fixed_many", counted)
+    path = files[shape]
+    src = ParquetSource(path)
+    columns = list(src.columns)[:8]  # lineitem's: keys, prices, dictionaries
+    dts = dict(zip(src.schema.names, src.schema.dtypes))
+    nrg = praw.file_metadata(path).num_row_groups
+    want_calls = []
+    for rg in range(nrg):
+        raw = PD.prepare_rowgroup(path, rg, columns, dts, BLOCKED)
+        if isinstance(raw, pd.DataFrame):
+            continue
+        k = sum(p["kind"] in ("fixed_plain", "fixed_dict")
+                for p in raw.plans.values())
+        if k:
+            want_calls.append(k)
+    assert want_calls
+    got = S.collect(S.scan_table(path, columns, device="cpu"))
+    assert calls == want_calls
+    want = pq.read_table(path, columns=columns).to_pandas()
+    ref = _jax_scan(session, path)
+    for c in columns:
+        assert _same_values(got[c], want[c]), c
+        if _same_values(ref[c], want[c]):
+            assert _same_values(got[c], ref[c]), c
 
 
 @pytest.mark.parametrize("stride", [8, 16, 64])
