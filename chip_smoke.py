@@ -28,8 +28,11 @@ B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
 group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
 and the stable argsort of ``~keep`` (the one PyTorch call with B1's
 result); B7 on one stream and on all the PLAIN fixed streams of a Q1 row
-group in one ``plain_fixed_many`` call, beside their clones. A Parquet
-query may make at most one B7 launch per row group.
+group in one ``plain_fixed_many`` call, beside their clones; B5 on all the
+hybrid streams of a Q1 row group in one ``hybrid_expand_many`` call,
+beside the sum of one call a stream; B3 at Q3's lineitem build, its bound
+beside the count before its redesign. A Parquet query may make at most one
+B5 and one B7 launch per row group.
 
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
@@ -54,7 +57,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F64_RTOL = 1e-9
 
 
@@ -85,12 +87,19 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def bound_ms(nbytes: float) -> float:
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    """The least milliseconds the card takes to move ``nbytes``."""
+    from spark_rapids_tpu_torch.tools.profile_kernels import bound_ms as b
+    return b(nbytes)
 
 
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _by_name(kernels: list, name: str) -> dict:
+    """The kernels line's record of kernel ``name``."""
+    return next(k for k in kernels if k["name"] == name)
 
 
 # ---------------------------------------------------------------------------
@@ -278,12 +287,17 @@ def _join_inputs(case: str, n: int, gen: torch.Generator, dev):
         zb = torch.zeros(0, dtype=torch.bool, device=dev)
         return [z], zb, [z], zb
     k = {"k2": 2, "k3": 3}.get(case, 1)
-    hi = {"skewed": 4, "k2": 1024, "k3": 128}.get(case, n // 2)
-    ns = 64 if case == "skewed" else n  # one key expands to ~n/4 rows
-    bimg = [torch.randint(0, hi, (n,), generator=gen, device=dev)
-            ^ -(1 << 63) for _ in range(k)]
+    hi = {"skewed": 4, "k2": 1024, "k3": 128, "bool_key": 2}.get(case, n // 2)
+    # one key expands to ~n/4 rows, a bool to ~n/2
+    ns = 64 if case in ("skewed", "bool_key") else n
+    sign = 0 if case == "bool_key" else -(1 << 63)  # a bool's image is 0/1
+    bimg = [torch.randint(0, hi, (n,), generator=gen, device=dev) ^ sign
+            for _ in range(k)]
     simg = [torch.randint(0, hi + hi // 4, (ns,), generator=gen, device=dev)
-            ^ -(1 << 63) for _ in range(k)]
+            ^ sign for _ in range(k)]
+    if case == "int64_max":  # INT64_MAX's image: B3's all-ones fill word
+        bimg[0][::5] = -1
+        simg[0][::16384] = -1  # each expands to ~n/5 rows
     bv = torch.rand(n, generator=gen, device=dev) < (
         0.0 if case == "all_invalid" else 0.9)
     sv = torch.rand(ns, generator=gen, device=dev) < 0.95
@@ -322,7 +336,9 @@ def _compare_probe(table, counts, table_p, counts_p, images, valid, T):
 def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
                     gen: torch.Generator, dev=torch.device("cuda")):
     """B3 and B4 against their plain versions (k = 1, 2, 3, a skewed key,
-    all-invalid and empty inputs, then the timed shape), and their times at
+    a bool key (images 0 and 1), INT64_MAX keys (the all-ones image B3
+    fills unused key words with), all-invalid and empty inputs, then the
+    timed shape), and their times at
     Q3's lineitem build shape: ``cap`` rows of capacity, the first
     ``live_rows`` live, about 54% of those valid (l_shipdate > 1995-03-15),
     keys l_orderkey-like in [1, 4 * orders); the probe streams
@@ -330,7 +346,8 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
     from spark_rapids_tpu_torch.ops import kernels as K
     from spark_rapids_tpu_torch.testing import hashcheck
     cases = {}
-    for case in ("k1", "k2", "k3", "skewed", "all_invalid", "empty"):
+    for case in ("k1", "k2", "k3", "skewed", "bool_key", "int64_max",
+                 "all_invalid", "empty"):
         bimg, bv, simg, sv = _join_inputs(case, n, gen, dev)
         T = K.hash_table_size(bv.shape[0])
         _slot, table, counts, table_p, counts_p = _compare_build(bimg, bv, T)
@@ -367,10 +384,13 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
         table, counts, simg, sv, T), 2)
     k = len(img)
     # B3: keys and the valid byte read once, the slot written once, the
-    # T-wide state, count and key words initialised once, and per valid row
-    # one random 32 B sector for the claim or compare and one for the count
-    b3_bytes = cap * (8 * k + 1) + cap * 4 + T * (4 + 4 + 8 * k) \
+    # T-wide key words and counts initialised once, and per valid row two
+    # random 32 B sectors: its key word and its count
+    b3_bytes = cap * (8 * k + 1) + cap * 4 + T * (8 * k + 4) \
         + nvalid * 2 * 32
+    # the earlier count, which also held the T-wide state word: scratch of
+    # one implementation, not work of the function
+    b3_old_bytes = b3_bytes + T * 4
     # B4: keys and valid read once, the slot written once, one random 32 B
     # sector per valid row
     b4_bytes = probe_rows * (8 * k + 1) + probe_rows * 4 + probe_rows * 32
@@ -381,7 +401,8 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
     b3 = dict(common, name="hash_table_build",
               replaces="spark_rapids_tpu/ops/pallas_kernels.py:335",
               ms=build_ms, plain_ms=build_plain_ms,
-              bound_ms=bound_ms(b3_bytes), timed_rows=cap,
+              bound_ms=bound_ms(b3_bytes),
+              old_bound_ms=bound_ms(b3_old_bytes), timed_rows=cap,
               timed_valid_rows=nvalid, timed_groups=int((counts > 0).sum()))
     b4 = dict(common, name="hash_table_probe",
               replaces="spark_rapids_tpu/ops/pallas_kernels.py:391",
@@ -496,6 +517,29 @@ def _q1_plain_streams(path: str) -> list:
     return [s for _name, s in streams]
 
 
+def _q1_hybrid_streams(path: str) -> list:
+    """The (words, out_start, kind, value, bit_start, bw, n) of row group
+    0's RLE/bit-packed hybrid streams over Q1's columns (definition levels
+    and dictionary codes), uploaded in one buffer and handed to one
+    ``hybrid_expand_many`` call, as ``decode_rowgroup`` does."""
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.sql.sources import ParquetSource
+    src = ParquetSource(path)
+    raw = PD.prepare_rowgroup(
+        path, 0, Q.Q1_COLUMNS,
+        {c: src.schema.dtype_of(c) for c in Q.Q1_COLUMNS},
+        upload_blocked_chars())
+    dev_tree = PD.upload_arrays(
+        {c: PD._device_upload(p) for c, p in raw.plans.items()}, "cuda")
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    streams = PD.hybrid_streams(raw.plans, dev_tree,
+                                bucket_capacity(max(raw.n, 1)))
+    require(len(streams) > 1, "Q1's columns hold no hybrid streams")
+    return [s for _key, s in streams]
+
+
 _CLONE_DTYPES = {"i32": torch.int32, "f32": torch.float32,
                  "i64": torch.int64, "f64": torch.float64}
 
@@ -566,14 +610,24 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
     nwords = 40_000
     words = _to_dev(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
                     .astype(np.uint32))
+    synthetic = []
     for bws, kinds in (([0], [1]), ([1], [1]), ([17], [1]), ([32], [1]),
                        ([0, 1, 17, 32], [0]), ([3, 17, 32], [0, 1])):
         table, total = _run_table(rng, 800, bws, kinds, nwords)
         args = [words] + [_to_dev(a) for a in table]
-        for n in (total, total + 1, 12_345, 1 << 20):
+        for n in (total, total + 1, 12_345, 1 << 20, 0):
             hold("hybrid_expand", K.hybrid_expand(*args, n),
                  K.hybrid_expand_plain(*args, n), f"bw {bws} kinds {kinds}"
                  f" n={n}")
+            synthetic.append(tuple(args) + (n,))
+    # a Q1 row group's hybrid streams in one launch, as decode_rowgroup
+    # hands them over; then with the synthetic ones, 43 streams, two launches
+    rg_hybrid = _q1_hybrid_streams(paths["lineitem"])
+    for streams in (rg_hybrid, rg_hybrid + synthetic):
+        for got, want in zip(K.hybrid_expand_many(streams),
+                             K.hybrid_expand_many_plain(streams)):
+            hold("hybrid_expand", got, want,
+                 f"{len(streams)} streams in one call")
 
     # B6: the l_orderkey chunk, the edge file, synthetic tables
     okey = column_plan(paths["lineitem"], "l_orderkey")
@@ -660,6 +714,9 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
               "max_abs_err": 0.0, "bound_by": "bytes"}
     args = _hybrid_args(ship["dev"], "cd")
     n = cap
+
+    def one(a):
+        return lambda: K.hybrid_expand(*a)
     out.append(dict(
         common, name="hybrid_expand",
         replaces="spark_rapids_tpu/ops/pallas_kernels.py:929",
@@ -668,7 +725,19 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
         # the packed words and the run table read once, n int32 written
         bound_ms=bound_ms(_nbytes(args) + 4 * n), library_ms=None,
         timed="l_shipdate codes, row group 0", timed_rows=n,
-        timed_runs=int(args[2].shape[0]), checks=checked["hybrid_expand"]))
+        timed_runs=int(args[2].shape[0]),
+        # the main path's call: a row group's streams in one launch
+        rowgroup="lineitem row group 0, Q1's hybrid streams",
+        rowgroup_streams=len(rg_hybrid),
+        rowgroup_rows=sum(a[6] for a in rg_hybrid),
+        rowgroup_ms=time_ms(lambda: K.hybrid_expand_many(rg_hybrid), 200),
+        rowgroup_plain_ms=time_ms(
+            lambda: K.hybrid_expand_many_plain(rg_hybrid), 5),
+        rowgroup_single_calls_ms=sum(time_ms(one(a), 200)
+                                     for a in rg_hybrid),
+        rowgroup_bound_ms=bound_ms(sum(_nbytes(a[:6]) + 4 * a[6]
+                                       for a in rg_hybrid)),
+        checks=checked["hybrid_expand"]))
     args = _delta_args(okey["dev"])
     out.append(dict(
         common, name="delta_unpack",
@@ -945,7 +1014,9 @@ def run_parquet_query(name: str, scan, query, runs: int,
             scans.append(t_scan)
     require_syncs(name, lambda: query(scan(), False),
                   row_groups + own_syncs)
-    require(launches["hybrid_expand"] > 0, f"{name}: the scan ran no B5")
+    require(0 < launches["hybrid_expand"] <= row_groups, f"{name}: "
+            f"{launches['hybrid_expand']} B5 launches for {row_groups} row "
+            "groups")
     require(launches["plain_fixed"] <= row_groups, f"{name}: "
             f"{launches['plain_fixed']} B7 launches for {row_groups} row "
             "groups")
@@ -1020,7 +1091,10 @@ def main() -> int:
     for k in kernels:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
             f" bound {k['bound_ms']:.4f} err {k['max_abs_err']}")
-    b1 = kernels[0]
+    b3 = _by_name(kernels, "hash_table_build")
+    log(f"kernel hash_table_build: bound {b3['bound_ms']:.4f} (with the state "
+        f"word, as counted before: {b3['old_bound_ms']:.4f})")
+    b1 = _by_name(kernels, "compact_permutation")
     log(f"kernel compact_permutation: {b1['rows']} rows ms {b1['ms']:.4f} "
         f"argsort {b1['library_ms']:.4f} cumsum {b1['cumsum_ms']:.4f}; "
         f"{b1['small_rows']} rows ms {b1['small_ms']:.4f} argsort "
@@ -1133,17 +1207,24 @@ def main() -> int:
                     f"{praw.file_metadata(p).num_row_groups} row groups"
                     for t, p in paths.items()))
     report["encodings"] = check_encodings(paths)
-    kernels += check_decode(paths, edge, G.ROW_GROUP_ROWS)
-    for k in kernels[-4:]:
+    decode = check_decode(paths, edge, G.ROW_GROUP_ROWS)
+    kernels += decode
+    for k in decode:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
             f" bound {k['bound_ms']:.4f} floor {k['floor_ms']:.4f} checks "
             f"{k['checks']}")
-    b7 = kernels[-2]
+    b7 = _by_name(kernels, "plain_fixed")
     log(f"kernel plain_fixed row group: {b7['rowgroup_segments']} streams "
         f"ms {b7['rowgroup_ms']:.4f} clones {b7['rowgroup_clones_ms']:.4f} "
         f"plain {b7['rowgroup_plain_ms']:.4f} bound "
         f"{b7['rowgroup_bound_ms']:.4f}; one stream ms {b7['ms']:.4f} "
         f"clone {b7['library_ms']:.4f}")
+    b5 = _by_name(kernels, "hybrid_expand")
+    log(f"kernel hybrid_expand row group: {b5['rowgroup_streams']} streams "
+        f"ms {b5['rowgroup_ms']:.4f}, one call a stream "
+        f"{b5['rowgroup_single_calls_ms']:.4f}, plain "
+        f"{b5['rowgroup_plain_ms']:.4f}, bound "
+        f"{b5['rowgroup_bound_ms']:.4f}; one stream ms {b5['ms']:.4f}")
     torch.cuda.empty_cache()
     rgs = {t: praw.file_metadata(p).num_row_groups for t, p in paths.items()}
 

@@ -13,13 +13,24 @@
 // The TPU kernels walk one scalar cursor over the output on a one-step grid
 // (fori_loop over every element, a run or miniblock cursor carried in the
 // loop state, a running sum for DELTA). None of that carries over: here
-// every output element finds its run by a binary search over the run
-// starts, and DELTA's running sum is a tiled segmented scan.
-//   * B5 hybrid_expand: one thread per output element. Run r is
-//     searchsorted(out_start, k, right) - 1 clipped to the guard row; a
-//     bit-packed run extracts bw bits from the u64 window of two adjacent
-//     u32 words at bit_start + (k - out_start) * bw, an RLE run writes its
-//     value.
+// every output element finds its run by a search over the run starts, and
+// DELTA's running sum is a tiled segmented scan.
+//   * B5 hybrid_expand: one launch expands all the hybrid streams of a row
+//     group (definition levels and dictionary codes; up to 32 streams, their
+//     descriptors passed by value in the kernel's parameters, each block
+//     finding its stream from their first blocks). A block takes a tile of
+//     4096 outputs of one stream: the whole block searches the runs of the
+//     tile's first and last outputs (searchsorted(out_start, k, right) - 1
+//     clipped to the guard row) in two rounds of one load a thread, stages
+//     the runs between them in shared memory, and each thread finds its
+//     outputs' runs in that window (a binary search for the first of four
+//     outputs, a step for the next). A bit-packed run extracts bw bits
+//     from the u64 window of two adjacent u32 words at bit_start + (k -
+//     out_start) * bw, an RLE run writes its value; each thread stores four
+//     consecutive outputs as one 16-byte store, a warp 512 contiguous
+//     bytes. A Q1 row group's 13 streams are 13 x 2^20 outputs, ~56 MB of
+//     writes (~17 us at 3.35 TB/s): one launch per stream cost its dispatch
+//     each, one per row group pays it once.
 //   * B6 delta_unpack: one launch per column chunk, not per page. Pages are
 //     segments: element k is its page's head (the page's first value) or
 //     raw + min_delta of its miniblock (u64 arithmetic). Three kernels as in
@@ -62,6 +73,11 @@ constexpr int kDeltaItems = 8;        // elements per thread in a B6 tile
 constexpr int kDeltaTile = kThreads * kDeltaItems;
 constexpr int kScanThreads = 1024;
 constexpr int kMaxPlainSegments = 32;  // B7 streams per launch
+constexpr int kMaxHybridStreams = 32;  // B5 streams per launch
+constexpr int kHybridVec = 4;          // B5: outputs per 16-byte store
+constexpr int kHybridPasses = 4;       // B5: 16-byte stores a thread
+constexpr int kHybridTile = kThreads * kHybridVec * kHybridPasses;
+constexpr int kRunWindow = 512;  // B5 runs a block stages in shared memory
 constexpr int kCopyChunksPerThread = 4;  // B7: 16-byte chunks a thread
 constexpr int kCopyBlockChunks = kThreads * kCopyChunksPerThread;
 
@@ -85,6 +101,34 @@ __device__ __forceinline__ int upper_bound(const int* __restrict__ a,
     }
   }
   return lo;
+}
+
+// upper_bound(a, len, x0) and upper_bound(a, len, x1) found by the whole
+// block at once: each round every thread tests the last entry of one of
+// kThreads chunks and __syncthreads_count counts the chunks at or below x;
+// the answer then lies in the first chunk that is not, minus its tested
+// entry. Two rounds settle ~65,000 entries. Every thread of the block must
+// call it, and gets both answers.
+__device__ __forceinline__ void block_upper_bounds(const int* __restrict__ a,
+                                                   int len, long long x0,
+                                                   long long x1, int* u0,
+                                                   int* u1) {
+  int lo0 = 0, n0 = len, lo1 = 0, n1 = len;
+  while (n0 > 0 || n1 > 0) {
+    const int s0 = (n0 + kThreads - 1) / kThreads;
+    const int s1 = (n1 + kThreads - 1) / kThreads;
+    const int p0 = lo0 + (static_cast<int>(threadIdx.x) + 1) * s0 - 1;
+    const int p1 = lo1 + (static_cast<int>(threadIdx.x) + 1) * s1 - 1;
+    const int c0 = __syncthreads_count(p0 < lo0 + n0 && a[p0] <= x0);
+    const int c1 = __syncthreads_count(p1 < lo1 + n1 && a[p1] <= x1);
+    const int e0 = lo0 + n0, e1 = lo1 + n1;
+    lo0 += c0 * s0;
+    lo1 += c1 * s1;
+    n0 = max(0, min(s0 - 1, e0 - lo0));
+    n1 = max(0, min(s1 - 1, e1 - lo1));
+  }
+  *u0 = lo0;
+  *u1 = lo1;
 }
 
 __device__ __forceinline__ int clip_int(int v, int lo, int hi) {
@@ -116,24 +160,104 @@ __device__ __forceinline__ unsigned long long extract_bits(
 // B5: RLE/bit-packed hybrid expansion
 // ---------------------------------------------------------------------------
 
-__global__ void hybrid_expand_kernel(
-    const uint32_t* __restrict__ words, long long nwords,
-    const int* __restrict__ out_start, int nstarts,
-    const uint8_t* __restrict__ kind, const int* __restrict__ value,
-    const long long* __restrict__ bit_start, const int* __restrict__ bw,
-    int nruns, int* __restrict__ out, long long n) {
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    int r = clip_int(upper_bound(out_start, nstarts, k) - 1, 0, nruns - 1);
-    // (k - out_start[r]) in int32, as the twin subtracts two int32 arrays
-    const int rel = static_cast<int>(static_cast<unsigned>(k) -
-                                     static_cast<unsigned>(out_start[r]));
-    const long long bit =
-        bit_start[r] + static_cast<long long>(rel) * bw[r];
-    const int bp = static_cast<int>(static_cast<uint32_t>(
-        extract_bits(words, nwords, bit, bw[r])));
-    out[k] = kind[r] == 1 ? bp : value[r];
+// One stream of a hybrid_expand_many launch. Its blocks are
+// [block0, block0 + ceil(n / kHybridTile)) of the grid.
+struct HybridSeg {
+  const uint32_t* words;
+  const int* out_start;  // nstarts entries: the runs', the guard row's, max
+  const uint8_t* kind;   // nruns rows each, the guard row last
+  const int* value;
+  const long long* bit_start;
+  const int* bw;
+  int* out;
+  long long nwords;
+  int nstarts;
+  int nruns;
+  int n;
+  int block0;
+};
+
+struct HybridBatch {
+  HybridSeg seg[kMaxHybridStreams];
+  int nseg;
+};
+
+__global__ void __launch_bounds__(kThreads) hybrid_expand_many_kernel(
+    const __grid_constant__ HybridBatch b) {
+  __shared__ int w_start[kRunWindow];
+  __shared__ long long w_bit[kRunWindow];
+  __shared__ int w_value[kRunWindow];
+  __shared__ int w_bw[kRunWindow];
+  __shared__ uint8_t w_kind[kRunWindow];
+  int s = 0;  // the block's stream: the last whose first block is <= it
+  for (int i = 1; i < b.nseg; ++i) {
+    if (b.seg[i].block0 <= static_cast<int>(blockIdx.x)) s = i;
+  }
+  const HybridSeg& g = b.seg[s];
+  const long long t0 =
+      static_cast<long long>(static_cast<int>(blockIdx.x) - g.block0) *
+      kHybridTile;
+  // past the tile's last output
+  const long long t1 = min(t0 + kHybridTile, static_cast<long long>(g.n));
+  // the runs of the tile's first and last outputs
+  int u0, u1;
+  block_upper_bounds(g.out_start, g.nstarts, t0, t1 - 1, &u0, &u1);
+  const int r0 = clip_int(u0 - 1, 0, g.nruns - 1);
+  const int nwin = clip_int(u1 - 1, 0, g.nruns - 1) - r0 + 1;
+  // the window: shared memory where it fits, else the arrays themselves
+  const int* starts = g.out_start + r0;
+  const uint8_t* kinds = g.kind + r0;
+  const int* values = g.value + r0;
+  const long long* bits = g.bit_start + r0;
+  const int* widths = g.bw + r0;
+  if (nwin <= kRunWindow) {
+    for (int j = threadIdx.x; j < nwin; j += kThreads) {
+      w_start[j] = starts[j];
+      w_kind[j] = kinds[j];
+      w_value[j] = values[j];
+      w_bit[j] = bits[j];
+      w_bw[j] = widths[j];
+    }
+    starts = w_start;
+    kinds = w_kind;
+    values = w_value;
+    bits = w_bit;
+    widths = w_bw;
+    __syncthreads();
+  }
+  const bool aligned = (reinterpret_cast<uintptr_t>(g.out) & 15) == 0;
+#pragma unroll
+  for (int pass = 0; pass < kHybridPasses; ++pass) {
+    const long long k0 =
+        t0 + (pass * kThreads + static_cast<int>(threadIdx.x)) * kHybridVec;
+    if (k0 >= t1) break;
+    // the window's last run whose start is <= k0 (starts[1..nwin) sorted)
+    int j = upper_bound(starts + 1, nwin - 1, k0);
+    int v[kHybridVec];
+#pragma unroll
+    for (int q = 0; q < kHybridVec; ++q) {
+      const long long k = k0 + q;
+      while (j + 1 < nwin && starts[j + 1] <= k) ++j;
+      if (kinds[j] == 1) {
+        // (k - out_start[r]) in int32, as the twin subtracts int32 arrays
+        const int rel = static_cast<int>(static_cast<unsigned>(k) -
+                                         static_cast<unsigned>(starts[j]));
+        const long long bit =
+            bits[j] + static_cast<long long>(rel) * widths[j];
+        v[q] = static_cast<int>(static_cast<uint32_t>(
+            extract_bits(g.words, g.nwords, bit, widths[j])));
+      } else {
+        v[q] = values[j];
+      }
+    }
+    if (aligned && k0 + kHybridVec <= t1) {
+      *reinterpret_cast<int4*>(g.out + k0) = make_int4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kHybridVec; ++q) {
+        if (k0 + q < t1) g.out[k0 + q] = v[q];
+      }
+    }
   }
 }
 
@@ -435,19 +559,46 @@ extern "C" const char* srt_error_string(int err) {
 
 extern "C" int srt_delta_tile_rows() { return kDeltaTile; }
 
-// words: nwords u32; out_start: nstarts int32 (the runs' starts, the guard
-// row's start and INT32_MAX); kind, value, bit_start, bw: nruns rows (the
-// guard row last); out: n int32. n < 2^31.
-extern "C" int srt_hybrid_expand(const uint32_t* words, long long nwords,
-                                 const int* out_start, int nstarts,
-                                 const uint8_t* kind, const int* value,
-                                 const long long* bit_start, const int* bw,
-                                 int nruns, int* out, long long n,
-                                 cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  hybrid_expand_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-      words, nwords, out_start, nstarts, kind, value, bit_start, bw, nruns,
-      out, n);
+extern "C" int srt_hybrid_expand_max_streams() { return kMaxHybridStreams; }
+
+// desc: nseg rows of eleven int64 {words, nwords, out_start, nstarts, kind,
+// value, bit_start, bw, nruns, out, n}: a stream's u32 words and their
+// count; its run table, out_start int32 (nstarts entries: the runs' starts,
+// the guard row's and INT32_MAX) and kind uint8, value int32, bit_start
+// int64 and bw int32 (nruns rows, the guard row last); n int32 outputs.
+// nseg <= srt_hybrid_expand_max_streams(), 0 <= n < 2^31. One launch.
+extern "C" int srt_hybrid_expand_many(const long long* desc, int nseg,
+                                      cudaStream_t stream) {
+  if (nseg < 0 || nseg > kMaxHybridStreams) return cudaErrorInvalidValue;
+  HybridBatch b;
+  b.nseg = 0;
+  long long blocks = 0;
+  for (int i = 0; i < nseg; ++i) {
+    const long long* d = desc + 11 * i;
+    if (d[1] <= 0 || d[3] <= 0 || d[8] <= 0 || d[10] < 0 ||
+        d[10] >= (1ll << 31)) {
+      return cudaErrorInvalidValue;
+    }
+    if (d[10] == 0) continue;
+    HybridSeg& g = b.seg[b.nseg++];
+    g.words = reinterpret_cast<const uint32_t*>(d[0]);
+    g.nwords = d[1];
+    g.out_start = reinterpret_cast<const int*>(d[2]);
+    g.nstarts = static_cast<int>(d[3]);
+    g.kind = reinterpret_cast<const uint8_t*>(d[4]);
+    g.value = reinterpret_cast<const int*>(d[5]);
+    g.bit_start = reinterpret_cast<const long long*>(d[6]);
+    g.bw = reinterpret_cast<const int*>(d[7]);
+    g.nruns = static_cast<int>(d[8]);
+    g.out = reinterpret_cast<int*>(d[9]);
+    g.n = static_cast<int>(d[10]);
+    g.block0 = static_cast<int>(blocks);
+    blocks += (d[10] + kHybridTile - 1) / kHybridTile;
+    if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return cudaSuccess;
+  hybrid_expand_many_kernel<<<static_cast<int>(blocks), kThreads, 0,
+                              stream>>>(b);
   return cudaGetLastError();
 }
 

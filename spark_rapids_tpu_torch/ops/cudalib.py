@@ -52,8 +52,8 @@ _SIGNATURES = {
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
     "parquet_decode": {
-        "srt_hybrid_expand": (_I, [_P, _LL, _P, _I, _P, _P, _P, _P, _I, _P,
-                                   _LL, _P]),
+        "srt_hybrid_expand_many": (_I, [_P, _I, _P]),
+        "srt_hybrid_expand_max_streams": (_I, []),
         "srt_delta_unpack": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I,
                                   _P, _LL, _P, _P, _P, _P]),
         "srt_delta_tile_rows": (_I, []),

@@ -16,7 +16,8 @@ All eight of the JAX package's Pallas kernels have a counterpart here:
   * the device Parquet decode (``ops/parquet_decode.py``), CUDA source
     ``csrc/parquet_decode.cu``: ``hybrid_expand`` (B5;
     ``_hybrid_expand_kernel``) expands RLE/bit-packed hybrid streams
-    (definition levels, dictionary indices, PLAIN booleans);
+    (definition levels, dictionary indices, PLAIN booleans), and
+    ``hybrid_expand_many`` a row group's hybrid streams in one launch;
     ``delta_unpack`` (B6; ``_delta_unpack_kernel``) decodes a whole
     DELTA_BINARY_PACKED column chunk in one launch, its pages as segments;
     ``plain_fixed`` (B7; ``_plain_fixed_kernel``) re-blocks PLAIN words
@@ -45,6 +46,7 @@ plain versions widen words to int64 and mask them with 0xFFFFFFFF.
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Dict, List, Sequence, Tuple
 
@@ -161,11 +163,8 @@ def hash_table_size(capacity: int) -> int:
     return t
 
 
-def _key_words(images: Sequence[torch.Tensor], valid: torch.Tensor,
-               max_keys: int, what: str
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The checked inputs of a hash kernel: (the (k, n) key words, the
-    valid mask), both contiguous."""
+def _check_keys(images: Sequence[torch.Tensor], valid: torch.Tensor,
+                max_keys: int, what: str) -> None:
     if not 0 < len(images) <= max_keys:
         raise ValueError(f"{what}: {len(images)} key images")
     if valid.dtype != torch.bool or valid.dim() != 1:
@@ -175,6 +174,14 @@ def _key_words(images: Sequence[torch.Tensor], valid: torch.Tensor,
     for im in images:
         if im.dtype != torch.int64 or im.shape != (n,) or im.device != dev:
             raise TypeError(f"{what}: images must be int64 (n,) on {dev}")
+
+
+def _key_words(images: Sequence[torch.Tensor], valid: torch.Tensor,
+               max_keys: int, what: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The checked inputs of a hash kernel: (the (k, n) key words, the
+    valid mask), both contiguous."""
+    _check_keys(images, valid, max_keys, what)
     return torch.stack(list(images)).contiguous(), valid.contiguous()
 
 
@@ -258,30 +265,40 @@ def hash_table_build(images: Sequence[torch.Tensor], valid: torch.Tensor,
     holding uint64) of the rows where ``valid``.
 
     Returns (slot (n,) int32 with invalid rows -> T, rank: None, table (k,
-    T) int64 key words (0 where unused), counts (T,) int32 rows per slot).
-    The TPU kernel's exact arrival rank needs its sequential insert; a
-    parallel build has none, so ``rank`` is None as in the jnp twin."""
+    T) int64 key words, counts (T,) int32 rows per slot). A slot is used
+    where its count is above 0; the key words of an unused slot are -1 (all
+    ones) on the card and 0 in the plain version. The TPU kernel's exact
+    arrival rank needs its sequential insert; a parallel build has none, so
+    ``rank`` is None as in the jnp twin. On the card a one-word key claims
+    its slot on the key word itself, a longer key on a state word of its
+    own (``csrc/hash_join.cu``)."""
     if valid.is_cpu:
         return hash_table_build_plain(images, valid, table_size)
-    _require_cuda(valid, "hash_table_build")
+    what = "hash_table_build"
+    _require_cuda(valid, what)
     lib = cudalib.load("hash_join")
     T = table_size
-    keys, valid = _key_words(images, valid, lib.srt_hash_join_max_keys(),
-                             "hash_table_build")
+    k = len(images)
+    _check_keys(images, valid, lib.srt_hash_join_max_keys(), what)
+    # one image is the (1, n) key array itself: no stacked copy
+    keys = images[0].contiguous() if k == 1 else torch.stack(list(images))
+    valid = valid.contiguous()
     n = valid.shape[0]
     dev = valid.device
-    _check_table_size(T, n, "hash_table_build")
-    table = torch.zeros((len(images), T), dtype=torch.int64, device=dev)
-    state = torch.zeros(T, dtype=torch.int32, device=dev)
-    counts = torch.zeros(T, dtype=torch.int32, device=dev)
+    _check_table_size(T, n, what)
+    table = torch.full((k, T), -1, dtype=torch.int64, device=dev)
+    state = (torch.zeros(T, dtype=torch.int32, device=dev) if k > 1
+             else None)
+    # counts[T] is the kernel's scratch: rows keyed by the all-ones image
+    counts = torch.zeros(T + 1, dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
-    err = lib.srt_hash_build(keys.data_ptr(), len(images), n,
-                             valid.data_ptr(), table.data_ptr(),
-                             state.data_ptr(), T, counts.data_ptr(),
-                             slot.data_ptr(), _stream(dev))
-    cudalib.check(lib, err, "hash_table_build")
+    err = lib.srt_hash_build(keys.data_ptr(), k, n, valid.data_ptr(),
+                             table.data_ptr(),
+                             None if state is None else state.data_ptr(), T,
+                             counts.data_ptr(), slot.data_ptr(), _stream(dev))
+    cudalib.check(lib, err, what)
     LAUNCHES["hash_table_build"] += 1
-    return slot, None, table, counts
+    return slot, None, table, counts[:T]
 
 
 def hash_table_probe_plain(table: torch.Tensor, counts: torch.Tensor,
@@ -611,6 +628,85 @@ def hybrid_expand_plain(words, out_start, kind, value, bit_start, bw,
     return torch.where(kind[r] == 1, bp, value[r])
 
 
+def hybrid_expand_many_plain(streams) -> List[torch.Tensor]:
+    """Plain version of ``hybrid_expand_many``: ``hybrid_expand_plain`` of
+    each stream."""
+    return [hybrid_expand_plain(*s) for s in streams]
+
+
+# streams per B5 launch (csrc/parquet_decode.cu kMaxHybridStreams)
+HYBRID_MAX_STREAMS = 32
+# dtypes of a stream's words, out_start, kind, value, bit_start and bw
+_HYBRID_DTYPES = (torch.int32, torch.int32, torch.uint8, torch.int32,
+                  torch.int64, torch.int32)
+
+
+def hybrid_expand_many(streams) -> List[torch.Tensor]:
+    """``hybrid_expand`` of each ``(words, out_start, kind, value,
+    bit_start, bw, n)`` of ``streams``, all in one launch (one per 32
+    streams). On the card the outputs are views of one int32 allocation,
+    each starting on a 16-byte boundary."""
+    if not streams:
+        return []
+    first = streams[0][0]
+    if first.is_cpu:
+        return hybrid_expand_many_plain(streams)
+    what = "hybrid_expand"
+    _require_cuda(first, what)
+    dev = first.device
+    index = dev.index
+    # the host's share of a call is these checks, once per stream
+    desc = array.array("q")  # 11 int64 a launched stream (the C layout)
+    sizes, off = [], 0
+    on_dev, flat = (index,) * 6, ((1,),) * 6
+    for words, out_start, kind, value, bit_start, bw, n in streams:
+        if (words.dtype, out_start.dtype, kind.dtype, value.dtype,
+                bit_start.dtype, bw.dtype) != _HYBRID_DTYPES:
+            raise TypeError(f"{what}: words, out_start, kind, value, "
+                            "bit_start, bw must be int32, int32, uint8, "
+                            "int32, int64, int32")
+        if ((words.get_device(), out_start.get_device(), kind.get_device(),
+             value.get_device(), bit_start.get_device(), bw.get_device())
+                != on_dev
+                or (words.stride(), out_start.stride(), kind.stride(),
+                    value.stride(), bit_start.stride(), bw.stride())
+                != flat):
+            raise ValueError(f"{what}: tensors must be 1-d, contiguous and "
+                             f"on {dev}")
+        nruns = kind.shape[0]
+        if (value.shape[0] != nruns or bit_start.shape[0] != nruns
+                or bw.shape[0] != nruns or nruns == 0
+                or words.shape[0] == 0 or not 0 <= n < 1 << 31):
+            raise ValueError(f"{what}: run table rows differ, or no runs, no "
+                             f"words, or {n} outputs outside int32")
+        if n:
+            desc.extend((words.data_ptr(), words.shape[0],
+                         out_start.data_ptr(), out_start.shape[0],
+                         kind.data_ptr(), value.data_ptr(),
+                         bit_start.data_ptr(), bw.data_ptr(), nruns,
+                         4 * off, n))
+        sizes.append(n + -n % 4)
+        off += sizes[-1]
+    buf = torch.empty(off, dtype=torch.int32, device=dev)
+    outs = list(buf.split(sizes)) if len(sizes) > 1 else [buf]
+    for i, (size, s) in enumerate(zip(sizes, streams)):
+        if size != s[6]:
+            outs[i] = outs[i][:s[6]]
+    base = buf.data_ptr()
+    for i in range(9, len(desc), 11):
+        desc[i] += base
+    lib = cudalib.load("parquet_decode")
+    stream = _stream(dev)
+    addr = desc.buffer_info()[0]
+    nrows = len(desc) // 11
+    for i in range(0, nrows, HYBRID_MAX_STREAMS):
+        part = min(HYBRID_MAX_STREAMS, nrows - i)
+        err = lib.srt_hybrid_expand_many(addr + 88 * i, part, stream)
+        cudalib.check(lib, err, what)
+        LAUNCHES["hybrid_expand"] += 1
+    return outs
+
+
 def hybrid_expand(words, out_start, kind, value, bit_start, bw,
                   n: int) -> torch.Tensor:
     """Expand an RLE/bit-packed hybrid stream to (n,) int32.
@@ -620,34 +716,13 @@ def hybrid_expand(words, out_start, kind, value, bit_start, bw,
     run's first output index, the guard row's, then INT32_MAX), ``kind``
     uint8 (0 RLE, 1 bit-packed), ``value`` int32, ``bit_start`` int64 and
     ``bw`` int32 (<= 32, per run). Output k takes run
-    searchsorted(out_start, k, right) - 1 clipped to the guard row."""
+    searchsorted(out_start, k, right) - 1 clipped to the guard row. On the
+    card, ``hybrid_expand_many`` with one stream."""
     if words.is_cpu:
         return hybrid_expand_plain(words, out_start, kind, value, bit_start,
                                    bw, n)
-    what = "hybrid_expand"
-    _decode_check(what, [words, out_start, kind, value, bit_start, bw])
-    _check_dtypes(what, [("words", words, torch.int32),
-                         ("out_start", out_start, torch.int32),
-                         ("kind", kind, torch.uint8),
-                         ("value", value, torch.int32),
-                         ("bit_start", bit_start, torch.int64),
-                         ("bw", bw, torch.int32)])
-    nruns = kind.shape[0]
-    if (value.shape[0] != nruns or bit_start.shape[0] != nruns
-            or bw.shape[0] != nruns or nruns == 0 or words.shape[0] == 0
-            or n >= 1 << 31):
-        raise ValueError(f"{what}: run table rows differ, or no runs, no "
-                         f"words, or {n} outputs exceed int32")
-    lib = cudalib.load("parquet_decode")
-    out = torch.empty(n, dtype=torch.int32, device=words.device)
-    err = lib.srt_hybrid_expand(
-        words.data_ptr(), words.shape[0], out_start.data_ptr(),
-        out_start.shape[0], kind.data_ptr(), value.data_ptr(),
-        bit_start.data_ptr(), bw.data_ptr(), nruns, out.data_ptr(), n,
-        _stream(words.device))
-    cudalib.check(lib, err, what)
-    LAUNCHES["hybrid_expand"] += 1
-    return out
+    return hybrid_expand_many([(words, out_start, kind, value, bit_start,
+                                bw, n)])[0]
 
 
 def delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,

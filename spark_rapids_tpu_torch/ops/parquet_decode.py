@@ -542,13 +542,13 @@ def upload_arrays(tree: Dict[str, Dict[str, np.ndarray]], device
     return out
 
 
-def _decode_levels(up, meta, cap: int, n: int, dev) -> torch.Tensor:
+def _decode_levels(levels: Optional[torch.Tensor], meta, cap: int, n: int,
+                   dev) -> torch.Tensor:
+    """Row validity from the expanded definition levels (None where the
+    column has no level stream)."""
     row_mask = torch.arange(cap, dtype=torch.int32, device=dev) < n
-    if meta["max_def"] == 0 or "lv_words" not in up:
+    if levels is None:
         return row_mask
-    levels = K.hybrid_expand(up["lv_words"], up["lv_out_start"],
-                             up["lv_kind"], up["lv_value"],
-                             up["lv_bit_start"], up["lv_bw"], cap)
     return (levels == meta["max_def"]) & row_mask
 
 
@@ -578,12 +578,6 @@ def _apply_ts(vals: torch.Tensor, unit) -> torch.Tensor:
     if unit == "s":
         return vals * 1000000
     return torch.div(vals, 1000, rounding_mode="floor")  # ns
-
-
-def _decode_codes(up, n: int) -> torch.Tensor:
-    return K.hybrid_expand(up["cd_words"], up["cd_out_start"],
-                           up["cd_kind"], up["cd_value"],
-                           up["cd_bit_start"], up["cd_bw"], n)
 
 
 def _finish_fixed(dt, vals_v, validity, meta, fill) -> DeviceColumn:
@@ -617,6 +611,29 @@ def _zero(dtype, device) -> torch.Tensor:
     return torch.zeros((), dtype=dtype, device=device)
 
 
+_HYBRID_FIELDS = ("words", "out_start", "kind", "value", "bit_start", "bw")
+
+
+def hybrid_streams(plans: dict, dev_tree: dict, cap: int) -> List[tuple]:
+    """[((column, "lv" or "cd"), (words, out_start, kind, value, bit_start,
+    bw, n))] of a row group's RLE/bit-packed hybrid streams: each nullable
+    column's definition levels at the batch capacity ``cap``, and the
+    dictionary codes of ``bool``, ``fixed_dict`` and ``str_dict`` plans at
+    their value capacity, the arguments of one ``hybrid_expand_many``
+    call."""
+    out = []
+    for name, plan in plans.items():
+        up, meta = dev_tree[name], plan["meta"]
+        if meta["max_def"] > 0 and "lv_words" in up:
+            out.append(((name, "lv"), tuple(
+                up[f"lv_{f}"] for f in _HYBRID_FIELDS) + (cap,)))
+        if plan["kind"] in ("bool", "fixed_dict", "str_dict"):
+            out.append(((name, "cd"), tuple(
+                up[f"cd_{f}"] for f in _HYBRID_FIELDS)
+                + (bucket_capacity(max(meta["nn"], 1)),)))
+    return out
+
+
 def plain_streams(plans: dict, dev_tree: dict) -> List[tuple]:
     """[(column, (words, kind, n))] of a row group's PLAIN fixed-width
     streams: ``fixed_plain`` value streams and ``fixed_dict`` dictionary
@@ -635,18 +652,21 @@ def plain_streams(plans: dict, dev_tree: dict) -> List[tuple]:
 
 def _decode_column(plan: dict, up: dict, dt, cap: int,
                    dict_state: Optional[dict], i: int, dev,
-                   plain_vals: Optional[torch.Tensor]) -> DeviceColumn:
+                   plain_vals: Optional[torch.Tensor],
+                   levels: Optional[torch.Tensor],
+                   codes_v: Optional[torch.Tensor]) -> DeviceColumn:
     """One uploaded plan -> DeviceColumn. ``plain_vals``: the decoded PLAIN
-    stream of a ``fixed_plain`` or ``fixed_dict`` plan (``plain_streams``),
-    else None."""
+    stream of a ``fixed_plain`` or ``fixed_dict`` plan (``plain_streams``);
+    ``levels`` and ``codes_v``: its expanded definition levels and
+    dictionary codes (``hybrid_streams``); each None where the plan has
+    none."""
     meta = plan["meta"]
     kind = plan["kind"]
-    validity = _decode_levels(up, meta, cap, meta["n"], dev)
+    validity = _decode_levels(levels, meta, cap, meta["n"], dev)
     fill = dtypes.null_fill_value(dt)
 
     if kind == "bool":
-        nv = bucket_capacity(max(meta["nn"], 1))
-        vals_v = _decode_codes(up, nv) != 0
+        vals_v = codes_v != 0
         return DeviceColumn(dt, _gather_rows(vals_v, validity, False),
                             validity)
 
@@ -663,8 +683,6 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
         return _finish_fixed(dt, vals_v, validity, meta, fill)
 
     if kind == "fixed_dict":
-        nv = bucket_capacity(max(meta["nn"], 1))
-        codes_v = _decode_codes(up, nv)
         vals_v = plain_vals[codes_v.clamp(0, max(meta["card"] - 1, 0)).long()]
         return _finish_fixed(dt, vals_v, validity, meta, fill)
 
@@ -682,7 +700,6 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
     # str_dict: canonical codes in row space first
     nv = bucket_capacity(max(meta["nn"], 1))
     card = meta["card"]
-    codes_v = _decode_codes(up, nv)
     canon_v = up["rm"][codes_v.clamp(0, card).long()]
     idx = _value_positions(validity).clamp(max=nv - 1).long()
     codes_row = torch.where(validity, canon_v[idx],
@@ -768,7 +785,8 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
     """RawRowGroup -> one DeviceBatch at ``bucket_capacity(rows)``: one
     host-to-device copy of every plan's buffers and every fallback
     column's host buffers, then the kernel decode (no host sync), with
-    every PLAIN fixed-width stream in one B7 launch.
+    every RLE/bit-packed hybrid stream in one B5 launch and every PLAIN
+    fixed-width stream in one B7 launch.
     ``dict_state`` is the scan's dictionary and slab-stride registry,
     shared by all its row groups."""
     n = raw.n
@@ -787,7 +805,11 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
     _DEV_COLS.add(len(raw.plans))
     _DEV_SPLITS.add(1)
     with _DEC_TIME.time():
-        plain = {}
+        hybrid, plain = {}, {}
+        streams = hybrid_streams(raw.plans, dev_tree, cap)
+        if streams:
+            keys, args = zip(*streams)
+            hybrid = dict(zip(keys, K.hybrid_expand_many(list(args))))
         streams = plain_streams(raw.plans, dev_tree)
         if streams:
             names, args = zip(*streams)
@@ -796,9 +818,10 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
         for i, name in enumerate(schema.names):
             dt = dt_by_name[name]
             if name in raw.plans:
-                cols.append(_decode_column(raw.plans[name], dev_tree[name],
-                                           dt, cap, dict_state, i, device,
-                                           plain.get(name)))
+                cols.append(_decode_column(
+                    raw.plans[name], dev_tree[name], dt, cap, dict_state, i,
+                    device, plain.get(name), hybrid.get((name, "lv")),
+                    hybrid.get((name, "cd"))))
             else:
                 cols.append(_fallback_column(dt, dev_tree[name]))
     num_rows = torch.full((), n, dtype=torch.int32, device=device)

@@ -1,9 +1,19 @@
-"""Where the time of one B1 or B7 call goes on the card.
+"""Where the time of one kernel call goes on the card.
 
 For B1 ``compact_permutation`` at 2^23 and 2^20 rows (density 0.5) and at
-its floor (8 rows), and for B7 ``plain_fixed`` (one float64 stream of 2^20
-values, and its floor at 8) and, where the port has it,
-``plain_fixed_many`` (five streams shaped as a lineitem row group's in Q1):
+its floor (8 rows); for B7 ``plain_fixed`` (one float64 stream of 2^20
+values, and its floor at 8) and ``plain_fixed_many`` (five streams shaped
+as a lineitem row group's in Q1); for B3 ``hash_table_build`` at Q3's
+lineitem build shape (2^26 rows of capacity, the first 60M live, 53.7% of
+those valid, l_orderkey-like keys, T = 2^27) with k = 1 and k = 3 key
+words (the claim on the key word and on a state word); for B2
+``hash_grouped_aggregate`` at the Q18 partial shape (2^22 rows, k = 2,
+one float64 sum, T = 2^23); and for B5 ``hybrid_expand`` on
+the level and dictionary-code streams of a Q1 lineitem row group (2^20
+rows, written as Parquet with ``tpch_data.PARQUET_SPEC`` into the ignored
+``build/profile_parquet/`` and uploaded as the scan uploads it), one
+stream a call and, where the port has it, all in one ``hybrid_expand_many``
+call:
 
   * the wrapper's mean milliseconds over back-to-back calls (CUDA events);
   * the host's enqueue microseconds per call (host clock, no sync);
@@ -14,7 +24,7 @@ values, and its floor at 8) and, where the port has it,
   * the PyTorch calls that compute the same function or a part of it:
     ``torch.cumsum`` of the mask (the scan alone) and the stable argsort
     of the negated mask (the whole permutation) for B1; a clone of the
-    words viewed as the values for B7.
+    words viewed as the values for B7. B2, B3 and B5 have none.
 
 Prints one JSON object per shape and writes them, with the card's name and
 power limit, to ``chiprun_out/profile_kernels.json`` (``--tag`` adds to the
@@ -42,6 +52,13 @@ import numpy as np
 import torch
 
 OUT_DIR = "chiprun_out"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+
+
+def bound_ms(nbytes: float) -> float:
+    """The least milliseconds the card takes to move ``nbytes`` (also the
+    bound of ``chip_smoke.py``)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def _card() -> str:
@@ -132,7 +149,7 @@ def profile_b1(n: int, gen: torch.Generator) -> dict:
                lambda: torch.argsort((~keep).to(torch.uint8), stable=True),
                iters),
            # read the mask once (1 B a row), write perm once (4 B a row)
-           "bound_ms": (n * 5 + 4) / 3.35e12 * 1e3}
+           "bound_ms": bound_ms(n * 5 + 4)}
     rec.update(_kernel_split(f"b1_{n}",
                              lambda: K.compact_permutation(keep), 20))
     return rec
@@ -151,7 +168,7 @@ def profile_b7(gen: torch.Generator) -> list:
                                    200),
                "clone_ms": _event_ms(
                    lambda: words.view(torch.float64)[:m].clone(), 200),
-               "bound_ms": 16 * m / 3.35e12 * 1e3}
+               "bound_ms": bound_ms(16 * m)}
         rec.update(_kernel_split(f"b7_{m}",
                                  lambda: K.plain_fixed(words, "f64", m), 20))
         out.append(rec)
@@ -174,6 +191,149 @@ def profile_b7(gen: torch.Generator) -> list:
     return out
 
 
+def _timed(tag: str, fn, iters: int) -> dict:
+    """Wrapper ms (CUDA events), host enqueue µs and the kernel split of
+    ``fn``."""
+    rec = {"ms": _event_ms(fn, iters), "host_us": _host_us(fn, iters)}
+    rec.update(_kernel_split(tag, fn, min(iters, 20)))
+    return rec
+
+
+def b3_inputs(gen: torch.Generator, k: int, cap: int = 1 << 26,
+              live: int = 60_000_000):
+    """Q3's lineitem build: ``cap`` rows of capacity, the first ``live``
+    live, 53.7% of those valid (l_shipdate > 1995-03-15), l_orderkey-like
+    keys in [1, 4 * live / 4); k > 1 adds words derived from the key, so
+    the distinct keys stay the same."""
+    key = torch.randint(1, live, (cap,), generator=gen, device="cuda")
+    valid = ((torch.arange(cap, device="cuda") < live)
+             & (torch.rand(cap, generator=gen, device="cuda") < 0.537))
+    images = [key ^ -(1 << 63), key >> 2, key & 3][:k]
+    return images, valid
+
+
+def profile_b3(gen: torch.Generator) -> list:
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.testing import hashcheck
+    out = []
+    for k in (1, 3):
+        images, valid = b3_inputs(gen, k)
+        cap = valid.shape[0]
+        T = K.hash_table_size(cap)
+        slot, _r, table, counts = K.hash_table_build(images, valid, T)
+        hashcheck.check_build(images, valid, slot, table, counts)
+        nvalid = int(valid.sum())
+        rec = {"kernel": "hash_table_build", "k": k, "rows": cap,
+               "valid_rows": nvalid, "keys": int((counts > 0).sum()),
+               "table": T,
+               # keys and the valid byte read once, the slot written once,
+               # the table words and counts initialised once, two random
+               # 32 B sectors per valid row (its key word and its count)
+               "bound_ms": bound_ms(cap * (8 * k + 1) + cap * 4
+                                     + T * (8 * k + 4) + nvalid * 2 * 32)}
+        del slot, table, counts
+        rec.update(_timed(f"b3_k{k}", lambda: K.hash_table_build(
+            images, valid, T), 5))
+        out.append(rec)
+        del images, valid
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_b2(gen: torch.Generator) -> dict:
+    """B2 at the Q18 partial shape of ``chip_smoke.py``."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    m = 1 << 22
+    T = K.hash_table_size(m)
+    okey = torch.randint(1, 6_000_000, (m,), generator=gen, device="cuda")
+    images = [okey ^ -(1 << 63), torch.ones(m, dtype=torch.int64,
+                                            device="cuda")]
+    live = torch.ones(m, dtype=torch.bool, device="cuda")
+    qty = torch.randint(1, 51, (m,), generator=gen,
+                        device="cuda").to(torch.float64)
+    jobs = [("sum", qty, live)]
+    rec = {"kernel": "hash_grouped_aggregate", "rows": m, "k": 2,
+           "table": T}
+    rec.update(_timed("b2", lambda: K.hash_grouped_aggregate(
+        images, live, jobs, T), 20))
+    return rec
+
+
+def q1_hybrid_streams(out_dir: Path) -> list:
+    """[(name, (words, out_start, kind, value, bit_start, bw, n))] of row
+    group 0 of a Q1 lineitem file, the streams ``decode_rowgroup`` expands
+    (``parquet_decode.hybrid_streams``), on the card in one
+    ``upload_arrays`` buffer."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.sql.sources import ParquetSource
+    path = G.write_parquet(str(out_dir), 0.18, tables=["lineitem"],
+                           frames={"lineitem": G.gen_lineitem(0.18)}
+                           )["lineitem"]
+    dts = {c: ParquetSource(path).schema.dtype_of(c) for c in Q.Q1_COLUMNS}
+    raw = PD.prepare_rowgroup(path, 0, Q.Q1_COLUMNS, dts,
+                              upload_blocked_chars())
+    tree = {name: PD._device_upload(p) for name, p in raw.plans.items()}
+    dev_tree = PD.upload_arrays(tree, "cuda")
+    cap = bucket_capacity(max(raw.n, 1))
+    if hasattr(PD, "hybrid_streams"):
+        return [(f"{col}.{'levels' if part == 'lv' else 'codes'}", args)
+                for (col, part), args in PD.hybrid_streams(raw.plans,
+                                                           dev_tree, cap)]
+    # a checkout from before hybrid_streams (--root): the same selection
+    fields = ("words", "out_start", "kind", "value", "bit_start", "bw")
+    streams = []
+    for name, plan in raw.plans.items():
+        up, meta = dev_tree[name], plan["meta"]
+        if meta["max_def"] > 0 and "lv_words" in up:
+            streams.append((f"{name}.levels",
+                            tuple(up[f"lv_{f}"] for f in fields) + (cap,)))
+        if plan["kind"] in ("bool", "fixed_dict", "str_dict"):
+            nv = bucket_capacity(max(meta["nn"], 1))
+            streams.append((f"{name}.codes",
+                            tuple(up[f"cd_{f}"] for f in fields) + (nv,)))
+    return streams
+
+
+def profile_b5(out_dir: Path) -> list:
+    from spark_rapids_tpu_torch.ops import kernels as K
+    streams = q1_hybrid_streams(out_dir)
+    out, nbytes = [], 0
+    for name, args in streams:
+        got = K.hybrid_expand(*args)
+        if not torch.equal(got, K.hybrid_expand_plain(*args)):
+            raise AssertionError(f"hybrid_expand differs from plain: {name}")
+        # the stream's words and run table read once, n int32 written
+        b = sum(t.numel() * t.element_size() for t in args[:6]) + 4 * args[6]
+        nbytes += b
+        rec = {"kernel": "hybrid_expand", "stream": name, "values": args[6],
+               "runs": int(args[2].shape[0]), "bound_ms": bound_ms(b)}
+        rec.update(_timed(f"b5_{name}", lambda: K.hybrid_expand(*args), 200))
+        out.append(rec)
+    out.append({"kernel": "hybrid_expand", "stream": "sum of the streams",
+                "streams": len(streams),
+                "ms": sum(r["ms"] for r in out),
+                "host_us": sum(r["host_us"] for r in out),
+                "device_us": sum(s["device_us"] for r in out
+                                 for s in r.get("steps", [])),
+                "bound_ms": bound_ms(nbytes)})
+    if hasattr(K, "hybrid_expand_many"):
+        many = [args for _name, args in streams]
+        for got, want in zip(K.hybrid_expand_many(many),
+                             K.hybrid_expand_many_plain(many)):
+            if not torch.equal(got, want):
+                raise AssertionError("hybrid_expand_many differs from plain")
+        rec = {"kernel": "hybrid_expand_many", "streams": len(many),
+               "bound_ms": bound_ms(nbytes)}
+        rec.update(_timed("b5_many", lambda: K.hybrid_expand_many(many),
+                          200))
+        out.append(rec)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout whose port to import")
@@ -190,11 +350,14 @@ def main() -> None:
         raise SystemExit("profile_kernels: no CUDA device")
     from spark_rapids_tpu_torch.ops import cudalib
     os.makedirs(OUT_DIR, exist_ok=True)
-    cudalib.build(["compact", "parquet_decode"])
+    cudalib.build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     records = [profile_b1(n, gen) for n in (1 << 23, 1 << 20, 8)]
     records += profile_b7(gen)
+    records += profile_b3(gen)
+    records.append(profile_b2(gen))
+    records += profile_b5(Path(cudalib.BUILD) / "profile_parquet")
     for r in records:
         print(json.dumps(r))
     card = _card()

@@ -106,6 +106,20 @@ def test_hash_agg_kernel_matches_plain(cuda_device, nkeys):
         np.testing.assert_allclose(got[row][1], accs, rtol=F64_RTOL)
 
 
+_FILL = -1  # the all-ones image B3 fills unused key words with
+
+
+def _keys_near_fill_slot(T: int, count: int) -> np.ndarray:
+    """``count`` distinct one-word keys whose chains start at most 8 slots
+    before the all-ones image's first slot, so that they cross it."""
+    home = int(K._mix_images([torch.tensor([_FILL])])[0]) & (T - 1)
+    x = torch.arange(1, 1 << 22, dtype=torch.int64)
+    dist = (home - (K._mix_images([x]) & (T - 1))) % T
+    near = x[dist < 8].numpy()
+    assert len(near) >= count
+    return near[:count]
+
+
 def _join_case(case, rng, dev):
     """(build images, build valid, stream images, stream valid)."""
     def t(a):
@@ -115,21 +129,41 @@ def _join_case(case, rng, dev):
         nb = ns = 0
     elif case == "skewed":  # one key: every hit expands to ~nb rows
         ns = 64
-    k = {"k2": 2, "k3": 3}.get(case, 1)
-    hi = {"skewed": 1, "k2": 40, "k3": 12}.get(case, 20_000)
-    bimg = [t(rng.integers(0, hi, nb)) for _ in range(k)]
-    simg = [t(rng.integers(0, hi + hi // 4 + 1, ns)) for _ in range(k)]
+    if case == "fill_key":
+        # the all-ones image among keys whose chains cross its slot
+        pool = np.append(_keys_near_fill_slot(K.hash_table_size(nb), 60),
+                         [_FILL, 5, 6])
+        bimg = [t(rng.choice(pool, nb))]
+        simg = [t(rng.choice(np.append(pool, [7, 8]), ns))]
+    elif case == "bool_key":  # image 0 for about half the rows
+        bimg = [t((rng.random(nb) < 0.5).astype(np.int64))]
+        simg = [t((rng.random(ns) < 0.5).astype(np.int64))]
+    elif case in ("k2_fill", "k3_fill"):
+        # a key of several words claims on a state word: all ones is an
+        # ordinary key word there, alone and as the all-ones key
+        k = int(case[1])
+        words = np.array([_FILL, 0, 1, 5, np.iinfo(np.int64).max])
+        ns = 64
+        bimg = [t(rng.choice(words, nb)) for _ in range(k)]
+        simg = [t(rng.choice(np.append(words, 9), ns)) for _ in range(k)]
+    elif case == "int64_max":  # INT64_MAX's image is the all-ones word
+        vals = np.array([np.iinfo(np.int64).max, np.iinfo(np.int64).min, 0,
+                         -1, 1])
+        bimg = [t(np.where(rng.random(nb) < 0.3, vals[0],
+                           rng.integers(-50, 50, nb)) ^ (-1 << 63))]
+        simg = [t(rng.choice(np.append(vals, [60, 70]), ns) ^ (-1 << 63))]
+    else:
+        k = {"k2": 2, "k3": 3}.get(case, 1)
+        hi = {"skewed": 1, "k2": 40, "k3": 12}.get(case, 20_000)
+        bimg = [t(rng.integers(0, hi, nb)) for _ in range(k)]
+        simg = [t(rng.integers(0, hi + hi // 4 + 1, ns)) for _ in range(k)]
     bv = t(rng.random(nb) < (0.0 if case == "all_invalid" else 0.9))
     sv = t(rng.random(ns) < 0.95)
     return bimg, bv, simg, sv
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "skewed", "k2", "k3",
-                                  "all_invalid", "empty"])
-def test_hash_join_kernels_match_plain(cuda_device, case):
-    rng = np.random.default_rng(7)
-    bimg, bv, simg, sv = _join_case(case, rng, cuda_device)
+def _check_join(bimg, bv, simg, sv):
+    """B3 by key, then B4 probing its table, then the composed join."""
     T = K.hash_table_size(bv.shape[0])
     slot, rank, table, counts = K.hash_table_build(bimg, bv, T)
     slot_p, _r, table_p, counts_p = K.hash_table_build_plain(bimg, bv, T)
@@ -149,6 +183,36 @@ def test_hash_join_kernels_match_plain(cuda_device, case):
     c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
         bimg, bv, simg, sv, T))
     assert torch.equal(c, c_p) and torch.equal(rows, rows_p)
+    return slot, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "skewed", "k2", "k3",
+                                  "all_invalid", "empty", "fill_key",
+                                  "bool_key", "int64_max", "k2_fill",
+                                  "k3_fill"])
+def test_hash_join_kernels_match_plain(cuda_device, case):
+    rng = np.random.default_rng(7)
+    bimg, bv, simg, sv = _join_case(case, rng, cuda_device)
+    slot, counts = _check_join(bimg, bv, simg, sv)
+    if case in ("fill_key", "int64_max", "k2_fill", "k3_fill"):
+        # the all-ones key has one slot
+        fill = bv & torch.stack(bimg).eq(_FILL).all(0)
+        assert int(fill.sum()) > 0
+        assert slot[fill].unique().numel() == 1
+        assert int(counts[slot[fill][0].long()]) == int(fill.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "k3", "fill_key"])
+def test_hash_join_kernels_on_a_second_stream(cuda_device, case):
+    rng = np.random.default_rng(13)
+    bimg, bv, simg, sv = _join_case(case, rng, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _check_join(bimg, bv, simg, sv)
+    torch.cuda.current_stream().wait_stream(side)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +259,70 @@ def test_hybrid_expand_kernel_matches_plain(cuda_device, bws, kinds):
         got = K.hybrid_expand(*args, n)
         want = K.hybrid_expand_plain(*args, n)
         assert torch.equal(got, want), n
+
+
+def _hybrid_streams(rng, count, dev, upload=False):
+    """``count`` ragged hybrid streams (2 to 3000 runs, outputs up to and
+    past their runs, then one more with n = 0); with ``upload``, every array
+    is a view of one uint8 buffer, as ``parquet_decode.upload_arrays``
+    cuts them, but 8 bytes past a 16-byte boundary."""
+    host = []
+    for j in range(count):
+        nwords = int(rng.integers(700, 5000))
+        words = rng.integers(0, 1 << 32, nwords, dtype=np.uint64).astype(
+            np.uint32)
+        *table, total = _run_table(rng, int(rng.integers(2, 3000)),
+                                   [0, 1, 5, 17, 32], [0, 1], nwords + 600)
+        host.append(([words] + table,
+                     total + int(rng.integers(-total // 2, 3000))))
+    host.append((host[0][0], 0))
+    if not upload:
+        return [tuple(_dev(a, dev) for a in arrays) + (n,)
+                for arrays, n in host]
+    flat = [np.ascontiguousarray(a).view(np.uint8) for arrays, _n in host
+            for a in arrays]
+    offs = 8 + 16 * np.cumsum([0] + [len(f) // 16 + 1 for f in flat])
+    buf = np.zeros(int(offs[-1]), np.uint8)
+    for f, o in zip(flat, offs):
+        buf[o:o + len(f)] = f
+    dbuf = torch.from_numpy(buf).to(dev)
+    out, i = [], 0
+    for arrays, n in host:
+        views = []
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            t = dbuf[offs[i]:offs[i] + a.nbytes]
+            views.append(t.view(torch.from_numpy(a[:0]).dtype))
+            i += 1
+        out.append(tuple(views) + (n,))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,upload", [(1, False), (13, False),
+                                          (33, False), (33, True)])
+def test_hybrid_expand_many_kernel_matches_plain(cuda_device, count,
+                                                 upload):
+    """Ragged streams in one call (n = 0 among them, outputs past the guard
+    row), split into launches of 32, from views of one upload buffer at
+    offsets that are 8- but not 16-byte aligned; bit for bit."""
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    assert lib.srt_hybrid_expand_max_streams() == K.HYBRID_MAX_STREAMS
+    rng = np.random.default_rng(count)
+    streams = _hybrid_streams(rng, count, cuda_device, upload)
+    if upload:
+        assert any(s[0].data_ptr() % 16 for s in streams)
+    before = K.LAUNCHES["hybrid_expand"]
+    got = K.hybrid_expand_many(streams)
+    # one launch per 32 streams with outputs: 33 take two
+    assert K.LAUNCHES["hybrid_expand"] - before == -(-count // 32)
+    want = K.hybrid_expand_many_plain(streams)
+    assert len(got) == count + 1 and got[-1].shape == (0,)
+    for g, w, s in zip(got, want, streams):
+        assert g.shape == (s[6],) and torch.equal(g, w), s[6]
 
 
 def _delta_chunk(rng, totals, bws, nwords):

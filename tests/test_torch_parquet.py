@@ -337,6 +337,38 @@ def test_hybrid_expand_plain_matches_jnp_twin(bws, kinds):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _hybrid_many(seed: int, count: int) -> list:
+    """``count`` ragged hybrid streams from one seed: run tables of 1 to 60
+    runs, outputs up to and past their runs, n = 0 for every fifth."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(count):
+        nwords = int(rng.integers(50, 400))
+        words = rng.integers(0, 1 << 32, nwords, dtype=np.uint64).astype(
+            np.uint32)
+        tbl, total = _run_table(rng, int(rng.integers(1, 60)),
+                                [0, 1, 5, 17, 32], [0, 1], nwords)
+        n = 0 if j % 5 == 4 else total + int(rng.integers(-total // 2, 90))
+        out.append((words, tbl, n))
+    return out
+
+
+@pytest.mark.parametrize("count", [1, 7, 33])
+def test_hybrid_expand_many_plain_matches_jnp_twin(count):
+    """Each output of one ``hybrid_expand_many`` call equals the JAX
+    package's ``_hybrid_expand_jnp`` of its stream."""
+    spec = _hybrid_many(count, count)
+    got = K.hybrid_expand_many([
+        (_t(w), *[_t(tbl[k]) for k in _HYBRID_KEYS], n)
+        for w, tbl, n in spec])
+    assert len(got) == count
+    for g, (w, tbl, n) in zip(got, spec):
+        want = np.asarray(ref_pk._hybrid_expand_jnp(
+            jnp.asarray(w), *[jnp.asarray(tbl[k]) for k in _HYBRID_KEYS], n))
+        assert g.dtype == torch.int32 and g.shape == (n,)
+        np.testing.assert_array_equal(g.numpy(), want)
+
+
 def _ref_delta_pages(up, meta):
     return [np.asarray(ref_pk.delta_unpack(
         jnp.asarray(up["dl_words"]), jnp.asarray(up[f"d{j}_out_start"]),
@@ -495,6 +527,45 @@ def test_row_group_decodes_plain_streams_in_one_call(session, files, shape,
             continue
         k = sum(p["kind"] in ("fixed_plain", "fixed_dict")
                 for p in raw.plans.values())
+        if k:
+            want_calls.append(k)
+    assert want_calls
+    got = S.collect(S.scan_table(path, columns, device="cpu"))
+    assert calls == want_calls
+    want = pq.read_table(path, columns=columns).to_pandas()
+    ref = _jax_scan(session, path)
+    for c in columns:
+        assert _same_values(got[c], want[c]), c
+        if _same_values(ref[c], want[c]):
+            assert _same_values(got[c], ref[c]), c
+
+
+@pytest.mark.parametrize("shape", ["lineitem_spec", "customer_spec",
+                                   "types", "multipage", "allnull"])
+def test_row_group_expands_hybrid_streams_in_one_call(session, files, shape,
+                                                      monkeypatch):
+    """``decode_rowgroup`` hands every RLE/bit-packed hybrid stream of a
+    row group (definition levels, dictionary codes, booleans) to one
+    ``hybrid_expand_many`` call, and the scan still equals pyarrow and the
+    JAX package's device-decode scan."""
+    calls = []
+    many = K.hybrid_expand_many
+
+    def counted(streams):
+        calls.append(len(streams))
+        return many(streams)
+    monkeypatch.setattr(K, "hybrid_expand_many", counted)
+    path = files[shape]
+    src = ParquetSource(path)
+    columns = list(src.columns)[:8]
+    dts = dict(zip(src.schema.names, src.schema.dtypes))
+    want_calls = []
+    for rg in range(praw.file_metadata(path).num_row_groups):
+        raw = PD.prepare_rowgroup(path, rg, columns, dts, BLOCKED)
+        if isinstance(raw, pd.DataFrame):
+            continue
+        host = {c: PD._device_upload(p) for c, p in raw.plans.items()}
+        k = len(PD.hybrid_streams(raw.plans, host, 1))
         if k:
             want_calls.append(k)
     assert want_calls
