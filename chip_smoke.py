@@ -30,9 +30,11 @@ and the stable argsort of ``~keep`` (the one PyTorch call with B1's
 result); B7 on one stream and on all the PLAIN fixed streams of a Q1 row
 group in one ``plain_fixed_many`` call, beside their clones; B5 on all the
 hybrid streams of a Q1 row group in one ``hybrid_expand_many`` call,
-beside the sum of one call a stream; B3 at Q3's lineitem build, its bound
-beside the count before its redesign. A Parquet query may make at most one
-B5 and one B7 launch per row group.
+beside the sum of one call a stream; B3 at Q3's lineitem build and B2 at
+the Q18 partial, each bound beside the count before its redesign; B4 and
+``hash_join_lookup`` (B4 writing each row's match count and first
+``bperm`` position, one launch) at Q3's probe. A Parquet query may make at
+most one B5 and one B7 launch per row group.
 
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
@@ -217,6 +219,7 @@ def check_hash_agg(n: int, nkeys: int, q18_rows: int, gen: torch.Generator,
                    dev=torch.device("cuda")) -> dict:
     from spark_rapids_tpu_torch.ops import kernels as K
     from spark_rapids_tpu_torch.ops.hashing import splitmix64
+    from spark_rapids_tpu_torch.tools.profile_kernels import b2_bound_bytes
     T = K.hash_table_size(n)
     key = torch.randint(0, nkeys, (n,), generator=gen, device=dev)
     key_valid = torch.rand(n, generator=gen, device=dev) < 0.99
@@ -234,8 +237,14 @@ def check_hash_agg(n: int, nkeys: int, q18_rows: int, gen: torch.Generator,
             ("sum", torch.ones(n, dtype=torch.int64, device=dev), live)]
     kinds = [(k, d.dtype) for k, d, _e in jobs]
     err = 0.0
-    for images in ([img], [img, key_valid.to(torch.int64)],
-                   [splitmix64(key) & 1023]):  # k=1, k=2, a skewed key
+    # the all-ones image (every key word the fill) on every 7th row
+    fill = torch.where(pos % 7 == 0, torch.full_like(img, -1), img)
+    nullsig = key_valid.to(torch.int64)
+    for images in ([img], [img, nullsig], [splitmix64(key) & 1023],
+                   [fill], [fill, torch.full_like(img, -1)],
+                   [img, key % 5, key % 3, nullsig]):
+        # k = 1 and 2 (the Q18 layout), a skewed key, the fill key at
+        # k = 1 and 2, k = 4 (Q3's group-by layout)
         out_k = K.hash_grouped_aggregate(images, live, jobs, T)
         out_p = K.hash_grouped_aggregate_plain(images, live, jobs, T)
         err = max(err, _compare_agg(out_k, out_p, kinds))
@@ -263,19 +272,16 @@ def check_hash_agg(n: int, nkeys: int, q18_rows: int, gen: torch.Generator,
                                                   T18), 10)
     plain_ms = time_ms(lambda: K.hash_grouped_aggregate_plain(
         images, live18, jobs18, T18), 2)
-    k, nj = len(images), len(jobs18)
-    # each input read once (key words, live byte, data and eligible byte per
-    # job), each T-wide output written once (count, rep, per job acc + nel),
-    # and one random 32-byte sector per table touch of a live row: the
-    # claim state and its k key words as one packed slot (4 + 8k <= 32
-    # bytes), then count, rep and per job acc + nel
-    nbytes = (m * (8 * k + 1) + m * nj * (8 + 1) + T18 * (4 + 4 + nj * 12)
-              + m * (1 + 2 + 2 * nj) * 32)
+    # each input read once, each T-wide output written once, and per live
+    # row the random sectors of one record holding all it updates
+    nbytes = b2_bound_bytes(m, int(live18.sum()), len(images),
+                            [d.element_size() for _k, d, _e in jobs18], T18)
     return {"name": "hash_grouped_aggregate", "route": "cuda",
             "source": "spark_rapids_tpu_torch/csrc/hash_agg.cu",
             "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:619",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "bound_ms": bound_ms(nbytes["bytes"]), "bound_by": "bytes",
+            "old_bound_ms": bound_ms(nbytes["old"]),
             "library_ms": None, "check_rows": n, "check_groups": groups,
             "check_table": T, "timed_rows": m, "timed_table": T18}
 
@@ -319,7 +325,11 @@ def _compare_build(images, valid, T) -> tuple:
     return slot, table, counts, table_p, counts_p
 
 
-def _compare_probe(table, counts, table_p, counts_p, images, valid, T):
+def _compare_probe(slot_b, bvalid, table, counts, table_p, counts_p,
+                   images, valid, T) -> int:
+    """B4 against the plain probe of the plain build (by key), and the
+    lookup against the plain probe of the same table, then ``_lookup``;
+    returns the hits."""
     from spark_rapids_tpu_torch.ops import kernels as K
     got = K.hash_table_probe(table, counts, images, valid, T)
     want = K.hash_table_probe_plain(table_p, counts_p, images, valid, T)
@@ -331,6 +341,13 @@ def _compare_probe(table, counts, table_p, counts_p, images, valid, T):
                 "hash_table_probe: a hit slot holds another key")
     require(torch.equal(counts[got[hit].long()], counts_p[want[hit].long()]),
             "hash_table_probe: match counts differ from plain")
+    jt = K.JoinTable(table, counts, *K._placement(slot_b, counts, bvalid))
+    plain = K._lookup(K.hash_table_probe_plain(table, counts, images, valid,
+                                               T), counts, jt.starts)
+    for g, w in zip(K.hash_join_lookup(jt, images, valid), plain):
+        require(g.dtype == w.dtype and torch.equal(g, w),
+                "hash_join_lookup differs from the plain probe + _lookup")
+    return int(hit.sum())
 
 
 def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
@@ -345,13 +362,16 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
     ``probe_rows`` o_orderkey-like keys (multiples of 4)."""
     from spark_rapids_tpu_torch.ops import kernels as K
     from spark_rapids_tpu_torch.testing import hashcheck
+    from spark_rapids_tpu_torch.tools.profile_kernels import (
+        lookup_bound_bytes)
     cases = {}
     for case in ("k1", "k2", "k3", "skewed", "bool_key", "int64_max",
                  "all_invalid", "empty"):
         bimg, bv, simg, sv = _join_inputs(case, n, gen, dev)
         T = K.hash_table_size(bv.shape[0])
-        _slot, table, counts, table_p, counts_p = _compare_build(bimg, bv, T)
-        _compare_probe(table, counts, table_p, counts_p, simg, sv, T)
+        slot, table, counts, table_p, counts_p = _compare_build(bimg, bv, T)
+        _compare_probe(slot, bv, table, counts, table_p, counts_p, simg, sv,
+                       T)
         c, rows = hashcheck.join_matches(*K.hash_join_probe(bimg, bv, simg,
                                                             sv, T))
         c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
@@ -372,9 +392,12 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
                              device=dev)
     simg = [skey ^ -(1 << 63)]
     sv = torch.ones(probe_rows, dtype=torch.bool, device=dev)
-    _slot, table, counts, table_p, counts_p = _compare_build(img, valid, T)
-    _compare_probe(table, counts, table_p, counts_p, simg, sv, T)
+    slot, table, counts, table_p, counts_p = _compare_build(img, valid, T)
+    hits = _compare_probe(slot, valid, table, counts, table_p, counts_p, simg,
+                          sv, T)
     del table_p, counts_p
+    jt = K.JoinTable(table, counts, *K._placement(slot, counts, valid))
+    del slot
     build_ms = time_ms(lambda: K.hash_table_build(img, valid, T), 10)
     build_plain_ms = time_ms(lambda: K.hash_table_build_plain(img, valid, T),
                              1)
@@ -382,6 +405,10 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
                        20)
     probe_plain_ms = time_ms(lambda: K.hash_table_probe_plain(
         table, counts, simg, sv, T), 2)
+    lookup_ms = time_ms(lambda: K.hash_join_lookup(jt, simg, sv), 20)
+    lookup_plain_ms = time_ms(lambda: K._lookup(K.hash_table_probe_plain(
+        table, counts, simg, sv, T), counts, jt.starts), 2)
+    lookup_bytes = lookup_bound_bytes(probe_rows, int(sv.sum()), hits)
     k = len(img)
     # B3: keys and the valid byte read once, the slot written once, the
     # T-wide key words and counts initialised once, and per valid row two
@@ -408,8 +435,10 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
               replaces="spark_rapids_tpu/ops/pallas_kernels.py:391",
               ms=probe_ms, plain_ms=probe_plain_ms,
               bound_ms=bound_ms(b4_bytes), timed_rows=probe_rows,
-              timed_hits=int((K.hash_table_probe(table, counts, simg, sv, T)
-                              < T).sum()))
+              timed_hits=hits, lookup_ms=lookup_ms,
+              lookup_plain_ms=lookup_plain_ms,
+              lookup_bound_bytes=lookup_bytes,
+              lookup_bound_ms=bound_ms(lookup_bytes))
     return [b3, b4]
 
 
@@ -1094,6 +1123,14 @@ def main() -> int:
     b3 = _by_name(kernels, "hash_table_build")
     log(f"kernel hash_table_build: bound {b3['bound_ms']:.4f} (with the state "
         f"word, as counted before: {b3['old_bound_ms']:.4f})")
+    b2 = _by_name(kernels, "hash_grouped_aggregate")
+    log(f"kernel hash_grouped_aggregate: bound {b2['bound_ms']:.4f} (a "
+        f"sector a table array, as counted before: "
+        f"{b2['old_bound_ms']:.4f})")
+    b4 = _by_name(kernels, "hash_table_probe")
+    log(f"kernel hash_join_lookup: ms {b4['lookup_ms']:.4f} plain "
+        f"{b4['lookup_plain_ms']:.4f} bound {b4['lookup_bound_ms']:.4f} "
+        f"({b4['lookup_bound_bytes']} bytes, {b4['timed_hits']} hits)")
     b1 = _by_name(kernels, "compact_permutation")
     log(f"kernel compact_permutation: {b1['rows']} rows ms {b1['ms']:.4f} "
         f"argsort {b1['library_ms']:.4f} cumsum {b1['cumsum_ms']:.4f}; "

@@ -38,12 +38,16 @@
 //     one CAS, so the row claims (or finds) its slot with the claim/publish
 //     probe of hash_table.cuh (shared with hash_agg.cu) on a T-wide state
 //     array, then adds 1 to the count.
-// The probe (B4) reads counts[s] == 0 as an empty slot and compares the k
-// words otherwise: read-only, after the build on the same stream. A row
+// The probe (B4) is read-only, after the build on the same stream. A row
 // follows its chain to an empty slot (absent -> T) or to its key (-> the
-// slot). Invalid rows get T. Probe bound: keys, valid and slot once and one
-// random sector per valid row; its layout (key words and count in arrays
-// of their own) costs k + 1 sectors a row.
+// slot); invalid rows get T. Its bound: keys, valid and slot once and one
+// random sector per valid row. Since the build leaves kFill in every
+// unused key word, a step reads the key word alone: one sector, where
+// reading the count first cost two. The join's lookup
+// (hash_join_lookup: each stream row's match count and first bperm
+// position) runs in the same launch and reads a hit's count and start,
+// two more sectors a hit, in place of a slot array and eight launches of
+// gathers and selects after the probe.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -125,39 +129,80 @@ __global__ void build_on_state(const unsigned long long* __restrict__ keys,
     }
     unsigned long long key[kMaxKeys];
     const unsigned long long h = srt::load_key(keys, k, n, i, key);
-    const int s = srt::claim_or_find(key, k, h, table, state, mask, T);
+    const int s = srt::claim_or_find(
+        key, k, h, srt::Slots{table, static_cast<size_t>(T), 1, state, 1},
+        mask);
     atomicAdd(&counts[s], 1);
     slot[i] = s;
   }
 }
 
+// The slot of row i's key in a table that build_on_key or build_on_state
+// built, or T where it is absent. Precondition: the table was built on the
+// card, so every unused slot's key words hold kFill; a table whose unused
+// words hold 0 (the plain build's) would give key image 0 a false hit.
+// A chain step reads the slot's word 0 first: for k = 1 it settles the
+// step alone (the key: a hit; kFill: the empty slot that ends the chain;
+// another word: step on). Only a probe for a key that holds kFill reads
+// counts[s], where its word says "maybe empty": at k = 1 the kFill key has
+// the first kFill slot of its chain (place_fill_key) or is absent.
+__device__ __forceinline__ int find_slot(
+    const unsigned long long* __restrict__ table,
+    const int* __restrict__ counts,
+    const unsigned long long* __restrict__ keys, int k, int n, int i,
+    unsigned long long mask, int T) {
+  unsigned long long key[kMaxKeys];
+  unsigned long long probe = srt::load_key(keys, k, n, i, key);
+  if (k == 1) {
+    while (true) {
+      const int s = static_cast<int>(probe & mask);
+      const unsigned long long w = table[s];
+      if (w == key[0]) {
+        return key[0] != kFill || counts[s] > 0 ? s : T;
+      }
+      if (w == kFill) return T;
+      ++probe;
+    }
+  }
+  while (true) {
+    const int s = static_cast<int>(probe & mask);
+    const unsigned long long w = table[s];
+    if (w == kFill && counts[s] == 0) return T;  // an empty slot
+    if (w == key[0]) {
+      bool eq = true;
+      for (int j = 1; j < k && eq; ++j) {
+        eq = table[static_cast<size_t>(j) * T + s] == key[j];
+      }
+      if (eq) return s;
+    }
+    ++probe;
+  }
+}
+
+// kLookup = false: slot[i] = the slot of row i's key, T where it is absent
+// or the row invalid. kLookup = true (hash_join_lookup): match[i] =
+// counts[s] and first[i] = starts[s] at a hit, both 0 otherwise; counts
+// and starts are read only at a hit and no slot is written.
+template <bool kLookup>
 __global__ void hash_probe(const unsigned long long* __restrict__ table,
                            const int* __restrict__ counts,
+                           const int* __restrict__ starts,
                            const unsigned long long* __restrict__ keys, int k,
                            int n, const uint8_t* __restrict__ valid,
                            unsigned long long mask, int T,
-                           int* __restrict__ slot) {
+                           int* __restrict__ slot, int* __restrict__ match,
+                           int* __restrict__ first) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    int out = T;
-    if (valid[i]) {
-      unsigned long long key[kMaxKeys];
-      unsigned long long probe = srt::load_key(keys, k, n, i, key);
-      while (true) {
-        const int s = static_cast<int>(probe & mask);
-        if (counts[s] == 0) break;  // an empty slot ends the chain
-        bool eq = true;
-        for (int j = 0; j < k && eq; ++j) {
-          eq = table[static_cast<size_t>(j) * T + s] == key[j];
-        }
-        if (eq) {
-          out = s;
-          break;
-        }
-        ++probe;
-      }
+    const int s = valid[i] ? find_slot(table, counts, keys, k, n, i, mask, T)
+                           : T;
+    if (kLookup) {
+      const bool hit = s < T;
+      match[i] = hit ? counts[s] : 0;
+      first[i] = hit ? starts[s] : 0;
+    } else {
+      slot[i] = s;
     }
-    slot[i] = out;
   }
 }
 
@@ -198,17 +243,26 @@ extern "C" int srt_hash_build(const unsigned long long* keys, int k, int n,
 }
 
 // table, counts: a build's outputs; keys: (k, n) stream images; valid: n
-// bytes; slot: n ints.
+// bytes. With starts (each slot's first bperm position) null: slot, n ints
+// (match and first unused). Otherwise the lookup: match and first, n ints
+// each (slot unused).
 extern "C" int srt_hash_probe(const unsigned long long* table,
-                              const int* counts,
+                              const int* counts, const int* starts,
                               const unsigned long long* keys, int k, int n,
                               const uint8_t* valid, int T, int* slot,
-                              cudaStream_t stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    hash_probe<<<blocks, kThreads, 0, stream>>>(
-        table, counts, keys, k, n, valid,
-        static_cast<unsigned long long>(T - 1), T, slot);
+                              int* match, int* first, cudaStream_t stream) {
+  if (k < 1 || k > kMaxKeys) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const unsigned long long mask = static_cast<unsigned long long>(T - 1);
+  if (starts == nullptr) {
+    hash_probe<false><<<blocks, kThreads, 0, stream>>>(
+        table, counts, nullptr, keys, k, n, valid, mask, T, slot, nullptr,
+        nullptr);
+  } else {
+    hash_probe<true><<<blocks, kThreads, 0, stream>>>(
+        table, counts, starts, keys, k, n, valid, mask, T, nullptr, match,
+        first);
   }
   return cudaGetLastError();
 }

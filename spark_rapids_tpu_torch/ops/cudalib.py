@@ -40,14 +40,15 @@ _SIGNATURES = {
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
     "hash_agg": {
-        "srt_hash_agg": (_I, [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
-                              _P]),
+        "srt_hash_agg": (_I, [_P, _P]),
         "srt_hash_agg_max_keys": (_I, []),
+        "srt_hash_agg_max_jobs": (_I, []),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },
     "hash_join": {
         "srt_hash_build": (_I, [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P]),
-        "srt_hash_probe": (_I, [_P, _P, _P, _I, _I, _P, _I, _P, _P]),
+        "srt_hash_probe": (_I, [_P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+                                _P]),
         "srt_hash_join_max_keys": (_I, []),
         "srt_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -53,7 +53,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch.columnar.column import host_to_device
 from spark_rapids_tpu_torch.ops import cudalib
 from spark_rapids_tpu_torch.ops.hashing import as_signed, splitmix64
 
@@ -176,13 +175,11 @@ def _check_keys(images: Sequence[torch.Tensor], valid: torch.Tensor,
             raise TypeError(f"{what}: images must be int64 (n,) on {dev}")
 
 
-def _key_words(images: Sequence[torch.Tensor], valid: torch.Tensor,
-               max_keys: int, what: str
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The checked inputs of a hash kernel: (the (k, n) key words, the
-    valid mask), both contiguous."""
-    _check_keys(images, valid, max_keys, what)
-    return torch.stack(list(images)).contiguous(), valid.contiguous()
+def _key_array(images: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The (k, n) key words of checked images; one image is the (1, n)
+    array itself, with no stacked copy."""
+    return (images[0].contiguous() if len(images) == 1
+            else torch.stack(list(images)))
 
 
 def _check_table_size(T: int, n: int, what: str) -> None:
@@ -280,8 +277,7 @@ def hash_table_build(images: Sequence[torch.Tensor], valid: torch.Tensor,
     T = table_size
     k = len(images)
     _check_keys(images, valid, lib.srt_hash_join_max_keys(), what)
-    # one image is the (1, n) key array itself: no stacked copy
-    keys = images[0].contiguous() if k == 1 else torch.stack(list(images))
+    keys = _key_array(images)
     valid = valid.contiguous()
     n = valid.shape[0]
     dev = valid.device
@@ -328,38 +324,62 @@ def hash_table_probe_plain(table: torch.Tensor, counts: torch.Tensor,
     return slot.to(torch.int32)
 
 
-def hash_table_probe(table: torch.Tensor, counts: torch.Tensor,
-                     images: Sequence[torch.Tensor], valid: torch.Tensor,
-                     table_size: int) -> torch.Tensor:
-    """Slot of each probe row's key in a ``hash_table_build`` table, or
-    ``table_size`` where the key is absent or the row invalid."""
-    if valid.is_cpu:
-        return hash_table_probe_plain(table, counts, images, valid,
-                                      table_size)
-    _require_cuda(valid, "hash_table_probe")
+def _probe_launch(table: torch.Tensor, counts: torch.Tensor,
+                  starts, images: Sequence[torch.Tensor],
+                  valid: torch.Tensor, table_size: int, what: str):
+    """B4 on the card: the slot of each row (``starts`` None), or each
+    row's (match count, first bperm position) (``starts`` given)."""
+    _require_cuda(valid, what)
     lib = cudalib.load("hash_join")
     T = table_size
     k = len(images)
-    keys, valid = _key_words(images, valid, lib.srt_hash_join_max_keys(),
-                             "hash_table_probe")
+    _check_keys(images, valid, lib.srt_hash_join_max_keys(), what)
     n = valid.shape[0]
     dev = valid.device
     if (T & (T - 1) or T >= 1 << 31 or table.shape != (k, T)
             or table.dtype != torch.int64 or counts.shape != (T,)
             or counts.dtype != torch.int32 or table.device != dev
-            or counts.device != dev):
-        raise ValueError("hash_table_probe: table must be int64 (k, T) and "
-                         "counts int32 (T,) from hash_table_build, T a "
+            or counts.device != dev
+            or (starts is not None and (starts.shape != (T,)
+                                        or starts.dtype != torch.int32
+                                        or starts.device != dev))):
+        raise ValueError(f"{what}: table must be int64 (k, T), counts (and "
+                         "starts) int32 (T,) from hash_table_build, T a "
                          "power of two")
+    keys = _key_array(images)
+    valid = valid.contiguous()
     table = table.contiguous()
     counts = counts.contiguous()
-    slot = torch.empty(n, dtype=torch.int32, device=dev)
-    err = lib.srt_hash_probe(table.data_ptr(), counts.data_ptr(),
-                             keys.data_ptr(), k, n, valid.data_ptr(), T,
-                             slot.data_ptr(), _stream(dev))
-    cudalib.check(lib, err, "hash_table_probe")
+    if starts is None:
+        slot = torch.empty(n, dtype=torch.int32, device=dev)
+        outs = (slot.data_ptr(), None, None)
+    else:
+        starts = starts.contiguous()
+        both = torch.empty((2, n), dtype=torch.int32, device=dev)
+        outs = (None, both[0].data_ptr(), both[1].data_ptr())
+    err = lib.srt_hash_probe(
+        table.data_ptr(), counts.data_ptr(),
+        None if starts is None else starts.data_ptr(), keys.data_ptr(), k, n,
+        valid.data_ptr(), T, *outs, _stream(dev))
+    cudalib.check(lib, err, what)
     LAUNCHES["hash_table_probe"] += 1
-    return slot
+    return slot if starts is None else (both[0], both[1])
+
+
+def hash_table_probe(table: torch.Tensor, counts: torch.Tensor,
+                     images: Sequence[torch.Tensor], valid: torch.Tensor,
+                     table_size: int) -> torch.Tensor:
+    """Slot of each probe row's key in a ``hash_table_build`` table, or
+    ``table_size`` where the key is absent or the row invalid. On the card
+    a chain step reads the key word first and the count only where that
+    word is the all-ones fill, so the table must come from the card's
+    build (unused key words all ones); the plain version reads the count
+    first and takes either build's table."""
+    if valid.is_cpu:
+        return hash_table_probe_plain(table, counts, images, valid,
+                                      table_size)
+    return _probe_launch(table, counts, None, images, valid, table_size,
+                         "hash_table_probe")
 
 
 class JoinTable:
@@ -416,11 +436,16 @@ def hash_join_build(build_images: Sequence[torch.Tensor],
 def hash_join_lookup(jt: JoinTable, stream_images: Sequence[torch.Tensor],
                      stream_valid: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stream side of ``hash_join_probe``: B4, then per stream row its
-    match count and the first ``bperm`` position of its group."""
-    slot_s = hash_table_probe(jt.table, jt.counts, stream_images,
-                              stream_valid, jt.size)
-    return _lookup(slot_s, jt.counts, jt.starts)
+    """Stream side of ``hash_join_probe``: per stream row its match count
+    and the first ``bperm`` position of its group (both int32, 0 where it
+    has no match). On the card one B4 launch, which reads a hit's count and
+    start itself; on the CPU the plain probe, then ``_lookup``."""
+    if stream_valid.is_cpu:
+        slot_s = hash_table_probe_plain(jt.table, jt.counts, stream_images,
+                                        stream_valid, jt.size)
+        return _lookup(slot_s, jt.counts, jt.starts)
+    return _probe_launch(jt.table, jt.counts, jt.starts, stream_images,
+                         stream_valid, jt.size, "hash_join_lookup")
 
 
 def hash_join_probe(build_images: Sequence[torch.Tensor],
@@ -504,6 +529,63 @@ def hash_grouped_aggregate_plain(images: Sequence[torch.Tensor],
 
 _KIND_CODE = {"sum": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.int64: 0, torch.float64: 1, torch.int32: 2}
+_NP_DTYPE = {torch.int64: np.int64, torch.float64: np.float64,
+             torch.int32: np.int32}
+
+
+class AggRecord:
+    """B2's slot record (``csrc/hash_agg.cu``): every field a live row
+    updates, in one record a slot. Byte offsets: the k key words from 0,
+    then, for k > 2, the claim's state word (with 4 bytes of pad), the
+    8-byte accumulators, count and rep, the 4-byte accumulators and each
+    job's eligible count; ``stride`` rounds that up to a multiple of 16
+    bytes, so the key words of a slot start 16-byte aligned (k = 2 claims
+    on both with one 16-byte CAS). ``state`` is -1 where the key words
+    claim their slot (k <= 2)."""
+
+    def __init__(self, k: int, dtypes: Sequence[torch.dtype]):
+        off = 8 * k
+        self.state = -1
+        if k > 2:
+            self.state, off = off, off + 8
+        self.accs: List[int] = [0] * len(dtypes)
+        for j, dt in enumerate(dtypes):
+            if dt.itemsize == 8:
+                self.accs[j], off = off, off + 8
+        self.count, self.rep, off = off, off + 4, off + 8
+        for j, dt in enumerate(dtypes):
+            if dt.itemsize == 4:
+                self.accs[j], off = off, off + 4
+        self.nels = list(range(off, off + 4 * len(dtypes), 4))
+        off += 4 * len(dtypes)
+        self.k = k
+        self.dtypes = list(dtypes)
+        self.stride = -(-off // 16) * 16
+
+    def init(self, kinds: Sequence[str], n: int) -> np.ndarray:
+        """A record's initial pattern, int64 (stride / 8,): key words all
+        ones, state 0, count 0, rep n, each accumulator its kind's neutral,
+        eligible counts 0."""
+        words = np.zeros(self.stride // 8, np.int64)
+        raw = words.view(np.uint8)
+        words[:self.k] = -1
+        raw[self.rep:self.rep + 4] = np.array([n], np.int32).view(np.uint8)
+        for kind, dt, off in zip(kinds, self.dtypes, self.accs):
+            init = 0 if kind == "sum" else _minmax_init(dt, kind)
+            raw[off:off + dt.itemsize] = np.array(
+                [init], _NP_DTYPE[dt]).view(np.uint8)
+        return words
+
+    def views(self, rec: torch.Tensor, T: int):
+        """(counts, rep, accs, nels) of the first T records of ``rec``, a
+        (T + 1, stride / 8) int64 tensor: strided views, no copies."""
+        i32 = rec.view(torch.int32)
+        by_dtype = {torch.int64: rec, torch.float64: rec.view(torch.float64),
+                    torch.int32: i32}
+        accs = [by_dtype[dt][:T, off // dt.itemsize]
+                for dt, off in zip(self.dtypes, self.accs)]
+        nels = [i32[:T, off // 4] for off in self.nels]
+        return i32[:T, self.count // 4], i32[:T, self.rep // 4], accs, nels
 
 
 def hash_grouped_aggregate(images: Sequence[torch.Tensor],
@@ -520,49 +602,53 @@ def hash_grouped_aggregate(images: Sequence[torch.Tensor],
     int32 first-arrival row per used slot (n where unused), accs: per-job
     (T,) accumulators, nels: per-job (T,) int32 eligible counts). acc holds
     the kind's neutral where its nel == 0; the caller compacts used slots
-    (counts > 0) into group rows and masks by nel."""
+    (counts > 0) into group rows and masks by nel. On the card they are
+    strided views of one record a slot (``AggRecord``), at most 8 key
+    images and 16 jobs."""
     if valid.is_cpu:
         return hash_grouped_aggregate_plain(images, valid, jobs, table_size)
-    _require_cuda(valid, "hash_grouped_aggregate")
+    what = "hash_grouped_aggregate"
+    _require_cuda(valid, what)
     T = table_size
     k = len(images)
     lib = cudalib.load("hash_agg")
-    keys, valid = _key_words(images, valid, lib.srt_hash_agg_max_keys(),
-                             "hash_grouped_aggregate")
+    _check_keys(images, valid, lib.srt_hash_agg_max_keys(), what)
+    if len(jobs) > lib.srt_hash_agg_max_jobs():
+        raise ValueError(f"{what}: {len(jobs)} jobs, at most "
+                         f"{lib.srt_hash_agg_max_jobs()} a call")
     n = valid.shape[0]
     dev = valid.device
-    _check_table_size(T, n, "hash_grouped_aggregate")
-    eligs, datas = [], []
+    _check_table_size(T, n, what)
     for kind, data, elig in jobs:
         if kind not in _KIND_CODE or data.dtype not in _DTYPE_CODE:
-            raise TypeError(f"hash_grouped_aggregate: job ({kind}, "
-                            f"{data.dtype}) is not supported")
+            raise TypeError(f"{what}: job ({kind}, {data.dtype}) is not "
+                            "supported")
         if (data.shape != (n,) or elig.shape != (n,)
                 or elig.dtype != torch.bool or data.device != dev
                 or elig.device != dev):
-            raise TypeError("hash_grouped_aggregate: job data and eligible "
-                            f"masks must be (n,) on {dev}")
-        datas.append(data.contiguous())
-        eligs.append((elig & valid).contiguous())
-    table = torch.empty((k, T), dtype=torch.int64, device=dev)
-    state = torch.zeros(T, dtype=torch.int32, device=dev)
-    counts = torch.zeros(T, dtype=torch.int32, device=dev)
-    rep = torch.full((T,), n, dtype=torch.int32, device=dev)
-    accs, nels = _job_outputs(jobs, T, dev)
-    rows: List[List[int]] = []
-    for (kind, _d, _e), data, el, acc, nel in zip(jobs, datas, eligs, accs,
-                                                  nels):
-        rows.append([_KIND_CODE[kind], _DTYPE_CODE[data.dtype],
-                     data.data_ptr(), el.data_ptr(), acc.data_ptr(),
-                     nel.data_ptr()])
-    job_table = host_to_device(np.array(rows or [[0] * 6], np.int64), dev)
-    err = lib.srt_hash_agg(keys.data_ptr(), k, n, valid.data_ptr(),
-                           table.data_ptr(), state.data_ptr(), T,
-                           counts.data_ptr(), rep.data_ptr(),
-                           job_table.data_ptr(), len(rows), _stream(dev))
-    cudalib.check(lib, err, "hash_grouped_aggregate")
+            raise TypeError(f"{what}: job data and eligible masks must be "
+                            f"(n,) on {dev}")
+    # every pointer handed to the kernel stays referenced until its launch
+    inputs = [valid.contiguous()] + [im.contiguous() for im in images]
+    for _kind, data, elig in jobs:
+        inputs += [data.contiguous(), elig.contiguous()]
+    layout = AggRecord(k, [data.dtype for _kind, data, _e in jobs])
+    rec = torch.empty((T + 1, layout.stride // 8), dtype=torch.int64,
+                      device=dev)
+    desc = array.array("q", (n, k, T, len(jobs), inputs[0].data_ptr(),
+                             rec.data_ptr(), layout.stride, layout.state,
+                             layout.count, layout.rep))
+    desc.extend(im.data_ptr() for im in inputs[1:k + 1])
+    for j, (kind, data, _e) in enumerate(jobs):
+        desc.extend((_KIND_CODE[kind], _DTYPE_CODE[data.dtype],
+                     inputs[k + 1 + 2 * j].data_ptr(),
+                     inputs[k + 2 + 2 * j].data_ptr(), layout.accs[j],
+                     layout.nels[j]))
+    desc.extend(layout.init([kind for kind, _d, _e in jobs], n).tolist())
+    err = lib.srt_hash_agg(desc.buffer_info()[0], _stream(dev))
+    cudalib.check(lib, err, what)
     LAUNCHES["hash_grouped_aggregate"] += 1
-    return counts, rep, accs, nels
+    return layout.views(rec, T)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,11 @@ lineitem build shape (2^26 rows of capacity, the first 60M live, 53.7% of
 those valid, l_orderkey-like keys, T = 2^27) with k = 1 and k = 3 key
 words (the claim on the key word and on a state word); for B2
 ``hash_grouped_aggregate`` at the Q18 partial shape (2^22 rows, k = 2,
-one float64 sum, T = 2^23); and for B5 ``hybrid_expand`` on
+one float64 sum, T = 2^23); for B4 ``hash_table_probe`` and
+``hash_join_lookup`` (B4 with each probe row's match count and first
+``bperm`` position) at Q3's probe shape (2^23 o_orderkey-like probes,
+multiples of 4, against the k = 1 table of that build); and for B5
+``hybrid_expand`` on
 the level and dictionary-code streams of a Q1 lineitem row group (2^20
 rows, written as Parquet with ``tpch_data.PARQUET_SPEC`` into the ignored
 ``build/profile_parquet/`` and uploaded as the scan uploads it), one
@@ -17,21 +21,24 @@ call:
 
   * the wrapper's mean milliseconds over back-to-back calls (CUDA events);
   * the host's enqueue microseconds per call (host clock, no sync);
-  * under ``torch.profiler``, each kernel a call launches, in order, with
-    its mean device microseconds, the mean gap before the next kernel of
-    the same call, and the mean gap from one call's last kernel to the
-    next call's first (the Chrome trace's ``kernel`` events);
+  * under ``torch.profiler``, each kernel, copy and fill a call runs on
+    the card, in order, with its mean device microseconds, the mean gap
+    before the next one of the same call, and the mean gap from one call's
+    last to the next call's first (the Chrome trace's ``kernel``,
+    ``gpu_memcpy`` and ``gpu_memset`` events);
   * the PyTorch calls that compute the same function or a part of it:
     ``torch.cumsum`` of the mask (the scan alone) and the stable argsort
     of the negated mask (the whole permutation) for B1; a clone of the
-    words viewed as the values for B7. B2, B3 and B5 have none.
+    words viewed as the values for B7. B2-B5 have none.
 
 Prints one JSON object per shape and writes them, with the card's name and
 power limit, to ``chiprun_out/profile_kernels.json`` (``--tag`` adds to the
-name); the traces go to ``chiprun_out/trace_kernels_*.json``.
+name); the traces go to ``chiprun_out/trace_kernels_*.json`` (with the
+tag too).
 
     python3 -m spark_rapids_tpu_torch.tools.profile_kernels
     python3 spark_rapids_tpu_torch/tools/profile_kernels.py --root CHECKOUT
+    python3 -m spark_rapids_tpu_torch.tools.profile_kernels --only b2 b4
 
 ``--root`` imports the port from another checkout (run the file by its
 path, so that nothing of the port is imported before the root is chosen),
@@ -52,6 +59,12 @@ import numpy as np
 import torch
 
 OUT_DIR = "chiprun_out"
+PROFILES = ("b1", "b7", "b3", "b2", "b4", "b5")
+# the --tag of this run, which its trace files carry too
+_trace_tag = ""
+# the Chrome trace's device events: kernels, and copies and fills, which
+# run on the card between kernels without being kernels
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 
 
@@ -92,7 +105,7 @@ def _host_us(fn, iters: int) -> float:
 
 
 def _kernel_split(tag: str, fn, iters: int) -> dict:
-    """Kernels of ``iters`` back-to-back calls under torch.profiler."""
+    """Device events of ``iters`` back-to-back calls under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -101,13 +114,19 @@ def _kernel_split(tag: str, fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    path = os.path.join(OUT_DIR, f"trace_kernels_{tag}.json")
+    path = os.path.join(OUT_DIR, f"trace_kernels_{tag}{_trace_tag}.json")
     prof.export_chrome_trace(path)
+    return trace_split(path, iters)
+
+
+def trace_split(path: str, iters: int) -> dict:
+    """The per-call split of a Chrome trace of ``iters`` calls: its device
+    events (kernels, copies and fills) in order."""
     with open(path) as f:
         trace = json.load(f)
     kern = sorted((e["ts"], e["dur"], e["name"])
                   for e in trace.get("traceEvents", [])
-                  if e.get("cat") == "kernel" and e.get("ph") == "X")
+                  if e.get("cat") in DEVICE_EVENTS and e.get("ph") == "X")
     if not kern or len(kern) % iters:
         return {"kernel_events": len(kern), "calls": iters,
                 "split": "not measured: events do not divide into calls"}
@@ -240,6 +259,25 @@ def profile_b3(gen: torch.Generator) -> list:
     return out
 
 
+def b2_bound_bytes(rows: int, live: int, k: int, job_bytes, T: int) -> dict:
+    """Bytes B2 must move for ``rows`` rows (``live`` of them live), k key
+    words and jobs whose values are ``job_bytes`` wide: each input read once
+    (the key words and the live byte, each job's value and eligible byte),
+    each T-wide output written once (count, rep, each job's accumulator and
+    eligible count), and per live row the random 32 B sectors of one record
+    holding everything the row updates (its key words, count, rep, each
+    job's accumulator and eligible count). ``old``: the earlier count, one
+    sector for the claim state with the key words, then one each for
+    count, rep and each job's accumulator and eligible count, as when each
+    lay in an array of its own."""
+    nj = len(job_bytes)
+    once = (rows * (8 * k + 1) + sum(rows * (b + 1) for b in job_bytes)
+            + T * (4 + 4 + sum(b + 4 for b in job_bytes)))
+    record = 8 * k + 4 + 4 + sum(b + 4 for b in job_bytes)
+    return {"bytes": once + live * -(-record // 32) * 32,
+            "old": once + live * (1 + 2 + 2 * nj) * 32}
+
+
 def profile_b2(gen: torch.Generator) -> dict:
     """B2 at the Q18 partial shape of ``chip_smoke.py``."""
     from spark_rapids_tpu_torch.ops import kernels as K
@@ -252,11 +290,69 @@ def profile_b2(gen: torch.Generator) -> dict:
     qty = torch.randint(1, 51, (m,), generator=gen,
                         device="cuda").to(torch.float64)
     jobs = [("sum", qty, live)]
+    nbytes = b2_bound_bytes(m, m, 2, [8], T)
     rec = {"kernel": "hash_grouped_aggregate", "rows": m, "k": 2,
-           "table": T}
+           "table": T, "bound_ms": bound_ms(nbytes["bytes"]),
+           "old_bound_ms": bound_ms(nbytes["old"])}
     rec.update(_timed("b2", lambda: K.hash_grouped_aggregate(
         images, live, jobs, T), 20))
     return rec
+
+
+def probe_inputs(gen: torch.Generator, n: int = 1 << 23,
+                 orders: int = 15_000_000):
+    """Q3's probe: ``n`` o_orderkey-like keys (multiples of 4 up to 4 *
+    ``orders``), all valid."""
+    skey = 4 * torch.randint(1, orders + 1, (n,), generator=gen,
+                             device="cuda")
+    return [skey ^ -(1 << 63)], torch.ones(n, dtype=torch.bool,
+                                           device="cuda")
+
+
+def lookup_bound_bytes(n: int, nvalid: int, hits: int, k: int = 1) -> int:
+    """Bytes ``hash_join_lookup`` must move: the keys and the valid byte
+    read once, two int32 outputs written once, one random 32 B sector per
+    valid row (its key word), and per hit its count and its start, each a
+    random sector."""
+    return n * (8 * k + 1) + n * 8 + nvalid * 32 + hits * 2 * 32
+
+
+def profile_b4(gen: torch.Generator) -> list:
+    """B4 ``hash_table_probe`` and ``hash_join_lookup`` at Q3's probe shape:
+    ``probe_inputs`` against the B3 table of Q3's lineitem build
+    (``b3_inputs`` with k = 1, as ``chip_smoke.check_hash_join`` builds
+    it)."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    images, valid = b3_inputs(gen, 1)
+    T = K.hash_table_size(valid.shape[0])
+    jt = K.hash_join_build(images, valid, T)
+    del images, valid
+    simg, sv = probe_inputs(gen)
+    n = sv.shape[0]
+    slot = K.hash_table_probe(jt.table, jt.counts, simg, sv, T)
+    want = K.hash_table_probe_plain(jt.table, jt.counts, simg, sv, T)
+    hit = slot < T
+    if not (torch.equal(hit, want < T) and torch.equal(
+            jt.table[0][slot[hit].long()], simg[0][hit])):
+        raise AssertionError("hash_table_probe differs from plain")
+    got = K.hash_join_lookup(jt, simg, sv)
+    for g, w in zip(got, K._lookup(want, jt.counts, jt.starts)):
+        if not torch.equal(g, w):
+            raise AssertionError("hash_join_lookup differs from plain")
+    hits = int(hit.sum())
+    del slot, want, got
+    # keys and valid read once, the slot written once, one random 32 B
+    # sector per valid row
+    b4 = {"kernel": "hash_table_probe", "rows": n, "hits": hits, "table": T,
+          "bound_ms": bound_ms(n * (8 + 1) + n * 4 + n * 32)}
+    b4.update(_timed("b4", lambda: K.hash_table_probe(
+        jt.table, jt.counts, simg, sv, T), 20))
+    nbytes = lookup_bound_bytes(n, n, hits)
+    lookup = {"kernel": "hash_join_lookup", "rows": n, "hits": hits,
+              "table": T, "bound_bytes": nbytes, "bound_ms": bound_ms(nbytes)}
+    lookup.update(_timed("lookup", lambda: K.hash_join_lookup(jt, simg, sv),
+                         20))
+    return [b4, lookup]
 
 
 def q1_hybrid_streams(out_dir: Path) -> list:
@@ -338,6 +434,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--tag", default="", help="suffix of the output name")
+    ap.add_argument("--only", nargs="+", choices=PROFILES,
+                    help="profile these kernels alone (default: all)")
     args = ap.parse_args()
     if args.root:
         if "spark_rapids_tpu_torch" in sys.modules:
@@ -350,14 +448,26 @@ def main() -> None:
         raise SystemExit("profile_kernels: no CUDA device")
     from spark_rapids_tpu_torch.ops import cudalib
     os.makedirs(OUT_DIR, exist_ok=True)
+    global _trace_tag
+    _trace_tag = args.tag
     cudalib.build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    records = [profile_b1(n, gen) for n in (1 << 23, 1 << 20, 8)]
-    records += profile_b7(gen)
-    records += profile_b3(gen)
-    records.append(profile_b2(gen))
-    records += profile_b5(Path(cudalib.BUILD) / "profile_parquet")
+    only = args.only or PROFILES
+    records = []
+    if "b1" in only:
+        records += [profile_b1(n, gen) for n in (1 << 23, 1 << 20, 8)]
+    if "b7" in only:
+        records += profile_b7(gen)
+    if "b3" in only:
+        records += profile_b3(gen)
+    if "b2" in only:
+        records.append(profile_b2(gen))
+    if "b4" in only:
+        records += profile_b4(gen)
+        torch.cuda.empty_cache()
+    if "b5" in only:
+        records += profile_b5(Path(cudalib.BUILD) / "profile_parquet")
     for r in records:
         print(json.dumps(r))
     card = _card()

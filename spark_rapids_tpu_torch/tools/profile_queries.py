@@ -11,6 +11,14 @@ device-side events by time, as one JSON line; writes a Chrome trace per
 query under ``chiprun_out/``.
 
     python3 -m spark_rapids_tpu_torch.tools.profile_queries
+    python3 spark_rapids_tpu_torch/tools/profile_queries.py --root CHECKOUT \
+        --queries q3 q4 q18_groupby --tag _x
+
+``--queries`` profiles those alone; ``--root`` imports the port from
+another checkout (run the file by its path), so that two checkouts compare
+on one card; ``--tag`` adds to the trace and output names, and the records
+also go to ``chiprun_out/profile_queries<tag>.json`` with the card's name
+and power limit.
 
 Sizes are chip_smoke.py's: Q1, Q6, Q3 and Q4 at SF10 in 2^23-row batches,
 the Q18 group-by at SF1 in 2^22-row batches; the Parquet files are
@@ -21,13 +29,20 @@ one batch per row group of 2^20 rows.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
 TOP = 12  # device-side events listed per query
+UPLOAD = ("q1", "q6", "q3", "q4", "q18_groupby")
+PARQUET = ("q1_parquet", "q6_parquet", "q3_parquet", "q4_parquet",
+           "customer_parquet", "q18_groupby_parquet")
 
 
 def _device_us(evt) -> float:
@@ -77,6 +92,19 @@ def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--queries", nargs="+", choices=UPLOAD + PARQUET,
+                    help="profile these queries alone (default: all)")
+    ap.add_argument("--root", help="checkout whose port to import")
+    ap.add_argument("--tag", default="", help="suffix of the output names")
+    args = ap.parse_args()
+    if args.root:
+        if "spark_rapids_tpu_torch" in sys.modules:
+            raise SystemExit("profile_queries: run this file by its path "
+                             "to choose --root")
+        sys.path.insert(0, os.path.abspath(args.root))
+    elif "spark_rapids_tpu_torch" not in sys.modules:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: no CUDA device")
     from spark_rapids_tpu_torch.models import q1_step as Q
@@ -86,53 +114,70 @@ def main() -> None:
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
+    want = set(args.queries or UPLOAD + PARQUET)
+    tag = args.tag
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
     results = []
-    df = gen_lineitem(10)
-    batches = Q.upload_batches(df, Q.Q1_COLUMNS, 1 << 23)
-    results.append(profile("q1", lambda: Q.q1_from_batches(
-        batches).to_pandas(), TOP, out_dir))
-    batches = Q.upload_batches(df, Q.Q6_COLUMNS, 1 << 23)
-    results.append(profile("q6", lambda: Q.q6_from_batches(
-        batches).to_pandas(), TOP, out_dir))
-    del batches
-    frames = {"lineitem": df, "orders": gen_orders(10),
-              "customer": gen_customer(10)}
-    tables = J.upload_q3(frames)
-    results.append(profile("q3", lambda: J.q3_from_batches(
-        tables).to_pandas(), TOP, out_dir))
-    tables = J.upload_q4(frames)
-    results.append(profile("q4", lambda: J.q4_from_batches(
-        tables).to_pandas(), TOP, out_dir))
-    del tables
-    paths = _parquet_files(G, "sf10", 10, frames)
-    del frames, df
-    results.append(profile("q1_parquet", lambda: Q.q1_from_batches(
-        S.scan_table(paths["lineitem"], Q.Q1_COLUMNS)).to_pandas(), TOP,
-        out_dir))
-    results.append(profile("q6_parquet", lambda: Q.q6_from_batches(
-        S.scan_table(paths["lineitem"], Q.Q6_COLUMNS)).to_pandas(), TOP,
-        out_dir))
-    results.append(profile("q3_parquet", lambda: J.q3_from_batches(
-        S.scan_tables(paths, J.Q3_COLUMNS)).to_pandas(), TOP, out_dir))
-    results.append(profile("q4_parquet", lambda: J.q4_from_batches(
-        S.scan_tables(paths, J.Q4_COLUMNS)).to_pandas(), TOP, out_dir))
-    results.append(profile("customer_parquet", lambda: (
-        S.customer_segment_collect(paths["customer"])), TOP, out_dir))
-    df = gen_lineitem(1)
-    batches = Q.upload_batches(df, Q.Q18_COLUMNS, 1 << 22)
-    results.append(profile("q18_groupby", lambda: [
-        b.to_pandas() for b in Q.q18_agg_from_batches(batches)],
-        TOP, out_dir))
-    del batches
-    path18 = _parquet_files(G, "sf1", 1, {"lineitem": df},
-                            ["lineitem"])["lineitem"]
-    results.append(profile("q18_groupby_parquet", lambda: [
-        b.to_pandas() for b in Q.q18_agg_from_batches(
-            S.scan_table(path18, Q.Q18_COLUMNS))], TOP, out_dir))
+
+    def run(name, fn):
+        if name in want:
+            results.append(profile(name + tag, fn, TOP, out_dir))
+
+    sf10 = want - {"q18_groupby", "q18_groupby_parquet"}
+    if sf10:
+        df = gen_lineitem(10)
+        for name, cols, query in (("q1", Q.Q1_COLUMNS, Q.q1_from_batches),
+                                  ("q6", Q.Q6_COLUMNS, Q.q6_from_batches)):
+            if name in want:
+                batches = Q.upload_batches(df, cols, 1 << 23)
+                run(name, lambda: query(batches).to_pandas())
+                del batches
+        frames = {"lineitem": df, "orders": gen_orders(10),
+                  "customer": gen_customer(10)}
+        if "q3" in want:
+            tables = J.upload_q3(frames)
+            run("q3", lambda: J.q3_from_batches(tables).to_pandas())
+        if "q4" in want:
+            tables = J.upload_q4(frames)
+            run("q4", lambda: J.q4_from_batches(tables).to_pandas())
+        tables = None
+        if sf10 & set(PARQUET):
+            paths = _parquet_files(G, "sf10", 10, frames)
+            run("q1_parquet", lambda: Q.q1_from_batches(
+                S.scan_table(paths["lineitem"], Q.Q1_COLUMNS)).to_pandas())
+            run("q6_parquet", lambda: Q.q6_from_batches(
+                S.scan_table(paths["lineitem"], Q.Q6_COLUMNS)).to_pandas())
+            run("q3_parquet", lambda: J.q3_from_batches(
+                S.scan_tables(paths, J.Q3_COLUMNS)).to_pandas())
+            run("q4_parquet", lambda: J.q4_from_batches(
+                S.scan_tables(paths, J.Q4_COLUMNS)).to_pandas())
+            run("customer_parquet", lambda: (
+                S.customer_segment_collect(paths["customer"])))
+        del frames, df
+    if want & {"q18_groupby", "q18_groupby_parquet"}:
+        df = gen_lineitem(1)
+        if "q18_groupby" in want:
+            batches = Q.upload_batches(df, Q.Q18_COLUMNS, 1 << 22)
+            run("q18_groupby", lambda: [
+                b.to_pandas() for b in Q.q18_agg_from_batches(batches)])
+            del batches
+        if "q18_groupby_parquet" in want:
+            path18 = _parquet_files(G, "sf1", 1, {"lineitem": df},
+                                    ["lineitem"])["lineitem"]
+            run("q18_groupby_parquet", lambda: [
+                b.to_pandas() for b in Q.q18_agg_from_batches(
+                    S.scan_table(path18, Q.Q18_COLUMNS))])
     for r in results:
         print(json.dumps(r))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    with open(os.path.join(out_dir, f"profile_queries{tag}.json"), "w") as f:
+        json.dump({"card": card, "root": args.root or "",
+                   "records": results}, f, indent=1)
 
 
 if __name__ == "__main__":

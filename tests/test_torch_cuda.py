@@ -106,6 +106,136 @@ def test_hash_agg_kernel_matches_plain(cuda_device, nkeys):
         np.testing.assert_allclose(got[row][1], accs, rtol=F64_RTOL)
 
 
+def _agg_jobs(rng, n, nj, valid, dev):
+    """``nj`` of seven jobs over every kind and dtype the kernel takes (7:
+    a record with two 4-byte accumulators, its stride not 16-aligned
+    before the pad)."""
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    jobs = [("sum", t(rng.random(n) * 1e3), valid),
+            ("sum", t(rng.integers(-50, 50, n)), t(rng.random(n) < 0.8)),
+            ("min", t(rng.integers(-1000, 1000, n).astype(np.int32)), valid),
+            ("max", t(rng.random(n) * 100 - 50), t(rng.random(n) < 0.9)),
+            ("min", pos, valid), ("max", t(rng.integers(-9, 9, n)), valid),
+            ("min", t(rng.random(n) - 0.5), t(rng.random(n) < 0.5))]
+    return jobs[:nj]
+
+
+def _check_agg(images, valid, jobs):
+    T = K.hash_table_size(valid.shape[0])
+    out = K.hash_grouped_aggregate(images, valid, jobs, T)
+    got = _groups(*out)
+    want = _groups(*K.hash_grouped_aggregate_plain(images, valid, jobs, T))
+    assert got.keys() == want.keys()
+    for row, (cnt, accs, nels) in want.items():
+        assert got[row][0] == cnt and got[row][2] == nels
+        for (kind, data, _e), a, b in zip(jobs, got[row][1], accs):
+            if data.dtype == torch.float64 and kind == "sum":
+                np.testing.assert_allclose(a, b, rtol=F64_RTOL)
+            else:  # exact, NaN equal to NaN
+                np.testing.assert_array_equal(a, b)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nj", [1, 7])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
+def test_hash_agg_kernel_key_words_and_jobs(cuda_device, k, nj):
+    """k = 1 and 2 claim on the key words, k > 2 on the record's state
+    word; 1 and 7 jobs give records of other strides. The counts, reps and
+    accumulators are views of one record tensor."""
+    rng = np.random.default_rng(10 * k + nj)
+    n = 30_000
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    # few distinct keys over k words, words 0 and the fill among them
+    pool = np.array([-1, 0, 1, 2, 3, 1 << 40], np.int64)
+    images = [torch.from_numpy(rng.choice(pool[:3 + j % 4], n)).to(
+        cuda_device) for j in range(k)]
+    jobs = _agg_jobs(rng, n, nj, valid, cuda_device)
+    counts, rep, accs, nels = _check_agg(images, valid, jobs)
+    layout = K.AggRecord(k, [d.dtype for _k, d, _e in jobs])
+    base = counts.untyped_storage().data_ptr()
+    for t in [rep] + accs + nels:
+        assert t.untyped_storage().data_ptr() == base
+        assert t.stride(0) * t.element_size() == layout.stride
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_hash_agg_kernel_fill_key(cuda_device, k):
+    """The all-ones key (every word the fill) among keys whose chains
+    cross its first slot takes one slot after them; at k = 2 a key with
+    one fill word claims as any other."""
+    rng = np.random.default_rng(k)
+    n = 20_000
+    T = K.hash_table_size(n)
+    near = _keys_near_fill_slot(T, 40) if k == 1 else np.arange(1, 40)
+    pool = np.append(near, [_FILL])
+    images = [torch.from_numpy(rng.choice(pool, n)).to(cuda_device)]
+    if k == 2:
+        images.append(torch.from_numpy(rng.choice([_FILL, 3], n)).to(
+            cuda_device))
+    valid = torch.from_numpy(rng.random(n) < 0.95).to(cuda_device)
+    jobs = _agg_jobs(rng, n, 3, valid, cuda_device)
+    counts, rep, _a, _n = _check_agg(images, valid, jobs)
+    fill = valid & torch.stack(images).eq(_FILL).all(0)
+    assert int(fill.sum()) > 0
+    used = counts > 0
+    first = int(fill.nonzero()[0])
+    assert int((rep[used] == first).sum()) == 1
+    assert int(counts[rep == first].sum()) == int(fill.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,live", [(0, 0.0), (5000, 0.0)])
+def test_hash_agg_kernel_empty_and_all_invalid(cuda_device, n, live):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(0, 40, n)).to(cuda_device)
+    valid = torch.from_numpy(rng.random(n) < live).to(cuda_device)
+    jobs = _agg_jobs(rng, n, 7, valid, cuda_device)
+    T = K.hash_table_size(n)
+    counts, rep, accs, nels = K.hash_grouped_aggregate([keys, keys], valid,
+                                                       jobs, T)
+    want = K.hash_grouped_aggregate_plain([keys, keys], valid, jobs, T)
+    assert int(counts.sum()) == 0 and torch.equal(rep, want[1])
+    for a, b in zip(accs + nels, want[2] + want[3]):
+        assert a.dtype == b.dtype and a.shape == (T,) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_hash_agg_kernel_nan_min_max(cuda_device):
+    """NaN is sticky in float64 min and max, wherever it arrives."""
+    rng = np.random.default_rng(5)
+    n = 20_000
+    keys = torch.from_numpy(rng.integers(0, 300, n)).to(cuda_device)
+    x = rng.random(n) * 10 - 5
+    x[rng.random(n) < 0.002] = np.nan
+    x[rng.random(n) < 0.01] = np.inf
+    x[rng.random(n) < 0.01] = -np.inf
+    data = torch.from_numpy(x).to(cuda_device)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    jobs = [("min", data, valid), ("max", data, valid)]
+    counts, _r, accs, _n = _check_agg([keys], valid, jobs)
+    assert bool(accs[0][counts > 0].isnan().any())
+
+
+@pytest.mark.cuda
+def test_hash_agg_kernel_on_a_second_stream(cuda_device):
+    rng = np.random.default_rng(17)
+    n = 30_000
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    images = [torch.from_numpy(rng.integers(0, 500, n)).to(cuda_device)
+              for _ in range(2)]
+    jobs = _agg_jobs(rng, n, 7, valid, cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in (1, 2):
+            _check_agg(images[:k], valid, jobs)
+    torch.cuda.current_stream().wait_stream(side)
+
+
 _FILL = -1  # the all-ones image B3 fills unused key words with
 
 
@@ -135,6 +265,10 @@ def _join_case(case, rng, dev):
                          [_FILL, 5, 6])
         bimg = [t(rng.choice(pool, nb))]
         simg = [t(rng.choice(np.append(pool, [7, 8]), ns))]
+    elif case == "key0":  # stream image 0, absent from the build
+        bimg = [t(rng.integers(1, 2000, nb))]
+        simg = [t(np.where(rng.random(ns) < 0.3, 0,
+                           rng.integers(0, 2500, ns)))]
     elif case == "bool_key":  # image 0 for about half the rows
         bimg = [t((rng.random(nb) < 0.5).astype(np.int64))]
         simg = [t((rng.random(ns) < 0.5).astype(np.int64))]
@@ -178,6 +312,13 @@ def _check_join(bimg, bv, simg, sv):
     for j, img in enumerate(simg):
         assert torch.equal(table[j][got[hit].long()], img[hit])
     assert torch.equal(counts[got[hit].long()], counts_p[want[hit].long()])
+    # the fused lookup on the kernel's table: the plain probe, then _lookup
+    jt = K.JoinTable(table, counts, *K._placement(slot, counts, bv))
+    for g, w in zip(K.hash_join_lookup(jt, simg, sv),
+                    K._lookup(K.hash_table_probe_plain(table, counts, simg,
+                                                       sv, T),
+                              counts, jt.starts)):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
     c, rows = hashcheck.join_matches(*K.hash_join_probe(bimg, bv, simg, sv,
                                                         T))
     c_p, rows_p = hashcheck.join_matches(*K.hash_join_probe_plain(
@@ -190,7 +331,7 @@ def _check_join(bimg, bv, simg, sv):
 @pytest.mark.parametrize("case", ["random", "skewed", "k2", "k3",
                                   "all_invalid", "empty", "fill_key",
                                   "bool_key", "int64_max", "k2_fill",
-                                  "k3_fill"])
+                                  "k3_fill", "key0"])
 def test_hash_join_kernels_match_plain(cuda_device, case):
     rng = np.random.default_rng(7)
     bimg, bv, simg, sv = _join_case(case, rng, cuda_device)
@@ -201,6 +342,29 @@ def test_hash_join_kernels_match_plain(cuda_device, case):
         assert int(fill.sum()) > 0
         assert slot[fill].unique().numel() == 1
         assert int(counts[slot[fill][0].long()]) == int(fill.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_hash_probe_takes_the_cards_build(cuda_device, k):
+    """The card's probe reads a key word before the count: it takes a table
+    whose unused key words hold the fill (all ones), as the card's build
+    leaves them. Were they 0, as the plain build leaves them, key image 0
+    would hit an empty slot."""
+    rng = np.random.default_rng(k)
+    nb = 5000
+    bimg = [torch.from_numpy(rng.integers(1, 900, nb)).to(cuda_device)
+            for _ in range(k)]
+    bv = torch.ones(nb, dtype=torch.bool, device=cuda_device)
+    T = K.hash_table_size(nb)
+    jt = K.hash_join_build(bimg, bv, T)
+    assert bool((jt.table[:, jt.counts == 0] == _FILL).all())
+    zero = [torch.zeros(64, dtype=torch.int64, device=cuda_device)] * k
+    sv = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    assert bool((K.hash_table_probe(jt.table, jt.counts, zero, sv, T)
+                 == T).all())
+    match, first = K.hash_join_lookup(jt, zero, sv)
+    assert int(match.abs().sum()) == 0 and int(first.abs().sum()) == 0
 
 
 @pytest.mark.cuda

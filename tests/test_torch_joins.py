@@ -478,3 +478,36 @@ def test_string_comparisons_outside_the_slice_raise(rng):
         filter_rows(batch, F.col("ls") < "b")
     with pytest.raises(NotImplementedError, match="column/column"):
         filter_rows(batch, F.col("ls") == F.col("ls"))
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "multi_key"])
+def test_hash_join_lookup_contract(case, rng):
+    """Per stream row: the build rows of its key (int32 count, 0 where it
+    has none) and the first position of their group in bperm (0 where it
+    has none), as the plain probe and ``_lookup`` give them; the group
+    holds exactly the matching build rows."""
+    k = 2 if case == "multi_key" else 1
+    hi = 3 if case == "skewed" else 60
+    nb, ns = 300, 200
+    bimg = [rng.integers(0, hi, nb) for _ in range(k)]
+    simg = [rng.integers(0, hi + 20, ns) for _ in range(k)]
+    bv, sv = rng.random(nb) < 0.9, rng.random(ns) < 0.9
+    T = K.hash_table_size(nb)
+    jt = K.hash_join_build([_t(w) for w in bimg], _t(bv), T)
+    match, first = K.hash_join_lookup(jt, [_t(w) for w in simg], _t(sv))
+    assert match.dtype == first.dtype == torch.int32
+    assert match.shape == first.shape == (ns,)
+    slot = K.hash_table_probe(jt.table, jt.counts, [_t(w) for w in simg],
+                              _t(sv), T)
+    want = K._lookup(slot, jt.counts, jt.starts)
+    assert torch.equal(match, want[0]) and torch.equal(first, want[1])
+    bkeys = list(zip(*bimg))
+    for i in range(ns):
+        rows = [r for r in range(nb)
+                if bv[r] and sv[i] and bkeys[r] == tuple(w[i] for w in simg)]
+        assert int(match[i]) == len(rows)
+        if not rows:
+            assert int(first[i]) == 0
+            continue
+        got = jt.bperm[int(first[i]):int(first[i]) + len(rows)]
+        assert sorted(got.tolist()) == rows

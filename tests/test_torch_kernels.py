@@ -212,3 +212,58 @@ def test_hash_grouped_aggregate_skew_and_all_invalid(rng):
     g = _check_against_reference([keys], np.ones(n, bool), jobs)
     assert list(g) == [0] and g[0][0] == n
     assert _check_against_reference([keys], np.zeros(n, bool), jobs) == {}
+
+
+@pytest.mark.parametrize("k,dtypes,stride,state", [
+    (2, [torch.float64], 48, -1),   # the Q18 partial: 36 bytes
+    (4, [torch.float64], 64, 32),   # Q3's group-by: 60 bytes
+    (1, [torch.int32], 32, -1),
+    (3, [torch.int64, torch.int32, torch.float64, torch.int32, torch.int64,
+         torch.float64, torch.int32], 112, 24),
+    (8, [torch.int64] * 16, 272, 64),  # the largest record the kernel takes
+])
+def test_agg_record_layout_init_and_views(k, dtypes, stride, state):
+    """B2's record: 8-byte fields 8-aligned, a stride that is a multiple of
+    16 bytes, no two fields overlapping; the initial pattern read through
+    the views: key words all ones, count 0, rep n, each accumulator its
+    kind's neutral, eligible counts 0; each view a strided column of the
+    record tensor with the job's dtype."""
+    lay = K.AggRecord(k, dtypes)
+    assert (lay.stride, lay.state) == (stride, state)
+    fields = [(0, 8 * k), (lay.count, 4), (lay.rep, 4)]
+    fields += [(off, dt.itemsize) for off, dt in zip(lay.accs, dtypes)]
+    fields += [(off, 4) for off in lay.nels]
+    if state >= 0:
+        fields.append((state, 4))
+    spans = sorted(fields)
+    for (a, la), (b, _lb) in zip(spans, spans[1:]):
+        assert a + la <= b
+    assert spans[-1][0] + spans[-1][1] <= lay.stride
+    for off, size in fields:
+        assert off % size == 0
+    kinds = ["sum", "min", "max"] * 6
+    n, T = 77, 16
+    init = lay.init(kinds[:len(dtypes)], n)
+    assert init.dtype == np.int64 and init.shape == (stride // 8,)
+    rec = torch.from_numpy(np.tile(init, (T + 1, 1)))
+    counts, rep, accs, nels = lay.views(rec, T)
+    assert counts.dtype == rep.dtype == torch.int32
+    assert bool((counts == 0).all()) and bool((rep == n).all())
+    assert bool((rec[:, :k] == -1).all())
+    if state >= 0:
+        assert bool((rec.view(torch.int32)[:, state // 4] == 0).all())
+    for kind, dt, acc, nel in zip(kinds, dtypes, accs, nels):
+        assert acc.dtype == dt and acc.shape == (T,) and nel.shape == (T,)
+        assert nel.dtype == torch.int32 and bool((nel == 0).all())
+        want = 0 if kind == "sum" else K._minmax_init(dt, kind)
+        assert bool((acc == want).all())
+    for t in [counts, rep] + accs + nels:
+        assert t.untyped_storage().data_ptr() == rec.untyped_storage(
+        ).data_ptr()
+        assert t.stride(0) * t.element_size() == stride
+    # a write through a view lands in its own record and field only
+    counts[3] = 5
+    accs[0][3] = 9
+    assert int(rec.view(torch.int32)[3, lay.count // 4]) == 5
+    assert int(counts.sum()) == 5 and int(rep.sum()) == n * T
+    assert float(accs[0][3]) == 9
