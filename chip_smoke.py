@@ -11,6 +11,12 @@ port's main path through its query runners:
     group-by (``group by l_orderkey, sum(l_quantity) having sum > 300``) at
     SF1, each answer checked against pandas on the host from the same
     generated rows;
+  * the port's ``TpuSparkSession``: Q1 and Q6 at SF10 and the Q18 group-by
+    at SF1 (``models/tpch.py``, the Q18 group-by with the hash-aggregation
+    confs) planned, tagged and run on the card in test mode (any operator
+    left on the CPU fails the run), with cached device scans, every answer
+    equal to pandas and to the runners', warm walls beside the runners',
+    and no counted host sync before the collect;
   * the device Parquet scan: the same rows written as Parquet files with
     ``models/tpch_data.PARQUET_SPEC`` into the ignored
     ``spark_rapids_tpu_torch/build/tpch_parquet/``, then Q1, Q6, Q3 and Q4
@@ -33,8 +39,10 @@ hybrid streams of a Q1 row group in one ``hybrid_expand_many`` call,
 beside the sum of one call a stream; B3 at Q3's lineitem build and B2 at
 the Q18 partial, each bound beside the count before its redesign; B4 and
 ``hash_join_lookup`` (B4 writing each row's match count and first
-``bperm`` position, one launch) at Q3's probe. A Parquet query may make at
-most one B5 and one B7 launch per row group.
+``bperm`` position, one launch) at Q3's probe; B6 on an l_orderkey chunk
+and on an orders row group's two DELTA chunks in one ``delta_unpack_many``
+call, beside one call a chunk. A Parquet query may make at most one B5,
+one B6 and one B7 launch per row group.
 
 Prints the card's name and power limit, per-query wall times, one
 ``{"kernels": [...]}`` line with each kernel's launches on the main path,
@@ -569,6 +577,24 @@ def _q1_hybrid_streams(path: str) -> list:
     return [s for _key, s in streams]
 
 
+def _rowgroup_delta_chunks(path: str) -> list:
+    """The (words, mstart, bwid, min_delta, bit_start, page_start, first,
+    n) of row group 0's DELTA chunks over every column of the file,
+    uploaded in one buffer and handed to one ``delta_unpack_many`` call,
+    as ``decode_rowgroup`` does."""
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.sql.sources import ParquetSource
+    src = ParquetSource(path)
+    names = list(src.schema.names)
+    raw = PD.prepare_rowgroup(
+        path, 0, names, {c: src.schema.dtype_of(c) for c in names},
+        upload_blocked_chars())
+    dev_tree = PD.upload_arrays(
+        {c: PD._device_upload(p) for c, p in raw.plans.items()}, "cuda")
+    return [s for _name, s in PD.delta_streams(raw.plans, dev_tree)]
+
+
 _CLONE_DTYPES = {"i32": torch.int32, "f32": torch.float32,
                  "i64": torch.int64, "f64": torch.float64}
 
@@ -671,20 +697,52 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
     for col in ("wrap", "down"):
         plan = column_plan(edge["delta"], col)
         a = _delta_args(plan["dev"])
-        n = plan["meta"]["nn"]
+        n = n_edge = plan["meta"]["nn"]
         got = K.delta_unpack(*a, n)
         hold("delta_unpack", got, K.delta_unpack_plain(*a, n), col)
         want = pq.read_table(edge["delta"], columns=[col]).column(0)
         got = got.to(torch.int32) if col == "wrap" else got
         require(np.array_equal(got.cpu().numpy(), want.to_numpy()),
                 f"{col} decode differs from pyarrow")
-    for totals in ([100_000], [20_000] * 13 + [777],
-                   [1, 2, 0, 33, 1, 2048, 2049, 4095, 1, 5]):
-        table, n = _delta_table(rng, totals, [0, 1, 17, 27, 32], 200_000)
+    edge_delta = [tuple(_delta_args(column_plan(edge["delta"], c)["dev"]))
+                  + (n_edge,) for c in ("wrap", "down")]
+    synthetic_delta = []
+    wide = [0, 1, 17, 27, 32]
+    for totals, bws, wrap in (([100_000], wide, False),
+                              ([20_000] * 13 + [777], wide, False),
+                              ([1, 2, 0, 33, 1, 2048, 2049, 4095, 1, 5],
+                               wide, False),
+                              ([70_000, 3], [0], False),
+                              ([9_000, 50_001], [32], False),
+                              ([5_000, 4_000], [0], True)):
+        table, n = _delta_table(rng, totals, bws, 200_000)
+        if wrap:
+            # 64-bit wrap: each page's first value 2^41 + 5 below the int64
+            # limit, then deltas of 2^40: the fourth value wraps negative
+            table[2][:-1] = 1 << 40
+            table[5][:] = (1 << 63) - 5 - (1 << 41)
         a = [_to_dev(rng.integers(0, 1 << 32, 200_000, dtype=np.uint64)
                      .astype(np.uint32))] + [_to_dev(x) for x in table]
-        hold("delta_unpack", K.delta_unpack(*a, n),
-             K.delta_unpack_plain(*a, n), f"pages {len(totals)}")
+        got = K.delta_unpack(*a, n)
+        hold("delta_unpack", got, K.delta_unpack_plain(*a, n),
+             f"pages {len(totals)} bit widths {bws}")
+        if wrap:
+            v = got.cpu().numpy()
+            require(bool((v[:3] > 0).all() and (v[3:5000] < 0).all()),
+                    "the 64-bit wrap case did not wrap")
+        synthetic_delta.append(tuple(a) + (n,))
+    # a row group's DELTA chunks in one launch, as decode_rowgroup hands
+    # them over: an orders row group (o_orderkey, o_custkey); then with the
+    # edge and synthetic chunks; then 40 chunks, two launches
+    rg_delta = _rowgroup_delta_chunks(paths["orders"])
+    require(len(rg_delta) == 2, f"orders row group DELTA chunks: "
+            f"{len(rg_delta)}")
+    mixed_delta = rg_delta + edge_delta + synthetic_delta
+    for chunks in (rg_delta, mixed_delta, (mixed_delta * 4)[:40]):
+        for got, want in zip(K.delta_unpack_many(chunks),
+                             K.delta_unpack_many_plain(chunks)):
+            hold("delta_unpack", got, want,
+                 f"{len(chunks)} chunks in one call")
 
     # B7: l_extendedprice values, the l_shipdate dictionary page, all kinds
     price = column_plan(paths["lineitem"], "l_extendedprice")
@@ -779,6 +837,17 @@ def check_decode(paths: dict, edge: dict, cap: int) -> list:
         timed="l_orderkey, row group 0", timed_rows=n_ok,
         timed_pages=int(args[6].shape[0]),
         timed_miniblocks=int(args[1].shape[0]) - 1,
+        # the main path's call: a row group's DELTA chunks in one launch
+        rowgroup="orders row group 0, o_orderkey and o_custkey",
+        rowgroup_chunks=len(rg_delta),
+        rowgroup_rows=sum(c[7] for c in rg_delta),
+        rowgroup_ms=time_ms(lambda: K.delta_unpack_many(rg_delta), 200),
+        rowgroup_plain_ms=time_ms(
+            lambda: K.delta_unpack_many_plain(rg_delta), 5),
+        rowgroup_single_calls_ms=sum(
+            time_ms(lambda c=c: K.delta_unpack(*c), 200) for c in rg_delta),
+        rowgroup_bound_ms=bound_ms(sum(_nbytes(c[:7]) + 8 * c[7]
+                                       for c in rg_delta)),
         checks=checked["delta_unpack"]))
     # each stream's values read once and written once
     rg_bytes = sum(2 * t.numel() * t.element_size()
@@ -1049,6 +1118,9 @@ def run_parquet_query(name: str, scan, query, runs: int,
     require(launches["plain_fixed"] <= row_groups, f"{name}: "
             f"{launches['plain_fixed']} B7 launches for {row_groups} row "
             "groups")
+    require(launches["delta_unpack"] <= row_groups, f"{name}: "
+            f"{launches['delta_unpack']} B6 launches for {row_groups} row "
+            "groups")
     med = float(np.median(walls))
     log(f"{name}: scan+query median {med:.4f} s of {walls}, scan "
         f"{np.median(scans):.4f} s of {scans}, launches {launches}")
@@ -1061,6 +1133,64 @@ def run_parquet_query(name: str, scan, query, runs: int,
                  "launches": launches}
 
 
+def session_of(batch_rows: int, **conf):
+    """The port's session on the card with the confs of the session phase:
+    test mode (a fallback fails the query), device scan caching (warm
+    executions skip the upload, as the runners' batches are already on the
+    card) and the runners' batch size."""
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = (TpuSparkSession.builder()
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.cacheDeviceScans", True)
+         .config("spark.rapids.sql.batchSizeRows", batch_rows))
+    for k, v in conf.items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
+def run_session_query(name: str, query, runs: int, runner: dict,
+                      sf, rows: int) -> tuple:
+    """A session query: one cold execution (uploads into the session's
+    device scan cache; a partial aggregate learns its skip decision), then
+    ``runs`` warm ones timed as the runners' are, then the query up to its
+    collect under the sync debug mode "error", where it may make no counted
+    sync (the runners make none)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    query.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    out, walls, launches = run_query(name, query.collect, runs)
+    require_syncs(name, query.collect_batches, 0)
+    med = float(np.median(walls))
+    log(f"{name}: median {med:.4f} s against the runner's "
+        f"{runner['wall_s']:.4f} s; counted syncs before the collect 0 "
+        "(runner 0); cold run (upload) {:.1f} s".format(cold))
+    return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
+                 "wall_runs_s": walls, "rows_per_s": rows / med,
+                 "launches": launches, "counted_syncs": 0,
+                 "runner_wall_s": runner["wall_s"], "runner_syncs": 0}
+
+
+def same_by_key(got, want, keys, what: str) -> float:
+    """Rows equal by key: keys and integers exact, floats at rtol 1e-9;
+    returns the largest relative float error."""
+    require(list(got.columns) == list(want.columns)
+            and len(got) == len(want), f"{what}: shape differs")
+    got = got.sort_values(keys).reset_index(drop=True)
+    want = want.sort_values(keys).reset_index(drop=True)
+    err = 0.0
+    for c in got.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if np.asarray(w).dtype.kind == "f":
+            err = max(err, _rel_err(g, w))
+        else:
+            require([str(x) for x in g] == [str(x) for x in w],
+                    f"{what}: column {c} differs")
+    require(err <= F64_RTOL, f"{what}: rel {err}")
+    return err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1070,10 +1200,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import pandas as pd
     import pyarrow
     from spark_rapids_tpu_torch.models import q1_step as Q
     from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.models import tpch_joins as J
+    from spark_rapids_tpu_torch.models import tpch as T
     from spark_rapids_tpu_torch.models import tpch_scan as S
     from spark_rapids_tpu_torch.ops import cudalib
     from spark_rapids_tpu_torch.sql import parquet_raw as praw
@@ -1156,6 +1288,7 @@ def main() -> int:
         "Q1", lambda: Q.q1_from_batches(batches).to_pandas(), runs)
     q1_want = q1_reference(df)
     err = check_q1(out, q1_want)
+    q1_runner = out
     require_syncs("Q1", lambda: Q.q1_from_batches(batches), 0)
     require(launches["compact_permutation"] > 0, "Q1 ran no compaction")
     queries["q1"] = query_record(sf_q1, len(df), len(batches), up, walls,
@@ -1180,7 +1313,35 @@ def main() -> int:
     require(launches["compact_permutation"] > 0, "Q6 ran no compaction")
     queries["q6"] = query_record(sf_q1, len(df), len(batches), up, walls,
                                  err, launches)
+    q6_runner = out
     del batches
+    torch.cuda.empty_cache()
+
+    # the same queries through the port's TpuSparkSession
+    sess = session_of(q1_batch)
+    tables = {"lineitem": sess.create_dataframe(df)}
+    out, rec = run_session_query("session Q1", T.q1(sess, tables), runs,
+                                 queries["q1"], sf_q1, len(df))
+    rec["max_rel_err"] = max(check_q1(out, q1_want),
+                             same_by_key(out, q1_runner, ["l_returnflag",
+                                                          "l_linestatus"],
+                                         "session Q1 against the runner"))
+    keys = list(out.l_returnflag + out.l_linestatus)
+    require(keys == sorted(keys), "session Q1 is not in the query's order")
+    require(rec["launches"]["compact_permutation"] > 0,
+            "session Q1 ran no compaction")
+    queries["session_q1"] = rec
+    out, rec = run_session_query("session Q6", T.q6(sess, tables), runs,
+                                 queries["q6"], sf_q1, len(df))
+    err = _rel_err([out.revenue[0]], [q6_want])
+    require(len(out) == 1 and err <= F64_RTOL,
+            f"session Q6 revenue differs: {err}")
+    rec["max_rel_err"] = max(err, same_by_key(out, q6_runner, ["revenue"],
+                                              "session Q6 against the "
+                                              "runner"))
+    queries["session_q6"] = rec
+    sess.clear_device_cache()
+    del sess, tables
     torch.cuda.empty_cache()
 
     # Q3 and Q4 reuse the lineitem frame of Q1/Q6
@@ -1256,6 +1417,13 @@ def main() -> int:
         f"plain {b7['rowgroup_plain_ms']:.4f} bound "
         f"{b7['rowgroup_bound_ms']:.4f}; one stream ms {b7['ms']:.4f} "
         f"clone {b7['library_ms']:.4f}")
+    b6 = _by_name(kernels, "delta_unpack")
+    log(f"kernel delta_unpack row group: {b6['rowgroup_chunks']} chunks "
+        f"ms {b6['rowgroup_ms']:.4f}, one call a chunk "
+        f"{b6['rowgroup_single_calls_ms']:.4f}, plain "
+        f"{b6['rowgroup_plain_ms']:.4f}, bound "
+        f"{b6['rowgroup_bound_ms']:.4f}; l_orderkey ms {b6['ms']:.4f} "
+        f"floor {b6['floor_ms']:.4f} bound {b6['bound_ms']:.4f}")
     b5 = _by_name(kernels, "hybrid_expand")
     log(f"kernel hybrid_expand row group: {b5['rowgroup_streams']} streams "
         f"ms {b5['rowgroup_ms']:.4f}, one call a stream "
@@ -1360,7 +1528,40 @@ def main() -> int:
     queries["q18_groupby"] = query_record(sf_q18, len(df), len(batches), up,
                                           walls, err, launches)
     queries["q18_groupby"].update(groups=len(grouped), having_rows=len(having))
+    # the runner as the session collects it: the having rows only (the
+    # timed runner above also copies every group to the host)
+    having_only, walls_h, _ = run_query(
+        "Q18 group-by, having rows only",
+        lambda: Q.q18_agg_from_batches(batches)[1].to_pandas(), runs)
+    same_by_key(having_only, having, ["l_orderkey"],
+                "Q18 having rows, two timings")
+    queries["q18_groupby"]["having_only_wall_s"] = float(np.median(walls_h))
     del batches
+
+    # the Q18 group-by through the session, on the hash branch, beside the
+    # runner that collects the same rows
+    sess = session_of(q18_batch, **T.HASH_AGG_CONFS)
+    out, rec = run_session_query(
+        "session Q18 group-by", T.q18_groupby(sess, {
+            "lineitem": sess.create_dataframe(df)}), runs,
+        {"wall_s": queries["q18_groupby"]["having_only_wall_s"]}, sf_q18,
+        len(df))
+    rec["runner_full_result_wall_s"] = queries["q18_groupby"]["wall_s"]
+    want_h = q18_want[q18_want > 300]
+    rec["max_rel_err"] = max(
+        same_by_key(out, pd.DataFrame({"l_orderkey": want_h.index,
+                                       "sum_qty": want_h.to_numpy()}),
+                    ["l_orderkey"], "session Q18 against pandas"),
+        same_by_key(out, having, ["l_orderkey"],
+                    "session Q18 against the runner"))
+    require(rec["launches"]["hash_grouped_aggregate"] > 0
+            and rec["launches"]["compact_permutation"] > 0,
+            "session Q18 did not run B1 and B2")
+    rec["having_rows"] = len(out)
+    queries["session_q18_groupby"] = rec
+    sess.clear_device_cache()
+    del sess
+    torch.cuda.empty_cache()
 
     path18 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
                              tables=["lineitem"],

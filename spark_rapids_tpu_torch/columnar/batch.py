@@ -85,6 +85,8 @@ class DeviceBatch:
         self.schema = schema
         self.columns = columns
         self.num_rows = num_rows
+        # the row count where the host knows it (an upload), else None
+        self.host_rows: Optional[int] = None
 
     @property
     def capacity(self) -> int:
@@ -101,6 +103,12 @@ class DeviceBatch:
         """bool (capacity,): True for live rows (the leading num_rows)."""
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.num_rows
+
+    def num_rows_hint(self) -> int:
+        """An upper bound of the row count without a host sync: the count
+        where the host knows it, else the capacity."""
+        return self.host_rows if self.host_rows is not None \
+            else self.capacity
 
     def num_rows_host(self) -> int:
         with sync_scope("batch.rowCount", nbytes=4):
@@ -147,7 +155,9 @@ class DeviceBatch:
             cols.append(DeviceColumn.from_host_buffers(dt, data, vpad, codes,
                                                        dvals, device))
         num_rows = torch.tensor(n, dtype=torch.int32, device=device)
-        return DeviceBatch(schema, cols, num_rows)
+        batch = DeviceBatch(schema, cols, num_rows)
+        batch.host_rows = n
+        return batch
 
     def to_pandas(self) -> pd.DataFrame:
         """Device -> host (the collect): the row count, then every column's

@@ -1,0 +1,154 @@
+"""Typed configuration registry (counterpart of the JAX package's
+``config/conf.py``, holding only the keys the port reads).
+
+Every knob is a registered ``ConfEntry`` with a key, a converter, the JAX
+package's default and a doc string; ``TpuConf`` wraps a dict of settings
+with typed accessors. Unregistered keys are allowed (the per-operator
+enable keys ``spark.rapids.sql.exec.<Name>`` are generated by the
+overrides) and read back as given.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+
+@dataclass(frozen=True)
+class ConfEntry:
+    key: str
+    conv: Callable[[str], Any]
+    default: Any
+    doc: str
+
+    def convert(self, raw: Any) -> Any:
+        return self.conv(raw) if isinstance(raw, str) else raw
+
+
+_REGISTRY: Dict[str, ConfEntry] = {}
+
+
+def _to_bool(s: str) -> bool:
+    low = s.strip().lower()
+    if low in ("true", "1", "yes"):
+        return True
+    if low in ("false", "0", "no"):
+        return False
+    raise ValueError(f"not a boolean: {s!r}")
+
+
+def register(key: str, conv: Callable[[str], Any], default: Any,
+             doc: str) -> ConfEntry:
+    entry = ConfEntry(key, conv, default, doc)
+    _REGISTRY[key] = entry
+    return entry
+
+
+SQL_ENABLED = register(
+    "spark.rapids.sql.enabled", _to_bool, True,
+    "Enable (true) or disable (false) device acceleration of SQL plans. "
+    "When disabled every operator executes on the CPU path.")
+EXPLAIN = register(
+    "spark.rapids.sql.explain", str, "NONE",
+    "Explain why parts of a query were or were not placed on the device: "
+    "NONE, ALL (the full tag tree) or NOT_ON_TPU (the fallbacks only).")
+TEST_ENABLED = register(
+    "spark.rapids.sql.test.enabled", _to_bool, False,
+    "For tests: a query fails if an operator not in "
+    "spark.rapids.sql.test.allowedNonTpu runs on the CPU.")
+TEST_ALLOWED_NONTPU = register(
+    "spark.rapids.sql.test.allowedNonTpu", str, "",
+    "Comma-separated operator class names allowed on the CPU in test mode.")
+BATCH_SIZE_ROWS = register(
+    "spark.rapids.sql.batchSizeRows", int, 1 << 20,
+    "Target rows per columnar batch; batches pad to a power-of-two "
+    "capacity bucket.")
+CAPACITY_GROWTH = register(
+    "spark.rapids.sql.batchCapacityGrowth", float, 2.0,
+    "Growth factor between consecutive batch capacity buckets.")
+CACHE_DEVICE_SCANS = register(
+    "spark.rapids.sql.cacheDeviceScans", _to_bool, False,
+    "Keep uploaded scan batches on the device across executions of the "
+    "same source, so a warm execution skips the upload.")
+SHUFFLE_PARTITIONS = register(
+    "spark.rapids.sql.shuffle.partitions", int, 8,
+    "Number of shuffle output partitions of a hash exchange.")
+AGG_SKIP_RATIO = register(
+    "spark.rapids.sql.agg.skipAggPassReductionRatio", float, 0.45,
+    "Partial-aggregation skip, decided at run time: the partial pass "
+    "measures output groups / input rows over its first batches (one "
+    "counted host sync a sampled batch) and, once the ratio exceeds this "
+    "value, projects later batches straight into the partial layout for "
+    "the final aggregate. The decision seeds the session's ratio cache, so "
+    "later executions decide from batch 0 without a sync. 1.0 disables "
+    "it.")
+AGG_HASH_ENABLED = register(
+    "spark.rapids.sql.agg.hashAggEnabled", _to_bool, False,
+    "One-pass open-addressing hash aggregation (kernel B2) for keys that "
+    "are not all dictionary-encoded.")
+AGG_HASH_MAX_SLOTS = register(
+    "spark.rapids.sql.agg.hash.maxTableSlots", int, 1 << 17,
+    "Slot-count bound of the hash-aggregation table; a batch sizing past "
+    "it needs the out-of-core split, which the port has not yet.")
+
+
+class TpuConf:
+    """Settings with typed accessors."""
+
+    def __init__(self, settings: Optional[Dict[str, Any]] = None):
+        self._settings: Dict[str, Any] = {}
+        for k, v in (settings or {}).items():
+            self.set(k, v)
+
+    def set(self, key: str, value: Any) -> "TpuConf":
+        entry = _REGISTRY.get(key)
+        self._settings[key] = (entry.convert(value) if entry is not None
+                               else value)
+        return self
+
+    def get(self, key: str, default: Any = None) -> Any:
+        if key in self._settings:
+            return self._settings[key]
+        entry = _REGISTRY.get(key)
+        return entry.default if entry is not None else default
+
+    def get_bool(self, key: str, default: bool) -> bool:
+        v = self.get(key, default)
+        return _to_bool(v) if isinstance(v, str) else bool(v)
+
+    def get_int(self, key: str, default: int) -> int:
+        return int(self.get(key, default))
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get(SQL_ENABLED.key)
+
+    @property
+    def explain(self) -> str:
+        return str(self.get(EXPLAIN.key)).upper()
+
+    @property
+    def test_enabled(self) -> bool:
+        return self.get(TEST_ENABLED.key)
+
+    @property
+    def test_allowed_nontpu(self) -> List[str]:
+        raw = str(self.get(TEST_ALLOWED_NONTPU.key) or "")
+        return [s.strip() for s in raw.split(",") if s.strip()]
+
+    @property
+    def batch_size_rows(self) -> int:
+        return self.get(BATCH_SIZE_ROWS.key)
+
+    @property
+    def capacity_growth(self) -> float:
+        return self.get(CAPACITY_GROWTH.key)
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.get(SHUFFLE_PARTITIONS.key)
+
+    def is_operator_enabled(self, key: str) -> bool:
+        """Per-operator enable check (spark.rapids.sql.exec.<Name>, on
+        unless set false)."""
+        return self.get_bool(key, True)

@@ -31,14 +31,23 @@
 //     bytes. A Q1 row group's 13 streams are 13 x 2^20 outputs, ~56 MB of
 //     writes (~17 us at 3.35 TB/s): one launch per stream cost its dispatch
 //     each, one per row group pays it once.
-//   * B6 delta_unpack: one launch per column chunk, not per page. Pages are
-//     segments: element k is its page's head (the page's first value) or
-//     raw + min_delta of its miniblock (u64 arithmetic). Three kernels as in
-//     compact.cu: each 2048-element tile scans its elements with the
-//     segmented operator (f1, v1) + (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2)
-//     and stores the tile's aggregate; one block scans the tile aggregates;
-//     the elements of a tile that precede its first page head add the
-//     tile's carry. Sums wrap in 64 bits, as the jnp twin's int64 cumsum.
+//   * B6 delta_unpack: one launch decodes all the DELTA_BINARY_PACKED
+//     column chunks of a row group (up to 32, descriptors by value as in
+//     B5), each chunk's pages as segments: element k is its page's head
+//     (the page's first value) or raw + min_delta of its miniblock (u64
+//     arithmetic), and each page is a running sum of its elements. A block
+//     takes a tile of 2048 elements in ticket order (an atomic counter, so
+//     a tile only ever waits on tiles already running), stages the tile's
+//     pages and miniblocks in shared memory after two block-wide searches,
+//     and scans its elements with the segmented operator
+//     (f1, v1) + (f2, v2) = (f1 | f2, f2 ? v2 : v1 + v2). The carry across
+//     tiles is a single-pass decoupled look-back: each tile publishes its
+//     aggregate, then its inclusive prefix, in one 16-byte {status, value}
+//     word of a state array kept per stream, each word tagged with its
+//     launch's epoch so that no launch clears it; a tile that starts on a
+//     page head, or a chunk's first tile, needs no carry. The outputs go
+//     out through shared memory, 16 bytes a thread at consecutive
+//     addresses. Sums wrap in 64 bits, as the jnp twin's int64 cumsum.
 //   * B7 plain_fixed: one launch decodes all the PLAIN fixed-width streams
 //     of a row group (up to 32 segments, their descriptors passed by value
 //     in the kernel's parameters). PLAIN i32/f32/i64/f64 is a byte copy of
@@ -58,10 +67,8 @@
 // guard rows give the twins' values bit for bit.
 // What bounds them on an H100: bytes. Each reads its packed input once and
 // writes its output once; the run, miniblock and page tables are small and
-// stay in L1/L2 across the binary searches. B6 writes its output twice
-// (tile pass, then the carry pass reads and rewrites it) and rereads the
-// tables in the carry pass. At 2^20 outputs every kernel is a few
-// microseconds, so launch latency is a large share of its time.
+// stay in L1/L2 across the binary searches. At 2^20 outputs every kernel
+// is a few microseconds, so launch latency is a large share of its time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +78,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;  // grid-stride beyond 16 blocks an SM
 constexpr int kDeltaItems = 8;        // elements per thread in a B6 tile
 constexpr int kDeltaTile = kThreads * kDeltaItems;
-constexpr int kScanThreads = 1024;
+constexpr int kDeltaWindow = 256;  // B6 pages, miniblocks staged a block
+constexpr int kMaxDeltaChunks = 32;  // B6 column chunks per launch
 constexpr int kMaxPlainSegments = 32;  // B7 streams per launch
 constexpr int kMaxHybridStreams = 32;  // B5 streams per launch
 constexpr int kHybridVec = 4;          // B5: outputs per 16-byte store
@@ -262,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) hybrid_expand_many_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B6: DELTA_BINARY_PACKED, one launch per column chunk
+// B6: DELTA_BINARY_PACKED, one launch for a row group's chunks
 // ---------------------------------------------------------------------------
 
 struct Seg {
@@ -338,105 +346,270 @@ __device__ Seg block_exclusive_seg_scan(Seg x, Seg* total) {
   return ex;
 }
 
-// Element k of the chunk: (value, is a page head). Heads carry their page's
-// first value; every other element its delta raw + min_delta.
-__device__ __forceinline__ Seg delta_element(
-    long long k, const uint32_t* __restrict__ words, long long nwords,
-    const int* __restrict__ mstart, const int* __restrict__ mbw,
-    const long long* __restrict__ min_delta,
-    const long long* __restrict__ bit_start, int nmini,
-    const int* __restrict__ page_start, const long long* __restrict__ first,
-    int npages) {
-  const int j = clip_int(upper_bound(page_start, npages + 1, k) - 1, 0,
-                         npages - 1);
-  Seg e;
-  if (k == page_start[j]) {
-    e.v = static_cast<unsigned long long>(first[j]);
-    e.f = 1;
-    return e;
-  }
-  const int m = clip_int(upper_bound(mstart, nmini, k) - 1, 0, nmini - 1);
-  const int rel = static_cast<int>(static_cast<unsigned>(k) -
-                                   static_cast<unsigned>(mstart[m]));
-  const long long bit = bit_start[m] + static_cast<long long>(rel) * mbw[m];
-  e.v = extract_bits(words, nwords, bit, mbw[m]) +
-        static_cast<unsigned long long>(min_delta[m]);
-  e.f = 0;
-  return e;
+// One DELTA column chunk of a delta_unpack_many launch. Its tiles are
+// [tile0, tile0 + ceil(n / kDeltaTile)) of the launch's ticket order.
+struct DeltaSeg {
+  const uint32_t* words;
+  const int* mstart;            // nmini rows, the guard row last
+  const int* mbw;
+  const long long* min_delta;
+  const long long* bit_start;
+  const int* page_start;        // npages + 1 entries, the last n
+  const long long* first;       // npages
+  long long* out;
+  long long nwords;
+  int nmini;
+  int npages;
+  int n;
+  int tile0;
+};
+
+struct DeltaBatch {
+  DeltaSeg seg[kMaxDeltaChunks];
+  int nseg;
+  int ntiles;
+};
+
+// A tile's published state, one 16-byte word {epoch << 2 | status, value}
+// stored and loaded whole (16-byte accesses to one aligned word are single
+// transactions, the property CUB's look-back scan rests on). The states
+// persist from launch to launch; a word of an earlier launch's epoch reads
+// as not yet published. kAggregate: value is the tile's own sum since its
+// start, no page head in the tile; kPrefix: value is the running sum
+// through the tile's last element (an inclusive prefix, or the aggregate
+// of a tile that holds a page head, the same thing for the segmented
+// operator).
+constexpr unsigned long long kAggregate = 1;
+constexpr unsigned long long kPrefix = 2;
+
+__device__ __forceinline__ void store_state(unsigned long long* p,
+                                            unsigned long long status,
+                                            unsigned long long value) {
+  asm volatile("st.global.cg.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(status),
+               "l"(value)
+               : "memory");
 }
 
-__global__ void delta_tiles(const uint32_t* __restrict__ words,
-                            long long nwords, const int* __restrict__ mstart,
-                            const int* __restrict__ mbw,
-                            const long long* __restrict__ min_delta,
-                            const long long* __restrict__ bit_start,
-                            int nmini, const int* __restrict__ page_start,
-                            const long long* __restrict__ first, int npages,
-                            long long* __restrict__ out, long long n,
-                            unsigned long long* __restrict__ tile_v,
-                            int* __restrict__ tile_f) {
-  const long long base = static_cast<long long>(blockIdx.x) * kDeltaTile +
-                         static_cast<long long>(threadIdx.x) * kDeltaItems;
+__device__ __forceinline__ void load_state(const unsigned long long* p,
+                                           unsigned long long* status,
+                                           unsigned long long* value) {
+  asm volatile("ld.global.cg.v2.u64 {%0, %1}, [%2];"
+               : "=l"(*status), "=l"(*value)
+               : "l"(p)
+               : "memory");
+}
+
+// The exclusive prefix of tile `tile` (segment tiles [tile0, tile)): one
+// warp reads the states of the 32 tiles before it, waits until all have
+// published, and combines them back to the nearest kPrefix; where none of
+// the 32 has one it carries their sum and reads the next 32.
+__device__ __forceinline__ unsigned long long state_status(
+    unsigned long long word, unsigned long long epoch) {
+  return (word >> 2) == epoch ? (word & 3) : 0;
+}
+
+__device__ Seg look_back(const unsigned long long* states, int tile,
+                         int tile0, unsigned long long epoch) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long acc = 0;  // the sum of the windows already read
+  int hi = tile - 1;           // the window's latest tile
+  while (true) {
+    const int p = hi - lane;
+    // lanes before the chunk's first tile read as a kPrefix of 0
+    unsigned long long status = kPrefix, value = 0, word;
+    if (p >= tile0) {
+      load_state(states + 2 * static_cast<long long>(p), &word, &value);
+      status = state_status(word, epoch);
+    }
+    while (__any_sync(0xffffffffu, status == 0)) {
+      if (status == 0) {
+        load_state(states + 2 * static_cast<long long>(p), &word, &value);
+        status = state_status(word, epoch);
+      }
+    }
+    const unsigned done = __ballot_sync(0xffffffffu, status == kPrefix);
+    const int stop = done ? __ffs(done) - 1 : 32;
+    // sum the window's lanes 0..stop (lane `stop` the earliest tile)
+    Seg x;
+    x.v = lane <= stop ? value : 0ull;
+    x.f = lane == stop ? 1 : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      Seg y;
+      y.v = __shfl_down_sync(0xffffffffu, x.v, o);
+      y.f = __shfl_down_sync(0xffffffffu, x.f, o);
+      if (lane + o < 32) x = seg_combine(y, x);
+    }
+    const unsigned long long total = __shfl_sync(0xffffffffu, x.v, 0);
+    acc += total;
+    if (stop < 32) break;
+    hi -= 32;
+  }
+  Seg out;
+  out.v = acc;
+  out.f = 1;
+  return out;
+}
+
+// One tile of kDeltaTile elements of one chunk a block, tiles taken in
+// ticket order. The block finds the pages and miniblocks its elements fall
+// in with two block-wide searches, stages them in shared memory, and each
+// thread decodes its kDeltaItems consecutive elements stepping through
+// that window: element k is its page's first value at a page head, else
+// raw + min_delta of its miniblock (u64 arithmetic). A segmented scan of
+// the tile, then the tile's exclusive prefix from look_back, gives every
+// element's running sum since its page head. The block stages its 16 KB
+// of outputs in shared memory and writes them with 16-byte stores of
+// consecutive addresses across each warp (a thread's own eight outputs lie
+// 64 bytes from its neighbours'). scratch: the ticket (reset by the block
+// that draws the launch's last one), a pad word, then a state a tile;
+// epoch: this launch's, greater than any earlier launch's on the scratch.
+__global__ void __launch_bounds__(kThreads) delta_unpack_many_kernel(
+    const __grid_constant__ DeltaBatch b, unsigned long long* scratch,
+    unsigned long long epoch) {
+  __shared__ int s_tile;
+  __shared__ Seg s_prefix;
+  __shared__ longlong2 s_pairs[kDeltaTile / 2];
+  __shared__ int w_mstart[kDeltaWindow];
+  __shared__ int w_mbw[kDeltaWindow];
+  __shared__ long long w_mind[kDeltaWindow];
+  __shared__ long long w_mbit[kDeltaWindow];
+  __shared__ int w_pstart[kDeltaWindow];
+  __shared__ long long w_first[kDeltaWindow];
+  if (threadIdx.x == 0) {
+    const int t = static_cast<int>(
+        atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u));
+    // every other block has drawn its ticket: clear it for the next launch
+    if (t == b.ntiles - 1) {
+      atomicExch(reinterpret_cast<unsigned*>(scratch), 0u);
+    }
+    s_tile = t;
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  unsigned long long* states = scratch + 2;
+  int s = 0;  // the tile's chunk: the last whose first tile is <= it
+  for (int i = 1; i < b.nseg; ++i) {
+    if (b.seg[i].tile0 <= tile) s = i;
+  }
+  const DeltaSeg& g = b.seg[s];
+  const long long t0 = static_cast<long long>(tile - g.tile0) * kDeltaTile;
+  const long long t1 = min(t0 + kDeltaTile, static_cast<long long>(g.n));
+
+  // the pages and miniblocks of the tile's first and last elements
+  int u0, u1, v0, v1;
+  block_upper_bounds(g.page_start, g.npages + 1, t0, t1 - 1, &u0, &u1);
+  block_upper_bounds(g.mstart, g.nmini, t0, t1 - 1, &v0, &v1);
+  const int j0 = clip_int(u0 - 1, 0, g.npages - 1);
+  const int npw = clip_int(u1 - 1, 0, g.npages - 1) - j0 + 1;
+  const int m0 = clip_int(v0 - 1, 0, g.nmini - 1);
+  const int nmw = clip_int(v1 - 1, 0, g.nmini - 1) - m0 + 1;
+  const int* pstart = g.page_start + j0;
+  const long long* pfirst = g.first + j0;
+  const int* mstart = g.mstart + m0;
+  const int* mbw = g.mbw + m0;
+  const long long* mind = g.min_delta + m0;
+  const long long* mbit = g.bit_start + m0;
+  // the windows: shared memory where they fit, else the tables themselves
+  if (npw <= kDeltaWindow) {
+    for (int i = threadIdx.x; i < npw; i += kThreads) {
+      w_pstart[i] = pstart[i];
+      w_first[i] = pfirst[i];
+    }
+    pstart = w_pstart;
+    pfirst = w_first;
+  }
+  if (nmw <= kDeltaWindow) {
+    for (int i = threadIdx.x; i < nmw; i += kThreads) {
+      w_mstart[i] = mstart[i];
+      w_mbw[i] = mbw[i];
+      w_mind[i] = mind[i];
+      w_mbit[i] = mbit[i];
+    }
+    mstart = w_mstart;
+    mbw = w_mbw;
+    mind = w_mind;
+    mbit = w_mbit;
+  }
+  __syncthreads();
+
+  const long long k0 =
+      t0 + static_cast<long long>(threadIdx.x) * kDeltaItems;
   Seg local[kDeltaItems];
   Seg acc = {0ull, 0};
+  if (k0 < t1) {
+    // the window's last page and miniblock starting at or before k0
+    int jp = upper_bound(pstart + 1, npw - 1, k0);
+    int jm = upper_bound(mstart + 1, nmw - 1, k0);
 #pragma unroll
-  for (int j = 0; j < kDeltaItems; ++j) {
-    const long long k = base + j;
-    Seg e = {0ull, 0};
-    if (k < n) {
-      e = delta_element(k, words, nwords, mstart, mbw, min_delta, bit_start,
-                        nmini, page_start, first, npages);
+    for (int q = 0; q < kDeltaItems; ++q) {
+      const long long k = k0 + q;
+      Seg e = {0ull, 0};
+      if (k < t1) {
+        while (jp + 1 < npw && pstart[jp + 1] <= k) ++jp;
+        while (jm + 1 < nmw && mstart[jm + 1] <= k) ++jm;
+        if (k == pstart[jp]) {
+          e.v = static_cast<unsigned long long>(pfirst[jp]);
+          e.f = 1;
+        } else {
+          // (k - mstart[m]) in int32, as the twin subtracts int32 arrays
+          const int rel = static_cast<int>(static_cast<unsigned>(k) -
+                                           static_cast<unsigned>(mstart[jm]));
+          const long long bit =
+              mbit[jm] + static_cast<long long>(rel) * mbw[jm];
+          e.v = extract_bits(g.words, g.nwords, bit, mbw[jm]) +
+                static_cast<unsigned long long>(mind[jm]);
+        }
+      }
+      acc = seg_combine(acc, e);
+      local[q] = acc;
     }
-    acc = seg_combine(acc, e);
-    local[j] = acc;
   }
-  Seg tot;
-  const Seg ex = block_exclusive_seg_scan<kThreads>(acc, &tot);
+  Seg total;
+  const Seg ex = block_exclusive_seg_scan<kThreads>(acc, &total);
+
+  // the tile's exclusive prefix: none for a chunk's first tile or a tile
+  // that starts on a page head; else publish the aggregate and look back
+  const bool head0 = pstart[0] == t0;
+  if (threadIdx.x < 32) {
+    Seg pre = {0ull, 0};
+    unsigned long long* mine = states + 2 * static_cast<long long>(tile);
+    const unsigned long long tag = epoch << 2;
+    if (tile == g.tile0 || head0) {
+      if (threadIdx.x == 0) store_state(mine, tag | kPrefix, total.v);
+    } else {
+      if (threadIdx.x == 0) {
+        store_state(mine, tag | (total.f ? kPrefix : kAggregate), total.v);
+      }
+      pre = look_back(states, tile, g.tile0, epoch);
+      if (threadIdx.x == 0 && !total.f) {
+        store_state(mine, tag | kPrefix, seg_combine(pre, total).v);
+      }
+    }
+    if (threadIdx.x == 0) s_prefix = pre;
+  }
+  __syncthreads();
+  const Seg base = seg_combine(s_prefix, ex);
+  const int t = threadIdx.x;
+  // thread t's pair q in slot 4t + (q ^ ((t >> 1) & 3)): the eight threads
+  // of a quarter warp then write eight distinct 16-byte bank groups
 #pragma unroll
-  for (int j = 0; j < kDeltaItems; ++j) {
-    const long long k = base + j;
-    if (k < n) out[k] = static_cast<long long>(seg_combine(ex, local[j]).v);
+  for (int q = 0; q < kDeltaItems / 2; ++q) {
+    s_pairs[4 * t + (q ^ ((t >> 1) & 3))] = make_longlong2(
+        static_cast<long long>(seg_combine(base, local[2 * q]).v),
+        static_cast<long long>(seg_combine(base, local[2 * q + 1]).v));
   }
-  if (threadIdx.x == 0) {
-    tile_v[blockIdx.x] = tot.v;
-    tile_f[blockIdx.x] = tot.f;
-  }
-}
-
-__global__ void delta_scan_tiles(const unsigned long long* __restrict__ tile_v,
-                                 const int* __restrict__ tile_f, int ntiles,
-                                 unsigned long long* __restrict__ carry) {
-  Seg run = {0ull, 0};
-  for (int base = 0; base < ntiles; base += kScanThreads) {
-    const int i = base + static_cast<int>(threadIdx.x);
-    Seg x = {0ull, 0};
-    if (i < ntiles) {
-      x.v = tile_v[i];
-      x.f = tile_f[i];
-    }
-    Seg tot;
-    const Seg ex = block_exclusive_seg_scan<kScanThreads>(x, &tot);
-    if (i < ntiles) carry[i] = seg_combine(run, ex).v;
-    run = seg_combine(run, tot);
-  }
-}
-
-__global__ void delta_add_carry(const int* __restrict__ page_start,
-                                int npages,
-                                const unsigned long long* __restrict__ carry,
-                                long long* __restrict__ out, long long n) {
-  for (long long k = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       k < n; k += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long tile = k / kDeltaTile;
-    if (tile == 0) continue;
-    const int j = clip_int(upper_bound(page_start, npages + 1, k) - 1, 0,
-                           npages - 1);
-    // no page head in [tile start, k]: the element continues a segment
-    // that began in an earlier tile
-    if (static_cast<long long>(page_start[j]) < tile * kDeltaTile) {
-      out[k] = static_cast<long long>(
-          static_cast<unsigned long long>(out[k]) + carry[tile]);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kDeltaItems / 2; ++i) {
+    const int slot = i * kThreads + t;
+    const int owner = slot >> 2;
+    const long long pos =
+        t0 + owner * kDeltaItems + 2 * ((slot & 3) ^ ((owner >> 1) & 3));
+    if (pos + 2 <= t1) {
+      *reinterpret_cast<longlong2*>(g.out + pos) = s_pairs[slot];
+    } else if (pos < t1) {
+      g.out[pos] = s_pairs[slot].x;
     }
   }
 }
@@ -557,8 +730,6 @@ extern "C" const char* srt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int srt_delta_tile_rows() { return kDeltaTile; }
-
 extern "C" int srt_hybrid_expand_max_streams() { return kMaxHybridStreams; }
 
 // desc: nseg rows of eleven int64 {words, nwords, out_start, nstarts, kind,
@@ -602,37 +773,62 @@ extern "C" int srt_hybrid_expand_many(const long long* desc, int nseg,
   return cudaGetLastError();
 }
 
-// The chunk's miniblock table (nmini rows, the guard row last: mstart int32
-// in element space, bw int32, min_delta int64, bit_start int64), its pages
-// (page_start int32 (npages + 1,), the last entry n; first int64
-// (npages,)); out: n int64. Scratch: tile_v, tile_f and carry of
-// ceil(n / srt_delta_tile_rows()) entries. n < 2^31.
-extern "C" int srt_delta_unpack(const uint32_t* words, long long nwords,
-                                const int* mstart, const int* mbw,
-                                const long long* min_delta,
-                                const long long* bit_start, int nmini,
-                                const int* page_start,
-                                const long long* first, int npages,
-                                long long* out, long long n,
-                                unsigned long long* tile_v, int* tile_f,
-                                unsigned long long* carry,
-                                cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
-  const int ntiles = static_cast<int>((n + kDeltaTile - 1) / kDeltaTile);
-  cudaError_t err;
-  delta_tiles<<<ntiles, kThreads, 0, stream>>>(
-      words, nwords, mstart, mbw, min_delta, bit_start, nmini, page_start,
-      first, npages, out, n, tile_v, tile_f);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (ntiles > 1) {
-    delta_scan_tiles<<<1, kScanThreads, 0, stream>>>(tile_v, tile_f, ntiles,
-                                                     carry);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    delta_add_carry<<<grid_for(n), kThreads, 0, stream>>>(
-        page_start, npages, carry, out, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+extern "C" int srt_delta_unpack_max_chunks() { return kMaxDeltaChunks; }
+extern "C" int srt_delta_unpack_tile_rows() { return kDeltaTile; }
+
+// desc: nseg rows of twelve int64 {words, nwords, mstart, bw, min_delta,
+// bit_start, nmini, page_start, first, npages, out, n}: a chunk's u32
+// words; its miniblock table (nmini rows, the guard row last: mstart int32
+// in element space, bw int32 <= 32, min_delta int64, bit_start int64); its
+// pages (page_start int32 (npages + 1,), the last entry n; first int64
+// (npages,)); out: n int64, 16-byte aligned. scratch: at least 2 + 2 *
+// (the sum of ceil(n / srt_delta_unpack_tile_rows()), the chunks' tiles)
+// u64 words, 16-byte aligned, zero before its first launch and passed to
+// this function on one stream only; epoch: greater than that of every earlier launch on this
+// scratch, below 2^62. nseg <= srt_delta_unpack_max_chunks(),
+// 0 <= n < 2^31. One launch.
+extern "C" int srt_delta_unpack_many(const long long* desc, int nseg,
+                                     unsigned long long* scratch,
+                                     long long scratch_words,
+                                     unsigned long long epoch,
+                                     cudaStream_t stream) {
+  if (nseg < 0 || nseg > kMaxDeltaChunks) return cudaErrorInvalidValue;
+  DeltaBatch b;
+  b.nseg = 0;
+  long long tiles = 0;
+  for (int i = 0; i < nseg; ++i) {
+    const long long* d = desc + 12 * i;
+    if (d[1] <= 0 || d[6] <= 0 || d[9] <= 0 || d[11] < 0 ||
+        d[11] >= (1ll << 31) || (d[10] & 15) != 0) {
+      return cudaErrorInvalidValue;
+    }
+    if (d[11] == 0) continue;
+    DeltaSeg& g = b.seg[b.nseg++];
+    g.words = reinterpret_cast<const uint32_t*>(d[0]);
+    g.nwords = d[1];
+    g.mstart = reinterpret_cast<const int*>(d[2]);
+    g.mbw = reinterpret_cast<const int*>(d[3]);
+    g.min_delta = reinterpret_cast<const long long*>(d[4]);
+    g.bit_start = reinterpret_cast<const long long*>(d[5]);
+    g.nmini = static_cast<int>(d[6]);
+    g.page_start = reinterpret_cast<const int*>(d[7]);
+    g.first = reinterpret_cast<const long long*>(d[8]);
+    g.npages = static_cast<int>(d[9]);
+    g.out = reinterpret_cast<long long*>(d[10]);
+    g.n = static_cast<int>(d[11]);
+    g.tile0 = static_cast<int>(tiles);
+    tiles += (d[11] + kDeltaTile - 1) / kDeltaTile;
+    if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+  if (tiles == 0) return cudaSuccess;
+  if (scratch_words < 2 + 2 * tiles || epoch == 0 || (epoch >> 62) != 0 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  b.ntiles = static_cast<int>(tiles);
+  delta_unpack_many_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      b, scratch, epoch);
+  return cudaGetLastError();
 }
 
 extern "C" int srt_plain_fixed_max_segments() { return kMaxPlainSegments; }

@@ -1,25 +1,40 @@
-"""Host -> device transition of a file scan (the device-decode branch of the
-JAX package's ``exec/transitions.upload_partition``).
+"""Host <-> device transitions (counterpart of the JAX package's
+``exec/transitions.py``).
 
-``upload_partition`` turns one scan partition into DeviceBatches: a
-``RawRowGroup`` decode plan goes through ``ops/parquet_decode
-.decode_rowgroup`` (one host-to-device copy, then the decode kernels), one
-DeviceBatch per row group at ``bucket_capacity(rows)``. A split whose
-columns all fell back to the host arrives as a pandas frame and takes the
-same upload, every column as a host-decoded one. The JAX package's device
-scan cache, HBM metering, double-buffered pandas upload and re-chunking to
-a batch size are not ported.
+  * ``upload_partition`` turns one Parquet scan partition into
+    DeviceBatches: a ``RawRowGroup`` decode plan goes through
+    ``ops/parquet_decode.decode_rowgroup`` (one host-to-device copy, then
+    the decode kernels), one DeviceBatch per row group at
+    ``bucket_capacity(rows)``. A split whose columns all fell back to the
+    host arrives as a pandas frame and takes the same upload, every column
+    as a host-decoded one.
+  * ``upload_frames`` turns a partition of pandas frames (an in-memory
+    source, or a CPU operator's output) into DeviceBatches of at most
+    ``batchSizeRows`` rows, every column probed for a dictionary
+    (``DeviceBatch.from_pandas``), inside one counted sync a batch.
+  * ``HostToDeviceExec`` and ``DeviceToHostExec`` are the transition
+    operators the overrides insert at every CPU/device boundary;
+    ``scan_cache_for`` is the session's device scan cache
+    (``spark.rapids.sql.cacheDeviceScans``).
+
+The JAX package's HBM metering, spillable cache entries, semaphore and
+double-buffered upload are not ported (ROADMAP A.8).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
+
+import pandas as pd
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+from spark_rapids_tpu_torch.exec.base import (
+    ExecContext, Partition, PhysicalPlan,
+)
+from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops.parquet_decode import (
     RawRowGroup, decode_rowgroup,
 )
-from spark_rapids_tpu_torch.sql.scan_pipeline import Partition
 
 # widest per-row byte stride of a char slab (the JAX package's default
 # spark.rapids.sql.dict.blockedChars.maxStride)
@@ -49,3 +64,78 @@ def upload_partition(part: Partition, schema: Schema,
         raw = split if getattr(split, "is_raw_rowgroup", False) \
             else _as_rowgroup(split, schema)
         yield decode_rowgroup(raw, schema, dict_state, device)
+
+
+def scan_cache_for(ctx: ExecContext, source, schema: Schema,
+                   max_rows: int) -> Optional[dict]:
+    """The session's device batches of one source ({partition: [batch]}),
+    or None when spark.rapids.sql.cacheDeviceScans is off. The entry holds
+    the source itself, so its id cannot be reused by another frame while
+    the entry lives; projection views key on their base source."""
+    if ctx.session is None or not ctx.conf.get_bool(
+            "spark.rapids.sql.cacheDeviceScans", False):
+        return None
+    store = ctx.session.device_scan_cache
+    base = getattr(source, "_base", source)
+    key = (id(base), tuple(schema.names), max_rows)
+    if key not in store:
+        store[key] = (source, {})
+    return store[key][1]
+
+
+def upload_frames(part: Partition, max_rows: int, dict_state: dict,
+                  device) -> Iterator[DeviceBatch]:
+    """DeviceBatches of a partition of pandas frames, at most ``max_rows``
+    rows each. ``dict_state`` is shared by every partition of one upload,
+    so all its batches agree on each column's dictionary. The upload of a
+    batch copies from pageable host memory: one counted sync."""
+    for df in part():
+        for lo in range(0, max(len(df), 1), max_rows):
+            chunk = df if len(df) <= max_rows else \
+                df.iloc[lo:lo + max_rows].reset_index(drop=True)
+            with sync_scope("scan.upload"):
+                batch = DeviceBatch.from_pandas(chunk, dict_state,
+                                                device=device)
+            yield batch
+
+
+class HostToDeviceExec(PhysicalPlan):
+    """pandas partitions -> DeviceBatches of at most batchSizeRows rows."""
+
+    columnar_output = True
+
+    def __init__(self, child: PhysicalPlan):
+        super().__init__([child])
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        max_rows = ctx.conf.batch_size_rows
+        dict_state: dict = {}
+
+        def make(part: Partition) -> Partition:
+            def run() -> Iterator[DeviceBatch]:
+                return upload_frames(part, max_rows, dict_state, ctx.device)
+            return run
+        return [make(p) for p in self.children[0].executed_partitions(ctx)]
+
+
+class DeviceToHostExec(PhysicalPlan):
+    """DeviceBatches -> pandas frames, one counted fetch a batch."""
+
+    columnar_output = False
+
+    def __init__(self, child: PhysicalPlan):
+        super().__init__([child])
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        def make(part: Partition) -> Partition:
+            def run() -> Iterator[pd.DataFrame]:
+                for batch in part():
+                    yield batch.to_pandas()
+            return run
+        return [make(p) for p in self.children[0].executed_partitions(ctx)]

@@ -1,8 +1,9 @@
 """Grouped aggregation of device batches: the update (partial) and merge
 steps (counterpart of the JAX package's ``ops/aggregate.py``).
 
-``_grouped_reduce`` picks the branch exactly as the JAX package does; this
-slice ports three of them:
+``_grouped_reduce`` picks the branch exactly as the JAX package does; the
+port has three of them (and ``aggregate_passthrough``, the skipped partial
+pass):
 
   * ``_single_group_reduce``: no keys (a global aggregate; TPC-H Q6);
   * ``_dict_reduce``: every key dictionary-encoded and the joint slot table
@@ -64,6 +65,38 @@ def aggregate_update(batch: DeviceBatch,
                            [(kind, len(key_cols) + idx, dt)
                             for kind, idx, dt in reductions],
                            out_schema, hash_table=hash_table)
+
+
+def aggregate_passthrough(batch: DeviceBatch,
+                          key_exprs: Sequence[Expression],
+                          input_exprs: Sequence[Expression],
+                          reductions: Sequence[Tuple[str, int, DType]],
+                          out_schema: Schema) -> DeviceBatch:
+    """Skipped partial aggregation: rows projected straight into the
+    partial layout without grouping, every row its own group (count =
+    valid ? 1 : 0, sum/min/max/first/last = the value). The runtime skip
+    takes it when the partial pass barely reduces: on one device the
+    exchange is a concat, and the final aggregate reduces once."""
+    ctx = make_context(batch)
+    key_cols = [batch.columns[e.index] if isinstance(e, BoundRef)
+                else to_device_column(ctx, e.eval_device(ctx))
+                for e in key_exprs]
+    input_cols = [to_device_column(ctx, e.eval_device(ctx))
+                  for e in input_exprs]
+    out_cols: List[DeviceColumn] = list(key_cols)
+    for kind, idx, out_dt in reductions:
+        col = input_cols[idx]
+        if kind == "count_valid":
+            out_cols.append(DeviceColumn(
+                out_dt, col.validity.to(torch_dtype(out_dt.np_dtype)),
+                torch.ones_like(col.validity)))
+        elif col.dtype.is_string:
+            out_cols.append(col)
+        else:  # sum/min/max/first/last(_valid): the value is the partial
+            out_cols.append(DeviceColumn(
+                out_dt, col.data.to(torch_dtype(out_dt.np_dtype)),
+                col.validity))
+    return DeviceBatch(out_schema, out_cols, batch.num_rows)
 
 
 def aggregate_merge(batch: DeviceBatch, num_keys: int,

@@ -55,9 +55,10 @@ _SIGNATURES = {
     "parquet_decode": {
         "srt_hybrid_expand_many": (_I, [_P, _I, _P]),
         "srt_hybrid_expand_max_streams": (_I, []),
-        "srt_delta_unpack": (_I, [_P, _LL, _P, _P, _P, _P, _I, _P, _P, _I,
-                                  _P, _LL, _P, _P, _P, _P]),
-        "srt_delta_tile_rows": (_I, []),
+        "srt_delta_unpack_many": (_I, [_P, _I, _P, _LL, ctypes.c_ulonglong,
+                                       _P]),
+        "srt_delta_unpack_max_chunks": (_I, []),
+        "srt_delta_unpack_tile_rows": (_I, []),
         "srt_plain_fixed_many": (_I, [_P, _I, _P]),
         "srt_plain_fixed_max_segments": (_I, []),
         "srt_slab_pack": (_I, [_P, _LL, _P, _P, _LL, _I, _P, _P]),

@@ -19,7 +19,8 @@ All eight of the JAX package's Pallas kernels have a counterpart here:
     (definition levels, dictionary indices, PLAIN booleans), and
     ``hybrid_expand_many`` a row group's hybrid streams in one launch;
     ``delta_unpack`` (B6; ``_delta_unpack_kernel``) decodes a whole
-    DELTA_BINARY_PACKED column chunk in one launch, its pages as segments;
+    DELTA_BINARY_PACKED column chunk, its pages as segments, and
+    ``delta_unpack_many`` a row group's DELTA chunks in one launch;
     ``plain_fixed`` (B7; ``_plain_fixed_kernel``) re-blocks PLAIN words
     into i32/i64/f32/f64/bool, and ``plain_fixed_many`` decodes a row
     group's PLAIN streams in one launch; ``slab_pack`` (B8;
@@ -48,6 +49,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -837,6 +839,100 @@ def delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,
     return c - before
 
 
+def delta_unpack_many_plain(chunks) -> List[torch.Tensor]:
+    """Plain version of ``delta_unpack_many``: ``delta_unpack_plain`` of
+    each chunk."""
+    return [delta_unpack_plain(*c) for c in chunks]
+
+
+# dtypes of a chunk's words, mstart, bwid, min_delta, bit_start,
+# page_start and first
+_DELTA_DTYPES = (torch.int32, torch.int32, torch.int32, torch.int64,
+                 torch.int64, torch.int32, torch.int64)
+# B6's look-back states, kept per (device, stream): [int64 scratch (the
+# ticket, a pad word, two words a tile), the last launch's epoch]. Each
+# launch tags its states with a new epoch, so none clears the array; it
+# is zeroed only when it grows.
+_DELTA_STATE: Dict[Tuple[int, int], list] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _delta_layout() -> Tuple[int, int]:
+    """(chunks a launch, elements a tile) of B6, as the library lays out
+    its scratch."""
+    lib = cudalib.load("parquet_decode")
+    return lib.srt_delta_unpack_max_chunks(), lib.srt_delta_unpack_tile_rows()
+
+
+def _delta_scratch(dev: torch.device, stream: int, tiles: int) -> list:
+    key = (dev.index, stream)
+    state = _DELTA_STATE.get(key)
+    if state is None or state[0].shape[0] < 2 + 2 * tiles:
+        size = 1 << max(12, (2 + 2 * tiles - 1).bit_length())
+        state = [torch.zeros(size, dtype=torch.int64, device=dev), 0]
+        _DELTA_STATE[key] = state
+    return state
+
+
+def delta_unpack_many(chunks) -> List[torch.Tensor]:
+    """``delta_unpack`` of each ``(words, mstart, bwid, min_delta,
+    bit_start, page_start, first, n)`` of ``chunks``, all in one launch (one
+    per 32 chunks). Each output is its own allocation; the look-back
+    states persist per stream (``_DELTA_STATE``)."""
+    if not chunks:
+        return []
+    first_t = chunks[0][0]
+    if first_t.is_cpu:
+        return delta_unpack_many_plain(chunks)
+    what = "delta_unpack"
+    _require_cuda(first_t, what)
+    dev = first_t.device
+    index = dev.index
+    max_chunks, tile_rows = _delta_layout()
+    # the host's share of a call is these checks, once per chunk
+    desc = array.array("q")  # 12 int64 a launched chunk (the C layout)
+    outs, tiles = [], []
+    for c in chunks:
+        for t, dtype in zip(c[:7], _DELTA_DTYPES):
+            if t.dtype != dtype or t.get_device() != index \
+                    or t.stride() != (1,):
+                raise TypeError(
+                    f"{what}: words, mstart, bwid, min_delta, bit_start, "
+                    "page_start, first must be 1-d, contiguous int32, int32, "
+                    f"int32, int64, int64, int32, int64 on {dev}")
+        words, mstart, bwid, min_delta, bit_start, page_start, first, n = c
+        nmini, npages = mstart.shape[0], first.shape[0]
+        if (bwid.shape[0] != nmini or min_delta.shape[0] != nmini
+                or bit_start.shape[0] != nmini or nmini == 0
+                or page_start.shape[0] != npages + 1 or npages == 0
+                or words.shape[0] == 0 or not 0 <= n < 1 << 31):
+            raise ValueError(f"{what}: miniblock or page table shapes "
+                             f"differ, or {n} outputs outside int32")
+        out = torch.empty(n, dtype=torch.int64, device=dev)
+        outs.append(out)
+        if n:
+            desc.extend((words.data_ptr(), words.shape[0], mstart.data_ptr(),
+                         bwid.data_ptr(), min_delta.data_ptr(),
+                         bit_start.data_ptr(), nmini, page_start.data_ptr(),
+                         first.data_ptr(), npages, out.data_ptr(), n))
+            tiles.append(-(-n // tile_rows))
+    lib = cudalib.load("parquet_decode")
+    stream = _stream(dev)
+    state = _delta_scratch(dev, stream, max(
+        sum(tiles[i:i + max_chunks])
+        for i in range(0, len(tiles), max_chunks)) if tiles else 0)
+    scratch = state[0]
+    addr = desc.buffer_info()[0]
+    for i in range(0, len(tiles), max_chunks):
+        state[1] += 1
+        err = lib.srt_delta_unpack_many(
+            addr + 96 * i, min(max_chunks, len(tiles) - i),
+            scratch.data_ptr(), scratch.shape[0], state[1], stream)
+        cudalib.check(lib, err, what)
+        LAUNCHES["delta_unpack"] += 1
+    return outs
+
+
 def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
                  first, n: int) -> torch.Tensor:
     """DELTA_BINARY_PACKED column chunk -> (n,) int64 values, one launch
@@ -850,42 +946,13 @@ def delta_unpack(words, mstart, bwid, min_delta, bit_start, page_start,
     last entry n) and ``first`` int64 (P,). Element page_start[p] is
     first[p]; every later element of page p adds its delta to the one
     before it. The output is the JAX package's per-page ``delta_unpack``
-    results concatenated."""
+    results concatenated. On the card, ``delta_unpack_many`` with one
+    chunk."""
     if words.is_cpu:
         return delta_unpack_plain(words, mstart, bwid, min_delta, bit_start,
                                   page_start, first, n)
-    what = "delta_unpack"
-    _decode_check(what, [words, mstart, bwid, min_delta, bit_start,
-                         page_start, first])
-    _check_dtypes(what, [("words", words, torch.int32),
-                         ("mstart", mstart, torch.int32),
-                         ("bwid", bwid, torch.int32),
-                         ("min_delta", min_delta, torch.int64),
-                         ("bit_start", bit_start, torch.int64),
-                         ("page_start", page_start, torch.int32),
-                         ("first", first, torch.int64)])
-    nmini, npages = mstart.shape[0], first.shape[0]
-    if (bwid.shape[0] != nmini or min_delta.shape[0] != nmini
-            or bit_start.shape[0] != nmini or nmini == 0
-            or page_start.shape[0] != npages + 1 or npages == 0
-            or words.shape[0] == 0 or n >= 1 << 31):
-        raise ValueError(f"{what}: miniblock or page table shapes differ, "
-                         f"or {n} outputs exceed int32")
-    lib = cudalib.load("parquet_decode")
-    dev = words.device
-    ntiles = max(1, -(-n // lib.srt_delta_tile_rows()))
-    tile_v = torch.empty(ntiles, dtype=torch.int64, device=dev)
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=dev)
-    carry = torch.empty(ntiles, dtype=torch.int64, device=dev)
-    out = torch.empty(n, dtype=torch.int64, device=dev)
-    err = lib.srt_delta_unpack(
-        words.data_ptr(), words.shape[0], mstart.data_ptr(),
-        bwid.data_ptr(), min_delta.data_ptr(), bit_start.data_ptr(), nmini,
-        page_start.data_ptr(), first.data_ptr(), npages, out.data_ptr(), n,
-        tile_v.data_ptr(), tile_f.data_ptr(), carry.data_ptr(), _stream(dev))
-    cudalib.check(lib, err, what)
-    LAUNCHES["delta_unpack"] += 1
-    return out
+    return delta_unpack_many([(words, mstart, bwid, min_delta, bit_start,
+                               page_start, first, n)])[0]
 
 
 _PLAIN_KINDS = {"i32": (torch.int32, 4), "f32": (torch.float32, 4),

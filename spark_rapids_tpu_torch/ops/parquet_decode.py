@@ -21,9 +21,9 @@ A row group's decode is split across the two sides of the scan pipeline:
     known on the host from the plans, so the decode makes no host sync.
 
 Where the JAX package launches ``delta_unpack`` once per page, the port
-merges a chunk's page tables (``delta_chunk_table``) and launches once per
-column chunk. A planning error raises: only the reasons above fall back.
-The encoded-page cache and hive partition columns of the JAX module are
+merges a chunk's page tables (``delta_chunk_table``) and decodes all of a
+row group's DELTA chunks in one launch. A planning error raises: only the
+reasons above fall back. The encoded-page cache and hive partition columns of the JAX module are
 not ported yet.
 """
 
@@ -650,13 +650,26 @@ def plain_streams(plans: dict, dev_tree: dict) -> List[tuple]:
     return out
 
 
+def delta_streams(plans: dict, dev_tree: dict) -> List[tuple]:
+    """[(column, (words, mstart, bwid, min_delta, bit_start, page_start,
+    first, n))] of a row group's DELTA_BINARY_PACKED chunks (``fixed_delta``
+    plans, each as its merged chunk table), the arguments of one
+    ``delta_unpack_many`` call."""
+    fields = ("dl_words", "dc_mstart", "dc_bw", "dc_min_delta",
+              "dc_bit_start", "dc_page_start", "dc_first")
+    return [(name, tuple(dev_tree[name][f] for f in fields)
+             + (plan["meta"]["nn"],))
+            for name, plan in plans.items() if plan["kind"] == "fixed_delta"]
+
+
 def _decode_column(plan: dict, up: dict, dt, cap: int,
                    dict_state: Optional[dict], i: int, dev,
                    plain_vals: Optional[torch.Tensor],
                    levels: Optional[torch.Tensor],
                    codes_v: Optional[torch.Tensor]) -> DeviceColumn:
     """One uploaded plan -> DeviceColumn. ``plain_vals``: the decoded PLAIN
-    stream of a ``fixed_plain`` or ``fixed_dict`` plan (``plain_streams``);
+    stream of a ``fixed_plain`` or ``fixed_dict`` plan (``plain_streams``),
+    or the decoded values of a ``fixed_delta`` one (``delta_streams``);
     ``levels`` and ``codes_v``: its expanded definition levels and
     dictionary codes (``hybrid_streams``); each None where the plan has
     none."""
@@ -674,10 +687,7 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
         return _finish_fixed(dt, plain_vals, validity, meta, fill)
 
     if kind == "fixed_delta":
-        vals_v = K.delta_unpack(up["dl_words"], up["dc_mstart"],
-                                up["dc_bw"], up["dc_min_delta"],
-                                up["dc_bit_start"], up["dc_page_start"],
-                                up["dc_first"], meta["nn"])
+        vals_v = plain_vals
         if meta["pkind"] == "i32":
             vals_v = vals_v.to(torch.int32)
         return _finish_fixed(dt, vals_v, validity, meta, fill)
@@ -785,8 +795,8 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
     """RawRowGroup -> one DeviceBatch at ``bucket_capacity(rows)``: one
     host-to-device copy of every plan's buffers and every fallback
     column's host buffers, then the kernel decode (no host sync), with
-    every RLE/bit-packed hybrid stream in one B5 launch and every PLAIN
-    fixed-width stream in one B7 launch.
+    every RLE/bit-packed hybrid stream in one B5 launch, every DELTA chunk
+    in one B6 launch and every PLAIN fixed-width stream in one B7 launch.
     ``dict_state`` is the scan's dictionary and slab-stride registry,
     shared by all its row groups."""
     n = raw.n
@@ -814,6 +824,10 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
         if streams:
             names, args = zip(*streams)
             plain = dict(zip(names, K.plain_fixed_many(list(args))))
+        streams = delta_streams(raw.plans, dev_tree)
+        if streams:
+            names, args = zip(*streams)
+            plain.update(zip(names, K.delta_unpack_many(list(args))))
         cols = []
         for i, name in enumerate(schema.names):
             dt = dt_by_name[name]

@@ -7,6 +7,8 @@ produces double and divide-by-zero yields NULL.
 
 from __future__ import annotations
 
+import numpy as np
+import pandas as pd
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes
@@ -14,6 +16,9 @@ from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, common_type, torch_dtype
 from spark_rapids_tpu_torch.sql.exprs.core import (
     DevCol, DevValue, EvalContext, Expression, data_of, valid_and,
+)
+from spark_rapids_tpu_torch.sql.exprs.hostutil import (
+    host_binary_values, rebuild_series,
 )
 
 
@@ -50,6 +55,21 @@ class BinaryArithmetic(Expression):
             data = torch.where(extra_null, dtypes.null_fill_value(out_dt),
                                data)
         return DevCol(out_dt, data, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        # the device formula, on CPU tensors over the host values
+        ls = self.children[0].eval_host(df)
+        rs = self.children[1].eval_host(df)
+        (a, b), validity, index = host_binary_values(ls, rs)
+        out_dt = self.dtype_from_children(dtypes.from_numpy(a.dtype),
+                                          dtypes.from_numpy(b.dtype))
+        tdt = torch_dtype(out_dt.np_dtype)
+        data, extra_null = self.compute(
+            torch.from_numpy(np.require(a, requirements=["C", "W"])).to(tdt),
+            torch.from_numpy(np.require(b, requirements=["C", "W"])).to(tdt))
+        if extra_null is not None:
+            validity = validity & ~extra_null.numpy()
+        return rebuild_series(data.numpy(), validity, out_dt, index)
 
 
 class Add(BinaryArithmetic):

@@ -1,9 +1,10 @@
 """Expression framework core (counterpart of the JAX package's
-``sql/exprs/core.py``; the device evaluation path only).
+``sql/exprs/core.py``).
 
 Expressions evaluate columnar, on whole batches: ``eval_device(ctx)``
 returns a ``DevCol`` (data + validity tensors, plus dictionary metadata
-carried through from scanned columns) or a ``DevScalar``. Null discipline:
+carried through from scanned columns) or a ``DevScalar``; ``eval_host(df)``
+evaluates over a pandas frame for the session's CPU path. Null discipline:
 ``validity`` is a bool tensor, True = valid; invalid slots hold a canonical
 fill value so arithmetic never traps.
 """
@@ -98,6 +99,13 @@ class Expression:
     def eval_device(self, ctx: EvalContext) -> DevValue:
         raise NotImplementedError(f"{self.pretty_name} has no device kernel")
 
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        raise NotImplementedError(f"{self.pretty_name} has no host eval")
+
+    def device_supported(self, schema: Schema) -> Optional[str]:
+        """None if this node can run on the device, else the reason."""
+        return None
+
     def map_children(self, fn) -> "Expression":
         import copy
         new = copy.copy(self)
@@ -135,6 +143,23 @@ class Literal(Expression):
         return DevScalar(self._dtype, torch.full(
             (), self.value, dtype=torch_dtype(self._dtype.np_dtype),
             device=ctx.device))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        n = len(df)
+        if self.value is None:
+            return pd.Series([pd.NA] * n, dtype=self._dtype.pandas_nullable,
+                             index=df.index)
+        if self._dtype.is_string:
+            return pd.Series([self.value] * n, dtype="str", index=df.index)
+        if self._dtype == dtypes.TIMESTAMP_US:
+            return pd.Series(np.full(n, self.value, dtype="datetime64[us]"),
+                             index=df.index)
+        if self._dtype == dtypes.DATE32:
+            return pd.Series(
+                np.full(n, self.value, dtype="datetime64[D]").astype(
+                    "datetime64[s]"), index=df.index)
+        return pd.Series(np.full(n, self.value, dtype=self._dtype.np_dtype),
+                         index=df.index)
 
 
 def _infer_literal_dtype(value: Any) -> DType:
@@ -189,6 +214,9 @@ class Col(Expression):
         raise RuntimeError(f"unbound column reference {self.name!r}; "
                            "bind_references must run before execution")
 
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        return df[self.name]
+
 
 class BoundRef(Expression):
     """Column reference bound to an input ordinal (the reference's
@@ -209,6 +237,9 @@ class BoundRef(Expression):
     def eval_device(self, ctx: EvalContext) -> DevValue:
         return ctx.cols[self.index]
 
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        return df.iloc[:, self.index]
+
 
 class Alias(Expression):
     def __init__(self, child: Expression, name: str):
@@ -223,6 +254,9 @@ class Alias(Expression):
 
     def eval_device(self, ctx: EvalContext) -> DevValue:
         return self.children[0].eval_device(ctx)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        return self.children[0].eval_host(df)
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +297,23 @@ def data_of(ctx: EvalContext, v: DevValue):
         raise NotImplementedError(
             "string values in arithmetic/comparisons are not ported yet")
     return v.data
+
+
+def walk(expr: Expression):
+    yield expr
+    for c in expr.children:
+        yield from walk(c)
+
+
+def first_unsupported(expr: Expression, schema: Schema) -> Optional[str]:
+    """The first node (pre-order) that cannot run on the device, as a
+    reason string, or None."""
+    for node in walk(expr):
+        reason = node.device_supported(schema)
+        if reason is None and type(node).eval_device is Expression.eval_device:
+            reason = "has no TPU implementation"
+        if reason is not None:
+            if reason == "has no TPU implementation":
+                return f"{node.pretty_name} has no TPU implementation"
+            return f"{node.pretty_name}: {reason}"
+    return None

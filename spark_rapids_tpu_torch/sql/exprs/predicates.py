@@ -8,11 +8,18 @@ SQL three-valued logic is computed explicitly on (data, validity) pairs.
 
 from __future__ import annotations
 
+import numpy as np
+import pandas as pd
+import torch
+
 from spark_rapids_tpu_torch.columnar import dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, common_type
 from spark_rapids_tpu_torch.sql.exprs.core import (
     DevCol, DevValue, EvalContext, Expression, data_of, valid_and,
+)
+from spark_rapids_tpu_torch.sql.exprs.hostutil import (
+    host_binary_values, host_unary_values, rebuild_series,
 )
 
 
@@ -38,6 +45,27 @@ class BinaryComparison(Expression):
         data = self.compute(_promote(ctx, lv, ct), _promote(ctx, rv, ct))
         return DevCol(dtypes.BOOL, data.expand(ctx.capacity),
                       valid_and(ctx, lv, rv))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        ls = self.children[0].eval_host(df)
+        rs = self.children[1].eval_host(df)
+        (a, b), validity, index = host_binary_values(ls, rs)
+        if a.dtype == object or b.dtype == object:  # strings
+            a = np.where(validity, np.asarray(a, dtype=object), "")
+            b = np.where(validity, np.asarray(b, dtype=object), "")
+            ops = {Eq: lambda x, y: x == y, Neq: lambda x, y: x != y,
+                   Lt: lambda x, y: x < y, Le: lambda x, y: x <= y,
+                   Gt: lambda x, y: x > y, Ge: lambda x, y: x >= y}
+            op = ops[type(self)]
+            data = np.array([op(x, y) for x, y in zip(a, b)],
+                            dtype=np.bool_)
+        else:
+            ct = common_type(dtypes.from_numpy(a.dtype),
+                             dtypes.from_numpy(b.dtype))
+            data = self.compute(torch.from_numpy(a.astype(ct.np_dtype)),
+                                torch.from_numpy(b.astype(ct.np_dtype))
+                                ).numpy()
+        return rebuild_series(data, validity, dtypes.BOOL, index)
 
     def _eval_device_string(self, ctx: EvalContext, lv: DevValue,
                             rv: DevValue) -> DevValue:
@@ -121,3 +149,11 @@ class And(Expression):
         b, bv = rv.data & rv.validity, rv.validity
         validity = (av & bv) | (av & ~a) | (bv & ~b)
         return DevCol(dtypes.BOOL, a & b, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        b, bv, _ = host_unary_values(self.children[1].eval_host(df))
+        a = a.astype(np.bool_) & av  # canonicalize null slots to False
+        b = b.astype(np.bool_) & bv
+        validity = (av & bv) | (av & ~a) | (bv & ~b)
+        return rebuild_series(a & b, validity, dtypes.BOOL, index)

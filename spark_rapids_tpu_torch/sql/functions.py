@@ -1,6 +1,6 @@
 """User-facing column functions, pyspark.sql.functions-style (counterpart
 of the JAX package's ``sql/functions.py``, cut to what TPC-H Q1, Q6 and the
-Q18 group-by need)."""
+Q18 group-by need, through the query runners and through the session)."""
 
 from __future__ import annotations
 
@@ -43,11 +43,31 @@ class Column:
 
     def alias(self, name: str): return Column(Alias(self.expr, name))
 
+    # ordering
+    def asc(self): return SortOrder(self.expr, ascending=True)
+    def desc(self): return SortOrder(self.expr, ascending=False)
+
     def __hash__(self):
         return id(self.expr)
 
     def __repr__(self):
         return f"Column<{self.expr!r}>"
+
+
+class SortOrder:
+    """Sort key with direction and null ordering (Spark's defaults: asc ->
+    nulls first, desc -> nulls last)."""
+
+    def __init__(self, expr: Expression, ascending: bool = True,
+                 nulls_first: bool = None):
+        self.expr = expr
+        self.ascending = ascending
+        self.nulls_first = ascending if nulls_first is None else nulls_first
+
+    def __repr__(self):
+        d = "ASC" if self.ascending else "DESC"
+        n = "NULLS FIRST" if self.nulls_first else "NULLS LAST"
+        return f"{self.expr!r} {d} {n}"
 
 
 def _expr(x: Any) -> Expression:

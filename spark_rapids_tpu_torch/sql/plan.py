@@ -1,0 +1,153 @@
+"""Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
+holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
+Sort, Limit, Repartition, Coalesce, Union and Expand; joins, windows,
+generators and writes wait for later slices).
+
+The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
+these nodes only carry what the planner needs.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+from spark_rapids_tpu_torch.columnar import dtype as dtypes
+from spark_rapids_tpu_torch.columnar.batch import Schema
+from spark_rapids_tpu_torch.sql.exprs.core import Col, Expression
+from spark_rapids_tpu_torch.sql.functions import SortOrder
+
+
+class LogicalPlan:
+    def __init__(self, children: Sequence["LogicalPlan"] = ()):
+        self.children: List[LogicalPlan] = list(children)
+
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def walk(self):
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+
+class LogicalScan(LogicalPlan):
+    def __init__(self, source):
+        super().__init__()
+        self.source = source
+
+    def schema(self) -> Schema:
+        return self.source.schema
+
+
+class LogicalRange(LogicalPlan):
+    def __init__(self, start: int, end: int, step: int, num_partitions: int):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+
+    def schema(self) -> Schema:
+        return Schema(["id"], [dtypes.INT64])
+
+
+class LogicalProject(LogicalPlan):
+    def __init__(self, child: LogicalPlan,
+                 exprs: Sequence[Tuple[str, Expression]]):
+        super().__init__([child])
+        self.exprs = list(exprs)
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        return Schema([n for n, _ in self.exprs],
+                      [e.dtype(cs) for _, e in self.exprs])
+
+
+class LogicalFilter(LogicalPlan):
+    def __init__(self, child: LogicalPlan, condition: Expression):
+        super().__init__([child])
+        self.condition = condition
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalAggregate(LogicalPlan):
+    def __init__(self, child: LogicalPlan,
+                 grouping: Sequence[Tuple[str, Expression]],
+                 results: Sequence[Tuple[str, Expression]]):
+        super().__init__([child])
+        self.grouping = list(grouping)
+        self.results = list(results)
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        # a key result is a Col(output name): its dtype is the grouping
+        # expression's, not that of a child column the name may shadow
+        gdt = {n: e.dtype(cs) for n, e in self.grouping}
+        dts = [gdt[e.name] if isinstance(e, Col) and e.name in gdt
+               else e.dtype(cs) for _, e in self.results]
+        return Schema([n for n, _ in self.results], dts)
+
+
+class LogicalSort(LogicalPlan):
+    def __init__(self, child: LogicalPlan, orders: Sequence[SortOrder],
+                 is_global: bool = True):
+        super().__init__([child])
+        self.orders = list(orders)
+        self.is_global = is_global
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalLimit(LogicalPlan):
+    def __init__(self, child: LogicalPlan, limit: int):
+        super().__init__([child])
+        self.limit = limit
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalRepartition(LogicalPlan):
+    """repartition(n): round-robin row redistribution."""
+
+    def __init__(self, child: LogicalPlan, n: int):
+        super().__init__([child])
+        self.n = max(1, int(n))
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalCoalesce(LogicalPlan):
+    """coalesce(n): merge adjacent partitions, no shuffle."""
+
+    def __init__(self, child: LogicalPlan, n: int):
+        super().__init__([child])
+        self.n = max(1, int(n))
+
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalUnion(LogicalPlan):
+    def schema(self) -> Schema:
+        return self.children[0].schema()
+
+
+class LogicalExpand(LogicalPlan):
+    """Each input row emits one output row per projection set."""
+
+    def __init__(self, child: LogicalPlan, projections):
+        super().__init__([child])
+        self.projections = [list(p) for p in projections]
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        first = self.projections[0]
+        return Schema([n for n, _ in first],
+                      [e.dtype(cs) for _, e in first])

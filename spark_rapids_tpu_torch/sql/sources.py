@@ -1,5 +1,7 @@
-"""Parquet files as a scan source (the ``ParquetSource`` of the JAX
-package's ``sql/sources.py``, for its device decode path).
+"""Scan sources (counterpart of the JAX package's ``sql/sources.py``):
+``InMemorySource``, a pandas frame split into partitions (the session's
+``create_dataframe``), and ``ParquetSource``, Parquet files for the device
+decode path.
 
 Footer work and split planning run on the host: one split per row group.
 ``raw_partitions`` hands each split's planning to the scan pipeline
@@ -12,6 +14,7 @@ list of files.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
 
 import pandas as pd
@@ -22,6 +25,59 @@ from spark_rapids_tpu_torch.sql import parquet_raw as praw
 from spark_rapids_tpu_torch.sql.scan_pipeline import (
     DEFAULT_DEPTH, Partition, build_partitions,
 )
+
+
+_DATA_UIDS = itertools.count()
+
+
+class InMemorySource:
+    """createDataFrame: a pandas frame split into ``num_partitions``
+    contiguous slices."""
+
+    def __init__(self, df: pd.DataFrame, num_partitions: int = 1):
+        self.df = df
+        self.num_partitions = max(1, num_partitions)
+        self.schema = Schema.from_pandas(df)
+
+    def describe(self) -> str:
+        return f"InMemory[{len(self.df)} rows x {len(self.df.columns)} cols]"
+
+    def data_uid(self) -> str:
+        """Identity of the data behind this source, shared by its
+        projection views (``with_columns``); a new frame gets a new one."""
+        base = getattr(self, "_base", self)
+        if not hasattr(base, "_data_uid"):
+            base._data_uid = next(_DATA_UIDS)
+        return f"InMemorySource#{base._data_uid}"
+
+    def with_columns(self, columns: List[str]) -> "InMemorySource":
+        """Projection-pushdown view: only the referenced columns (a pandas
+        column view, no copy)."""
+        keep = [c for c in self.df.columns if c in columns]
+        src = InMemorySource.__new__(InMemorySource)
+        src.df = self.df[keep]
+        src.num_partitions = self.num_partitions
+        src.schema = Schema(keep, [self.schema.dtype_of(c) for c in keep])
+        src._base = getattr(self, "_base", self)
+        return src
+
+    def cpu_partitions(self) -> List[Partition]:
+        n = len(self.df)
+        per = -(-n // self.num_partitions) if n else 0
+        if per == 0:
+            def empty():
+                yield self.df.iloc[0:0]
+
+            def nothing():
+                return iter(())
+            return [empty] + [nothing] * (self.num_partitions - 1)
+
+        def part(i: int) -> Partition:
+            def run():
+                yield self.df.iloc[i * per:(i + 1) * per] \
+                    .reset_index(drop=True)
+            return run
+        return [part(i) for i in range(self.num_partitions)]
 
 
 class ParquetSource:

@@ -17,7 +17,11 @@ the level and dictionary-code streams of a Q1 lineitem row group (2^20
 rows, written as Parquet with ``tpch_data.PARQUET_SPEC`` into the ignored
 ``build/profile_parquet/`` and uploaded as the scan uploads it), one
 stream a call and, where the port has it, all in one ``hybrid_expand_many``
-call:
+call; and for B6 ``delta_unpack`` on the l_orderkey chunk of a lineitem
+row group (2^20 values) and on the two DELTA chunks of an orders row group
+(o_orderkey, o_custkey), one call a chunk and, where the port has it, both
+in one ``delta_unpack_many`` call, beside the host microseconds of the
+wrapper's scratch and output allocations alone:
 
   * the wrapper's mean milliseconds over back-to-back calls (CUDA events);
   * the host's enqueue microseconds per call (host clock, no sync);
@@ -39,6 +43,7 @@ tag too).
     python3 -m spark_rapids_tpu_torch.tools.profile_kernels
     python3 spark_rapids_tpu_torch/tools/profile_kernels.py --root CHECKOUT
     python3 -m spark_rapids_tpu_torch.tools.profile_kernels --only b2 b4
+    python3 -m spark_rapids_tpu_torch.tools.profile_kernels --only b6
 
 ``--root`` imports the port from another checkout (run the file by its
 path, so that nothing of the port is imported before the root is chosen),
@@ -59,7 +64,7 @@ import numpy as np
 import torch
 
 OUT_DIR = "chiprun_out"
-PROFILES = ("b1", "b7", "b3", "b2", "b4", "b5")
+PROFILES = ("b1", "b7", "b3", "b2", "b4", "b5", "b6")
 # the --tag of this run, which its trace files carry too
 _trace_tag = ""
 # the Chrome trace's device events: kernels, and copies and fills, which
@@ -430,6 +435,86 @@ def profile_b5(out_dir: Path) -> list:
     return out
 
 
+def delta_chunks(path: str, columns: list) -> list:
+    """[(column, (words, mstart, bwid, min_delta, bit_start, page_start,
+    first, n))] of row group 0's DELTA chunks of ``columns``, uploaded in
+    one ``upload_arrays`` buffer as ``decode_rowgroup`` uploads them."""
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    from spark_rapids_tpu_torch.ops import parquet_decode as PD
+    from spark_rapids_tpu_torch.sql.sources import ParquetSource
+    schema = ParquetSource(path).schema
+    raw = PD.prepare_rowgroup(path, 0, columns,
+                              {c: schema.dtype_of(c) for c in columns},
+                              upload_blocked_chars())
+    tree = {name: PD._device_upload(p) for name, p in raw.plans.items()}
+    dev_tree = PD.upload_arrays(tree, "cuda")
+    fields = ("dl_words", "dc_mstart", "dc_bw", "dc_min_delta",
+              "dc_bit_start", "dc_page_start", "dc_first")
+    return [(name, tuple(dev_tree[name][f] for f in fields)
+             + (plan["meta"]["nn"],))
+            for name, plan in raw.plans.items()
+            if plan["kind"] == "fixed_delta"]
+
+
+def delta_bound_bytes(args) -> int:
+    """Bytes B6 must move for one chunk: the packed words, miniblock and
+    page tables read once, n int64 written once."""
+    return sum(t.numel() * t.element_size() for t in args[:7]) + 8 * args[7]
+
+
+def profile_b6(out_dir: Path) -> list:
+    """B6 on the l_orderkey chunk of a lineitem row group and on an orders
+    row group's two DELTA chunks (files written with ``PARQUET_SPEC``)."""
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import kernels as K
+    paths = G.write_parquet(str(out_dir), 0.7, tables=["lineitem", "orders"],
+                            frames={"lineitem": G.gen_lineitem(0.18)})
+    out = []
+    for table, cols in (("lineitem", ["l_orderkey"]),
+                        ("orders", ["o_orderkey", "o_custkey"])):
+        chunks = delta_chunks(paths[table], cols)
+        if [c for c, _a in chunks] != cols:
+            raise AssertionError(f"{table}: DELTA chunks {chunks}")
+        for name, args in chunks:
+            if not torch.equal(K.delta_unpack(*args),
+                               K.delta_unpack_plain(*args)):
+                raise AssertionError(f"delta_unpack differs from plain: "
+                                     f"{name}")
+        many = [args for _c, args in chunks]
+        nbytes = sum(delta_bound_bytes(a) for a in many)
+        rec = {"kernel": "delta_unpack", "table": table, "chunks": cols,
+               "values": [a[7] for a in many],
+               "pages": [int(a[6].shape[0]) for a in many],
+               "miniblocks": [int(a[1].shape[0]) - 1 for a in many],
+               "bound_ms": bound_ms(nbytes),
+               "plain_ms": _event_ms(lambda: [K.delta_unpack_plain(*a)
+                                              for a in many], 5)}
+        rec.update(_timed(f"b6_{table}", lambda: [K.delta_unpack(*a)
+                                                  for a in many], 200))
+        # the host's share of the allocations alone: the parent's four
+        # (three scratch arrays and the output), the tree's two
+        n = many[0][7]
+        ntiles = -(-n // 2048)
+        rec["alloc4_us"] = _host_us(lambda: (
+            torch.empty(ntiles, dtype=torch.int64, device="cuda"),
+            torch.empty(ntiles, dtype=torch.int32, device="cuda"),
+            torch.empty(ntiles, dtype=torch.int64, device="cuda"),
+            torch.empty(n, dtype=torch.int64, device="cuda")), 200)
+        out.append(rec)
+        if len(many) > 1 and hasattr(K, "delta_unpack_many"):
+            for got, want in zip(K.delta_unpack_many(many),
+                                 K.delta_unpack_many_plain(many)):
+                if not torch.equal(got, want):
+                    raise AssertionError("delta_unpack_many differs from "
+                                         "plain")
+            rec = {"kernel": "delta_unpack_many", "table": table,
+                   "chunks": cols, "bound_ms": bound_ms(nbytes)}
+            rec.update(_timed(f"b6_{table}_many",
+                              lambda: K.delta_unpack_many(many), 200))
+            out.append(rec)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout whose port to import")
@@ -468,6 +553,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "b5" in only:
         records += profile_b5(Path(cudalib.BUILD) / "profile_parquet")
+    if "b6" in only:
+        records += profile_b6(Path(cudalib.BUILD) / "profile_parquet_b6")
     for r in records:
         print(json.dumps(r))
     card = _card()

@@ -236,6 +236,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import spark_rapids_tpu_torch.sql.parquet_raw\n"
         "import spark_rapids_tpu_torch.sql.scan_pipeline\n"
         "import spark_rapids_tpu_torch.sql.sources\n"
+        "from spark_rapids_tpu_torch.models import tpch as T\n"
+        "from spark_rapids_tpu_torch.session import TpuSparkSession\n"
         "from spark_rapids_tpu_torch.models import tpch_scan as S\n"
         "import tempfile\n"
         "out = Q.run_q1(G.gen_lineitem(0.0005), 1024, device='cpu')\n"
@@ -250,6 +252,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "assert len(S.run_q3_parquet(p, device='cpu')) == 10\n"
         "assert len(S.customer_segment_collect(p['customer'],\n"
         "                                      device='cpu')) > 0\n"
+        "ss = TpuSparkSession.builder().device('cpu').get_or_create()\n"
+        "t = {'lineitem': ss.create_dataframe(fr['lineitem'])}\n"
+        "assert len(T.q1(ss, t).collect()) == 6\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

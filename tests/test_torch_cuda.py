@@ -536,6 +536,59 @@ def test_delta_unpack_kernel_matches_plain(cuda_device, case):
         assert torch.equal(got.to(torch.int32), want.to(torch.int32))
 
 
+def _delta_chunks(rng, count, dev):
+    """``count`` ragged DELTA chunks (1 to 14 pages of 0 to 60,000 values,
+    bit widths 0 to 32, min deltas of both signs), then one more with
+    n = 0."""
+    out = []
+    for j in range(count):
+        nwords = int(rng.integers(5_000, 60_000))
+        words = _dev(rng.integers(0, 1 << 32, nwords, dtype=np.uint64)
+                     .astype(np.uint32), dev)
+        totals = list(rng.integers(0, 60_000, int(rng.integers(1, 15))))
+        *table, n = _delta_chunk(rng, totals, [0, 1, 13, 27, 32], nwords)
+        out.append((words, *[_dev(a, dev) for a in table], n))
+    out.append(out[0][:7] + (0,))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 2, 33])
+def test_delta_unpack_many_kernel_matches_plain(cuda_device, count):
+    """A row group's chunks in one launch (one per 32 chunks), an empty
+    chunk among them, bit for bit against the plain version."""
+    from spark_rapids_tpu_torch.ops import cudalib
+    lib = cudalib.load("parquet_decode")
+    assert lib.srt_delta_unpack_max_chunks() == 32
+    chunks = _delta_chunks(np.random.default_rng(count), count, cuda_device)
+    before = K.LAUNCHES["delta_unpack"]
+    got = K.delta_unpack_many(chunks)
+    assert K.LAUNCHES["delta_unpack"] - before == -(-count // 32)
+    want = K.delta_unpack_many_plain(chunks)
+    assert len(got) == count + 1 and got[-1].shape == (0,)
+    for g, w, c in zip(got, want, chunks):
+        assert g.shape == (c[7],) and torch.equal(g, w), c[7]
+        assert g.data_ptr() % 16 == 0
+
+
+@pytest.mark.cuda
+def test_delta_unpack_many_kernel_repeats_and_second_stream(cuda_device):
+    """The look-back's scratch is cleared by every launch: back-to-back
+    calls, and calls on another stream, give the same values."""
+    chunks = _delta_chunks(np.random.default_rng(7), 3, cuda_device)
+    want = K.delta_unpack_many_plain(chunks)
+    for _ in range(5):
+        for g, w in zip(K.delta_unpack_many(chunks), want):
+            assert torch.equal(g, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = K.delta_unpack_many(chunks)
+    torch.cuda.current_stream().wait_stream(side)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["i32", "f32", "i64", "f64", "bool"])
 def test_plain_fixed_kernel_matches_plain(cuda_device, kind):
@@ -597,3 +650,55 @@ def test_slab_pack_kernel_matches_plain(cuda_device, stride):
     got = K.slab_pack(*args, cap, stride)
     want = K.slab_pack_plain(*args, cap, stride)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The session on the card: Q1, Q6 and the Q18 group-by against the query
+# runners
+# ---------------------------------------------------------------------------
+
+def _same_by_key(got, want, keys):
+    assert list(got.columns) == list(want.columns) and len(got) == len(want)
+    got = got.sort_values(keys).reset_index(drop=True)
+    want = want.sort_values(keys).reset_index(drop=True)
+    for c in got.columns:
+        g, w = got[c].to_numpy(), want[c].to_numpy()
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=F64_RTOL, atol=0)
+        else:
+            assert [str(x) for x in g] == [str(x) for x in w], c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", ["q1", "q6", "q18_groupby"])
+def test_session_queries_on_the_card(cuda_device, qname):
+    """Through the port's session in test mode (no fallback), at SF 0.05
+    in 2^16-row batches: equal to the query runners' answers, through
+    kernels B1 (and B2 for the Q18 group-by)."""
+    from spark_rapids_tpu_torch.models import q1_step as Q
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    df = G.gen_lineitem(0.05)
+    batch = 1 << 16
+    b = (TpuSparkSession.builder()
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.batchSizeRows", batch))
+    for k, v in tpch.HASH_AGG_CONFS.items():
+        b.config(k, v)
+    s = b.get_or_create()
+    query = tpch.QUERIES[qname](s, {"lineitem": s.create_dataframe(df)})
+    K.reset_launches()
+    got = query.collect()
+    assert K.LAUNCHES["compact_permutation"] > 0
+    if qname == "q1":
+        want = Q.q1_from_batches(Q.upload_batches(df, Q.Q1_COLUMNS, batch))
+        _same_by_key(got, want.to_pandas(), ["l_returnflag", "l_linestatus"])
+    elif qname == "q6":
+        want = Q.q6_from_batches(Q.upload_batches(df, Q.Q6_COLUMNS, batch))
+        _same_by_key(got, want.to_pandas(), ["revenue"])
+    else:
+        assert K.LAUNCHES["hash_grouped_aggregate"] > 0
+        _grouped, having = Q.q18_agg_from_batches(
+            Q.upload_batches(df, Q.Q18_COLUMNS, batch))
+        _same_by_key(got, having.to_pandas(), ["l_orderkey"])

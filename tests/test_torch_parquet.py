@@ -435,6 +435,30 @@ def test_delta_chunk_matches_jnp_pages(files, shape, column):
                                   col.to_numpy())
 
 
+def test_delta_unpack_many_plain_over_a_row_group(files):
+    """``delta_unpack_many_plain`` over an orders row group's DELTA chunks
+    (as ``decode_rowgroup`` collects them) equals the per-chunk plain
+    version and the reference's per-page ``delta_unpack``."""
+    path = files["orders_spec"]
+    src = ParquetSource(path)
+    cols = ["o_orderkey", "o_custkey", "o_totalprice"]
+    raw = PD.prepare_rowgroup(path, 0, cols, {
+        c: src.schema.dtype_of(c) for c in cols}, BLOCKED)
+    tree = {name: PD._device_upload(p) for name, p in raw.plans.items()}
+    streams = PD.delta_streams(raw.plans, PD.upload_arrays(tree, "cpu"))
+    assert [name for name, _a in streams] == ["o_orderkey", "o_custkey"]
+    chunks = [args for _name, args in streams]
+    got = K.delta_unpack_many_plain(chunks)
+    assert [g.shape[0] for g in got] == [c[7] for c in chunks]
+    for g, c, (name, _a) in zip(got, chunks, streams):
+        assert torch.equal(g, K.delta_unpack_plain(*c))
+        plan = raw.plans[name]
+        want = np.concatenate(_ref_delta_pages(plan["upload"], plan["meta"]))
+        np.testing.assert_array_equal(g.numpy(), want)
+    for g, w in zip(K.delta_unpack_many(chunks), got):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("kind", ["i32", "f32", "i64", "f64", "bool"])
 def test_plain_fixed_plain_matches_jnp_twin(kind):
     words = np.random.default_rng(5).integers(
