@@ -11,19 +11,27 @@ port's main path through its query runners:
     group-by (``group by l_orderkey, sum(l_quantity) having sum > 300``) at
     SF1, each answer checked against pandas on the host from the same
     generated rows;
-  * the port's ``TpuSparkSession``: Q1 and Q6 at SF10 and the Q18 group-by
-    at SF1 (``models/tpch.py``, the Q18 group-by with the hash-aggregation
-    confs) planned, tagged and run on the card in test mode (any operator
-    left on the CPU fails the run), with cached device scans, every answer
-    equal to pandas and to the runners', warm walls beside the runners',
-    and no counted host sync before the collect;
+  * the port's ``TpuSparkSession``: Q1, Q6, Q3 and Q4 at SF10 and the Q18
+    group-by at SF1 (``models/tpch.py``, with the hash-aggregation confs)
+    planned, tagged and run on the card in test mode (any operator left on
+    the CPU fails the run), with cached device scans, every answer equal to
+    pandas and to the runners', warm walls beside the runners', and the
+    runners' counted host syncs before the collect (Q3 two, one a join, the
+    rest none); Q3 both with two shuffled joins (every SF10 table is above
+    ``autoBroadcastJoinThreshold``) and with the threshold at the orders
+    frame's estimate, so that its first join broadcasts;
   * the device Parquet scan: the same rows written as Parquet files with
     ``models/tpch_data.PARQUET_SPEC`` into the ignored
     ``spark_rapids_tpu_torch/build/tpch_parquet/``, then Q1, Q6, Q3 and Q4
     at SF10, the Q18 group-by at SF1 and a customer filter-and-collect at
     SF10 (every column, strings included) read from those files, with zero
     columns falling back to the host decode, checked against the same
-    pandas references.
+    pandas references; then the same queries through the session's
+    ``read.parquet`` (no scan cache: every run decodes the files on the
+    card, B5-B8 launched through the session), equal to the runners'
+    answers with no more counted syncs, and the Q18 group-by once more with
+    the session's device path off (``spark.rapids.sql.enabled=false``: the
+    CPU scan decodes the file with pyarrow), equal too.
 
 Each query also runs up to its collect under PyTorch's sync debug mode
 "error", where the only host waits allowed are the counted ones
@@ -1149,27 +1157,83 @@ def session_of(batch_rows: int, **conf):
 
 
 def run_session_query(name: str, query, runs: int, runner: dict,
-                      sf, rows: int) -> tuple:
+                      sf, rows: int, syncs: int = 0) -> tuple:
     """A session query: one cold execution (uploads into the session's
     device scan cache; a partial aggregate learns its skip decision), then
     ``runs`` warm ones timed as the runners' are, then the query up to its
-    collect under the sync debug mode "error", where it may make no counted
-    sync (the runners make none)."""
+    collect under the sync debug mode "error", where it may make only the
+    runners' counted syncs (``syncs``: Q3's two joins, else none)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     query.collect()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     out, walls, launches = run_query(name, query.collect, runs)
-    require_syncs(name, query.collect_batches, 0)
+    require_syncs(name, query.collect_batches, syncs)
     med = float(np.median(walls))
     log(f"{name}: median {med:.4f} s against the runner's "
-        f"{runner['wall_s']:.4f} s; counted syncs before the collect 0 "
-        "(runner 0); cold run (upload) {:.1f} s".format(cold))
+        f"{runner['wall_s']:.4f} s; counted syncs before the collect "
+        f"{syncs} (runner {syncs}); cold run (upload) {cold:.1f} s")
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
-                 "launches": launches, "counted_syncs": 0,
-                 "runner_wall_s": runner["wall_s"], "runner_syncs": 0}
+                 "launches": launches, "counted_syncs": syncs,
+                 "runner_wall_s": runner["wall_s"], "runner_syncs": syncs}
+
+
+def run_session_parquet(name: str, query, runs: int, runner: dict, sf,
+                        rows: int, row_groups: int, own_syncs: int) -> tuple:
+    """A session query over Parquet files, decoded on the card, no scan
+    cache: one cold execution (a partial aggregate learns its skip
+    decision), then ``runs`` timed as the runners' Parquet queries are
+    (files to the collect) with no column decoded on the host, then the
+    query up to its collect under the sync debug mode "error": one counted
+    sync per row group (its upload) plus the query's own, as the
+    runners'."""
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY, delta
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    query.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    before = REGISTRY.values()
+    out, walls, launches = run_query(name, query.collect, runs)
+    stats = delta(before, REGISTRY.values())
+    require(stats.get("scan.device.fallbackColumns", 0) == 0,
+            f"{name}: columns fell back to the host decode")
+    require(stats.get("scan.device.splits", 0) == row_groups * (runs + 1),
+            f"{name}: {stats.get('scan.device.splits')} row groups decoded "
+            f"in {runs + 1} runs of {row_groups}")
+    syncs = row_groups + own_syncs
+    require_syncs(name, query.collect_batches, syncs)
+    for k, what in (("hybrid_expand", "B5"), ("delta_unpack", "B6"),
+                    ("plain_fixed", "B7")):
+        require(launches[k] <= row_groups, f"{name}: {launches[k]} {what} "
+                f"launches for {row_groups} row groups")
+    require(launches["hybrid_expand"] > 0, f"{name}: no B5 launch")
+    med = float(np.median(walls))
+    log(f"{name}: median {med:.4f} s against the runner's "
+        f"{runner['wall_s']:.4f} s; counted syncs {syncs} (runner "
+        f"{runner['counted_syncs']}); B5 {launches['hybrid_expand']} B6 "
+        f"{launches['delta_unpack']} B7 {launches['plain_fixed']} B8 "
+        f"{launches['slab_pack']}; cold run {cold:.1f} s")
+    require(syncs <= runner["counted_syncs"],
+            f"{name}: {syncs} syncs, more than the runner's")
+    return out, {"sf": sf, "rows": rows, "cold_s": cold, "wall_s": med,
+                 "wall_runs_s": walls, "rows_per_s": rows / med,
+                 "launches": launches, "counted_syncs": syncs,
+                 "row_groups": row_groups,
+                 "runner_wall_s": runner["wall_s"],
+                 "runner_syncs": runner["counted_syncs"]}
+
+
+def join_execs(sess, df) -> dict:
+    """The join operators of a session query's device plan, by name."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    out = {"TpuShuffledHashJoinExec": 0, "TpuBroadcastHashJoinExec": 0}
+    for node in sess.physical_plan(df._plan).walk():
+        if isinstance(node, tpujoin.TpuShuffledHashJoinExec):
+            out[type(node).__name__] += 1
+    return out
 
 
 def same_by_key(got, want, keys, what: str) -> float:
@@ -1274,6 +1338,9 @@ def main() -> int:
     queries = {}
     runs = 1 if args.quick else 5
     pq_runs = 1 if args.quick else 3
+    # the runners' Parquet queries take 2 timed runs, the session's 3: the
+    # session's Parquet phases made the smoke ~5 minutes longer
+    runner_pq_runs = 1 if args.quick else 2
 
     t0 = time.perf_counter()
     df = G.gen_lineitem(sf_q1)
@@ -1360,6 +1427,7 @@ def main() -> int:
         "Q3", lambda: J.q3_from_batches(tables).to_pandas(), runs)
     q3_want = q3_reference(df, frames["orders"], frames["customer"])
     err = check_q3(out, q3_want)
+    q3_runner = out
     require_syncs("Q3", lambda: J.q3_from_batches(tables), 2)
     require(launches["hash_table_build"] > 0
             and launches["hash_table_probe"] > 0
@@ -1391,7 +1459,55 @@ def main() -> int:
                                                          tables.values())),
                                  up, walls, 0.0, launches)
     queries["q4"]["order_count"] = int(out.order_count.sum())
+    q4_runner = out
     del tables
+    torch.cuda.empty_cache()
+
+    # Q3 and Q4 through the session: cached scans; at SF10 every table is
+    # far above autoBroadcastJoinThreshold, so both plan shuffled joins
+    sess = session_of(q1_batch, **T.HASH_AGG_CONFS)
+    tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    q3_df = T.q3(sess, tables)
+    require(join_execs(sess, q3_df) == {"TpuShuffledHashJoinExec": 2,
+                                        "TpuBroadcastHashJoinExec": 0},
+            "session Q3 did not plan two shuffled joins")
+    out, rec = run_session_query("session Q3", q3_df, runs, queries["q3"],
+                                 sf_q1, q3_rows, syncs=2)
+    rec["max_rel_err"] = max(check_q3(out, q3_want),
+                             check_q3(out, q3_runner))
+    require(all(rec["launches"][k] > 0 for k in (
+        "hash_table_build", "hash_table_probe", "hash_grouped_aggregate",
+        "compact_permutation")), "session Q3 did not run B1, B2, B3, B4")
+    queries["session_q3"] = rec
+    session_q3 = out
+    out, rec = run_session_query("session Q4", T.q4(sess, tables), runs,
+                                 queries["q4"], sf_q1, q4_rows)
+    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
+            == list(q4_runner.o_orderpriority)
+            and list(out.order_count) == list(q4_want.order_count)
+            == list(q4_runner.order_count),
+            f"session Q4 differs: {out} vs {q4_want}")
+    require(rec["launches"]["hash_table_build"] > 0
+            and rec["launches"]["hash_table_probe"] > 0,
+            "session Q4 did not run B3 and B4")
+    rec["max_rel_err"] = 0.0
+    queries["session_q4"] = rec
+    # Q3 with its first join broadcast: the threshold at the orders
+    # frame's estimate, below lineitem's (the scans stay cached)
+    threshold = tables["orders"]._plan.estimated_size_bytes()
+    sess.set_conf("spark.rapids.sql.autoBroadcastJoinThreshold", threshold)
+    q3_df = T.q3(sess, tables)
+    require(join_execs(sess, q3_df) == {"TpuShuffledHashJoinExec": 1,
+                                        "TpuBroadcastHashJoinExec": 1},
+            "session Q3 with a broadcast did not plan one of each join")
+    out, rec = run_session_query("session Q3 broadcast", q3_df, runs,
+                                 queries["q3"], sf_q1, q3_rows, syncs=2)
+    rec["max_rel_err"] = max(check_q3(out, q3_want),
+                             check_q3(out, session_q3))
+    rec["threshold_bytes"] = threshold
+    queries["session_q3_broadcast"] = rec
+    sess.clear_device_cache()
+    del sess, tables, q3_df
     torch.cuda.empty_cache()
 
     # the device Parquet scan: the same rows as Parquet files
@@ -1438,40 +1554,44 @@ def main() -> int:
 
     out, rec = run_parquet_query(
         "Q1 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q1_COLUMNS),
-        lambda t, full: collect(Q.q1_from_batches(t), full), pq_runs,
+        lambda t, full: collect(Q.q1_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"], 0)
     rec.update(sf=sf_q1, rows=len(df), max_rel_err=check_q1(out, q1_want))
     queries["q1_parquet"] = rec
+    pq_out = {"q1": out}
 
     out, rec = run_parquet_query(
         "Q6 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q6_COLUMNS),
-        lambda t, full: collect(Q.q6_from_batches(t), full), pq_runs,
+        lambda t, full: collect(Q.q6_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"], 0)
     err = _rel_err([out.revenue[0]], [q6_want])
     require(len(out) == 1 and err <= F64_RTOL, f"Q6 parquet differs: {err}")
     rec.update(sf=sf_q1, rows=len(df), max_rel_err=err)
     queries["q6_parquet"] = rec
+    pq_out["q6"] = out
     torch.cuda.empty_cache()
 
     out, rec = run_parquet_query(
         "Q3 parquet", lambda: S.scan_tables(paths, J.Q3_COLUMNS),
-        lambda t, full: collect(J.q3_from_batches(t), full), pq_runs,
+        lambda t, full: collect(J.q3_from_batches(t), full), runner_pq_runs,
         sum(rgs.values()), 2)
     rec.update(sf=sf_q1, rows=q3_rows, max_rel_err=check_q3(out, q3_want))
     require(rec["launches"]["hash_table_build"] > 0,
             "Q3 parquet ran no join")
     queries["q3_parquet"] = rec
+    pq_out["q3"] = out
     torch.cuda.empty_cache()
 
     out, rec = run_parquet_query(
         "Q4 parquet", lambda: S.scan_tables(paths, J.Q4_COLUMNS),
-        lambda t, full: collect(J.q4_from_batches(t), full), pq_runs,
+        lambda t, full: collect(J.q4_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"] + rgs["orders"], 0)
     require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
             and list(out.order_count) == list(q4_want.order_count),
             f"Q4 parquet differs from pandas: {out} vs {q4_want}")
     rec.update(sf=sf_q1, rows=q4_rows, max_rel_err=0.0)
     queries["q4_parquet"] = rec
+    pq_out["q4"] = out
     torch.cuda.empty_cache()
 
     cust = frames["customer"]
@@ -1479,7 +1599,7 @@ def main() -> int:
         "customer collect parquet",
         lambda: S.scan_table(paths["customer"]),
         lambda t, full: collect(S.customer_segment_batches(t), full),
-        pq_runs, rgs["customer"], 0)
+        runner_pq_runs, rgs["customer"], 0)
     want = cust[cust.c_mktsegment == "BUILDING"].reset_index(drop=True)
     require(list(out.columns) == list(want.columns)
             and len(out) == len(want), "customer collect: shape differs")
@@ -1490,7 +1610,67 @@ def main() -> int:
     rec.update(sf=sf_q1, rows=len(cust), max_rel_err=0.0,
                rows_out=len(out))
     queries["customer_parquet"] = rec
-    del frames, df, cust
+    pq_out["customer"] = out
+
+    # the same queries through the session from the files: decoded on the
+    # card, no scan cache, each table's row groups packed into partitions
+    # of a batch and concatenated by the coalesce above the scan
+    sess = session_of(q1_batch, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    ptables = {n: sess.read.parquet(p) for n, p in paths.items()}
+    out, rec = run_session_parquet(
+        "session Q1 parquet", T.q1(sess, ptables), pq_runs,
+        queries["q1_parquet"], sf_q1, len(df), rgs["lineitem"], 0)
+    rec["max_rel_err"] = max(check_q1(out, q1_want), same_by_key(
+        out, pq_out["q1"], ["l_returnflag", "l_linestatus"],
+        "session Q1 parquet against the runner"))
+    queries["session_q1_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session Q6 parquet", T.q6(sess, ptables), pq_runs,
+        queries["q6_parquet"], sf_q1, len(df), rgs["lineitem"], 0)
+    err = _rel_err([out.revenue[0]], [q6_want])
+    require(len(out) == 1 and err <= F64_RTOL,
+            f"session Q6 parquet differs: {err}")
+    rec["max_rel_err"] = max(err, same_by_key(
+        out, pq_out["q6"], ["revenue"], "session Q6 parquet against the "
+        "runner"))
+    queries["session_q6_parquet"] = rec
+    q3_df = T.q3(sess, ptables)
+    # the SF10 files are far above the threshold (--quick's may not be)
+    require(args.quick
+            or join_execs(sess, q3_df)["TpuShuffledHashJoinExec"] == 2,
+            "session Q3 parquet did not plan two shuffled joins")
+    out, rec = run_session_parquet(
+        "session Q3 parquet", q3_df, pq_runs, queries["q3_parquet"], sf_q1,
+        q3_rows, sum(rgs.values()), 2)
+    rec["max_rel_err"] = max(check_q3(out, q3_want),
+                             check_q3(out, pq_out["q3"]))
+    queries["session_q3_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session Q4 parquet", T.q4(sess, ptables), pq_runs,
+        queries["q4_parquet"], sf_q1, q4_rows,
+        rgs["lineitem"] + rgs["orders"], 0)
+    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
+            == list(pq_out["q4"].o_orderpriority)
+            and list(out.order_count) == list(q4_want.order_count)
+            == list(pq_out["q4"].order_count),
+            f"session Q4 parquet differs: {out} vs {q4_want}")
+    rec["max_rel_err"] = 0.0
+    queries["session_q4_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session customer collect parquet", T.customer_segment(sess, ptables),
+        pq_runs, queries["customer_parquet"], sf_q1, len(cust),
+        rgs["customer"], 0)
+    got = out.sort_values("c_custkey").reset_index(drop=True)
+    want = want.sort_values("c_custkey").reset_index(drop=True)
+    for c in want.columns:
+        require(list(got[c]) == list(want[c]),
+                f"session customer collect: {c} differs from pandas")
+    require(rec["launches"]["slab_pack"] > 0,
+            "session customer scan ran no B8")
+    rec.update(max_rel_err=0.0, rows_out=len(out))
+    queries["session_customer_parquet"] = rec
+    del sess, ptables, q3_df, frames, df, cust, pq_out
     torch.cuda.empty_cache()
 
     df = G.gen_lineitem(sf_q18)
@@ -1572,11 +1752,45 @@ def main() -> int:
         return (grouped.to_pandas(), having.to_pandas()) if full else having
     (grouped, having), rec = run_parquet_query(
         "Q18 group-by parquet",
-        lambda: S.scan_table(path18, Q.Q18_COLUMNS), q18_query, pq_runs,
+        lambda: S.scan_table(path18, Q.Q18_COLUMNS), q18_query,
+        runner_pq_runs,
         praw.file_metadata(path18).num_row_groups, 0)
     rec.update(sf=sf_q18, rows=len(df), max_rel_err=check_q18(grouped,
                                                               having))
     queries["q18_groupby_parquet"] = rec
+
+    # the Q18 group-by through the session from the file, decoded on the
+    # card; then with the session's device path off, where the CPU scan
+    # decodes the file with pyarrow on the host: the same rows
+    rg18 = praw.file_metadata(path18).num_row_groups
+    sess = session_of(q1_batch, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    what = "session Q18 group-by parquet"
+    out, rec = run_session_parquet(
+        what, T.q18_groupby(sess, {"lineitem": sess.read.parquet(path18)}),
+        pq_runs, queries["q18_groupby_parquet"], sf_q18, len(df), rg18, 0)
+    want_h_df = pd.DataFrame({"l_orderkey": want_h.index,
+                              "sum_qty": want_h.to_numpy()})
+    rec["max_rel_err"] = max(
+        same_by_key(out, having, ["l_orderkey"], what + " against the "
+                    "runner"),
+        same_by_key(out, want_h_df, ["l_orderkey"], what + " against "
+                    "pandas"))
+    queries["session_q18_groupby_parquet"] = rec
+    host = session_of(q1_batch, **{"spark.rapids.sql.enabled": False})
+    what = "session Q18 group-by parquet, host decode"
+    host_out, walls, launches = run_query(
+        what, T.q18_groupby(host, {"lineitem": host.read.parquet(path18)})
+        .collect, 1)
+    require(not any(launches.values()), f"{what}: launched a kernel")
+    queries["session_q18_groupby_parquet_host"] = {
+        "sf": sf_q18, "rows": len(df), "wall_s": walls[0],
+        "device_wall_s": rec["wall_s"], "launches": launches,
+        "max_rel_err": same_by_key(
+            host_out, want_h_df, ["l_orderkey"], what + " against pandas")}
+    same_by_key(host_out, out, ["l_orderkey"],
+                "session Q18 group-by parquet, host against device decode")
+    del sess, host
     del df
 
     launches_total = {k["name"]: 0 for k in kernels}
@@ -1586,10 +1800,19 @@ def main() -> int:
             launches_total[name] += n
             if qname.endswith("_parquet"):
                 parquet_launches[name] += n
+    session_launches = dict(parquet_launches)
+    for name in session_launches:
+        session_launches[name] = sum(
+            q["launches"][name] for qname, q in queries.items()
+            if qname.startswith("session_"))
     for name in ("hybrid_expand", "delta_unpack", "plain_fixed",
                  "slab_pack"):
         require(parquet_launches[name] > 0,
                 f"{name} never ran on the Parquet path")
+    for name, n in session_launches.items():
+        require(n > 0, f"{name} never ran through the session")
+    report["session_launches"] = session_launches
+    log(f"launches through the session: {session_launches}")
     for k in kernels:
         k["launches"] = launches_total[k["name"]]
         k["max_err"] = k["max_abs_err"]
@@ -1601,10 +1824,18 @@ def main() -> int:
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     for name, q in queries.items():
-        extra = (f"upload {q['upload_s']:.1f} s" if "upload_s" in q else
-                 f"scan {q['scan_s']:.3f} s, {q['row_groups']} row groups, "
-                 f"{q['encoded_bytes'] / 1e6:.1f} MB encoded -> "
-                 f"{q['decoded_bytes'] / 1e6:.1f} MB decoded")
+        if "upload_s" in q:
+            extra = f"upload {q['upload_s']:.1f} s"
+        elif "device_wall_s" in q:
+            extra = (f"host decode, decoded on the card "
+                     f"{q['device_wall_s']:.4f} s")
+        elif "cold_s" in q:
+            extra = (f"cold {q['cold_s']:.1f} s, {q['row_groups']} row "
+                     f"groups, runner {q['runner_wall_s']:.4f} s")
+        else:
+            extra = (f"scan {q['scan_s']:.3f} s, {q['row_groups']} row "
+                     f"groups, {q['encoded_bytes'] / 1e6:.1f} MB encoded "
+                     f"-> {q['decoded_bytes'] / 1e6:.1f} MB decoded")
         log(f"{name}: SF{q['sf']} {q['rows']} rows, {q['wall_s']:.4f} s, "
             f"{q['rows'] / q['wall_s']:.4g} rows/s, {extra}")
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -21,8 +21,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtype as dtypes
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceColumn, host_dict_encode_stateful, plain_strings_unsupported,
-    string_values_have_nul,
+    DeviceColumn, host_dict_encode_stateful, host_string_slab,
+    plain_strings_unsupported, string_values_have_nul,
 )
 from spark_rapids_tpu_torch.columnar.dtype import DType
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
@@ -121,16 +121,18 @@ class DeviceBatch:
     # --- conversion --------------------------------------------------------
     @staticmethod
     def from_pandas(df: pd.DataFrame, dict_state: Optional[dict] = None,
-                    dict_numerics: bool = True,
-                    device="cuda") -> "DeviceBatch":
+                    dict_numerics: bool = True, device="cuda",
+                    slab_stride: int = 0) -> "DeviceBatch":
         """Host -> device upload (reference: GpuRowToColumnarExec), padded
         to ``bucket_capacity(len(df))``.
 
         Each column is probed for low cardinality and gets a host
         dictionary, as in the JAX package: ``dict_state`` makes every batch
         of one scan share one dictionary; ``dict_numerics=False`` probes
-        only string columns. String columns must dictionary-encode in this
-        slice (plain strings raise NotImplementedError)."""
+        only string columns. A string column that does not
+        dictionary-encode uploads as a char slab when its longest value
+        fits ``slab_stride`` bytes; otherwise (and with ``slab_stride`` 0)
+        it raises NotImplementedError: plain strings are not ported."""
         device = torch.device(device)
         schema = Schema.from_pandas(df)
         n = len(df)
@@ -140,17 +142,32 @@ class DeviceBatch:
             values, validity = _pandas_to_numpy(df.iloc[:, i], dt)
             data, vpad = DeviceColumn.build_host_buffers(values, validity,
                                                          dt, cap)
-            enc = host_dict_encode_stateful(values, validity, dt, cap,
-                                            dict_state, i) \
-                if dict_numerics or dt.is_string else None
+            if dt.is_string and not validity[:n].any():
+                # an empty or all-null string column: an empty dictionary,
+                # every code the NULL sentinel; the registry stays open
+                enc = (np.zeros(cap, dtype=np.int32), ())
+            elif dict_numerics or dt.is_string:
+                enc = host_dict_encode_stateful(values, validity, dt, cap,
+                                                dict_state, i)
+            else:
+                enc = None
             if (enc is not None and dt.is_string
                     and string_values_have_nul(values, validity)):
                 enc = None
                 if dict_state is not None:
                     dict_state[i] = False  # close for the whole scan
             if enc is None and dt.is_string:
-                raise plain_strings_unsupported(
-                    f"upload of column {schema.names[i]!r}")
+                slab = (host_string_slab(values, vpad, cap, slab_stride)
+                        if slab_stride else None)
+                if slab is None:
+                    raise plain_strings_unsupported(
+                        f"upload of column {schema.names[i]!r}")
+                chars, lens = slab
+                cols.append(DeviceColumn(
+                    dt, None, torch.from_numpy(vpad).to(device),
+                    slab64=torch.from_numpy(chars.view(np.int64)).to(device),
+                    lens=torch.from_numpy(lens).to(device)))
+                continue
             codes, dvals = enc if enc is not None else (None, None)
             cols.append(DeviceColumn.from_host_buffers(dt, data, vpad, codes,
                                                        dvals, device))

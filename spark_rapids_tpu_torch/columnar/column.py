@@ -179,6 +179,31 @@ def slab_stride_for(max_len: int, max_stride: int) -> int:
     return stride if stride <= max_stride else 0
 
 
+def host_string_slab(values: np.ndarray, validity: np.ndarray,
+                     capacity: int, max_stride: int
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """A host string column (object values, None where null) as a char
+    slab, (uint64 (capacity, stride/8), lens int32 (capacity,)), or None
+    when its longest value exceeds ``max_stride`` bytes."""
+    import pyarrow as pa
+    arr = pa.array(values, type=pa.string(), from_pandas=True)
+    n = len(arr)
+    offs = (np.frombuffer(arr.buffers()[1], np.int32, count=n + 1,
+                          offset=arr.offset * 4) if n
+            else np.zeros(1, np.int32))
+    chars = (np.frombuffer(arr.buffers()[2], np.uint8)
+             if n and arr.buffers()[2] is not None else np.zeros(1, np.uint8))
+    lens = offs[1:] - offs[:-1]
+    stride = slab_stride_for(int(lens.max()) if n else 0, max_stride)
+    if not stride:
+        return None
+    padded = np.full(capacity + 1, offs[-1], np.int32)
+    padded[:n + 1] = offs
+    slab, slens = np_build_slab(chars, padded, capacity, stride)
+    slens[:n] = np.where(np.asarray(validity[:n], dtype=bool), slens[:n], 0)
+    return slab, slens
+
+
 def np_build_slab(chars: np.ndarray, offsets: np.ndarray, capacity: int,
                   stride: int) -> Tuple[np.ndarray, np.ndarray]:
     """Host-side packed -> fixed-stride slab conversion: (slab uint64

@@ -37,6 +37,15 @@ def _to_bool(s: str) -> bool:
     raise ValueError(f"not a boolean: {s!r}")
 
 
+def _to_bytes(s: str) -> int:
+    """Parse '1g', '512m', '16k' or raw integers into bytes."""
+    s = s.strip().lower()
+    mults = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40, "b": 1}
+    if s and s[-1] in mults:
+        return int(float(s[:-1]) * mults[s[-1]])
+    return int(s)
+
+
 def register(key: str, conv: Callable[[str], Any], default: Any,
              doc: str) -> ConfEntry:
     entry = ConfEntry(key, conv, default, doc)
@@ -90,6 +99,11 @@ AGG_HASH_MAX_SLOTS = register(
     "spark.rapids.sql.agg.hash.maxTableSlots", int, 1 << 17,
     "Slot-count bound of the hash-aggregation table; a batch sizing past "
     "it needs the out-of-core split, which the port has not yet.")
+BROADCAST_THRESHOLD = register(
+    "spark.rapids.sql.autoBroadcastJoinThreshold", _to_bytes, 10 << 20,
+    "Maximum estimated build-side size for which a join uses a broadcast "
+    "exchange instead of hash-partitioned exchanges "
+    "(spark.sql.autoBroadcastJoinThreshold equivalent). -1 disables.")
 
 
 class TpuConf:
@@ -147,6 +161,10 @@ class TpuConf:
     @property
     def shuffle_partitions(self) -> int:
         return self.get(SHUFFLE_PARTITIONS.key)
+
+    @property
+    def broadcast_threshold(self) -> int:
+        return self.get(BROADCAST_THRESHOLD.key)
 
     def is_operator_enabled(self, key: str) -> bool:
         """Per-operator enable check (spark.rapids.sql.exec.<Name>, on

@@ -2,12 +2,15 @@
 reference: GpuCoalesceBatches + CoalesceGoal, inserted by
 GpuTransitionOverrides).
 
-Fragmenting producers (filters, expands) emit batches below the target
-size; every downstream operator then pays its launches per fragment.
-``TpuCoalesceBatchesExec`` accumulates child batches to the
+Fragmenting producers (scans, filters, joins, expands) emit batches below
+the target size; every downstream operator then pays its launches per
+fragment. ``TpuCoalesceBatchesExec`` accumulates child batches to the
 ``spark.rapids.sql.batchSizeRows`` target and concatenates them in one
-device concat. The reference's ``RequireSingleBatch`` goal serves joins,
-which wait for a later slice.
+device concat; a lone batch passes through without a copy. A Parquet
+scan's row groups, packed into partitions of that many rows, become one
+batch a partition here. The reference's ``RequireSingleBatch`` goal is
+not ported: the JAX package's joins do not use it, and its sort and
+aggregate concatenate their input themselves.
 """
 
 from __future__ import annotations
@@ -78,8 +81,10 @@ class TpuCoalesceBatchesExec(PhysicalPlan):
 
 def is_fragmenting(plan: PhysicalPlan) -> bool:
     """Producers whose batches can be far below the target size."""
-    from spark_rapids_tpu_torch.exec import tpu
-    return isinstance(plan, (tpu.TpuFilterExec, tpu.TpuExpandExec))
+    from spark_rapids_tpu_torch.exec import tpu, tpujoin
+    return isinstance(plan, (tpu.TpuScanExec, tpu.TpuFilterExec,
+                             tpujoin.TpuShuffledHashJoinExec,
+                             tpu.TpuExpandExec))
 
 
 def insert_coalesce(plan: PhysicalPlan, conf) -> PhysicalPlan:

@@ -1,6 +1,6 @@
 """CPU physical operators, the session's fallback path and its oracle
-(counterpart of the JAX package's ``exec/cpu.py``; the joins, the
-broadcast exchange and the AQE stage materialization wait for later
+(counterpart of the JAX package's ``exec/cpu.py``; its cartesian and
+nested-loop joins and the AQE stage materialization wait for later
 slices).
 
 These play the role Spark's own row-based operators play for the
@@ -112,7 +112,8 @@ def _empty_df(schema: Schema) -> pd.DataFrame:
 
 
 class CpuScanExec(PhysicalPlan):
-    """Scan over an in-memory source (its partitions of pandas frames)."""
+    """Scan of a source's partitions of pandas frames (a Parquet file's
+    row groups read by pyarrow)."""
 
     def __init__(self, source, schema: Schema):
         super().__init__()
@@ -599,3 +600,157 @@ class CpuCollectLimitExec(PhysicalPlan):
                     remaining -= len(take)
                     yield take
         return [run]
+
+
+class CpuBroadcastExchangeExec(PhysicalPlan):
+    """Collects the child once and hands the frame to every consumer
+    partition (Spark's BroadcastExchangeExec)."""
+
+    def __init__(self, child: PhysicalPlan):
+        super().__init__([child])
+        self._cache: dict = {}
+
+    def output_schema(self) -> Schema:
+        return self.children[0].output_schema()
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        child = self.children[0]
+
+        def run():
+            if "df" not in self._cache:
+                parts = child.executed_partitions(ctx)
+                self._cache["df"] = _concat_parts(
+                    (df for p in parts for df in p()), child.output_schema())
+            yield self._cache["df"]
+        return [run]
+
+
+def _assemble_join(ldf: pd.DataFrame, rdf: pd.DataFrame, ls: Schema,
+                   rs: Schema, lrow: np.ndarray,
+                   rrow: np.ndarray) -> pd.DataFrame:
+    """Join output columns gathered from each side at the pair indices;
+    -1 marks a missing side (an outer join's nulls)."""
+    series = []
+    for df, schema, rows in ((ldf, ls, lrow), (rdf, rs, rrow)):
+        present = rows >= 0
+        safe = np.clip(rows, 0, max(len(df) - 1, 0))
+        for i, dt in enumerate(schema.dtypes):
+            vals, validity, _ = host_unary_values(df.iloc[:, i])
+            if len(df):
+                out_v = vals[safe]
+                out_m = validity[safe] & present
+            else:
+                out_v = np.empty(len(rows),
+                                 dtype=object if dt.is_string else dt.np_dtype)
+                out_m = np.zeros(len(rows), np.bool_)
+            if dt.is_string and (~out_m).any():
+                out_v = out_v.copy()
+                out_v[~out_m] = None
+            series.append(_numpy_to_pandas(out_v, out_m, dt)
+                          .reset_index(drop=True))
+    out = pd.concat(series, axis=1) if series else pd.DataFrame(
+        index=range(len(lrow)))
+    out.columns = list(ls.names) + list(rs.names)
+    return out
+
+
+class CpuJoinExec(PhysicalPlan):
+    """Equi-join over pandas merge with SQL null keys (a null key never
+    matches). join_type: inner, left, right, full, leftsemi, leftanti.
+    The merge gives only the (left row, right row) pairs; the output is
+    gathered from the original frames, so a missing side is a true null,
+    never the NaN a merge's upcast would make."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, left_keys: List[int], right_keys: List[int]):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+
+    def output_schema(self) -> Schema:
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        if self.join_type in ("leftsemi", "leftanti"):
+            return ls
+        return Schema(list(ls.names) + list(rs.names),
+                      list(ls.dtypes) + list(rs.dtypes))
+
+    def describe(self) -> str:
+        # the broadcast subclass describes itself so too, as the JAX
+        # package's does; the exchange below it shows the broadcast
+        return f"CpuJoinExec({self.join_type})"
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        left_parts = self.children[0].executed_partitions(ctx)
+        right_parts = self.children[1].executed_partitions(ctx)
+        # a one-partition broadcast side pairs with every partition of the
+        # other side
+        if len(left_parts) != len(right_parts):
+            if len(right_parts) == 1:
+                right_parts = right_parts * len(left_parts)
+            elif len(left_parts) == 1:
+                left_parts = left_parts * len(right_parts)
+            else:
+                raise AssertionError("join children must be co-partitioned "
+                                     "or one side broadcast")
+
+        def make(lp: Partition, rp: Partition) -> Partition:
+            def run():
+                ldf = _concat_parts(lp(), self.children[0].output_schema())
+                rdf = _concat_parts(rp(), self.children[1].output_schema())
+                yield self._join(ldf, rdf)
+            return run
+        return [make(lp, rp) for lp, rp in zip(left_parts, right_parts)]
+
+    def _join(self, ldf: pd.DataFrame, rdf: pd.DataFrame) -> pd.DataFrame:
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        nl, nr = len(ldf), len(rdf)
+        lkey_frame = pd.DataFrame(
+            {f"k{j}": ldf.iloc[:, i].reset_index(drop=True)
+             for j, i in enumerate(self.left_keys)})
+        rkey_frame = pd.DataFrame(
+            {f"k{j}": rdf.iloc[:, i].reset_index(drop=True)
+             for j, i in enumerate(self.right_keys)})
+        lvalid = np.ones(nl, np.bool_)
+        for c in range(lkey_frame.shape[1]):
+            lvalid &= host_unary_values(lkey_frame.iloc[:, c])[1]
+        rvalid = np.ones(nr, np.bool_)
+        for c in range(rkey_frame.shape[1]):
+            rvalid &= host_unary_values(rkey_frame.iloc[:, c])[1]
+        lkey_frame["_lrow"] = np.arange(nl, dtype=np.int64)
+        rkey_frame["_rrow"] = np.arange(nr, dtype=np.int64)
+        keys = [f"k{j}" for j in range(len(self.left_keys))]
+        lm = lkey_frame[lvalid]
+        rm = rkey_frame[rvalid]
+        jt = self.join_type
+        if jt in ("leftsemi", "leftanti"):
+            rk = rm[keys].drop_duplicates()
+            hit = lm.merge(rk, on=keys, how="inner")["_lrow"].to_numpy()
+            keep = np.full(nl, jt == "leftanti", np.bool_)
+            keep[hit] = jt == "leftsemi"
+            return ldf[keep].reset_index(drop=True)
+        how = {"inner": "inner", "left": "left", "right": "right",
+               "full": "outer"}[jt]
+        merged = lm.merge(rm, on=keys, how=how)
+        lrow = merged["_lrow"].to_numpy(dtype=np.float64, na_value=-1) \
+            .astype(np.int64)
+        rrow = merged["_rrow"].to_numpy(dtype=np.float64, na_value=-1) \
+            .astype(np.int64)
+        # null-keyed rows of a preserved side come back unmatched
+        if jt in ("left", "full") and (~lvalid).any():
+            extra = np.flatnonzero(~lvalid).astype(np.int64)
+            lrow = np.concatenate([lrow, extra])
+            rrow = np.concatenate([rrow, np.full(len(extra), -1, np.int64)])
+        if jt in ("right", "full") and (~rvalid).any():
+            extra = np.flatnonzero(~rvalid).astype(np.int64)
+            lrow = np.concatenate([lrow, np.full(len(extra), -1, np.int64)])
+            rrow = np.concatenate([rrow, extra])
+        return _assemble_join(ldf, rdf, ls, rs, lrow, rrow)
+
+
+class CpuBroadcastHashJoinExec(CpuJoinExec):
+    """Equi-join whose build side is a broadcast exchange. It runs as
+    CpuJoinExec; the class of its own carries its own rule and conf
+    key."""

@@ -1,13 +1,13 @@
 """Device columnar physical operators (counterpart of the JAX package's
-``exec/tpu.py``, for the session's upload path).
+``exec/tpu.py``; the joins are in ``exec/tpujoin.py``).
 
 Where the JAX package compiles each operator's per-batch work into one
 ``jax.jit`` program, each operator here runs its PyTorch ops and the
 port's kernels eagerly, one batch at a time, without a host sync: row
-counts stay on the device. Ported: Scan (in-memory uploads), Project,
-Filter, HashAggregate (partial and final, with the runtime partial skip),
-Sort, the three limits, CoalescePartitions, Union, Range, Expand, and the
-shuffle exchange's one-device collapse.
+counts stay on the device. Ported: Scan (in-memory uploads and Parquet
+files), Project, Filter, HashAggregate (partial and final, with the
+runtime partial skip), Sort, the three limits, CoalescePartitions, Union,
+Range, Expand, and the shuffle exchange's one-device collapse.
 
 Not ported, and why nothing here needs them yet:
   * the fused filter masks, fused selections and whole-stage programs of
@@ -23,7 +23,7 @@ Not ported, and why nothing here needs them yet:
     batch raises NotImplementedError;
   * the exchange's capacity shrink (a counted sync), its speculation, and
     the multi-device routes (ROADMAP A.9): on one device a hash or range
-    exchange is one concat of the child's batches, with no sync.
+    exchange is one partition of the child's batches, with no sync.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from spark_rapids_tpu_torch.exec.base import (
 )
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import aggregate as agg_ops
-from spark_rapids_tpu_torch.ops import kernels, rowops, sortops
+from spark_rapids_tpu_torch.ops import rowops, sortops
 from spark_rapids_tpu_torch.sql.exprs.core import Alias, BoundRef, Expression
 from spark_rapids_tpu_torch.sql.exprs.evalbridge import (
     eval_projection, make_context, to_device_column,
@@ -204,30 +204,17 @@ class TpuHashAggregateExec(TpuExec):
                         + self.plan.results)
 
     # -- per-batch steps -----------------------------------------------------
-    def _check_table(self, batch: DeviceBatch, max_slots: int) -> None:
-        T = kernels.hash_table_size(batch.capacity)
-        if T > max_slots:
-            raise NotImplementedError(
-                f"a {batch.capacity}-row batch needs {T} hash slots, more "
-                f"than spark.rapids.sql.agg.hash.maxTableSlots={max_slots}: "
-                "the out-of-core split (exec/outofcore.split_batch_by_hash) "
-                "is not ported yet")
-
     def _update(self, batch: DeviceBatch, hash_table) -> DeviceBatch:
         p = self.plan
-        if hash_table is not None:
-            self._check_table(batch, hash_table)
         return agg_ops.aggregate_update(
             batch, [e for _, e in p.grouping], p.update_inputs,
             p.update_reductions, p.partial_schema, hash_table=hash_table)
 
     def _merge(self, batch: DeviceBatch, hash_table) -> DeviceBatch:
         p = self.plan
-        if hash_table is not None:
-            self._check_table(batch, hash_table)
-        return agg_ops.aggregate_merge(batch, p.num_keys, p.merge_reductions,
-                                       p.partial_schema,
-                                       hash_table=hash_table)
+        return agg_ops.aggregate_merge(
+            batch, p.num_keys, p.merge_reductions, p.partial_schema,
+            hash_table=hash_table)
 
     def _passthrough(self, batch: DeviceBatch) -> DeviceBatch:
         p = self.plan
@@ -533,10 +520,17 @@ class TpuExpandExec(TpuExec):
 
 
 class TpuScanExec(TpuExec):
-    """Columnar scan of an in-memory source: each partition's frame
-    uploaded in ``batchSizeRows`` chunks (``exec/transitions.upload_frames``),
-    every batch of the scan sharing one dictionary per column; with
-    ``cacheDeviceScans`` a later execution replays the uploaded batches."""
+    """Columnar scan. An in-memory source's partitions are uploaded in
+    ``batchSizeRows`` chunks (``exec/transitions.upload_frames``). A
+    Parquet source's row groups are packed into partitions of at most
+    ``batchSizeRows`` rows (``transitions.pack_splits``); each row group
+    is decoded on the device (``upload_partition``, kernels B5-B8), a
+    column the kernels do not decode by pyarrow on the host
+    (``scan.device.fallbackColumns``; the JAX package's
+    ``spark.rapids.sql.scan.deviceDecode``, off there by default, is not
+    an option of the port). Every batch of a scan shares one dictionary
+    registry; with ``cacheDeviceScans`` a later execution replays the
+    device batches."""
 
     def __init__(self, source, schema: Schema):
         super().__init__()
@@ -554,31 +548,45 @@ class TpuScanExec(TpuExec):
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec.transitions import (
-            scan_cache_for, upload_frames,
+            chain_partitions, pack_splits, scan_cache_for,
+            upload_blocked_chars, upload_frames, upload_partition,
         )
         max_rows = ctx.conf.batch_size_rows
         cache = scan_cache_for(ctx, self.source, self._schema, max_rows)
         dict_state: dict = {}
+        raw_parts = self.source.raw_partitions(upload_blocked_chars())
+        parts = (raw_parts if raw_parts is not None
+                 else self.source.cpu_partitions())
+        split_rows = self.source.split_rows()
+        if split_rows is not None:
+            parts = chain_partitions(parts, pack_splits(split_rows, max_rows))
+
+        def upload(part: Partition) -> Iterator[DeviceBatch]:
+            if raw_parts is not None:
+                return upload_partition(part, self._schema, dict_state,
+                                        ctx.device)
+            return upload_frames(part, max_rows, dict_state, ctx.device)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
                 if cache is not None and i in cache:
                     return iter(cache[i])
-                batches = upload_frames(part, max_rows, dict_state,
-                                        ctx.device)
                 if cache is None:
-                    return batches
-                cache[i] = list(batches)
+                    return upload(part)
+                cache[i] = list(upload(part))
                 return iter(cache[i])
             return run
-        return [make(i, p) for i, p in enumerate(self.source.cpu_partitions())]
+        return [make(i, p) for i, p in enumerate(parts)]
 
 
 class TpuShuffleExchangeExec(TpuExec):
     """reference: GpuShuffleExchangeExec, on one device: a hash, range or
-    single exchange collapses its child's batches into one partition with
-    one concat (``rowops.concat_batches``), making no host sync. The
-    round-robin exchange is not converted (it stays on the CPU)."""
+    single exchange collapses its child's partitions into one, passing the
+    batches on as they are (no copy, no host sync); its consumers, the
+    final aggregate, the sort, the join's build side, concatenate what
+    they need whole. A join's stream side thus keeps its batches, each
+    probed on its own, as the query runners probe them. The round-robin
+    exchange is not converted (it stays on the CPU)."""
 
     def __init__(self, child: PhysicalPlan, partitioning):
         super().__init__([child])
@@ -598,6 +606,11 @@ class TpuShuffleExchangeExec(TpuExec):
         schema = self.output_schema()
 
         def collapse() -> Iterator[DeviceBatch]:
-            yield concat_device([b for p in child_parts for b in p()],
-                                schema, ctx.conf.capacity_growth, ctx.device)
+            got = False
+            for p in child_parts:
+                for b in p():
+                    got = True
+                    yield b
+            if not got:
+                yield empty_batch(schema, ctx.device)
         return [collapse]

@@ -9,9 +9,16 @@
     host arrives as a pandas frame and takes the same upload, every column
     as a host-decoded one.
   * ``upload_frames`` turns a partition of pandas frames (an in-memory
-    source, or a CPU operator's output) into DeviceBatches of at most
-    ``batchSizeRows`` rows, every column probed for a dictionary
-    (``DeviceBatch.from_pandas``), inside one counted sync a batch.
+    source or a CPU operator's output) into
+    DeviceBatches of at most ``batchSizeRows`` rows, every column probed
+    for a dictionary (``DeviceBatch.from_pandas``; a string column that
+    does not encode becomes a char slab of at most ``MAX_SLAB_STRIDE``
+    bytes a row), inside one counted sync a batch.
+  * ``pack_splits`` groups a Parquet scan's row groups, in file order,
+    into partitions of at most ``batchSizeRows`` rows, so the coalesce
+    above the scan concatenates them into batches of that size (the JAX
+    package's scan keeps one row group a partition, where its coalesce
+    cannot merge them).
   * ``HostToDeviceExec`` and ``DeviceToHostExec`` are the transition
     operators the overrides insert at every CPU/device boundary;
     ``scan_cache_for`` is the session's device scan cache
@@ -23,7 +30,8 @@ double-buffered upload are not ported (ROADMAP A.8).
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional
+import itertools
+from typing import Iterator, List, Optional, Sequence
 
 import pandas as pd
 
@@ -63,7 +71,35 @@ def upload_partition(part: Partition, schema: Schema,
     for split in part():
         raw = split if getattr(split, "is_raw_rowgroup", False) \
             else _as_rowgroup(split, schema)
-        yield decode_rowgroup(raw, schema, dict_state, device)
+        batch = decode_rowgroup(raw, schema, dict_state, device)
+        batch.host_rows = raw.n
+        yield batch
+
+
+def pack_splits(split_rows: Sequence[int], max_rows: int
+                ) -> List[List[int]]:
+    """Contiguous groups of split indices, each of at most ``max_rows``
+    rows (a split larger than that alone)."""
+    groups: List[List[int]] = []
+    rows = 0
+    for i, n in enumerate(split_rows):
+        if groups and rows + n <= max_rows:
+            groups[-1].append(i)
+            rows += n
+        else:
+            groups.append([i])
+            rows = n
+    return groups
+
+
+def chain_partitions(parts: Sequence[Partition],
+                     groups: Sequence[Sequence[int]]) -> List[Partition]:
+    """One partition per group: its parts' outputs in order."""
+    def make(group: Sequence[int]) -> Partition:
+        def run():
+            return itertools.chain.from_iterable(parts[i]() for i in group)
+        return run
+    return [make(g) for g in groups]
 
 
 def scan_cache_for(ctx: ExecContext, source, schema: Schema,
@@ -94,8 +130,9 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
             chunk = df if len(df) <= max_rows else \
                 df.iloc[lo:lo + max_rows].reset_index(drop=True)
             with sync_scope("scan.upload"):
-                batch = DeviceBatch.from_pandas(chunk, dict_state,
-                                                device=device)
+                batch = DeviceBatch.from_pandas(
+                    chunk, dict_state, device=device,
+                    slab_stride=upload_blocked_chars())
             yield batch
 
 

@@ -1,11 +1,13 @@
 """TPC-H queries over the port's DataFrame API (counterpart of the JAX
-package's ``models/tpch.py``: Q1, Q6 and the first stage of Q18).
+package's ``models/tpch.py``: Q1, Q3, Q4, Q6 and the first stage of Q18).
 
 Each query is a function (session, tables) -> DataFrame, ``tables`` a map
 of table name -> DataFrame (``session.create_dataframe`` of the frames of
-``models/tpch_data.py``). The Q18 group-by runs on the hash-aggregation
-branch: it needs ``HASH_AGG_CONFS`` (the port has neither the sorted-payload
-branch nor the dense-key branch the JAX package's defaults take).
+``models/tpch_data.py``, or ``session.read.parquet`` of the files of
+``tpch_data.write_parquet``). The Q18 group-by and Q3's three-key
+group-by run on the hash-aggregation branch: they need ``HASH_AGG_CONFS``
+(the port has neither the sorted-payload branch nor the dense-key branch
+the JAX package's defaults take).
 """
 
 from __future__ import annotations
@@ -40,6 +42,37 @@ def q1(s, t):
             .order_by("l_returnflag", "l_linestatus"))
 
 
+def _revenue():
+    return F.col("l_extendedprice") * (1 - F.col("l_discount"))
+
+
+def q3(s, t):
+    """Shipping-priority top unshipped orders."""
+    cutoff = datetime.date(1995, 3, 15)
+    cust = t["customer"].filter(F.col("c_mktsegment") == "BUILDING")
+    orders = t["orders"].filter(F.col("o_orderdate") < cutoff)
+    li = t["lineitem"].filter(F.col("l_shipdate") > cutoff)
+    return (cust.join(orders, left_on=["c_custkey"], right_on=["o_custkey"])
+            .join(li, left_on=["o_orderkey"], right_on=["l_orderkey"])
+            .group_by("l_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum(_revenue()).alias("revenue"))
+            .order_by(F.col("revenue").desc(), "o_orderdate")
+            .limit(10))
+
+
+def q4(s, t):
+    """Order-priority checking: orders with a late lineitem."""
+    late = t["lineitem"].filter(F.col("l_commitdate") < F.col("l_receiptdate"))
+    orders = t["orders"].filter(
+        (F.col("o_orderdate") >= datetime.date(1993, 7, 1))
+        & (F.col("o_orderdate") < datetime.date(1993, 10, 1)))
+    return (orders.join(late, left_on=["o_orderkey"], right_on=["l_orderkey"],
+                        how="leftsemi")
+            .group_by("o_orderpriority")
+            .agg(F.count("*").alias("order_count"))
+            .order_by("o_orderpriority"))
+
+
 def q6(s, t):
     """Forecasting revenue change."""
     li = t["lineitem"]
@@ -60,4 +93,11 @@ def q18_groupby(s, t):
             .filter(F.col("sum_qty") > 300))
 
 
-QUERIES = {"q1": q1, "q6": q6, "q18_groupby": q18_groupby}
+def customer_segment(s, t, segment: str = "BUILDING"):
+    """Every customer column of one market segment (a filter and collect
+    of all six columns, the string columns included)."""
+    return t["customer"].filter(F.col("c_mktsegment") == segment)
+
+
+QUERIES = {"q1": q1, "q3": q3, "q4": q4, "q6": q6,
+           "q18_groupby": q18_groupby}

@@ -150,10 +150,15 @@ def _grouped_reduce(batch: DeviceBatch, key_idx: List[int],
         return _dict_reduce(batch, key_idx, reductions, out_schema,
                             dict_info)
     if hash_table is not None:
-        res = _hash_payload_reduce(batch, key_idx, reductions, out_schema,
-                                   hash_table)
-        if res is not None:
-            return res
+        from spark_rapids_tpu_torch.ops.kernels import hash_table_size
+        T = hash_table_size(batch.capacity)
+        if T > hash_table:
+            raise NotImplementedError(
+                f"a {batch.capacity}-row batch needs {T} hash slots, more "
+                f"than spark.rapids.sql.agg.hash.maxTableSlots={hash_table}"
+                ": the out-of-core split (exec/outofcore.split_batch_by_hash)"
+                " is not ported yet")
+        return _hash_payload_reduce(batch, key_idx, reductions, out_schema)
     raise NotImplementedError(
         "aggregate branches _sorted_payload_reduce/_rowspace_reduce "
         "(keys that are not all dictionary-encoded, without a hash table) "
@@ -166,13 +171,12 @@ def _arange(n: int, dev) -> torch.Tensor:
 
 def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
                          reductions: List[Tuple[str, int, DType]],
-                         out_schema: Schema, max_slots: int):
+                         out_schema: Schema) -> DeviceBatch:
     """One-pass hash aggregation over the open-addressing slot table
     (kernels.hash_grouped_aggregate): every row probes to its key's slot and
-    folds its values into per-slot accumulators in the same pass. Returns
-    None (the caller falls through) when the table would exceed
-    ``max_slots``. Null keys form real groups: the null image is a
-    canonical sentinel and the per-key validity bits join the key images."""
+    folds its values into per-slot accumulators in the same pass. Null keys
+    form real groups: the null image is a canonical sentinel and the
+    per-key validity bits join the key images."""
     from spark_rapids_tpu_torch.ops import kernels
     from spark_rapids_tpu_torch.ops.rowops import gather_columns
     from spark_rapids_tpu_torch.ops.sortops import u64_key_image
@@ -180,8 +184,6 @@ def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
     capacity = batch.capacity
     dev = batch.device
     T = kernels.hash_table_size(capacity)
-    if T > max_slots:
-        return None
     live = batch.row_mask()
     pos = _arange(capacity, dev)
 

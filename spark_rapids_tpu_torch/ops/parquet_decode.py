@@ -40,7 +40,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.columnar.column import (
     DICT_MAX_CARD, DeviceColumn, host_to_device, np_build_slab,
-    slab_stride_for,
+    host_string_slab, slab_stride_for,
 )
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
@@ -766,20 +766,7 @@ def _fallback_arrays(df, name: str, dt, cap: int) -> Dict[str, np.ndarray]:
     data, vpad = DeviceColumn.build_host_buffers(values, validity, dt, cap)
     if not dt.is_string:
         return {"data": data, "validity": vpad}
-    import pyarrow as pa
-    arr = pa.array(values, type=pa.string(), from_pandas=True)
-    n = len(arr)
-    offs = np.frombuffer(arr.buffers()[1], np.int32, count=n + 1,
-                         offset=arr.offset * 4) if n else np.zeros(1,
-                                                                   np.int32)
-    chars = (np.frombuffer(arr.buffers()[2], np.uint8) if n and
-             arr.buffers()[2] is not None else np.zeros(1, np.uint8))
-    lens = offs[1:] - offs[:-1]
-    stride = slab_stride_for(int(lens.max()) if n else 0, 1 << 30)
-    padded = np.full(cap + 1, offs[-1], np.int32)
-    padded[:n + 1] = offs
-    slab, slens = np_build_slab(chars, padded, cap, stride)
-    slens[:n] = np.where(vpad[:n], slens[:n], 0)
+    slab, slens = host_string_slab(values, vpad, cap, 1 << 30)
     return {"validity": vpad, "slab": slab, "slens": slens}
 
 

@@ -14,14 +14,18 @@ plan (``sql/planner.py``), tags and converts it to device operators
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``, as the tests do): the device path then runs
 the kernels' plain versions. ``spark.rapids.sql.enabled=false`` runs the
-CPU operators on pandas instead.
+CPU operators on pandas instead. Files come in through ``s.read.parquet``
+(decoded on the device, kernels B5-B8; by pyarrow on the host where
+``spark.rapids.sql.enabled=false``); ``DataFrame.join`` plans an equi-join,
+broadcast under ``spark.rapids.sql.autoBroadcastJoinThreshold``.
 
 Left out of the JAX package's session, each a later ROADMAP item: the
 device manager, semaphore, spill catalog and OOM handling (A.8); the mesh,
 shuffle environments and encoded-page cache (A.7, A.9); AQE and the
 speculation verification (A.10); tracing, the event journal, metrics
 snapshots, the compile cache and prewarm, and the serving caches (A.11);
-``DataFrameReader`` and joins (A.2).
+the CSV and ORC readers (A.7); cross, condition and full-outer USING joins
+(A.4, A.6).
 """
 
 from __future__ import annotations
@@ -37,8 +41,14 @@ from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
 from spark_rapids_tpu_torch.sql import plan as lp
 from spark_rapids_tpu_torch.sql.exprs.core import Alias, Col, Expression
 from spark_rapids_tpu_torch.sql.functions import Column, SortOrder, _c, _expr
+from spark_rapids_tpu_torch.sql.functions import col as col_fn
 from spark_rapids_tpu_torch.sql.planner import Planner
-from spark_rapids_tpu_torch.sql.sources import InMemorySource
+from spark_rapids_tpu_torch.sql.sources import InMemorySource, ParquetSource
+
+# join type aliases of DataFrame.join
+_JOIN_ALIASES = {"outer": "full", "full_outer": "full", "left_outer": "left",
+                 "right_outer": "right", "semi": "leftsemi",
+                 "anti": "leftanti"}
 
 
 class TpuSparkSession:
@@ -92,6 +102,10 @@ class TpuSparkSession:
         return DataFrame(self, lp.LogicalRange(start, end, step,
                                                num_partitions))
 
+    @property
+    def read(self) -> "DataFrameReader":
+        return DataFrameReader(self)
+
     # --- execution ---------------------------------------------------------
     def physical_plan(self, logical: lp.LogicalPlan):
         """logical -> pruned -> CPU physical -> device rewrite."""
@@ -110,10 +124,11 @@ class TpuSparkSession:
         else:
             plan = planner.plan(logical)
         if conf.sql_enabled:
-            plan = TpuOverrides(conf).apply(plan)
-            plan = TransitionOverrides(conf).apply(plan)
+            overrides = TpuOverrides(conf)
+            plan = TransitionOverrides(conf).apply(overrides.apply(plan))
             if conf.test_enabled:
-                assert_is_on_tpu(plan, conf)
+                assert_is_on_tpu(plan, conf,
+                                 overrides.explain_text("NOT_ON_TPU"))
         return plan
 
     def _execute(self, logical: lp.LogicalPlan, collect: bool = True):
@@ -129,6 +144,18 @@ class TpuSparkSession:
         if plan.columnar_output and collect:
             return [b.to_pandas() for b in outs]
         return outs
+
+
+class DataFrameReader:
+    """``session.read``: file sources (Parquet; CSV and ORC are ROADMAP
+    A.7)."""
+
+    def __init__(self, session: TpuSparkSession):
+        self.session = session
+
+    def parquet(self, *paths: str) -> "DataFrame":
+        return DataFrame(self.session,
+                         lp.LogicalScan(ParquetSource(list(paths))))
 
 
 class GroupedData:
@@ -204,6 +231,74 @@ class DataFrame:
     def union(self, other: "DataFrame") -> "DataFrame":
         return DataFrame(self.session,
                          lp.LogicalUnion([self._plan, other._plan]))
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             left_on=None, right_on=None) -> "DataFrame":
+        """Equi-join. ``on`` names columns present on both sides (Spark's
+        USING join: one output column per key); ``left_on``/``right_on``
+        pair differently named keys by position (the TPC-H shape:
+        l_orderkey = o_orderkey). ``how``: inner, left, right, full,
+        leftsemi, leftanti, or their aliases."""
+        how = _JOIN_ALIASES.get(how, how)
+
+        def keyify(spec):
+            if isinstance(spec, str):
+                spec = [spec]
+            return [col_fn(c).expr if isinstance(c, str) else _expr(c)
+                    for c in spec]
+        if how == "cross" or (on is None and left_on is None
+                              and right_on is None):
+            raise NotImplementedError(
+                "cross joins are not ported yet (ROADMAP A.4)")
+        if isinstance(on, Column):
+            raise NotImplementedError(
+                "condition joins (the broadcast nested-loop join) are not "
+                "ported yet (ROADMAP A.4)")
+        if left_on is not None or right_on is not None:
+            if left_on is None or right_on is None:
+                raise ValueError("join: left_on and right_on go together")
+            lkeys, rkeys = keyify(left_on), keyify(right_on)
+            if len(lkeys) != len(rkeys):
+                raise ValueError("join: left_on/right_on length mismatch")
+        elif isinstance(on, (str, list, tuple)):
+            names = [on] if isinstance(on, str) else list(on)
+            if how not in ("leftsemi", "leftanti"):
+                return self._join_using(other, names, how)
+            lkeys, rkeys = keyify(names), keyify(names)
+        else:
+            raise TypeError("join on must be a column name or a list of "
+                            "names")
+        return DataFrame(self.session, lp.LogicalJoin(
+            self._plan, other._plan, how, lkeys, rkeys))
+
+    def _join_using(self, other: "DataFrame", names, how: str
+                    ) -> "DataFrame":
+        """join(on=[k]) keeps ONE output column per key: the right side's
+        keys are renamed, the join is positional, then one key column is
+        re-emitted (the left value; the right one for a right join), as
+        Spark resolves USING. A full USING join needs Coalesce."""
+        if how == "full":
+            raise NotImplementedError(
+                "a full outer USING join needs the Coalesce expression, "
+                "which is not ported yet (ROADMAP A.6)")
+        shared = (set(self.schema.names) & set(other.schema.names)) \
+            - set(names)
+        if shared:
+            raise ValueError(
+                "join(on=...) with non-key columns present on both sides is "
+                f"ambiguous: {sorted(shared)}; alias or drop them first")
+        rmap = {n: f"__rk_{n}" for n in names}
+        right = other.select(*[
+            col_fn(n).alias(rmap[n]) if n in rmap else col_fn(n)
+            for n in other.schema.names])
+        joined = DataFrame(self.session, lp.LogicalJoin(
+            self._plan, right._plan, how, [col_fn(n).expr for n in names],
+            [col_fn(rmap[n]).expr for n in names]))
+        out = [col_fn(rmap[n]).alias(n) if how == "right" else col_fn(n)
+               for n in names]
+        out += [col_fn(n) for n in self.schema.names if n not in names]
+        out += [col_fn(n) for n in other.schema.names if n not in names]
+        return joined.select(*out)
 
     def repartition(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.LogicalRepartition(self._plan, n))

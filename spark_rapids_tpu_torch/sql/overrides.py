@@ -13,9 +13,10 @@ slice ports).
   5. ``explain_text()`` renders the tag tree: ``*`` on the device, ``!``
      off it with the reason.
 
-Per-operator enable keys are ``spark.rapids.sql.exec.<Name>``. The joins,
-window, generate and write rules wait for later slices, as does the
-reference's join-hash consistency fixup, which only joins need.
+Per-operator enable keys are ``spark.rapids.sql.exec.<Name>``. After
+tagging, the join-hash consistency fixup keeps a shuffled join and the
+exchanges feeding it on the same side. The cartesian, nested-loop join,
+window, generate and write rules wait for later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch.config.conf import TpuConf
-from spark_rapids_tpu_torch.exec import cpu, tpu
+from spark_rapids_tpu_torch.exec import cpu, tpu, tpujoin
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.exec.coalesce import insert_coalesce
 from spark_rapids_tpu_torch.exec.transitions import (
@@ -32,7 +33,6 @@ from spark_rapids_tpu_torch.exec.transitions import (
 from spark_rapids_tpu_torch.sql.exprs.core import (
     Expression, first_unsupported, walk,
 )
-from spark_rapids_tpu_torch.sql.sources import InMemorySource
 
 
 class ExecRule:
@@ -177,11 +177,19 @@ def _tag_exchange(meta: ExecMeta) -> None:
             "exchange, not ported yet")
 
 
-def _tag_scan(meta: ExecMeta) -> None:
-    src = meta.plan.source
-    if not isinstance(src, InMemorySource):
-        meta.will_not_work(f"source {src.describe()} has no device scan "
-                           "in the session yet")
+def _tag_join(meta: ExecMeta) -> None:
+    plan = meta.plan
+    if plan.join_type not in tpujoin.SUPPORTED_JOIN_TYPES:
+        meta.will_not_work(f"join type {plan.join_type!r} not supported "
+                           "on the device")
+    for side, keys in ((0, plan.left_keys), (1, plan.right_keys)):
+        schema = plan.children[side].output_schema()
+        for k in keys:
+            if schema.dtypes[k].is_string:
+                meta.will_not_work(
+                    f"string join key {schema.names[k]}: the hash probe "
+                    "takes numeric keys; string keys need the "
+                    "union-lexsort probe (ROADMAP A.4)")
 
 
 def _tag_expand(meta: ExecMeta) -> None:
@@ -210,7 +218,7 @@ _register(ExecRule(cpu.CpuShuffleExchangeExec, "columnar shuffle exchange",
                    _tag_exchange,
                    lambda m, ch: tpu.TpuShuffleExchangeExec(
                        ch[0], m.plan.partitioning)))
-_register(ExecRule(cpu.CpuScanExec, "columnar scan", _tag_scan,
+_register(ExecRule(cpu.CpuScanExec, "columnar scan", _tag_nothing,
                    lambda m, ch: tpu.TpuScanExec(m.plan.source,
                                                  m.plan.output_schema())))
 _register(ExecRule(cpu.CpuExpandExec, "expand", _tag_expand,
@@ -230,10 +238,47 @@ _register(ExecRule(cpu.CpuCoalescePartitionsExec, "partition coalesce",
                                                                m.plan.n)))
 _register(ExecRule(cpu.CpuUnionExec, "columnar union", _tag_nothing,
                    lambda m, ch: tpu.TpuUnionExec(ch)))
+_register(ExecRule(cpu.CpuJoinExec, "shuffled hash join", _tag_join,
+                   lambda m, ch: tpujoin.TpuShuffledHashJoinExec(
+                       ch[0], ch[1], m.plan.join_type, m.plan.left_keys,
+                       m.plan.right_keys)))
+_register(ExecRule(cpu.CpuBroadcastHashJoinExec, "broadcast hash join",
+                   _tag_join,
+                   lambda m, ch: tpujoin.TpuBroadcastHashJoinExec(
+                       ch[0], ch[1], m.plan.join_type, m.plan.left_keys,
+                       m.plan.right_keys)))
+_register(ExecRule(cpu.CpuBroadcastExchangeExec, "broadcast exchange",
+                   _tag_nothing,
+                   lambda m, ch: tpujoin.TpuBroadcastExchangeExec(ch[0])))
 _register(ExecRule(cpu.CpuRangeExec, "device range source", _tag_nothing,
                    lambda m, ch: tpu.TpuRangeExec(
                        m.plan.start, m.plan.end, m.plan.step,
                        m.plan.num_partitions, m.plan.col_name)))
+
+
+def _fixup_join_hash_consistency(meta: ExecMeta) -> None:
+    """A shuffled join and the exchanges feeding it must agree on the
+    partitioning: a join left on the CPU takes its exchanges along (it
+    would read device-partitioned rows), and an exchange left on the CPU
+    takes its join along."""
+    for c in meta.children:
+        _fixup_join_hash_consistency(c)
+    if type(meta.plan) is not cpu.CpuJoinExec:  # broadcasts are exempt
+        return
+    exchanges = [c for c in meta.children
+                 if isinstance(c.plan, cpu.CpuShuffleExchangeExec)]
+    if not exchanges:
+        return
+    if meta.can_run_on_tpu and any(not c.can_run_on_tpu for c in exchanges):
+        meta.will_not_work(
+            "an input exchange stays on CPU, so the join must use the "
+            "CPU partitioning hash for consistency")
+    if not meta.can_run_on_tpu:
+        for c in exchanges:
+            if c.can_run_on_tpu:
+                c.will_not_work(
+                    "the shuffled join it feeds stays on CPU, so the "
+                    "partitioning hash must stay on CPU for consistency")
 
 
 def _fixup_exchange_overhead(meta: ExecMeta) -> None:
@@ -268,6 +313,7 @@ class TpuOverrides:
     def apply(self, plan: PhysicalPlan) -> PhysicalPlan:
         self.root_meta = self.wrap(plan)
         self.root_meta.tag()
+        _fixup_join_hash_consistency(self.root_meta)
         _fixup_exchange_overhead(self.root_meta)
         if self.conf.explain in ("ALL", "NOT_ON_TPU"):
             print(self.explain_text(self.conf.explain))
@@ -307,9 +353,13 @@ class TransitionOverrides:
         return out
 
 
-def assert_is_on_tpu(plan: PhysicalPlan, conf: TpuConf) -> None:
+def assert_is_on_tpu(plan: PhysicalPlan, conf: TpuConf,
+                     reasons: str = "") -> None:
     """Test mode (spark.rapids.sql.test.enabled): fail the query if an
-    operator outside the allowed list stayed on the CPU."""
+    operator outside the allowed list stayed on the CPU (every device
+    operator, the joins and the broadcast exchange included, has columnar
+    output). ``reasons``: the tag tree's fallback lines, for the
+    message."""
     allowed = set(conf.test_allowed_nontpu) | {"HostToDeviceExec",
                                                "DeviceToHostExec"}
     offenders = sorted({node.name for node in plan.walk()
@@ -318,4 +368,5 @@ def assert_is_on_tpu(plan: PhysicalPlan, conf: TpuConf) -> None:
     if offenders:
         raise AssertionError(
             f"operators did not run on the TPU: {offenders} "
-            "(spark.rapids.sql.test.enabled=true)")
+            "(spark.rapids.sql.test.enabled=true)"
+            + (f"\n{reasons}" if reasons else ""))

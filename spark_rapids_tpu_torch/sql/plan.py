@@ -1,7 +1,7 @@
 """Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
 holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
-Sort, Limit, Repartition, Coalesce, Union and Expand; joins, windows,
-generators and writes wait for later slices).
+Sort, Limit, Repartition, Coalesce, Union, Expand and the equi-join;
+condition joins, windows, generators and writes wait for later slices).
 
 The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
 these nodes only carry what the planner needs.
@@ -9,7 +9,7 @@ these nodes only carry what the planner needs.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar import dtype as dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema
@@ -28,6 +28,13 @@ class LogicalPlan:
     def name(self) -> str:
         return type(self).__name__
 
+    def estimated_size_bytes(self) -> Optional[int]:
+        """Broadcast-join size hint: a one-child operator passes its
+        child's estimate through, anything else is unknown (None)."""
+        if len(self.children) == 1:
+            return self.children[0].estimated_size_bytes()
+        return None
+
     def walk(self):
         yield self
         for c in self.children:
@@ -41,6 +48,9 @@ class LogicalScan(LogicalPlan):
 
     def schema(self) -> Schema:
         return self.source.schema
+
+    def estimated_size_bytes(self) -> Optional[int]:
+        return self.source.estimated_size_bytes()
 
 
 class LogicalRange(LogicalPlan):
@@ -151,3 +161,24 @@ class LogicalExpand(LogicalPlan):
         first = self.projections[0]
         return Schema([n for n, _ in first],
                       [e.dtype(cs) for _, e in first])
+
+
+class LogicalJoin(LogicalPlan):
+    """Equi-join of two plans on paired key expressions; semi and anti
+    joins output the left side only."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan, join_type: str,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression]):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+
+    def schema(self) -> Schema:
+        ls = self.children[0].schema()
+        rs = self.children[1].schema()
+        if self.join_type in ("leftsemi", "leftanti"):
+            return ls
+        return Schema(list(ls.names) + list(rs.names),
+                      list(ls.dtypes) + list(rs.dtypes))

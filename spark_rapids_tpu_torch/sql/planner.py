@@ -3,11 +3,14 @@
 
 Produces the plan shape Spark hands the reference's ColumnarRule:
 aggregates split into partial + exchange + final, global sorts into an
-exchange + sort, limits into local limit + single exchange + global limit.
-The device rewrite (``sql/overrides.py``) then tags and converts this CPU
-plan node by node. Joins, windows, generators and writes wait for later
-slices, as does the JAX package's small-query fast path (the port's
-exchange collapse makes no sync for it to save).
+exchange + sort, limits into local limit + single exchange + global limit,
+equi-joins into a broadcast hash join (the build side under
+``autoBroadcastJoinThreshold``) or hash exchanges on both sides and a
+shuffled join. The device rewrite (``sql/overrides.py``) then tags and
+converts this CPU plan node by node. Cross and condition joins (A.4),
+windows, generators and writes wait for later slices, as does the JAX
+package's small-query fast path (the port's exchange collapse makes no
+sync for it to save).
 """
 
 from __future__ import annotations
@@ -106,6 +109,34 @@ class Planner:
         return cpu.CpuCoalescePartitionsExec(self.plan(node.children[0]),
                                              node.n)
 
+    def _plan_LogicalJoin(self, node: lp.LogicalJoin) -> PhysicalPlan:
+        left = self.plan(node.children[0])
+        right = self.plan(node.children[1])
+        ls, rs = left.output_schema(), right.output_schema()
+        jt = node.join_type
+        lidx, left = _key_indices(
+            left, [bind_references(e, ls) for e in node.left_keys], ls)
+        ridx, right = _key_indices(
+            right, [bind_references(e, rs) for e in node.right_keys], rs)
+        # broadcast the build side when its estimate fits under the
+        # threshold: the right side, the left for a right join (its
+        # preserved side streams); a full outer join never broadcasts.
+        # -1 disables; an unknown estimate plans the shuffled join.
+        threshold = self.conf.broadcast_threshold
+        build_node = node.children[0] if jt == "right" else node.children[1]
+        est = build_node.estimated_size_bytes()
+        if (jt != "full" and threshold >= 0 and est is not None
+                and est <= threshold):
+            if jt == "right":
+                left = cpu.CpuBroadcastExchangeExec(left)
+            else:
+                right = cpu.CpuBroadcastExchangeExec(right)
+            return cpu.CpuBroadcastHashJoinExec(left, right, jt, lidx, ridx)
+        n = self.conf.shuffle_partitions
+        left = cpu.CpuShuffleExchangeExec(left, ("hash", lidx, n))
+        right = cpu.CpuShuffleExchangeExec(right, ("hash", ridx, n))
+        return cpu.CpuJoinExec(left, right, jt, lidx, ridx)
+
     def _plan_LogicalUnion(self, node: lp.LogicalUnion) -> PhysicalPlan:
         return cpu.CpuUnionExec([self.plan(c) for c in node.children])
 
@@ -115,3 +146,18 @@ class Planner:
         return cpu.CpuExpandExec(child, [
             [(n, bind_references(e, cs)) for n, e in proj]
             for proj in node.projections])
+
+
+def _key_indices(child: PhysicalPlan, keys, schema):
+    """Join keys as column indices: (indices, child), the child under a
+    Project that appends the computed keys where a key is not a plain
+    column."""
+    if all(isinstance(k, BoundRef) for k in keys):
+        return [k.index for k in keys], child
+    exprs = [(n, BoundRef(i, dt, n)) for i, (n, dt)
+             in enumerate(zip(schema.names, schema.dtypes))]
+    key_cols = []
+    for j, k in enumerate(keys):
+        exprs.append((f"_jk{j}", k))
+        key_cols.append(len(exprs) - 1)
+    return key_cols, cpu.CpuProjectExec(child, exprs)

@@ -4,9 +4,11 @@ pruning wait for the Parquet scan behind the session, ROADMAP A.2).
 
   * ``prune_filter_columns`` puts a narrowing Project above every Filter
     whose output carries columns no ancestor references, so the filter's
-    row compaction feeds fewer columns onward.
+    row compaction feeds fewer columns onward, and at each join input, so
+    a join expands only the columns read above it (a semi or anti join's
+    build side down to its keys).
   * ``annotate_scan_pruning`` marks each scan with the columns the query
-    references, and the planner scans only those.
+    references (join keys included), and the planner scans only those.
 
 The JAX package's coordination of logical subtrees shared by several
 branches is not ported: the plans of this slice share none.
@@ -81,6 +83,27 @@ def prune_filter_columns(root):
                            *(e for _n, e in node.results))
             return lp.LogicalAggregate(rewrite(node.children[0], req),
                                        node.grouping, node.results)
+        if isinstance(node, lp.LogicalJoin):
+            lnames = set(node.children[0].schema().names)
+            rnames = set(node.children[1].schema().names)
+            keyreq_l = _cols_of(*node.left_keys)
+            keyreq_r = _cols_of(*node.right_keys)
+            if required is None:
+                lreq = rreq = None
+            else:
+                lreq = (required | keyreq_l) & lnames
+                rreq = (required | keyreq_r) & rnames
+            if node.join_type in ("leftsemi", "leftanti"):
+                # the build side gives no output column: its keys suffice
+                rreq = keyreq_r & rnames
+            left = rewrite(node.children[0], lreq)
+            right = rewrite(node.children[1], rreq)
+            if lreq is not None:
+                left = _narrow(left, lreq)
+            if rreq is not None:
+                right = _narrow(right, rreq)
+            return lp.LogicalJoin(left, right, node.join_type,
+                                  node.left_keys, node.right_keys)
         if isinstance(node, lp.LogicalSort):
             req = (None if required is None else
                    (required | _cols_of(*(o.expr for o in node.orders)))
@@ -126,6 +149,8 @@ def required_scan_columns(root) -> Optional[set]:
             out.extend(e for _n, e in getattr(node, attr, ()) or ())
         if getattr(node, "condition", None) is not None:
             out.append(node.condition)
+        out.extend(getattr(node, "left_keys", ()) or ())
+        out.extend(getattr(node, "right_keys", ()) or ())
         out.extend(o.expr for o in getattr(node, "orders", ()) or ())
         for proj in getattr(node, "projections", ()) or ():
             out.extend(e for _n, e in proj)

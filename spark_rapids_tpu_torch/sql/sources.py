@@ -1,20 +1,25 @@
 """Scan sources (counterpart of the JAX package's ``sql/sources.py``):
 ``InMemorySource``, a pandas frame split into partitions (the session's
-``create_dataframe``), and ``ParquetSource``, Parquet files for the device
-decode path.
+``create_dataframe``), and ``ParquetSource``, Parquet files (the
+session's ``read.parquet``).
 
 Footer work and split planning run on the host: one split per row group.
+``ParquetSource`` has two routes, as the JAX package's has:
 ``raw_partitions`` hands each split's planning to the scan pipeline
 (``sql/scan_pipeline``), which yields ``ops/parquet_decode.RawRowGroup``
-decode plans, or a pandas frame for a row group whose columns all fall
-back to the host. Row-group pruning (``prune_splits``, ``pushdown.py``),
-directories and hive partition columns are not ported yet: a source is a
-list of files.
+decode plans for the device decode, or a pandas frame for a row group
+whose columns all fall back to the host; ``cpu_partitions`` reads each
+row group to pandas with pyarrow on the same pipeline. Each source gives
+a size estimate for the planner's broadcast choice. Row-group pruning
+(``prune_splits``), directories, hive partition columns and the CSV and
+ORC sources are not ported yet (ROADMAP A.7): a source is a list of
+files.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import List, Optional
 
 import pandas as pd
@@ -30,7 +35,47 @@ from spark_rapids_tpu_torch.sql.scan_pipeline import (
 _DATA_UIDS = itertools.count()
 
 
-class InMemorySource:
+class DataSource:
+    """What the planner and the scans read of a source."""
+
+    schema: Schema
+
+    def data_uid(self) -> str:
+        """Identity of the data behind this source, shared by its
+        projection views (``with_columns``); a new source gets a new one,
+        from a process-wide counter (never an ``id()`` the allocator could
+        reuse)."""
+        base = getattr(self, "_base", self)
+        if getattr(base, "_data_uid", None) is None:
+            base._data_uid = next(_DATA_UIDS)
+        return f"{type(base).__name__}#{base._data_uid}"
+
+    def describe(self) -> str:
+        return type(self).__name__
+
+    def estimated_size_bytes(self) -> Optional[int]:
+        """Size hint for broadcast-join planning (None = unknown)."""
+        return None
+
+    def split_rows(self) -> Optional[List[int]]:
+        """Each split's row count, for a source whose splits the scan packs
+        into partitions of at most ``batchSizeRows`` rows; None for a
+        source whose partitions are uploaded as they come."""
+        return None
+
+    def cpu_partitions(self) -> List[Partition]:
+        """The source's partitions of pandas frames."""
+        raise NotImplementedError
+
+    def raw_partitions(self, blocked: int, depth: int = DEFAULT_DEPTH,
+                       threads: Optional[int] = None
+                       ) -> Optional[List[Partition]]:
+        """Device-decode partitions (``ops/parquet_decode.RawRowGroup``
+        decode plans), or None for a source with no raw-page reader."""
+        return None
+
+
+class InMemorySource(DataSource):
     """createDataFrame: a pandas frame split into ``num_partitions``
     contiguous slices."""
 
@@ -42,13 +87,15 @@ class InMemorySource:
     def describe(self) -> str:
         return f"InMemory[{len(self.df)} rows x {len(self.df.columns)} cols]"
 
-    def data_uid(self) -> str:
-        """Identity of the data behind this source, shared by its
-        projection views (``with_columns``); a new frame gets a new one."""
+    def estimated_size_bytes(self) -> Optional[int]:
+        # deep=True so object/string columns count their payload, not just
+        # the 8-byte pointers (a shallow count broadcasts huge tables); the
+        # whole frame's, also for a projection view, and counted once a
+        # frame, since every execution plans again
         base = getattr(self, "_base", self)
-        if not hasattr(base, "_data_uid"):
-            base._data_uid = next(_DATA_UIDS)
-        return f"InMemorySource#{base._data_uid}"
+        if getattr(base, "_size_bytes", None) is None:
+            base._size_bytes = int(base.df.memory_usage(deep=True).sum())
+        return base._size_bytes
 
     def with_columns(self, columns: List[str]) -> "InMemorySource":
         """Projection-pushdown view: only the referenced columns (a pandas
@@ -80,7 +127,7 @@ class InMemorySource:
         return [part(i) for i in range(self.num_partitions)]
 
 
-class ParquetSource:
+class ParquetSource(DataSource):
     """Parquet scan: one split per row group (reference:
     GpuParquetScan.scala parses footers and clips row groups on the CPU
     before the device decode)."""
@@ -103,11 +150,24 @@ class ParquetSource:
         self.splits = [(p, rg) for p in self.paths
                        for rg in range(praw.file_metadata(p).num_row_groups)]
 
+    def describe(self) -> str:
+        return (f"Parquet[{len(self.paths)} files, {len(self.splits)} row "
+                "groups]")
+
+    def estimated_size_bytes(self) -> Optional[int]:
+        return sum(os.path.getsize(p) for p in self.paths)
+
+    def split_rows(self) -> List[int]:
+        """Each split's row count, from the footers."""
+        return [praw.file_metadata(p).row_group(rg).num_rows
+                for p, rg in self.splits]
+
     def with_columns(self, columns: List[str]) -> "ParquetSource":
         """Projection view (no footer re-parse): read only ``columns``, in
         the file's column order."""
         import copy
         src = copy.copy(self)
+        src._base = getattr(self, "_base", self)
         src.columns = [c for c in self.columns if c in columns]
         src.schema = Schema(src.columns, [self.schema.dtype_of(c)
                                           for c in src.columns])
@@ -134,6 +194,28 @@ class ParquetSource:
             return decode
         return build_partitions(
             [decode_task(p, rg) for p, rg in self.splits], depth, threads)
+
+    def cpu_partitions(self) -> List[Partition]:
+        """Host-decode split plan: pyarrow reads each row group's columns
+        and ``_arrow_decode`` turns them into a pandas frame, on the same
+        planning pipeline. A file with no row groups gives one empty
+        frame."""
+        columns = list(self.columns)
+        if not self.splits:
+            def empty():
+                from spark_rapids_tpu_torch.exec.cpu import _empty_df
+                yield _empty_df(self.schema)
+            return [empty]
+
+        def decode_task(path: str, rg: int):
+            def decode():
+                import pyarrow.parquet as pq
+                table = pq.ParquetFile(path).read_row_group(rg,
+                                                            columns=columns)
+                return _arrow_decode(table)
+            return decode
+        return build_partitions(
+            [decode_task(p, rg) for p, rg in self.splits])
 
 
 # ---------------------------------------------------------------------------
@@ -184,3 +266,4 @@ def _arrow_decode(table) -> pd.DataFrame:
     df = pd.concat(series, axis=1)
     df.columns = list(table.column_names)
     return df
+

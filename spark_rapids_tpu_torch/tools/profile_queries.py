@@ -1,9 +1,13 @@
 """Where a query's time goes on the card: TPC-H Q1, Q6, Q3, Q4 and the Q18
 group-by through the port's query runners under ``torch.profiler``, on
-the pandas upload path and on the device Parquet scan.
+the pandas upload path and on the device Parquet scan, and the session's
+cells: Q3 and Q4 through ``TpuSparkSession`` over cached uploads
+(``session_q3``, ``session_q4``), and the Parquet queries through its
+``read.parquet`` with the device decode (``session_*_parquet``).
 
 For each query: upload its columns (or, for a ``*_parquet`` query, nothing:
-the scan is part of the profiled run), run it once to warm up, then
+the scan is part of the profiled run; a session query uploads into its
+scan cache in the warm-up run), run it once to warm up, then
 profile one run that ends in ``torch.cuda.synchronize()``. Prints, per
 query, the wall seconds, the device busy seconds (the sum of the
 device-side kernel and copy times), the idle share, and the top
@@ -21,10 +25,12 @@ also go to ``chiprun_out/profile_queries<tag>.json`` with the card's name
 and power limit.
 
 Sizes are chip_smoke.py's: Q1, Q6, Q3 and Q4 at SF10 in 2^23-row batches,
-the Q18 group-by at SF1 in 2^22-row batches; the Parquet files are
+the Q18 group-by at SF1 in 2^22-row batches (2^23 through the session);
+the Parquet files are
 ``models/tpch_data.write_parquet``'s, in
 ``spark_rapids_tpu_torch/build/tpch_parquet/`` (written when missing),
-one batch per row group of 2^20 rows.
+one batch per row group of 2^20 rows for the runners, row groups packed
+and concatenated into 2^23-row batches through the session.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ TOP = 12  # device-side events listed per query
 UPLOAD = ("q1", "q6", "q3", "q4", "q18_groupby")
 PARQUET = ("q1_parquet", "q6_parquet", "q3_parquet", "q4_parquet",
            "customer_parquet", "q18_groupby_parquet")
+SESSION = ("session_q3", "session_q4", "session_q1_parquet",
+           "session_q6_parquet", "session_q3_parquet", "session_q4_parquet",
+           "session_customer_parquet", "session_q18_groupby_parquet")
 
 
 def _device_us(evt) -> float:
@@ -78,6 +87,24 @@ def profile(name: str, fn, top: int, out_dir: str) -> dict:
                      "device_ms": _device_us(e) / 1e3} for e in events[:top]]}
 
 
+# the session cells' confs beside the hash-aggregation ones: no scan
+# cache (every run decodes the files)
+PARQUET_SESSION = {"spark.rapids.sql.cacheDeviceScans": False}
+
+
+def session(batch_rows: int, conf: dict):
+    """The port's session on the card as ``chip_smoke.py`` runs it: test
+    mode, the hash-aggregation confs, ``batch_rows``-row batches."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = (TpuSparkSession.builder()
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.batchSizeRows", batch_rows))
+    for k, v in dict(T.HASH_AGG_CONFS, **conf).items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
 def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
     """{table: path} of the scale factor's Parquet files, written from
     ``frames`` unless a file is there already."""
@@ -93,7 +120,8 @@ def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--queries", nargs="+", choices=UPLOAD + PARQUET,
+    ap.add_argument("--queries", nargs="+",
+                    choices=UPLOAD + PARQUET + SESSION,
                     help="profile these queries alone (default: all)")
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--tag", default="", help="suffix of the output names")
@@ -110,11 +138,12 @@ def main() -> None:
     from spark_rapids_tpu_torch.models import q1_step as Q
     from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.models import tpch_joins as J
+    from spark_rapids_tpu_torch.models import tpch as T
     from spark_rapids_tpu_torch.models import tpch_scan as S
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
-    want = set(args.queries or UPLOAD + PARQUET)
+    want = set(args.queries or UPLOAD + PARQUET + SESSION)
     tag = args.tag
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
@@ -124,7 +153,9 @@ def main() -> None:
         if name in want:
             results.append(profile(name + tag, fn, TOP, out_dir))
 
-    sf10 = want - {"q18_groupby", "q18_groupby_parquet"}
+    q18 = {"q18_groupby", "q18_groupby_parquet",
+           "session_q18_groupby_parquet"}
+    sf10 = want - q18
     if sf10:
         df = gen_lineitem(10)
         for name, cols, query in (("q1", Q.Q1_COLUMNS, Q.q1_from_batches),
@@ -142,7 +173,14 @@ def main() -> None:
             tables = J.upload_q4(frames)
             run("q4", lambda: J.q4_from_batches(tables).to_pandas())
         tables = None
-        if sf10 & set(PARQUET):
+        if want & {"session_q3", "session_q4"}:
+            sess = session(1 << 23, {"spark.rapids.sql.cacheDeviceScans":
+                                     True})
+            t = {n: sess.create_dataframe(f) for n, f in frames.items()}
+            run("session_q3", T.q3(sess, t).collect)
+            run("session_q4", T.q4(sess, t).collect)
+            del sess, t
+        if sf10 & {n for n in PARQUET + SESSION if n.endswith("_parquet")}:
             paths = _parquet_files(G, "sf10", 10, frames)
             run("q1_parquet", lambda: Q.q1_from_batches(
                 S.scan_table(paths["lineitem"], Q.Q1_COLUMNS)).to_pandas())
@@ -154,8 +192,15 @@ def main() -> None:
                 S.scan_tables(paths, J.Q4_COLUMNS)).to_pandas())
             run("customer_parquet", lambda: (
                 S.customer_segment_collect(paths["customer"])))
+            sess = session(1 << 23, PARQUET_SESSION)
+            t = {n: sess.read.parquet(p) for n, p in paths.items()}
+            for name, query in (("q1", T.q1), ("q6", T.q6), ("q3", T.q3),
+                                ("q4", T.q4),
+                                ("customer", T.customer_segment)):
+                run(f"session_{name}_parquet", query(sess, t).collect)
+            del sess, t
         del frames, df
-    if want & {"q18_groupby", "q18_groupby_parquet"}:
+    if want & q18:
         df = gen_lineitem(1)
         if "q18_groupby" in want:
             batches = Q.upload_batches(df, Q.Q18_COLUMNS, 1 << 22)
@@ -168,6 +213,12 @@ def main() -> None:
             run("q18_groupby_parquet", lambda: [
                 b.to_pandas() for b in Q.q18_agg_from_batches(
                     S.scan_table(path18, Q.Q18_COLUMNS))])
+        if "session_q18_groupby_parquet" in want:
+            path18 = _parquet_files(G, "sf1", 1, {"lineitem": df},
+                                    ["lineitem"])["lineitem"]
+            sess = session(1 << 23, PARQUET_SESSION)
+            run("session_q18_groupby_parquet", T.q18_groupby(
+                sess, {"lineitem": sess.read.parquet(path18)}).collect)
     for r in results:
         print(json.dumps(r))
     card = subprocess.run(

@@ -702,3 +702,140 @@ def test_session_queries_on_the_card(cuda_device, qname):
         _grouped, having = Q.q18_agg_from_batches(
             Q.upload_batches(df, Q.Q18_COLUMNS, batch))
         _same_by_key(got, having.to_pandas(), ["l_orderkey"])
+
+
+def _session(device, **conf):
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = (TpuSparkSession.builder().device(device)
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.batchSizeRows", 1 << 16))
+    for k, v in dict(tpch.HASH_AGG_CONFS, **conf).items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
+def _same_q3(got, want):
+    """Q3's top 10 in the query's order: revenue at rtol 1e-9, dates
+    exact, the keys of rows tied on (revenue, o_orderdate) as a set."""
+    assert list(got.columns) == list(want.columns) and len(got) == 10
+    np.testing.assert_allclose(got.revenue, want.revenue, rtol=F64_RTOL)
+    assert list(got.o_orderdate) == list(want.o_orderdate)
+    for _, grp in want.groupby(["revenue", "o_orderdate"], sort=False):
+        rows = grp.index
+        assert (sorted(got.loc[rows, "l_orderkey"])
+                == sorted(want.loc[rows, "l_orderkey"]))
+
+
+@pytest.fixture(scope="module")
+def tpch_frames():
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    return {"lineitem": G.gen_lineitem(0.05), "orders": G.gen_orders(0.05),
+            "customer": G.gen_customer(0.05)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, -1])
+@pytest.mark.parametrize("qname", ["q3", "q4"])
+def test_session_join_queries_on_the_card(cuda_device, tpch_frames, qname,
+                                          threshold):
+    """Q3 and Q4 through the session at SF 0.05, broadcast (the default
+    threshold) and shuffled: the card's answer equals the CPU session's,
+    through kernels B3 and B4; the broadcast builds its table once."""
+    from spark_rapids_tpu_torch.models import tpch
+    conf = ({} if threshold is None else
+            {"spark.rapids.sql.autoBroadcastJoinThreshold": threshold})
+    outs = []
+    for device in ("cuda", "cpu"):
+        s = _session(device, **conf)
+        t = {n: s.create_dataframe(f, 2) for n, f in tpch_frames.items()}
+        K.reset_launches()
+        outs.append(tpch.QUERIES[qname](s, t).collect())
+        if device == "cuda":
+            assert K.LAUNCHES["hash_table_probe"] > 0
+            builds = 2 if qname == "q3" else 1
+            assert K.LAUNCHES["hash_table_build"] == builds
+    got, want = outs
+    if qname == "q3":
+        _same_q3(got, want)
+    else:
+        _same_by_key(got, want, ["o_orderpriority"])
+
+
+@pytest.mark.cuda
+def test_session_parquet_device_decode_on_the_card(cuda_device, tpch_frames,
+                                                   tmp_path):
+    """Q1, Q3, Q4, Q6, the Q18 group-by (without its filter) and the
+    customer collect from Parquet files through the session, decoded on the
+    card: equal to pandas, no column decoded on the host, kernels B5-B8
+    launched."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    from spark_rapids_tpu_torch.sql import functions as F
+    fr = tpch_frames
+    paths = G.write_parquet(str(tmp_path), 0.05, frames=fr)
+    s = _session("cuda")
+    t = {n: s.read.parquet(p) for n, p in paths.items()}
+    li, o, c = fr["lineitem"], fr["orders"], fr["customer"]
+    before = REGISTRY.values().get("scan.device.fallbackColumns", 0)
+    K.reset_launches()
+
+    got = tpch.q1(s, t).collect()
+    f = li[li.l_shipdate <= np.datetime64("1998-09-02")]
+    ep, d = f.l_extendedprice, f.l_discount
+    f = f.assign(disc_price=ep * (1 - d), charge=ep * (1 - d) * (1 + f.l_tax))
+    want = f.groupby(["l_returnflag", "l_linestatus"], as_index=False).agg(
+        sum_qty=("l_quantity", "sum"),
+        sum_base_price=("l_extendedprice", "sum"),
+        sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"),
+        avg_qty=("l_quantity", "mean"), avg_price=("l_extendedprice", "mean"),
+        avg_disc=("l_discount", "mean"), count_order=("l_quantity", "size"))
+    _same_by_key(got, want, ["l_returnflag", "l_linestatus"])
+
+    got = tpch.q6(s, t).collect()
+    sd = li.l_shipdate
+    m = ((sd >= np.datetime64("1994-01-01"))
+         & (sd < np.datetime64("1995-01-01"))
+         & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
+         & (li.l_quantity < 24.0))
+    np.testing.assert_allclose(
+        got.revenue, [(li.l_extendedprice[m] * li.l_discount[m]).sum()],
+        rtol=F64_RTOL)
+
+    got = tpch.q3(s, t).collect()
+    cut = np.datetime64("1995-03-15")
+    mm = (c[c.c_mktsegment == "BUILDING"]
+          .merge(o[o.o_orderdate < cut], left_on="c_custkey",
+                 right_on="o_custkey")
+          .merge(li[li.l_shipdate > cut], left_on="o_orderkey",
+                 right_on="l_orderkey"))
+    mm = mm.assign(revenue=mm.l_extendedprice * (1 - mm.l_discount))
+    want = (mm.groupby(["l_orderkey", "o_orderdate", "o_shippriority"],
+                       as_index=False).revenue.sum()
+            .sort_values(["revenue", "o_orderdate"], ascending=[False, True])
+            .head(10).reset_index(drop=True))
+    _same_q3(got, want)
+
+    got = tpch.q4(s, t).collect()
+    late = li.l_orderkey[li.l_commitdate < li.l_receiptdate]
+    oo = o[(o.o_orderdate >= np.datetime64("1993-07-01"))
+           & (o.o_orderdate < np.datetime64("1993-10-01"))]
+    want = (oo[oo.o_orderkey.isin(late)].groupby("o_orderpriority").size()
+            .rename("order_count").reset_index())
+    _same_by_key(got, want, ["o_orderpriority"])
+
+    got = (t["lineitem"].group_by("l_orderkey")
+           .agg(F.sum("l_quantity").alias("sum_qty")).collect())
+    want = li.groupby("l_orderkey", as_index=False).agg(
+        sum_qty=("l_quantity", "sum"))
+    _same_by_key(got, want, ["l_orderkey"])
+
+    got = tpch.customer_segment(s, t).collect()
+    want = c[c.c_mktsegment == "BUILDING"].reset_index(drop=True)
+    _same_by_key(got, want, ["c_custkey"])
+
+    assert REGISTRY.values().get("scan.device.fallbackColumns", 0) == before
+    for k in ("hybrid_expand", "delta_unpack", "plain_fixed", "slab_pack",
+              "hash_table_build", "hash_table_probe"):
+        assert K.LAUNCHES[k] > 0, k

@@ -275,3 +275,24 @@ def test_session_range_union_limit_coalesce_expand():
         assert sorted(r.id) == [i for i in range(0, 50, 3) if i > 5]
     text = a.repartition(2).explain()
     assert "! CpuShuffleExchangeExec(roundrobin)" in text
+
+
+def test_session_hash_slot_budget_binds_only_the_hash_branch():
+    """With the hash branch on, a batch past agg.hash.maxTableSlots still
+    aggregates on a dictionary key (the dictionary branch comes first, as
+    Q4's o_orderpriority at SF10); on a key of the hash branch it raises
+    naming the unported out-of-core split."""
+    n = 3000
+    df = pd.DataFrame({
+        "k": np.array(["a", "b", "c"], dtype=object)[np.arange(n) % 3],
+        "u": np.arange(n, dtype=np.int64) * 7919 % 100_003,
+        "v": np.arange(n, dtype=np.int64)})
+    s = _port_session(**{"spark.rapids.sql.agg.hash.maxTableSlots": 1024,
+                         "spark.rapids.sql.test.enabled": True})
+    got = (s.create_dataframe(df).group_by("k")
+           .agg(F.sum("v").alias("sv")).collect())
+    want = df.groupby("k", as_index=False).agg(sv=("v", "sum"))
+    _assert_same(got, want, ["k"])
+    with pytest.raises(NotImplementedError, match="out-of-core split"):
+        (s.create_dataframe(df).group_by("u")
+         .agg(F.sum("v").alias("sv")).collect())
