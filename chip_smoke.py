@@ -26,17 +26,27 @@ port's main path through its query runners:
     at SF10, the Q18 group-by at SF1 and a customer filter-and-collect at
     SF10 (every column, strings included) read from those files, with zero
     columns falling back to the host decode, checked against the same
-    pandas references; then the same queries through the session's
-    ``read.parquet`` (no scan cache: every run decodes the files on the
-    card, B5-B8 launched through the session), equal to the runners'
-    answers with no more counted syncs, and the Q18 group-by once more with
-    the session's device path off (``spark.rapids.sql.enabled=false``: the
-    CPU scan decodes the file with pyarrow), equal too.
+    pandas references; then Q1, Q6, Q3, Q4, the customer collect and the
+    Q18 group-by at SF1 through the session's ``read.parquet`` (no scan
+    cache: every run decodes the files on the card, B5-B8 launched
+    through the session), equal to pandas (the Q18 group-by also to its
+    runner, with no more counted syncs), and the Q18 group-by once more
+    with the session's device path off (``spark.rapids.sql.enabled=false``:
+    the CPU scan decodes the file with pyarrow), equal too;
+  * the aggregation's sorted grouping branches through the session at the
+    JAX package's default confs (no hash branch), on cached uploads: a
+    lineitem group-by on four dictionary keys past the dictionary branch
+    (row space), Q3, a customer string group-by (sorted space) and a
+    global string min, TPC-H Q10, Q17, Q18 and Q21 at SF10 (sorted
+    payload), and the Q18 group-by at SF1 beside its B2 run, each against
+    pandas, the branches taken read from ``ops/aggregate.BRANCHES``.
 
 Each query also runs up to its collect under PyTorch's sync debug mode
 "error", where the only host waits allowed are the counted ones
-(``obs/syncledger.sync_scope``): Q3 must count one per join (2), every other
-query none, and a Parquet scan one per row group (its upload).
+(``obs/syncledger.sync_scope``): a query counts one per expanding join
+(Q3 2, Q10 3, Q17 3, Q18 2, Q21 5) and one per row-space aggregation (its
+slot attempt's verdict), none otherwise, and a Parquet scan one per row
+group (its upload).
 
 B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
 group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
@@ -66,6 +76,7 @@ result, when no CUDA device is present or any phase fails. Details go to
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import subprocess
@@ -1012,13 +1023,14 @@ def run_query(name: str, fn, runs: int) -> tuple:
     return out, walls, launches
 
 
-def require_syncs(name: str, fn, expected: int) -> None:
+def count_syncs(fn) -> int:
     """Run ``fn`` (a query up to, not including, its collect) with
     PyTorch's sync debug mode set to error: any call in it that makes the
     host wait for the device raises, except inside ``sync_scope``, which
-    counts it. The row counts stay on the device, so filters, aggregates,
-    concats, sorts and semi joins need no sync; an inner or outer join
-    fetches its expansion totals once."""
+    counts it. Returns the counted syncs. The row counts stay on the
+    device, so filters, aggregates, concats, sorts and semi joins need no
+    sync; an inner or outer join fetches its expansion totals once, and a
+    row-space aggregation reads its slot attempt's verdict once."""
     from spark_rapids_tpu_torch.obs.syncledger import SYNCS
     torch.cuda.synchronize()
     before = SYNCS.total()
@@ -1027,7 +1039,12 @@ def require_syncs(name: str, fn, expected: int) -> None:
         fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    got = SYNCS.total() - before
+    return SYNCS.total() - before
+
+
+def require_syncs(name: str, fn, expected: int) -> None:
+    """``count_syncs(fn)``, required to be ``expected``."""
+    got = count_syncs(fn)
     require(got == expected, f"{name}: {got} counted host syncs before the "
             f"collect, expected {expected}")
 
@@ -1180,15 +1197,155 @@ def run_session_query(name: str, query, runs: int, runner: dict,
                  "runner_wall_s": runner["wall_s"], "runner_syncs": syncs}
 
 
-def run_session_parquet(name: str, query, runs: int, runner: dict, sf,
+def expanding_joins(sess, df) -> int:
+    """The joins of a session query's device plan that expand rows (every
+    type but the semi and anti joins), each subtree counted as often as
+    the plan holds it: each makes one counted sync (its single stream
+    partition's expansion totals)."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    return sum(1 for node in sess.physical_plan(df._plan).walk()
+               if isinstance(node, tpujoin.TpuShuffledHashJoinExec)
+               and node.join_type not in ("leftsemi", "leftanti"))
+
+
+def run_session_cell(name: str, query, runs: int, sf, rows: int,
+                     joins: int, branches: tuple) -> tuple:
+    """A session query at the confs the session holds, on cached uploads:
+    one cold execution (uploads into the scan cache; a partial aggregate
+    learns its skip decision), ``runs`` warm ones timed, then the query up
+    to its collect under the sync debug mode "error" with the aggregation
+    branch counts (``ops/aggregate.BRANCHES``) zeroed before and read
+    after. It may make one counted sync per inner join (``joins``: its
+    expansion totals) and one per row-space aggregation (its slot
+    attempt's verdict), no other; each branch of ``branches`` must have
+    run, the hash branch (B2) not at all."""
+    from spark_rapids_tpu_torch.ops import aggregate as A
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    query.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    out, walls, launches = run_query(name, query.collect, runs)
+    A.reset_branches()
+    got = count_syncs(query.collect_batches)
+    taken = dict(A.BRANCHES)
+    want = joins + taken.get("rowspace", 0)
+    require(got == want, f"{name}: {got} counted syncs before the collect, "
+            f"expected {want} ({joins} joins, branches {taken})")
+    for b in branches:
+        require(taken.get(b, 0) > 0, f"{name}: branch {b} did not run "
+                f"({taken})")
+    require(not taken.get("hash"), f"{name}: took the hash branch")
+    med = float(np.median(walls))
+    log(f"{name}: median {med:.4f} s, {len(out)} rows, counted syncs "
+        f"{got}, branches {taken}; cold run (upload) {cold:.1f} s")
+    return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
+                 "wall_runs_s": walls, "rows_per_s": rows / med,
+                 "launches": launches, "counted_syncs": got,
+                 "branches": taken, "rows_out": len(out), "fallbacks": 0}
+
+
+def q10_reference(li, o, c, n):
+    o = o[(o.o_orderdate >= np.datetime64("1993-10-01"))
+          & (o.o_orderdate < np.datetime64("1994-01-01"))]
+    # the lines of those orders first: a hash probe of every line, then
+    # string compares on the few left
+    li = li.loc[li.l_orderkey.isin(o.o_orderkey),
+                ["l_orderkey", "l_returnflag", "l_extendedprice",
+                 "l_discount"]]
+    li = li[li.l_returnflag == "R"]
+    j = (c[["c_custkey", "c_name", "c_acctbal", "c_phone", "c_nationkey"]]
+         .merge(o[["o_orderkey", "o_custkey"]], left_on="c_custkey",
+                right_on="o_custkey")
+         .merge(li, left_on="o_orderkey", right_on="l_orderkey")
+         .merge(n[["n_nationkey", "n_name"]], left_on="c_nationkey",
+                right_on="n_nationkey"))
+    j["revenue"] = j.l_extendedprice * (1 - j.l_discount)
+    g = (j.groupby(["c_custkey", "c_name", "c_acctbal", "c_phone",
+                    "n_name"], as_index=False).revenue.sum())
+    return (g.sort_values(["revenue", "c_custkey"], ascending=[False, True])
+            .head(20).reset_index(drop=True))
+
+
+def q17_reference(li, p) -> float:
+    p = p[(p.p_brand == "Brand#23") & (p.p_container == "MED BOX")]
+    j = li[["l_partkey", "l_quantity", "l_extendedprice"]].merge(
+        p[["p_partkey"]], left_on="l_partkey", right_on="p_partkey")
+    lim = j.groupby("p_partkey").l_quantity.mean() * 0.2
+    j = j[j.l_quantity < j.p_partkey.map(lim)]
+    return float(j.l_extendedprice.sum() / 7.0) if len(j) else float("nan")
+
+
+def q18_reference(li, o, c):
+    ok = li.l_orderkey.to_numpy()
+    tot = np.bincount(ok, weights=li.l_quantity.to_numpy())
+    big = np.nonzero(tot > 300)[0]
+    lines = li[li.l_orderkey.isin(big)]
+    o = o[o.o_orderkey.isin(big)]
+    j = (o[["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]]
+         .merge(c[["c_custkey", "c_name"]], left_on="o_custkey",
+                right_on="c_custkey")
+         .merge(lines[["l_orderkey", "l_quantity"]], left_on="o_orderkey",
+                right_on="l_orderkey"))
+    g = (j.groupby(["c_name", "c_custkey", "o_orderkey", "o_orderdate",
+                    "o_totalprice"], as_index=False).l_quantity.sum()
+         .rename(columns={"l_quantity": "sum_qty"}))
+    return (g.sort_values(["o_totalprice", "o_orderdate"],
+                          ascending=[False, True])
+            .head(100).reset_index(drop=True))
+
+
+def _distinct_suppliers(ok, sk) -> "pd.Series":
+    """Distinct suppliers per order, from one packed int64 per line."""
+    import pandas as pd
+    u = np.unique(ok.astype(np.int64) << 20 | sk.astype(np.int64))
+    keys, counts = np.unique(u >> 20, return_counts=True)
+    return pd.Series(counts, index=keys)
+
+
+def q21_reference(li, s, o, n):
+    import pandas as pd
+    ok, sk = li.l_orderkey.to_numpy(), li.l_suppkey.to_numpy()
+    require(int(sk.max()) < 1 << 20, "l_suppkey does not fit 20 bits")
+    late = (li.l_receiptdate > li.l_commitdate).to_numpy()
+    saudi = n.n_nationkey[n.n_name == "SAUDI ARABIA"].to_numpy()
+    supp = s[s.s_nationkey.isin(saudi)].set_index("s_suppkey").s_name
+    fin = o.o_orderkey[o.o_orderstatus == "F"].to_numpy()
+    # the candidate lines (late, a Saudi supplier, an F order), then the
+    # supplier counts of their orders only
+    j = pd.DataFrame({"ok": ok[late], "sk": sk[late]})
+    j = j[j.sk.isin(supp.index) & j.ok.isin(fin)]
+    mine = np.isin(ok, j.ok.unique())
+    nsupp = _distinct_suppliers(ok[mine], sk[mine])
+    nlate = _distinct_suppliers(ok[mine & late], sk[mine & late])
+    j = j[(j.ok.map(nsupp) > 1) & (j.ok.map(nlate) == 1)]
+    g = (j.sk.map(supp).value_counts().rename_axis("s_name")
+         .reset_index(name="numwait"))
+    return (g.sort_values(["numwait", "s_name"], ascending=[False, True])
+            .head(100).reset_index(drop=True))
+
+
+def same_in_order(got, want, keys, order, what: str) -> float:
+    """``same_by_key`` on the unique ``keys``, and ``got`` in the query's
+    order (``order``: (column, ascending) pairs)."""
+    err = same_by_key(got, want, keys, what)
+    cols = [c for c, _ in order]
+    asc = [a for _, a in order]
+    srt = got.sort_values(cols, ascending=asc, kind="stable")
+    require(list(srt.index) == list(got.index), f"{what}: not in order")
+    return err
+
+
+def run_session_parquet(name: str, query, runs: int, runner, sf,
                         rows: int, row_groups: int, own_syncs: int) -> tuple:
     """A session query over Parquet files, decoded on the card, no scan
     cache: one cold execution (a partial aggregate learns its skip
     decision), then ``runs`` timed as the runners' Parquet queries are
     (files to the collect) with no column decoded on the host, then the
     query up to its collect under the sync debug mode "error": one counted
-    sync per row group (its upload) plus the query's own, as the
-    runners'."""
+    sync per row group (its upload) plus the query's own, no more than the
+    runner's record (``runner``, or None where no runner ran the query on
+    these files)."""
     from spark_rapids_tpu_torch.obs.metrics import REGISTRY, delta
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1211,19 +1368,21 @@ def run_session_parquet(name: str, query, runs: int, runner: dict, sf,
                 f"launches for {row_groups} row groups")
     require(launches["hybrid_expand"] > 0, f"{name}: no B5 launch")
     med = float(np.median(walls))
-    log(f"{name}: median {med:.4f} s against the runner's "
-        f"{runner['wall_s']:.4f} s; counted syncs {syncs} (runner "
-        f"{runner['counted_syncs']}); B5 {launches['hybrid_expand']} B6 "
-        f"{launches['delta_unpack']} B7 {launches['plain_fixed']} B8 "
-        f"{launches['slab_pack']}; cold run {cold:.1f} s")
-    require(syncs <= runner["counted_syncs"],
+    beside = ("" if runner is None else
+              f" against the runner's {runner['wall_s']:.4f} s (syncs "
+              f"{runner['counted_syncs']})")
+    log(f"{name}: median {med:.4f} s{beside}; counted syncs {syncs}; B5 "
+        f"{launches['hybrid_expand']} B6 {launches['delta_unpack']} B7 "
+        f"{launches['plain_fixed']} B8 {launches['slab_pack']}; cold run "
+        f"{cold:.1f} s")
+    require(runner is None or syncs <= runner["counted_syncs"],
             f"{name}: {syncs} syncs, more than the runner's")
     return out, {"sf": sf, "rows": rows, "cold_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
                  "launches": launches, "counted_syncs": syncs,
                  "row_groups": row_groups,
-                 "runner_wall_s": runner["wall_s"],
-                 "runner_syncs": runner["counted_syncs"]}
+                 "runner_wall_s": runner and runner["wall_s"],
+                 "runner_syncs": runner and runner["counted_syncs"]}
 
 
 def join_execs(sess, df) -> dict:
@@ -1246,6 +1405,8 @@ def same_by_key(got, want, keys, what: str) -> float:
     err = 0.0
     for c in got.columns:
         g, w = got[c].to_numpy(), want[c].to_numpy()
+        if w.dtype.kind == "M":  # dates at any unit
+            g, w = g.astype("datetime64[us]"), w.astype("datetime64[us]")
         if np.asarray(w).dtype.kind == "f":
             err = max(err, _rel_err(g, w))
         else:
@@ -1253,6 +1414,194 @@ def same_by_key(got, want, keys, what: str) -> float:
                     f"{what}: column {c} differs")
     require(err <= F64_RTOL, f"{what}: rel {err}")
     return err
+
+
+def q6_reference(li) -> float:
+    sd = li.l_shipdate
+    m = ((sd >= np.datetime64("1994-01-01"))
+         & (sd < np.datetime64("1995-01-01"))
+         & (li.l_discount >= 0.05) & (li.l_discount <= 0.07)
+         & (li.l_quantity < 24.0))
+    return float((li.l_extendedprice[m] * li.l_discount[m]).sum())
+
+
+def session_parquet_cells(paths: dict, frames: dict, sf, batch_rows: int,
+                          runs: int, queries: dict) -> None:
+    """Q1, Q6, Q3, Q4 and the customer collect through the session from
+    the Parquet files ``paths`` holding ``frames`` (at ``sf``): decoded on
+    the card, no scan cache, each table's row groups packed into
+    partitions of a batch and concatenated by the coalesce above the scan;
+    each answer equal to pandas from the same rows. Records go into
+    ``queries``."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    li, o, c = frames["lineitem"], frames["orders"], frames["customer"]
+    rgs = {t: praw.file_metadata(p).num_row_groups for t, p in paths.items()}
+    sess = session_of(batch_rows, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    ptables = {n: sess.read.parquet(p) for n, p in paths.items()}
+    out, rec = run_session_parquet(
+        "session Q1 parquet", T.q1(sess, ptables), runs, None, sf, len(li),
+        rgs["lineitem"], 0)
+    rec["max_rel_err"] = check_q1(out, q1_reference(li))
+    queries["session_q1_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session Q6 parquet", T.q6(sess, ptables), runs, None, sf, len(li),
+        rgs["lineitem"], 0)
+    err = _rel_err([out.revenue[0]], [q6_reference(li)])
+    require(len(out) == 1 and err <= F64_RTOL,
+            f"session Q6 parquet differs: {err}")
+    rec["max_rel_err"] = err
+    queries["session_q6_parquet"] = rec
+    q3_df = T.q3(sess, ptables)
+    out, rec = run_session_parquet(
+        "session Q3 parquet", q3_df, runs, None, sf,
+        len(li) + len(o) + len(c), sum(rgs.values()), 2)
+    rec["max_rel_err"] = check_q3(out, q3_reference(li, o, c))
+    rec["joins"] = join_execs(sess, q3_df)
+    queries["session_q3_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session Q4 parquet", T.q4(sess, ptables), runs, None, sf,
+        len(li) + len(o), rgs["lineitem"] + rgs["orders"], 0)
+    q4_want = q4_reference(li, o)
+    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
+            and list(out.order_count) == list(q4_want.order_count),
+            f"session Q4 parquet differs: {out} vs {q4_want}")
+    rec["max_rel_err"] = 0.0
+    queries["session_q4_parquet"] = rec
+    out, rec = run_session_parquet(
+        "session customer collect parquet", T.customer_segment(sess, ptables),
+        runs, None, sf, len(c), rgs["customer"], 0)
+    got = out.sort_values("c_custkey").reset_index(drop=True)
+    want = c[c.c_mktsegment == "BUILDING"].reset_index(drop=True)
+    for col in want.columns:
+        require(list(got[col]) == list(want[col]),
+                f"session customer collect: {col} differs from pandas")
+    require(rec["launches"]["slab_pack"] > 0,
+            "session customer scan ran no B8")
+    rec.update(max_rel_err=0.0, rows_out=len(out))
+    queries["session_customer_parquet"] = rec
+
+
+def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
+                        queries: dict, report: dict, q3_want,
+                        session_q3) -> None:
+    """The session cells of the sorted grouping branches, on the session
+    of the Q3/Q4 cells and its cached uploads (``tables``: lineitem,
+    orders and customer of ``frames`` at ``sf``), switched to the JAX
+    package's default confs: Q3 and a customer string group-by and global
+    min, then TPC-H Q10, Q17, Q18 and Q21 with supplier, part and nation
+    added, each against pandas from the same rows. Records go into
+    ``queries``."""
+    import pandas as pd
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    df = frames["lineitem"]
+    q3_rows = sum(len(f) for f in frames.values())
+    # the JAX package's default confs on the same session and uploads: no
+    # hash branch, so unbounded keys take the sorted-payload branch
+    sess.set_conf("spark.rapids.sql.autoBroadcastJoinThreshold", 10 << 20)
+    sess.set_conf("spark.rapids.sql.agg.hashAggEnabled", False)
+    out, rec = run_session_cell("session Q3 default confs",
+                                T.q3(sess, tables), runs, sf,
+                                q3_rows, 2, ("sorted_payload",))
+    rec["max_rel_err"] = max(check_q3(out, q3_want),
+                             check_q3(out, session_q3))
+    rec["hash_wall_s"] = queries["session_q3"]["wall_s"]
+    queries["session_q3_default"] = rec
+    cust = frames["customer"]
+    out, rec = run_session_cell(
+        "session customer string group-by", tables["customer"]
+        .group_by("c_nationkey")
+        .agg(SF_.min("c_name").alias("min_name"),
+             SF_.max("c_phone").alias("max_phone"),
+             SF_.first("c_mktsegment").alias("first_seg"),
+             SF_.count("c_phone").alias("n")), runs, sf, len(cust),
+        0, ("sorted_space",))
+    g = cust.groupby("c_nationkey")
+    first_seg = g.c_mktsegment.first()
+    want = pd.DataFrame({"c_nationkey": g.c_name.min().index,
+                         "min_name": g.c_name.min().to_numpy(),
+                         "max_phone": g.c_phone.max().to_numpy(),
+                         "first_seg": first_seg.to_numpy(),
+                         "n": g.size().to_numpy()})
+    rec["max_rel_err"] = same_by_key(out, want, ["c_nationkey"],
+                                     "session customer string group-by")
+    queries["session_strings_groupby"] = rec
+    out, rec = run_session_cell(
+        "session customer string min", tables["customer"].agg(
+            SF_.min("c_name").alias("min_name")), runs, sf,
+        len(cust), 0, ("single",))
+    require(list(out.min_name) == [cust.c_name.min()],
+            f"session customer string min: {list(out.min_name)}")
+    rec["max_rel_err"] = 0.0
+    queries["session_strings_global"] = rec
+
+    # TPC-H Q10, Q17, Q18 and Q21 at SF10 on the same session; Q18's
+    # lineitem gets ten 45-unit lines for each of four orders (the
+    # generator's orders never reach its 300 units)
+    t0 = time.perf_counter()
+    more = {"supplier": G.gen_supplier(sf), "part": G.gen_part(sf),
+            "nation": G.gen_nation()}
+    o_keys = frames["orders"].o_orderkey.to_numpy()[[3, 77, 500, 1234]]
+    li18 = pd.concat([df[["l_orderkey", "l_quantity"]], pd.DataFrame({
+        "l_orderkey": np.repeat(o_keys, 10),
+        "l_quantity": np.full(40, 45.0)})], ignore_index=True)
+    report["gen_new_s"] = time.perf_counter() - t0
+    tables.update({n: sess.create_dataframe(f) for n, f in more.items()})
+    t18 = dict(tables, lineitem=sess.create_dataframe(li18))
+    t0 = time.perf_counter()
+    wants = {
+        "q10": q10_reference(df, frames["orders"], cust, more["nation"]),
+        "q17": q17_reference(df, more["part"]),
+        "q18": q18_reference(li18, frames["orders"], cust),
+        "q21": q21_reference(df, more["supplier"], frames["orders"],
+                             more["nation"])}
+    report["pandas_new_s"] = time.perf_counter() - t0
+    log(f"supplier, part, nation SF{sf} and Q18's lineitem "
+        f"{report['gen_new_s']:.1f} s; pandas Q10/Q17/Q18/Q21 "
+        f"{report['pandas_new_s']:.1f} s")
+    new_rows = {
+        "q10": len(cust) + len(frames["orders"]) + len(df) + 25,
+        "q17": len(df) + len(more["part"]),
+        "q18": len(li18) * 2 + len(frames["orders"]) + len(cust),
+        "q21": len(df) * 3 + len(more["supplier"]) + 25
+        + len(frames["orders"])}
+    for qname, qt, joins, branches in (
+            ("q10", tables, 3, ("sorted_payload",)),
+            ("q17", tables, 3, ("single", "sorted_payload")),
+            ("q18", t18, 2, ("sorted_payload",)),
+            ("q21", tables, 5, ("sorted_payload",))):
+        qdf = T.QUERIES[qname](sess, qt)
+        require(expanding_joins(sess, qdf) == joins,
+                f"session {qname}: {expanding_joins(sess, qdf)} expanding "
+                f"joins in the plan, expected {joins}")
+        out, rec = run_session_cell(f"session {qname.upper()}", qdf,
+                                    runs, sf, new_rows[qname], joins,
+                                    branches)
+        want = wants[qname]
+        if qname == "q17":
+            err = _rel_err(out.avg_yearly.to_numpy(np.float64), [want])
+            require(len(out) == 1 and err <= F64_RTOL,
+                    f"session Q17: {out} against {want}")
+        elif qname == "q10":
+            err = same_in_order(out, want, ["c_custkey"],
+                                [("revenue", False), ("c_custkey", True)],
+                                "session Q10")
+        elif qname == "q18":
+            # the 4 orders given 450 units, and any that reach 300
+            require(len(out) >= 4, f"session Q18: {len(out)} rows")
+            err = same_in_order(out, want, ["o_orderkey"],
+                                [("o_totalprice", False),
+                                 ("o_orderdate", True)], "session Q18")
+        else:
+            require(len(out) > 0, "session Q21 returned no rows")
+            err = same_in_order(out, want, ["s_name"],
+                                [("numwait", False), ("s_name", True)],
+                                "session Q21")
+        rec["max_rel_err"] = err
+        queries[f"session_{qname}"] = rec
 
 
 def main() -> int:
@@ -1338,6 +1687,7 @@ def main() -> int:
     queries = {}
     runs = 1 if args.quick else 5
     pq_runs = 1 if args.quick else 3
+    runs_new = 1 if args.quick else 3  # the cells of the sorted branches
     # the runners' Parquet queries take 2 timed runs, the session's 3: the
     # session's Parquet phases made the smoke ~5 minutes longer
     runner_pq_runs = 1 if args.quick else 2
@@ -1368,12 +1718,7 @@ def main() -> int:
     up = time.perf_counter() - t0
     out, walls, launches = run_query(
         "Q6", lambda: Q.q6_from_batches(batches).to_pandas(), runs)
-    sd = df.l_shipdate
-    m = ((sd >= np.datetime64("1994-01-01"))
-         & (sd < np.datetime64("1995-01-01"))
-         & (df.l_discount >= 0.05) & (df.l_discount <= 0.07)
-         & (df.l_quantity < 24.0))
-    q6_want = float((df.l_extendedprice[m] * df.l_discount[m]).sum())
+    q6_want = q6_reference(df)
     err = _rel_err([out.revenue[0]], [q6_want])
     require(len(out) == 1 and err <= F64_RTOL, f"Q6 revenue differs: {err}")
     require_syncs("Q6", lambda: Q.q6_from_batches(batches), 0)
@@ -1407,6 +1752,28 @@ def main() -> int:
                                               "session Q6 against the "
                                               "runner"))
     queries["session_q6"] = rec
+    # a lineitem group-by on four dictionary keys whose joint table,
+    # 4 x 3 x 51 x 12 = 7344 slots (a slot each for null), passes the
+    # dictionary branch's 4096: the row-space branch, its slot attempt
+    # read by one counted sync a call. It reads Q1's seven columns, so it
+    # runs on Q1's cached upload.
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    rs_keys = ["l_returnflag", "l_linestatus", "l_quantity", "l_discount"]
+    cutoff = datetime.date(1998, 9, 2)
+    out, rec = run_session_cell(
+        "session rowspace group-by", tables["lineitem"]
+        .filter(SF_.col("l_shipdate") <= cutoff).group_by(*rs_keys)
+        .agg(SF_.sum("l_extendedprice").alias("sum_price"),
+             SF_.sum("l_tax").alias("sum_tax"),
+             SF_.count("*").alias("n")), runs_new, sf_q1, len(df), 0,
+        ("rowspace",))
+    f = df[df.l_shipdate <= np.datetime64(cutoff)]
+    want = (f.groupby(rs_keys, as_index=False)
+            .agg(sum_price=("l_extendedprice", "sum"),
+                 sum_tax=("l_tax", "sum"), n=("l_extendedprice", "size")))
+    rec["max_rel_err"] = same_by_key(out, want, rs_keys,
+                                     "session rowspace group-by")
+    queries["session_rowspace_groupby"] = rec
     sess.clear_device_cache()
     del sess, tables
     torch.cuda.empty_cache()
@@ -1506,6 +1873,9 @@ def main() -> int:
                              check_q3(out, session_q3))
     rec["threshold_bytes"] = threshold
     queries["session_q3_broadcast"] = rec
+
+    sorted_branch_cells(sess, tables, frames, sf_q1, runs_new, queries,
+                        report, q3_want, session_q3)
     sess.clear_device_cache()
     del sess, tables, q3_df
     torch.cuda.empty_cache()
@@ -1612,65 +1982,7 @@ def main() -> int:
     queries["customer_parquet"] = rec
     pq_out["customer"] = out
 
-    # the same queries through the session from the files: decoded on the
-    # card, no scan cache, each table's row groups packed into partitions
-    # of a batch and concatenated by the coalesce above the scan
-    sess = session_of(q1_batch, **dict(T.HASH_AGG_CONFS, **{
-        "spark.rapids.sql.cacheDeviceScans": False}))
-    ptables = {n: sess.read.parquet(p) for n, p in paths.items()}
-    out, rec = run_session_parquet(
-        "session Q1 parquet", T.q1(sess, ptables), pq_runs,
-        queries["q1_parquet"], sf_q1, len(df), rgs["lineitem"], 0)
-    rec["max_rel_err"] = max(check_q1(out, q1_want), same_by_key(
-        out, pq_out["q1"], ["l_returnflag", "l_linestatus"],
-        "session Q1 parquet against the runner"))
-    queries["session_q1_parquet"] = rec
-    out, rec = run_session_parquet(
-        "session Q6 parquet", T.q6(sess, ptables), pq_runs,
-        queries["q6_parquet"], sf_q1, len(df), rgs["lineitem"], 0)
-    err = _rel_err([out.revenue[0]], [q6_want])
-    require(len(out) == 1 and err <= F64_RTOL,
-            f"session Q6 parquet differs: {err}")
-    rec["max_rel_err"] = max(err, same_by_key(
-        out, pq_out["q6"], ["revenue"], "session Q6 parquet against the "
-        "runner"))
-    queries["session_q6_parquet"] = rec
-    q3_df = T.q3(sess, ptables)
-    # the SF10 files are far above the threshold (--quick's may not be)
-    require(args.quick
-            or join_execs(sess, q3_df)["TpuShuffledHashJoinExec"] == 2,
-            "session Q3 parquet did not plan two shuffled joins")
-    out, rec = run_session_parquet(
-        "session Q3 parquet", q3_df, pq_runs, queries["q3_parquet"], sf_q1,
-        q3_rows, sum(rgs.values()), 2)
-    rec["max_rel_err"] = max(check_q3(out, q3_want),
-                             check_q3(out, pq_out["q3"]))
-    queries["session_q3_parquet"] = rec
-    out, rec = run_session_parquet(
-        "session Q4 parquet", T.q4(sess, ptables), pq_runs,
-        queries["q4_parquet"], sf_q1, q4_rows,
-        rgs["lineitem"] + rgs["orders"], 0)
-    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
-            == list(pq_out["q4"].o_orderpriority)
-            and list(out.order_count) == list(q4_want.order_count)
-            == list(pq_out["q4"].order_count),
-            f"session Q4 parquet differs: {out} vs {q4_want}")
-    rec["max_rel_err"] = 0.0
-    queries["session_q4_parquet"] = rec
-    out, rec = run_session_parquet(
-        "session customer collect parquet", T.customer_segment(sess, ptables),
-        pq_runs, queries["customer_parquet"], sf_q1, len(cust),
-        rgs["customer"], 0)
-    got = out.sort_values("c_custkey").reset_index(drop=True)
-    want = want.sort_values("c_custkey").reset_index(drop=True)
-    for c in want.columns:
-        require(list(got[c]) == list(want[c]),
-                f"session customer collect: {c} differs from pandas")
-    require(rec["launches"]["slab_pack"] > 0,
-            "session customer scan ran no B8")
-    rec.update(max_rel_err=0.0, rows_out=len(out))
-    queries["session_customer_parquet"] = rec
-    del sess, ptables, q3_df, frames, df, cust, pq_out
+    del frames, df, cust, pq_out
     torch.cuda.empty_cache()
 
     df = G.gen_lineitem(sf_q18)
@@ -1721,9 +2033,9 @@ def main() -> int:
     # the Q18 group-by through the session, on the hash branch, beside the
     # runner that collects the same rows
     sess = session_of(q18_batch, **T.HASH_AGG_CONFS)
+    li_q18 = {"lineitem": sess.create_dataframe(df)}
     out, rec = run_session_query(
-        "session Q18 group-by", T.q18_groupby(sess, {
-            "lineitem": sess.create_dataframe(df)}), runs,
+        "session Q18 group-by", T.q18_groupby(sess, li_q18), runs,
         {"wall_s": queries["q18_groupby"]["having_only_wall_s"]}, sf_q18,
         len(df))
     rec["runner_full_result_wall_s"] = queries["q18_groupby"]["wall_s"]
@@ -1739,13 +2051,36 @@ def main() -> int:
             "session Q18 did not run B1 and B2")
     rec["having_rows"] = len(out)
     queries["session_q18_groupby"] = rec
+    # the same query and upload at the default confs: the sorted-payload
+    # branch beside B2
+    sess.set_conf("spark.rapids.sql.agg.hashAggEnabled", False)
+    out, rec = run_session_cell(
+        "session Q18 group-by default confs", T.q18_groupby(sess, li_q18),
+        runs_new, sf_q18, len(df), 0, ("sorted_payload",))
+    rec["max_rel_err"] = max(
+        same_by_key(out, pd.DataFrame({"l_orderkey": want_h.index,
+                                       "sum_qty": want_h.to_numpy()}),
+                    ["l_orderkey"], "session Q18 default against pandas"),
+        same_by_key(out, having, ["l_orderkey"],
+                    "session Q18 default against the runner"))
+    rec["hash_wall_s"] = queries["session_q18_groupby"]["wall_s"]
+    queries["session_q18_groupby_default"] = rec
     sess.clear_device_cache()
     del sess
     torch.cuda.empty_cache()
 
-    path18 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
-                             tables=["lineitem"],
-                             frames={"lineitem": df})["lineitem"]
+    # SF1 files of lineitem, orders and customer: the Q18 group-by's, and
+    # the session's Parquet cells (run at SF1 to keep the smoke within
+    # half its time limit; the runners' Parquet cells above are SF10)
+    frames1 = {"lineitem": df, "orders": G.gen_orders(sf_q18),
+               "customer": G.gen_customer(sf_q18)}
+    paths1 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
+                             frames=frames1)
+    path18 = paths1["lineitem"]
+    session_parquet_cells(paths1, frames1, sf_q18, q1_batch, pq_runs,
+                          queries)
+    del frames1
+    torch.cuda.empty_cache()
 
     def q18_query(t, full):
         grouped, having = Q.q18_agg_from_batches(t)
@@ -1831,7 +2166,7 @@ def main() -> int:
                      f"{q['device_wall_s']:.4f} s")
         elif "cold_s" in q:
             extra = (f"cold {q['cold_s']:.1f} s, {q['row_groups']} row "
-                     f"groups, runner {q['runner_wall_s']:.4f} s")
+                     f"groups, runner {q['runner_wall_s']} s")
         else:
             extra = (f"scan {q['scan_s']:.3f} s, {q['row_groups']} row "
                      f"groups, {q['encoded_bytes'] / 1e6:.1f} MB encoded "

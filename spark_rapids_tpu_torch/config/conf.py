@@ -94,11 +94,11 @@ AGG_SKIP_RATIO = register(
 AGG_HASH_ENABLED = register(
     "spark.rapids.sql.agg.hashAggEnabled", _to_bool, False,
     "One-pass open-addressing hash aggregation (kernel B2) for keys that "
-    "are not all dictionary-encoded.")
+    "are not all dictionary-encoded (off: the sorted-payload branch).")
 AGG_HASH_MAX_SLOTS = register(
     "spark.rapids.sql.agg.hash.maxTableSlots", int, 1 << 17,
     "Slot-count bound of the hash-aggregation table; a batch sizing past "
-    "it needs the out-of-core split, which the port has not yet.")
+    "it aggregates on the sorted-payload branch.")
 BROADCAST_THRESHOLD = register(
     "spark.rapids.sql.autoBroadcastJoinThreshold", _to_bytes, 10 << 20,
     "Maximum estimated build-side size for which a join uses a broadcast "

@@ -13,14 +13,16 @@ Not ported, and why nothing here needs them yet:
   * the fused filter masks, fused selections and whole-stage programs of
     ``exec/fusion.py`` and ``exec/stagecompiler`` (ROADMAP A.10);
   * the dense composite grouping key (``agg.denseKeys``,
-    ``ops/aggregate.dense_composite``, ROADMAP A.3): the aggregate takes
-    the dictionary or hash branch, with the same result;
-  * the first-batch partial-skip heuristic (``agg.runtimeSkip=false``,
-    ROADMAP A.3): the partial pass always decides its skip at run time,
-    the JAX package's default;
+    ``ops/aggregate.dense_composite``, ``exec/statsutil.py``): it engages
+    only under the session's capacity speculation (ROADMAP A.10); the
+    aggregate takes the JAX package's other branches, with the same result;
+  * the first-batch partial-skip heuristic (``agg.runtimeSkip=false``):
+    the partial pass always decides its skip at run time, the JAX
+    package's default;
   * the out-of-core split of a batch whose hash table exceeds
     ``agg.hash.maxTableSlots`` (``exec/outofcore.py``, ROADMAP A.8): such a
-    batch raises NotImplementedError;
+    batch aggregates on the sorted-payload branch instead, with the same
+    result;
   * the exchange's capacity shrink (a counted sync), its speculation, and
     the multi-device routes (ROADMAP A.9): on one device a hash or range
     exchange is one partition of the child's batches, with no sync.
@@ -298,7 +300,7 @@ class TpuHashAggregateExec(TpuExec):
         conf = ctx.conf
         skip_ratio = float(conf.get(C.AGG_SKIP_RATIO.key))
         # the JAX package's dense composite keys (agg.denseKeys) are not
-        # ported: the dictionary or hash branch gives the same result
+        # ported (ROADMAP A.10): its other branches give the same result
         use_hash = (conf.get_bool(C.AGG_HASH_ENABLED.key, False)
                     and self.plan.num_keys > 0)
         hash_table = (int(conf.get(C.AGG_HASH_MAX_SLOTS.key)) if use_hash

@@ -1,8 +1,8 @@
-"""Synthetic TPC-H-like generators for lineitem, orders and customer (copies
-of the JAX package's ``models/tpch_data.gen_lineitem``, ``gen_orders`` and
-``gen_customer``, so both packages see the same rows for the same scale
-factor and seed), and ``write_parquet``, which writes them as Parquet files
-for the device scan.
+"""Synthetic TPC-H-like generators for lineitem, orders, customer, supplier,
+part, nation and region (copies of the JAX package's
+``models/tpch_data.gen_*``, so both packages see the same rows for the same
+scale factor and seed), and ``write_parquet``, which writes the first three
+as Parquet files for the device scan.
 
 Distributions follow the TPC-H spec shapes (uniform quantities 1..50,
 discounts 0..0.10, 7-year date range, A/N/R return flags), not dbgen's exact
@@ -19,6 +19,19 @@ ORDERS_ROWS_PER_SF = 1_500_000
 CUSTOMER_ROWS_PER_SF = 150_000
 PART_ROWS_PER_SF = 200_000
 SUPPLIER_ROWS_PER_SF = 10_000
+
+_P_TYPE_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
+_P_TYPE_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+_P_TYPE_3 = ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]
+_P_NAME_WORDS = ["almond", "antique", "aquamarine", "azure", "beige",
+                 "bisque", "black", "blanched", "blue", "blush", "brown",
+                 "burlywood", "burnished", "chartreuse", "chiffon", "choco",
+                 "coral", "cornflower", "cream", "cyan", "dark", "deep",
+                 "dim", "dodger", "drab", "firebrick", "floral", "forest",
+                 "frosted", "gainsboro", "ghost", "goldenrod", "green",
+                 "grey", "honeydew", "hot", "indian", "ivory", "khaki",
+                 "lace", "lavender", "lawn", "lemon", "light", "lime",
+                 "linen", "magenta", "maroon", "medium", "metallic"]
 
 _EPOCH_1992 = np.datetime64("1992-01-01", "D").astype(int)
 _DATE_RANGE_DAYS = 2526  # 1992-01-01 .. 1998-12-01
@@ -96,6 +109,75 @@ def gen_customer(sf: float, seed: int = 13) -> pd.DataFrame:
         "c_acctbal": np.round(rng.uniform(-999.99, 9999.99, n), 2),
         "c_mktsegment": segment,
         "c_phone": phone,
+    })
+
+
+def gen_supplier(sf: float, seed: int = 17) -> pd.DataFrame:
+    n = max(1, int(SUPPLIER_ROWS_PER_SF * sf))
+    rng = np.random.default_rng(seed)
+    comment = np.array(["", "Customer Complaints about everything",
+                        "quick deliveries", "slept furiously"],
+                       dtype=object)[rng.integers(0, 4, n)]
+    return pd.DataFrame({
+        "s_suppkey": np.arange(1, n + 1, dtype=np.int64),
+        "s_name": np.char.add("Supplier#", np.arange(1, n + 1).astype(str))
+                    .astype(object),
+        "s_nationkey": rng.integers(0, 25, n).astype(np.int32),
+        "s_acctbal": np.round(rng.uniform(-999.99, 9999.99, n), 2),
+        "s_address": np.char.add("addr ", np.arange(n).astype(str))
+                       .astype(object),
+        "s_comment": comment,
+    })
+
+
+def gen_part(sf: float, seed: int = 19) -> pd.DataFrame:
+    n = max(1, int(PART_ROWS_PER_SF * sf))
+    rng = np.random.default_rng(seed)
+    brand = np.array([f"Brand#{i}{j}" for i in range(1, 6)
+                      for j in range(1, 6)], dtype=object)
+    container = np.array(["SM CASE", "SM BOX", "MED BAG", "MED BOX",
+                          "LG CASE", "LG BOX", "JUMBO PKG", "WRAP JAR"],
+                         dtype=object)
+    w = np.asarray(_P_NAME_WORDS, dtype=object)
+    name = (w[rng.integers(0, len(w), n)] + " "
+            + w[rng.integers(0, len(w), n)] + " "
+            + w[rng.integers(0, len(w), n)])
+    ptype = (np.asarray(_P_TYPE_1, dtype=object)[rng.integers(0, 6, n)] + " "
+             + np.asarray(_P_TYPE_2, dtype=object)[rng.integers(0, 5, n)] + " "
+             + np.asarray(_P_TYPE_3, dtype=object)[rng.integers(0, 5, n)])
+    return pd.DataFrame({
+        "p_partkey": np.arange(1, n + 1, dtype=np.int64),
+        "p_name": name,
+        "p_mfgr": np.char.add("Manufacturer#",
+                              rng.integers(1, 6, n).astype(str)).astype(object),
+        "p_brand": brand[rng.integers(0, len(brand), n)],
+        "p_type": ptype,
+        "p_size": rng.integers(1, 51, n).astype(np.int32),
+        "p_container": container[rng.integers(0, len(container), n)],
+        "p_retailprice": np.round(rng.uniform(900.0, 2000.0, n), 2),
+    })
+
+
+def gen_nation() -> pd.DataFrame:
+    names = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
+             "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
+             "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE", "PERU",
+             "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM", "RUSSIA",
+             "UNITED KINGDOM", "UNITED STATES"]
+    regions = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3,
+               4, 2, 3, 3, 1]
+    return pd.DataFrame({
+        "n_nationkey": np.arange(25, dtype=np.int32),
+        "n_name": pd.Series(names),
+        "n_regionkey": np.asarray(regions, dtype=np.int32),
+    })
+
+
+def gen_region() -> pd.DataFrame:
+    return pd.DataFrame({
+        "r_regionkey": np.arange(5, dtype=np.int32),
+        "r_name": pd.Series(["AFRICA", "AMERICA", "ASIA", "EUROPE",
+                             "MIDDLE EAST"]),
     })
 
 

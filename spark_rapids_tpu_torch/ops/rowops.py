@@ -32,6 +32,16 @@ def rank_of_iota(sorted_vals: torch.Tensor, out_len: int) -> torch.Tensor:
     return torch.cumsum(hist[:out_len], 0, dtype=torch.int32)
 
 
+def packed_gather_vectors(vectors: Sequence[torch.Tensor],
+                          perm: torch.Tensor) -> List[torch.Tensor]:
+    """Gather many same-length vectors by one index vector, one gather a
+    vector (the JAX package stacks them by dtype, because a 1-D gather is a
+    scalar loop on the TPU; on the GPU a gather a vector moves the same
+    bytes without the stacking copy)."""
+    idx = perm.long()
+    return [v[idx] for v in vectors]
+
+
 def gather_columns(cols: Sequence[DeviceColumn], perm: torch.Tensor,
                    live: torch.Tensor) -> List[DeviceColumn]:
     """Gather many columns by one index vector. ``live`` marks which output

@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.columnar.column import (
 from spark_rapids_tpu_torch.ops.rowops import gather_batch
 
 _SIGN = -(1 << 63)  # int64 holding the uint64 pattern 1 << 63
+STRING_PREFIX_CHUNKS = 8  # 64 prefix bytes
 
 
 def u64_key_image(col: DeviceColumn,
@@ -33,11 +34,13 @@ def u64_key_image(col: DeviceColumn,
 
     ``allow_dict``: dictionary codes are assigned in canonical sorted value
     order, so within one batch (or batches sharing one dictionary) the code
-    is an exact order-preserving and equality-exact image."""
+    is an exact order-preserving and equality-exact image. Other string
+    columns give their prefix chunks and length (``_string_prefix_chunks``):
+    exact for a char slab, whose rows fit the 64 prefix bytes."""
     if col.dtype.is_string:
         if allow_dict and col.dict_values is not None:
             return [col.dict_codes.to(torch.int64)]
-        raise plain_strings_unsupported("u64_key_image")
+        return _string_prefix_chunks(col)
     d = col.data
     if d.dtype == torch.bool:
         return [d.to(torch.int64)]
@@ -48,6 +51,53 @@ def u64_key_image(col: DeviceColumn,
         return [torch.where(bits < 0, ~bits, bits | _SIGN)]
     # signed integers (incl. date/timestamp reps): flip the sign bit
     return [d.to(torch.int64) ^ _SIGN]
+
+
+def bswap64(x: torch.Tensor) -> torch.Tensor:
+    """Byte-reverse 64-bit words: a slab word (byte j at bit 8*j) becomes
+    the big-endian image whose unsigned order is the bytes' order."""
+    return x.contiguous().view(torch.uint8).view(-1, 8).flip(1) \
+        .view(torch.int64).view(x.shape)
+
+
+def _string_prefix_chunks(col: DeviceColumn) -> List[torch.Tensor]:
+    """STRING_PREFIX_CHUNKS big-endian 8-byte prefix images and a trailing
+    length, the images the JAX package compares strings by (past-end bytes
+    are 0x00, and the length settles 'a' < 'ab'):
+
+      * a dictionary column gathers its per-value tables by code
+        (``columnar/dictionary.value_prefix_chunk_tables``), pure functions
+        of the value bytes, so they compare exactly against any other
+        column's images;
+      * a char slab's chunk c is its word c byte-swapped, and zero past the
+        slab's width (bytes past a row's length are zero by the slab
+        invariant).
+
+    The packed-chars layout is not ported (ROADMAP A.5)."""
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    if col.dict_values is not None and col.dict_codes is not None:
+        from spark_rapids_tpu_torch.columnar.dictionary import (
+            value_prefix_chunk_tables,
+        )
+        code = col.dict_codes.to(torch.int64).clamp(0, col.dict_card)
+        return [host_to_device(t, col.device)[code]
+                for t in value_prefix_chunk_tables(col.dict_values)]
+    if col.has_slab:
+        w = int(col.slab64.shape[1])
+        chunks = [bswap64(col.slab64[:, c]) if c < w
+                  else torch.zeros(col.capacity, dtype=torch.int64,
+                                   device=col.device)
+                  for c in range(STRING_PREFIX_CHUNKS)]
+        return chunks + [col.lens.to(torch.int64)]
+    raise plain_strings_unsupported("_string_prefix_chunks")
+
+
+def string_prefix8(col: DeviceColumn) -> torch.Tensor:
+    """The column's 8-byte big-endian prefix image (0-padded past the end;
+    pair it with the length, 'a' and 'a\\x00' alias otherwise)."""
+    if col.has_slab:
+        return bswap64(col.slab64[:, 0])
+    return _string_prefix_chunks(col)[0]
 
 
 def lexsort_permutation(operands: Sequence[torch.Tensor]) -> torch.Tensor:

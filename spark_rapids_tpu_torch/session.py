@@ -186,6 +186,10 @@ class GroupedData:
         return DataFrame(self.df.session,
                          lp.LogicalAggregate(child, grouping, results))
 
+    def count(self) -> "DataFrame":
+        from spark_rapids_tpu_torch.sql import functions as F
+        return self.agg(F.count("*").alias("count"))
+
 
 def _name_of(e: Expression) -> str:
     if isinstance(e, (Alias, Col)):
@@ -299,6 +303,25 @@ class DataFrame:
         out += [col_fn(n) for n in self.schema.names if n not in names]
         out += [col_fn(n) for n in other.schema.names if n not in names]
         return joined.select(*out)
+
+    def drop(self, *names: str) -> "DataFrame":
+        dropped = set(names)
+        return self.select(*[n for n in self.schema.names
+                             if n not in dropped])
+
+    def with_column_renamed(self, old: str, new: str) -> "DataFrame":
+        return self.select(*[
+            col_fn(n).alias(new) if n == old else col_fn(n)
+            for n in self.schema.names])
+
+    withColumnRenamed = with_column_renamed
+
+    def distinct(self) -> "DataFrame":
+        """Deduplicate rows (planned as a group-by over every column)."""
+        exprs = [(n, col_fn(n).expr) for n in self.schema.names]
+        return DataFrame(self.session,
+                         lp.LogicalAggregate(self._plan, exprs, [
+                             (n, col_fn(n).expr) for n in self.schema.names]))
 
     def repartition(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.LogicalRepartition(self._plan, n))

@@ -24,17 +24,22 @@ from spark_rapids_tpu_torch.columnar.dtype import DType, torch_dtype
 
 class DevCol:
     """Device column value during expression evaluation. String values
-    exist only as dictionary codes in this slice (``data`` is None)."""
+    (``data`` None) are dictionary codes or a char slab (``slab64``,
+    ``lens``); a slab passes through evaluation unchanged, and string
+    expressions read only dictionary codes in this slice."""
 
-    __slots__ = ("dtype", "data", "validity", "dict_codes", "dict_values")
+    __slots__ = ("dtype", "data", "validity", "dict_codes", "dict_values",
+                 "slab64", "lens")
 
     def __init__(self, dtype: DType, data, validity, dict_codes=None,
-                 dict_values=None):
+                 dict_values=None, slab64=None, lens=None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.dict_codes = dict_codes
         self.dict_values = dict_values
+        self.slab64 = slab64
+        self.lens = lens
 
 
 class DevScalar:

@@ -16,7 +16,8 @@ from spark_rapids_tpu_torch.sql.exprs.core import (
 
 def make_context(batch: DeviceBatch) -> EvalContext:
     cols = [DevCol(c.dtype, c.data, c.validity, dict_codes=c.dict_codes,
-                   dict_values=c.dict_values) for c in batch.columns]
+                   dict_values=c.dict_values, slab64=c.slab64, lens=c.lens)
+            for c in batch.columns]
     return EvalContext(cols, batch.row_mask(), batch.capacity, batch.device)
 
 
@@ -24,6 +25,12 @@ def to_device_column(ctx: EvalContext, v: DevValue) -> DeviceColumn:
     c = ctx.broadcast(v)
     # mask out padding rows so stale values never leak past num_rows
     validity = c.validity & ctx.row_mask
+    if c.dtype.is_string and c.dict_values is None:
+        # a char slab: masked rows get zero words and length
+        slab = torch.where(validity[:, None], c.slab64,
+                           torch.zeros_like(c.slab64))
+        lens = torch.where(validity, c.lens, torch.zeros_like(c.lens))
+        return DeviceColumn(c.dtype, None, validity, slab64=slab, lens=lens)
     if c.dtype.is_string:
         # dictionary metadata survives the projection: codes re-normalized
         # so masked rows carry the NULL sentinel (= card)

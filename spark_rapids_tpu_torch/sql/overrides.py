@@ -138,7 +138,9 @@ def _tag_filter(meta: ExecMeta) -> None:
     meta.check_exprs([meta.plan.condition], "filter condition")
 
 
-# reductions a string column may feed on the device
+# reductions a string column may feed on the device: count on every
+# branch, min/max/first/last on the sorted-space branch (grouped) and the
+# single-group one (global), over dictionary codes and char slabs
 _STRING_RED_KINDS = ("count_valid", "min", "max", "first", "last",
                      "first_valid", "last_valid")
 

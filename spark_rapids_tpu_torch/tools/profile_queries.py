@@ -2,8 +2,12 @@
 group-by through the port's query runners under ``torch.profiler``, on
 the pandas upload path and on the device Parquet scan, and the session's
 cells: Q3 and Q4 through ``TpuSparkSession`` over cached uploads
-(``session_q3``, ``session_q4``), and the Parquet queries through its
-``read.parquet`` with the device decode (``session_*_parquet``).
+(``session_q3``, ``session_q4``), the Parquet queries through its
+``read.parquet`` with the device decode (``session_*_parquet``), and the
+cells of the sorted grouping branches at the JAX package's default confs
+over cached uploads (``DEFAULT_CONFS``: Q3, Q10, Q17, Q18, Q21, the
+row-space lineitem group-by, the customer string group-by and the Q18
+group-by).
 
 For each query: upload its columns (or, for a ``*_parquet`` query, nothing:
 the scan is part of the profiled run; a session query uploads into its
@@ -52,6 +56,11 @@ PARQUET = ("q1_parquet", "q6_parquet", "q3_parquet", "q4_parquet",
 SESSION = ("session_q3", "session_q4", "session_q1_parquet",
            "session_q6_parquet", "session_q3_parquet", "session_q4_parquet",
            "session_customer_parquet", "session_q18_groupby_parquet")
+# the session at the JAX package's default confs (the sorted grouping
+# branches): cached uploads, SF10 but the Q18 group-by (SF1)
+DEFAULT_CONFS = ("session_q3_default", "session_q10", "session_q17",
+                 "session_q18", "session_q21", "session_rowspace_groupby",
+                 "session_strings_groupby", "session_q18_groupby_default")
 
 
 def _device_us(evt) -> float:
@@ -92,17 +101,29 @@ def profile(name: str, fn, top: int, out_dir: str) -> dict:
 PARQUET_SESSION = {"spark.rapids.sql.cacheDeviceScans": False}
 
 
-def session(batch_rows: int, conf: dict):
+def session(batch_rows: int, conf: dict, hash_agg: bool = True):
     """The port's session on the card as ``chip_smoke.py`` runs it: test
-    mode, the hash-aggregation confs, ``batch_rows``-row batches."""
+    mode, the hash-aggregation confs (unless ``hash_agg`` is False: the
+    JAX package's defaults), ``batch_rows``-row batches."""
     from spark_rapids_tpu_torch.models import tpch as T
     from spark_rapids_tpu_torch.session import TpuSparkSession
     b = (TpuSparkSession.builder()
          .config("spark.rapids.sql.test.enabled", True)
          .config("spark.rapids.sql.batchSizeRows", batch_rows))
-    for k, v in dict(T.HASH_AGG_CONFS, **conf).items():
+    for k, v in dict(T.HASH_AGG_CONFS if hash_agg else {}, **conf).items():
         b.config(k, v)
     return b.get_or_create()
+
+
+def _q18_lineitem(df, orders):
+    """Q18's lineitem as ``chip_smoke.py`` makes it: l_orderkey and
+    l_quantity with ten 45-unit lines for each of four orders."""
+    import numpy as np
+    import pandas as pd
+    keys = orders.o_orderkey.to_numpy()[[3, 77, 500, 1234]]
+    return pd.concat([df[["l_orderkey", "l_quantity"]], pd.DataFrame({
+        "l_orderkey": np.repeat(keys, 10),
+        "l_quantity": np.full(40, 45.0)})], ignore_index=True)
 
 
 def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
@@ -121,7 +142,7 @@ def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", nargs="+",
-                    choices=UPLOAD + PARQUET + SESSION,
+                    choices=UPLOAD + PARQUET + SESSION + DEFAULT_CONFS,
                     help="profile these queries alone (default: all)")
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--tag", default="", help="suffix of the output names")
@@ -143,7 +164,7 @@ def main() -> None:
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
-    want = set(args.queries or UPLOAD + PARQUET + SESSION)
+    want = set(args.queries or UPLOAD + PARQUET + SESSION + DEFAULT_CONFS)
     tag = args.tag
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
@@ -154,7 +175,7 @@ def main() -> None:
             results.append(profile(name + tag, fn, TOP, out_dir))
 
     q18 = {"q18_groupby", "q18_groupby_parquet",
-           "session_q18_groupby_parquet"}
+           "session_q18_groupby_parquet", "session_q18_groupby_default"}
     sf10 = want - q18
     if sf10:
         df = gen_lineitem(10)
@@ -180,6 +201,31 @@ def main() -> None:
             run("session_q3", T.q3(sess, t).collect)
             run("session_q4", T.q4(sess, t).collect)
             del sess, t
+        if want & set(DEFAULT_CONFS):
+            from spark_rapids_tpu_torch.sql import functions as F
+            sess = session(1 << 23, {"spark.rapids.sql.cacheDeviceScans":
+                                     True}, hash_agg=False)
+            t = {n: sess.create_dataframe(f) for n, f in frames.items()}
+            t.update({"supplier": sess.create_dataframe(G.gen_supplier(10)),
+                      "part": sess.create_dataframe(G.gen_part(10)),
+                      "nation": sess.create_dataframe(G.gen_nation())})
+            t18 = dict(t, lineitem=sess.create_dataframe(
+                _q18_lineitem(df, frames["orders"])))
+            run("session_q3_default", T.q3(sess, t).collect)
+            for name in ("q10", "q17", "q21"):
+                run(f"session_{name}", T.QUERIES[name](sess, t).collect)
+            run("session_q18", T.q18(sess, t18).collect)
+            run("session_rowspace_groupby", t["lineitem"].group_by(
+                "l_returnflag", "l_linestatus", "l_quantity", "l_discount")
+                .agg(F.sum("l_extendedprice").alias("sum_price"),
+                     F.count("*").alias("n")).collect)
+            run("session_strings_groupby", t["customer"]
+                .group_by("c_nationkey")
+                .agg(F.min("c_name").alias("min_name"),
+                     F.max("c_phone").alias("max_phone"),
+                     F.first("c_mktsegment").alias("first_seg"),
+                     F.count("c_phone").alias("n")).collect)
+            del sess, t, t18
         if sf10 & {n for n in PARQUET + SESSION if n.endswith("_parquet")}:
             paths = _parquet_files(G, "sf10", 10, frames)
             run("q1_parquet", lambda: Q.q1_from_batches(
@@ -213,6 +259,12 @@ def main() -> None:
             run("q18_groupby_parquet", lambda: [
                 b.to_pandas() for b in Q.q18_agg_from_batches(
                     S.scan_table(path18, Q.Q18_COLUMNS))])
+        if "session_q18_groupby_default" in want:
+            sess = session(1 << 22, {"spark.rapids.sql.cacheDeviceScans":
+                                     True}, hash_agg=False)
+            run("session_q18_groupby_default", T.q18_groupby(
+                sess, {"lineitem": sess.create_dataframe(df)}).collect)
+            del sess
         if "session_q18_groupby_parquet" in want:
             path18 = _parquet_files(G, "sf1", 1, {"lineitem": df},
                                     ["lineitem"])["lineitem"]

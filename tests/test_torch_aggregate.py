@@ -1,6 +1,7 @@
 """The port's aggregation against the JAX package, on the CPU: the update
-and merge steps on the dictionary, hash and keyless branches, and the
-dense per-slot reductions. Same batches on both sides (the port's batches
+and merge steps on the dictionary, hash, sorted-payload and keyless
+branches, and the dense per-slot reductions (every branch alone:
+``tests/test_torch_groupby.py``). Same batches on both sides (the port's batches
 are built from the JAX package's buffers); counts, keys and integers must
 match exactly, float64 results at rtol 1e-9."""
 
@@ -130,14 +131,22 @@ def test_update_and_merge_match_reference(branch, rng):
 
 
 def test_hash_branch_declines_over_budget_and_unported_branches_raise(rng):
+    """Over its slot budget the hash branch declines and the sorted-payload
+    branch takes the batch, as in the JAX package; without a hash table the
+    same key takes that branch too (the JAX package's default). Both equal
+    the JAX package's results, update and merge."""
     df = _frame(rng, 2000)  # okey too many values for a dictionary
-    port = batch_from_reference(RefBatch.from_pandas(df))
+    ref = RefBatch.from_pandas(df)
+    port = batch_from_reference(ref)
     assert port.column("okey").dict_values is None
-    # over budget the hash branch declines, naming the unported split
-    with pytest.raises(NotImplementedError, match="out-of-core split"):
-        _run(PORT, [port], ["okey"], hash_table=16)  # table needs 4096
-    with pytest.raises(NotImplementedError, match="_sorted_payload_reduce"):
-        _run(PORT, [port], ["okey"], hash_table=None)
+    for hash_table in (16, None):  # a table of 16 slots; the batch needs 4096
+        aggregate.reset_branches()
+        ref_parts, ref_out = _run(REF, [ref], ["okey"], hash_table)
+        parts, out = _run(PORT, [port], ["okey"], hash_table)
+        assert set(aggregate.BRANCHES) == {"sorted_payload"}
+        _assert_same(parts[0].to_pandas(), ref_parts[0].to_pandas(),
+                     ["okey"])
+        _assert_same(out.to_pandas(), ref_out.to_pandas(), ["okey"])
 
 
 def test_slot_reduce_dense_matches_reference(rng):

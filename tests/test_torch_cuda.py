@@ -839,3 +839,58 @@ def test_session_parquet_device_decode_on_the_card(cuda_device, tpch_frames,
     for k in ("hybrid_expand", "delta_unpack", "plain_fixed", "slab_pack",
               "hash_table_build", "hash_table_probe"):
         assert K.LAUNCHES[k] > 0, k
+
+
+def _default_conf_query(name):
+    """(session, tables) -> DataFrame of the sorted-branch card cases."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.sql import functions as F
+    if name in tpch.QUERIES:
+        return tpch.QUERIES[name]
+    if name == "rowspace":  # 4 dictionary keys, 7344 joint slots
+        return lambda s, t: t["lineitem"].group_by(
+            "l_returnflag", "l_linestatus", "l_quantity", "l_discount").agg(
+            F.sum("l_extendedprice").alias("p"), F.count("*").alias("n"),
+            F.first("l_orderkey").alias("fk"))
+    if name == "strings":
+        return lambda s, t: t["customer"].group_by("c_nationkey").agg(
+            F.min("c_name").alias("a"), F.max("c_phone").alias("b"),
+            F.last("c_mktsegment").alias("c"), F.count("c_phone").alias("n"))
+    assert name == "distinct"
+    return lambda s, t: t["lineitem"].select("l_orderkey",
+                                             "l_suppkey").distinct()
+
+
+_SORTED_CASES = {"q3": ["l_orderkey"], "q10": ["c_custkey"],
+                 "q17": ["avg_yearly"], "q18_groupby": ["l_orderkey"],
+                 "q21": ["s_name"],
+                 "rowspace": ["l_returnflag", "l_linestatus", "l_quantity",
+                              "l_discount"],
+                 "strings": ["c_nationkey"],
+                 "distinct": ["l_orderkey", "l_suppkey"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_SORTED_CASES))
+def test_sorted_branches_on_the_card(cuda_device, tpch_frames, name):
+    """The sorted grouping branches (sorted payload, sorted space, row
+    space) through the session at the JAX package's default confs, at SF
+    0.05 in 2^16-row batches: the card's answer equals the CPU session's;
+    the branch counts agree, so the card took the same branches."""
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import aggregate
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    fr = dict(tpch_frames, supplier=G.gen_supplier(0.05),
+              part=G.gen_part(0.05), nation=G.gen_nation())
+    outs, branches = [], []
+    for device in ("cuda", "cpu"):
+        s = (TpuSparkSession.builder().device(device)
+             .config("spark.rapids.sql.test.enabled", True)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 16)
+             .get_or_create())
+        t = {n: s.create_dataframe(f) for n, f in fr.items()}
+        aggregate.reset_branches()
+        outs.append(_default_conf_query(name)(s, t).collect())
+        branches.append(dict(aggregate.BRANCHES))
+    assert branches[0] == branches[1] and "hash" not in branches[0]
+    _same_by_key(outs[0], outs[1], _SORTED_CASES[name])

@@ -10,8 +10,8 @@ exact, float64 sums and averages at rtol 1e-9 (sums are taken in another
 order), group-by outputs compared by key. The CPU path
 (``spark.rapids.sql.enabled=false``) gives the same answers; the explain
 lines name the same operators with the same ``*`` marks as the JAX
-package's; the Q18 group-by needs the hash branch and raises
-NotImplementedError naming the unported branch without it.
+package's; without the hash branch (the JAX package's defaults) the Q18
+group-by takes the sorted-payload branch, equal too.
 """
 
 import numpy as np
@@ -201,12 +201,21 @@ def test_session_explain_matches_reference(session, lineitem, qname):
 
 
 def test_session_q18_without_hash_agg_raises(lineitem):
-    """The JAX package's defaults take the sorted-payload branch for the
-    Q18 key; the port has not got it and says so."""
-    s = TpuSparkSession.builder().device("cpu").get_or_create()
-    q = tpch.q18_groupby(s, {"lineitem": s.create_dataframe(lineitem)})
-    with pytest.raises(NotImplementedError, match="_sorted_payload_reduce"):
-        q.collect()
+    """At the JAX package's default confs (no hash branch) the Q18 key takes
+    the sorted-payload branch in both packages: the same rows as the JAX
+    session's and pandas'."""
+    from spark_rapids_tpu_torch.ops import aggregate
+    s = (TpuSparkSession.builder().device("cpu")
+         .config("spark.rapids.sql.test.enabled", True).get_or_create())
+    for qname in ("q18_groupby", "q18_groupby_all"):
+        aggregate.reset_branches()
+        got = _port_query(qname)(
+            s, {"lineitem": s.create_dataframe(lineitem)}).collect()
+        assert aggregate.BRANCHES["sorted_payload"] > 0
+        assert aggregate.BRANCHES["hash"] == 0
+        _assert_same(got, _run_ref(qname, lineitem, conf={}),
+                     ["l_orderkey"])
+        _assert_same(got, _pandas(qname, lineitem), ["l_orderkey"])
 
 
 def test_session_syncs_match_the_runners(lineitem):
@@ -280,8 +289,9 @@ def test_session_range_union_limit_coalesce_expand():
 def test_session_hash_slot_budget_binds_only_the_hash_branch():
     """With the hash branch on, a batch past agg.hash.maxTableSlots still
     aggregates on a dictionary key (the dictionary branch comes first, as
-    Q4's o_orderpriority at SF10); on a key of the hash branch it raises
-    naming the unported out-of-core split."""
+    Q4's o_orderpriority at SF10); on a key of the hash branch the hash
+    branch declines and the sorted-payload branch aggregates it, as in the
+    JAX package."""
     n = 3000
     df = pd.DataFrame({
         "k": np.array(["a", "b", "c"], dtype=object)[np.arange(n) % 3],
@@ -293,6 +303,11 @@ def test_session_hash_slot_budget_binds_only_the_hash_branch():
            .agg(F.sum("v").alias("sv")).collect())
     want = df.groupby("k", as_index=False).agg(sv=("v", "sum"))
     _assert_same(got, want, ["k"])
-    with pytest.raises(NotImplementedError, match="out-of-core split"):
-        (s.create_dataframe(df).group_by("u")
-         .agg(F.sum("v").alias("sv")).collect())
+    from spark_rapids_tpu_torch.ops import aggregate
+    aggregate.reset_branches()
+    got = (s.create_dataframe(df).group_by("u")
+           .agg(F.sum("v").alias("sv")).collect())
+    assert aggregate.BRANCHES["sorted_payload"] > 0
+    assert aggregate.BRANCHES["hash"] == 0
+    want = df.groupby("u", as_index=False).agg(sv=("v", "sum"))
+    _assert_same(got, want, ["u"])

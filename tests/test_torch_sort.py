@@ -2,7 +2,8 @@
 ``lexsort_permutation``, ``sort_key_operands``, ``sort_batch`` and
 ``slice_batch``/``slice_batch_to`` on ``batch_from_reference`` copies of the
 same batches. Mixed ascending and descending keys, nulls first and last,
-float edge values (-0.0, NaN, infinities) and dictionary string keys. The
+float edge values (-0.0, NaN, infinities), dictionary string keys and
+plain string keys (char slabs in the port, 64-byte prefix images). The
 sort permutation must be exact, so the sorted batches agree row for row."""
 
 import numpy as np
@@ -33,9 +34,14 @@ def _frame(rng, n=400):
     # a numpy float column holds NaN as a value (the nullable "f" turns
     # NaN into NULL)
     raw = np.asarray(EDGE_F64)[rng.integers(0, len(EDGE_F64), n)]
-    return pd.DataFrame({"f": f, "i": i, "s": s, "ts": ts,
-                         "big": rng.integers(-(1 << 62), 1 << 62, n),
-                         "raw": raw, "row": np.arange(n)})
+    big = rng.integers(-(1 << 62), 1 << 62, n)
+    # a plain string column (no dictionary: a char slab in the port):
+    # prefixes of one another, the empty string, ties, nulls
+    words = np.array(["", "a", "ab", "abc", "b", "ba", None] + [
+        f"w{k:03d}" for k in range(300)], dtype=object)
+    plain = words[rng.integers(0, len(words), n)]
+    return pd.DataFrame({"f": f, "i": i, "s": s, "ts": ts, "big": big,
+                         "raw": raw, "row": np.arange(n), "plain": plain})
 
 
 # (key columns, ascending, nulls first)
@@ -48,6 +54,8 @@ ORDERS = [
     ([4], [False], [True]),
     ([5, 2], [False, True], [True, True]),
     ([5, 1], [True, False], [False, False]),
+    ([7, 6], [True, True], [True, True]),
+    ([7, 1], [False, True], [False, True]),
 ]
 
 
