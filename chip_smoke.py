@@ -1199,13 +1199,15 @@ def run_session_query(name: str, query, runs: int, runner: dict,
 
 def expanding_joins(sess, df) -> int:
     """The joins of a session query's device plan that expand rows (every
-    type but the semi and anti joins), each subtree counted as often as
-    the plan holds it: each makes one counted sync (its single stream
-    partition's expansion totals)."""
+    type but the semi and anti joins; cross joins included), each subtree
+    counted as often as the plan executes it (a subtree shared through
+    ``exec/reuse.TpuReuseSubtreeExec`` once): each makes one counted sync
+    (its single stream partition's expansion totals)."""
     from spark_rapids_tpu_torch.exec import tpujoin
-    return sum(1 for node in sess.physical_plan(df._plan).walk()
-               if isinstance(node, tpujoin.TpuShuffledHashJoinExec)
-               and node.join_type not in ("leftsemi", "leftanti"))
+    joins = {id(node): node for node in sess.physical_plan(df._plan).walk()
+             if isinstance(node, tpujoin.TpuShuffledHashJoinExec)
+             and node.join_type not in ("leftsemi", "leftanti")}
+    return len(joins)
 
 
 def run_session_cell(name: str, query, runs: int, sf, rows: int,
@@ -1549,6 +1551,7 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
         "l_orderkey": np.repeat(o_keys, 10),
         "l_quantity": np.full(40, 45.0)})], ignore_index=True)
     report["gen_new_s"] = time.perf_counter() - t0
+    frames.update(more)
     tables.update({n: sess.create_dataframe(f) for n, f in more.items()})
     t18 = dict(tables, lineitem=sess.create_dataframe(li18))
     t0 = time.perf_counter()
@@ -1602,6 +1605,259 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
                                 "session Q21")
         rec["max_rel_err"] = err
         queries[f"session_{qname}"] = rec
+
+
+# the 14 queries of the expression and cross-join slice, and the tables
+# each reads
+NEW_TPCH = {
+    "q2": ("region", "nation", "supplier", "partsupp", "part"),
+    "q5": ("region", "nation", "customer", "orders", "lineitem",
+           "supplier"),
+    "q7": ("lineitem", "supplier", "nation", "orders", "customer"),
+    "q8": ("part", "lineitem", "supplier", "orders", "customer", "nation",
+           "region"),
+    "q9": ("part", "lineitem", "supplier", "partsupp", "orders", "nation"),
+    "q11": ("partsupp", "supplier", "nation"),
+    "q12": ("orders", "lineitem"),
+    "q13": ("customer", "orders"),
+    "q14": ("lineitem", "part"),
+    "q15": ("lineitem", "supplier"),
+    "q16": ("partsupp", "supplier", "part"),
+    "q19": ("lineitem", "part"),
+    "q20": ("part", "lineitem", "partsupp", "supplier", "nation"),
+    "q22": ("customer", "orders"),
+}
+CROSS_JOIN_QUERIES = ("q11", "q15", "q22")
+
+
+def same_query(got, want, qname: str, what: str) -> float:
+    """``got`` equal to the pandas reference ``want`` in the query's order
+    (rows tied on its sort key as a set): keys, counts and strings exact,
+    floats at rtol 1e-9. Returns the largest relative float error."""
+    from spark_rapids_tpu_torch.testing import tpchcases as TC
+    require(list(got.columns) == list(want.columns)
+            and len(got) == len(want),
+            f"{what}: shape {got.shape} {list(got.columns)} against "
+            f"{want.shape} {list(want.columns)}")
+    order = TC.ORDERS[qname]
+    if order is not None:
+        got, want = TC.in_query_order(got, order), TC.in_query_order(
+            want, order)
+    err = 0.0
+    for c in got.columns:
+        g, w = got[c], want[c]
+        if pd_is_float(w):
+            err = max(err, _rel_err(g.to_numpy(np.float64),
+                                    w.to_numpy(np.float64)))
+        else:
+            require([str(x) for x in g] == [str(x) for x in w],
+                    f"{what}: column {c} differs")
+    require(err <= F64_RTOL, f"{what}: rel {err}")
+    return err
+
+
+def pd_is_float(s) -> bool:
+    import pandas as pd
+    return pd.api.types.is_float_dtype(s.dtype)
+
+
+def tpch_cells(sess, tables: dict, frames: dict, sf, runs: int,
+               queries: dict, report: dict) -> None:
+    """TPC-H Q2, Q5, Q7, Q8, Q9, Q11, Q12, Q13, Q14, Q15, Q16, Q19, Q20
+    and Q22 at ``sf`` on the session of the sorted-branch cells (the JAX
+    package's default confs, cached uploads, test mode), with partsupp and
+    region added and Q11's and Q20's partsupp and Q22's orders changed so
+    that they give rows (``testing/tpchcases.query_frames``). Each answer equals its
+    pandas reference (``tpchcases.pandas_reference``) and has rows; Q14's
+    and Q19's one value is not NULL; Q11, Q15 and Q22 run a cartesian
+    product. Counted syncs: one per expanding join (inner, outer and
+    cross) plus one per row-space call. Records go into ``queries``."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    from spark_rapids_tpu_torch.exec.reuse import TpuReuseSubtreeExec
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.testing import tpchcases as TC
+    t0 = time.perf_counter()
+    frames = dict(frames, partsupp=G.gen_partsupp(sf),
+                  region=G.gen_region())
+    report["gen_partsupp_s"] = time.perf_counter() - t0
+    # the earlier cells' uploads: the new queries read other column sets
+    sess.clear_device_cache()
+    torch.cuda.empty_cache()
+    base = dict(tables, partsupp=sess.create_dataframe(frames["partsupp"]),
+                region=sess.create_dataframe(frames["region"]))
+    report["pandas_tpch_s"] = {}
+    for qname, names in NEW_TPCH.items():
+        fr = TC.query_frames(qname, frames)
+        changed = [n for n in ("partsupp", "orders")
+                   if fr[n] is not frames[n]]
+        qt = dict(base, **{n: sess.create_dataframe(fr[n])
+                           for n in changed})
+        t0 = time.perf_counter()
+        want = TC.pandas_reference(qname, fr)
+        report["pandas_tpch_s"][qname] = time.perf_counter() - t0
+        qdf = T.QUERIES[qname](sess, qt)
+        plan = list(sess.physical_plan(qdf._plan).walk())
+        crosses = sum(isinstance(n, tpujoin.TpuCartesianProductExec)
+                      for n in plan)
+        require(crosses == (qname in CROSS_JOIN_QUERIES),
+                f"session {qname}: {crosses} cartesian products")
+        shared = len({id(n) for n in plan
+                      if isinstance(n, TpuReuseSubtreeExec)})
+        # Q15's revenue view executes once for both its readers, so its
+        # sums and their maximum are the same bits
+        require(shared == (qname == "q15"),
+                f"session {qname}: {shared} shared subtrees")
+        joins = expanding_joins(sess, qdf)
+        what = f"session {qname.upper()}"
+        out, rec = run_session_cell(what, qdf, runs, sf,
+                                    sum(len(fr[n]) for n in names), joins,
+                                    ())
+        require(len(out) > 0, f"{what} returned no rows")
+        if qname in ("q14", "q19"):
+            require(bool(out.iloc[:, 0].notna().all()),
+                    f"{what}: a NULL answer")
+        rec["max_rel_err"] = same_query(out, want, qname, what)
+        launches = rec["launches"]
+        require(launches["compact_permutation"] > 0
+                and launches["hash_table_build"] > 0
+                and launches["hash_table_probe"] > 0,
+                f"{what} did not run B1, B3 and B4: {launches}")
+        rec.update(expanding_joins=joins, cross_joins=crosses,
+                   shared_subtrees=shared,
+                   pandas_s=report["pandas_tpch_s"][qname])
+        queries[f"session_{qname}"] = rec
+        if changed:
+            sess.clear_device_cache()  # the uploads of its changed tables
+    sess.clear_device_cache()
+    torch.cuda.empty_cache()
+
+
+def _same_columns(card, cpu, what: str) -> None:
+    """Two device columns equal where valid, with the same validity:
+    values exact; strings in the same form (dictionary codes and values,
+    or slab words and lengths)."""
+    valid = card.validity.cpu()
+    require(torch.equal(valid, cpu.validity), f"{what}: validity differs")
+    if card.dtype.is_string:
+        if cpu.dict_values is not None:
+            require(card.dict_values == cpu.dict_values
+                    and torch.equal(card.dict_codes.cpu()[valid],
+                                    cpu.dict_codes[valid]),
+                    f"{what}: dictionary strings differ")
+            return
+        require(card.has_slab and cpu.has_slab
+                and torch.equal(card.lens.cpu()[valid], cpu.lens[valid])
+                and torch.equal(card.slab64.cpu()[valid],
+                                cpu.slab64[valid]),
+                f"{what}: slab strings differ")
+        return
+    require(torch.equal(card.data.cpu()[valid], cpu.data[valid]),
+            f"{what}: values differ")
+
+
+# the card's string phase: every comparison against a literal and between
+# columns, the string predicates, LIKE, substring, IN, OR/NOT, CASE WHEN,
+# if and year, over a char slab and a dictionary
+SMOKE_STRING_CASES = [
+    f"{c}_{op}_{lit}" for c in ("s", "d")
+    for op in ("eq", "ne", "lt", "le", "gt", "ge")
+    for lit in ("prefix9", "long")] + [
+    f"lit_{op}_{c}" for c in ("s", "d")
+    for op in ("eq", "ne", "lt", "le", "gt", "ge")] + [
+    f"{a}_{op}_{b}" for a, b in (("s", "s2"), ("d", "d2"), ("s", "d"))
+    for op in ("eq", "ne", "lt", "le", "gt", "ge")] + [
+    f"{c}_{fn}_{p!r}" for c in ("s", "d")
+    for fn in ("startswith", "endswith", "contains")
+    for p in ("abcdefghi", "hi")] + [
+    f"{c}_like_{p!r}" for c in ("s", "d")
+    for p in ("abcdefgh", "ab%", "%hi", "%cd%")] + [
+    f"{c}_{k}" for c in ("s", "d")
+    for k in ("substr_1_2", "substr_-3_2", "substr_3_-1", "substring_isin",
+              "in", "in_null")] + [
+    "x_in_null", "or_nulls", "not_and_or", "case_float", "case_multi", "if",
+    "year"]
+
+
+def string_phase(rows: int, runs: int, report: dict) -> dict:
+    """The string cases (``testing/stringcases.py``) of
+    ``SMOKE_STRING_CASES`` in one projection of a ``rows``-row frame
+    (char-slab and dictionary columns with nulls), through the session on
+    the card and on the CPU (``device="cpu"``, the same code in torch on
+    the host): every output column equal. The card's projection is timed
+    (median of ``runs`` after a cold run that uploads the frame)."""
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.testing import stringcases
+    t0 = time.perf_counter()
+    frame = stringcases.string_frame(rows)
+    table = stringcases.cases(stringcases.port_conditional)
+    names = SMOKE_STRING_CASES
+    require(set(names) <= set(table), "unknown string cases")
+    gen_s = time.perf_counter() - t0
+    outs = {}
+    for device in ("cuda", "cpu"):
+        b = (TpuSparkSession.builder().device(device)
+             .config("spark.rapids.sql.test.enabled", True)
+             .config("spark.rapids.sql.cacheDeviceScans", True)
+             .config("spark.rapids.sql.batchSizeRows", rows))
+        s = b.get_or_create()
+        df = stringcases.projection(SF_, s, frame, table, names)
+        t0 = time.perf_counter()
+        outs[device] = df.collect_batches()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            _out, walls, _l = run_query("string phase", df.collect_batches,
+                                        runs)
+        else:
+            cpu_s = time.perf_counter() - t0
+    card, cpu = outs["cuda"], outs["cpu"]
+    require(len(card) == len(cpu), "string phase: batch counts differ")
+    slabs = 0
+    for bc, bh in zip(card, cpu):
+        require(int(bc.num_rows.item()) == int(bh.num_rows.item()),
+                "string phase: row counts differ")
+        for name, cc, ch in zip(bc.schema.names, bc.columns, bh.columns):
+            _same_columns(cc, ch, f"string phase {name}")
+        slabs += sum(c.has_slab for c in bc.columns)
+    rec = {"rows": rows, "cases": len(names), "gen_s": gen_s,
+           "cold_s": cold, "wall_s": float(np.median(walls)),
+           "wall_runs_s": walls, "cpu_session_s": cpu_s,
+           "slab_outputs": slabs}
+    log(f"string phase: {len(names)} cases over {rows} rows equal to the "
+        f"CPU session; card {rec['wall_s']:.4f} s (cold {cold:.1f} s), "
+        f"CPU session {cpu_s:.1f} s")
+    report["string_phase"] = rec
+    return rec
+
+
+def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
+                    runs: int, queries: dict) -> None:
+    """TPC-H Q9 through the session from Parquet files (lineitem, orders,
+    part, partsupp, supplier and nation at ``sf``, ``PARQUET_SPEC``):
+    decoded on the card with no column falling back to the host (p_name a
+    PLAIN byte array, so B8 builds the slab its ``contains`` reads), equal
+    to pandas."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    from spark_rapids_tpu_torch.testing import tpchcases as TC
+    sess = session_of(batch_rows, **{
+        "spark.rapids.sql.cacheDeviceScans": False})
+    t = {n: sess.read.parquet(p) for n, p in paths.items()}
+    qdf = T.q9(sess, t)
+    rgs = sum(praw.file_metadata(paths[n]).num_row_groups
+              for n in NEW_TPCH["q9"])
+    out, rec = run_session_parquet(
+        "session Q9 parquet", qdf, runs, None, sf,
+        sum(len(frames[n]) for n in NEW_TPCH["q9"]), rgs,
+        expanding_joins(sess, qdf))
+    require(len(out) > 0, "session Q9 parquet returned no rows")
+    rec["max_rel_err"] = same_query(out, TC.pandas_reference("q9", frames),
+                                    "q9", "session Q9 parquet")
+    require(rec["launches"]["slab_pack"] > 0,
+            "session Q9 parquet ran no B8")
+    queries["session_q9_parquet"] = rec
 
 
 def main() -> int:
@@ -1876,8 +2132,17 @@ def main() -> int:
 
     sorted_branch_cells(sess, tables, frames, sf_q1, runs_new, queries,
                         report, q3_want, session_q3)
+    t0 = time.perf_counter()
+    tpch_cells(sess, tables, frames, sf_q1, runs_new, queries, report)
+    report["tpch_cells_s"] = time.perf_counter() - t0
     sess.clear_device_cache()
     del sess, tables, q3_df
+    for name in ("supplier", "part", "nation"):
+        del frames[name]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    string_phase(1 << 16 if args.quick else 1 << 23, runs_new, report)
+    report["string_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # the device Parquet scan: the same rows as Parquet files
@@ -2079,6 +2344,17 @@ def main() -> int:
     path18 = paths1["lineitem"]
     session_parquet_cells(paths1, frames1, sf_q18, q1_batch, pq_runs,
                           queries)
+    # Q9 from files: part, partsupp, supplier and nation beside them
+    t0 = time.perf_counter()
+    frames1.update(supplier=G.gen_supplier(sf_q18), part=G.gen_part(sf_q18),
+                   partsupp=G.gen_partsupp(sf_q18), nation=G.gen_nation())
+    paths9 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
+                             tables=["part", "partsupp", "supplier",
+                                     "nation"], frames=frames1)
+    report["write_parquet_q9_s"] = time.perf_counter() - t0
+    report["encodings"].update(check_encodings(paths9))
+    q9_parquet_cell(dict(paths1, **paths9), frames1, sf_q18, q1_batch,
+                    pq_runs, queries)
     del frames1
     torch.cuda.empty_cache()
 

@@ -166,7 +166,9 @@ class TpuConf:
     def broadcast_threshold(self) -> int:
         return self.get(BROADCAST_THRESHOLD.key)
 
-    def is_operator_enabled(self, key: str) -> bool:
-        """Per-operator enable check (spark.rapids.sql.exec.<Name>, on
-        unless set false)."""
-        return self.get_bool(key, True)
+    def is_operator_enabled(self, key: str,
+                            disabled_by_default: bool = False) -> bool:
+        """Per-operator enable check (spark.rapids.sql.exec.<Name>): on
+        unless set false, or for a rule disabled by default, off unless
+        set true."""
+        return self.get_bool(key, not disabled_by_default)

@@ -109,3 +109,5 @@ class ExecContext:
         self.conf = conf
         self.session = session
         self.device = torch.device(device)
+        # the shared subtrees' batches of this execution (exec/reuse.py)
+        self.reuse_state: dict = {}

@@ -10,7 +10,7 @@ the device path against them. Payload: pandas DataFrames per partition.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -654,9 +654,16 @@ def _assemble_join(ldf: pd.DataFrame, rdf: pd.DataFrame, ls: Schema,
     return out
 
 
+def _cross_rows(nl: int, nr: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (left row, right row) pairs of a cross product, left-major."""
+    return (np.repeat(np.arange(nl, dtype=np.int64), nr),
+            np.tile(np.arange(nr, dtype=np.int64), nl))
+
+
 class CpuJoinExec(PhysicalPlan):
     """Equi-join over pandas merge with SQL null keys (a null key never
-    matches). join_type: inner, left, right, full, leftsemi, leftanti.
+    matches). join_type: inner, left, right, full, leftsemi, leftanti,
+    or cross (no keys: every left row with every right row).
     The merge gives only the (left row, right row) pairs; the output is
     gathered from the original frames, so a missing side is a true null,
     never the NaN a merge's upcast would make."""
@@ -722,9 +729,11 @@ class CpuJoinExec(PhysicalPlan):
         lkey_frame["_lrow"] = np.arange(nl, dtype=np.int64)
         rkey_frame["_rrow"] = np.arange(nr, dtype=np.int64)
         keys = [f"k{j}" for j in range(len(self.left_keys))]
+        jt = self.join_type
+        if jt == "cross":
+            return _assemble_join(ldf, rdf, ls, rs, *_cross_rows(nl, nr))
         lm = lkey_frame[lvalid]
         rm = rkey_frame[rvalid]
-        jt = self.join_type
         if jt in ("leftsemi", "leftanti"):
             rk = rm[keys].drop_duplicates()
             hit = lm.merge(rk, on=keys, how="inner")["_lrow"].to_numpy()
@@ -754,3 +763,60 @@ class CpuBroadcastHashJoinExec(CpuJoinExec):
     """Equi-join whose build side is a broadcast exchange. It runs as
     CpuJoinExec; the class of its own carries its own rule and conf
     key."""
+
+
+class CpuCartesianProductExec(CpuJoinExec):
+    """The unconditioned cross product (Spark's CartesianProductExec), of
+    two single partitions."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan):
+        super().__init__(left, right, "cross", [], [])
+
+    def describe(self) -> str:
+        return "CpuCartesianProductExec"
+
+
+class CpuBroadcastNestedLoopJoinExec(PhysicalPlan):
+    """A join on an arbitrary boolean condition (Spark's
+    BroadcastNestedLoopJoinExec, inner/cross only): every stream row pairs
+    with every broadcast row, then the condition, bound to the combined
+    left + right schema, keeps the pairs it holds for."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, condition: Optional[Expression]):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.condition = condition
+
+    def output_schema(self) -> Schema:
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        return Schema(list(ls.names) + list(rs.names),
+                      list(ls.dtypes) + list(rs.dtypes))
+
+    def describe(self) -> str:
+        return f"CpuBroadcastNestedLoopJoinExec({self.join_type})"
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        left_parts = self.children[0].executed_partitions(ctx)
+        right_parts = self.children[1].executed_partitions(ctx)
+        if len(right_parts) != 1:
+            raise AssertionError("a nested-loop join's build side is one "
+                                 "broadcast partition")
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+
+        def make(lp: Partition) -> Partition:
+            def run():
+                ldf = _concat_parts(lp(), ls)
+                rdf = _concat_parts(right_parts[0](), rs)
+                out = _assemble_join(ldf, rdf, ls, rs,
+                                     *_cross_rows(len(ldf), len(rdf)))
+                if self.condition is not None and len(out):
+                    vals, validity, _ = host_unary_values(
+                        self.condition.eval_host(out))
+                    out = out[vals.astype(np.bool_)
+                              & validity].reset_index(drop=True)
+                yield out
+            return run
+        return [make(lp) for lp in left_parts]

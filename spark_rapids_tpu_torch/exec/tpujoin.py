@@ -28,14 +28,22 @@ count to decide. A broadcast join builds its table once per execution and
 probes it from every stream partition: one counted sync a stream
 partition, none for semi and anti joins.
 
-Cross joins and the broadcast nested-loop join (A.4), the dense
-direct-index probe (A.4), capacity speculation (A.10), out-of-core grace
-joins (A.8) and string join keys (A.4) wait for later slices.
+A cross join (join type ``"cross"``, no keys) takes the JAX package's
+cross route of the probe (``ops/joins.cross_probe``: every live stream row
+against every live build row, no table) and the same expand, one counted
+sync a stream partition: ``TpuCartesianProductExec`` runs it over two
+single partitions, and ``TpuBroadcastNestedLoopJoinExec`` runs it for each
+stream partition against the broadcast build, then keeps the rows its
+condition holds for (one compaction, kernel B1).
+
+The dense direct-index probe (A.4), capacity speculation (A.10),
+out-of-core grace joins (A.8) and string join keys (A.4) wait for later
+slices.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 
@@ -51,7 +59,7 @@ from spark_rapids_tpu_torch.ops import kernels, rowops
 from spark_rapids_tpu_torch.ops.sortops import u64_key_image
 
 SUPPORTED_JOIN_TYPES = ("inner", "left", "right", "full", "leftsemi",
-                        "leftanti")
+                        "leftanti", "cross")
 OUTER = ("left", "right", "full")
 
 
@@ -83,17 +91,21 @@ def _concat_build(batches: Sequence[DeviceBatch]) -> DeviceBatch:
 
 class BuiltSide:
     """A join's build side: its batch (the build batches concatenated) and
-    the B3 table over its keys."""
+    the B3 table over its keys (None for a cross join)."""
 
-    def __init__(self, batch: DeviceBatch, table: kernels.JoinTable):
+    def __init__(self, batch: DeviceBatch,
+                 table: Optional[kernels.JoinTable]):
         self.batch = batch
         self.table = table
 
 
 def build_side(batches: Sequence[DeviceBatch],
                keys: Sequence[int]) -> BuiltSide:
-    """Concatenate the build batches once and build their table (B3)."""
+    """Concatenate the build batches once and build their table (B3); a
+    cross join (no keys) builds none."""
     build = _concat_build(batches)
+    if not keys:
+        return BuiltSide(build, None)
     return BuiltSide(build, kernels.hash_join_build(
         _key_images(build, keys), join_ops._key_valid(build, keys),
         kernels.hash_table_size(build.capacity)))
@@ -117,9 +129,15 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
     if not streams:
         return [_empty(out_schema, build.device)]
     # probe every stream batch before any host wait
-    probes = [kernels.hash_join_lookup(jt, _key_images(s, stream_keys),
-                                       join_ops._key_valid(s, stream_keys))
-              for s in streams]
+    if jt is None:  # a cross join
+        crossed = [join_ops.cross_probe(build, s) for s in streams]
+        probes = [(counts, bstart) for counts, bstart, _p in crossed]
+        bperm = crossed[0][2]
+    else:
+        probes = [kernels.hash_join_lookup(
+            jt, _key_images(s, stream_keys),
+            join_ops._key_valid(s, stream_keys)) for s in streams]
+        bperm = jt.bperm
     if join_type in ("leftsemi", "leftanti"):
         return [join_ops.semi_anti_filter(s, counts,
                                           anti=join_type == "leftanti")
@@ -139,14 +157,14 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                                                    sizes):
         if join_type == "full":
             matched |= join_ops.build_match_flags(build, counts, bstart,
-                                                  jt.bperm)
+                                                  bperm)
         total = size[0]
         if total >= 1 << 31:
             raise ValueError(f"hash_join: {total} output rows of one stream "
                              "batch exceed int32")
         if total:
             batch = join_ops.join_expand(
-                build, stream, counts, adj, bstart, jt.bperm,
+                build, stream, counts, adj, bstart, bperm,
                 bucket_capacity(total), swap_sides=not stream_is_left)
             batch.host_rows = total
             out.append(batch)
@@ -160,7 +178,10 @@ def _check_join(join_type: str, left_keys, right_keys) -> None:
     if join_type not in SUPPORTED_JOIN_TYPES:
         raise NotImplementedError(f"hash_join: join type {join_type!r} is "
                                   "not ported yet")
-    if len(left_keys) != len(right_keys) or not left_keys:
+    if join_type == "cross":
+        if left_keys or right_keys:
+            raise ValueError("hash_join: a cross join takes no keys")
+    elif len(left_keys) != len(right_keys) or not left_keys:
         raise ValueError("hash_join: needs matching, non-empty key lists")
 
 
@@ -304,3 +325,49 @@ class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
             raise AssertionError("a broadcast join's build side is one "
                                  "partition")
         return [self._builder(ctx, build_parts[0])] * n_stream
+
+
+class TpuCartesianProductExec(TpuShuffledHashJoinExec):
+    """reference: GpuCartesianProductExec: the unconditioned cross product
+    of two single partitions (the planner puts a single-partition exchange
+    under each side), every live left row against every live right row."""
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan):
+        super().__init__(left, right, "cross", [], [])
+
+    def describe(self) -> str:
+        return "TpuCartesianProductExec"
+
+
+class TpuBroadcastNestedLoopJoinExec(PhysicalPlan):
+    """reference: GpuBroadcastNestedLoopJoinExec (inner/cross, disabled by
+    default): the cross product of each stream batch with the broadcast
+    build batch, then one filter of the rows where the condition (bound to
+    the combined left + right schema) holds, compacted by kernel B1."""
+
+    columnar_output = True
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, condition):
+        super().__init__([left, right])
+        self.join_type = join_type
+        self.condition = condition
+
+    def output_schema(self) -> Schema:
+        return output_schema(self.children[0].output_schema(),
+                             self.children[1].output_schema(), "cross")
+
+    def describe(self) -> str:
+        return f"{self.name}({self.join_type})"
+
+    def fingerprint_extra(self) -> str:
+        return f"{self.join_type}|{self.condition!r}"
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
+        # the cross product over the children as they stand after the
+        # transitions were inserted, then the condition as one filter
+        from spark_rapids_tpu_torch.exec.tpu import TpuFilterExec
+        cross = TpuBroadcastHashJoinExec(*self.children, "cross", [], [])
+        if self.condition is None:
+            return cross.partitions(ctx)
+        return TpuFilterExec(cross, self.condition).partitions(ctx)

@@ -1,8 +1,9 @@
 """Synthetic TPC-H-like generators for lineitem, orders, customer, supplier,
-part, nation and region (copies of the JAX package's
+part, partsupp, nation and region (copies of the JAX package's
 ``models/tpch_data.gen_*``, so both packages see the same rows for the same
-scale factor and seed), and ``write_parquet``, which writes the first three
-as Parquet files for the device scan.
+scale factor and seed), and ``write_parquet``, which writes them as Parquet
+files for the device scan (lineitem, orders and customer unless asked for
+others).
 
 Distributions follow the TPC-H spec shapes (uniform quantities 1..50,
 discounts 0..0.10, 7-year date range, A/N/R return flags), not dbgen's exact
@@ -19,6 +20,7 @@ ORDERS_ROWS_PER_SF = 1_500_000
 CUSTOMER_ROWS_PER_SF = 150_000
 PART_ROWS_PER_SF = 200_000
 SUPPLIER_ROWS_PER_SF = 10_000
+PARTSUPP_ROWS_PER_SF = 800_000
 
 _P_TYPE_1 = ["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"]
 _P_TYPE_2 = ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
@@ -158,6 +160,19 @@ def gen_part(sf: float, seed: int = 19) -> pd.DataFrame:
     })
 
 
+def gen_partsupp(sf: float, seed: int = 23) -> pd.DataFrame:
+    n = max(1, int(PARTSUPP_ROWS_PER_SF * sf))
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({
+        "ps_partkey": rng.integers(1, max(2, int(PART_ROWS_PER_SF * sf)),
+                                   n).astype(np.int64),
+        "ps_suppkey": rng.integers(1, max(2, int(SUPPLIER_ROWS_PER_SF * sf)),
+                                   n).astype(np.int64),
+        "ps_availqty": rng.integers(1, 10000, n).astype(np.int32),
+        "ps_supplycost": np.round(rng.uniform(1.0, 1000.0, n), 2),
+    })
+
+
 def gen_nation() -> pd.DataFrame:
     names = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT", "ETHIOPIA",
              "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN", "IRAQ",
@@ -181,8 +196,13 @@ def gen_region() -> pd.DataFrame:
     })
 
 
+# the tables ``write_parquet`` writes by default
 GENERATORS = {"lineitem": gen_lineitem, "orders": gen_orders,
               "customer": gen_customer}
+# every table, by name; nation and region take no scale factor
+ALL_TABLES = dict(GENERATORS, supplier=gen_supplier, part=gen_part,
+                  partsupp=gen_partsupp, nation=lambda sf: gen_nation(),
+                  region=lambda sf: gen_region())
 
 # Per-table Parquet encodings, chosen so that every column rides the device
 # decode: low-cardinality columns as dictionaries (the hybrid expander,
@@ -215,6 +235,28 @@ PARQUET_SPEC = {
         "delta": ["c_custkey"],
         "plain": ["c_acctbal", "c_name"],
     },
+    # p_name, s_name and s_address PLAIN: B8 builds their slabs
+    "part": {
+        "dictionary": ["p_mfgr", "p_brand", "p_type", "p_size",
+                       "p_container"],
+        "delta": ["p_partkey"],
+        "plain": ["p_name", "p_retailprice"],
+    },
+    "partsupp": {
+        "dictionary": ["ps_availqty"],
+        "delta": ["ps_partkey", "ps_suppkey"],
+        "plain": ["ps_supplycost"],
+    },
+    "supplier": {
+        "dictionary": ["s_nationkey", "s_comment"],
+        "delta": ["s_suppkey"],
+        "plain": ["s_name", "s_address", "s_acctbal"],
+    },
+    "nation": {
+        "dictionary": ["n_nationkey", "n_name", "n_regionkey"],
+        "delta": [],
+        "plain": [],
+    },
 }
 
 # rows per row group: pyarrow's default (1 << 20), stated so that every
@@ -241,17 +283,18 @@ def write_table(df: pd.DataFrame, path: str, spec=None) -> None:
 
 def write_parquet(out_dir: str, sf: float, tables=None, frames=None,
                   spec: bool = True) -> dict:
-    """Write ``tables`` (default: lineitem, orders, customer) at scale
-    factor ``sf`` as ``<out_dir>/<table>.parquet`` with ``PARQUET_SPEC``
-    (``spec=False``: pyarrow's default encodings). ``frames`` may hold
-    already generated tables to reuse. Returns {table: path}."""
+    """Write ``tables`` (default: lineitem, orders, customer; any of
+    ``ALL_TABLES``) at scale factor ``sf`` as ``<out_dir>/<table>.parquet``
+    with ``PARQUET_SPEC`` (``spec=False``: pyarrow's default encodings).
+    ``frames`` may hold already generated tables to reuse. Returns
+    {table: path}."""
     import os
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
     for name in tables or list(GENERATORS):
         df = (frames or {}).get(name)
         if df is None:
-            df = GENERATORS[name](sf)
+            df = ALL_TABLES[name](sf)
         paths[name] = os.path.join(out_dir, f"{name}.parquet")
         write_table(df, paths[name], PARQUET_SPEC[name] if spec else None)
     return paths

@@ -5,8 +5,10 @@ A probe gives, per stream row, its number of build matches (``counts``),
 the first position of its match group in ``bperm`` (``bstart``) and
 ``bperm``, the build rows grouped by key. The port's probe is the hash
 table (``ops/kernels.hash_join_probe`` on kernels B3 and B4, driven by
-``exec/tpujoin.py``); the JAX package's union-lexsort ``join_probe`` and
-dense ``join_probe_dense`` are not ported yet. Everything here is the
+``exec/tpujoin.py``), and for a cross join ``cross_probe``, the cross
+route of the JAX package's ``join_probe``; the union-lexsort
+``join_probe`` and the dense ``join_probe_dense`` are not ported yet
+(ROADMAP A.4). Everything here is the
 JAX package's count-then-expand: the totals come back to the host in one
 copy per join (the caller's), the expand gathers both sides into a batch of
 the bucketed total.
@@ -36,6 +38,24 @@ def _key_valid(batch: DeviceBatch, key_idx: Sequence[int]) -> torch.Tensor:
     for ki in key_idx:
         v = v & batch.columns[ki].validity
     return v
+
+
+def cross_probe(build: DeviceBatch, stream: DeviceBatch):
+    """The cross route of the JAX package's ``join_probe``: every live
+    stream row matches every live build row. Returns (counts, bstart,
+    bperm): counts the build's live row count for each live stream row,
+    bstart 0, bperm the live build rows first, in order. The JAX package
+    sorts the dead flags stably for it; a batch's live rows are its
+    leading ones, so that order is the identity. No table, no kernel, no
+    host wait."""
+    ns = stream.capacity
+    counts = torch.where(stream.row_mask(), build.num_rows.to(torch.int32),
+                         torch.zeros((), dtype=torch.int32,
+                                     device=stream.device))
+    bstart = torch.zeros(ns, dtype=torch.int32, device=stream.device)
+    bperm = torch.arange(build.capacity, dtype=torch.int32,
+                         device=build.device)
+    return counts, bstart, bperm
 
 
 def outer_adjusted_counts(stream: DeviceBatch,

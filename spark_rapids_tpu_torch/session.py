@@ -17,15 +17,18 @@ the kernels' plain versions. ``spark.rapids.sql.enabled=false`` runs the
 CPU operators on pandas instead. Files come in through ``s.read.parquet``
 (decoded on the device, kernels B5-B8; by pyarrow on the host where
 ``spark.rapids.sql.enabled=false``); ``DataFrame.join`` plans an equi-join,
-broadcast under ``spark.rapids.sql.autoBroadcastJoinThreshold``.
+broadcast under ``spark.rapids.sql.autoBroadcastJoinThreshold``, a cross
+join (``on=None``) and a join on a boolean condition (``on=<Column>``, the
+broadcast nested-loop join, on the device only where
+``spark.rapids.sql.exec.BroadcastNestedLoopJoinExec`` is set true).
 
 Left out of the JAX package's session, each a later ROADMAP item: the
 device manager, semaphore, spill catalog and OOM handling (A.8); the mesh,
 shuffle environments and encoded-page cache (A.7, A.9); AQE and the
-speculation verification (A.10); tracing, the event journal, metrics
+speculation verification (A.10; the within-query subtree reuse is
+ported, ``exec/reuse.py``); tracing, the event journal, metrics
 snapshots, the compile cache and prewarm, and the serving caches (A.11);
-the CSV and ORC readers (A.7); cross, condition and full-outer USING joins
-(A.4, A.6).
+the CSV and ORC readers (A.7); the full-outer USING join (A.6).
 """
 
 from __future__ import annotations
@@ -126,6 +129,10 @@ class TpuSparkSession:
         if conf.sql_enabled:
             overrides = TpuOverrides(conf)
             plan = TransitionOverrides(conf).apply(overrides.apply(plan))
+            from spark_rapids_tpu_torch.exec.reuse import (
+                reuse_common_subtrees,
+            )
+            plan = reuse_common_subtrees(plan)
             if conf.test_enabled:
                 assert_is_on_tpu(plan, conf,
                                  overrides.explain_text("NOT_ON_TPU"))
@@ -238,11 +245,13 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              left_on=None, right_on=None) -> "DataFrame":
-        """Equi-join. ``on`` names columns present on both sides (Spark's
-        USING join: one output column per key); ``left_on``/``right_on``
-        pair differently named keys by position (the TPC-H shape:
-        l_orderkey = o_orderkey). ``how``: inner, left, right, full,
-        leftsemi, leftanti, or their aliases."""
+        """Join. ``on`` names columns present on both sides (Spark's USING
+        join: one output column per key); ``left_on``/``right_on`` pair
+        differently named keys by position (the TPC-H shape: l_orderkey =
+        o_orderkey). ``on=None`` with no keys is a cross join; a boolean
+        ``Column`` ``on`` is a condition join over the combined columns
+        (inner/cross). ``how``: inner, left, right, full, leftsemi,
+        leftanti, cross, or their aliases."""
         how = _JOIN_ALIASES.get(how, how)
 
         def keyify(spec):
@@ -250,28 +259,28 @@ class DataFrame:
                 spec = [spec]
             return [col_fn(c).expr if isinstance(c, str) else _expr(c)
                     for c in spec]
-        if how == "cross" or (on is None and left_on is None
-                              and right_on is None):
-            raise NotImplementedError(
-                "cross joins are not ported yet (ROADMAP A.4)")
-        if isinstance(on, Column):
-            raise NotImplementedError(
-                "condition joins (the broadcast nested-loop join) are not "
-                "ported yet (ROADMAP A.4)")
         if left_on is not None or right_on is not None:
             if left_on is None or right_on is None:
                 raise ValueError("join: left_on and right_on go together")
             lkeys, rkeys = keyify(left_on), keyify(right_on)
             if len(lkeys) != len(rkeys):
                 raise ValueError("join: left_on/right_on length mismatch")
+        elif on is None:
+            lkeys, rkeys = [], []
+            how = "cross"
+        elif isinstance(on, Column):
+            # an arbitrary boolean condition: the broadcast nested-loop
+            # join
+            return DataFrame(self.session, lp.LogicalJoin(
+                self._plan, other._plan, how, [], [], condition=_expr(on)))
         elif isinstance(on, (str, list, tuple)):
             names = [on] if isinstance(on, str) else list(on)
             if how not in ("leftsemi", "leftanti"):
                 return self._join_using(other, names, how)
             lkeys, rkeys = keyify(names), keyify(names)
         else:
-            raise TypeError("join on must be a column name or a list of "
-                            "names")
+            raise TypeError("join on must be a column name, a list of "
+                            "names, or a boolean Column condition")
         return DataFrame(self.session, lp.LogicalJoin(
             self._plan, other._plan, how, lkeys, rkeys))
 
@@ -303,6 +312,15 @@ class DataFrame:
         out += [col_fn(n) for n in self.schema.names if n not in names]
         out += [col_fn(n) for n in other.schema.names if n not in names]
         return joined.select(*out)
+
+    def with_column(self, name: str, c: Column) -> "DataFrame":
+        """Add (or replace) the column ``name``, computed by ``c``; the
+        other columns keep their order, and the new one goes last."""
+        exprs = [(n, col_fn(n).expr) for n in self.schema.names if n != name]
+        exprs.append((name, _expr(c)))
+        return DataFrame(self.session, lp.LogicalProject(self._plan, exprs))
+
+    withColumn = with_column
 
     def drop(self, *names: str) -> "DataFrame":
         dropped = set(names)

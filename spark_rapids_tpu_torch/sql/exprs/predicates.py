@@ -1,12 +1,15 @@
 """Predicates and boolean logic (counterpart of the JAX package's
-``sql/exprs/predicates.py``; comparisons and Kleene AND are ported).
-String ``=`` and ``!=`` go to ``ops/strings.string_equal`` (dictionary
-columns against a literal); the other string comparisons raise.
+``sql/exprs/predicates.py``): comparisons, Kleene AND and OR, NOT and IN.
+String comparisons go to ``ops/strings`` (``string_equal`` for ``=`` and
+``!=``, ``string_compare`` for the order comparisons), over dictionary
+codes and char slabs, against a literal or another column.
 
 SQL three-valued logic is computed explicitly on (data, validity) pairs.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import numpy as np
 import pandas as pd
@@ -16,7 +19,8 @@ from spark_rapids_tpu_torch.columnar import dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, common_type
 from spark_rapids_tpu_torch.sql.exprs.core import (
-    DevCol, DevValue, EvalContext, Expression, data_of, valid_and,
+    DevCol, DevScalar, DevValue, EvalContext, Expression, data_of,
+    valid_and,
 )
 from spark_rapids_tpu_torch.sql.exprs.hostutil import (
     host_binary_values, host_unary_values, rebuild_series,
@@ -69,13 +73,13 @@ class BinaryComparison(Expression):
 
     def _eval_device_string(self, ctx: EvalContext, lv: DevValue,
                             rv: DevValue) -> DevValue:
-        if not isinstance(self, (Eq, Neq)):
-            raise NotImplementedError(
-                f"string comparison {self.symbol} is not ported yet")
         from spark_rapids_tpu_torch.ops import strings as string_ops
-        eq, validity = string_ops.string_equal(ctx, lv, rv)
-        return DevCol(dtypes.BOOL, eq if isinstance(self, Eq) else ~eq,
-                      validity)
+        if isinstance(self, (Eq, Neq)):
+            eq, validity = string_ops.string_equal(ctx, lv, rv)
+            return DevCol(dtypes.BOOL, eq if isinstance(self, Eq) else ~eq,
+                          validity)
+        cmp, validity = string_ops.string_compare(ctx, lv, rv)
+        return DevCol(dtypes.BOOL, self.compute(cmp, 0), validity)
 
 
 class Eq(BinaryComparison):
@@ -157,3 +161,102 @@ class And(Expression):
         b = b.astype(np.bool_) & bv
         validity = (av & bv) | (av & ~a) | (bv & ~b)
         return rebuild_series(a & b, validity, dtypes.BOOL, index)
+
+
+class Or(Expression):
+    """Kleene OR: TRUE OR NULL = TRUE."""
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__([left, right])
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        lv = ctx.broadcast(self.children[0].eval_device(ctx))
+        rv = ctx.broadcast(self.children[1].eval_device(ctx))
+        a, av = lv.data & lv.validity, lv.validity
+        b, bv = rv.data & rv.validity, rv.validity
+        validity = (av & bv) | (av & a) | (bv & b)
+        return DevCol(dtypes.BOOL, a | b, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        b, bv, _ = host_unary_values(self.children[1].eval_host(df))
+        a = a.astype(np.bool_) & av
+        b = b.astype(np.bool_) & bv
+        validity = (av & bv) | (av & a) | (bv & b)
+        return rebuild_series(a | b, validity, dtypes.BOOL, index)
+
+
+class Not(Expression):
+    """NOT: NULL stays NULL."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = ctx.broadcast(self.children[0].eval_device(ctx))
+        return DevCol(dtypes.BOOL, ~v.data & v.validity, v.validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        return rebuild_series(~a.astype(np.bool_) & av, av, dtypes.BOOL,
+                              index)
+
+
+class In(Expression):
+    """value IN (<literals>). A NULL value gives NULL; a NULL in the list
+    turns non-matches into NULL (SQL semantics). Over a dictionary column
+    one host-built table gathered by code, over a char slab an OR of its
+    literal equalities (``ops/strings.string_in``), over numbers an OR of
+    compares."""
+
+    def __init__(self, child: Expression, values: Sequence):
+        super().__init__([child])
+        self.values: List = list(values)
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def __repr__(self) -> str:
+        return f"({self.children[0]!r} IN {tuple(self.values)})"
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = self.children[0].eval_device(ctx)
+        has_null = any(x is None for x in self.values)
+        vals = [x for x in self.values if x is not None]
+        if isinstance(v, DevScalar) and v.dtype.is_string:
+            # a string literal: decided on the host
+            hit = v.valid and str(v.value) in {str(x) for x in vals}
+            match = torch.full((ctx.capacity,), hit, dtype=torch.bool,
+                               device=ctx.device)
+            valid = torch.full((ctx.capacity,), bool(v.valid),
+                               dtype=torch.bool, device=ctx.device)
+        elif v.dtype.is_string:
+            from spark_rapids_tpu_torch.ops import strings as string_ops
+            match = string_ops.string_in(ctx, v, [str(x) for x in vals])
+            valid = v.validity
+        else:
+            v = ctx.broadcast(v)
+            match = torch.zeros_like(v.validity)
+            for x in vals:
+                match |= v.data == np.asarray(
+                    x, dtype=v.dtype.np_dtype).item()
+            valid = v.validity
+        validity = valid & match if has_null else valid
+        return DevCol(dtypes.BOOL, match & valid, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        has_null = any(x is None for x in self.values)
+        vals = [x for x in self.values if x is not None]
+        if a.dtype == object:
+            match = np.array([x in vals for x in a], dtype=np.bool_)
+        else:
+            match = np.isin(a, np.asarray(vals, dtype=a.dtype))
+        validity = av & match if has_null else av
+        return rebuild_series(match & av, validity, dtypes.BOOL, index)

@@ -1,6 +1,8 @@
 """User-facing column functions, pyspark.sql.functions-style (counterpart
-of the JAX package's ``sql/functions.py``, cut to what TPC-H Q1, Q6 and the
-Q18 group-by need, through the query runners and through the session)."""
+of the JAX package's ``sql/functions.py``, cut to what the 22 TPC-H
+queries need: arithmetic, comparisons, AND/OR/NOT, ``isin``, the string
+predicates and ``substring``, ``when``/``otherwise``, ``year`` and the
+aggregates)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,10 @@ from typing import Any, Union
 
 from spark_rapids_tpu_torch.sql.exprs import aggregates as agg
 from spark_rapids_tpu_torch.sql.exprs import arithmetic as ar
+from spark_rapids_tpu_torch.sql.exprs import conditional as cond
+from spark_rapids_tpu_torch.sql.exprs import datetimeexprs as dt
 from spark_rapids_tpu_torch.sql.exprs import predicates as pred
+from spark_rapids_tpu_torch.sql.exprs import stringexprs as st
 from spark_rapids_tpu_torch.sql.exprs.core import Alias, Col, Expression, Literal
 
 ColumnOrName = Union["Column", str]
@@ -40,8 +45,22 @@ class Column:
 
     # boolean
     def __and__(self, other): return Column(pred.And(self.expr, _expr(other)))
+    def __or__(self, other): return Column(pred.Or(self.expr, _expr(other)))
+    def __invert__(self): return Column(pred.Not(self.expr))
 
     def alias(self, name: str): return Column(Alias(self.expr, name))
+
+    # membership and strings
+    def isin(self, *values):
+        vals = (values[0] if len(values) == 1
+                and isinstance(values[0], (list, tuple)) else values)
+        return Column(pred.In(self.expr, list(vals)))
+    def startswith(self, p: str): return Column(st.StartsWith(self.expr, p))
+    def endswith(self, p: str): return Column(st.EndsWith(self.expr, p))
+    def contains(self, p: str): return Column(st.Contains(self.expr, p))
+    def like(self, p: str): return Column(st.Like(self.expr, p))
+    def substr(self, pos: int, length: int = -1):
+        return Column(st.Substring(self.expr, pos, length))
 
     # ordering
     def asc(self): return SortOrder(self.expr, ascending=True)
@@ -110,3 +129,29 @@ def first(c, ignorenulls: bool = False) -> Column:
 
 def last(c, ignorenulls: bool = False) -> Column:
     return Column(agg.Last(_c(c), ignorenulls))
+
+
+def when(condition: Column, value) -> "WhenBuilder":
+    return WhenBuilder([(condition.expr, _expr(value))])
+
+
+class WhenBuilder(Column):
+    """CASE WHEN under construction: ``.when(...)`` adds a branch,
+    ``.otherwise(v)`` closes it with an ELSE (without: NULL)."""
+
+    def __init__(self, branches):
+        self._branches = branches
+        super().__init__(cond.CaseWhen(branches))
+
+    def when(self, condition: Column, value) -> "WhenBuilder":
+        return WhenBuilder(self._branches + [(condition.expr, _expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(cond.CaseWhen(self._branches, _expr(value)))
+
+
+def substring(c, pos: int, length_: int) -> Column:
+    return Column(st.Substring(_c(c), pos, length_))
+
+
+def year(c) -> Column: return Column(dt.Year(_c(c)))

@@ -13,10 +13,14 @@ slice ports).
   5. ``explain_text()`` renders the tag tree: ``*`` on the device, ``!``
      off it with the reason.
 
-Per-operator enable keys are ``spark.rapids.sql.exec.<Name>``. After
-tagging, the join-hash consistency fixup keeps a shuffled join and the
-exchanges feeding it on the same side. The cartesian, nested-loop join,
-window, generate and write rules wait for later slices.
+Per-operator enable keys are ``spark.rapids.sql.exec.<Name>``; the
+broadcast nested-loop join's rule is disabled by default, as in the JAX
+package and the reference, and the cartesian product's is on (the JAX
+package's deviation from the reference: TPC-H's scalar-subquery cross
+joins would otherwise leave the device twice). After tagging, the
+join-hash consistency fixup keeps a shuffled join and the exchanges
+feeding it on the same side. The window, generate and write rules wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ class ExecRule:
     def __init__(self, cpu_class: Type[PhysicalPlan], desc: str,
                  tag_fn: Callable[["ExecMeta"], None],
                  convert_fn: Callable[["ExecMeta", List[PhysicalPlan]],
-                                      PhysicalPlan]):
+                                      PhysicalPlan],
+                 disabled_by_default: bool = False):
         self.cpu_class = cpu_class
         self.desc = desc
         self.tag_fn = tag_fn
         self.convert_fn = convert_fn
+        self.disabled_by_default = disabled_by_default
 
     @property
     def conf_key(self) -> str:
@@ -82,7 +88,8 @@ class ExecMeta:
             self.will_not_work(
                 f"no TPU replacement rule for {self.plan.name}")
             return
-        if not self.conf.is_operator_enabled(self.rule.conf_key):
+        if not self.conf.is_operator_enabled(
+                self.rule.conf_key, self.rule.disabled_by_default):
             self.will_not_work(f"{self.plan.name} is disabled by conf "
                                f"{self.rule.conf_key}")
             return
@@ -194,6 +201,14 @@ def _tag_join(meta: ExecMeta) -> None:
                     "union-lexsort probe (ROADMAP A.4)")
 
 
+def _tag_bnlj(meta: ExecMeta) -> None:
+    cond = meta.plan.condition
+    if cond is not None:
+        reason = first_unsupported(cond, meta.plan.output_schema())
+        if reason:
+            meta.will_not_work(f"join condition: {reason}")
+
+
 def _tag_expand(meta: ExecMeta) -> None:
     for proj in meta.plan.projections:
         meta.check_exprs([e for _, e in proj], "expand projection")
@@ -249,6 +264,15 @@ _register(ExecRule(cpu.CpuBroadcastHashJoinExec, "broadcast hash join",
                    lambda m, ch: tpujoin.TpuBroadcastHashJoinExec(
                        ch[0], ch[1], m.plan.join_type, m.plan.left_keys,
                        m.plan.right_keys)))
+_register(ExecRule(cpu.CpuCartesianProductExec, "cartesian product",
+                   _tag_nothing,
+                   lambda m, ch: tpujoin.TpuCartesianProductExec(ch[0],
+                                                                 ch[1])))
+_register(ExecRule(cpu.CpuBroadcastNestedLoopJoinExec,
+                   "broadcast nested loop join", _tag_bnlj,
+                   lambda m, ch: tpujoin.TpuBroadcastNestedLoopJoinExec(
+                       ch[0], ch[1], m.plan.join_type, m.plan.condition),
+                   disabled_by_default=True))
 _register(ExecRule(cpu.CpuBroadcastExchangeExec, "broadcast exchange",
                    _tag_nothing,
                    lambda m, ch: tpujoin.TpuBroadcastExchangeExec(ch[0])))
@@ -265,7 +289,12 @@ def _fixup_join_hash_consistency(meta: ExecMeta) -> None:
     takes its join along."""
     for c in meta.children:
         _fixup_join_hash_consistency(c)
-    if type(meta.plan) is not cpu.CpuJoinExec:  # broadcasts are exempt
+    # only a shuffled equi-join depends on the partitioning hash: a
+    # broadcast join or a cartesian product reads its inputs' partitions
+    # independently
+    if (not isinstance(meta.plan, cpu.CpuJoinExec)
+            or isinstance(meta.plan, (cpu.CpuBroadcastHashJoinExec,
+                                      cpu.CpuCartesianProductExec))):
         return
     exchanges = [c for c in meta.children
                  if isinstance(c.plan, cpu.CpuShuffleExchangeExec)]

@@ -1,7 +1,8 @@
 """Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
 holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
-Sort, Limit, Repartition, Coalesce, Union, Expand and the equi-join;
-condition joins, windows, generators and writes wait for later slices).
+Sort, Limit, Repartition, Coalesce, Union, Expand and the join: equi,
+cross or on a condition; windows, generators and writes wait for later
+slices).
 
 The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
 these nodes only carry what the planner needs.
@@ -164,16 +165,20 @@ class LogicalExpand(LogicalPlan):
 
 
 class LogicalJoin(LogicalPlan):
-    """Equi-join of two plans on paired key expressions; semi and anti
-    joins output the left side only."""
+    """Join of two plans: on paired key expressions (an equi-join), on
+    none (``join_type`` "cross"), or on a boolean ``condition`` over the
+    combined columns (inner/cross, no keys). Semi and anti joins output
+    the left side only."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan, join_type: str,
                  left_keys: Sequence[Expression],
-                 right_keys: Sequence[Expression]):
+                 right_keys: Sequence[Expression],
+                 condition: Optional[Expression] = None):
         super().__init__([left, right])
         self.join_type = join_type
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        self.condition = condition
 
     def schema(self) -> Schema:
         ls = self.children[0].schema()

@@ -6,9 +6,11 @@ aggregates split into partial + exchange + final, global sorts into an
 exchange + sort, limits into local limit + single exchange + global limit,
 equi-joins into a broadcast hash join (the build side under
 ``autoBroadcastJoinThreshold``) or hash exchanges on both sides and a
-shuffled join. The device rewrite (``sql/overrides.py``) then tags and
-converts this CPU plan node by node. Cross and condition joins (A.4),
-windows, generators and writes wait for later slices, as does the JAX
+shuffled join; a cross join into a single-partition exchange on both
+sides and a cartesian product; a condition join into a broadcast
+nested-loop join (the right side broadcast). The device rewrite
+(``sql/overrides.py``) then tags and converts this CPU plan node by node.
+Windows, generators and writes wait for later slices, as does the JAX
 package's small-query fast path (the port's exchange collapse makes no
 sync for it to save).
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.exec import cpu
 from spark_rapids_tpu_torch.exec.aggutil import AggPlan, bind_non_agg
+from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.exec.base import PhysicalPlan
 from spark_rapids_tpu_torch.sql import plan as lp
 from spark_rapids_tpu_torch.sql.exprs.core import BoundRef, bind_references
@@ -114,6 +117,20 @@ class Planner:
         right = self.plan(node.children[1])
         ls, rs = left.output_schema(), right.output_schema()
         jt = node.join_type
+        if node.condition is not None:
+            # a non-equi condition: broadcast nested loop, inner/cross
+            if jt not in ("inner", "cross"):
+                raise NotImplementedError(
+                    f"condition joins take inner/cross, not {jt!r}")
+            combined = Schema(list(ls.names) + list(rs.names),
+                              list(ls.dtypes) + list(rs.dtypes))
+            return cpu.CpuBroadcastNestedLoopJoinExec(
+                left, cpu.CpuBroadcastExchangeExec(right), "inner",
+                bind_references(node.condition, combined))
+        if jt == "cross":
+            return cpu.CpuCartesianProductExec(
+                cpu.CpuShuffleExchangeExec(left, ("single",)),
+                cpu.CpuShuffleExchangeExec(right, ("single",)))
         lidx, left = _key_indices(
             left, [bind_references(e, ls) for e in node.left_keys], ls)
         ridx, right = _key_indices(

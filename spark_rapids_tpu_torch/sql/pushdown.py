@@ -5,8 +5,9 @@ pruning wait for the Parquet scan behind the session, ROADMAP A.2).
   * ``prune_filter_columns`` puts a narrowing Project above every Filter
     whose output carries columns no ancestor references, so the filter's
     row compaction feeds fewer columns onward, and at each join input, so
-    a join expands only the columns read above it (a semi or anti join's
-    build side down to its keys).
+    a join expands only the columns read above it and its keys or
+    condition (a semi or anti join's build side down to its keys; a cross
+    join's sides down to what is read above it).
   * ``annotate_scan_pruning`` marks each scan with the columns the query
     references (join keys included), and the planner scans only those.
 
@@ -86,8 +87,10 @@ def prune_filter_columns(root):
         if isinstance(node, lp.LogicalJoin):
             lnames = set(node.children[0].schema().names)
             rnames = set(node.children[1].schema().names)
-            keyreq_l = _cols_of(*node.left_keys)
-            keyreq_r = _cols_of(*node.right_keys)
+            # a condition join keeps the condition's columns on each side
+            conds = [node.condition] if node.condition is not None else []
+            keyreq_l = _cols_of(*node.left_keys, *conds)
+            keyreq_r = _cols_of(*node.right_keys, *conds)
             if required is None:
                 lreq = rreq = None
             else:
@@ -103,7 +106,8 @@ def prune_filter_columns(root):
             if rreq is not None:
                 right = _narrow(right, rreq)
             return lp.LogicalJoin(left, right, node.join_type,
-                                  node.left_keys, node.right_keys)
+                                  node.left_keys, node.right_keys,
+                                  node.condition)
         if isinstance(node, lp.LogicalSort):
             req = (None if required is None else
                    (required | _cols_of(*(o.expr for o in node.orders)))

@@ -7,7 +7,11 @@ cells: Q3 and Q4 through ``TpuSparkSession`` over cached uploads
 cells of the sorted grouping branches at the JAX package's default confs
 over cached uploads (``DEFAULT_CONFS``: Q3, Q10, Q17, Q18, Q21, the
 row-space lineitem group-by, the customer string group-by and the Q18
-group-by).
+group-by), and the 14 queries of the expression and cross-join slice at
+the same confs (``TPCH_NEW``: Q2, Q5, Q7, Q8, Q9, Q11, Q12, Q13, Q14, Q15,
+Q16, Q19, Q20 and Q22 at SF10, Q20's and Q22's frames changed as
+``testing/tpchcases.py`` changes them, the scan cache cleared after each;
+``session_q9_parquet``: Q9 from SF1 files).
 
 For each query: upload its columns (or, for a ``*_parquet`` query, nothing:
 the scan is part of the profiled run; a session query uploads into its
@@ -61,6 +65,10 @@ SESSION = ("session_q3", "session_q4", "session_q1_parquet",
 DEFAULT_CONFS = ("session_q3_default", "session_q10", "session_q17",
                  "session_q18", "session_q21", "session_rowspace_groupby",
                  "session_strings_groupby", "session_q18_groupby_default")
+# the 14 queries of the expression and cross-join slice at the same confs
+TPCH_NEW = tuple(f"session_{q}" for q in (
+    "q2", "q5", "q7", "q8", "q9", "q11", "q12", "q13", "q14", "q15", "q16",
+    "q19", "q20", "q22")) + ("session_q9_parquet",)
 
 
 def _device_us(evt) -> float:
@@ -142,7 +150,8 @@ def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", nargs="+",
-                    choices=UPLOAD + PARQUET + SESSION + DEFAULT_CONFS,
+                    choices=UPLOAD + PARQUET + SESSION + DEFAULT_CONFS
+                    + TPCH_NEW,
                     help="profile these queries alone (default: all)")
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--tag", default="", help="suffix of the output names")
@@ -164,7 +173,8 @@ def main() -> None:
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
-    want = set(args.queries or UPLOAD + PARQUET + SESSION + DEFAULT_CONFS)
+    want = set(args.queries
+               or UPLOAD + PARQUET + SESSION + DEFAULT_CONFS + TPCH_NEW)
     tag = args.tag
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
@@ -175,7 +185,8 @@ def main() -> None:
             results.append(profile(name + tag, fn, TOP, out_dir))
 
     q18 = {"q18_groupby", "q18_groupby_parquet",
-           "session_q18_groupby_parquet", "session_q18_groupby_default"}
+           "session_q18_groupby_parquet", "session_q18_groupby_default",
+           "session_q9_parquet"}
     sf10 = want - q18
     if sf10:
         df = gen_lineitem(10)
@@ -226,6 +237,23 @@ def main() -> None:
                      F.first("c_mktsegment").alias("first_seg"),
                      F.count("c_phone").alias("n")).collect)
             del sess, t, t18
+        if want & set(TPCH_NEW[:-1]):
+            from spark_rapids_tpu_torch.testing import tpchcases
+            sess = session(1 << 23, {"spark.rapids.sql.cacheDeviceScans":
+                                     True}, hash_agg=False)
+            everything = dict(frames, **{
+                n: f(10) for n, f in G.ALL_TABLES.items()
+                if n not in frames})
+            for name in TPCH_NEW[:-1]:
+                if name not in want:
+                    continue
+                qname = name.removeprefix("session_")
+                fr = tpchcases.query_frames(qname, everything)
+                t = {n: sess.create_dataframe(f) for n, f in fr.items()}
+                run(name, T.QUERIES[qname](sess, t).collect)
+                sess.clear_device_cache()
+                torch.cuda.empty_cache()
+            del sess, t, everything
         if sf10 & {n for n in PARQUET + SESSION if n.endswith("_parquet")}:
             paths = _parquet_files(G, "sf10", 10, frames)
             run("q1_parquet", lambda: Q.q1_from_batches(
@@ -271,6 +299,16 @@ def main() -> None:
             sess = session(1 << 23, PARQUET_SESSION)
             run("session_q18_groupby_parquet", T.q18_groupby(
                 sess, {"lineitem": sess.read.parquet(path18)}).collect)
+        if "session_q9_parquet" in want:
+            names = ["lineitem", "orders", "part", "partsupp", "supplier",
+                     "nation"]
+            frames = {n: df if n == "lineitem" else G.ALL_TABLES[n](1)
+                      for n in names}
+            paths = _parquet_files(G, "sf1", 1, frames, names)
+            sess = session(1 << 23, PARQUET_SESSION, hash_agg=False)
+            run("session_q9_parquet", T.q9(
+                sess, {n: sess.read.parquet(p)
+                       for n, p in paths.items()}).collect)
     for r in results:
         print(json.dumps(r))
     card = subprocess.run(

@@ -10,6 +10,7 @@ another order than the plain versions.
 """
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -894,3 +895,84 @@ def test_sorted_branches_on_the_card(cuda_device, tpch_frames, name):
         branches.append(dict(aggregate.BRANCHES))
     assert branches[0] == branches[1] and "hash" not in branches[0]
     _same_by_key(outs[0], outs[1], _SORTED_CASES[name])
+
+
+def _string_cases():
+    from spark_rapids_tpu_torch.testing import stringcases
+    return stringcases.cases(stringcases.port_conditional)
+
+
+@pytest.fixture(scope="module")
+def string_outputs():
+    """Every string case (``testing/stringcases.py``) in one projection of
+    a 2^16-row frame, through the session on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc)")
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.testing import stringcases
+    frame = stringcases.string_frame(1 << 16)
+    table = _string_cases()
+    outs = {}
+    for device in ("cuda", "cpu"):
+        s = _session(device)
+        outs[device] = stringcases.projection(F, s, frame, table).collect()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_string_cases()))
+def test_string_cases_on_the_card(cuda_device, string_outputs, name):
+    """Each comparison, string predicate, substring, IN, OR/NOT, CASE
+    WHEN, if and year over a char slab and a dictionary: the card's values
+    equal the CPU session's, nulls included."""
+    def values(s):
+        return [None if v is None or v is pd.NA or v != v else str(v)
+                for v in s.astype(object)]
+    assert (values(string_outputs["cuda"][name])
+            == values(string_outputs["cpu"][name]))
+
+
+_TPCH_NEW = ["q2", "q5", "q7", "q8", "q9", "q11", "q12", "q13", "q14", "q15",
+             "q16", "q19", "q20", "q22"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", _TPCH_NEW)
+def test_tpch_queries_on_the_card(cuda_device, tpch_frames, qname):
+    """The 14 queries of the expression and cross-join slice at SF 0.05 in
+    2^16-row batches, at the JAX package's default confs, on the card and
+    on the CPU (Q20's and Q22's frames changed so that they give rows,
+    ``testing/tpchcases.py``): equal answers, rows in each, and Q11, Q15
+    and Q22 through the cartesian product."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.testing import tpchcases
+    fr = tpchcases.query_frames(qname, dict(
+        tpch_frames, supplier=G.gen_supplier(0.05), part=G.gen_part(0.05),
+        partsupp=G.gen_partsupp(0.05), nation=G.gen_nation(),
+        region=G.gen_region()))
+    outs = []
+    for device in ("cuda", "cpu"):
+        s = (TpuSparkSession.builder().device(device)
+             .config("spark.rapids.sql.test.enabled", True)
+             .config("spark.rapids.sql.batchSizeRows", 1 << 16)
+             .get_or_create())
+        df = tpch.QUERIES[qname](s, {n: s.create_dataframe(f)
+                                     for n, f in fr.items()})
+        crosses = sum(isinstance(n, tpujoin.TpuCartesianProductExec)
+                      for n in s.physical_plan(df._plan).walk())
+        assert crosses == (1 if qname in ("q11", "q15", "q22") else 0)
+        K.reset_launches()
+        outs.append(df.collect())
+        if device == "cuda":
+            assert K.LAUNCHES["compact_permutation"] > 0
+            assert K.LAUNCHES["hash_table_probe"] > 0
+    got, want = outs
+    assert len(want) > 0
+    order = tpchcases.ORDERS[qname]
+    if order is not None:
+        got = tpchcases.in_query_order(got, order)
+        want = tpchcases.in_query_order(want, order)
+    tpchcases.same_rows(got, want)

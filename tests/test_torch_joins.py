@@ -328,9 +328,16 @@ def test_join_expand_rows_do_not_depend_on_slot_layout(rng):
 
 
 def test_join_type_and_key_checks():
+    """A cross join takes no keys (and gives every pair without them); an
+    unknown join type and a string key raise."""
     b = DeviceBatch.from_pandas(pd.DataFrame({"k": [1, 2]}), device="cpu")
-    with pytest.raises(NotImplementedError, match="cross"):
+    with pytest.raises(ValueError, match="cross join takes no keys"):
         tpujoin.hash_join([b], [b], "cross", [0], [0])
+    out = tpujoin.hash_join([b], [b], "cross", [], [])[0].to_pandas()
+    assert sorted(zip(out.iloc[:, 0], out.iloc[:, 1])) == [
+        (1, 1), (1, 2), (2, 1), (2, 2)]
+    with pytest.raises(NotImplementedError, match="asof"):
+        tpujoin.hash_join([b], [b], "asof", [0], [0])
     s = DeviceBatch.from_pandas(pd.DataFrame({"s": ["a", "b"]}),
                                 device="cpu")
     with pytest.raises(NotImplementedError, match="string join keys"):
@@ -471,13 +478,27 @@ def ref_rowops_filter(ref, pred):
 
 
 def test_string_comparisons_outside_the_slice_raise(rng):
+    """The comparisons that raised before string comparisons were ported
+    (an order comparison with a literal, column against column) now give
+    the JAX package's rows."""
+    from spark_rapids_tpu.sql import functions as RF
+    from spark_rapids_tpu.sql.exprs.core import bind_references as ref_bind
+    from spark_rapids_tpu.sql.exprs.evalbridge import (
+        make_context as ref_ctx, to_device_column as ref_to_col,
+    )
     from spark_rapids_tpu_torch.models.q1_step import filter_rows
     from spark_rapids_tpu_torch.sql import functions as F
-    batch = DeviceBatch.from_pandas(_side(rng, 50, "l", 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="<"):
-        filter_rows(batch, F.col("ls") < "b")
-    with pytest.raises(NotImplementedError, match="column/column"):
-        filter_rows(batch, F.col("ls") == F.col("ls"))
+    ref = RefBatch.from_pandas(_side(rng, 50, "l", 10))
+    for cond, ref_cond in ((F.col("ls") < "b", RF.col("ls") < "b"),
+                           (F.col("ls") == F.col("ls"),
+                            RF.col("ls") == RF.col("ls"))):
+        ctx = ref_ctx(ref)
+        pred = ref_to_col(ctx, ref_bind(ref_cond.expr, ref.schema)
+                          .eval_device(ctx))
+        want = ref_rowops_filter(ref, pred).to_pandas()
+        got = filter_rows(batch_from_reference(ref), cond).to_pandas()
+        pd.testing.assert_frame_equal(got, want)
+        assert len(got) > 0
 
 
 @pytest.mark.parametrize("case", ["random", "skewed", "multi_key"])

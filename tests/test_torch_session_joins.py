@@ -10,7 +10,8 @@ table of SF 0.002 broadcasts) and at -1 (hash exchanges and shuffled
 joins). Every join type, shuffled and broadcast, on small frames with
 null keys, duplicate keys, an empty build side, int32, int64 and
 timestamp keys and a two-key join; USING joins; a string-key join (off
-the device, with its reason). Keys, counts, dates and strings exact,
+the device, with its reason); cross joins (the cartesian product) and
+condition joins (the broadcast nested-loop join, off by default). Keys, counts, dates and strings exact,
 float64 at rtol 1e-9; joins compare as row sets (the port's hash probe
 emits rows in another order than the JAX package's sort probe), Q3's
 top 10 in the query's order with ties as a set.
@@ -21,6 +22,7 @@ import pandas as pd
 import pytest
 
 from spark_rapids_tpu.models import tpch as ref_tpch
+from spark_rapids_tpu.sql import functions as RF
 from spark_rapids_tpu_torch.exec import tpujoin
 from spark_rapids_tpu_torch.models import tpch
 from spark_rapids_tpu_torch.models import tpch_data as G
@@ -288,18 +290,125 @@ def test_using_join_matches_reference(session, how):
     assert len(got) > 0
 
 
-def test_unported_joins_raise():
+def test_unported_joins_raise(session):
+    """The full outer USING join still needs Coalesce (ROADMAP A.6) and
+    raises; the cross join and the condition join it pinned as raising
+    before they were ported now give the JAX package's rows."""
     s = _port_session()
-    a = s.create_dataframe(pd.DataFrame({"k": [1, 2], "x": [3, 4]}))
-    b = s.create_dataframe(pd.DataFrame({"k": [2, 3], "y": [5, 6]}))
+    a_df = pd.DataFrame({"k": [1, 2], "x": [3, 4]})
+    b_df = pd.DataFrame({"k2": [2, 3], "y": [5, 3]})
+    a, b = s.create_dataframe(a_df), s.create_dataframe(b_df)
     with pytest.raises(NotImplementedError, match="A.6"):
-        a.join(b, on="k", how="full")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        a.join(b)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        a.join(b, on="k", how="cross")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        a.join(b, on=F.col("x") < F.col("y"))
+        a.join(s.create_dataframe(b_df.rename(columns={"k2": "k"})),
+               on="k", how="full")
+    for got, ref in ((a.join(b), lambda rs: rs.create_dataframe(a_df).join(
+                          rs.create_dataframe(b_df))),
+                     (a.join(b, on=F.col("x") < F.col("y")),
+                      lambda rs: rs.create_dataframe(a_df).join(
+                          rs.create_dataframe(b_df),
+                          on=RF.col("x") < RF.col("y")))):
+        want = with_cpu_session(ref)
+        assert _rows(got.collect()) == _rows(want)
+        assert len(want) > 0
+
+
+def _cross_sides():
+    rng = np.random.default_rng(5)
+    left = pd.DataFrame({"a": rng.integers(0, 20, 40),
+                         "ls": rng.choice(["x", "y", "zz"], 40),
+                         "lf": rng.uniform(0, 1, 40)})
+    left.loc[3, "a"] = None
+    left["a"] = left["a"].astype("Int64")
+    right = pd.DataFrame({"b": rng.integers(0, 20, 7),
+                          "rs": [f"r{i}" for i in range(7)]})
+    return left, right
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_cross_join_matches_reference(session, parts):
+    """``on=None``: every left row with every right row, through a
+    single-partition exchange on each side and the cartesian product (on
+    the device in test mode), equal to the JAX session and pandas; one
+    counted sync a join in a warm execution (cached scans)."""
+    l_df, r_df = _cross_sides()
+    s = _port_session(**{"spark.rapids.sql.test.enabled": True,
+                         "spark.rapids.sql.cacheDeviceScans": True})
+    df = s.create_dataframe(l_df, parts).join(s.create_dataframe(r_df))
+    assert "* CpuCartesianProductExec" in df.explain()
+    got = df.collect()
+    want = with_tpu_session(lambda rs: rs.create_dataframe(l_df, parts)
+                            .join(rs.create_dataframe(r_df)))
+    pand = l_df.merge(r_df, how="cross")
+    assert list(got.columns) == list(want.columns) == list(pand.columns)
+    assert _rows(got) == _rows(want) == _rows(pand)
+    plan = s.physical_plan(df._plan)
+    assert any(isinstance(n, tpujoin.TpuCartesianProductExec)
+               for n in plan.walk())
+    before = SYNCS.total()
+    df.collect_batches()
+    assert SYNCS.total() - before == 1
+
+
+def test_cross_join_prunes_and_filters(session):
+    """A cross join under a filter on both sides' columns and a
+    projection (the TPC-H scalar-subquery shape): pruned inputs, the
+    JAX session's rows."""
+    l_df, r_df = _cross_sides()
+    s = _port_session(**{"spark.rapids.sql.test.enabled": True})
+
+    def q(M, sess):
+        total = sess.create_dataframe(r_df).agg(
+            M.avg("b").alias("avg_b"))
+        return (sess.create_dataframe(l_df).join(total)
+                .filter(M.col("a") > M.col("avg_b")).select("a", "ls"))
+    got = q(F, s).collect()
+    want = with_tpu_session(lambda rs: q(RF, rs))
+    assert _rows(got) == _rows(want)
+    assert len(got) > 0
+
+
+@pytest.mark.parametrize("enabled", [False, True])
+def test_condition_join_nested_loop_rule(session, enabled):
+    """A join on a condition plans a broadcast nested-loop join. Its rule
+    is off by default, as in the JAX package: the plan stays on the CPU
+    with the conf named as the reason (test mode raises); with
+    ``spark.rapids.sql.exec.BroadcastNestedLoopJoinExec=true`` it runs on
+    the device (the cross product, then one B1 filter). Both equal the
+    JAX session's rows and pandas'."""
+    l_df, r_df = _cross_sides()
+    key = "spark.rapids.sql.exec.BroadcastNestedLoopJoinExec"
+    conf = {"spark.rapids.sql.test.enabled": True}
+    if enabled:
+        conf[key] = True
+    s = _port_session(**conf)
+
+    def q(M, sess):
+        return sess.create_dataframe(l_df, 2).join(
+            sess.create_dataframe(r_df),
+            on=(M.col("a") < M.col("b")) & (M.col("ls") != "zz"))
+    df = q(F, s)
+    text = df.explain()
+    if enabled:
+        assert "* CpuBroadcastNestedLoopJoinExec(inner)" in text
+        got = df.collect()
+        assert any(isinstance(n, tpujoin.TpuBroadcastNestedLoopJoinExec)
+                   for n in s.physical_plan(df._plan).walk())
+    else:
+        assert (f"BroadcastNestedLoopJoinExec is disabled by conf {key}"
+                in text)
+        with pytest.raises(AssertionError, match="disabled by conf"):
+            df.collect()
+        s.set_conf("spark.rapids.sql.test.enabled", False)
+        got = df.collect()
+    ref_conf = {key: True} if enabled else None
+    want = with_tpu_session(
+        lambda rs: q(RF, rs), conf=ref_conf,
+        allow_non_tpu=None if enabled else [
+            "CpuBroadcastNestedLoopJoinExec", "CpuBroadcastExchangeExec"])
+    pand = l_df.merge(r_df, how="cross")
+    pand = pand[(pand.a < pand.b).fillna(False) & (pand.ls != "zz")]
+    assert _rows(got) == _rows(want) == _rows(pand)
+    assert len(got) > 0
 
 
 def test_string_key_join_stays_on_cpu(session):
