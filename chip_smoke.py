@@ -466,7 +466,65 @@ def check_hash_join(n: int, cap: int, live_rows: int, probe_rows: int,
               lookup_plain_ms=lookup_plain_ms,
               lookup_bound_bytes=lookup_bytes,
               lookup_bound_ms=bound_ms(lookup_bytes))
+    del jt, table, counts
+    torch.cuda.empty_cache()
+    b4["dense_yardstick"] = dense_yardstick(cap, live_rows, probe_rows, gen,
+                                            dev)
     return [b3, b4]
+
+
+def dense_yardstick(cap: int, live_rows: int, probe_rows: int,
+                    gen: torch.Generator, dev) -> dict:
+    """The dense route's speed beside the hash route's at Q3's build and
+    probe shapes (``cap`` build rows, the first ``live_rows`` live, 53.7%
+    of them valid; ``probe_rows`` stream rows), keys in [1, 2^24), the
+    widest range the dense route tables: ``join_probe_dense`` (the build
+    sorted by offset, a (start, count) table, one gather a stream row)
+    against ``hash_join_probe`` (B3, the placement sort, B4), both giving
+    (counts, bstart, bperm). Their match counts must agree."""
+    from spark_rapids_tpu_torch.columnar import dtype as dtypes
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import joins as join_ops
+    from spark_rapids_tpu_torch.ops import kernels as K
+
+    def batch(keys, valid, n):
+        return DeviceBatch(Schema(["k"], [dtypes.INT64]),
+                           [DeviceColumn(dtypes.INT64, keys, valid)],
+                           torch.tensor(n, dtype=torch.int32, device=dev))
+    span = 1 << 24
+    bkey = torch.randint(1, span, (cap,), generator=gen, device=dev)
+    bvalid = ((torch.arange(cap, device=dev) < live_rows)
+              & (torch.rand(cap, generator=gen, device=dev) < 0.537))
+    skey = torch.randint(1, span, (probe_rows,), generator=gen, device=dev)
+    sv = torch.ones(probe_rows, dtype=torch.bool, device=dev)
+    build, stream = batch(bkey, bvalid, live_rows), batch(skey, sv,
+                                                          probe_rows)
+    T = K.hash_table_size(cap)
+    bimg, simg = [bkey ^ -(1 << 63)], [skey ^ -(1 << 63)]
+    counts, _bs, _bp, ok = join_ops.join_probe_dense(build, stream, 0, 0, 0,
+                                                     span)
+    hcounts, _hs, _hp = K.hash_join_probe(bimg, bvalid, simg, sv, T)
+    require(bool(ok) and torch.equal(counts, hcounts),
+            "dense probe: match counts differ from B3 + B4")
+    del counts, hcounts, _bs, _bp, _hs, _hp
+    dense_ms = time_ms(lambda: join_ops.join_probe_dense(
+        build, stream, 0, 0, 0, span), 5)
+    hash_ms = time_ms(lambda: K.hash_join_probe(bimg, bvalid, simg, sv, T),
+                      5)
+    dense_build_ms = time_ms(lambda: join_ops.dense_build(build, 0, 0, span),
+                             5)
+    table = join_ops.dense_build(build, 0, 0, span)
+    dense_lookup_ms = time_ms(lambda: join_ops.dense_lookup(table, stream,
+                                                            0), 10)
+    log(f"dense probe at Q3's shapes ({cap} build rows, {probe_rows} "
+        f"probes, keys in [1, 2^24)): {dense_ms:.4f} ms (build "
+        f"{dense_build_ms:.4f}, lookup {dense_lookup_ms:.4f}) against B3 + "
+        f"B4 {hash_ms:.4f} ms")
+    return {"build_rows": cap, "live_rows": live_rows,
+            "probe_rows": probe_rows, "key_span": span,
+            "dense_ms": dense_ms, "dense_build_ms": dense_build_ms,
+            "dense_lookup_ms": dense_lookup_ms, "hash_ms": hash_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1186,15 +1244,56 @@ def run_session_query(name: str, query, runs: int, runner: dict,
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     out, walls, launches = run_query(name, query.collect, runs)
-    require_syncs(name, query.collect_batches, syncs)
+    dense = dense_verifications(query)
+    reset_routes()
+    require_syncs(name, query.collect_batches, syncs + dense)
     med = float(np.median(walls))
     log(f"{name}: median {med:.4f} s against the runner's "
         f"{runner['wall_s']:.4f} s; counted syncs before the collect "
-        f"{syncs} (runner {syncs}); cold run (upload) {cold:.1f} s")
+        f"{syncs + dense} (runner {syncs}, dense verifications {dense}); "
+        f"cold run (upload) {cold:.1f} s; routes {route_counts()}")
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
-                 "launches": launches, "counted_syncs": syncs,
+                 "launches": launches, "counted_syncs": syncs + dense,
+                 "dense_verifications": dense, "routes": route_counts(),
                  "runner_wall_s": runner["wall_s"], "runner_syncs": syncs}
+
+
+def dense_verifications(df) -> int:
+    """The semi and anti joins of a session query's device plan that take
+    the dense route: the session's scan statistics (read after the cold
+    run's uploads) bound their build key to at most 2^24 values. Each
+    reads its verification flag once, one counted sync (an expanding join
+    reads its flag in the copy of its expansion totals)."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    sess = df.session
+    joins = {id(node): node for node in sess.physical_plan(df._plan).walk()
+             if isinstance(node, tpujoin.TpuShuffledHashJoinExec)
+             and node.join_type in ("leftsemi", "leftanti")}
+    return sum(node.dense_plan(sess) is not None for node in joins.values())
+
+
+def route_counts() -> dict:
+    """The join routes' probes and builds and the fused count distinct's
+    runs since the last ``reset_routes``."""
+    from spark_rapids_tpu_torch.exec import aggfuse, tpujoin
+    return {"join_probes": dict(tpujoin.ROUTES),
+            "join_builds": dict(tpujoin.BUILDS),
+            "count_distinct": dict(aggfuse.ROUTES)}
+
+
+def joined_on_device(rec: dict) -> bool:
+    """A session record's joins ran on B3 and B4, or on the dense route."""
+    launches = rec["launches"]
+    return ((launches["hash_table_build"] > 0
+             and launches["hash_table_probe"] > 0)
+            or rec["routes"]["join_probes"]["dense"] > 0)
+
+
+def reset_routes() -> None:
+    from spark_rapids_tpu_torch.exec import aggfuse, tpujoin
+    tpujoin.reset_routes()
+    aggfuse.reset_routes()
 
 
 def expanding_joins(sess, df) -> int:
@@ -1217,10 +1316,12 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     learns its skip decision), ``runs`` warm ones timed, then the query up
     to its collect under the sync debug mode "error" with the aggregation
     branch counts (``ops/aggregate.BRANCHES``) zeroed before and read
-    after. It may make one counted sync per inner join (``joins``: its
-    expansion totals) and one per row-space aggregation (its slot
-    attempt's verdict), no other; each branch of ``branches`` must have
-    run, the hash branch (B2) not at all."""
+    after. It may make one counted sync per expanding join (``joins``: its
+    expansion totals), one per semi or anti join on the dense route
+    (``dense_verifications``, predicted from the plan after the cold run)
+    and one per row-space aggregation (its slot attempt's verdict), no
+    other; each branch of ``branches`` must have run, the hash branch (B2)
+    not at all."""
     from spark_rapids_tpu_torch.ops import aggregate as A
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1228,23 +1329,30 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     out, walls, launches = run_query(name, query.collect, runs)
+    dense = dense_verifications(query)
     A.reset_branches()
+    reset_routes()
     got = count_syncs(query.collect_batches)
     taken = dict(A.BRANCHES)
-    want = joins + taken.get("rowspace", 0)
+    routes = route_counts()
+    want = joins + dense + taken.get("rowspace", 0)
     require(got == want, f"{name}: {got} counted syncs before the collect, "
-            f"expected {want} ({joins} joins, branches {taken})")
+            f"expected {want} ({joins} joins, {dense} dense "
+            f"verifications, branches {taken})")
     for b in branches:
         require(taken.get(b, 0) > 0, f"{name}: branch {b} did not run "
                 f"({taken})")
     require(not taken.get("hash"), f"{name}: took the hash branch")
     med = float(np.median(walls))
     log(f"{name}: median {med:.4f} s, {len(out)} rows, counted syncs "
-        f"{got}, branches {taken}; cold run (upload) {cold:.1f} s")
+        f"{got} ({joins} joins, {dense} dense verifications), branches "
+        f"{taken}, routes {routes}; cold run (upload) {cold:.1f} s")
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
                  "launches": launches, "counted_syncs": got,
-                 "branches": taken, "rows_out": len(out), "fallbacks": 0}
+                 "expanding_joins": joins, "dense_verifications": dense,
+                 "branches": taken, "routes": routes,
+                 "rows_out": len(out), "fallbacks": 0}
 
 
 def q10_reference(li, o, c, n):
@@ -1362,7 +1470,9 @@ def run_session_parquet(name: str, query, runs: int, runner, sf,
     require(stats.get("scan.device.splits", 0) == row_groups * (runs + 1),
             f"{name}: {stats.get('scan.device.splits')} row groups decoded "
             f"in {runs + 1} runs of {row_groups}")
-    syncs = row_groups + own_syncs
+    dense = dense_verifications(query)
+    syncs = row_groups + own_syncs + dense
+    reset_routes()
     require_syncs(name, query.collect_batches, syncs)
     for k, what in (("hybrid_expand", "B5"), ("delta_unpack", "B6"),
                     ("plain_fixed", "B7")):
@@ -1373,15 +1483,17 @@ def run_session_parquet(name: str, query, runs: int, runner, sf,
     beside = ("" if runner is None else
               f" against the runner's {runner['wall_s']:.4f} s (syncs "
               f"{runner['counted_syncs']})")
-    log(f"{name}: median {med:.4f} s{beside}; counted syncs {syncs}; B5 "
+    log(f"{name}: median {med:.4f} s{beside}; counted syncs {syncs} "
+        f"({dense} dense verifications), routes {route_counts()}; B5 "
         f"{launches['hybrid_expand']} B6 {launches['delta_unpack']} B7 "
         f"{launches['plain_fixed']} B8 {launches['slab_pack']}; cold run "
         f"{cold:.1f} s")
-    require(runner is None or syncs <= runner["counted_syncs"],
+    require(runner is None or syncs - dense <= runner["counted_syncs"],
             f"{name}: {syncs} syncs, more than the runner's")
     return out, {"sf": sf, "rows": rows, "cold_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
                  "launches": launches, "counted_syncs": syncs,
+                 "dense_verifications": dense, "routes": route_counts(),
                  "row_groups": row_groups,
                  "runner_wall_s": runner and runner["wall_s"],
                  "runner_syncs": runner and runner["counted_syncs"]}
@@ -1575,7 +1687,7 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
             ("q10", tables, 3, ("sorted_payload",)),
             ("q17", tables, 3, ("single", "sorted_payload")),
             ("q18", t18, 2, ("sorted_payload",)),
-            ("q21", tables, 5, ("sorted_payload",))):
+            ("q21", tables, 5, ())):
         qdf = T.QUERIES[qname](sess, qt)
         require(expanding_joins(sess, qdf) == joins,
                 f"session {qname}: {expanding_joins(sess, qdf)} expanding "
@@ -1600,6 +1712,9 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
                                  ("o_orderdate", True)], "session Q18")
         else:
             require(len(out) > 0, "session Q21 returned no rows")
+            # its two distinct counts: the fused pass, on hash group ids
+            require(rec["routes"]["count_distinct"]["hash"] == 2,
+                    f"session Q21: fused count distinct {rec['routes']}")
             err = same_in_order(out, want, ["s_name"],
                                 [("numwait", False), ("s_name", True)],
                                 "session Q21")
@@ -1720,9 +1835,9 @@ def tpch_cells(sess, tables: dict, frames: dict, sf, runs: int,
         rec["max_rel_err"] = same_query(out, want, qname, what)
         launches = rec["launches"]
         require(launches["compact_permutation"] > 0
-                and launches["hash_table_build"] > 0
-                and launches["hash_table_probe"] > 0,
-                f"{what} did not run B1, B3 and B4: {launches}")
+                and joined_on_device(rec),
+                f"{what} did not run B1, and B3 and B4 or the dense route: "
+                f"{launches} {rec['routes']}")
         rec.update(expanding_joins=joins, cross_joins=crosses,
                    shared_subtrees=shared,
                    pandas_s=report["pandas_tpch_s"][qname])
@@ -1731,6 +1846,65 @@ def tpch_cells(sess, tables: dict, frames: dict, sf, runs: int,
             sess.clear_device_cache()  # the uploads of its changed tables
     sess.clear_device_cache()
     torch.cuda.empty_cache()
+
+
+def tpcxbb_phase(sf, batch_rows: int, runs: int, queries: dict,
+                 report: dict) -> None:
+    """The 19 TPCxBB queries (``models/tpcxbb.py``) at ``sf`` through the
+    session at the JAX package's default confs, test mode, on cached
+    uploads (one session, its scan cache cleared after each query), each
+    against its pandas reference (``testing/tpcxbbcases.py``; Q7's
+    store_sales gains the 12 sales ``query_frames`` adds), with rows.
+    Counted syncs: one per expanding join, one per semi or anti join on the
+    dense route, one per row-space call, predicted from each plan after
+    its cold run. The join routes, the fused count distinct and the
+    launches are read from the sync-checked run; the phase must take the
+    union probe (Q7's i_category), the dense probe, and B3 and B4."""
+    from spark_rapids_tpu_torch.models import tpcxbb as B
+    from spark_rapids_tpu_torch.models import tpcxbb_data as D
+    from spark_rapids_tpu_torch.sql.plan import LogicalScan
+    from spark_rapids_tpu_torch.testing import tpcxbbcases as C
+    t0 = time.perf_counter()
+    frames = {n: f(sf, None) for n, f in D.ALL_TABLES.items()}
+    report["tpcxbb_gen_s"] = time.perf_counter() - t0
+    report["tpcxbb_rows"] = {n: len(f) for n, f in frames.items()}
+    log(f"TPCxBB SF{sf}: {report['tpcxbb_gen_s']:.1f} s, "
+        + ", ".join(f"{n} {len(f)}" for n, f in frames.items()
+                    if len(f) > 100_000))
+    sess = session_of(batch_rows)
+    base = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    report["tpcxbb_pandas_s"] = {}
+    totals = {"union": 0, "dense": 0, "hash_table_build": 0,
+              "hash_table_probe": 0}
+    for qname in sorted(B.QUERIES, key=lambda q: int(q[1:])):
+        fr = C.query_frames(qname, frames)
+        changed = [n for n in fr if fr[n] is not frames[n]]
+        qt = dict(base, **{n: sess.create_dataframe(fr[n])
+                           for n in changed})
+        t0 = time.perf_counter()
+        want = C.pandas_reference(qname, fr)
+        report["tpcxbb_pandas_s"][qname] = time.perf_counter() - t0
+        qdf = B.QUERIES[qname](sess, qt)
+        joins = expanding_joins(sess, qdf)
+        what = f"session TPCxBB {qname.upper()}"
+        # input rows: those of every table scan of the query's plan
+        scanned = sum(len(node.source.df) for node in qdf._plan.walk()
+                      if isinstance(node, LogicalScan))
+        out, rec = run_session_cell(what, qdf, runs, sf, scanned, joins, ())
+        require(len(out) > 0, f"{what} returned no rows")
+        rec["max_rel_err"] = C.same_answer(qname, out, want)
+        rec["pandas_s"] = report["tpcxbb_pandas_s"][qname]
+        totals["union"] += rec["routes"]["join_probes"]["union"]
+        totals["dense"] += rec["routes"]["join_probes"]["dense"]
+        for k in ("hash_table_build", "hash_table_probe"):
+            totals[k] += rec["launches"][k]
+        queries[f"session_bb_{qname}"] = rec
+        sess.clear_device_cache()
+        torch.cuda.empty_cache()
+    report["tpcxbb_routes"] = totals
+    log(f"TPCxBB routes and launches: {totals}")
+    for k, v in totals.items():
+        require(v > 0, f"TPCxBB: {k} never ran ({totals})")
 
 
 def _same_columns(card, cpu, what: str) -> None:
@@ -2098,9 +2272,10 @@ def main() -> int:
                                  sf_q1, q3_rows, syncs=2)
     rec["max_rel_err"] = max(check_q3(out, q3_want),
                              check_q3(out, q3_runner))
-    require(all(rec["launches"][k] > 0 for k in (
-        "hash_table_build", "hash_table_probe", "hash_grouped_aggregate",
-        "compact_permutation")), "session Q3 did not run B1, B2, B3, B4")
+    require(joined_on_device(rec) and all(rec["launches"][k] > 0 for k in (
+        "hash_grouped_aggregate", "compact_permutation")),
+        f"session Q3 did not run B1, B2, and B3/B4 or the dense route: "
+        f"{rec['launches']} {rec['routes']}")
     queries["session_q3"] = rec
     session_q3 = out
     out, rec = run_session_query("session Q4", T.q4(sess, tables), runs,
@@ -2110,9 +2285,8 @@ def main() -> int:
             and list(out.order_count) == list(q4_want.order_count)
             == list(q4_runner.order_count),
             f"session Q4 differs: {out} vs {q4_want}")
-    require(rec["launches"]["hash_table_build"] > 0
-            and rec["launches"]["hash_table_probe"] > 0,
-            "session Q4 did not run B3 and B4")
+    require(joined_on_device(rec), f"session Q4 did not run B3 and B4 or "
+            f"the dense route: {rec['launches']} {rec['routes']}")
     rec["max_rel_err"] = 0.0
     queries["session_q4"] = rec
     # Q3 with its first join broadcast: the threshold at the orders
@@ -2403,6 +2577,13 @@ def main() -> int:
                 "session Q18 group-by parquet, host against device decode")
     del sess, host
     del df
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tpcxbb_phase(1 if args.quick else 250, q1_batch, runs_new, queries,
+                 report)
+    report["tpcxbb_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     launches_total = {k["name"]: 0 for k in kernels}
     parquet_launches = dict(launches_total)

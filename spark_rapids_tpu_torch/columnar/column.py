@@ -18,9 +18,9 @@ A string column has ``data`` None and one of two device forms:
     columns (kernel B8) and for dictionaries too large to hold on the host.
     Rows move as one 2-D gather; ``to_numpy`` unpacks them on the host.
 
-Byte-level string expressions over slabs wait for a later slice, and the
-pandas upload (``DeviceBatch.from_pandas``) still takes strings only as
-dictionaries: a plain string column there raises NotImplementedError.
+The pandas upload (``DeviceBatch.from_pandas``) makes a dictionary of a
+low-cardinality string column and a slab of any other, at the stride its
+caller allows (the scan's upload: any width).
 
 The host dictionary encoding (``dict_factorize_hint``, ``host_dict_encode``,
 ``host_dict_encode_stateful``) is a copy of the JAX package's numpy code.

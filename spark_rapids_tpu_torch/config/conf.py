@@ -105,6 +105,13 @@ BROADCAST_THRESHOLD = register(
     "exchange instead of hash-partitioned exchanges "
     "(spark.sql.autoBroadcastJoinThreshold equivalent). -1 disables.")
 
+FUSE_COUNT_DISTINCT = register(
+    "spark.rapids.sql.agg.fuseCountDistinct", _to_bool, True,
+    "Run the two-level aggregation of a grouped count distinct as one "
+    "pass (exec/aggfuse.py): hash group ids over kernel B3 where every "
+    "key is fixed-width or a dictionary, one sort where a key is a char "
+    "slab.")
+
 
 class TpuConf:
     """Settings with typed accessors."""

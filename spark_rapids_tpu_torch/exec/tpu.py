@@ -566,8 +566,9 @@ class TpuScanExec(TpuExec):
         def upload(part: Partition) -> Iterator[DeviceBatch]:
             if raw_parts is not None:
                 return upload_partition(part, self._schema, dict_state,
-                                        ctx.device)
-            return upload_frames(part, max_rows, dict_state, ctx.device)
+                                        ctx.device, ctx.session)
+            return upload_frames(part, max_rows, dict_state, ctx.device,
+                                 ctx.session)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:

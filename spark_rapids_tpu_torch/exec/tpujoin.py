@@ -17,16 +17,29 @@ The join keeps the JAX exec's behaviour:
     in ONE device->host copy per join, inside ``sync_scope``;
   * the expand runs per stream batch, plus the full-outer tail.
 
-The probe is the hash table, the JAX exec's own ``_hash_probe_kernel``
-route (its default is the union-lexsort probe: the same rows in another
-order): the build side's key images go through B3 once per join
-(``kernels.hash_join_build``) and each stream batch through B4
-(``kernels.hash_join_lookup``). Semi and anti joins need only the match
-counts, so they never wait for the host. A full outer join always emits
-its tail batch, empty or not, where the JAX exec fetched the tail's row
-count to decide. A broadcast join builds its table once per execution and
-probes it from every stream partition: one counted sync a stream
-partition, none for semi and anti joins.
+The probe takes the routes of the JAX exec on a TPU:
+
+  * the dense direct-index probe (``ops/joins.dense_build`` and
+    ``dense_lookup``) where the session's scan statistics
+    (``column_stats``, through the rename aliases ``column_aliases``)
+    bound a single integer build key to at most 2^24 values
+    (``dense_plan``). The bounds are advisory and the build verifies
+    them on the device: an expanding join reads the flag in the same copy
+    as its expansion totals, a semi or anti join once for all its stream
+    batches, one counted sync. Where a build key falls outside, the join
+    takes the hash route and fetches again;
+  * the hash table, the JAX exec's ``_hash_probe_kernel`` route: the
+    build side's key images go through B3 once per join
+    (``kernels.hash_join_build``) and each stream batch through B4
+    (``kernels.hash_join_lookup``);
+  * the union-lexsort probe (``ops/joins.join_probe``) for a join with a
+    string key, which the hash route never takes.
+
+Semi and anti joins off the dense route need only the match counts, so
+they never wait for the host. A full outer join always emits its tail
+batch, empty or not, where the JAX exec fetched the tail's row count to
+decide. A broadcast join builds its table once per execution and probes
+it from every stream partition: one counted sync a stream partition.
 
 A cross join (join type ``"cross"``, no keys) takes the JAX package's
 cross route of the probe (``ops/joins.cross_probe``: every live stream row
@@ -36,9 +49,8 @@ single partitions, and ``TpuBroadcastNestedLoopJoinExec`` runs it for each
 stream partition against the broadcast build, then keeps the rows its
 condition holds for (one compaction, kernel B1).
 
-The dense direct-index probe (A.4), capacity speculation (A.10),
-out-of-core grace joins (A.8) and string join keys (A.4) wait for later
-slices.
+Capacity speculation (A.10) and out-of-core grace joins (A.8) wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -72,12 +84,12 @@ def output_schema(left: Schema, right: Schema, join_type: str) -> Schema:
 
 def _key_images(batch: DeviceBatch, keys: Sequence[int]
                 ) -> List[torch.Tensor]:
+    """The fixed-width keys' images of the hash route."""
     imgs: List[torch.Tensor] = []
     for ki in keys:
         if batch.schema.dtypes[ki].is_string:
-            raise NotImplementedError(
-                "hash_join: string join keys need the union-lexsort probe, "
-                "which is not ported yet")
+            raise ValueError("hash route: string keys take the "
+                             "union-lexsort probe")
         imgs.extend(u64_key_image(batch.columns[ki]))
     return imgs
 
@@ -89,26 +101,88 @@ def _concat_build(batches: Sequence[DeviceBatch]) -> DeviceBatch:
         batches, bucket_capacity(sum(b.capacity for b in batches)))
 
 
+# the widest key range the dense probe tables (the JAX exec's)
+DENSE_MAX_RANGE = 1 << 24
+
+# stream batches probed, and build sides built, by route
+ROUTES = {"dense": 0, "hash": 0, "union": 0, "cross": 0}
+BUILDS = {"dense": 0, "hash": 0, "union": 0, "cross": 0}
+
+
+def reset_routes() -> None:
+    for k in ROUTES:
+        ROUTES[k] = 0
+        BUILDS[k] = 0
+
+
 class BuiltSide:
-    """A join's build side: its batch (the build batches concatenated) and
-    the B3 table over its keys (None for a cross join)."""
+    """A join's build side: its batch (the build batches concatenated),
+    its keys and its route: "hash" (``table``, the B3 table), "dense"
+    (``dense``, verified at the first probe; a failed verification builds
+    the hash table), "union" (a string key: built per stream batch) or
+    "cross"."""
 
-    def __init__(self, batch: DeviceBatch,
-                 table: Optional[kernels.JoinTable]):
+    def __init__(self, batch: DeviceBatch, keys: Sequence[int], route: str,
+                 table: Optional[kernels.JoinTable] = None,
+                 dense: Optional[join_ops.DenseTable] = None):
         self.batch = batch
+        self.keys = list(keys)
+        self.route = route
         self.table = table
+        self.dense = dense
+        # the dense verification's answer, once read
+        self.dense_ok: Optional[bool] = None
+
+    def hash_table(self) -> kernels.JoinTable:
+        if self.table is None:
+            BUILDS["hash"] += 1
+            self.table = kernels.hash_join_build(
+                _key_images(self.batch, self.keys),
+                join_ops._key_valid(self.batch, self.keys),
+                kernels.hash_table_size(self.batch.capacity))
+        return self.table
 
 
-def build_side(batches: Sequence[DeviceBatch],
-               keys: Sequence[int]) -> BuiltSide:
-    """Concatenate the build batches once and build their table (B3); a
-    cross join (no keys) builds none."""
+def build_side(batches: Sequence[DeviceBatch], keys: Sequence[int],
+               dense: Optional[tuple] = None) -> BuiltSide:
+    """Concatenate the build batches once and build their side: the dense
+    table where ``dense`` (lo, table size) is given, none for a string
+    key (the union probe sorts per stream batch) or a cross join, else
+    the B3 table."""
     build = _concat_build(batches)
-    if not keys:
-        return BuiltSide(build, None)
-    return BuiltSide(build, kernels.hash_join_build(
-        _key_images(build, keys), join_ops._key_valid(build, keys),
-        kernels.hash_table_size(build.capacity)))
+    route = ("cross" if not keys else
+             "union" if any(build.schema.dtypes[k].is_string for k in keys)
+             else "dense" if dense is not None else "hash")
+    if route != "hash":
+        BUILDS[route] += 1
+    if route in ("cross", "union"):
+        return BuiltSide(build, keys, route)
+    if route == "dense":
+        return BuiltSide(build, keys, "dense", dense=join_ops.dense_build(
+            build, keys[0], dense[0], dense[1]))
+    side = BuiltSide(build, keys, "hash")
+    side.hash_table()
+    return side
+
+
+def _probe(built: BuiltSide, stream: DeviceBatch,
+           stream_keys: Sequence[int], route: str):
+    """(counts, bstart, bperm) of one stream batch on ``route``."""
+    build = built.batch
+    ROUTES[route] += 1
+    if route == "cross":
+        return join_ops.cross_probe(build, stream)
+    if route == "union":
+        return join_ops.join_probe(build, stream, built.keys, stream_keys)
+    if route == "dense":
+        counts, bstart = join_ops.dense_lookup(built.dense, stream,
+                                               stream_keys[0])
+        return counts, bstart, built.dense.bperm
+    jt = built.hash_table()
+    counts, bstart = kernels.hash_join_lookup(
+        jt, _key_images(stream, stream_keys),
+        join_ops._key_valid(stream, stream_keys))
+    return counts, bstart, jt.bperm
 
 
 def _empty(schema: Schema, device) -> DeviceBatch:
@@ -121,40 +195,54 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                  join_type: str, stream_keys: Sequence[int],
                  stream_is_left: bool, out_schema: Schema
                  ) -> List[DeviceBatch]:
-    """Probe every stream batch against the built side (B4), then expand:
-    all expansion totals come back in one counted copy, none for semi and
-    anti joins. At least one batch comes back (an empty one where the
+    """Probe every stream batch against the built side, then expand: all
+    expansion totals come back in one counted copy (with the dense
+    route's verification flag), none for semi and anti joins off the
+    dense route. At least one batch comes back (an empty one where the
     join yields no rows)."""
-    build, jt = built.batch, built.table
+    build = built.batch
     if not streams:
         return [_empty(out_schema, build.device)]
+    route = built.route
+    if route == "dense" and built.dense_ok is False:
+        route = "hash"
     # probe every stream batch before any host wait
-    if jt is None:  # a cross join
-        crossed = [join_ops.cross_probe(build, s) for s in streams]
-        probes = [(counts, bstart) for counts, bstart, _p in crossed]
-        bperm = crossed[0][2]
-    else:
-        probes = [kernels.hash_join_lookup(
-            jt, _key_images(s, stream_keys),
-            join_ops._key_valid(s, stream_keys)) for s in streams]
-        bperm = jt.bperm
-    if join_type in ("leftsemi", "leftanti"):
+    probes = [_probe(built, s, stream_keys, route) for s in streams]
+    semi = join_type in ("leftsemi", "leftanti")
+    verify = route == "dense" and built.dense_ok is None
+    if semi:
+        if verify:
+            with sync_scope("join.denseVerify", nbytes=1):
+                built.dense_ok = bool(built.dense.ok.item())
+            if not built.dense_ok:
+                return probe_expand(built, streams, join_type, stream_keys,
+                                    stream_is_left, out_schema)
         return [join_ops.semi_anti_filter(s, counts,
                                           anti=join_type == "leftanti")
-                for s, (counts, _b) in zip(streams, probes)]
+                for s, (counts, _b, _p) in zip(streams, probes)]
     adjs = [join_ops.outer_adjusted_counts(s, counts)
             if join_type in OUTER else counts
-            for s, (counts, _b) in zip(streams, probes)]
+            for s, (counts, _b, _p) in zip(streams, probes)]
     totals = torch.stack([join_ops.expand_totals(build, s, adj)
-                          for s, adj in zip(streams, adjs)])
+                          for s, adj in zip(streams, adjs)]).reshape(-1)
+    if verify:
+        totals = torch.cat([totals, built.dense.ok.to(torch.int64)
+                            .reshape(1)])
     with sync_scope("join.expandTotals", nbytes=totals.numel() * 8):
-        sizes = totals.cpu().tolist()
+        flat = totals.cpu().tolist()
+    if verify:
+        built.dense_ok = bool(flat.pop())
+        if not built.dense_ok:
+            return probe_expand(built, streams, join_type, stream_keys,
+                                stream_is_left, out_schema)
+    width = len(flat) // len(streams)
+    sizes = [flat[i * width:(i + 1) * width] for i in range(len(streams))]
     out: List[DeviceBatch] = []
     matched = (torch.zeros(build.capacity, dtype=torch.bool,
                            device=build.device)
                if join_type == "full" else None)
-    for stream, (counts, bstart), adj, size in zip(streams, probes, adjs,
-                                                   sizes):
+    for stream, (counts, bstart, bperm), adj, size in zip(streams, probes,
+                                                          adjs, sizes):
         if join_type == "full":
             matched |= join_ops.build_match_flags(build, counts, bstart,
                                                   bperm)
@@ -275,6 +363,42 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
             return 0, self.left_keys, self.right_keys
         return 1, self.right_keys, self.left_keys
 
+    def dense_plan(self, session) -> Optional[tuple]:
+        """(lo, table size) where the dense probe applies (the JAX exec's
+        ``_dense_plan``): one integer build key whose name resolves,
+        through the session's rename aliases, to scan statistics bounding
+        it to at most ``DENSE_MAX_RANGE`` values; else None. Read at the
+        build, after the build side's scans ran."""
+        si, _skey, bkey = self._sides()
+        if self.join_type == "cross" or len(bkey) != 1 or session is None:
+            return None
+        schema = self.children[1 - si].output_schema()
+        dt = schema.dtypes[bkey[0]]
+        if not dt.is_integral:
+            return None
+        names = {schema.names[bkey[0]]}
+        frontier = set(names)
+        for _ in range(8):  # alias chains are shallow; bound the walk
+            nxt = set()
+            for n in frontier:
+                nxt |= session.column_aliases.get(n, set()) - names
+            if not nxt:
+                break
+            names |= nxt
+            frontier = nxt
+        bounds = [session.column_stats[n] for n in names
+                  if n in session.column_stats]
+        if not bounds:
+            return None
+        lo = min(b[0] for b in bounds)
+        rng = max(b[1] for b in bounds) - lo + 1
+        if rng <= 0 or rng > DENSE_MAX_RANGE:
+            return None
+        size = 1024
+        while size < rng:
+            size <<= 1
+        return lo, size
+
     def _builder(self, ctx: ExecContext, build_part: Partition):
         """The partition's build step, run at its first use."""
         si, _skey, bkey = self._sides()
@@ -287,7 +411,8 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
                 if not batches:
                     from spark_rapids_tpu_torch.exec.tpu import empty_batch
                     batches = [empty_batch(schema, ctx.device)]
-                state["side"] = build_side(batches, bkey)
+                state["side"] = build_side(batches, bkey,
+                                           self.dense_plan(ctx.session))
             return state["side"]
         return built
 

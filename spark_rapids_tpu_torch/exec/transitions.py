@@ -12,8 +12,11 @@
     source or a CPU operator's output) into
     DeviceBatches of at most ``batchSizeRows`` rows, every column probed
     for a dictionary (``DeviceBatch.from_pandas``; a string column that
-    does not encode becomes a char slab of at most ``MAX_SLAB_STRIDE``
-    bytes a row), inside one counted sync a batch.
+    does not encode becomes a char slab whose stride is the power of two
+    that covers the batch's longest value, the rule of the Parquet scan's
+    host fallback), inside one counted sync a batch. A later batch may be
+    wider than the first: ``rowops.concat_batches`` widens the narrower
+    slabs with zero words.
   * ``pack_splits`` groups a Parquet scan's row groups, in file order,
     into partitions of at most ``batchSizeRows`` rows, so the coalesce
     above the scan concatenates them into batches of that size (the JAX
@@ -44,9 +47,13 @@ from spark_rapids_tpu_torch.ops.parquet_decode import (
     RawRowGroup, decode_rowgroup,
 )
 
-# widest per-row byte stride of a char slab (the JAX package's default
+# widest per-row byte stride of a char slab the Parquet scan plans on the
+# device (the JAX package's default
 # spark.rapids.sql.dict.blockedChars.maxStride)
 MAX_SLAB_STRIDE = 64
+# widest stride of an uploaded frame's slab: any value fits (the JAX package
+# uploads such a column as plain offsets and chars, ROADMAP A.5)
+UPLOAD_MAX_STRIDE = 1 << 30
 
 
 def upload_blocked_chars() -> int:
@@ -64,13 +71,20 @@ def _as_rowgroup(df, schema: Schema) -> RawRowGroup:
 
 def upload_partition(part: Partition, schema: Schema,
                      dict_state: Optional[dict],
-                     device="cuda") -> Iterator[DeviceBatch]:
+                     device="cuda", session=None) -> Iterator[DeviceBatch]:
     """DeviceBatches of one scan partition. ``dict_state`` is shared by
     every partition of one scan, so all its batches agree on each string
-    column's dictionary and slab stride."""
+    column's dictionary and slab stride. A row group's footer bounds of
+    its integer columns (or a host split's values) join the ``session``'s
+    statistics."""
     for split in part():
         raw = split if getattr(split, "is_raw_rowgroup", False) \
             else _as_rowgroup(split, schema)
+        if session is not None:
+            for name, (lo, hi) in raw.stats.items():
+                note_bounds(session, name, lo, hi)
+            if raw.fallback_df is not None:
+                note_scan_stats(session, raw.fallback_df)
         batch = decode_rowgroup(raw, schema, dict_state, device)
         batch.host_rows = raw.n
         yield batch
@@ -119,20 +133,48 @@ def scan_cache_for(ctx: ExecContext, source, schema: Schema,
     return store[key][1]
 
 
+def note_scan_stats(session, df: pd.DataFrame) -> None:
+    """Union each scanned integer column's (min, max) into the session's
+    advisory statistics (``session.column_stats``). Called only from scan
+    uploads, so a derived column never seeds them; the dense join verifies
+    the bounds on the device before it relies on them
+    (``exec/tpujoin.py``)."""
+    if session is None:
+        return
+    for name in df.columns:
+        s = df[name]
+        if (not pd.api.types.is_integer_dtype(s.dtype)
+                or pd.api.types.is_bool_dtype(s.dtype)
+                or not int(s.count())):
+            continue
+        note_bounds(session, str(name), int(s.min()), int(s.max()))
+
+
+def note_bounds(session, name: str, lo: int, hi: int) -> None:
+    """Union (lo, hi) into the session's statistics of column ``name``."""
+    prev = session.column_stats.get(name)
+    if prev is not None:
+        lo, hi = min(lo, prev[0]), max(hi, prev[1])
+    session.column_stats[name] = (lo, hi)
+
+
 def upload_frames(part: Partition, max_rows: int, dict_state: dict,
-                  device) -> Iterator[DeviceBatch]:
+                  device, session=None) -> Iterator[DeviceBatch]:
     """DeviceBatches of a partition of pandas frames, at most ``max_rows``
     rows each. ``dict_state`` is shared by every partition of one upload,
     so all its batches agree on each column's dictionary. The upload of a
-    batch copies from pageable host memory: one counted sync."""
+    batch copies from pageable host memory: one counted sync. A scan
+    passes its ``session``, whose statistics each frame's integer columns
+    then join."""
     for df in part():
+        note_scan_stats(session, df)
         for lo in range(0, max(len(df), 1), max_rows):
             chunk = df if len(df) <= max_rows else \
                 df.iloc[lo:lo + max_rows].reset_index(drop=True)
             with sync_scope("scan.upload"):
                 batch = DeviceBatch.from_pandas(
                     chunk, dict_state, device=device,
-                    slab_stride=upload_blocked_chars())
+                    slab_stride=UPLOAD_MAX_STRIDE)
             yield batch
 
 

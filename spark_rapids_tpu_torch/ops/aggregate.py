@@ -25,10 +25,10 @@ Kernel B1 compacts the sorted-payload branch's group boundaries into
 representative rows, and the row-space slot attempt's used slots, as in
 the JAX package. ``BRANCHES`` counts the branch each call took.
 
-The dense-key branch (``dense_composite``, under the session's capacity
-speculation) waits for ROADMAP A.10 and ``count_distinct_reduce`` for its
-caller, ``exec/aggfuse.py`` (A.4). Two deliberate differences from the JAX
-package, with the same results:
+``count_distinct_reduce`` is the sorted spelling of the fused count
+distinct (``exec/aggfuse.py``). The dense-key branch (``dense_composite``,
+under the session's capacity speculation) waits for ROADMAP A.10. Two
+deliberate differences from the JAX package, with the same results:
 
   * **Width.** ``_rowspace_reduce``'s sort branch reduces at capacity
     width. The JAX package reduces at GROUP_SLOTS width when the groups fit
@@ -811,3 +811,77 @@ def _rowspace_reduce(batch: DeviceBatch, key_idx: List[int],
         capacity, _seg_by(sid, capacity), inv_pos,
         lambda x: info.perm[x.clamp(0, capacity - 1).long()],
         info.num_groups)
+
+
+def exact_key_images(col: DeviceColumn) -> List[torch.Tensor]:
+    """A key column's exact equality images within one batch: a
+    dictionary's code, every word of a char slab and its length, a
+    fixed-width column's value image."""
+    from spark_rapids_tpu_torch.ops.sortops import u64_key_image
+    if col.dtype.is_string and col.dict_values is not None:
+        return [col.dict_codes.to(torch.int64)]
+    if col.dtype.is_string:
+        return [col.slab64[:, i] for i in range(col.slab64.shape[1])] + [
+            col.lens.to(torch.int64)]
+    return u64_key_image(col)
+
+
+def count_distinct_reduce(batch: DeviceBatch, g2_idx: List[int],
+                          rest_idx: List[int], live=None):
+    """count(DISTINCT <rest keys>) grouped by <g2 keys> in one sorted pass
+    over the G1 = g2 + rest tuple (the JAX package's
+    ``count_distinct_reduce``): sorted by (dead, g2 images, g2 null
+    signature, rest images, rest null signature), a G1 tuple starts where
+    any image differs from the previous row, a G2 group where a G2 image
+    does. Images are exact (``exact_key_images``: char slabs by every
+    word, where the JAX package hashes); null keys group together by the
+    validity signatures.
+
+    Returns (rep_rows, counts, num_groups): rep_rows[g] a source row of
+    group g (compacted by B1), counts[g] int64 its distinct live G1
+    tuples."""
+    from spark_rapids_tpu_torch.ops.kernels import compact_permutation
+    from spark_rapids_tpu_torch.ops.sortops import lexsort_permutation
+    capacity = batch.capacity
+    dev = batch.device
+    if live is None:
+        live = batch.row_mask()
+
+    def key_ops(idx_list):
+        imgs: List[torch.Tensor] = []
+        nullsig = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        for j, ki in enumerate(idx_list):
+            col = batch.columns[ki]
+            imgs.extend(torch.where(col.validity, im, torch.zeros_like(im))
+                        for im in exact_key_images(col))
+            nullsig |= col.validity.to(torch.int64) << j
+        return imgs, nullsig
+
+    g2_imgs, g2_null = key_ops(g2_idx)
+    r_imgs, r_null = key_ops(rest_idx)
+    ops = ([(~live).to(torch.int64)] + g2_imgs + [g2_null] + r_imgs
+           + [r_null])
+    perm = lexsort_permutation(ops)
+    idx = perm.long()
+    live_s = live[idx]
+    n2 = len(g2_imgs) + 1
+
+    def diff_any(vecs, acc):
+        for v in vecs:
+            vs = v[idx]
+            acc[1:] |= vs[1:] != vs[:-1]
+        return acc
+
+    first = torch.arange(capacity, device=dev) == 0
+    d_g2 = diff_any(ops[1:1 + n2], first.clone())
+    d_any = diff_any(ops[1 + n2:], d_g2.clone())
+    g2_b = d_g2 & live_s
+    g1_b = d_any & live_s
+    gid = (torch.cumsum(g2_b.to(torch.int32), 0, dtype=torch.int32)
+           - 1).clamp(0, capacity - 1)
+    seg = torch.where(live_s, gid, torch.full_like(gid, capacity))
+    counts = segment_op("sum", g1_b.to(torch.int64), seg,
+                        capacity + 1)[:capacity]
+    cperm, n_groups = compact_permutation(g2_b)
+    rep_rows = perm[cperm.long()]
+    return rep_rows, counts, n_groups

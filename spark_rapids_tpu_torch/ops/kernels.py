@@ -1,5 +1,6 @@
 """The port's hand-written kernels and their plain versions (counterpart of
-the JAX package's ``ops/pallas_kernels.py``).
+the JAX package's ``ops/pallas_kernels.py``, with its torch function over
+B3, ``hash_group_ids``).
 
 All eight of the JAX package's Pallas kernels have a counterpart here:
 
@@ -464,6 +465,38 @@ def hash_join_probe(build_images: Sequence[torch.Tensor],
     jt = hash_join_build(build_images, build_valid, table_size)
     counts, bstart = hash_join_lookup(jt, stream_images, stream_valid)
     return counts, bstart, jt.bperm
+
+
+def hash_group_ids(images: Sequence[torch.Tensor], valid: torch.Tensor,
+                   table_size: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A dense group id per row from one B3 build (the JAX package's
+    ``hash_group_ids``; torch over ``hash_table_build``, no kernel of its
+    own). Returns (gid (n,) int32, -1 for invalid rows; num_groups 0-d
+    int32; rep_rows (n,) int32, rep_rows[g] the first row of group g for
+    g < num_groups). Used slots are read as ``counts > 0``, so the card's
+    table (unused key words -1) and the plain one (0) serve alike; a
+    parallel build has no arrival rank, so a group's first row is the
+    least row of its slot."""
+    n = valid.shape[0]
+    T = table_size
+    dev = valid.device
+    slot, _rank, _table, counts_t = hash_table_build(images, valid, T)
+    slot = slot.long()
+    used = counts_t > 0
+    gid_of_slot = torch.cumsum(used.to(torch.int32), 0,
+                               dtype=torch.int32) - 1
+    hit = valid & (slot < T)
+    gid = torch.where(hit, gid_of_slot[slot.clamp(0, T - 1)],
+                      torch.full((n,), -1, dtype=torch.int32, device=dev))
+    num_groups = used.sum(dtype=torch.int32)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    first_of_slot = torch.full((T + 1,), n, dtype=torch.int64, device=dev)
+    first_of_slot.scatter_reduce_(0, torch.where(hit, slot, T), rows, "amin")
+    rep_rows = torch.zeros(n + 1, dtype=torch.int32, device=dev).scatter_(
+        0, torch.where(used, gid_of_slot.long(), n),
+        first_of_slot[:T].to(torch.int32))
+    return gid, num_groups, rep_rows[:n]
 
 
 def hash_join_probe_plain(build_images: Sequence[torch.Tensor],

@@ -410,6 +410,9 @@ class RawRowGroup:
         self.fallback: List[Tuple[str, str]] = []
         self.fallback_df = None
         self.nbytes = 0
+        # integer columns' footer (min, max): the session's advisory
+        # statistics (exec/transitions.note_bounds)
+        self.stats: Dict[str, Tuple[int, int]] = {}
 
     def __len__(self) -> int:
         return self.n
@@ -445,6 +448,11 @@ def prepare_rowgroup(path: str, rg: int, columns: List[str],
             plan["nbytes"] = sum(a.nbytes for a in plan["upload"].values())
             raw.plans[name] = plan
             raw.nbytes += plan["nbytes"]
+            st = rg_meta.column(ci).statistics
+            if (dtypes_by_name[name].is_integral and st is not None
+                    and st.has_min_max and isinstance(st.min, int)
+                    and isinstance(st.max, int)):
+                raw.stats[name] = (int(st.min), int(st.max))
     if raw.fallback:
         import pyarrow.parquet as pq
         fb_cols = [name for name, _ in raw.fallback]

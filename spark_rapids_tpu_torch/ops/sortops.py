@@ -36,7 +36,7 @@ def u64_key_image(col: DeviceColumn,
     order, so within one batch (or batches sharing one dictionary) the code
     is an exact order-preserving and equality-exact image. Other string
     columns give their prefix chunks and length (``_string_prefix_chunks``):
-    exact for a char slab, whose rows fit the 64 prefix bytes."""
+    exact for a char slab, whose images cover all its words."""
     if col.dtype.is_string:
         if allow_dict and col.dict_values is not None:
             return [col.dict_codes.to(torch.int64)]
@@ -71,7 +71,9 @@ def _string_prefix_chunks(col: DeviceColumn) -> List[torch.Tensor]:
         column's images;
       * a char slab's chunk c is its word c byte-swapped, and zero past the
         slab's width (bytes past a row's length are zero by the slab
-        invariant).
+        invariant). A slab wider than the prefix gives every word, so its
+        images stay exact: rows that tie on 64 bytes and the length still
+        differ in a later word.
 
     The packed-chars layout is not ported (ROADMAP A.5)."""
     from spark_rapids_tpu_torch.columnar.column import host_to_device
@@ -87,7 +89,7 @@ def _string_prefix_chunks(col: DeviceColumn) -> List[torch.Tensor]:
         chunks = [bswap64(col.slab64[:, c]) if c < w
                   else torch.zeros(col.capacity, dtype=torch.int64,
                                    device=col.device)
-                  for c in range(STRING_PREFIX_CHUNKS)]
+                  for c in range(max(w, STRING_PREFIX_CHUNKS))]
         return chunks + [col.lens.to(torch.int64)]
     raise plain_strings_unsupported("_string_prefix_chunks")
 

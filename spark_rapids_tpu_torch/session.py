@@ -38,10 +38,11 @@ from typing import Dict, List, Optional, Sequence
 import pandas as pd
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
-from spark_rapids_tpu_torch.config.conf import TpuConf
+from spark_rapids_tpu_torch.config.conf import FUSE_COUNT_DISTINCT, TpuConf
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
 from spark_rapids_tpu_torch.sql import plan as lp
+from spark_rapids_tpu_torch.sql.exprs.aggregates import find_aggregates
 from spark_rapids_tpu_torch.sql.exprs.core import Alias, Col, Expression
 from spark_rapids_tpu_torch.sql.functions import Column, SortOrder, _c, _expr
 from spark_rapids_tpu_torch.sql.functions import col as col_fn
@@ -65,6 +66,13 @@ class TpuSparkSession:
         # each partial aggregate's measured reduction ratio, by plan
         # fingerprint (the runtime partial-aggregation skip)
         self.agg_ratio_cache: Dict[str, float] = {}
+        # scanned integer columns' (min, max), unioned over every scanned
+        # batch of that name: advisory bounds the dense join sizes its
+        # table from and verifies on the device (exec/tpujoin.py)
+        self.column_stats: Dict[str, tuple] = {}
+        # alias -> {source column names} of rename-only projections, so
+        # the statistics resolve through ``.alias(...)``
+        self.column_aliases: Dict[str, set] = {}
 
     class Builder:
         def __init__(self):
@@ -119,6 +127,7 @@ class TpuSparkSession:
             annotate_scan_pruning, prune_filter_columns,
         )
         conf = self.conf
+        self._note_rename_aliases(logical)
         logical = prune_filter_columns(logical)
         annotate_scan_pruning(logical)
         planner = Planner(conf)
@@ -129,6 +138,12 @@ class TpuSparkSession:
         if conf.sql_enabled:
             overrides = TpuOverrides(conf)
             plan = TransitionOverrides(conf).apply(overrides.apply(plan))
+            if conf.get_bool(FUSE_COUNT_DISTINCT.key,
+                             FUSE_COUNT_DISTINCT.default):
+                from spark_rapids_tpu_torch.exec.aggfuse import (
+                    fuse_count_distinct,
+                )
+                plan = fuse_count_distinct(plan)
             from spark_rapids_tpu_torch.exec.reuse import (
                 reuse_common_subtrees,
             )
@@ -137,6 +152,16 @@ class TpuSparkSession:
                 assert_is_on_tpu(plan, conf,
                                  overrides.explain_text("NOT_ON_TPU"))
         return plan
+
+    def _note_rename_aliases(self, logical: lp.LogicalPlan) -> None:
+        for node in logical.walk():
+            if isinstance(node, lp.LogicalProject):
+                for out_name, e in node.exprs:
+                    while isinstance(e, Alias):
+                        e = e.children[0]
+                    if isinstance(e, Col) and e.name != out_name:
+                        self.column_aliases.setdefault(out_name, set()).add(
+                            e.name)
 
     def _execute(self, logical: lp.LogicalPlan, collect: bool = True):
         """Plan and run ``logical``: the output pandas frames, or with
@@ -188,10 +213,79 @@ class GroupedData:
         if computed:
             child = lp.LogicalProject(
                 child, [(n, Col(n)) for n in schema.names] + computed)
-        results = [(n, Col(n)) for n, _ in grouping] + [
-            (_name_of(_expr(c)), _expr(c)) for c in agg_cols]
+        result_exprs = [(_name_of(_expr(c)), _expr(c)) for c in agg_cols]
+        if any(getattr(fn, "is_distinct", False)
+               for _, e in result_exprs for fn in find_aggregates(e)):
+            return self._agg_with_distinct(child, grouping, result_exprs)
+        results = [(n, Col(n)) for n, _ in grouping] + result_exprs
         return DataFrame(self.df.session,
                          lp.LogicalAggregate(child, grouping, results))
+
+    def _agg_with_distinct(self, child, grouping, result_exprs
+                           ) -> "DataFrame":
+        """count(DISTINCT d) as two aggregations (the JAX package's
+        rewrite): level 1 groups by keys + d, reducing every other
+        aggregate to its update intermediates; level 2 groups by the keys,
+        merging the intermediates and counting the now-unique d values."""
+        from spark_rapids_tpu_torch.sql.exprs import aggregates as am
+        fns, seen = [], set()
+        for _, e in result_exprs:
+            for fn in am.find_aggregates(e):
+                if id(fn) not in seen:
+                    seen.add(id(fn))
+                    fns.append(fn)
+        dist = [fn for fn in fns if getattr(fn, "is_distinct", False)]
+        dist_names = {repr(fn.children[0]) for fn in dist}
+        if len(dist_names) > 1:
+            raise NotImplementedError(
+                "multiple DISTINCT aggregate column sets in one aggregation "
+                f"are not supported: {sorted(dist_names)}")
+        # both levels key columns by name: d is materialized as __dist
+        names = child.schema().names
+        child = lp.LogicalProject(
+            child, [(n, Col(n)) for n in names]
+            + [("__dist", dist[0].children[0])])
+        l1_grouping = list(grouping) + [("__dist", Col("__dist"))]
+        # reduction kind -> aggregate, for level 1 (update) and level 2
+        # (merge); count_valid appears only on the update side
+        kind_ctor = {
+            "sum": am.Sum, "min": am.Min, "max": am.Max,
+            "first": lambda e: am.First(e, False),
+            "first_valid": lambda e: am.First(e, True),
+            "last": lambda e: am.Last(e, False),
+            "last_valid": lambda e: am.Last(e, True),
+        }
+        l1_results = [(n, Col(n)) for n, _ in l1_grouping]
+        fn_level2 = {}
+        pi = 0
+        for fn in fns:
+            if getattr(fn, "is_distinct", False):
+                # d is unique within a level-2 group now: counting its
+                # non-NULL rows is count(DISTINCT d)
+                fn_level2[id(fn)] = am.Count(Col("__dist"))
+                continue
+            refs = []
+            for (ukind, cidx), mkind in zip(fn.update_ops(), fn.merge_ops()):
+                pname = f"__p{pi}"
+                pi += 1
+                arg = fn.children[cidx]
+                l1_results.append((pname, am.Count(arg)
+                                   if ukind == "count_valid"
+                                   else kind_ctor[ukind](arg)))
+                refs.append(kind_ctor[mkind](Col(pname)))
+            fn_level2[id(fn)] = fn.finalize(refs, child.schema())
+        level1 = lp.LogicalAggregate(child, l1_grouping, l1_results)
+
+        def rewrite(e):
+            if isinstance(e, am.AggregateFunction):
+                return fn_level2[id(e)]
+            return e.map_children(rewrite)
+
+        l2_grouping = [(n, Col(n)) for n, _ in grouping]
+        l2_results = list(l2_grouping) + [(n, rewrite(e))
+                                          for n, e in result_exprs]
+        return DataFrame(self.df.session,
+                         lp.LogicalAggregate(level1, l2_grouping, l2_results))
 
     def count(self) -> "DataFrame":
         from spark_rapids_tpu_torch.sql import functions as F

@@ -1,5 +1,5 @@
 """Arithmetic expressions (counterpart of the JAX package's
-``sql/exprs/arithmetic.py``; + - * / are ported).
+``sql/exprs/arithmetic.py``; + - * /, % and pmod are ported).
 
 Spark SQL non-ANSI semantics: integer overflow wraps; ``/`` always
 produces double and divide-by-zero yields NULL.
@@ -104,3 +104,27 @@ class Divide(BinaryArithmetic):
         zero = b == 0.0
         safe = torch.where(zero, torch.ones_like(b), b)
         return a / safe, zero
+
+
+class Remainder(BinaryArithmetic):
+    """Java-style ``%``: the sign of the dividend; x % 0 -> NULL."""
+    symbol = "%"
+
+    def compute(self, a, b):
+        zero = b == 0
+        safe = torch.where(zero, torch.ones_like(b), b)
+        return torch.fmod(a, safe), zero
+
+
+class Pmod(BinaryArithmetic):
+    """pmod(a, b): ((a % b) + b) % b, the sign of the divisor; b = 0 ->
+    NULL."""
+    symbol = "pmod"
+
+    def __repr__(self) -> str:
+        return f"pmod({self.children[0]!r}, {self.children[1]!r})"
+
+    def compute(self, a, b):
+        zero = b == 0
+        safe = torch.where(zero, torch.ones_like(b), b)
+        return torch.fmod(torch.fmod(a, safe) + safe, safe), zero

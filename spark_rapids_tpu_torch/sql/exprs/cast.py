@@ -1,7 +1,8 @@
-"""Casts (counterpart of the JAX package's ``sql/exprs/cast.py``; the
-fixed-width conversion matrix ``cast_data`` is ported, which comparisons
-use to promote operands; the ``Cast`` expression and string casts wait
-for a later slice).
+"""Casts (counterpart of the JAX package's ``sql/exprs/cast.py``: the
+fixed-width conversion matrix ``cast_data``, which comparisons also use to
+promote operands, and the ``Cast`` expression between the numeric types,
+bool, date and timestamp; casts to and from strings wait for the string
+slice, ROADMAP A.5, and stay on the CPU with that reason).
 
 Non-ANSI Spark semantics, Java-style conversions: int -> narrower int
 wraps; float -> int maps NaN to 0, clamps out-of-range values and
@@ -11,10 +12,18 @@ scales by a day of microseconds.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
+import pandas as pd
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes
+from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, torch_dtype
+from spark_rapids_tpu_torch.sql.exprs.core import (
+    DevCol, DevScalar, DevValue, EvalContext, Expression,
+)
 
 _INT_RANGE = {
     "int8": (-128, 127),
@@ -59,3 +68,75 @@ def cast_data(data: torch.Tensor, src: DType, dst: DType):
     if src == dtypes.TIMESTAMP_US and dst.is_floating:
         return (data.to(torch.float64) / MICROS_PER_SEC).to(tdt), None
     raise NotImplementedError(f"cast {src} -> {dst}")
+
+
+def _castable(src: DType, dst: DType) -> bool:
+    if src.is_string or dst.is_string:
+        return False
+    try:
+        cast_data(torch.zeros(1, dtype=torch_dtype(src.np_dtype)), src, dst)
+        return True
+    except NotImplementedError:
+        return False
+
+
+_STRING_CAST = ("casts to and from strings need the string slice, not "
+                "ported yet (ROADMAP A.5)")
+
+
+class Cast(Expression):
+    """CAST(x AS to) over the fixed-width matrix of ``cast_data``."""
+
+    def __init__(self, child: Expression, to: DType):
+        super().__init__([child])
+        self.to = to
+
+    def dtype(self, schema: Schema) -> DType:
+        return self.to
+
+    def __repr__(self) -> str:
+        return f"CAST({self.children[0]!r} AS {self.to.name})"
+
+    def device_supported(self, schema: Schema) -> Optional[str]:
+        src = self.children[0].dtype(schema)
+        if src == self.to:
+            return None
+        if src.is_string or self.to.is_string:
+            return _STRING_CAST
+        if not _castable(src, self.to):
+            return f"cast {src} -> {self.to} is not supported"
+        return None
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = self.children[0].eval_device(ctx)
+        if v.dtype == self.to:
+            return v
+        if isinstance(v, DevScalar):
+            data, _extra = cast_data(v.value, v.dtype, self.to)
+            return DevScalar(self.to, data, v.valid)
+        data, extra = cast_data(v.data, v.dtype, self.to)
+        validity = v.validity if extra is None else v.validity & ~extra
+        return DevCol(self.to, data, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        from spark_rapids_tpu_torch.columnar.batch import _pandas_col_dtype
+        from spark_rapids_tpu_torch.sql.exprs.hostutil import (
+            host_unary_values, rebuild_series,
+        )
+        s = self.children[0].eval_host(df)
+        values, validity, index = host_unary_values(s)
+        src = _pandas_col_dtype(s)
+        if s.attrs.get("srt_logical_dtype") == "date32":
+            src = dtypes.DATE32
+            values = (values.astype(np.int64) // 86_400_000_000).astype(
+                np.int32)
+        if src == self.to:
+            return s
+        if src.is_string or self.to.is_string:
+            raise NotImplementedError(f"CAST {src} -> {self.to}: "
+                                      + _STRING_CAST)
+        data, extra = cast_data(torch.from_numpy(np.require(
+            values, requirements=["C", "W"])), src, self.to)
+        if extra is not None:
+            validity = validity & ~extra.numpy()
+        return rebuild_series(data.numpy(), validity, self.to, index)

@@ -1,10 +1,10 @@
 """Conditional expressions (counterpart of the JAX package's
-``sql/exprs/conditional.py``, its ``if`` and ``CASE WHEN``): numeric,
-boolean and date results. A branch whose value is a string needs the
-JAX package's row-select string kernel (``select_strings``) over the
-packed-chars layout, which the port has not (ROADMAP A.5), so such an
-expression is tagged off the device with that reason; the host evaluates
-it. Coalesce and NaNvl wait for ROADMAP A.6.
+``sql/exprs/conditional.py``, its ``if``, ``CASE WHEN`` and
+``coalesce``): numeric, boolean and date results. A branch whose value is
+a string needs the JAX package's row-select string kernel
+(``select_strings``) over the packed-chars layout, which the port has not
+(ROADMAP A.5), so such an expression is tagged off the device with that
+reason; the host evaluates it. NaNvl waits for ROADMAP A.6.
 """
 
 from __future__ import annotations
@@ -214,4 +214,59 @@ class CaseWhen(Expression):
             data = np.where(use, vv2, data)
             validity = np.where(use, vval, validity)
             taken = taken | cond
+        return rebuild_series(data, validity, dt, df.index)
+
+
+class Coalesce(Expression):
+    """coalesce(a, b, ...): the first non-NULL operand of each row, NULL
+    where all are. String operands need the row-select string kernel (as a
+    string-valued CASE WHEN does), so such a coalesce stays on the CPU."""
+
+    def __init__(self, children: List[Expression]):
+        super().__init__(children)
+
+    def dtype(self, schema: Schema) -> DType:
+        return _result_type(schema, self.children)
+
+    def __repr__(self) -> str:
+        return f"coalesce({', '.join(map(repr, self.children))})"
+
+    def device_supported(self, schema: Schema) -> Optional[str]:
+        if any(c.dtype(schema).is_string for c in self.children):
+            return _STRING_BRANCH
+        return None
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        evaluated = [c.eval_device(ctx) for c in self.children]
+        dt = evaluated[0].dtype
+        for v in evaluated[1:]:
+            if v.dtype != dt:
+                dt = common_type(dt, v.dtype)
+        data = torch.full((ctx.capacity,), dtypes.null_fill_value(dt),
+                          dtype=torch_dtype(dt.np_dtype), device=ctx.device)
+        validity = torch.zeros((ctx.capacity,), dtype=torch.bool,
+                               device=ctx.device)
+        for v in evaluated:
+            vdata, vval = _as_pair(ctx, v, dt)
+            take = ~validity & vval
+            data = torch.where(take, vdata, data)
+            validity = validity | vval
+        return DevCol(dt, data, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        evaluated = [_host_values(c.eval_host(df)) for c in self.children]
+        dt = evaluated[0][2]
+        for _v, _vv, t in evaluated[1:]:
+            if t != dt:
+                dt = dtypes.STRING if dt.is_string or t.is_string \
+                    else common_type(dt, t)
+        n = len(df)
+        data = (np.full(n, None, dtype=object) if dt.is_string else
+                np.full(n, dtypes.null_fill_value(dt), dtype=dt.np_dtype))
+        validity = np.zeros(n, dtype=np.bool_)
+        for v, vval, t in evaluated:
+            take = ~validity & vval
+            data = np.where(take, v if dt.is_string else _host_cast(v, t, dt),
+                            data)
+            validity = validity | vval
         return rebuild_series(data, validity, dt, df.index)

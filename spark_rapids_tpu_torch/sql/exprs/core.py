@@ -69,12 +69,18 @@ class EvalContext:
         self.device = device
 
     def broadcast(self, v: DevValue) -> DevCol:
-        """Materialize a scalar into a column of this batch's capacity."""
+        """Materialize a scalar into a column of this batch's capacity. A
+        string literal becomes a one-value dictionary column (an empty
+        dictionary, every code the NULL sentinel, for a NULL literal)."""
         if isinstance(v, DevCol):
             return v
         if v.dtype.is_string:
-            raise NotImplementedError(
-                "string literals as columns are not ported yet")
+            valid = v.valid and v.value is not None
+            return DevCol(v.dtype, None, torch.full(
+                (self.capacity,), bool(valid), dtype=torch.bool,
+                device=self.device), dict_codes=torch.zeros(
+                    (self.capacity,), dtype=torch.int32, device=self.device),
+                dict_values=(str(v.value),) if valid else ())
         data = torch.full((self.capacity,), 0, dtype=torch_dtype(
             v.dtype.np_dtype), device=self.device)
         data[:] = v.value

@@ -1,5 +1,6 @@
 """Predicates and boolean logic (counterpart of the JAX package's
-``sql/exprs/predicates.py``): comparisons, Kleene AND and OR, NOT and IN.
+``sql/exprs/predicates.py``): comparisons, Kleene AND and OR, NOT, IN,
+IS NULL and IS NOT NULL.
 String comparisons go to ``ops/strings`` (``string_equal`` for ``=`` and
 ``!=``, ``string_compare`` for the order comparisons), over dictionary
 codes and char slabs, against a literal or another column.
@@ -260,3 +261,53 @@ class In(Expression):
             match = np.isin(a, np.asarray(vals, dtype=a.dtype))
         validity = av & match if has_null else av
         return rebuild_series(match & av, validity, dtypes.BOOL, index)
+
+
+def _validity_vec(ctx: EvalContext, v: DevValue) -> torch.Tensor:
+    if isinstance(v, DevScalar):
+        return torch.full((ctx.capacity,), bool(v.valid), dtype=torch.bool,
+                          device=ctx.device)
+    return v.validity
+
+
+class IsNull(Expression):
+    """``x IS NULL``: never NULL itself."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def __repr__(self) -> str:
+        return f"({self.children[0]!r} IS NULL)"
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        validity = _validity_vec(ctx, self.children[0].eval_device(ctx))
+        return DevCol(dtypes.BOOL, ~validity, torch.ones_like(validity))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        _, validity, index = host_unary_values(self.children[0].eval_host(df))
+        return pd.Series(~validity, index=index)
+
+
+class IsNotNull(Expression):
+    """``x IS NOT NULL``: never NULL itself."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def __repr__(self) -> str:
+        return f"({self.children[0]!r} IS NOT NULL)"
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        validity = _validity_vec(ctx, self.children[0].eval_device(ctx))
+        return DevCol(dtypes.BOOL, validity.clone(),
+                      torch.ones_like(validity))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        _, validity, index = host_unary_values(self.children[0].eval_host(df))
+        return pd.Series(validity.copy(), index=index)

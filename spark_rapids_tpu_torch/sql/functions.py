@@ -1,8 +1,10 @@
 """User-facing column functions, pyspark.sql.functions-style (counterpart
-of the JAX package's ``sql/functions.py``, cut to what the 22 TPC-H
-queries need: arithmetic, comparisons, AND/OR/NOT, ``isin``, the string
-predicates and ``substring``, ``when``/``otherwise``, ``year`` and the
-aggregates)."""
+of the JAX package's ``sql/functions.py``, cut to what the 22 TPC-H and
+19 TPCxBB queries need: arithmetic, comparisons, AND/OR/NOT, ``isin``,
+``isNull``/``isNotNull``, ``cast``, the string predicates and
+``substring``, ``when``/``otherwise``, ``coalesce``, ``year``, ``round``,
+``bround``, ``pmod`` and the aggregates, ``count_distinct``, the
+variances and ``corr`` among them)."""
 
 from __future__ import annotations
 
@@ -10,11 +12,14 @@ from typing import Any, Union
 
 from spark_rapids_tpu_torch.sql.exprs import aggregates as agg
 from spark_rapids_tpu_torch.sql.exprs import arithmetic as ar
+from spark_rapids_tpu_torch.sql.exprs import mathexprs as m
 from spark_rapids_tpu_torch.sql.exprs import conditional as cond
 from spark_rapids_tpu_torch.sql.exprs import datetimeexprs as dt
 from spark_rapids_tpu_torch.sql.exprs import predicates as pred
 from spark_rapids_tpu_torch.sql.exprs import stringexprs as st
+from spark_rapids_tpu_torch.sql.exprs.cast import Cast
 from spark_rapids_tpu_torch.sql.exprs.core import Alias, Col, Expression, Literal
+from spark_rapids_tpu_torch.columnar import dtype as dtypes
 
 ColumnOrName = Union["Column", str]
 
@@ -34,6 +39,7 @@ class Column:
     def __rmul__(self, other): return Column(ar.Multiply(_expr(other), self.expr))
     def __truediv__(self, other): return Column(ar.Divide(self.expr, _expr(other)))
     def __rtruediv__(self, other): return Column(ar.Divide(_expr(other), self.expr))
+    def __mod__(self, other): return Column(ar.Remainder(self.expr, _expr(other)))
 
     # comparisons
     def __eq__(self, other): return Column(pred.Eq(self.expr, _expr(other)))  # type: ignore[override]
@@ -49,6 +55,11 @@ class Column:
     def __invert__(self): return Column(pred.Not(self.expr))
 
     def alias(self, name: str): return Column(Alias(self.expr, name))
+    def cast(self, to): return Column(Cast(self.expr, _dtype(to)))
+
+    # null tests
+    def isNull(self): return Column(pred.IsNull(self.expr))
+    def isNotNull(self): return Column(pred.IsNotNull(self.expr))
 
     # membership and strings
     def isin(self, *values):
@@ -103,6 +114,17 @@ def _c(x: ColumnOrName) -> Expression:
     return _expr(x)
 
 
+def _dtype(t):
+    if isinstance(t, str):
+        aliases = {"long": "int64", "bigint": "int64", "int": "int32",
+                   "integer": "int32", "short": "int16", "byte": "int8",
+                   "double": "float64", "float": "float32",
+                   "boolean": "bool", "date": "date32",
+                   "timestamp": "timestamp_us"}
+        return dtypes.by_name(aliases.get(t, t))
+    return t
+
+
 def col(name: str) -> Column:
     return Column(Col(name))
 
@@ -121,6 +143,15 @@ def count(c) -> Column:
     if isinstance(c, str) and c == "*":
         return Column(agg.Count(Literal(1)))
     return Column(agg.Count(_c(c)))
+
+
+def count_distinct(c) -> Column: return Column(agg.CountDistinct(_c(c)))
+def var_samp(c) -> Column: return Column(agg.VarSamp(_c(c)))
+def var_pop(c) -> Column: return Column(agg.VarPop(_c(c)))
+def stddev_samp(c) -> Column: return Column(agg.StddevSamp(_c(c)))
+def stddev_pop(c) -> Column: return Column(agg.StddevPop(_c(c)))
+def corr(a, b) -> Column: return Column(agg.Corr(_c(a), _c(b)))
+
 
 
 def first(c, ignorenulls: bool = False) -> Column:
@@ -155,3 +186,16 @@ def substring(c, pos: int, length_: int) -> Column:
 
 
 def year(c) -> Column: return Column(dt.Year(_c(c)))
+
+
+def coalesce(*cs) -> Column: return Column(cond.Coalesce([_c(c) for c in cs]))
+def pmod(a, b) -> Column: return Column(ar.Pmod(_c(a), _expr(b)))
+
+
+def round(c, scale: int = 0) -> Column:  # noqa: A001
+    return Column(m.Round(_c(c), scale))
+
+
+def bround(c, scale: int = 0) -> Column:
+    return Column(m.BRound(_c(c), scale))
+

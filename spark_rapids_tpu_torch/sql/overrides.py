@@ -191,14 +191,11 @@ def _tag_join(meta: ExecMeta) -> None:
     if plan.join_type not in tpujoin.SUPPORTED_JOIN_TYPES:
         meta.will_not_work(f"join type {plan.join_type!r} not supported "
                            "on the device")
-    for side, keys in ((0, plan.left_keys), (1, plan.right_keys)):
-        schema = plan.children[side].output_schema()
-        for k in keys:
-            if schema.dtypes[k].is_string:
-                meta.will_not_work(
-                    f"string join key {schema.names[k]}: the hash probe "
-                    "takes numeric keys; string keys need the "
-                    "union-lexsort probe (ROADMAP A.4)")
+    for lk, rk in zip(plan.left_keys, plan.right_keys):
+        lt = plan.children[0].output_schema().dtypes[lk]
+        rt = plan.children[1].output_schema().dtypes[rk]
+        if lt.is_string != rt.is_string:
+            meta.will_not_work(f"join key types differ: {lt} and {rt}")
 
 
 def _tag_bnlj(meta: ExecMeta) -> None:

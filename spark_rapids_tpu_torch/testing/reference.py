@@ -17,7 +17,7 @@ import torch
 from spark_rapids_tpu_torch.columnar import dtype as dtypes
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceColumn, np_build_slab, plain_strings_unsupported, slab_stride_for,
+    DeviceColumn, np_build_slab, slab_stride_for,
 )
 
 
@@ -26,9 +26,8 @@ def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
     ``ref_batch`` (same capacity, validity, data, dictionary codes and
     values). A string column without a dictionary arrives as a char slab,
     as the port's upload makes one: the reference's slab as it is, or its
-    packed chars laid out at the stride the upload would choose (a value
-    longer than the widest slab raises NotImplementedError, as the upload
-    does)."""
+    packed chars laid out at the stride the upload would choose (the
+    power of two that covers the longest value)."""
     device = torch.device(device)
     names = list(ref_batch.schema.names)
     dts = [dtypes.by_name(d.name) for d in ref_batch.schema.dtypes]
@@ -55,7 +54,7 @@ def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
 def _slab_of(ref_col, validity: np.ndarray):
     """(uint64 slab, int32 lens) of a reference string column without a
     dictionary; lens are 0 on invalid rows, as the port's upload sets."""
-    from spark_rapids_tpu_torch.exec.transitions import MAX_SLAB_STRIDE
+    from spark_rapids_tpu_torch.exec.transitions import UPLOAD_MAX_STRIDE
     if ref_col.has_slab:
         slab = np.array(ref_col._slab64).astype(np.uint64)
         lens = np.array(ref_col.lens_()).astype(np.int32)
@@ -63,9 +62,8 @@ def _slab_of(ref_col, validity: np.ndarray):
         offsets = np.array(ref_col.offsets).astype(np.int32)
         chars = np.array(ref_col.data).astype(np.uint8)
         lens = offsets[1:] - offsets[:-1]
-        stride = slab_stride_for(int(lens.max(initial=0)), MAX_SLAB_STRIDE)
-        if not stride:
-            raise plain_strings_unsupported("a string longer than a slab")
+        stride = slab_stride_for(int(lens.max(initial=0)),
+                                 UPLOAD_MAX_STRIDE)
         slab, lens = np_build_slab(chars, offsets, len(validity), stride)
     return slab, np.where(validity, lens, 0).astype(np.int32)
 

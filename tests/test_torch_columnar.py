@@ -239,6 +239,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         "from spark_rapids_tpu_torch.models import tpch as T\n"
         "from spark_rapids_tpu_torch.session import TpuSparkSession\n"
         "from spark_rapids_tpu_torch.models import tpch_scan as S\n"
+        "import spark_rapids_tpu_torch.exec.aggfuse\n"
+        "import spark_rapids_tpu_torch.models.tpcxbb\n"
+        "import spark_rapids_tpu_torch.testing.tpcxbbcases\n"
+        "import spark_rapids_tpu_torch.sql.exprs.mathexprs\n"
+        "import spark_rapids_tpu_torch.sql.exprs.nullexprs\n"
         "import tempfile\n"
         "out = Q.run_q1(G.gen_lineitem(0.0005), 1024, device='cpu')\n"
         "assert len(out) == 6, out\n"

@@ -741,26 +741,36 @@ def tpch_frames():
 def test_session_join_queries_on_the_card(cuda_device, tpch_frames, qname,
                                           threshold):
     """Q3 and Q4 through the session at SF 0.05, broadcast (the default
-    threshold) and shuffled: the card's answer equals the CPU session's,
-    through kernels B3 and B4; the broadcast builds its table once."""
+    threshold) and shuffled: the card's answer equals the CPU session's;
+    the broadcast builds its table once. Every join takes the dense route
+    here (the scans' statistics bound each build key); with the
+    statistics cleared before the run, they take kernels B3 and B4."""
+    from spark_rapids_tpu_torch.exec import tpujoin
     from spark_rapids_tpu_torch.models import tpch
     conf = ({} if threshold is None else
             {"spark.rapids.sql.autoBroadcastJoinThreshold": threshold})
     outs = []
+    builds = 2 if qname == "q3" else 1
     for device in ("cuda", "cpu"):
-        s = _session(device, **conf)
+        s = _session(device, **dict(conf, **{
+            "spark.rapids.sql.cacheDeviceScans": True}))
         t = {n: s.create_dataframe(f, 2) for n, f in tpch_frames.items()}
-        K.reset_launches()
-        outs.append(tpch.QUERIES[qname](s, t).collect())
+        query = tpch.QUERIES[qname](s, t)
+        tpujoin.reset_routes()
+        outs.append(query.collect())
+        assert tpujoin.BUILDS["dense"] == builds
         if device == "cuda":
+            s.column_stats.clear()
+            K.reset_launches()
+            outs.append(query.collect())
             assert K.LAUNCHES["hash_table_probe"] > 0
-            builds = 2 if qname == "q3" else 1
             assert K.LAUNCHES["hash_table_build"] == builds
-    got, want = outs
-    if qname == "q3":
-        _same_q3(got, want)
-    else:
-        _same_by_key(got, want, ["o_orderpriority"])
+    dense, hashed, want = outs
+    for got in (dense, hashed):
+        if qname == "q3":
+            _same_q3(got, want)
+        else:
+            _same_by_key(got, want, ["o_orderpriority"])
 
 
 @pytest.mark.cuda
@@ -769,7 +779,9 @@ def test_session_parquet_device_decode_on_the_card(cuda_device, tpch_frames,
     """Q1, Q3, Q4, Q6, the Q18 group-by (without its filter) and the
     customer collect from Parquet files through the session, decoded on the
     card: equal to pandas, no column decoded on the host, kernels B5-B8
-    launched."""
+    launched, and Q3's and Q4's joins on the dense route (the row groups'
+    footer statistics bound each build key)."""
+    from spark_rapids_tpu_torch.exec import tpujoin
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.obs.metrics import REGISTRY
@@ -781,6 +793,7 @@ def test_session_parquet_device_decode_on_the_card(cuda_device, tpch_frames,
     li, o, c = fr["lineitem"], fr["orders"], fr["customer"]
     before = REGISTRY.values().get("scan.device.fallbackColumns", 0)
     K.reset_launches()
+    tpujoin.reset_routes()
 
     got = tpch.q1(s, t).collect()
     f = li[li.l_shipdate <= np.datetime64("1998-09-02")]
@@ -837,9 +850,9 @@ def test_session_parquet_device_decode_on_the_card(cuda_device, tpch_frames,
     _same_by_key(got, want, ["c_custkey"])
 
     assert REGISTRY.values().get("scan.device.fallbackColumns", 0) == before
-    for k in ("hybrid_expand", "delta_unpack", "plain_fixed", "slab_pack",
-              "hash_table_build", "hash_table_probe"):
+    for k in ("hybrid_expand", "delta_unpack", "plain_fixed", "slab_pack"):
         assert K.LAUNCHES[k] > 0, k
+    assert tpujoin.BUILDS["dense"] == 3
 
 
 def _default_conf_query(name):
@@ -965,10 +978,14 @@ def test_tpch_queries_on_the_card(cuda_device, tpch_frames, qname):
                       for n in s.physical_plan(df._plan).walk())
         assert crosses == (1 if qname in ("q11", "q15", "q22") else 0)
         K.reset_launches()
+        tpujoin.reset_routes()
         outs.append(df.collect())
         if device == "cuda":
             assert K.LAUNCHES["compact_permutation"] > 0
-            assert K.LAUNCHES["hash_table_probe"] > 0
+            # every equi-join on B4, or on the dense route where scan
+            # statistics bound its build key
+            assert (K.LAUNCHES["hash_table_probe"] > 0
+                    or tpujoin.ROUTES["dense"] > 0)
     got, want = outs
     assert len(want) > 0
     order = tpchcases.ORDERS[qname]
@@ -976,3 +993,166 @@ def test_tpch_queries_on_the_card(cuda_device, tpch_frames, qname):
         got = tpchcases.in_query_order(got, order)
         want = tpchcases.in_query_order(want, order)
     tpchcases.same_rows(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: hash_group_ids, the dense and union probes, wide strings,
+# TPCxBB
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3])
+def test_hash_group_ids_on_the_cards_build(cuda_device, k):
+    """``hash_group_ids`` over B3's table (unused key words -1) against
+    its plain version over the plain build (unused words 0): the same
+    partition of the rows into groups, the same group count, and each
+    group's representative its least row."""
+    rng = np.random.default_rng(k)
+    n = 200_003
+    pool = rng.integers(-5, 3000, (k, 4000))
+    pick = rng.integers(0, 4000, n)
+    imgs = [torch.from_numpy(pool[j][pick]) for j in range(k)]
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    T = K.hash_table_size(n)
+    K.reset_launches()
+    gid, ng, rep = K.hash_group_ids([im.to(cuda_device) for im in imgs],
+                                    valid.to(cuda_device), T)
+    assert K.LAUNCHES["hash_table_build"] == 1
+    pg, pn, prep = K.hash_group_ids(imgs, valid, T)
+    assert int(ng) == int(pn)
+    gid, rep = gid.cpu().numpy(), rep.cpu().numpy()
+    pg, prep = pg.numpy(), prep.numpy()
+    v = valid.numpy()
+    assert ((gid < 0) == ~v).all() and ((pg < 0) == ~v).all()
+    # the same groups: representative rows name them on both sides
+    np.testing.assert_array_equal(rep[gid[v]], prep[pg[v]])
+
+
+@pytest.mark.cuda
+def test_dense_probe_against_the_hash_kernels(cuda_device):
+    """``join_probe_dense`` and B3 followed by B4 (``hash_join_probe``)
+    give every stream row the same match count and the same build rows,
+    and the dense flag holds; a build key outside the bounds clears it."""
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+    from spark_rapids_tpu_torch.ops import joins as join_ops
+    from spark_rapids_tpu_torch.ops.sortops import u64_key_image
+    rng = np.random.default_rng(9)
+    b = DeviceBatch.from_pandas(pd.DataFrame(
+        {"k": rng.integers(0, 50_000, 100_000)}), device=cuda_device)
+    st = DeviceBatch.from_pandas(pd.DataFrame(
+        {"k": rng.integers(-100, 60_000, 300_000)}), device=cuda_device)
+    counts, bstart, bperm, ok = join_ops.join_probe_dense(b, st, 0, 0, 0,
+                                                          1 << 16)
+    assert bool(ok)
+    hc, hs, hp = K.hash_join_probe(
+        u64_key_image(b.columns[0]), b.row_mask(),
+        u64_key_image(st.columns[0]), st.row_mask(),
+        K.hash_table_size(b.capacity))
+    assert torch.equal(counts, hc)
+    # the same build rows for each hit (bperm order within a key: both
+    # ascending build rows)
+    hit = (counts > 0).nonzero().flatten()[:5000]
+    for d in range(3):
+        sel = hit[counts[hit] > d]
+        assert torch.equal(bperm[(bstart[sel] + d).long()],
+                           hp[(hs[sel] + d).long()])
+    *_, ok = join_ops.join_probe_dense(b, st, 0, 0, 100, 1 << 16)
+    assert not bool(ok)
+
+
+def _card_and_cpu(query, **conf):
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    outs = []
+    for device in ("cuda", "cpu"):
+        b = (TpuSparkSession.builder().device(device)
+             .config("spark.rapids.sql.test.enabled", True))
+        for k, v in conf.items():
+            b.config(k, v)
+        outs.append(query(b.get_or_create()).collect())
+    return outs
+
+
+def _sorted_rows(df):
+    return sorted(tuple("NULL" if v is None or v is pd.NA or v != v
+                        else str(v) for v in row)
+                  for row in df.astype(object).itertuples(index=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dictionary", "slab", "wide"])
+@pytest.mark.parametrize("how", ["inner", "full", "leftanti"])
+def test_string_key_join_on_the_card(cuda_device, kind, how):
+    """A string-key join (the union-lexsort probe) on the card equals the
+    CPU session: dictionaries that differ, slabs, and 128-byte slabs that
+    tie on 64 bytes and the length."""
+    rng = np.random.default_rng(4)
+    if kind == "dictionary":
+        lv = [f"v{i}" for i in range(30)]
+        rv = [f"v{i}" for i in range(15, 45)]
+    else:
+        pre = "y" * 64 if kind == "wide" else "key"
+        lv = rv = [f"{pre}{i:011d}" for i in range(3000)]
+    left = pd.DataFrame({"ls": np.asarray(lv, dtype=object)[
+        rng.integers(0, len(lv), 20_000)], "lv": np.arange(20_000)})
+    right = pd.DataFrame({"rs": np.asarray(rv, dtype=object)[
+        rng.integers(0, len(rv), 5_000)], "rv": np.arange(5_000)})
+    left.loc[rng.random(20_000) < 0.05, "ls"] = None
+
+    def query(s):
+        return s.create_dataframe(left).join(
+            s.create_dataframe(right), left_on=["ls"], right_on=["rs"],
+            how=how)
+    got, want = _card_and_cpu(query)
+    assert len(want) > 0
+    assert _sorted_rows(got) == _sorted_rows(want)
+
+
+@pytest.mark.cuda
+def test_wide_string_upload_on_the_card(cuda_device):
+    """600 distinct 75-byte values (a 128-byte slab) beside an int64 key:
+    the filter returns the 10 rows, and a sort, a distinct and a min/max
+    over values that tie on 64 bytes equal the CPU session's."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    rng = np.random.default_rng(2)
+    vals = np.asarray(["y" * 64 + f"{i:011d}" for i in range(600)],
+                      dtype=object)[rng.permutation(600)]
+    df = pd.DataFrame({"k": np.arange(600, dtype=np.int64), "s": vals})
+    got, want = _card_and_cpu(lambda s: s.create_dataframe(df).filter(
+        F.col("k") < 10).select("k", "s"))
+    assert len(got) == 10 and _sorted_rows(got) == _sorted_rows(want)
+    got, want = _card_and_cpu(lambda s: s.create_dataframe(df)
+                              .order_by("s"))
+    assert list(got.k) == list(want.k)
+    for query in (lambda s: s.create_dataframe(df).select("s").distinct(),
+                  lambda s: s.create_dataframe(df).agg(
+                      F.min("s").alias("lo"), F.max("s").alias("hi"))):
+        got, want = _card_and_cpu(query)
+        assert _sorted_rows(got) == _sorted_rows(want)
+
+
+def _tpcxbb_queries():
+    from spark_rapids_tpu_torch.models import tpcxbb
+    return sorted(tpcxbb.QUERIES, key=lambda q: int(q[1:]))
+
+
+@pytest.fixture(scope="module")
+def tpcxbb_frames():
+    from spark_rapids_tpu_torch.models import tpcxbb_data as D
+    return {n: f(0.5, None) for n, f in D.ALL_TABLES.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", _tpcxbb_queries())
+def test_tpcxbb_queries_on_the_card(cuda_device, tpcxbb_frames, qname):
+    """The 19 TPCxBB queries at SF 0.5 through the session in test mode:
+    the card's answer equals the CPU session's and pandas'
+    (``testing/tpcxbbcases.py``), with rows."""
+    from spark_rapids_tpu_torch.models import tpcxbb
+    from spark_rapids_tpu_torch.testing import tpcxbbcases
+    fr = tpcxbbcases.query_frames(qname, tpcxbb_frames)
+    got, cpu = _card_and_cpu(lambda s: tpcxbb.QUERIES[qname](
+        s, {n: s.create_dataframe(f) for n, f in fr.items()}))
+    assert len(got) > 0
+    tpcxbbcases.same_answer(qname, got, cpu)
+    tpcxbbcases.same_answer(qname, got,
+                            tpcxbbcases.pandas_reference(qname, fr))

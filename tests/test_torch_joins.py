@@ -329,7 +329,8 @@ def test_join_expand_rows_do_not_depend_on_slot_layout(rng):
 
 def test_join_type_and_key_checks():
     """A cross join takes no keys (and gives every pair without them); an
-    unknown join type and a string key raise."""
+    unknown join type raises; a string key takes the union-lexsort
+    probe."""
     b = DeviceBatch.from_pandas(pd.DataFrame({"k": [1, 2]}), device="cpu")
     with pytest.raises(ValueError, match="cross join takes no keys"):
         tpujoin.hash_join([b], [b], "cross", [0], [0])
@@ -340,8 +341,9 @@ def test_join_type_and_key_checks():
         tpujoin.hash_join([b], [b], "asof", [0], [0])
     s = DeviceBatch.from_pandas(pd.DataFrame({"s": ["a", "b"]}),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="string join keys"):
-        tpujoin.hash_join([s], [s], "inner", [0], [0])
+    out = tpujoin.hash_join([s], [s], "inner", [0], [0])[0].to_pandas()
+    assert sorted(zip(out.iloc[:, 0], out.iloc[:, 1])) == [
+        ("a", "a"), ("b", "b")]
 
 
 # ---------------------------------------------------------------------------

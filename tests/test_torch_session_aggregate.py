@@ -23,6 +23,7 @@ from spark_rapids_tpu.models import tpch as ref_tpch
 from spark_rapids_tpu.sql import functions as RF
 from spark_rapids_tpu_torch.models import tpch
 from spark_rapids_tpu_torch.models import tpch_data as G
+from spark_rapids_tpu_torch.exec import aggfuse
 from spark_rapids_tpu_torch.ops import aggregate
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
@@ -99,16 +100,23 @@ def _same(got, want, qname):
 def test_query_matches_reference_session(qname, frames):
     """Q3, Q10, Q17, Q18 and Q21 at the JAX package's default confs: the
     port's device operators, then its CPU operators, against the JAX
-    package's session."""
-    s = _port_session()
-    aggregate.reset_branches()
-    got = tpch.QUERIES[qname](s, _tables(s, frames)).collect()
-    assert aggregate.BRANCHES["hash"] == 0
-    if qname in ("q3", "q10", "q18", "q21"):  # unbounded group keys
-        assert aggregate.BRANCHES["sorted_payload"] > 0
+    package's session. Q21's two distinct counts take the fused count
+    distinct, and with ``agg.fuseCountDistinct`` false the sorted-payload
+    branch."""
     want = _ref(ref_tpch.QUERIES[qname], frames)
     assert len(want) > 0
-    _same(got, want, qname)
+    fuse = "spark.rapids.sql.agg.fuseCountDistinct"
+    for conf in ({}, {fuse: False}) if qname == "q21" else ({},):
+        s = _port_session(**conf)
+        aggregate.reset_branches()
+        aggfuse.reset_routes()
+        got = tpch.QUERIES[qname](s, _tables(s, frames)).collect()
+        assert aggregate.BRANCHES["hash"] == 0
+        if qname in ("q3", "q10", "q18") or conf:  # unbounded group keys
+            assert aggregate.BRANCHES["sorted_payload"] > 0
+        if qname == "q21":
+            assert (aggfuse.ROUTES["hash"] > 0) == (not conf)
+        _same(got, want, qname)
     cpu = _port_session(**{"spark.rapids.sql.enabled": False})
     _same(tpch.QUERIES[qname](cpu, _tables(cpu, frames)).collect(), want,
           qname)

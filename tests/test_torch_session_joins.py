@@ -27,6 +27,7 @@ from spark_rapids_tpu_torch.exec import tpujoin
 from spark_rapids_tpu_torch.models import tpch
 from spark_rapids_tpu_torch.models import tpch_data as G
 from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+from spark_rapids_tpu_torch.ops import joins as join_ops
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
@@ -145,20 +146,25 @@ def _with_tables(s, fr):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_join_query_syncs(frames, mode):
     """Warm executions over cached scans: Q3 makes one counted sync a
-    join (its expansion totals), Q4's semi join none; a broadcast join
-    over P stream partitions makes one a partition."""
+    join (its expansion totals, with the dense route's verification flag);
+    Q4's semi join takes the dense route (l_orderkey's scan statistics
+    bound it) and makes one, its verification, read once for all stream
+    batches; a broadcast join over P stream partitions makes one a
+    partition."""
     s = _port_session(**dict(MODES[mode], **{
         "spark.rapids.sql.cacheDeviceScans": True}))
     for parts in (1, 4):
         t = _tables(s, frames, parts)
-        for qname, most in (("q3", 2), ("q4", 0)):
+        for qname, most in (("q3", 2), ("q4", 1)):
             df = tpch.QUERIES[qname](s, t)
             df.collect_batches()  # uploads, and learns the skip decision
             before = SYNCS.total()
             df.collect_batches()
             syncs = SYNCS.total() - before
-            # Q3's broadcast joins both stream customer's P partitions
-            per_join = parts if mode == "broadcast" else 1
+            # Q3's broadcast joins both stream customer's P partitions;
+            # Q4's verification is read once for its shared build
+            per_join = parts if mode == "broadcast" and qname == "q3" \
+                else 1
             assert syncs == most * per_join, (qname, parts)
 
 
@@ -412,41 +418,49 @@ def test_condition_join_nested_loop_rule(session, enabled):
 
 
 def test_string_key_join_stays_on_cpu(session):
-    """A string key is tagged off the device with a reason naming ROADMAP
-    A.4: in test mode the query fails with it; otherwise CpuJoinExec (and
-    its exchanges) give the JAX package's answer."""
+    """A string key, once tagged off the device (ROADMAP A.4), now takes
+    the union-lexsort probe: in test mode, broadcast and shuffled, the
+    join runs on the device and gives the JAX package's answer and that
+    of the port's CPU operators."""
     l_df, r_df = _join_sides("int64")
     for mode in MODES:
         s = _port_session(**dict(MODES[mode], **{
             "spark.rapids.sql.test.enabled": True}))
         df = s.create_dataframe(l_df).join(s.create_dataframe(r_df),
                                            left_on="ls", right_on="rs")
-        text = df.explain()
-        assert "! CpuJoinExec(inner)" in text and "A.4" in text
-        with pytest.raises(AssertionError, match="string join key ls"):
-            df.collect()
-        s.set_conf("spark.rapids.sql.test.enabled", False)
+        assert "! " not in df.explain()
+        tpujoin.reset_routes()
         got = df.collect()
+        assert tpujoin.ROUTES["union"] > 0
+        cpu = _port_session(**{"spark.rapids.sql.enabled": False})
+        on_cpu = cpu.create_dataframe(l_df).join(
+            cpu.create_dataframe(r_df), left_on="ls",
+            right_on="rs").collect()
         ref = with_tpu_session(lambda rs: rs.create_dataframe(l_df).join(
             rs.create_dataframe(r_df), left_on="ls", right_on="rs"),
             conf=MODES[mode])
         want = with_cpu_session(lambda rs: rs.create_dataframe(l_df).join(
             rs.create_dataframe(r_df), left_on="ls", right_on="rs"))
-        assert _rows(got) == _rows(ref) == _rows(want)
+        assert _rows(got) == _rows(on_cpu) == _rows(ref) == _rows(want)
         assert len(got) > 5
 
 
 def test_broadcast_builds_once_per_execution(monkeypatch):
     """A broadcast join over four stream partitions builds its table once
-    an execution (one B3 call) and probes it from every partition."""
+    an execution (one B3 call, or one dense table where the scan
+    statistics bound the key, as here) and probes it from every
+    partition."""
     l_df, r_df = _join_sides("int64")
     builds = []
-    real = K.hash_join_build
 
-    def counting(*args, **kwargs):
-        builds.append(1)
-        return real(*args, **kwargs)
-    monkeypatch.setattr(K, "hash_join_build", counting)
+    def counting(real):
+        def run(*args, **kwargs):
+            builds.append(1)
+            return real(*args, **kwargs)
+        return run
+    monkeypatch.setattr(K, "hash_join_build", counting(K.hash_join_build))
+    monkeypatch.setattr(join_ops, "dense_build",
+                        counting(join_ops.dense_build))
     s = _port_session(**{"spark.rapids.sql.test.enabled": True})
     df = s.create_dataframe(l_df, 4).join(s.create_dataframe(r_df),
                                           left_on="lk", right_on="rk")

@@ -179,7 +179,8 @@ def test_parquet_scan_packs_row_groups_and_coalesces(files, layout):
 def test_parquet_query_syncs(files, qname):
     """A second execution from the files: one counted sync a row group
     read (its upload), plus one a join that expands (Q3's two shuffled
-    joins), as the query runners make."""
+    joins), as the query runners make, plus Q4's semi join's dense-route
+    verification (the row groups' footer statistics bound l_orderkey)."""
     paths = files["small_row_groups"]
     s = _port_session(**dict(LAYOUTS["small_row_groups"], **{
         "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
@@ -192,8 +193,8 @@ def test_parquet_query_syncs(files, qname):
                      for t in tables)
     before = SYNCS.total()
     df.collect_batches()
-    assert SYNCS.total() - before == row_groups + (2 if qname == "q3"
-                                                   else 0)
+    assert SYNCS.total() - before == row_groups + {"q3": 2, "q4": 1}.get(
+        qname, 0)
 
 
 def test_parquet_scan_disabled_by_conf_stays_on_cpu(files):
