@@ -39,14 +39,26 @@ port's main path through its query runners:
     (row space), Q3, a customer string group-by (sorted space) and a
     global string min, TPC-H Q10, Q17, Q18 and Q21 at SF10 (sorted
     payload), and the Q18 group-by at SF1 beside its B2 run, each against
-    pandas, the branches taken read from ``ops/aggregate.BRANCHES``.
+    pandas, the branches taken read from ``ops/aggregate.BRANCHES``;
+  * then the 14 other TPC-H queries at SF10, a string phase, Q9 from
+    Parquet and the 19 TPCxBB queries at SF 250;
+  * the four Mortgage queries (``models/mortgage.py``) through the
+    session in 2^20-row batches, the ETL at SF 250 (6M performance rows
+    expanded 12 times) and the other three at SF 500, each against its
+    pandas reference (``testing/mortgagecases.py``), with its peak device
+    memory, join routes and launches;
+  * the window cases of ``testing/windowcases.py`` over 2^23 rows through
+    the session on the card, every output column held against the CPU
+    session's (``device="cpu"``), which a child process of this script
+    (``--window-cpu``) computes while the phases above run.
 
 Each query also runs up to its collect under PyTorch's sync debug mode
 "error", where the only host waits allowed are the counted ones
 (``obs/syncledger.sync_scope``): a query counts one per expanding join
-(Q3 2, Q10 3, Q17 3, Q18 2, Q21 5) and one per row-space aggregation (its
-slot attempt's verdict), none otherwise, and a Parquet scan one per row
-group (its upload).
+(Q3 2, Q10 3, Q17 3, Q18 2, Q21 5), one per row-space aggregation (its
+slot attempt's verdict) and one per concat past 2^27 padded rows (its live
+total: the Mortgage ETL's final merge at SF 500), none otherwise, and a Parquet
+scan one per row group (its upload).
 
 B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
 group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
@@ -89,8 +101,12 @@ import torch
 F64_RTOL = 1e-9
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on stdout, after the seconds since the smoke started."""
+    print(f"[{time.perf_counter() - _T0:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1318,10 +1334,12 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     branch counts (``ops/aggregate.BRANCHES``) zeroed before and read
     after. It may make one counted sync per expanding join (``joins``: its
     expansion totals), one per semi or anti join on the dense route
-    (``dense_verifications``, predicted from the plan after the cold run)
-    and one per row-space aggregation (its slot attempt's verdict), no
-    other; each branch of ``branches`` must have run, the hash branch (B2)
-    not at all."""
+    (``dense_verifications``, predicted from the plan after the cold run),
+    one per row-space aggregation (its slot attempt's verdict) and one per
+    concat past ``exec/tpu.CONCAT_SHRINK_ROWS`` padded rows (its live
+    total, counted by ``CONCAT_SHRINKS``), no other; each branch of
+    ``branches`` must have run, the hash branch (B2) not at all."""
+    from spark_rapids_tpu_torch.exec import tpu as TPU
     from spark_rapids_tpu_torch.ops import aggregate as A
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1330,27 +1348,36 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     cold = time.perf_counter() - t0
     out, walls, launches = run_query(name, query.collect, runs)
     dense = dense_verifications(query)
+    TPU.reset_concat_shrinks()
     A.reset_branches()
     reset_routes()
+    t0 = time.perf_counter()
     got = count_syncs(query.collect_batches)
+    torch.cuda.synchronize()
+    # the query up to its collect, one run (the sync-checked one)
+    to_collect = time.perf_counter() - t0
     taken = dict(A.BRANCHES)
     routes = route_counts()
-    want = joins + dense + taken.get("rowspace", 0)
+    shrinks = TPU.CONCAT_SHRINKS["synced"]
+    want = joins + dense + taken.get("rowspace", 0) + shrinks
     require(got == want, f"{name}: {got} counted syncs before the collect, "
             f"expected {want} ({joins} joins, {dense} dense "
-            f"verifications, branches {taken})")
+            f"verifications, {shrinks} concats past "
+            f"{TPU.CONCAT_SHRINK_ROWS} rows, branches {taken})")
     for b in branches:
         require(taken.get(b, 0) > 0, f"{name}: branch {b} did not run "
                 f"({taken})")
     require(not taken.get("hash"), f"{name}: took the hash branch")
     med = float(np.median(walls))
-    log(f"{name}: median {med:.4f} s, {len(out)} rows, counted syncs "
+    log(f"{name}: median {med:.4f} s ({to_collect:.4f} s up to the "
+        f"collect), {len(out)} rows, counted syncs "
         f"{got} ({joins} joins, {dense} dense verifications), branches "
         f"{taken}, routes {routes}; cold run (upload) {cold:.1f} s")
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
                  "launches": launches, "counted_syncs": got,
                  "expanding_joins": joins, "dense_verifications": dense,
+                 "concat_shrinks": shrinks, "to_collect_s": to_collect,
                  "branches": taken, "routes": routes,
                  "rows_out": len(out), "fallbacks": 0}
 
@@ -2034,15 +2061,284 @@ def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
     queries["session_q9_parquet"] = rec
 
 
+def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
+                   report: dict) -> None:
+    """The four Mortgage queries (``models/mortgage.py``), each through a
+    session at the JAX package's default confs with the cartesian product
+    set (as its ``bench.py`` runs them), test mode (zero fallbacks), on
+    cached uploads: the ETL at ``sf_etl``, the other three at ``sf``. Each
+    is held to its pandas reference (``testing/mortgagecases.py``: keys,
+    counts, dates and strings exact, float64 at rtol 1e-9, a 4-place
+    rounding tie either way). Counted syncs: one per expanding join,
+    predicted from the plan before the run (a window stage adds none),
+    plus the dense, row-space and oversized-concat ones
+    ``run_session_cell`` counts. Peak device memory, the
+    join routes and the launches by kernel are read per query; the phase
+    must launch B1."""
+    from spark_rapids_tpu_torch.config import conf as CONF
+    from spark_rapids_tpu_torch.models import mortgage as M
+    from spark_rapids_tpu_torch.models import mortgage_data as MD
+    from spark_rapids_tpu_torch.testing import mortgagecases as MC
+    # the default batch size (the JAX package's bench runs Mortgage at its
+    # default confs): the ETL's 12x cross join expands one 2^20-row batch
+    # at a time
+    require(MORTGAGE_BATCH_ROWS == CONF.BATCH_SIZE_ROWS.default,
+            "Mortgage: not the default batch size")
+    tables = {}
+    for x in sorted({sf, sf_etl}):
+        t0 = time.perf_counter()
+        tables[x] = (MD.gen_performance(x), MD.gen_acquisition(x))
+        report.setdefault("mortgage_gen_s", {})[str(x)] = (
+            time.perf_counter() - t0)
+        log(f"Mortgage SF{x}: performance {len(tables[x][0])} rows, "
+            f"acquisition {len(tables[x][1])} rows, "
+            f"{report['mortgage_gen_s'][str(x)]:.1f} s")
+    totals = {}
+    for name in M.QUERIES:
+        qsf = sf_etl if name == "etl" else sf
+        perf, acq = tables[qsf]
+        sess = session_of(MORTGAGE_BATCH_ROWS, **M.ETL_CONFS)
+        t0 = time.perf_counter()
+        want = MC.pandas_reference(name, perf, acq)
+        pandas_s = time.perf_counter() - t0
+        qdf = M.run_query(name, sess, sess.create_dataframe(perf),
+                          sess.create_dataframe(acq))
+        joins = expanding_joins(sess, qdf)
+        what = f"session Mortgage {name}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows = len(perf) + (len(acq) if M.QUERIES[name][1] else 0)
+        out, rec = run_session_cell(what, qdf, runs, qsf, rows, joins, ())
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        rec.update(MC.same_answer(name, out, want))
+        rec["pandas_s"] = pandas_s
+        rec["predicted_syncs"] = joins
+        log(f"{what}: {len(out)} rows equal to pandas (max rel err "
+            f"{rec['max_rel_err']:.3g}, {rec['rounding_ties']} rounding "
+            f"ties); peak device memory "
+            f"{rec['peak_device_bytes'] / 2**30:.2f} GiB; pandas "
+            f"{pandas_s:.1f} s; launches {rec['launches']}")
+        for k, v in rec["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        queries[f"session_mortgage_{name}"] = rec
+        del out, want, qdf, sess
+        torch.cuda.empty_cache()
+    report["mortgage_launches"] = totals
+    log(f"Mortgage launches: {totals}")
+    require(totals.get("compact_permutation", 0) > 0,
+            "Mortgage: B1 never ran")
+
+
+WINDOW_CPU_DIR = os.path.join("spark_rapids_tpu_torch", "build",
+                              "window_cpu")
+
+
+def _window_frames(rows: int) -> dict:
+    """The window cases' frames at ``rows`` rows, one per extra-column
+    kind."""
+    from spark_rapids_tpu_torch.testing import windowcases as WC
+    frames = {}
+    for extra, _q, *_ in list(WC.CASES.values()):
+        if extra not in frames:
+            frames[extra] = WC.frame(extra, n=rows)
+    return frames
+
+
+def _window_session(device: str, rows: int):
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    return (TpuSparkSession.builder().device(device)
+            .config("spark.rapids.sql.test.enabled", True)
+            .config("spark.rapids.sql.cacheDeviceScans", True)
+            .config("spark.rapids.sql.batchSizeRows", rows).get_or_create())
+
+
+def _column_state(col) -> dict:
+    out = {"validity": col.validity.cpu()}
+    if col.dict_values is not None:
+        out.update(codes=col.dict_codes.cpu(), values=col.dict_values)
+    elif col.dtype.is_string:
+        out.update(slab=col.slab64.cpu(), lens=col.lens.cpu())
+    else:
+        out["data"] = col.data.cpu()
+    return out
+
+
+def window_cpu_child(rows: int) -> int:
+    """The CPU side of the window phase, in a process of its own started
+    at the beginning of the smoke (the torch code on the host takes
+    minutes at 2^23 rows): each window case through the session with
+    ``device="cpu"``, its output columns saved under WINDOW_CPU_DIR."""
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.sql.window import Window
+    from spark_rapids_tpu_torch.testing import windowcases as WC
+    # the lowest priority and two threads: the phases on the card, whose
+    # host steps (data generation, Parquet writing, pandas references) set
+    # the smoke's wall, keep the host's cores
+    os.nice(19)
+    torch.set_num_threads(2)
+    os.makedirs(WINDOW_CPU_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    sess = _window_session("cpu", rows)
+    bases = {extra: sess.create_dataframe(f)
+             for extra, f in _window_frames(rows).items()}
+    for name, (extra, query, _approx) in WC.CASES.items():
+        batches = query(SF_, Window, bases[extra]).collect_batches()
+        torch.save([{"num_rows": int(b.num_rows),
+                     "names": list(b.schema.names),
+                     "cols": [_column_state(c) for c in b.columns]}
+                    for b in batches],
+                   os.path.join(WINDOW_CPU_DIR, f"{name}.pt"))
+        log(f"window CPU {name}: {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(WINDOW_CPU_DIR, "done.json"), "w") as f:
+        json.dump({"rows": rows, "s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def start_window_cpu(rows: int) -> subprocess.Popen:
+    import shutil
+    shutil.rmtree(WINDOW_CPU_DIR, ignore_errors=True)
+    os.makedirs(WINDOW_CPU_DIR, exist_ok=True)
+    with open(os.path.join(WINDOW_CPU_DIR, "child.log"), "w") as logf:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--window-cpu",
+             str(rows)], stdout=logf, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _same_window_column(card, cpu: dict, approx: bool, what: str) -> None:
+    """A card column against the CPU session's: the same validity; values
+    exact where valid (dictionary codes and values, slab words and
+    lengths), float columns of a float-sum case at rtol 1e-6 (atol 1e-9:
+    prefix sums add in another order on the card)."""
+    valid = card.validity.cpu()
+    require(torch.equal(valid, cpu["validity"]), f"{what}: validity differs")
+    if "values" in cpu:
+        require(card.dict_values == cpu["values"]
+                and torch.equal(card.dict_codes.cpu()[valid],
+                                cpu["codes"][valid]),
+                f"{what}: dictionary strings differ")
+        return
+    if "slab" in cpu:
+        require(card.has_slab
+                and torch.equal(card.lens.cpu()[valid], cpu["lens"][valid])
+                and torch.equal(card.slab64.cpu()[valid],
+                                cpu["slab"][valid]),
+                f"{what}: slab strings differ")
+        return
+    got, want = card.data.cpu()[valid], cpu["data"][valid]
+    if approx and got.dtype.is_floating_point:
+        require(torch.allclose(got, want, rtol=1e-6, atol=1e-9,
+                               equal_nan=True), f"{what}: values differ")
+        return
+    require(torch.equal(got, want), f"{what}: values differ")
+
+
+def window_phase(rows: int, runs: int, child: subprocess.Popen,
+                 queries: dict, report: dict) -> None:
+    """The window cases (``testing/windowcases.py``: the JAX package's 22
+    and the slab, dictionary and NULL partition keys) on a ``rows``-row
+    frame through the session on the card, each timed (median of ``runs``
+    warm runs on its cached upload) with no counted sync before the
+    collect, then every output column held against the CPU session's
+    (``device="cpu"``, computed by ``child`` meanwhile)."""
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.sql.window import Window
+    from spark_rapids_tpu_torch.testing import windowcases as WC
+    t0 = time.perf_counter()
+    frames = _window_frames(rows)
+    report["window_gen_s"] = time.perf_counter() - t0
+    # one session: the cases that share a frame share its cached upload
+    sess = _window_session("cuda", rows)
+    bases = {extra: sess.create_dataframe(f) for extra, f in frames.items()}
+    cards, recs = {}, {}
+    for name, (extra, query, _approx) in WC.CASES.items():
+        qdf = query(SF_, Window, bases[extra])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qdf.collect_batches()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        out, walls, launches = run_query(f"window {name}",
+                                         qdf.collect_batches, runs)
+        require_syncs(f"window {name}", qdf.collect_batches, 0)
+        cards[name] = out
+        recs[name] = {"sf": None, "rows": rows, "upload_s": cold,
+                      "wall_s": float(np.median(walls)), "wall_runs_s": walls,
+                      "launches": launches, "counted_syncs": 0}
+        del qdf
+    del sess, bases
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = child.wait(timeout=600)
+    report["window_cpu_wait_s"] = time.perf_counter() - t0
+    with open(os.path.join(WINDOW_CPU_DIR, "child.log")) as f:
+        tail = f.read()[-2000:]
+    require(rc == 0, f"window phase: the CPU session's process failed "
+            f"({rc}): {tail}")
+    with open(os.path.join(WINDOW_CPU_DIR, "done.json")) as f:
+        report["window_cpu"] = json.load(f)
+    for name, (_extra, _q, approx) in WC.CASES.items():
+        cpu = torch.load(os.path.join(WINDOW_CPU_DIR, f"{name}.pt"),
+                         weights_only=False)
+        card = cards.pop(name)
+        require(len(card) == len(cpu), f"window {name}: batch counts differ")
+        for bc, bh in zip(card, cpu):
+            require(int(bc.num_rows.item()) == bh["num_rows"]
+                    and list(bc.schema.names) == bh["names"],
+                    f"window {name}: rows or columns differ")
+            for cname, cc, ch in zip(bh["names"], bc.columns, bh["cols"]):
+                _same_window_column(cc, ch, approx,
+                                    f"window {name} {cname}")
+        queries[f"window_{name}"] = recs[name]
+    total = sum(r["wall_s"] for r in recs.values())
+    report["window_phase"] = {"rows": rows, "cases": len(recs),
+                              "wall_s_sum": total}
+    log(f"window phase: {len(recs)} cases over {rows} rows equal to the CPU "
+        f"session (its process {report['window_cpu']['s']:.1f} s, waited "
+        f"{report['window_cpu_wait_s']:.1f} s); card walls sum "
+        f"{total:.4f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="small shapes: build and check the kernels and "
                          "the queries, no full-size timing")
+    ap.add_argument("--window-cpu", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.window_cpu:
+        return window_cpu_child(args.window_cpu)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the port first: a checkout without it fails here, before any file
+    # is written
+    import spark_rapids_tpu_torch.session  # noqa: F401
+    # the window phase's CPU side, started by ``run`` after the kernels
+    # are timed, runs meanwhile in a process of its own
+    children: list = []
+    try:
+        return run(args, children)
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
+
+
+WINDOW_ROWS = 1 << 23
+WINDOW_ROWS_QUICK = 1 << 16
+# the ETL at SF 250, the other three at SF 500: the smoke keeps within
+# its time limit (the ETL at SF 500 on one H100: 7.46 s warm, 31.0 GiB
+# peak, equal to pandas; PERF.md)
+MORTGAGE_SF = 500
+MORTGAGE_ETL_SF = 250
+MORTGAGE_RUNS = 2
+MORTGAGE_BATCH_ROWS = 1 << 20
+
+
+def run(args, children: list) -> int:
     import pandas as pd
     import pyarrow
     from spark_rapids_tpu_torch.models import q1_step as Q
@@ -2113,14 +2409,19 @@ def main() -> int:
         f"{b1['small_argsort_ms']:.4f} cumsum {b1['small_cumsum_ms']:.4f} "
         f"bound {b1['small_bound_ms']:.4f}; floor {b1['floor_ms']:.4f}")
     torch.cuda.empty_cache()
+    # after the kernels' timing, which a busy host would slow
+    child = start_window_cpu(WINDOW_ROWS_QUICK if args.quick
+                             else WINDOW_ROWS)
+    children.append(child)
 
     queries = {}
     runs = 1 if args.quick else 5
     pq_runs = 1 if args.quick else 3
     runs_new = 1 if args.quick else 3  # the cells of the sorted branches
-    # the runners' Parquet queries take 2 timed runs, the session's 3: the
-    # session's Parquet phases made the smoke ~5 minutes longer
-    runner_pq_runs = 1 if args.quick else 2
+    # the runners' Parquet queries take 1 timed run, the session's 3: the
+    # session's Parquet phases and the Mortgage and window phases need the
+    # smoke's time
+    runner_pq_runs = 1
 
     t0 = time.perf_counter()
     df = G.gen_lineitem(sf_q1)
@@ -2315,7 +2616,8 @@ def main() -> int:
         del frames[name]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    string_phase(1 << 16 if args.quick else 1 << 23, runs_new, report)
+    # 2^22 rows: the Mortgage and window phases need the smoke's time
+    string_phase(1 << 16 if args.quick else 1 << 22, runs_new, report)
     report["string_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -2583,6 +2885,17 @@ def main() -> int:
     tpcxbb_phase(1 if args.quick else 250, q1_batch, runs_new, queries,
                  report)
     report["tpcxbb_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mortgage_phase(1 if args.quick else MORTGAGE_SF,
+                   1 if args.quick else MORTGAGE_ETL_SF,
+                   1 if args.quick else MORTGAGE_RUNS, queries, report)
+    report["mortgage_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    window_phase(WINDOW_ROWS_QUICK if args.quick else WINDOW_ROWS, runs_new,
+                 child, queries, report)
+    report["window_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     launches_total = {k["name"]: 0 for k in kernels}

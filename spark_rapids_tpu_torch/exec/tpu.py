@@ -25,7 +25,9 @@ Not ported, and why nothing here needs them yet:
     result;
   * the exchange's capacity shrink (a counted sync), its speculation, and
     the multi-device routes (ROADMAP A.9): on one device a hash or range
-    exchange is one partition of the child's batches, with no sync.
+    exchange is one partition of the child's batches, with no sync. Only
+    a concat whose padded capacity would pass CONCAT_SHRINK_ROWS reads its
+    live rows (``concat_device``).
 """
 
 from __future__ import annotations
@@ -78,15 +80,39 @@ def empty_batch(schema: Schema, device) -> DeviceBatch:
     return batch
 
 
+# a concat whose summed capacities pass this many rows sizes its output
+# by its live rows instead (one counted sync, where a batch's row count is
+# not known on the host): padded partials (a 12x cross join's partial
+# aggregates, each at its input's capacity) would otherwise ask for a
+# capacity the card cannot hold
+CONCAT_SHRINK_ROWS = 1 << 27
+# the concats that read their live rows, since the last reset
+CONCAT_SHRINKS = {"synced": 0}
+
+
+def reset_concat_shrinks() -> None:
+    CONCAT_SHRINKS["synced"] = 0
+
+
 def concat_device(batches: List[DeviceBatch], schema: Schema,
                   growth: float, device) -> DeviceBatch:
     """Concatenate device batches (GpuCoalesceBatches): one
-    ``rowops.concat_batches`` at the bucketed sum of their capacities."""
+    ``rowops.concat_batches`` at the bucketed sum of their capacities, or
+    of their live rows past CONCAT_SHRINK_ROWS."""
     if len(batches) == 1:
         return batches[0]
     if not batches:
         return empty_batch(schema, device)
     out_cap = bucket_capacity(sum(b.capacity for b in batches), growth)
+    if out_cap > CONCAT_SHRINK_ROWS:
+        if all(b.host_rows is not None for b in batches):
+            rows = sum(b.host_rows for b in batches)
+        else:
+            with sync_scope("concat.liveRows", nbytes=4):
+                rows = int(torch.stack([b.num_rows for b in batches])
+                           .to(torch.int64).sum().item())
+            CONCAT_SHRINKS["synced"] += 1
+        out_cap = bucket_capacity(max(rows, 1), growth)
     return rowops.concat_batches(batches, out_cap)
 
 

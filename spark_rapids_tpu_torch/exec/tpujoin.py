@@ -192,17 +192,20 @@ def _empty(schema: Schema, device) -> DeviceBatch:
 
 
 def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
-                 join_type: str, stream_keys: Sequence[int],
-                 stream_is_left: bool, out_schema: Schema
-                 ) -> List[DeviceBatch]:
+                      join_type: str, stream_keys: Sequence[int],
+                      stream_is_left: bool, out_schema: Schema
+                      ) -> Iterator[DeviceBatch]:
     """Probe every stream batch against the built side, then expand: all
     expansion totals come back in one counted copy (with the dense
     route's verification flag), none for semi and anti joins off the
-    dense route. At least one batch comes back (an empty one where the
-    join yields no rows)."""
+    dense route. Each stream batch's expansion is made only when the
+    consumer asks for it, so one expanded batch at a time is alive (a
+    12x cross join of 12M rows would hold 144M at once). At least one
+    batch comes back (an empty one where the join yields no rows)."""
     build = built.batch
     if not streams:
-        return [_empty(out_schema, build.device)]
+        yield _empty(out_schema, build.device)
+        return
     route = built.route
     if route == "dense" and built.dense_ok is False:
         route = "hash"
@@ -215,11 +218,14 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
             with sync_scope("join.denseVerify", nbytes=1):
                 built.dense_ok = bool(built.dense.ok.item())
             if not built.dense_ok:
-                return probe_expand(built, streams, join_type, stream_keys,
-                                    stream_is_left, out_schema)
-        return [join_ops.semi_anti_filter(s, counts,
-                                          anti=join_type == "leftanti")
-                for s, (counts, _b, _p) in zip(streams, probes)]
+                yield from probe_expand(built, streams, join_type,
+                                             stream_keys, stream_is_left,
+                                             out_schema)
+                return
+        for s, (counts, _b, _p) in zip(streams, probes):
+            yield join_ops.semi_anti_filter(s, counts,
+                                            anti=join_type == "leftanti")
+        return
     adjs = [join_ops.outer_adjusted_counts(s, counts)
             if join_type in OUTER else counts
             for s, (counts, _b, _p) in zip(streams, probes)]
@@ -233,11 +239,13 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
     if verify:
         built.dense_ok = bool(flat.pop())
         if not built.dense_ok:
-            return probe_expand(built, streams, join_type, stream_keys,
-                                stream_is_left, out_schema)
+            yield from probe_expand(built, streams, join_type,
+                                         stream_keys, stream_is_left,
+                                         out_schema)
+            return
     width = len(flat) // len(streams)
     sizes = [flat[i * width:(i + 1) * width] for i in range(len(streams))]
-    out: List[DeviceBatch] = []
+    any_out = False
     matched = (torch.zeros(build.capacity, dtype=torch.bool,
                            device=build.device)
                if join_type == "full" else None)
@@ -255,11 +263,14 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                 build, stream, counts, adj, bstart, bperm,
                 bucket_capacity(total), swap_sides=not stream_is_left)
             batch.host_rows = total
-            out.append(batch)
+            any_out = True
+            yield batch
     if join_type == "full":
-        out.append(join_ops.unmatched_build_batch(
-            build, matched, streams[0].schema, swap_sides=False))
-    return out or [_empty(out_schema, build.device)]
+        any_out = True
+        yield join_ops.unmatched_build_batch(
+            build, matched, streams[0].schema, swap_sides=False)
+    if not any_out:
+        yield _empty(out_schema, build.device)
 
 
 def _check_join(join_type: str, left_keys, right_keys) -> None:
@@ -292,8 +303,8 @@ def hash_join(left_batches: Sequence[DeviceBatch],
                   else (right_keys, left_keys))
     schema = output_schema(left_batches[0].schema, right_batches[0].schema,
                            join_type)
-    return probe_expand(build_side(builds, bkey), streams, join_type, skey,
-                        stream_is_left, schema)
+    return list(probe_expand(build_side(builds, bkey), streams, join_type,
+                             skey, stream_is_left, schema))
 
 
 # ---------------------------------------------------------------------------
@@ -433,8 +444,9 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
         def make(sp: Partition, built) -> Partition:
             def run() -> Iterator[DeviceBatch]:
                 side = built()
-                yield from probe_expand(side, list(sp()), self.join_type,
-                                        skey, self._stream_is_left, schema)
+                yield from probe_expand(side, list(sp()),
+                                             self.join_type, skey,
+                                             self._stream_is_left, schema)
             return run
         return [make(sp, b) for sp, b in zip(stream_parts, builders)]
 

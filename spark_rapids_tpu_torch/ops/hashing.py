@@ -1,8 +1,10 @@
 """64-bit hashing (counterpart of the JAX package's ``ops/hashing.py``):
 the splitmix64 mixer, fixed-width column hashes, the two polynomial
 string hashes of dictionary and char-slab columns, and their combination
-into row hashes. The packed-chars ``string_poly_hashes`` and the numpy
-twins of the host expression path wait for the string slice (ROADMAP A.5).
+into row hashes; ``hash_string_col``, the combined string hash of the
+``hash()`` expression, and the numpy twins its host path uses (copies of
+the JAX package's). The packed-chars ``string_poly_hashes`` waits for the
+string slice (ROADMAP A.5).
 
 All values are int64 tensors holding uint64 bit patterns. Adds and
 multiplies wrap mod 2^64 exactly like uint64; right shifts are arithmetic
@@ -145,9 +147,83 @@ def string_poly_hashes_col(col):
         null_h = torch.full(code.shape, as_signed(NULL_HASH),
                             dtype=torch.int64, device=code.device)
         return tuple(
-            torch.where(col.validity, host_to_device(t, col.device)[code],
+            torch.where(col.validity, host_to_device(t, code.device)[code],
                         null_h)
             for t in value_hash_tables(col.dict_values))
-    if col.has_slab:
+    if col.slab64 is not None:
         return slab_poly_hashes(col.slab64, col.lens, col.validity)
     raise plain_strings_unsupported("string_poly_hashes_col")
+
+
+def hash_string_col(col) -> torch.Tensor:
+    """One combined 64-bit hash per string row, splitmix64(h1 ^ h2) of the
+    two polynomial hashes (``string_poly_hashes_col``: a dictionary's
+    per-value tables gathered by code, a slab's words), NULL_HASH where
+    invalid; bit-identical to the JAX package's ``hash_string_col`` and to
+    ``np_string_hashes``."""
+    h1, h2 = string_poly_hashes_col(col)
+    return torch.where(col.validity, splitmix64(h1 ^ h2),
+                       torch.full_like(h1, as_signed(NULL_HASH)))
+
+
+# --- numpy twins (the host expression path) ---------------------------------
+# Copies of the JAX package's: the same constants and bit-for-bit results
+# as the torch versions above, so hash() agrees between the CPU operators
+# and the device ones. uint64 numpy arrays (``np_splitmix64`` is
+# ``columnar/dictionary``'s).
+
+from spark_rapids_tpu_torch.columnar.dictionary import (  # noqa: E402
+    np_splitmix64,
+)
+
+def np_f64_bits(f: np.ndarray) -> np.ndarray:
+    """Normalize (-0.0 and denormals -> +0.0, NaN -> canonical) then view:
+    the host twin of ``ops/floatbits.f64_bits``."""
+    f64 = np.asarray(f, dtype=np.float64).copy()
+    f64[np.abs(f64) < 2.0 ** -1022] = 0.0
+    f64[np.isnan(f64)] = np.nan
+    return f64.view(np.uint64)
+
+
+def np_hash_fixed_width(data: np.ndarray, validity: np.ndarray) -> np.ndarray:
+    if data.dtype == np.bool_:
+        bits = data.astype(np.uint64)
+    elif np.issubdtype(data.dtype, np.floating):
+        bits = np_f64_bits(data)
+    else:
+        bits = data.astype(np.int64).view(np.uint64)
+    h = np_splitmix64(bits)
+    return np.where(validity, h, np.uint64(NULL_HASH))
+
+
+def np_string_hashes(values, validity: np.ndarray) -> np.ndarray:
+    """Combined (splitmix64 of h1 ^ h2) hash per row of python strings,
+    NULL_HASH where invalid. Horner passes run on plain Python ints
+    (masked to 64 bits), ~100x cheaper than boxed numpy uint64 scalars."""
+    acc1 = np.empty(len(values), dtype=np.uint64)
+    acc2 = np.empty(len(values), dtype=np.uint64)
+    lens = np.empty(len(values), dtype=np.uint64)
+    live = np.asarray(validity, dtype=bool).copy()
+    for i, v in enumerate(values):
+        if not live[i] or v is None:
+            live[i] = False
+            acc1[i] = acc2[i] = lens[i] = 0
+            continue
+        raw = str(v).encode("utf-8")
+        a1 = a2 = 0
+        for b in raw:
+            a1 = (a1 * P1 + b) & _M64
+            a2 = (a2 * P2 + b) & _M64
+        acc1[i], acc2[i], lens[i] = a1, a2, len(raw)
+    with np.errstate(over="ignore"):
+        h1 = np_splitmix64(acc1 + np.uint64(SALT1) + lens)
+        h2 = np_splitmix64(acc2 + np.uint64(SALT2) + lens)
+    out = np_splitmix64(h1 ^ h2)
+    return np.where(live, out, np.uint64(NULL_HASH))
+
+
+def np_combine_hashes(hs) -> np.ndarray:
+    out = np.uint64(COMBINE_SEED)
+    for h in hs:
+        out = np_splitmix64(np.asarray(out ^ h))
+    return out

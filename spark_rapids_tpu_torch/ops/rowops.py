@@ -202,21 +202,23 @@ def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
     total = total.to(torch.int32)
     live = idx < total
 
-    flat_cols: List[DeviceColumn] = []
+    # one column at a time: the flat copy of a column lives only until its
+    # gather
+    cols: List[DeviceColumn] = []
     for ci, dt in enumerate(schema.dtypes):
         parts = [b.columns[ci] for b in batches]
         validity = torch.cat([p.validity for p in parts])
         slab, lens = _concat_slabs(parts) if dt.is_string else (None, None)
         if slab is not None:
-            flat_cols.append(DeviceColumn(dt, None, validity, slab64=slab,
-                                          lens=lens))
-            continue
-        vals, codes = _concat_dict(parts)
-        data = None if dt.is_string else torch.cat([p.data for p in parts])
-        flat_cols.append(DeviceColumn(
-            dt, data, validity,
-            torch.cat(codes) if codes is not None else None, vals))
-    cols = gather_columns(flat_cols, src, live)
+            flat = DeviceColumn(dt, None, validity, slab64=slab, lens=lens)
+        else:
+            vals, codes = _concat_dict(parts)
+            data = None if dt.is_string else torch.cat([p.data
+                                                        for p in parts])
+            flat = DeviceColumn(dt, data, validity,
+                                torch.cat(codes) if codes is not None
+                                else None, vals)
+        cols.append(gather_column(flat, src, live))
     return DeviceBatch(schema, cols, total)
 
 

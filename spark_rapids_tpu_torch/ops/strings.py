@@ -1,7 +1,9 @@
 """String operations on device columns (counterpart of the JAX package's
 ``ops/strings.py``): equality and three-way comparison against a literal
 or another column, ``starts_with``, ``ends_with``, ``contains``,
-``substring`` and the value tables of ``In``.
+``substring``, the value tables of ``In`` and ``select_strings``, the
+row-wise choice behind a string-valued ``if``, CASE WHEN and
+``coalesce``.
 
 A string column reaches device code in one of two forms, and every
 operation here serves both:
@@ -433,3 +435,51 @@ def string_in(ctx: EvalContext, col: DevCol, values) -> torch.Tensor:
     for v in values:
         out |= _slab_equal_literal(col, str(v).encode("utf-8"))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Row-wise selection (if / CASE WHEN / coalesce over strings)
+# ---------------------------------------------------------------------------
+
+def _widen_slab(col: DevCol, stride: int) -> DevCol:
+    """A slab at a wider ``stride``: zero words appended (bytes past a
+    row's length are zero, so the rows are unchanged)."""
+    w = int(col.slab64.shape[1])
+    if w * 8 == stride:
+        return col
+    pad = torch.zeros((col.slab64.shape[0], stride // 8 - w),
+                      dtype=torch.int64, device=col.slab64.device)
+    return DevCol(col.dtype, None, col.validity,
+                  slab64=torch.cat([col.slab64, pad], dim=1), lens=col.lens)
+
+
+def select_strings(cond: torch.Tensor, a: DevCol, b: DevCol,
+                   validity: torch.Tensor) -> DevCol:
+    """Row-wise choice between two string columns (the JAX package's
+    ``select_strings``): rows where ``cond`` take ``a``'s value, the
+    others ``b``'s; ``validity`` is the result's. Two dictionaries select
+    codes, remapped into the union of their values first (on the host,
+    once per pair) where they differ; otherwise both sides become slabs
+    of the wider stride (a dictionary's values built into a slab and
+    gathered by code) and the rows' words and lengths are selected."""
+    _require_form(a, "select_strings")
+    _require_form(b, "select_strings")
+    if _is_dict(a) and _is_dict(b):
+        ca, cb, values = a.dict_codes, b.dict_codes, a.dict_values
+        if a.dict_values != b.dict_values:
+            from spark_rapids_tpu_torch.columnar.dictionary import (
+                union_dictionaries,
+            )
+            values, (ra, rb) = union_dictionaries([a.dict_values,
+                                                   b.dict_values])
+            ca, cb = _gather_table(a, ra), _gather_table(b, rb)
+        return DevCol(dtypes.STRING, None, validity,
+                      dict_codes=torch.where(cond, ca, cb),
+                      dict_values=values)
+    stride = max(_stride(c) if not _is_dict(c) else slab_stride_for(
+        _max_value_len(c.dict_values), 1 << 30) for c in (a, b))
+    a, b = (_widen_slab(_dict_as_slab(c, stride) if _is_dict(c) else c,
+                        stride) for c in (a, b))
+    return DevCol(dtypes.STRING, None, validity,
+                  slab64=torch.where(cond[:, None], a.slab64, b.slab64),
+                  lens=torch.where(cond, a.lens, b.lens))

@@ -28,7 +28,8 @@ shuffle environments and encoded-page cache (A.7, A.9); AQE and the
 speculation verification (A.10; the within-query subtree reuse is
 ported, ``exec/reuse.py``); tracing, the event journal, metrics
 snapshots, the compile cache and prewarm, and the serving caches (A.11);
-the CSV and ORC readers (A.7); the full-outer USING join (A.6).
+the CSV and ORC readers (A.7). ``with_column`` and ``select`` take
+window expressions (``F.row_number().over(Window.partition_by(...))``).
 """
 
 from __future__ import annotations
@@ -312,8 +313,29 @@ class DataFrame:
         return list(self.schema.names)
 
     def select(self, *cols) -> "DataFrame":
+        """Project ``cols``. Window expressions among them are computed
+        first, by window operators under the projection (Spark's
+        WindowExec shape), one per distinct partition and order spec."""
+        from spark_rapids_tpu_torch.sql.window import WindowExpression
         exprs = [(_name_of(_c(c)), _c(c)) for c in cols]
-        return DataFrame(self.session, lp.LogicalProject(self._plan, exprs))
+        win_items = []
+
+        def extract(e):
+            if isinstance(e, WindowExpression):
+                name = f"__w{len(win_items)}"
+                win_items.append((name, e))
+                return Col(name)
+            return e.map_children(extract)
+
+        exprs = [(n, extract(e)) for n, e in exprs]
+        child = self._plan
+        by_spec: Dict[str, list] = {}
+        for name, w in win_items:
+            key = repr((w.spec.partition_cols, w.spec.orders))
+            by_spec.setdefault(key, []).append((name, w))
+        for items in by_spec.values():
+            child = lp.LogicalWindow(child, items)
+        return DataFrame(self.session, lp.LogicalProject(child, exprs))
 
     def filter(self, condition: Column) -> "DataFrame":
         return DataFrame(self.session,
@@ -383,11 +405,8 @@ class DataFrame:
         """join(on=[k]) keeps ONE output column per key: the right side's
         keys are renamed, the join is positional, then one key column is
         re-emitted (the left value; the right one for a right join), as
-        Spark resolves USING. A full USING join needs Coalesce."""
-        if how == "full":
-            raise NotImplementedError(
-                "a full outer USING join needs the Coalesce expression, "
-                "which is not ported yet (ROADMAP A.6)")
+        Spark resolves USING; a full join coalesces the two)."""
+        from spark_rapids_tpu_torch.sql.exprs.conditional import Coalesce
         shared = (set(self.schema.names) & set(other.schema.names)) \
             - set(names)
         if shared:
@@ -401,17 +420,34 @@ class DataFrame:
         joined = DataFrame(self.session, lp.LogicalJoin(
             self._plan, right._plan, how, [col_fn(n).expr for n in names],
             [col_fn(rmap[n]).expr for n in names]))
-        out = [col_fn(rmap[n]).alias(n) if how == "right" else col_fn(n)
-               for n in names]
+        out = []
+        for n in names:
+            if how == "right":
+                out.append(col_fn(rmap[n]).alias(n))
+            elif how == "full":
+                out.append(Column(Coalesce([col_fn(n).expr,
+                                            col_fn(rmap[n]).expr])).alias(n))
+            else:
+                out.append(col_fn(n))
         out += [col_fn(n) for n in self.schema.names if n not in names]
         out += [col_fn(n) for n in other.schema.names if n not in names]
         return joined.select(*out)
 
     def with_column(self, name: str, c: Column) -> "DataFrame":
         """Add (or replace) the column ``name``, computed by ``c``; the
-        other columns keep their order, and the new one goes last."""
+        other columns keep their order, and the new one goes last. A
+        window expression appends its column through a window operator,
+        and may not shadow an existing column."""
+        from spark_rapids_tpu_torch.sql.window import WindowExpression
+        e = _expr(c)
+        if isinstance(e, WindowExpression):
+            if name in self.schema.names:
+                raise ValueError(f"window column {name!r} would shadow an "
+                                 "existing column")
+            return DataFrame(self.session,
+                             lp.LogicalWindow(self._plan, [(name, e)]))
         exprs = [(n, col_fn(n).expr) for n in self.schema.names if n != name]
-        exprs.append((name, _expr(c)))
+        exprs.append((name, e))
         return DataFrame(self.session, lp.LogicalProject(self._plan, exprs))
 
     withColumn = with_column

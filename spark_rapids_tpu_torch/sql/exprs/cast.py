@@ -36,6 +36,19 @@ MICROS_PER_SEC = 1_000_000
 MICROS_PER_DAY = 86_400 * MICROS_PER_SEC
 
 
+def float_to_int_java(x: torch.Tensor, int_name: str) -> torch.Tensor:
+    """Java's (long)/(int) of an integral-valued float: NaN -> 0, values
+    past the type's range saturate at its bounds. float(2^63 - 1) rounds
+    up to 2^63, which no int64 holds, so the top is saturated
+    explicitly."""
+    lo, hi = _INT_RANGE[int_name]
+    d64 = x.to(torch.float64)
+    d64 = torch.where(torch.isnan(d64), torch.zeros_like(d64), d64)
+    out = d64.clamp(float(lo), float(hi)).to(torch_dtype(
+        np.dtype(int_name)))
+    return torch.where(d64 >= float(hi), torch.full_like(out, hi), out)
+
+
 def cast_data(data: torch.Tensor, src: DType, dst: DType):
     """Cast raw (already null-canonicalized) data. Returns (data,
     extra_null) where extra_null marks rows that become NULL."""
@@ -49,10 +62,7 @@ def cast_data(data: torch.Tensor, src: DType, dst: DType):
     if src.is_integral and (dst.is_integral or dst.is_floating):
         return data.to(tdt), None
     if src.is_floating and dst.is_integral:
-        lo, hi = _INT_RANGE[dst.name]
-        d64 = data.to(torch.float64)
-        out = torch.where(torch.isnan(d64), torch.zeros_like(d64), d64)
-        return out.trunc().clamp(float(lo), float(hi)).to(tdt), None
+        return float_to_int_java(data.trunc(), dst.name), None
     if src.is_floating and dst.is_floating:
         return data.to(tdt), None
     if src == dtypes.TIMESTAMP_US and dst.is_integral:

@@ -1,10 +1,10 @@
 """Conditional expressions (counterpart of the JAX package's
 ``sql/exprs/conditional.py``, its ``if``, ``CASE WHEN`` and
-``coalesce``): numeric, boolean and date results. A branch whose value is
-a string needs the JAX package's row-select string kernel
-(``select_strings``) over the packed-chars layout, which the port has not
-(ROADMAP A.5), so such an expression is tagged off the device with that
-reason; the host evaluates it. NaNvl waits for ROADMAP A.6.
+``coalesce``): numeric, boolean, date and string results. A string result
+selects rows with ``ops/strings.select_strings`` over dictionary codes or
+char slabs (two differing dictionaries merge into their union, a slab and
+a dictionary or two slab strides widen to one slab). NaNvl waits for
+ROADMAP A.6.
 """
 
 from __future__ import annotations
@@ -20,17 +20,13 @@ from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import (
     DType, common_type, torch_dtype,
 )
+from spark_rapids_tpu_torch.ops.strings import select_strings
 from spark_rapids_tpu_torch.sql.exprs.core import (
-    DevCol, DevValue, EvalContext, Expression,
+    DevCol, DevScalar, DevValue, EvalContext, Expression,
 )
 from spark_rapids_tpu_torch.sql.exprs.hostutil import (
     host_unary_values, rebuild_series,
 )
-
-_STRING_BRANCH = ("a string-valued branch needs the row-select string "
-                  "kernel over the packed-chars layout, not ported yet "
-                  "(ROADMAP A.5)")
-
 
 def _result_type(schema: Schema, exprs: List[Expression]) -> DType:
     out = exprs[0].dtype(schema)
@@ -81,15 +77,15 @@ class If(Expression):
         p, t, f = self.children
         return f"if({p!r}, {t!r}, {f!r})"
 
-    def device_supported(self, schema: Schema) -> Optional[str]:
-        if self.dtype(schema).is_string:
-            return _STRING_BRANCH
-        return None
-
     def eval_device(self, ctx: EvalContext) -> DevValue:
         pv = ctx.broadcast(self.children[0].eval_device(ctx))
         tv = self.children[1].eval_device(ctx)
         fv = self.children[2].eval_device(ctx)
+        if tv.dtype.is_string:
+            cond = pv.data & pv.validity
+            t, f = ctx.broadcast(tv), ctx.broadcast(fv)
+            return select_strings(cond, t, f, torch.where(
+                cond, t.validity, f.validity))
         dt = tv.dtype if tv.dtype == fv.dtype else common_type(tv.dtype,
                                                                fv.dtype)
         tdata, tval = _as_pair(ctx, tv, dt)
@@ -150,15 +146,20 @@ class CaseWhen(Expression):
             parts.append(f"ELSE {self._else()!r}")
         return " ".join(parts + ["END"])
 
-    def device_supported(self, schema: Schema) -> Optional[str]:
-        if any(v.dtype(schema).is_string for v in self._values()):
-            return _STRING_BRANCH
-        return None
-
     def eval_device(self, ctx: EvalContext) -> DevValue:
         evaluated = [(ctx.broadcast(p.eval_device(ctx)), v.eval_device(ctx))
                      for p, v in self._branches()]
         ev = self._else().eval_device(ctx) if self.has_else else None
+        if evaluated[0][1].dtype.is_string:
+            # the first TRUE branch wins: fold from the ELSE backwards
+            out = ctx.broadcast(ev if ev is not None else DevScalar(
+                dtypes.STRING, None, valid=False))
+            for p, v in reversed(evaluated):
+                hit = p.data & p.validity
+                v = ctx.broadcast(v)
+                out = select_strings(hit, v, out, torch.where(
+                    hit, v.validity, out.validity))
+            return out
         dt = evaluated[0][1].dtype
         for t in [v.dtype for _, v in evaluated[1:]] + (
                 [ev.dtype] if ev is not None else []):
@@ -219,8 +220,7 @@ class CaseWhen(Expression):
 
 class Coalesce(Expression):
     """coalesce(a, b, ...): the first non-NULL operand of each row, NULL
-    where all are. String operands need the row-select string kernel (as a
-    string-valued CASE WHEN does), so such a coalesce stays on the CPU."""
+    where all are."""
 
     def __init__(self, children: List[Expression]):
         super().__init__(children)
@@ -231,13 +231,16 @@ class Coalesce(Expression):
     def __repr__(self) -> str:
         return f"coalesce({', '.join(map(repr, self.children))})"
 
-    def device_supported(self, schema: Schema) -> Optional[str]:
-        if any(c.dtype(schema).is_string for c in self.children):
-            return _STRING_BRANCH
-        return None
-
     def eval_device(self, ctx: EvalContext) -> DevValue:
         evaluated = [c.eval_device(ctx) for c in self.children]
+        if evaluated[0].dtype.is_string:
+            # the first valid operand wins: fold from the last backwards
+            out = ctx.broadcast(evaluated[-1])
+            for v in reversed(evaluated[:-1]):
+                v = ctx.broadcast(v)
+                out = select_strings(v.validity, v, out,
+                                     v.validity | out.validity)
+            return out
         dt = evaluated[0].dtype
         for v in evaluated[1:]:
             if v.dtype != dt:

@@ -1,7 +1,9 @@
 """Date parts (counterpart of the JAX package's
-``sql/exprs/datetimeexprs.py``: ``civil_from_days``, ``days_from_micros``,
-``ExtractDatePart`` and ``Year``; the other date parts, date arithmetic and
-unix timestamps wait for ROADMAP A.6). UTC only, as the JAX package's.
+``sql/exprs/datetimeexprs.py``: ``civil_from_days``, ``days_from_civil``,
+``days_from_micros``, ``time_of_day_micros`` and the ``ExtractDatePart``
+family: year, month, dayofmonth, dayofweek, hour, minute, second,
+quarter, dayofyear and weekofyear; date arithmetic and unix timestamps
+wait for ROADMAP A.6). UTC only, as the JAX package's.
 
 Calendar math is Howard Hinnant's civil-from-days algorithm in integer
 arithmetic, one formula for numpy on the host and torch on the device
@@ -57,12 +59,32 @@ def civil_from_days(z):
     return y, m, d
 
 
+def days_from_civil(y, m, d):
+    """Inverse of civil_from_days (Hinnant's days_from_civil)."""
+    y = _int64(y) - _int64(m <= 2)
+    era = _where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    mp = _where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
 def days_from_micros(micros):
     return _int64(micros) // MICROS_PER_DAY
 
 
+def time_of_day_micros(micros):
+    """Microseconds since midnight, in [0, MICROS_PER_DAY) also before
+    1970 (floor division)."""
+    m = _int64(micros)
+    return m - (m // MICROS_PER_DAY) * MICROS_PER_DAY
+
+
 class ExtractDatePart(Expression):
-    """Base of the date parts: an INT32 from a DATE or TIMESTAMP input."""
+    """Base of the date parts: an INT32 from a DATE or TIMESTAMP input,
+    computed from the days since the epoch and the microseconds since
+    midnight (zero for a date)."""
     fname = "?"
 
     def __init__(self, child: Expression):
@@ -80,24 +102,27 @@ class ExtractDatePart(Expression):
             return f"{self.fname} requires a date or timestamp input, got {t}"
         return None
 
-    def compute_from_days(self, days):
+    def compute_from_parts(self, days, tod):
         raise NotImplementedError
 
     @staticmethod
-    def _days(data, src: DType):
-        return _int64(data) if src == dtypes.DATE32 \
-            else days_from_micros(data)
+    def _split(data, src: DType):
+        """(days since the epoch, microseconds since midnight)."""
+        if src == dtypes.DATE32:
+            days = _int64(data)
+            return days, days * 0
+        return days_from_micros(data), time_of_day_micros(data)
 
     def eval_device(self, ctx: EvalContext) -> DevValue:
         v = ctx.broadcast(self.children[0].eval_device(ctx))
-        out = self.compute_from_days(self._days(v.data, v.dtype))
+        out = self.compute_from_parts(*self._split(v.data, v.dtype))
         return DevCol(dtypes.INT32, out.to(torch.int32), v.validity)
 
     def eval_host(self, df: pd.DataFrame) -> pd.Series:
         s = self.children[0].eval_host(df)
         values, validity, index = host_unary_values(s)
-        out = self.compute_from_days(self._days(values,
-                                                _pandas_col_dtype(s)))
+        out = self.compute_from_parts(*self._split(values,
+                                                   _pandas_col_dtype(s)))
         return rebuild_series(np.asarray(out).astype(np.int32), validity,
                               dtypes.INT32, index)
 
@@ -105,5 +130,77 @@ class ExtractDatePart(Expression):
 class Year(ExtractDatePart):
     fname = "year"
 
-    def compute_from_days(self, days):
+    def compute_from_parts(self, days, tod):
         return civil_from_days(days)[0]
+
+
+class Month(ExtractDatePart):
+    fname = "month"
+
+    def compute_from_parts(self, days, tod):
+        return civil_from_days(days)[1]
+
+
+class DayOfMonth(ExtractDatePart):
+    fname = "dayofmonth"
+
+    def compute_from_parts(self, days, tod):
+        return civil_from_days(days)[2]
+
+
+class DayOfWeek(ExtractDatePart):
+    """Spark: 1 = Sunday ... 7 = Saturday. Epoch day 0 was a Thursday."""
+    fname = "dayofweek"
+
+    def compute_from_parts(self, days, tod):
+        return (days + 4) % 7 + 1
+
+
+class Hour(ExtractDatePart):
+    fname = "hour"
+
+    def compute_from_parts(self, days, tod):
+        return tod // (3600 * MICROS_PER_SEC)
+
+
+class Minute(ExtractDatePart):
+    fname = "minute"
+
+    def compute_from_parts(self, days, tod):
+        return (tod // (60 * MICROS_PER_SEC)) % 60
+
+
+class Second(ExtractDatePart):
+    fname = "second"
+
+    def compute_from_parts(self, days, tod):
+        return (tod // MICROS_PER_SEC) % 60
+
+
+class Quarter(ExtractDatePart):
+    fname = "quarter"
+
+    def compute_from_parts(self, days, tod):
+        return (civil_from_days(days)[1] - 1) // 3 + 1
+
+
+def _jan1(y):
+    return days_from_civil(y, y * 0 + 1, y * 0 + 1)
+
+
+class DayOfYear(ExtractDatePart):
+    fname = "dayofyear"
+
+    def compute_from_parts(self, days, tod):
+        return days - _jan1(civil_from_days(days)[0]) + 1
+
+
+class WeekOfYear(ExtractDatePart):
+    """ISO-8601 week number (Spark's weekofyear): the Thursday of the
+    row's week decides the year."""
+    fname = "weekofyear"
+
+    def compute_from_parts(self, days, tod):
+        dow = (days + 3) % 7            # 0 = Monday ... 6 = Sunday
+        thursday = days + (3 - dow)
+        return (thursday - _jan1(civil_from_days(thursday)[0])) // 7 + 1

@@ -48,6 +48,13 @@ def rebuild_series(data: np.ndarray, validity: np.ndarray, dt: DType,
             data = np.where(validity, data,
                             np.asarray(dtypes.null_fill_value(dt),
                                        dtype=data.dtype))
-    s = _numpy_to_pandas(data, validity, dt)
+    if dt.is_floating and not validity.all():
+        # from the buffer and the mask: a NaN VALUE stays a value for the
+        # expressions above (_numpy_to_pandas, as the JAX package's, reads
+        # NaN as missing in a column that holds NULLs)
+        s = pd.Series(pd.arrays.FloatingArray(
+            np.asarray(data, dtype=dt.np_dtype), ~validity))
+    else:
+        s = _numpy_to_pandas(data, validity, dt)
     s.index = index
     return s

@@ -2,9 +2,11 @@
 of the JAX package's ``sql/functions.py``, cut to what the 22 TPC-H and
 19 TPCxBB queries need: arithmetic, comparisons, AND/OR/NOT, ``isin``,
 ``isNull``/``isNotNull``, ``cast``, the string predicates and
-``substring``, ``when``/``otherwise``, ``coalesce``, ``year``, ``round``,
-``bround``, ``pmod`` and the aggregates, ``count_distinct``, the
-variances and ``corr`` among them)."""
+``substring``, ``when``/``otherwise``, ``coalesce``, the date parts,
+``to_date``, ``round``, ``bround``, ``floor``, ``ceil``, ``pmod``,
+``hash``, ``hex``, the aggregates, ``count_distinct``, the variances and
+``corr`` among them, and the window functions with ``Column.over``, which
+the Mortgage queries add)."""
 
 from __future__ import annotations
 
@@ -76,6 +78,12 @@ class Column:
     # ordering
     def asc(self): return SortOrder(self.expr, ascending=True)
     def desc(self): return SortOrder(self.expr, ascending=False)
+
+    def over(self, spec) -> "Column":
+        """Turn an aggregate or ranking function into a window expression
+        (reference: GpuWindowExpression)."""
+        from spark_rapids_tpu_torch.sql.window import WindowExpression
+        return Column(WindowExpression(self.expr, spec))
 
     def __hash__(self):
         return id(self.expr)
@@ -186,6 +194,21 @@ def substring(c, pos: int, length_: int) -> Column:
 
 
 def year(c) -> Column: return Column(dt.Year(_c(c)))
+def month(c) -> Column: return Column(dt.Month(_c(c)))
+def dayofmonth(c) -> Column: return Column(dt.DayOfMonth(_c(c)))
+def dayofweek(c) -> Column: return Column(dt.DayOfWeek(_c(c)))
+def hour(c) -> Column: return Column(dt.Hour(_c(c)))
+def minute(c) -> Column: return Column(dt.Minute(_c(c)))
+def second(c) -> Column: return Column(dt.Second(_c(c)))
+def quarter(c) -> Column: return Column(dt.Quarter(_c(c)))
+def dayofyear(c) -> Column: return Column(dt.DayOfYear(_c(c)))
+def weekofyear(c) -> Column: return Column(dt.WeekOfYear(_c(c)))
+
+
+def to_date(c) -> Column:
+    """to_date(timestamp): the day (a cast to date; string parsing is
+    ROADMAP A.5's)."""
+    return Column(Cast(_c(c), dtypes.DATE32))
 
 
 def coalesce(*cs) -> Column: return Column(cond.Coalesce([_c(c) for c in cs]))
@@ -198,4 +221,45 @@ def round(c, scale: int = 0) -> Column:  # noqa: A001
 
 def bround(c, scale: int = 0) -> Column:
     return Column(m.BRound(_c(c), scale))
+
+
+def floor(c) -> Column: return Column(m.Floor(_c(c)))
+def ceil(c) -> Column: return Column(m.Ceil(_c(c)))
+
+
+def hash(*cs) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.sql.exprs.miscexprs import Hash
+    return Column(Hash([_c(c) for c in cs]))
+
+
+def hex(c) -> Column:  # noqa: A001
+    from spark_rapids_tpu_torch.sql.exprs.miscexprs import Hex
+    return Column(Hex(_c(c)))
+
+
+# --- window functions ---------------------------------------------------------
+
+def row_number() -> Column:
+    from spark_rapids_tpu_torch.sql.window import RowNumber
+    return Column(RowNumber())
+
+
+def rank() -> Column:
+    from spark_rapids_tpu_torch.sql.window import Rank
+    return Column(Rank())
+
+
+def dense_rank() -> Column:
+    from spark_rapids_tpu_torch.sql.window import DenseRank
+    return Column(DenseRank())
+
+
+def lead(c, offset: int = 1, default=None) -> Column:
+    from spark_rapids_tpu_torch.sql.window import LeadLag
+    return Column(LeadLag(_c(c), offset, default, is_lead=True))
+
+
+def lag(c, offset: int = 1, default=None) -> Column:
+    from spark_rapids_tpu_torch.sql.window import LeadLag
+    return Column(LeadLag(_c(c), offset, default, is_lead=False))
 

@@ -19,8 +19,9 @@ package and the reference, and the cartesian product's is on (the JAX
 package's deviation from the reference: TPC-H's scalar-subquery cross
 joins would otherwise leave the device twice). After tagging, the
 join-hash consistency fixup keeps a shuffled join and the exchanges
-feeding it on the same side. The window, generate and write rules wait
-for later slices.
+feeding it on the same side. The window rule tags each window column by
+``exec/windowexec.resolve_descriptor`` and its expressions; the generate
+and write rules wait for later slices.
 """
 
 from __future__ import annotations
@@ -211,6 +212,27 @@ def _tag_expand(meta: ExecMeta) -> None:
         meta.check_exprs([e for _, e in proj], "expand projection")
 
 
+def _tag_window(meta: ExecMeta) -> None:
+    from spark_rapids_tpu_torch.exec.windowexec import resolve_descriptor
+    cs = meta.plan.children[0].output_schema()
+    for name, w in meta.plan.window_exprs:
+        _, vexpr, err = resolve_descriptor(w, cs)
+        if err:
+            meta.will_not_work(f"window column {name}: {err}")
+            continue
+        for e in (w.spec.partition_cols
+                  + [o.expr for o in w.spec.orders]
+                  + ([vexpr] if vexpr is not None else [])):
+            reason = first_unsupported(e, cs)
+            if reason:
+                meta.will_not_work(f"window column {name}: {reason}")
+
+
+def _convert_window(meta: ExecMeta, children) -> PhysicalPlan:
+    from spark_rapids_tpu_torch.exec.windowexec import TpuWindowExec
+    return TpuWindowExec(children[0], meta.plan.window_exprs)
+
+
 _RULES: Dict[Type[PhysicalPlan], ExecRule] = {}
 
 
@@ -277,6 +299,16 @@ _register(ExecRule(cpu.CpuRangeExec, "device range source", _tag_nothing,
                    lambda m, ch: tpu.TpuRangeExec(
                        m.plan.start, m.plan.end, m.plan.step,
                        m.plan.num_partitions, m.plan.col_name)))
+
+
+
+def _register_window_rule() -> None:
+    from spark_rapids_tpu_torch.exec.windowexec import CpuWindowExec
+    _register(ExecRule(CpuWindowExec, "windowed computation", _tag_window,
+                       _convert_window))
+
+
+_register_window_rule()
 
 
 def _fixup_join_hash_consistency(meta: ExecMeta) -> None:

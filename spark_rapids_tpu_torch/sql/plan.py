@@ -1,7 +1,7 @@
 """Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
 holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
-Sort, Limit, Repartition, Coalesce, Union, Expand and the join: equi,
-cross or on a condition; windows, generators and writes wait for later
+Sort, Limit, Repartition, Coalesce, Union, Expand, Window and the join:
+equi, cross or on a condition; generators and writes wait for later
 slices).
 
 The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
@@ -148,6 +148,31 @@ class LogicalCoalesce(LogicalPlan):
 class LogicalUnion(LogicalPlan):
     def schema(self) -> Schema:
         return self.children[0].schema()
+
+
+class LogicalWindow(LogicalPlan):
+    """Appends window-computed columns to the child's output (Spark's
+    WindowExec shape; reference: GpuWindowExec)."""
+
+    def __init__(self, child: LogicalPlan, window_exprs):
+        super().__init__([child])
+        self.window_exprs = list(window_exprs)  # [(name, WindowExpression)]
+
+    def schema(self) -> Schema:
+        cs = self.children[0].schema()
+        return Schema(
+            list(cs.names) + [n for n, _ in self.window_exprs],
+            list(cs.dtypes) + [w.dtype(cs) for _, w in self.window_exprs])
+
+    def expressions(self) -> List[Expression]:
+        """Every expression the windows read: functions, partition keys
+        and order keys."""
+        out: List[Expression] = []
+        for _, w in self.window_exprs:
+            out.append(w.fn)
+            out.extend(w.spec.partition_cols)
+            out.extend(o.expr for o in w.spec.orders)
+        return out
 
 
 class LogicalExpand(LogicalPlan):

@@ -8,11 +8,12 @@ equi-joins into a broadcast hash join (the build side under
 ``autoBroadcastJoinThreshold``) or hash exchanges on both sides and a
 shuffled join; a cross join into a single-partition exchange on both
 sides and a cartesian product; a condition join into a broadcast
-nested-loop join (the right side broadcast). The device rewrite
-(``sql/overrides.py``) then tags and converts this CPU plan node by node.
-Windows, generators and writes wait for later slices, as does the JAX
-package's small-query fast path (the port's exchange collapse makes no
-sync for it to save).
+nested-loop join (the right side broadcast); a window into an exchange on
+its partition keys (hash where they are plain columns, else single) and a
+window operator. The device rewrite (``sql/overrides.py``) then tags and
+converts this CPU plan node by node. Generators and writes wait for later
+slices, as does the JAX package's small-query fast path (the port's
+exchange collapse makes no sync for it to save).
 """
 
 from __future__ import annotations
@@ -153,6 +154,34 @@ class Planner:
         left = cpu.CpuShuffleExchangeExec(left, ("hash", lidx, n))
         right = cpu.CpuShuffleExchangeExec(right, ("hash", ridx, n))
         return cpu.CpuJoinExec(left, right, jt, lidx, ridx)
+
+    def _plan_LogicalWindow(self, node: lp.LogicalWindow) -> PhysicalPlan:
+        from spark_rapids_tpu_torch.exec.windowexec import CpuWindowExec
+        from spark_rapids_tpu_torch.sql.window import (
+            WindowExpression, WindowSpec,
+        )
+        child = self.plan(node.children[0])
+        cs = child.output_schema()
+        bound = []
+        for name, w in node.window_exprs:
+            spec = WindowSpec(
+                [bind_references(e, cs) for e in w.spec.partition_cols],
+                [SortOrder(bind_references(o.expr, cs), o.ascending,
+                           o.nulls_first) for o in w.spec.orders],
+                w.spec.frame)
+            fn = w.fn.map_children(lambda c: bind_references(c, cs))
+            bound.append((name, WindowExpression(fn, spec)))
+        # whole partition groups go to one task: a hash exchange on the
+        # partition keys where they are plain columns, else single
+        spec0 = bound[0][1].spec
+        pidx = [e.index for e in spec0.partition_cols
+                if isinstance(e, BoundRef)]
+        if spec0.partition_cols and len(pidx) == len(spec0.partition_cols):
+            child = cpu.CpuShuffleExchangeExec(
+                child, ("hash", pidx, self.conf.shuffle_partitions))
+        else:
+            child = cpu.CpuShuffleExchangeExec(child, ("single",))
+        return CpuWindowExec(child, bound)
 
     def _plan_LogicalUnion(self, node: lp.LogicalUnion) -> PhysicalPlan:
         return cpu.CpuUnionExec([self.plan(c) for c in node.children])

@@ -114,6 +114,14 @@ def prune_filter_columns(root):
                    & set(node.schema().names))
             return lp.LogicalSort(rewrite(node.children[0], req),
                                   node.orders, node.is_global)
+        if isinstance(node, lp.LogicalWindow):
+            cnames = set(node.children[0].schema().names)
+            req = (None if required is None else
+                   (required | _cols_of(*node.expressions())) & cnames)
+            child = rewrite(node.children[0], req)
+            if req is not None:
+                child = _narrow(child, req)
+            return _with_children(node, [child])
         if isinstance(node, (lp.LogicalLimit, lp.LogicalRepartition,
                              lp.LogicalCoalesce)):
             return _with_children(
@@ -158,6 +166,8 @@ def required_scan_columns(root) -> Optional[set]:
         out.extend(o.expr for o in getattr(node, "orders", ()) or ())
         for proj in getattr(node, "projections", ()) or ():
             out.extend(e for _n, e in proj)
+        if isinstance(node, lp.LogicalWindow):
+            out.extend(node.expressions())
         return out
 
     def forwards_scan(node) -> bool:

@@ -11,7 +11,10 @@ group-by), and the 14 queries of the expression and cross-join slice at
 the same confs (``TPCH_NEW``: Q2, Q5, Q7, Q8, Q9, Q11, Q12, Q13, Q14, Q15,
 Q16, Q19, Q20 and Q22 at SF10, Q20's and Q22's frames changed as
 ``testing/tpchcases.py`` changes them, the scan cache cleared after each;
-``session_q9_parquet``: Q9 from SF1 files).
+``session_q9_parquet``: Q9 from SF1 files), the four Mortgage queries at
+SF 500 at the same confs in 2^20-row batches (``MORTGAGE``), and the
+window stage over 2^23 rows (``WINDOW``: ``testing/windowcases.py``'s
+row_number, cumulative_sum and bounded_range_frame cases).
 
 For each query: upload its columns (or, for a ``*_parquet`` query, nothing:
 the scan is part of the profiled run; a session query uploads into its
@@ -69,6 +72,14 @@ DEFAULT_CONFS = ("session_q3_default", "session_q10", "session_q17",
 TPCH_NEW = tuple(f"session_{q}" for q in (
     "q2", "q5", "q7", "q8", "q9", "q11", "q12", "q13", "q14", "q15", "q16",
     "q19", "q20", "q22")) + ("session_q9_parquet",)
+# the Mortgage queries at SF 500 and the window stage over 2^23 rows
+MORTGAGE = tuple(f"session_mortgage_{q}" for q in (
+    "etl", "simple_aggregates", "aggregates_with_join",
+    "aggregates_with_percentiles"))
+WINDOW = tuple(f"session_window_{c}" for c in (
+    "row_number", "cumulative_sum", "bounded_range_frame"))
+ALL = UPLOAD + PARQUET + SESSION + DEFAULT_CONFS + TPCH_NEW + MORTGAGE \
+    + WINDOW
 
 
 def _device_us(evt) -> float:
@@ -150,8 +161,7 @@ def _parquet_files(G, tag: str, sf: float, frames: dict, tables=None):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", nargs="+",
-                    choices=UPLOAD + PARQUET + SESSION + DEFAULT_CONFS
-                    + TPCH_NEW,
+                    choices=ALL,
                     help="profile these queries alone (default: all)")
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--tag", default="", help="suffix of the output names")
@@ -173,8 +183,7 @@ def main() -> None:
     from spark_rapids_tpu_torch.models.tpch_data import (
         gen_customer, gen_lineitem, gen_orders,
     )
-    want = set(args.queries
-               or UPLOAD + PARQUET + SESSION + DEFAULT_CONFS + TPCH_NEW)
+    want = set(args.queries or ALL)
     tag = args.tag
     out_dir = "chiprun_out"
     os.makedirs(out_dir, exist_ok=True)
@@ -187,7 +196,7 @@ def main() -> None:
     q18 = {"q18_groupby", "q18_groupby_parquet",
            "session_q18_groupby_parquet", "session_q18_groupby_default",
            "session_q9_parquet"}
-    sf10 = want - q18
+    sf10 = want - q18 - set(MORTGAGE) - set(WINDOW)
     if sf10:
         df = gen_lineitem(10)
         for name, cols, query in (("q1", Q.Q1_COLUMNS, Q.q1_from_batches),
@@ -309,6 +318,30 @@ def main() -> None:
             run("session_q9_parquet", T.q9(
                 sess, {n: sess.read.parquet(p)
                        for n, p in paths.items()}).collect)
+    if want & set(MORTGAGE):
+        from spark_rapids_tpu_torch.models import mortgage as M
+        from spark_rapids_tpu_torch.models import mortgage_data as MD
+        perf, acq = MD.gen_performance(500), MD.gen_acquisition(500)
+        sess = session(1 << 20, dict(M.ETL_CONFS, **{
+            "spark.rapids.sql.cacheDeviceScans": True}), hash_agg=False)
+        p, a = sess.create_dataframe(perf), sess.create_dataframe(acq)
+        for name in MORTGAGE:
+            run(name, M.run_query(name.removeprefix("session_mortgage_"),
+                                  sess, p, a).collect)
+        del sess, p, a, perf, acq
+        torch.cuda.empty_cache()
+    if want & set(WINDOW):
+        from spark_rapids_tpu_torch.sql import functions as F
+        from spark_rapids_tpu_torch.sql.window import Window
+        from spark_rapids_tpu_torch.testing import windowcases as WC
+        sess = session(1 << 23, {"spark.rapids.sql.cacheDeviceScans": True},
+                       hash_agg=False)
+        for name in WINDOW:
+            extra, query, _approx = WC.CASES[name.removeprefix(
+                "session_window_")]
+            d = sess.create_dataframe(WC.frame(extra, n=1 << 23))
+            run(name, query(F, Window, d).collect_batches)
+        del sess
     for r in results:
         print(json.dumps(r))
     card = subprocess.run(

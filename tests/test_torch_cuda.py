@@ -1156,3 +1156,104 @@ def test_tpcxbb_queries_on_the_card(cuda_device, tpcxbb_frames, qname):
     tpcxbbcases.same_answer(qname, got, cpu)
     tpcxbbcases.same_answer(qname, got,
                             tpcxbbcases.pandas_reference(qname, fr))
+
+
+def _window_cases():
+    from spark_rapids_tpu_torch.testing import windowcases
+    return sorted(windowcases.CASES)
+
+
+def _frames_match(got, want, approx):
+    """Rows as a set: sorted on every non-float column, floats at rtol
+    1e-6 where ``approx`` (a float sum frame's last bits follow the order
+    of the adds), else exact."""
+    keys = [c for c in want.columns
+            if not pd.api.types.is_float_dtype(want[c].dtype)]
+    assert list(got.columns) == list(want.columns) and len(got) == len(want)
+    g = got.astype({c: str for c in keys}).sort_values(
+        keys, kind="stable").reset_index(drop=True)
+    w = want.astype({c: str for c in keys}).sort_values(
+        keys, kind="stable").reset_index(drop=True)
+    for c in want.columns:
+        if c in keys:
+            assert list(g[c]) == list(w[c]), c
+        else:
+            np.testing.assert_allclose(
+                g[c].astype("Float64").to_numpy(np.float64, na_value=np.nan),
+                w[c].astype("Float64").to_numpy(np.float64, na_value=np.nan),
+                rtol=1e-6 if approx else 1e-12, equal_nan=True, err_msg=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _window_cases())
+def test_window_cases_on_the_card(cuda_device, name):
+    """Every window descriptor kind (ranking, lead/lag with and without
+    defaults over numbers and strings, count/sum/avg/min/max over whole,
+    cumulative, ROW and RANGE frames, string min/max, slab, dictionary
+    and NULL partition keys) on 20,000 rows: the card's answer equals the
+    CPU session's (``device="cpu"``)."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.sql.window import Window
+    from spark_rapids_tpu_torch.testing import windowcases
+    extra, query, approx = windowcases.CASES[name]
+    df = windowcases.frame(extra, n=20_000)
+    got, want = _card_and_cpu(lambda s: query(F, Window,
+                                              s.create_dataframe(df)))
+    _frames_match(got, want, approx)
+
+
+@pytest.mark.cuda
+def test_hash_and_string_select_on_the_card(cuda_device):
+    """hash() over a slab, a dictionary and numbers, and the string
+    if/CASE WHEN/coalesce over two dictionaries, a slab against a
+    dictionary and two strides: the card equals the CPU session."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    rng = np.random.default_rng(8)
+    n = 50_000
+    d = pd.DataFrame({
+        "x": rng.integers(-3, 5, n),
+        "f": rng.normal(0, 2, n),
+        "d1": np.asarray(["a", "bb", None, ""], dtype=object)[
+            rng.integers(0, 4, n)],
+        "d2": np.asarray(["x", "yy", "a"], dtype=object)[
+            rng.integers(0, 3, n)],
+        "s1": np.asarray([f"k{i:05d}" for i in range(20_000)] + [None],
+                         dtype=object)[rng.integers(0, 20_001, n)],
+        "s2": np.asarray([f"long-{i}-" + "z" * (i % 40)
+                          for i in range(20_000)], dtype=object)[
+            rng.integers(0, 20_000, n)],
+    })
+
+    def query(s):
+        return s.create_dataframe(d).select(
+            F.hash("s1").alias("h1"), F.hash("d1").alias("h2"),
+            F.hash("x", "f", "s2", "d2").alias("h3"),
+            F.when(F.col("x") > 0, F.col("d1")).otherwise(F.col("d2"))
+            .alias("c1"),
+            F.when(F.col("x") > 2, F.col("s1")).when(F.col("x") > 0,
+                                                     F.col("d1"))
+            .alias("c2"),
+            F.coalesce("s1", "s2").alias("c3"),
+            F.coalesce("d1", "s1", F.lit("z")).alias("c4"))
+    got, want = _card_and_cpu(query)
+    for c in want.columns:
+        assert list(got[c].astype(object).where(got[c].notna(), None)) == \
+            list(want[c].astype(object).where(want[c].notna(), None)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["aggregates_with_percentiles", "etl"])
+def test_mortgage_query_on_the_card(cuda_device, name):
+    """A Mortgage query at SF 1 through the session in test mode equals
+    pandas (``testing/mortgagecases.py``)."""
+    from spark_rapids_tpu_torch.models import mortgage
+    from spark_rapids_tpu_torch.models import mortgage_data as D
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.testing import mortgagecases
+    perf, acq = D.gen_performance(1.0), D.gen_acquisition(1.0)
+    s = (TpuSparkSession.builder().config("spark.rapids.sql.test.enabled",
+                                          True).get_or_create())
+    got = mortgage.run_query(name, s, s.create_dataframe(perf),
+                             s.create_dataframe(acq)).collect()
+    mortgagecases.same_answer(
+        name, got, mortgagecases.pandas_reference(name, perf, acq))

@@ -297,22 +297,24 @@ def test_using_join_matches_reference(session, how):
 
 
 def test_unported_joins_raise(session):
-    """The full outer USING join still needs Coalesce (ROADMAP A.6) and
-    raises; the cross join and the condition join it pinned as raising
-    before they were ported now give the JAX package's rows."""
+    """The joins this test pinned as raising before they were ported (the
+    cross join, the condition join and, with a string-capable Coalesce on
+    the device, the full outer USING join) now give the JAX package's
+    rows."""
     s = _port_session()
     a_df = pd.DataFrame({"k": [1, 2], "x": [3, 4]})
     b_df = pd.DataFrame({"k2": [2, 3], "y": [5, 3]})
     a, b = s.create_dataframe(a_df), s.create_dataframe(b_df)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        a.join(s.create_dataframe(b_df.rename(columns={"k2": "k"})),
-               on="k", how="full")
+    bk = b_df.rename(columns={"k2": "k"})
     for got, ref in ((a.join(b), lambda rs: rs.create_dataframe(a_df).join(
                           rs.create_dataframe(b_df))),
                      (a.join(b, on=F.col("x") < F.col("y")),
                       lambda rs: rs.create_dataframe(a_df).join(
                           rs.create_dataframe(b_df),
-                          on=RF.col("x") < RF.col("y")))):
+                          on=RF.col("x") < RF.col("y"))),
+                     (a.join(s.create_dataframe(bk), on="k", how="full"),
+                      lambda rs: rs.create_dataframe(a_df).join(
+                          rs.create_dataframe(bk), on="k", how="full"))):
         want = with_cpu_session(ref)
         assert _rows(got.collect()) == _rows(want)
         assert len(want) > 0

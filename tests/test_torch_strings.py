@@ -9,9 +9,9 @@ slab's stride. Every case runs in one projection through the port's
 session (``device="cpu"``: the device operators' torch code), through its
 CPU operators (``spark.rapids.sql.enabled=false``) and through the JAX
 package's session in test mode. Results are exact, nulls included.
-A LIKE with ``_`` or an interior ``%`` and a string-valued CASE WHEN are
-tagged off the device with their reasons (test mode raises), and give
-the JAX package's answer on the CPU.
+A LIKE with ``_`` or an interior ``%`` is tagged off the device with its
+reason (test mode raises), and gives the JAX package's answer on the CPU;
+a string-valued CASE WHEN runs on the device.
 """
 
 import numpy as np
@@ -136,21 +136,23 @@ def test_general_like_stays_on_cpu(pattern, frame):
 
 
 def test_string_case_when_stays_on_cpu(frame):
-    """A string-valued CASE WHEN is tagged off the device with a reason
-    naming ROADMAP A.5, never tagged device-capable and raised at run
-    time; the host evaluates it."""
-    s = (TpuSparkSession.builder().device("cpu")
-         .config("spark.rapids.sql.test.enabled", True).get_or_create())
-
+    """A string-valued CASE WHEN, tagged off the device before the
+    row-select string kernel was ported (``ops/strings.select_strings``),
+    now runs on the device in test mode, over a char slab and a literal's
+    one-value dictionary, and gives the JAX package's values; so do the
+    CPU operators."""
     def q(M, sess):
         return sess.create_dataframe(frame).select(
             M.col("id"), M.when(M.col("x") > 4, M.col("s"))
             .otherwise(M.lit("none")).alias("r"))
-    df = q(F, s)
-    assert "ROADMAP A.5" in df.explain()
-    with pytest.raises(AssertionError, match="A.5"):
-        df.collect()
-    s.set_conf("spark.rapids.sql.test.enabled", False)
-    got = df.collect()
     want = with_tpu_session(lambda rs: q(RF, rs))
-    assert _values(got.r) == _values(want.r)
+    for conf in ({"spark.rapids.sql.test.enabled": True},
+                 {"spark.rapids.sql.enabled": False}):
+        b = TpuSparkSession.builder().device("cpu")
+        for k, v in conf.items():
+            b.config(k, v)
+        df = q(F, b.get_or_create())
+        assert "ROADMAP A.5" not in df.explain()
+        got = df.collect()
+        assert list(got.id) == list(want.id)
+        assert _values(got.r) == _values(want.r)
