@@ -20,13 +20,14 @@ port's main path through its query runners:
     rest none); Q3 both with two shuffled joins (every SF10 table is above
     ``autoBroadcastJoinThreshold``) and with the threshold at the orders
     frame's estimate, so that its first join broadcasts;
-  * the device Parquet scan: the same rows written as Parquet files with
+  * the device Parquet scan: SF1 lineitem, orders and customer rows and
+    the SF10 customer rows written as Parquet files with
     ``models/tpch_data.PARQUET_SPEC`` into the ignored
-    ``spark_rapids_tpu_torch/build/tpch_parquet/``, then Q1, Q6, Q3 and Q4
-    at SF10, the Q18 group-by at SF1 and a customer filter-and-collect at
-    SF10 (every column, strings included) read from those files, with zero
-    columns falling back to the host decode, checked against the same
-    pandas references; then Q1, Q6, Q3, Q4, the customer collect and the
+    ``spark_rapids_tpu_torch/build/tpch_parquet/``, then Q1, Q6, Q3, Q4
+    and the Q18 group-by at SF1 and a customer filter-and-collect at SF10
+    (every column, strings included) read from those files, with zero
+    columns falling back to the host decode, checked against pandas from
+    the same rows; then Q1, Q6, Q3, Q4, the customer collect and the
     Q18 group-by at SF1 through the session's ``read.parquet`` (no scan
     cache: every run decodes the files on the card, B5-B8 launched
     through the session), equal to pandas (the Q18 group-by also to its
@@ -47,6 +48,12 @@ port's main path through its query runners:
     expanded 12 times) and the other three at SF 500, each against its
     pandas reference (``testing/mortgagecases.py``), with its peak device
     memory, join routes and launches;
+  * the memory phase (``memory_phase``): under a 2 GiB metered budget,
+    Q1 at SF10 spilled device -> host -> disk and faulted back, the
+    grace join on Q3 and on Mortgage ``aggregates_with_join``, the
+    spillable aggregate on the Q18 group-by at SF10 and an external sort
+    of 60M rows, each equal to pandas (the sort to a numpy lexsort) and
+    to its in-budget run, every wait counted;
   * the window cases of ``testing/windowcases.py`` over 2^23 rows through
     the session on the card, every output column held against the CPU
     session's (``device="cpu"``), which a child process of this script
@@ -2074,7 +2081,8 @@ def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
     plus the dense, row-space and oversized-concat ones
     ``run_session_cell`` counts. Peak device memory, the
     join routes and the launches by kernel are read per query; the phase
-    must launch B1."""
+    must launch B1. Returns the frames at ``sf`` and the answer of
+    ``aggregates_with_join`` (the memory phase reuses both)."""
     from spark_rapids_tpu_torch.config import conf as CONF
     from spark_rapids_tpu_torch.models import mortgage as M
     from spark_rapids_tpu_torch.models import mortgage_data as MD
@@ -2094,6 +2102,7 @@ def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
             f"acquisition {len(tables[x][1])} rows, "
             f"{report['mortgage_gen_s'][str(x)]:.1f} s")
     totals = {}
+    answers = {}
     for name in M.QUERIES:
         qsf = sf_etl if name == "etl" else sf
         perf, acq = tables[qsf]
@@ -2121,12 +2130,449 @@ def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
         for k, v in rec["launches"].items():
             totals[k] = totals.get(k, 0) + v
         queries[f"session_mortgage_{name}"] = rec
+        if name == "aggregates_with_join":
+            answers[name] = out
         del out, want, qdf, sess
         torch.cuda.empty_cache()
     report["mortgage_launches"] = totals
     log(f"Mortgage launches: {totals}")
     require(totals.get("compact_permutation", 0) > 0,
             "Mortgage: B1 never ran")
+    return tables[sf], answers
+
+
+# the memory phase: a 2 GiB metered budget (allocFraction from the card's
+# memory), out-of-core buckets of 256 MiB (6 MiB for Mortgage
+# aggregates_with_join, whose join inputs are group-by outputs of about 1M
+# rows: at 32 MiB its join split 2 ways, at 6 MiB 8 ways), a 512 MiB host
+# tier so the larger spills reach disk, B2 tables of at most 2^20 slots
+MEMORY_BUDGET = 2 << 30
+MEMORY_PARTITION = 256 << 20
+MEMORY_PARTITION_MORTGAGE = 6 << 20
+MEMORY_HOST = 512 << 20
+MEMORY_SLOTS = 1 << 20
+MEMORY_SPILL_DIR = os.path.join("spark_rapids_tpu_torch", "build", "spill")
+# allocator rounding and the kernels' persistent scratch (B1's tickets)
+MEMORY_SLACK = 64 << 20
+
+
+def _memory_counters() -> dict:
+    """The spill, fault-back and out-of-core counters, flat."""
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    out = {}
+    for d in ("device_to_host", "host_to_disk"):
+        out[f"spill_events_{d}"] = REGISTRY.value("spill.events",
+                                                  direction=d)
+        out[f"spill_bytes_{d}"] = REGISTRY.value("spill.bytes", direction=d)
+    for t in ("host", "disk"):
+        out[f"fault_backs_{t}"] = REGISTRY.value("spill.faultBacks", tier=t)
+    for op in ("join", "aggregate", "sort", "hashAggSplit"):
+        out[f"ooc_{op}"] = REGISTRY.value("ooc.operators", op=op)
+    out["clean_drops"] = REGISTRY.value("spill.cleanDrops")
+    for k in ("device_to_host", "host_to_disk", "fault_back_host",
+              "fault_back_disk"):
+        out[f"time_{k}_s"] = REGISTRY.value(f"spill.time.{k}")
+    return out
+
+
+def _counters_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in _memory_counters().items()}
+
+
+def memory_session(batch_rows: int, partition_bytes: int, **conf):
+    """A session of the memory phase: ``session_of``'s test mode and
+    cached uploads, with the phase's budget, host tier and spill
+    directory, and out-of-core on at ``partition_bytes``."""
+    total = torch.cuda.mem_get_info(0)[1]
+    return session_of(batch_rows, **dict({
+        "spark.rapids.memory.tpu.allocFraction": MEMORY_BUDGET / total,
+        "spark.rapids.memory.host.spillStorageSize": MEMORY_HOST,
+        "spark.rapids.memory.spill.diskDir": MEMORY_SPILL_DIR,
+        "spark.rapids.tpu.outOfCore.enabled": True,
+        "spark.rapids.tpu.outOfCore.partitionBytes": partition_bytes,
+        "spark.rapids.sql.agg.hashAggEnabled": True,
+        "spark.rapids.sql.agg.hash.maxTableSlots": MEMORY_SLOTS}, **conf))
+
+
+def _measured_run(sess, query) -> tuple:
+    """One run of ``query`` up to its collect under the sync debug mode
+    "error" (only counted waits pass; the counts by site), then its fetch
+    to pandas, with the launch counts, the spill and out-of-core
+    counters, the metered peak and the allocator's peak read around it.
+    Returns (answer, record)."""
+    import pandas as pd
+
+    from spark_rapids_tpu_torch.exec import outofcore as OOC
+    from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    from spark_rapids_tpu_torch.ops import kernels as K
+    dm = sess.device_manager
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dm.reset_per_device_peaks()
+    before = _memory_counters()
+    syncs = dict(SYNCS.syncs)
+    r0 = len(OOC.RECORDS)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        parts = query.collect_batches()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    to_collect = time.perf_counter() - t0
+    out = concat_host_frames([p if isinstance(p, pd.DataFrame) else
+                              p.to_pandas() for p in parts], query.schema)
+    del parts
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_site = {k: v - syncs.get(k, 0) for k, v in SYNCS.syncs.items()
+               if v - syncs.get(k, 0)}
+    # the collect's own fetches are counted too; only the waits up to it
+    # are the query's
+    fetch = by_site.pop("batch.rowCount", 0) + by_site.pop("batch.fetch", 0)
+    rec = {"wall_s": wall, "to_collect_s": to_collect,
+           "launches": dict(K.LAUNCHES),
+           "counters": _counters_since(before),
+           "ooc_records": list(OOC.RECORDS)[r0:],
+           "metered_peak_bytes": dm.peak,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory": sess.last_query_metrics["memory"],
+           "counted_syncs": sum(by_site.values()), "syncs_by_site": by_site,
+           "collect_fetches": fetch}
+    return out, rec
+
+
+def keep_scans_of(sess, df) -> None:
+    """Free every cached scan of ``sess`` that the query ``df`` does not
+    read."""
+    from spark_rapids_tpu_torch.exec.tpu import TpuScanExec
+    read = {tuple(n.output_schema().names)
+            for n in sess.physical_plan(df._plan).walk()
+            if isinstance(n, TpuScanExec)}
+    for key in list(sess.device_scan_cache):
+        if key[1] not in read:
+            for bids in sess.device_scan_cache.pop(key)[1].values():
+                for bid in bids:
+                    sess.buffer_catalog.remove(bid)
+
+
+def _in_budget(sess, query) -> tuple:
+    """The query's answer at the card's default budget with out-of-core
+    off (the in-budget run), and its wall (a cold run: the uploads)."""
+    from spark_rapids_tpu_torch.config import conf as CONF
+    dm = sess.device_manager
+    budget = dm.hbm_budget
+    ooc = sess.conf.get(CONF.OOC_ENABLED.key)
+    dm.hbm_budget = int(dm.hbm_total * CONF.ALLOC_FRACTION.default)
+    sess.set_conf(CONF.OOC_ENABLED.key, False)
+    try:
+        t0 = time.perf_counter()
+        out = query.collect()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        dm.hbm_budget = budget
+        sess.set_conf(CONF.OOC_ENABLED.key, ooc)
+
+
+def _require_cell(name: str, rec: dict, ops: tuple, disk: bool) -> None:
+    c = rec["counters"]
+    require(c["spill_bytes_device_to_host"] > 0,
+            f"{name}: nothing spilled device -> host")
+    if disk:
+        require(c["spill_bytes_host_to_disk"] > 0,
+                f"{name}: nothing spilled host -> disk")
+    fanouts = {}
+    for r in rec["ooc_records"]:
+        fanouts.setdefault(r["op"], []).append(r["fanout"])
+    rec["fanouts"] = fanouts
+    for op in ops:
+        require(c[f"ooc_{op}"] > 0, f"{name}: out-of-core {op} did not "
+                f"engage ({fanouts})")
+        require(max(fanouts.get(op, [0])) >= 8,
+                f"{name}: out-of-core {op} below a fan-out of 8 "
+                f"({fanouts})")
+
+
+def _log_cell(name: str, rec: dict) -> None:
+    c = rec["counters"]
+    log(f"{name}: {rec['wall_s']:.4f} s ({rec['to_collect_s']:.4f} s up "
+        f"to the collect; in-budget cold run "
+        f"{rec.get('in_budget_wall_s', float('nan')):.4f} s); spilled "
+        f"device->host {c['spill_bytes_device_to_host']} B in "
+        f"{c['spill_events_device_to_host']}, host->disk "
+        f"{c['spill_bytes_host_to_disk']} B in "
+        f"{c['spill_events_host_to_disk']}; fault-backs host "
+        f"{c['fault_backs_host']} disk {c['fault_backs_disk']}, clean drops "
+        f"{c['clean_drops']}; host s: to host "
+        f"{c['time_device_to_host_s']:.2f}, to disk "
+        f"{c['time_host_to_disk_s']:.2f}, back from host "
+        f"{c['time_fault_back_host_s']:.2f}, from disk "
+        f"{c['time_fault_back_disk_s']:.2f}; fan-outs "
+        f"{rec.get('fanouts')}; metered peak "
+        f"{rec['metered_peak_bytes'] / 2**30:.3f} GiB, max allocated "
+        f"{rec['max_memory_allocated'] / 2**30:.3f} GiB; counted syncs "
+        f"{rec['counted_syncs']} {rec['syncs_by_site']}; launches "
+        f"{rec['launches']}")
+
+
+def memory_phase(frames: dict, mortgage: tuple, batch_rows: int,
+                 queries: dict, report: dict, earlier: dict) -> None:
+    """Larger-than-budget execution through the session (the memory
+    runtime and the out-of-core drivers) on the SF10 TPC-H frames and the
+    SF 500 Mortgage frames the smoke already made, under a 2 GiB metered
+    budget (``memory_session``):
+
+      * spill: Q1 run twice; the first spills its cached scan batches
+        device -> host -> disk as they arrive, the second faults them
+        back; after a spill of every resident batch
+        ``torch.cuda.memory_allocated()`` is lower by at least the bytes
+        moved;
+      * grace join + aggregate: Q3 (B3/B4 in each bucket of its
+        lineitem join) and Mortgage ``aggregates_with_join`` (B3/B4 on the
+        int32 ``loan_id_hash`` in each bucket; 6 MiB buckets);
+      * spillable aggregate: the Q18 group-by at SF10 (each 2^23-row
+        batch split into B2 slices of at most 2^20 slots, then the grace
+        merge);
+      * external sort: lineitem's (l_orderkey, l_linenumber,
+        l_extendedprice) by l_extendedprice descending, then l_orderkey,
+        l_linenumber, held exactly against a numpy lexsort.
+
+    Each answer equals pandas and the same query's in-budget answer from
+    the same session (the default budget, out-of-core off); each
+    out-of-core cell engages each operator it names at a fan-out of 8
+    or more;
+    every cell spills device -> host, the spill cell, Q3 and the sort
+    also host -> disk; every host wait up to the collect is counted (by
+    site); the metered peak stands beside the allocator's; no buffer
+    leaks across the phase."""
+    import pandas as pd
+
+    from spark_rapids_tpu_torch.memory.leak import assert_no_leaks
+    from spark_rapids_tpu_torch.models import mortgage as M
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.testing import mortgagecases as MC
+    from concurrent.futures import ThreadPoolExecutor
+    li = frames["lineitem"]
+    cells = {}
+    launches = {}
+    # the host references of the Q18 group-by and the sort, computed in
+    # threads while the cells before them run on the card
+    pool = ThreadPoolExecutor(max_workers=2)
+    t_refs = time.perf_counter()
+
+    def timed(fn):
+        def run():
+            out = fn()
+            return out, time.perf_counter() - t_refs
+        return run
+    q18_ref = pool.submit(timed(lambda: li.groupby(
+        "l_orderkey", sort=False).l_quantity.sum()))
+    sort_ref = pool.submit(timed(lambda: np.lexsort((
+        li.l_linenumber.to_numpy(), li.l_orderkey.to_numpy(),
+        -li.l_extendedprice.to_numpy()))))
+    pool.shutdown(wait=False)
+    with assert_no_leaks():
+        # -- spill: Q1 twice, no out-of-core ---------------------------------
+        reused = earlier.get("q1_session") is not None
+        if reused:
+            # the session Q1 cell's session, its upload cached on the card:
+            # now under the phase's budget and host tier
+            sess, tables = earlier.pop("q1_session")
+            total = torch.cuda.mem_get_info(0)[1]
+            sess.set_conf("spark.rapids.memory.tpu.allocFraction",
+                          MEMORY_BUDGET / total)
+            sess.device_manager.hbm_budget = int(
+                total * sess.conf.alloc_fraction)
+            sess.buffer_catalog.host_store.limit_bytes = MEMORY_HOST
+            q1 = T.q1(sess, tables)
+            m0 = 0  # the cached upload predates the phase
+            del tables
+            gc_collect()
+            a_before = torch.cuda.memory_allocated()
+        else:
+            sess = memory_session(batch_rows, MEMORY_PARTITION, **{
+                "spark.rapids.tpu.outOfCore.enabled": False})
+            q1 = T.q1(sess, {"lineitem": sess.create_dataframe(li)})
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+        out1, rec = _measured_run(sess, q1)
+        gc_collect()
+        m1 = torch.cuda.memory_allocated()
+        cat = sess.buffer_catalog
+        resident = cat.device_store.total_size
+        rec["allocated_growth_bytes"] = m1 - m0
+        rec["resident_metered_bytes"] = resident
+        if not reused:
+            require(m1 - m0 <= resident + MEMORY_SLACK,
+                    f"spill Q1: {m1 - m0} bytes still allocated, more "
+                    f"than the {resident} resident")
+        else:
+            # the cached batches were on the card before the run: what it
+            # spilled is gone from the allocator
+            d2h = rec["counters"]["spill_bytes_device_to_host"]
+            rec["allocated_drop_bytes"] = a_before - m1
+            require(a_before - m1 >= d2h - MEMORY_SLACK,
+                    f"spill Q1: spilled {d2h} bytes, the allocator fell "
+                    f"by {a_before - m1}")
+        out2, rec2 = _measured_run(sess, q1)
+        rec["second_run"] = rec2
+        require(rec2["counters"]["fault_backs_host"]
+                + rec2["counters"]["fault_backs_disk"] > 0,
+                "spill Q1: the second run faulted nothing back")
+        # the in-budget answer: the session Q1 cell's, in this process
+        out_in = earlier.get("session_q1")
+        if out_in is None:
+            out_in, rec["in_budget_wall_s"] = _in_budget(sess, q1)
+        want = earlier.get("q1_want")
+        if want is None:
+            want = q1_reference(li)
+        rec["max_rel_err"] = max(
+            check_q1(out1, want), check_q1(out2, want),
+            same_by_key(out1, out_in, ["l_returnflag", "l_linestatus"],
+                        "spill Q1 against its in-budget run"),
+            same_by_key(out2, out_in, ["l_returnflag", "l_linestatus"],
+                        "spill Q1, second run, against its in-budget run"))
+        # every resident batch to host: the allocator gives the bytes back
+        gc_collect()
+        a0 = torch.cuda.memory_allocated()
+        moved = cat.device_store.synchronous_spill(0)
+        a1 = torch.cuda.memory_allocated()
+        rec["explicit_spill_bytes"] = moved
+        rec["explicit_spill_freed_bytes"] = a0 - a1
+        require(moved > 0 and a0 - a1 >= moved,
+                f"spill Q1: a spill of {moved} bytes freed {a0 - a1}")
+        _require_cell("spill Q1", rec, (), True)
+        _log_cell("memory spill Q1", rec)
+        log(f"memory spill Q1: allocated {m1 - m0} B past the start "
+            f"(dropped {rec.get('allocated_drop_bytes')} B) with "
+            f"{resident} B resident; second run {rec2['wall_s']:.4f} s, "
+            f"{rec2['counters']}; an explicit spill of {moved} B freed "
+            f"{a0 - a1} B")
+        cells["spill_q1"] = rec
+        sess.stop()
+        del sess, q1, out1, out2, out_in
+
+        # -- grace join: Q3 ---------------------------------------------------
+        sess = memory_session(batch_rows, MEMORY_PARTITION)
+        tables = {n: sess.create_dataframe(f) for n, f in frames.items()
+                  if n in ("lineitem", "orders", "customer")}
+        q3 = T.q3(sess, tables)
+        out_in, in_wall = _in_budget(sess, q3)
+        out, rec = _measured_run(sess, q3)
+        rec["in_budget_wall_s"] = in_wall
+        want = earlier.get("q3_want")
+        if want is None:
+            want = q3_reference(li, frames["orders"], frames["customer"])
+        rec["max_rel_err"] = max(check_q3(out, want), check_q3(out, out_in))
+        _require_cell("Q3", rec, ("join",), True)
+        _log_cell("memory grace Q3", rec)
+        cells["grace_q3"] = rec
+        sess.stop()
+        del sess, tables, q3, out, out_in
+
+        # -- grace join + aggregate: Mortgage aggregates_with_join ------------
+        perf, acq = mortgage[0]
+        sess = memory_session(MORTGAGE_BATCH_ROWS, MEMORY_PARTITION_MORTGAGE,
+                              **M.ETL_CONFS)
+        qm = M.run_query("aggregates_with_join", sess,
+                         sess.create_dataframe(perf),
+                         sess.create_dataframe(acq))
+        out_in, in_wall = _in_budget(sess, qm)
+        out, rec = _measured_run(sess, qm)
+        rec["in_budget_wall_s"] = in_wall
+        t0 = time.perf_counter()
+        want = MC.pandas_reference("aggregates_with_join", perf, acq)
+        rec["pandas_s"] = time.perf_counter() - t0
+        rec.update(MC.same_answer("aggregates_with_join", out, want))
+        MC.same_answer("aggregates_with_join", out, out_in)
+        if mortgage[1].get("aggregates_with_join") is not None:
+            MC.same_answer("aggregates_with_join", out,
+                           mortgage[1]["aggregates_with_join"])
+        require(rec["launches"].get("hash_table_build", 0) > 0
+                and rec["launches"].get("hash_table_probe", 0) > 0,
+                f"Mortgage aggregates_with_join: no B3/B4 in its buckets "
+                f"{rec['launches']}")
+        _require_cell("Mortgage aggregates_with_join", rec,
+                      ("join", "aggregate"), False)
+        _log_cell("memory grace Mortgage aggregates_with_join", rec)
+        cells["grace_mortgage_aggregates_with_join"] = rec
+        sess.stop()
+        del sess, qm, out, out_in, want
+
+        # -- spillable aggregate: the Q18 group-by at SF10 --------------------
+        sess = memory_session(batch_rows, MEMORY_PARTITION)
+        q18 = T.q18_groupby(sess, {"lineitem": sess.create_dataframe(
+            li[["l_orderkey", "l_quantity"]])})
+        out_in, in_wall = _in_budget(sess, q18)
+        out, rec = _measured_run(sess, q18)
+        rec["in_budget_wall_s"] = in_wall
+        t0 = time.perf_counter()
+        sums, rec["pandas_done_at_s"] = q18_ref.result()
+        rec["pandas_wait_s"] = time.perf_counter() - t0
+        rec["groups"] = len(sums)
+        sums = sums[sums > 300]
+        want = pd.DataFrame({"l_orderkey": sums.index,
+                             "sum_qty": sums.to_numpy()})
+        rec["max_rel_err"] = max(
+            same_by_key(out, want, ["l_orderkey"], "memory Q18 group-by"),
+            same_by_key(out, out_in, ["l_orderkey"],
+                        "memory Q18 group-by against its in-budget run"))
+        require(rec["counters"]["ooc_hashAggSplit"] > 0,
+                "memory Q18 group-by: no batch split past maxTableSlots")
+        _require_cell("Q18 group-by", rec, ("aggregate",), False)
+        _log_cell("memory spillable aggregate Q18 group-by", rec)
+        cells["spillable_q18_groupby"] = rec
+        sess.stop()
+        del sess, q18, out, out_in, want, sums
+
+        # -- external sort ---------------------------------------------------
+        cols = ["l_orderkey", "l_linenumber", "l_extendedprice"]
+        sess = memory_session(batch_rows, MEMORY_PARTITION)
+        qs = sess.create_dataframe(li[cols]).order_by(
+            SF_.col("l_extendedprice").desc(), "l_orderkey", "l_linenumber")
+        out_in, in_wall = _in_budget(sess, qs)
+        out, rec = _measured_run(sess, qs)
+        rec["in_budget_wall_s"] = in_wall
+        t0 = time.perf_counter()
+        order, rec["numpy_done_at_s"] = sort_ref.result()
+        rec["numpy_wait_s"] = time.perf_counter() - t0
+        for c in cols:
+            w = li[c].to_numpy()[order]
+            require(np.array_equal(out[c].to_numpy(), w),
+                    f"memory sort: {c} differs from the numpy lexsort")
+            require(np.array_equal(out[c].to_numpy(), out_in[c].to_numpy()),
+                    f"memory sort: {c} differs from its in-budget run")
+        rec["max_rel_err"] = 0.0
+        _require_cell("sort", rec, ("sort",), True)
+        _log_cell("memory external sort", rec)
+        cells["external_sort"] = rec
+        sess.stop()
+        del sess, qs, out, out_in, order
+        gc_collect()
+    for name, rec in cells.items():
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        queries[f"memory_{name}"] = dict(
+            rec, sf=MORTGAGE_SF if "mortgage" in name else 10,
+            rows=(len(mortgage[0][0]) + len(mortgage[0][1])
+                  if "mortgage" in name else len(li)),
+            upload_s=rec["in_budget_wall_s"] if "in_budget_wall_s" in rec
+            else rec["wall_s"])
+    for k in ("compact_permutation", "hash_grouped_aggregate",
+              "hash_table_build", "hash_table_probe"):
+        require(launches.get(k, 0) > 0, f"memory phase: {k} never ran")
+    report["memory_launches"] = launches
+    log(f"memory phase launches: {launches}")
+
+
+def gc_collect() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 WINDOW_CPU_DIR = os.path.join("spark_rapids_tpu_torch", "build",
@@ -2306,6 +2752,9 @@ def main() -> int:
                          "the queries, no full-size timing")
     ap.add_argument("--window-cpu", type=int, default=0,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--memory-only", action="store_true",
+                    help="build the kernels and run only the memory phase "
+                         "(its frames generated here); prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -2317,6 +2766,8 @@ def main() -> int:
     import spark_rapids_tpu_torch.session  # noqa: F401
     # the window phase's CPU side, started by ``run`` after the kernels
     # are timed, runs meanwhile in a process of its own
+    if args.memory_only:
+        return memory_only()
     children: list = []
     try:
         return run(args, children)
@@ -2327,7 +2778,38 @@ def main() -> int:
             child.wait()
 
 
-WINDOW_ROWS = 1 << 23
+def memory_only() -> int:
+    """The memory phase alone, on frames generated here (SF10 TPC-H, SF 500
+    Mortgage): a quicker check of that phase. Details go to
+    ``chiprun_out/chip_smoke_memory.json``."""
+    from spark_rapids_tpu_torch.models import mortgage_data as MD
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(10), "orders": G.gen_orders(10),
+              "customer": G.gen_customer(10)}
+    mortgage = ((MD.gen_performance(MORTGAGE_SF),
+                 MD.gen_acquisition(MORTGAGE_SF)), {})
+    log(f"frames: {time.perf_counter() - t0:.1f} s")
+    queries, report = {}, {}
+    t0 = time.perf_counter()
+    memory_phase(frames, mortgage, 1 << 23, queries, report, {})
+    report["memory_phase_s"] = time.perf_counter() - t0
+    log(f"memory phase: {report['memory_phase_s']:.1f} s")
+    report["queries"] = queries
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_memory.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
+WINDOW_ROWS = 1 << 22  # cut from 2^23 for the smoke's time (PERF.md)
+# the session's Parquet cells and Q9 from files: cut from SF1 for the
+# smoke's time (PERF.md)
+SESSION_PARQUET_SF = 0.5
 WINDOW_ROWS_QUICK = 1 << 16
 # the ETL at SF 250, the other three at SF 500: the smoke keeps within
 # its time limit (the ETL at SF 500 on one H100: 7.46 s warm, 31.0 GiB
@@ -2460,11 +2942,15 @@ def run(args, children: list) -> int:
     del batches
     torch.cuda.empty_cache()
 
-    # the same queries through the port's TpuSparkSession
-    sess = session_of(q1_batch)
+    # the same queries through the port's TpuSparkSession; its spill files
+    # (the memory phase's spill cell reuses this session) go to the build
+    # directory
+    sess = session_of(q1_batch, **{
+        "spark.rapids.memory.spill.diskDir": MEMORY_SPILL_DIR})
     tables = {"lineitem": sess.create_dataframe(df)}
     out, rec = run_session_query("session Q1", T.q1(sess, tables), runs,
                                  queries["q1"], sf_q1, len(df))
+    earlier = {"q1_want": q1_want, "session_q1": out}
     rec["max_rel_err"] = max(check_q1(out, q1_want),
                              same_by_key(out, q1_runner, ["l_returnflag",
                                                           "l_linestatus"],
@@ -2505,7 +2991,10 @@ def run(args, children: list) -> int:
     rec["max_rel_err"] = same_by_key(out, want, rs_keys,
                                      "session rowspace group-by")
     queries["session_rowspace_groupby"] = rec
-    sess.clear_device_cache()
+    # the memory phase's spill cell runs Q1 again on this session's cached
+    # upload (4.07 GB on the card until then): the rest of its cache goes
+    keep_scans_of(sess, T.q1(sess, tables))
+    earlier["q1_session"] = (sess, tables)
     del sess, tables
     torch.cuda.empty_cache()
 
@@ -2524,6 +3013,7 @@ def run(args, children: list) -> int:
     out, walls, launches = run_query(
         "Q3", lambda: J.q3_from_batches(tables).to_pandas(), runs)
     q3_want = q3_reference(df, frames["orders"], frames["customer"])
+    earlier["q3_want"] = q3_want
     err = check_q3(out, q3_want)
     q3_runner = out
     require_syncs("Q3", lambda: J.q3_from_batches(tables), 2)
@@ -2616,23 +3106,40 @@ def run(args, children: list) -> int:
         del frames[name]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # 2^22 rows: the Mortgage and window phases need the smoke's time
-    string_phase(1 << 16 if args.quick else 1 << 22, runs_new, report)
+    # 2^21 rows: cut from 2^22 for the smoke's time (PERF.md)
+    string_phase(1 << 16 if args.quick else 1 << 21, runs_new, report)
     report["string_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    # the device Parquet scan: the same rows as Parquet files
+    # the device Parquet scan: SF1 lineitem, orders and customer files (the
+    # runners' Parquet cells, cut from SF10 to SF1 for the smoke's time),
+    # and the SF10 customer file (B8's timed chunk, a 2^20-row row group,
+    # and the customer collect)
+    memory_frames = {"lineitem": df, "orders": frames["orders"],
+                     "customer": frames["customer"]}
+    cust = frames["customer"]
+    del frames, df
     t0 = time.perf_counter()
-    paths = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q1}"), sf_q1,
-                            frames=frames)
+    df = G.gen_lineitem(sf_q18)
+    frames1 = {"lineitem": df, "orders": G.gen_orders(sf_q18),
+               "customer": G.gen_customer(sf_q18)}
+    report["gen_sf1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
+                            frames=frames1)
+    path_cust = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q1}"), sf_q1,
+                                tables=["customer"],
+                                frames={"customer": cust})["customer"]
     edge = write_edge_files(os.path.join(pq_dir, "edge"))
     report["write_parquet_s"] = time.perf_counter() - t0
-    log(f"parquet SF{sf_q1}: {report['write_parquet_s']:.1f} s, "
+    log(f"parquet SF{sf_q18} (customer also SF{sf_q1}): "
+        f"{report['write_parquet_s']:.1f} s, "
         + ", ".join(f"{t} {os.path.getsize(p) / 1e6:.1f} MB "
                     f"{praw.file_metadata(p).num_row_groups} row groups"
-                    for t, p in paths.items()))
-    report["encodings"] = check_encodings(paths)
-    decode = check_decode(paths, edge, G.ROW_GROUP_ROWS)
+                    for t, p in dict(paths, customer_sf10=path_cust).items()))
+    report["encodings"] = check_encodings(dict(paths, customer=path_cust))
+    decode = check_decode(dict(paths, customer=path_cust), edge,
+                          G.ROW_GROUP_ROWS)
     kernels += decode
     for k in decode:
         log(f"kernel {k['name']}: ms {k['ms']:.4f} plain {k['plain_ms']:.4f}"
@@ -2659,6 +3166,7 @@ def run(args, children: list) -> int:
         f"{b5['rowgroup_bound_ms']:.4f}; one stream ms {b5['ms']:.4f}")
     torch.cuda.empty_cache()
     rgs = {t: praw.file_metadata(p).num_row_groups for t, p in paths.items()}
+    o1, c1 = frames1["orders"], frames1["customer"]
 
     def collect(batch, full):
         return batch.to_pandas() if full else batch
@@ -2667,50 +3175,48 @@ def run(args, children: list) -> int:
         "Q1 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q1_COLUMNS),
         lambda t, full: collect(Q.q1_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"], 0)
-    rec.update(sf=sf_q1, rows=len(df), max_rel_err=check_q1(out, q1_want))
+    rec.update(sf=sf_q18, rows=len(df),
+               max_rel_err=check_q1(out, q1_reference(df)))
     queries["q1_parquet"] = rec
-    pq_out = {"q1": out}
 
     out, rec = run_parquet_query(
         "Q6 parquet", lambda: S.scan_table(paths["lineitem"], Q.Q6_COLUMNS),
         lambda t, full: collect(Q.q6_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"], 0)
-    err = _rel_err([out.revenue[0]], [q6_want])
+    err = _rel_err([out.revenue[0]], [q6_reference(df)])
     require(len(out) == 1 and err <= F64_RTOL, f"Q6 parquet differs: {err}")
-    rec.update(sf=sf_q1, rows=len(df), max_rel_err=err)
+    rec.update(sf=sf_q18, rows=len(df), max_rel_err=err)
     queries["q6_parquet"] = rec
-    pq_out["q6"] = out
     torch.cuda.empty_cache()
 
     out, rec = run_parquet_query(
         "Q3 parquet", lambda: S.scan_tables(paths, J.Q3_COLUMNS),
         lambda t, full: collect(J.q3_from_batches(t), full), runner_pq_runs,
         sum(rgs.values()), 2)
-    rec.update(sf=sf_q1, rows=q3_rows, max_rel_err=check_q3(out, q3_want))
+    rec.update(sf=sf_q18, rows=len(df) + len(o1) + len(c1),
+               max_rel_err=check_q3(out, q3_reference(df, o1, c1)))
     require(rec["launches"]["hash_table_build"] > 0,
             "Q3 parquet ran no join")
     queries["q3_parquet"] = rec
-    pq_out["q3"] = out
     torch.cuda.empty_cache()
 
     out, rec = run_parquet_query(
         "Q4 parquet", lambda: S.scan_tables(paths, J.Q4_COLUMNS),
         lambda t, full: collect(J.q4_from_batches(t), full), runner_pq_runs,
         rgs["lineitem"] + rgs["orders"], 0)
-    require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
-            and list(out.order_count) == list(q4_want.order_count),
-            f"Q4 parquet differs from pandas: {out} vs {q4_want}")
-    rec.update(sf=sf_q1, rows=q4_rows, max_rel_err=0.0)
+    want = q4_reference(df, o1)
+    require(list(out.o_orderpriority) == list(want.o_orderpriority)
+            and list(out.order_count) == list(want.order_count),
+            f"Q4 parquet differs from pandas: {out} vs {want}")
+    rec.update(sf=sf_q18, rows=len(df) + len(o1), max_rel_err=0.0)
     queries["q4_parquet"] = rec
-    pq_out["q4"] = out
     torch.cuda.empty_cache()
 
-    cust = frames["customer"]
     out, rec = run_parquet_query(
         "customer collect parquet",
-        lambda: S.scan_table(paths["customer"]),
+        lambda: S.scan_table(path_cust),
         lambda t, full: collect(S.customer_segment_batches(t), full),
-        runner_pq_runs, rgs["customer"], 0)
+        runner_pq_runs, praw.file_metadata(path_cust).num_row_groups, 0)
     want = cust[cust.c_mktsegment == "BUILDING"].reset_index(drop=True)
     require(list(out.columns) == list(want.columns)
             and len(out) == len(want), "customer collect: shape differs")
@@ -2721,12 +3227,9 @@ def run(args, children: list) -> int:
     rec.update(sf=sf_q1, rows=len(cust), max_rel_err=0.0,
                rows_out=len(out))
     queries["customer_parquet"] = rec
-    pq_out["customer"] = out
-
-    del frames, df, cust, pq_out
+    del cust, out, want
     torch.cuda.empty_cache()
 
-    df = G.gen_lineitem(sf_q18)
     t0 = time.perf_counter()
     batches = Q.upload_batches(df, Q.Q18_COLUMNS, q18_batch)
     torch.cuda.synchronize()
@@ -2810,28 +3313,29 @@ def run(args, children: list) -> int:
     del sess
     torch.cuda.empty_cache()
 
-    # SF1 files of lineitem, orders and customer: the Q18 group-by's, and
-    # the session's Parquet cells (run at SF1 to keep the smoke within
-    # half its time limit; the runners' Parquet cells above are SF10)
-    frames1 = {"lineitem": df, "orders": G.gen_orders(sf_q18),
-               "customer": G.gen_customer(sf_q18)}
-    paths1 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
-                             frames=frames1)
-    path18 = paths1["lineitem"]
-    session_parquet_cells(paths1, frames1, sf_q18, q1_batch, pq_runs,
-                          queries)
-    # Q9 from files: part, partsupp, supplier and nation beside them
-    t0 = time.perf_counter()
-    frames1.update(supplier=G.gen_supplier(sf_q18), part=G.gen_part(sf_q18),
-                   partsupp=G.gen_partsupp(sf_q18), nation=G.gen_nation())
-    paths9 = G.write_parquet(os.path.join(pq_dir, f"sf{sf_q18}"), sf_q18,
-                             tables=["part", "partsupp", "supplier",
-                                     "nation"], frames=frames1)
-    report["write_parquet_q9_s"] = time.perf_counter() - t0
-    report["encodings"].update(check_encodings(paths9))
-    q9_parquet_cell(dict(paths1, **paths9), frames1, sf_q18, q1_batch,
-                    pq_runs, queries)
+    path18 = paths["lineitem"]
     del frames1
+    # the session's Parquet cells and Q9 from files of their own at
+    # SESSION_PARQUET_SF: lineitem, orders and customer, and part,
+    # partsupp, supplier and nation beside them
+    t0 = time.perf_counter()
+    sfh = sf_q18 if args.quick else SESSION_PARQUET_SF
+    framesh = {"lineitem": G.gen_lineitem(sfh), "orders": G.gen_orders(sfh),
+               "customer": G.gen_customer(sfh),
+               "supplier": G.gen_supplier(sfh), "part": G.gen_part(sfh),
+               "partsupp": G.gen_partsupp(sfh), "nation": G.gen_nation()}
+    pathsh = G.write_parquet(os.path.join(pq_dir, f"sf{sfh}"), sfh,
+                             tables=list(framesh), frames=framesh)
+    report["write_parquet_session_s"] = time.perf_counter() - t0
+    log(f"parquet SF{sfh} for the session's cells: "
+        f"{report['write_parquet_session_s']:.1f} s")
+    session_parquet_cells({n: pathsh[n] for n in
+                           ("lineitem", "orders", "customer")},
+                          framesh, sfh, q1_batch, pq_runs, queries)
+    report["encodings"].update(check_encodings(
+        {n: pathsh[n] for n in ("part", "partsupp", "supplier", "nation")}))
+    q9_parquet_cell(pathsh, framesh, sfh, q1_batch, pq_runs, queries)
+    del framesh
     torch.cuda.empty_cache()
 
     def q18_query(t, full):
@@ -2888,10 +3392,28 @@ def run(args, children: list) -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    mortgage_phase(1 if args.quick else MORTGAGE_SF,
-                   1 if args.quick else MORTGAGE_ETL_SF,
-                   1 if args.quick else MORTGAGE_RUNS, queries, report)
+    mortgage = mortgage_phase(1 if args.quick else MORTGAGE_SF,
+                              1 if args.quick else MORTGAGE_ETL_SF,
+                              1 if args.quick else MORTGAGE_RUNS, queries,
+                              report)
     report["mortgage_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # out-of-core off and the default budget in every phase before this
+    # one: nothing may have spilled
+    spilled = _memory_counters()
+    require(spilled["spill_events_device_to_host"] == 0
+            and spilled["spill_events_host_to_disk"] == 0,
+            f"the earlier phases spilled: {spilled}")
+    t0 = time.perf_counter()
+    if args.quick:
+        log("memory phase: skipped (--quick: nothing passes its budget)")
+    else:
+        memory_phase(memory_frames, mortgage, q1_batch, queries, report,
+                     earlier)
+    report["memory_phase_s"] = time.perf_counter() - t0
+    log(f"memory phase: {report['memory_phase_s']:.1f} s")
+    del memory_frames, mortgage
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     window_phase(WINDOW_ROWS_QUICK if args.quick else WINDOW_ROWS, runs_new,
                  child, queries, report)

@@ -9,6 +9,12 @@ reaches the host only at ``to_pandas`` (the collect), inside a
 
 Capacity bucketing follows the JAX package (power-of-two buckets from
 ``MIN_CAPACITY``), so both packages pad batches identically.
+
+``device_memory_size`` (the JAX package's rule: the bytes of every tensor
+of the batch) is host metadata, read without touching the device; the
+spill store (``memory/spill.py``) moves a batch as the flat tensor list of
+``flatten_batch`` and rebuilds it with ``unflatten_batch``, the part of
+``jax.tree_util`` the JAX package's spill takes.
 """
 
 from __future__ import annotations
@@ -114,6 +120,13 @@ class DeviceBatch:
         with sync_scope("batch.rowCount", nbytes=4):
             return int(self.num_rows.item())
 
+    def device_memory_size(self) -> int:
+        """Bytes of device storage held by this batch: every tensor's
+        elements (a strided view counts its own elements). Host metadata,
+        no device work."""
+        return sum(t.numel() * t.element_size()
+                   for t in flatten_batch(self)[0])
+
     def __repr__(self) -> str:
         return (f"DeviceBatch(capacity={self.capacity}, "
                 f"schema={self.schema})")
@@ -193,6 +206,43 @@ class DeviceBatch:
         df = pd.concat(series, axis=1)
         df.columns = list(self.schema.names)
         return df
+
+
+# the tensor fields of a DeviceColumn, in flatten order
+_COLUMN_TENSORS = ("data", "validity", "dict_codes", "slab64", "lens")
+
+
+def flatten_batch(batch: DeviceBatch) -> Tuple[List[torch.Tensor], tuple]:
+    """(tensors, layout): the batch's row count, then each column's present
+    tensors (data, validity, dictionary codes, char slab, lengths) in that
+    order; ``layout`` holds the rest (schema, dictionary values, which
+    fields are present, the host row count) for ``unflatten_batch``."""
+    tensors = [batch.num_rows]
+    cols = []
+    for col in batch.columns:
+        present = tuple(f for f in _COLUMN_TENSORS
+                        if getattr(col, f) is not None)
+        tensors.extend(getattr(col, f) for f in present)
+        cols.append((col.dtype, col.dict_values, present))
+    return tensors, (batch.schema, tuple(cols), batch.host_rows)
+
+
+def unflatten_batch(tensors: Sequence[torch.Tensor],
+                    layout: tuple) -> DeviceBatch:
+    """The batch ``flatten_batch`` took apart, over ``tensors``."""
+    schema, cols, host_rows = layout
+    it = iter(tensors)
+    num_rows = next(it)
+    columns = []
+    for dtype, dict_values, present in cols:
+        fields = {f: next(it) for f in present}
+        columns.append(DeviceColumn(
+            dtype, fields.get("data"), fields["validity"],
+            fields.get("dict_codes"), dict_values, fields.get("slab64"),
+            fields.get("lens")))
+    batch = DeviceBatch(schema, columns, num_rows)
+    batch.host_rows = host_rows
+    return batch
 
 
 def _row_bytes(col: DeviceColumn) -> int:

@@ -112,6 +112,57 @@ FUSE_COUNT_DISTINCT = register(
     "key is fixed-width or a dictionary, one sort where a key is a char "
     "slab.")
 
+# --- memory pool and spill (the JAX package's defaults and converters) ----
+ALLOC_FRACTION = register(
+    "spark.rapids.memory.tpu.allocFraction", float, 0.9,
+    "Fraction of the device's memory the framework budgets for columnar "
+    "buffers (memory/device.py): on a CUDA device of "
+    "torch.cuda.mem_get_info()'s total, on the CPU of 16 GiB. The device "
+    "store spills to host once the budget is exceeded.")
+HOST_SPILL_STORAGE_SIZE = register(
+    "spark.rapids.memory.host.spillStorageSize", _to_bytes, 1 << 30,
+    "Amount of host memory used to cache spilled device buffers before "
+    "spilling them further to disk (the host arena: pinned memory for a "
+    "CUDA session, plain memory for a CPU one).")
+SPILL_DIR = register(
+    "spark.rapids.memory.spill.diskDir", str, "",
+    "Directory under which each session's disk tier makes a fresh "
+    "directory of its own for its spill files (one .npz a buffer), "
+    "removed at stop(); empty (the default): the system's temporary "
+    "directory. Not a key of the JAX package, whose store always takes a "
+    "temporary one.")
+CONCURRENT_TPU_TASKS = register(
+    "spark.rapids.sql.concurrentTpuTasks", int, 1,
+    "Number of concurrent tasks admitted to the device at once (the "
+    "GpuSemaphore admission model, memory/semaphore.py).")
+OOC_ENABLED = register(
+    "spark.rapids.tpu.outOfCore.enabled", _to_bool, False,
+    "Out-of-core execution for join/aggregate/sort (exec/outofcore.py): "
+    "when an operator's measured device working set exceeds the "
+    "working-set budget (spark.rapids.tpu.outOfCore.partitionBytes), its "
+    "input is hash- (for sort, range-) partitioned into spillable fan-out "
+    "buckets on the 3-tier store (device -> host -> disk, memory/spill.py) "
+    "and processed one bucket at a time: grace hash join, external merge "
+    "sort, per-bucket aggregate merges. false (default) keeps every "
+    "operator's in-memory path as it is.")
+OOC_PARTITION_BYTES = register(
+    "spark.rapids.tpu.outOfCore.partitionBytes", _to_bytes, 0,
+    "Working-set budget of one out-of-core operator: partitioning fans "
+    "out until each bucket is expected to fit in this many bytes, and "
+    "the device store is synchronously spilled down to it while buckets "
+    "accumulate. 0 (default) = half the metered device budget.")
+OOC_FANOUT = register(
+    "spark.rapids.tpu.outOfCore.fanout", int, 0,
+    "Fixed fan-out (bucket count) for out-of-core partitioning. 0 "
+    "(default) = from measured sizes: the next power of two of "
+    "total_bytes / partitionBytes, clamped to [2, 64].")
+OOC_MAX_RECURSION = register(
+    "spark.rapids.tpu.outOfCore.maxRecursion", int, 3,
+    "Grace hash join recursion bound: a bucket whose build fragment still "
+    "exceeds the working-set budget is re-partitioned with a different "
+    "hash up to this many levels; past it the fragment joins in one "
+    "pass.")
+
 
 class TpuConf:
     """Settings with typed accessors."""
@@ -168,6 +219,18 @@ class TpuConf:
     @property
     def shuffle_partitions(self) -> int:
         return self.get(SHUFFLE_PARTITIONS.key)
+
+    @property
+    def alloc_fraction(self) -> float:
+        return float(self.get(ALLOC_FRACTION.key))
+
+    @property
+    def host_spill_storage_size(self) -> int:
+        return int(self.get(HOST_SPILL_STORAGE_SIZE.key))
+
+    @property
+    def concurrent_tpu_tasks(self) -> int:
+        return int(self.get(CONCURRENT_TPU_TASKS.key))
 
     @property
     def broadcast_threshold(self) -> int:

@@ -111,3 +111,6 @@ class ExecContext:
         self.device = torch.device(device)
         # the shared subtrees' batches of this execution (exec/reuse.py)
         self.reuse_state: dict = {}
+        # catalog ids of this query's transient spillables (broadcast
+        # tables, reused subtrees, out-of-core buckets), freed at its end
+        self.transient_bids: set = set()

@@ -34,10 +34,11 @@ class TargetSize:
 
 
 def coalesce_iter(batches, goal: TargetSize, schema: Schema,
-                  growth: float, device) -> Iterator[DeviceBatch]:
+                  growth: float, device, dm=None) -> Iterator[DeviceBatch]:
     """Accumulate a batch stream to ``goal`` and concatenate. The counting
     is by row-count hints (the capacity where the count is on the device),
-    so it needs no host sync; it over-counts by at most the padding."""
+    so it needs no host sync; it over-counts by at most the padding. A
+    concat's output is metered on ``dm`` where given."""
     from spark_rapids_tpu_torch.exec.tpu import concat_device
     pending: List[DeviceBatch] = []
     pending_rows = 0
@@ -48,10 +49,10 @@ def coalesce_iter(batches, goal: TargetSize, schema: Schema,
         pending.append(batch)
         pending_rows += rows
         if pending_rows >= goal.rows:
-            yield concat_device(pending, schema, growth, device)
+            yield concat_device(pending, schema, growth, device, dm=dm)
             pending, pending_rows = [], 0
     if pending:
-        yield concat_device(pending, schema, growth, device)
+        yield concat_device(pending, schema, growth, device, dm=dm)
 
 
 class TpuCoalesceBatchesExec(PhysicalPlan):
@@ -68,13 +69,14 @@ class TpuCoalesceBatchesExec(PhysicalPlan):
         return f"TpuCoalesceBatchesExec({self.goal!r})"
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.exec.tpu import device_manager_of
         schema = self.output_schema()
 
         def make(part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
                 yield from coalesce_iter(part(), self.goal, schema,
                                          ctx.conf.capacity_growth,
-                                         ctx.device)
+                                         ctx.device, device_manager_of(ctx))
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]
 

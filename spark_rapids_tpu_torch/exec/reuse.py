@@ -16,10 +16,12 @@ Q15 right: its filter compares the revenue view's sums with their
 maximum, and two executions of a float sum over atomics need not give
 the same bits.
 
-The JAX package also gates on deterministic expressions (a ``rand()``
-branch must re-execute); the port has no nondeterministic expression yet
-(ROADMAP A.6), and the spill catalog registration of the materialized
-batches waits for A.8.
+The materialized batches register in the session's spill catalog as
+per-query transients at the ``OUTPUT_FOR_WRITE`` band (the JAX package's),
+so a large shared intermediate can spill under pressure instead of
+pinning device memory; each replay faults them back. The JAX package also
+gates on deterministic expressions (a ``rand()`` branch must re-execute);
+the port has no nondeterministic expression yet (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -69,13 +71,27 @@ class TpuReuseSubtreeExec(PhysicalPlan):
         if state["parts"] is None:
             state["parts"] = self.children[0].executed_partitions(ctx)
         parts, data = state["parts"], state["data"]
+        session = ctx.session
 
         def make(i: int) -> Partition:
             def run() -> Iterator:
+                if session is None:
+                    if i not in data:
+                        data[i] = list(parts[i]())
+                    return iter(data[i])
                 if i not in data:
-                    data[i] = list(parts[i]())
-                return iter(data[i])
+                    from spark_rapids_tpu_torch.memory.spill import (
+                        SpillPriorities,
+                    )
+                    data[i] = [session.add_transient_batch(
+                        b, SpillPriorities.OUTPUT_FOR_WRITE)
+                        for b in parts[i]()]
+                return replay(data[i])
             return run
+
+        def replay(bids) -> Iterator:
+            for bid in bids:
+                yield session.buffer_catalog.acquire_batch(bid)
         return [make(i) for i in range(len(parts))]
 
 

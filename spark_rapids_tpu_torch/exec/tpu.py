@@ -9,6 +9,17 @@ files), Project, Filter, HashAggregate (partial and final, with the
 runtime partial skip), Sort, the three limits, CoalescePartitions, Union,
 Range, Expand, and the shuffle exchange's one-device collapse.
 
+Under the memory runtime (``memory/``): each concat's output is metered
+against the session's device budget (``concat_device(..., dm=)``); the
+aggregate, the sort and the join (``exec/tpujoin.py``) probe their input
+stream against ``spark.rapids.tpu.outOfCore.partitionBytes`` and past it
+hand it to the out-of-core drivers (``exec/outofcore.py``): the grace
+aggregate, the external sort, the grace join. Under the hash aggregation
+(``agg.hashAggEnabled``) a partial batch whose slot table would pass
+``agg.hash.maxTableSlots`` splits by key hash into slices that fit
+(``_bucketed_update``, up to three levels); a merge past it still takes
+the sorted-payload branch, as in the JAX package.
+
 Not ported, and why nothing here needs them yet:
   * the fused filter masks, fused selections and whole-stage programs of
     ``exec/fusion.py`` and ``exec/stagecompiler`` (ROADMAP A.10);
@@ -19,19 +30,17 @@ Not ported, and why nothing here needs them yet:
   * the first-batch partial-skip heuristic (``agg.runtimeSkip=false``):
     the partial pass always decides its skip at run time, the JAX
     package's default;
-  * the out-of-core split of a batch whose hash table exceeds
-    ``agg.hash.maxTableSlots`` (``exec/outofcore.py``, ROADMAP A.8): such a
-    batch aggregates on the sorted-payload branch instead, with the same
-    result;
   * the exchange's capacity shrink (a counted sync), its speculation, and
     the multi-device routes (ROADMAP A.9): on one device a hash or range
-    exchange is one partition of the child's batches, with no sync. Only
-    a concat whose padded capacity would pass CONCAT_SHRINK_ROWS reads its
-    live rows (``concat_device``).
+    exchange is one partition of the child's batches, with no sync, which
+    already streams its pieces as the JAX package's collapse does under
+    out-of-core. Only a concat whose padded capacity would pass
+    CONCAT_SHRINK_ROWS reads its live rows (``concat_device``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -94,15 +103,28 @@ def reset_concat_shrinks() -> None:
     CONCAT_SHRINKS["synced"] = 0
 
 
+def device_manager_of(ctx: ExecContext):
+    """The session's device budget meter, or None outside a session."""
+    return getattr(ctx.session, "device_manager", None)
+
+
 def concat_device(batches: List[DeviceBatch], schema: Schema,
-                  growth: float, device) -> DeviceBatch:
+                  growth: float, device, dm=None) -> DeviceBatch:
     """Concatenate device batches (GpuCoalesceBatches): one
     ``rowops.concat_batches`` at the bucketed sum of their capacities, or
-    of their live rows past CONCAT_SHRINK_ROWS."""
+    of their live rows past CONCAT_SHRINK_ROWS. A new output is metered
+    on ``dm`` (a ``memory/device.TpuDeviceManager``) where given."""
     if len(batches) == 1:
         return batches[0]
     if not batches:
         return empty_batch(schema, device)
+    out = _concat(batches, growth)
+    if dm is not None:
+        dm.meter_batch(out)
+    return out
+
+
+def _concat(batches: List[DeviceBatch], growth: float) -> DeviceBatch:
     out_cap = bucket_capacity(sum(b.capacity for b in batches), growth)
     if out_cap > CONCAT_SHRINK_ROWS:
         if all(b.host_rows is not None for b in batches):
@@ -114,6 +136,20 @@ def concat_device(batches: List[DeviceBatch], schema: Schema,
             CONCAT_SHRINKS["synced"] += 1
         out_cap = bucket_capacity(max(rows, 1), growth)
     return rowops.concat_batches(batches, out_cap)
+
+
+def split_by_pid(batch: DeviceBatch, pid: torch.Tensor, n: int):
+    """(rows sorted by partition id, (n,) int64 row count of each id): a
+    stable sort of the ids with dead rows last, the contiguous-split
+    analogue (GpuPartitioning.scala:41-75; the JAX package's
+    ``_split_by_pid``). No host sync."""
+    pid = torch.where(batch.row_mask(), pid.to(torch.int64), n)
+    order = torch.sort(pid, stable=True).indices
+    sorted_b = rowops.gather_batch(batch, order.to(torch.int32),
+                                   batch.num_rows)
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=pid.device)
+    counts.index_add_(0, pid, torch.ones_like(pid))
+    return sorted_b, counts[:n]
 
 
 def _select_view(batch: DeviceBatch, sel) -> DeviceBatch:
@@ -255,9 +291,50 @@ class TpuHashAggregateExec(TpuExec):
         return eval_projection(batch, [e for _, e in final],
                                [n for n, _ in final])
 
+    def _update_fn(self, ctx: ExecContext, hash_table):
+        """The per-batch update: ``_update``, or under the hash aggregation
+        with column-reference keys ``_bucketed_update``: a batch whose slot
+        table would pass ``agg.hash.maxTableSlots`` splits by key hash
+        into slices that fit (disjoint key sets), each aggregates on B2,
+        and their partials concatenate into one partial batch (no key
+        spans two slices); a slice still too large splits again with the
+        next level's hash, up to three levels. A batch the dictionary
+        branch aggregates (every key dictionary-encoded, a small joint
+        table) needs no hash table and does not split."""
+        def update(b):
+            return self._update(b, hash_table)
+        if hash_table is None or self.mode != "partial":
+            return update
+        if not all(isinstance(e, BoundRef) for _, e in self.plan.grouping):
+            return update
+        key_idx = [e.index for _, e in self.plan.grouping]
+        growth = ctx.conf.capacity_growth
+        dm = device_manager_of(ctx)
+        from spark_rapids_tpu_torch.ops.kernels import hash_table_size
+
+        def bucketed(b, level=0):
+            size = hash_table_size(b.capacity)
+            if (level >= 3 or size <= hash_table
+                    or agg_ops._dict_path_info(b, key_idx) is not None):
+                # in budget, or the dictionary branch takes it (no table)
+                return update(b)
+            need = -(-size // hash_table)
+            n = 2
+            while n < 2 * need and n < 64:
+                n <<= 1
+            from spark_rapids_tpu_torch.exec import outofcore as ooc
+            parts = [bucketed(piece, level + 1)
+                     for piece in ooc.split_batch_by_hash(
+                         ctx, key_idx, b, n, level, growth)]
+            if not parts:
+                return update(b)
+            return concat_device(parts, self.plan.partial_schema, growth,
+                                 b.device, dm=dm)
+        return bucketed
+
     # -- the partial pass and its skip ---------------------------------------
-    def _partial(self, ctx: ExecContext, part: Partition, hash_table,
-                 skip_ratio: float) -> Iterator[DeviceBatch]:
+    def _partial(self, ctx: ExecContext, part: Partition, update,
+                 hash_table, skip_ratio: float) -> Iterator[DeviceBatch]:
         """The partial pass with the runtime partial-aggregation skip (the
         JAX package's agg.runtimeSkip, its default; its first-batch
         alternative is not ported): measure output groups / input rows as
@@ -271,8 +348,8 @@ class TpuHashAggregateExec(TpuExec):
         it = iter(part())
         first = next(it, None)
         if first is None:
-            yield self._update(empty_batch(self.children[0].output_schema(),
-                                           ctx.device), hash_table)
+            yield update(empty_batch(self.children[0].output_schema(),
+                                     ctx.device))
             return
         cache = ctx.session.agg_ratio_cache if ctx.session else None
         sig = plan_fingerprint(self) + "|ratio"
@@ -291,7 +368,7 @@ class TpuHashAggregateExec(TpuExec):
                 yield self._passthrough(b)
                 b = next(it, None)
                 continue
-            part_b = self._update(b, hash_table)
+            part_b = update(b)
             partials.append(part_b)
             if decided is None:
                 if part_b.capacity < b.capacity:
@@ -320,9 +397,10 @@ class TpuHashAggregateExec(TpuExec):
         elif partials:
             yield self._merge(concat_device(
                 partials, self.plan.partial_schema, ctx.conf.capacity_growth,
-                ctx.device), hash_table)
+                ctx.device, dm=device_manager_of(ctx)), hash_table)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.exec import outofcore as ooc
         conf = ctx.conf
         skip_ratio = float(conf.get(C.AGG_SKIP_RATIO.key))
         # the JAX package's dense composite keys (agg.denseKeys) are not
@@ -331,15 +409,31 @@ class TpuHashAggregateExec(TpuExec):
                     and self.plan.num_keys > 0)
         hash_table = (int(conf.get(C.AGG_HASH_MAX_SLOTS.key)) if use_hash
                       else None)
+        update = self._update_fn(ctx, hash_table)
+        growth = conf.capacity_growth
+        out_of_core = ooc.enabled_for(ctx) and self.plan.num_keys > 0
 
         def make(part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
+                src = part
+                if out_of_core:
+                    # streaming probe: on engagement the unconsumed tail
+                    # flows straight into the grace driver's staging pass
+                    prefix, rest, engaged = ooc.split_stream_on_budget(
+                        ctx, iter(part()))
+                    if engaged:
+                        yield from ooc.grace_aggregate(
+                            ctx, self, itertools.chain(prefix, rest),
+                            growth, update, hash_table)
+                        return
+                    src = lambda pre=prefix: iter(pre)  # noqa: E731
                 if self.mode == "partial":
-                    yield from self._partial(ctx, part, hash_table,
+                    yield from self._partial(ctx, src, update, hash_table,
                                              skip_ratio)
                     return
-                merged = concat_device(list(part()), self.plan.partial_schema,
-                                       conf.capacity_growth, ctx.device)
+                merged = concat_device(list(src()), self.plan.partial_schema,
+                                       growth, ctx.device,
+                                       dm=device_manager_of(ctx))
                 yield self._finalize(self._merge(merged, hash_table))
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]
@@ -359,7 +453,9 @@ class TpuSortExec(TpuExec):
     def describe(self) -> str:
         return f"TpuSortExec({self.orders})"
 
-    def _sort(self, batch: DeviceBatch) -> DeviceBatch:
+    def _key_batch(self, batch: DeviceBatch):
+        """(the batch with every sort key appended as a column, their
+        indices)."""
         ectx = make_context(batch)
         cols = list(batch.columns)
         key_idx = []
@@ -370,6 +466,10 @@ class TpuSortExec(TpuExec):
                                             for i in range(len(key_idx))]
         work = DeviceBatch(Schema(names, [c.dtype for c in cols]), cols,
                            batch.num_rows)
+        return work, key_idx
+
+    def _sort(self, batch: DeviceBatch) -> DeviceBatch:
+        work, key_idx = self._key_batch(batch)
         out = sortops.sort_batch(work, key_idx,
                                  [o.ascending for o in self.orders],
                                  [o.nulls_first for o in self.orders])
@@ -377,13 +477,29 @@ class TpuSortExec(TpuExec):
                            out.num_rows)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.exec import outofcore as ooc
         schema = self.output_schema()
+        growth = ctx.conf.capacity_growth
 
         def make(part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
+                if ooc.enabled_for(ctx):
+                    # a working set past the budget range-partitions onto
+                    # the spill store and sorts bucket by bucket; the
+                    # probe streams, never materializing past the budget
+                    prefix, rest, engaged = ooc.split_stream_on_budget(
+                        ctx, iter(part()))
+                    if engaged:
+                        yield from ooc.external_sort(
+                            ctx, self, itertools.chain(prefix, rest),
+                            schema, growth)
+                        return
+                    batches = prefix
+                else:
+                    batches = list(part())
                 yield self._sort(concat_device(
-                    list(part()), schema, ctx.conf.capacity_growth,
-                    ctx.device))
+                    batches, schema, growth, ctx.device,
+                    dm=device_manager_of(ctx)))
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]
 
@@ -557,8 +673,10 @@ class TpuScanExec(TpuExec):
     (``scan.device.fallbackColumns``; the JAX package's
     ``spark.rapids.sql.scan.deviceDecode``, off there by default, is not
     an option of the port). Every batch of a scan shares one dictionary
-    registry; with ``cacheDeviceScans`` a later execution replays the
-    device batches."""
+    registry; with ``cacheDeviceScans`` each uploaded batch registers in
+    the session's spill catalog (metered, spillable) and a later execution
+    replays it, faulted back where it was spilled. A partition's upload
+    takes the session's semaphore."""
 
     def __init__(self, source, schema: Schema):
         super().__init__()
@@ -576,8 +694,9 @@ class TpuScanExec(TpuExec):
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec.transitions import (
-            chain_partitions, pack_splits, scan_cache_for,
-            upload_blocked_chars, upload_frames, upload_partition,
+            cache_uploads, chain_partitions, pack_splits, replay_cached,
+            scan_cache_for, upload_blocked_chars, upload_frames,
+            upload_partition,
         )
         max_rows = ctx.conf.batch_size_rows
         cache = scan_cache_for(ctx, self.source, self._schema, max_rows)
@@ -589,21 +708,25 @@ class TpuScanExec(TpuExec):
         if split_rows is not None:
             parts = chain_partitions(parts, pack_splits(split_rows, max_rows))
 
+        # a cached batch is metered once, by the catalog it registers in
+        meter = cache is None
+
         def upload(part: Partition) -> Iterator[DeviceBatch]:
             if raw_parts is not None:
                 return upload_partition(part, self._schema, dict_state,
-                                        ctx.device, ctx.session)
+                                        ctx.device, ctx.session, meter)
             return upload_frames(part, max_rows, dict_state, ctx.device,
-                                 ctx.session)
+                                 ctx.session, meter)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
+                if ctx.session is not None:
+                    ctx.session.semaphore.acquire_if_necessary()
                 if cache is not None and i in cache:
-                    return iter(cache[i])
+                    return replay_cached(ctx.session, cache[i])
                 if cache is None:
                     return upload(part)
-                cache[i] = list(upload(part))
-                return iter(cache[i])
+                return cache_uploads(ctx.session, cache, i, upload(part))
             return run
         return [make(i, p) for i, p in enumerate(parts)]
 

@@ -49,8 +49,16 @@ single partitions, and ``TpuBroadcastNestedLoopJoinExec`` runs it for each
 stream partition against the broadcast build, then keeps the rows its
 condition holds for (one compaction, kernel B1).
 
-Capacity speculation (A.10) and out-of-core grace joins (A.8) wait for
-later slices.
+Under the memory runtime (``memory/``), as in the JAX package: the
+broadcast table lives in the session's spill catalog at the
+``OUTPUT_FOR_WRITE`` band (acquired per use, faulted back where it was
+spilled, freed at the query's end); each expanded output is metered
+against the session's device budget; and under
+``spark.rapids.tpu.outOfCore.enabled`` the shuffled join probes both
+sides' streams against ``outOfCore.partitionBytes`` (the build side first,
+the stream side against what the build left) and past it runs the grace
+join (``exec/outofcore.grace_join``), bucket by bucket through
+``build_side`` and ``probe_expand``. Capacity speculation waits for A.10.
 """
 
 from __future__ import annotations
@@ -192,15 +200,16 @@ def _empty(schema: Schema, device) -> DeviceBatch:
 
 
 def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
-                      join_type: str, stream_keys: Sequence[int],
-                      stream_is_left: bool, out_schema: Schema
-                      ) -> Iterator[DeviceBatch]:
+                 join_type: str, stream_keys: Sequence[int],
+                 stream_is_left: bool, out_schema: Schema, dm=None
+                 ) -> Iterator[DeviceBatch]:
     """Probe every stream batch against the built side, then expand: all
     expansion totals come back in one counted copy (with the dense
     route's verification flag), none for semi and anti joins off the
     dense route. Each stream batch's expansion is made only when the
     consumer asks for it, so one expanded batch at a time is alive (a
-    12x cross join of 12M rows would hold 144M at once). At least one
+    12x cross join of 12M rows would hold 144M at once), metered on
+    ``dm`` (the session's device manager) where given. At least one
     batch comes back (an empty one where the join yields no rows)."""
     build = built.batch
     if not streams:
@@ -219,8 +228,8 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                 built.dense_ok = bool(built.dense.ok.item())
             if not built.dense_ok:
                 yield from probe_expand(built, streams, join_type,
-                                             stream_keys, stream_is_left,
-                                             out_schema)
+                                        stream_keys, stream_is_left,
+                                        out_schema, dm)
                 return
         for s, (counts, _b, _p) in zip(streams, probes):
             yield join_ops.semi_anti_filter(s, counts,
@@ -240,8 +249,8 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
         built.dense_ok = bool(flat.pop())
         if not built.dense_ok:
             yield from probe_expand(built, streams, join_type,
-                                         stream_keys, stream_is_left,
-                                         out_schema)
+                                    stream_keys, stream_is_left,
+                                    out_schema, dm)
             return
     width = len(flat) // len(streams)
     sizes = [flat[i * width:(i + 1) * width] for i in range(len(streams))]
@@ -263,6 +272,8 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                 build, stream, counts, adj, bstart, bperm,
                 bucket_capacity(total), swap_sides=not stream_is_left)
             batch.host_rows = total
+            if dm is not None:
+                dm.meter_batch(batch)
             any_out = True
             yield batch
     if join_type == "full":
@@ -325,18 +336,39 @@ class TpuBroadcastExchangeExec(PhysicalPlan):
         return self.children[0].output_schema()
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        from spark_rapids_tpu_torch.exec.tpu import concat_device
+        from spark_rapids_tpu_torch.exec.tpu import (
+            concat_device, device_manager_of,
+        )
         child_parts = self.children[0].executed_partitions(ctx)
         schema = self.output_schema()
         state: dict = {}
 
-        def run() -> Iterator[DeviceBatch]:
-            if "batch" not in state:
-                state["batch"] = concat_device(
-                    [b for p in child_parts for b in p()], schema,
-                    ctx.conf.capacity_growth, ctx.device)
-            yield state["batch"]
-        return [run]
+        def materialize() -> DeviceBatch:
+            return concat_device([b for p in child_parts for b in p()],
+                                 schema, ctx.conf.capacity_growth,
+                                 ctx.device, dm=device_manager_of(ctx))
+
+        if ctx.session is None:
+            def run() -> Iterator[DeviceBatch]:
+                if "batch" not in state:
+                    state["batch"] = materialize()
+                yield state["batch"]
+            return [run]
+
+        # the broadcast table lives in the spill catalog (the reference
+        # keeps broadcasts as spillable device buffers,
+        # GpuBroadcastExchangeExec.scala:230-436): consumers acquire per
+        # use, faulting a spilled table back; the OUTPUT_FOR_WRITE band, so
+        # out-of-core buckets (OUTPUT_FOR_READ) spill first
+        def run_catalog() -> Iterator[DeviceBatch]:
+            from spark_rapids_tpu_torch.memory.spill import SpillPriorities
+            session = ctx.session
+            bid = state.get("bid")
+            if bid is None or not session.buffer_catalog.contains(bid):
+                bid = state["bid"] = session.add_transient_batch(
+                    materialize(), SpillPriorities.OUTPUT_FOR_WRITE)
+            yield session.buffer_catalog.acquire_batch(bid)
+        return [run_catalog]
 
 
 class TpuShuffledHashJoinExec(PhysicalPlan):
@@ -433,28 +465,82 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
             raise AssertionError("join children must be co-partitioned")
         return [self._builder(ctx, bp) for bp in build_parts]
 
+    # the grace join applies to co-partitioned sides (not to a broadcast
+    # build, materialized once for every stream partition)
+    _grace = True
+
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.exec import outofcore as ooc
+        from spark_rapids_tpu_torch.exec.tpu import device_manager_of
         si, skey, _bkey = self._sides()
         stream_parts = self.children[si].executed_partitions(ctx)
-        builders = self._paired_builds(
-            ctx, len(stream_parts),
-            self.children[1 - si].executed_partitions(ctx))
+        build_parts = self.children[1 - si].executed_partitions(ctx)
         schema = self.output_schema()
+        dm = device_manager_of(ctx)
+        if self._grace and ooc.join_applicable(ctx, self):
+            if len(build_parts) != len(stream_parts):
+                raise AssertionError("join children must be co-partitioned")
+            return [self._grace_partition(ctx, sp, bp)
+                    for sp, bp in zip(stream_parts, build_parts)]
+        builders = self._paired_builds(ctx, len(stream_parts), build_parts)
 
         def make(sp: Partition, built) -> Partition:
             def run() -> Iterator[DeviceBatch]:
                 side = built()
                 yield from probe_expand(side, list(sp()),
-                                             self.join_type, skey,
-                                             self._stream_is_left, schema)
+                                        self.join_type, skey,
+                                        self._stream_is_left, schema, dm)
             return run
         return [make(sp, b) for sp, b in zip(stream_parts, builders)]
+
+    def _grace_partition(self, ctx: ExecContext, sp: Partition,
+                         bp: Partition) -> Partition:
+        """One partition under out-of-core: the streaming probe on both
+        sides (never materializing past the budget). The build side is
+        consumed up to the budget; if it fits, the stream side up to what
+        it left; on engagement the unconsumed tails flow straight into the
+        grace join's staging pass, else the in-memory join runs."""
+        import itertools
+
+        from spark_rapids_tpu_torch.exec import outofcore as ooc
+        from spark_rapids_tpu_torch.exec.tpu import (
+            device_manager_of, empty_batch,
+        )
+        si, skey, bkey = self._sides()
+        growth = ctx.conf.capacity_growth
+
+        def run() -> Iterator[DeviceBatch]:
+            budget = ooc.working_set_budget(ctx)
+            bpre, brest, bover = ooc.split_stream_on_budget(
+                ctx, iter(bp()), budget)
+            if bover:
+                yield from ooc.grace_join(
+                    ctx, self, itertools.chain(bpre, brest), sp(), growth)
+                return
+            bbytes = ooc.total_batch_bytes(bpre)
+            spre, srest, sover = ooc.split_stream_on_budget(
+                ctx, iter(sp()), max(budget - bbytes, 1))
+            if sover:
+                yield from ooc.grace_join(
+                    ctx, self, bpre, itertools.chain(spre, srest), growth)
+                return
+            if not bpre:
+                bpre = [empty_batch(self.children[1 - si].output_schema(),
+                                    ctx.device)]
+            side = build_side(bpre, bkey, self.dense_plan(ctx.session))
+            yield from probe_expand(side, spre, self.join_type, skey,
+                                    self._stream_is_left,
+                                    self.output_schema(),
+                                    device_manager_of(ctx))
+        return run
 
 
 class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """reference: GpuBroadcastHashJoinExec: the broadcast side's one batch
     built into a table once per execution (B3), probed by every stream
     partition (B4). Full outer joins are never planned so."""
+
+    _grace = False
 
     def _paired_builds(self, ctx: ExecContext, n_stream: int,
                        build_parts: List[Partition]) -> list:

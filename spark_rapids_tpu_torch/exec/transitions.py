@@ -25,10 +25,18 @@
   * ``HostToDeviceExec`` and ``DeviceToHostExec`` are the transition
     operators the overrides insert at every CPU/device boundary;
     ``scan_cache_for`` is the session's device scan cache
-    (``spark.rapids.sql.cacheDeviceScans``).
+    (``spark.rapids.sql.cacheDeviceScans``), whose batches live in the
+    session's spill catalog (``cache_uploads``, ``replay_cached``).
 
-The JAX package's HBM metering, spillable cache entries, semaphore and
-double-buffered upload are not ported (ROADMAP A.8).
+Under the memory runtime (``memory/``), as in the JAX package: a scan
+batch uploaded for one execution is metered against the session's
+device budget (freed with the batch); a cached one registers in the
+catalog at the ``CACHED_SCAN`` band, so over budget it spills to host and
+disk and a later execution faults it back; a partition's upload takes
+the session's semaphore (``TpuScanExec``, ``HostToDeviceExec``). The
+JAX package's double-buffered upload (``scan.prefetchDepth``) is not
+ported: an upload from pageable memory waits for its copy anyway (one
+counted sync a batch).
 """
 
 from __future__ import annotations
@@ -71,12 +79,15 @@ def _as_rowgroup(df, schema: Schema) -> RawRowGroup:
 
 def upload_partition(part: Partition, schema: Schema,
                      dict_state: Optional[dict],
-                     device="cuda", session=None) -> Iterator[DeviceBatch]:
+                     device="cuda", session=None,
+                     meter: bool = True) -> Iterator[DeviceBatch]:
     """DeviceBatches of one scan partition. ``dict_state`` is shared by
     every partition of one scan, so all its batches agree on each string
     column's dictionary and slab stride. A row group's footer bounds of
     its integer columns (or a host split's values) join the ``session``'s
-    statistics."""
+    statistics. Each batch is metered against the session's budget unless
+    ``meter`` is off: a cached upload is metered by the catalog
+    (``cache_uploads``) instead."""
     for split in part():
         raw = split if getattr(split, "is_raw_rowgroup", False) \
             else _as_rowgroup(split, schema)
@@ -87,7 +98,15 @@ def upload_partition(part: Partition, schema: Schema,
                 note_scan_stats(session, raw.fallback_df)
         batch = decode_rowgroup(raw, schema, dict_state, device)
         batch.host_rows = raw.n
+        if meter:
+            _meter(session, batch)
         yield batch
+
+
+def _meter(session, batch: DeviceBatch) -> None:
+    """Meter an uploaded batch against the session's device budget."""
+    if session is not None:
+        session.device_manager.meter_batch(batch)
 
 
 def pack_splits(split_rows: Sequence[int], max_rows: int
@@ -133,6 +152,36 @@ def scan_cache_for(ctx: ExecContext, source, schema: Schema,
     return store[key][1]
 
 
+def cache_uploads(session, cache: dict, i: int,
+                  batches: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
+    """Pass partition ``i``'s uploads on, registering each in the session's
+    spill catalog (the ``CACHED_SCAN`` band: re-faultable, so it spills
+    before operator outputs); the partition's ids are published in
+    ``cache`` once the upload ends. An abandoned or failed upload frees
+    what it registered."""
+    from spark_rapids_tpu_torch.memory.spill import SpillPriorities
+    catalog = session.buffer_catalog
+    out: List[int] = []
+    try:
+        for batch in batches:
+            out.append(catalog.add_batch(batch,
+                                         SpillPriorities.CACHED_SCAN))
+            yield batch
+        cache[i] = out
+    finally:
+        if cache.get(i) is not out:
+            for bid in out:
+                catalog.remove(bid)
+
+
+def replay_cached(session, bids: Sequence[int]) -> Iterator[DeviceBatch]:
+    """A cached partition's batches, each faulted back to the device where
+    it was spilled."""
+    catalog = session.buffer_catalog
+    for bid in bids:
+        yield catalog.acquire_batch(bid)
+
+
 def note_scan_stats(session, df: pd.DataFrame) -> None:
     """Union each scanned integer column's (min, max) into the session's
     advisory statistics (``session.column_stats``). Called only from scan
@@ -159,13 +208,15 @@ def note_bounds(session, name: str, lo: int, hi: int) -> None:
 
 
 def upload_frames(part: Partition, max_rows: int, dict_state: dict,
-                  device, session=None) -> Iterator[DeviceBatch]:
+                  device, session=None,
+                  meter: bool = True) -> Iterator[DeviceBatch]:
     """DeviceBatches of a partition of pandas frames, at most ``max_rows``
     rows each. ``dict_state`` is shared by every partition of one upload,
     so all its batches agree on each column's dictionary. The upload of a
     batch copies from pageable host memory: one counted sync. A scan
     passes its ``session``, whose statistics each frame's integer columns
-    then join."""
+    then join, and whose budget meters each batch unless ``meter`` is off
+    (a cached upload, metered by the catalog)."""
     for df in part():
         note_scan_stats(session, df)
         for lo in range(0, max(len(df), 1), max_rows):
@@ -175,6 +226,8 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
                 batch = DeviceBatch.from_pandas(
                     chunk, dict_state, device=device,
                     slab_stride=UPLOAD_MAX_STRIDE)
+            if meter:
+                _meter(session, batch)
             yield batch
 
 
@@ -195,7 +248,12 @@ class HostToDeviceExec(PhysicalPlan):
 
         def make(part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:
-                return upload_frames(part, max_rows, dict_state, ctx.device)
+                if ctx.session is not None:
+                    ctx.session.semaphore.acquire_if_necessary()
+                for batch in upload_frames(part, max_rows, dict_state,
+                                           ctx.device):
+                    _meter(ctx.session, batch)
+                    yield batch
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]
 

@@ -1,5 +1,6 @@
-"""Process-wide counters and timers (the counter and timer part of the JAX
-package's ``obs/metrics.py``; gauges, histograms and labels wait).
+"""Process-wide counters, gauges and timers with labels (the counter, gauge
+and timer part of the JAX package's ``obs/metrics.py``; histograms and the
+snapshot export wait for ROADMAP A.11).
 
 The device Parquet scan reports through ``REGISTRY``:
 
@@ -11,16 +12,40 @@ The device Parquet scan reports through ``REGISTRY``:
   * timers ``scan.device.{prepTime,decodeTime,hostDecodeTime}``: host
     planning, device decode dispatch, host decode of fallback columns.
 
-``registry.counter(name)`` and ``registry.timer(name)`` return the same
-object for the same name, creating it on first use. Updates take one lock,
-so the scan's planning threads and the consumer can update concurrently.
+The memory runtime (``memory/``, ``exec/outofcore.py``) reports under the
+JAX package's names and labels: counters ``spill.events`` and
+``spill.bytes`` by ``direction`` (``device_to_host``, ``host_to_disk``),
+``spill.faultBacks`` by ``tier``, ``spill.diskWriteFailures``,
+``ooc.operators`` and ``ooc.fanout`` by ``op``; gauges
+``memory.liveBuffers``, ``memory.liveBytes``, ``memory.tier.bytes`` and
+``memory.tier.buffers`` by ``tier``, ``semaphore.holders``.
+
+``registry.counter(name, **labels)``, ``registry.gauge(...)`` and
+``registry.timer(...)`` return the same object for the same name and
+labels, creating it on first use; ``registry.value(name, **labels)`` reads
+one (0 before its first use). Updates take one lock, so the scan's
+planning threads and the consumer can update concurrently. ``values()``
+keys an unlabeled metric by its name and a labeled one as
+``name{k=v,...}``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Tuple, Union
+from typing import Any, Dict, Tuple, Union
+
+LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(labels: Dict[str, Any]) -> LabelKey:
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _display(name: str, key: LabelKey) -> str:
+    if not key:
+        return name
+    return name + "{" + ",".join(f"{k}={v}" for k, v in key) + "}"
 
 
 class Counter:
@@ -34,6 +59,26 @@ class Counter:
     def add(self, n=1) -> None:
         with self._lock:
             self._value += n
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """A value set from outside (``set``), e.g. resident bytes."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, lock: threading.Lock):
+        self.name = name
+        self._lock = lock
+        self._value = 0
+
+    def set(self, v) -> None:
+        with self._lock:
+            self._value = v
 
     @property
     def value(self):
@@ -80,33 +125,46 @@ class _TimerCtx:
         return False
 
 
-Metric = Union[Counter, Timer]
+Metric = Union[Counter, Gauge, Timer]
 
 
 class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics: Dict[Tuple[str, str], Metric] = {}
+        self._metrics: Dict[Tuple[str, str, LabelKey], Metric] = {}
 
-    def _get(self, cls, name: str) -> Metric:
+    def _get(self, cls, name: str, labels: Dict[str, Any]) -> Metric:
+        key = (cls.kind, name, _label_key(labels))
         with self._lock:
-            m = self._metrics.get((cls.kind, name))
+            m = self._metrics.get(key)
             if m is None:
                 m = cls(name, self._lock)
-                self._metrics[(cls.kind, name)] = m
+                self._metrics[key] = m
             return m
 
-    def counter(self, name: str) -> Counter:
-        return self._get(Counter, name)
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(Counter, name, labels)
 
-    def timer(self, name: str) -> Timer:
-        return self._get(Timer, name)
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(Gauge, name, labels)
+
+    def timer(self, name: str, **labels) -> Timer:
+        return self._get(Timer, name, labels)
+
+    def value(self, name: str, **labels):
+        """The value of the counter, gauge or timer ``name`` with exactly
+        these labels; 0 where none exists."""
+        key = _label_key(labels)
+        with self._lock:
+            found = [m for (_k, n, lk), m in self._metrics.items()
+                     if n == name and lk == key]
+        return found[0].value if found else 0
 
     def values(self) -> Dict[str, float]:
         """{name: value} of every metric (timers: total seconds)."""
         with self._lock:
-            metrics = list(self._metrics.values())
-        return {m.name: m.value for m in metrics}
+            items = list(self._metrics.items())
+        return {_display(n, lk): m.value for (_k, n, lk), m in items}
 
 
 def delta(before: Dict[str, float], after: Dict[str, float]

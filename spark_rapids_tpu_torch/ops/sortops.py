@@ -1,6 +1,6 @@
 """Multi-key sort (counterpart of the JAX package's ``ops/sortops.py``:
-order-preserving key images, the lexicographic sort permutation and the
-within-batch Sort; range partitioning waits for the shuffle slice).
+order-preserving key images, the lexicographic sort permutation, the
+within-batch Sort and the range partition ids of the external sort).
 
 Images are int64 tensors holding the JAX package's uint64 images bit for
 bit (see ops/hashing.py for the int64 convention). ``torch.sort`` on int64
@@ -155,3 +155,32 @@ def sort_batch(batch: DeviceBatch, key_indices: Sequence[int],
                nulls_first: Sequence[bool]) -> DeviceBatch:
     perm = sort_permutation(batch, key_indices, ascending, nulls_first)
     return gather_batch(batch, perm, batch.num_rows)
+
+
+def range_partition_ids(batch: DeviceBatch, key_indices: Sequence[int],
+                        ascending: Sequence[bool],
+                        nulls_first: Sequence[bool],
+                        bounds: List[torch.Tensor]) -> torch.Tensor:
+    """Partition id per row for range partitioning (reference:
+    GpuRangePartitioner.scala:42-120): the number of upper bounds the row
+    is strictly greater than, compared lexicographically over the sort-key
+    operand vectors (unsigned, as the sort orders them; dictionary strings
+    by their values, since the bounds come from other batches).
+    ``bounds`` holds one (n-1,) int64 vector of uint64 patterns per
+    operand. Returns int64 (capacity,). One bound at a time, so the
+    working memory stays a few capacity-long vectors."""
+    operands = [o ^ _SIGN for o in sort_key_operands(
+        batch, key_indices, ascending, nulls_first)]
+    pid = torch.zeros(batch.capacity, dtype=torch.int64, device=batch.device)
+    nb = bounds[0].shape[0] if bounds else 0
+    flipped = [b ^ _SIGN for b in bounds]
+    for j in range(nb):
+        gt = torch.zeros(batch.capacity, dtype=torch.bool,
+                         device=batch.device)
+        eq = torch.ones_like(gt)
+        for o, b in zip(operands, flipped):
+            bj = b[j]
+            gt = gt | (eq & (o > bj))
+            eq = eq & (o == bj)
+        pid += gt
+    return pid

@@ -22,9 +22,21 @@ join (``on=None``) and a join on a boolean condition (``on=<Column>``, the
 broadcast nested-loop join, on the device only where
 ``spark.rapids.sql.exec.BroadcastNestedLoopJoinExec`` is set true).
 
+The memory runtime (``memory/``) is the JAX package's: each session holds
+a device budget meter (``device_manager``, ``allocFraction`` of the card's
+memory), the task semaphore (``concurrentTpuTasks``), the spill catalog
+(``buffer_catalog``: device -> host arena of ``spillStorageSize`` -> disk)
+and the handler that spills it when an allocation passes the budget
+(``memory_event_handler``). Cached scan batches, broadcast tables, reused
+subtrees and out-of-core buckets live in the catalog; the per-query ones
+(``add_transient_batch``) are freed when the query ends, and
+``last_query_metrics["memory"]`` holds the query's spills by direction.
+``stop()`` closes the catalog. Under ``spark.rapids.tpu.outOfCore.enabled``
+the join, aggregate and sort run out of core past
+``outOfCore.partitionBytes`` (``exec/outofcore.py``).
+
 Left out of the JAX package's session, each a later ROADMAP item: the
-device manager, semaphore, spill catalog and OOM handling (A.8); the mesh,
-shuffle environments and encoded-page cache (A.7, A.9); AQE and the
+mesh, shuffle environments and encoded-page cache (A.7, A.9); AQE and the
 speculation verification (A.10; the within-query subtree reuse is
 ported, ``exec/reuse.py``); tracing, the event journal, metrics
 snapshots, the compile cache and prewarm, and the serving caches (A.11);
@@ -34,12 +46,15 @@ window expressions (``F.row_number().over(Window.partition_by(...))``).
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import pandas as pd
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
-from spark_rapids_tpu_torch.config.conf import FUSE_COUNT_DISTINCT, TpuConf
+from spark_rapids_tpu_torch.config.conf import (
+    FUSE_COUNT_DISTINCT, SPILL_DIR, TpuConf,
+)
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
 from spark_rapids_tpu_torch.sql import plan as lp
@@ -49,6 +64,8 @@ from spark_rapids_tpu_torch.sql.functions import Column, SortOrder, _c, _expr
 from spark_rapids_tpu_torch.sql.functions import col as col_fn
 from spark_rapids_tpu_torch.sql.planner import Planner
 from spark_rapids_tpu_torch.sql.sources import InMemorySource, ParquetSource
+
+_SPILL_DIRECTIONS = ("device_to_host", "host_to_disk")
 
 # join type aliases of DataFrame.join
 _JOIN_ALIASES = {"outer": "full", "full_outer": "full", "left_outer": "left",
@@ -74,6 +91,29 @@ class TpuSparkSession:
         # alias -> {source column names} of rename-only projections, so
         # the statistics resolve through ``.alias(...)``
         self.column_aliases: Dict[str, set] = {}
+        # the memory runtime: cached scan batches register in the catalog,
+        # and a metered allocation past the budget spills them device ->
+        # host -> disk (GpuShuffleEnv.initStorage +
+        # DeviceMemoryEventHandler.scala:65-89)
+        from spark_rapids_tpu_torch.memory.device import TpuDeviceManager
+        from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
+        from spark_rapids_tpu_torch.memory.spill import (
+            BufferCatalog, MemoryEventHandler,
+        )
+        self.device_manager = TpuDeviceManager(conf, device)
+        self.semaphore = TpuSemaphore(conf.concurrent_tpu_tasks)
+        self.buffer_catalog = BufferCatalog(
+            conf.host_spill_storage_size,
+            disk_dir=str(conf.get(SPILL_DIR.key) or "") or None,
+            device_manager=self.device_manager, device=device)
+        self.memory_event_handler = MemoryEventHandler(
+            self.buffer_catalog.device_store)
+        self.device_manager.register_oom_handler(self.memory_event_handler)
+        # transient spillables registered outside any query
+        self._transient_bids: set = set()
+        # the ExecContext of the query executing on this thread
+        self._exec_scope = threading.local()
+        self.last_query_metrics: dict = {}
 
     class Builder:
         def __init__(self):
@@ -99,7 +139,59 @@ class TpuSparkSession:
         self.conf.set(key, value)
 
     def clear_device_cache(self) -> None:
+        for _source, parts in self.device_scan_cache.values():
+            for bids in parts.values():
+                for bid in bids:
+                    self.buffer_catalog.remove(bid)
         self.device_scan_cache.clear()
+
+    def stop(self) -> None:
+        """Tear the session down: free cached and spilled buffers, detach
+        the spill handler and close the catalog (its arena and spill
+        files)."""
+        self.clear_device_cache()
+        self.release_transient_buffers()
+        self.device_manager.unregister_oom_handler(self.memory_event_handler)
+        self.buffer_catalog.close()
+
+    # --- per-query spillables ------------------------------------------------
+    def _current_ctx(self):
+        """The ExecContext of the query executing on this thread, or
+        None."""
+        return getattr(self._exec_scope, "ctx", None)
+
+    def register_transient(self, bid: int) -> int:
+        ctx = self._current_ctx()
+        if ctx is not None:
+            ctx.transient_bids.add(bid)
+        else:
+            self._transient_bids.add(bid)
+        return bid
+
+    def add_transient_batch(self, batch, priority: int) -> int:
+        """Register a per-query spillable in the catalog and in the query's
+        transient set in one step (an add_batch alone would pin the buffer
+        in the catalog past the query's end)."""
+        return self.register_transient(
+            self.buffer_catalog.add_batch(batch, priority))
+
+    def consume_transient(self, bid: int) -> None:
+        ctx = self._current_ctx()
+        if ctx is not None:
+            ctx.transient_bids.discard(bid)
+        self._transient_bids.discard(bid)
+        self.buffer_catalog.remove(bid)
+
+    def release_transient_buffers(self, ctx=None) -> None:
+        """Free the per-query spillables a query did not consume: with a
+        context, that query's; without one, those registered outside any
+        query."""
+        if ctx is not None:
+            bids, ctx.transient_bids = set(ctx.transient_bids), set()
+        else:
+            bids, self._transient_bids = set(self._transient_bids), set()
+        for bid in bids:
+            self.buffer_catalog.remove(bid)
 
     # --- data --------------------------------------------------------------
     def create_dataframe(self, df: pd.DataFrame,
@@ -168,9 +260,43 @@ class TpuSparkSession:
         """Plan and run ``logical``: the output pandas frames, or with
         ``collect=False`` the output partitions' DeviceBatches (for a
         device plan), the query up to its collect."""
+        from spark_rapids_tpu_torch.obs.metrics import REGISTRY
         plan = self.physical_plan(logical)
         ctx = ExecContext(self.conf, self, self.device)
-        return self._drain(plan, ctx, collect)
+        prev = self._current_ctx()
+        self._exec_scope.ctx = ctx
+        before = {d: (REGISTRY.value("spill.events", direction=d),
+                      REGISTRY.value("spill.bytes", direction=d))
+                  for d in _SPILL_DIRECTIONS}
+        try:
+            return self._drain(plan, ctx, collect)
+        finally:
+            self.release_transient_buffers(ctx)
+            self.semaphore.release()
+            self._exec_scope.ctx = prev
+            self.last_query_metrics = {"memory": self._memory_metrics(
+                before)}
+
+    def _memory_metrics(self, before: dict) -> dict:
+        """The memory runtime's state after a query and the spills it
+        made by direction (events and bytes)."""
+        from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+        cat = self.buffer_catalog
+        mem = {
+            "allocatedBytes": self.device_manager.allocated,
+            "spillCount": self.memory_event_handler.spill_count,
+            "deviceStoreBytes": cat.device_store.total_size,
+            "hostStoreBytes": cat.host_store.total_size,
+            "diskStoreBytes": cat.disk_store.total_size,
+        }
+        for d in _SPILL_DIRECTIONS:
+            ev0, by0 = before[d]
+            mem[f"spillEvents.{d}"] = (
+                REGISTRY.value("spill.events", direction=d) - ev0)
+            mem[f"spillBytes.{d}"] = (
+                REGISTRY.value("spill.bytes", direction=d) - by0)
+        cat.publish_metrics()
+        return mem
 
     def _drain(self, plan, ctx: ExecContext, collect: bool = True) -> list:
         outs = [x for part in plan.executed_partitions(ctx) for x in part()]

@@ -1,12 +1,15 @@
 """Warm walls of the session's upload-path queries, for comparing two
-checkouts on one card: Q1 and Q6 at SF10 (2^23-row batches) and the Q18
-group-by at SF1 (2^22-row batches, ``tpch.HASH_AGG_CONFS``), each through
-``TpuSparkSession`` in test mode with cached device scans, as
-``chip_smoke.py`` runs them. Each query runs once cold (the upload), then
-``--runs`` times, synchronized; prints one JSON line per query with the
-median and every run, then the card's name and power limit.
+checkouts on one card: Q1 and Q6 at SF10 (2^23-row batches), the Q18
+group-by at SF1 (2^22-row batches, ``tpch.HASH_AGG_CONFS``) and the
+Mortgage ``aggregates_with_join`` at SF 500 (2^20-row batches,
+``mortgage.ETL_CONFS``), each through ``TpuSparkSession`` in test mode
+with cached device scans, as ``chip_smoke.py`` runs them. Each query runs
+once cold (the upload), then ``--runs`` times, synchronized; prints one
+JSON line per query with the median and every run, then the card's name
+and power limit.
 
-    python3 spark_rapids_tpu_torch/tools/session_walls.py --root CHECKOUT
+    python3 spark_rapids_tpu_torch/tools/session_walls.py --root CHECKOUT \
+        [--queries q1 q6 q18_groupby mortgage_aggregates_with_join]
 
 ``--root`` imports the port from another checkout (run this file by its
 path); alternate the checkouts in one call (parent, tree, tree, parent):
@@ -27,10 +30,15 @@ import numpy as np
 import torch
 
 
+QUERIES = ("q1", "q6", "q18_groupby", "mortgage_aggregates_with_join")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout whose port to import")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--queries", nargs="+", choices=QUERIES,
+                    default=list(QUERIES))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root) if args.root
                     else str(Path(__file__).resolve().parents[2]))
@@ -68,17 +76,32 @@ def main() -> None:
                           "wall_runs_s": walls, "cold_s": cold}),
               flush=True)
 
-    df = G.gen_lineitem(10)
-    s = session(1 << 23)
-    t = {"lineitem": s.create_dataframe(df)}
-    timed("session_q1", T.q1(s, t), 10)
-    timed("session_q6", T.q6(s, t), 10)
-    del s, t, df
-    torch.cuda.empty_cache()
-    df = G.gen_lineitem(1)
-    s = session(1 << 22, **T.HASH_AGG_CONFS)
-    timed("session_q18_groupby",
-          T.q18_groupby(s, {"lineitem": s.create_dataframe(df)}), 1)
+    want = set(args.queries)
+    if want & {"q1", "q6"}:
+        df = G.gen_lineitem(10)
+        s = session(1 << 23)
+        t = {"lineitem": s.create_dataframe(df)}
+        for q in ("q1", "q6"):
+            if q in want:
+                timed(f"session_{q}", getattr(T, q)(s, t), 10)
+        del s, t, df
+        torch.cuda.empty_cache()
+    if "q18_groupby" in want:
+        df = G.gen_lineitem(1)
+        s = session(1 << 22, **T.HASH_AGG_CONFS)
+        timed("session_q18_groupby",
+              T.q18_groupby(s, {"lineitem": s.create_dataframe(df)}), 1)
+        del s, df
+        torch.cuda.empty_cache()
+    if "mortgage_aggregates_with_join" in want:
+        from spark_rapids_tpu_torch.models import mortgage as M
+        from spark_rapids_tpu_torch.models import mortgage_data as MD
+        perf, acq = MD.gen_performance(500), MD.gen_acquisition(500)
+        s = session(1 << 20, **M.ETL_CONFS)
+        timed("session_mortgage_aggregates_with_join",
+              M.run_query("aggregates_with_join", s,
+                          s.create_dataframe(perf),
+                          s.create_dataframe(acq)), 500)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

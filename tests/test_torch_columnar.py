@@ -244,6 +244,17 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import spark_rapids_tpu_torch.testing.tpcxbbcases\n"
         "import spark_rapids_tpu_torch.sql.exprs.mathexprs\n"
         "import spark_rapids_tpu_torch.sql.exprs.nullexprs\n"
+        "import spark_rapids_tpu_torch.memory.device\n"
+        "import spark_rapids_tpu_torch.memory.leak\n"
+        "import spark_rapids_tpu_torch.memory.semaphore\n"
+        "import spark_rapids_tpu_torch.memory.spill\n"
+        "import spark_rapids_tpu_torch.nativelib\n"
+        "import spark_rapids_tpu_torch.parallel.distributed\n"
+        "import spark_rapids_tpu_torch.exec.outofcore\n"
+        "import importlib, pkgutil, spark_rapids_tpu_torch\n"
+        "for m in pkgutil.walk_packages(spark_rapids_tpu_torch.__path__,\n"
+        "                               'spark_rapids_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import tempfile\n"
         "out = Q.run_q1(G.gen_lineitem(0.0005), 1024, device='cpu')\n"
         "assert len(out) == 6, out\n"
@@ -260,6 +271,13 @@ def test_port_imports_no_jax_and_no_reference_package():
         "ss = TpuSparkSession.builder().device('cpu').get_or_create()\n"
         "t = {'lineitem': ss.create_dataframe(fr['lineitem'])}\n"
         "assert len(T.q1(ss, t).collect()) == 6\n"
+        "oo = TpuSparkSession.builder().device('cpu').config(\n"
+        "    'spark.rapids.tpu.outOfCore.enabled', True).config(\n"
+        "    'spark.rapids.tpu.outOfCore.partitionBytes', 4096\n"
+        "    ).get_or_create()\n"
+        "t = {'lineitem': oo.create_dataframe(fr['lineitem'])}\n"
+        "assert len(T.q1(oo, t).collect()) == 6\n"
+        "oo.stop()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

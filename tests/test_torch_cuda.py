@@ -1257,3 +1257,72 @@ def test_mortgage_query_on_the_card(cuda_device, name):
                              s.create_dataframe(acq)).collect()
     mortgagecases.same_answer(
         name, got, mortgagecases.pandas_reference(name, perf, acq))
+
+
+def _spill_batch(n, device, seed=0):
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+    rng = np.random.default_rng(seed)
+    return DeviceBatch.from_pandas(pd.DataFrame({
+        "a": rng.integers(0, 1 << 40, n),
+        "b": rng.normal(size=n),
+        "s": np.array([f"k{i % 1000:04d}" for i in range(n)], dtype=object),
+    }), {}, device=device, slab_stride=64)
+
+
+@pytest.mark.cuda
+def test_spill_frees_device_bytes(cuda_device, tmp_path):
+    """A device -> host spill drops every device tensor of the batch:
+    ``torch.cuda.memory_allocated()`` falls by at least the spilled bytes,
+    and the fault-back gives the same rows."""
+    from spark_rapids_tpu_torch.memory.spill import BufferCatalog
+    batch = _spill_batch(1 << 22, cuda_device)
+    want = batch.to_pandas()
+    c = BufferCatalog(host_limit_bytes=1 << 30, disk_dir=str(tmp_path),
+                      device="cuda")
+    try:
+        bid = c.add_batch(batch)
+        size = batch.device_memory_size()
+        del batch
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        assert c.device_store.synchronous_spill(0) == size
+        assert before - torch.cuda.memory_allocated() >= size
+        assert c.host_store.arena.pinned
+        pd.testing.assert_frame_equal(c.acquire_batch(bid).to_pandas(), want)
+    finally:
+        c.close()
+
+
+@pytest.mark.cuda
+def test_pinned_extent_not_reused_before_its_copy_ends(cuda_device,
+                                                       tmp_path):
+    """The fault-back copies out of the pinned arena asynchronously: its
+    extents go back to the pool only once the copy's event completes. With
+    the copy held behind a long kernel, a new allocation of the whole
+    arena waits for it (one counted sync), so overwriting the pool cannot
+    reach the rows in flight."""
+    from spark_rapids_tpu_torch.memory.spill import BufferCatalog
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    batch = _spill_batch(1 << 14, cuda_device, seed=1)
+    want = batch.to_pandas()
+    c = BufferCatalog(host_limit_bytes=1 << 20, disk_dir=str(tmp_path),
+                      device="cuda")
+    arena = c.host_store.arena
+    try:
+        bid = c.add_batch(batch)
+        del batch
+        c.device_store.synchronous_spill(0)
+        assert arena.allocated > 0
+        torch.cuda._sleep(500_000_000)  # the copy queues behind this
+        got = c.acquire_batch(bid)
+        assert arena.allocated > 0  # parked, not free
+        before = SYNCS.syncs.get("spill.arenaReuse", 0)
+        off = arena.alloc(arena.capacity)
+        assert off == 0
+        assert SYNCS.syncs.get("spill.arenaReuse", 0) == before + 1
+        arena.view(off, arena.capacity).fill_(0xFF)
+        torch.cuda.synchronize()
+        pd.testing.assert_frame_equal(got.to_pandas(), want)
+        arena.free(off)
+    finally:
+        c.close()
