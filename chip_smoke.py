@@ -41,8 +41,14 @@ port's main path through its query runners:
     global string min, TPC-H Q10, Q17, Q18 and Q21 at SF10 (sorted
     payload), and the Q18 group-by at SF1 beside its B2 run, each against
     pandas, the branches taken read from ``ops/aggregate.BRANCHES``;
-  * then the 14 other TPC-H queries at SF10, a string phase, Q9 from
-    Parquet and the 19 TPCxBB queries at SF 250;
+  * then the 14 other TPC-H queries at SF10, a string phase, the
+    plain-strings phase (``plain_strings_phase``: TPCxBB Q28's plan over
+    2^21 reviews of lognormal lengths with 1 MiB outliers, uploaded as
+    plain offsets and chars, a group-by, an order-by, and locate and
+    replace over the review text, each equal to pandas, and the string
+    functions and casts of ``testing/stringcases.py`` over a plain column
+    at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
+    TPCxBB queries at SF 200;
   * the four Mortgage queries (``models/mortgage.py``) through the
     session in 2^20-row batches, the ETL at SF 250 (6M performance rows
     expanded 12 times) and the other three at SF 500, each against its
@@ -64,8 +70,9 @@ Each query also runs up to its collect under PyTorch's sync debug mode
 (``obs/syncledger.sync_scope``): a query counts one per expanding join
 (Q3 2, Q10 3, Q17 3, Q18 2, Q21 5), one per row-space aggregation (its
 slot attempt's verdict) and one per concat past 2^27 padded rows (its live
-total: the Mortgage ETL's final merge at SF 500), none otherwise, and a Parquet
-scan one per row group (its upload).
+total: the Mortgage ETL's final merge at SF 500), one per exact image of
+plain strings (its count of rows tying on 64 bytes), none otherwise, and a
+Parquet scan one per row group (its upload).
 
 B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
 group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
@@ -101,6 +108,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1944,9 +1952,17 @@ def tpcxbb_phase(sf, batch_rows: int, runs: int, queries: dict,
 def _same_columns(card, cpu, what: str) -> None:
     """Two device columns equal where valid, with the same validity:
     values exact; strings in the same form (dictionary codes and values,
-    or slab words and lengths)."""
+    slab words and lengths, or plain offsets and chars)."""
     valid = card.validity.cpu()
     require(torch.equal(valid, cpu.validity), f"{what}: validity differs")
+    if card.dtype.is_string and cpu.is_plain:
+        off = card.offsets.cpu()
+        total = int(off[-1])
+        require(card.is_plain and torch.equal(off, cpu.offsets)
+                and torch.equal(card.chars[:total].cpu(),
+                                cpu.chars[:total]),
+                f"{what}: plain strings differ")
+        return
     if card.dtype.is_string:
         if cpu.dict_values is not None:
             require(card.dict_values == cpu.dict_values
@@ -2037,6 +2053,245 @@ def string_phase(rows: int, runs: int, report: dict) -> dict:
         f"CPU session; card {rec['wall_s']:.4f} s (cold {cold:.1f} s), "
         f"CPU session {cpu_s:.1f} s")
     report["string_phase"] = rec
+    return rec
+
+
+# the plain-strings phase: TPCxBB product reviews of lognormal lengths
+# (median 256 bytes, clipped to [1, 65536]) plus 1 MiB outliers, and the
+# function cases' rows
+PLAIN_REVIEWS = 1 << 21
+PLAIN_OUTLIERS = 8
+# cut from 2^20 for the smoke's time: the CPU session of the function cases
+# took 114.3 s there, 22.9 s at 2^18 (PERF.md §4)
+PLAIN_FUNCTION_ROWS = 1 << 16
+# the share of reviews opening with one 80-byte boilerplate (ties on 64
+# bytes that the exact images settle) and of reviews repeating another's
+PLAIN_BOILER = 0.1
+PLAIN_REPEATS = 0.02
+# counted syncs each cell makes before its collect, by site: an exact
+# image of plain strings reads its tie count once (``strings.tieSettle``:
+# the group-by's sorted-payload reduce, the sort, and the function cases'
+# five comparisons of the plain column with another column, greatest
+# comparing twice); Q28 sorts by (split, pr_review_sk), which needs no
+# tie count, and its union concatenates two filtered halves that each
+# keep the upload's char capacity, so past ``rowops.CONCAT_SHRINK_CHARS``
+# (as at 2^21 reviews) the concat reads their live char totals once;
+# locate and replace over the reviews read nothing
+PLAIN_SYNCS = {"q28": {"concat.charTotals": 1},
+               "group_by": {"strings.tieSettle": 1},
+               "order_by_desc": {"strings.tieSettle": 1},
+               "review_functions": {},
+               "functions": {"strings.tieSettle": 6}}
+# the review functions' patterns: "the" opens a tenth of the reviews'
+# boilerplate, "we " grows by two bytes as "they "
+PLAIN_LOCATE = "the"
+PLAIN_REPLACE = ("we ", "they ")
+
+
+def review_frame(n: int, outliers: int, seed: int = 28):
+    """TPCxBB ``product_reviews`` with ``n`` reviews whose text lengths
+    are seeded lognormal (median 256 bytes, clipped to [1, 65536]), plus
+    ``outliers`` reviews of 1 MiB; a tenth open with one 80-byte
+    boilerplate, 2% repeat another review. Built as one byte buffer (pyarrow
+    strings from offsets and chars)."""
+    import pandas as pd
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.rint(rng.lognormal(np.log(256.0), 0.75, n)), 1,
+                   65536).astype(np.int64)
+    lens[rng.choice(n, outliers, replace=False)] = 1 << 20
+    boiler_rows = np.flatnonzero((rng.random(n) < PLAIN_BOILER)
+                                 & (lens >= 80))
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    chars = alphabet[rng.integers(0, len(alphabet), int(offsets[-1]),
+                                  dtype=np.uint8)]
+    boiler = np.frombuffer(b"We bought this for the kitchen and after two "
+                           b"weeks of daily use we can say that ", np.uint8)
+    chars[offsets[boiler_rows][:, None] + np.arange(80)[None, :]] = boiler
+    text = pa.LargeStringArray.from_buffers(
+        n, pa.py_buffer(offsets), pa.py_buffer(chars)).to_numpy(
+            zero_copy_only=False)
+    rep_rows = np.flatnonzero(rng.random(n) < PLAIN_REPEATS)
+    text[rep_rows] = text[rng.integers(0, n, len(rep_rows))]
+    return pd.DataFrame({
+        "pr_review_sk": np.arange(1, n + 1, dtype=np.int64),
+        "pr_review_rating": rng.integers(1, 6, n).astype(np.int32),
+        "pr_item_sk": rng.integers(1, 1 << 16, n).astype(np.int64),
+        "pr_user_sk": rng.integers(1, 1 << 20, n).astype(np.int64),
+        "pr_review_content": text,
+    })
+
+
+def _syncs_by_site(fn) -> dict:
+    """``count_syncs(fn)``, by ``sync_scope`` site."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    before = dict(SYNCS.syncs)
+    count_syncs(fn)
+    return {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+            if v != before.get(k, 0)}
+
+
+def _plain_cell(name: str, query, runs: int, report: dict,
+                syncs: Optional[dict] = None) -> tuple:
+    """A plain-strings cell: cold run (upload) with the collect, whose
+    answer it returns, ``runs`` warm ones up to the collect timed, then
+    the query up to its collect under the sync debug mode "error", its
+    counted syncs by site required to be ``syncs`` (by default
+    ``PLAIN_SYNCS[name]``)."""
+    want_syncs = PLAIN_SYNCS[name] if syncs is None else syncs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = query.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    _b, walls, launches = run_query(f"plain {name}", query.collect_batches,
+                                    runs)
+    syncs = _syncs_by_site(query.collect_batches)
+    require(syncs == want_syncs, f"plain {name}: counted syncs "
+            f"{syncs}, expected {want_syncs}")
+    rec = {"wall_s": float(np.median(walls)), "wall_runs_s": walls,
+           "cold_s": cold, "launches": launches, "syncs": syncs,
+           "rows_out": len(out), "fallbacks": 0}
+    report[name] = rec
+    return out, rec
+
+
+def plain_strings_phase(quick: bool, runs: int, report: dict) -> dict:
+    """Plain offsets+chars strings on the card (C.6's repair): (a) TPCxBB
+    Q28's plan through the session over ``PLAIN_REVIEWS`` reviews with 1
+    MiB outliers (as a slab at the longest value's stride the text would
+    ask rows x 1 MiB), a group-by count over the text (its repeated
+    reviews), an order-by on the text descending, and ``locate`` and
+    ``replace`` over the text, each equal to pandas (Q28 in the query's
+    order, column by column);
+    (b) the function and cast cases of ``testing/stringcases.py`` over its
+    plain column at ``PLAIN_FUNCTION_ROWS`` rows, every output column
+    equal to the CPU session's. Test mode, cached uploads, syncs as
+    ``PLAIN_SYNCS``."""
+    from spark_rapids_tpu_torch.columnar.column import slab_stride_for
+    from spark_rapids_tpu_torch.models import tpcxbb as B
+    from spark_rapids_tpu_torch.ops import rowops
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.testing import stringcases
+    from spark_rapids_tpu_torch.testing import tpcxbbcases as C
+    n = 1 << 14 if quick else PLAIN_REVIEWS
+    rec: dict = {"reviews": n}
+    t0 = time.perf_counter()
+    reviews = review_frame(n, 2 if quick else PLAIN_OUTLIERS)
+    rec["gen_s"] = time.perf_counter() - t0
+    lens = reviews.pr_review_content.str.len().to_numpy()
+    rec["content_bytes"] = int(lens.sum())
+    sess = session_of(n)
+    t = sess.create_dataframe(reviews)
+    cells: dict = {}
+    t0 = time.perf_counter()
+    want = C.pandas_reference("q28", {"product_reviews": reviews})
+    rec["q28_pandas_s"] = time.perf_counter() - t0
+    # the union's concat reads live char totals only past the shrink
+    # (``--quick``'s reviews stay under it)
+    q28_syncs = (PLAIN_SYNCS["q28"] if 2 * rec["content_bytes"]
+                 > rowops.CONCAT_SHRINK_CHARS else {})
+    out, cell = _plain_cell("q28", B.q28(sess, {"product_reviews": t}),
+                            runs, cells, q28_syncs)
+    # the content column as the scan cached it, beside the slab C.1's rule
+    # (the longest value's power-of-two stride) would have asked for
+    cols = [b.column("pr_review_content") for _src, parts in
+            sess.device_scan_cache.values() for bids in parts.values()
+            for b in (sess.buffer_catalog.acquire_batch(i) for i in bids)]
+    require(len(cols) == 1 and cols[0].is_plain,
+            "plain phase: the review text did not upload as one plain column")
+    rec["device_bytes"] = sum(t_.numel() * t_.element_size()
+                              for t_ in (cols[0].chars, cols[0].offsets,
+                                         cols[0].validity))
+    rec["c1_slab_bytes"] = cols[0].capacity * (
+        slab_stride_for(int(lens.max()), 1 << 40) + 4 + 1)
+    del cols
+    log(f"plain phase: {n} reviews, {rec['content_bytes']} bytes of text "
+        f"(longest {int(lens.max())}), generated in {rec['gen_s']:.1f} s; "
+        f"the uploaded column holds {rec['device_bytes']} device bytes "
+        f"where C.1's slab would ask {rec['c1_slab_bytes']}")
+    require(len(out) == n and list(out.columns) == list(want.columns),
+            "plain Q28: rows or columns differ")
+    for c in want.columns:  # elementwise in numpy: 2^21 texts compare fast
+        require(np.array_equal(out[c].to_numpy(object),
+                               want[c].to_numpy(object)),
+                f"plain Q28: column {c} differs from pandas")
+    del out, want
+    content = SF_.col("pr_review_content")
+    t0 = time.perf_counter()
+    counts = reviews.pr_review_content.value_counts()
+    dups = counts[counts > 1]
+    rec["group_by_pandas_s"] = time.perf_counter() - t0
+    out, cell = _plain_cell("group_by", t.group_by("pr_review_content").agg(
+        SF_.count("*").alias("n")).filter(SF_.col("n") > 1), runs, cells)
+    require(len(out) == len(dups) > 0, f"plain group-by: {len(out)} "
+            f"repeated reviews, pandas {len(dups)}")
+    got = dict(zip(out.pr_review_content, out.n))
+    require(all(got.get(k) == v for k, v in dups.items()),
+            "plain group-by: counts differ from pandas")
+    t0 = time.perf_counter()
+    order = reviews.sort_values(["pr_review_content", "pr_review_sk"],
+                                ascending=[False, True]).pr_review_sk
+    rec["order_by_pandas_s"] = time.perf_counter() - t0
+    out, cell = _plain_cell("order_by_desc", t.order_by(
+        content.desc(), "pr_review_sk").select("pr_review_sk"), runs, cells)
+    require(out.pr_review_sk.tolist() == order.tolist(),
+            "plain order-by: order differs from pandas")
+    del out, order
+    t0 = time.perf_counter()
+    text = reviews.pr_review_content
+    want_at = (text.str.find(PLAIN_LOCATE) + 1).to_numpy()
+    want_text = text.str.replace(*PLAIN_REPLACE, regex=False).to_numpy()
+    rec["review_functions_pandas_s"] = time.perf_counter() - t0
+    out, cell = _plain_cell("review_functions", t.select(
+        "pr_review_sk", SF_.locate(PLAIN_LOCATE, content).alias("at"),
+        SF_.replace(content, *PLAIN_REPLACE).alias("text")), runs, cells)
+    out = out.sort_values("pr_review_sk")
+    require(np.array_equal(out["at"].to_numpy(np.int64), want_at),
+            "plain locate: positions differ from pandas")
+    require(np.array_equal(out["text"].to_numpy(object), want_text),
+            "plain replace: texts differ from pandas")
+    rec["review_functions_hits"] = int((want_at > 0).sum())
+    sess.clear_device_cache()
+    del t, sess, reviews, text, out, want_at, want_text
+    torch.cuda.empty_cache()
+
+    # (b) the function and cast cases over the plain column
+    rows = 1 << 14 if quick else PLAIN_FUNCTION_ROWS
+    frame = stringcases.string_frame(rows)
+    table = dict(stringcases.FUNCTION_CASES, **stringcases.parse_cases())
+    card_sess = session_of(rows, **stringcases.PARSE_CONF)
+    cpu_b = (TpuSparkSession.builder().device("cpu")
+             .config("spark.rapids.sql.test.enabled", True)
+             .config("spark.rapids.sql.batchSizeRows", rows))
+    for k, v in stringcases.PARSE_CONF.items():
+        cpu_b.config(k, v)
+    df = stringcases.projection(SF_, card_sess, frame, table)
+    _plain_cell("functions", df, runs, cells)
+    card = df.collect_batches()
+    t0 = time.perf_counter()
+    cpu = stringcases.projection(SF_, cpu_b.get_or_create(), frame,
+                                 table).collect_batches()
+    rec["functions_cpu_session_s"] = time.perf_counter() - t0
+    require(len(card) == len(cpu), "plain functions: batch counts differ")
+    plain_in = sum(c.is_plain for c in card[0].columns)
+    for bc, bh in zip(card, cpu):
+        for name, cc, ch in zip(bc.schema.names, bc.columns, bh.columns):
+            _same_columns(cc, ch, f"plain function {name}")
+    rec.update(cells=cells, function_rows=rows, function_cases=len(table),
+               plain_outputs=plain_in)
+    log(f"plain phase: Q28 {cells['q28']['wall_s']:.4f} s, group-by "
+        f"{cells['group_by']['wall_s']:.4f} s, order-by "
+        f"{cells['order_by_desc']['wall_s']:.4f} s, locate and replace "
+        f"{cells['review_functions']['wall_s']:.4f} s, equal to pandas; "
+        f"{len(table)} function cases over {rows} rows equal to the CPU "
+        f"session ({plain_in} plain outputs) in "
+        f"{cells['functions']['wall_s']:.4f} s, CPU session "
+        f"{rec['functions_cpu_session_s']:.1f} s")
+    report["plain_strings_phase"] = rec
     return rec
 
 
@@ -2816,6 +3071,9 @@ WINDOW_ROWS_QUICK = 1 << 16
 # peak, equal to pandas; PERF.md)
 MORTGAGE_SF = 500
 MORTGAGE_ETL_SF = 250
+# cut from SF 250 for the smoke's time once the plain-strings phase came
+# in (PERF.md §4)
+TPCXBB_SF = 200
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -3106,9 +3364,14 @@ def run(args, children: list) -> int:
         del frames[name]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    # 2^21 rows: cut from 2^22 for the smoke's time (PERF.md)
-    string_phase(1 << 16 if args.quick else 1 << 21, runs_new, report)
+    # 2^20 rows: cut from 2^22, then 2^21, for the smoke's time (PERF.md)
+    string_phase(1 << 16 if args.quick else 1 << 20, runs_new, report)
     report["string_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plain_strings_phase(args.quick, 1, report)
+    report["plain_strings_phase_s"] = time.perf_counter() - t0
+    log(f"plain-strings phase: {report['plain_strings_phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     # the device Parquet scan: SF1 lineitem, orders and customer files (the
@@ -3386,8 +3649,8 @@ def run(args, children: list) -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    tpcxbb_phase(1 if args.quick else 250, q1_batch, runs_new, queries,
-                 report)
+    tpcxbb_phase(1 if args.quick else TPCXBB_SF, q1_batch, runs_new,
+                 queries, report)
     report["tpcxbb_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 

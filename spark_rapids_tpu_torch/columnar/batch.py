@@ -27,8 +27,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtype as dtypes
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceColumn, host_dict_encode_stateful, host_string_slab,
-    plain_strings_unsupported, string_values_have_nul,
+    DeviceColumn, host_dict_encode_stateful, host_string_packed,
+    np_build_slab, slab_stride_for, string_values_have_nul,
 )
 from spark_rapids_tpu_torch.columnar.dtype import DType
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
@@ -143,9 +143,11 @@ class DeviceBatch:
         dictionary, as in the JAX package: ``dict_state`` makes every batch
         of one scan share one dictionary; ``dict_numerics=False`` probes
         only string columns. A string column that does not
-        dictionary-encode uploads as a char slab when its longest value
-        fits ``slab_stride`` bytes; otherwise (and with ``slab_stride`` 0)
-        it raises NotImplementedError: plain strings are not ported."""
+        dictionary-encode uploads, by the JAX package's rule, as a char
+        slab when its longest value fits ``slab_stride`` bytes (0: never),
+        else as plain offsets and chars. Under ``dict_state`` a column's
+        slab stride is the widest any earlier batch of the scan took, and a
+        column that once went plain stays plain for the scan."""
         device = torch.device(device)
         schema = Schema.from_pandas(df)
         n = len(df)
@@ -170,16 +172,8 @@ class DeviceBatch:
                 if dict_state is not None:
                     dict_state[i] = False  # close for the whole scan
             if enc is None and dt.is_string:
-                slab = (host_string_slab(values, vpad, cap, slab_stride)
-                        if slab_stride else None)
-                if slab is None:
-                    raise plain_strings_unsupported(
-                        f"upload of column {schema.names[i]!r}")
-                chars, lens = slab
-                cols.append(DeviceColumn(
-                    dt, None, torch.from_numpy(vpad).to(device),
-                    slab64=torch.from_numpy(chars.view(np.int64)).to(device),
-                    lens=torch.from_numpy(lens).to(device)))
+                cols.append(_upload_chars(values, vpad, cap, slab_stride,
+                                          dict_state, i, device))
                 continue
             codes, dvals = enc if enc is not None else (None, None)
             cols.append(DeviceColumn.from_host_buffers(dt, data, vpad, codes,
@@ -208,14 +202,47 @@ class DeviceBatch:
         return df
 
 
+def _upload_chars(values: np.ndarray, vpad: np.ndarray, cap: int,
+                  max_stride: int, dict_state: Optional[dict], i: int,
+                  device) -> DeviceColumn:
+    """A string column that did not dictionary-encode, on the device: a
+    char slab when its longest value fits ``max_stride`` (the per-scan
+    stride registry of the JAX package: later batches pad to the widest
+    stride seen, and a column past the limit stays plain), else plain
+    offsets and chars."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dts
+    chars, offsets = host_string_packed(values, vpad, cap)
+    n = len(values)
+    stride = 0
+    if max_stride > 0:
+        max_len = int((offsets[1:n + 1] - offsets[:n]).max()) if n else 0
+        stride = slab_stride_for(max_len, max_stride)
+        if dict_state is not None:
+            prev = int(dict_state.get(("slab", i), 0) or 0)
+            stride = 0 if prev < 0 or not stride else max(stride, prev)
+            dict_state[("slab", i)] = stride if stride else -1
+    validity = torch.from_numpy(vpad).to(device)
+    if stride:
+        words, lens = np_build_slab(chars, offsets, cap, stride)
+        lens = np.where(vpad, lens, 0).astype(np.int32)
+        return DeviceColumn(
+            dts.STRING, None, validity,
+            slab64=torch.from_numpy(words.view(np.int64)).to(device),
+            lens=torch.from_numpy(lens).to(device))
+    return DeviceColumn(dts.STRING, None, validity,
+                        chars=torch.from_numpy(chars).to(device),
+                        offsets=torch.from_numpy(offsets).to(device))
+
+
 # the tensor fields of a DeviceColumn, in flatten order
-_COLUMN_TENSORS = ("data", "validity", "dict_codes", "slab64", "lens")
+_COLUMN_TENSORS = ("data", "validity", "dict_codes", "slab64", "lens",
+                   "chars", "offsets")
 
 
 def flatten_batch(batch: DeviceBatch) -> Tuple[List[torch.Tensor], tuple]:
     """(tensors, layout): the batch's row count, then each column's present
-    tensors (data, validity, dictionary codes, char slab, lengths) in that
-    order; ``layout`` holds the rest (schema, dictionary values, which
+    tensors (data, validity, dictionary codes, char slab, lengths, chars,
+    offsets) in that order; ``layout`` holds the rest (schema, dictionary values, which
     fields are present, the host row count) for ``unflatten_batch``."""
     tensors = [batch.num_rows]
     cols = []
@@ -239,7 +266,7 @@ def unflatten_batch(tensors: Sequence[torch.Tensor],
         columns.append(DeviceColumn(
             dtype, fields.get("data"), fields["validity"],
             fields.get("dict_codes"), dict_values, fields.get("slab64"),
-            fields.get("lens")))
+            fields.get("lens"), fields.get("chars"), fields.get("offsets")))
     batch = DeviceBatch(schema, columns, num_rows)
     batch.host_rows = host_rows
     return batch
@@ -247,7 +274,11 @@ def unflatten_batch(tensors: Sequence[torch.Tensor],
 
 def _row_bytes(col: DeviceColumn) -> int:
     """Device bytes a collect fetches per row of ``col`` (besides its
-    validity byte): the slab row and its length, a code, or the value."""
+    validity byte): the slab row and its length, a code, or the value; a
+    plain column's offset and its mean bytes a row (its char capacity
+    spread over its rows)."""
+    if col.is_plain:
+        return 4 + -(-int(col.chars.shape[0]) // max(col.capacity, 1))
     if col.has_slab:
         return col.char_stride + 4
     return 4 if col.dtype.is_string else col.dtype.itemsize

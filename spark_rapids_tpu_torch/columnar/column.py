@@ -8,7 +8,7 @@ dictionary-encoded columns ``dict_codes`` int32 (capacity,) against
 (code == len(dict_values) is the NULL/padding sentinel). Capacity is static
 and the live row count rides on the batch, as in the JAX package.
 
-A string column has ``data`` None and one of two device forms:
+A string column has ``data`` None and one of three device forms:
 
   * dictionary codes, as above;
   * a char slab (the JAX package's blocked chars): ``slab64`` int64
@@ -16,11 +16,20 @@ A string column has ``data`` None and one of two device forms:
     8*(j%8) of word j//8 and zero past the row's length, plus ``lens`` int32
     (capacity,). The device Parquet scan builds slabs for plain byte-array
     columns (kernel B8) and for dictionaries too large to hold on the host.
-    Rows move as one 2-D gather; ``to_numpy`` unpacks them on the host.
+    Rows move as one 2-D gather; ``to_numpy`` unpacks them on the host;
+  * plain offsets and chars (the JAX package's ``data``/``offsets``):
+    ``chars`` uint8 (char capacity,) and ``offsets`` int32 (capacity + 1,),
+    row i's bytes at [offsets[i], offsets[i + 1]), offsets[0] == 0, invalid
+    and padding rows empty, bytes past offsets[capacity] zero. Its device
+    bytes are the total of its values, not rows x the longest value.
 
 The pandas upload (``DeviceBatch.from_pandas``) makes a dictionary of a
-low-cardinality string column and a slab of any other, at the stride its
-caller allows (the scan's upload: any width).
+low-cardinality string column, a slab of any other whose longest value
+fits the stride limit (``spark.rapids.sql.dict.blockedChars.maxStride``,
+64 bytes by default), and plain chars of the rest, the JAX package's rule.
+``plain_parts`` gives any form's offsets and chars (a dictionary or a slab
+rebuilt into them, as the JAX package's ``_materialize_chars`` and
+``_materialize_from_slab`` do), ``string_lens`` any form's lengths.
 
 The host dictionary encoding (``dict_factorize_hint``, ``host_dict_encode``,
 ``host_dict_encode_stateful``) is a copy of the JAX package's numpy code.
@@ -28,6 +37,7 @@ The host dictionary encoding (``dict_factorize_hint``, ``host_dict_encode``,
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,12 +57,6 @@ def host_to_device(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def plain_strings_unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: plain (non-dictionary) string columns are not ported yet; "
-        "only dictionary-encoded strings reach device code in this slice")
-
-
 class DeviceColumn:
     """One column on the device (see the module docstring for layout)."""
 
@@ -61,11 +65,15 @@ class DeviceColumn:
                  dict_codes: Optional[torch.Tensor] = None,
                  dict_values: Optional[tuple] = None,
                  slab64: Optional[torch.Tensor] = None,
-                 lens: Optional[torch.Tensor] = None):
+                 lens: Optional[torch.Tensor] = None,
+                 chars: Optional[torch.Tensor] = None,
+                 offsets: Optional[torch.Tensor] = None):
         if dtype.is_string:
             has_dict = dict_values is not None and dict_codes is not None
-            if not has_dict and (slab64 is None or lens is None):
-                raise plain_strings_unsupported("DeviceColumn")
+            if (not has_dict and (slab64 is None or lens is None)
+                    and (chars is None or offsets is None)):
+                raise ValueError("a string column needs dictionary codes, "
+                                 "a char slab or offsets and chars")
             data = None
         elif data is None:
             raise ValueError(f"{dtype} column needs a data tensor")
@@ -76,11 +84,23 @@ class DeviceColumn:
         self.dict_values = dict_values
         self.slab64 = slab64
         self.lens = lens
+        self.chars = chars
+        self.offsets = offsets
 
     @property
     def has_slab(self) -> bool:
         """True for a char-slab string column (no dictionary codes)."""
         return self.slab64 is not None and self.dict_values is None
+
+    @property
+    def is_plain(self) -> bool:
+        """True for a plain offsets+chars string column."""
+        return is_plain(self)
+
+    def lens_(self) -> torch.Tensor:
+        """Per-row byte lengths (int32, 0 where invalid) of any string
+        form, without rebuilding chars."""
+        return string_lens(self)
 
     @property
     def char_stride(self) -> int:
@@ -151,11 +171,15 @@ class DeviceColumn:
         columns decode their codes through the static dictionary into an
         object array of python str (None where null)."""
         validity = self.validity[:num_rows].cpu().numpy()
+        if self.is_plain:
+            offsets = self.offsets[:num_rows + 1].cpu().numpy()
+            chars = self.chars[:int(offsets[-1])].cpu().numpy()
+            return numpy_from_host_packed(chars, offsets, validity), validity
         if self.has_slab:
             slab = self.slab64[:num_rows].cpu().numpy().view(np.uint64)
             lens = self.lens[:num_rows].cpu().numpy()
             chars, offsets = np_slab_to_packed(slab, lens, validity)
-            return strings_from_packed(chars, offsets, validity), validity
+            return numpy_from_host_packed(chars, offsets, validity), validity
         if self.dtype.is_string:
             codes = self.dict_codes[:num_rows].cpu().numpy()
             card = len(self.dict_values)
@@ -240,19 +264,210 @@ def np_slab_to_packed(slab: np.ndarray, lens: np.ndarray,
     return chars, offsets
 
 
-def strings_from_packed(chars: np.ndarray, offsets: np.ndarray,
-                        validity: np.ndarray) -> np.ndarray:
+def numpy_from_host_packed(chars: np.ndarray, offsets: np.ndarray,
+                           validity: np.ndarray) -> np.ndarray:
     """Packed chars + offsets -> object array of python str (None where
-    null), through pyarrow."""
+    null), through pyarrow; invalid UTF-8 (a byte-oriented substring of a
+    multi-byte character) decodes leniently, as in the JAX package."""
     import pyarrow as pa
     n = len(validity)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+    chars = np.ascontiguousarray(chars, dtype=np.uint8)
     null_count = int(n - validity.sum())
     vbuf = (pa.py_buffer(np.packbits(validity, bitorder="little"))
             if null_count else None)
     arr = pa.StringArray.from_buffers(
-        n, pa.py_buffer(np.ascontiguousarray(offsets)),
-        pa.py_buffer(np.ascontiguousarray(chars)), vbuf, null_count)
-    return arr.to_numpy(zero_copy_only=False)
+        n, pa.py_buffer(offsets), pa.py_buffer(chars), vbuf, null_count)
+    try:
+        arr.validate(full=True)
+        return arr.to_numpy(zero_copy_only=False)
+    except (pa.ArrowInvalid, UnicodeDecodeError):
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = (bytes(chars[offsets[i]:offsets[i + 1]]).decode(
+                "utf-8", errors="replace") if validity[i] else None)
+        return out
+
+
+def host_string_packed(values: np.ndarray, validity: np.ndarray,
+                       capacity: int) -> Tuple[np.ndarray, np.ndarray]:
+    """A host string column (object values, None where null) as plain
+    (chars uint8, offsets int32 (capacity + 1,)): pyarrow's own buffers,
+    null rows empty, padding rows empty."""
+    import pyarrow as pa
+    n = len(values)
+    valid = np.asarray(validity[:n], dtype=bool)
+    arr = pa.array(np.asarray(values, dtype=object), type=pa.string(),
+                   mask=~valid if n else None, from_pandas=True)
+    offs = (np.frombuffer(arr.buffers()[1], np.int32, count=n + 1,
+                          offset=arr.offset * 4) if n
+            else np.zeros(1, np.int32))
+    offsets = np.empty(capacity + 1, np.int32)
+    offsets[:n + 1] = offs - offs[0]
+    offsets[n + 1:] = offsets[n]
+    total = int(offsets[n])
+    chars = np.zeros(max(total, 1), np.uint8)
+    if total:
+        chars[:total] = np.frombuffer(arr.buffers()[2], np.uint8,
+                                      count=total, offset=int(offs[0]))
+    return chars, offsets
+
+
+# ---------------------------------------------------------------------------
+# plain offsets+chars on the device (duck-typed: a DeviceColumn or an
+# expression's DevCol, both of which carry every form's fields)
+# ---------------------------------------------------------------------------
+
+# widest per-row byte stride of a char slab (the JAX package's default
+# spark.rapids.sql.dict.blockedChars.maxStride): an upload, a concat or a
+# string function whose values would need a wider slab makes plain chars
+MAX_SLAB_STRIDE = 64
+
+# chars processed per step by the char-space loops: bounds their int64
+# temporaries (8 bytes a char) on a column of a gigabyte of chars
+CHAR_BLOCK = 1 << 25
+
+
+def is_dict(col) -> bool:
+    return col.dict_values is not None and col.dict_codes is not None
+
+
+def is_slab(col) -> bool:
+    return col.slab64 is not None and col.dict_values is None
+
+
+def is_plain(col) -> bool:
+    return (getattr(col, "chars", None) is not None
+            and col.dict_values is None and col.slab64 is None)
+
+
+def char_bucket(n: int) -> int:
+    """Power-of-two char capacity >= n (at least 16), the JAX package's
+    ``_char_capacity_for``."""
+    cap = 16
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
+@functools.lru_cache(maxsize=256)
+def dict_char_tables(dict_values: tuple):
+    """Host tables of a dictionary's values: (chars uint8, starts int32
+    (card + 1,), lens int32 (card + 1,)); the trailing entry is the NULL
+    sentinel (empty)."""
+    raw = [v.encode("utf-8") for v in dict_values]
+    dchars = np.frombuffer(b"".join(raw) or b"\0", np.uint8).copy()
+    dlens = np.asarray([len(v) for v in raw] + [0], np.int32)
+    dstarts = np.concatenate([[0], np.cumsum(dlens[:-1])]).astype(np.int32)
+    return dchars, dstarts, dlens
+
+
+def string_lens(col) -> torch.Tensor:
+    """int32 (capacity,) byte length of each row of any string form, 0
+    where invalid."""
+    zero = torch.zeros((), dtype=torch.int32, device=col.validity.device)
+    if is_dict(col):
+        _c, _s, dlens = dict_char_tables(col.dict_values)
+        lens = host_to_device(dlens, col.validity.device)[
+            col.dict_codes.to(torch.int64).clamp(0, len(col.dict_values))]
+    elif is_slab(col):
+        lens = col.lens
+    else:
+        lens = (col.offsets[1:] - col.offsets[:-1]).to(torch.int32)
+    return torch.where(col.validity, lens.to(torch.int32), zero)
+
+
+def offsets_of(lens: torch.Tensor) -> torch.Tensor:
+    """int32 (n + 1,) exclusive prefix sum of ``lens`` with the total."""
+    out = torch.zeros(lens.shape[0] + 1, dtype=torch.int32,
+                      device=lens.device)
+    out[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    return out
+
+
+def char_rows(offsets: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """int64 row owning each char position in [lo, hi) of a column with
+    ``offsets`` (clamped into [0, capacity); positions past the total land
+    on the last row)."""
+    cap = offsets.shape[0] - 1
+    k = torch.arange(lo, hi, dtype=torch.int32, device=offsets.device)
+    return torch.searchsorted(offsets[1:].contiguous(), k, right=True
+                              ).clamp(max=max(cap - 1, 0))
+
+
+def gather_chars(src: torch.Tensor, starts: torch.Tensor,
+                 lens: torch.Tensor, out_nchars: int):
+    """(chars uint8 (out_nchars,), offsets int32 (rows + 1,)): row r takes
+    ``lens[r]`` bytes of ``src`` from ``starts[r]``, packed in row order;
+    bytes past the total are zero. ``out_nchars`` must hold the total.
+    One char-space pass in blocks of CHAR_BLOCK, no host wait."""
+    dev = src.device
+    offsets = offsets_of(lens.to(torch.int32))
+    out = torch.zeros(max(out_nchars, 1), dtype=torch.uint8, device=dev)
+    nsrc = max(int(src.shape[0]), 1)
+    if src.shape[0] == 0:
+        return out, offsets
+    starts64 = starts.to(torch.int64)
+    total = offsets[-1]
+    for lo in range(0, out_nchars, CHAR_BLOCK):
+        hi = min(lo + CHAR_BLOCK, out_nchars)
+        row = char_rows(offsets, lo, hi)
+        k = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        pos = starts64[row] + (k - offsets[row])
+        got = src[pos.clamp(0, nsrc - 1)]
+        out[lo:hi] = torch.where(k < total, got, torch.zeros_like(got))
+    return out, offsets
+
+
+def plain_parts(col, min_capacity: int = 0):
+    """(chars, offsets) of any string form: a plain column's own; a slab's
+    rows packed (char capacity rows x stride); a dictionary's values
+    gathered by code (char capacity rows x the longest value, bucketed).
+    Invalid rows are empty."""
+    dev = col.validity.device
+    cap = int(col.validity.shape[0])
+    if is_plain(col):
+        return col.chars, col.offsets
+    lens = string_lens(col)
+    if is_slab(col):
+        stride = int(col.slab64.shape[1]) * 8
+        flat = col.slab64.contiguous().view(torch.uint8).reshape(-1)
+        starts = torch.arange(cap, dtype=torch.int64, device=dev) * stride
+        return gather_chars(flat, starts, lens,
+                            max(cap * stride, min_capacity, 1))
+    dchars, dstarts, dlens = dict_char_tables(col.dict_values)
+    code = col.dict_codes.to(torch.int64).clamp(0, len(col.dict_values))
+    starts = host_to_device(dstarts, dev)[code]
+    max_len = int(dlens.max()) if len(dlens) else 0
+    return gather_chars(host_to_device(dchars, dev), starts, lens,
+                        max(char_bucket(cap * max(max_len, 1)),
+                            min_capacity))
+
+
+def as_plain(col):
+    """``col`` in the plain form: itself if plain, else a DeviceColumn of
+    its values rebuilt (``plain_parts``)."""
+    if is_plain(col):
+        return col
+    chars, offsets = plain_parts(col)
+    return DeviceColumn(col.dtype, None, col.validity, chars=chars,
+                        offsets=offsets)
+
+
+def plain_prefix_words(col, nbytes: int) -> torch.Tensor:
+    """int64 (capacity, ceil(nbytes / 8)) slab words of each row's first
+    ``nbytes`` bytes (slab layout: byte j at bit 8*(j%8) of word j//8,
+    zero past the row's length) of a plain column: one (capacity, nbytes)
+    gather, whatever the longest value."""
+    width = max(8, -(-nbytes // 8) * 8)
+    dev = col.chars.device
+    lens = string_lens(col).to(torch.int64)
+    j = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    nc = max(int(col.chars.shape[0]), 1)
+    idx = (col.offsets[:-1].to(torch.int64)[:, None] + j).clamp(0, nc - 1)
+    b = col.chars[idx]
+    b = torch.where(j < lens[:, None], b, torch.zeros_like(b))
+    return b.contiguous().view(torch.int64)
 
 
 def string_values_have_nul(values: np.ndarray, validity: np.ndarray) -> bool:

@@ -105,6 +105,27 @@ BROADCAST_THRESHOLD = register(
     "exchange instead of hash-partitioned exchanges "
     "(spark.sql.autoBroadcastJoinThreshold equivalent). -1 disables.")
 
+DICT_BLOCKED_CHARS = register(
+    "spark.rapids.sql.dict.blockedChars", _to_bool, True,
+    "Upload a string column that does not dictionary-encode as a "
+    "fixed-stride char slab when its longest value fits "
+    "spark.rapids.sql.dict.blockedChars.maxStride; false uploads every "
+    "such column as plain offsets and chars.")
+DICT_BLOCKED_MAX_STRIDE = register(
+    "spark.rapids.sql.dict.blockedChars.maxStride", int, 64,
+    "Widest per-row byte stride (a power of two, at least 8) of a char "
+    "slab; a longer column uploads as plain offsets and chars, whose "
+    "device bytes are its values' total rather than rows x the longest "
+    "value.")
+CAST_STRING_TO_INTEGER = register(
+    "spark.rapids.sql.castStringToInteger.enabled", _to_bool, False,
+    "Enable casting strings to integral types on the device. Disabled by "
+    "default because overflow corner cases differ from the CPU.")
+CAST_STRING_TO_DATE = register(
+    "spark.rapids.sql.castStringToDate.enabled", _to_bool, False,
+    "Enable casting strings to dates on the device (yyyy-MM-dd prefix "
+    "form, roundtrip-validated calendar).")
+
 FUSE_COUNT_DISTINCT = register(
     "spark.rapids.sql.agg.fuseCountDistinct", _to_bool, True,
     "Run the two-level aggregation of a grouped count distinct as one "

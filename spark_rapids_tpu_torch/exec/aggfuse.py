@@ -16,7 +16,8 @@ TPU:
     group assignments over B3 (``ops/kernels.hash_group_ids``), the
     distinct G1 tuples, then the G2 groups of their representative rows;
   * the sorted spelling (``ops/aggregate.count_distinct_reduce``) when a
-    key is a char slab, which has no exact one-word image, or when the
+    key is a char slab or plain chars, which have no exact one-word
+    image, or when the
     tuple is wider than B3's widest key (``MAX_KEY_WORDS``).
 
 The gate is the JAX package's: bare-column keys, at most 32 of them, one
@@ -117,7 +118,8 @@ class TpuCountDistinctExec(PhysicalPlan):
         from spark_rapids_tpu_torch.ops.aggregate import count_distinct_reduce
         from spark_rapids_tpu_torch.ops.rowops import gather_columns
         keys = self.g2_idx + self.rest_idx
-        if (any(batch.columns[ci].has_slab for ci in keys)
+        if (any(batch.columns[ci].dtype.is_string
+                and batch.columns[ci].dict_values is None for ci in keys)
                 or len(keys) + 1 > MAX_KEY_WORDS):
             ROUTES["sorted"] += 1
             rep_rows, counts, n_groups = count_distinct_reduce(

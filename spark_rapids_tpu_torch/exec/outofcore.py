@@ -407,7 +407,7 @@ def external_sort(ctx, exec_, batches, schema: Schema,
 
     def sample(b: DeviceBatch) -> None:
         work, key_idx = exec_._key_batch(b)
-        ops = sortops.sort_key_operands(work, key_idx, asc, nf)
+        ops = sortops.sort_key_operands(work, key_idx, asc, nf, exact=False)
         m = _SAMPLES_PER_BATCH
         last = (b.num_rows.to(torch.int64) - 1).clamp(min=0)
         pos = torch.arange(m, dtype=torch.int64, device=b.device) \

@@ -701,7 +701,8 @@ class TpuScanExec(TpuExec):
         max_rows = ctx.conf.batch_size_rows
         cache = scan_cache_for(ctx, self.source, self._schema, max_rows)
         dict_state: dict = {}
-        raw_parts = self.source.raw_partitions(upload_blocked_chars())
+        max_stride = upload_blocked_chars(ctx.conf)
+        raw_parts = self.source.raw_partitions(max_stride)
         parts = (raw_parts if raw_parts is not None
                  else self.source.cpu_partitions())
         split_rows = self.source.split_rows()
@@ -716,7 +717,7 @@ class TpuScanExec(TpuExec):
                 return upload_partition(part, self._schema, dict_state,
                                         ctx.device, ctx.session, meter)
             return upload_frames(part, max_rows, dict_state, ctx.device,
-                                 ctx.session, meter)
+                                 ctx.session, meter, max_stride)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:

@@ -238,8 +238,10 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
     adjs = [join_ops.outer_adjusted_counts(s, counts)
             if join_type in OUTER else counts
             for s, (counts, _b, _p) in zip(streams, probes)]
-    totals = torch.stack([join_ops.expand_totals(build, s, adj)
-                          for s, adj in zip(streams, adjs)]).reshape(-1)
+    totals = torch.stack([
+        join_ops.expand_totals(build, s, adj, counts, bstart, bperm)
+        for s, adj, (counts, bstart, bperm) in zip(streams, adjs, probes)
+    ]).reshape(-1)
     if verify:
         totals = torch.cat([totals, built.dense.ok.to(torch.int64)
                             .reshape(1)])
@@ -270,7 +272,8 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
         if total:
             batch = join_ops.join_expand(
                 build, stream, counts, adj, bstart, bperm,
-                bucket_capacity(total), swap_sides=not stream_is_left)
+                bucket_capacity(total), swap_sides=not stream_is_left,
+                char_totals=size[1:])
             batch.host_rows = total
             if dm is not None:
                 dm.meter_batch(batch)

@@ -12,11 +12,11 @@
     source or a CPU operator's output) into
     DeviceBatches of at most ``batchSizeRows`` rows, every column probed
     for a dictionary (``DeviceBatch.from_pandas``; a string column that
-    does not encode becomes a char slab whose stride is the power of two
-    that covers the batch's longest value, the rule of the Parquet scan's
-    host fallback), inside one counted sync a batch. A later batch may be
-    wider than the first: ``rowops.concat_batches`` widens the narrower
-    slabs with zero words.
+    does not encode becomes a char slab when its longest value fits
+    ``upload_blocked_chars`` bytes, else plain offsets and chars, the JAX
+    package's rule), inside one counted sync a batch. A later batch may
+    take another form than the first: ``rowops.concat_batches`` widens
+    narrower slabs and makes plain chars of mixed forms.
   * ``pack_splits`` groups a Parquet scan's row groups, in file order,
     into partitions of at most ``batchSizeRows`` rows, so the coalesce
     above the scan concatenates them into batches of that size (the JAX
@@ -47,6 +47,7 @@ from typing import Iterator, List, Optional, Sequence
 import pandas as pd
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+from spark_rapids_tpu_torch.columnar.column import MAX_SLAB_STRIDE
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
@@ -55,18 +56,18 @@ from spark_rapids_tpu_torch.ops.parquet_decode import (
     RawRowGroup, decode_rowgroup,
 )
 
-# widest per-row byte stride of a char slab the Parquet scan plans on the
-# device (the JAX package's default
-# spark.rapids.sql.dict.blockedChars.maxStride)
-MAX_SLAB_STRIDE = 64
-# widest stride of an uploaded frame's slab: any value fits (the JAX package
-# uploads such a column as plain offsets and chars, ROADMAP A.5)
-UPLOAD_MAX_STRIDE = 1 << 30
 
-
-def upload_blocked_chars() -> int:
-    """Max byte stride of the char-slab layout for plain string columns."""
-    return MAX_SLAB_STRIDE
+def upload_blocked_chars(conf=None) -> int:
+    """Max byte stride of the char-slab layout for string columns that do
+    not dictionary-encode (``spark.rapids.sql.dict.blockedChars`` and its
+    ``.maxStride``, as the JAX package reads them), or 0 when slabs are
+    off; a longer column uploads as plain offsets and chars."""
+    if conf is None:
+        return MAX_SLAB_STRIDE
+    if not conf.get_bool("spark.rapids.sql.dict.blockedChars", True):
+        return 0
+    return max(0, conf.get_int("spark.rapids.sql.dict.blockedChars.maxStride",
+                               MAX_SLAB_STRIDE))
 
 
 def _as_rowgroup(df, schema: Schema) -> RawRowGroup:
@@ -208,15 +209,17 @@ def note_bounds(session, name: str, lo: int, hi: int) -> None:
 
 
 def upload_frames(part: Partition, max_rows: int, dict_state: dict,
-                  device, session=None,
-                  meter: bool = True) -> Iterator[DeviceBatch]:
+                  device, session=None, meter: bool = True,
+                  max_stride: int = MAX_SLAB_STRIDE
+                  ) -> Iterator[DeviceBatch]:
     """DeviceBatches of a partition of pandas frames, at most ``max_rows``
     rows each. ``dict_state`` is shared by every partition of one upload,
     so all its batches agree on each column's dictionary. The upload of a
     batch copies from pageable host memory: one counted sync. A scan
     passes its ``session``, whose statistics each frame's integer columns
     then join, and whose budget meters each batch unless ``meter`` is off
-    (a cached upload, metered by the catalog)."""
+    (a cached upload, metered by the catalog). ``max_stride`` is the
+    widest char slab (``upload_blocked_chars``)."""
     for df in part():
         note_scan_stats(session, df)
         for lo in range(0, max(len(df), 1), max_rows):
@@ -225,7 +228,7 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
             with sync_scope("scan.upload"):
                 batch = DeviceBatch.from_pandas(
                     chunk, dict_state, device=device,
-                    slab_stride=UPLOAD_MAX_STRIDE)
+                    slab_stride=max_stride)
             if meter:
                 _meter(session, batch)
             yield batch
@@ -250,8 +253,9 @@ class HostToDeviceExec(PhysicalPlan):
             def run() -> Iterator[DeviceBatch]:
                 if ctx.session is not None:
                     ctx.session.semaphore.acquire_if_necessary()
-                for batch in upload_frames(part, max_rows, dict_state,
-                                           ctx.device):
+                for batch in upload_frames(
+                        part, max_rows, dict_state, ctx.device,
+                        max_stride=upload_blocked_chars(ctx.conf)):
                     _meter(ctx.session, batch)
                     yield batch
             return run

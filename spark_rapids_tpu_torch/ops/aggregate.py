@@ -215,14 +215,15 @@ def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
     per-key validity bits join the key images.
 
     Declines (None; the sorted branches take the batch) when a key is a
-    char slab, which has no exact one-word image, or when the table would
-    pass ``max_slots`` (``agg.hash.maxTableSlots``)."""
+    char slab or plain chars, which have no exact one-word image, or when
+    the table would pass ``max_slots`` (``agg.hash.maxTableSlots``)."""
     from spark_rapids_tpu_torch.ops import kernels
     from spark_rapids_tpu_torch.ops.rowops import gather_columns
     from spark_rapids_tpu_torch.ops.sortops import u64_key_image
 
     capacity = batch.capacity
-    if any(batch.columns[ki].has_slab for ki in key_idx):
+    if any(batch.columns[ki].dtype.is_string
+           and batch.columns[ki].dict_values is None for ki in key_idx):
         return None
     T = kernels.hash_table_size(capacity)
     if T > max_slots:
@@ -532,14 +533,17 @@ def _single_group_reduce(batch: DeviceBatch,
 def _key_images(col: DeviceColumn) -> List[torch.Tensor]:
     """A key column's exact equality images: a dictionary column's code
     (exact within a batch), a char slab's 8-byte prefix, length and two
-    polynomial hashes (the JAX package's images for its plain strings), a
-    fixed-width column's value image."""
+    polynomial hashes (the JAX package's images for its plain strings),
+    a plain column's ``sortops.string_images``, a fixed-width column's
+    value image."""
     from spark_rapids_tpu_torch.ops import hashing
     from spark_rapids_tpu_torch.ops.sortops import (
         string_prefix8, u64_key_image,
     )
     if col.dtype.is_string and col.dict_values is not None:
         return [col.dict_codes.to(torch.int64)]
+    if col.dtype.is_string and col.is_plain:
+        return u64_key_image(col)
     if col.dtype.is_string:
         h1, h2 = hashing.string_poly_hashes_col(col)
         return [string_prefix8(col), col.lens.to(torch.int64), h1, h2]
@@ -712,8 +716,9 @@ def _slot_hash_attempt(batch: DeviceBatch, key_idx: List[int], live):
         if col.dtype.is_string and col.dict_values is not None:
             per_key = [col.dict_codes.to(torch.int64)]
         elif col.dtype.is_string:
-            per_key = [string_prefix8(col), col.lens.to(torch.int64)]
-            ok_short = ok_short & (torch.where(live, col.lens, 0) <= 8).all()
+            lens = col.lens_()
+            per_key = [string_prefix8(col), lens.to(torch.int64)]
+            ok_short = ok_short & (torch.where(live, lens, 0) <= 8).all()
         else:
             per_key = [u64_key_image(col)[0]]
         # null keys get their own image band; a real value sharing it is
@@ -815,11 +820,14 @@ def _rowspace_reduce(batch: DeviceBatch, key_idx: List[int],
 
 def exact_key_images(col: DeviceColumn) -> List[torch.Tensor]:
     """A key column's exact equality images within one batch: a
-    dictionary's code, every word of a char slab and its length, a
-    fixed-width column's value image."""
+    dictionary's code, every word of a char slab and its length, a plain
+    column's ``sortops.string_images``, a fixed-width column's value
+    image."""
     from spark_rapids_tpu_torch.ops.sortops import u64_key_image
     if col.dtype.is_string and col.dict_values is not None:
         return [col.dict_codes.to(torch.int64)]
+    if col.dtype.is_string and col.is_plain:
+        return u64_key_image(col)
     if col.dtype.is_string:
         return [col.slab64[:, i] for i in range(col.slab64.shape[1])] + [
             col.lens.to(torch.int64)]

@@ -17,10 +17,11 @@ Null keys form their own group; float keys hash their normalized bits
 ``segment_select_string`` differs from the JAX package in how it orders
 strings, with the same result: a dictionary column's codes are in sorted
 value order (``columnar/column.host_dict_encode``), so within one batch the
-code is an exact image, and a char slab's images are all of its words and
-its length, so the order is exact and the JAX package's full-length
-refinement of prefix ties (a ``lax.cond`` that would be a host sync here)
-never has anything to do.
+code is an exact image; a char slab's images are all of its words and its
+length; a plain column's are ``sortops.string_images``, exact past 64
+bytes. The JAX package's full-length refinement of prefix ties (a
+``lax.cond``) is the plain images' tie settling here, behind one counted
+sync.
 """
 
 from __future__ import annotations
@@ -228,7 +229,7 @@ def segment_select_string(kind: str, col: DeviceColumn, info: GroupInfo
     has_valid bool (capacity,)). min/max are exact byte order; first/last
     are positional."""
     from spark_rapids_tpu_torch.ops.sortops import (
-        _string_prefix_chunks, lexsort_permutation,
+        _string_prefix_chunks, lexsort_permutation, string_images,
     )
     capacity = col.capacity
     gid = info.group_id_sorted
@@ -243,7 +244,7 @@ def segment_select_string(kind: str, col: DeviceColumn, info: GroupInfo
             src = _string_prefix_chunks(col)[:col.slab64.shape[1]] \
                 + [col.lens.to(torch.int64)]
         else:
-            src = _string_prefix_chunks(col)  # raises: packed chars
+            src = string_images([col])[0]
         imgs = [c[idx] for c in src]
         if kind == "max":
             imgs = [~img for img in imgs]

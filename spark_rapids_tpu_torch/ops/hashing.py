@@ -1,10 +1,10 @@
 """64-bit hashing (counterpart of the JAX package's ``ops/hashing.py``):
 the splitmix64 mixer, fixed-width column hashes, the two polynomial
-string hashes of dictionary and char-slab columns, and their combination
-into row hashes; ``hash_string_col``, the combined string hash of the
-``hash()`` expression, and the numpy twins its host path uses (copies of
-the JAX package's). The packed-chars ``string_poly_hashes`` waits for the
-string slice (ROADMAP A.5).
+string hashes of dictionary, char-slab and plain (offsets and chars)
+columns, and their combination into row hashes; ``hash_string_col``, the
+combined string hash of the ``hash()`` expression, and the numpy twins its
+host path uses (copies of the JAX package's). A value hashes to the same
+bits in every form.
 
 All values are int64 tensors holding uint64 bit patterns. Adds and
 multiplies wrap mod 2^64 exactly like uint64; right shifts are arithmetic
@@ -129,15 +129,74 @@ def slab_poly_hashes(slab64: torch.Tensor, lens: torch.Tensor,
     return out[0], out[1]
 
 
+# exponents a plain column's hash raises its multipliers to stay below
+# 2^31 (int32 offsets): base^e = LO[e & 0xFFFF] * HI[e >> 16]
+_POW_SPLIT = 16
+
+
+@functools.lru_cache(maxsize=8)
+def _pow_tables(base: int):
+    """(LO, HI) int64 numpy tables of base^e for e < 2^16 and of
+    base^(e * 2^16) for e < 2^15, uint64 powers as int64."""
+    lo, acc = [], 1
+    for _ in range(1 << _POW_SPLIT):
+        lo.append(as_signed(acc))
+        acc = (acc * base) & _M64
+    step, hi, acc = acc, [], 1
+    for _ in range(1 << (31 - _POW_SPLIT)):
+        hi.append(as_signed(acc))
+        acc = (acc * step) & _M64
+    return np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+
+
+def _pow(tables, e: torch.Tensor) -> torch.Tensor:
+    """base^e (mod 2^64) for int64 exponents 0 <= e < 2^31."""
+    lo, hi = tables
+    return lo[e & ((1 << _POW_SPLIT) - 1)] * hi[e >> _POW_SPLIT]
+
+
+def string_poly_hashes(offsets: torch.Tensor, chars: torch.Tensor,
+                       validity: torch.Tensor):
+    """The two polynomial hashes of a plain string column (the JAX
+    package's ``string_poly_hashes``, bit for bit): a row of bytes c_j and
+    length L at char offset s hashes sum c_j p^(L-1-j), computed as
+    p^(L-1+s) * sum c_i q^i over its global char positions i (q = 1/p mod
+    2^64), one segment sum a salt over the chars in blocks of CHAR_BLOCK,
+    no per-row loop and no host wait."""
+    from spark_rapids_tpu_torch.columnar.column import (
+        CHAR_BLOCK, char_rows, host_to_device,
+    )
+    dev = chars.device
+    cap = offsets.shape[0] - 1
+    starts = offsets[:-1].to(torch.int64)
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    total = offsets[-1]
+    nchars = int(chars.shape[0])
+    out = []
+    for p, q, salt in ((P1, Q1, SALT1), (P2, Q2, SALT2)):
+        qt = tuple(host_to_device(t, dev) for t in _pow_tables(q))
+        pt = tuple(host_to_device(t, dev) for t in _pow_tables(p))
+        acc = torch.zeros(cap, dtype=torch.int64, device=dev)
+        for lo in range(0, nchars, CHAR_BLOCK):
+            hi = min(lo + CHAR_BLOCK, nchars)
+            i = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+            term = chars[lo:hi].to(torch.int64) * _pow(qt, i)
+            term = torch.where(i < total, term, torch.zeros_like(term))
+            acc.index_add_(0, char_rows(offsets, lo, hi), term)
+        e = (lens - 1 + starts).clamp(min=0)
+        h = splitmix64(acc * _pow(pt, e) + as_signed(salt) + lens)
+        out.append(torch.where(validity, h,
+                               torch.full_like(h, as_signed(NULL_HASH))))
+    return out[0], out[1]
+
+
 def string_poly_hashes_col(col):
     """The two polynomial hashes of a string column: a dictionary column
     gathers its per-value tables by code (``columnar/dictionary.py``), a
-    slab column hashes its words. Both are bit-identical to the JAX
+    slab column hashes its words. All are bit-identical to the JAX
     package's char-scanning hashes of the same values. The packed-chars
-    layout is not ported (ROADMAP A.5)."""
-    from spark_rapids_tpu_torch.columnar.column import (
-        host_to_device, plain_strings_unsupported,
-    )
+    layout hashes its chars (``string_poly_hashes``)."""
+    from spark_rapids_tpu_torch.columnar.column import host_to_device
     if col.dict_values is not None and col.dict_codes is not None:
         from spark_rapids_tpu_torch.columnar.dictionary import (
             value_hash_tables,
@@ -152,7 +211,7 @@ def string_poly_hashes_col(col):
             for t in value_hash_tables(col.dict_values))
     if col.slab64 is not None:
         return slab_poly_hashes(col.slab64, col.lens, col.validity)
-    raise plain_strings_unsupported("string_poly_hashes_col")
+    return string_poly_hashes(col.offsets, col.chars, col.validity)
 
 
 def hash_string_col(col) -> torch.Tensor:

@@ -19,7 +19,11 @@ the first position of its match group in ``bperm`` (``bstart``) and
     key id. Images are exact: dictionary codes (two different
     dictionaries remapped into their union on the host), or every word of
     a char slab and its length (a dictionary against a slab becomes a slab
-    of the same stride), so no hash and no tie repair is needed;
+    of the same stride), or, where a side is plain chars, the 64-byte
+    prefix chunks, the rank of the tails that tie on them and the length
+    (``sortops.string_images`` over both sides at once; the JAX package
+    narrows with two polynomial hashes and verifies by extents), so no
+    hash decides a match;
   * ``cross_probe``, the cross route of the JAX package's ``join_probe``.
 
 Everything downstream is the JAX package's count-then-expand: the totals
@@ -28,18 +32,20 @@ gathers both sides into a batch of the bucketed total.
 
 Null keys never match (SQL): rows with any invalid key column are parked
 out of the probe by ``_key_valid``. Dictionary string columns ride their
-codes through the expand (their char totals are 0), char slabs their rows.
+codes through the expand (their char totals are 0), char slabs their rows,
+plain columns their bytes, at the char totals the expand's one sync
+reads.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, char_bucket
 from spark_rapids_tpu_torch.columnar.dtype import torch_dtype
 from spark_rapids_tpu_torch.ops.rowops import (
     filter_batch, gather_columns, rank_of_iota,
@@ -69,9 +75,13 @@ def _string_key_images(bc: DeviceColumn, sc: DeviceColumn):
     length, a dictionary side becoming a slab of the other side's stride
     first."""
     from spark_rapids_tpu_torch.columnar.column import (
-        host_to_device, slab_stride_for,
+        MAX_SLAB_STRIDE, host_to_device, slab_stride_for,
     )
     from spark_rapids_tpu_torch.ops.rowops import dict_to_slab
+    from spark_rapids_tpu_torch.ops.sortops import string_images
+    if bc.is_plain or sc.is_plain:
+        bi, si = string_images([bc, sc])
+        return bi, si
     if bc.dict_values is not None and sc.dict_values is not None:
         if bc.dict_values == sc.dict_values:
             return ([bc.dict_codes.to(torch.int64)],
@@ -92,6 +102,11 @@ def _string_key_images(bc: DeviceColumn, sc: DeviceColumn):
                                     for v in c.dict_values), default=0),
                                1 << 30)
     stride = max(stride_of(bc), stride_of(sc))
+    if not (bc.has_slab or sc.has_slab) or (
+            stride > MAX_SLAB_STRIDE and not (bc.has_slab and sc.has_slab)):
+        # a dictionary of long values against a slab: exact images
+        # without a slab as wide as its longest value
+        return tuple(string_images([bc, sc]))
     bc, sc = (c if c.has_slab else dict_to_slab(c, stride) for c in (bc, sc))
     return _slab_words(bc, stride // 8), _slab_words(sc, stride // 8)
 
@@ -251,29 +266,65 @@ def outer_adjusted_counts(stream: DeviceBatch,
 
 
 def expand_totals(build: DeviceBatch, stream: DeviceBatch,
-                  counts_adj: torch.Tensor) -> torch.Tensor:
+                  counts_adj: torch.Tensor, counts: torch.Tensor,
+                  bstart: torch.Tensor, bperm: torch.Tensor) -> torch.Tensor:
     """All host-needed expansion sizes in ONE int64 device vector: [total
     rows, chars per stream string column..., chars per build string
-    column...]. Dictionary strings move as codes, so their char totals
-    are 0."""
-    n_str = sum(1 for dt in stream.schema.dtypes + build.schema.dtypes
-                if dt.is_string)
+    column...]. Dictionary strings move as codes and slabs as rows, so
+    their char totals are 0; a plain column's is the bytes its rows take
+    in the output: a stream row's length times its emitted rows, a
+    stream row's match group's lengths summed over the build rows in
+    ``bperm`` order."""
     total = counts_adj.sum(dtype=torch.int64).reshape(1)
-    return torch.cat([total, torch.zeros(n_str, dtype=torch.int64,
-                                         device=total.device)])
+    zero = torch.zeros(1, dtype=torch.int64, device=total.device)
+    out = [total]
+    for c in stream.columns:
+        if c.dtype.is_string:
+            out.append((c.lens_().to(torch.int64) * counts_adj).sum()
+                       .reshape(1) if c.is_plain else zero)
+    for c in build.columns:
+        if not c.dtype.is_string:
+            continue
+        if not c.is_plain:
+            out.append(zero)
+            continue
+        # prefix sums of the build lengths in bperm order: a match group
+        # [bstart, bstart + count) sums to one difference
+        blens = c.lens_().to(torch.int64)[bperm.long()]
+        pre = torch.zeros(blens.shape[0] + 1, dtype=torch.int64,
+                          device=blens.device)
+        pre[1:] = torch.cumsum(blens, 0)
+        lo = bstart.to(torch.int64).clamp(0, blens.shape[0])
+        hi = (lo + counts.to(torch.int64)).clamp(max=blens.shape[0])
+        out.append(torch.where(counts > 0, pre[hi] - pre[lo],
+                               torch.zeros_like(lo)).sum().reshape(1))
+    return torch.cat(out)
+
+
+def _char_caps(batch: DeviceBatch, totals) -> List[Optional[int]]:
+    """``gather_columns``' char capacities of ``batch``'s columns: a plain
+    column's from the next of ``totals`` (one entry a string column)."""
+    out: List[Optional[int]] = []
+    for c in batch.columns:
+        t = next(totals, None) if c.dtype.is_string else None
+        out.append(char_bucket(t) if c.dtype.is_string and c.is_plain
+                   else None)
+    return out
 
 
 def join_expand(build: DeviceBatch, stream: DeviceBatch,
                 counts: torch.Tensor, counts_adj: torch.Tensor,
                 bstart: torch.Tensor, bperm: torch.Tensor,
-                out_capacity: int, swap_sides: bool) -> DeviceBatch:
+                out_capacity: int, swap_sides: bool,
+                char_totals: Sequence[int] = ()) -> DeviceBatch:
     """Materialize the (stream row, build row) pairs into an
     ``out_capacity`` batch, stream rows in order and each one's matches in
     ``bperm`` order. ``counts_adj`` >= ``counts`` drives emission (an outer
     stream row with no match emits one row with a null build side);
     ``swap_sides`` puts the build side's columns first (a right outer join
-    runs with build = left). The caller checked that the total is below
-    2^31."""
+    runs with build = left). ``char_totals`` are ``expand_totals``' char
+    entries, read on the host: they size the plain columns' chars. The
+    caller checked that the total is below 2^31."""
     nb, ns = build.capacity, stream.capacity
     incl = torch.cumsum(counts_adj, 0, dtype=torch.int64).to(torch.int32)
     total = counts_adj.sum(dtype=torch.int64).to(torch.int32)
@@ -286,8 +337,11 @@ def join_expand(build: DeviceBatch, stream: DeviceBatch,
     slot = bstart[srow] + torch.minimum(j, (c - 1).clamp(min=0))
     brow = bperm[slot.clamp(0, max(nb - 1, 0)).long()]
     live = k < total
-    stream_cols = gather_columns(stream.columns, srow, live)
-    build_cols = gather_columns(build.columns, brow, live & matched)
+    caps = iter(char_totals)
+    stream_cols = gather_columns(stream.columns, srow, live,
+                                 _char_caps(stream, caps))
+    build_cols = gather_columns(build.columns, brow, live & matched,
+                                _char_caps(build, caps))
     if swap_sides:
         names = list(build.schema.names) + list(stream.schema.names)
         dts = list(build.schema.dtypes) + list(stream.schema.dtypes)

@@ -39,8 +39,9 @@ from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, _pandas_to_numpy, bucket_capacity,
 )
 from spark_rapids_tpu_torch.columnar.column import (
-    DICT_MAX_CARD, DeviceColumn, host_to_device, np_build_slab,
-    host_string_slab, slab_stride_for,
+    DICT_MAX_CARD, MAX_SLAB_STRIDE, DeviceColumn, as_plain,
+    host_string_packed, host_string_slab, host_to_device, np_build_slab,
+    slab_stride_for,
 )
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
@@ -756,10 +757,14 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
         return _widen_slab(dt, slab, lens, validity, meta["stride"],
                            dict_state, i)
     # the scan closed this column's dictionary and the plan built no slab
-    # (the dictionary is small): build one from the dictionary values
+    # (the dictionary is small): build one from the dictionary values, or
+    # plain chars where a value passes the slab limit
     svals = [v.encode("utf-8") for v in meta["vals"]]
     stride = slab_stride_for(max((len(v) for v in svals), default=0),
                              1 << 30)
+    if stride > MAX_SLAB_STRIDE:
+        return as_plain(DeviceColumn(dt, None, validity, dict_codes=rows,
+                                     dict_values=meta["vals"]))
     slab_h, lens_h = _dict_slab(svals, stride)
     slab = host_to_device(slab_h.view(np.int64), dev)[rows]
     lens = torch.where(validity, host_to_device(lens_h, dev)[rows],
@@ -769,16 +774,23 @@ def _decode_column(plan: dict, up: dict, dt, cap: int,
 
 def _fallback_arrays(df, name: str, dt, cap: int) -> Dict[str, np.ndarray]:
     """A host-decoded column's device-layout buffers: data and validity,
-    or a char slab for a string column."""
+    or for a string column a char slab where its longest value fits the
+    slab limit, else plain chars and offsets (the upload's rule)."""
     values, validity = _pandas_to_numpy(df[name], dt)
     data, vpad = DeviceColumn.build_host_buffers(values, validity, dt, cap)
     if not dt.is_string:
         return {"data": data, "validity": vpad}
-    slab, slens = host_string_slab(values, vpad, cap, 1 << 30)
-    return {"validity": vpad, "slab": slab, "slens": slens}
+    slab = host_string_slab(values, vpad, cap, MAX_SLAB_STRIDE)
+    if slab is None:
+        chars, offsets = host_string_packed(values, vpad, cap)
+        return {"validity": vpad, "chars": chars, "offsets": offsets}
+    return {"validity": vpad, "slab": slab[0], "slens": slab[1]}
 
 
 def _fallback_column(dt, arrays: Dict[str, torch.Tensor]) -> DeviceColumn:
+    if dt.is_string and "chars" in arrays:
+        return DeviceColumn(dt, None, arrays["validity"],
+                            chars=arrays["chars"], offsets=arrays["offsets"])
     if dt.is_string:
         return DeviceColumn(dt, None, arrays["validity"],
                             slab64=arrays["slab"], lens=arrays["slens"])

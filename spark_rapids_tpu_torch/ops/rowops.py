@@ -4,6 +4,15 @@ slicing (counterpart of the JAX package's ``ops/rowops.py``).
 All capacity-static: outputs share the input capacity (or a target one)
 and carry a new 0-d ``num_rows`` device tensor, so none of them waits for
 the host. Compaction runs on the B1 kernel (``kernels.compact_permutation``).
+
+A plain string column (offsets and chars) moves its rows' bytes with one
+char-space gather (``column.gather_chars``). Its output char capacity is
+the source's where no source row is taken twice (a filter, a sort, a
+slice), and otherwise the caller's, read on the host: the join expand
+gets it in the sync that sizes its output, a duplicating gather
+(``gather_column(..., expand=True)``) in one counted sync of its own. A
+concat sums its parts' char capacities up to CONCAT_SHRINK_CHARS; past
+it, one counted sync reads their live char totals, which size it.
 """
 
 from __future__ import annotations
@@ -15,7 +24,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
 from spark_rapids_tpu_torch.columnar.column import (
-    DeviceColumn, host_to_device, np_build_slab, slab_stride_for,
+    MAX_SLAB_STRIDE, DeviceColumn, char_bucket, gather_chars, host_to_device,
+    np_build_slab, plain_parts, slab_stride_for, string_lens,
 )
 from spark_rapids_tpu_torch.ops.kernels import compact_permutation
 
@@ -43,14 +53,30 @@ def packed_gather_vectors(vectors: Sequence[torch.Tensor],
 
 
 def gather_columns(cols: Sequence[DeviceColumn], perm: torch.Tensor,
-                   live: torch.Tensor) -> List[DeviceColumn]:
+                   live: torch.Tensor,
+                   char_caps: Optional[Sequence[Optional[int]]] = None
+                   ) -> List[DeviceColumn]:
     """Gather many columns by one index vector. ``live`` marks which output
     slots are real rows; dead slots become invalid (codes: the NULL
-    sentinel; slab rows: zero words and length)."""
+    sentinel; slab rows: zero words and length; plain rows: empty).
+    ``char_caps`` (one entry a column, None for the default) sizes a plain
+    column's output chars; the default, the source's char capacity, holds
+    any gather that takes no source row twice."""
     idx = perm.long()
     out: List[DeviceColumn] = []
-    for c in cols:
+    for ci, c in enumerate(cols):
         validity = c.validity[idx] & live
+        if c.is_plain:
+            cap = (char_caps[ci] if char_caps is not None
+                   and char_caps[ci] is not None else int(c.chars.shape[0]))
+            lens = torch.where(validity, string_lens(c)[idx],
+                               torch.zeros((), dtype=torch.int32,
+                                           device=idx.device))
+            chars, offsets = gather_chars(c.chars, c.offsets[:-1][idx], lens,
+                                          cap)
+            out.append(DeviceColumn(c.dtype, None, validity, chars=chars,
+                                    offsets=offsets))
+            continue
         if c.has_slab:
             # one 2-D row gather moves every word of a slab row
             slab = torch.where(live[:, None], c.slab64[idx],
@@ -74,8 +100,19 @@ def gather_columns(cols: Sequence[DeviceColumn], perm: torch.Tensor,
 
 
 def gather_column(col: DeviceColumn, perm: torch.Tensor,
-                  live: torch.Tensor) -> DeviceColumn:
-    return gather_columns([col], perm, live)[0]
+                  live: torch.Tensor, expand: bool = False) -> DeviceColumn:
+    """One column's gather; ``expand``: ``perm`` may take a source row more
+    than once, so a plain column's output char total is read on the host
+    first (one counted sync)."""
+    caps = None
+    if expand and col.is_plain:
+        from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+        lens = torch.where(live, string_lens(col)[perm.long()],
+                           torch.zeros((), dtype=torch.int32,
+                                       device=perm.device))
+        with sync_scope("gather.charTotal", nbytes=8):
+            caps = [char_bucket(int(lens.sum(dtype=torch.int64).item()))]
+    return gather_columns([col], perm, live, caps)[0]
 
 
 def gather_batch(batch: DeviceBatch, perm: torch.Tensor,
@@ -140,6 +177,82 @@ def dict_to_slab(col: DeviceColumn, stride: int) -> DeviceColumn:
     return DeviceColumn(col.dtype, None, col.validity, slab64=slab, lens=lens)
 
 
+# a concat whose plain parts' char capacities sum past this many chars
+# reads their live char totals (one counted sync) and takes only those
+# bytes: filtered batches keep their source's char capacity, and k of
+# them would otherwise allocate k times it
+CONCAT_SHRINK_CHARS = 1 << 28
+# the most chars a plain column's int32 offsets address
+MAX_PLAIN_CHARS = (1 << 31) - 1
+
+
+def _goes_plain(parts: Sequence[DeviceColumn]) -> bool:
+    """A concat of these string parts makes plain chars: some part is
+    plain, or a slab of them would pass the stride limit."""
+    return any(p.is_plain for p in parts) or (
+        any(p.has_slab for p in parts)
+        and _concat_stride(parts) > MAX_SLAB_STRIDE)
+
+
+def _char_capacity(p: DeviceColumn) -> int:
+    """The char capacity of ``plain_parts(p)``."""
+    if p.is_plain:
+        return int(p.chars.shape[0])
+    if p.has_slab:
+        return p.capacity * p.char_stride
+    return char_bucket(p.capacity * max(
+        max((len(v.encode("utf-8")) for v in p.dict_values), default=0), 1))
+
+
+def _live_char_totals(batches: Sequence[DeviceBatch], plain_cols):
+    """{column: [each part's live chars]} of the concat's plain columns
+    where their char capacities sum past CONCAT_SHRINK_CHARS (one counted
+    sync for all of them), else None."""
+    parts = [(ci, b.columns[ci]) for ci in plain_cols for b in batches]
+    if sum(_char_capacity(p) for _ci, p in parts) <= CONCAT_SHRINK_CHARS:
+        return None
+    from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+    live = torch.stack([p.offsets[-1].to(torch.int64) if p.is_plain
+                        else string_lens(p).sum(dtype=torch.int64)
+                        for _ci, p in parts])
+    with sync_scope("concat.charTotals", nbytes=8 * len(parts)):
+        got = live.tolist()
+    out: dict = {}
+    for (ci, _p), t in zip(parts, got):
+        out.setdefault(ci, []).append(int(t))
+    return out
+
+
+def _concat_plain(parts: Sequence[DeviceColumn],
+                  live_chars: Optional[Sequence[int]] = None):
+    """(validity, chars, starts, lens) of the parts' rows in order, every
+    part's chars side by side (a dictionary or slab part's rebuilt): the
+    concat's gather source of a column that goes plain. ``live_chars``:
+    each part's live char total, so only those bytes are taken."""
+    chars, starts, base = [], [], 0
+    for pi, p in enumerate(parts):
+        c, o = plain_parts(p)
+        if live_chars is not None:
+            c = c[:live_chars[pi]]
+        chars.append(c)
+        starts.append(o[:-1].to(torch.int64) + base)
+        base += int(c.shape[0])
+    if base > MAX_PLAIN_CHARS:
+        raise ValueError(f"concat: {base} chars of a string column pass "
+                         f"the {MAX_PLAIN_CHARS} that int32 offsets "
+                         f"address")
+    return (torch.cat([p.validity for p in parts]), torch.cat(chars),
+            torch.cat(starts), torch.cat([string_lens(p) for p in parts]))
+
+
+def _concat_stride(parts: Sequence[DeviceColumn]) -> int:
+    """The stride a slab holding every (slab or dictionary) part needs."""
+    max_len = max(max((len(v.encode("utf-8")) for v in p.dict_values),
+                      default=0) if not p.has_slab else p.char_stride
+                  for p in parts)
+    return slab_stride_for(max_len, 1 << 30)
+
+
 def _concat_slabs(parts: Sequence[DeviceColumn]):
     """(slab, lens) of string parts of which at least one is a slab: every
     part padded to the widest stride (the JAX package's ``_widen_slab``),
@@ -147,10 +260,7 @@ def _concat_slabs(parts: Sequence[DeviceColumn]):
     a slab."""
     if not any(p.has_slab for p in parts):
         return None, None
-    max_len = max(max((len(v.encode("utf-8")) for v in p.dict_values),
-                      default=0) if not p.has_slab else p.char_stride
-                  for p in parts)
-    stride = slab_stride_for(max_len, 1 << 30)  # no cap: parts fit already
+    stride = _concat_stride(parts)
     slabs, lens = [], []
     for p in parts:
         if not p.has_slab:
@@ -202,11 +312,19 @@ def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
     total = total.to(torch.int32)
     live = idx < total
 
+    plain_cols = [ci for ci, dt in enumerate(schema.dtypes) if dt.is_string
+                  and _goes_plain([b.columns[ci] for b in batches])]
+    live_chars = _live_char_totals(batches, plain_cols) if plain_cols \
+        else None
     # one column at a time: the flat copy of a column lives only until its
     # gather
     cols: List[DeviceColumn] = []
     for ci, dt in enumerate(schema.dtypes):
         parts = [b.columns[ci] for b in batches]
+        if ci in plain_cols:
+            cols.append(_gather_flat_plain(dt, _concat_plain(
+                parts, live_chars and live_chars[ci]), src, live))
+            continue
         validity = torch.cat([p.validity for p in parts])
         slab, lens = _concat_slabs(parts) if dt.is_string else (None, None)
         if slab is not None:
@@ -220,6 +338,20 @@ def concat_batches(batches: Sequence[DeviceBatch], out_capacity: int,
                                 else None, vals)
         cols.append(gather_column(flat, src, live))
     return DeviceBatch(schema, cols, total)
+
+
+def _gather_flat_plain(dtype, flat, src: torch.Tensor,
+                       live: torch.Tensor) -> DeviceColumn:
+    """The ``_concat_plain`` source gathered by ``src``: no flat row is
+    taken twice, so the flat chars' count holds the result."""
+    validity, chars, starts, lens = flat
+    idx = src.long()
+    validity = validity[idx] & live
+    lens = torch.where(validity, lens[idx],
+                       torch.zeros((), dtype=torch.int32, device=idx.device))
+    out, offsets = gather_chars(chars, starts[idx], lens,
+                                int(chars.shape[0]))
+    return DeviceColumn(dtype, None, validity, chars=out, offsets=offsets)
 
 
 Count = Union[int, torch.Tensor]

@@ -344,7 +344,8 @@ def window_compute(batch: DeviceBatch, num_child_cols: int,
             seg_c = seg.clamp(max=cap - 1)
             win = rows_by_gid[seg_c].to(torch.int64)
             out_cols.append(gather_column(vcol, win,
-                                          has_by_gid[seg_c] & live))
+                                          has_by_gid[seg_c] & live,
+                                          expand=True))
             continue
         v, neutral = _neutral(vcol.data, agg_kind)
         pre = torch.where(m, v, torch.full_like(v, neutral))

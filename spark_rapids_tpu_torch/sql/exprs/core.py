@@ -24,15 +24,16 @@ from spark_rapids_tpu_torch.columnar.dtype import DType, torch_dtype
 
 class DevCol:
     """Device column value during expression evaluation. String values
-    (``data`` None) are dictionary codes or a char slab (``slab64``,
-    ``lens``); a slab passes through evaluation unchanged, and string
-    expressions read only dictionary codes in this slice."""
+    (``data`` None) are dictionary codes, a char slab (``slab64``,
+    ``lens``) or plain offsets and chars (``chars``, ``offsets``), the
+    forms of ``columnar/column.py``; ``ops/strings.py`` takes all three."""
 
     __slots__ = ("dtype", "data", "validity", "dict_codes", "dict_values",
-                 "slab64", "lens")
+                 "slab64", "lens", "chars", "offsets")
 
     def __init__(self, dtype: DType, data, validity, dict_codes=None,
-                 dict_values=None, slab64=None, lens=None):
+                 dict_values=None, slab64=None, lens=None, chars=None,
+                 offsets=None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
@@ -40,6 +41,8 @@ class DevCol:
         self.dict_values = dict_values
         self.slab64 = slab64
         self.lens = lens
+        self.chars = chars
+        self.offsets = offsets
 
 
 class DevScalar:
@@ -116,6 +119,11 @@ class Expression:
     def device_supported(self, schema: Schema) -> Optional[str]:
         """None if this node can run on the device, else the reason."""
         return None
+
+    def device_supported_in(self, schema: Schema, conf) -> Optional[str]:
+        """``device_supported`` under a session's conf (None: the
+        defaults); a node whose tag reads a conf overrides it."""
+        return self.device_supported(schema)
 
     def map_children(self, fn) -> "Expression":
         import copy
@@ -316,11 +324,12 @@ def walk(expr: Expression):
         yield from walk(c)
 
 
-def first_unsupported(expr: Expression, schema: Schema) -> Optional[str]:
-    """The first node (pre-order) that cannot run on the device, as a
-    reason string, or None."""
+def first_unsupported(expr: Expression, schema: Schema,
+                      conf=None) -> Optional[str]:
+    """The first node (pre-order) that cannot run on the device under
+    ``conf`` (None: the defaults), as a reason string, or None."""
     for node in walk(expr):
-        reason = node.device_supported(schema)
+        reason = node.device_supported_in(schema, conf)
         if reason is None and type(node).eval_device is Expression.eval_device:
             reason = "has no TPU implementation"
         if reason is not None:

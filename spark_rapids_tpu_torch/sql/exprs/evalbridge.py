@@ -16,7 +16,8 @@ from spark_rapids_tpu_torch.sql.exprs.core import (
 
 def make_context(batch: DeviceBatch) -> EvalContext:
     cols = [DevCol(c.dtype, c.data, c.validity, dict_codes=c.dict_codes,
-                   dict_values=c.dict_values, slab64=c.slab64, lens=c.lens)
+                   dict_values=c.dict_values, slab64=c.slab64, lens=c.lens,
+                   chars=c.chars, offsets=c.offsets)
             for c in batch.columns]
     return EvalContext(cols, batch.row_mask(), batch.capacity, batch.device)
 
@@ -25,6 +26,22 @@ def to_device_column(ctx: EvalContext, v: DevValue) -> DeviceColumn:
     c = ctx.broadcast(v)
     # mask out padding rows so stale values never leak past num_rows
     validity = c.validity & ctx.row_mask
+    if c.dtype.is_string and c.chars is not None and c.dict_values is None:
+        if any(c is inp for inp in ctx.cols):
+            # an input column passed through: its invalid and padding rows
+            # are empty already
+            return DeviceColumn(c.dtype, None, c.validity, chars=c.chars,
+                                offsets=c.offsets)
+        # rows masked here must be empty: repack the kept rows' bytes
+        from spark_rapids_tpu_torch.columnar.column import (
+            gather_chars, string_lens,
+        )
+        lens = torch.where(validity, string_lens(c), torch.zeros_like(
+            c.offsets[1:]))
+        chars, offsets = gather_chars(c.chars, c.offsets[:-1], lens,
+                                      int(c.chars.shape[0]))
+        return DeviceColumn(c.dtype, None, validity, chars=chars,
+                            offsets=offsets)
     if c.dtype.is_string and c.dict_values is None:
         # a char slab: masked rows get zero words and length
         slab = torch.where(validity[:, None], c.slab64,

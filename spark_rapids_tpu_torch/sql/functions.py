@@ -193,6 +193,54 @@ def substring(c, pos: int, length_: int) -> Column:
     return Column(st.Substring(_c(c), pos, length_))
 
 
+# --- string functions (A.5; the JAX package's spellings) ---------------------
+
+def length(c) -> Column: return Column(st.StringLength(_c(c)))
+def upper(c) -> Column: return Column(st.Upper(_c(c)))
+def lower(c) -> Column: return Column(st.Lower(_c(c)))
+def initcap(c) -> Column: return Column(st.InitCap(_c(c)))
+def concat(*cs) -> Column:
+    return Column(st.ConcatStrings([_c(c) for c in cs]))
+def trim(c) -> Column: return Column(st.Trim(_c(c)))
+def ltrim(c) -> Column: return Column(st.LTrim(_c(c)))
+def rtrim(c) -> Column: return Column(st.RTrim(_c(c)))
+def lpad(c, n: int, pad: str = " ") -> Column:
+    return Column(st.LPad(_c(c), n, pad))
+def rpad(c, n: int, pad: str = " ") -> Column:
+    return Column(st.RPad(_c(c), n, pad))
+def locate(substr: str, c, pos: int = 1) -> Column:
+    return Column(st.StringLocate(_c(c), substr, pos))
+def instr(c, substr: str) -> Column:
+    return Column(st.StringLocate(_c(c), substr, 1))
+def replace(c, search: str, replacement: str) -> Column:
+    return Column(st.StringReplace(_c(c), search, replacement))
+def regexp_replace(c, pattern: str, replacement: str) -> Column:
+    return Column(st.make_regexp_replace(_c(c), pattern, replacement))
+def concat_ws(sep: str, *cs) -> Column:
+    return Column(st.ConcatWs(sep, [_c(c) for c in cs]))
+def translate(c, matching: str, replace: str) -> Column:
+    return Column(st.Translate(_c(c), matching, replace))
+def reverse(c) -> Column: return Column(st.StringReverse(_c(c)))
+def repeat(c, n: int) -> Column: return Column(st.StringRepeat(_c(c), n))
+def ascii(c) -> Column: return Column(st.Ascii(_c(c)))  # noqa: A001
+def chr_(c) -> Column: return Column(st.Chr(_c(c)))
+char = chr_
+def left(c, n: int) -> Column:
+    return Column(st.Substring(_c(c), 1, int(n)))
+def right(c, n: int) -> Column:
+    return Column(st.Substring(_c(c), -int(n), int(n)))
+
+
+def greatest(*cs) -> Column:
+    from spark_rapids_tpu_torch.sql.exprs.nullexprs import Greatest
+    return Column(Greatest([_c(c) for c in cs]))
+
+
+def least(*cs) -> Column:
+    from spark_rapids_tpu_torch.sql.exprs.nullexprs import Least
+    return Column(Least([_c(c) for c in cs]))
+
+
 def year(c) -> Column: return Column(dt.Year(_c(c)))
 def month(c) -> Column: return Column(dt.Month(_c(c)))
 def dayofmonth(c) -> Column: return Column(dt.DayOfMonth(_c(c)))
@@ -206,9 +254,10 @@ def weekofyear(c) -> Column: return Column(dt.WeekOfYear(_c(c)))
 
 
 def to_date(c) -> Column:
-    """to_date(timestamp): the day (a cast to date; string parsing is
-    ROADMAP A.5's)."""
-    return Column(Cast(_c(c), dtypes.DATE32))
+    """to_date(x): the day of a timestamp, or a string's date (parsed on
+    the device under spark.rapids.sql.castStringToDate.enabled)."""
+    from spark_rapids_tpu_torch.sql.exprs.cast import ToDate
+    return Column(ToDate(_c(c)))
 
 
 def coalesce(*cs) -> Column: return Column(cond.Coalesce([_c(c) for c in cs]))

@@ -102,7 +102,7 @@ class ExecMeta:
             schema = (self.plan.children[0].output_schema()
                       if self.plan.children else self.plan.output_schema())
         for e in exprs:
-            reason = first_unsupported(e, schema)
+            reason = first_unsupported(e, schema, self.conf)
             if reason:
                 self.bad_exprs.append((what, e))
                 self.will_not_work(f"{what}: {reason}")
@@ -202,7 +202,8 @@ def _tag_join(meta: ExecMeta) -> None:
 def _tag_bnlj(meta: ExecMeta) -> None:
     cond = meta.plan.condition
     if cond is not None:
-        reason = first_unsupported(cond, meta.plan.output_schema())
+        reason = first_unsupported(cond, meta.plan.output_schema(),
+                                   meta.conf)
         if reason:
             meta.will_not_work(f"join condition: {reason}")
 
@@ -223,7 +224,7 @@ def _tag_window(meta: ExecMeta) -> None:
         for e in (w.spec.partition_cols
                   + [o.expr for o in w.spec.orders]
                   + ([vexpr] if vexpr is not None else [])):
-            reason = first_unsupported(e, cs)
+            reason = first_unsupported(e, cs, meta.conf)
             if reason:
                 meta.will_not_work(f"window column {name}: {reason}")
 

@@ -24,10 +24,11 @@ from spark_rapids_tpu_torch.columnar.column import (
 def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
     """Port DeviceBatch holding the same buffers as the JAX package's
     ``ref_batch`` (same capacity, validity, data, dictionary codes and
-    values). A string column without a dictionary arrives as a char slab,
-    as the port's upload makes one: the reference's slab as it is, or its
-    packed chars laid out at the stride the upload would choose (the
-    power of two that covers the longest value)."""
+    values). A string column without a dictionary arrives in the form the
+    port's upload would give it: the reference's slab as it is; its packed
+    chars as a slab at the power-of-two stride of the longest value where
+    that fits the upload's stride limit (``upload_blocked_chars``), else as
+    the same plain offsets and chars."""
     device = torch.device(device)
     names = list(ref_batch.schema.names)
     dts = [dtypes.by_name(d.name) for d in ref_batch.schema.dtypes]
@@ -36,6 +37,14 @@ def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
         # copies: the reference's host views are read-only
         validity = np.array(c.validity)
         if dt.is_string and c.dict_values is None:
+            plain = _plain_of(c, validity)
+            if plain is not None:
+                chars, offsets = plain
+                cols.append(DeviceColumn(
+                    dt, None, torch.from_numpy(validity).to(device),
+                    chars=torch.from_numpy(chars).to(device),
+                    offsets=torch.from_numpy(offsets).to(device)))
+                continue
             slab, lens = _slab_of(c, validity)
             cols.append(DeviceColumn(
                 dt, None, torch.from_numpy(validity).to(device),
@@ -51,10 +60,31 @@ def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
     return DeviceBatch(Schema(names, dts), cols, num_rows)
 
 
+def _plain_of(ref_col, validity: np.ndarray):
+    """(chars, offsets) of a reference packed string column whose longest
+    value passes the upload's slab limit (invalid rows emptied), else
+    None."""
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
+    if ref_col.has_slab:
+        return None
+    offsets = np.array(ref_col.offsets).astype(np.int32)
+    lens = np.where(validity, offsets[1:] - offsets[:-1], 0)
+    if slab_stride_for(int(lens.max(initial=0)), upload_blocked_chars()):
+        return None
+    chars = np.array(ref_col.data).astype(np.uint8)
+    starts = offsets[:-1].astype(np.int64)
+    new_off = np.zeros(len(lens) + 1, np.int32)
+    new_off[1:] = np.cumsum(lens)
+    out = np.zeros(max(int(new_off[-1]), 1), np.uint8)
+    for i in np.flatnonzero(lens):
+        out[new_off[i]:new_off[i + 1]] = chars[starts[i]:starts[i] + lens[i]]
+    return out, new_off
+
+
 def _slab_of(ref_col, validity: np.ndarray):
     """(uint64 slab, int32 lens) of a reference string column without a
     dictionary; lens are 0 on invalid rows, as the port's upload sets."""
-    from spark_rapids_tpu_torch.exec.transitions import UPLOAD_MAX_STRIDE
+    from spark_rapids_tpu_torch.exec.transitions import upload_blocked_chars
     if ref_col.has_slab:
         slab = np.array(ref_col._slab64).astype(np.uint64)
         lens = np.array(ref_col.lens_()).astype(np.int32)
@@ -63,7 +93,7 @@ def _slab_of(ref_col, validity: np.ndarray):
         chars = np.array(ref_col.data).astype(np.uint8)
         lens = offsets[1:] - offsets[:-1]
         stride = slab_stride_for(int(lens.max(initial=0)),
-                                 UPLOAD_MAX_STRIDE)
+                                 upload_blocked_chars())
         slab, lens = np_build_slab(chars, offsets, len(validity), stride)
     return slab, np.where(validity, lens, 0).astype(np.int32)
 

@@ -6,7 +6,9 @@ sessions.
 
 The frame holds a char-slab string column ``s`` and a second one ``s2``
 (more distinct values than a dictionary takes), dictionary string columns
-``d`` and ``d2`` (with different dictionaries), nullable integers ``x``,
+``d`` and ``d2`` (with different dictionaries), a plain offsets+chars
+column ``p`` (the same kind of values, a fifth of them past the 64-byte
+slab limit, some with surrounding spaces), nullable integers ``x``,
 floats ``f`` and timestamps ``ts``. Its strings hold nulls, empty
 strings, values with a common prefix of 8 and 9 bytes and values up to 64
 bytes, the slab's stride; ``LONG`` (70 bytes) is longer, and shares its
@@ -16,7 +18,13 @@ The cases: the six comparisons against literals (either side) and
 between columns (slab/slab, dictionary/dictionary, and mixed),
 ``startswith``, ``endswith``, ``contains``, the four device kinds of
 LIKE, ``substring`` (and ``isin`` and ``==`` over it), IN (a NULL in the
-list included), OR, NOT, CASE WHEN, ``if`` and ``year``.
+list included), OR, NOT, CASE WHEN, ``if`` and ``year``; over ``p`` the
+comparisons, predicates and the string functions of the string slice
+(``FUNCTION_CASES``: length, case maps, trim, pad, locate, replace,
+concat, ``concat_ws``, translate, reverse, repeat, ascii, left/right,
+greatest/least, the renderings of integers, booleans and dates, chr).
+``parse_cases`` holds the string parses, which run on the device only
+under ``PARSE_CONF``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ LITERALS = {"prefix8": "abcdefgh", "prefix9": "abcdefghi", "empty": "",
 SPECIAL = ["", "abcdefgh", "abcdefghi", "abcdefgh1", "abcdefgz",
            "abcdefghij", "abcdefgg", "m", "name7", "x" * 40, "ab", "hi",
            "q" * 64]
+# the string parses' confs (off by default, as in the JAX package)
+PARSE_CONF = {"spark.rapids.sql.castStringToInteger.enabled": True,
+              "spark.rapids.sql.castStringToDate.enabled": True}
 
 
 def _words(rng, n: int, lo: int, hi: int) -> list:
@@ -63,12 +74,21 @@ def string_frame(n: int, seed: int = 20261017) -> pd.DataFrame:
     ts[rng.random(n) < 0.1] = pd.NaT
     x = pd.array(rng.integers(0, 10, n), dtype="Int64")
     x[rng.random(n) < 0.1] = pd.NA
+    # the plain column: past 64 bytes in a fifth of the rows, padded with
+    # spaces in another fifth, numbers and dates among them
+    ppool = np.array([v + " " + LONG + v if i % 5 == 1 else
+                      f"  {v} " if i % 5 == 2 else
+                      str(i - 250) if i % 5 == 3 and i % 2 else
+                      f"20{i % 30:02d}-0{1 + i % 9}-{10 + i % 19}"
+                      if i % 5 == 3 else v
+                      for i, v in enumerate(pool)], dtype=object)
     return pd.DataFrame({
         "id": np.arange(n, dtype=np.int64),
         "s": _with_nulls(rng, pool[rng.integers(0, len(pool), n)]),
         "s2": _with_nulls(rng, pool[rng.integers(0, len(pool), n)]),
         "d": _with_nulls(rng, dpool[rng.integers(0, len(dpool), n)]),
         "d2": _with_nulls(rng, d2pool[rng.integers(0, len(d2pool), n)]),
+        "p": _with_nulls(rng, ppool[rng.integers(0, len(ppool), n)]),
         "x": x,
         "f": rng.uniform(-5, 5, n),
         "ts": ts,
@@ -137,7 +157,68 @@ def cases(conditional) -> Dict[str, Callable]:
         "year_case": lambda M: M.when(M.year(M.col("ts")) > 1995,
                                       M.col("x")).otherwise(-1),
     })
+    out.update(FUNCTION_CASES)
     return out
+
+
+def _p(M):
+    return M.col("p")
+
+
+# the string functions over the plain column, and the renderings
+FUNCTION_CASES: Dict[str, Callable] = {
+    "p_eq_lit": lambda M: _p(M) == "abcdefghi",
+    "p_lt_s": lambda M: _p(M) < M.col("s"),
+    "p_ge_d": lambda M: _p(M) >= M.col("d"),
+    "p_eq_p": lambda M: _p(M) == _p(M),
+    "p_startswith": lambda M: _p(M).startswith("ab"),
+    "p_endswith": lambda M: _p(M).endswith(LONG[:5] + "ab"),
+    "p_contains": lambda M: _p(M).contains("qqqq"),
+    "p_like": lambda M: _p(M).like("%hi%"),
+    "p_substr": lambda M: _p(M).substr(60, 12),
+    "p_in": lambda M: _p(M).isin("abcdefgh", "  m ", ""),
+    "p_length": lambda M: M.length(_p(M)),
+    "p_upper": lambda M: M.upper(_p(M)),
+    "p_lower": lambda M: M.lower(M.upper(_p(M))),
+    "p_initcap": lambda M: M.initcap(_p(M)),
+    "p_trim": lambda M: M.trim(_p(M)),
+    "p_ltrim": lambda M: M.ltrim(_p(M)),
+    "p_rtrim": lambda M: M.rtrim(_p(M)),
+    "p_lpad": lambda M: M.lpad(_p(M), 20, "*"),
+    "p_rpad": lambda M: M.rpad(_p(M), 70, "-"),
+    "p_locate": lambda M: M.locate("q", _p(M), 3),
+    "p_instr": lambda M: M.instr(_p(M), "ab"),
+    "p_replace": lambda M: M.replace(_p(M), "qq", "Z"),
+    "p_replace_grow": lambda M: M.replace(_p(M), "a", "<a>"),
+    "p_regexp_literal": lambda M: M.regexp_replace(_p(M), "hi", "HI"),
+    "p_concat": lambda M: M.concat(_p(M), M.lit("|"), M.col("s")),
+    "p_concat_ws": lambda M: M.concat_ws(",", _p(M), M.col("d"),
+                                         M.col("s")),
+    "p_translate": lambda M: M.translate(_p(M), "abq", "ba"),
+    "p_reverse": lambda M: M.reverse(_p(M)),
+    "p_repeat": lambda M: M.repeat(_p(M), 2),
+    "p_ascii": lambda M: M.ascii(_p(M)),
+    "p_left": lambda M: M.left(_p(M), 5),
+    "p_right": lambda M: M.right(_p(M), 66),
+    "p_greatest": lambda M: M.greatest(_p(M), M.col("s"), M.col("d")),
+    "p_least": lambda M: M.least(_p(M), M.col("s2")),
+    "x_to_string": lambda M: M.col("x").cast("string"),
+    "x_to_string_neg": lambda M: (M.col("x") * -123456789012).cast(
+        "string"),
+    "bool_to_string": lambda M: (M.col("x") > 4).cast("string"),
+    "date_to_string": lambda M: M.col("ts").cast("date").cast("string"),
+    "x_chr": lambda M: M.chr_(M.col("x") * 37 - 100),
+}
+
+
+def parse_cases() -> Dict[str, Callable]:
+    """The string parses (on the device under ``PARSE_CONF`` only)."""
+    return {
+        "p_to_int": lambda M: _p(M).cast("int"),
+        "p_trim_to_long": lambda M: M.trim(_p(M)).cast("long"),
+        "p_to_date": lambda M: M.to_date(_p(M)),
+        "p_cast_date": lambda M: _p(M).cast("date"),
+    }
 
 
 def port_conditional(M):

@@ -85,9 +85,15 @@ def test_batch_from_reference_round_trip(rng):
 
 
 def test_plain_string_column_raises():
+    """A column that does not dictionary-encode, uploaded with no slab
+    stride, no longer raises: it is plain offsets and chars, as the JAX
+    package's upload with blocked chars off gives, and reads back."""
     df = pd.DataFrame({"s": [f"v{i}" for i in range(5000)]})  # no dictionary
-    with pytest.raises(NotImplementedError, match="plain"):
-        DeviceBatch.from_pandas(df, device="cpu")
+    batch = DeviceBatch.from_pandas(df, device="cpu")
+    ref = RefBatch.from_pandas(df)
+    assert batch.columns[0].is_plain
+    assert ref.columns[0].dict_values is None and not ref.columns[0].has_slab
+    assert batch.to_pandas().s.tolist() == df.s.tolist()
 
 
 def test_cuda_request_without_card_raises():

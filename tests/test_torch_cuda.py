@@ -1130,6 +1130,151 @@ def test_wide_string_upload_on_the_card(cuda_device):
         assert _sorted_rows(got) == _sorted_rows(want)
 
 
+def _plain_values(n: int, seed: int) -> np.ndarray:
+    """``n`` values past the 64-byte slab limit (plain chars), most tying
+    on their first 64 bytes, with NULLs and empty strings."""
+    rng = np.random.default_rng(seed)
+    out = ["h" * 64 + "".join(rng.choice(list("ab z"), rng.integers(0, 90)))
+           if rng.random() < 0.7 else
+           "" if rng.random() < 0.2 else f"w{i}-" + "q" * 80
+           for i in range(n)]
+    vals = np.asarray(out, dtype=object)
+    vals[rng.random(n) < 0.08] = None
+    return vals
+
+
+@pytest.mark.cuda
+def test_plain_gather_and_concat_on_the_card(cuda_device):
+    """A plain column's filter (B1), gather and slice, and its concat with
+    a slab part and a dictionary part, on the card equal the same steps on
+    the CPU, offsets and chars exactly."""
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch
+    from spark_rapids_tpu_torch.ops import rowops
+    rng = np.random.default_rng(3)
+    frames = [pd.DataFrame({"s": _plain_values(5000, 4)}),
+              pd.DataFrame({"s": [f"v{i}" for i in range(3000)]}),
+              pd.DataFrame({"s": ["a", "bb", None, "c" * 80] * 250})]
+    keeps = [rng.random(8192) < 0.6 for _ in frames]
+    perm = rng.permutation(8192)
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        parts = [DeviceBatch.from_pandas(f, {}, device=dev, slab_stride=64)
+                 for f in frames]
+        assert [c.columns[0].is_plain for c in parts] == [True, False, False]
+        K.reset_launches()
+        filt = rowops.filter_batch(parts[0], torch.from_numpy(
+            keeps[0][:parts[0].capacity]).to(dev))
+        gath = rowops.gather_batch(parts[0], torch.from_numpy(
+            perm).int().to(dev), parts[0].num_rows)
+        sl = rowops.slice_batch(parts[0], 100, 2000)
+        cat = rowops.concat_batches(
+            parts, 16384, keep_masks=[torch.from_numpy(
+                k[:p.capacity]).to(dev) for k, p in zip(keeps, parts)])
+        if dev.type == "cuda":
+            assert K.LAUNCHES["compact_permutation"] >= 2
+        outs[dev.type] = [b.columns[0] for b in (filt, gath, sl, cat)]
+    for card, cpu in zip(outs["cuda"], outs["cpu"]):
+        assert card.is_plain and cpu.is_plain
+        assert torch.equal(card.validity.cpu(), cpu.validity)
+        assert torch.equal(card.offsets.cpu(), cpu.offsets)
+        total = int(cpu.offsets[-1])
+        assert torch.equal(card.chars[:total].cpu(), cpu.chars[:total])
+
+
+@pytest.mark.cuda
+def test_plain_concat_past_int32_chars_on_the_card(cuda_device):
+    """Three plain batches of 2^20 rows of 720 bytes, each filtered to 100
+    rows (a filter keeps its source's 0.75 GB char capacity, so the three
+    sum past 2^31): the concat reads their live char totals in one counted
+    sync and holds just the kept rows' bytes, equal to them."""
+    from spark_rapids_tpu_torch.columnar import dtypes
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    from spark_rapids_tpu_torch.ops import rowops
+    rows, width, kept = 1 << 20, 720, 100
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    parts, want = [], []
+    for p in range(3):
+        chars = torch.randint(97, 123, (rows * width,), dtype=torch.uint8,
+                              device=dev, generator=gen)
+        col = DeviceColumn(
+            dtypes.STRING, None, torch.ones(rows, dtype=torch.bool,
+                                            device=dev), chars=chars,
+            offsets=torch.arange(rows + 1, dtype=torch.int32,
+                                 device=dev) * width)
+        batch = DeviceBatch(Schema(["s"], [dtypes.STRING]), [col],
+                            torch.full((), rows, dtype=torch.int32,
+                                       device=dev))
+        keep = torch.arange(rows, device=dev) // 7 % 1500 == 3 + p
+        keep &= torch.cumsum(keep.to(torch.int32), 0) <= kept
+        out = rowops.filter_batch(batch, keep)
+        assert int(out.columns[0].chars.shape[0]) == rows * width
+        want.append(chars.view(rows, width)[keep].cpu())
+        parts.append(out)
+        del chars, col, batch
+    assert sum(int(b.columns[0].chars.shape[0]) for b in parts) >= 1 << 31
+    before = SYNCS.syncs.get("concat.charTotals", 0)
+    got = rowops.concat_batches(parts, 1024).columns[0]
+    assert SYNCS.syncs["concat.charTotals"] == before + 1
+    assert got.is_plain and int(got.chars.shape[0]) == 3 * kept * width
+    assert torch.equal(got.chars.cpu().view(3 * kept, width),
+                       torch.cat(want))
+    assert torch.equal(got.offsets[:3 * kept + 1].cpu(), torch.arange(
+        3 * kept + 1, dtype=torch.int32) * width)
+
+
+@pytest.mark.cuda
+def test_plain_sort_exact_past_64_bytes_on_the_card(cuda_device):
+    """Values past 64 bytes that tie on their first 64: an order-by in
+    both directions, a group-by count and a min/max on the card equal the
+    CPU session's (the tied tails ranked on the card)."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    df = pd.DataFrame({"k": np.arange(3000, dtype=np.int64),
+                       "s": _plain_values(3000, 5)})
+    df["g"] = df.k % 7
+    for asc in (True, False):
+        got, want = _card_and_cpu(lambda s: s.create_dataframe(df).order_by(
+            F.col("s").asc() if asc else F.col("s").desc(), "k"))
+        assert list(got.k) == list(want.k)
+    for query in (lambda s: s.create_dataframe(df).group_by("s").agg(
+                      F.count("*").alias("n")),
+                  lambda s: s.create_dataframe(df).group_by("g").agg(
+                      F.min("s").alias("lo"), F.max("s").alias("hi"))):
+        got, want = _card_and_cpu(query)
+        assert _sorted_rows(got) == _sorted_rows(want)
+
+
+@pytest.mark.cuda
+def test_plain_join_through_b3_b4_on_the_card(cuda_device):
+    """A two-integer-key join carrying plain payloads on both sides runs
+    on the hash route (B3 builds, B4 probes; the dense route takes only
+    one key) with the payloads' chars sized by the expand's sync; a join
+    on plain keys takes the union probe; both equal the CPU session."""
+    from spark_rapids_tpu_torch.exec import tpujoin
+    rng = np.random.default_rng(8)
+    left = pd.DataFrame({"k": rng.integers(0, 500, 4000),
+                         "p": _plain_values(4000, 6)})
+    right = pd.DataFrame({"k2": rng.integers(0, 500, 1500),
+                          "q": _plain_values(1500, 7)})
+    left["m"], right["m2"] = left.k % 3, right.k2 % 3
+    K.reset_launches()
+    tpujoin.reset_routes()
+    got, want = _card_and_cpu(lambda s: s.create_dataframe(left).join(
+        s.create_dataframe(right), left_on=["k", "m"],
+        right_on=["k2", "m2"]))
+    assert K.LAUNCHES["hash_table_build"] > 0
+    assert K.LAUNCHES["hash_table_probe"] > 0
+    assert len(want) > 5000 and _sorted_rows(got) == _sorted_rows(want)
+    for how in ("inner", "left", "leftanti"):
+        got, want = _card_and_cpu(lambda s: s.create_dataframe(left).join(
+            s.create_dataframe(right), left_on=["p"], right_on=["q"],
+            how=how))
+        assert _sorted_rows(got) == _sorted_rows(want)
+    assert tpujoin.ROUTES["union"] > 0
+
+
 def _tpcxbb_queries():
     from spark_rapids_tpu_torch.models import tpcxbb
     return sorted(tpcxbb.QUERIES, key=lambda q: int(q[1:]))

@@ -111,7 +111,8 @@ def test_hash_group_ids_matches_reference(monkeypatch, k, fill):
     np.testing.assert_array_equal(rep.numpy()[:m], np.asarray(wr)[:m])
 
 
-@pytest.mark.parametrize("layout", ["fixed", "dictionary", "slab"])
+@pytest.mark.parametrize("layout", ["fixed", "dictionary", "slab",
+                                    "plain"])
 def test_count_distinct_reduce_matches_reference(layout):
     rng = np.random.default_rng(5)
     n = 3000
@@ -121,14 +122,17 @@ def test_count_distinct_reduce_matches_reference(layout):
         d = pd.Series(rng.integers(0, 25, n)).astype("Int64")
         d[rng.random(n) < 0.05] = pd.NA
     else:
+        # a slab up to the 64-byte stride limit; past it, plain chars
         card = 30 if layout == "dictionary" else 900
-        d = np.asarray([f"{'z' * 70 if layout == 'slab' else ''}v{i:03d}"
+        pad = {"slab": "z" * 50, "plain": "z" * 70}.get(layout, "")
+        d = np.asarray([f"{pad}v{i:03d}"
                         for i in rng.integers(0, card, n)], dtype=object)
         d[rng.random(n) < 0.05] = None
     df = pd.DataFrame({"g": g, "d": d})
     ref = RefBatch.from_pandas(df)
     port = batch_from_reference(ref)
     assert (layout == "slab") == port.columns[1].has_slab
+    assert (layout == "plain") == port.columns[1].is_plain
 
     def by_key(batch_np, rep, counts, ng):
         out = {}
