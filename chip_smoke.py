@@ -48,7 +48,7 @@ port's main path through its query runners:
     replace over the review text, each equal to pandas, and the string
     functions and casts of ``testing/stringcases.py`` over a plain column
     at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
-    TPCxBB queries at SF 200;
+    TPCxBB queries at SF 150;
   * the four Mortgage queries (``models/mortgage.py``) through the
     session in 2^20-row batches, the ETL at SF 250 (6M performance rows
     expanded 12 times) and the other three at SF 500, each against its
@@ -60,7 +60,16 @@ port's main path through its query runners:
     spillable aggregate on the Q18 group-by at SF10 and an external sort
     of 60M rows, each equal to pandas (the sort to a numpy lexsort) and
     to its in-budget run, every wait counted;
-  * the window cases of ``testing/windowcases.py`` over 2^23 rows through
+  * the expression phase (``expression_phase``, after the session's
+    Parquet cells): TPC-H Q1 as a rollup and a three-key cube over SF10
+    lineitem (the session Q1 cell's cached upload) through B1 and B2,
+    explode(split) of 2^20 Zipf-worded reviews
+    grouped by word, posexplode of 2^18 tag lists, the ids and rand after
+    a filter bit-equal to the CPU session, input_file_name over two files
+    of lineitem and of customer, and every case of
+    ``testing/exprcases.py`` over 2^18 rows against the CPU session, which
+    a child process of this script (``--expr-cpu``) computes meanwhile;
+  * the window cases of ``testing/windowcases.py`` over 2^21 rows through
     the session on the card, every output column held against the CPU
     session's (``device="cpu"``), which a child process of this script
     (``--window-cpu``) computes while the phases above run.
@@ -103,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import itertools
 import json
 import os
 import subprocess
@@ -2295,6 +2305,553 @@ def plain_strings_phase(quick: bool, runs: int, report: dict) -> dict:
     return rec
 
 
+# --- the expression phase (rollup, cube, explode, ids, expression cases) ----
+
+EXPR_CASE_ROWS = 1 << 18  # cut from 2^20 for the smoke's time (PERF.md)
+EXPR_CASE_ROWS_QUICK = 1 << 14
+EXPR_PARTS = 4
+EXPR_BATCH = 1 << 18
+EXPR_CPU_DIR = os.path.join("spark_rapids_tpu_torch", "build", "expr_cpu")
+EXPLODE_REVIEWS = 1 << 20
+EXPLODE_VOCAB = 1 << 16
+EXPLODE_BATCH = 1 << 17
+TAG_ROWS = 1 << 18
+TAG_VOCAB = 4096
+NONDET_PARTS = 4
+NONDET_BATCH = 1 << 20
+
+
+def _batches(rows: int, parts: int, batch_rows: int) -> int:
+    """Upload batches of ``rows`` rows in ``parts`` contiguous partitions
+    of at most ``batch_rows`` rows each batch."""
+    per = -(-rows // parts)
+    sizes = [max(0, min(per, rows - i * per)) for i in range(parts)]
+    return sum(-(-n // batch_rows) for n in sizes if n)
+
+
+def _partial_concat_syncs(rows: int, batch_rows: int, sets: int) -> dict:
+    """The counted syncs of a grouping-sets aggregate's partial pass over
+    one partition: each Expand batch's partial keeps its input capacity,
+    so their concat reads its live rows once (``concat.liveRows``) where
+    the capacities sum past ``exec/tpu.CONCAT_SHRINK_ROWS``."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.exec.tpu import CONCAT_SHRINK_ROWS
+    n = _batches(rows, 1, batch_rows)
+    cap = bucket_capacity(min(rows, batch_rows))
+    return ({"concat.liveRows": 1} if n * sets > 1
+            and n * sets * cap > CONCAT_SHRINK_ROWS else {})
+
+
+def _expr_session(device: str, batch_rows: int = EXPR_BATCH, **conf):
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = (TpuSparkSession.builder().device(device)
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.cacheDeviceScans", True)
+         .config("spark.rapids.sql.batchSizeRows", batch_rows))
+    for k, v in conf.items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
+def expr_cpu_child(rows: int) -> int:
+    """The CPU side of the expression cases, in a process of its own
+    started with the window child: every case of ``testing/exprcases.py``
+    over ``rows`` rows through the session with ``device="cpu"``, its
+    output batches saved under EXPR_CPU_DIR."""
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.testing import exprcases as E
+    os.nice(19)
+    torch.set_num_threads(2)
+    os.makedirs(EXPR_CPU_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    df = E.frame(rows)
+    batches = E.projection(SF_, _expr_session("cpu"), df,
+                           num_partitions=EXPR_PARTS).collect_batches()
+    torch.save([{"num_rows": int(b.num_rows), "names": list(b.schema.names),
+                 "cols": [_expr_column_state(c, int(b.num_rows))
+                          for c in b.columns]}
+                for b in batches], os.path.join(EXPR_CPU_DIR, "cases.pt"))
+    with open(os.path.join(EXPR_CPU_DIR, "done.json"), "w") as f:
+        json.dump({"rows": rows, "s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def start_expr_cpu(rows: int) -> subprocess.Popen:
+    import shutil
+    shutil.rmtree(EXPR_CPU_DIR, ignore_errors=True)
+    os.makedirs(EXPR_CPU_DIR, exist_ok=True)
+    with open(os.path.join(EXPR_CPU_DIR, "child.log"), "w") as logf:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--expr-cpu",
+             str(rows)], stdout=logf, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _expr_column_state(col, n: int) -> dict:
+    """A column's first ``n`` rows on the host: validity, and the values
+    (strings of any form decoded)."""
+    if col.dtype.is_string:
+        vals, valid = col.to_numpy(n)
+        return {"validity": torch.from_numpy(valid.copy()), "strings": vals}
+    return {"validity": col.validity[:n].cpu(), "data": col.data[:n].cpu()}
+
+
+def _same_expr_column(card, n: int, cpu: dict, approx: bool,
+                      what: str) -> None:
+    """A card column's first ``n`` rows against the CPU session's: the
+    same validity; where valid, strings and integers exact, floats bit
+    for bit or (``approx``) within rtol 1e-13 (a subnormal relative to
+    the smallest normal double), with NaN, the infinities and the sign of
+    zero in the same places."""
+    got_state = _expr_column_state(card, n)
+    valid = got_state["validity"]
+    require(torch.equal(valid, cpu["validity"]), f"{what}: validity differs")
+    if "strings" in cpu:
+        v = valid.numpy()
+        require(np.array_equal(got_state["strings"][v], cpu["strings"][v]),
+                f"{what}: strings differ")
+        return
+    got, want = got_state["data"][valid], cpu["data"][valid]
+    if not got.dtype.is_floating_point:
+        require(torch.equal(got, want), f"{what}: values differ")
+        return
+    nan = torch.isnan(got)
+    require(torch.equal(nan, torch.isnan(want)), f"{what}: NaN differ")
+    g, w = got[~nan], want[~nan]
+    require(torch.equal(torch.signbit(g), torch.signbit(w))
+            and torch.equal(torch.isinf(g), torch.isinf(w)),
+            f"{what}: signs or infinities differ")
+    if approx:
+        from spark_rapids_tpu_torch.testing.exprcases import RTOL, TINY
+        fin = torch.isfinite(g)
+        gf, wf = g[fin], w[fin]
+        require(torch.equal(g[~fin], w[~fin]) and bool(
+            ((gf - wf).abs() <= RTOL * wf.abs().clamp(min=TINY)).all()),
+            f"{what}: values differ past rtol {RTOL}")
+    else:
+        require(torch.equal(g, w), f"{what}: values differ")
+
+
+def _expr_cell(name: str, query, rec: dict, want_syncs: dict,
+               batches: bool = False):
+    """One cell: a cold run (uploads into the scan cache) with its
+    collect, whose answer it returns, then one warm run up to the collect,
+    timed, with the launch counts zeroed before and read after, under the
+    sync debug mode "error": its counted syncs by site must be
+    ``want_syncs``. ``batches``: return the cold run's device batches
+    instead of a frame."""
+    from spark_rapids_tpu_torch.ops import kernels as K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = query.collect_batches() if batches else query.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    K.reset_launches()
+    t0 = time.perf_counter()
+    syncs = _syncs_by_site(query.collect_batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    log(f"expr {name}: {wall:.4f} s warm, cold {cold:.1f} s, syncs "
+        f"{syncs}, launches {launches}")
+    require(syncs == want_syncs, f"expr {name}: counted syncs {syncs}, "
+            f"expected {want_syncs}")
+    rec.update({"upload_s": cold, "wall_s": wall, "launches": launches,
+                "syncs": syncs, "fallbacks": 0})
+    return out
+
+
+def _q1_rollup_reference(q1_want) -> "pd.DataFrame":
+    """Q1's groups rolled up from pandas' Q1 answer: sums and counts add,
+    each average is its rolled-up sum over the count."""
+    import pandas as pd
+    w = q1_want.assign(sum_disc=q1_want.avg_disc * q1_want.count_order)
+    sums = ["sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+            "sum_disc", "count_order"]
+    parts = [w]
+    one = w.groupby("l_returnflag", as_index=False)[sums].sum()
+    one["l_linestatus"] = None
+    parts.append(one)
+    tot = w[sums].sum().to_frame().T
+    tot["l_returnflag"] = None
+    tot["l_linestatus"] = None
+    parts.append(tot)
+    out = pd.concat(parts, ignore_index=True)
+    out["avg_qty"] = out.sum_qty / out.count_order
+    out["avg_price"] = out.sum_base_price / out.count_order
+    out["avg_disc"] = out.sum_disc / out.count_order
+    out["count_order"] = out.count_order.astype(np.int64)
+    return out[list(q1_want.columns)]
+
+
+def _cube_reference(frame, keys, value: str):
+    """cube(keys) of sum(value) and count(*) in numpy: the finest groups
+    by bincount over the keys' factorized codes, each grouping set the
+    sum over the axes it rolls up (a rolled-up key NULL)."""
+    import pandas as pd
+    codes, uniq = zip(*(pd.factorize(frame[k]) for k in keys))
+    dims = [len(u) for u in uniq]
+    flat = np.ravel_multi_index(codes, dims)
+    size = int(np.prod(dims))
+    n = np.bincount(flat, minlength=size).reshape(dims)
+    rev = np.bincount(flat, weights=frame[value].to_numpy(),
+                      minlength=size).reshape(dims)
+    parts = []
+    for r in range(len(keys), -1, -1):
+        for kept in itertools.combinations(range(len(keys)), r):
+            drop = tuple(i for i in range(len(keys)) if i not in kept)
+            shape = [dims[i] for i in kept] or [1]
+            cn = np.asarray(n.sum(axis=drop)).reshape(shape)
+            cr = np.asarray(rev.sum(axis=drop)).reshape(shape)
+            idx = np.nonzero(cn)
+            part = {keys[i]: (np.asarray(uniq[i], dtype=object)[
+                idx[kept.index(i)]] if i in kept else None)
+                for i in range(len(keys))}
+            part.update(revenue=cr[idx], n=cn[idx].astype(np.int64))
+            parts.append(pd.DataFrame(part))
+    return pd.concat(parts, ignore_index=True)[keys + ["revenue", "n"]]
+
+
+def _rollup_keys(df, keys):
+    return df.assign(**{k: df[k].astype(object).where(df[k].notna(),
+                                                      "<NULL>")
+                        for k in keys})
+
+
+def _word_reviews(n: int, vocab: int, seed: int = 15):
+    """(reviews frame, vocabulary, token counts by word id, words a
+    review): ``n`` reviews of 8-64 words each, single-space delimited,
+    drawn from a Zipf distribution (exponent 1.1, its inverse CDF at 2^22
+    points) over ``vocab`` distinct words of 2-12 letters. Built in numpy:
+    each token is its word's row of a 16-byte table (the word and a
+    space), the text the table rows' kept bytes in order; pyarrow makes
+    the pandas strings."""
+    import pandas as pd
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    cand = 2 * vocab
+    lens = rng.integers(2, 13, cand)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    chars = letters[rng.integers(0, 26, int(starts[-1]))]
+    words = [chars[starts[i]:starts[i + 1]].tobytes() for i in range(cand)]
+    words = list(dict.fromkeys(words))[:vocab]
+    wlen = np.array([len(w) for w in words], np.int64)
+    table = np.full((vocab, 16), ord(" "), np.uint8)
+    for i, w in enumerate(words):
+        table[i, :len(w)] = np.frombuffer(w, np.uint8)
+    k = rng.integers(8, 65, n)
+    total = int(k.sum())
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    cdf = np.cumsum(p / p.sum())
+    steps = 1 << 22
+    inverse = np.minimum(np.searchsorted(
+        cdf, (np.arange(steps) + 0.5) / steps), vocab - 1)
+    ids = inverse[rng.integers(0, steps, total)]
+    # each token keeps its word and a space, but the last of its review
+    keep = wlen[ids] + 1
+    keep[np.cumsum(k) - 1] -= 1
+    buf = table[ids][np.arange(16)[None, :] < keep[:, None]]
+    ends = np.cumsum(keep)
+    offs = np.concatenate([[0], ends[np.cumsum(k) - 1]]).astype(np.int32)
+    arr = pa.StringArray.from_buffers(n, pa.py_buffer(offs),
+                                      pa.py_buffer(buf))
+    frame = pd.DataFrame({"id": np.arange(n, dtype=np.int64),
+                          "text": arr.to_pandas()})
+    return frame, [w.decode() for w in words], np.bincount(
+        ids, minlength=vocab), k
+
+
+def _tag_lists(n: int, vocab: int, seed: int = 16):
+    """``n`` comma-separated lists of 0-8 tags of ``vocab``; 5% NULL, the
+    empty lists empty strings."""
+    import pandas as pd
+    rng = np.random.default_rng(seed)
+    names = np.array([f"t{i:03x}" for i in range(vocab)], dtype=object)
+    k = rng.integers(0, 9, n)
+    tags = rng.integers(0, vocab, int(k.sum()))
+    ends = np.cumsum(k)
+    lists = [",".join(names[tags[e - c:e]]) for c, e in zip(k, ends)]
+    col = np.asarray(lists, dtype=object)
+    col[rng.random(n) < 0.05] = None
+    return pd.DataFrame({"id": np.arange(n, dtype=np.int64), "tags": col})
+
+
+def expression_phase(quick: bool, q1_session, q1_want, lineitem10, li1,
+                     sfs: tuple, file_pairs, child: subprocess.Popen,
+                     queries: dict, report: dict) -> None:
+    """The expression slice's cells, each in test mode with its syncs
+    counted by site and required to be the ones its sizes predict:
+      * rollup_q1: TPC-H Q1's filter and eight aggregates as a rollup of
+        (l_returnflag, l_linestatus) over lineitem at SF10 on the session
+        Q1 cell's cached upload under HASH_AGG_CONFS (three grouping sets
+        into B2), equal to pandas' Q1 rolled up;
+      * cube_tax: cube(l_returnflag, l_linestatus, l_tax) of
+        sum(l_extendedprice) and count(*) on the same upload (eight sets,
+        ~480M expanded rows), equal to numpy;
+      * explode_words: explode(split(text, " ")) of review text in
+        EXPLODE_BATCH-row batches, grouped by word, equal to the
+        generator's bincount;
+      * posexplode_tags: posexplode(split(tags, ",")) of tag lists (a
+        slab), whole against pandas;
+      * nondet_ids: monotonically_increasing_id, spark_partition_id and
+        rand(42) after a filter over SF1 lineitem in four partitions,
+        bit-equal to the CPU session; input_file_name over two files of
+        lineitem and of customer with prefetch, each row group's rows
+        labelled with its file, cold and replayed;
+      * expr_cases: every case of ``testing/exprcases.py`` on the card
+        against the CPU session (``child``, started at the top)."""
+    import pandas as pd
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    from spark_rapids_tpu_torch.testing import exprcases as E
+    cells: dict = {}
+    phase0 = time.perf_counter()
+
+    # rollup_q1 and cube_tax on the session Q1 cell's session, its
+    # confs put back after
+    sess, tables = q1_session
+    saved = dict(sess.conf._settings)
+    for k, v in T.HASH_AGG_CONFS.items():
+        sess.set_conf(k, v)
+    li = tables["lineitem"]
+    q1_cols = ["l_returnflag", "l_linestatus", "l_quantity",
+               "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+    ep, d, tx = (SF_.col("l_extendedprice"), SF_.col("l_discount"),
+                 SF_.col("l_tax"))
+    q = (li.filter(SF_.col("l_shipdate") <= datetime.date(1998, 9, 2))
+         .select(*q1_cols).rollup("l_returnflag", "l_linestatus")
+         .agg(SF_.sum("l_quantity").alias("sum_qty"),
+              SF_.sum("l_extendedprice").alias("sum_base_price"),
+              SF_.sum(ep * (1 - d)).alias("sum_disc_price"),
+              SF_.sum(ep * (1 - d) * (1 + tx)).alias("sum_charge"),
+              SF_.avg("l_quantity").alias("avg_qty"),
+              SF_.avg("l_extendedprice").alias("avg_price"),
+              SF_.avg("l_discount").alias("avg_disc"),
+              SF_.count("*").alias("count_order")))
+    rec = {"sf": sfs[0], "rows": len(lineitem10)}
+    batch_rows = sess.conf.batch_size_rows
+    out = _expr_cell("rollup_q1", q, rec,
+                     _partial_concat_syncs(len(lineitem10), batch_rows, 3))
+    keys = ["l_returnflag", "l_linestatus"]
+    rec["max_rel_err"] = same_by_key(
+        _rollup_keys(out, keys), _rollup_keys(_q1_rollup_reference(q1_want),
+                                              keys), keys, "expr rollup_q1")
+    require(rec["launches"]["hash_grouped_aggregate"] > 0
+            and rec["launches"]["compact_permutation"] > 0,
+            f"expr rollup_q1 did not run B1 and B2: {rec['launches']}")
+    cells["rollup_q1"] = rec
+    queries["session_expr_rollup_q1"] = rec
+
+    # the cube reads the same cached upload: its third key is l_tax, a
+    # column of it (l_shipmode is not: a new upload of the cube's columns
+    # took 45 s on the host, past the phase's budget; PERF.md)
+    ckeys = ["l_returnflag", "l_linestatus", "l_tax"]
+    q = (li.select(*q1_cols).cube(*ckeys)
+         .agg(SF_.sum("l_extendedprice").alias("revenue"),
+              SF_.count("*").alias("n")))
+    rec = {"sf": sfs[0], "rows": len(lineitem10)}
+    out = _expr_cell("cube_tax", q, rec,
+                     _partial_concat_syncs(len(lineitem10), batch_rows, 8))
+    t0 = time.perf_counter()
+    want = _cube_reference(lineitem10, ckeys, "l_extendedprice")
+    rec["reference_s"] = time.perf_counter() - t0
+    rec["max_rel_err"] = same_by_key(_rollup_keys(out, ckeys),
+                                     _rollup_keys(want, ckeys), ckeys,
+                                     "expr cube_tax")
+    require(rec["launches"]["hash_grouped_aggregate"] > 0
+            and rec["launches"]["compact_permutation"] > 0,
+            f"expr cube_tax did not run B1 and B2: {rec['launches']}")
+    cells["cube_tax"] = rec
+    queries["session_expr_cube_tax"] = rec
+    sess.conf._settings = saved
+    del want, out, q
+    torch.cuda.empty_cache()
+
+    # explode_words
+    t0 = time.perf_counter()
+    nrev = 1 << 14 if quick else EXPLODE_REVIEWS
+    reviews, vocab, counts, words = _word_reviews(nrev, EXPLODE_VOCAB)
+    gen_s = time.perf_counter() - t0
+    ws = _expr_session("cuda", EXPLODE_BATCH)
+    q = (ws.create_dataframe(reviews)
+         .with_column("w", SF_.explode(SF_.split(SF_.col("text"), " ")))
+         .group_by("w").agg(SF_.count("*").alias("n")))
+    rec = {"sf": None, "rows": nrev, "gen_s": gen_s,
+           "tokens": int(counts.sum()),
+           "text_bytes": int(reviews.text.str.len().sum())}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # a totals read a batch; the string group keys' exact images: one tie
+    # count a partial, one for the merge of several partials, one for the
+    # final aggregate
+    # final aggregate; and the concat of the partials reads its live chars
+    # once where their token columns' char capacities (each its batch's)
+    # sum past ``rowops.CONCAT_SHRINK_CHARS``
+    from spark_rapids_tpu_torch.columnar.column import char_bucket
+    from spark_rapids_tpu_torch.ops.rowops import CONCAT_SHRINK_CHARS
+    nb = _batches(nrev, 1, EXPLODE_BATCH)
+    tok_chars = reviews.text.str.len().to_numpy() - (words - 1)
+    caps = sum(char_bucket(int(tok_chars[lo:lo + EXPLODE_BATCH].sum()))
+               for lo in range(0, nrev, EXPLODE_BATCH))
+    want_syncs = {"generate.totals": nb,
+                  "strings.tieSettle": nb + 1 + (nb > 1)}
+    if nb > 1 and caps > CONCAT_SHRINK_CHARS:
+        want_syncs["concat.charTotals"] = 1
+    out = _expr_cell("explode_words", q, rec, want_syncs)
+    rec["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
+    got = dict(zip(out.w, out.n))
+    want = {w: int(c) for w, c in zip(vocab, counts) if c}
+    require(got == want, f"expr explode_words: {len(got)} words against "
+            f"the generator's {len(want)}, counts differ")
+    cells["explode_words"] = rec
+    queries["session_expr_explode_words"] = rec
+    ws.stop()
+    del ws, q, reviews, out, got, want
+    torch.cuda.empty_cache()
+
+    # posexplode_tags
+    tags = _tag_lists(1 << 12 if quick else TAG_ROWS, TAG_VOCAB)
+    ts = _expr_session("cuda", TAG_ROWS)
+    q = ts.create_dataframe(tags).with_column(
+        "tag", SF_.posexplode(SF_.split(SF_.col("tags"), ",")))
+    rec = {"sf": None, "rows": len(tags)}
+    out = _expr_cell("posexplode_tags", q, rec, {
+        "generate.totals": _batches(len(tags), 1, TAG_ROWS)})
+    want = tags.dropna().assign(tag=lambda f: f.tags.str.split(","))
+    want = want.explode("tag")
+    want["pos"] = want.groupby(level=0).cumcount().astype(np.int32)
+    want = want[["id", "tags", "pos", "tag"]].reset_index(drop=True)
+    for f_ in (out, want):
+        f_.sort_values(["id", "pos"], inplace=True, kind="stable")
+        f_.reset_index(drop=True, inplace=True)
+    require(list(out.columns) == list(want.columns) and len(out) == len(
+        want) and all(np.array_equal(out[c].to_numpy(object),
+                                     want[c].to_numpy(object))
+                      for c in ("tags", "tag"))
+            and np.array_equal(out.id.to_numpy(), want.id.to_numpy())
+            and np.array_equal(out.pos.to_numpy(np.int64),
+                               want.pos.to_numpy(np.int64)),
+            "expr posexplode_tags differs from pandas")
+    rec["rows_out"] = len(out)
+    cells["posexplode_tags"] = rec
+    queries["session_expr_posexplode_tags"] = rec
+    ts.stop()
+    del ts, q, tags, out, want
+    torch.cuda.empty_cache()
+
+    # nondet_ids: the card against the CPU session, bit for bit
+    frame = li1[["l_orderkey", "l_quantity"]]
+
+    def ids_query(s):
+        return (s.create_dataframe(frame, NONDET_PARTS)
+                .filter(SF_.col("l_quantity") < 25)
+                .select(SF_.col("l_orderkey"),
+                        SF_.monotonically_increasing_id().alias("mid"),
+                        SF_.spark_partition_id().alias("pid"),
+                        SF_.rand(42).alias("r")))
+    ns = _expr_session("cuda", NONDET_BATCH)
+    rec = {"sf": sfs[1], "rows": len(frame)}
+    # a filter's batch holds its row count on the device: one read a batch
+    card = _expr_cell("nondet_ids", ids_query(ns), rec, {
+        "nondet.rowBase": _batches(len(frame), NONDET_PARTS, NONDET_BATCH)})
+    t0 = time.perf_counter()
+    cpu = ids_query(_expr_session("cpu", NONDET_BATCH)).collect()
+    rec["cpu_s"] = time.perf_counter() - t0
+    require(len(card) == len(cpu) and all(
+        np.array_equal(card[c].to_numpy(), cpu[c].to_numpy())
+        for c in ("l_orderkey", "mid", "pid"))
+        and np.array_equal(card.r.to_numpy(np.float64).view(np.int64),
+                           cpu.r.to_numpy(np.float64).view(np.int64)),
+        "expr nondet_ids: the card's ids or rand differ from the CPU's")
+    require(sorted(set(card.pid)) == list(range(NONDET_PARTS)),
+            "expr nondet_ids: partitions missing")
+    cells["nondet_ids"] = rec
+    queries["session_expr_nondet_ids"] = rec
+    ns.stop()
+    del ns, card, cpu, frame
+
+    # input_file_name over two files of lineitem and two of customer
+    fs = _expr_session("cuda", NONDET_BATCH)
+    rec = {"sf": None, "rows": 0, "files": {}}
+    for table, (paths, key) in file_pairs.items():
+        q = fs.read.parquet(*paths).select(
+            SF_.input_file_name().alias("f"), SF_.col(key))
+        for run in ("cold", "replay"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = q.collect_batches()
+            torch.cuda.synchronize()
+            rec[f"{table}_{run}_s"] = time.perf_counter() - t0
+            labels = []
+            for b in batches:
+                col = b.columns[0]
+                n = int(b.num_rows)
+                require(col.dict_values is not None
+                        and len(col.dict_values) == 1
+                        and bool((col.dict_codes[:n] == 0).all()),
+                        f"expr input_file {table}: a batch mixes files")
+                labels.append((col.dict_values[0], n))
+            want = [(p, praw.file_metadata(p).row_group(rg).num_rows)
+                    for p in paths
+                    for rg in range(praw.file_metadata(p).num_row_groups)]
+            require(labels == want, f"expr input_file {table} {run}: "
+                    f"labels {labels[:4]}... against {want[:4]}...")
+        rec["files"][table] = len(want)
+        rec["rows"] += sum(n for _p, n in want)
+    syncs = _syncs_by_site(q.collect_batches)
+    require(syncs == {}, f"expr input_file: counted syncs {syncs} on the "
+            "replay, expected none")
+    rec.update(syncs=syncs, fallbacks=0)
+    cells["input_file"] = rec
+    fs.stop()
+    del fs, q, batches
+
+    # expr_cases against the CPU session's process
+    t0 = time.perf_counter()
+    rows = EXPR_CASE_ROWS_QUICK if quick else EXPR_CASE_ROWS
+    df = E.frame(rows)
+    gen_s = time.perf_counter() - t0
+    es = _expr_session("cuda")
+    q = E.projection(SF_, es, df, num_partitions=EXPR_PARTS)
+    rec = {"sf": None, "rows": rows, "gen_s": gen_s, "cases": len(E.CASES)}
+    card = _expr_cell("expr_cases", q, rec, {}, batches=True)
+    t0 = time.perf_counter()
+    rc = child.wait(timeout=600)
+    rec["cpu_wait_s"] = time.perf_counter() - t0
+    with open(os.path.join(EXPR_CPU_DIR, "child.log")) as f:
+        tail = f.read()[-2000:]
+    require(rc == 0, f"expr_cases: the CPU session's process failed ({rc}): "
+            f"{tail}")
+    with open(os.path.join(EXPR_CPU_DIR, "done.json")) as f:
+        rec["cpu"] = json.load(f)
+    cpu = torch.load(os.path.join(EXPR_CPU_DIR, "cases.pt"),
+                     weights_only=False)
+    require(len(card) == len(cpu), "expr_cases: batch counts differ")
+    bad = []
+    for bc, bh in zip(card, cpu):
+        require(int(bc.num_rows.item()) == bh["num_rows"]
+                and list(bc.schema.names) == bh["names"],
+                "expr_cases: rows or columns differ")
+        for cname, cc, ch in zip(bh["names"], bc.columns, bh["cols"]):
+            try:
+                _same_expr_column(cc, bh["num_rows"], ch, cname in E.APPROX,
+                                  f"expr_cases {cname}")
+            except AssertionError as e:  # every differing case, then fail
+                bad.append(str(e))
+    require(not bad, f"expr_cases: {sorted(set(bad))}")
+    cells["expr_cases"] = rec
+    queries["session_expr_cases"] = rec
+    es.stop()
+    del es, q, card, cpu, df
+    torch.cuda.empty_cache()
+    report["expression_phase"] = cells
+    log(f"expression phase: {len(cells)} cells in "
+        f"{time.perf_counter() - phase0:.1f} s, syncs "
+        + ", ".join(f"{k} {v.get('syncs')}" for k, v in cells.items()))
+
+
 def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
                     runs: int, queries: dict) -> None:
     """TPC-H Q9 through the session from Parquet files (lineitem, orders,
@@ -2741,7 +3298,7 @@ def memory_phase(frames: dict, mortgage: tuple, batch_rows: int,
         rec["in_budget_wall_s"] = in_wall
         t0 = time.perf_counter()
         want = MC.pandas_reference("aggregates_with_join", perf, acq)
-        rec["pandas_s"] = time.perf_counter() - t0
+        rec["reference_s"] = time.perf_counter() - t0
         rec.update(MC.same_answer("aggregates_with_join", out, want))
         MC.same_answer("aggregates_with_join", out, out_in)
         if mortgage[1].get("aggregates_with_join") is not None:
@@ -3007,12 +3564,16 @@ def main() -> int:
                          "the queries, no full-size timing")
     ap.add_argument("--window-cpu", type=int, default=0,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--expr-cpu", type=int, default=0,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--memory-only", action="store_true",
                     help="build the kernels and run only the memory phase "
                          "(its frames generated here); prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
+    if args.expr_cpu:
+        return expr_cpu_child(args.expr_cpu)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3061,7 +3622,8 @@ def memory_only() -> int:
     return 0
 
 
-WINDOW_ROWS = 1 << 22  # cut from 2^23 for the smoke's time (PERF.md)
+# cut from 2^23, then 2^22, for the smoke's time (PERF.md §4)
+WINDOW_ROWS = 1 << 21
 # the session's Parquet cells and Q9 from files: cut from SF1 for the
 # smoke's time (PERF.md)
 SESSION_PARQUET_SF = 0.5
@@ -3072,8 +3634,8 @@ WINDOW_ROWS_QUICK = 1 << 16
 MORTGAGE_SF = 500
 MORTGAGE_ETL_SF = 250
 # cut from SF 250 for the smoke's time once the plain-strings phase came
-# in (PERF.md §4)
-TPCXBB_SF = 200
+# in, then to SF 150 once the expression phase did (PERF.md §4)
+TPCXBB_SF = 150
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -3153,6 +3715,9 @@ def run(args, children: list) -> int:
     child = start_window_cpu(WINDOW_ROWS_QUICK if args.quick
                              else WINDOW_ROWS)
     children.append(child)
+    expr_child = start_expr_cpu(EXPR_CASE_ROWS_QUICK if args.quick
+                                else EXPR_CASE_ROWS)
+    children.append(expr_child)
 
     queries = {}
     runs = 1 if args.quick else 5
@@ -3599,6 +4164,19 @@ def run(args, children: list) -> int:
         {n: pathsh[n] for n in ("part", "partsupp", "supplier", "nation")}))
     q9_parquet_cell(pathsh, framesh, sfh, q1_batch, pq_runs, queries)
     del framesh
+    torch.cuda.empty_cache()
+
+    # the expression phase: rollup and cube on the session Q1 cell's
+    # upload, explode, the ids, input_file_name over these Parquet files
+    t0 = time.perf_counter()
+    expression_phase(
+        args.quick, earlier["q1_session"], earlier["q1_want"],
+        memory_frames["lineitem"], df, (sf_q1, sf_q18),
+        {"lineitem": ([pathsh["lineitem"], path18], "l_orderkey"),
+         "customer": ([pathsh["customer"], path_cust], "c_custkey")},
+        expr_child, queries, report)
+    report["expression_phase_s"] = time.perf_counter() - t0
+    log(f"expression phase: {report['expression_phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
     def q18_query(t, full):

@@ -457,17 +457,26 @@ def as_plain(col):
 def plain_prefix_words(col, nbytes: int) -> torch.Tensor:
     """int64 (capacity, ceil(nbytes / 8)) slab words of each row's first
     ``nbytes`` bytes (slab layout: byte j at bit 8*(j%8) of word j//8,
-    zero past the row's length) of a plain column: one (capacity, nbytes)
-    gather, whatever the longest value."""
+    zero past the row's length) of a plain column: a (rows, nbytes)
+    gather, whatever the longest value, in blocks of CHAR_BLOCK gathered
+    bytes (its int64 index takes 8 bytes a byte: 32 GiB at 2^26 rows of
+    64 bytes in one piece)."""
     width = max(8, -(-nbytes // 8) * 8)
     dev = col.chars.device
+    cap = int(col.offsets.shape[0]) - 1
     lens = string_lens(col).to(torch.int64)
     j = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
     nc = max(int(col.chars.shape[0]), 1)
-    idx = (col.offsets[:-1].to(torch.int64)[:, None] + j).clamp(0, nc - 1)
-    b = col.chars[idx]
-    b = torch.where(j < lens[:, None], b, torch.zeros_like(b))
-    return b.contiguous().view(torch.int64)
+    out = torch.empty((cap, width), dtype=torch.uint8, device=dev)
+    rows = max(CHAR_BLOCK // width, 1)
+    for lo in range(0, cap, rows):
+        hi = min(lo + rows, cap)
+        idx = (col.offsets[lo:hi].to(torch.int64)[:, None] + j).clamp(
+            0, nc - 1)
+        b = col.chars[idx]
+        out[lo:hi] = torch.where(j < lens[lo:hi, None], b,
+                                 torch.zeros_like(b))
+    return out.view(torch.int64)
 
 
 def string_values_have_nul(values: np.ndarray, validity: np.ndarray) -> bool:

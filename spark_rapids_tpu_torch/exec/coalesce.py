@@ -89,12 +89,30 @@ def is_fragmenting(plan: PhysicalPlan) -> bool:
                              tpu.TpuExpandExec))
 
 
+def _reads_input_file(plan: PhysicalPlan) -> bool:
+    """Does this operator evaluate input_file_name()? A coalesce would
+    drain the scan past a file's end before it evaluates."""
+    from spark_rapids_tpu_torch.sql.exprs.nondet import reads_input_file
+    exprs = [e for _, e in getattr(plan, "exprs", ())]
+    if getattr(plan, "condition", None) is not None:
+        exprs.append(plan.condition)
+    return any(reads_input_file(e) for e in exprs)
+
+
 def insert_coalesce(plan: PhysicalPlan, conf) -> PhysicalPlan:
     """TpuCoalesceBatchesExec above every fragmenting producer that feeds a
-    device consumer."""
+    device consumer; none in a query that evaluates input_file_name(),
+    whose batches must reach it one file at a time (the JAX package's
+    rule; reference: GpuTransitionOverrides.scala)."""
+    if any(_reads_input_file(node) for node in plan.walk()):
+        return plan
+    return _insert(plan, conf)
+
+
+def _insert(plan: PhysicalPlan, conf) -> PhysicalPlan:
     new_children = []
     for c in plan.children:
-        c2 = insert_coalesce(c, conf)
+        c2 = _insert(c, conf)
         if (plan.columnar_output
                 and not isinstance(plan, TpuCoalesceBatchesExec)
                 and is_fragmenting(c2)):

@@ -133,6 +133,29 @@ class CpuScanExec(PhysicalPlan):
         return self.source.cpu_partitions()
 
 
+def _per_frame(node: PhysicalPlan, ctx: ExecContext, exprs, fn
+               ) -> List[Partition]:
+    """``fn`` over each frame of each child partition; where ``exprs``
+    hold a nondeterministic expression, the task context gets the
+    partition's index and the rows of its earlier frames first."""
+    from spark_rapids_tpu_torch.exec import taskctx
+    from spark_rapids_tpu_torch.sql.exprs.nondet import has_nondeterministic
+    impure = any(has_nondeterministic(e) for e in exprs)
+
+    def make(index: int, part: Partition) -> Partition:
+        def run():
+            seen = 0
+            for df in part():
+                if impure:
+                    taskctx.set_partition(index)
+                    taskctx.set_row_base(seen)
+                    seen += len(df)
+                yield fn(df)
+        return run
+    return [make(i, p) for i, p in
+            enumerate(node.children[0].executed_partitions(ctx))]
+
+
 class CpuProjectExec(PhysicalPlan):
     def __init__(self, child: PhysicalPlan,
                  exprs: Sequence[Tuple[str, Expression]]):
@@ -148,17 +171,12 @@ class CpuProjectExec(PhysicalPlan):
         return f"CpuProjectExec([{', '.join(n for n, _ in self.exprs)}])"
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        child_parts = self.children[0].executed_partitions(ctx)
-
-        def make(part: Partition) -> Partition:
-            def run():
-                for df in part():
-                    out = {}
-                    for name, e in self.exprs:
-                        out[name] = e.eval_host(df).reset_index(drop=True)
-                    yield pd.DataFrame(out, columns=[n for n, _ in self.exprs])
-            return run
-        return [make(p) for p in child_parts]
+        def project(df: pd.DataFrame) -> pd.DataFrame:
+            out = {}
+            for name, e in self.exprs:
+                out[name] = e.eval_host(df).reset_index(drop=True)
+            return pd.DataFrame(out, columns=[n for n, _ in self.exprs])
+        return _per_frame(self, ctx, [e for _, e in self.exprs], project)
 
 
 class CpuFilterExec(PhysicalPlan):
@@ -173,17 +191,12 @@ class CpuFilterExec(PhysicalPlan):
         return f"CpuFilterExec({self.condition!r})"
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        child_parts = self.children[0].executed_partitions(ctx)
-
-        def make(part: Partition) -> Partition:
-            def run():
-                for df in part():
-                    pred = self.condition.eval_host(df)
-                    vals, validity, _ = host_unary_values(pred)
-                    keep = vals.astype(np.bool_) & validity
-                    yield df[keep].reset_index(drop=True)
-            return run
-        return [make(p) for p in child_parts]
+        def select(df: pd.DataFrame) -> pd.DataFrame:
+            pred = self.condition.eval_host(df)
+            vals, validity, _ = host_unary_values(pred)
+            keep = vals.astype(np.bool_) & validity
+            return df[keep].reset_index(drop=True)
+        return _per_frame(self, ctx, [self.condition], select)
 
 
 class CpuHashAggregateExec(PhysicalPlan):

@@ -19,9 +19,9 @@ the same bits.
 The materialized batches register in the session's spill catalog as
 per-query transients at the ``OUTPUT_FOR_WRITE`` band (the JAX package's),
 so a large shared intermediate can spill under pressure instead of
-pinning device memory; each replay faults them back. The JAX package also
-gates on deterministic expressions (a ``rand()`` branch must re-execute);
-the port has no nondeterministic expression yet (ROADMAP A.6).
+pinning device memory; each replay faults them back. As in the JAX
+package, a subtree holding a nondeterministic expression (``rand()``,
+the ids) is never shared: each occurrence re-executes, as Spark's does.
 """
 
 from __future__ import annotations
@@ -95,10 +95,24 @@ class TpuReuseSubtreeExec(PhysicalPlan):
         return [make(i) for i in range(len(parts))]
 
 
+def _deterministic(node: PhysicalPlan) -> bool:
+    """No nondeterministic expression in a project, filter, aggregate or
+    sort of ``node``."""
+    from spark_rapids_tpu_torch.sql.exprs.nondet import has_nondeterministic
+    exprs = [e for _n, e in getattr(node, "exprs", ())]
+    if getattr(node, "condition", None) is not None:
+        exprs.append(node.condition)
+    plan = getattr(node, "plan", None)
+    if plan is not None and hasattr(plan, "grouping"):
+        exprs.extend(e for _n, e in plan.grouping + plan.results)
+    exprs.extend(o.expr for o in getattr(node, "orders", ()))
+    return not any(has_nondeterministic(e) for e in exprs)
+
+
 def _eligible(node: PhysicalPlan, memo: dict) -> bool:
     got = memo.get(id(node))
     if got is None:
-        got = (type(node).__name__ in _PRECISE
+        got = (type(node).__name__ in _PRECISE and _deterministic(node)
                and all(_eligible(c, memo) for c in node.children))
         memo[id(node)] = got
     return got

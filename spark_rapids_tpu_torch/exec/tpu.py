@@ -167,6 +167,36 @@ def _as_ref(e: Expression) -> Optional[BoundRef]:
     return e if isinstance(e, BoundRef) else None
 
 
+def _per_batch(node: PhysicalPlan, ctx: ExecContext, exprs, fn
+               ) -> List[Partition]:
+    """``fn`` over each batch of each child partition. Where ``exprs``
+    hold a nondeterministic expression, the task context gets the
+    partition's index and the rows its earlier batches held before each
+    batch (``exec/taskctx``); a batch whose row count the host does not
+    know reads it in one counted sync (``nondet.rowBase``). A pure
+    operator pays nothing."""
+    from spark_rapids_tpu_torch.exec import taskctx
+    from spark_rapids_tpu_torch.sql.exprs.nondet import has_nondeterministic
+    impure = any(has_nondeterministic(e) for e in exprs)
+
+    def make(index: int, part: Partition) -> Partition:
+        def run() -> Iterator[DeviceBatch]:
+            seen = 0
+            for batch in part():
+                if impure:
+                    taskctx.set_partition(index)
+                    taskctx.set_row_base(seen)
+                    if batch.host_rows is not None:
+                        seen += batch.host_rows
+                    else:
+                        with sync_scope("nondet.rowBase", nbytes=4):
+                            seen += int(batch.num_rows.item())
+                yield fn(batch)
+        return run
+    return [make(i, p) for i, p in
+            enumerate(node.children[0].executed_partitions(ctx))]
+
+
 class TpuProjectExec(TpuExec):
     """reference: GpuProjectExec. Bare column references pass their column
     objects through; only derived outputs are computed."""
@@ -201,13 +231,8 @@ class TpuProjectExec(TpuExec):
                            batch.num_rows)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        def make(part: Partition) -> Partition:
-            def run() -> Iterator[DeviceBatch]:
-                for batch in part():
-                    yield self._project(batch)
-            return run
-        return [make(p)
-                for p in self.children[0].executed_partitions(ctx)]
+        return _per_batch(self, ctx, [e for _, e in self.exprs],
+                          self._project)
 
 
 class TpuFilterExec(TpuExec):
@@ -233,13 +258,7 @@ class TpuFilterExec(TpuExec):
         return rowops.filter_batch(batch, pred.data & pred.validity)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        def make(part: Partition) -> Partition:
-            def run() -> Iterator[DeviceBatch]:
-                for batch in part():
-                    yield self._filter(batch)
-            return run
-        return [make(p)
-                for p in self.children[0].executed_partitions(ctx)]
+        return _per_batch(self, ctx, [self.condition], self._filter)
 
 
 class TpuHashAggregateExec(TpuExec):

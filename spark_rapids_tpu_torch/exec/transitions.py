@@ -26,7 +26,9 @@
     operators the overrides insert at every CPU/device boundary;
     ``scan_cache_for`` is the session's device scan cache
     (``spark.rapids.sql.cacheDeviceScans``), whose batches live in the
-    session's spill catalog (``cache_uploads``, ``replay_cached``).
+    session's spill catalog (``cache_uploads``, ``replay_cached``; a
+    replay publishes each batch's input file again, as the first run's
+    scan did).
 
 Under the memory runtime (``memory/``), as in the JAX package: a scan
 batch uploaded for one execution is metered against the session's
@@ -153,6 +155,15 @@ def scan_cache_for(ctx: ExecContext, source, schema: Schema,
     return store[key][1]
 
 
+class CachedPartition(list):
+    """A cached partition's batch ids, with the input file each batch was
+    read from (``files``), which a replay publishes again."""
+
+    def __init__(self):
+        super().__init__()
+        self.files: List[str] = []
+
+
 def cache_uploads(session, cache: dict, i: int,
                   batches: Iterator[DeviceBatch]) -> Iterator[DeviceBatch]:
     """Pass partition ``i``'s uploads on, registering each in the session's
@@ -160,13 +171,15 @@ def cache_uploads(session, cache: dict, i: int,
     before operator outputs); the partition's ids are published in
     ``cache`` once the upload ends. An abandoned or failed upload frees
     what it registered."""
+    from spark_rapids_tpu_torch.exec import taskctx
     from spark_rapids_tpu_torch.memory.spill import SpillPriorities
     catalog = session.buffer_catalog
-    out: List[int] = []
+    out = CachedPartition()
     try:
         for batch in batches:
             out.append(catalog.add_batch(batch,
                                          SpillPriorities.CACHED_SCAN))
+            out.files.append(taskctx.input_file())
             yield batch
         cache[i] = out
     finally:
@@ -177,10 +190,19 @@ def cache_uploads(session, cache: dict, i: int,
 
 def replay_cached(session, bids: Sequence[int]) -> Iterator[DeviceBatch]:
     """A cached partition's batches, each faulted back to the device where
-    it was spilled."""
+    it was spilled, with its input file published while it is consumed
+    (input_file_name() on a warm run)."""
+    from spark_rapids_tpu_torch.exec import taskctx
     catalog = session.buffer_catalog
-    for bid in bids:
-        yield catalog.acquire_batch(bid)
+    files = getattr(bids, "files", None)
+    try:
+        for j, bid in enumerate(bids):
+            if files:
+                taskctx.set_input_file(files[j])
+            yield catalog.acquire_batch(bid)
+    finally:
+        if files:
+            taskctx.clear_input_file()
 
 
 def note_scan_stats(session, df: pd.DataFrame) -> None:

@@ -5,8 +5,9 @@ or another column, ``starts_with``, ``ends_with``, ``contains``,
 row-wise choice behind a string-valued ``if``, CASE WHEN, ``coalesce``,
 ``greatest`` and ``least``; lengths, ASCII case mapping, trim, pad,
 locate, literal replace, concat and ``concat_ws``, translate, reverse,
-repeat, ascii and chr; and the casts between strings and integers,
-booleans and dates.
+repeat, ascii and chr; the casts between strings and integers,
+booleans and dates; and ``string_to_unix_ts``, unix_timestamp's parse of
+the two fixed formats.
 
 A string column reaches device code in one of three forms
 (``columnar/column.py``), and every operation here takes all of them:
@@ -1378,3 +1379,76 @@ def string_to_date(ctx: EvalContext, col: DevCol):
     ry, rm, rd = civil_from_days(days)
     ok = col.validity & pat & (ry == y) & (rm == m) & (rd == d)
     return days.to(torch.int32), ok
+
+
+_UNIX_TS_RE = {False: rb"^\d{4}-\d{2}-\d{2}$",
+               True: rb"^\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}$"}
+
+
+def _host_parse_unix_ts(b: bytes, with_time: bool):
+    """The device rule on one value's bytes: (epoch seconds, ok)."""
+    import datetime
+    import re
+    text = b.strip(bytes(_WS))
+    if not re.match(_UNIX_TS_RE[with_time], text):
+        return 0, False
+    y, m, d = int(text[:4]), int(text[5:7]), int(text[8:10])
+    try:
+        days = (datetime.date(y, m, d) - datetime.date(1970, 1, 1)).days
+    except ValueError:
+        return 0, False
+    secs = days * 86400
+    if with_time:
+        hh, mi, ss = int(text[11:13]), int(text[14:16]), int(text[17:19])
+        if hh >= 24 or mi >= 60 or ss >= 60:
+            return 0, False
+        secs += hh * 3600 + mi * 60 + ss
+    return secs, True
+
+
+def string_to_unix_ts(ctx: EvalContext, col: DevCol, with_time: bool):
+    """Parse 'yyyy-MM-dd' (``with_time`` False) or 'yyyy-MM-dd HH:mm:ss'
+    strings -> (int64 epoch seconds, ok), the JAX package's rule: the
+    whitespace-trimmed value must have exactly the pattern's length and
+    digits, a year of at least 1, a calendar triple that survives the
+    round trip through days, and a time of day in range. A dictionary
+    parses its values on the host; a slab or plain column in char space."""
+    from spark_rapids_tpu_torch.sql.exprs.datetimeexprs import (
+        civil_from_days, days_from_civil,
+    )
+    if _is_dict(col):
+        secs, ok = _dict_values_of(
+            col, functools.partial(_host_parse_unix_ts, with_time=with_time),
+            "int64")
+        return secs, ok & col.validity
+    col = as_plain(col)
+    data = col.chars
+    nc = max(int(data.shape[0]), 1)
+    first, last = _nonws_span(col)
+    want = 19 if with_time else 10
+    ps = first[:, None] + torch.arange(want, device=data.device)[None, :]
+    ch = data[ps.clamp(0, nc - 1)].to(torch.int64)
+    dig = (ch >= 48) & (ch <= 57)
+    d10 = ch - 48
+    pat = (dig[:, :4].all(dim=1) & dig[:, 5:7].all(dim=1)
+           & dig[:, 8:10].all(dim=1)
+           & (ch[:, 4] == ord("-")) & (ch[:, 7] == ord("-"))
+           & (last - first + 1 == want))
+    y = d10[:, 0] * 1000 + d10[:, 1] * 100 + d10[:, 2] * 10 + d10[:, 3]
+    m = d10[:, 5] * 10 + d10[:, 6]
+    d = d10[:, 8] * 10 + d10[:, 9]
+    days = days_from_civil(y, m, d)
+    ry, rm, rd = civil_from_days(days)
+    ok = (col.validity & pat & (y >= 1) & (ry == y) & (rm == m)
+          & (rd == d))
+    secs = days * 86400
+    if with_time:
+        hh = d10[:, 11] * 10 + d10[:, 12]
+        mi = d10[:, 14] * 10 + d10[:, 15]
+        ss = d10[:, 17] * 10 + d10[:, 18]
+        ok = ok & (dig[:, 11:13].all(dim=1) & dig[:, 14:16].all(dim=1)
+                   & dig[:, 17:19].all(dim=1) & (ch[:, 10] == ord(" "))
+                   & (ch[:, 13] == ord(":")) & (ch[:, 16] == ord(":"))
+                   & (hh < 24) & (mi < 60) & (ss < 60))
+        secs = secs + hh * 3600 + mi * 60 + ss
+    return secs, ok

@@ -41,7 +41,10 @@ speculation verification (A.10; the within-query subtree reuse is
 ported, ``exec/reuse.py``); tracing, the event journal, metrics
 snapshots, the compile cache and prewarm, and the serving caches (A.11);
 the CSV and ORC readers (A.7). ``with_column`` and ``select`` take
-window expressions (``F.row_number().over(Window.partition_by(...))``).
+window expressions (``F.row_number().over(Window.partition_by(...))``);
+``with_column`` also takes ``F.explode``/``F.posexplode`` of ``F.split``
+(a Generate), and ``rollup``/``cube`` group by grouping sets (an Expand
+under the aggregate).
 """
 
 from __future__ import annotations
@@ -419,6 +422,56 @@ class GroupedData:
         return self.agg(F.count("*").alias("count"))
 
 
+class RollupData:
+    """rollup/cube grouping (Spark's Expand + Aggregate lowering): an
+    Expand with one projection per grouping set, whose rolled-up keys are
+    typed NULL literals and whose ``_gid`` literal numbers the set, then an
+    aggregate over the keys and ``_gid``. The other child columns pass
+    through the Expand."""
+
+    def __init__(self, df: "DataFrame", grouping_cols: Sequence,
+                 kind: str):
+        self.df = df
+        self.grouping = grouping_cols
+        self.kind = kind  # 'rollup' | 'cube'
+
+    def _grouping_sets(self, nkeys: int):
+        if self.kind == "rollup":
+            return [list(range(k)) for k in range(nkeys, -1, -1)]
+        import itertools
+        sets = []
+        for r in range(nkeys, -1, -1):
+            sets.extend(list(c) for c in
+                        itertools.combinations(range(nkeys), r))
+        return sets
+
+    def agg(self, *agg_cols: Column) -> "DataFrame":
+        from spark_rapids_tpu_torch.sql.exprs.core import Literal
+        schema = self.df._plan.schema()
+        keys = [(_name_of(_c(g)), _c(g)) for g in self.grouping]
+        key_dtypes = [e.dtype(schema) for _, e in keys]
+        key_names = {n for n, _ in keys}
+        # the key columns are emitted again by every grouping set (NULL
+        # where rolled up), so they do not pass through
+        base = [(n, col_fn(n).expr) for n in schema.names
+                if n not in key_names]
+        projections = []
+        for gid, kept in enumerate(self._grouping_sets(len(keys))):
+            proj = list(base)
+            for j, (name, e) in enumerate(keys):
+                proj.append((name, e if j in kept
+                             else Literal(None, key_dtypes[j])))
+            proj.append(("_gid", Literal(gid)))
+            projections.append(proj)
+        expand = lp.LogicalExpand(self.df._plan, projections)
+        grouping = [(n, col_fn(n).expr) for n, _ in keys]
+        grouping.append(("_gid", col_fn("_gid").expr))
+        results = [(n, col_fn(n).expr) for n, _ in keys]
+        results += [(_name_of(_expr(c)), _expr(c)) for c in agg_cols]
+        return DataFrame(self.df.session,
+                         lp.LogicalAggregate(expand, grouping, results))
+
+
 def _name_of(e: Expression) -> str:
     if isinstance(e, (Alias, Col)):
         return e.name
@@ -469,6 +522,12 @@ class DataFrame:
 
     def group_by(self, *cols) -> GroupedData:
         return GroupedData(self, cols)
+
+    def rollup(self, *cols) -> RollupData:
+        return RollupData(self, cols, "rollup")
+
+    def cube(self, *cols) -> RollupData:
+        return RollupData(self, cols, "cube")
 
     def agg(self, *agg_cols: Column) -> "DataFrame":
         return GroupedData(self, []).agg(*agg_cols)
@@ -563,9 +622,22 @@ class DataFrame:
         """Add (or replace) the column ``name``, computed by ``c``; the
         other columns keep their order, and the new one goes last. A
         window expression appends its column through a window operator,
-        and may not shadow an existing column."""
+        and may not shadow an existing column; so does ``explode`` or
+        ``posexplode`` of ``split``, through a Generate (whose ``pos``
+        column may not shadow one either)."""
+        from spark_rapids_tpu_torch.sql.exprs.generators import ExplodeSplit
         from spark_rapids_tpu_torch.sql.window import WindowExpression
         e = _expr(c)
+        if isinstance(e, ExplodeSplit):
+            if name in self.schema.names:
+                raise ValueError(f"generated column {name!r} would shadow "
+                                 "an existing column")
+            if e.with_pos and "pos" in self.schema.names:
+                raise ValueError("posexplode's 'pos' column would shadow an "
+                                 "existing column; rename it first")
+            return DataFrame(self.session, lp.LogicalGenerate(
+                self._plan, e.split.children[0], e.split.delim, name,
+                e.with_pos))
         if isinstance(e, WindowExpression):
             if name in self.schema.names:
                 raise ValueError(f"window column {name!r} would shadow an "

@@ -1,7 +1,9 @@
 """Arithmetic expressions (counterpart of the JAX package's
-``sql/exprs/arithmetic.py``; + - * /, % and pmod are ported).
+``sql/exprs/arithmetic.py``: + - * /, ``div``, % and pmod, unary minus
+and ``abs``).
 
-Spark SQL non-ANSI semantics: integer overflow wraps; ``/`` always
+Spark SQL non-ANSI semantics: integer overflow wraps, as Java's does (so
+``-INT64_MIN`` and ``abs(INT64_MIN)`` stay INT64_MIN); ``/`` always
 produces double and divide-by-zero yields NULL.
 """
 
@@ -15,10 +17,10 @@ from spark_rapids_tpu_torch.columnar import dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, common_type, torch_dtype
 from spark_rapids_tpu_torch.sql.exprs.core import (
-    DevCol, DevValue, EvalContext, Expression, data_of, valid_and,
+    DevCol, DevScalar, DevValue, EvalContext, Expression, data_of, valid_and,
 )
 from spark_rapids_tpu_torch.sql.exprs.hostutil import (
-    host_binary_values, rebuild_series,
+    host_binary_values, host_unary_values, rebuild_series,
 )
 
 
@@ -106,6 +108,23 @@ class Divide(BinaryArithmetic):
         return a / safe, zero
 
 
+class IntegralDivide(BinaryArithmetic):
+    """Spark's ``div``: long division truncating toward zero; x div 0 is
+    NULL. The JAX package's formula, sign(a) * sign(b) * (|a| // |b|),
+    wrapping as it does at INT64_MIN."""
+    symbol = "div"
+
+    def dtype_from_children(self, lt: DType, rt: DType) -> DType:
+        return dtypes.INT64
+
+    def compute(self, a, b):
+        zero = b == 0
+        safe = torch.where(zero, torch.ones_like(b), b)
+        q = torch.sign(a) * torch.sign(safe) * torch.div(
+            torch.abs(a), torch.abs(safe), rounding_mode="floor")
+        return q, zero
+
+
 class Remainder(BinaryArithmetic):
     """Java-style ``%``: the sign of the dividend; x % 0 -> NULL."""
     symbol = "%"
@@ -128,3 +147,48 @@ class Pmod(BinaryArithmetic):
         zero = b == 0
         safe = torch.where(zero, torch.ones_like(b), b)
         return torch.fmod(torch.fmod(a, safe) + safe, safe), zero
+
+
+class _UnaryArithmetic(Expression):
+    """A same-typed function of one operand; a literal folds."""
+    fname = "?"
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return self.children[0].dtype(schema)
+
+    def __repr__(self) -> str:
+        return f"{self.fname}({self.children[0]!r})"
+
+    def compute(self, x):
+        raise NotImplementedError
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = self.children[0].eval_device(ctx)
+        if isinstance(v, DevScalar):
+            return DevScalar(v.dtype, self.compute(v.value), v.valid)
+        return DevCol(v.dtype, self.compute(v.data), v.validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        values, validity, index = host_unary_values(
+            self.children[0].eval_host(df))
+        data = self.compute(torch.from_numpy(
+            np.require(values, requirements=["C", "W"]))).numpy()
+        return rebuild_series(data, validity,
+                              dtypes.from_numpy(values.dtype), index)
+
+
+class UnaryMinus(_UnaryArithmetic):
+    fname = "-"
+
+    def compute(self, x):
+        return torch.neg(x)
+
+
+class Abs(_UnaryArithmetic):
+    fname = "abs"
+
+    def compute(self, x):
+        return torch.abs(x)

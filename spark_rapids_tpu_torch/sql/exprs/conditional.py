@@ -3,8 +3,8 @@
 ``coalesce``): numeric, boolean, date and string results. A string result
 selects rows with ``ops/strings.select_strings`` over dictionary codes or
 char slabs (two differing dictionaries merge into their union, a slab and
-a dictionary or two slab strides widen to one slab). NaNvl waits for
-ROADMAP A.6.
+a dictionary or two slab strides widen to one slab). ``nanvl(a, b)``
+takes ``b`` where ``a`` is NaN.
 """
 
 from __future__ import annotations
@@ -273,3 +273,43 @@ class Coalesce(Expression):
                             data)
             validity = validity | vval
         return rebuild_series(data, validity, dt, df.index)
+
+
+class NaNvl(Expression):
+    """nanvl(a, b): ``b`` (its value and validity) where ``a`` is NaN,
+    else ``a``."""
+
+    def __init__(self, left: Expression, right: Expression):
+        super().__init__([left, right])
+
+    def dtype(self, schema: Schema) -> DType:
+        return common_type(self.children[0].dtype(schema),
+                           self.children[1].dtype(schema))
+
+    def __repr__(self) -> str:
+        return f"nanvl({self.children[0]!r}, {self.children[1]!r})"
+
+    @staticmethod
+    def _select(a, av, b, bv):
+        use_b = torch.isnan(a) & av
+        return torch.where(use_b, b, a), torch.where(use_b, bv, av)
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        lv = ctx.broadcast(self.children[0].eval_device(ctx))
+        rv = ctx.broadcast(self.children[1].eval_device(ctx))
+        dt = common_type(lv.dtype, rv.dtype)
+        tdt = torch_dtype(dt.np_dtype)
+        data, validity = self._select(lv.data.to(tdt), lv.validity,
+                                      rv.data.to(tdt), rv.validity)
+        return DevCol(dt, data, validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        b, bv, _ = host_unary_values(self.children[1].eval_host(df))
+        dt = common_type(dtypes.from_numpy(a.dtype),
+                         dtypes.from_numpy(b.dtype))
+        data, validity = self._select(
+            *(torch.from_numpy(np.require(x, requirements=["C", "W"]))
+              for x in (a.astype(dt.np_dtype), av, b.astype(dt.np_dtype),
+                        bv)))
+        return rebuild_series(data.numpy(), validity.numpy(), dt, index)

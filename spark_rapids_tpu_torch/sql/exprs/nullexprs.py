@@ -1,22 +1,29 @@
 """Null-aware n-ary expressions (counterpart of the JAX package's
 ``sql/exprs/nullexprs.py``): ``greatest`` and ``least`` over numbers and
 strings (the central-moment aggregates use ``greatest`` to clamp a
-variance at zero). The rest of the module waits for ROADMAP A.6.
+variance at zero), ``AtLeastNNonNulls`` (``df.na.drop(thresh=n)``) and
+``NormalizeNaNAndZero`` (one NaN, +0.0 for -0.0, before hashing or
+grouping floats).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+import math
+from typing import List
 
 import numpy as np
 import pandas as pd
 import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.columnar.dtype import DType, common_type
 from spark_rapids_tpu_torch.sql.exprs.core import (
     DevCol, DevValue, EvalContext, Expression,
+)
+from spark_rapids_tpu_torch.sql.exprs.hostutil import (
+    host_unary_values, rebuild_series,
 )
 
 
@@ -40,13 +47,10 @@ class _GreatestLeast(Expression):
         return f"{fn}({', '.join(map(repr, self.children))})"
 
     def _wins(self, d, out, dt: DType):
-        """bool: ``d`` beats ``out`` (both valid)."""
-        if dt.is_floating:
-            if self.is_greatest:  # NaN is the greatest value
-                return torch.where(torch.isnan(d), ~torch.isnan(out),
-                                   ~torch.isnan(out) & (d > out))
-            return ~torch.isnan(d) & (torch.isnan(out) | (d < out))
-        return d > out if self.is_greatest else d < out
+        """bool: ``d`` beats ``out`` (both valid); NaN is the greatest
+        value."""
+        return (_nan_aware_gt(d, out) if self.is_greatest
+                else _nan_aware_lt(d, out))
 
     def _fold(self, pairs, dt: DType):
         """(data, validity) of the winner over (data, validity) pairs of
@@ -81,9 +85,6 @@ class _GreatestLeast(Expression):
     def eval_host(self, df: pd.DataFrame) -> pd.Series:
         from spark_rapids_tpu_torch.columnar.batch import _pandas_col_dtype
         from spark_rapids_tpu_torch.sql.exprs.cast import cast_data
-        from spark_rapids_tpu_torch.sql.exprs.hostutil import (
-            host_unary_values, rebuild_series,
-        )
         series = [c.eval_host(df) for c in self.children]
         dts = [_pandas_col_dtype(s) for s in series]
         dt = functools.reduce(common_type, dts)
@@ -119,3 +120,91 @@ class Greatest(_GreatestLeast):
 
 class Least(_GreatestLeast):
     is_greatest = False
+
+
+def _nan_aware_gt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a > b, NaN greater than every other double (Spark's order)."""
+    if a.is_floating_point():
+        return (a > b) | (torch.isnan(a) & ~torch.isnan(b))
+    return a > b
+
+
+def _nan_aware_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_floating_point():
+        return (a < b) | (torch.isnan(b) & ~torch.isnan(a))
+    return a < b
+
+
+class AtLeastNNonNulls(Expression):
+    """Spark's predicate behind ``df.na.drop(thresh=n)``: at least ``n``
+    of the children are non-NULL (and, for floats, not NaN)."""
+
+    def __init__(self, n: int, children: List[Expression]):
+        super().__init__(children)
+        self.n = int(n)
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def __repr__(self) -> str:
+        args = ", ".join(map(repr, self.children))
+        return f"atleastnnonnulls({self.n}, {args})"
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        count = torch.zeros((ctx.capacity,), dtype=torch.int32,
+                            device=ctx.device)
+        for c in self.children:
+            v = ctx.broadcast(c.eval_device(ctx))
+            ok = v.validity
+            if v.data is not None and v.data.is_floating_point():
+                ok = ok & ~torch.isnan(v.data)
+            count = count + ok.to(torch.int32)
+        out = count >= self.n
+        return DevCol(dtypes.BOOL, out, torch.ones_like(out))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        count = np.zeros(len(df), dtype=np.int32)
+        index = df.index
+        for c in self.children:
+            vals, valid, index = host_unary_values(c.eval_host(df))
+            ok = valid.copy()
+            if vals.dtype.kind == "f":
+                ok &= ~np.isnan(vals)
+            count += ok.astype(np.int32)
+        return pd.Series(count >= self.n, index=index)
+
+
+class NormalizeNaNAndZero(Expression):
+    """Floats made canonical before hashing or grouping: every NaN the
+    same bits, -0.0 as +0.0 (reference: NormalizeFloatingNumbers.scala).
+    The identity for other types."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return self.children[0].dtype(schema)
+
+    def __repr__(self) -> str:
+        return repr(self.children[0])
+
+    @staticmethod
+    def _normalize(x: torch.Tensor) -> torch.Tensor:
+        x = x + 0.0                       # -0.0 + 0.0 == +0.0
+        return torch.where(torch.isnan(x), torch.full_like(x, math.nan), x)
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = ctx.broadcast(self.children[0].eval_device(ctx))
+        if v.data is None or not v.data.is_floating_point():
+            return v
+        return DevCol(v.dtype, self._normalize(v.data), v.validity)
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        from spark_rapids_tpu_torch.columnar.batch import _pandas_col_dtype
+        s = self.children[0].eval_host(df)
+        vals, valid, index = host_unary_values(s)
+        if vals.dtype.kind != "f":
+            return s
+        data = self._normalize(torch.from_numpy(
+            np.require(vals, requirements=["C", "W"]))).numpy()
+        return rebuild_series(data, valid, _pandas_col_dtype(s), index)

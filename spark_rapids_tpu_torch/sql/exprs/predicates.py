@@ -1,6 +1,6 @@
 """Predicates and boolean logic (counterpart of the JAX package's
-``sql/exprs/predicates.py``): comparisons, Kleene AND and OR, NOT, IN,
-IS NULL and IS NOT NULL.
+``sql/exprs/predicates.py``): comparisons, the null-safe ``<=>``, Kleene
+AND and OR, NOT, IN, IS NULL, IS NOT NULL and ``isnan``.
 String comparisons go to ``ops/strings`` (``string_equal`` for ``=`` and
 ``!=``, ``string_compare`` for the order comparisons), over dictionary
 codes and char slabs, against a literal or another column.
@@ -123,6 +123,42 @@ class Ge(BinaryComparison):
 
     def compute(self, a, b):
         return a >= b
+
+
+class EqNullSafe(BinaryComparison):
+    """``<=>``: never NULL; NULL <=> NULL is TRUE, NULL <=> x FALSE."""
+    symbol = "<=>"
+
+    def compute(self, a, b):
+        return a == b
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        lv = self.children[0].eval_device(ctx)
+        rv = self.children[1].eval_device(ctx)
+        if lv.dtype.is_string or rv.dtype.is_string:
+            from spark_rapids_tpu_torch.ops import strings as string_ops
+            eq, _ = string_ops.string_equal(ctx, lv, rv)
+        else:
+            ct = common_type(lv.dtype, rv.dtype) if lv.dtype != rv.dtype \
+                else lv.dtype
+            eq = self.compute(_promote(ctx, lv, ct),
+                              _promote(ctx, rv, ct)).expand(ctx.capacity)
+        lval, rval = _validity_vec(ctx, lv), _validity_vec(ctx, rv)
+        data = (lval & rval & eq) | (~lval & ~rval)
+        return DevCol(dtypes.BOOL, data, torch.ones_like(data))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        av, amask, index = host_unary_values(self.children[0].eval_host(df))
+        bv, bmask, _ = host_unary_values(self.children[1].eval_host(df))
+        if av.dtype == object or bv.dtype == object:
+            eq = np.array([x == y for x, y in zip(av, bv)], dtype=np.bool_)
+        else:
+            ct = common_type(dtypes.from_numpy(av.dtype),
+                             dtypes.from_numpy(bv.dtype))
+            eq = av.astype(ct.np_dtype) == bv.astype(ct.np_dtype)
+        data = (amask & bmask & eq) | (~amask & ~bmask)
+        return rebuild_series(data, np.ones(len(data), np.bool_), dtypes.BOOL,
+                              index)
 
 
 def _promote(ctx: EvalContext, v: DevValue, ct: DType):
@@ -311,3 +347,25 @@ class IsNotNull(Expression):
     def eval_host(self, df: pd.DataFrame) -> pd.Series:
         _, validity, index = host_unary_values(self.children[0].eval_host(df))
         return pd.Series(validity.copy(), index=index)
+
+
+class IsNan(Expression):
+    """``isnan(x)``: never NULL, isnan(NULL) is FALSE."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    def dtype(self, schema: Schema) -> DType:
+        return dtypes.BOOL
+
+    def __repr__(self) -> str:
+        return f"isnan({self.children[0]!r})"
+
+    def eval_device(self, ctx: EvalContext) -> DevValue:
+        v = ctx.broadcast(self.children[0].eval_device(ctx))
+        data = torch.isnan(v.data) & v.validity
+        return DevCol(dtypes.BOOL, data, torch.ones_like(data))
+
+    def eval_host(self, df: pd.DataFrame) -> pd.Series:
+        a, av, index = host_unary_values(self.children[0].eval_host(df))
+        return pd.Series(np.isnan(a.astype(np.float64)) & av, index=index)

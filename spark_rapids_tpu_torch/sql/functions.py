@@ -1,12 +1,14 @@
 """User-facing column functions, pyspark.sql.functions-style (counterpart
-of the JAX package's ``sql/functions.py``, cut to what the 22 TPC-H and
-19 TPCxBB queries need: arithmetic, comparisons, AND/OR/NOT, ``isin``,
-``isNull``/``isNotNull``, ``cast``, the string predicates and
-``substring``, ``when``/``otherwise``, ``coalesce``, the date parts,
-``to_date``, ``round``, ``bround``, ``floor``, ``ceil``, ``pmod``,
-``hash``, ``hex``, the aggregates, ``count_distinct``, the variances and
-``corr`` among them, and the window functions with ``Column.over``, which
-the Mortgage queries add)."""
+of the JAX package's ``sql/functions.py``, every public name of which it
+holds under the same signature): arithmetic and ``Column``'s operators,
+comparisons with the null-safe ``eqNullSafe``, bitwise operators and
+shifts, the math functions, null and NaN handling (``isnull``, ``isnan``,
+``nvl``, ``nvl2``, ``nanvl``, ``coalesce``), ``cast``, the string
+functions, the date parts, date arithmetic and unix time, ``hash`` and
+``hex``, the nondeterministic ``rand`` and ids, ``split`` with
+``explode``/``posexplode``, the aggregates and the window functions with
+``Column.over``.
+"""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any, Union
 
 from spark_rapids_tpu_torch.sql.exprs import aggregates as agg
 from spark_rapids_tpu_torch.sql.exprs import arithmetic as ar
+from spark_rapids_tpu_torch.sql.exprs import bitwise as bw
 from spark_rapids_tpu_torch.sql.exprs import mathexprs as m
 from spark_rapids_tpu_torch.sql.exprs import conditional as cond
 from spark_rapids_tpu_torch.sql.exprs import datetimeexprs as dt
@@ -42,6 +45,7 @@ class Column:
     def __truediv__(self, other): return Column(ar.Divide(self.expr, _expr(other)))
     def __rtruediv__(self, other): return Column(ar.Divide(_expr(other), self.expr))
     def __mod__(self, other): return Column(ar.Remainder(self.expr, _expr(other)))
+    def __neg__(self): return Column(ar.UnaryMinus(self.expr))
 
     # comparisons
     def __eq__(self, other): return Column(pred.Eq(self.expr, _expr(other)))  # type: ignore[override]
@@ -50,6 +54,8 @@ class Column:
     def __le__(self, other): return Column(pred.Le(self.expr, _expr(other)))
     def __gt__(self, other): return Column(pred.Gt(self.expr, _expr(other)))
     def __ge__(self, other): return Column(pred.Ge(self.expr, _expr(other)))
+    def eqNullSafe(self, other):
+        return Column(pred.EqNullSafe(self.expr, _expr(other)))
 
     # boolean
     def __and__(self, other): return Column(pred.And(self.expr, _expr(other)))
@@ -58,6 +64,12 @@ class Column:
 
     def alias(self, name: str): return Column(Alias(self.expr, name))
     def cast(self, to): return Column(Cast(self.expr, _dtype(to)))
+    def bitwiseAND(self, other):
+        return Column(bw.BitwiseAnd(self.expr, _expr(other)))
+    def bitwiseOR(self, other):
+        return Column(bw.BitwiseOr(self.expr, _expr(other)))
+    def bitwiseXOR(self, other):
+        return Column(bw.BitwiseXor(self.expr, _expr(other)))
 
     # null tests
     def isNull(self): return Column(pred.IsNull(self.expr))
@@ -141,6 +153,10 @@ def lit(value: Any) -> Column:
     return Column(Literal(value))
 
 
+def expr_col(e: Expression) -> Column:
+    return Column(e)
+
+
 def sum(c) -> Column: return Column(agg.Sum(_c(c)))  # noqa: A001
 def avg(c) -> Column: return Column(agg.Average(_c(c)))
 def min(c) -> Column: return Column(agg.Min(_c(c)))  # noqa: A001
@@ -159,6 +175,12 @@ def var_pop(c) -> Column: return Column(agg.VarPop(_c(c)))
 def stddev_samp(c) -> Column: return Column(agg.StddevSamp(_c(c)))
 def stddev_pop(c) -> Column: return Column(agg.StddevPop(_c(c)))
 def corr(a, b) -> Column: return Column(agg.Corr(_c(a), _c(b)))
+
+
+mean = avg
+countDistinct = count_distinct
+variance = var_samp
+stddev = stddev_samp
 
 
 
@@ -253,6 +275,28 @@ def dayofyear(c) -> Column: return Column(dt.DayOfYear(_c(c)))
 def weekofyear(c) -> Column: return Column(dt.WeekOfYear(_c(c)))
 
 
+def unix_timestamp(c, fmt: str = None) -> Column:
+    """Seconds since the epoch of a timestamp, or (with ``fmt``) of a
+    string in that format (the device parses 'yyyy-MM-dd' and 'yyyy-MM-dd
+    HH:mm:ss')."""
+    if fmt is None:
+        return Column(dt.UnixTimestampFromTs(_c(c)))
+    return Column(dt.UnixTimestampFromString(_c(c), fmt))
+
+
+def from_unixtime(c) -> Column: return Column(dt.FromUnixTime(_c(c)))
+def date_add(c, days) -> Column: return Column(dt.DateAdd(_c(c), _expr(days)))
+def date_sub(c, days) -> Column: return Column(dt.DateSub(_c(c), _expr(days)))
+def datediff(end, start) -> Column:
+    return Column(dt.DateDiff(_c(end), _c(start)))
+def last_day(c) -> Column: return Column(dt.LastDay(_c(c)))
+def add_months(c, n) -> Column: return Column(dt.AddMonths(_c(c), _expr(n)))
+def months_between(end, start) -> Column:
+    return Column(dt.MonthsBetween(_c(end), _c(start)))
+def trunc(c, fmt: str) -> Column: return Column(dt.TruncDate(_c(c), fmt))
+def next_day(c, day: str) -> Column: return Column(dt.NextDay(_c(c), day))
+
+
 def to_date(c) -> Column:
     """to_date(x): the day of a timestamp, or a string's date (parsed on
     the device under spark.rapids.sql.castStringToDate.enabled)."""
@@ -262,6 +306,63 @@ def to_date(c) -> Column:
 
 def coalesce(*cs) -> Column: return Column(cond.Coalesce([_c(c) for c in cs]))
 def pmod(a, b) -> Column: return Column(ar.Pmod(_c(a), _expr(b)))
+
+
+# --- null and NaN handling ----------------------------------------------------
+
+def isnan(c) -> Column: return Column(pred.IsNan(_c(c)))
+def isnull(c) -> Column: return Column(pred.IsNull(_c(c)))
+def nanvl(a, b) -> Column: return Column(cond.NaNvl(_c(a), _c(b)))
+def nvl(a, b) -> Column: return coalesce(a, b)
+
+
+ifnull = nvl
+
+
+def nvl2(a, b, c) -> Column:
+    return when(Column(_c(a)).isNotNull(), Column(_c(b))) \
+        .otherwise(Column(_c(c)))
+
+
+# --- math ---------------------------------------------------------------------
+
+def abs(c) -> Column: return Column(ar.Abs(_c(c)))  # noqa: A001
+def sqrt(c) -> Column: return Column(m.Sqrt(_c(c)))
+def exp(c) -> Column: return Column(m.Exp(_c(c)))
+def expm1(c) -> Column: return Column(m.Expm1(_c(c)))
+def log(c) -> Column: return Column(m.Log(_c(c)))
+def log2(c) -> Column: return Column(m.Log2(_c(c)))
+def log10(c) -> Column: return Column(m.Log10(_c(c)))
+def log1p(c) -> Column: return Column(m.Log1p(_c(c)))
+def sin(c) -> Column: return Column(m.Sin(_c(c)))
+def cos(c) -> Column: return Column(m.Cos(_c(c)))
+def tan(c) -> Column: return Column(m.Tan(_c(c)))
+def asin(c) -> Column: return Column(m.Asin(_c(c)))
+def acos(c) -> Column: return Column(m.Acos(_c(c)))
+def atan(c) -> Column: return Column(m.Atan(_c(c)))
+def sinh(c) -> Column: return Column(m.Sinh(_c(c)))
+def cosh(c) -> Column: return Column(m.Cosh(_c(c)))
+def tanh(c) -> Column: return Column(m.Tanh(_c(c)))
+def cbrt(c) -> Column: return Column(m.Cbrt(_c(c)))
+def rint(c) -> Column: return Column(m.Rint(_c(c)))
+def signum(c) -> Column: return Column(m.Signum(_c(c)))
+def degrees(c) -> Column: return Column(m.ToDegrees(_c(c)))
+def radians(c) -> Column: return Column(m.ToRadians(_c(c)))
+def pow(b, e) -> Column: return Column(m.Pow(_c(b), _expr(e)))  # noqa: A001
+def atan2(y, x) -> Column: return Column(m.Atan2(_c(y), _expr(x)))
+def hypot(a, b) -> Column: return Column(m.Hypot(_c(a), _c(b)))
+
+
+# --- bitwise ------------------------------------------------------------------
+
+def shiftleft(c, n) -> Column: return Column(bw.ShiftLeft(_c(c), _expr(n)))
+def shiftright(c, n) -> Column: return Column(bw.ShiftRight(_c(c), _expr(n)))
+def shiftrightunsigned(c, n) -> Column:
+    return Column(bw.ShiftRightUnsigned(_c(c), _expr(n)))
+def bitwise_not(c) -> Column: return Column(bw.BitwiseNot(_c(c)))
+
+
+bitwiseNOT = bitwise_not
 
 
 def round(c, scale: int = 0) -> Column:  # noqa: A001
@@ -284,6 +385,50 @@ def hash(*cs) -> Column:  # noqa: A001
 def hex(c) -> Column:  # noqa: A001
     from spark_rapids_tpu_torch.sql.exprs.miscexprs import Hex
     return Column(Hex(_c(c)))
+
+
+# --- nondeterministic ---------------------------------------------------------
+
+def rand(seed: int = 0) -> Column:
+    from spark_rapids_tpu_torch.sql.exprs import nondet
+    return Column(nondet.Rand(seed))
+
+
+def spark_partition_id() -> Column:
+    from spark_rapids_tpu_torch.sql.exprs import nondet
+    return Column(nondet.SparkPartitionID())
+
+
+def monotonically_increasing_id() -> Column:
+    from spark_rapids_tpu_torch.sql.exprs import nondet
+    return Column(nondet.MonotonicallyIncreasingID())
+
+
+def input_file_name() -> Column:
+    from spark_rapids_tpu_torch.sql.exprs import nondet
+    return Column(nondet.InputFileName())
+
+
+# --- generators ---------------------------------------------------------------
+
+def split(c, delim: str) -> Column:
+    """split(str, pattern): as in Spark, a pattern with a regex
+    metacharacter is a regex (split on the host, tagged off the device); a
+    plain single-byte literal splits on the device through explode()."""
+    from spark_rapids_tpu_torch.sql.exprs.generators import SplitStr
+    if not delim:
+        raise ValueError("split() requires a non-empty delimiter")
+    return Column(SplitStr(_c(c), delim))
+
+
+def explode(c: Column) -> Column:
+    from spark_rapids_tpu_torch.sql.exprs.generators import ExplodeSplit
+    return Column(ExplodeSplit(_expr(c), with_pos=False))
+
+
+def posexplode(c: Column) -> Column:
+    from spark_rapids_tpu_torch.sql.exprs.generators import ExplodeSplit
+    return Column(ExplodeSplit(_expr(c), with_pos=True))
 
 
 # --- window functions ---------------------------------------------------------

@@ -21,7 +21,8 @@ joins would otherwise leave the device twice). After tagging, the
 join-hash consistency fixup keeps a shuffled join and the exchanges
 feeding it on the same side. The window rule tags each window column by
 ``exec/windowexec.resolve_descriptor`` and its expressions; the generate
-and write rules wait for later slices.
+rule keeps a regex or multi-byte delimiter on the CPU with the JAX
+package's reasons. The write rule waits for ROADMAP A.7.
 """
 
 from __future__ import annotations
@@ -310,6 +311,36 @@ def _register_window_rule() -> None:
 
 
 _register_window_rule()
+
+
+def _tag_generate(meta: ExecMeta) -> None:
+    plan = meta.plan
+    cs = plan.children[0].output_schema()
+    if not cs.dtypes[plan.col_idx].is_string:
+        meta.will_not_work("explode source must be a string column")
+    if len(plan.delim.encode("utf-8")) != 1:
+        meta.will_not_work(
+            f"delimiter {plan.delim!r}: only single-byte delimiters run on "
+            "TPU (multi-byte/regex split stays on CPU)")
+    elif plan.delim in "\\^$.|?*+()[]{}":
+        meta.will_not_work(
+            f"delimiter {plan.delim!r} is a regex metacharacter (Spark "
+            "split() patterns are regexes); runs on CPU")
+
+
+def _register_generate_rule() -> None:
+    from spark_rapids_tpu_torch.exec.generate import (
+        CpuGenerateExec, TpuGenerateExec,
+    )
+    _register(ExecRule(CpuGenerateExec, "explode-style generator",
+                       _tag_generate,
+                       lambda m, ch: TpuGenerateExec(
+                           ch[0], m.plan.col_idx, m.plan.delim,
+                           m.plan.out_name, m.plan.with_pos,
+                           m.plan.pos_name)))
+
+
+_register_generate_rule()
 
 
 def _fixup_join_hash_consistency(meta: ExecMeta) -> None:

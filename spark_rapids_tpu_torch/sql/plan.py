@@ -1,8 +1,8 @@
 """Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
 holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
-Sort, Limit, Repartition, Coalesce, Union, Expand, Window and the join:
-equi, cross or on a condition; generators and writes wait for later
-slices).
+Sort, Limit, Repartition, Coalesce, Union, Expand (rollup and cube),
+Generate (explode of split), Window and the join: equi, cross or on a
+condition; writes wait for ROADMAP A.7).
 
 The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
 these nodes only carry what the planner needs.
@@ -187,6 +187,29 @@ class LogicalExpand(LogicalPlan):
         first = self.projections[0]
         return Schema([n for n, _ in first],
                       [e.dtype(cs) for _, e in first])
+
+
+class LogicalGenerate(LogicalPlan):
+    """An explode-style generator appended to the child's output (Spark's
+    Generate): the fused split+explode of the string ``source`` on a
+    literal ``delim``."""
+
+    def __init__(self, child: LogicalPlan, source: Expression, delim: str,
+                 out_name: str, with_pos: bool, pos_name: str = "pos"):
+        super().__init__([child])
+        self.source = source
+        self.delim = delim
+        self.out_name = out_name
+        self.with_pos = with_pos
+        self.pos_name = pos_name
+
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.exec.generate import (
+            generate_output_schema,
+        )
+        return generate_output_schema(self.children[0].schema(),
+                                      self.with_pos, self.pos_name,
+                                      self.out_name)
 
 
 class LogicalJoin(LogicalPlan):

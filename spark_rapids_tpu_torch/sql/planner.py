@@ -11,9 +11,10 @@ sides and a cartesian product; a condition join into a broadcast
 nested-loop join (the right side broadcast); a window into an exchange on
 its partition keys (hash where they are plain columns, else single) and a
 window operator. The device rewrite (``sql/overrides.py``) then tags and
-converts this CPU plan node by node. Generators and writes wait for later
-slices, as does the JAX package's small-query fast path (the port's
-exchange collapse makes no sync for it to save).
+converts this CPU plan node by node. A generator over a computed source
+projects the source first and drops it after. Writes wait for ROADMAP
+A.7, as does the JAX package's small-query fast path (the port's exchange
+collapse makes no sync for it to save).
 """
 
 from __future__ import annotations
@@ -192,6 +193,29 @@ class Planner:
         return cpu.CpuExpandExec(child, [
             [(n, bind_references(e, cs)) for n, e in proj]
             for proj in node.projections])
+
+    def _plan_LogicalGenerate(self, node: lp.LogicalGenerate
+                              ) -> PhysicalPlan:
+        from spark_rapids_tpu_torch.exec.generate import CpuGenerateExec
+        child = self.plan(node.children[0])
+        cs = child.output_schema()
+        src = bind_references(node.source, cs)
+        if isinstance(src, BoundRef):
+            return CpuGenerateExec(child, src.index, node.delim,
+                                   node.out_name, node.with_pos,
+                                   node.pos_name)
+        # a computed source: project it, generate, then drop the helper
+        # column to keep the logical schema
+        exprs = [(n, BoundRef(i, dt, n)) for i, (n, dt)
+                 in enumerate(zip(cs.names, cs.dtypes))]
+        exprs.append(("_gen_src", src))
+        gen = CpuGenerateExec(cpu.CpuProjectExec(child, exprs),
+                              len(exprs) - 1, node.delim, node.out_name,
+                              node.with_pos, node.pos_name)
+        gs = gen.output_schema()
+        return cpu.CpuProjectExec(gen, [
+            (n, BoundRef(gs.index_of(n), gs.dtype_of(n), n))
+            for n in node.schema().names])
 
 
 def _key_indices(child: PhysicalPlan, keys, schema):

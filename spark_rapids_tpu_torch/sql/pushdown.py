@@ -141,7 +141,7 @@ def prune_filter_columns(root):
             return _with_children(node, [_narrow(rewrite(c, required),
                                                  required)
                                          for c in node.children])
-        # Expand, Scan, Range: children keep their full output
+        # Expand, Generate, Scan, Range: children keep their full output
         return _with_children(node, [rewrite(c, None)
                                      for c in node.children])
 
@@ -168,6 +168,8 @@ def required_scan_columns(root) -> Optional[set]:
             out.extend(e for _n, e in proj)
         if isinstance(node, lp.LogicalWindow):
             out.extend(node.expressions())
+        if isinstance(node, lp.LogicalGenerate):
+            out.append(node.source)
         return out
 
     def forwards_scan(node) -> bool:

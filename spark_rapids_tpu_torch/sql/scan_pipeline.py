@@ -166,17 +166,31 @@ class ScanPrefetcher:
             f.cancel()
 
 
-def build_partitions(tasks: List[DecodeFn], depth: int = DEFAULT_DEPTH,
+def build_partitions(tasks: List[DecodeFn], paths: List[str],
+                     depth: int = DEFAULT_DEPTH,
                      threads: Optional[int] = None) -> List[Partition]:
     """One partition per split. ``depth`` > 0 pulls each split from a
     shared ScanPrefetcher on ``threads`` planning threads; ``depth`` 0 is
-    the serial reader, planning on the consuming thread at pull time."""
+    the serial reader, planning on the consuming thread at pull time.
+    A partition publishes its split's file (``paths``) to the task
+    context (``exec/taskctx``) on the consuming thread while its yield is
+    pending, so input_file_name() reads the file of the rows being
+    consumed, never one planned ahead."""
+    from spark_rapids_tpu_torch.exec import taskctx
+
+    def published(i: int, out):
+        taskctx.set_input_file(paths[i])
+        try:
+            yield out
+        finally:
+            taskctx.clear_input_file()
+
     if depth <= 0:
-        def make_serial(fn: DecodeFn) -> Partition:
+        def make_serial(i: int) -> Partition:
             def run():
-                yield fn()
+                yield from published(i, tasks[i]())
             return run
-        return [make_serial(fn) for fn in tasks]
+        return [make_serial(i) for i in range(len(tasks))]
 
     prefetcher = ScanPrefetcher(tasks, depth,
                                 decode_pool(threads or default_threads()),
@@ -188,7 +202,7 @@ def build_partitions(tasks: List[DecodeFn], depth: int = DEFAULT_DEPTH,
             if out is None:  # a cancelled scan re-consumed: plan inline
                 out = tasks[i]()
             try:
-                yield out
+                yield from published(i, out)
             except BaseException:
                 # abandoned mid-yield (GeneratorExit) or a downstream
                 # error thrown into the generator: stop feeding the pool

@@ -193,7 +193,8 @@ class ParquetSource(DataSource):
                                         blocked)
             return decode
         return build_partitions(
-            [decode_task(p, rg) for p, rg in self.splits], depth, threads)
+            [decode_task(p, rg) for p, rg in self.splits],
+            [p for p, _rg in self.splits], depth, threads)
 
     def cpu_partitions(self) -> List[Partition]:
         """Host-decode split plan: pyarrow reads each row group's columns
@@ -215,7 +216,8 @@ class ParquetSource(DataSource):
                 return _arrow_decode(table)
             return decode
         return build_partitions(
-            [decode_task(p, rg) for p, rg in self.splits])
+            [decode_task(p, rg) for p, rg in self.splits],
+            [p for p, _rg in self.splits])
 
 
 # ---------------------------------------------------------------------------

@@ -1471,3 +1471,119 @@ def test_pinned_extent_not_reused_before_its_copy_ends(cuda_device,
         arena.free(off)
     finally:
         c.close()
+
+
+def _rollup_frame(n: int):
+    rng = np.random.default_rng(16)
+
+    def nulls(values):
+        out = np.asarray(values, dtype=object)
+        out[rng.random(n) < 0.08] = None
+        return out
+    regions = np.array(["east", "west", "north", "south"], dtype=object)
+    return pd.DataFrame({
+        "dct": nulls(regions[rng.integers(0, 4, n)]),
+        "slb": nulls([f"store-{i:05d}" for i in rng.integers(0, 3000, n)]),
+        "pln": nulls(["p" * 66 + str(i) for i in rng.integers(0, 3000, n)]),
+        "k": rng.integers(0, 3, n).astype(np.int32),
+        "qty": pd.Series(rng.integers(1, 50, n)).astype("Int64").mask(
+            pd.Series(rng.random(n) < 0.1)),
+    })
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dct", "slb", "pln"])
+def test_rollup_null_string_keys_through_b2_on_the_card(cuda_device, form):
+    """rollup(<string key>, k) under HASH_AGG_CONFS on 200,000 rows in
+    2^16-row batches (each grouping set's batch stays whole), the key a
+    dictionary, a slab or plain chars with NULLs of its own: the grouping
+    sets whose key is the NULL literal (a dictionary) and every
+    dictionary-keyed batch go through B2 (launched), a slab or plain key
+    through the sorted branches; the card's groups equal the CPU
+    session's."""
+    from spark_rapids_tpu_torch.models.tpch import HASH_AGG_CONFS
+    from spark_rapids_tpu_torch.sql import functions as F
+    df = _rollup_frame(200_000)
+    K.reset_launches()
+    got, want = _card_and_cpu(
+        lambda s: s.create_dataframe(df, 2).rollup(form, "k").agg(
+            F.sum("qty").alias("total"), F.count("*").alias("n")),
+        **dict(HASH_AGG_CONFS, **{"spark.rapids.sql.batchSizeRows":
+                                  1 << 16}))
+    assert K.LAUNCHES["hash_grouped_aggregate"] > 0
+    assert _sorted_rows(got) == _sorted_rows(want)
+
+
+@pytest.mark.cuda
+def test_explode_past_int32_chars_raises_on_the_card(cuda_device):
+    """2^17 rows of 400 bytes, 50 tokens each: the text copied once per
+    token would take 2.6e9 chars, past what int32 offsets address. The
+    one totals sync reads it and the operator raises, naming the column,
+    before it allocates anything."""
+    from spark_rapids_tpu_torch.columnar import dtypes
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec.cpu import CpuScanExec
+    from spark_rapids_tpu_torch.exec.generate import TpuGenerateExec
+    rows, width = 1 << 17, 400
+    row = (b"abcdefg," * 50)[:width - 1] + b"z"
+    chars = torch.tensor(list(row), dtype=torch.uint8,
+                         device=cuda_device).repeat(rows)
+    col = DeviceColumn(dtypes.STRING, None, torch.ones(
+        rows, dtype=torch.bool, device=cuda_device), chars=chars,
+        offsets=torch.arange(rows + 1, dtype=torch.int32,
+                             device=cuda_device) * width)
+    schema = Schema(["text"], [dtypes.STRING])
+    batch = DeviceBatch(schema, [col], torch.full(
+        (), rows, dtype=torch.int32, device=cuda_device))
+    gen = TpuGenerateExec(CpuScanExec(None, schema), 0, ",", "w", False)
+    with pytest.raises(ValueError, match="'text' would need"):
+        gen._expand(batch, 2.0)
+
+
+@pytest.mark.cuda
+def test_expression_cases_on_the_card(cuda_device):
+    """Every case of ``testing/exprcases.py`` (rand and the ids over four
+    partitions included) on 50,000 rows: the card's answer equals the CPU
+    session's, bit for bit where exact, within rtol 1e-13 where
+    ``APPROX``."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    from spark_rapids_tpu_torch.testing import exprcases as E
+    df = E.frame(50_000)
+    got, want = _card_and_cpu(
+        lambda s: E.projection(F, s, df, num_partitions=4),
+        **{"spark.rapids.sql.batchSizeRows": 8192})
+    got = got.sort_values("id").reset_index(drop=True)
+    want = want.sort_values("id").reset_index(drop=True)
+    errs = [f"{n}: {e}" for n in E.CASES
+            if (e := E.same_values(got[n], want[n], n in E.APPROX))]
+    assert not errs, errs
+    r = got.rand42.to_numpy(np.float64)
+    assert np.array_equal(r.view(np.int64),
+                          want.rand42.to_numpy(np.float64).view(np.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["dct", "slb", "pln"])
+def test_explode_on_the_card(cuda_device, form):
+    """explode and posexplode of split over each source form on 100,000
+    rows: the card's rows equal the CPU session's."""
+    from spark_rapids_tpu_torch.sql import functions as F
+    rng = np.random.default_rng(9)
+    n = 100_000
+    words = np.array(["a", "bb", "", "dé", "eeeee", "f" * 40], dtype=object)
+    few = np.array(["a,b", "", ",c,", "dé"], dtype=object)
+    if form == "dct":
+        src = few[rng.integers(0, len(few), n)]
+    else:
+        k = rng.integers(0, 9, n)
+        src = np.array([",".join(words[rng.integers(0, 6, j)]) for j in k],
+                       dtype=object)
+        if form == "pln":
+            src[::5] = [v + "," + "x" * 70 for v in src[::5]]
+    src[rng.random(n) < 0.1] = None
+    df = pd.DataFrame({"id": np.arange(n), "t": src})
+    for fn in (F.explode, F.posexplode):
+        got, want = _card_and_cpu(lambda s: s.create_dataframe(df).with_column(
+            "w", fn(F.split(F.col("t"), ","))))
+        assert _sorted_rows(got) == _sorted_rows(want)
