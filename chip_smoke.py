@@ -48,7 +48,7 @@ port's main path through its query runners:
     replace over the review text, each equal to pandas, and the string
     functions and casts of ``testing/stringcases.py`` over a plain column
     at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
-    TPCxBB queries at SF 150;
+    TPCxBB queries at SF 50;
   * the four Mortgage queries (``models/mortgage.py``) through the
     session in 2^20-row batches, the ETL at SF 250 (6M performance rows
     expanded 12 times) and the other three at SF 500, each against its
@@ -69,7 +69,19 @@ port's main path through its query runners:
     of lineitem and of customer, and every case of
     ``testing/exprcases.py`` over 2^18 rows against the CPU session, which
     a child process of this script (``--expr-cpu``) computes meanwhile;
-  * the window cases of ``testing/windowcases.py`` over 2^21 rows through
+  * the scan-and-write phase (``scan_write_phase``, after the session's
+    SF1 Parquet cells, the encoded-page cache on): SF1 lineitem decoded
+    from its file, ordered by l_shipdate on the card and written as
+    Parquet, read back equal to the frame with no host-decoded column;
+    TPC-H Q6 over those files, pruned by their footers' l_shipdate
+    statistics, beside Q6 over the unsorted file; lineitem written
+    partitioned by (l_returnflag, l_linestatus) and Q1 over its
+    directories, then with l_returnflag = 'R', the partition keys made on
+    the card (no upload bytes past the data columns' plans); SF1 orders
+    as ORC read back stripe-pruned and whole, SF1 customer as CSV under an
+    explicit schema, each equal to its frame; Q6 twice through the page
+    cache, the warm run reading no file, bit-equal;
+  * the window cases of ``testing/windowcases.py`` over 2^20 rows through
     the session on the card, every output column held against the CPU
     session's (``device="cpu"``), which a child process of this script
     (``--window-cpu``) computes while the phases above run.
@@ -106,6 +118,7 @@ result, when no CUDA device is present or any phase fails. Details go to
 
     python3 chip_smoke.py            # full size (needs one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
+    python3 chip_smoke.py --scan-write-only   # that phase alone, SF1
 """
 
 from __future__ import annotations
@@ -1261,12 +1274,15 @@ def session_of(batch_rows: int, **conf):
     """The port's session on the card with the confs of the session phase:
     test mode (a fallback fails the query), device scan caching (warm
     executions skip the upload, as the runners' batches are already on the
-    card) and the runners' batch size."""
+    card), the runners' batch size, and the encoded-page cache off, so
+    that every Parquet run reads and uploads its row groups as before the
+    cache came (``scan_write_phase`` turns it on, ``PAGE_CACHE_ON``)."""
     from spark_rapids_tpu_torch.session import TpuSparkSession
     b = (TpuSparkSession.builder()
          .config("spark.rapids.sql.test.enabled", True)
          .config("spark.rapids.sql.cacheDeviceScans", True)
-         .config("spark.rapids.sql.batchSizeRows", batch_rows))
+         .config("spark.rapids.sql.batchSizeRows", batch_rows)
+         .config("spark.rapids.sql.scan.pageCache.enabled", False))
     for k, v in conf.items():
         b.config(k, v)
     return b.get_or_create()
@@ -3557,6 +3573,371 @@ def window_phase(rows: int, runs: int, child: subprocess.Popen,
         f"{total:.4f} s")
 
 
+SCAN_WRITE_DIR = os.path.join("spark_rapids_tpu_torch", "build",
+                              "scan_write")
+PAGE_CACHE_ON = {"spark.rapids.sql.scan.pageCache.enabled": True}
+
+
+def _frame_equal(got, want, what: str) -> None:
+    """Every column of ``got`` equals ``want``'s, row for row: dates and
+    timestamps at microseconds, the rest exactly (NULL for NULL)."""
+    import pandas as pd
+    require(list(got.columns) == list(want.columns) and len(got) == len(want),
+            f"{what}: columns or rows differ")
+    import pyarrow as pa
+
+    def arrow_strings(x):
+        a = pa.array(x)
+        if isinstance(a, pa.ChunkedArray):
+            a = a.combine_chunks()
+        return a.cast(pa.large_string())
+    for c in want.columns:
+        g, w = got[c], want[c]
+        if w.dtype.kind not in "biufM" and g.dtype.kind not in "biufM":
+            # strings through arrow: no Python object a value
+            require(arrow_strings(g).equals(arrow_strings(w)),
+                    f"{what}: column {c} differs")
+            continue
+        if w.dtype.kind == "M" or g.dtype.kind == "M":
+            g = pd.to_datetime(g).to_numpy("datetime64[us]")
+            w = pd.to_datetime(w).to_numpy("datetime64[us]")
+            same = np.array_equal(g, w)
+        elif w.dtype.kind in "biuf":
+            same = np.array_equal(g.to_numpy(w.dtype), w.to_numpy())
+        else:
+            same = np.array_equal(g.to_numpy(object), w.to_numpy(object))
+        require(same, f"{what}: column {c} differs")
+
+
+def _metric_of(sess, prefix: str, name: str):
+    for op, ms in sess.last_query_metrics.items():
+        if op.startswith(prefix):
+            return ms.get(name, 0)
+    return 0
+
+
+def _counters(*names) -> dict:
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    return {n: REGISTRY.value(n) for n in names}
+
+
+def _since(before: dict) -> dict:
+    now = _counters(*before)
+    return {n: now[n] - before[n] for n in before}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _kept_by_footer(paths, lo, hi) -> tuple:
+    """(row groups, row groups whose l_shipdate min/max meet [lo, hi)) of
+    the files ``paths``, from their footers."""
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    total = kept = 0
+    for p in paths:
+        md = praw.file_metadata(p)
+        ci = md.schema.names.index("l_shipdate")
+        for rg in range(md.num_row_groups):
+            st = md.row_group(rg).column(ci).statistics
+            total += 1
+            kept += int(np.datetime64(st.max) >= lo
+                        and np.datetime64(st.min) < hi)
+    return total, kept
+
+
+def scan_write_phase(li1, o1, c1, path_li1: str, batch_rows: int,
+                     queries: dict, report: dict) -> None:
+    """Scan and write through the session: SF1 lineitem decoded
+    from its Parquet file, ordered by l_shipdate on the card and written
+    (``write_sorted``, read back equal to the frame), TPC-H Q6 over the
+    written files pruned by their footers' l_shipdate statistics beside
+    the same query over the unsorted file (``q6_pruned``), lineitem
+    (Q1's columns) written partitioned by (l_returnflag, l_linestatus)
+    and Q1 over its
+    directories (one a pair the generator's rows hold: six), then with
+    l_returnflag = 'R' (``q1_partitioned``),
+    SF1 orders written as ORC and read back stripe-pruned and whole, SF1
+    customer as CSV read back under an explicit schema (``orc_csv``), and
+    Q6 pruned twice through the encoded-page cache (``page_cache_warm``).
+    Each query runs up to its collect under the sync debug mode, its
+    counted syncs recorded by site."""
+    import glob
+    import shutil
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch.columnar.batch import Schema
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.sql import parquet_raw as praw
+    shutil.rmtree(SCAN_WRITE_DIR, ignore_errors=True)
+    os.makedirs(SCAN_WRITE_DIR)
+    cells = {}
+    lo, hi = np.datetime64("1994-01-01"), np.datetime64("1995-01-01")
+    # (l_orderkey, l_linenumber) repeats in the generator's rows; with
+    # the part and supplier keys it is unique, so both sides order alike
+    key = ["l_orderkey", "l_linenumber", "l_partkey", "l_suppkey"]
+    packed = np.zeros(len(li1), np.int64)
+    for k in key:
+        v = li1[k].to_numpy().astype(np.int64)
+        packed = (packed << int(v.max()).bit_length()) | v
+    require(sum(int(li1[k].max()).bit_length() for k in key) < 63,
+            "write_sorted: the comparison key does not pack")
+    order = np.argsort(packed, kind="stable")
+    require(bool((np.diff(packed[order]) != 0).all()),
+            "write_sorted: the comparison key repeats")
+    li_sorted = li1.iloc[order].reset_index(drop=True)
+
+    # write_sorted: the file decoded on the card, sorted, written
+    sess = session_of(batch_rows, **{
+        "spark.rapids.sql.cacheDeviceScans": False})
+    sorted_dir = os.path.join(SCAN_WRITE_DIR, "lineitem_sorted")
+    src = sess.read.parquet(path_li1).order_by("l_shipdate")
+    before = _counters("scan.device.fallbackColumns")
+    # one write, timed, under the sync debug mode (its waits by site)
+    syncs, secs = _timed(lambda: _syncs_by_site(
+        lambda: src.write.mode("overwrite").parquet(sorted_dir)))
+    require(_since(before)["scan.device.fallbackColumns"] == 0,
+            "write_sorted: a column of the source fell back to the host")
+    files = sorted(glob.glob(os.path.join(sorted_dir, "*.parquet")))
+    rgs = sum(pq.ParquetFile(f).metadata.num_row_groups for f in files)
+    rec = {"rows": len(li1), "columns": len(li1.columns), "write_s": secs,
+           "rows_per_s": len(li1) / secs,
+           "bytes": _metric_of(sess, "TpuWriteExec", "numOutputBytes"),
+           "files": _metric_of(sess, "TpuWriteExec", "numFiles"),
+           "row_groups": rgs, "syncs": syncs}
+    require(rec["files"] == len(files) and _metric_of(
+        sess, "TpuWriteExec", "numOutputRows") == len(li1),
+        f"write_sorted: metrics {sess.last_query_metrics}")
+    before = _counters("scan.device.fallbackColumns")
+    back, rec["read_back_s"] = _timed(lambda: sess.read.parquet(
+        sorted_dir).order_by(*key).collect())
+    require(_since(before)["scan.device.fallbackColumns"] == 0,
+            "write_sorted: the written files decode partly on the host")
+    _frame_equal(back, li_sorted, "write_sorted read back")
+    del back
+    cells["write_sorted"] = rec
+    log(f"scan_write write_sorted: {secs:.2f} s, {rec['rows_per_s']:.4g} "
+        f"rows/s, {rec['bytes'] / 1e6:.1f} MB in {rec['files']} files, "
+        f"{rgs} row groups, syncs {syncs}; read back equal "
+        f"({rec['read_back_s']:.2f} s)")
+
+    # q6_pruned: Q6 over the written files beside the unsorted file, the
+    # page cache off (every run reads and uploads its row groups)
+    q6_want = q6_reference(li1)
+    total, kept = _kept_by_footer(files, lo, hi)
+    rec = {"row_groups": total, "kept": kept}
+    for name, path in (("pruned", sorted_dir), ("unpruned", path_li1)):
+        q = T.q6(sess, {"lineitem": sess.read.parquet(path)})
+        before = _counters("scan.device.splits")
+        out, walls, launches = run_query(f"scan_write q6 {name}", q.collect,
+                                         3)
+        splits = _since(before)["scan.device.splits"] // 4
+        pruned = _metric_of(sess, "Parquet[", "numRowGroupsPruned")
+        err = _rel_err([out.revenue[0]], [q6_want])
+        require(len(out) == 1 and err <= F64_RTOL,
+                f"q6 {name}: revenue differs from pandas: {err}")
+        rec[name] = {"wall_s": float(np.median(walls)), "walls_s": walls,
+                     "splits": splits, "pruned": pruned,
+                     "launches": launches, "max_rel_err": err,
+                     "syncs": _syncs_by_site(q.collect_batches)}
+    require(rec["pruned"]["pruned"] == total - kept
+            and rec["pruned"]["splits"] == kept,
+            f"q6_pruned: pruned {rec['pruned']['pruned']}, decoded "
+            f"{rec['pruned']['splits']}; the footers keep {kept} of {total}")
+    for k in ("hybrid_expand", "plain_fixed"):
+        require(0 < rec["pruned"]["launches"][k] <= kept,
+                f"q6_pruned: {rec['pruned']['launches'][k]} {k} launches "
+                f"for {kept} kept row groups")
+    rec["runner_q6_parquet_wall_s"] = queries.get("q6_parquet", {}).get(
+        "wall_s")
+    cells["q6_pruned"] = rec
+    log(f"scan_write q6_pruned: kept {kept} of {total} row groups "
+        f"(footers), {rec['pruned']['wall_s']:.4f} s against "
+        f"{rec['unpruned']['wall_s']:.4f} s over the unsorted file "
+        f"(pruned {rec['unpruned']['pruned']}); syncs "
+        f"{rec['pruned']['syncs']} / {rec['unpruned']['syncs']}")
+
+    # q1_partitioned: a directory a (l_returnflag, l_linestatus) pair,
+    # lineitem's columns that Q1 reads
+    part_dir = os.path.join(SCAN_WRITE_DIR, "lineitem_by_flag")
+    q1_cols = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+               "l_shipdate", "l_returnflag", "l_linestatus"]
+    _, secs = _timed(lambda: sess.read.parquet(path_li1).select(
+        *q1_cols).write.mode("overwrite").partition_by(
+        "l_returnflag", "l_linestatus").parquet(part_dir))
+    parts = _metric_of(sess, "TpuWriteExec", "numParts")
+    flags = li1.groupby(["l_returnflag", "l_linestatus"]).ngroups
+    require(parts == flags, f"q1_partitioned: {parts} directories for "
+            f"{flags} flag and status pairs")
+    psess = session_of(batch_rows, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    q1_want = q1_reference(li1)
+    rec = {"write_s": secs, "directories": parts}
+    for name, flt in (("all", None), ("flag_r", "R")):
+        lt = psess.read.parquet(part_dir)
+        if flt is not None:
+            lt = lt.filter(SF_.col("l_returnflag") == flt)
+        q = T.q1(psess, {"lineitem": lt})
+        before = _counters("scan.device.splits", "scan.device.bytesDevice")
+        out, walls, launches = run_query(f"scan_write q1 {name}", q.collect,
+                                         3)
+        up = _since(before)
+        pruned = _metric_of(psess, "Parquet[", "numRowGroupsPruned")
+        want = q1_want if flt is None else q1_want[
+            q1_want.l_returnflag == flt].reset_index(drop=True)
+        err = check_q1(out, want)
+        from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+        from spark_rapids_tpu_torch.ops import aggregate as A
+        b0 = SYNCS.bytes.get("scan.upload", 0)
+        A.BRANCHES.clear()
+        syncs = _syncs_by_site(q.collect_batches)
+        upload = SYNCS.bytes.get("scan.upload", 0) - b0
+        # the keys are the partition columns: one-value dictionaries a
+        # directory, merged, so the group-by takes the dictionary branch
+        require(launches["compact_permutation"] > 0,
+                f"q1_partitioned {name}: no B1 launch")
+        rec[name] = {"branches": dict(A.BRANCHES),
+                     "wall_s": float(np.median(walls)), "walls_s": walls,
+                     "pruned": pruned, "splits": up["scan.device.splits"] // 4,
+                     "launches": launches, "max_rel_err": err,
+                     "syncs": syncs, "upload_bytes": upload,
+                     "plan_bytes": up["scan.device.bytesDevice"] // 4}
+        # the partition keys cost no upload: a run uploads its data
+        # columns' plans and nothing more
+        require(upload == rec[name]["plan_bytes"],
+                f"q1_partitioned {name}: uploaded {upload} bytes for "
+                f"{rec[name]['plan_bytes']} bytes of plans")
+    dirs = {os.path.dirname(p) for p in glob.glob(
+        os.path.join(part_dir, "*", "*", "*.parquet"))}
+    r_dirs = {d for d in dirs if "l_returnflag=R" in d}
+    rg_in = {d: sum(pq.ParquetFile(f).metadata.num_row_groups
+                    for f in glob.glob(os.path.join(d, "*.parquet")))
+             for d in dirs}
+    require(len(dirs) == flags and 0 < len(r_dirs) < flags
+            and rec["flag_r"]["pruned"] == sum(
+                n for d, n in rg_in.items() if d not in r_dirs)
+            and rec["all"]["pruned"] == 0,
+            f"q1_partitioned: pruned {rec['flag_r']['pruned']} row groups, "
+            f"directories {rg_in}")
+    rec["directories_pruned"] = len(dirs) - len(r_dirs)
+    cells["q1_partitioned"] = rec
+    log(f"scan_write q1_partitioned: write {secs:.2f} s, Q1 "
+        f"{rec['all']['wall_s']:.4f} s, with l_returnflag = 'R' "
+        f"{rec['flag_r']['wall_s']:.4f} s ({rec['directories_pruned']} of "
+        f"{flags} directories pruned); upload bytes {rec['all']['upload_bytes']} = "
+        f"plans; syncs {rec['all']['syncs']} / {rec['flag_r']['syncs']}")
+    psess.stop()
+    del psess
+
+    # orc_csv: orders as ORC (stripe pruning), customer as CSV (schema)
+    rec = {}
+    orc_dir = os.path.join(SCAN_WRITE_DIR, "orders_orc")
+    _, rec["orc_write_s"] = _timed(lambda: sess.create_dataframe(
+        o1).write.mode("overwrite").orc(orc_dir))
+    cut = int(o1.o_orderkey.quantile(0.1))
+    filt, rec["orc_filter_s"] = _timed(lambda: sess.read.orc(orc_dir).filter(
+        SF_.col("o_orderkey") < cut).collect())
+    rec["stripes_pruned"] = _metric_of(sess, "ORC[", "numStripesPruned")
+    rec["stripes"] = len(sess.read.orc(orc_dir)._plan.source.splits)
+    _frame_equal(filt.sort_values("o_orderkey").reset_index(drop=True),
+                 o1[o1.o_orderkey < cut].sort_values("o_orderkey")
+                 .reset_index(drop=True), "orc_csv orders filtered")
+    whole, rec["orc_read_s"] = _timed(
+        lambda: sess.read.orc(orc_dir).collect())
+    _frame_equal(whole, o1, "orc_csv orders")
+    csv_dir = os.path.join(SCAN_WRITE_DIR, "customer_csv")
+    _, rec["csv_write_s"] = _timed(lambda: sess.create_dataframe(
+        c1).write.mode("overwrite").csv(csv_dir))
+    cust, rec["csv_read_s"] = _timed(lambda: sess.read.schema(
+        Schema.from_pandas(c1)).option("header", True).csv(
+        csv_dir).collect())
+    _frame_equal(cust, c1, "orc_csv customer")
+    cells["orc_csv"] = rec
+    log(f"scan_write orc_csv: orders ORC write {rec['orc_write_s']:.2f} s, "
+        f"{rec['stripes_pruned']} of {rec['stripes']} stripes pruned, read "
+        f"{rec['orc_read_s']:.2f} s; customer CSV write "
+        f"{rec['csv_write_s']:.2f} s read {rec['csv_read_s']:.2f} s")
+    sess.stop()
+    del sess, whole, cust, filt
+
+    # page_cache_warm: Q6 over the sorted files twice, the page cache on
+    csess = session_of(batch_rows, **dict(PAGE_CACHE_ON, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    q = T.q6(csess, {"lineitem": csess.read.parquet(sorted_dir)})
+    rec = {}
+    outs = []
+    for run in ("cold", "warm"):
+        before = _counters("scan.device.fileReads", "pagecache.hits",
+                           "pagecache.deviceHits")
+        from spark_rapids_tpu_torch.ops import kernels as K
+        K.reset_launches()
+        out, secs = _timed(q.collect)
+        outs.append(out)
+        rec[run] = dict(_since(before), wall_s=secs,
+                        launches=dict(K.LAUNCHES))
+    rec["warm"]["syncs"] = _syncs_by_site(q.collect_batches)
+    rec["device_bytes"] = csess.page_cache.stats["deviceBytes"]
+    require(rec["warm"]["scan.device.fileReads"] == 0
+            and rec["warm"]["pagecache.hits"] > 0,
+            f"page_cache_warm: {rec['warm']}")
+    require(np.array_equal(outs[0].revenue.to_numpy().view(np.int64),
+                           outs[1].revenue.to_numpy().view(np.int64)),
+            "page_cache_warm: the warm answer is not bit-equal")
+    cells["page_cache_warm"] = rec
+    log(f"scan_write page_cache_warm: cold {rec['cold']['wall_s']:.4f} s "
+        f"({rec['cold']['scan.device.fileReads']} file reads), warm "
+        f"{rec['warm']['wall_s']:.4f} s (0 file reads, "
+        f"{rec['warm']['pagecache.hits']} host hits, "
+        f"{rec['warm']['pagecache.deviceHits']} device hits); warm syncs "
+        f"{rec['warm']['syncs']}")
+    csess.stop()
+    del csess
+    report["scan_write"] = cells
+    queries["session_q6_pruned_parquet"] = {
+        "sf": 1, "rows": len(li1), "wall_s": cells["q6_pruned"]["pruned"][
+            "wall_s"], "launches": cells["q6_pruned"]["pruned"]["launches"],
+        "cold_s": cells["q6_pruned"]["unpruned"]["wall_s"],
+        "row_groups": kept,
+        "runner_wall_s": cells["q6_pruned"]["runner_q6_parquet_wall_s"]}
+    queries["session_q1_partitioned_parquet"] = {
+        "sf": 1, "rows": len(li1), "wall_s": cells["q1_partitioned"]["all"][
+            "wall_s"], "launches": cells["q1_partitioned"]["all"]["launches"],
+        "cold_s": cells["q1_partitioned"]["write_s"],
+        "row_groups": cells["q1_partitioned"]["all"]["splits"],
+        "runner_wall_s": None}
+
+
+def scan_write_only() -> int:
+    """The scan-and-write phase alone, on SF1 frames and files made here.
+    Details go to ``chiprun_out/chip_smoke_scan_write.json``."""
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(1), "orders": G.gen_orders(1),
+              "customer": G.gen_customer(1)}
+    paths = G.write_parquet(os.path.join(SCAN_WRITE_DIR + "_src"), 1,
+                            frames=frames)
+    log(f"frames and files: {time.perf_counter() - t0:.1f} s")
+    queries, report = {}, {}
+    t0 = time.perf_counter()
+    scan_write_phase(frames["lineitem"], frames["orders"],
+                     frames["customer"], paths["lineitem"], 1 << 23,
+                     queries, report)
+    report["scan_write_phase_s"] = time.perf_counter() - t0
+    log(f"scan_write phase: {report['scan_write_phase_s']:.1f} s")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_scan_write.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3569,6 +3950,10 @@ def main() -> int:
     ap.add_argument("--memory-only", action="store_true",
                     help="build the kernels and run only the memory phase "
                          "(its frames generated here); prints no result")
+    ap.add_argument("--scan-write-only", action="store_true",
+                    help="build the kernels and run only the scan-and-write "
+                         "phase (SF1 frames and files made here); prints no "
+                         "result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -3584,6 +3969,8 @@ def main() -> int:
     # are timed, runs meanwhile in a process of its own
     if args.memory_only:
         return memory_only()
+    if args.scan_write_only:
+        return scan_write_only()
     children: list = []
     try:
         return run(args, children)
@@ -3622,8 +4009,8 @@ def memory_only() -> int:
     return 0
 
 
-# cut from 2^23, then 2^22, for the smoke's time (PERF.md §4)
-WINDOW_ROWS = 1 << 21
+# cut from 2^23, then 2^22, then 2^21, for the smoke's time (PERF.md §4)
+WINDOW_ROWS = 1 << 20
 # the session's Parquet cells and Q9 from files: cut from SF1 for the
 # smoke's time (PERF.md)
 SESSION_PARQUET_SF = 0.5
@@ -3634,8 +4021,9 @@ WINDOW_ROWS_QUICK = 1 << 16
 MORTGAGE_SF = 500
 MORTGAGE_ETL_SF = 250
 # cut from SF 250 for the smoke's time once the plain-strings phase came
-# in, then to SF 150 once the expression phase did (PERF.md §4)
-TPCXBB_SF = 150
+# in, to SF 150 once the expression phase did, then to SF 50 once the
+# scan-and-write phase did (PERF.md §4)
+TPCXBB_SF = 50
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -3930,7 +4318,8 @@ def run(args, children: list) -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # 2^20 rows: cut from 2^22, then 2^21, for the smoke's time (PERF.md)
-    string_phase(1 << 16 if args.quick else 1 << 20, runs_new, report)
+    # cut from 2^20 rows for the smoke's time (PERF.md §4)
+    string_phase(1 << 16 if args.quick else 1 << 19, runs_new, report)
     report["string_phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4223,7 +4612,15 @@ def run(args, children: list) -> int:
     same_by_key(host_out, out, ["l_orderkey"],
                 "session Q18 group-by parquet, host against device decode")
     del sess, host
-    del df
+    torch.cuda.empty_cache()
+
+    # scan and write: sorted and partitioned writes of SF1
+    # lineitem, pruned Q6 and Q1 over them, ORC and CSV, the page cache
+    t0 = time.perf_counter()
+    scan_write_phase(df, o1, c1, path18, q1_batch, queries, report)
+    report["scan_write_phase_s"] = time.perf_counter() - t0
+    log(f"scan_write phase: {report['scan_write_phase_s']:.1f} s")
+    del df, o1, c1
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

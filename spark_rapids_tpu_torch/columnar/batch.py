@@ -135,7 +135,8 @@ class DeviceBatch:
     @staticmethod
     def from_pandas(df: pd.DataFrame, dict_state: Optional[dict] = None,
                     dict_numerics: bool = True, device="cuda",
-                    slab_stride: int = 0) -> "DeviceBatch":
+                    slab_stride: int = 0,
+                    schema: Optional[Schema] = None) -> "DeviceBatch":
         """Host -> device upload (reference: GpuRowToColumnarExec), padded
         to ``bucket_capacity(len(df))``.
 
@@ -147,9 +148,11 @@ class DeviceBatch:
         slab when its longest value fits ``slab_stride`` bytes (0: never),
         else as plain offsets and chars. Under ``dict_state`` a column's
         slab stride is the widest any earlier batch of the scan took, and a
-        column that once went plain stays plain for the scan."""
+        column that once went plain stays plain for the scan. ``schema``
+        types the columns (default: from the frame's dtypes)."""
         device = torch.device(device)
-        schema = Schema.from_pandas(df)
+        if schema is None:
+            schema = Schema.from_pandas(df)
         n = len(df)
         cap = bucket_capacity(n)
         cols = []

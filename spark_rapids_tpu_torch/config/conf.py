@@ -133,6 +133,52 @@ FUSE_COUNT_DISTINCT = register(
     "key is fixed-width or a dictionary, one sort where a key is a char "
     "slab.")
 
+# --- file formats (the reference's RapidsConf.scala:433-474) ------------
+PARQUET_ENABLED = register(
+    "spark.rapids.sql.format.parquet.enabled", _to_bool, True,
+    "Enable Parquet input/output acceleration.")
+PARQUET_READ_ENABLED = register(
+    "spark.rapids.sql.format.parquet.read.enabled", _to_bool, True,
+    "Enable accelerated Parquet scans.")
+PARQUET_WRITE_ENABLED = register(
+    "spark.rapids.sql.format.parquet.write.enabled", _to_bool, True,
+    "Enable accelerated Parquet writes.")
+CSV_ENABLED = register(
+    "spark.rapids.sql.format.csv.enabled", _to_bool, True,
+    "Enable CSV input acceleration.")
+CSV_READ_ENABLED = register(
+    "spark.rapids.sql.format.csv.read.enabled", _to_bool, True,
+    "Enable accelerated CSV scans.")
+ORC_ENABLED = register(
+    "spark.rapids.sql.format.orc.enabled", _to_bool, True,
+    "Enable ORC input/output acceleration.")
+ORC_READ_ENABLED = register(
+    "spark.rapids.sql.format.orc.read.enabled", _to_bool, True,
+    "Enable accelerated ORC scans.")
+ORC_WRITE_ENABLED = register(
+    "spark.rapids.sql.format.orc.write.enabled", _to_bool, True,
+    "Enable accelerated ORC writes.")
+
+# --- the encoded-page cache (memory/spill.EncodedPageCache) --------------
+SCAN_PAGE_CACHE = register(
+    "spark.rapids.sql.scan.pageCache.enabled", _to_bool, True,
+    "Encoded-page cache of the device Parquet scan: column-chunk decode "
+    "plans (run tables + encoded page bytes) cached by (path, file stamp, "
+    "row group, column), so a hot table decodes again from cached, and "
+    "within the device budget device-resident, pages instead of reading "
+    "and uploading them again. Encoded pages are several times smaller "
+    "than decoded columns.")
+SCAN_PAGE_CACHE_BYTES = register(
+    "spark.rapids.sql.scan.pageCache.maxBytes", _to_bytes, 256 << 20,
+    "Host-memory budget of the encoded-page cache (LRU past it).")
+SCAN_PAGE_CACHE_DEVICE_BYTES = register(
+    "spark.rapids.sql.scan.pageCache.deviceMaxBytes", _to_bytes, 64 << 20,
+    "Device budget of page-cache entries promoted to device residency "
+    "after their first upload; colder entries demote to the host tier "
+    "(their device bytes dropped, the host plan kept). Metered against the "
+    "session's device budget, and dropped, not spilled, under its "
+    "pressure.")
+
 # --- memory pool and spill (the JAX package's defaults and converters) ----
 ALLOC_FRACTION = register(
     "spark.rapids.memory.tpu.allocFraction", float, 0.9,

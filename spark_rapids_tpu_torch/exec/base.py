@@ -9,14 +9,19 @@ a zero-argument callable returning an iterator of batches (the Spark
   * device operators: columnar DeviceBatches (the accelerated path).
 
 Transition operators convert between them (``exec/transitions.py``).
-The JAX package's per-operator SQL metrics, tracer spans, progress
-heartbeats, compile-ledger scopes and cancellation checks around each
-partition are not ported: ``executed_partitions`` is ``partitions``.
+The JAX package's per-operator SQL metrics around each partition (rows,
+batches, time), tracer spans, progress heartbeats, compile-ledger scopes
+and cancellation checks are not ported: ``executed_partitions`` is
+``partitions``. An operator adds what it counts itself to its query's
+metrics (``ExecContext.metric_add``: a scan's pruned row groups, a
+write's files and rows), which the session keeps as
+``last_query_metrics``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 from typing import Callable, Iterator, List, Sequence
 
 import torch
@@ -114,3 +119,13 @@ class ExecContext:
         # catalog ids of this query's transient spillables (broadcast
         # tables, reused subtrees, out-of-core buckets), freed at its end
         self.transient_bids: set = set()
+        # {operator: {metric: value}} of this query
+        self.metrics: dict = {}
+        self._metrics_lock = threading.Lock()
+
+    def metric_add(self, op: str, name: str, value) -> None:
+        """Add ``value`` to metric ``name`` of operator ``op`` (its
+        ``describe()``) in this query's metrics."""
+        with self._metrics_lock:
+            ms = self.metrics.setdefault(op, {})
+            ms[name] = ms.get(name, 0) + value

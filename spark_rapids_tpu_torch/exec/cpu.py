@@ -112,13 +112,17 @@ def _empty_df(schema: Schema) -> pd.DataFrame:
 
 
 class CpuScanExec(PhysicalPlan):
-    """Scan of a source's partitions of pandas frames (a Parquet file's
-    row groups read by pyarrow)."""
+    """Scan of a source's partitions of pandas frames (a file's row groups
+    or stripes read by pyarrow). ``pushed_filters``: the conjuncts of the
+    filter above that footer statistics can answer (``sql/pushdown``,
+    hung here by the planner); a source with ``prune_splits`` scans only
+    the splits they leave (``kept_splits``)."""
 
-    def __init__(self, source, schema: Schema):
+    def __init__(self, source, schema: Schema, pushed_filters=None):
         super().__init__()
         self.source = source
         self._schema = schema
+        self.pushed_filters = pushed_filters
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -127,10 +131,33 @@ class CpuScanExec(PhysicalPlan):
         return f"CpuScanExec({self.source.describe()})"
 
     def fingerprint_extra(self) -> str:
-        return self.source.data_uid()
+        return scan_fingerprint(self.source, self.pushed_filters,
+                                self._schema)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
-        return self.source.cpu_partitions()
+        return self.source.cpu_partitions(
+            kept_splits(ctx, self.source, self.pushed_filters))
+
+
+def kept_splits(ctx: ExecContext, source, pushed_filters):
+    """The splits of ``source`` its pushed filters leave, or None (all)
+    for a scan with none; the pruned count goes to the query's metrics
+    under the source (``numRowGroupsPruned``, ``numStripesPruned`` for
+    ORC), as in the JAX package."""
+    if not pushed_filters or not hasattr(source, "prune_splits"):
+        return None
+    splits, pruned = source.prune_splits(pushed_filters)
+    ctx.metric_add(source.describe(), source.pruned_metric, pruned)
+    return splits
+
+
+def scan_fingerprint(source, pushed_filters, schema: Schema) -> str:
+    """A scan's part of the reuse fingerprint: its data, its pushed
+    filters ((name, op, value) tuples with repr-stable values) and its
+    columns, so that two scans of one source pruned for different
+    predicates never stand for each other."""
+    pushed = ",".join(repr(f) for f in (pushed_filters or ()))
+    return f"{source.data_uid()}|{pushed}|{','.join(schema.names)}"
 
 
 def _per_frame(node: PhysicalPlan, ctx: ExecContext, exprs, fn

@@ -684,8 +684,11 @@ class TpuExpandExec(TpuExec):
 
 class TpuScanExec(TpuExec):
     """Columnar scan. An in-memory source's partitions are uploaded in
-    ``batchSizeRows`` chunks (``exec/transitions.upload_frames``). A
-    Parquet source's row groups are packed into partitions of at most
+    ``batchSizeRows`` chunks (``exec/transitions.upload_frames``), as are
+    a CSV or ORC source's, decoded by pyarrow. A Parquet source's row
+    groups that its pushed filters leave (``pushed_filters``, pruned by
+    the footers' statistics and the partition values; the count pruned in
+    the query's metrics) are packed into partitions of at most
     ``batchSizeRows`` rows (``transitions.pack_splits``); each row group
     is decoded on the device (``upload_partition``, kernels B5-B8), a
     column the kernels do not decode by pyarrow on the host
@@ -697,10 +700,11 @@ class TpuScanExec(TpuExec):
     replays it, faulted back where it was spilled. A partition's upload
     takes the session's semaphore."""
 
-    def __init__(self, source, schema: Schema):
+    def __init__(self, source, schema: Schema, pushed_filters=None):
         super().__init__()
         self.source = source
         self._schema = schema
+        self.pushed_filters = pushed_filters
 
     def output_schema(self) -> Schema:
         return self._schema
@@ -709,22 +713,29 @@ class TpuScanExec(TpuExec):
         return f"TpuScanExec({self.source.describe()})"
 
     def fingerprint_extra(self) -> str:
-        return f"{self.source.data_uid()}|{','.join(self._schema.names)}"
+        from spark_rapids_tpu_torch.exec.cpu import scan_fingerprint
+        return scan_fingerprint(self.source, self.pushed_filters,
+                                self._schema)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.exec.cpu import kept_splits
         from spark_rapids_tpu_torch.exec.transitions import (
             cache_uploads, chain_partitions, pack_splits, replay_cached,
             scan_cache_for, upload_blocked_chars, upload_frames,
             upload_partition,
         )
         max_rows = ctx.conf.batch_size_rows
-        cache = scan_cache_for(ctx, self.source, self._schema, max_rows)
+        cache = scan_cache_for(ctx, self.source, self._schema, max_rows,
+                               self.pushed_filters)
         dict_state: dict = {}
         max_stride = upload_blocked_chars(ctx.conf)
-        raw_parts = self.source.raw_partitions(max_stride)
+        splits = kept_splits(ctx, self.source, self.pushed_filters)
+        raw_parts = self.source.raw_partitions(
+            max_stride, splits=splits,
+            page_cache=getattr(ctx.session, "page_cache", None))
         parts = (raw_parts if raw_parts is not None
-                 else self.source.cpu_partitions())
-        split_rows = self.source.split_rows()
+                 else self.source.cpu_partitions(splits))
+        split_rows = self.source.split_rows(splits)
         if split_rows is not None:
             parts = chain_partitions(parts, pack_splits(split_rows, max_rows))
 
@@ -736,7 +747,8 @@ class TpuScanExec(TpuExec):
                 return upload_partition(part, self._schema, dict_state,
                                         ctx.device, ctx.session, meter)
             return upload_frames(part, max_rows, dict_state, ctx.device,
-                                 ctx.session, meter, max_stride)
+                                 ctx.session, meter, max_stride,
+                                 self._schema)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:

@@ -17,7 +17,7 @@
     package's rule), inside one counted sync a batch. A later batch may
     take another form than the first: ``rowops.concat_batches`` widens
     narrower slabs and makes plain chars of mixed forms.
-  * ``pack_splits`` groups a Parquet scan's row groups, in file order,
+  * ``pack_splits`` groups a Parquet scan's kept row groups, in file order,
     into partitions of at most ``batchSizeRows`` rows, so the coalesce
     above the scan concatenates them into batches of that size (the JAX
     package's scan keeps one row group a partition, where its coalesce
@@ -25,7 +25,10 @@
   * ``HostToDeviceExec`` and ``DeviceToHostExec`` are the transition
     operators the overrides insert at every CPU/device boundary;
     ``scan_cache_for`` is the session's device scan cache
-    (``spark.rapids.sql.cacheDeviceScans``), whose batches live in the
+    (``spark.rapids.sql.cacheDeviceScans``; keyed by the source, the
+    columns, the batch size and the pushed filters, so that a scan pruned
+    for one predicate never serves one that needs more row groups), whose
+    batches live in the
     session's spill catalog (``cache_uploads``, ``replay_cached``; a
     replay publishes each batch's input file again, as the first run's
     scan did).
@@ -88,9 +91,11 @@ def upload_partition(part: Partition, schema: Schema,
     every partition of one scan, so all its batches agree on each string
     column's dictionary and slab stride. A row group's footer bounds of
     its integer columns (or a host split's values) join the ``session``'s
-    statistics. Each batch is metered against the session's budget unless
-    ``meter`` is off: a cached upload is metered by the catalog
+    statistics, and its plans go through the session's encoded-page cache
+    (``page_cache``). Each batch is metered against the session's budget
+    unless ``meter`` is off: a cached upload is metered by the catalog
     (``cache_uploads``) instead."""
+    page_cache = getattr(session, "page_cache", None)
     for split in part():
         raw = split if getattr(split, "is_raw_rowgroup", False) \
             else _as_rowgroup(split, schema)
@@ -99,7 +104,8 @@ def upload_partition(part: Partition, schema: Schema,
                 note_bounds(session, name, lo, hi)
             if raw.fallback_df is not None:
                 note_scan_stats(session, raw.fallback_df)
-        batch = decode_rowgroup(raw, schema, dict_state, device)
+        batch = decode_rowgroup(raw, schema, dict_state, device,
+                                page_cache)
         batch.host_rows = raw.n
         if meter:
             _meter(session, batch)
@@ -139,17 +145,20 @@ def chain_partitions(parts: Sequence[Partition],
 
 
 def scan_cache_for(ctx: ExecContext, source, schema: Schema,
-                   max_rows: int) -> Optional[dict]:
+                   max_rows: int, pushed_filters=None) -> Optional[dict]:
     """The session's device batches of one source ({partition: [batch]}),
     or None when spark.rapids.sql.cacheDeviceScans is off. The entry holds
     the source itself, so its id cannot be reused by another frame while
-    the entry lives; projection views key on their base source."""
+    the entry lives; projection views key on their base source. The pushed
+    filters are part of the key: a scan pruned for one predicate must not
+    serve a query that needs more row groups."""
     if ctx.session is None or not ctx.conf.get_bool(
             "spark.rapids.sql.cacheDeviceScans", False):
         return None
     store = ctx.session.device_scan_cache
     base = getattr(source, "_base", source)
-    key = (id(base), tuple(schema.names), max_rows)
+    fkey = tuple(pushed_filters) if pushed_filters else None
+    key = (id(base), tuple(schema.names), max_rows, fkey)
     if key not in store:
         store[key] = (source, {})
     return store[key][1]
@@ -232,7 +241,8 @@ def note_bounds(session, name: str, lo: int, hi: int) -> None:
 
 def upload_frames(part: Partition, max_rows: int, dict_state: dict,
                   device, session=None, meter: bool = True,
-                  max_stride: int = MAX_SLAB_STRIDE
+                  max_stride: int = MAX_SLAB_STRIDE,
+                  schema: Optional[Schema] = None
                   ) -> Iterator[DeviceBatch]:
     """DeviceBatches of a partition of pandas frames, at most ``max_rows``
     rows each. ``dict_state`` is shared by every partition of one upload,
@@ -241,7 +251,9 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
     passes its ``session``, whose statistics each frame's integer columns
     then join, and whose budget meters each batch unless ``meter`` is off
     (a cached upload, metered by the catalog). ``max_stride`` is the
-    widest char slab (``upload_blocked_chars``)."""
+    widest char slab (``upload_blocked_chars``). A file scan passes its
+    ``schema``, whose types the columns then take (a host reader's date
+    column is a column of ``datetime.date`` objects)."""
     for df in part():
         note_scan_stats(session, df)
         for lo in range(0, max(len(df), 1), max_rows):
@@ -250,7 +262,7 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
             with sync_scope("scan.upload"):
                 batch = DeviceBatch.from_pandas(
                     chunk, dict_state, device=device,
-                    slab_stride=max_stride)
+                    slab_stride=max_stride, schema=schema)
             if meter:
                 _meter(session, batch)
             yield batch

@@ -40,8 +40,14 @@ the JAX package's names: ``spill.events`` and ``spill.bytes`` by
 ``spill.time.*`` hold each move's host seconds. The JAX package's
 event journal, progress and tracer calls (``EVENTS.emit("spill")``,
 ``PROGRESS.spill``, the ``spill.*`` spans) wait for ROADMAP A.11, where
-``PRESSURE`` becomes the journal's ``memoryPressure`` event; its
-``EncodedPageCache`` waits for A.7.
+``PRESSURE`` becomes the journal's ``memoryPressure`` event.
+
+``EncodedPageCache`` is the device Parquet scan's cache of column-chunk
+decode plans (a host tier of plans, a device tier of their uploaded
+buffers). Its device tier is metered against the session's device budget
+and, registered as a handler of that budget before the spill handler,
+drops its buffers under pressure rather than spilling them: the host
+tier still holds the plan, and a later scan uploads it again.
 """
 
 from __future__ import annotations
@@ -590,3 +596,167 @@ class MemoryEventHandler:
             # it triggered): how much pressure forced the pass
             record_pressure(neededBytes=needed_bytes, freedBytes=freed)
         return freed
+
+
+class EncodedPageCache:
+    """Encoded-page cache of the device Parquet scan: entries keyed by
+    (path, file stamp, row group, column, slab limit) hold a column
+    chunk's DECODE PLAN (the run tables and encoded page word buffers
+    ``ops/parquet_decode`` builds, not decoded values), so the same budget
+    holds far more of a table than a cache of decoded batches.
+
+    Two budgets, LRU within each:
+
+      * the host tier (``max_bytes``): the numpy plan buffers; a hit skips
+        the file read, page split and run-table build;
+      * the device tier (``device_max_bytes``): the buffers a decode
+        uploaded and PROMOTED; a hit skips the upload too. Past its budget
+        the device tier DEMOTES colder entries (drops their device
+        buffers, keeps the host plan); past the host budget an entry
+        goes.
+
+    The file's stamp is in the key, so a rewritten file never hits again
+    (its stale entries age out). With a ``device_manager`` every device
+    byte is metered against the session's budget, and ``__call__`` (an
+    over-budget handler of that manager) drops device buffers, coldest
+    first, until the overage is freed. Thread-safe: plans are taken and
+    put on planning threads, buffers promoted on the consuming thread.
+    Counters ``pagecache.*`` (hits, misses, deviceHits, evictions,
+    demotions, promotions, drops) and gauges ``pagecache.bytes`` and
+    ``pagecache.deviceBytes`` go to ``obs/metrics.REGISTRY``."""
+
+    def __init__(self, max_bytes: int = 256 << 20,
+                 device_max_bytes: int = 64 << 20, device_manager=None):
+        self.max_bytes = int(max_bytes)
+        self.device_max_bytes = int(device_max_bytes)
+        self._manager = device_manager
+        # key -> [plan, nbytes, device_tree | None, device_nbytes]
+        self._entries: "collections.OrderedDict[tuple, list]" = \
+            collections.OrderedDict()
+        self._bytes = 0
+        self._dev_bytes = 0
+        self._lock = threading.Lock()
+        self._hits = REGISTRY.counter("pagecache.hits")
+        self._misses = REGISTRY.counter("pagecache.misses")
+        self._dev_hits = REGISTRY.counter("pagecache.deviceHits")
+        self._evictions = REGISTRY.counter("pagecache.evictions")
+        self._demotions = REGISTRY.counter("pagecache.demotions")
+        self._promotions = REGISTRY.counter("pagecache.promotions")
+        self._drops = REGISTRY.counter("pagecache.drops")
+        self._g_bytes = REGISTRY.gauge("pagecache.bytes")
+        self._g_dev = REGISTRY.gauge("pagecache.deviceBytes")
+
+    def get(self, key):
+        """Host-tier lookup (planning side): the cached plan, or None.
+        Counts the hit or miss."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                self._misses.add(1)
+                return None
+            self._entries.move_to_end(key)
+            self._hits.add(1)
+            return ent[0]
+
+    def get_device(self, key):
+        """Device-tier lookup (consuming side): the promoted device
+        buffers, or None."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None or ent[2] is None:
+                return None
+            self._entries.move_to_end(key)
+            self._dev_hits.add(1)
+            return ent[2]
+
+    def put(self, key, plan, nbytes: int) -> None:
+        with self._lock:
+            freed = 0
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+                freed += self._drop_device_locked(old)
+            self._entries[key] = [plan, int(nbytes), None, 0]
+            self._bytes += int(nbytes)
+            freed += self._evict_locked()
+            self._publish_locked()
+        self._untrack(freed)
+
+    def promote(self, key, device_tree, nbytes: int) -> None:
+        """Attach a decode's freshly uploaded device buffers to the entry
+        (metered); demotes colder device residents past the device
+        budget."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if (ent is None or ent[2] is not None
+                    or int(nbytes) > self.device_max_bytes):
+                return
+            ent[2], ent[3] = device_tree, int(nbytes)
+            self._dev_bytes += int(nbytes)
+            self._promotions.add(1)
+            freed = 0
+            for k in list(self._entries):
+                if self._dev_bytes <= self.device_max_bytes:
+                    break
+                e = self._entries[k]
+                if k != key and e[2] is not None:
+                    freed += self._drop_device_locked(e)
+                    self._demotions.add(1)
+            self._publish_locked()
+        self._untrack(freed)
+        if self._manager is not None:
+            self._manager.track_alloc(int(nbytes),
+                                      device=self._manager.device)
+
+    def __call__(self, needed_bytes: int) -> int:
+        """Over-budget handler: drop device buffers, coldest first, until
+        ``needed_bytes`` are freed; returns the bytes freed."""
+        with self._lock:
+            freed = 0
+            for e in self._entries.values():
+                if freed >= needed_bytes:
+                    break
+                if e[2] is not None:
+                    freed += self._drop_device_locked(e)
+                    self._drops.add(1)
+            self._publish_locked()
+        self._untrack(freed)
+        return freed
+
+    def _drop_device_locked(self, ent: list) -> int:
+        freed = ent[3]
+        self._dev_bytes -= freed
+        ent[2], ent[3] = None, 0
+        return freed
+
+    def _evict_locked(self) -> int:
+        freed = 0
+        while self._bytes > self.max_bytes and len(self._entries) > 1:
+            _k, ent = self._entries.popitem(last=False)
+            self._bytes -= ent[1]
+            freed += self._drop_device_locked(ent)
+            self._evictions.add(1)
+        return freed
+
+    def _untrack(self, nbytes: int) -> None:
+        if nbytes and self._manager is not None:
+            self._manager.track_free(nbytes, device=self._manager.device)
+
+    def _publish_locked(self) -> None:
+        self._g_bytes.set(self._bytes)
+        self._g_dev.set(self._dev_bytes)
+
+    @property
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._entries), "bytes": self._bytes,
+                    "deviceBytes": self._dev_bytes}
+
+    def clear(self) -> None:
+        with self._lock:
+            freed = self._dev_bytes
+            self._entries.clear()
+            self._bytes = 0
+            self._dev_bytes = 0
+            self._publish_locked()
+        self._untrack(freed)

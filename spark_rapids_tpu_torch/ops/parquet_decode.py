@@ -23,8 +23,23 @@ A row group's decode is split across the two sides of the scan pipeline:
 Where the JAX package launches ``delta_unpack`` once per page, the port
 merges a chunk's page tables (``delta_chunk_table``) and decodes all of a
 row group's DELTA chunks in one launch. A planning error raises: only the
-reasons above fall back. The encoded-page cache and hive partition columns of the JAX module are
-not ported yet.
+reasons above fall back.
+
+A split's hive partition values (``RawRowGroup.pvals``) become columns
+after the data columns, built on the device as constants with no host
+buffer uploaded (``partition_column``): a string value is a dictionary of
+that one value with every code 0, a number a ``torch.full``, a NULL an
+all-invalid mask. The encoded-page cache (``memory/spill.EncodedPageCache``,
+the session's ``page_cache``) keeps each column chunk's decode plan by
+(path, file stamp, row group, column): ``prepare_rowgroup`` takes a plan
+from it instead of reading the file, and ``decode_rowgroup`` takes a
+promoted plan's device buffers instead of uploading them, or promotes the
+buffers it uploaded. With the cache, each column's buffers upload into a
+device allocation of their own (one host-to-device copy a column, still
+one counted sync a row group), so that a column dropped from the device
+tier frees its bytes. The JAX package reaches its cache only under
+``scan.deviceDecode``, off there by default; every device scan of the
+port reaches it.
 """
 
 from __future__ import annotations
@@ -400,13 +415,21 @@ def _plan_str_dict(upload: dict, meta: dict, streams: List[bytes],
 
 class RawRowGroup:
     """Planning-side product of the device scan: per-column decode plans
-    plus the host-decoded fallback frame. Flows through the scan
-    prefetcher like a DataFrame (``nbytes`` feeds its budget)."""
+    plus the host-decoded fallback frame and the split's partition values.
+    Flows through the scan prefetcher like a DataFrame (``nbytes`` feeds
+    its budget). ``key(name)`` is column ``name``'s page-cache key."""
 
     is_raw_rowgroup = True
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, path: str = "", rg: int = 0,
+                 pvals: Optional[dict] = None, stamp=None,
+                 blocked: int = 0):
         self.n = n
+        self.path = path
+        self.rg = rg
+        self.pvals = dict(pvals or {})
+        self.stamp = stamp
+        self.blocked = blocked  # a string plan's slab limit
         self.plans: Dict[str, dict] = {}       # column -> decode plan
         self.fallback: List[Tuple[str, str]] = []
         self.fallback_df = None
@@ -418,19 +441,27 @@ class RawRowGroup:
     def __len__(self) -> int:
         return self.n
 
+    def key(self, name: str) -> tuple:
+        # the slab limit shapes a string column's plan, so it keys it too
+        return (self.path, self.stamp, self.rg, name, self.blocked)
+
 
 def prepare_rowgroup(path: str, rg: int, columns: List[str],
-                     dtypes_by_name: dict, blocked: int):
-    """Build a RawRowGroup on a planning thread. Returns a plain pandas
-    DataFrame instead when NO column can ride the device path."""
+                     dtypes_by_name: dict, blocked: int,
+                     pvals: Optional[dict] = None, page_cache=None):
+    """Build a RawRowGroup on a planning thread, each column's plan taken
+    from ``page_cache`` where it holds one (no file read) and put there
+    where it did not. Returns a plain pandas DataFrame instead when NO
+    data column can ride the device path."""
     from spark_rapids_tpu_torch.sql.sources import _arrow_decode
-    md = praw.file_metadata(path)
-    mtime = praw.file_mtime(path)
+    stamp = praw.file_stamp(path)
+    md = praw.file_metadata(path, stamp)
     rg_meta = md.row_group(rg)
     arrow_schema = md.schema.to_arrow_schema()
     ci_by_name = {rg_meta.column(ci).path_in_schema: ci
                   for ci in range(rg_meta.num_columns)}
-    raw = RawRowGroup(int(rg_meta.num_rows))
+    raw = RawRowGroup(int(rg_meta.num_rows), path, rg, pvals, stamp,
+                      blocked)
     with _PREP_TIME.time():
         for name in columns:
             ci = ci_by_name.get(name)
@@ -438,15 +469,23 @@ def prepare_rowgroup(path: str, rg: int, columns: List[str],
                 raw.fallback.append((name, "missing"))
                 _FB_COLS.add(1)
                 continue
-            chunk = praw.read_column_chunk(path, rg, ci, md=md, mtime=mtime)
-            try:
-                plan = plan_column(chunk, dtypes_by_name[name],
-                                   arrow_schema.field(name).type, blocked)
-            except _Unsupported as e:
-                raw.fallback.append((name, e.reason))
-                _FB_COLS.add(1)
-                continue
-            plan["nbytes"] = sum(a.nbytes for a in plan["upload"].values())
+            plan = (page_cache.get(raw.key(name)) if page_cache is not None
+                    else None)
+            if plan is None:
+                chunk = praw.read_column_chunk(path, rg, ci, md=md,
+                                               stamp=stamp)
+                try:
+                    plan = plan_column(chunk, dtypes_by_name[name],
+                                       arrow_schema.field(name).type,
+                                       blocked)
+                except _Unsupported as e:
+                    raw.fallback.append((name, e.reason))
+                    _FB_COLS.add(1)
+                    continue
+                plan["nbytes"] = sum(a.nbytes
+                                     for a in plan["upload"].values())
+                if page_cache is not None:
+                    page_cache.put(raw.key(name), plan, plan["nbytes"])
             raw.plans[name] = plan
             raw.nbytes += plan["nbytes"]
             st = rg_meta.column(ci).statistics
@@ -525,30 +564,72 @@ def _as_signed(a: np.ndarray) -> np.ndarray:
     return a
 
 
-def upload_arrays(tree: Dict[str, Dict[str, np.ndarray]], device
+def upload_arrays(tree: Dict[str, Dict[str, np.ndarray]], device,
+                  per_column: bool = False
                   ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Copy every host array of ``tree`` ({column: {name: array}}) to
-    ``device`` in one host-to-device copy: the arrays are packed, 16-byte
-    aligned, into one pinned host buffer whose device copy is cut into
-    typed views of the same shapes."""
-    layout, off = [], 0
+    ``device``: the arrays are packed, 16-byte aligned, into one pinned
+    host buffer whose device copy is cut into typed views of the same
+    shapes. One host-to-device copy, or with ``per_column`` one a column
+    into a device allocation of its own (a column's views then keep only
+    its own bytes alive)."""
+    layout, off, spans = [], 0, {}
     for col, arrays in tree.items():
+        lo = off
         for name, a in arrays.items():
             a = np.ascontiguousarray(_as_signed(np.asarray(a)))
             layout.append((col, name, a, off))
             off += -(-a.nbytes // 16) * 16
+        spans[col] = (lo, off)
     device = torch.device(device)
     host = torch.empty(max(off, 16), dtype=torch.uint8,
                        pin_memory=device.type == "cuda")
     flat = host.numpy()
     for _col, _name, a, o in layout:
         flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True)
+    if per_column:
+        bufs = {col: (host[lo:hi].to(device, non_blocking=True), lo)
+                for col, (lo, hi) in spans.items()}
+    else:
+        dev = host.to(device, non_blocking=True)
+        bufs = {col: (dev, 0) for col in tree}
     out: Dict[str, Dict[str, torch.Tensor]] = {col: {} for col in tree}
     for col, name, a, o in layout:
-        t = dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+        dev, base = bufs[col]
+        t = dev[o - base:o - base + a.nbytes].view(
+            torch.from_numpy(a[:0]).dtype)
         out[col][name] = t.view(a.shape)
     return out
+
+
+def _upload_bytes(arrays: Dict[str, np.ndarray]) -> int:
+    """Device bytes of one column's uploaded arrays."""
+    return sum(np.asarray(a).nbytes for a in arrays.values())
+
+
+def partition_column(dt, value, n: int, cap: int, dev) -> DeviceColumn:
+    """A partition key's column of ``n`` rows (capacity ``cap``) holding
+    ``value`` (None: NULL), made on the device with no host buffer: a
+    string is a dictionary of that one value with every code 0 (an empty
+    dictionary for NULL), a number ``torch.full``, a NULL an all-invalid
+    mask; padding rows hold the NULL code or the fill value."""
+    live = torch.arange(cap, dtype=torch.int32, device=dev) < n
+    validity = live if value is not None else torch.zeros(
+        cap, dtype=torch.bool, device=dev)
+    if dt.is_string:
+        vals = (value,) if value is not None else ()
+        codes = torch.where(validity, _zero(torch.int32, dev),
+                            torch.full((), len(vals), dtype=torch.int32,
+                                       device=dev))
+        return DeviceColumn(dt, None, validity, dict_codes=codes,
+                            dict_values=vals)
+    want = dtypes.torch_dtype(dt.np_dtype)
+    fill = (value.item() if value is not None
+            else dtypes.null_fill_value(dt))
+    data = torch.where(validity, torch.full((), fill, dtype=want,
+                                            device=dev),
+                       torch.zeros((), dtype=want, device=dev))
+    return DeviceColumn(dt, data, validity)
 
 
 def _decode_levels(levels: Optional[torch.Tensor], meta, cap: int, n: int,
@@ -798,26 +879,42 @@ def _fallback_column(dt, arrays: Dict[str, torch.Tensor]) -> DeviceColumn:
 
 
 def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
-                    device="cuda") -> DeviceBatch:
+                    device="cuda", page_cache=None) -> DeviceBatch:
     """RawRowGroup -> one DeviceBatch at ``bucket_capacity(rows)``: one
     host-to-device copy of every plan's buffers and every fallback
-    column's host buffers, then the kernel decode (no host sync), with
-    every RLE/bit-packed hybrid stream in one B5 launch, every DELTA chunk
-    in one B6 launch and every PLAIN fixed-width stream in one B7 launch.
-    ``dict_state`` is the scan's dictionary and slab-stride registry,
-    shared by all its row groups."""
+    column's host buffers (one a column under ``page_cache``, whose
+    promoted plans upload nothing), then the kernel decode (no host sync),
+    with every RLE/bit-packed hybrid stream in one B5 launch, every DELTA
+    chunk in one B6 launch and every PLAIN fixed-width stream in one B7
+    launch; the partition keys as device constants. ``dict_state`` is the
+    scan's dictionary and slab-stride registry, shared by all its row
+    groups."""
+    from spark_rapids_tpu_torch.sql.sources import partition_scalar
     n = raw.n
     cap = bucket_capacity(max(n, 1))
     dt_by_name = dict(zip(schema.names, schema.dtypes))
-    tree = {name: _device_upload(plan) for name, plan in raw.plans.items()}
+    device = torch.device(device)
+    dev_tree, tree = {}, {}
+    for name, plan in raw.plans.items():
+        hit = (page_cache.get_device(raw.key(name))
+               if page_cache is not None else None)
+        if hit is not None:
+            dev_tree[name] = hit
+        else:
+            tree[name] = _device_upload(plan)
+    fresh = list(tree)
     for name, _reason in raw.fallback:
         tree[name] = _fallback_arrays(raw.fallback_df, name,
                                       dt_by_name[name], cap)
-    nbytes = sum(np.asarray(a).nbytes for arrays in tree.values()
-                 for a in arrays.values())
-    device = torch.device(device)
-    with sync_scope("scan.upload", nbytes=nbytes):
-        dev_tree = upload_arrays(tree, device)
+    if tree:
+        nbytes = sum(_upload_bytes(arrays) for arrays in tree.values())
+        with sync_scope("scan.upload", nbytes=nbytes):
+            dev_tree.update(upload_arrays(tree, device,
+                                          per_column=page_cache is not None))
+        if page_cache is not None:
+            for name in fresh:
+                page_cache.promote(raw.key(name), dev_tree[name],
+                                   _upload_bytes(tree[name]))
     _DEV_BYTES.add(sum(p["nbytes"] for p in raw.plans.values()))
     _DEV_COLS.add(len(raw.plans))
     _DEV_SPLITS.add(1)
@@ -843,7 +940,11 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
                     raw.plans[name], dev_tree[name], dt, cap, dict_state, i,
                     device, plain.get(name), hybrid.get((name, "lv")),
                     hybrid.get((name, "cd"))))
-            else:
+            elif name in dev_tree:
                 cols.append(_fallback_column(dt, dev_tree[name]))
+            else:
+                cols.append(partition_column(
+                    dt, partition_scalar(raw.pvals, name, dt), n, cap,
+                    device))
     num_rows = torch.full((), n, dtype=torch.int32, device=device)
     return DeviceBatch(schema, cols, num_rows)

@@ -15,11 +15,22 @@ Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU (``device="cpu"``, as the tests do): the device path then runs
 the kernels' plain versions. ``spark.rapids.sql.enabled=false`` runs the
 CPU operators on pandas instead. Files come in through ``s.read.parquet``
-(decoded on the device, kernels B5-B8; by pyarrow on the host where
-``spark.rapids.sql.enabled=false``); ``DataFrame.join`` plans an equi-join,
-broadcast under ``spark.rapids.sql.autoBroadcastJoinThreshold``, a cross
-join (``on=None``) and a join on a boolean condition (``on=<Column>``, the
-broadcast nested-loop join, on the device only where
+(files or directories, hive ``key=value`` layouts as partition columns;
+decoded on the device, kernels B5-B8, through the session's encoded-page
+cache ``page_cache``, ``spark.rapids.sql.scan.pageCache.*``; by pyarrow
+on the host where ``spark.rapids.sql.enabled=false``), a filter above a
+scan pruning its row groups and directories by the footers' statistics
+and the partition values; ``s.read.csv`` and ``s.read.orc`` decode on
+the host with pyarrow (``s.read.schema(...).option("header", ...)``). A
+DataFrame goes out through ``df.write.mode("overwrite")
+.partition_by(...).parquet(path)`` (also ``.orc``, ``.csv``; mode
+``error`` by default): device batches copied to the host and encoded by
+pyarrow under a commit protocol (``exec/write.py``); a query's metrics
+(``last_query_metrics``) hold each scan's pruned row groups and each
+write's files, rows, bytes and partitions. ``DataFrame.join`` plans an
+equi-join, broadcast under ``spark.rapids.sql.autoBroadcastJoinThreshold``,
+a cross join (``on=None``) and a join on a boolean condition
+(``on=<Column>``, the broadcast nested-loop join, on the device only where
 ``spark.rapids.sql.exec.BroadcastNestedLoopJoinExec`` is set true).
 
 The memory runtime (``memory/``) is the JAX package's: each session holds
@@ -36,13 +47,16 @@ the join, aggregate and sort run out of core past
 ``outOfCore.partitionBytes`` (``exec/outofcore.py``).
 
 Left out of the JAX package's session, each a later ROADMAP item: the
-mesh, shuffle environments and encoded-page cache (A.7, A.9); AQE and the
-speculation verification (A.10; the within-query subtree reuse is
-ported, ``exec/reuse.py``); tracing, the event journal, metrics
-snapshots, the compile cache and prewarm, and the serving caches (A.11);
-the CSV and ORC readers (A.7). ``with_column`` and ``select`` take
-window expressions (``F.row_number().over(Window.partition_by(...))``);
-``with_column`` also takes ``F.explode``/``F.posexplode`` of ``F.split``
+mesh and shuffle environments (A.9); AQE and the speculation
+verification (A.10; the within-query subtree reuse is ported,
+``exec/reuse.py``); tracing, the event journal, metrics snapshots, the
+compile cache and prewarm, and the serving caches (A.11). Unlike the JAX
+package's, ``get_or_create`` makes a new session each call (sessions of
+the port are independent, each with its own confs, device and memory
+runtime); the newest is ``TpuSparkSession.active()``. ``with_column``
+and ``select`` take window expressions
+(``F.row_number().over(Window.partition_by(...))``); ``with_column``
+also takes ``F.explode``/``F.posexplode`` of ``F.split``
 (a Generate), and ``rollup``/``cube`` group by grouping sets (an Expand
 under the aggregate).
 """
@@ -66,7 +80,9 @@ from spark_rapids_tpu_torch.sql.exprs.core import Alias, Col, Expression
 from spark_rapids_tpu_torch.sql.functions import Column, SortOrder, _c, _expr
 from spark_rapids_tpu_torch.sql.functions import col as col_fn
 from spark_rapids_tpu_torch.sql.planner import Planner
-from spark_rapids_tpu_torch.sql.sources import InMemorySource, ParquetSource
+from spark_rapids_tpu_torch.sql.sources import (
+    CsvSource, InMemorySource, OrcSource, ParquetSource,
+)
 
 _SPILL_DIRECTIONS = ("device_to_host", "host_to_disk")
 
@@ -79,8 +95,11 @@ _JOIN_ALIASES = {"outer": "full", "full_outer": "full", "left_outer": "left",
 class TpuSparkSession:
     """Entry point: confs, data sources and query execution."""
 
+    _active: Optional["TpuSparkSession"] = None
+
     def __init__(self, conf: TpuConf, device="cuda"):
         self.conf = conf
+        self._base_settings = dict(conf._settings)
         self.device = device
         # the device scan cache (spark.rapids.sql.cacheDeviceScans)
         self.device_scan_cache: Dict = {}
@@ -103,7 +122,23 @@ class TpuSparkSession:
         from spark_rapids_tpu_torch.memory.spill import (
             BufferCatalog, MemoryEventHandler,
         )
+        from spark_rapids_tpu_torch.config.conf import (
+            SCAN_PAGE_CACHE, SCAN_PAGE_CACHE_BYTES,
+            SCAN_PAGE_CACHE_DEVICE_BYTES,
+        )
+        from spark_rapids_tpu_torch.memory.spill import EncodedPageCache
         self.device_manager = TpuDeviceManager(conf, device)
+        # the encoded-page cache of the device Parquet scan
+        # (spark.rapids.sql.scan.pageCache.*): its device tier is metered
+        # by the budget and, its handler registered before the spill
+        # handler, dropped first under pressure
+        self.page_cache = EncodedPageCache(
+            int(conf.get(SCAN_PAGE_CACHE_BYTES.key) or 0),
+            int(conf.get(SCAN_PAGE_CACHE_DEVICE_BYTES.key) or 0),
+            self.device_manager) \
+            if conf.get_bool(SCAN_PAGE_CACHE.key, True) else None
+        if self.page_cache is not None:
+            self.device_manager.register_oom_handler(self.page_cache)
         self.semaphore = TpuSemaphore(conf.concurrent_tpu_tasks)
         self.buffer_catalog = BufferCatalog(
             conf.host_spill_storage_size,
@@ -132,14 +167,35 @@ class TpuSparkSession:
             return self
 
         def get_or_create(self) -> "TpuSparkSession":
-            return TpuSparkSession(TpuConf(self._settings), self._device)
+            """A new session of these settings; it becomes the active
+            one."""
+            session = TpuSparkSession(TpuConf(self._settings), self._device)
+            TpuSparkSession._active = session
+            return session
 
     @staticmethod
     def builder() -> "TpuSparkSession.Builder":
         return TpuSparkSession.Builder()
 
+    @staticmethod
+    def active() -> "TpuSparkSession":
+        """The session ``get_or_create`` made last, or a new one at the
+        default settings (on the card)."""
+        s = TpuSparkSession._active
+        if s is None:
+            s = TpuSparkSession.builder().get_or_create()
+        return s
+
+    # --- conf --------------------------------------------------------------
     def set_conf(self, key: str, value) -> None:
         self.conf.set(key, value)
+
+    def get_conf(self, key: str, default=None):
+        return self.conf.get(key, default)
+
+    def reset_conf(self) -> None:
+        """Back to the settings the session was built with."""
+        self.conf._settings = dict(self._base_settings)
 
     def clear_device_cache(self) -> None:
         for _source, parts in self.device_scan_cache.values():
@@ -155,7 +211,12 @@ class TpuSparkSession:
         self.clear_device_cache()
         self.release_transient_buffers()
         self.device_manager.unregister_oom_handler(self.memory_event_handler)
+        if self.page_cache is not None:
+            self.device_manager.unregister_oom_handler(self.page_cache)
+            self.page_cache.clear()
         self.buffer_catalog.close()
+        if TpuSparkSession._active is self:
+            TpuSparkSession._active = None
 
     # --- per-query spillables ------------------------------------------------
     def _current_ctx(self):
@@ -277,8 +338,8 @@ class TpuSparkSession:
             self.release_transient_buffers(ctx)
             self.semaphore.release()
             self._exec_scope.ctx = prev
-            self.last_query_metrics = {"memory": self._memory_metrics(
-                before)}
+            self.last_query_metrics = dict(
+                ctx.metrics, memory=self._memory_metrics(before))
 
     def _memory_metrics(self, before: dict) -> dict:
         """The memory runtime's state after a query and the spills it
@@ -308,16 +369,78 @@ class TpuSparkSession:
         return outs
 
 
+class DataFrameWriter:
+    """``df.write.mode("overwrite").parquet(path)``: the DataFrameWriter
+    surface over LogicalWrite (reference: the GpuDataWritingCommandExec
+    path)."""
+
+    def __init__(self, df: "DataFrame"):
+        self._df = df
+        self._mode = "error"
+        self._partition_cols: List[str] = []
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        m = {"errorifexists": "error"}.get(m, m)
+        if m not in ("error", "overwrite"):
+            raise ValueError(f"write mode {m!r}: error or overwrite")
+        self._mode = m
+        return self
+
+    def partition_by(self, *cols: str) -> "DataFrameWriter":
+        """Hive-style dynamic partitioning: one key=value directory level
+        per column (reference: GpuInsertIntoHadoopFsRelationCommand's
+        dynamic-partition write)."""
+        missing = [c for c in cols if c not in self._df.schema.names]
+        if missing:
+            raise ValueError(f"partition_by columns not in schema: {missing}")
+        self._partition_cols = list(cols)
+        return self
+
+    partitionBy = partition_by
+
+    def _run(self, path: str, fmt: str) -> None:
+        self._df.session._execute(lp.LogicalWrite(
+            self._df._plan, path, fmt, self._mode, self._partition_cols))
+
+    def parquet(self, path: str) -> None:
+        self._run(path, "parquet")
+
+    def csv(self, path: str) -> None:
+        self._run(path, "csv")
+
+    def orc(self, path: str) -> None:
+        self._run(path, "orc")
+
+
 class DataFrameReader:
-    """``session.read``: file sources (Parquet; CSV and ORC are ROADMAP
-    A.7)."""
+    """``session.read``: file sources. ``schema`` and ``option("header",
+    ...)`` apply to CSV."""
 
     def __init__(self, session: TpuSparkSession):
         self.session = session
+        self._schema: Optional[Schema] = None
+        self._options: Dict[str, str] = {}
+
+    def schema(self, schema: Schema) -> "DataFrameReader":
+        self._schema = schema
+        return self
+
+    def option(self, key: str, value) -> "DataFrameReader":
+        self._options[key] = value
+        return self
 
     def parquet(self, *paths: str) -> "DataFrame":
         return DataFrame(self.session,
                          lp.LogicalScan(ParquetSource(list(paths))))
+
+    def csv(self, *paths: str) -> "DataFrame":
+        header = str(self._options.get("header", "true")).lower() == "true"
+        return DataFrame(self.session, lp.LogicalScan(CsvSource(
+            list(paths), schema=self._schema, header=header)))
+
+    def orc(self, *paths: str) -> "DataFrame":
+        return DataFrame(self.session,
+                         lp.LogicalScan(OrcSource(list(paths))))
 
 
 class GroupedData:
@@ -669,6 +792,10 @@ class DataFrame:
                          lp.LogicalAggregate(self._plan, exprs, [
                              (n, col_fn(n).expr) for n in self.schema.names]))
 
+    @property
+    def write(self) -> DataFrameWriter:
+        return DataFrameWriter(self)
+
     def repartition(self, n: int) -> "DataFrame":
         return DataFrame(self.session, lp.LogicalRepartition(self._plan, n))
 
@@ -681,6 +808,9 @@ class DataFrame:
                                   self.schema)
 
     to_pandas = collect
+
+    def count_rows(self) -> int:
+        return int(len(self.collect()))
 
     def collect_batches(self) -> List[DeviceBatch]:
         """The query up to its collect: the output DeviceBatches, still on

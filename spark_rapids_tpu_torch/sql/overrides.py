@@ -22,7 +22,11 @@ join-hash consistency fixup keeps a shuffled join and the exchanges
 feeding it on the same side. The window rule tags each window column by
 ``exec/windowexec.resolve_descriptor`` and its expressions; the generate
 rule keeps a regex or multi-byte delimiter on the CPU with the JAX
-package's reasons. The write rule waits for ROADMAP A.7.
+package's reasons. The scan rule keeps a file scan whose format is off
+(``spark.rapids.sql.format.<fmt>.enabled`` and ``.read.enabled``) on the
+CPU, and the write rule a write whose format is off (``.write.enabled``
+for Parquet and ORC), with the JAX package's reasons. A write consumes
+device batches (``columnar_input``) but outputs none.
 """
 
 from __future__ import annotations
@@ -256,9 +260,34 @@ _register(ExecRule(cpu.CpuShuffleExchangeExec, "columnar shuffle exchange",
                    _tag_exchange,
                    lambda m, ch: tpu.TpuShuffleExchangeExec(
                        ch[0], m.plan.partitioning)))
-_register(ExecRule(cpu.CpuScanExec, "columnar scan", _tag_nothing,
-                   lambda m, ch: tpu.TpuScanExec(m.plan.source,
-                                                 m.plan.output_schema())))
+
+
+def _tag_scan(meta: ExecMeta) -> None:
+    from spark_rapids_tpu_torch.sql.sources import (
+        CsvSource, InMemorySource, OrcSource, ParquetSource,
+    )
+    src = meta.plan.source
+    c = meta.conf
+    if isinstance(src, ParquetSource):
+        if not (c.get("spark.rapids.sql.format.parquet.enabled")
+                and c.get("spark.rapids.sql.format.parquet.read.enabled")):
+            meta.will_not_work("Parquet scan disabled by conf")
+    elif isinstance(src, CsvSource):
+        if not (c.get("spark.rapids.sql.format.csv.enabled")
+                and c.get("spark.rapids.sql.format.csv.read.enabled")):
+            meta.will_not_work("CSV scan disabled by conf")
+    elif isinstance(src, OrcSource):
+        if not (c.get("spark.rapids.sql.format.orc.enabled")
+                and c.get("spark.rapids.sql.format.orc.read.enabled")):
+            meta.will_not_work("ORC scan disabled by conf")
+    elif not isinstance(src, InMemorySource):
+        meta.will_not_work(f"source {src.describe()} has no TPU scan")
+
+
+_register(ExecRule(cpu.CpuScanExec, "columnar scan", _tag_scan,
+                   lambda m, ch: tpu.TpuScanExec(
+                       m.plan.source, m.plan.output_schema(),
+                       m.plan.pushed_filters)))
 _register(ExecRule(cpu.CpuExpandExec, "expand", _tag_expand,
                    lambda m, ch: tpu.TpuExpandExec(ch[0],
                                                    m.plan.projections)))
@@ -341,6 +370,37 @@ def _register_generate_rule() -> None:
 
 
 _register_generate_rule()
+
+
+def _tag_write(meta: ExecMeta) -> None:
+    c = meta.conf
+    fmt = meta.plan.fmt
+    if fmt == "parquet":
+        if not (c.get("spark.rapids.sql.format.parquet.enabled")
+                and c.get("spark.rapids.sql.format.parquet.write.enabled")):
+            meta.will_not_work("Parquet write disabled by conf")
+    elif fmt == "orc":
+        if not (c.get("spark.rapids.sql.format.orc.enabled")
+                and c.get("spark.rapids.sql.format.orc.write.enabled")):
+            meta.will_not_work("ORC write disabled by conf")
+    elif fmt == "csv":
+        # the reference does not accelerate CSV writes either; this one
+        # takes the same columnar copy to the host, so it is on by default
+        if not c.get("spark.rapids.sql.format.csv.enabled"):
+            meta.will_not_work("CSV write disabled by conf")
+    else:
+        meta.will_not_work(f"write format {fmt!r} has no TPU path")
+
+
+def _register_write_rule() -> None:
+    from spark_rapids_tpu_torch.exec.write import CpuWriteExec, TpuWriteExec
+    _register(ExecRule(CpuWriteExec, "data writing command", _tag_write,
+                       lambda m, ch: TpuWriteExec(
+                           ch[0], m.plan.path, m.plan.fmt, m.plan.mode,
+                           m.plan.partition_cols)))
+
+
+_register_write_rule()
 
 
 def _fixup_join_hash_consistency(meta: ExecMeta) -> None:
@@ -432,12 +492,16 @@ class TransitionOverrides:
         return insert_coalesce(self._apply(plan), self.conf)
 
     def _apply(self, plan: PhysicalPlan) -> PhysicalPlan:
+        # a terminal command that consumes device batches (a write) says
+        # so by ``columnar_input``
+        wants_columnar = getattr(plan, "columnar_input",
+                                 plan.columnar_output)
         new_children = []
         for c in plan.children:
             c2 = self._apply(c)
-            if plan.columnar_output and not c2.columnar_output:
+            if wants_columnar and not c2.columnar_output:
                 c2 = HostToDeviceExec(c2)
-            elif not plan.columnar_output and c2.columnar_output:
+            elif not wants_columnar and c2.columnar_output:
                 c2 = DeviceToHostExec(c2)
             new_children.append(c2)
         out = plan.map_children(lambda c: c)
@@ -455,7 +519,8 @@ def assert_is_on_tpu(plan: PhysicalPlan, conf: TpuConf,
     allowed = set(conf.test_allowed_nontpu) | {"HostToDeviceExec",
                                                "DeviceToHostExec"}
     offenders = sorted({node.name for node in plan.walk()
-                        if not node.columnar_output
+                        if not (node.columnar_output
+                                or getattr(node, "columnar_input", False))
                         and node.name not in allowed})
     if offenders:
         raise AssertionError(

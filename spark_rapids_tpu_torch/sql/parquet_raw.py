@@ -15,8 +15,12 @@ headers (RLE/bit-packed run headers, DELTA_BINARY_PACKED block headers)
 into small numpy run tables the device kernels expand in parallel
 (ops/parquet_decode.py). No value-level decode happens on the host.
 
-``file_metadata`` keeps parsed footers keyed by (path, mtime), so split
-planning and the page reader parse each footer once.
+``file_metadata`` keeps parsed footers keyed by the path and its
+``file_stamp`` (the modification time in nanoseconds, the size and the
+inode), so split planning and the page reader parse each footer once. A
+file rewritten in place within one tick of the file system's clock keeps
+its mtime; an overwrite's commit (``os.replace``) gives it a new inode,
+so the stamp still changes. The JAX package keys on the mtime alone.
 """
 
 from __future__ import annotations
@@ -61,26 +65,32 @@ _FILE_READ_BYTES = REGISTRY.counter("scan.device.fileReadBytes")
 # Shared footer-metadata cache
 # ---------------------------------------------------------------------------
 
-_META_CACHE: Dict[Tuple[str, Optional[float]], object] = {}
+Stamp = Optional[Tuple[int, int, int]]
+
+_META_CACHE: Dict[Tuple[str, Stamp], object] = {}
 _META_LOCK = threading.Lock()
 _META_CACHE_CAP = 512
 
 
-def file_mtime(path: str) -> Optional[float]:
+def file_stamp(path: str) -> Stamp:
+    """(mtime in ns, size, inode) of ``path``, or None where it cannot be
+    read: the version of a file that the footer, statistics and page
+    caches key on."""
     try:
-        return os.path.getmtime(path)
+        st = os.stat(path)
     except OSError:
         return None
+    return (st.st_mtime_ns, st.st_size, st.st_ino)
 
 
-def file_metadata(path: str, mtime: Optional[float] = None):
+def file_metadata(path: str, stamp: Stamp = None):
     """Parsed footer (pyarrow FileMetaData) for ``path``, cached by
-    (path, mtime) with oldest-half eviction: one footer parse per file
-    per modification, shared by split planning and the raw-page reader."""
+    (path, stamp) with oldest-half eviction: one footer parse per file
+    per version, shared by split planning and the raw-page reader."""
     import pyarrow.parquet as pq
-    if mtime is None:
-        mtime = file_mtime(path)
-    key = (path, mtime)
+    if stamp is None:
+        stamp = file_stamp(path)
+    key = (path, stamp)
     with _META_LOCK:
         md = _META_CACHE.get(key)
     if md is not None:
@@ -309,11 +319,10 @@ def _decompress(data: bytes, codec: str, usize: int) -> bytes:
 
 
 def read_column_chunk(path: str, rg: int, ci: int,
-                      md=None, mtime: Optional[float] = None
-                      ) -> RawColumnChunk:
+                      md=None, stamp: Stamp = None) -> RawColumnChunk:
     """Read + page-split one column chunk."""
     if md is None:
-        md = file_metadata(path, mtime)
+        md = file_metadata(path, stamp)
     col = md.row_group(rg).column(ci)
     schema_col = md.schema.column(ci)
     chunk = RawColumnChunk(

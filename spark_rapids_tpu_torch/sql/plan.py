@@ -1,8 +1,8 @@
 """Logical plan nodes (counterpart of the JAX package's ``sql/plan.py``,
 holding the nodes the port plans: Scan, Range, Project, Filter, Aggregate,
 Sort, Limit, Repartition, Coalesce, Union, Expand (rollup and cube),
-Generate (explode of split), Window and the join: equi, cross or on a
-condition; writes wait for ROADMAP A.7).
+Generate (explode of split), Window, the join (equi, cross or on a
+condition) and the Write command).
 
 The tag/convert rewrite works on the physical plan (``sql/overrides.py``);
 these nodes only carry what the planner needs.
@@ -235,3 +235,21 @@ class LogicalJoin(LogicalPlan):
             return ls
         return Schema(list(ls.names) + list(rs.names),
                       list(ls.dtypes) + list(rs.dtypes))
+
+
+class LogicalWrite(LogicalPlan):
+    """Terminal write command (reference: GpuDataWritingCommandExec
+    wrapping InsertIntoHadoopFsRelationCommand): ``fmt`` parquet, orc or
+    csv; ``mode`` error or overwrite; hive directories by
+    ``partition_cols``."""
+
+    def __init__(self, child: LogicalPlan, path: str, fmt: str, mode: str,
+                 partition_cols: Sequence[str] = ()):
+        super().__init__([child])
+        self.path = path
+        self.fmt = fmt
+        self.mode = mode
+        self.partition_cols = list(partition_cols)
+
+    def schema(self) -> Schema:
+        return Schema([], [])

@@ -10,11 +10,14 @@ shuffled join; a cross join into a single-partition exchange on both
 sides and a cartesian product; a condition join into a broadcast
 nested-loop join (the right side broadcast); a window into an exchange on
 its partition keys (hash where they are plain columns, else single) and a
-window operator. The device rewrite (``sql/overrides.py``) then tags and
-converts this CPU plan node by node. A generator over a computed source
-projects the source first and drops it after. Writes wait for ROADMAP
-A.7, as does the JAX package's small-query fast path (the port's exchange
-collapse makes no sync for it to save).
+window operator; a write into ``CpuWriteExec`` (``exec/write.py``). A
+filter right above a file scan hangs the conjuncts footer statistics can
+answer on the scan (``pushed_filters``, ``sql/pushdown``), which prunes
+its splits by them; the filter still runs. The device rewrite
+(``sql/overrides.py``) then tags and converts this CPU plan node by node.
+A generator over a computed source projects the source first and drops it
+after. The JAX package's small-query fast path is not ported (the port's
+exchange collapse makes no sync for it to save).
 """
 
 from __future__ import annotations
@@ -47,8 +50,26 @@ class Planner:
 
     def _plan_LogicalFilter(self, node: lp.LogicalFilter) -> PhysicalPlan:
         child = self.plan(node.children[0])
+        # predicate pushdown: the conjuncts statistics can answer reach
+        # the file source for row-group, stripe and partition pruning;
+        # the filter in the plan still applies them exactly
+        # (ParquetFilters, GpuParquetScan.scala:204-246;
+        # sql/rapids/OrcFilters.scala)
+        if isinstance(child, cpu.CpuScanExec) and hasattr(
+                child.source, "prune_splits"):
+            from spark_rapids_tpu_torch.sql.pushdown import (
+                extract_pushable_filters,
+            )
+            pushed = extract_pushable_filters(node.condition)
+            if pushed:
+                child.pushed_filters = pushed
         return cpu.CpuFilterExec(
             child, bind_references(node.condition, child.output_schema()))
+
+    def _plan_LogicalWrite(self, node: lp.LogicalWrite) -> PhysicalPlan:
+        from spark_rapids_tpu_torch.exec.write import CpuWriteExec
+        return CpuWriteExec(self.plan(node.children[0]), node.path,
+                            node.fmt, node.mode, node.partition_cols)
 
     def _plan_LogicalRange(self, node: lp.LogicalRange) -> PhysicalPlan:
         return cpu.CpuRangeExec(node.start, node.end, node.step,

@@ -1,6 +1,32 @@
-"""Column pruning of the logical plan before planning (the pruning half of
-the JAX package's ``sql/pushdown.py``; statistics pushdown and row-group
-pruning wait for the Parquet scan behind the session, ROADMAP A.2).
+"""Scan pushdown (counterpart of the JAX package's ``sql/pushdown.py``):
+predicate -> row-group, stripe and partition pruning; projection ->
+column pruning.
+
+The statistics half runs on the host against the footers' statistics
+(the reference's ParquetFilters, GpuParquetScan.scala:204-246, and its
+ORC search arguments):
+
+  * ``extract_pushable_filters`` splits a filter condition into conjuncts
+    and keeps the shapes statistics can answer: ``col <op> literal``,
+    ``IsNull``/``IsNotNull(col)``, ``col IN (literals)``;
+  * ``maybe_matches`` is the conservative test a split's (min, max,
+    null_count) statistics give: True means "may hold matching rows" (the
+    filter above the scan still runs; pruning only drops splits that
+    provably match nothing);
+  * ``partition_value_matches`` is the exact test of a hive directory's
+    partition value.
+
+A date or timestamp literal is held in its physical form (days or
+microseconds since the epoch, ``exprs/core._canonicalize_literal``) while
+a footer gives ``datetime`` statistics. The pushed value is then a
+``TemporalLiteral``: the same number (the JAX package's tuple compares
+equal) that knows its unit, which ``_coerce_pair`` turns into a ``date``
+or ``datetime`` (a date against a timestamp widens to midnight, Spark's
+coercion), so a date filter prunes. The JAX package's ``_coerce_pair``
+compares the number with the statistic, which raises, so its date and
+timestamp filters never prune.
+
+The column-pruning half:
 
   * ``prune_filter_columns`` puts a narrowing Project above every Filter
     whose output carries columns no ancestor references, so the filter's
@@ -18,10 +44,174 @@ branches is not ported: the plans of this slice share none.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+import datetime
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
 
 from spark_rapids_tpu_torch.sql import plan as lp
-from spark_rapids_tpu_torch.sql.exprs.core import Col
+from spark_rapids_tpu_torch.sql.exprs.core import Col, Expression, Literal
+from spark_rapids_tpu_torch.sql.exprs.predicates import (
+    And, Eq, Ge, Gt, In, IsNotNull, IsNull, Le, Lt, Neq,
+)
+
+# (column_name, op, value); op in < <= > >= == != isnull isnotnull in
+PushedFilter = Tuple[str, str, Any]
+
+_CMP_OPS = {Lt: "<", Le: "<=", Gt: ">", Ge: ">=", Eq: "==", Neq: "!="}
+_FLIP = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "==": "==",
+         "!=": "!="}
+_EPOCH = datetime.datetime(1970, 1, 1)
+
+
+class TemporalLiteral(int):
+    """A date or timestamp literal's physical value (days or microseconds
+    since the epoch) that knows its ``unit``; ``as_python`` is its
+    ``datetime.date`` or ``datetime.datetime``."""
+
+    def __new__(cls, value: int, unit: str):
+        out = super().__new__(cls, int(value))
+        out.unit = unit
+        return out
+
+    def __repr__(self) -> str:
+        return int.__repr__(self)
+
+    def as_python(self):
+        if self.unit == "days":
+            return _EPOCH.date() + datetime.timedelta(days=int(self))
+        return _EPOCH + datetime.timedelta(microseconds=int(self))
+
+
+def _literal_value(e: Expression):
+    if not isinstance(e, Literal) or e.value is None:
+        return None
+    name = e.dtype(None).name
+    if name == "date32":
+        return TemporalLiteral(e.value, "days")
+    if name == "timestamp_us":
+        return TemporalLiteral(e.value, "us")
+    return e.value
+
+
+def extract_pushable_filters(cond: Expression) -> List[PushedFilter]:
+    """Conjuncts of ``cond`` a footer-statistics test can answer. Anything
+    else is ignored (the filter in the plan still applies it)."""
+    out: List[PushedFilter] = []
+
+    def visit(e: Expression) -> None:
+        if isinstance(e, And):
+            visit(e.children[0])
+            visit(e.children[1])
+            return
+        if isinstance(e, IsNull) and isinstance(e.children[0], Col):
+            out.append((e.children[0].name, "isnull", None))
+            return
+        if isinstance(e, IsNotNull) and isinstance(e.children[0], Col):
+            out.append((e.children[0].name, "isnotnull", None))
+            return
+        if isinstance(e, In) and isinstance(e.children[0], Col):
+            # a NULL in the list never equals anything, so pruning on the
+            # non-null values is safe
+            vals = tuple(v for v in e.values if v is not None)
+            if vals:
+                out.append((e.children[0].name, "in", vals))
+            return
+        for cls, op in _CMP_OPS.items():
+            if isinstance(e, cls):
+                left, right = e.children
+                if isinstance(left, Col) and _literal_value(right) is not None:
+                    out.append((left.name, op, _literal_value(right)))
+                elif (isinstance(right, Col)
+                      and _literal_value(left) is not None):
+                    out.append((right.name, _FLIP[op], _literal_value(left)))
+                return
+
+    visit(cond)
+    return out
+
+
+def _widen(v):
+    """A ``date`` as the ``datetime`` of its midnight; else as it is."""
+    if isinstance(v, datetime.date) and not isinstance(v, datetime.datetime):
+        return datetime.datetime.combine(v, datetime.time())
+    return v
+
+
+def _coerce_pair(a, b):
+    """Best-effort comparable pair; raises on incomparable types (the
+    caller treats that as "cannot prune")."""
+    import pandas as pd
+    if isinstance(b, TemporalLiteral):
+        b = b.as_python()
+        if isinstance(a, datetime.datetime) or isinstance(
+                b, datetime.datetime):
+            a, b = _widen(a), _widen(b)
+    if isinstance(a, (np.datetime64, pd.Timestamp)) or isinstance(
+            b, (np.datetime64, pd.Timestamp)):
+        return pd.Timestamp(a), pd.Timestamp(b)
+    # binary-physical statistics arrive as bytes; str(b'x') would give
+    # "b'x'" and mis-compare (wrong pruning). Strict decode only: an
+    # undecodable value raises and the caller keeps the split.
+    if isinstance(a, bytes):
+        a = a.decode("utf-8", "strict")
+    if isinstance(b, bytes):
+        b = b.decode("utf-8", "strict")
+    if isinstance(a, str) or isinstance(b, str):
+        return str(a), str(b)
+    return a, b
+
+
+def maybe_matches(mn, mx, null_count, num_values, op: str, value) -> bool:
+    """Conservative test: can a split with these column statistics hold a
+    row satisfying (col op value)? Unknown statistics -> True."""
+    try:
+        if op == "isnull":
+            return null_count is None or null_count > 0
+        if op == "isnotnull":
+            return num_values is None or num_values > 0 or mn is not None
+        if mn is None or mx is None:
+            return True
+        if op == "in":
+            return any(maybe_matches(mn, mx, null_count, num_values,
+                                     "==", v) for v in value)
+        lo, v = _coerce_pair(mn, value)
+        hi, _ = _coerce_pair(mx, value)
+        if op == "<":
+            return lo < v
+        if op == "<=":
+            return lo <= v
+        if op == ">":
+            return hi > v
+        if op == ">=":
+            return hi >= v
+        if op == "==":
+            return lo <= v <= hi
+        if op == "!=":
+            return not (lo == hi == v)
+    except Exception:
+        return True
+    return True
+
+
+def partition_value_matches(pval, op: str, value) -> bool:
+    """Exact test of a hive partition value (partition pruning, the layer
+    Spark itself does for the reference)."""
+    try:
+        if op == "isnull":
+            return pval is None
+        if op == "isnotnull":
+            return pval is not None
+        if pval is None:
+            return False
+        if op == "in":
+            return any(partition_value_matches(pval, "==", v)
+                       for v in value)
+        a, b = _coerce_pair(pval, value)
+        return {"<": a < b, "<=": a <= b, ">": a > b, ">=": a >= b,
+                "==": a == b, "!=": a != b}[op]
+    except Exception:
+        return True
 
 
 def _cols_of(*exprs) -> set:

@@ -1587,3 +1587,93 @@ def test_explode_on_the_card(cuda_device, form):
         got, want = _card_and_cpu(lambda s: s.create_dataframe(df).with_column(
             "w", fn(F.split(F.col("t"), ","))))
         assert _sorted_rows(got) == _sorted_rows(want)
+
+
+def _session_on(device, **conf):
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = (TpuSparkSession.builder().device(device)
+         .config("spark.rapids.sql.test.enabled", True))
+    for k, v in conf.items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["parquet", "orc", "csv"])
+def test_write_from_card_batches_equals_cpu_path(cuda_device, tmp_path, fmt):
+    """A write of card batches holding a dictionary, a char slab and a
+    plain string column (and NULLs in each) gives the same files as the
+    same write from CPU batches, read back by pyarrow."""
+    import glob
+    import pyarrow as pa
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as paorc
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(6)
+    n = 50_000
+    df = pd.DataFrame({
+        "id": np.arange(n, dtype=np.int64),
+        "v": rng.standard_normal(n),
+        "dct": rng.choice(["AIR", "RAIL", "SHIP", None], n),
+        "slb": [None if i % 9 == 0 else f"comment {i} {'z' * (i % 30)}"
+                for i in range(n)],
+        "pln": [None if i % 7 == 0 else f"{i}" + "p" * (i % 200)
+                for i in range(n)],
+    })
+    read = {"parquet": pq.read_table, "orc": paorc.read_table,
+            "csv": pacsv.read_csv}[fmt]
+    tables = []
+    for device in ("cuda", "cpu"):
+        s = _session_on(device)
+        sdf = s.create_dataframe(df, 2)
+        (batch, *_rest) = sdf.collect_batches()
+        forms = [("dict" if c.dict_values is not None else
+                  "slab" if c.has_slab else "plain" if c.is_plain else "")
+                 for c in batch.columns[2:]]
+        assert forms == ["dict", "slab", "plain"], forms
+        out = str(tmp_path / device)
+        getattr(sdf.write, fmt)(out)
+        files = sorted(glob.glob(f"{out}/*.{fmt}"))
+        tables.append(pa.concat_tables([read(f) for f in files]))
+    assert tables[0].equals(tables[1], check_metadata=True)
+
+
+@pytest.mark.cuda
+def test_partition_columns_decode_as_device_constants(cuda_device,
+                                                      tmp_path):
+    """A hive layout read on the card: the partition keys (string, int,
+    NULL) are device columns built without an upload (the scan's upload
+    bytes are the data columns' plans alone), equal to the CPU scan's."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    from spark_rapids_tpu_torch.sql import functions as F
+    rng = np.random.default_rng(2)
+    n = 30_000
+    df = pd.DataFrame({"x": np.arange(n, dtype=np.int64),
+                       "v": rng.random(n),
+                       "flag": rng.choice(["A", "N", "R"], n),
+                       "yr": rng.choice([1994, 1995], n).astype(np.int64)})
+    df.loc[df.index % 11 == 0, "flag"] = None
+    _session_on("cpu").create_dataframe(df, 2).write.partition_by(
+        "flag", "yr").parquet(str(tmp_path / "h"))
+
+    def upload_bytes(s, cols):
+        before = SYNCS.bytes.get("scan.upload", 0)
+        batches = s.read.parquet(str(tmp_path / "h")).select(
+            *cols).collect_batches()
+        return SYNCS.bytes.get("scan.upload", 0) - before, batches
+
+    outs = []
+    for device in ("cuda", "cpu"):
+        s = _session_on(device, **{
+            "spark.rapids.sql.scan.pageCache.enabled": False})
+        with_keys, batches = upload_bytes(s, ["x", "v", "flag", "yr"])
+        data_only, _ = upload_bytes(s, ["x", "v"])
+        assert with_keys == data_only > 0
+        for b in batches:
+            assert b.column("flag").dict_values is not None
+            assert b.column("flag").validity.device.type == device
+            assert b.column("yr").data.device.type == device
+        outs.append(s.read.parquet(str(tmp_path / "h")).filter(
+            F.col("yr") == 1995).collect())
+    assert _sorted_rows(outs[0]) == _sorted_rows(outs[1])
+    assert len(outs[0]) == int((df.yr == 1995).sum())

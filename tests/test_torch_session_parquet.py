@@ -180,10 +180,14 @@ def test_parquet_query_syncs(files, qname):
     """A second execution from the files: one counted sync a row group
     read (its upload), plus one a join that expands (Q3's two shuffled
     joins), as the query runners make, plus Q4's semi join's dense-route
-    verification (the row groups' footer statistics bound l_orderkey)."""
+    verification (the row groups' footer statistics bound l_orderkey).
+    The encoded-page cache is off here: with it, a warm row group whose
+    buffers the cache's device tier holds uploads nothing
+    (``tests/test_torch_pagecache.py``)."""
     paths = files["small_row_groups"]
     s = _port_session(**dict(LAYOUTS["small_row_groups"], **{
-        "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1,
+        "spark.rapids.sql.scan.pageCache.enabled": False}))
     df = tpch.QUERIES[qname](s, _read(s, paths))
     df.collect_batches()  # learns the partial-skip decision
     tables = {"q1": ["lineitem"], "q6": ["lineitem"],
