@@ -48,7 +48,7 @@ port's main path through its query runners:
     replace over the review text, each equal to pandas, and the string
     functions and casts of ``testing/stringcases.py`` over a plain column
     at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
-    TPCxBB queries at SF 50;
+    TPCxBB queries at SF 30;
   * the four Mortgage queries (``models/mortgage.py``) through the
     session in 2^20-row batches, the ETL at SF 250 (6M performance rows
     expanded 12 times) and the other three at SF 500, each against its
@@ -60,6 +60,21 @@ port's main path through its query runners:
     spillable aggregate on the Q18 group-by at SF10 and an external sort
     of 60M rows, each equal to pandas (the sort to a numpy lexsort) and
     to its in-budget run, every wait counted;
+  * the observability phase (``obs_phase``, after the session's Parquet
+    cells and Q9; ``--obs-only`` runs it alone): the session Q3 cell on
+    its cached SF10 uploads and session Q6 from the SF 0.5 file, each with
+    metrics off, at the default (metrics on) and traced with the event
+    journal on, median of 3 warm walls, the answers and the counted syncs
+    by site the same in all three; one traced Q3 whose Chrome export has a
+    span for every operator, whose ``sync.<site>`` spans are its
+    sync-ledger entries and ``SYNCS``' counts, and whose journal holds
+    its queryStart, queryPlan and queryEnd; Q3 under
+    ``spark.rapids.sql.profile.syncEachOp``, each node's device, transfer
+    and dispatch seconds summing to its exclusive time; Q3 under
+    ``spark.rapids.tpu.debug.transferGuard=disallow`` (sync debug mode
+    "error" around the query) with the same syncs; one traced Q9 from
+    Parquet, its top spans and sync sites by ``tools/trace_summary.py``
+    (artifacts in ``chiprun_out/obs/``);
   * the expression phase (``expression_phase``, after the session's
     Parquet cells): TPC-H Q1 as a rollup and a three-key cube over SF10
     lineitem (the session Q1 cell's cached upload) through B1 and B2,
@@ -119,6 +134,7 @@ result, when no CUDA device is present or any phase fails. Details go to
     python3 chip_smoke.py            # full size (needs one card)
     python3 chip_smoke.py --quick    # small shapes: build and check only
     python3 chip_smoke.py --scan-write-only   # that phase alone, SF1
+    python3 chip_smoke.py --obs-only          # the observability phase
 """
 
 from __future__ import annotations
@@ -2869,12 +2885,12 @@ def expression_phase(quick: bool, q1_session, q1_want, lineitem10, li1,
 
 
 def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
-                    runs: int, queries: dict) -> None:
+                    runs: int, queries: dict):
     """TPC-H Q9 through the session from Parquet files (lineitem, orders,
     part, partsupp, supplier and nation at ``sf``, ``PARQUET_SPEC``):
     decoded on the card with no column falling back to the host (p_name a
     PLAIN byte array, so B8 builds the slab its ``contains`` reads), equal
-    to pandas."""
+    to pandas. Returns its answer."""
     from spark_rapids_tpu_torch.models import tpch as T
     from spark_rapids_tpu_torch.sql import parquet_raw as praw
     from spark_rapids_tpu_torch.testing import tpchcases as TC
@@ -2894,6 +2910,7 @@ def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
     require(rec["launches"]["slab_pack"] > 0,
             "session Q9 parquet ran no B8")
     queries["session_q9_parquet"] = rec
+    return out
 
 
 def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
@@ -3911,6 +3928,346 @@ def scan_write_phase(li1, o1, c1, path_li1: str, batch_rows: int,
         "runner_wall_s": None}
 
 
+OBS_DIR = os.path.join("spark_rapids_tpu_torch", "build", "obs")
+OBS_OUT = os.path.join("chiprun_out", "obs")
+OBS_MODES = ("off", "default", "traced")
+
+
+def _obs_confs(mode: str, tag: str) -> dict:
+    """The three observability modes: metrics off (the operator wrapper
+    passes partitions through), the default (metrics on, tracing off),
+    and tracing with its export and the event journal on."""
+    if mode == "off":
+        return {"spark.rapids.sql.metrics.enabled": False}
+    if mode == "default":
+        return {}
+    return {"spark.rapids.tpu.trace.path":
+            os.path.join(OBS_DIR, f"{tag}.trace.json"),
+            "spark.rapids.tpu.eventLog.path":
+            os.path.join(OBS_DIR, f"{tag}.events.jsonl")}
+
+
+class _confs:
+    """``with _confs(sess, {...}):`` the session's confs set for the body
+    and restored after it."""
+
+    def __init__(self, sess, confs: dict):
+        self._sess, self._confs = sess, confs
+
+    def __enter__(self):
+        self._saved = dict(self._sess.conf._settings)
+        for k, v in self._confs.items():
+            self._sess.set_conf(k, v)
+        return self._sess
+
+    def __exit__(self, *exc):
+        self._sess.conf._settings = self._saved
+        return False
+
+
+def _site_delta(before: dict) -> dict:
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    return {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+            if v != before.get(k, 0)}
+
+
+def _obs_walls(name: str, sess, make_query, check, runs: int) -> dict:
+    """The warm wall of a session query three ways (``OBS_MODES``),
+    median of ``runs`` each, the modes alternating run by run; every
+    answer checked (``check``: float columns at rtol 1e-9, as atomics
+    add in another order each run) and equal across modes, and the
+    counted syncs by site of every full run and of the query up to its
+    collect under the sync debug mode "error" the same in all three."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    walls = {m: [] for m in OBS_MODES}
+    full_syncs, pre_syncs, first = {}, {}, None
+    for m in OBS_MODES:  # a warm-up in each mode (the trace file's first
+        with _confs(sess, _obs_confs(m, name)):  # write, the journal's)
+            make_query().collect()
+            pre_syncs[m] = _syncs_by_site(make_query().collect_batches)
+    for _ in range(runs):
+        for m in OBS_MODES:
+            with _confs(sess, _obs_confs(m, name)):
+                q = make_query()
+                before = dict(SYNCS.syncs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = q.collect()
+                torch.cuda.synchronize()
+                walls[m].append(time.perf_counter() - t0)
+                syncs = _site_delta(before)
+            check(out, f"{name} ({m})")
+            if first is None:
+                first = out
+            else:
+                check(out, f"{name} ({m}) against the first run", first)
+            require(full_syncs.setdefault(m, syncs) == syncs,
+                    f"{name} ({m}): syncs {syncs} differ between runs")
+    require(full_syncs["off"] == full_syncs["default"]
+            == full_syncs["traced"], f"{name}: counted syncs by site "
+            f"differ between modes: {full_syncs}")
+    require(pre_syncs["off"] == pre_syncs["default"] == pre_syncs["traced"],
+            f"{name}: syncs before the collect differ between modes: "
+            f"{pre_syncs}")
+    med = {m: float(np.median(walls[m])) for m in OBS_MODES}
+    over = {m: 100.0 * (med[m] - med["off"]) / med["off"]
+            for m in ("default", "traced")}
+    log(f"obs {name}: median off {med['off']:.4f} s, default "
+        f"{med['default']:.4f} s ({over['default']:+.2f}%), traced "
+        f"{med['traced']:.4f} s ({over['traced']:+.2f}%); runs {walls}; "
+        f"syncs {full_syncs['off']}, before the collect {pre_syncs['off']}")
+    return {"wall_s": med, "wall_runs_s": walls, "overhead_pct": over,
+            "syncs": full_syncs["off"], "syncs_before_collect":
+            pre_syncs["off"]}
+
+
+def _summary_lines(path: str, top: int) -> list:
+    """``tools/trace_summary.py``'s lines for an artifact."""
+    import contextlib
+    import io
+    from spark_rapids_tpu_torch.tools import trace_summary
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        require(trace_summary.main([path, "-n", str(top)]) == 0,
+                f"trace_summary failed on {path}")
+    return buf.getvalue().splitlines()
+
+
+def _traced_run(name: str, sess, query, confs: Optional[dict] = None
+                ) -> tuple:
+    """One traced, journaled run of ``query`` with its artifacts under
+    ``chiprun_out/obs/``: (answer, wall, trace document, journal events,
+    the query's ledger entries, its counted syncs by site, paths)."""
+    from spark_rapids_tpu_torch.obs.events import read_events
+    from spark_rapids_tpu_torch.obs.syncledger import SYNC_LEDGER, SYNCS
+    from spark_rapids_tpu_torch.obs.events import EVENTS
+    os.makedirs(OBS_OUT, exist_ok=True)
+    EVENTS.close()
+    paths = {k: os.path.join(OBS_OUT, f"{name}.{k}") for k in
+             ("trace.json", "events.jsonl", "profile.json")}
+    for p in paths.values():
+        if os.path.exists(p):
+            os.unlink(p)
+    with _confs(sess, dict(confs or {}, **{
+            "spark.rapids.tpu.trace.path": paths["trace.json"],
+            "spark.rapids.tpu.eventLog.path": paths["events.jsonl"]})):
+        seq0 = SYNC_LEDGER.seq
+        before = dict(SYNCS.syncs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = query.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = _site_delta(before)
+    sess.last_profile.save(paths["profile.json"])
+    with open(paths["trace.json"]) as f:
+        doc = json.load(f)
+    events = read_events(paths["events.jsonl"])
+    qid = events[0]["query"]
+    entries = [e for e in SYNC_LEDGER.entries(since_seq=seq0)
+               if e["query"] == qid]
+    return out, wall, doc, events, entries, syncs, paths
+
+
+def _by_site(items, site) -> dict:
+    out: dict = {}
+    for it in items:
+        s = site(it)
+        out[s] = out.get(s, 0) + 1
+    return out
+
+
+def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
+              runs: int, queries: dict, report: dict) -> None:
+    """Observability on the card (``spark_rapids_tpu_torch/obs``): the
+    session Q3 cell (its cached SF10 uploads, ``HASH_AGG_CONFS``; B1-B4)
+    and session Q6 from the SF 0.5 Parquet file (B1, B5, B7) three ways
+    (``_obs_walls``); one traced Q3 whose export, sync spans, ledger and
+    journal agree; Q3 under ``profile.syncEachOp``, whose every node's
+    device, transfer and dispatch seconds sum to its exclusive time; Q3
+    under ``transferGuard=disallow`` with the same counted syncs; one
+    traced Q9 from the Parquet files, summarized by the port's
+    ``trace_summary`` (B.4's step 0), its answer equal to ``q9_want``.
+    ``lineitem`` is the frame of the Parquet lineitem (Q6's reference).
+    Uploads nothing new."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    t_phase = time.perf_counter()
+    sess, tables, q3_want = q3_cell
+    rec: dict = {}
+    os.makedirs(OBS_DIR, exist_ok=True)
+
+    def check_q3_out(out, what, other=None):
+        check_q3(out, q3_want)
+        if other is not None:
+            same_by_key(out, other, ["l_orderkey"], what)
+
+    rec["session_q3"] = _obs_walls(
+        "session_q3", sess, lambda: T.q3(sess, tables), check_q3_out, runs)
+    require(rec["session_q3"]["syncs_before_collect"]
+            == {"join.expandTotals": 2},
+            f"obs session Q3: {rec['session_q3']['syncs_before_collect']} "
+            f"before the collect, expected two join totals")
+
+    s6 = session_of(batch_rows, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.cacheDeviceScans": False}))
+    q6_want = q6_reference(lineitem)
+
+    def check_q6_out(out, what, other=None):
+        err = _rel_err([out.revenue[0]], [q6_want if other is None
+                                          else other.revenue[0]])
+        require(len(out) == 1 and err <= F64_RTOL, f"{what}: rel {err}")
+
+    rec["session_q6_parquet"] = _obs_walls(
+        "session_q6_parquet", s6,
+        lambda: T.q6(s6, {"lineitem": s6.read.parquet(paths["lineitem"])}),
+        check_q6_out, runs)
+    del s6
+
+    # one traced Q3: the export, its spans, the sync track, the journal
+    q3 = T.q3(sess, tables)
+    out, wall, doc, events, entries, syncs, _ = _traced_run(
+        "session_q3", sess, q3)
+    check_q3(out, q3_want)
+    names = _by_site(doc["traceEvents"], lambda ev: ev["name"])
+    require(names.get("Query", 0) == 1, f"obs Q3 trace: Query spans "
+            f"{names.get('Query')}")
+    nodes = {n.name for n in sess.last_plan.walk()}
+    missing = sorted(n for n in nodes if not names.get(n))
+    require(not missing, f"obs Q3 trace: no span of {missing}")
+    spans = _by_site([ev for ev in doc["traceEvents"]
+                      if ev["name"].startswith("sync.")],
+                     lambda ev: ev["args"]["site"])
+    ledger = _by_site(entries, lambda e: e["site"])
+    require(spans == ledger == syncs, f"obs Q3: sync spans {spans}, ledger "
+            f"{ledger}, SYNCS {syncs}")
+    kinds = [ev["kind"] for ev in events]
+    plan_ev = next(ev for ev in events if ev["kind"] == "queryPlan")
+    end_ev = events[-1]
+    require(kinds[0] == "queryStart" and plan_ev["cpuOps"] == 0
+            and end_ev["kind"] == "queryEnd"
+            and end_ev["status"] == "success"
+            and end_ev["rowsReturned"] == len(out),
+            f"obs Q3 journal: {kinds}, plan {plan_ev.get('cpuOps')} CPU "
+            f"ops, end {end_ev}")
+    rec["q3_traced"] = {"wall_s": wall, "spans": len(doc["traceEvents"]),
+                        "syncs": syncs, "events": _by_site(
+                            events, lambda ev: ev["kind"])}
+    log(f"obs Q3 traced: {wall:.4f} s, {len(doc['traceEvents'])} trace "
+        f"events, {len(nodes)} operators with spans, sync spans = ledger = "
+        f"SYNCS = {syncs}, journal {rec['q3_traced']['events']}")
+
+    # profile.syncEachOp: the breakdown sums to each node's exclusive time
+    with _confs(sess, {"spark.rapids.sql.profile.syncEachOp": True}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = T.q3(sess, tables).collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_q3(out, q3_want)
+    prof = sess.profile_json()
+    flat = []
+
+    def walk(node):
+        flat.append(node)
+        for c in node["children"]:
+            walk(c)
+    walk(prof["plan"])
+    worst = max(abs(n["breakdown"]["device_s"] + n["breakdown"]["transfer_s"]
+                    + n["breakdown"]["dispatch_s"] - n["exclusive_s"])
+                for n in flat)
+    require(worst <= 1e-3, f"obs Q3 syncEachOp: a node's breakdown misses "
+            f"its exclusive time by {worst:.6f} s")
+    require(prof["plan"]["inclusive_s"] <= wall, f"obs Q3 syncEachOp: root "
+            f"{prof['plan']['inclusive_s']} s past the wall {wall} s")
+    top = sorted(flat, key=lambda n: -n["exclusive_s"])[:5]
+    rec["q3_sync_each_op"] = {
+        "wall_s": wall, "root_inclusive_s": prof["plan"]["inclusive_s"],
+        "worst_breakdown_gap_s": worst,
+        "top5": [{"op": n["op"][:120], "exclusive_s": n["exclusive_s"],
+                  "rows": n["rows"], "batches": n["batches"],
+                  **n["breakdown"]} for n in top]}
+    log(f"obs Q3 syncEachOp: {wall:.4f} s (root {prof['plan']['inclusive_s']:.4f}"
+        f" s), breakdown within {worst * 1e6:.1f} us; top 5 by exclusive: "
+        + "; ".join(f"{n['op'][:60]} {n['exclusive_s']:.4f} s (device "
+                    f"{n['breakdown']['device_s']:.4f} transfer "
+                    f"{n['breakdown']['transfer_s']:.4f} dispatch "
+                    f"{n['breakdown']['dispatch_s']:.4f})" for n in top))
+
+    # the transfer guard armed: the same counted syncs, nothing else waits
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    before = dict(SYNCS.syncs)
+    with _confs(sess, {"spark.rapids.tpu.debug.transferGuard": "disallow"}):
+        out = T.q3(sess, tables).collect()
+    guarded = _site_delta(before)
+    check_q3(out, q3_want)
+    require(guarded == rec["session_q3"]["syncs"], f"obs Q3 under the "
+            f"transfer guard: syncs {guarded}, expected "
+            f"{rec['session_q3']['syncs']}")
+    rec["q3_guarded_syncs"] = guarded
+    log(f"obs Q3 transferGuard=disallow: completed, syncs {guarded}")
+
+    # B.4 step 0: where Q9's host time goes, from the files
+    s9 = session_of(batch_rows, **{"spark.rapids.sql.cacheDeviceScans":
+                                   False})
+    t9 = {n: s9.read.parquet(p) for n, p in paths.items()}
+    q9 = T.q9(s9, t9)
+    q9.collect()  # warm
+    out, wall, doc, events, entries, syncs, art = _traced_run(
+        "session_q9_parquet", s9, q9)
+    same_query(out, q9_want, "q9", "obs Q9 against the Q9 cell's answer")
+    summary = s9.profile_json()["summary"]
+    lines = _summary_lines(art["trace.json"], 10)
+    lines += _summary_lines(art["profile.json"], 10)[-1:]
+    for ln in lines:
+        log(f"obs Q9 trace_summary: {ln}")
+    rec["q9_parquet"] = {
+        "wall_s": wall, "syncs": syncs,
+        "occupancy_pct": summary["syncs"]["occupancyPct"],
+        "sync_s": summary["syncs"]["seconds"],
+        "sync_by_site": summary["syncs"]["bySite"],
+        "trace_summary": lines}
+    del s9, t9, q9
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"obs phase: {rec['phase_s']:.1f} s")
+    report["obs_phase"] = rec
+
+
+def obs_only() -> int:
+    """The observability phase alone, on SF1 frames (Q3's cached uploads)
+    and SF 0.5 Parquet files made here. Details go to
+    ``chiprun_out/chip_smoke_obs.json``."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(1), "orders": G.gen_orders(1),
+              "customer": G.gen_customer(1)}
+    sess = session_of(1 << 23, **T.HASH_AGG_CONFS)
+    tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    T.q3(sess, tables).collect()  # the cold run: the cached uploads
+    sfh = SESSION_PARQUET_SF
+    framesh = {"lineitem": G.gen_lineitem(sfh), "orders": G.gen_orders(sfh),
+               "customer": G.gen_customer(sfh),
+               "supplier": G.gen_supplier(sfh), "part": G.gen_part(sfh),
+               "partsupp": G.gen_partsupp(sfh), "nation": G.gen_nation()}
+    pathsh = G.write_parquet(os.path.join(OBS_DIR, f"sf{sfh}"), sfh,
+                             tables=list(framesh), frames=framesh)
+    log(f"frames, upload and files: {time.perf_counter() - t0:.1f} s")
+    queries, report = {}, {}
+    from spark_rapids_tpu_torch.testing import tpchcases as TC
+    obs_phase((sess, tables, q3_reference(frames["lineitem"],
+                                          frames["orders"],
+                                          frames["customer"])),
+              pathsh, TC.pandas_reference("q9", framesh),
+              framesh["lineitem"], 1 << 23, 3, queries, report)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_obs.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def scan_write_only() -> int:
     """The scan-and-write phase alone, on SF1 frames and files made here.
     Details go to ``chiprun_out/chip_smoke_scan_write.json``."""
@@ -3954,6 +4311,10 @@ def main() -> int:
                     help="build the kernels and run only the scan-and-write "
                          "phase (SF1 frames and files made here); prints no "
                          "result")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build the kernels and run only the observability "
+                         "phase (SF1 Q3 uploads, SF 0.5 files made here); "
+                         "prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -3971,6 +4332,8 @@ def main() -> int:
         return memory_only()
     if args.scan_write_only:
         return scan_write_only()
+    if args.obs_only:
+        return obs_only()
     children: list = []
     try:
         return run(args, children)
@@ -4021,9 +4384,10 @@ WINDOW_ROWS_QUICK = 1 << 16
 MORTGAGE_SF = 500
 MORTGAGE_ETL_SF = 250
 # cut from SF 250 for the smoke's time once the plain-strings phase came
-# in, to SF 150 once the expression phase did, then to SF 50 once the
-# scan-and-write phase did (PERF.md §4)
-TPCXBB_SF = 50
+# in, to SF 150 once the expression phase did, to SF 50 once the
+# scan-and-write phase did, then to SF 30 once the observability phase
+# did (PERF.md §4)
+TPCXBB_SF = 30
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -4311,8 +4675,13 @@ def run(args, children: list) -> int:
     t0 = time.perf_counter()
     tpch_cells(sess, tables, frames, sf_q1, runs_new, queries, report)
     report["tpch_cells_s"] = time.perf_counter() - t0
-    sess.clear_device_cache()
-    del sess, tables, q3_df
+    # the observability phase runs the session Q3 cell again on its
+    # cached uploads (HASH_AGG_CONFS, shuffled joins): the rest goes
+    sess.reset_conf()
+    q3_tables = {n: tables[n] for n in ("lineitem", "orders", "customer")}
+    keep_scans_of(sess, T.q3(sess, q3_tables))
+    q3_cell = (sess, q3_tables, q3_want)
+    del sess, tables, q3_df, q3_tables
     for name in ("supplier", "part", "nation"):
         del frames[name]
     torch.cuda.empty_cache()
@@ -4551,8 +4920,14 @@ def run(args, children: list) -> int:
                           framesh, sfh, q1_batch, pq_runs, queries)
     report["encodings"].update(check_encodings(
         {n: pathsh[n] for n in ("part", "partsupp", "supplier", "nation")}))
-    q9_parquet_cell(pathsh, framesh, sfh, q1_batch, pq_runs, queries)
-    del framesh
+    q9_out = q9_parquet_cell(pathsh, framesh, sfh, q1_batch, pq_runs,
+                             queries)
+    torch.cuda.empty_cache()
+    # observability, on the session Q3 cell's uploads and these files
+    obs_phase(q3_cell, pathsh, q9_out, framesh["lineitem"], q1_batch,
+              1 if args.quick else 3, queries, report)
+    q3_cell[0].clear_device_cache()
+    del framesh, q3_cell
     torch.cuda.empty_cache()
 
     # the expression phase: rollup and cube on the session Q1 cell's

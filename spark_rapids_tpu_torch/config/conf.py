@@ -231,6 +231,110 @@ OOC_MAX_RECURSION = register(
     "pass.")
 
 
+# --- observability (obs/: metrics, tracing, the event journal, the host-sync
+# ledger; the JAX package's keys, defaults and help) -------------------------
+METRICS_ENABLED = register(
+    "spark.rapids.sql.metrics.enabled", _to_bool, True,
+    "Collect per-operator SQL metrics (rows/batches/time; the reference's "
+    "GpuMetricNames, GpuExec.scala:24-41) and per-query profile reports "
+    "(session.profile_report()). Disabling removes every timer from the "
+    "batch hot path. Profiler trace ranges are separate: see the "
+    "spark.rapids.tpu.trace.* keys.")
+PROFILE_SYNC_EACH_OP = register(
+    "spark.rapids.sql.profile.syncEachOp", _to_bool, False,
+    "Wait for the device after every operator's batch (a counted "
+    "profile.syncEachOp sync that reads the batch's row count), so each "
+    "operator's time holds its own device work and the profile report "
+    "splits it into device, transfer and dispatch seconds. Without it "
+    "CUDA launches are asynchronous and an operator's time is its host "
+    "dispatch. A profiling mode: it adds one host sync per operator per "
+    "batch.")
+TRACE_ENABLED = register(
+    "spark.rapids.tpu.trace.enabled", _to_bool, False,
+    "Collect structured tracer spans (exec operators, scan uploads and "
+    "decodes, prefetch stalls, spill tier transitions, semaphore waits, "
+    "host syncs, kernel builds) during query execution. Implied by a "
+    "non-empty spark.rapids.tpu.trace.path. The NVTX-range analogue "
+    "(NvtxWithMetrics.scala:17-44).")
+TRACE_PATH = register(
+    "spark.rapids.tpu.trace.path", str, "",
+    "When set, every query execution exports its spans as Chrome "
+    "trace-event JSON to this file (overwritten per query), viewable in "
+    "Perfetto (ui.perfetto.dev) or chrome://tracing. Setting a path "
+    "enables tracing.")
+TRACE_NVTX = register(
+    "spark.rapids.tpu.trace.nvtx", _to_bool, False,
+    "Mirror tracer spans into NVTX ranges (torch.cuda.nvtx.range_push/"
+    "range_pop, popped on an exception too) so they appear in a captured "
+    "CUDA profiler timeline beside the kernels: the counterpart of the JAX "
+    "package's spark.rapids.tpu.trace.jaxAnnotations. Needs a CUDA device: "
+    "a query of a session without one raises. Off by default: a range "
+    "costs a call per span.")
+EVENT_LOG_ENABLED = register(
+    "spark.rapids.tpu.eventLog.enabled", _to_bool, False,
+    "Write the process-wide structured event journal (obs/events.py): "
+    "query start/end with conf fingerprint and plan digest, per-operator "
+    "CPU-fallback reasons, spill/memory-pressure events, scan-pipeline "
+    "stalls, device-decode fallbacks and host syncs, as line-delimited "
+    "JSON. Implied by a non-empty spark.rapids.tpu.eventLog.path.")
+EVENT_LOG_PATH = register(
+    "spark.rapids.tpu.eventLog.path", str, "",
+    "Destination of the event journal (appended, rotated at "
+    "spark.rapids.tpu.eventLog.maxFileBytes). Setting a path enables the "
+    "journal; enabled with no path writes ./tpu-eventlog.jsonl.")
+EVENT_LOG_MAX_BYTES = register(
+    "spark.rapids.tpu.eventLog.maxFileBytes", _to_bytes, 16 << 20,
+    "Size bound of the active event-log file; past it the file rotates "
+    "to <path>.1 (older rotations shift up). Rotation and write-failure "
+    "counts surface in the profile report's observability section.")
+EVENT_LOG_ROTATIONS = register(
+    "spark.rapids.tpu.eventLog.rotatedFiles", int, 2,
+    "How many rotated event-log files (<path>.1 .. <path>.N) to keep; "
+    "0 truncates in place at the size bound instead of rotating.")
+FLIGHT_RECORDER_SIZE = register(
+    "spark.rapids.tpu.eventLog.flightRecorderSize", int, 256,
+    "Entries in the always-on flight-recorder ring (last N events, plus "
+    "spans while tracing is on), auto-dumped into the event log when a "
+    "query fails and exposed as session.dump_flight_recorder(). The ring "
+    "runs even with the event log and tracer disabled - one deque append "
+    "per (rare) event.")
+EVENT_LOG_COMPRESS = register(
+    "spark.rapids.tpu.eventLog.compress", _to_bool, False,
+    "Gzip-compress rotated event-log segments: at the size bound the "
+    "active file compresses to <path>.1.gz instead of renaming to "
+    "<path>.1 (the active file stays plaintext so appends never pay "
+    "per-event compression). tools/trace_summary.py reads both.")
+SYNC_LEDGER_ENABLED = register(
+    "spark.rapids.tpu.sync.ledger.enabled", _to_bool, True,
+    "Record every device<->host blocking point (uploads, fetches, row "
+    "counts, join totals, out-of-core working-set measurement, semaphore "
+    "waits) in the process-wide host-sync ledger (obs/syncledger.py): "
+    "sync site, wall seconds, bytes moved, triggering plan operator, "
+    "query and thread, in a bounded in-memory ring. Feeds the profile "
+    "report's 'syncs' section and device-occupancy estimate, hostSync "
+    "journal events, the sync track in the Chrome trace export and "
+    "flight-recorder failure dumps. On by default: syncs are the "
+    "expensive operation being measured, so the bookkeeping is noise "
+    "next to the blocked wall time it accounts.")
+SYNC_LEDGER_MAX_ENTRIES = register(
+    "spark.rapids.tpu.sync.ledger.maxEntries", int, 4096,
+    "Entries kept in the host-sync ledger's bounded ring (oldest "
+    "evicted first).")
+SYNC_LEDGER_EVENT_MIN_SECONDS = register(
+    "spark.rapids.tpu.sync.ledger.eventMinSeconds", float, 0.0,
+    "Minimum blocked seconds before a sync also lands as a hostSync "
+    "journal event (the ledger entry records it regardless). 0 journals "
+    "every sync.")
+DEBUG_TRANSFER_GUARD = register(
+    "spark.rapids.tpu.debug.transferGuard", str, "off",
+    "Coverage audit for the host-sync ledger: run a query's body under "
+    "PyTorch's CUDA sync debug mode. 'log' (mode \"warn\") warns on every "
+    "host wait for the device that happens OUTSIDE a sync_scope; "
+    "'disallow' (mode \"error\") raises on it (sync scopes lift the mode, "
+    "so every tracked site passes). Off by default - a debugging "
+    "instrument, not a production conf. It has no effect on a CPU "
+    "device, where no host wait exists to catch.")
+
 class TpuConf:
     """Settings with typed accessors."""
 

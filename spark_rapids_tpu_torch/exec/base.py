@@ -9,11 +9,27 @@ a zero-argument callable returning an iterator of batches (the Spark
   * device operators: columnar DeviceBatches (the accelerated path).
 
 Transition operators convert between them (``exec/transitions.py``).
-The JAX package's per-operator SQL metrics around each partition (rows,
-batches, time), tracer spans, progress heartbeats, compile-ledger scopes
-and cancellation checks are not ported: ``executed_partitions`` is
-``partitions``. An operator adds what it counts itself to its query's
-metrics (``ExecContext.metric_add``: a scan's pruned row groups, a
+
+Operators implement ``partitions``; consumers call
+``executed_partitions``, which wraps each partition with the JAX
+package's per-batch bookkeeping (reference: GpuMetricNames,
+GpuExec.scala:24-41, and NvtxWithMetrics.scala:17-44): a tracer span per
+pulled batch, the operator scope the host-sync ledger and the transfer
+sites attribute to (``obs/compileledger``), the per-operator metrics
+``totalTime``, ``numOutputBatches`` and ``numOutputRows`` with the
+per-node stats of the profile report (``ExecContext.record_op``), the
+live-progress heartbeat, and under ``spark.rapids.sql.profile.syncEachOp``
+a wait for the device after each batch. With metrics
+(``spark.rapids.sql.metrics.enabled``, on by default), tracing, progress
+and syncEachOp all off, the partitions pass through untouched.
+
+A batch's row count is recorded only where the host knows it without a
+sync (``DeviceBatch.host_rows``, a pandas frame's length) or under
+syncEachOp, whose wait reads it: the wrapper never adds a host sync of
+its own otherwise. The JAX package's small-query lite bookkeeping and its
+cancellation checks are not ported (the port has no small-query planner
+and no serving layer). An operator adds what it counts itself to its
+query's metrics (``ExecContext.metric_add``: a scan's pruned row groups, a
 write's files and rows), which the session keeps as
 ``last_query_metrics``.
 """
@@ -22,11 +38,15 @@ from __future__ import annotations
 
 import hashlib
 import threading
-from typing import Callable, Iterator, List, Sequence
+import time
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import torch
 
-from spark_rapids_tpu_torch.columnar.batch import Schema
+from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+from spark_rapids_tpu_torch.obs import compileledger
+from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+from spark_rapids_tpu_torch.obs.trace import TRACER
 
 Partition = Callable[[], Iterator]  # yields pd.DataFrame or DeviceBatch
 
@@ -63,8 +83,61 @@ class PhysicalPlan:
         raise NotImplementedError
 
     def executed_partitions(self, ctx: "ExecContext") -> List[Partition]:
-        """What consumers call; operators implement ``partitions``."""
-        return self.partitions(ctx)
+        """``partitions`` with the per-batch bookkeeping (see the module
+        docstring). What consumers call; operators implement
+        ``partitions``."""
+        parts = self.partitions(ctx)
+        prog = ctx.progress
+        sync_each = ctx.profile_sync
+        record = ctx.metrics_enabled
+        if not record and not TRACER.enabled and prog is None \
+                and not sync_each:
+            return parts
+        op = self.describe()
+        node_id = id(self)
+        name = self.name
+
+        def wrap(part: Partition, pidx: int) -> Partition:
+            def run():
+                it = part()
+                while True:
+                    t0 = time.perf_counter()
+                    with TRACER.span(name, op=op, partition=pidx) as sp:
+                        # the operator scope: a sync or a transfer inside
+                        # this pull attributes to THIS operator
+                        prev_op = compileledger.push_op(op, node_id, ctx)
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            return
+                        finally:
+                            compileledger.pop_op(prev_op)
+                        rows = _host_rows(batch)
+                        if sp is not None:
+                            sp.set(batch_rows=rows)
+                    if sync_each:
+                        t1 = time.perf_counter()
+                        synced = _sync_rows(batch)
+                        if rows is None:
+                            rows = synced
+                        t2 = time.perf_counter()
+                        # the pull is host dispatch (with the children and
+                        # the transfers), the wait is the device draining
+                        # THIS operator's queued work (the children waited
+                        # before yielding)
+                        compileledger.note_breakdown(
+                            ctx, node_id, pull_s=t1 - t0, sync_s=t2 - t1)
+                        with ctx._stats_lock:
+                            ctx.node_times[node_id] = ctx.node_times.get(
+                                node_id, 0.0) + (time.perf_counter() - t0)
+                    seconds = time.perf_counter() - t0
+                    if record:
+                        ctx.record_op(op, node_id, seconds, rows)
+                    if prog is not None:
+                        prog.op_batch(node_id, op, rows, seconds)
+                    yield batch
+            return run
+        return [wrap(p, i) for i, p in enumerate(parts)]
 
     def map_children(self, fn) -> "PhysicalPlan":
         import copy
@@ -91,6 +164,26 @@ class PhysicalPlan:
             yield from c.walk()
 
 
+def _host_rows(batch) -> Optional[int]:
+    """The batch's row count where the host knows it without a sync."""
+    if isinstance(batch, DeviceBatch):
+        return batch.host_rows
+    try:
+        return len(batch)
+    except TypeError:
+        return None
+
+
+def _sync_rows(batch) -> Optional[int]:
+    """syncEachOp's wait: read a device batch's row count, a copy on the
+    current stream that waits for everything queued before it (a counted
+    ``profile.syncEachOp`` sync); None for a host frame."""
+    if not isinstance(batch, DeviceBatch):
+        return None
+    with sync_scope("profile.syncEachOp", nbytes=4):
+        return int(batch.num_rows.item())
+
+
 def plan_fingerprint(node: PhysicalPlan) -> str:
     """Structural identity of a plan subtree, stable across executions of
     the same query over the same data: keys the session's aggregation
@@ -107,10 +200,12 @@ def plan_fingerprint(node: PhysicalPlan) -> str:
 
 
 class ExecContext:
-    """Per-query execution context: the conf, the session (its caches) and
-    the device the query's batches live on."""
+    """Per-query execution context: the conf, the session (its caches),
+    the device the query's batches live on, and the query's metrics and
+    profile stats."""
 
     def __init__(self, conf, session=None, device="cuda"):
+        from spark_rapids_tpu_torch.obs.metrics import MetricsRegistry
         self.conf = conf
         self.session = session
         self.device = torch.device(device)
@@ -122,6 +217,27 @@ class ExecContext:
         # {operator: {metric: value}} of this query
         self.metrics: dict = {}
         self._metrics_lock = threading.Lock()
+        # one lock for the metrics and the per-node stats
+        self._stats_lock = self._metrics_lock
+        # a per-query registry for labelled metrics of this query's own
+        self.registry = MetricsRegistry()
+        self.metrics_enabled = conf.get_bool(
+            "spark.rapids.sql.metrics.enabled", True)
+        # per-plan-node (identity-keyed) inclusive time, rows and batches
+        # of the profile report (obs/profile.py)
+        self.node_stats: dict = {}
+        # a wait for the device after each operator's batch, so time is
+        # attributable per operator (obs/profile.py breakdown)
+        self.profile_sync = conf.get_bool(
+            "spark.rapids.sql.profile.syncEachOp", False)
+        self.node_times: dict = {}
+        # per-plan-node wall-time components (obs/compileledger
+        # note_breakdown): pull_s and sync_s under profile_sync,
+        # transfer_s from the transfer sites
+        self.node_breakdown: dict = {}
+        # the live QueryProgress record (obs/progress.py), set by the
+        # session only while PROGRESS is enabled
+        self.progress = None
 
     def metric_add(self, op: str, name: str, value) -> None:
         """Add ``value`` to metric ``name`` of operator ``op`` (its
@@ -129,3 +245,27 @@ class ExecContext:
         with self._metrics_lock:
             ms = self.metrics.setdefault(op, {})
             ms[name] = ms.get(name, 0) + value
+
+    def record_op(self, op: str, node_id: int, seconds: float,
+                  rows: Optional[int]) -> None:
+        """One executed batch of one operator: its metrics and the
+        per-node stats the profile report attributes time with (rows
+        where known)."""
+        with self._metrics_lock:
+            ms = self.metrics.setdefault(op, {})
+            ms["totalTime"] = ms.get("totalTime", 0) + seconds
+            ms["numOutputBatches"] = ms.get("numOutputBatches", 0) + 1
+            st = self.node_stats.get(node_id)
+            if st is None:
+                st = self.node_stats[node_id] = {
+                    "time": 0.0, "rows": 0, "batches": 0}
+            st["time"] += seconds
+            st["batches"] += 1
+            if rows is not None:
+                ms["numOutputRows"] = ms.get("numOutputRows", 0) + rows
+                st["rows"] += rows
+
+    def op_metrics(self) -> dict:
+        """A copy of this query's metrics, {op: {metric: value}}."""
+        with self._metrics_lock:
+            return {op: dict(ms) for op, ms in self.metrics.items()}

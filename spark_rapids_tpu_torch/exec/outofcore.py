@@ -37,9 +37,9 @@ hash table passes ``agg.hash.maxTableSlots`` (``exec/tpu.py``), on with
 the hash aggregation alone.
 
 ``ooc.operators`` and ``ooc.fanout`` (by ``op``) count the engagements in
-``obs/metrics.REGISTRY``; ``RECORDS`` keeps each one's operator, fan-out,
-bytes, budget and level (the JAX package's ``outOfCore`` journal event,
-ROADMAP A.11).
+``obs/metrics.REGISTRY``; each is an ``outOfCore`` journal event (op,
+fanout, bytes, budgetBytes, level; ``obs/events.py``), and ``RECORDS``
+keeps the newest ones' operator, fan-out, bytes, budget and level.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.config import conf as C
 from spark_rapids_tpu_torch.memory.spill import SpillPriorities
+from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import rowops, sortops
@@ -167,6 +168,8 @@ def _record(op: str, fanout: int, total_bytes: int, budget: int,
             level: int = 0) -> None:
     REGISTRY.counter("ooc.operators", op=op).add(1)
     REGISTRY.counter("ooc.fanout", op=op).add(fanout)
+    EVENTS.emit("outOfCore", op=op, fanout=fanout, bytes=int(total_bytes),
+                budgetBytes=int(budget), level=level)
     RECORDS.append({"op": op, "fanout": fanout, "bytes": int(total_bytes),
                     "budget": int(budget), "level": level})
 

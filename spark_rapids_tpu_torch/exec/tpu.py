@@ -57,6 +57,7 @@ from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan, group_contiguous,
     plan_fingerprint,
 )
+from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import aggregate as agg_ops
 from spark_rapids_tpu_torch.ops import rowops, sortops
@@ -261,6 +262,14 @@ class TpuFilterExec(TpuExec):
         return _per_batch(self, ctx, [self.condition], self._filter)
 
 
+def _note_skip(decision: str, measured: float, batches: int,
+               threshold: float) -> None:
+    """A measured runtime partial-aggregation skip decision, journaled."""
+    EVENTS.emit("aggSkipDecision", decision=decision, source="measured",
+                measuredRatio=float(measured), batches=batches,
+                threshold=threshold)
+
+
 class TpuHashAggregateExec(TpuExec):
     """reference: GpuHashAggregateExec. Partial: per-batch update, then a
     concat and merge of the partials within the partition; final: concat,
@@ -379,6 +388,10 @@ class TpuHashAggregateExec(TpuExec):
             decided = None if adaptive else "update"
         else:
             decided = "skip" if prior > skip_ratio else "update"
+            if decided == "skip":
+                EVENTS.emit("aggSkipDecision", decision="skip",
+                            source="cache", measuredRatio=float(prior),
+                            threshold=skip_ratio)
         partials = []
         in_rows = out_rows = sampled = 0
         b = first
@@ -401,16 +414,19 @@ class TpuHashAggregateExec(TpuExec):
                     if measured > skip_ratio:
                         decided = "skip"
                         cache[sig] = measured
+                        _note_skip(decided, measured, sampled, skip_ratio)
                         yield from partials
                         partials = []
                     elif sampled >= self._SKIP_SAMPLE_BATCHES:
                         decided = "update"
                         cache[sig] = measured
+                        _note_skip(decided, measured, sampled, skip_ratio)
             b = next(it, None)
         if decided is None and sampled > 0:
             # the stream ended while still sampling: the cumulative
             # measurement is the plan's decision
             cache[sig] = out_rows / max(in_rows, 1)
+            _note_skip("update", cache[sig], sampled, skip_ratio)
         if len(partials) == 1:
             yield partials[0]
         elif partials:

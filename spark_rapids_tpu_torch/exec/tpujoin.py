@@ -347,9 +347,20 @@ class TpuBroadcastExchangeExec(PhysicalPlan):
         state: dict = {}
 
         def materialize() -> DeviceBatch:
-            return concat_device([b for p in child_parts for b in p()],
-                                 schema, ctx.conf.capacity_growth,
-                                 ctx.device, dm=device_manager_of(ctx))
+            batches = [b for p in child_parts for b in p()]
+            out = concat_device(batches, schema, ctx.conf.capacity_growth,
+                                ctx.device, dm=device_manager_of(ctx))
+            if ctx.metrics_enabled:
+                # the build table's device size on record, beside the
+                # threshold that chose the broadcast (host metadata)
+                from spark_rapids_tpu_torch.obs.events import EVENTS
+                from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+                nbytes = out.device_memory_size()
+                REGISTRY.gauge("shuffle.broadcast.bytes").set(nbytes)
+                REGISTRY.counter("shuffle.broadcast.builds").add(1)
+                EVENTS.emit("broadcastMaterialized", bytes=int(nbytes),
+                            batches=len(batches))
+            return out
 
         if ctx.session is None:
             def run() -> Iterator[DeviceBatch]:

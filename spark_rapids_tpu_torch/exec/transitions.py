@@ -42,11 +42,20 @@ the session's semaphore (``TpuScanExec``, ``HostToDeviceExec``). The
 JAX package's double-buffered upload (``scan.prefetchDepth``) is not
 ported: an upload from pageable memory waits for its copy anyway (one
 counted sync a batch).
+
+Observability, as in the JAX package: a frame upload is a ``scan.upload``
+span and a device decode a ``scan.deviceDecode`` span; each reports its
+seconds against the operator pulling it (``note_transfer("h2d")``, the
+profile's transfer component; a device decode's copy reports from
+``ops/parquet_decode``), and each uploaded batch is a
+``PROGRESS.scan_upload`` note. ``DeviceToHostExec`` reports its fetches'
+seconds as ``note_transfer("d2h")``.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import pandas as pd
@@ -56,7 +65,10 @@ from spark_rapids_tpu_torch.columnar.column import MAX_SLAB_STRIDE
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
+from spark_rapids_tpu_torch.obs import compileledger
+from spark_rapids_tpu_torch.obs.progress import PROGRESS
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+from spark_rapids_tpu_torch.obs.trace import TRACER
 from spark_rapids_tpu_torch.ops.parquet_decode import (
     RawRowGroup, decode_rowgroup,
 )
@@ -104,9 +116,12 @@ def upload_partition(part: Partition, schema: Schema,
                 note_bounds(session, name, lo, hi)
             if raw.fallback_df is not None:
                 note_scan_stats(session, raw.fallback_df)
-        batch = decode_rowgroup(raw, schema, dict_state, device,
-                                page_cache)
+        with TRACER.span("scan.deviceDecode", rows=raw.n):
+            batch = decode_rowgroup(raw, schema, dict_state, device,
+                                    page_cache)
         batch.host_rows = raw.n
+        if PROGRESS.enabled:
+            PROGRESS.scan_upload(raw.n)
         if meter:
             _meter(session, batch)
         yield batch
@@ -259,10 +274,16 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
         for lo in range(0, max(len(df), 1), max_rows):
             chunk = df if len(df) <= max_rows else \
                 df.iloc[lo:lo + max_rows].reset_index(drop=True)
-            with sync_scope("scan.upload"):
-                batch = DeviceBatch.from_pandas(
-                    chunk, dict_state, device=device,
-                    slab_stride=max_stride, schema=schema)
+            with TRACER.span("scan.upload", rows=len(chunk)):
+                t0 = time.perf_counter()
+                with sync_scope("scan.upload") as sc:
+                    batch = DeviceBatch.from_pandas(
+                        chunk, dict_state, device=device,
+                        slab_stride=max_stride, schema=schema)
+                    sc.add_bytes(batch.device_memory_size())
+                compileledger.note_transfer(time.perf_counter() - t0, "h2d")
+            if PROGRESS.enabled:
+                PROGRESS.scan_upload(len(chunk))
             if meter:
                 _meter(session, batch)
             yield batch
@@ -311,6 +332,10 @@ class DeviceToHostExec(PhysicalPlan):
         def make(part: Partition) -> Partition:
             def run() -> Iterator[pd.DataFrame]:
                 for batch in part():
-                    yield batch.to_pandas()
+                    t0 = time.perf_counter()
+                    df = batch.to_pandas()
+                    compileledger.note_transfer(time.perf_counter() - t0,
+                                                "d2h")
+                    yield df
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]

@@ -38,6 +38,7 @@ from __future__ import annotations
 import os
 import shutil
 import threading
+import time
 import uuid
 from typing import Iterator, List
 
@@ -50,6 +51,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
+from spark_rapids_tpu_torch.obs import compileledger
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 
 _HIVE_NULL = "__HIVE_DEFAULT_PARTITION__"
@@ -121,8 +123,10 @@ def _arrow_table_from_batch(batch: DeviceBatch):
     parts = [_host_parts(col, n) for col in batch.columns]
     nbytes = sum(t.numel() * t.element_size() for p in parts
                  for t in p.values())
+    t0 = time.perf_counter()
     with sync_scope("write.fetch", nbytes=nbytes):
         host = [{k: t.cpu().numpy() for k, t in p.items()} for p in parts]
+    compileledger.note_transfer(time.perf_counter() - t0, "d2h")
     arrays = []
     for col, h, dt in zip(batch.columns, host, batch.schema.dtypes):
         validity = h["validity"]

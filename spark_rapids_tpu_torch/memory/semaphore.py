@@ -22,7 +22,8 @@ A single condition variable over a holder census rather than a raw
 ``threading.Semaphore``: resize and tenant bounds are plain predicate
 changes, impossible to over-admit by construction. A contended acquire
 waits inside ``sync_scope("semaphore.wait")``, as the JAX package counts
-it; its tracer span and cancellation checks wait for A.11.
+it, and a ``semaphore.wait`` tracer span; the JAX package's cancellation
+checks wait for its serving layer (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -130,9 +131,12 @@ class TpuSemaphore:
 
         from spark_rapids_tpu_torch.obs.metrics import REGISTRY
         from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+        from spark_rapids_tpu_torch.obs.trace import TRACER
         t0 = time.perf_counter()
         try:
-            with sync_scope("semaphore.wait"):
+            with TRACER.span("semaphore.wait", permits=self.permits,
+                             tenant=tkey or ""), \
+                    sync_scope("semaphore.wait"):
                 with self._cond:
                     try:
                         while not self._admissible_locked(tkey):

@@ -31,16 +31,17 @@ DeviceMemoryEventHandler.scala:37-93).
     ``TpuDeviceManager``; an allocation past the budget spills the device
     store down by the overage.
 
-A disk-write failure leaves the buffer in the host tier, writes a
-``memoryPressure`` record (``PRESSURE``) and advances
-``spill.diskWriteFailures``; the host store then backs off for
-``DISK_RETRY_COOLDOWN_S``. Counters go to ``obs/metrics.REGISTRY`` under
-the JAX package's names: ``spill.events`` and ``spill.bytes`` by
-``direction``, ``spill.faultBacks`` by ``tier``; timers
-``spill.time.*`` hold each move's host seconds. The JAX package's
-event journal, progress and tracer calls (``EVENTS.emit("spill")``,
-``PROGRESS.spill``, the ``spill.*`` spans) wait for ROADMAP A.11, where
-``PRESSURE`` becomes the journal's ``memoryPressure`` event.
+A disk-write failure leaves the buffer in the host tier, emits a
+``memoryPressure`` event and advances ``spill.diskWriteFailures``; the
+host store then backs off for ``DISK_RETRY_COOLDOWN_S``. Counters go to
+``obs/metrics.REGISTRY`` under the JAX package's names: ``spill.events``
+and ``spill.bytes`` by ``direction``, ``spill.faultBacks`` by ``tier``;
+timers ``spill.time.*`` hold each move's host seconds. As in the JAX
+package, each spill is a ``spill`` journal event and a ``PROGRESS.spill``
+note, each move a tracer span (``spill.toHost``, ``spill.toDisk``,
+``spill.faultBack``), and a spill pass forced by the budget a
+``memoryPressure`` event (``obs/events.py``); ``PRESSURE`` keeps the
+newest ``memoryPressure`` records for readers without a journal.
 
 ``EncodedPageCache`` is the device Parquet scan's cache of column-chunk
 decode plans (a host tier of plans, a device tier of their uploaded
@@ -68,20 +69,24 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import (
     DeviceBatch, flatten_batch, unflatten_batch,
 )
+from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+from spark_rapids_tpu_torch.obs.progress import PROGRESS
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+from spark_rapids_tpu_torch.obs.trace import TRACER
 
-# host seconds of each tier move (the JAX package's spill spans, ROADMAP
-# A.11): a device -> host copy includes its wait, a fault-back its reads
-# and the enqueue of its copies
+# host seconds of each tier move: a device -> host copy includes its wait,
+# a fault-back its reads and the enqueue of its copies
 _TIMES = {k: REGISTRY.timer(f"spill.time.{k}")
           for k in ("device_to_host", "host_to_disk", "fault_back_host",
                     "fault_back_disk")}
-# the memoryPressure records (the JAX package's journal events), newest last
+# the newest memoryPressure events' fields, newest last
 PRESSURE: collections.deque = collections.deque(maxlen=256)
 
 
 def record_pressure(**fields) -> None:
+    """A ``memoryPressure`` journal event, kept in ``PRESSURE`` too."""
+    EVENTS.emit("memoryPressure", **fields)
     PRESSURE.append(dict(fields, kind="memoryPressure", at=time.time()))
 
 
@@ -149,7 +154,9 @@ class SpillableBuffer:
             tensors, layout = flatten_batch(self._device_batch)
             placed = self._place(arena, tensors) if arena is not None \
                 else None
-            with sync_scope("spill.deviceToHost", nbytes=self.size):
+            with TRACER.span("spill.toHost", buffer=self.id,
+                             bytes=self.size), \
+                    sync_scope("spill.deviceToHost", nbytes=self.size):
                 if placed is not None:
                     host = placed[1]
                     for dst, src in zip(host, tensors):
@@ -223,7 +230,9 @@ class SpillableBuffer:
             arrays = {f"a{i}": t.numpy()
                       for i, t in enumerate(self._host["tensors"])}
             try:
-                with _TIMES["host_to_disk"].time():
+                with _TIMES["host_to_disk"].time(), \
+                        TRACER.span("spill.toDisk", buffer=self.id,
+                                    bytes=self.size):
                     np.savez(path, **arrays)
             except OSError as e:
                 try:
@@ -255,29 +264,31 @@ class SpillableBuffer:
             REGISTRY.counter("spill.faultBacks",
                              tier=old_tier.name.lower()).add(1)
             t0 = time.perf_counter()
-            dev = self.device
-            event = None
-            if old_tier == StorageTier.HOST:
-                host = self._host
-                layout = host["layout"]
-                if host["extents"] is not None:
-                    if dev.type == "cuda":
-                        tensors = [t.to(dev, non_blocking=True)
-                                   for t in host["tensors"]]
-                        event = torch.cuda.Event()
-                        event.record()
+            with TRACER.span("spill.faultBack", buffer=self.id,
+                             bytes=self.size, tier=old_tier.name.lower()):
+                dev = self.device
+                event = None
+                if old_tier == StorageTier.HOST:
+                    host = self._host
+                    layout = host["layout"]
+                    if host["extents"] is not None:
+                        if dev.type == "cuda":
+                            tensors = [t.to(dev, non_blocking=True)
+                                       for t in host["tensors"]]
+                            event = torch.cuda.Event()
+                            event.record()
+                        else:
+                            tensors = [t.clone() for t in host["tensors"]]
                     else:
-                        tensors = [t.clone() for t in host["tensors"]]
+                        tensors = [_to_device(t.numpy(), s, dev)
+                                   for t, s in zip(host["tensors"],
+                                                   host["shapes"])]
                 else:
-                    tensors = [_to_device(t.numpy(), s, dev)
-                               for t, s in zip(host["tensors"],
-                                               host["shapes"])]
-            else:
-                layout, shapes = self._disk_layout
-                with np.load(self._disk_path) as z:
-                    tensors = [_to_device(z[f"a{i}"], s, dev)
-                               for i, s in enumerate(shapes)]
-            batch = unflatten_batch(tensors, layout)
+                    layout, shapes = self._disk_layout
+                    with np.load(self._disk_path) as z:
+                        tensors = [_to_device(z[f"a{i}"], s, dev)
+                                   for i, s in enumerate(shapes)]
+                batch = unflatten_batch(tensors, layout)
             self._device_batch = batch
             self._release_host(event)
             # a batch never changes: the spill file stays as the clean copy
@@ -391,6 +402,10 @@ class DeviceStore(BufferStore):
                 .add(1)
             REGISTRY.counter("spill.bytes", direction="device_to_host") \
                 .add(freed)
+            EVENTS.emit("spill", direction="device_to_host", bytes=freed,
+                        buffer=buf.id)
+            if PROGRESS.enabled:
+                PROGRESS.spill(freed)
             # keep the host tier within its bound
             self.spill_store.enforce_limit()
         return freed
@@ -433,6 +448,10 @@ class HostStore(BufferStore):
                 .add(1)
             REGISTRY.counter("spill.bytes", direction="host_to_disk") \
                 .add(freed)
+            EVENTS.emit("spill", direction="host_to_disk", bytes=freed,
+                        buffer=buf.id)
+            if PROGRESS.enabled:
+                PROGRESS.spill(freed)
         return freed
 
     def enforce_limit(self) -> int:

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -93,9 +93,17 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every library of ``names`` not built yet, all in parallel.
-    Returns wall seconds per library (0.0 where it was already built).
-    Raises with nvcc's output if any compile fails."""
+    """Compile every library of ``names`` not built yet, all in parallel,
+    inside a ``kernelcache.build`` tracer span (the JAX package's span
+    around a kernel build). Returns wall seconds per library (0.0 where it
+    was already built). Raises with nvcc's output if any compile fails."""
+    from spark_rapids_tpu_torch.obs.trace import TRACER
+    names = list(names)
+    with TRACER.span("kernelcache.build", signature=",".join(names)[:160]):
+        return _build(names)
+
+
+def _build(names: List[str]) -> Dict[str, float]:
     BUILD.mkdir(parents=True, exist_ok=True)
     started: Dict[str, Tuple[subprocess.Popen, Path, Path, float]] = {}
     secs = {name: 0.0 for name in names}

@@ -11,11 +11,14 @@ A row group's decode is split across the two sides of the scan pipeline:
     host. A column the device path cannot take falls back to pyarrow's host
     decode for that column, with a reason (``_Unsupported``: codec,
     ``pageV2``, ``mixedEncoding``, ``deltaWide`` ...), counted in
-    ``scan.device.fallbackColumns``. The plans are the JAX package's, array
+    ``scan.device.fallbackColumns`` and journaled as a
+    ``scanDeviceFallback`` event (once per file, column and reason in a
+    bounded memo, as in the JAX package). The plans are the JAX package's, array
     for array.
   * ``decode_rowgroup`` runs on the consuming thread: it copies every
     plan's buffers to the device in ONE pinned host-to-device copy (inside
-    ``sync_scope("scan.upload")``, one per row group), then expands them
+    ``sync_scope("scan.upload")``, one per row group, its seconds reported
+    as ``note_transfer("h2d")``), then expands them
     with kernels B5-B8 (``ops/kernels``) into the port's column forms:
     dictionary codes, char slabs, dense fixed-width tensors. Every size is
     known on the host from the plans, so the decode makes no host sync.
@@ -44,6 +47,7 @@ port reaches it.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,6 +62,8 @@ from spark_rapids_tpu_torch.columnar.column import (
     host_string_packed, host_string_slab, host_to_device, np_build_slab,
     slab_stride_for,
 )
+from spark_rapids_tpu_torch.obs import compileledger
+from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import kernels as K
@@ -71,6 +77,23 @@ _DEV_SPLITS = REGISTRY.counter("scan.device.splits")
 _DEC_TIME = REGISTRY.timer("scan.device.decodeTime")
 _HOST_DEC_TIME = REGISTRY.timer("scan.device.hostDecodeTime")
 _PREP_TIME = REGISTRY.timer("scan.device.prepTime")
+
+# (path, column, reason) already journaled: one scanDeviceFallback event
+# each, not one per row group
+_EMITTED: Dict[tuple, bool] = {}
+_EMITTED_CAP = 4096
+
+
+def _note_fallback(path: str, column: str, reason: str, rg: int) -> None:
+    _FB_COLS.add(1)
+    key = (path, column, reason)
+    if key in _EMITTED:
+        return
+    if len(_EMITTED) >= _EMITTED_CAP:
+        _EMITTED.clear()
+    _EMITTED[key] = True
+    EVENTS.emit("scanDeviceFallback", column=column, reason=reason,
+                path=path, rowGroup=rg)
 
 _FIXED_KINDS = {"INT32": ("i32", 4), "INT64": ("i64", 8),
                 "FLOAT": ("f32", 4), "DOUBLE": ("f64", 8)}
@@ -467,7 +490,7 @@ def prepare_rowgroup(path: str, rg: int, columns: List[str],
             ci = ci_by_name.get(name)
             if ci is None:
                 raw.fallback.append((name, "missing"))
-                _FB_COLS.add(1)
+                _note_fallback(path, name, "missing", rg)
                 continue
             plan = (page_cache.get(raw.key(name)) if page_cache is not None
                     else None)
@@ -480,7 +503,7 @@ def prepare_rowgroup(path: str, rg: int, columns: List[str],
                                        blocked)
                 except _Unsupported as e:
                     raw.fallback.append((name, e.reason))
-                    _FB_COLS.add(1)
+                    _note_fallback(path, name, e.reason, rg)
                     continue
                 plan["nbytes"] = sum(a.nbytes
                                      for a in plan["upload"].values())
@@ -908,9 +931,11 @@ def decode_rowgroup(raw: RawRowGroup, schema, dict_state: Optional[dict],
                                       dt_by_name[name], cap)
     if tree:
         nbytes = sum(_upload_bytes(arrays) for arrays in tree.values())
+        t0 = time.perf_counter()
         with sync_scope("scan.upload", nbytes=nbytes):
             dev_tree.update(upload_arrays(tree, device,
                                           per_column=page_cache is not None))
+        compileledger.note_transfer(time.perf_counter() - t0, "h2d")
         if page_cache is not None:
             for name in fresh:
                 page_cache.promote(raw.key(name), dev_tree[name],

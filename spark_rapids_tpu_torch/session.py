@@ -46,11 +46,22 @@ subtrees and out-of-core buckets live in the catalog; the per-query ones
 the join, aggregate and sort run out of core past
 ``outOfCore.partitionBytes`` (``exec/outofcore.py``).
 
+Observability is the JAX package's (``obs/``): every query runs in a
+journal window (``spark.rapids.tpu.eventLog.*``: queryStart, queryPlan,
+cpuFallback, queryEnd, and the flight recorder dumped on a failure;
+``dump_flight_recorder()``), a tracer window exported as Chrome JSON
+under ``spark.rapids.tpu.trace.path``, the host-sync ledger and the
+transfer guard (``spark.rapids.tpu.debug.transferGuard``), a progress
+record while ``obs/progress.PROGRESS`` is on, and with metrics on (the
+default) a profile report (``profile_report()``, ``profile_json()``;
+``spark.rapids.sql.profile.syncEachOp`` for device time per operator);
+``set_job_group`` tags queries with a tenant.
+
 Left out of the JAX package's session, each a later ROADMAP item: the
 mesh and shuffle environments (A.9); AQE and the speculation
 verification (A.10; the within-query subtree reuse is ported,
-``exec/reuse.py``); tracing, the event journal, metrics snapshots, the
-compile cache and prewarm, and the serving caches (A.11). Unlike the JAX
+``exec/reuse.py``); the live monitor, the compile ledger and cache,
+prewarm and the serving caches (A.11). Unlike the JAX
 package's, ``get_or_create`` makes a new session each call (sessions of
 the port are independent, each with its own confs, device and memory
 runtime); the newest is ``TpuSparkSession.active()``. ``with_column``
@@ -67,10 +78,12 @@ import threading
 from typing import Dict, List, Optional, Sequence
 
 import pandas as pd
+import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
 from spark_rapids_tpu_torch.config.conf import (
-    FUSE_COUNT_DISTINCT, SPILL_DIR, TpuConf,
+    DEBUG_TRANSFER_GUARD, FUSE_COUNT_DISTINCT, SPILL_DIR, TRACE_ENABLED,
+    TRACE_NVTX, TRACE_PATH, TpuConf,
 )
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
@@ -152,6 +165,14 @@ class TpuSparkSession:
         # the ExecContext of the query executing on this thread
         self._exec_scope = threading.local()
         self.last_query_metrics: dict = {}
+        # the last query's plan, profile (obs/profile.py) and syncEachOp
+        # node times
+        self.last_plan = None
+        self.last_profile = None
+        self.last_node_times: dict = {}
+        # the tenant tag (set_job_group): the session's, or this thread's
+        self._job_group_default: tuple = (None, "")
+        self._job_group_tls = threading.local()
 
     class Builder:
         def __init__(self):
@@ -277,6 +298,11 @@ class TpuSparkSession:
     # --- execution ---------------------------------------------------------
     def physical_plan(self, logical: lp.LogicalPlan):
         """logical -> pruned -> CPU physical -> device rewrite."""
+        return self._convert(logical)[0]
+
+    def _convert(self, logical: lp.LogicalPlan):
+        """(physical plan, the tag pass's TpuOverrides or None where the
+        device path is off)."""
         from spark_rapids_tpu_torch.sql.overrides import (
             TpuOverrides, TransitionOverrides, assert_is_on_tpu,
         )
@@ -292,6 +318,7 @@ class TpuSparkSession:
             plan = planner.plan_collect_limit(logical)
         else:
             plan = planner.plan(logical)
+        overrides = None
         if conf.sql_enabled:
             overrides = TpuOverrides(conf)
             plan = TransitionOverrides(conf).apply(overrides.apply(plan))
@@ -308,7 +335,7 @@ class TpuSparkSession:
             if conf.test_enabled:
                 assert_is_on_tpu(plan, conf,
                                  overrides.explain_text("NOT_ON_TPU"))
-        return plan
+        return plan, overrides
 
     def _note_rename_aliases(self, logical: lp.LogicalPlan) -> None:
         for node in logical.walk():
@@ -323,23 +350,226 @@ class TpuSparkSession:
     def _execute(self, logical: lp.LogicalPlan, collect: bool = True):
         """Plan and run ``logical``: the output pandas frames, or with
         ``collect=False`` the output partitions' DeviceBatches (for a
-        device plan), the query up to its collect."""
+        device plan), the query up to its collect. Around it, the JAX
+        package's bookkeeping: the query's trace window and export, its
+        journal window (queryStart, queryPlan, cpuFallback, queryEnd; the
+        flight recorder dumped on failure), the sync ledger and transfer
+        guard from the conf, its progress record and ``last_profile``."""
+        import time
+
+        from spark_rapids_tpu_torch.obs import syncledger
+        from spark_rapids_tpu_torch.obs.events import EVENTS, conf_fingerprint
         from spark_rapids_tpu_torch.obs.metrics import REGISTRY
-        plan = self.physical_plan(logical)
-        ctx = ExecContext(self.conf, self, self.device)
+        from spark_rapids_tpu_torch.obs.progress import PROGRESS
+        from spark_rapids_tpu_torch.obs.trace import TRACER
+        conf = self.conf
+        ctx = ExecContext(conf, self, self.device)
+        # the tracer's window: configured from the conf and cleared, so an
+        # exported file holds exactly this query
+        trace_path = str(conf.get(TRACE_PATH.key) or "")
+        trace_on = conf.get_bool(TRACE_ENABLED.key, False) or bool(trace_path)
+        nvtx = conf.get_bool(TRACE_NVTX.key, False)
+        if nvtx and trace_on and torch.device(self.device).type != "cuda":
+            raise RuntimeError(f"{TRACE_NVTX.key} needs a CUDA device; this "
+                               f"session's device is {self.device}")
+        TRACER.configure(trace_on, nvtx=nvtx)
+        if trace_on:
+            TRACER.clear()
+        guard = str(conf.get(DEBUG_TRANSFER_GUARD.key) or "off")
+        if guard not in ("off", "log", "disallow"):
+            raise ValueError(f"{DEBUG_TRANSFER_GUARD.key} must be off, log "
+                             f"or disallow, got {guard!r}")
+        self.last_profile = None
+        self.last_plan = None
+        self.last_node_times = {}
+        # the process-wide registry's flow snapshot (the profile reports
+        # the query's delta) and the truncation counters and sync ledger
+        # watermark the profile's observability and syncs sections start
+        # from
+        global_before = obs_before = None
+        if ctx.metrics_enabled:
+            global_before = REGISTRY.flow_values()
+            obs_before = (TRACER.dropped, EVENTS.dropped, EVENTS.rotations,
+                          EVENTS.rotate_failures,
+                          syncledger.SYNC_LEDGER.seq)
+            # a peak gauge is state: reset per query so the profile's
+            # queueDepthPeak is this query's
+            REGISTRY.gauge("scan.prefetch.queueDepthPeak").set(0)
+        t_query0 = time.perf_counter()
+        EVENTS.configure_from_conf(conf)
+        syncledger.SYNC_LEDGER.configure_from_conf(conf)
+        tenant, job_desc = self._job_group
+        EVENTS.query_start(tenant=tenant,
+                           confFingerprint=conf_fingerprint(conf._settings))
+        qp = None
+        if PROGRESS.enabled:
+            qp = PROGRESS.begin(EVENTS.current_query, tenant=tenant,
+                                description=job_desc)
+            ctx.progress = qp
         prev = self._current_ctx()
         self._exec_scope.ctx = ctx
         before = {d: (REGISTRY.value("spill.events", direction=d),
                       REGISTRY.value("spill.bytes", direction=d))
                   for d in _SPILL_DIRECTIONS}
         try:
-            return self._drain(plan, ctx, collect)
+            # the transfer guard: on a CUDA device a host wait outside a
+            # sync_scope warns or raises while the query body runs
+            with syncledger.guard_context(guard, self.device):
+                plan = self._plan_query(logical, ctx)
+                with TRACER.span("Query"):
+                    outs = self._drain(plan, ctx, collect)
+        except BaseException as e:
+            wall_s = round(time.perf_counter() - t_query0, 6)
+            err = f"{type(e).__name__}: {e}"[:300]
+            EVENTS.query_end(status="failed", flight_dump=True, error=err,
+                             wall_s=wall_s)
+            self._note_tenant(tenant, "failed", wall_s)
+            if qp is not None:
+                PROGRESS.finish(qp, "failed", error=err)
+            raise
         finally:
             self.release_transient_buffers(ctx)
             self.semaphore.release()
             self._exec_scope.ctx = prev
-            self.last_query_metrics = dict(
-                ctx.metrics, memory=self._memory_metrics(before))
+            ctx.metrics["memory"] = self._memory_metrics(before)
+            self.last_query_metrics = ctx.op_metrics()
+        self._finish_query(plan, ctx, global_before, t_query0, trace_on,
+                           trace_path, obs_before)
+        wall_s = round(time.perf_counter() - t_query0, 6)
+        rows_out = self._count_rows(outs)
+        EVENTS.query_end(status="success", wall_s=wall_s,
+                         rowsReturned=rows_out,
+                         **self._coverage_fields(plan, ctx))
+        self._note_tenant(tenant, "success", wall_s, rows_out)
+        if qp is not None:
+            PROGRESS.finish(qp, "success")
+        return outs
+
+    def _plan_query(self, logical: lp.LogicalPlan, ctx: ExecContext):
+        """The physical plan, with its journal facts: the queryPlan event
+        (digest, tree, operator coverage) and one cpuFallback event per
+        operator the tag pass left on the CPU."""
+        from spark_rapids_tpu_torch.obs.events import EVENTS, plan_digest
+        plan, overrides = self._convert(logical)
+        EVENTS.emit("queryPlan", planDigest=plan_digest(plan),
+                    planTree=plan.tree_string()[:20000],
+                    **self._coverage_fields(plan))
+        if ctx.progress is not None:
+            ctx.progress.set_plan(plan)
+        if overrides is not None:
+            for meta in overrides.fallback_metas():
+                EVENTS.emit("cpuFallback", op=meta.plan.name,
+                            describe=meta.plan.describe()[:200],
+                            reasons=list(meta.reasons))
+        return plan
+
+    def _finish_query(self, plan, ctx: ExecContext, global_before,
+                      t_query0: float, trace_on: bool, trace_path: str,
+                      obs_before) -> None:
+        """After a query ran: the last plan and its syncEachOp node
+        times, the profile report (metrics on) and the trace export."""
+        import time
+
+        from spark_rapids_tpu_torch.obs.metrics import (
+            REGISTRY, registry_delta,
+        )
+        from spark_rapids_tpu_torch.obs.trace import TRACER
+        self.last_plan = plan
+        self.last_node_times = ctx.node_times
+        if ctx.metrics_enabled:
+            from spark_rapids_tpu_torch.obs.profile import build_profile
+            self.last_profile = build_profile(
+                plan, ctx, registry_delta(global_before,
+                                          REGISTRY.flow_values()),
+                wall_s=time.perf_counter() - t_query0,
+                obs_before=obs_before)
+        if trace_on and trace_path:
+            TRACER.export_chrome(trace_path)
+
+    @staticmethod
+    def _count_rows(outs) -> int:
+        try:
+            return sum(len(df) for df in outs) if outs else 0
+        except TypeError:
+            return 0
+
+    @staticmethod
+    def _note_tenant(tenant, status: str, wall_s: float,
+                     rows: int = 0) -> None:
+        """Per-tenant accounting at each query's end: ``tenant.queries``
+        by status, ``tenant.wallSeconds`` and ``tenant.rowsReturned``."""
+        from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+        t = tenant or "default"
+        REGISTRY.counter("tenant.queries", tenant=t, status=status).add(1)
+        REGISTRY.counter("tenant.wallSeconds", tenant=t).add(
+            round(wall_s, 6))
+        if rows:
+            REGISTRY.counter("tenant.rowsReturned", tenant=t).add(rows)
+
+    # --- observability ------------------------------------------------------
+    def _coverage_fields(self, plan, ctx: Optional[ExecContext] = None
+                         ) -> dict:
+        """Device-vs-CPU operator census of a converted plan (transitions
+        excluded: they are the boundary), plus, given the executed
+        context, each CPU operator's observed inclusive seconds."""
+        tpu = cpu = 0
+        cpu_time: dict = {}
+        for node in plan.walk():
+            if node.name in ("HostToDeviceExec", "DeviceToHostExec"):
+                continue
+            if node.columnar_output or getattr(node, "columnar_input",
+                                               False):
+                tpu += 1
+                continue
+            cpu += 1
+            if ctx is not None:
+                st = ctx.node_stats.get(id(node))
+                if st is not None:
+                    d = node.describe()[:200]
+                    cpu_time[d] = round(
+                        cpu_time.get(d, 0.0) + st["time"], 6)
+        total = tpu + cpu
+        out = {"tpuOps": tpu, "cpuOps": cpu,
+               "coveragePct": round(100.0 * tpu / total, 2)
+               if total else 100.0}
+        if cpu_time:
+            out["cpuOpTime"] = cpu_time
+        return out
+
+    def set_job_group(self, tenant, description: str = "") -> None:
+        """Tag this session's next queries with a tenant (job group): the
+        tag rides every journal event of those queries, their progress
+        records and the ``tenant.*`` counters. ``set_job_group(None)``
+        clears it."""
+        group = (str(tenant) if tenant else None, str(description or ""))
+        self._job_group_default = group
+        self._job_group_tls.value = group
+
+    @property
+    def _job_group(self) -> tuple:
+        return getattr(self._job_group_tls, "value",
+                       self._job_group_default)
+
+    def dump_flight_recorder(self) -> List[dict]:
+        """The always-on flight recorder's snapshot (the last N events,
+        and spans while tracing is on), also written into the journal as
+        a ``flightRecorder`` event where the journal is on."""
+        from spark_rapids_tpu_torch.obs.events import EVENTS
+        return EVENTS.dump_flight(reason="manual")["events"]
+
+    def profile_report(self) -> str:
+        """The last query's profile, rendered (obs/profile.py): its plan
+        tree with inclusive and exclusive time, rows and batches, and its
+        scan, spill, sync and truncation counters. Empty where no
+        profiled query has run (metrics off)."""
+        return "" if self.last_profile is None else \
+            self.last_profile.render()
+
+    def profile_json(self) -> Optional[dict]:
+        """The last query's profile as JSON (None where no profiled query
+        has run), the shape ``tools/trace_summary.py`` reads."""
+        return None if self.last_profile is None else \
+            self.last_profile.to_json()
 
     def _memory_metrics(self, before: dict) -> dict:
         """The memory runtime's state after a query and the spills it
@@ -365,7 +595,20 @@ class TpuSparkSession:
     def _drain(self, plan, ctx: ExecContext, collect: bool = True) -> list:
         outs = [x for part in plan.executed_partitions(ctx) for x in part()]
         if plan.columnar_output and collect:
-            return [b.to_pandas() for b in outs]
+            # the result fetch under a "Collect" scope: its syncs
+            # attribute to it, and its seconds are the Collect fetchTime
+            # metric (not a node's transfer: the fetch runs after the
+            # root's pulls)
+            import time
+
+            from spark_rapids_tpu_torch.obs.compileledger import op_context
+            with op_context("Collect"):
+                t0 = time.perf_counter()
+                frames = [b.to_pandas() for b in outs]
+            if ctx.metrics_enabled:
+                ctx.metric_add("Collect", "fetchTime",
+                               time.perf_counter() - t0)
+            return frames
         return outs
 
 

@@ -477,6 +477,20 @@ class TpuOverrides:
             lines = [ln for ln in lines if ln.lstrip().startswith("!")]
         return "\n".join(lines)
 
+    def fallback_metas(self) -> List[ExecMeta]:
+        """Every tagged-off operator meta after apply(), pre-order: the
+        machine-readable twin of the "!" explain lines, one
+        ``cpuFallback`` journal event each (obs/events.py)."""
+        assert self.root_meta is not None
+        out: List[ExecMeta] = []
+        stack = [self.root_meta]
+        while stack:
+            meta = stack.pop()
+            if meta.reasons:
+                out.append(meta)
+            stack.extend(reversed(meta.children))
+        return out
+
 
 class TransitionOverrides:
     """Transitions at the CPU/device boundaries, then batch coalescing

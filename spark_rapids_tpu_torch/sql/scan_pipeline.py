@@ -21,19 +21,36 @@ Contract (as in the JAX package):
     consuming thread when it is pulled.
 
 Backpressure: planned-but-unconsumed splits are host memory; submission
-stalls once their bytes exceed ``max_bytes``. The JAX package's journal
-events, spans, progress notes and device-budget gate are not ported, nor
-its reclaiming of splits a consumer skipped (partitions here are consumed
-in order). A wait for a planned split is a host wait, not a device sync,
-and is not counted by ``obs/syncledger``.
+stalls once their bytes exceed ``max_bytes``.
+
+Observability, as in the JAX package: each split's planning is a
+``scan.decode`` span on its planning thread, and a ``PROGRESS.scan_split``
+note; a consumer that waits for a split not planned yet is a
+``scan.prefetch.stall`` span, a ``scanStall`` journal event (the first
+``_EVENT_CAP`` of a scan) and the progress record's stalled state; a
+submission stopped by the byte budget is a ``scanBudgetStall`` event (on
+entering the stall only). ``obs/metrics.REGISTRY`` holds
+``scan.prefetch.{splits,bytesDecoded,budgetStalls,cancelled}``, the timers
+``scan.prefetch.{stallTime,decodeTime}`` and the gauges
+``scan.prefetch.{queueDepth,queueDepthPeak}`` (the session resets the peak
+per query). A wait for a planned split is a host wait, not a device
+sync, so unlike the JAX package's it is not a ``sync_scope``. Not ported:
+the JAX package's device-budget gate and its reclaiming of splits a
+consumer skipped (partitions here are consumed in order).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Callable, Iterator, List, Optional
+
+from spark_rapids_tpu_torch.obs.events import EVENTS
+from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+from spark_rapids_tpu_torch.obs.progress import PROGRESS
+from spark_rapids_tpu_torch.obs.trace import TRACER
 
 # one planning task per split: () -> a RawRowGroup or a pandas frame
 DecodeFn = Callable[[], object]
@@ -45,6 +62,16 @@ DEFAULT_MAX_BYTES = 256 << 20
 _POOL: Optional[ThreadPoolExecutor] = None
 _POOL_SIZE = 0
 _POOL_LOCK = threading.Lock()
+
+# metric handles, resolved once
+_STALL_TIME = REGISTRY.timer("scan.prefetch.stallTime")
+_DECODE_TIME = REGISTRY.timer("scan.prefetch.decodeTime")
+_QUEUE_DEPTH = REGISTRY.gauge("scan.prefetch.queueDepth")
+_QUEUE_PEAK = REGISTRY.gauge("scan.prefetch.queueDepthPeak")
+_SPLITS = REGISTRY.counter("scan.prefetch.splits")
+_CANCELLED = REGISTRY.counter("scan.prefetch.cancelled")
+_BYTES = REGISTRY.counter("scan.prefetch.bytesDecoded")
+_BUDGET_STALLS = REGISTRY.counter("scan.prefetch.budgetStalls")
 
 
 def default_threads() -> int:
@@ -100,21 +127,38 @@ class ScanPrefetcher:
         self._cancelled = False
         self._failed = False
         self._pending_bytes = 0           # planned, not yet consumed
+        self._inflight = 0
+        # journal sampling: a budget stall emits on entering it only, and
+        # decode stalls the first _EVENT_CAP of a scan (the timers and
+        # counters hold the exact totals)
+        self._budget_stalled = False
+        self._stall_events = 0
+
+    _EVENT_CAP = 16
 
     # -- worker side --------------------------------------------------------
     def _decode(self, i: int):
-        with self._lock:
-            if self._cancelled:
-                return None
-        out = self._tasks[i]()
-        nbytes = _nbytes(out)
-        with self._lock:
-            if self._cancelled:
-                # raced a cancel mid-planning: drop the result so the
-                # abandoned work retains no buffers or budget
-                return None
-            self._pending_bytes += nbytes
-        return out
+        try:
+            with self._lock:
+                if self._cancelled:
+                    return None
+            with _DECODE_TIME.time(), TRACER.span("scan.decode", split=i):
+                out = self._tasks[i]()
+            nbytes = _nbytes(out)
+            with self._lock:
+                if self._cancelled:
+                    # raced a cancel mid-planning: drop the result so the
+                    # abandoned work retains no buffers or budget
+                    return None
+                self._pending_bytes += nbytes
+            _BYTES.add(nbytes)
+            if PROGRESS.enabled:
+                PROGRESS.scan_split(nbytes)
+            return out
+        finally:
+            with self._lock:
+                self._inflight -= 1
+                _QUEUE_DEPTH.set(self._inflight)
 
     # -- consumer side ------------------------------------------------------
     def _submit_window_locked(self, i: int) -> None:
@@ -126,9 +170,20 @@ class ScanPrefetcher:
             if j in self._submitted:
                 continue
             if j > i and self._pending_bytes >= self._max_bytes:
+                _BUDGET_STALLS.add(1)
+                if not self._budget_stalled:
+                    self._budget_stalled = True
+                    EVENTS.emit("scanBudgetStall", split=j)
                 break
             self._submitted.add(j)
+            self._inflight += 1
+            _QUEUE_DEPTH.set(self._inflight)
+            if self._inflight > int(_QUEUE_PEAK.value):
+                _QUEUE_PEAK.set(self._inflight)
             self._futures[j] = self._pool.submit(self._decode, j)
+        else:
+            # the whole window went in: the next budget stall is a new one
+            self._budget_stalled = False
 
     def get(self, i: int):
         """Planned split ``i`` (blocking). Re-raises the split's planning
@@ -137,11 +192,25 @@ class ScanPrefetcher:
         with self._lock:
             self._submit_window_locked(i)
             fut = self._futures.pop(i, None)
+        _SPLITS.add(1)
         if fut is None:
             # split consumed before by another consumer: plan inline
             return self._tasks[i]()
         if not fut.done():
-            wait([fut], return_when=FIRST_COMPLETED)
+            t0 = time.perf_counter()
+            if PROGRESS.enabled:
+                PROGRESS.scan_stalled(True)
+            with TRACER.span("scan.prefetch.stall", split=i):
+                wait([fut], return_when=FIRST_COMPLETED)
+            if PROGRESS.enabled:
+                PROGRESS.scan_stalled(False)
+            stall_s = time.perf_counter() - t0
+            _STALL_TIME.record(stall_s)
+            with self._lock:
+                self._stall_events += 1
+                sample = self._stall_events <= self._EVENT_CAP
+            if sample:
+                EVENTS.emit("scanStall", split=i, stall_s=round(stall_s, 6))
         try:
             out = fut.result()
         except BaseException:
@@ -162,8 +231,15 @@ class ScanPrefetcher:
             futures = list(self._futures.values())
             self._futures.clear()
             self._pending_bytes = 0
+        n = 0
         for f in futures:
-            f.cancel()
+            if f.cancel():
+                n += 1
+        if n:
+            with self._lock:
+                self._inflight -= n
+                _QUEUE_DEPTH.set(self._inflight)
+            _CANCELLED.add(n)
 
 
 def build_partitions(tasks: List[DecodeFn], paths: List[str],

@@ -284,6 +284,26 @@ def test_port_imports_no_jax_and_no_reference_package():
         "t = {'lineitem': oo.create_dataframe(fr['lineitem'])}\n"
         "assert len(T.q1(oo, t).collect()) == 6\n"
         "oo.stop()\n"
+        "import json, os\n"
+        "from spark_rapids_tpu_torch.obs.events import read_events\n"
+        "from spark_rapids_tpu_torch.obs.progress import PROGRESS\n"
+        "from spark_rapids_tpu_torch.tools import trace_summary\n"
+        "d = tempfile.mkdtemp()\n"
+        "PROGRESS.configure(True)\n"
+        "ob = TpuSparkSession.builder().device('cpu').config(\n"
+        "    'spark.rapids.tpu.trace.path', os.path.join(d, 't.json')\n"
+        "    ).config('spark.rapids.tpu.eventLog.path',\n"
+        "    os.path.join(d, 'e.jsonl')).config(\n"
+        "    'spark.rapids.sql.profile.syncEachOp', True).get_or_create()\n"
+        "t = {'lineitem': ob.read.parquet(p['lineitem'])}\n"
+        "assert len(T.q1(ob, t).collect()) == 6\n"
+        "assert json.load(open(os.path.join(d, 't.json')))['traceEvents']\n"
+        "kinds = [e['kind'] for e in read_events(os.path.join(d, 'e.jsonl'))]\n"
+        "assert kinds[0] == 'queryStart' and kinds[-1] == 'queryEnd', kinds\n"
+        "assert ob.profile_json()['summary']['syncs']['count'] > 0\n"
+        "assert PROGRESS.queries(full=True)[0]['status'] == 'success'\n"
+        "trace_summary.main([os.path.join(d, 't.json')])\n"
+        "PROGRESS.configure(False)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

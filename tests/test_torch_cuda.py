@@ -1677,3 +1677,146 @@ def test_partition_columns_decode_as_device_constants(cuda_device,
             F.col("yr") == 1995).collect())
     assert _sorted_rows(outs[0]) == _sorted_rows(outs[1])
     assert len(outs[0]) == int((df.yr == 1995).sum())
+
+
+def _obs_session(**conf):
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    b = TpuSparkSession.builder().config("spark.rapids.sql.test.enabled",
+                                         True)
+    for k, v in conf.items():
+        b.config(k, v)
+    return b.get_or_create()
+
+
+@pytest.mark.cuda
+def test_transfer_guard_catches_an_uncounted_wait(cuda_device, monkeypatch):
+    """Under ``spark.rapids.tpu.debug.transferGuard=disallow`` (the sync
+    debug mode "error" around the query body) a session Q1 completes with
+    its counted syncs, and a filter that reads its row count with a bare
+    ``.item()`` (no ``sync_scope``) raises; without the guard the same
+    query completes."""
+    from spark_rapids_tpu_torch.exec.tpu import TpuFilterExec
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    li = G.gen_lineitem(0.01)
+    s = _obs_session()
+
+    def counted_q1():
+        before = dict(SYNCS.syncs)
+        got = tpch.q1(s, {"lineitem": s.create_dataframe(li)}).collect()
+        assert len(got) == 6
+        return {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                if v != before.get(k, 0)}
+    plain = counted_q1()
+    s.set_conf("spark.rapids.tpu.debug.transferGuard", "disallow")
+    assert counted_q1() == plain and plain["scan.upload"] == 1
+    assert torch.cuda.get_sync_debug_mode() == 0  # restored
+    orig = TpuFilterExec.partitions
+
+    def leaky(self, ctx):
+        def wrap(part):
+            def run():
+                for b in part():
+                    b.num_rows.item()  # an uncounted host wait
+                    yield b
+            return run
+        return [wrap(p) for p in orig(self, ctx)]
+    monkeypatch.setattr(TpuFilterExec, "partitions", leaky)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        tpch.q1(s, {"lineitem": s.create_dataframe(li)}).collect()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    s.set_conf("spark.rapids.tpu.debug.transferGuard", "off")
+    assert len(tpch.q1(s, {"lineitem": s.create_dataframe(li)})
+               .collect()) == 6
+
+
+@pytest.mark.cuda
+def test_nvtx_ranges_balance_across_a_raising_span(cuda_device,
+                                                   monkeypatch):
+    """Every NVTX range a span pushes is popped, an exception in the span
+    (or in a nested one) included. The pushes and pops are counted around
+    the real ``torch.cuda.nvtx`` calls (whose return value is no depth
+    without a profiler attached)."""
+    from spark_rapids_tpu_torch.obs.trace import Tracer
+    open_ranges = []
+    push, pop = torch.cuda.nvtx.range_push, torch.cuda.nvtx.range_pop
+
+    def counted_push(msg):
+        open_ranges.append(msg)
+        return push(msg)
+
+    def counted_pop():
+        open_ranges.pop()
+        return pop()
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", counted_push)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", counted_pop)
+    tr = Tracer()
+    tr.configure(True, nvtx=True)
+    with pytest.raises(ValueError):
+        with tr.span("outer"):
+            with tr.span("inner"):
+                assert open_ranges == ["outer", "inner"]
+                raise ValueError("x")
+    assert open_ranges == []
+    with tr.span("ok"):
+        assert open_ranges == ["ok"]
+    assert open_ranges == []
+    assert [e["name"] for e in tr.events()] == ["inner", "outer", "ok"]
+    assert tr.events()[0]["args"]["error"] == "ValueError"
+
+
+@pytest.mark.cuda
+def test_session_nvtx_trace_on_the_card(cuda_device, tmp_path):
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.obs.trace import TRACER
+    path = str(tmp_path / "q1.trace.json")
+    s = _obs_session(**{"spark.rapids.tpu.trace.path": path,
+                        "spark.rapids.tpu.trace.nvtx": True})
+    try:
+        got = tpch.q1(s, {"lineitem": s.create_dataframe(
+            G.gen_lineitem(0.01))}).collect()
+    finally:
+        TRACER.configure(False)
+    assert len(got) == 6
+    import json
+    names = {ev["name"] for ev in json.load(open(path))["traceEvents"]}
+    assert {"Query", "TpuScanExec", "sync.batch.fetch"} <= names
+
+
+@pytest.mark.cuda
+def test_obs_phase_checks_at_a_small_size(cuda_device, tmp_path,
+                                          monkeypatch):
+    """``chip_smoke.obs_phase`` at SF 0.05: the three modes' answers and
+    syncs agree, the traced Q3's spans, sync track, ledger and journal
+    agree, the syncEachOp breakdown sums to each node's exclusive time,
+    the guarded Q3 keeps its syncs, and Q9's trace summarizes."""
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    monkeypatch.setattr(cs, "OBS_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cs, "OBS_OUT", str(tmp_path / "out"))
+    sf = 0.05
+    frames = {"lineitem": G.gen_lineitem(sf), "orders": G.gen_orders(sf),
+              "customer": G.gen_customer(sf)}
+    sess = cs.session_of(1 << 16, **tpch.HASH_AGG_CONFS)
+    tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    tpch.q3(sess, tables).collect()
+    framesh = dict(frames, supplier=G.gen_supplier(sf),
+                   part=G.gen_part(sf), partsupp=G.gen_partsupp(sf),
+                   nation=G.gen_nation())
+    paths = G.write_parquet(str(tmp_path / "pq"), sf, tables=list(framesh),
+                            frames=framesh)
+    from spark_rapids_tpu_torch.testing import tpchcases
+    report = {}
+    cs.obs_phase((sess, tables, cs.q3_reference(
+        frames["lineitem"], frames["orders"], frames["customer"])),
+        paths, tpchcases.pandas_reference("q9", framesh),
+        framesh["lineitem"], 1 << 16, 1, {}, report)
+    rec = report["obs_phase"]
+    assert rec["session_q3"]["syncs_before_collect"] == {
+        "join.expandTotals": 2}
+    assert rec["q3_sync_each_op"]["worst_breakdown_gap_s"] <= 1e-3
+    assert rec["q9_parquet"]["sync_by_site"]
+    assert 0.0 <= rec["q9_parquet"]["occupancy_pct"] <= 100.0
