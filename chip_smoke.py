@@ -48,9 +48,9 @@ port's main path through its query runners:
     replace over the review text, each equal to pandas, and the string
     functions and casts of ``testing/stringcases.py`` over a plain column
     at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
-    TPCxBB queries at SF 30;
+    TPCxBB queries at SF 20;
   * the four Mortgage queries (``models/mortgage.py``) through the
-    session in 2^20-row batches, the ETL at SF 250 (6M performance rows
+    session in 2^20-row batches, the ETL at SF 150 (3.6M performance rows
     expanded 12 times) and the other three at SF 500, each against its
     pandas reference (``testing/mortgagecases.py``), with its peak device
     memory, join routes and launches;
@@ -75,6 +75,15 @@ port's main path through its query runners:
     "error" around the query) with the same syncs; one traced Q9 from
     Parquet, its top spans and sync sites by ``tools/trace_summary.py``
     (artifacts in ``chiprun_out/obs/``);
+  * the shuffle phase (``shuffle_phase``, after the observability phase;
+    ``--shuffle-only`` runs it alone): the exchange's LOCAL buckets route
+    on the session Q3 cell (8 partitions, B1-B4 in each, syncs by site as
+    stated), a range-partitioned global sort of SF1 lineitem against a
+    numpy lexsort, ``repartition(4)`` of SF1 customer written as 4
+    Parquet files on the card, and Q3 at SF1 through the accelerated
+    shuffle manager over two executors, in process and over TCP loopback
+    sockets (with a connection dropped mid-transfer and retried), each
+    equal to pandas, and the warm walls of Q3 on the four routes;
   * the expression phase (``expression_phase``, after the session's
     Parquet cells): TPC-H Q1 as a rollup and a three-key cube over SF10
     lineitem (the session Q1 cell's cached upload) through B1 and B2,
@@ -135,6 +144,7 @@ result, when no CUDA device is present or any phase fails. Details go to
     python3 chip_smoke.py --quick    # small shapes: build and check only
     python3 chip_smoke.py --scan-write-only   # that phase alone, SF1
     python3 chip_smoke.py --obs-only          # the observability phase
+    python3 chip_smoke.py --shuffle-only      # the shuffle phase, SF1
 """
 
 from __future__ import annotations
@@ -4268,6 +4278,384 @@ def obs_only() -> int:
     return 0
 
 
+SHUFFLE_DIR = os.path.join("spark_rapids_tpu_torch", "build", "shuffle")
+# the buckets route's partitions (spark.rapids.sql.shuffle.partitions)
+SHUFFLE_PARTS = 8
+# the MANAGER cells: two simulated executors, joins shuffled, the SF1
+# tables in two partitions each, so half the map tasks' blocks cross the
+# transport
+SHUFFLE_MAP_PARTS = 2
+SHUFFLE_MANAGER_CONFS = {"spark.rapids.shuffle.transport.enabled": True,
+                         "spark.rapids.shuffle.executors": 2,
+                         "spark.rapids.sql.autoBroadcastJoinThreshold": -1}
+GUARD = {"spark.rapids.tpu.debug.transferGuard": "disallow"}
+
+
+def q3_bucket_syncs(parts: int) -> dict:
+    """Session Q3's counted syncs up to its collect on the LOCAL buckets
+    route, stated before it runs: one ``exchange.split`` a window of 16
+    batches of each of its six exchanges (four join inputs, the
+    aggregate's, the sort's range; none past 16 batches at 2^23-row
+    batches), one ``exchange.rangeBounds`` (the sort's), each of the two
+    expanding joins once in each of the ``parts`` partitions, and the
+    limit's remaining count once (its input is ``parts`` partitions)."""
+    return {"exchange.split": 6, "exchange.rangeBounds": 1,
+            "join.expandTotals": 2 * parts, "limit.remaining": 1}
+
+
+def q3_manager_syncs(parts: int, map_parts: int, blocks: int) -> dict:
+    """The same on the MANAGER route: ``exchange.split`` once a map task
+    of each exchange (the three scans' ``map_parts`` each, the join's,
+    the aggregate's and the range exchange's ``parts`` each, one window
+    apiece), and one ``exchange.wire`` a block the other executor serves
+    (``blocks``, counted as the writer registers them)."""
+    return {"exchange.split": 3 * map_parts + 3 * parts,
+            "exchange.rangeBounds": 1, "join.expandTotals": 2 * parts,
+            "limit.remaining": 1, "exchange.wire": blocks}
+
+
+class _remote_blocks:
+    """``with _remote_blocks(sess) as n:`` counts the blocks that
+    ``CachingShuffleWriter`` registers on executors other than the reduce
+    side's (``sess.shuffle_env``), ``n["blocks"]``: the ones a fetch
+    serializes."""
+
+    def __init__(self, sess):
+        self._local = sess.shuffle_env
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.shuffle import manager as M
+        self._real = real = M.CachingShuffleWriter.write
+        box = {"blocks": 0}
+        local = self._local
+
+        def write(w, partition_batches):
+            if w.env is not local:
+                box["blocks"] += sum(len(b) for b in partition_batches)
+            return real(w, partition_batches)
+        M.CachingShuffleWriter.write = write
+        return box
+
+    def __exit__(self, *exc):
+        from spark_rapids_tpu_torch.shuffle import manager as M
+        M.CachingShuffleWriter.write = self._real
+        return False
+
+
+def _reset_shuffle_envs(sess) -> None:
+    """Close the session's executor pool: the next exchange builds it
+    anew with the current transport class."""
+    if sess._shuffle_env is not None:
+        for env in sess._shuffle_env:
+            env.close()
+        sess._shuffle_env = None
+
+
+def _left_over(sess, catalog_before: int) -> dict:
+    """What a query left behind: transient ids, catalog entries past
+    ``catalog_before``, registered shuffles and shuffle blocks."""
+    envs = sess._shuffle_env or []
+    return {"transients": len(sess._transient_bids),
+            "catalog": len(sess.buffer_catalog._buffers) - catalog_before,
+            "shuffles": len(sess._active_shuffles),
+            "blocks": sum(len(e.shuffle_catalog._blocks) for e in envs),
+            "received": sum(len(e.received_catalog._received)
+                            for e in envs)}
+
+
+def _median_wall(fn, runs: int) -> tuple:
+    walls = []
+    out = None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), walls, out
+
+
+def _ledger_seconds(since: int, site: str) -> float:
+    from spark_rapids_tpu_torch.obs.syncledger import SYNC_LEDGER
+    return sum(e["seconds"] for e in SYNC_LEDGER.entries(since_seq=since)
+               if e["site"] == site)
+
+
+def shuffle_phase(q3_cell, li1, o1, c1, batch_rows: int, runs: int,
+                  queries: dict, report: dict,
+                  hash_joins: bool = True) -> None:
+    """The exchange's one-card routes and the accelerated shuffle manager
+    (``exec/tpu.TpuShuffleExchangeExec``, ``shuffle/``) on the card, every
+    query under the sync debug mode "error" (the transfer guard), each
+    answer against pandas:
+
+      1. LOCAL buckets, hash: the session Q3 cell (its cached uploads,
+         ``HASH_AGG_CONFS``, two shuffled joins) with ``localCollapse``
+         off and SHUFFLE_PARTS partitions: B1-B4 in every partition,
+         equal to pandas and to the collapse route, the counted syncs by
+         site ``q3_bucket_syncs``, nothing left in the catalog;
+      2. LOCAL buckets, range: SF1 lineitem ordered by (l_extendedprice
+         desc, l_orderkey, l_linenumber), in order equal to a numpy
+         lexsort, one ``exchange.rangeBounds`` sync;
+      3. round-robin on the card: ``repartition(4)`` of SF1 customer
+         written as Parquet, no CPU operator: 4 files whose row counts
+         differ by at most 1, read back equal to the frame as a multiset;
+      4. MANAGER: Q3 at SF1 over two executors, ``inprocess`` and
+         ``socket``, equal to pandas, the counted syncs
+         ``q3_manager_syncs``, the shuffle catalogs empty after it; the
+         bytes on the wire and the ``exchange.wire`` seconds; then with
+         the socket peer's ``fault_drop_tagged_after(1)`` armed, the same
+         answer after one retry (``shuffle.fetch.retries`` 1, one
+         ``fetchRetry`` event);
+      5. the warm walls of Q3 (median of ``runs``) on the collapse, the
+         buckets and both MANAGER routes at SF1, and on the collapse and
+         buckets routes on the cell's uploads.
+
+    Uploads SF1 lineitem, orders and customer (the frames ``li1``,
+    ``o1``, ``c1``), nothing at SF10. ``hash_joins``: a join of the cell
+    takes the hash route (B3/B4) on the collapse route, as at SF10; a
+    smaller cell's may all take the dense one."""
+    import glob
+
+    import pyarrow.parquet as pq
+
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.obs.events import EVENTS
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    from spark_rapids_tpu_torch.obs.syncledger import SYNC_LEDGER
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.sql import functions as F
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    sess, tables, q3_want = q3_cell
+    buckets = {"spark.rapids.sql.shuffle.localCollapse": False,
+               "spark.rapids.sql.shuffle.partitions": SHUFFLE_PARTS}
+
+    # 1. LOCAL buckets, hash, on the cell's uploads
+    K.reset_launches()
+    collapse_out = T.q3(sess, tables).collect()
+    collapse_launches = dict(K.LAUNCHES)
+    check_q3(collapse_out, q3_want)
+    require(not hash_joins or collapse_launches["hash_table_build"] > 0,
+            f"shuffle Q3 collapse: launches {collapse_launches}, expected "
+            f"a join on B3/B4")
+    with _confs(sess, buckets):
+        T.q3(sess, tables).collect()  # warm: the partial skip decision
+        want = q3_bucket_syncs(SHUFFLE_PARTS)
+        pre = _syncs_by_site(T.q3(sess, tables).collect_batches)
+        require(pre == want, f"shuffle Q3 buckets: syncs before the "
+                f"collect {pre}, stated {want}")
+        catalog_before = len(sess.buffer_catalog._buffers)
+        seq = SYNC_LEDGER.seq
+        with _confs(sess, GUARD):
+            K.reset_launches()
+            out = T.q3(sess, tables).collect()
+            launches = dict(K.LAUNCHES)
+        sync_s = {site: _ledger_seconds(seq, site) for site in
+                  ("exchange.split", "exchange.rangeBounds",
+                   "join.expandTotals")}
+        check_q3(out, q3_want)
+        same_by_key(out, collapse_out, ["l_orderkey"],
+                    "shuffle Q3 buckets against the collapse route")
+        left = _left_over(sess, catalog_before)
+        require(not any(left.values()), f"shuffle Q3 buckets left {left}")
+        # each hash-route join builds (B3) and probes (B4) in every
+        # partition, the final aggregate runs B2 in every partition
+        require(launches["hash_table_build"]
+                == SHUFFLE_PARTS * collapse_launches["hash_table_build"]
+                and launches["hash_table_probe"]
+                >= launches["hash_table_build"]
+                and launches["hash_grouped_aggregate"] >= SHUFFLE_PARTS
+                and launches["compact_permutation"] > 0,
+                f"shuffle Q3 buckets: launches {launches}, collapse "
+                f"{collapse_launches}: expected B3 and B4 in each hash join "
+                f"of each partition, B2 in each")
+        sf10_walls = {}
+        sf10_walls["buckets"], runs_b, _ = _median_wall(
+            lambda: T.q3(sess, tables).collect(), runs)
+    sf10_walls["collapse"], runs_c, _ = _median_wall(
+        lambda: T.q3(sess, tables).collect(), runs)
+    rec["q3_buckets_hash"] = {"syncs_before_collect": pre,
+                              "sync_s": sync_s, "launches": launches,
+                              "collapse_launches": collapse_launches,
+                              "wall_s": sf10_walls, "wall_runs_s": {
+                                  "buckets": runs_b, "collapse": runs_c}}
+    log(f"shuffle Q3 buckets ({SHUFFLE_PARTS} partitions, cell uploads): "
+        f"syncs {pre}, their seconds {sync_s}, launches {launches}, "
+        f"walls buckets "
+        f"{sf10_walls['buckets']:.4f} s collapse "
+        f"{sf10_walls['collapse']:.4f} s")
+
+    # 2. LOCAL buckets, range: a global sort of SF1 lineitem
+    cols = ["l_orderkey", "l_linenumber", "l_extendedprice", "l_quantity"]
+    rs = session_of(batch_rows, **dict(buckets, **GUARD))
+    frame = li1[cols]
+    ldf = rs.create_dataframe(frame)
+
+    def ordered():
+        return ldf.order_by(F.col("l_extendedprice").desc(), "l_orderkey",
+                            "l_linenumber")
+    ordered().collect()  # the cold run: the upload
+    pre = _syncs_by_site(ordered().collect_batches)
+    require(pre.get("exchange.rangeBounds") == 1
+            and pre.get("exchange.split") == 1, f"shuffle range sort: "
+            f"syncs before the collect {pre}, stated one rangeBounds and "
+            f"one split")
+    # one timed run: its 6M rows' collect to pandas leads its wall
+    wall, walls, out = _median_wall(lambda: ordered().collect(), 1)
+    order = np.lexsort((frame.l_linenumber.to_numpy(),
+                        frame.l_orderkey.to_numpy(),
+                        -frame.l_extendedprice.to_numpy()))
+    for c in cols:
+        require(np.array_equal(out[c].to_numpy(), frame[c].to_numpy()[order]),
+                f"shuffle range sort: {c} differs from the lexsort")
+    rec["range_sort"] = {"rows": len(frame), "syncs_before_collect": pre,
+                         "wall_s": wall, "wall_runs_s": walls}
+    log(f"shuffle range sort of {len(frame)} rows: {wall:.4f} s, syncs {pre}")
+    rs.clear_device_cache()
+
+    # 3. round-robin on the card: repartition(4).write.parquet
+    out_dir = os.path.join(SHUFFLE_DIR, "customer_rr")
+    cdf = rs.create_dataframe(c1).repartition(4)
+    require(all(not n.name.startswith("Cpu") for n in
+                rs.physical_plan(cdf._plan).walk()),
+            "shuffle repartition: a CPU operator in the plan")
+    t0 = time.perf_counter()
+    cdf.write.mode("overwrite").parquet(out_dir)
+    write_s = time.perf_counter() - t0
+    files = sorted(glob.glob(os.path.join(out_dir, "*.parquet")))
+    counts = [pq.ParquetFile(f).metadata.num_rows for f in files]
+    require(len(files) == 4 and max(counts) - min(counts) <= 1
+            and sum(counts) == len(c1), f"shuffle repartition(4): files "
+            f"{len(files)} of rows {counts}")
+    back = pq.read_table(out_dir).to_pandas().sort_values(
+        "c_custkey").reset_index(drop=True)
+    want_c = c1.sort_values("c_custkey").reset_index(drop=True)
+    for c in want_c.columns:
+        require(list(back[c]) == list(want_c[c]),
+                f"shuffle repartition(4): {c} read back differs")
+    rec["repartition_write"] = {"files": len(files), "rows": counts,
+                                "wall_s": write_s}
+    log(f"shuffle repartition(4) write of {len(c1)} customer rows: "
+        f"{write_s:.4f} s, rows per file {counts}")
+    rs.stop()
+    del rs, ldf, cdf, back
+
+    # 4. MANAGER over inprocess and socket, and 5. the SF1 walls
+    q3_want1 = q3_reference(li1, o1, c1)
+    ms = session_of(batch_rows, **dict(T.HASH_AGG_CONFS,
+                                       **SHUFFLE_MANAGER_CONFS))
+    t1 = {"lineitem": ms.create_dataframe(li1, SHUFFLE_MAP_PARTS),
+          "orders": ms.create_dataframe(o1, SHUFFLE_MAP_PARTS),
+          "customer": ms.create_dataframe(c1, SHUFFLE_MAP_PARTS)}
+    walls1, walls1_runs = {}, {}
+    with _confs(ms, {"spark.rapids.shuffle.transport.enabled": False}):
+        check_q3(T.q3(ms, t1).collect(), q3_want1)  # the uploads
+        walls1["collapse"], walls1_runs["collapse"], out = _median_wall(
+            lambda: T.q3(ms, t1).collect(), runs)
+        check_q3(out, q3_want1)
+        with _confs(ms, buckets):
+            T.q3(ms, t1).collect()
+            walls1["buckets"], walls1_runs["buckets"], out = _median_wall(
+                lambda: T.q3(ms, t1).collect(), runs)
+        check_q3(out, q3_want1)
+    for transport in ("inprocess", "socket"):
+        _reset_shuffle_envs(ms)
+        with _confs(ms, {"spark.rapids.shuffle.transport.class": transport,
+                         "spark.rapids.sql.shuffle.partitions":
+                             SHUFFLE_PARTS}):
+            T.q3(ms, t1).collect()  # warm: the executors and their servers
+            with _remote_blocks(ms) as blocks:
+                pre = _syncs_by_site(T.q3(ms, t1).collect_batches)
+            want = q3_manager_syncs(SHUFFLE_PARTS, SHUFFLE_MAP_PARTS,
+                                    blocks["blocks"])
+            require(pre == want, f"shuffle Q3 manager {transport}: syncs "
+                    f"before the collect {pre}, stated {want}")
+            catalog_before = len(ms.buffer_catalog._buffers)
+            seq = SYNC_LEDGER.seq
+            nbytes = REGISTRY.value("shuffle.fetch.bytes") or 0
+            with _confs(ms, GUARD):
+                out = T.q3(ms, t1).collect()
+            check_q3(out, q3_want1)
+            left = _left_over(ms, catalog_before)
+            require(not any(left.values()),
+                    f"shuffle Q3 manager {transport} left {left}")
+            wire_bytes = (REGISTRY.value("shuffle.fetch.bytes") or 0) - nbytes
+            wire_s = _ledger_seconds(seq, "exchange.wire")
+            walls1[transport], walls1_runs[transport], out = _median_wall(
+                lambda: T.q3(ms, t1).collect(), runs)
+            check_q3(out, q3_want1)
+            cell = {"syncs_before_collect": pre, "wire_bytes": wire_bytes,
+                    "wire_sync_s": wire_s,
+                    "split_sync_s": _ledger_seconds(seq, "exchange.split"),
+                    "range_bounds_sync_s": _ledger_seconds(
+                        seq, "exchange.rangeBounds")}
+            if transport == "socket":
+                # a connection dropped mid-transfer: one retry
+                envs = ms.shuffle_envs
+                retries = REGISTRY.value("shuffle.fetch.retries") or 0
+                ev_seq = max((e["seq"] for e in EVENTS.flight_events()),
+                             default=0)
+                envs[1].transport.fault_drop_tagged_after(1)
+                out = T.q3(ms, t1).collect()
+                check_q3(out, q3_want1)
+                got = (REGISTRY.value("shuffle.fetch.retries") or 0) - retries
+                events = [e for e in EVENTS.flight_events()
+                          if e["seq"] > ev_seq and e["kind"] == "fetchRetry"]
+                require(got == 1 and len(events) == 1
+                        and envs[1].transport.stats["faults_fired"] == 1,
+                        f"shuffle Q3 socket drop: retries {got}, fetchRetry "
+                        f"events {len(events)}, stats "
+                        f"{envs[1].transport.stats}")
+                cell["drop_retry"] = {"retries": got,
+                                      "stats": dict(envs[1].transport.stats)}
+            rec[f"q3_manager_{transport}"] = cell
+            log(f"shuffle Q3 manager {transport}: syncs {pre}, "
+                f"{wire_bytes} bytes fetched over the wire, exchange.wire "
+                f"{wire_s:.4f} s, exchange.split "
+                f"{cell['split_sync_s']:.4f} s, exchange.rangeBounds "
+                f"{cell['range_bounds_sync_s']:.4f} s")
+    rec["q3_sf1_walls_s"] = walls1
+    rec["q3_sf1_wall_runs_s"] = walls1_runs
+    log("shuffle Q3 SF1 warm walls (median of "
+        f"{runs}): " + ", ".join(f"{k} {v:.4f} s" for k, v in walls1.items()))
+    ms.stop()
+    del ms, t1
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"shuffle phase: {rec['phase_s']:.1f} s")
+    report["shuffle_phase"] = rec
+
+
+def shuffle_only() -> int:
+    """The shuffle phase alone, on SF1 frames: the Q3 cell's uploads in
+    2^23-row batches with shuffled joins. Details go to
+    ``chiprun_out/chip_smoke_shuffle.json``."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(1), "orders": G.gen_orders(1),
+              "customer": G.gen_customer(1)}
+    sess = session_of(1 << 23, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
+    tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    T.q3(sess, tables).collect()  # the cold run: the cached uploads
+    log(f"frames and upload: {time.perf_counter() - t0:.1f} s")
+    queries, report = {}, {}
+    shuffle_phase((sess, tables, q3_reference(frames["lineitem"],
+                                              frames["orders"],
+                                              frames["customer"])),
+                  frames["lineitem"], frames["orders"], frames["customer"],
+                  1 << 23, 3, queries, report, hash_joins=False)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_shuffle.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def scan_write_only() -> int:
     """The scan-and-write phase alone, on SF1 frames and files made here.
     Details go to ``chiprun_out/chip_smoke_scan_write.json``."""
@@ -4315,6 +4703,9 @@ def main() -> int:
                     help="build the kernels and run only the observability "
                          "phase (SF1 Q3 uploads, SF 0.5 files made here); "
                          "prints no result")
+    ap.add_argument("--shuffle-only", action="store_true",
+                    help="build the kernels and run only the shuffle phase "
+                         "(SF1 frames made here); prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -4334,6 +4725,8 @@ def main() -> int:
         return scan_write_only()
     if args.obs_only:
         return obs_only()
+    if args.shuffle_only:
+        return shuffle_only()
     children: list = []
     try:
         return run(args, children)
@@ -4378,16 +4771,17 @@ WINDOW_ROWS = 1 << 20
 # smoke's time (PERF.md)
 SESSION_PARQUET_SF = 0.5
 WINDOW_ROWS_QUICK = 1 << 16
-# the ETL at SF 250, the other three at SF 500: the smoke keeps within
+# the ETL at SF 150, the other three at SF 500: the smoke keeps within
 # its time limit (the ETL at SF 500 on one H100: 7.46 s warm, 31.0 GiB
-# peak, equal to pandas; PERF.md)
+# peak, equal to pandas; PERF.md); the ETL cut from SF 250 once the
+# shuffle phase came (PERF.md §4)
 MORTGAGE_SF = 500
-MORTGAGE_ETL_SF = 250
+MORTGAGE_ETL_SF = 150
 # cut from SF 250 for the smoke's time once the plain-strings phase came
 # in, to SF 150 once the expression phase did, to SF 50 once the
-# scan-and-write phase did, then to SF 30 once the observability phase
-# did (PERF.md §4)
-TPCXBB_SF = 30
+# scan-and-write phase did, to SF 30 once the observability phase did,
+# then to SF 20 once the shuffle phase did (PERF.md §4)
+TPCXBB_SF = 20
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -4926,6 +5320,11 @@ def run(args, children: list) -> int:
     # observability, on the session Q3 cell's uploads and these files
     obs_phase(q3_cell, pathsh, q9_out, framesh["lineitem"], q1_batch,
               1 if args.quick else 3, queries, report)
+    torch.cuda.empty_cache()
+    # the exchange's routes and the shuffle manager, on the same cell and
+    # the SF1 frames
+    shuffle_phase(q3_cell, df, o1, c1, q1_batch, 1 if args.quick else 3,
+                  queries, report)
     q3_cell[0].clear_device_cache()
     del framesh, q3_cell
     torch.cuda.empty_cache()

@@ -19,6 +19,12 @@ Tables are int64 numpy arrays holding the uint64 patterns (the port's
 64-bit convention, ``ops/hashing.py``). The JAX package's
 ``hash_values_enabled`` switch is not ported: every spelling gives the same
 bits, so the port always takes the tables.
+
+``wire_enabled()`` is the process-wide ``spark.rapids.sql.dict.wire``
+flag the shuffle wire reads (``shuffle/wire.py``: dictionary columns as
+codes and values, frame v2, or as chars and offsets, v1); the session
+sets it from its conf at the start of each query
+(``configure_from_conf``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -30,6 +36,19 @@ import numpy as np
 
 _M64 = (1 << 64) - 1
 _PREFIX_CHUNKS = 8  # keep in sync with ops/sortops.STRING_PREFIX_CHUNKS
+
+# process-wide, like the session conf it mirrors: concurrent queries of one
+# session share one conf; every combination is correct (v1 and v2 frames
+# both deserialize), only the representation on the wire changes
+_FLAGS = {"wire": True}
+
+
+def configure_from_conf(conf) -> None:
+    _FLAGS["wire"] = conf.get_bool("spark.rapids.sql.dict.wire", True)
+
+
+def wire_enabled() -> bool:
+    return _FLAGS["wire"]
 
 
 def union_dictionaries(dicts: Sequence[tuple]

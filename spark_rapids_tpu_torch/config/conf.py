@@ -2,7 +2,8 @@
 ``config/conf.py``, holding only the keys the port reads).
 
 Every knob is a registered ``ConfEntry`` with a key, a converter, the JAX
-package's default and a doc string; ``TpuConf`` wraps a dict of settings
+package's default, a doc string and, where the JAX package has one, its
+validator (a bad value raises ValueError when it is set); ``TpuConf`` wraps a dict of settings
 with typed accessors. Unregistered keys are allowed (the per-operator
 enable keys ``spark.rapids.sql.exec.<Name>`` are generated by the
 overrides) and read back as given.
@@ -20,9 +21,15 @@ class ConfEntry:
     conv: Callable[[str], Any]
     default: Any
     doc: str
+    validator: Optional[Callable[[Any], Optional[str]]] = None
 
     def convert(self, raw: Any) -> Any:
-        return self.conv(raw) if isinstance(raw, str) else raw
+        value = self.conv(raw) if isinstance(raw, str) else raw
+        if self.validator is not None:
+            err = self.validator(value)
+            if err:
+                raise ValueError(f"invalid value for {self.key}: {err}")
+        return value
 
 
 _REGISTRY: Dict[str, ConfEntry] = {}
@@ -46,9 +53,15 @@ def _to_bytes(s: str) -> int:
     return int(s)
 
 
+def _positive(v: Any) -> Optional[str]:
+    return None if v > 0 else f"must be positive, got {v}"
+
+
 def register(key: str, conv: Callable[[str], Any], default: Any,
-             doc: str) -> ConfEntry:
-    entry = ConfEntry(key, conv, default, doc)
+             doc: str,
+             validator: Optional[Callable[[Any], Optional[str]]] = None
+             ) -> ConfEntry:
+    entry = ConfEntry(key, conv, default, doc, validator)
     _REGISTRY[key] = entry
     return entry
 
@@ -82,6 +95,15 @@ CACHE_DEVICE_SCANS = register(
 SHUFFLE_PARTITIONS = register(
     "spark.rapids.sql.shuffle.partitions", int, 8,
     "Number of shuffle output partitions of a hash exchange.")
+SHUFFLE_LOCAL_COLLAPSE = register(
+    "spark.rapids.sql.shuffle.localCollapse", _to_bool, True,
+    "When no device mesh is configured, collapse device-side shuffle "
+    "exchanges to a single output partition instead of materializing n "
+    "hash/range buckets. On one chip the buckets are pure overhead (they "
+    "serialize anyway) and bucket-count readback costs a device->host "
+    "round trip per window; the collapsed exchange is one fused concat "
+    "with zero synchronization. Multi-chip meshes ignore this and "
+    "exchange for real over ICI collectives.")
 AGG_SKIP_RATIO = register(
     "spark.rapids.sql.agg.skipAggPassReductionRatio", float, 0.45,
     "Partial-aggregation skip, decided at run time: the partial pass "
@@ -104,6 +126,15 @@ BROADCAST_THRESHOLD = register(
     "Maximum estimated build-side size for which a join uses a broadcast "
     "exchange instead of hash-partitioned exchanges "
     "(spark.sql.autoBroadcastJoinThreshold equivalent). -1 disables.")
+
+DICT_WIRE = register(
+    "spark.rapids.sql.dict.wire", _to_bool, True,
+    "Ship dictionary-encoded string columns over the shuffle wire as "
+    "int32 codes + the dictionary values (wire format v2) instead of "
+    "materialized char slabs, and rebuild them codes-only on the reduce "
+    "side. false writes legacy v1 chars+offsets frames (dictionary "
+    "columns decode host-side at serialization, still with no device "
+    "char gather).")
 
 DICT_BLOCKED_CHARS = register(
     "spark.rapids.sql.dict.blockedChars", _to_bool, True,
@@ -132,6 +163,71 @@ FUSE_COUNT_DISTINCT = register(
     "pass (exec/aggfuse.py): hash group ids over kernel B3 where every "
     "key is fixed-width or a dictionary, one sort where a key is a char "
     "slab.")
+
+# --- shuffle transport (ref RapidsConf.scala:520-601) ----------------------
+SHUFFLE_FETCH_RETRIES = register(
+    "spark.rapids.shuffle.maxFetchRetries", int, 3,
+    "Bounded retries PER PEER GROUP when a shuffle fetch fails over the "
+    "transport before the error propagates: a failure re-fetches only "
+    "that peer's blocks (the in-process analogue of the reference "
+    "mapping transport errors into Spark's stage retry).")
+
+SHUFFLE_TRANSPORT_ENABLED = register(
+    "spark.rapids.shuffle.transport.enabled", _to_bool, False,
+    "Enable the accelerated shuffle manager: shuffle blocks stay in device "
+    "memory (spilling through the store framework) and move between workers "
+    "over the mesh interconnect instead of the host serializer path.")
+
+SHUFFLE_TRANSPORT_CLASS = register(
+    "spark.rapids.shuffle.transport.class", str, "inprocess",
+    "Transport implementation for the accelerated shuffle manager: "
+    "'inprocess' (direct-call, single process) or 'socket' (real TCP "
+    "loopback framing — the wire path the reference runs over UCX, "
+    "UCXShuffleTransport.scala). The SPI accepts other implementations "
+    "by class path.")
+
+SHUFFLE_EXECUTORS = register(
+    "spark.rapids.shuffle.executors", int, 1,
+    "Number of simulated executors for the accelerated shuffle manager: "
+    "map tasks stripe across this many ShuffleEnvs (each with its own "
+    "transport endpoint and server), so reduce-side fetches of other "
+    "executors' blocks traverse the full serializer->server->client wire "
+    "path instead of the local catalog.", validator=_positive)
+
+SHUFFLE_MAX_INFLIGHT = register(
+    "spark.rapids.shuffle.maxMetadataFetchesInFlight", int, 128,
+    "Bound on simultaneous in-flight shuffle fetches per task.",
+    validator=_positive)
+
+SHUFFLE_BOUNCE_BUFFER_SIZE = register(
+    "spark.rapids.shuffle.bounceBuffers.size", _to_bytes, 4 << 20,
+    "Size of each staging (bounce) buffer used when moving shuffle data "
+    "between tiers or peers.")
+
+SHUFFLE_BOUNCE_BUFFER_COUNT = register(
+    "spark.rapids.shuffle.bounceBuffers.count", int, 16,
+    "Number of staging buffers per direction.", validator=_positive)
+
+SHUFFLE_TRANSPORT_MODE = register(
+    "spark.rapids.tpu.shuffle.transport.mode", str, "legacy",
+    "Per-edge shuffle transport selection (shuffle/manager.py "
+    "ShuffleTransportKind). 'legacy' (default) reproduces the historical "
+    "selection byte-identically: a configured device mesh routes "
+    "hash/range (and device-count roundrobin) exchanges over the ICI "
+    "mesh collective, spark.rapids.shuffle.transport.enabled routes them "
+    "through the catalog+transport shuffle manager (inprocess/socket "
+    "wire), everything else collapses locally. 'auto' picks per edge: "
+    "in-slice edges (a mesh is configured and the partitioning is mesh-"
+    "compatible) ride ICI, cross-host edges (a multi-executor transport "
+    "pool is configured) ride the socket/DCN manager path, the rest stay "
+    "local. 'ici' forces the mesh collective for every compatible edge "
+    "(local fallback without a mesh); 'manager' forces the shuffle-"
+    "manager wire path; 'local' forces single-process collapse — the "
+    "rollback switch.",
+    validator=(lambda v: None if str(v) in
+               ("legacy", "auto", "ici", "manager", "local")
+               else f"must be one of legacy|auto|ici|manager|local, "
+                    f"got {v}"))
 
 # --- file formats (the reference's RapidsConf.scala:433-474) ------------
 PARQUET_ENABLED = register(

@@ -214,6 +214,9 @@ class ExecContext:
         # catalog ids of this query's transient spillables (broadcast
         # tables, reused subtrees, out-of-core buckets), freed at its end
         self.transient_bids: set = set()
+        # the shuffle ids this query registered with the shuffle manager
+        # (session.next_shuffle_id), unregistered at its end
+        self.active_shuffles: list = []
         # {operator: {metric: value}} of this query
         self.metrics: dict = {}
         self._metrics_lock = threading.Lock()

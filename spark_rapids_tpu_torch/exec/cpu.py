@@ -354,6 +354,18 @@ class CpuShuffleExchangeExec(PhysicalPlan):
                         sel = df[pids == pid]
                         if len(sel):
                             buckets[pid].append(sel.reset_index(drop=True))
+            if kind == "hash" and n > 1 and ctx.metrics_enabled:
+                # shuffle-skew observability, independent of AQE: per-
+                # shuffle max/median partition-size ratio (obs/shuffleobs)
+                from spark_rapids_tpu_torch.obs.shuffleobs import (
+                    record_shuffle_skew,
+                )
+                from spark_rapids_tpu_torch.sql.adaptive.stats import (
+                    estimate_frame_bytes,
+                )
+                record_shuffle_skew(
+                    [sum(estimate_frame_bytes(f) for f in b)
+                     for b in buckets], source="cpu:hash")
 
             def make(pid: int) -> Partition:
                 def run():

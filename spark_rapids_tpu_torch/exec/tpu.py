@@ -7,7 +7,8 @@ port's kernels eagerly, one batch at a time, without a host sync: row
 counts stay on the device. Ported: Scan (in-memory uploads and Parquet
 files), Project, Filter, HashAggregate (partial and final, with the
 runtime partial skip), Sort, the three limits, CoalescePartitions, Union,
-Range, Expand, and the shuffle exchange's one-device collapse.
+Range, Expand, and the shuffle exchange's one-device routes: the
+collapse, the buckets and the shuffle manager (``TpuShuffleExchangeExec``).
 
 Under the memory runtime (``memory/``): each concat's output is metered
 against the session's device budget (``concat_device(..., dm=)``); the
@@ -30,12 +31,14 @@ Not ported, and why nothing here needs them yet:
   * the first-batch partial-skip heuristic (``agg.runtimeSkip=false``):
     the partial pass always decides its skip at run time, the JAX
     package's default;
-  * the exchange's capacity shrink (a counted sync), its speculation, and
-    the multi-device routes (ROADMAP A.9): on one device a hash or range
-    exchange is one partition of the child's batches, with no sync, which
-    already streams its pieces as the JAX package's collapse does under
-    out-of-core. Only a concat whose padded capacity would pass
-    CONCAT_SHRINK_ROWS reads its live rows (``concat_device``).
+  * the exchange's capacity shrink (a counted sync) and its speculation
+    (ROADMAP A.10): the collapse route passes the child's batches on with
+    no sync, which already streams its pieces as the JAX package's
+    collapse does under out-of-core. Only a concat whose padded capacity
+    would pass CONCAT_SHRINK_ROWS reads its live rows
+    (``concat_device``);
+  * the exchange's mesh route (``shuffle/ici.py``, an all_to_all across
+    cards; ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -780,13 +783,36 @@ class TpuScanExec(TpuExec):
 
 
 class TpuShuffleExchangeExec(TpuExec):
-    """reference: GpuShuffleExchangeExec, on one device: a hash, range or
-    single exchange collapses its child's partitions into one, passing the
-    batches on as they are (no copy, no host sync); its consumers, the
-    final aggregate, the sort, the join's build side, concatenate what
-    they need whole. A join's stream side thus keeps its batches, each
-    probed on its own, as the query runners probe them. The round-robin
-    exchange is not converted (it stays on the CPU)."""
+    """reference: GpuShuffleExchangeExec + GpuPartitioning
+    (GpuShuffleExchangeExec.scala:60-215, GpuPartitioning.scala:41-75), the
+    JAX package's one-device routes. Each exchange edge picks one
+    (``shuffle/manager.select_transport_kind``):
+
+      * LOCAL collapse (a single exchange, and a hash or range one under
+        ``spark.rapids.sql.shuffle.localCollapse``, the default): one
+        partition of the child's batches passed on as they are (no copy,
+        no host sync); its consumers concatenate what they need whole, and
+        a join's stream side keeps its batches, each probed on its own;
+      * LOCAL buckets (hash and range with ``localCollapse=false``, and
+        round-robin, the user-visible ``repartition(n)`` shape, always):
+        every child batch split on the device by partition id
+        (``split_by_pid``: hash ``row_hashes(keys)[0] mod n``, range the
+        sampled bounds' ``sortops.range_partition_ids``, round-robin the
+        row position mod n), the per-id counts read in one counted
+        ``exchange.split`` sync per window of 16 batches, each non-empty
+        slice held in the spill catalog at the ``OUTPUT_FOR_READ`` band;
+        each of the n partitions consumes its slices once and
+        concatenates them (a second read raises);
+      * MANAGER (``spark.rapids.shuffle.transport.enabled``): the same
+        slices per map task written to the shuffle manager's executors
+        (``CachingShuffleWriter``), each partition read back through
+        ``CachingShuffleReader`` on executor 0, over the transport for
+        another executor's blocks, with a bounded retry per peer group.
+
+    A range exchange first reads up to 128 evenly spaced samples of every
+    batch's sort-key operands and its row count in one counted
+    ``exchange.rangeBounds`` sync; ``pick_bounds_from_samples`` makes the
+    n-1 bounds."""
 
     def __init__(self, child: PhysicalPlan, partitioning):
         super().__init__([child])
@@ -801,16 +827,291 @@ class TpuShuffleExchangeExec(TpuExec):
     def fingerprint_extra(self) -> str:
         return repr(self.partitioning)
 
+    def _pids(self, batch: DeviceBatch, bounds) -> torch.Tensor:
+        """int64 partition id of every row."""
+        kind, n = self.partitioning[0], self.partitioning[-1]
+        if kind == "roundrobin":
+            # row-level round robin like Spark's repartition(n): every
+            # output partition receives an even share of each batch
+            return torch.arange(batch.capacity, dtype=torch.int64,
+                                device=batch.device) % n
+        if kind == "hash":
+            from spark_rapids_tpu_torch.ops.groupby import row_hashes
+            h1, _h2 = row_hashes(batch, list(self.partitioning[1]))
+            return agg_ops._umod(h1, n)
+        key_idx, asc, nf = self.partitioning[1:4]
+        return sortops.range_partition_ids(batch, key_idx, asc, nf, bounds)
+
+    def _range_bounds(self, batches: List[DeviceBatch], schema: Schema,
+                      device) -> List[torch.Tensor]:
+        """Sampled sort-key operands -> n-1 lexicographic upper bounds
+        (GpuRangePartitioner.scala:42-120): each batch's
+        ``np.linspace(0, rows - 1, min(rows, 128))`` rows, picked on the
+        device, fetched with the row counts in one counted sync."""
+        import numpy as np
+        from spark_rapids_tpu_torch.columnar.column import host_to_device
+        from spark_rapids_tpu_torch.parallel.distributed import (
+            pick_bounds_from_samples,
+        )
+        key_idx, asc, nf, n = self.partitioning[1:]
+        m = _RANGE_SAMPLES
+        flats = []
+        k = None
+        for b in batches:
+            ops = sortops.sort_key_operands(b, key_idx, asc, nf, exact=False)
+            k = len(ops)
+            rows = b.num_rows.to(torch.int64)
+            take = rows.clamp(max=m)
+            i = torch.arange(m, dtype=torch.int64, device=b.device)
+            # np.linspace's float64 steps, its last row exact
+            step = ((rows - 1).clamp(min=0).to(torch.float64)
+                    / (take - 1).clamp(min=1).to(torch.float64))
+            pos = (i.to(torch.float64) * step).to(torch.int64)
+            pos = torch.where(i == take - 1, rows - 1, pos)
+            pos = pos.clamp(0, b.capacity - 1)
+            flats.append(torch.cat([torch.stack([o[pos] for o in ops])
+                                    .reshape(-1), rows.reshape(1)]))
+        samples = []
+        if flats:
+            flat = torch.cat(flats)
+            with sync_scope("exchange.rangeBounds",
+                            nbytes=flat.numel() * 8,
+                            detail=f"batches={len(batches)}"):
+                host = flat.cpu().numpy()
+            per = k * m + 1
+            for bi, b in enumerate(batches):
+                got = host[bi * per:(bi + 1) * per]
+                rows = int(got[-1])
+                b.host_rows = rows
+                if rows == 0:
+                    continue
+                ops = got[:-1].reshape(k, m)[:, :min(rows, m)]
+                samples.append(np.ascontiguousarray(ops).view(np.uint64))
+        else:
+            # no batches at all: the operand count from an empty probe
+            k = len(sortops.sort_key_operands(empty_batch(schema, device),
+                                              key_idx, asc, nf, exact=False))
+        return [host_to_device(np.ascontiguousarray(b).view(np.int64),
+                               device)
+                for b in pick_bounds_from_samples(samples, k, n)]
+
+    def _split_to_slices(self, batches: List[DeviceBatch], bounds,
+                         growth: float):
+        """(batch index, pid, slice) of every non-empty (batch, pid): each
+        batch split by partition id, the counts fetched one window of
+        _SPLIT_WINDOW batches at a time (one round trip a window; one
+        giant window would pin every split output at once), each slice cut
+        to the capacity bucket of its known row count."""
+        n = self.partitioning[-1]
+        for w0 in range(0, len(batches), _SPLIT_WINDOW):
+            window = [(bi, split_by_pid(b, self._pids(b, bounds), n))
+                      for bi, b in enumerate(batches[w0:w0 + _SPLIT_WINDOW],
+                                             w0)]
+            counts = torch.stack([c for _bi, (_s, c) in window])
+            with sync_scope("exchange.split", nbytes=counts.numel() * 8,
+                            detail=f"window={len(window)}"):
+                host = counts.cpu().numpy()
+            for (bi, (sorted_b, _c)), host_counts in zip(window, host):
+                start = 0
+                for pid in range(n):
+                    cnt = int(host_counts[pid])
+                    if cnt:
+                        piece = rowops.slice_batch_to(
+                            sorted_b, start, cnt,
+                            bucket_capacity(cnt, growth))
+                        piece.host_rows = cnt
+                        yield bi, pid, piece
+                    start += cnt
+
     def partitions(self, ctx: ExecContext) -> List[Partition]:
+        from spark_rapids_tpu_torch.shuffle.manager import (
+            ShuffleTransportKind, select_transport_kind,
+        )
         child_parts = self.children[0].executed_partitions(ctx)
         schema = self.output_schema()
+        kind = self.partitioning[0]
+        n_req = self.partitioning[-1] if kind != "single" else 1
+        tkind = select_transport_kind(ctx.conf, ctx.session, kind, n_req)
+        # round-robin never collapses: it is the user-visible
+        # repartition(n) shape (the partition and file count of a write)
+        collapse = (tkind is ShuffleTransportKind.LOCAL
+                    and kind in ("hash", "range")
+                    and ctx.conf.get_bool(C.SHUFFLE_LOCAL_COLLAPSE.key, True))
+        if kind == "single" or collapse:
+            def collapsed() -> Iterator[DeviceBatch]:
+                got = False
+                for p in child_parts:
+                    for b in p():
+                        got = True
+                        yield b
+                if not got:
+                    yield empty_batch(schema, ctx.device)
+            return [collapsed]
+        if tkind is ShuffleTransportKind.MANAGER:
+            return self._manager_partitions(ctx, child_parts, schema)
+        return self._bucket_partitions(ctx, child_parts, schema)
 
-        def collapse() -> Iterator[DeviceBatch]:
-            got = False
-            for p in child_parts:
-                for b in p():
-                    got = True
-                    yield b
-            if not got:
-                yield empty_batch(schema, ctx.device)
-        return [collapse]
+    def _concat(self, ctx: ExecContext, pieces: List[DeviceBatch],
+                schema: Schema) -> DeviceBatch:
+        """One batch of a partition's pieces, its row count known on the
+        host where every piece's is."""
+        out = concat_device(pieces, schema, ctx.conf.capacity_growth,
+                            ctx.device, dm=device_manager_of(ctx))
+        if pieces and all(p.host_rows is not None for p in pieces):
+            out.host_rows = sum(p.host_rows for p in pieces)
+        return out
+
+    def _bucket_partitions(self, ctx: ExecContext, child_parts,
+                           schema: Schema) -> List[Partition]:
+        """LOCAL buckets: the slices of every child batch in the spill
+        catalog (spilled first under pressure, SpillPriorities.scala:
+        26-50); each partition acquires its own (faulting spilled ones
+        back) and frees them on consumption."""
+        from spark_rapids_tpu_torch.memory.spill import SpillPriorities
+        n = self.partitioning[-1]
+        growth = ctx.conf.capacity_growth
+        session = ctx.session
+        state = {"buckets": None}
+
+        def materialize():
+            if state["buckets"] is not None:
+                return state["buckets"]
+            buckets: List[list] = [[] for _ in range(n)]
+            batches = [b for p in child_parts for b in p()]
+            bounds = (self._range_bounds(batches, schema, ctx.device)
+                      if self.partitioning[0] == "range" else None)
+            for _bi, pid, piece in self._split_to_slices(batches, bounds,
+                                                         growth):
+                buckets[pid].append(
+                    session.add_transient_batch(
+                        piece, SpillPriorities.OUTPUT_FOR_READ)
+                    if session is not None else piece)
+            state["buckets"] = buckets
+            return buckets
+
+        def make(pid: int) -> Partition:
+            def run() -> Iterator[DeviceBatch]:
+                buckets = materialize()
+                if buckets[pid] is None:
+                    raise RuntimeError(f"shuffle partition {pid} already "
+                                       "consumed (freed on use)")
+                if not buckets[pid]:
+                    yield empty_batch(schema, ctx.device)
+                    return
+                if session is not None:
+                    pieces = []
+                    for bid in buckets[pid]:
+                        pieces.append(session.buffer_catalog.acquire_batch(
+                            bid))
+                        session.consume_transient(bid)
+                    buckets[pid] = None
+                else:
+                    pieces = buckets[pid]
+                yield self._concat(ctx, pieces, schema)
+            return run
+        return [make(i) for i in range(n)]
+
+    def _manager_partitions(self, ctx: ExecContext, child_parts,
+                            schema: Schema) -> List[Partition]:
+        """MANAGER: map tasks stripe across the session's executors
+        (``spark.rapids.shuffle.executors``); with more than one, the
+        reduce side's fetches of other executors' blocks traverse the
+        transport (serializer -> server -> client). Each peer group moves
+        in one metadata/transfer round trip and a failure re-fetches only
+        that peer's blocks, still registered on the map side, up to
+        ``spark.rapids.shuffle.maxFetchRetries`` times."""
+        from spark_rapids_tpu_torch.shuffle.manager import (
+            CachingShuffleReader, CachingShuffleWriter,
+        )
+        n = self.partitioning[-1]
+        growth = ctx.conf.capacity_growth
+        session = ctx.session
+        mstate = {"statuses": None}
+
+        def materialize():
+            if mstate["statuses"] is not None:
+                return mstate["statuses"]
+            envs = session.shuffle_envs
+            shuffle_id = session.next_shuffle_id()
+            per_map = [list(p()) for p in child_parts]
+            bounds = (self._range_bounds([b for bs in per_map for b in bs],
+                                         schema, ctx.device)
+                      if self.partitioning[0] == "range" else None)
+            statuses = []
+            for mi, batches in enumerate(per_map):
+                per_pid: List[List[DeviceBatch]] = [[] for _ in range(n)]
+                for _bi, pid, piece in self._split_to_slices(
+                        batches, bounds, growth):
+                    per_pid[pid].append(piece)
+                writer = CachingShuffleWriter(envs[mi % len(envs)],
+                                              shuffle_id, mi)
+                statuses.append(writer.write(per_pid))
+            if statuses and ctx.metrics_enabled:
+                # per-shuffle skew from the device byte sizes the writer
+                # recorded (MapStatus.partition_sizes)
+                from spark_rapids_tpu_torch.obs.shuffleobs import (
+                    record_shuffle_skew,
+                )
+                from spark_rapids_tpu_torch.shuffle.manager import (
+                    aggregate_map_statistics,
+                )
+                record_shuffle_skew(
+                    aggregate_map_statistics(statuses).bytes_by_partition,
+                    source=f"tpu:manager-{shuffle_id}")
+            mstate["statuses"] = (shuffle_id, statuses)
+            return mstate["statuses"]
+
+        def make(pid: int) -> Partition:
+            def run() -> Iterator[DeviceBatch]:
+                shuffle_id, statuses = materialize()
+                reader = CachingShuffleReader(session.shuffle_env)
+                batches: List[DeviceBatch] = []
+                for peer, group in reader.peer_groups(statuses):
+                    batches.extend(_read_with_retry(
+                        ctx, reader, shuffle_id, pid, peer, group))
+                if not batches:
+                    yield empty_batch(schema, ctx.device)
+                    return
+                yield self._concat(ctx, batches, schema)
+            return run
+        return [make(i) for i in range(n)]
+
+
+# a range exchange's samples per batch, and the batches whose split counts
+# one exchange.split sync fetches
+_RANGE_SAMPLES = 128
+_SPLIT_WINDOW = 16
+
+
+def _read_with_retry(ctx: ExecContext, reader, shuffle_id: int, pid: int,
+                     peer, group) -> List[DeviceBatch]:
+    """One peer group's blocks of partition ``pid``, re-read on a
+    ShuffleFetchFailedError up to ``spark.rapids.shuffle.maxFetchRetries``
+    times (each retry counted in ``shuffle.fetch.retries``, a
+    ``shuffle.fetch.retry`` instant and a ``fetchRetry`` event); the last
+    failure propagates (RapidsShuffleClient.scala:409-418)."""
+    import logging
+
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    from spark_rapids_tpu_torch.obs.progress import PROGRESS
+    from spark_rapids_tpu_torch.obs.trace import TRACER
+    from spark_rapids_tpu_torch.shuffle.client import ShuffleFetchFailedError
+    max_retries = ctx.conf.get_int(C.SHUFFLE_FETCH_RETRIES.key, 3)
+    attempt = 0
+    while True:
+        try:
+            return reader.read_group(shuffle_id, pid, peer, group)
+        except ShuffleFetchFailedError as e:
+            attempt += 1
+            if attempt > max_retries:
+                raise
+            REGISTRY.counter("shuffle.fetch.retries").add(1)
+            TRACER.instant("shuffle.fetch.retry", peer=str(peer),
+                           attempt=attempt)
+            EVENTS.emit("fetchRetry", peer=str(peer), attempt=attempt,
+                        error=str(e)[:200])
+            if PROGRESS.enabled:
+                PROGRESS.shuffle_retry()
+            logging.getLogger(__name__).warning(
+                "shuffle fetch failed (%s); retrying %d/%d", e, attempt,
+                max_retries)

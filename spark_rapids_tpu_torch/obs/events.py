@@ -33,9 +33,16 @@ the JAX package's names and fields:
   aggSkipDecision   exec         decision skip|update, source measured|
                                  cache, measuredRatio, batches, threshold
                                  (exec/tpu.py)
+  fetchRetry        exec         peer, attempt, error (exec/tpu.py retry
+                                 loop of the shuffle manager route)
+  fetchFailure      shuffle      peer, blocks, error (shuffle/client.py)
+  shuffleSkew       shuffle      source, partitions, totalBytes, maxBytes,
+                                 medianBytes, maxMedianRatio: every
+                                 materialized shuffle's size distribution
+                                 (obs/shuffleobs.py)
 
-The JAX package's shuffle, AQE, serving, compile and fleet kinds wait for
-their modules (ROADMAP A.9-A.11).
+The JAX package's AQE, serving, compile and fleet kinds wait for their
+modules (ROADMAP A.10-A.11).
 
 Journal mechanics, as in the JAX package:
 

@@ -1,7 +1,8 @@
 """Per-query profile report (counterpart of the JAX package's
 ``obs/profile.py``): the executed plan tree annotated with inclusive and
 exclusive time, rows and batches, plus the query's deltas of the
-process-wide counters (scan, page cache, spill), its host syncs by site
+process-wide counters (scan, page cache, spill, shuffle fetches and the
+shuffle-skew record of ``obs/shuffleobs.py``), its host syncs by site
 with the occupancy estimate, and the observability truncation counters.
 
 ``session.profile_report()`` renders it, ``session.profile_json()`` is the
@@ -132,8 +133,15 @@ def build_profile(plan, ctx, global_delta: Optional[Dict[str, Any]] = None,
                 section.setdefault(m.name, m.value)
 
     summary["spill"] = take("spill.")
+    # the skew section before the generic shuffle take, so the skew
+    # counters land in their own section (obs/shuffleobs.py); its ratio
+    # gauges join only when this query materialized a measured shuffle
+    summary["shuffleSkew"] = take("shuffle.skew.")
+    summary["shuffle"] = take("shuffle.")
     summary["scan"] = take("scan.")
     summary["pageCache"] = take("pagecache.")
+    if summary["shuffleSkew"]:
+        gauges(summary["shuffleSkew"], "shuffle.skew.")
     if summary["scan"]:
         gauges(summary["scan"], "scan.prefetch.")
         summary["scan"]["scan.decode.mode"] = scan_decode_mode(

@@ -10,15 +10,17 @@ of in-flight and recent queries.
     the host knows them, batches and time so far);
   * the scan pipeline (``sql/scan_pipeline.py``) reports splits planned
     and the consumer-stalled state, the uploads (``exec/transitions.py``)
-    batches and rows uploaded, and the spill tiers their spills.
+    batches and rows uploaded, the shuffle client and the exchange's
+    retry loop fetches, bytes, retries and failures, and the spill tiers
+    their spills.
 
 Everything is gated on ONE flag, ``PROGRESS.enabled``: off (the default)
 every call site is one attribute check, ``ctx.progress`` stays None and
 no lock is taken. The JAX package's monitor turns it on from
 ``spark.rapids.tpu.ui.enabled``; until ``obs/monitor.py`` is ported
 (ROADMAP A.11), a caller does (``PROGRESS.configure(True)``) and reads
-``PROGRESS.queries(full=True)``. Its AQE, shuffle and compile groups wait
-for their modules.
+``PROGRESS.queries(full=True)``. Its AQE and compile groups wait for
+their modules.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ class QueryProgress:
         self.scan = {"splitsDecoded": 0, "bytesDecoded": 0,
                      "batchesUploaded": 0, "rowsUploaded": 0,
                      "stalls": 0, "stalled": False}
+        self.shuffle = {"fetches": 0, "bytes": 0, "retries": 0,
+                        "failures": 0}
         self.spill = {"events": 0, "bytes": 0}
 
     # -- updates (all called with PROGRESS.enabled already checked) --------
@@ -100,7 +104,7 @@ class QueryProgress:
             self._beat_locked()
 
     def note(self, group: str, **deltas) -> None:
-        """Add counter deltas to the scan or spill group."""
+        """Add counter deltas to the scan, shuffle or spill group."""
         d = getattr(self, group)
         with self._lock:
             for k, v in deltas.items():
@@ -141,7 +145,8 @@ class QueryProgress:
                 "wall_s": round((self.end_ts or now) - self.start_ts, 3),
                 "updated_ts": round(self.updated_ts, 3),
                 "heartbeats": self.heartbeats,
-                "scan": dict(self.scan), "spill": dict(self.spill),
+                "scan": dict(self.scan), "shuffle": dict(self.shuffle),
+                "spill": dict(self.spill),
             }
             if not full:
                 return out
@@ -242,6 +247,21 @@ class ProgressTracker:
         qp = self.current
         if qp is not None:
             qp.note("scan", batchesUploaded=1, rowsUploaded=int(rows))
+
+    def shuffle_fetch(self, nbytes: int) -> None:
+        qp = self.current
+        if qp is not None:
+            qp.note("shuffle", fetches=1, bytes=int(nbytes))
+
+    def shuffle_retry(self) -> None:
+        qp = self.current
+        if qp is not None:
+            qp.note("shuffle", retries=1)
+
+    def shuffle_failure(self) -> None:
+        qp = self.current
+        if qp is not None:
+            qp.note("shuffle", failures=1)
 
     def spill(self, nbytes: int) -> None:
         qp = self.current

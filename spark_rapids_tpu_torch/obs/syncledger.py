@@ -33,6 +33,15 @@ The transfer-guard audit (``spark.rapids.tpu.debug.transferGuard``:
 (``guard_context``): every host wait outside a ``sync_scope`` then warns
 or raises, since each scope lifts the mode for its body. On a CPU device
 the audit has no effect: a CPU tensor never waits for a device.
+
+The debug mode is process-wide while scopes open on several threads (the
+query thread, the shuffle server's and the socket transport's): one
+count of open scopes, under ``_MODE_LOCK``, lifts the mode when it goes
+0 -> 1 and restores the value it had before the first scope when it
+goes 1 -> 0, so no thread's exit restores the mode under another
+thread's open scope. ``guard_context`` sets and restores the mode through
+the same lock (while scopes are open, by changing the value they
+restore).
 """
 
 from __future__ import annotations
@@ -55,6 +64,30 @@ DEFAULT_MAX_ENTRIES = 4096
 DUMP_TAIL = 32
 
 _tls = threading.local()
+
+# the sync debug mode across threads: scopes open in the process, and the
+# mode in force before the first of them (restored when the last closes)
+_MODE_LOCK = threading.Lock()
+_MODE = {"open": 0, "saved": 0}
+
+
+def _lift_mode() -> None:
+    with _MODE_LOCK:
+        if _MODE["open"] == 0:
+            saved = (torch.cuda.get_sync_debug_mode()
+                     if torch.cuda.is_initialized() else 0)
+            if saved:
+                torch.cuda.set_sync_debug_mode(0)
+            _MODE["saved"] = saved
+        _MODE["open"] += 1
+
+
+def _restore_mode() -> None:
+    with _MODE_LOCK:
+        _MODE["open"] -= 1
+        if _MODE["open"] == 0 and _MODE["saved"]:
+            torch.cuda.set_sync_debug_mode(_MODE["saved"])
+            _MODE["saved"] = 0
 
 
 class SyncCounter:
@@ -88,7 +121,7 @@ class sync_scope:
     into the ledger."""
 
     __slots__ = ("site", "detail", "nbytes", "_counter", "_t0", "_outer",
-                 "_trace", "_mode")
+                 "_trace")
 
     def __init__(self, site: str, nbytes: int = 0,
                  counter: SyncCounter = SYNCS,
@@ -98,7 +131,6 @@ class sync_scope:
         self.nbytes = int(nbytes)
         self._counter = counter
         self._trace = None
-        self._mode = 0
 
     def add_bytes(self, n: int) -> "sync_scope":
         """Attach bytes found mid-scope (to the ledger's entry; ``SYNCS``
@@ -114,17 +146,13 @@ class sync_scope:
         if self._outer and TRACER.enabled:
             self._trace = TRACER.span("sync." + self.site, site=self.site)
             self._trace.__enter__()
-        if torch.cuda.is_initialized():
-            self._mode = torch.cuda.get_sync_debug_mode()
-            if self._mode:
-                torch.cuda.set_sync_debug_mode(0)
+        _lift_mode()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         seconds = time.perf_counter() - self._t0
-        if self._mode:
-            torch.cuda.set_sync_debug_mode(self._mode)
+        _restore_mode()
         st = _scope_stack()
         if st and st[-1] is self:
             st.pop()
@@ -329,9 +357,21 @@ def guard_context(mode: Optional[str], device="cuda"):
     if debug is None or torch.device(device).type != "cuda":
         yield
         return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(debug)
+    prev = _set_guard_mode(debug)
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        _set_guard_mode(prev)
+
+
+def _set_guard_mode(mode):
+    """Put ``mode`` in force outside the open scopes and return the one it
+    replaces: with no scope open the card's own, else the value the last
+    scope to close restores."""
+    with _MODE_LOCK:
+        if _MODE["open"]:
+            prev, _MODE["saved"] = _MODE["saved"], mode
+            return prev
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(mode)
+        return prev

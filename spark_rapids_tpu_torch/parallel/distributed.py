@@ -1,10 +1,12 @@
 """Range bounds from samples (counterpart of one function of the JAX
 package's ``parallel/distributed.py``).
 
-Only ``pick_bounds_from_samples`` is ported, for the external sort's range
-partitioner (``exec/outofcore.external_sort``); the rest of the module,
-the device mesh, its exchanges and the distributed range exchange, is
-ROADMAP A.9.
+Only ``pick_bounds_from_samples`` is ported, for the range partitioners
+of one card: the external sort's (``exec/outofcore.external_sort``) and
+the range exchange's buckets and shuffle-manager routes
+(``exec/tpu.TpuShuffleExchangeExec``). The rest of the module, the device
+mesh, its all_to_all exchanges and the distributed range exchange, needs
+more than one card (ROADMAP A.9).
 """
 
 from __future__ import annotations

@@ -57,8 +57,17 @@ default) a profile report (``profile_report()``, ``profile_json()``;
 ``spark.rapids.sql.profile.syncEachOp`` for device time per operator);
 ``set_job_group`` tags queries with a tenant.
 
+The accelerated shuffle manager is the JAX package's: with
+``spark.rapids.shuffle.transport.enabled`` the exchanges of a query write
+their slices into ``shuffle_envs`` (``spark.rapids.shuffle.executors``
+simulated executors, each a transport endpoint, ``inprocess``, ``socket``
+or a ``module:Class`` path under ``spark.rapids.shuffle.transport.class``,
+and a server, all over the session's ``buffer_catalog``); a query's
+shuffles are unregistered when it ends (failed ones too) and ``stop()``
+closes the environments (transports shut down, sockets closed).
+
 Left out of the JAX package's session, each a later ROADMAP item: the
-mesh and shuffle environments (A.9); AQE and the speculation
+device mesh (A.9); AQE and the speculation
 verification (A.10; the within-query subtree reuse is ported,
 ``exec/reuse.py``); the live monitor, the compile ledger and cache,
 prewarm and the serving caches (A.11). Unlike the JAX
@@ -162,6 +171,12 @@ class TpuSparkSession:
         self.device_manager.register_oom_handler(self.memory_event_handler)
         # transient spillables registered outside any query
         self._transient_bids: set = set()
+        # the accelerated shuffle manager's executor pool, built lazily
+        # (shuffle_envs), and the shuffles registered in it
+        self._shuffle_env = None
+        self._shuffle_id_counter = 0
+        self._active_shuffles: List[int] = []
+        self._shuffle_lock = threading.Lock()
         # the ExecContext of the query executing on this thread
         self._exec_scope = threading.local()
         self.last_query_metrics: dict = {}
@@ -231,6 +246,11 @@ class TpuSparkSession:
         files)."""
         self.clear_device_cache()
         self.release_transient_buffers()
+        self.release_active_shuffles()
+        if self._shuffle_env is not None:
+            for env in self._shuffle_env:
+                env.close()
+            self._shuffle_env = None
         self.device_manager.unregister_oom_handler(self.memory_event_handler)
         if self.page_cache is not None:
             self.device_manager.unregister_oom_handler(self.page_cache)
@@ -238,6 +258,86 @@ class TpuSparkSession:
         self.buffer_catalog.close()
         if TpuSparkSession._active is self:
             TpuSparkSession._active = None
+
+    # --- the accelerated shuffle manager ----------------------------------
+    def _make_transport(self, executor_id: str):
+        kind = self.conf.get("spark.rapids.shuffle.transport.class",
+                             "inprocess")
+        if kind == "socket":
+            from spark_rapids_tpu_torch.shuffle.socket_transport import (
+                SocketTransport,
+            )
+            return SocketTransport(executor_id)
+        if kind == "inprocess":
+            from spark_rapids_tpu_torch.shuffle.transport import (
+                InProcessTransport,
+            )
+            return InProcessTransport(executor_id)
+        # SPI: dotted path "module:Class" taking (executor_id)
+        import importlib
+        mod, _, cls = kind.partition(":")
+        return getattr(importlib.import_module(mod), cls)(executor_id)
+
+    @property
+    def shuffle_envs(self):
+        """The executor pool of the accelerated shuffle manager. With
+        spark.rapids.shuffle.executors > 1, map tasks stripe across the
+        pool and cross-executor fetches ride the configured transport
+        (socket = real TCP loopback) through serializer -> server ->
+        client -> received catalog, in one process."""
+        if self._shuffle_env is None:
+            from spark_rapids_tpu_torch.shuffle.manager import ShuffleEnv
+            bsize = int(self.conf.get(
+                "spark.rapids.shuffle.bounceBuffers.size", 4 << 20))
+            bcount = int(self.conf.get(
+                "spark.rapids.shuffle.bounceBuffers.count", 16))
+            nexec = int(self.conf.get("spark.rapids.shuffle.executors", 1))
+            # executor ids unique to this session: sessions of the port
+            # are independent, and the transports' registries are
+            # process-wide
+            tag = f"{id(self):x}"
+            self._shuffle_env = [
+                ShuffleEnv(f"local-exec-{i}-{tag}",
+                           self._make_transport(f"local-exec-{i}-{tag}"),
+                           bounce_buffer_size=bsize,
+                           bounce_buffer_count=bcount,
+                           buffer_catalog=self.buffer_catalog,
+                           device=self.device)
+                for i in range(max(1, nexec))]
+        return self._shuffle_env
+
+    @property
+    def shuffle_env(self):
+        return self.shuffle_envs[0]
+
+    def next_shuffle_id(self) -> int:
+        with self._shuffle_lock:
+            self._shuffle_id_counter += 1
+            sid = self._shuffle_id_counter
+            self._active_shuffles.append(sid)
+        ctx = self._current_ctx()
+        if ctx is not None:
+            ctx.active_shuffles.append(sid)
+        return sid
+
+    def release_active_shuffles(self, ctx=None) -> None:
+        """Unregister every shuffle a query registered (the reference's
+        unregisterShuffle path). With a context, only that query's
+        shuffles; without one (stop), everything outstanding."""
+        if self._shuffle_env is None:
+            if ctx is not None:
+                ctx.active_shuffles.clear()
+            return
+        with self._shuffle_lock:
+            if ctx is not None:
+                sids, ctx.active_shuffles = list(ctx.active_shuffles), []
+                self._active_shuffles = [
+                    s for s in self._active_shuffles if s not in set(sids)]
+            else:
+                sids, self._active_shuffles = self._active_shuffles, []
+        for env in self._shuffle_env:
+            for sid in sids:
+                env.shuffle_catalog.remove_shuffle(sid)
 
     # --- per-query spillables ------------------------------------------------
     def _current_ctx(self):
@@ -396,6 +496,8 @@ class TpuSparkSession:
             # queueDepthPeak is this query's
             REGISTRY.gauge("scan.prefetch.queueDepthPeak").set(0)
         t_query0 = time.perf_counter()
+        from spark_rapids_tpu_torch.columnar import dictionary
+        dictionary.configure_from_conf(conf)
         EVENTS.configure_from_conf(conf)
         syncledger.SYNC_LEDGER.configure_from_conf(conf)
         tenant, job_desc = self._job_group
@@ -428,6 +530,7 @@ class TpuSparkSession:
                 PROGRESS.finish(qp, "failed", error=err)
             raise
         finally:
+            self.release_active_shuffles(ctx)
             self.release_transient_buffers(ctx)
             self.semaphore.release()
             self._exec_scope.ctx = prev

@@ -186,10 +186,8 @@ def _tag_sort(meta: ExecMeta) -> None:
 
 def _tag_exchange(meta: ExecMeta) -> None:
     kind = meta.plan.partitioning[0]
-    if kind not in ("hash", "single", "range"):
-        meta.will_not_work(
-            f"partitioning {kind!r} needs the multi-partition device "
-            "exchange, not ported yet")
+    if kind not in ("hash", "single", "roundrobin", "range"):
+        meta.will_not_work(f"partitioning {kind!r} not supported on TPU")
 
 
 def _tag_join(meta: ExecMeta) -> None:

@@ -4,7 +4,10 @@
 DeviceBatch's host buffers and dictionaries, so that both packages run on
 identical codes. It reads the batch through its attributes and
 ``numpy.asarray`` and imports nothing of the JAX package (nor JAX).
-``batch_to_numpy`` is the port-side counterpart for comparing outputs.
+``batch_same_forms`` keeps every string column in the reference's own form
+(dictionary, slab or plain chars), for comparisons that depend on it (the
+shuffle wire's frames). ``batch_to_numpy`` is the port-side counterpart
+for comparing outputs.
 """
 
 from __future__ import annotations
@@ -58,6 +61,39 @@ def batch_from_reference(ref_batch, device="cpu") -> DeviceBatch:
     num_rows = torch.tensor(int(np.asarray(ref_batch.num_rows)),
                             dtype=torch.int32, device=device)
     return DeviceBatch(Schema(names, dts), cols, num_rows)
+
+
+def batch_same_forms(ref_batch, device="cpu") -> DeviceBatch:
+    """Port DeviceBatch holding ``ref_batch``'s buffers in its forms: a
+    dictionary string column as its codes and values, a slab as its words
+    and lengths, packed chars as the same offsets and chars, a fixed-width
+    column as its data (a numeric column's dictionary is not carried)."""
+    device = torch.device(device)
+    dts = [dtypes.by_name(d.name) for d in ref_batch.schema.dtypes]
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+    cols = []
+    for dt, c in zip(dts, ref_batch.columns):
+        valid = t(c.validity)
+        if dt.is_string and c.dict_values is not None:
+            cols.append(DeviceColumn(dt, None, valid,
+                                     dict_codes=t(c.dict_codes),
+                                     dict_values=c.dict_values))
+        elif dt.is_string and c.has_slab:
+            cols.append(DeviceColumn(
+                dt, None, valid,
+                slab64=t(np.asarray(c._slab64).view(np.int64)),
+                lens=t(c._lens)))
+        elif dt.is_string:
+            cols.append(DeviceColumn(dt, None, valid, chars=t(c.data),
+                                     offsets=t(c.offsets)))
+        else:
+            cols.append(DeviceColumn(dt, t(c.data), valid))
+    num_rows = torch.tensor(int(np.asarray(ref_batch.num_rows)),
+                            dtype=torch.int32, device=device)
+    return DeviceBatch(Schema(list(ref_batch.schema.names), dts), cols,
+                       num_rows)
 
 
 def _plain_of(ref_col, validity: np.ndarray):

@@ -304,6 +304,16 @@ def test_port_imports_no_jax_and_no_reference_package():
         "assert PROGRESS.queries(full=True)[0]['status'] == 'success'\n"
         "trace_summary.main([os.path.join(d, 't.json')])\n"
         "PROGRESS.configure(False)\n"
+        "sk = TpuSparkSession.builder().device('cpu').config(\n"
+        "    'spark.rapids.shuffle.transport.enabled', True).config(\n"
+        "    'spark.rapids.shuffle.transport.class', 'socket').config(\n"
+        "    'spark.rapids.shuffle.executors', 2).config(\n"
+        "    'spark.rapids.sql.autoBroadcastJoinThreshold', -1\n"
+        "    ).get_or_create()\n"
+        "t = {n: sk.create_dataframe(f, 2) for n, f in fr.items()}\n"
+        "assert len(T.q3(sk, t).collect()) == 10\n"
+        "assert sk.shuffle_envs[1].transport.stats['tagged_frames'] > 0\n"
+        "sk.stop()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

@@ -1820,3 +1820,105 @@ def test_obs_phase_checks_at_a_small_size(cuda_device, tmp_path,
     assert rec["q3_sync_each_op"]["worst_breakdown_gap_s"] <= 1e-3
     assert rec["q9_parquet"]["sync_by_site"]
     assert 0.0 <= rec["q9_parquet"]["occupancy_pct"] <= 100.0
+
+
+@pytest.mark.cuda
+def test_sync_scopes_on_two_threads_keep_the_debug_mode(cuda_device):
+    """Under the sync debug mode "error", thread A's scope closes while
+    thread B's is open: B's counted copy still passes, and "error" is in
+    force again once both closed (each scope used to restore the mode it
+    saw on entry)."""
+    import threading
+    from spark_rapids_tpu_torch.obs.syncledger import guard_context, sync_scope
+    x = torch.arange(1 << 16, device=cuda_device)
+    a_in, a_out, b_in = (threading.Event() for _ in range(3))
+    errors = []
+
+    def thread_a():
+        with sync_scope("test.a"):
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def thread_b():
+        a_in.wait(10)
+        try:
+            with sync_scope("test.b"):
+                b_in.set()
+                a_out.wait(10)
+                assert int(x.sum().item()) == (1 << 16) * ((1 << 16) - 1) // 2
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    with guard_context("disallow", cuda_device):
+        ts = [threading.Thread(target=f, daemon=True)
+              for f in (thread_a, thread_b)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(10)
+        assert not errors, errors
+        assert torch.cuda.get_sync_debug_mode() == 2
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()  # an uncounted wait still raises
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_socket_manager_q3_under_the_transfer_guard(cuda_device):
+    """Session Q3 at SF 0.05 over the socket shuffle manager with two
+    executors under ``transferGuard=disallow``: the counted syncs before
+    the collect are the smoke's stated ones, the answer equals pandas, and
+    no shuffle block survives the query."""
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    sf = 0.05
+    li, o, c = G.gen_lineitem(sf), G.gen_orders(sf), G.gen_customer(sf)
+    s = cs.session_of(1 << 23, **dict(
+        tpch.HASH_AGG_CONFS, **cs.SHUFFLE_MANAGER_CONFS, **cs.GUARD,
+        **{"spark.rapids.shuffle.transport.class": "socket"}))
+    try:
+        t = {"lineitem": s.create_dataframe(li, cs.SHUFFLE_MAP_PARTS),
+             "orders": s.create_dataframe(o, cs.SHUFFLE_MAP_PARTS),
+             "customer": s.create_dataframe(c, cs.SHUFFLE_MAP_PARTS)}
+        tpch.q3(s, t).collect()
+        with cs._remote_blocks(s) as blocks:
+            pre = cs._syncs_by_site(tpch.q3(s, t).collect_batches)
+        assert pre == cs.q3_manager_syncs(cs.SHUFFLE_PARTS,
+                                          cs.SHUFFLE_MAP_PARTS,
+                                          blocks["blocks"])
+        cs.check_q3(tpch.q3(s, t).collect(), cs.q3_reference(li, o, c))
+        assert s.shuffle_envs[1].transport.stats["tagged_frames"] > 0
+        assert not any(e.shuffle_catalog._blocks for e in s.shuffle_envs)
+    finally:
+        s.stop()
+
+
+@pytest.mark.cuda
+def test_shuffle_phase_checks_at_a_small_size(cuda_device, tmp_path,
+                                              monkeypatch):
+    """``chip_smoke.shuffle_phase`` at SF 0.05: the buckets route's stated
+    syncs and launches, the range sort against a lexsort, the
+    repartition(4) write, both manager transports with their stated syncs
+    and the dropped connection's one retry."""
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    monkeypatch.setattr(cs, "SHUFFLE_DIR", str(tmp_path / "shuffle"))
+    sf = 0.05
+    li, o, c = G.gen_lineitem(sf), G.gen_orders(sf), G.gen_customer(sf)
+    sess = cs.session_of(1 << 23, **dict(tpch.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
+    tables = {"lineitem": sess.create_dataframe(li),
+              "orders": sess.create_dataframe(o),
+              "customer": sess.create_dataframe(c)}
+    tpch.q3(sess, tables).collect()
+    report = {}
+    cs.shuffle_phase((sess, tables, cs.q3_reference(li, o, c)), li, o, c,
+                     1 << 23, 1, {}, report, hash_joins=False)
+    rec = report["shuffle_phase"]
+    assert rec["q3_buckets_hash"]["syncs_before_collect"] == \
+        cs.q3_bucket_syncs(cs.SHUFFLE_PARTS)
+    assert rec["repartition_write"]["files"] == 4
+    assert rec["q3_manager_socket"]["drop_retry"]["retries"] == 1
+    sess.stop()

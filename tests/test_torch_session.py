@@ -256,7 +256,8 @@ def test_session_syncs_match_the_runners(lineitem):
 def test_session_range_union_limit_coalesce_expand():
     """The operators of the slice no query above reaches, device against
     CPU path: Range, Union, the limits, Coalesce, Expand (via a Project)
-    and a round-robin exchange left on the CPU with its reason."""
+    and a round-robin exchange, on the device since the exchange's
+    buckets route came (``repartition(n)``)."""
     from spark_rapids_tpu_torch.sql import plan as lp
     from spark_rapids_tpu_torch.session import DataFrame
     for enabled in (True, False):
@@ -279,11 +280,11 @@ def test_session_range_union_limit_coalesce_expand():
                              "g": [0] * 17 + [1] * 17})
         assert list(got.id) == list(want.id)
         assert list(got.g) == list(want.g)
-        # a round-robin exchange stays on the CPU, between transitions
+        # a round-robin exchange: two partitions of the device's buckets
         r = a.repartition(2).filter(F.col("id") > 5).collect()
         assert sorted(r.id) == [i for i in range(0, 50, 3) if i > 5]
     text = a.repartition(2).explain()
-    assert "! CpuShuffleExchangeExec(roundrobin)" in text
+    assert "* CpuShuffleExchangeExec(roundrobin)" in text
 
 
 def test_session_hash_slot_budget_binds_only_the_hash_branch():
