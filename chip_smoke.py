@@ -84,6 +84,18 @@ port's main path through its query runners:
     shuffle manager over two executors, in process and over TCP loopback
     sockets (with a connection dropped mid-transfer and retried), each
     equal to pandas, and the warm walls of Q3 on the four routes;
+  * the adaptive phase (``adaptive_phase``, after the shuffle phase;
+    ``--adaptive-only`` runs it alone at SF1): the session Q3 cell's
+    capacity speculation (one cold run, three warm runs with one
+    ``speculation.verify`` each, a cut capacity re-executed once and
+    relearned), the Q18 group-by's dense composite key at SF1 (and a stale
+    bound re-executed and blocklisted), Q1 and Q6 at SF10 with the filter
+    fused into the aggregate and without (``fusion_cells``, run on the
+    session Q1/Q6 cell's uploads), rollup_q1 on the SF10 upload beside PR
+    15's wall, the reuse nodes of Q2, Q11 and Q17, Q3 at SF1 and a
+    skewed-key join under ``spark.rapids.sql.adaptive.enabled`` (stages,
+    broadcast demotion, skew split, one ``aqe.stageFetch`` a stage) and a
+    project/filter chain as one fused stage;
   * the expression phase (``expression_phase``, after the session's
     Parquet cells): TPC-H Q1 as a rollup and a three-key cube over SF10
     lineitem (the session Q1 cell's cached upload) through B1 and B2,
@@ -113,11 +125,15 @@ port's main path through its query runners:
 Each query also runs up to its collect under PyTorch's sync debug mode
 "error", where the only host waits allowed are the counted ones
 (``obs/syncledger.sync_scope``): a query counts one per expanding join
-(Q3 2, Q10 3, Q17 3, Q18 2, Q21 5), one per row-space aggregation (its
-slot attempt's verdict) and one per concat past 2^27 padded rows (its live
-total: the Mortgage ETL's final merge at SF 500), one per exact image of
-plain strings (its count of rows tying on 64 bytes), none otherwise, and a
-Parquet scan one per row group (its upload).
+(Q3 2, Q10 3, Q17 3, Q18 2, Q21 5) and one per collapsed exchange over an
+aggregate, a limit or a semi join (its ``exchange.shrink``) on a cold run,
+which a warm run under the capacity speculation (the JAX package's
+default) replaces with one ``speculation.verify``; one per row-space
+aggregation (its slot attempt's verdict) and one per concat past 2^27
+padded rows (its live total: the Mortgage ETL's final merge at SF 500),
+one per exact image of plain strings (its count of rows tying on 64
+bytes), none otherwise, and a Parquet scan one per row group (its
+upload).
 
 B1 is timed at a 2^23-row batch, at a 2^20-row one (a Parquet row
 group's) and at 8 rows (its floor), beside ``torch.cumsum`` of the mask
@@ -145,6 +161,7 @@ result, when no CUDA device is present or any phase fails. Details go to
     python3 chip_smoke.py --scan-write-only   # that phase alone, SF1
     python3 chip_smoke.py --obs-only          # the observability phase
     python3 chip_smoke.py --shuffle-only      # the shuffle phase, SF1
+    python3 chip_smoke.py --adaptive-only     # the adaptive phase, SF1
 """
 
 from __future__ import annotations
@@ -1315,12 +1332,19 @@ def session_of(batch_rows: int, **conf):
 
 
 def run_session_query(name: str, query, runs: int, runner: dict,
-                      sf, rows: int, syncs: int = 0) -> tuple:
+                      sf, rows: int, warm: dict, syncs: int = 0) -> tuple:
     """A session query: one cold execution (uploads into the session's
     device scan cache; a partial aggregate learns its skip decision), then
     ``runs`` warm ones timed as the runners' are, then the query up to its
-    collect under the sync debug mode "error", where it may make only the
-    runners' counted syncs (``syncs``: Q3's two joins, else none)."""
+    collect under the sync debug mode "error". The runners make ``syncs``
+    counted syncs (Q3's two joins, else none); the session's warm run
+    makes ``warm``, by site, stated by the caller before the run: with the
+    capacity speculation of the JAX package's defaults
+    (``spark.rapids.sql.adaptiveCapacity.enabled``) the joins'
+    ``join.expandTotals``, the dense routes' ``join.denseVerify`` and the
+    collapsed exchanges' ``exchange.shrink`` of the cold runs are all one
+    ``speculation.verify`` (the gate was ``syncs`` + the dense
+    verifications before speculation came)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     query.collect()
@@ -1329,17 +1353,37 @@ def run_session_query(name: str, query, runs: int, runner: dict,
     out, walls, launches = run_query(name, query.collect, runs)
     dense = dense_verifications(query)
     reset_routes()
-    require_syncs(name, query.collect_batches, syncs + dense)
+    got = _syncs_by_site(query.collect_batches)
+    require(got == warm, f"{name}: counted syncs before the collect {got}, "
+            f"stated {warm}")
     med = float(np.median(walls))
     log(f"{name}: median {med:.4f} s against the runner's "
         f"{runner['wall_s']:.4f} s; counted syncs before the collect "
-        f"{syncs + dense} (runner {syncs}, dense verifications {dense}); "
+        f"{got} (runner {syncs}, dense verifications {dense}); "
         f"cold run (upload) {cold:.1f} s; routes {route_counts()}")
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
-                 "launches": launches, "counted_syncs": syncs + dense,
+                 "launches": launches, "counted_syncs": sum(got.values()),
+                 "syncs_by_site": got,
                  "dense_verifications": dense, "routes": route_counts(),
                  "runner_wall_s": runner["wall_s"], "runner_syncs": syncs}
+
+
+# a warm run of a plan with a join or an aggregate over a collapsed
+# exchange under the capacity speculation: its joins' totals, dense flags
+# and shrink counts in one fetch
+VERIFY = {"speculation.verify": 1}
+
+
+def claimed_by_exchanges(sess, plan) -> set:
+    """The ids of the nodes that a collapsed or broadcast exchange of
+    ``plan`` folds into its masked concat, by the exchanges' own
+    ``claims_filter`` (``exec/tpu.claimed_filter``): they run no batch."""
+    from spark_rapids_tpu_torch.exec.tpu import claimed_filter
+    return {id(x) for n in plan.walk()
+            if getattr(n, "claims_filter", None) is not None
+            and n.claims_filter(sess.conf, sess)
+            for x in claimed_filter(n.children[0])}
 
 
 def dense_verifications(df) -> int:
@@ -1393,7 +1437,7 @@ def expanding_joins(sess, df) -> int:
 
 
 def run_session_cell(name: str, query, runs: int, sf, rows: int,
-                     joins: int, branches: tuple) -> tuple:
+                     joins: int, branches: tuple, verify: int = 1) -> tuple:
     """A session query at the confs the session holds, on cached uploads:
     one cold execution (uploads into the scan cache; a partial aggregate
     learns its skip decision), ``runs`` warm ones timed, then the query up
@@ -1405,7 +1449,11 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     one per row-space aggregation (its slot attempt's verdict) and one per
     concat past ``exec/tpu.CONCAT_SHRINK_ROWS`` padded rows (its live
     total, counted by ``CONCAT_SHRINKS``), no other; each branch of
-    ``branches`` must have run, the hash branch (B2) not at all."""
+    ``branches`` must have run, the hash branch (B2) not at all. Under the
+    capacity speculation (the JAX package's default) the joins', dense
+    routes' and exchange shrinks' syncs of the warm run are ``verify``
+    ``speculation.verify`` instead (1: every cell here but TPCxBB Q28
+    holds a join or an aggregate over a collapsed exchange)."""
     from spark_rapids_tpu_torch.exec import tpu as TPU
     from spark_rapids_tpu_torch.ops import aggregate as A
     torch.cuda.synchronize()
@@ -1419,18 +1467,23 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     A.reset_branches()
     reset_routes()
     t0 = time.perf_counter()
-    got = count_syncs(query.collect_batches)
+    by_site = _syncs_by_site(query.collect_batches)
+    got = sum(by_site.values())
     torch.cuda.synchronize()
     # the query up to its collect, one run (the sync-checked one)
     to_collect = time.perf_counter() - t0
     taken = dict(A.BRANCHES)
     routes = route_counts()
     shrinks = TPU.CONCAT_SHRINKS["synced"]
-    want = joins + dense + taken.get("rowspace", 0) + shrinks
-    require(got == want, f"{name}: {got} counted syncs before the collect, "
-            f"expected {want} ({joins} joins, {dense} dense "
-            f"verifications, {shrinks} concats past "
-            f"{TPU.CONCAT_SHRINK_ROWS} rows, branches {taken})")
+    # under the capacity speculation (the JAX package's default) the warm
+    # run's joins, dense verifications and exchange shrinks are deferred
+    # to one speculation.verify (before it: joins + dense + the rest)
+    want = verify + taken.get("rowspace", 0) + shrinks
+    require(got == want and by_site.get("speculation.verify", 0) == verify,
+            f"{name}: {by_site} counted syncs before the collect, "
+            f"expected {want} ({verify} speculation.verify for {joins} "
+            f"joins and {dense} dense verifications, {shrinks} concats "
+            f"past {TPU.CONCAT_SHRINK_ROWS} rows, branches {taken})")
     for b in branches:
         require(taken.get(b, 0) > 0, f"{name}: branch {b} did not run "
                 f"({taken})")
@@ -1443,6 +1496,7 @@ def run_session_cell(name: str, query, runs: int, sf, rows: int,
     return out, {"sf": sf, "rows": rows, "upload_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
                  "launches": launches, "counted_syncs": got,
+                 "syncs_by_site": by_site,
                  "expanding_joins": joins, "dense_verifications": dense,
                  "concat_shrinks": shrinks, "to_collect_s": to_collect,
                  "branches": taken, "routes": routes,
@@ -1541,7 +1595,8 @@ def same_in_order(got, want, keys, order, what: str) -> float:
 
 
 def run_session_parquet(name: str, query, runs: int, runner, sf,
-                        rows: int, row_groups: int, own_syncs: int) -> tuple:
+                        rows: int, row_groups: int, own_syncs: int,
+                        warm: dict) -> tuple:
     """A session query over Parquet files, decoded on the card, no scan
     cache: one cold execution (a partial aggregate learns its skip
     decision), then ``runs`` timed as the runners' Parquet queries are
@@ -1549,7 +1604,11 @@ def run_session_parquet(name: str, query, runs: int, runner, sf,
     query up to its collect under the sync debug mode "error": one counted
     sync per row group (its upload) plus the query's own, no more than the
     runner's record (``runner``, or None where no runner ran the query on
-    these files)."""
+    these files). Under the capacity speculation (the JAX package's
+    default) the warm run's own syncs (joins, dense verifications,
+    exchange shrinks) are ``warm``, stated by the caller (one
+    ``speculation.verify``, or none where the plan holds no join and no
+    aggregate; before it: row groups + ``own_syncs`` + dense)."""
     from spark_rapids_tpu_torch.obs.metrics import REGISTRY, delta
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1565,9 +1624,15 @@ def run_session_parquet(name: str, query, runs: int, runner, sf,
             f"{name}: {stats.get('scan.device.splits')} row groups decoded "
             f"in {runs + 1} runs of {row_groups}")
     dense = dense_verifications(query)
-    syncs = row_groups + own_syncs + dense
+    want = dict(warm)
+    if row_groups:
+        want["scan.upload"] = row_groups
+    syncs = sum(want.values())
     reset_routes()
-    require_syncs(name, query.collect_batches, syncs)
+    got = _syncs_by_site(query.collect_batches)
+    require(got == want, f"{name}: counted syncs before the collect {got}, "
+            f"expected {want} ({own_syncs} own and {dense} dense "
+            f"verifications before the speculation)")
     for k, what in (("hybrid_expand", "B5"), ("delta_unpack", "B6"),
                     ("plain_fixed", "B7")):
         require(launches[k] <= row_groups, f"{name}: {launches[k]} {what} "
@@ -1582,7 +1647,10 @@ def run_session_parquet(name: str, query, runs: int, runner, sf,
         f"{launches['hybrid_expand']} B6 {launches['delta_unpack']} B7 "
         f"{launches['plain_fixed']} B8 {launches['slab_pack']}; cold run "
         f"{cold:.1f} s")
-    require(runner is None or syncs - dense <= runner["counted_syncs"],
+    # the speculation's one verify stands for the syncs the runner pays
+    # its joins with (before it: the dense verifications came off)
+    require(runner is None or syncs - want.get("speculation.verify", 0)
+            <= runner["counted_syncs"],
             f"{name}: {syncs} syncs, more than the runner's")
     return out, {"sf": sf, "rows": rows, "cold_s": cold, "wall_s": med,
                  "wall_runs_s": walls, "rows_per_s": rows / med,
@@ -1650,12 +1718,12 @@ def session_parquet_cells(paths: dict, frames: dict, sf, batch_rows: int,
     ptables = {n: sess.read.parquet(p) for n, p in paths.items()}
     out, rec = run_session_parquet(
         "session Q1 parquet", T.q1(sess, ptables), runs, None, sf, len(li),
-        rgs["lineitem"], 0)
+        rgs["lineitem"], 0, VERIFY)
     rec["max_rel_err"] = check_q1(out, q1_reference(li))
     queries["session_q1_parquet"] = rec
     out, rec = run_session_parquet(
         "session Q6 parquet", T.q6(sess, ptables), runs, None, sf, len(li),
-        rgs["lineitem"], 0)
+        rgs["lineitem"], 0, VERIFY)
     err = _rel_err([out.revenue[0]], [q6_reference(li)])
     require(len(out) == 1 and err <= F64_RTOL,
             f"session Q6 parquet differs: {err}")
@@ -1664,13 +1732,13 @@ def session_parquet_cells(paths: dict, frames: dict, sf, batch_rows: int,
     q3_df = T.q3(sess, ptables)
     out, rec = run_session_parquet(
         "session Q3 parquet", q3_df, runs, None, sf,
-        len(li) + len(o) + len(c), sum(rgs.values()), 2)
+        len(li) + len(o) + len(c), sum(rgs.values()), 2, VERIFY)
     rec["max_rel_err"] = check_q3(out, q3_reference(li, o, c))
     rec["joins"] = join_execs(sess, q3_df)
     queries["session_q3_parquet"] = rec
     out, rec = run_session_parquet(
         "session Q4 parquet", T.q4(sess, ptables), runs, None, sf,
-        len(li) + len(o), rgs["lineitem"] + rgs["orders"], 0)
+        len(li) + len(o), rgs["lineitem"] + rgs["orders"], 0, VERIFY)
     q4_want = q4_reference(li, o)
     require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
             and list(out.order_count) == list(q4_want.order_count),
@@ -1679,7 +1747,7 @@ def session_parquet_cells(paths: dict, frames: dict, sf, batch_rows: int,
     queries["session_q4_parquet"] = rec
     out, rec = run_session_parquet(
         "session customer collect parquet", T.customer_segment(sess, ptables),
-        runs, None, sf, len(c), rgs["customer"], 0)
+        runs, None, sf, len(c), rgs["customer"], 0, {})
     got = out.sort_values("c_custkey").reset_index(drop=True)
     want = c[c.c_mktsegment == "BUILDING"].reset_index(drop=True)
     for col in want.columns:
@@ -1777,9 +1845,13 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
         "q18": len(li18) * 2 + len(frames["orders"]) + len(cust),
         "q21": len(df) * 3 + len(more["supplier"]) + 25
         + len(frames["orders"])}
+    # Q17's two readers of its part-lineitem base share one subtree since
+    # the shared-subtree pruning (sql/pushdown.py), so its join runs once
+    # (before it: 3 joins), and its l_partkey group-by takes the dense
+    # composite on warm runs (agg.denseKeys; before it: sorted_payload)
     for qname, qt, joins, branches in (
             ("q10", tables, 3, ("sorted_payload",)),
-            ("q17", tables, 3, ("single", "sorted_payload")),
+            ("q17", tables, 2, ("single", "dense")),
             ("q18", t18, 2, ("sorted_payload",)),
             ("q21", tables, 5, ())):
         qdf = T.QUERIES[qname](sess, qt)
@@ -1806,13 +1878,25 @@ def sorted_branch_cells(sess, tables: dict, frames: dict, sf, runs: int,
                                  ("o_orderdate", True)], "session Q18")
         else:
             require(len(out) > 0, "session Q21 returned no rows")
-            # its two distinct counts: the fused pass, on hash group ids
-            require(rec["routes"]["count_distinct"]["hash"] == 2,
+            # its distinct count with no filter below it: the fused pass,
+            # on hash group ids; the other's inner partial carries its
+            # filter as a fused mask (exec/fusion.py), which the fused
+            # count distinct does not take, as in the JAX package
+            # (before the filter fusion: 2)
+            require(rec["routes"]["count_distinct"]["hash"] == 1,
                     f"session Q21: fused count distinct {rec['routes']}")
             err = same_in_order(out, want, ["s_name"],
                                 [("numwait", False), ("s_name", True)],
                                 "session Q21")
         rec["max_rel_err"] = err
+        if qname == "q17":
+            # the shared-subtree pruning (sql/pushdown.py) hands Q17's two
+            # readers of its part-lineitem base one subtree, run once
+            rec["shared_subtrees"] = len({
+                id(n) for n in sess.physical_plan(qdf._plan).walk()
+                if type(n).__name__ == "TpuReuseSubtreeExec"})
+            require(rec["shared_subtrees"] == 1,
+                    f"session Q17: {rec['shared_subtrees']} shared subtrees")
         queries[f"session_{qname}"] = rec
 
 
@@ -1837,6 +1921,8 @@ NEW_TPCH = {
     "q22": ("customer", "orders"),
 }
 CROSS_JOIN_QUERIES = ("q11", "q15", "q22")
+# the queries of NEW_TPCH whose plans hold one reuse node
+SHARED_TPCH = ("q2", "q11", "q15")
 
 
 def same_query(got, want, qname: str, what: str) -> float:
@@ -1914,8 +2000,11 @@ def tpch_cells(sess, tables: dict, frames: dict, sf, runs: int,
         shared = len({id(n) for n in plan
                       if isinstance(n, TpuReuseSubtreeExec)})
         # Q15's revenue view executes once for both its readers, so its
-        # sums and their maximum are the same bits
-        require(shared == (qname == "q15"),
+        # sums and their maximum are the same bits; since the logical
+        # pruning prunes a shared subtree once, by the union of its
+        # readers' columns (sql/pushdown.py), Q2's min-cost subquery and
+        # Q11's threshold run once too (before it: Q15 only)
+        require(shared == (qname in SHARED_TPCH),
                 f"session {qname}: {shared} shared subtrees")
         joins = expanding_joins(sess, qdf)
         what = f"session {qname.upper()}"
@@ -1984,7 +2073,9 @@ def tpcxbb_phase(sf, batch_rows: int, runs: int, queries: dict,
         # input rows: those of every table scan of the query's plan
         scanned = sum(len(node.source.df) for node in qdf._plan.walk()
                       if isinstance(node, LogicalScan))
-        out, rec = run_session_cell(what, qdf, runs, sf, scanned, joins, ())
+        # Q28 holds no join and no aggregate: nothing to speculate
+        out, rec = run_session_cell(what, qdf, runs, sf, scanned, joins, (),
+                                    verify=0 if qname == "q28" else 1)
         require(len(out) > 0, f"{what} returned no rows")
         rec["max_rel_err"] = C.same_answer(qname, out, want)
         rec["pandas_s"] = report["tpcxbb_pandas_s"][qname]
@@ -2129,8 +2220,11 @@ PLAIN_REPEATS = 0.02
 # keep the upload's char capacity, so past ``rowops.CONCAT_SHRINK_CHARS``
 # (as at 2^21 reviews) the concat reads their live char totals once;
 # locate and replace over the reviews read nothing
+# and the group-by's warm run, under the capacity speculation, reads its
+# exchange's shrink counts in the one speculation.verify
 PLAIN_SYNCS = {"q28": {"concat.charTotals": 1},
-               "group_by": {"strings.tieSettle": 1},
+               "group_by": {"strings.tieSettle": 1,
+                            "speculation.verify": 1},
                "order_by_desc": {"strings.tieSettle": 1},
                "review_functions": {},
                "functions": {"strings.tieSettle": 6}}
@@ -2474,14 +2568,23 @@ def _same_expr_column(card, n: int, cpu: dict, approx: bool,
         require(torch.equal(g, w), f"{what}: values differ")
 
 
+# the second run of a plan whose final aggregate reads a collapsed
+# exchange over its partial: one exchange.shrink (exec/tpu._shrink)
+SECOND_RUN_SHRINK = {"exchange.shrink": 1}
+
+
 def _expr_cell(name: str, query, rec: dict, want_syncs: dict,
-               batches: bool = False):
+               batches: bool = False, peak: bool = False):
     """One cell: a cold run (uploads into the scan cache) with its
     collect, whose answer it returns, then one warm run up to the collect,
     timed, with the launch counts zeroed before and read after, under the
     sync debug mode "error": its counted syncs by site must be
-    ``want_syncs``. ``batches``: return the cold run's device batches
-    instead of a frame."""
+    ``want_syncs``, stated by the caller (the warm run is the plan's
+    second: under the capacity speculation, the JAX package's default, a
+    collapsed exchange over an aggregate reads its shrink counts again,
+    ``SECOND_RUN_SHRINK``, as they speculate only once two runs agreed).
+    ``batches``: return the cold run's device batches instead of a
+    frame."""
     from spark_rapids_tpu_torch.ops import kernels as K
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2489,6 +2592,11 @@ def _expr_cell(name: str, query, rec: dict, want_syncs: dict,
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     K.reset_launches()
+    if peak:
+        # the warm run's peak device bytes past what stood before it
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     syncs = _syncs_by_site(query.collect_batches)
     torch.cuda.synchronize()
@@ -2500,6 +2608,8 @@ def _expr_cell(name: str, query, rec: dict, want_syncs: dict,
             f"expected {want_syncs}")
     rec.update({"upload_s": cold, "wall_s": wall, "launches": launches,
                 "syncs": syncs, "fallbacks": 0})
+    if peak:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
     return out
 
 
@@ -2660,22 +2770,22 @@ def expression_phase(quick: bool, q1_session, q1_want, lineitem10, li1,
     li = tables["lineitem"]
     q1_cols = ["l_returnflag", "l_linestatus", "l_quantity",
                "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
-    ep, d, tx = (SF_.col("l_extendedprice"), SF_.col("l_discount"),
-                 SF_.col("l_tax"))
-    q = (li.filter(SF_.col("l_shipdate") <= datetime.date(1998, 9, 2))
-         .select(*q1_cols).rollup("l_returnflag", "l_linestatus")
-         .agg(SF_.sum("l_quantity").alias("sum_qty"),
-              SF_.sum("l_extendedprice").alias("sum_base_price"),
-              SF_.sum(ep * (1 - d)).alias("sum_disc_price"),
-              SF_.sum(ep * (1 - d) * (1 + tx)).alias("sum_charge"),
-              SF_.avg("l_quantity").alias("avg_qty"),
-              SF_.avg("l_extendedprice").alias("avg_price"),
-              SF_.avg("l_discount").alias("avg_disc"),
-              SF_.count("*").alias("count_order")))
+    q = _rollup_q1(li)
     rec = {"sf": sfs[0], "rows": len(lineitem10)}
     batch_rows = sess.conf.batch_size_rows
     out = _expr_cell("rollup_q1", q, rec,
-                     _partial_concat_syncs(len(lineitem10), batch_rows, 3))
+                     dict(_partial_concat_syncs(len(lineitem10), batch_rows,
+                                                3), **SECOND_RUN_SHRINK),
+                     peak=True)
+    # the adaptive phase's shrink cell (ROADMAP B.8): the wall and the
+    # peak device bytes beside the wall before the shrink
+    report.setdefault("adaptive", {})["rollup_q1"] = {
+        "wall_s": rec["wall_s"], "syncs": rec["syncs"],
+        "peak_bytes": rec["peak_bytes"],
+        "before_shrink_wall_s": ROLLUP_Q1_BEFORE_S}
+    log(f"adaptive rollup_q1: {rec['wall_s']:.4f} s warm (before the "
+        f"shrink: {ROLLUP_Q1_BEFORE_S} s), peak {rec['peak_bytes'] / 1e9:.3f} GB "
+        f"over the upload, syncs {rec['syncs']}")
     keys = ["l_returnflag", "l_linestatus"]
     rec["max_rel_err"] = same_by_key(
         _rollup_keys(out, keys), _rollup_keys(_q1_rollup_reference(q1_want),
@@ -2695,7 +2805,8 @@ def expression_phase(quick: bool, q1_session, q1_want, lineitem10, li1,
               SF_.count("*").alias("n")))
     rec = {"sf": sfs[0], "rows": len(lineitem10)}
     out = _expr_cell("cube_tax", q, rec,
-                     _partial_concat_syncs(len(lineitem10), batch_rows, 8))
+                     dict(_partial_concat_syncs(len(lineitem10), batch_rows,
+                                                8), **SECOND_RUN_SHRINK))
     t0 = time.perf_counter()
     want = _cube_reference(lineitem10, ckeys, "l_extendedprice")
     rec["reference_s"] = time.perf_counter() - t0
@@ -2737,8 +2848,8 @@ def expression_phase(quick: bool, q1_session, q1_want, lineitem10, li1,
     tok_chars = reviews.text.str.len().to_numpy() - (words - 1)
     caps = sum(char_bucket(int(tok_chars[lo:lo + EXPLODE_BATCH].sum()))
                for lo in range(0, nrev, EXPLODE_BATCH))
-    want_syncs = {"generate.totals": nb,
-                  "strings.tieSettle": nb + 1 + (nb > 1)}
+    want_syncs = dict(SECOND_RUN_SHRINK, **{
+        "generate.totals": nb, "strings.tieSettle": nb + 1 + (nb > 1)})
     if nb > 1 and caps > CONCAT_SHRINK_CHARS:
         want_syncs["concat.charTotals"] = 1
     out = _expr_cell("explode_words", q, rec, want_syncs)
@@ -2913,7 +3024,7 @@ def q9_parquet_cell(paths: dict, frames: dict, sf, batch_rows: int,
     out, rec = run_session_parquet(
         "session Q9 parquet", qdf, runs, None, sf,
         sum(len(frames[n]) for n in NEW_TPCH["q9"]), rgs,
-        expanding_joins(sess, qdf))
+        expanding_joins(sess, qdf), VERIFY)
     require(len(out) > 0, "session Q9 parquet returned no rows")
     rec["max_rel_err"] = same_query(out, TC.pandas_reference("q9", frames),
                                     "q9", "session Q9 parquet")
@@ -3359,7 +3470,11 @@ def memory_phase(frames: dict, mortgage: tuple, batch_rows: int,
         del sess, qm, out, out_in, want
 
         # -- spillable aggregate: the Q18 group-by at SF10 --------------------
-        sess = memory_session(batch_rows, MEMORY_PARTITION)
+        # dense keys off: on l_orderkey's bounded range they outrank the
+        # hash table from the plan's second run and split no batch; this
+        # cell holds the hash split past maxTableSlots
+        sess = memory_session(batch_rows, MEMORY_PARTITION, **{
+            "spark.rapids.sql.agg.denseKeys": False})
         q18 = T.q18_groupby(sess, {"lineitem": sess.create_dataframe(
             li[["l_orderkey", "l_quantity"]])})
         out_in, in_wall = _in_budget(sess, q18)
@@ -4088,7 +4203,8 @@ def _by_site(items, site) -> dict:
 
 
 def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
-              runs: int, queries: dict, report: dict) -> None:
+              runs: int, queries: dict, report: dict,
+              claims: Optional[int] = None) -> None:
     """Observability on the card (``spark_rapids_tpu_torch/obs``): the
     session Q3 cell (its cached SF10 uploads, ``HASH_AGG_CONFS``; B1-B4)
     and session Q6 from the SF 0.5 Parquet file (B1, B5, B7) three ways
@@ -4099,7 +4215,9 @@ def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
     traced Q9 from the Parquet files, summarized by the port's
     ``trace_summary`` (B.4's step 0), its answer equal to ``q9_want``.
     ``lineitem`` is the frame of the Parquet lineitem (Q6's reference).
-    Uploads nothing new."""
+    ``claims``: the nodes of Q3's plan that its exchanges' fused filters
+    claim (they run no batch), stated by the caller where the plan's
+    shape is known. Uploads nothing new."""
     from spark_rapids_tpu_torch.models import tpch as T
     t_phase = time.perf_counter()
     sess, tables, q3_want = q3_cell
@@ -4113,10 +4231,14 @@ def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
 
     rec["session_q3"] = _obs_walls(
         "session_q3", sess, lambda: T.q3(sess, tables), check_q3_out, runs)
-    require(rec["session_q3"]["syncs_before_collect"]
-            == {"join.expandTotals": 2},
+    # the cell runs warm under the capacity speculation (the JAX
+    # package's default): its two joins' totals and its two exchanges'
+    # shrink counts are one speculation.verify (before it: two join
+    # totals)
+    want = VERIFY
+    require(rec["session_q3"]["syncs_before_collect"] == want,
             f"obs session Q3: {rec['session_q3']['syncs_before_collect']} "
-            f"before the collect, expected two join totals")
+            f"before the collect, expected {want}")
 
     s6 = session_of(batch_rows, **dict(T.HASH_AGG_CONFS, **{
         "spark.rapids.sql.cacheDeviceScans": False}))
@@ -4141,7 +4263,13 @@ def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
     names = _by_site(doc["traceEvents"], lambda ev: ev["name"])
     require(names.get("Query", 0) == 1, f"obs Q3 trace: Query spans "
             f"{names.get('Query')}")
-    nodes = {n.name for n in sess.last_plan.walk()}
+    # a filter that a collapsed exchange folds into its concat (and the
+    # coalesce between them) runs no batch of its own: no span
+    claimed = claimed_by_exchanges(sess, sess.last_plan)
+    require(claims is None or len(claimed) == claims, f"obs Q3: "
+            f"{len(claimed)} nodes claimed by fused filters, stated {claims}")
+    nodes = {n.name for n in sess.last_plan.walk()
+             if id(n) not in claimed}
     missing = sorted(n for n in nodes if not names.get(n))
     require(not missing, f"obs Q3 trace: no span of {missing}")
     spans = _by_site([ev for ev in doc["traceEvents"]
@@ -4182,6 +4310,12 @@ def obs_phase(q3_cell, paths: dict, q9_want, lineitem, batch_rows: int,
         for c in node["children"]:
             walk(c)
     walk(prof["plan"])
+    # the nodes a collapsed exchange's fused filter claims ran no batch
+    ran = [n for n in flat if "breakdown" in n]
+    require(len(flat) - len(ran) == len(claimed),
+            f"obs Q3 syncEachOp: {len(flat) - len(ran)} nodes without a "
+            "breakdown")
+    flat = ran
     worst = max(abs(n["breakdown"]["device_s"] + n["breakdown"]["transfer_s"]
                     + n["breakdown"]["dispatch_s"] - n["exclusive_s"])
                 for n in flat)
@@ -4428,8 +4562,14 @@ def shuffle_phase(q3_cell, li1, o1, c1, batch_rows: int, runs: int,
     t_phase = time.perf_counter()
     rec: dict = {}
     sess, tables, q3_want = q3_cell
+    # the routes' stated syncs are those of runs that read their sizes
+    # exactly: the capacity cache keys on the plan, which is the same on
+    # every route, so speculating one route's sizes on another is left out
+    # of these checks (capacity speculation off on the buckets and
+    # manager routes; the adaptive phase holds it)
     buckets = {"spark.rapids.sql.shuffle.localCollapse": False,
-               "spark.rapids.sql.shuffle.partitions": SHUFFLE_PARTS}
+               "spark.rapids.sql.shuffle.partitions": SHUFFLE_PARTS,
+               "spark.rapids.sql.adaptiveCapacity.enabled": False}
 
     # 1. LOCAL buckets, hash, on the cell's uploads
     K.reset_launches()
@@ -4485,6 +4625,42 @@ def shuffle_phase(q3_cell, li1, o1, c1, batch_rows: int, runs: int,
         f"walls buckets "
         f"{sf10_walls['buckets']:.4f} s collapse "
         f"{sf10_walls['collapse']:.4f} s")
+
+    # 1b. the buckets route at the JAX package's defaults (capacity
+    # speculation on), right after the collapse route's warm runs: the
+    # speculation keys carry every exchange's route
+    # (exec/tpu.exchange_routes), so nothing the collapse learned is
+    # speculated here. The first run reads its sizes exactly
+    # (q3_bucket_syncs); the next speculates its 2 x SHUFFLE_PARTS join
+    # totals into one speculation.verify beside the splits, the range
+    # bounds and the limit's count, which read every run; no run
+    # re-executes
+    spec_want = {"exchange.split": 6, "exchange.rangeBounds": 1,
+                 "limit.remaining": 1, "speculation.verify": 1}
+    spec_buckets = {k: v for k, v in buckets.items()
+                    if k != "spark.rapids.sql.adaptiveCapacity.enabled"}
+    with _confs(sess, spec_buckets):
+        reruns0 = sess.capacity_spec_reruns
+        learn = _syncs_by_site(T.q3(sess, tables).collect_batches)
+        require(learn == q3_bucket_syncs(SHUFFLE_PARTS), f"shuffle Q3 "
+                f"buckets, speculation on: first run's syncs {learn}, "
+                f"stated {q3_bucket_syncs(SHUFFLE_PARTS)}")
+        spec = _syncs_by_site(T.q3(sess, tables).collect_batches)
+        require(spec == spec_want, f"shuffle Q3 buckets, speculation on: "
+                f"warm syncs {spec}, stated {spec_want}")
+        wall_s, runs_s, out = _median_wall(
+            lambda: T.q3(sess, tables).collect(), runs)
+        check_q3(out, q3_want)
+        same_by_key(out, collapse_out, ["l_orderkey"], "shuffle Q3 "
+                    "buckets, speculation on, against the collapse route")
+        reruns = sess.capacity_spec_reruns - reruns0
+        require(reruns == 0, f"shuffle Q3 buckets, speculation on: "
+                f"{reruns} re-executions")
+    rec["q3_buckets_speculated"] = {"learn_syncs": learn,
+                                    "warm_syncs": spec, "reruns": reruns,
+                                    "wall_s": wall_s, "wall_runs_s": runs_s}
+    log(f"shuffle Q3 buckets, speculation on: first run {learn}, warm "
+        f"{spec}, {reruns} re-executions, warm {wall_s:.4f} s")
 
     # 2. LOCAL buckets, range: a global sort of SF1 lineitem
     cols = ["l_orderkey", "l_linenumber", "l_extendedprice", "l_quantity"]
@@ -4563,7 +4739,9 @@ def shuffle_phase(q3_cell, li1, o1, c1, batch_rows: int, runs: int,
         _reset_shuffle_envs(ms)
         with _confs(ms, {"spark.rapids.shuffle.transport.class": transport,
                          "spark.rapids.sql.shuffle.partitions":
-                             SHUFFLE_PARTS}):
+                             SHUFFLE_PARTS,
+                         "spark.rapids.sql.adaptiveCapacity.enabled":
+                             False}):
             T.q3(ms, t1).collect()  # warm: the executors and their servers
             with _remote_blocks(ms) as blocks:
                 pre = _syncs_by_site(T.q3(ms, t1).collect_batches)
@@ -4656,6 +4834,405 @@ def shuffle_only() -> int:
     return 0
 
 
+# --- the adaptive phase (capacity speculation, dense keys, the fusions,
+# the exchange's shrink, shared subtrees, AQE, whole-stage fusion) --------
+ADAPTIVE_SKEW_ROWS = 400_000
+ADAPTIVE_SKEW_CONFS = {
+    "spark.rapids.sql.adaptive.enabled": True,
+    "spark.rapids.sql.autoBroadcastJoinThreshold": -1,
+    "spark.rapids.sql.shuffle.partitions": 4,
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionThreshold": 1 << 20,
+    "spark.rapids.sql.adaptive.coalesce.minPartitionSize": 1 << 20}
+# rollup_q1's wall on the same upload before the exchange's shrink came
+# (PERF.md, ROADMAP B.8)
+ROLLUP_Q1_BEFORE_S = 2.4505
+
+
+def _timed_syncs(fn) -> tuple:
+    """(wall seconds, counted syncs by site, result) of ``fn`` under the
+    sync debug mode "error" (as ``count_syncs``)."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    torch.cuda.synchronize()
+    before = dict(SYNCS.syncs)
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                  if v != before.get(k, 0)}, out
+
+
+def _frame_of(batches) -> "pd.DataFrame":
+    import pandas as pd
+    return pd.concat([b.to_pandas() for b in batches], ignore_index=True)
+
+
+def _plan_ops(sess, df) -> list:
+    return [type(n).__name__ for n in sess.physical_plan(df._plan).walk()]
+
+
+def fusion_cells(sess, tables: dict, q1_want, q6_want, batches: int,
+                 runs: int, report: dict) -> None:
+    """Q1 and Q6 on the session Q1/Q6 cell's cached uploads with the
+    filter fused into the partial aggregate (``spark.rapids.sql.agg.
+    fuseFilter``, the default) and without it: fused, the plan holds no
+    TpuFilterExec and the filter compacts nothing (kernel B1 launches
+    ``batches`` fewer times a run, one a filtered batch); the warm walls
+    of both, the median of ``runs``, each answer against pandas. The
+    adaptive phase reports them."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.ops import kernels as K
+    out: dict = {}
+    for qname in ("q1", "q6"):
+        rec = {}
+        for mode, fuse in (("on", True), ("off", False)):
+            sess.set_conf("spark.rapids.sql.agg.fuseFilter", fuse)
+            df = T.QUERIES[qname](sess, tables)
+            ops = _plan_ops(sess, df)
+            require(("TpuFilterExec" in ops) != fuse,
+                    f"fusion {qname} {mode}: plan {ops}")
+            got = df.collect()
+            if qname == "q1":
+                check_q1(got, q1_want)
+            else:
+                require(_rel_err([got.revenue[0]], [q6_want]) <= F64_RTOL,
+                        f"fusion q6 {mode}: {got}")
+            med, walls, _o = _median_wall(df.collect_batches, runs)
+            K.reset_launches()
+            df.collect_batches()
+            torch.cuda.synchronize()
+            rec[mode] = {"wall_s": med, "wall_runs_s": walls,
+                         "b1_launches": K.LAUNCHES["compact_permutation"]}
+        sess.reset_conf()
+        require(rec["off"]["b1_launches"] - rec["on"]["b1_launches"]
+                == batches, f"fusion {qname}: B1 launches {rec}")
+        log(f"adaptive fusion {qname}: fused {rec['on']['wall_s']:.4f} s "
+            f"(B1 {rec['on']['b1_launches']}), unfused "
+            f"{rec['off']['wall_s']:.4f} s (B1 {rec['off']['b1_launches']})")
+        out[qname] = rec
+    report.setdefault("adaptive", {})["fusion"] = out
+
+
+def adaptive_phase(q3_cell, li1, o1, c1, batch_rows: int,
+                   queries: dict, report: dict, shared: bool = True
+                   ) -> None:
+    """The adaptive slice (ROADMAP A.10) on the card, every query under
+    the sync debug mode "error", each answer against pandas; cells the
+    smoke already holds:
+
+      1. speculation: the session Q3 cell (its cached uploads, shuffled
+         joins) once cold for the capacity cache, then three warm runs,
+         each's counted syncs by site as stated; then one cached join
+         capacity cut to a quarter: the next run re-executes once
+         (``capacity_spec_reruns``), answers right, and the run after it
+         relearns the entry;
+      2. dense keys: the Q18 group-by over SF1 lineitem twice, the second
+         run on ``BRANCHES["dense"]`` with no hash or sorted branch; a
+         stale bound set by hand: one re-execution, the right answer, the
+         plan blocklisted;
+      3. fusion: the records of ``fusion_cells`` (Q1 and Q6 at SF10);
+      4. shrink: rollup_q1 on the session Q1 cell's SF10 upload, its warm
+         wall and peak device bytes beside its 2.4505 s before the
+         shrink (the
+         expression phase's cell records them here);
+      5. shared subtrees: the TPC-H cells' Q2, Q11 and Q17 each held one
+         reuse node; their warm walls;
+      6. AQE: Q3 at SF1 with ``spark.rapids.sql.adaptive.enabled``: its
+         stages and decisions, at least one broadcast demotion, one
+         ``aqe.stageFetch`` a stage; a skewed-key join gives an
+         ``aqeSkewSplit``;
+      7. whole stage: a project/filter chain over SF1 lineitem with
+         ``spark.rapids.sql.fusion.stageEnabled``: one TpuFusedStageExec,
+         the answer equal to the unfused run's."""
+    import pandas as pd
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.obs.events import EVENTS
+    from spark_rapids_tpu_torch.ops import aggregate as A
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    from spark_rapids_tpu_torch.testing.datagen import (
+        gen_skewed_join_frames,
+    )
+    rec = report.setdefault("adaptive", {})
+    phase0 = time.perf_counter()
+
+    # 1. speculation on the session Q3 cell
+    sess, tables, q3_want = q3_cell
+    sess.reset_conf()
+    sess.capacity_cache.clear()
+    q3 = T.q3(sess, tables)
+    # stated before the runs: the cold run reads both joins' expansion
+    # totals and both exchanges' (the partial and the final aggregate's)
+    # shrink counts; the first warm run expands into the cached sizes
+    # (one speculation.verify) but still reads the shrink counts, which
+    # speculate once two runs agree (the JAX package's rule); the later
+    # warm runs make the verify alone
+    stated = [{"join.expandTotals": 2, "exchange.shrink": 2},
+              {"exchange.shrink": 2, "speculation.verify": 1},
+              {"speculation.verify": 1}, {"speculation.verify": 1}]
+    spec = {"runs": []}
+    for i, want in enumerate(stated):
+        wall, got, out = _timed_syncs(q3.collect_batches)
+        require(got == want, f"adaptive Q3 run {i}: syncs {got}, "
+                f"expected {want}")
+        spec["runs"].append({"wall_s": wall, "syncs": got,
+                             "max_rel_err": check_q3(_frame_of(out),
+                                                     q3_want)})
+    reruns0 = sess.capacity_spec_reruns
+    key = next(k for k, e in sess.capacity_cache.items()
+               if e.get("sizes") and any(sz[0] > 4 for sz in e["sizes"]))
+    sess.capacity_cache[key]["sizes"] = [
+        [max(sz[0] // 4, 1)] + sz[1:]
+        for sz in sess.capacity_cache[key]["sizes"]]
+    # the miss: the verify finds the cut capacity short, the query re-runs
+    # without speculation (both joins' totals, both shrinks)
+    want = {"speculation.verify": 1, "join.expandTotals": 2,
+            "exchange.shrink": 2}
+    wall, got, out = _timed_syncs(q3.collect_batches)
+    require(sess.capacity_spec_reruns == reruns0 + 1,
+            f"adaptive Q3 miss: {sess.capacity_spec_reruns - reruns0} "
+            "re-executions")
+    require(got == want, f"adaptive Q3 miss: syncs {got}, expected {want}")
+    spec["miss"] = {"wall_s": wall, "syncs": got,
+                    "max_rel_err": check_q3(_frame_of(out), q3_want)}
+    require(key not in sess.capacity_cache, "the missed entry stayed")
+    # the relearn: the cut join reads its totals again (its entry back in
+    # the cache) while the other speculates; the miss dropped both shrink
+    # entries too (their counts followed the truncated join), so both
+    # exchanges read theirs again
+    want = {"join.expandTotals": 1, "exchange.shrink": 2,
+            "speculation.verify": 1}
+    wall, got, out = _timed_syncs(q3.collect_batches)
+    require(key in sess.capacity_cache and got == want,
+            f"adaptive Q3 relearn: syncs {got}, expected {want}")
+    spec["relearn"] = {"wall_s": wall, "syncs": got,
+                       "reruns": sess.capacity_spec_reruns - reruns0,
+                       "max_rel_err": check_q3(_frame_of(out), q3_want)}
+    rec["speculation"] = spec
+    log(f"adaptive speculation Q3: {spec}")
+
+    # 2. dense keys: the Q18 group-by over SF1 lineitem
+    ds = session_of(batch_rows)
+    li = {"lineitem": ds.create_dataframe(li1)}
+    q18 = T.q18_groupby(ds, li)
+    sums = li1.groupby("l_orderkey").l_quantity.sum()
+    sums = sums[sums > 300]
+    want18 = pd.DataFrame({"l_orderkey": sums.index,
+                           "sum_qty": sums.to_numpy()})
+    # the first run (with the upload) marks the plan as seen; a warm run
+    # with dense keys off times the sorted-payload branch beside the
+    # second run, which takes the dense composite
+    dense = {"runs": []}
+    for i, keys in enumerate((True, False, True)):
+        ds.set_conf("spark.rapids.sql.agg.denseKeys", keys)
+        A.reset_branches()
+        wall, got, out = _timed_syncs(q18.collect_batches)
+        taken = dict(A.BRANCHES)
+        dense["runs"].append({"wall_s": wall, "syncs": got,
+                              "branches": taken, "dense_keys": keys})
+        same_by_key(_frame_of(out), want18, ["l_orderkey"],
+                    f"adaptive dense run {i}")
+    ds.reset_conf()
+    taken = dense["runs"][2]["branches"]
+    require(taken.get("dense", 0) > 0 and not any(
+        taken.get(b) for b in ("hash", "sorted_payload", "rowspace_sort")),
+        f"adaptive dense: second run's branches {taken}")
+    lo, hi = ds.column_stats["l_orderkey"]
+    ds.column_stats["l_orderkey"] = (hi + 10000, hi + 40000)
+    reruns0 = ds.capacity_spec_reruns
+    blocked0 = len(ds.capacity_spec_blocklist)
+    same_by_key(q18.collect(), want18, ["l_orderkey"],
+                "adaptive dense stale bound")
+    require(ds.capacity_spec_reruns == reruns0 + 1
+            and len(ds.capacity_spec_blocklist) == blocked0 + 1,
+            f"adaptive dense stale bound: {ds.capacity_spec_reruns - reruns0}"
+            " re-executions")
+    same_by_key(q18.collect(), want18, ["l_orderkey"],
+                "adaptive dense after the blocklist")
+    require(ds.capacity_spec_reruns == reruns0 + 1,
+            "adaptive dense: a blocklisted plan re-executed")
+    ds.clear_device_cache()
+    rec["dense"] = dense
+    log(f"adaptive dense: {dense}")
+
+    # 4. shrink: rollup_q1 on the SF10 upload (the expression phase's
+    # cell, which measures its peak device bytes: recorded there)
+
+    # 5. shared subtrees: the TPC-H cells' records
+    if shared:
+        out = {}
+        for qname in ("q2", "q11", "q17"):
+            r = queries[f"session_{qname}"]
+            require(r.get("shared_subtrees") == 1,
+                    f"adaptive {qname}: {r.get('shared_subtrees')} reuse "
+                    "nodes")
+            out[qname] = {"wall_s": r["wall_s"], "reuse_nodes": 1}
+        rec["shared_subtrees"] = out
+        log(f"adaptive shared subtrees: {out}")
+
+    # 6. AQE: Q3 at SF1, and a skewed-key join. The broadcast threshold
+    # sits just below the smaller of customer's and orders' static size
+    # estimates, so the static planner shuffles both joins and only the
+    # measured (filtered) build side can demote one
+    aq = session_of(batch_rows, **{"spark.rapids.sql.adaptive.enabled":
+                                   True})
+    t1 = {"lineitem": aq.create_dataframe(li1),
+          "orders": aq.create_dataframe(o1),
+          "customer": aq.create_dataframe(c1)}
+    threshold = min(t1[n]._plan.estimated_size_bytes()
+                    for n in ("orders", "customer")) - 1
+    aq.set_conf("spark.rapids.sql.autoBroadcastJoinThreshold", threshold)
+    q3a = T.q3(aq, t1)
+    q3a.collect()  # the uploads
+    wall, got, out = _timed_syncs(q3a.collect_batches)
+    last = aq.last_aqe
+    stages = last["stages"]
+    rules = [d["rule"] for d in last["decisions"]]
+    require(got.get("aqe.stageFetch") == stages and stages >= 1,
+            f"adaptive AQE Q3: {stages} stages, syncs {got}")
+    require("broadcastDemotion" in rules,
+            f"adaptive AQE Q3: no broadcast demotion: {last['decisions']}")
+    aq.reset_conf()
+    aqe = {"q3": {"wall_s": wall, "syncs": got, "stages": stages,
+                  "threshold_bytes": threshold,
+                  "decisions": last["decisions"],
+                  "max_rel_err": check_q3(_frame_of(out),
+                                          q3_reference(li1, o1, c1))}}
+    rng = np.random.default_rng(7)
+    fact, dim = gen_skewed_join_frames(rng, n_fact=ADAPTIVE_SKEW_ROWS,
+                                       n_dim=1000, hot_prob=0.8)
+    for k, v in ADAPTIVE_SKEW_CONFS.items():
+        aq.set_conf(k, v)
+    sk = (aq.create_dataframe(fact, 4)
+          .join(aq.create_dataframe(dim.rename(columns={"k": "k2"}), 2),
+                left_on=["k"], right_on=["k2"])
+          .group_by("k").agg(SF_.sum(SF_.col("v") + SF_.col("w"))
+                             .alias("sv")))
+    sk.collect()  # the uploads
+    wall, got, out = _timed_syncs(sk.collect_batches)
+    skew_out = _frame_of(out)
+    splits = [d for d in aq.last_aqe["decisions"]
+              if d["rule"] == "skewSplit"]
+    require(splits and any(e["kind"] == "aqeSkewSplit"
+                           for e in EVENTS.flight_events()),
+            f"adaptive skew join: no split {aq.last_aqe['decisions']}")
+    require(got.get("aqe.stageFetch") == aq.last_aqe["stages"],
+            f"adaptive skew join: syncs {got}")
+    m = fact.merge(dim.rename(columns={"k": "k2"}), left_on="k",
+                   right_on="k2")
+    m = m.assign(s=m.v + m.w).groupby("k", as_index=False).s.sum()
+    same_by_key(skew_out.rename(columns={"sv": "s"}), m, ["k"],
+                "adaptive skew join")
+    aqe["skew"] = {"wall_s": wall, "syncs": got,
+                   "stages": aq.last_aqe["stages"],
+                   "decisions": aq.last_aqe["decisions"]}
+    aq.clear_device_cache()
+    rec["aqe"] = aqe
+    log(f"adaptive AQE: {aqe}")
+
+    # 7. whole-stage fusion over SF1 lineitem
+    ws = session_of(batch_rows)
+    wl = ws.create_dataframe(li1[["l_quantity", "l_extendedprice",
+                                  "l_discount", "l_tax"]])
+    chain = (wl.filter(SF_.col("l_quantity") > 10)
+             .with_column("x", SF_.col("l_extendedprice")
+                          * (1 - SF_.col("l_discount")))
+             .with_column("y", SF_.col("x") * (1 + SF_.col("l_tax")))
+             .filter(SF_.col("y") > 20000.0)
+             .with_column("z", SF_.col("y") - SF_.col("x")))
+    off = chain.collect()  # the upload
+    # the same chain's warm wall unfused and fused, up to the collect,
+    # median of 3 each, the two alternated
+    walls: dict = {False: [], True: []}
+    for _ in range(3):
+        for on_ in (False, True):
+            ws.set_conf("spark.rapids.sql.fusion.stageEnabled", on_)
+            walls[on_].append(_median_wall(chain.collect_batches, 1)[0])
+    ws.set_conf("spark.rapids.sql.fusion.stageEnabled", True)
+    fused = [n for n in ws.physical_plan(chain._plan).walk()
+             if type(n).__name__ == "TpuFusedStageExec"]
+    require(len(fused) == 1, f"adaptive whole stage: {len(fused)} fused "
+            "stages")
+    wall, got, out = _timed_syncs(chain.collect_batches)
+    on = _frame_of(out)
+    require(got == {}, f"adaptive whole stage: syncs {got}")
+    same_by_key(on.assign(i=range(len(on))), off.assign(i=range(len(off))),
+                ["i"], "adaptive whole stage")
+    ws.clear_device_cache()
+    rec["whole_stage"] = {"wall_s": float(np.median(walls[True])),
+                          "wall_runs_s": walls[True],
+                          "unfused_wall_s": float(np.median(walls[False])),
+                          "unfused_wall_runs_s": walls[False],
+                          "checked_wall_s": wall,
+                          "members": fused[0].member_ops, "rows": len(on)}
+    log(f"adaptive whole stage: {rec['whole_stage']}")
+    rec["phase_s"] = time.perf_counter() - phase0
+    report["adaptive_phase_s"] = rec["phase_s"]
+    log(f"adaptive phase: {rec['phase_s']:.1f} s")
+
+
+def _rollup_q1(li):
+    """TPC-H Q1's filter and eight aggregates as a rollup of
+    (l_returnflag, l_linestatus)."""
+    from spark_rapids_tpu_torch.sql import functions as SF_
+    q1_cols = ["l_returnflag", "l_linestatus", "l_quantity",
+               "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+    ep, d, tx = (SF_.col("l_extendedprice"), SF_.col("l_discount"),
+                 SF_.col("l_tax"))
+    return (li.filter(SF_.col("l_shipdate") <= datetime.date(1998, 9, 2))
+            .select(*q1_cols).rollup("l_returnflag", "l_linestatus")
+            .agg(SF_.sum("l_quantity").alias("sum_qty"),
+                 SF_.sum("l_extendedprice").alias("sum_base_price"),
+                 SF_.sum(ep * (1 - d)).alias("sum_disc_price"),
+                 SF_.sum(ep * (1 - d) * (1 + tx)).alias("sum_charge"),
+                 SF_.avg("l_quantity").alias("avg_qty"),
+                 SF_.avg("l_extendedprice").alias("avg_price"),
+                 SF_.avg("l_discount").alias("avg_disc"),
+                 SF_.count("*").alias("count_order")))
+
+
+def adaptive_only() -> int:
+    """The adaptive phase alone, on SF1 frames made here (its Q3 cell at
+    SF1 with shuffled joins in place of SF10, its Q1 cell and rollup at
+    SF1; the shared-subtree cells need the TPC-H cells and are skipped).
+    Details go to ``chip_smoke_adaptive.json`` beside the other phases'
+    reports."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(1), "orders": G.gen_orders(1),
+              "customer": G.gen_customer(1)}
+    sess = session_of(1 << 23, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
+    tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
+    T.q3(sess, tables).collect()  # the cold run: the cached uploads
+    qs = session_of(1 << 23)
+    qt = {"lineitem": qs.create_dataframe(frames["lineitem"])}
+    queries, report = {}, {}
+    fusion_cells(qs, qt, q1_reference(frames["lineitem"]),
+                 q6_reference(frames["lineitem"]),
+                 -(-len(frames["lineitem"]) // (1 << 23)), 3, report)
+    log(f"frames and uploads: {time.perf_counter() - t0:.1f} s")
+    adaptive_phase((sess, tables, q3_reference(frames["lineitem"],
+                                               frames["orders"],
+                                               frames["customer"])),
+                   frames["lineitem"], frames["orders"],
+                   frames["customer"], 1 << 23, queries, report,
+                   shared=False)
+    out_dir = os.path.dirname(OBS_OUT)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_adaptive.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def scan_write_only() -> int:
     """The scan-and-write phase alone, on SF1 frames and files made here.
     Details go to ``chiprun_out/chip_smoke_scan_write.json``."""
@@ -4706,6 +5283,9 @@ def main() -> int:
     ap.add_argument("--shuffle-only", action="store_true",
                     help="build the kernels and run only the shuffle phase "
                          "(SF1 frames made here); prints no result")
+    ap.add_argument("--adaptive-only", action="store_true",
+                    help="build the kernels and run only the adaptive "
+                         "phase (SF1 frames made here); prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -4727,6 +5307,8 @@ def main() -> int:
         return obs_only()
     if args.shuffle_only:
         return shuffle_only()
+    if args.adaptive_only:
+        return adaptive_only()
     children: list = []
     try:
         return run(args, children)
@@ -4918,7 +5500,7 @@ def run(args, children: list) -> int:
         "spark.rapids.memory.spill.diskDir": MEMORY_SPILL_DIR})
     tables = {"lineitem": sess.create_dataframe(df)}
     out, rec = run_session_query("session Q1", T.q1(sess, tables), runs,
-                                 queries["q1"], sf_q1, len(df))
+                                 queries["q1"], sf_q1, len(df), VERIFY)
     earlier = {"q1_want": q1_want, "session_q1": out}
     rec["max_rel_err"] = max(check_q1(out, q1_want),
                              same_by_key(out, q1_runner, ["l_returnflag",
@@ -4930,7 +5512,7 @@ def run(args, children: list) -> int:
             "session Q1 ran no compaction")
     queries["session_q1"] = rec
     out, rec = run_session_query("session Q6", T.q6(sess, tables), runs,
-                                 queries["q6"], sf_q1, len(df))
+                                 queries["q6"], sf_q1, len(df), VERIFY)
     err = _rel_err([out.revenue[0]], [q6_want])
     require(len(out) == 1 and err <= F64_RTOL,
             f"session Q6 revenue differs: {err}")
@@ -4938,6 +5520,12 @@ def run(args, children: list) -> int:
                                               "session Q6 against the "
                                               "runner"))
     queries["session_q6"] = rec
+    # the adaptive phase's fusion cells: Q1 and Q6 with the filter fused
+    # into the partial aggregate and without, on these cached uploads
+    t0 = time.perf_counter()
+    fusion_cells(sess, tables, q1_want, q6_want,
+                 -(-len(df) // q1_batch), 1 if args.quick else 3, report)
+    report["adaptive_fusion_s"] = time.perf_counter() - t0
     # a lineitem group-by on four dictionary keys whose joint table,
     # 4 x 3 x 51 x 12 = 7344 slots (a slot each for null), passes the
     # dictionary branch's 4096: the row-space branch, its slot attempt
@@ -5029,7 +5617,7 @@ def run(args, children: list) -> int:
                                         "TpuBroadcastHashJoinExec": 0},
             "session Q3 did not plan two shuffled joins")
     out, rec = run_session_query("session Q3", q3_df, runs, queries["q3"],
-                                 sf_q1, q3_rows, syncs=2)
+                                 sf_q1, q3_rows, VERIFY, syncs=2)
     rec["max_rel_err"] = max(check_q3(out, q3_want),
                              check_q3(out, q3_runner))
     require(joined_on_device(rec) and all(rec["launches"][k] > 0 for k in (
@@ -5038,8 +5626,17 @@ def run(args, children: list) -> int:
         f"{rec['launches']} {rec['routes']}")
     queries["session_q3"] = rec
     session_q3 = out
+    # the semi join's stream side (the filtered orders) is the collapsed
+    # exchange's one masked concat of its two 2^23-row upload batches
+    # (exchange.fuseFilter), so the partial after the semi join gets one
+    # batch of 2^24 rows' capacity, whose B2 table (``hash_table_size``)
+    # passes maxTableSlots (2^24): it splits by key hash, one
+    # outofcore.partitionCounts (with the fusion off the collapse passes
+    # the two batches on, each within the limit, and nothing splits)
     out, rec = run_session_query("session Q4", T.q4(sess, tables), runs,
-                                 queries["q4"], sf_q1, q4_rows)
+                                 queries["q4"], sf_q1, q4_rows,
+                                 dict(VERIFY, **{
+                                     "outofcore.partitionCounts": 1}))
     require(list(out.o_orderpriority) == list(q4_want.o_orderpriority)
             == list(q4_runner.o_orderpriority)
             and list(out.order_count) == list(q4_want.order_count)
@@ -5058,7 +5655,8 @@ def run(args, children: list) -> int:
                                         "TpuBroadcastHashJoinExec": 1},
             "session Q3 with a broadcast did not plan one of each join")
     out, rec = run_session_query("session Q3 broadcast", q3_df, runs,
-                                 queries["q3"], sf_q1, q3_rows, syncs=2)
+                                 queries["q3"], sf_q1, q3_rows, VERIFY,
+                                 syncs=2)
     rec["max_rel_err"] = max(check_q3(out, q3_want),
                              check_q3(out, session_q3))
     rec["threshold_bytes"] = threshold
@@ -5255,13 +5853,15 @@ def run(args, children: list) -> int:
     del batches
 
     # the Q18 group-by through the session, on the hash branch, beside the
-    # runner that collects the same rows
-    sess = session_of(q18_batch, **T.HASH_AGG_CONFS)
+    # runner that collects the same rows; dense keys off, which outrank
+    # the hash table on a bounded integer key (the next cell takes them)
+    sess = session_of(q18_batch, **dict(T.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.agg.denseKeys": False}))
     li_q18 = {"lineitem": sess.create_dataframe(df)}
     out, rec = run_session_query(
         "session Q18 group-by", T.q18_groupby(sess, li_q18), runs,
         {"wall_s": queries["q18_groupby"]["having_only_wall_s"]}, sf_q18,
-        len(df))
+        len(df), VERIFY)
     rec["runner_full_result_wall_s"] = queries["q18_groupby"]["wall_s"]
     want_h = q18_want[q18_want > 300]
     rec["max_rel_err"] = max(
@@ -5275,12 +5875,13 @@ def run(args, children: list) -> int:
             "session Q18 did not run B1 and B2")
     rec["having_rows"] = len(out)
     queries["session_q18_groupby"] = rec
-    # the same query and upload at the default confs: the sorted-payload
-    # branch beside B2
+    # the same query and upload at the default confs: the dense composite
+    # key beside B2 (before agg.denseKeys came: the sorted-payload branch)
     sess.set_conf("spark.rapids.sql.agg.hashAggEnabled", False)
+    sess.set_conf("spark.rapids.sql.agg.denseKeys", True)
     out, rec = run_session_cell(
         "session Q18 group-by default confs", T.q18_groupby(sess, li_q18),
-        runs_new, sf_q18, len(df), 0, ("sorted_payload",))
+        runs_new, sf_q18, len(df), 0, ("dense",))
     rec["max_rel_err"] = max(
         same_by_key(out, pd.DataFrame({"l_orderkey": want_h.index,
                                        "sum_qty": want_h.to_numpy()}),
@@ -5318,13 +5919,22 @@ def run(args, children: list) -> int:
                              queries)
     torch.cuda.empty_cache()
     # observability, on the session Q3 cell's uploads and these files
+    # (at SF10 Q3 plans two shuffled joins: its three filters, customer
+    # segment, order date and ship date, each with the coalesce above it,
+    # fold into their join exchanges' concats: 6 nodes)
     obs_phase(q3_cell, pathsh, q9_out, framesh["lineitem"], q1_batch,
-              1 if args.quick else 3, queries, report)
+              1 if args.quick else 3, queries, report,
+              claims=None if args.quick else 6)
     torch.cuda.empty_cache()
     # the exchange's routes and the shuffle manager, on the same cell and
     # the SF1 frames
     shuffle_phase(q3_cell, df, o1, c1, q1_batch, 1 if args.quick else 3,
                   queries, report)
+    torch.cuda.empty_cache()
+    # the adaptive slice, on the same Q3 cell, the session Q1 cell's
+    # upload, the SF1 frames and the TPC-H cells' records
+    adaptive_phase(q3_cell, df, o1, c1, q1_batch, queries, report)
+    report["adaptive_phase_s"] += report["adaptive_fusion_s"]
     q3_cell[0].clear_device_cache()
     del framesh, q3_cell
     torch.cuda.empty_cache()
@@ -5363,7 +5973,8 @@ def run(args, children: list) -> int:
     what = "session Q18 group-by parquet"
     out, rec = run_session_parquet(
         what, T.q18_groupby(sess, {"lineitem": sess.read.parquet(path18)}),
-        pq_runs, queries["q18_groupby_parquet"], sf_q18, len(df), rg18, 0)
+        pq_runs, queries["q18_groupby_parquet"], sf_q18, len(df), rg18, 0,
+        VERIFY)
     want_h_df = pd.DataFrame({"l_orderkey": want_h.index,
                               "sum_qty": want_h.to_numpy()})
     rec["max_rel_err"] = max(

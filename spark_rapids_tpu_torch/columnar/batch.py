@@ -93,6 +93,9 @@ class DeviceBatch:
         self.num_rows = num_rows
         # the row count where the host knows it (an upload), else None
         self.host_rows: Optional[int] = None
+        # a row count the host expects but has not verified (a speculated
+        # join expansion's cached total): a hint only, never exact
+        self.rows_hint: Optional[int] = None
 
     @property
     def capacity(self) -> int:
@@ -111,9 +114,13 @@ class DeviceBatch:
                             device=self.device) < self.num_rows
 
     def num_rows_hint(self) -> int:
-        """An upper bound of the row count without a host sync: the count
-        where the host knows it, else the capacity."""
-        return self.host_rows if self.host_rows is not None \
+        """The row count as far as the host can tell without a sync: the
+        count where the host knows it, else a speculated count (exact once
+        the query's speculation is verified), else the capacity, an upper
+        bound."""
+        if self.host_rows is not None:
+            return self.host_rows
+        return self.rows_hint if self.rows_hint is not None \
             else self.capacity
 
     def num_rows_host(self) -> int:

@@ -53,6 +53,14 @@ def _to_bytes(s: str) -> int:
     return int(s)
 
 
+def _fraction(lo: float, hi: float) -> Callable[[Any], Optional[str]]:
+    def check(v: Any) -> Optional[str]:
+        if not (lo <= float(v) <= hi):
+            return f"must be within [{lo}, {hi}], got {v}"
+        return None
+    return check
+
+
 def _positive(v: Any) -> Optional[str]:
     return None if v > 0 else f"must be positive, got {v}"
 
@@ -163,6 +171,142 @@ FUSE_COUNT_DISTINCT = register(
     "pass (exec/aggfuse.py): hash group ids over kernel B3 where every "
     "key is fixed-width or a dictionary, one sort where a key is a char "
     "slab.")
+
+AGG_FUSE_FILTER = register(
+    "spark.rapids.sql.agg.fuseFilter", _to_bool, True,
+    "Fuse a Filter (and intervening deterministic Projects) below a "
+    "partial hash aggregate into the aggregation as a row mask, skipping "
+    "the filter's row compaction (kernel B1 and one gather per column; "
+    "exec/fusion.py).")
+EXCHANGE_FUSE_FILTER = register(
+    "spark.rapids.sql.exchange.fuseFilter", _to_bool, True,
+    "Fuse a deterministic Filter directly below a collapsed exchange (or "
+    "a broadcast materialization) into the concat's single compaction "
+    "gather, eliminating the standalone filter's per-batch per-column "
+    "gathers.")
+ADAPTIVE_CAPACITY = register(
+    "spark.rapids.sql.adaptiveCapacity.enabled", _to_bool, True,
+    "Adaptive (AQE-style) output-capacity speculation: the session "
+    "remembers each join's expansion sizes per structural plan "
+    "fingerprint and later executions of the same query skip the "
+    "per-join device->host capacity sync, expanding straight into the "
+    "remembered buckets. The exact sizes are still computed on device; "
+    "ONE deferred fetch at query end (speculation.verify) verifies every "
+    "speculated capacity covered its actual size and the query "
+    "transparently re-executes without speculation on any miss - "
+    "correctness never depends on the cache. Also the verification "
+    "substrate of spark.rapids.sql.agg.denseKeys, which this conf gates.")
+AGG_DENSE_KEYS = register(
+    "spark.rapids.sql.agg.denseKeys", _to_bool, True,
+    "Bounded-int composite grouping keys: when every group key is a "
+    "fixed-width integer with advisory scan-stat bounds fitting 62 bits "
+    "of combined slot space, the grouping runs on ONE exact composite "
+    "key (ops/aggregate.dense_composite) and outranks the hash table. "
+    "The device-computed bounds check joins the deferred speculation "
+    "verification: a stale-stats miss transparently re-executes the "
+    "query without dense grouping and blocklists the plan. Requires "
+    "spark.rapids.sql.adaptiveCapacity.enabled (the verification "
+    "machinery); disabling that disables dense grouping too.")
+
+# --- whole-stage fusion (exec/stagecompiler/) -------------------------------
+FUSION_STAGE_ENABLED = register(
+    "spark.rapids.sql.fusion.stageEnabled", _to_bool, False,
+    "Whole-stage fusion (exec/stagecompiler/): cut the converted physical "
+    "plan into fusible pipelines at exchange/scan/fallback boundaries and "
+    "run each pipeline as ONE composed per-batch function "
+    "(TpuFusedStageExec) instead of one operator iterator per member - "
+    "chains of deterministic Project/Filter (with interleaved batch "
+    "coalescing absorbed) run with one Python dispatch a batch. false "
+    "(default) keeps the per-operator plans. Fused stages report their "
+    "member-operator pipeline to the profile tree, progress records and "
+    "flight recorder.")
+FUSION_MIN_OPS = register(
+    "spark.rapids.sql.fusion.minOperators", int, 2,
+    "Minimum number of compute operators (projects/filters) a pipeline "
+    "must contain before whole-stage fusion replaces it with a fused "
+    "stage; shorter chains keep their standalone operators (fusing one "
+    "operator only renames its dispatch).", validator=_positive)
+FUSION_DONATE = register(
+    "spark.rapids.sql.fusion.donateInputs", _to_bool, False,
+    "Accepted for compatibility with the JAX package, where it donates "
+    "the fused-stage program's input buffers (jax donate_argnums). Eager "
+    "PyTorch has no buffer donation: on this backend the setting is "
+    "accepted and changes nothing.")
+
+# --- adaptive query execution (sql/adaptive/) -------------------------------
+ADAPTIVE_ENABLED = register(
+    "spark.rapids.sql.adaptive.enabled", _to_bool, False,
+    "Adaptive query execution: cut the physical plan into query stages at "
+    "hash-exchange boundaries, materialize each stage's map side, fold the "
+    "observed per-partition sizes into MapOutputStatistics and re-optimize "
+    "the not-yet-executed remainder (partition coalescing, dynamic "
+    "broadcast conversion, skew-join splitting - sql/adaptive/). false "
+    "(default) keeps the single-shot planner.")
+ADAPTIVE_COALESCE_ENABLED = register(
+    "spark.rapids.sql.adaptive.coalesce.enabled", _to_bool, True,
+    "With AQE on, merge adjacent reduce partitions whose combined "
+    "measured size is below "
+    "spark.rapids.sql.adaptive.coalesce.minPartitionSize, so the reduce "
+    "side runs fewer, fuller tasks (Spark's CoalesceShufflePartitions). "
+    "Join inputs coalesce jointly (combined sizes) to stay "
+    "co-partitioned.")
+ADAPTIVE_COALESCE_MIN_SIZE = register(
+    "spark.rapids.sql.adaptive.coalesce.minPartitionSize", _to_bytes,
+    8 << 20,
+    "Target (and minimum) measured byte size of one post-coalesce reduce "
+    "partition; adjacent partitions merge until the group reaches it. "
+    "Also the advisory target size of one skew-split sub-partition.",
+    validator=_positive)
+ADAPTIVE_BROADCAST_ENABLED = register(
+    "spark.rapids.sql.adaptive.broadcast.enabled", _to_bool, True,
+    "With AQE on, replace a planned shuffled-hash join with a broadcast "
+    "hash join when the build side's MEASURED materialized size comes in "
+    "under spark.rapids.sql.autoBroadcastJoinThreshold (which the static "
+    "planner could not prove from estimates). The already-materialized "
+    "map output is reused as the broadcast table - the source is never "
+    "re-read - and a not-yet-materialized stream-side shuffle is elided "
+    "entirely.")
+ADAPTIVE_SKEW_ENABLED = register(
+    "spark.rapids.sql.adaptive.skewJoin.enabled", _to_bool, True,
+    "With AQE on, split a skewed reduce partition of a shuffled join "
+    "into map-range sub-partitions on the skewed side and replicate the "
+    "matching partition on the other side (Spark's "
+    "OptimizeSkewedJoin). A partition is skewed when its measured size "
+    "exceeds skewedPartitionFactor x the median AND "
+    "skewedPartitionThreshold.")
+ADAPTIVE_SKEW_FACTOR = register(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionFactor", float, 5.0,
+    "Multiple of the median reduce-partition size beyond which a join "
+    "partition counts as skewed.", validator=_positive)
+ADAPTIVE_SKEW_THRESHOLD = register(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionThreshold",
+    _to_bytes, 4 << 20,
+    "Minimum measured byte size for a reduce partition to count as "
+    "skewed (guards the factor test against tiny shuffles).",
+    validator=_positive)
+
+# --- shape buckets (utils/kernelcache.py) -----------------------------------
+COMPILE_SHAPE_BUCKETS = register(
+    "spark.rapids.tpu.compile.shapeBuckets", _to_bool, False,
+    "Bucket-padded secondary shape dimensions: the coarse input "
+    "re-batching of a fused stage and the other secondary-dimension "
+    "materializations (utils/kernelcache.bucket_dim) pad up a coarser "
+    "bucket ladder, so one capacity serves a dimension range. Row counts "
+    "stay exact (the padding is masked like capacity padding), so results "
+    "are value-identical - only capacities grow. false (default) leaves "
+    "every dimension at its own bucket.")
+COMPILE_SHAPE_BUCKETS_MIN = register(
+    "spark.rapids.tpu.compile.shapeBuckets.minBucket", int, 4096,
+    "Floor of the coarse secondary-dimension bucket ladder: every padded "
+    "dimension is at least this, collapsing the small buckets "
+    "(8..minBucket/2) into one shape. Padding cost is bounded by "
+    "minBucket elements per small dimension.", validator=_positive)
+COMPILE_SHAPE_BUCKETS_GROWTH = register(
+    "spark.rapids.tpu.compile.shapeBuckets.growth", float, 2.0,
+    "Growth factor between coarse secondary-dimension buckets above the "
+    "floor. 2.0 keeps a power-of-two ladder; 4.0 halves the number of "
+    "shapes again at the cost of up to 4x padding on those dimensions.",
+    validator=_fraction(1.1, 16.0))
 
 # --- shuffle transport (ref RapidsConf.scala:520-601) ----------------------
 SHUFFLE_FETCH_RETRIES = register(
@@ -502,6 +646,34 @@ class TpuConf:
     @property
     def broadcast_threshold(self) -> int:
         return self.get(BROADCAST_THRESHOLD.key)
+
+    @property
+    def adaptive_enabled(self) -> bool:
+        return self.get(ADAPTIVE_ENABLED.key)
+
+    @property
+    def adaptive_coalesce_enabled(self) -> bool:
+        return self.get(ADAPTIVE_COALESCE_ENABLED.key)
+
+    @property
+    def adaptive_coalesce_min_size(self) -> int:
+        return int(self.get(ADAPTIVE_COALESCE_MIN_SIZE.key))
+
+    @property
+    def adaptive_broadcast_enabled(self) -> bool:
+        return self.get(ADAPTIVE_BROADCAST_ENABLED.key)
+
+    @property
+    def adaptive_skew_enabled(self) -> bool:
+        return self.get(ADAPTIVE_SKEW_ENABLED.key)
+
+    @property
+    def adaptive_skew_factor(self) -> float:
+        return float(self.get(ADAPTIVE_SKEW_FACTOR.key))
+
+    @property
+    def adaptive_skew_threshold(self) -> int:
+        return int(self.get(ADAPTIVE_SKEW_THRESHOLD.key))
 
     def is_operator_enabled(self, key: str,
                             disabled_by_default: bool = False) -> bool:

@@ -198,15 +198,17 @@ def _match_chain(node: PhysicalPlan) -> Optional[TpuCountDistinctExec]:
         n = _skip_coalesce(n)
         return n if isinstance(n, TpuShuffleExchangeExec) else None
 
+    # a partial carrying a fused filter (exec/fusion.py) takes no part,
+    # as in the JAX package: the fused pass has no row mask
     fo = agg(node, "final")
     ex_o = fo and exch(fo.children[0])
     po = ex_o and agg(ex_o.children[0], "partial")
-    if po is None or po.plan is not fo.plan:
+    if po is None or po.plan is not fo.plan or po.pre_mask is not None:
         return None
     fi = agg(po.children[0], "final")
     ex_i = fi and exch(fi.children[0])
     pi = ex_i and agg(ex_i.children[0], "partial")
-    if pi is None or pi.plan is not fi.plan:
+    if pi is None or pi.plan is not fi.plan or pi.pre_mask is not None:
         return None
     child = _skip_coalesce(pi.children[0])
     plan_o, plan_i = fo.plan, fi.plan

@@ -184,10 +184,46 @@ def _sync_rows(batch) -> Optional[int]:
         return int(batch.num_rows.item())
 
 
+class HostCopy:
+    """A device tensor's copy to the host, started without waiting: on a
+    CUDA device a non-blocking copy into pinned host memory with a CUDA
+    event recorded after it (a copy into pageable memory would wait, and
+    so would reading the pinned tensor before its event), on the CPU the
+    tensor itself. The JAX package's ``_start_host_copies``: the deferred
+    speculation check (``session._verify_speculation``) waits on the
+    events inside its one counted sync and reads nothing before."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensor: torch.Tensor):
+        if tensor.device.type == "cuda":
+            self.host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                    pin_memory=True)
+            self.host.copy_(tensor, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tensor
+            self.event = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.host.numel() * self.host.element_size()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def tolist(self):
+        """The values (call ``wait`` first, inside the sync scope)."""
+        return self.host.tolist()
+
+
 def plan_fingerprint(node: PhysicalPlan) -> str:
     """Structural identity of a plan subtree, stable across executions of
-    the same query over the same data: keys the session's aggregation
-    ratio cache."""
+    the same query over the same data (each scan's data identity is in
+    its ``fingerprint_extra``): keys the session's aggregation ratio
+    cache and its capacity speculation cache."""
     parts: List[str] = []
 
     def rec(n: PhysicalPlan) -> None:
@@ -204,11 +240,29 @@ class ExecContext:
     the device the query's batches live on, and the query's metrics and
     profile stats."""
 
-    def __init__(self, conf, session=None, device="cuda"):
+    def __init__(self, conf, session=None, device="cuda",
+                 speculate: bool = True):
         from spark_rapids_tpu_torch.obs.metrics import MetricsRegistry
         self.conf = conf
         self.session = session
         self.device = torch.device(device)
+        # adaptive capacity speculation (spark.rapids.sql.adaptiveCapacity
+        # .enabled): operators that speculated a device->host size fetch
+        # from the session cache append (key, totals HostCopy or None,
+        # width, caps used, ok-flag HostCopies, exact counts or None)
+        # here; the session verifies the whole list in ONE fetch at the
+        # query's end and re-executes without speculation on any miss
+        # (session._execute). ``speculate=False`` is that re-execution.
+        self.speculate = (
+            speculate and session is not None
+            and conf.get_bool("spark.rapids.sql.adaptiveCapacity.enabled",
+                              True))
+        self.spec_pending: list = []
+        # agg_ratio_cache entries written by this execution: a speculative
+        # run that fails verification learned its ratios from possibly
+        # wrong group counts, and the session drops exactly these before
+        # re-executing
+        self.ratio_writes: list = []
         # the shared subtrees' batches of this execution (exec/reuse.py)
         self.reuse_state: dict = {}
         # catalog ids of this query's transient spillables (broadcast

@@ -34,14 +34,24 @@ class TargetSize:
 
 
 def coalesce_iter(batches, goal: TargetSize, schema: Schema,
-                  growth: float, device, dm=None) -> Iterator[DeviceBatch]:
-    """Accumulate a batch stream to ``goal`` and concatenate. The counting
-    is by row-count hints (the capacity where the count is on the device),
-    so it needs no host sync; it over-counts by at most the padding. A
-    concat's output is metered on ``dm`` where given."""
+                  growth: float, device, dm=None,
+                  coarse: bool = False) -> Iterator[DeviceBatch]:
+    """Accumulate a batch stream to ``goal`` and concatenate: the one
+    coalescing loop, shared by TpuCoalesceBatchesExec and the fused
+    stage's input re-batching (``exec/stagecompiler/fusedexec.py``). The
+    counting is by row-count hints (the capacity where the count is on
+    the device), so it needs no host sync; it over-counts by at most the
+    padding. A concat's output is metered on ``dm`` where given.
+    ``coarse``: a concat's capacity pads up the shape-bucket ladder
+    (``utils/kernelcache.bucket_dim``; the identity while
+    ``spark.rapids.tpu.compile.shapeBuckets`` is off)."""
     from spark_rapids_tpu_torch.exec.tpu import concat_device
     pending: List[DeviceBatch] = []
     pending_rows = 0
+
+    def flush():
+        return concat_device(pending, schema, growth, device, dm=dm,
+                             coarse=coarse)
     for batch in batches:
         rows = batch.num_rows_hint()
         if rows == 0 and pending:
@@ -49,10 +59,10 @@ def coalesce_iter(batches, goal: TargetSize, schema: Schema,
         pending.append(batch)
         pending_rows += rows
         if pending_rows >= goal.rows:
-            yield concat_device(pending, schema, growth, device, dm=dm)
+            yield flush()
             pending, pending_rows = [], 0
     if pending:
-        yield concat_device(pending, schema, growth, device, dm=dm)
+        yield flush()
 
 
 class TpuCoalesceBatchesExec(PhysicalPlan):

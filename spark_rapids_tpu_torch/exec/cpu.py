@@ -326,6 +326,27 @@ class CpuShuffleExchangeExec(PhysicalPlan):
     def describe(self) -> str:
         return f"CpuShuffleExchangeExec({self.partitioning[0]})"
 
+    def materialize_stage(self, ctx: ExecContext):
+        """AQE query-stage materialization (``sql/adaptive/``): run the
+        map side (this exchange's child), split every map partition by the
+        CANONICAL hash of the key columns and report per-(map, reduce
+        partition) sizes, the host-side role of
+        MapStatus.partition_sizes. Returns (map_outputs[map][pid] ->
+        DataFrame, MapOutputStatistics)."""
+        from spark_rapids_tpu_torch.obs.progress import PROGRESS
+        from spark_rapids_tpu_torch.sql.adaptive import stats as aqestats
+        assert self.partitioning[0] == "hash", self.partitioning
+        key_idx = list(self.partitioning[1])
+        n = self.partitioning[2]
+        schema = self.children[0].output_schema()
+        map_outputs = []
+        for part in self.children[0].executed_partitions(ctx):
+            df = concat_host_frames(list(part()), schema)
+            map_outputs.append(aqestats.split_frame(df, key_idx, n))
+            if PROGRESS.enabled:  # live per-map-partition stage progress
+                PROGRESS.shuffle_map_partition()
+        return map_outputs, aqestats.stats_from_map_outputs(map_outputs)
+
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         child_parts = self.children[0].executed_partitions(ctx)
         schema = self.children[0].output_schema()

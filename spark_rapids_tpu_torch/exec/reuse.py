@@ -42,6 +42,9 @@ _PRECISE = {
     "TpuBroadcastHashJoinExec", "TpuBroadcastExchangeExec",
     "TpuShuffleExchangeExec", "TpuSortExec", "TpuCoalesceBatchesExec",
     "TpuCoalescePartitionsExec",
+    # whole-stage fusion: fingerprint_extra carries every member's
+    # identity (exec/stagecompiler/fusedexec.py)
+    "TpuFusedStageExec",
 }
 
 # a subtree is only worth materializing when it holds real compute
@@ -102,11 +105,21 @@ def _deterministic(node: PhysicalPlan) -> bool:
     exprs = [e for _n, e in getattr(node, "exprs", ())]
     if getattr(node, "condition", None) is not None:
         exprs.append(node.condition)
+    if getattr(node, "pre_mask", None) is not None:    # fused agg filter
+        exprs.append(node.pre_mask)
     plan = getattr(node, "plan", None)
     if plan is not None and hasattr(plan, "grouping"):
         exprs.extend(e for _n, e in plan.grouping + plan.results)
     exprs.extend(o.expr for o in getattr(node, "orders", ()))
     return not any(has_nondeterministic(e) for e in exprs)
+
+
+def subtree_deterministic(node: PhysicalPlan) -> bool:
+    """Every expression in the subtree deterministic: the gate shared by
+    subtree reuse and capacity speculation (a rand() below a join would
+    change sizes every run, so speculation would alternate learn and miss;
+    reuse would be wrong)."""
+    return all(_deterministic(n) for n in node.walk())
 
 
 def _eligible(node: PhysicalPlan, memo: dict) -> bool:

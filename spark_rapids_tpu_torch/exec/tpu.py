@@ -21,24 +21,33 @@ aggregate, the external sort, the grace join. Under the hash aggregation
 (``_bucketed_update``, up to three levels); a merge past it still takes
 the sorted-payload branch, as in the JAX package.
 
-Not ported, and why nothing here needs them yet:
-  * the fused filter masks, fused selections and whole-stage programs of
-    ``exec/fusion.py`` and ``exec/stagecompiler`` (ROADMAP A.10);
+Adaptive pieces of the JAX package (ROADMAP A.10), on by default there
+and here:
+  * the filter fusions (``exec/fusion.py``): a filter under a partial
+    aggregate is its live mask (``TpuHashAggregateExec(pre_mask=)``, on
+    every branch, the runtime skip's pass-through and ``_bucketed_update``
+    included); a pure selection above a filter is its output selection
+    (``TpuFilterExec(out_sel=)``); a filter under a collapse or a broadcast
+    folds into one masked concat (``_fused_filter_source``);
   * the dense composite grouping key (``agg.denseKeys``,
-    ``ops/aggregate.dense_composite``, ``exec/statsutil.py``): it engages
-    only under the session's capacity speculation (ROADMAP A.10); the
-    aggregate takes the JAX package's other branches, with the same result;
-  * the first-batch partial-skip heuristic (``agg.runtimeSkip=false``):
-    the partial pass always decides its skip at run time, the JAX
-    package's default;
-  * the exchange's capacity shrink (a counted sync) and its speculation
-    (ROADMAP A.10): the collapse route passes the child's batches on with
-    no sync, which already streams its pieces as the JAX package's
-    collapse does under out-of-core. Only a concat whose padded capacity
-    would pass CONCAT_SHRINK_ROWS reads its live rows
-    (``concat_device``);
-  * the exchange's mesh route (``shuffle/ici.py``, an all_to_all across
-    cards; ROADMAP A.9).
+    ``_dense_group_plan``), from a plan's second execution, under the
+    session's capacity speculation;
+  * the exchange's capacity shrink (``_collapse_partitions``): a collapse
+    over a padded producer (an aggregate, a limit, a semi or anti join,
+    ``_padded_producer``) reads every batch's live rows and plain-string
+    char totals in one counted ``exchange.shrink`` sync, slices each
+    batch to its bucket and concatenates; warm runs of a deterministic
+    subtree take the counts from the session cache once two runs agreed
+    and verify them exactly at the query's end. A collapse over anything
+    else passes the child's batches on with no copy and no sync;
+  * ``materialize_stage``, the AQE stage barrier (one counted
+    ``aqe.stageFetch`` a stage).
+The JAX package's small-query fast path, which skips the shrink for one
+resident batch, is not ported (ROADMAP); nor is the exchange's mesh
+route (``shuffle/ici.py``, an all_to_all across cards; ROADMAP A.9). The
+first-batch partial-skip heuristic (``agg.runtimeSkip=false``) is not
+ported either: the partial pass always decides its skip at run time, the
+JAX package's default.
 """
 
 from __future__ import annotations
@@ -94,10 +103,12 @@ def empty_batch(schema: Schema, device) -> DeviceBatch:
 
 
 # a concat whose summed capacities pass this many rows sizes its output
-# by its live rows instead (one counted sync, where a batch's row count is
-# not known on the host): padded partials (a 12x cross join's partial
-# aggregates, each at its input's capacity) would otherwise ask for a
-# capacity the card cannot hold
+# by its live rows instead (one counted ``concat.liveRows`` sync, where a
+# batch's row count is not known on the host). Padded partials reaching a
+# collapsed exchange are shrunk there first (``exchange.shrink``), so this
+# catches the concats no exchange shrinks: a final aggregate's or a
+# sort's input over the buckets or the shuffle manager, and a join's
+# build side
 CONCAT_SHRINK_ROWS = 1 << 27
 # the concats that read their live rows, since the last reset
 CONCAT_SHRINKS = {"synced": 0}
@@ -112,24 +123,50 @@ def device_manager_of(ctx: ExecContext):
     return getattr(ctx.session, "device_manager", None)
 
 
+def _out_of_core(conf, session) -> bool:
+    """``exec/outofcore.enabled_for`` from a conf and a session."""
+    return session is not None and conf.get_bool(C.OOC_ENABLED.key, False)
+
+
+def exchange_routes(node: PhysicalPlan, ctx: ExecContext) -> str:
+    """The route of every shuffle exchange in ``node``'s subtree, in
+    pre-order: part of a capacity speculation key, since sizes learned on
+    one route (one collapsed partition, one concatenated batch) are not
+    another's (n buckets, their slices)."""
+    return ",".join(n.route(ctx.conf, ctx.session) for n in node.walk()
+                    if isinstance(n, TpuShuffleExchangeExec))
+
+
 def concat_device(batches: List[DeviceBatch], schema: Schema,
-                  growth: float, device, dm=None) -> DeviceBatch:
+                  growth: float, device, dm=None,
+                  coarse: bool = False) -> DeviceBatch:
     """Concatenate device batches (GpuCoalesceBatches): one
     ``rowops.concat_batches`` at the bucketed sum of their capacities, or
     of their live rows past CONCAT_SHRINK_ROWS. A new output is metered
-    on ``dm`` (a ``memory/device.TpuDeviceManager``) where given."""
-    if len(batches) == 1:
-        return batches[0]
+    on ``dm`` (a ``memory/device.TpuDeviceManager``) where given.
+    ``coarse``: the capacity pads up the shape-bucket ladder
+    (``utils/kernelcache.bucket_dim``), a single batch included; the
+    identity while the buckets are off."""
     if not batches:
         return empty_batch(schema, device)
-    out = _concat(batches, growth)
+    if len(batches) == 1:
+        if not coarse:
+            return batches[0]
+        from spark_rapids_tpu_torch.utils.kernelcache import bucket_dim
+        if bucket_dim(batches[0].capacity) == batches[0].capacity:
+            return batches[0]
+    out = _concat(batches, growth, coarse)
     if dm is not None:
         dm.meter_batch(out)
     return out
 
 
-def _concat(batches: List[DeviceBatch], growth: float) -> DeviceBatch:
+def _concat(batches: List[DeviceBatch], growth: float,
+            coarse: bool = False) -> DeviceBatch:
+    from spark_rapids_tpu_torch.utils.kernelcache import bucket_dim
     out_cap = bucket_capacity(sum(b.capacity for b in batches), growth)
+    if coarse:
+        out_cap = bucket_dim(out_cap)
     if out_cap > CONCAT_SHRINK_ROWS:
         if all(b.host_rows is not None for b in batches):
             rows = sum(b.host_rows for b in batches)
@@ -171,6 +208,63 @@ def _as_ref(e: Expression) -> Optional[BoundRef]:
     return e if isinstance(e, BoundRef) else None
 
 
+def _fused_filter_source(node: PhysicalPlan):
+    """(source node, mask function, out_sel) for a collapse or broadcast
+    concat whose exchange claims the filter below it (its
+    ``claims_filter``, under ``spark.rapids.sql.exchange.fuseFilter``): a
+    deterministic TpuFilterExec directly below (looking through one
+    TpuCoalesceBatchesExec, which the concat makes redundant) folds its
+    predicate into the concat's single compaction gather
+    (``concat_batches(keep_masks=)``) instead of compacting every batch,
+    the exchange-side sibling of ``exec/fusion.fuse_filter_into_aggregate``.
+    ``out_sel`` is the filter's fused output selection, applied as a
+    column view before the concat. (node, None, None) where nothing fuses.
+    ``claimed_filter`` names the nodes it folds; the whole-stage cutter
+    leaves them out of its stages."""
+    claimed = claimed_filter(node)
+    if not claimed:
+        return node, None, None
+    filt = claimed[-1]
+    cond = filt.condition
+
+    def mask(batch: DeviceBatch) -> torch.Tensor:
+        ectx = make_context(batch)
+        pred = to_device_column(ectx, cond.eval_device(ectx))
+        return pred.data & pred.validity & batch.row_mask()
+    return filt.children[0], mask, filt.out_sel
+
+
+def claimed_filter(node: PhysicalPlan) -> list:
+    """The nodes a claiming exchange above ``node`` folds into its concat:
+    [coalesce, filter] or [filter] for a deterministic TpuFilterExec at
+    ``node`` or under one TpuCoalesceBatchesExec there, else []."""
+    from spark_rapids_tpu_torch.exec.coalesce import TpuCoalesceBatchesExec
+    chain = []
+    if isinstance(node, TpuCoalesceBatchesExec):
+        chain.append(node)
+        node = node.children[0]
+    if isinstance(node, TpuFilterExec) and not node._impure:
+        return chain + [node]
+    return []
+
+
+def fused_concat(batches: List[DeviceBatch], masks, out_sel,
+                 schema: Schema, growth: float, device, dm=None
+                 ) -> DeviceBatch:
+    """One batch of ``batches`` with a fused filter's keep masks applied
+    in the concat's one compaction (``_fused_filter_source``)."""
+    if not batches:
+        return empty_batch(schema, device)
+    if out_sel is not None:
+        batches = [_select_view(b, out_sel) for b in batches]
+    out = rowops.concat_batches(
+        batches, bucket_capacity(sum(b.capacity for b in batches), growth),
+        keep_masks=masks)
+    if dm is not None:
+        dm.meter_batch(out)
+    return out
+
+
 def _per_batch(node: PhysicalPlan, ctx: ExecContext, exprs, fn
                ) -> List[Partition]:
     """``fn`` over each batch of each child partition. Where ``exprs``
@@ -209,6 +303,14 @@ class TpuProjectExec(TpuExec):
                  exprs: Sequence[Tuple[str, Expression]]):
         super().__init__([child])
         self.exprs = list(exprs)
+        from spark_rapids_tpu_torch.sql.exprs.nondet import (
+            has_nondeterministic,
+        )
+        self._impure = any(has_nondeterministic(e) for _, e in self.exprs)
+        # a selection/rename only: column objects re-arranged, no device
+        # work
+        self._pure_selection = not self._impure and all(
+            _as_ref(e) is not None for _, e in self.exprs)
 
     def output_schema(self) -> Schema:
         cs = self.children[0].output_schema()
@@ -241,24 +343,44 @@ class TpuProjectExec(TpuExec):
 
 class TpuFilterExec(TpuExec):
     """reference: GpuFilterExec: the predicate's keep mask, then one row
-    compaction (kernel B1) of every column."""
+    compaction (kernel B1) of every column.
 
-    def __init__(self, child: PhysicalPlan, condition: Expression):
+    ``out_sel``: an optional (names, indices) output selection fused from
+    a pure-column Project above (``exec/fusion.fuse_selection_into_
+    filter``): the predicate evaluates over the FULL input, but the
+    compaction gathers ONLY the selected columns."""
+
+    def __init__(self, child: PhysicalPlan, condition: Expression,
+                 out_sel=None):
         super().__init__([child])
         self.condition = condition
+        self.out_sel = out_sel
+        from spark_rapids_tpu_torch.sql.exprs.nondet import (
+            has_nondeterministic,
+        )
+        self._impure = has_nondeterministic(condition)
 
     def output_schema(self) -> Schema:
-        return self.children[0].output_schema()
+        cs = self.children[0].output_schema()
+        if self.out_sel is None:
+            return cs
+        names, idx = self.out_sel
+        return Schema(list(names), [cs.dtypes[i] for i in idx])
 
     def describe(self) -> str:
-        return f"TpuFilterExec({self.condition!r})"
+        sel = ("" if self.out_sel is None
+               else f", sel={list(self.out_sel[0])}")
+        return f"TpuFilterExec({self.condition!r}{sel})"
 
     def fingerprint_extra(self) -> str:
-        return repr(self.condition)
+        return repr(self.condition) + (
+            "" if self.out_sel is None else f"|sel={self.out_sel!r}")
 
     def _filter(self, batch: DeviceBatch) -> DeviceBatch:
         ectx = make_context(batch)
         pred = to_device_column(ectx, self.condition.eval_device(ectx))
+        if self.out_sel is not None:
+            batch = _select_view(batch, self.out_sel)
         return rowops.filter_batch(batch, pred.data & pred.validity)
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
@@ -276,15 +398,22 @@ def _note_skip(decision: str, measured: float, batches: int,
 class TpuHashAggregateExec(TpuExec):
     """reference: GpuHashAggregateExec. Partial: per-batch update, then a
     concat and merge of the partials within the partition; final: concat,
-    merge, finalize."""
+    merge, finalize.
+
+    ``pre_mask``: a fused pre-filter predicate (``exec/fusion.py``),
+    ANDed into the partial's live mask on every branch (and compacting
+    the rows of the runtime skip's pass-through), replacing a standalone
+    Filter's compaction."""
 
     # batches sampled before an undecided plan commits to the update path
     _SKIP_SAMPLE_BATCHES = 3
 
-    def __init__(self, child: PhysicalPlan, plan: AggPlan, mode: str):
+    def __init__(self, child: PhysicalPlan, plan: AggPlan, mode: str,
+                 pre_mask: Optional[Expression] = None):
         super().__init__([child])
         self.plan = plan
         self.mode = mode
+        self.pre_mask = pre_mask
 
     def output_schema(self) -> Schema:
         return (self.plan.partial_schema if self.mode == "partial"
@@ -292,48 +421,99 @@ class TpuHashAggregateExec(TpuExec):
 
     def describe(self) -> str:
         keys = ", ".join(n for n, _ in self.plan.grouping)
-        return f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}])"
+        fused = (f", fused_filter={self.pre_mask!r}"
+                 if self.pre_mask is not None else "")
+        return f"TpuHashAggregateExec(mode={self.mode}, keys=[{keys}]{fused})"
 
     def fingerprint_extra(self) -> str:
+        extra = ("" if self.pre_mask is None
+                 else f"|mask:{self.pre_mask!r}")
         return ";".join(repr(e) for _, e in self.plan.grouping
-                        + self.plan.results)
+                        + self.plan.results) + extra
 
     # -- per-batch steps -----------------------------------------------------
-    def _update(self, batch: DeviceBatch, hash_table) -> DeviceBatch:
+    def _update(self, batch: DeviceBatch, hash_table, dense=None):
         p = self.plan
         return agg_ops.aggregate_update(
             batch, [e for _, e in p.grouping], p.update_inputs,
-            p.update_reductions, p.partial_schema, hash_table=hash_table)
+            p.update_reductions, p.partial_schema, mask_expr=self.pre_mask,
+            dense=dense, hash_table=hash_table)
 
-    def _merge(self, batch: DeviceBatch, hash_table) -> DeviceBatch:
+    def _merge(self, batch: DeviceBatch, hash_table, dense=None):
         p = self.plan
         return agg_ops.aggregate_merge(
             batch, p.num_keys, p.merge_reductions, p.partial_schema,
-            hash_table=hash_table)
+            dense=dense, hash_table=hash_table)
 
     def _passthrough(self, batch: DeviceBatch) -> DeviceBatch:
         p = self.plan
         return agg_ops.aggregate_passthrough(
             batch, [e for _, e in p.grouping], p.update_inputs,
-            p.update_reductions, p.partial_schema)
+            p.update_reductions, p.partial_schema, mask_expr=self.pre_mask)
 
     def _finalize(self, batch: DeviceBatch) -> DeviceBatch:
         final = self.plan.finalize_exprs()
         return eval_projection(batch, [e for _, e in final],
                                [n for n, _ in final])
 
-    def _update_fn(self, ctx: ExecContext, hash_table):
-        """The per-batch update: ``_update``, or under the hash aggregation
-        with column-reference keys ``_bucketed_update``: a batch whose slot
-        table would pass ``agg.hash.maxTableSlots`` splits by key hash
-        into slices that fit (disjoint key sets), each aggregates on B2,
-        and their partials concatenate into one partial batch (no key
-        spans two slices); a slice still too large splits again with the
-        next level's hash, up to three levels. A batch the dictionary
-        branch aggregates (every key dictionary-encoded, a small joint
-        table) needs no hash table and does not split."""
-        def update(b):
-            return self._update(b, hash_table)
+    def _dense_group_plan(self, ctx: ExecContext):
+        """(los, sizes, spec key) for the bounded-int composite grouping
+        key, or None: non-integer keys, unresolvable stats, past 62 bits,
+        speculation off, ``agg.denseKeys`` off, a plan the session has not
+        executed before (the first execution's scan stats may not cover
+        this upload yet: they record as batches stream, after planning),
+        or blocklisted after a verification miss. The device-computed ok
+        flag joins the deferred speculation verification; a miss
+        re-executes without dense and blocklists the
+        ``nocache|densegroup|...`` key, so chronically stale stats do not
+        re-run every execution."""
+        if (ctx.session is None or not ctx.speculate
+                or not ctx.conf.get_bool(C.AGG_DENSE_KEYS.key, True)):
+            return None
+        p = self.plan
+        if p.num_keys == 0:
+            return None
+        from spark_rapids_tpu_torch.exec.statsutil import dense_group_plan
+        key_names, key_dts = [], []
+        if self.mode == "partial":
+            cs = p.child_schema
+            for name, e in p.grouping:
+                if not isinstance(e, BoundRef):
+                    return None
+                names = {name}
+                if 0 <= e.index < len(cs.names):
+                    names.add(cs.names[e.index])
+                key_names.append(names)
+                key_dts.append(cs.dtypes[e.index])
+        else:
+            ps = p.partial_schema
+            for j in range(p.num_keys):
+                key_names.append({ps.names[j]})
+                key_dts.append(ps.dtypes[j])
+        fp = plan_fingerprint(self)
+        seen = ctx.session.dense_plans_seen
+        if fp not in seen:
+            seen.add(fp)
+            return None
+        got = dense_group_plan(ctx.session, key_names, key_dts)
+        if got is None:
+            return None
+        skey = f"nocache|densegroup|{fp}|{got[1]}"
+        if skey in ctx.session.capacity_spec_blocklist:
+            return None
+        return got[0], got[1], skey
+
+    def _update_fn(self, ctx: ExecContext, hash_table, update):
+        """The per-batch update: ``update``, or under the hash aggregation
+        with column-reference keys ``_bucketed_update``: a batch whose
+        slot table would pass ``agg.hash.maxTableSlots`` splits by key
+        hash into slices that fit (disjoint key sets), each aggregates on
+        B2 (a fused filter's mask evaluated over each slice's rows), and
+        their partials concatenate into one partial batch (no key spans
+        two slices); a slice still too large splits again with the next
+        level's hash, up to three levels. A batch the dictionary branch
+        aggregates (every key dictionary-encoded, a small joint table)
+        needs no hash table and does not split."""
         if hash_table is None or self.mode != "partial":
             return update
         if not all(isinstance(e, BoundRef) for _, e in self.plan.grouping):
@@ -364,8 +544,8 @@ class TpuHashAggregateExec(TpuExec):
         return bucketed
 
     # -- the partial pass and its skip ---------------------------------------
-    def _partial(self, ctx: ExecContext, part: Partition, update,
-                 hash_table, skip_ratio: float) -> Iterator[DeviceBatch]:
+    def _partial(self, ctx: ExecContext, part: Partition, update, merge,
+                 skip_ratio: float) -> Iterator[DeviceBatch]:
         """The partial pass with the runtime partial-aggregation skip (the
         JAX package's agg.runtimeSkip, its default; its first-batch
         alternative is not ported): measure output groups / input rows as
@@ -375,7 +555,8 @@ class TpuHashAggregateExec(TpuExec):
         the plan's fingerprint (its data identity included), so later
         executions decide from batch 0 without a sync; a partial that
         shrank its capacity proves a strong reduction without one and
-        decides "update"."""
+        decides "update". Each cache write is noted in
+        ``ctx.ratio_writes`` (a speculation miss drops them)."""
         it = iter(part())
         first = next(it, None)
         if first is None:
@@ -395,6 +576,10 @@ class TpuHashAggregateExec(TpuExec):
                 EVENTS.emit("aggSkipDecision", decision="skip",
                             source="cache", measuredRatio=float(prior),
                             threshold=skip_ratio)
+
+        def learn(measured: float) -> None:
+            cache[sig] = measured
+            ctx.ratio_writes.append(sig)
         partials = []
         in_rows = out_rows = sampled = 0
         b = first
@@ -416,38 +601,68 @@ class TpuHashAggregateExec(TpuExec):
                     measured = out_rows / max(in_rows, 1)
                     if measured > skip_ratio:
                         decided = "skip"
-                        cache[sig] = measured
+                        learn(measured)
                         _note_skip(decided, measured, sampled, skip_ratio)
                         yield from partials
                         partials = []
                     elif sampled >= self._SKIP_SAMPLE_BATCHES:
                         decided = "update"
-                        cache[sig] = measured
+                        learn(measured)
                         _note_skip(decided, measured, sampled, skip_ratio)
             b = next(it, None)
         if decided is None and sampled > 0:
             # the stream ended while still sampling: the cumulative
             # measurement is the plan's decision
-            cache[sig] = out_rows / max(in_rows, 1)
+            learn(out_rows / max(in_rows, 1))
             _note_skip("update", cache[sig], sampled, skip_ratio)
         if len(partials) == 1:
             yield partials[0]
         elif partials:
-            yield self._merge(concat_device(
+            yield merge(concat_device(
                 partials, self.plan.partial_schema, ctx.conf.capacity_growth,
-                ctx.device, dm=device_manager_of(ctx)), hash_table)
+                ctx.device, dm=device_manager_of(ctx)))
 
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec import outofcore as ooc
         conf = ctx.conf
         skip_ratio = float(conf.get(C.AGG_SKIP_RATIO.key))
-        # the JAX package's dense composite keys (agg.denseKeys) are not
-        # ported (ROADMAP A.10): its other branches give the same result
+        dense = self._dense_group_plan(ctx)
+        # dense keys outrank the hash table (an exact composite key, one
+        # sort operand); the hash table engages where dense cannot
         use_hash = (conf.get_bool(C.AGG_HASH_ENABLED.key, False)
-                    and self.plan.num_keys > 0)
+                    and self.plan.num_keys > 0 and dense is None)
         hash_table = (int(conf.get(C.AGG_HASH_MAX_SLOTS.key)) if use_hash
                       else None)
-        update = self._update_fn(ctx, hash_table)
+        if dense is not None:
+            import numpy as np
+
+            from spark_rapids_tpu_torch.columnar.column import host_to_device
+            from spark_rapids_tpu_torch.exec.base import HostCopy
+            dspec = (host_to_device(np.asarray(dense[0], dtype=np.int64),
+                                    ctx.device), dense[1])
+            skey = dense[2]
+
+            def register(ok: torch.Tensor) -> None:
+                ctx.spec_pending.append((skey, None, 0, [],
+                                         [HostCopy(ok)], None))
+
+            def update_dense(b):
+                out, ok = self._update(b, None, dspec)
+                register(ok)
+                return out
+
+            def merge(b):
+                out, ok = self._merge(b, None, dspec)
+                register(ok)
+                return out
+            update = update_dense
+        else:
+            def update(b):
+                return self._update(b, hash_table)
+
+            def merge(b):
+                return self._merge(b, hash_table)
+        update = self._update_fn(ctx, hash_table, update)
         growth = conf.capacity_growth
         out_of_core = ooc.enabled_for(ctx) and self.plan.num_keys > 0
 
@@ -466,13 +681,13 @@ class TpuHashAggregateExec(TpuExec):
                         return
                     src = lambda pre=prefix: iter(pre)  # noqa: E731
                 if self.mode == "partial":
-                    yield from self._partial(ctx, src, update, hash_table,
+                    yield from self._partial(ctx, src, update, merge,
                                              skip_ratio)
                     return
                 merged = concat_device(list(src()), self.plan.partial_schema,
                                        growth, ctx.device,
                                        dm=device_manager_of(ctx))
-                yield self._finalize(self._merge(merged, hash_table))
+                yield self._finalize(merge(merged))
             return run
         return [make(p) for p in self.children[0].executed_partitions(ctx)]
 
@@ -821,8 +1036,66 @@ class TpuShuffleExchangeExec(TpuExec):
     def output_schema(self) -> Schema:
         return self.children[0].output_schema()
 
+    @staticmethod
+    def _padded_producer(node: PhysicalPlan) -> bool:
+        """Does the subtree below (up to the next exchange) hold an
+        operator whose batches systematically carry far more capacity than
+        rows? Aggregates always do; limits and semi/anti joins compact
+        hard within an unchanged capacity. Plain filters are deliberately
+        not counted (the JAX package's rule: at moderate selectivity the
+        shrink's sync and gathers cost more than they save)."""
+        from spark_rapids_tpu_torch.exec.tpujoin import (
+            TpuShuffledHashJoinExec,
+        )
+        if isinstance(node, (TpuHashAggregateExec, TpuLocalLimitExec)):
+            return True
+        if (isinstance(node, TpuShuffledHashJoinExec)
+                and node.join_type in ("leftsemi", "leftanti")):
+            return True
+        if isinstance(node, TpuShuffleExchangeExec):
+            return False  # already shrunk at that boundary
+        return any(TpuShuffleExchangeExec._padded_producer(c)
+                   for c in node.children)
+
     def describe(self) -> str:
         return f"TpuShuffleExchangeExec({self.partitioning[0]})"
+
+    def materialize_stage(self, ctx: ExecContext):
+        """AQE query-stage materialization (``sql/adaptive/``): run the map
+        side on the device, bring every batch to the host in ONE counted
+        ``aqe.stageFetch`` sync, split each map partition with the
+        canonical host hash and report per-(map, partition) sizes. AQE is
+        a statistics barrier by design: the map output must become host
+        addressable for the runtime to measure and re-partition it (the
+        role of the reference's shuffle catalog registration,
+        RapidsCachingWriter -> MapStatus.partition_sizes)."""
+        import time
+
+        from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
+        from spark_rapids_tpu_torch.obs import compileledger
+        from spark_rapids_tpu_torch.sql.adaptive import stats as aqestats
+        assert self.partitioning[0] == "hash", self.partitioning
+        key_idx = list(self.partitioning[1])
+        n = self.partitioning[-1]
+        schema = self.output_schema()
+        per_map = [list(part())
+                   for part in self.children[0].executed_partitions(ctx)]
+        flat = [b for bs in per_map for b in bs]
+        with compileledger.op_context(self.describe(), id(self), ctx):
+            t0 = time.perf_counter()
+            with sync_scope("aqe.stageFetch",
+                            detail=f"batches={len(flat)}") as sc:
+                frames = [b.to_pandas() for b in flat]
+                sc.add_bytes(sum(b.device_memory_size() for b in flat))
+            compileledger.note_transfer(time.perf_counter() - t0, "d2h")
+        map_outputs = []
+        pos = 0
+        for bs in per_map:
+            dfs = frames[pos:pos + len(bs)]
+            pos += len(bs)
+            map_outputs.append(aqestats.split_frame(
+                concat_host_frames(dfs, schema), key_idx, n))
+        return map_outputs, aqestats.stats_from_map_outputs(map_outputs)
 
     def fingerprint_extra(self) -> str:
         return repr(self.partitioning)
@@ -923,33 +1196,190 @@ class TpuShuffleExchangeExec(TpuExec):
                         yield bi, pid, piece
                     start += cnt
 
-    def partitions(self, ctx: ExecContext) -> List[Partition]:
+    def route(self, conf, session) -> str:
+        """The route this exchange takes (class docstring): "collapse",
+        "buckets" or "manager", by ``shuffle/manager.select_transport_kind``
+        and ``spark.rapids.sql.shuffle.localCollapse``. A single exchange
+        always collapses, and round-robin never does: it is the
+        user-visible ``repartition(n)`` shape (the partition and file count
+        of a write). ``session`` None plans outside a session, where the
+        shuffle manager is never taken. ``partitions`` dispatches on it,
+        the whole-stage cutter reads it through ``claims_filter``, and the
+        capacity speculation's keys carry it (``exchange_routes``)."""
         from spark_rapids_tpu_torch.shuffle.manager import (
             ShuffleTransportKind, select_transport_kind,
         )
+        kind = self.partitioning[0]
+        if kind == "single":
+            return "collapse"
+        if select_transport_kind(conf, session, kind, self.partitioning[-1]
+                                 ) is ShuffleTransportKind.MANAGER:
+            return "manager"
+        if (kind in ("hash", "range")
+                and conf.get_bool(C.SHUFFLE_LOCAL_COLLAPSE.key, True)):
+            return "collapse"
+        return "buckets"
+
+    def shrinks(self, conf, session) -> bool:
+        """Does this exchange take the capacity shrink? On the collapse
+        route, over a padded producer (``_padded_producer``), out of core
+        off (``exec/outofcore.enabled_for``: out of core streams the
+        pieces)."""
+        return (self.route(conf, session) == "collapse"
+                and not _out_of_core(conf, session)
+                and self._padded_producer(self.children[0]))
+
+    def claims_filter(self, conf, session) -> bool:
+        """Does this exchange fold a deterministic filter directly below it
+        (``claimed_filter``) into its concat? Under
+        ``spark.rapids.sql.exchange.fuseFilter``, on the collapse route,
+        out of core off, where it does not shrink (a padded producer's
+        batches take the shrink instead)."""
+        return (conf.get_bool(C.EXCHANGE_FUSE_FILTER.key, True)
+                and self.route(conf, session) == "collapse"
+                and not _out_of_core(conf, session)
+                and not self._padded_producer(self.children[0])
+                and bool(claimed_filter(self.children[0])))
+
+    def partitions(self, ctx: ExecContext) -> List[Partition]:
         child_parts = self.children[0].executed_partitions(ctx)
         schema = self.output_schema()
-        kind = self.partitioning[0]
-        n_req = self.partitioning[-1] if kind != "single" else 1
-        tkind = select_transport_kind(ctx.conf, ctx.session, kind, n_req)
-        # round-robin never collapses: it is the user-visible
-        # repartition(n) shape (the partition and file count of a write)
-        collapse = (tkind is ShuffleTransportKind.LOCAL
-                    and kind in ("hash", "range")
-                    and ctx.conf.get_bool(C.SHUFFLE_LOCAL_COLLAPSE.key, True))
-        if kind == "single" or collapse:
-            def collapsed() -> Iterator[DeviceBatch]:
-                got = False
-                for p in child_parts:
-                    for b in p():
-                        got = True
-                        yield b
-                if not got:
-                    yield empty_batch(schema, ctx.device)
-            return [collapsed]
-        if tkind is ShuffleTransportKind.MANAGER:
+        route = self.route(ctx.conf, ctx.session)
+        if route == "collapse":
+            return self._collapse_partitions(ctx, child_parts, schema)
+        if route == "manager":
             return self._manager_partitions(ctx, child_parts, schema)
         return self._bucket_partitions(ctx, child_parts, schema)
+
+    def _collapse_partitions(self, ctx: ExecContext, child_parts,
+                             schema: Schema) -> List[Partition]:
+        """The LOCAL collapse's one partition, by producer:
+
+          * a padded producer (``_padded_producer``: an aggregate, a
+            limit, a semi or anti join below) takes the capacity shrink:
+            ONE counted ``exchange.shrink`` fetch of every batch's live
+            rows and plain-string char totals, each batch sliced to its
+            bucket (``rowops.slice_batch_to``), then one concat, so every
+            downstream operator runs at the real scale instead of the
+            padded one. Under capacity speculation a deterministic
+            subtree's counts come from the session cache once they have
+            proven stable over two runs, as exact host metadata checked
+            for EXACT equality at the query's end
+            (``session._verify_speculation``);
+          * a deterministic filter directly below folds into one masked
+            concat (``_fused_filter_source``);
+          * otherwise (and under out-of-core) the child's batches pass on
+            as they are, with no copy and no sync: the consumer
+            concatenates what it needs, and a join's stream side probes
+            each batch on its own. The JAX package concatenates here; the
+            port keeps its pieces, which out-of-core streams too."""
+        growth = ctx.conf.capacity_growth
+        dm = device_manager_of(ctx)
+        if self.shrinks(ctx.conf, ctx.session):
+            def shrunk() -> Iterator[DeviceBatch]:
+                batches = [b for p in child_parts for b in p()]
+                if not batches:
+                    yield empty_batch(schema, ctx.device)
+                    return
+                yield concat_device(self._shrink(ctx, batches), schema,
+                                    growth, ctx.device, dm=dm)
+            return [shrunk]
+        if self.claims_filter(ctx.conf, ctx.session):
+            src_node, mask_fn, out_sel = _fused_filter_source(
+                self.children[0])
+            src_parts = src_node.executed_partitions(ctx)
+
+            def fused() -> Iterator[DeviceBatch]:
+                batches = [b for p in src_parts for b in p()]
+                yield fused_concat(batches, [mask_fn(b) for b in batches],
+                                   out_sel, schema, growth, ctx.device, dm)
+            return [fused]
+
+        def collapsed() -> Iterator[DeviceBatch]:
+            got = False
+            for p in child_parts:
+                for b in p():
+                    got = True
+                    yield b
+            if not got:
+                yield empty_batch(schema, ctx.device)
+        return [collapsed]
+
+    def _shrink(self, ctx: ExecContext, batches: List[DeviceBatch]
+                ) -> List[DeviceBatch]:
+        """Each batch sliced to the bucket of its live rows (and a plain
+        string column to the bucket of its live chars): the counts come
+        from one counted ``exchange.shrink`` fetch, or under speculation
+        from the session cache (deferred exact check)."""
+        from spark_rapids_tpu_torch.columnar.column import char_bucket
+        from spark_rapids_tpu_torch.exec.base import HostCopy
+        from spark_rapids_tpu_torch.exec.reuse import subtree_deterministic
+        growth = ctx.conf.capacity_growth
+        cache = entry = skey = None
+        if ctx.speculate and subtree_deterministic(self):
+            skey = (f"{plan_fingerprint(self)}|{exchange_routes(self, ctx)}"
+                    "|shrink")
+            cache = ctx.session.capacity_cache
+            entry = cache.get(skey)
+        # under speculation the entry keys on the whole batch set, which
+        # is the same every execution (which batches know their rows on
+        # the host is not)
+        need = (list(batches) if cache is not None
+                else [b for b in batches if b.host_rows is None])
+        if need:
+            # per batch: its row count and each plain string column's
+            # live char total (slab and dictionary columns move rows)
+            per_batch = []
+            for b in need:
+                vals = [b.num_rows.to(torch.int64).reshape(1)]
+                for col in b.columns:
+                    if col.dtype.is_string and col.is_plain:
+                        vals.append(col.offsets[-1].to(torch.int64)
+                                    .reshape(1))
+                per_batch.append(vals)
+            layout = tuple(len(v) for v in per_batch)
+            flat = torch.cat([v for vals in per_batch for v in vals])
+            if (entry is not None and entry.get("layout") == layout
+                    and entry.get("stable")):
+                ctx.session.capacity_spec_hits += 1
+                ctx.spec_pending.append((skey, HostCopy(flat), 0, [], [],
+                                         entry["counts"]))
+                stats = entry["counts"]
+            else:
+                with sync_scope("exchange.shrink", nbytes=flat.numel() * 8,
+                                detail=f"counts={flat.numel()}"):
+                    stats = [int(c) for c in flat.tolist()]
+                if cache is not None:
+                    if (entry is not None and entry.get("layout") == layout
+                            and entry["counts"] == stats):
+                        entry["stable"] = True
+                    else:
+                        cache[skey] = {"layout": layout, "counts": stats}
+            pos = 0
+            for b, n_vals in zip(need, layout):
+                b.host_rows = int(stats[pos])
+                b._host_chars = [int(c) for c in stats[pos + 1:pos + n_vals]]
+                pos += n_vals
+        out = []
+        for b in batches:
+            target = bucket_capacity(max(b.host_rows, 1), growth)
+            chars = list(getattr(b, "_host_chars", None) or [])
+            ccaps = []
+            char_shrink = False
+            for col in b.columns:
+                if col.dtype.is_string and col.is_plain and chars:
+                    cc = char_bucket(max(chars.pop(0), 1))
+                    char_shrink |= cc < int(col.chars.shape[0])
+                    ccaps.append(cc)
+                else:
+                    ccaps.append(None)
+            if target < b.capacity or char_shrink:
+                sb = rowops.slice_batch_to(b, 0, b.host_rows, target, ccaps)
+                sb.host_rows = b.host_rows
+                out.append(sb)
+            else:
+                out.append(b)
+        return out
 
     def _concat(self, ctx: ExecContext, pieces: List[DeviceBatch],
                 schema: Schema) -> DeviceBatch:

@@ -58,7 +58,17 @@ against the session's device budget; and under
 sides' streams against ``outOfCore.partitionBytes`` (the build side first,
 the stream side against what the build left) and past it runs the grace
 join (``exec/outofcore.grace_join``), bucket by bucket through
-``build_side`` and ``probe_expand``. Capacity speculation waits for A.10.
+``build_side`` and ``probe_expand``.
+
+Capacity speculation (``spark.rapids.sql.adaptiveCapacity.enabled``, on
+by default, the JAX package's): a warm run of a deterministic join
+partition expands straight into the sizes the session cached from its
+earlier run (``Speculation``; keyed by the join's data-stamped plan
+fingerprint, the growth and the partition) and defers its totals, and
+the dense route's flag, to the one ``speculation.verify`` fetch at the
+query's end; a miss re-executes the query without speculation. A
+broadcast materialization folds a deterministic filter directly below it
+into its concat (``exec/tpu._fused_filter_source``).
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import (
     MIN_CAPACITY, DeviceBatch, Schema, bucket_capacity,
 )
+from spark_rapids_tpu_torch.columnar.column import char_bucket
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
@@ -199,9 +210,36 @@ def _empty(schema: Schema, device) -> DeviceBatch:
                        torch.zeros((), dtype=torch.int32, device=device))
 
 
+class Speculation:
+    """A join partition's capacity speculation (``spark.rapids.sql.
+    adaptiveCapacity.enabled``): its execution context and its key in the
+    session's ``capacity_cache`` (the join's data-stamped plan
+    fingerprint, the growth and the partition)."""
+
+    __slots__ = ("ctx", "key")
+
+    def __init__(self, ctx: ExecContext, key: str):
+        self.ctx = ctx
+        self.key = key
+
+    @property
+    def cache(self) -> dict:
+        return self.ctx.session.capacity_cache
+
+    def defer(self, totals, width: int, caps: list, oks) -> None:
+        """Hand device totals and ok flags to the query-end check, their
+        host copies started now (``exec/base.HostCopy``)."""
+        from spark_rapids_tpu_torch.exec.base import HostCopy
+        self.ctx.session.capacity_spec_hits += 1
+        self.ctx.spec_pending.append(
+            (self.key, HostCopy(totals) if totals is not None else None,
+             width, caps, [HostCopy(o) for o in oks], None))
+
+
 def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
                  join_type: str, stream_keys: Sequence[int],
-                 stream_is_left: bool, out_schema: Schema, dm=None
+                 stream_is_left: bool, out_schema: Schema, dm=None,
+                 spec: Optional[Speculation] = None
                  ) -> Iterator[DeviceBatch]:
     """Probe every stream batch against the built side, then expand: all
     expansion totals come back in one counted copy (with the dense
@@ -210,7 +248,19 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
     consumer asks for it, so one expanded batch at a time is alive (a
     12x cross join of 12M rows would hold 144M at once), metered on
     ``dm`` (the session's device manager) where given. At least one
-    batch comes back (an empty one where the join yields no rows)."""
+    batch comes back (an empty one where the join yields no rows).
+
+    Under ``spec`` (capacity speculation), a partition whose sizes the
+    session cached from an earlier run with the same number of stream
+    batches expands straight into the cached buckets, with no
+    ``join.expandTotals`` (nor ``join.denseVerify``) sync: the device
+    totals and the dense flag join the query-end ``speculation.verify``
+    fetch, which re-executes the query where a capacity fell short. The
+    verified part is the consumed prefix (a CollectLimit may stop the
+    expansion early); a cached empty batch is skipped and must be empty.
+    Speculated totals are not exact, so a batch of a speculated
+    expansion carries its cached total as ``rows_hint``, not
+    ``host_rows``."""
     build = built.batch
     if not streams:
         yield _empty(out_schema, build.device)
@@ -222,15 +272,29 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
     probes = [_probe(built, s, stream_keys, route) for s in streams]
     semi = join_type in ("leftsemi", "leftanti")
     verify = route == "dense" and built.dense_ok is None
+    entry = spec.cache.get(spec.key) if spec is not None else None
     if semi:
         if verify:
-            with sync_scope("join.denseVerify", nbytes=1):
-                built.dense_ok = bool(built.dense.ok.item())
-            if not built.dense_ok:
-                yield from probe_expand(built, streams, join_type,
-                                        stream_keys, stream_is_left,
-                                        out_schema, dm)
-                return
+            if (entry is not None and entry.get("dense_ok")
+                    and entry.get("n") == len(streams)):
+                # last run's advisory bounds held: defer the flag
+                spec.defer(None, 0, [], [built.dense.ok])
+            else:
+                with sync_scope("join.denseVerify", nbytes=1):
+                    built.dense_ok = bool(built.dense.ok.item())
+                if spec is not None:
+                    spec.cache[spec.key] = {"dense_ok": built.dense_ok,
+                                            "n": len(streams)}
+                if not built.dense_ok:
+                    yield from probe_expand(built, streams, join_type,
+                                            stream_keys, stream_is_left,
+                                            out_schema, dm)
+                    return
+        elif (route == "dense" and spec is not None and entry is None
+              and built.dense_ok):
+            # a broadcast build verified by an earlier stream partition:
+            # this partition's entry, so its next run defers the flag too
+            spec.cache[spec.key] = {"dense_ok": True, "n": len(streams)}
         for s, (counts, _b, _p) in zip(streams, probes):
             yield join_ops.semi_anti_filter(s, counts,
                                             anti=join_type == "leftanti")
@@ -242,20 +306,34 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
         join_ops.expand_totals(build, s, adj, counts, bstart, bperm)
         for s, adj, (counts, bstart, bperm) in zip(streams, adjs, probes)
     ]).reshape(-1)
-    if verify:
-        totals = torch.cat([totals, built.dense.ok.to(torch.int64)
-                            .reshape(1)])
-    with sync_scope("join.expandTotals", nbytes=totals.numel() * 8):
-        flat = totals.cpu().tolist()
-    if verify:
-        built.dense_ok = bool(flat.pop())
-        if not built.dense_ok:
-            yield from probe_expand(built, streams, join_type,
-                                    stream_keys, stream_is_left,
-                                    out_schema, dm)
-            return
-    width = len(flat) // len(streams)
-    sizes = [flat[i * width:(i + 1) * width] for i in range(len(streams))]
+    width = totals.numel() // len(streams)
+    caps_used: Optional[list] = None
+    if (entry is not None and entry.get("n") == len(streams)
+            and entry.get("dense_ok", True)
+            and entry.get("sizes") is not None):
+        # speculate: expand into last run's buckets
+        sizes = entry["sizes"]
+        caps_used = []
+        spec.defer(totals, width, caps_used,
+                   [built.dense.ok] if verify else [])
+    else:
+        if verify:
+            totals = torch.cat([totals, built.dense.ok.to(torch.int64)
+                                .reshape(1)])
+        with sync_scope("join.expandTotals", nbytes=totals.numel() * 8):
+            flat = totals.cpu().tolist()
+        if verify:
+            built.dense_ok = bool(flat.pop())
+            if not built.dense_ok:
+                yield from probe_expand(built, streams, join_type,
+                                        stream_keys, stream_is_left,
+                                        out_schema, dm, spec)
+                return
+        sizes = [flat[i * width:(i + 1) * width]
+                 for i in range(len(streams))]
+        if spec is not None:
+            spec.cache[spec.key] = {"n": len(streams), "sizes": sizes,
+                                    "dense_ok": built.dense_ok is not False}
     any_out = False
     matched = (torch.zeros(build.capacity, dtype=torch.bool,
                            device=build.device)
@@ -269,12 +347,24 @@ def probe_expand(built: BuiltSide, streams: Sequence[DeviceBatch],
         if total >= 1 << 31:
             raise ValueError(f"hash_join: {total} output rows of one stream "
                              "batch exceed int32")
+        if not total and caps_used is not None:
+            # speculated empty: the check requires the actual total be 0
+            caps_used.append(None)
         if total:
+            out_cap = bucket_capacity(total)
+            if caps_used is not None:
+                caps_used.append((out_cap, [char_bucket(c)
+                                            for c in size[1:]]))
             batch = join_ops.join_expand(
                 build, stream, counts, adj, bstart, bperm,
-                bucket_capacity(total), swap_sides=not stream_is_left,
+                out_cap, swap_sides=not stream_is_left,
                 char_totals=size[1:])
-            batch.host_rows = total
+            if caps_used is None:
+                batch.host_rows = total
+            else:
+                # the cached total: coalescing above sees the same counts
+                # as in the run that measured them
+                batch.rows_hint = total
             if dm is not None:
                 dm.meter_batch(batch)
             any_out = True
@@ -338,18 +428,39 @@ class TpuBroadcastExchangeExec(PhysicalPlan):
     def output_schema(self) -> Schema:
         return self.children[0].output_schema()
 
+    def claims_filter(self, conf, session) -> bool:
+        """Does this exchange fold a deterministic filter directly below it
+        (``exec/tpu.claimed_filter``) into its one concat? Always, under
+        ``spark.rapids.sql.exchange.fuseFilter``."""
+        from spark_rapids_tpu_torch.exec.tpu import claimed_filter
+        return (conf.get_bool("spark.rapids.sql.exchange.fuseFilter", True)
+                and bool(claimed_filter(self.children[0])))
+
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec.tpu import (
-            concat_device, device_manager_of,
+            _fused_filter_source, concat_device, device_manager_of,
+            fused_concat,
         )
-        child_parts = self.children[0].executed_partitions(ctx)
+        # a deterministic filter directly below folds into the concat's
+        # one compaction (spark.rapids.sql.exchange.fuseFilter)
+        src_node, mask_fn, out_sel = (
+            _fused_filter_source(self.children[0])
+            if self.claims_filter(ctx.conf, ctx.session)
+            else (self.children[0], None, None))
+        child_parts = src_node.executed_partitions(ctx)
         schema = self.output_schema()
         state: dict = {}
 
         def materialize() -> DeviceBatch:
             batches = [b for p in child_parts for b in p()]
-            out = concat_device(batches, schema, ctx.conf.capacity_growth,
-                                ctx.device, dm=device_manager_of(ctx))
+            if mask_fn is not None:
+                out = fused_concat(batches, [mask_fn(b) for b in batches],
+                                   out_sel, schema, ctx.conf.capacity_growth,
+                                   ctx.device, device_manager_of(ctx))
+            else:
+                out = concat_device(batches, schema,
+                                    ctx.conf.capacity_growth, ctx.device,
+                                    dm=device_manager_of(ctx))
             if ctx.metrics_enabled:
                 # the build table's device size on record, beside the
                 # threshold that chose the broadcast (host metadata)
@@ -433,22 +544,14 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
         dt = schema.dtypes[bkey[0]]
         if not dt.is_integral:
             return None
-        names = {schema.names[bkey[0]]}
-        frontier = set(names)
-        for _ in range(8):  # alias chains are shallow; bound the walk
-            nxt = set()
-            for n in frontier:
-                nxt |= session.column_aliases.get(n, set()) - names
-            if not nxt:
-                break
-            names |= nxt
-            frontier = nxt
-        bounds = [session.column_stats[n] for n in names
-                  if n in session.column_stats]
-        if not bounds:
+        from spark_rapids_tpu_torch.exec.statsutil import (
+            int_bounds_for_names,
+        )
+        bounds = int_bounds_for_names(session, {schema.names[bkey[0]]})
+        if bounds is None:
             return None
-        lo = min(b[0] for b in bounds)
-        rng = max(b[1] for b in bounds) - lo + 1
+        lo = bounds[0]
+        rng = bounds[1] - lo + 1
         if rng <= 0 or rng > DENSE_MAX_RANGE:
             return None
         size = 1024
@@ -497,15 +600,36 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
             return [self._grace_partition(ctx, sp, bp)
                     for sp, bp in zip(stream_parts, build_parts)]
         builders = self._paired_builds(ctx, len(stream_parts), build_parts)
+        spec_fp = self._spec_fingerprint(ctx)
 
-        def make(sp: Partition, built) -> Partition:
+        def make(pidx: int, sp: Partition, built) -> Partition:
             def run() -> Iterator[DeviceBatch]:
                 side = built()
+                spec = (Speculation(ctx, f"{spec_fp}|g"
+                                    f"{ctx.conf.capacity_growth}|part{pidx}")
+                        if spec_fp else None)
                 yield from probe_expand(side, list(sp()),
                                         self.join_type, skey,
-                                        self._stream_is_left, schema, dm)
+                                        self._stream_is_left, schema, dm,
+                                        spec)
             return run
-        return [make(sp, b) for sp, b in zip(stream_parts, builders)]
+        return [make(i, sp, b)
+                for i, (sp, b) in enumerate(zip(stream_parts, builders))]
+
+    def _spec_fingerprint(self, ctx: ExecContext) -> Optional[str]:
+        """The join's data-stamped plan fingerprint and the routes of the
+        exchanges below it (``exec/tpu.exchange_routes``) under capacity
+        speculation, or None: speculation off, or a nondeterministic input
+        (a rand() filter changes the sizes every run, so speculation would
+        alternate learn and miss)."""
+        if not ctx.speculate:
+            return None
+        from spark_rapids_tpu_torch.exec.base import plan_fingerprint
+        from spark_rapids_tpu_torch.exec.reuse import subtree_deterministic
+        from spark_rapids_tpu_torch.exec.tpu import exchange_routes
+        if not subtree_deterministic(self):
+            return None
+        return f"{plan_fingerprint(self)}|{exchange_routes(self, ctx)}"
 
     def _grace_partition(self, ctx: ExecContext, sp: Partition,
                          bp: Partition) -> Partition:
@@ -552,9 +676,21 @@ class TpuShuffledHashJoinExec(PhysicalPlan):
 class TpuBroadcastHashJoinExec(TpuShuffledHashJoinExec):
     """reference: GpuBroadcastHashJoinExec: the broadcast side's one batch
     built into a table once per execution (B3), probed by every stream
-    partition (B4). Full outer joins are never planned so."""
+    partition (B4). Full outer joins are never planned so. An inner join
+    whose LEFT side is the broadcast (AQE demotes the smaller measured
+    side, ``sql/adaptive/rules.broadcast_sides``) streams its right side
+    instead; the output columns stay left then right."""
 
     _grace = False
+
+    def __init__(self, left: PhysicalPlan, right: PhysicalPlan,
+                 join_type: str, left_keys: Sequence[int],
+                 right_keys: Sequence[int]):
+        super().__init__(left, right, join_type, left_keys, right_keys)
+        if (join_type == "inner"
+                and isinstance(left, TpuBroadcastExchangeExec)
+                and not isinstance(right, TpuBroadcastExchangeExec)):
+            self._stream_is_left = False
 
     def _paired_builds(self, ctx: ExecContext, n_stream: int,
                        build_parts: List[Partition]) -> list:

@@ -59,11 +59,18 @@ class QueryProgress:
         # ExecContext.node_stats); the snapshot's "operators" aggregate
         # sums them by describe() string
         self._ops: Dict[int, Dict[str, Any]] = {}
+        # the adaptive (AQE) stage view (sql/adaptive/executor.py)
+        self.adaptive = False
+        self.stages_total = 0
+        self.stages_materialized = 0
+        self.stage_running: Optional[int] = None
+        self.stages: List[Dict[str, Any]] = []
+        self.decisions: List[Dict[str, Any]] = []
         self.scan = {"splitsDecoded": 0, "bytesDecoded": 0,
                      "batchesUploaded": 0, "rowsUploaded": 0,
                      "stalls": 0, "stalled": False}
         self.shuffle = {"fetches": 0, "bytes": 0, "retries": 0,
-                        "failures": 0}
+                        "failures": 0, "mapPartitions": 0}
         self.spill = {"events": 0, "bytes": 0}
 
     # -- updates (all called with PROGRESS.enabled already checked) --------
@@ -101,6 +108,31 @@ class QueryProgress:
             if rows is not None:
                 st["rows"] += int(rows)
             st["time_s"] = round(st["time_s"] + seconds, 6)
+            self._beat_locked()
+
+    def aqe_begin(self, total_stages: int) -> None:
+        with self._lock:
+            self.adaptive = True
+            self.stages_total = int(total_stages)
+            self._beat_locked()
+
+    def aqe_stage_running(self, sid: int) -> None:
+        with self._lock:
+            self.stage_running = sid
+            self._beat_locked()
+
+    def aqe_stage_done(self, sid: int, **stats) -> None:
+        with self._lock:
+            self.stages_materialized += 1
+            if self.stage_running == sid:
+                self.stage_running = None
+            self.stages.append(dict(stage=sid, ts=round(time.time(), 3),
+                                    **stats))
+            self._beat_locked()
+
+    def aqe_decision(self, decision: Dict[str, Any]) -> None:
+        with self._lock:
+            self.decisions.append(dict(decision))
             self._beat_locked()
 
     def note(self, group: str, **deltas) -> None:
@@ -148,6 +180,14 @@ class QueryProgress:
                 "scan": dict(self.scan), "shuffle": dict(self.shuffle),
                 "spill": dict(self.spill),
             }
+            if self.adaptive:
+                out["aqe"] = {
+                    "stagesTotal": self.stages_total,
+                    "stagesMaterialized": self.stages_materialized,
+                    "stageRunning": self.stage_running,
+                    "stages": list(self.stages),
+                    "decisions": list(self.decisions),
+                }
             if not full:
                 return out
             ops = {nid: dict(st) for nid, st in self._ops.items()}
@@ -262,6 +302,11 @@ class ProgressTracker:
         qp = self.current
         if qp is not None:
             qp.note("shuffle", failures=1)
+
+    def shuffle_map_partition(self) -> None:
+        qp = self.current
+        if qp is not None:
+            qp.note("shuffle", mapPartitions=1)
 
     def spill(self, nbytes: int) -> None:
         qp = self.current

@@ -26,9 +26,16 @@ representative rows, and the row-space slot attempt's used slots, as in
 the JAX package. ``BRANCHES`` counts the branch each call took.
 
 ``count_distinct_reduce`` is the sorted spelling of the fused count
-distinct (``exec/aggfuse.py``). The dense-key branch (``dense_composite``,
-under the session's capacity speculation) waits for ROADMAP A.10. Two
-deliberate differences from the JAX package, with the same results:
+distinct (``exec/aggfuse.py``). Under the session's capacity speculation
+the dense-key branch (``dense_composite``, ``_dense_payload_reduce``;
+``BRANCHES["dense"]``) outranks the hash table: bounded integer keys
+become one exact int64 composite (62 bits at most; torch's uint64 has no
+CUDA sort) and its ok flag joins the query's deferred verification.
+
+A fused filter (``exec/fusion.py``) reaches every branch as ``live``,
+the predicate ANDed into the batch's row mask: rows it rejects join no
+group, with no compaction. Two deliberate differences from the JAX
+package, with the same results:
 
   * **Width.** ``_rowspace_reduce``'s sort branch reduces at capacity
     width. The JAX package reduces at GROUP_SLOTS width when the groups fit
@@ -79,12 +86,20 @@ def aggregate_update(batch: DeviceBatch,
                      input_exprs: Sequence[Expression],
                      reductions: Sequence[Tuple[str, int, DType]],
                      out_schema: Schema,
-                     hash_table: int = None) -> DeviceBatch:
+                     mask_expr: Expression = None, dense=None,
+                     hash_table: int = None):
     """Partial aggregation of one batch: group by evaluated keys, reduce
     evaluated inputs. reductions: (kind, input_index, out_dtype).
-    ``hash_table``: optional max slot count enabling the one-pass hash
-    aggregation branch."""
+    ``mask_expr``: a fused pre-filter predicate over the INPUT batch;
+    rows it rejects join no group, with no compaction. ``dense``:
+    (los, sizes) enabling the bounded-int composite key; the result is
+    then (batch, ok). ``hash_table``: optional max slot count enabling
+    the one-pass hash aggregation branch."""
     ctx = make_context(batch)
+    live = None
+    if mask_expr is not None:
+        pred = to_device_column(ctx, mask_expr.eval_device(ctx))
+        live = pred.data & pred.validity & batch.row_mask()
     # plain column-reference keys pass the ORIGINAL column through so the
     # upload's dictionary codes survive
     key_cols = [batch.columns[e.index] if isinstance(e, BoundRef)
@@ -100,20 +115,28 @@ def aggregate_update(batch: DeviceBatch,
     return _grouped_reduce(work, list(range(len(key_cols))),
                            [(kind, len(key_cols) + idx, dt)
                             for kind, idx, dt in reductions],
-                           out_schema, hash_table=hash_table)
+                           out_schema, live=live, dense=dense,
+                           hash_table=hash_table)
 
 
 def aggregate_passthrough(batch: DeviceBatch,
                           key_exprs: Sequence[Expression],
                           input_exprs: Sequence[Expression],
                           reductions: Sequence[Tuple[str, int, DType]],
-                          out_schema: Schema) -> DeviceBatch:
+                          out_schema: Schema,
+                          mask_expr: Expression = None) -> DeviceBatch:
     """Skipped partial aggregation: rows projected straight into the
     partial layout without grouping, every row its own group (count =
     valid ? 1 : 0, sum/min/max/first/last = the value). The runtime skip
     takes it when the partial pass barely reduces: on one device the
-    exchange is a concat, and the final aggregate reduces once."""
+    exchange is a concat, and the final aggregate reduces once. A fused
+    filter mask degrades to one row compaction here (B1)."""
     ctx = make_context(batch)
+    if mask_expr is not None:
+        from spark_rapids_tpu_torch.ops.rowops import filter_batch
+        pred = to_device_column(ctx, mask_expr.eval_device(ctx))
+        batch = filter_batch(batch, pred.data & pred.validity)
+        ctx = make_context(batch)
     key_cols = [batch.columns[e.index] if isinstance(e, BoundRef)
                 else to_device_column(ctx, e.eval_device(ctx))
                 for e in key_exprs]
@@ -137,12 +160,12 @@ def aggregate_passthrough(batch: DeviceBatch,
 
 def aggregate_merge(batch: DeviceBatch, num_keys: int,
                     reductions: Sequence[Tuple[str, int, DType]],
-                    out_schema: Schema, hash_table: int = None
-                    ) -> DeviceBatch:
+                    out_schema: Schema, dense=None, hash_table: int = None):
     """Merge partial outputs: group by the leading key columns, reduce the
-    intermediate columns with merge kinds. reductions: (kind, col_idx, dt)."""
+    intermediate columns with merge kinds. reductions: (kind, col_idx, dt).
+    With ``dense`` the result is (batch, ok)."""
     return _grouped_reduce(batch, list(range(num_keys)), list(reductions),
-                           out_schema, hash_table=hash_table)
+                           out_schema, dense=dense, hash_table=hash_table)
 
 
 def _dict_path_info(batch: DeviceBatch, key_idx: List[int]):
@@ -172,33 +195,55 @@ def _dict_path_info(batch: DeviceBatch, key_idx: List[int]):
 
 def _grouped_reduce(batch: DeviceBatch, key_idx: List[int],
                     reductions: List[Tuple[str, int, DType]],
-                    out_schema: Schema,
-                    hash_table: int = None) -> DeviceBatch:
+                    out_schema: Schema, live=None, dense=None,
+                    hash_table: int = None):
+    """The branch for this batch (module docstring). ``live``: the row
+    mask with a fused filter ANDed in (None: the batch's row mask). With
+    ``dense`` (los, sizes) the result is (batch, ok): the dense branch's
+    range check, trivially true on the branches that outrank it."""
+    def out(res):
+        if dense is None:
+            return res
+        return res, torch.ones((), dtype=torch.bool, device=batch.device)
     if not key_idx:
         BRANCHES["single"] += 1
-        return _single_group_reduce(batch, reductions, out_schema)
+        return out(_single_group_reduce(batch, reductions, out_schema,
+                                        live))
     if any(batch.columns[ci].dtype.is_string and kind != "count_valid"
            for kind, ci, _dt in reductions):
         BRANCHES["sorted_space"] += 1
-        return _sorted_space_reduce(batch, key_idx, reductions, out_schema)
+        return out(_sorted_space_reduce(batch, key_idx, reductions,
+                                        out_schema, live))
     dict_info = _dict_path_info(batch, key_idx)
     if dict_info is not None:
         BRANCHES["dict"] += 1
-        return _dict_reduce(batch, key_idx, reductions, out_schema,
-                            dict_info)
+        return out(_dict_reduce(batch, key_idx, reductions, out_schema,
+                                dict_info, live))
+    if dense is not None:
+        # bounded-int keys (advisory scan stats, exec/tpu.py): the exact
+        # composite key; the ok flag rides the deferred speculation
+        # verification and a stale-stats miss re-executes the query
+        # without dense grouping
+        BRANCHES["dense"] += 1
+        los, sizes = dense
+        lv = batch.row_mask() if live is None else live
+        comp, ok = dense_composite(batch, key_idx, los, sizes, lv)
+        return _dense_payload_reduce(batch, key_idx, reductions,
+                                     out_schema, lv, comp), ok
     if hash_table is not None:
         res = _hash_payload_reduce(batch, key_idx, reductions, out_schema,
-                                   hash_table)
+                                   hash_table, live)
         if res is not None:
             BRANCHES["hash"] += 1
-            return res
+            return out(res)
     if len(key_idx) <= 32 and not all(
             batch.columns[ki].dict_values is not None for ki in key_idx):
         BRANCHES["sorted_payload"] += 1
-        return _sorted_payload_reduce(batch, key_idx, reductions,
-                                      out_schema)
+        return out(_sorted_payload_reduce(batch, key_idx, reductions,
+                                          out_schema, live))
     BRANCHES["rowspace"] += 1
-    return _rowspace_reduce(batch, key_idx, reductions, out_schema)
+    return out(_rowspace_reduce(batch, key_idx, reductions, out_schema,
+                                live))
 
 
 def _arange(n: int, dev) -> torch.Tensor:
@@ -207,7 +252,7 @@ def _arange(n: int, dev) -> torch.Tensor:
 
 def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
                          reductions: List[Tuple[str, int, DType]],
-                         out_schema: Schema, max_slots: int):
+                         out_schema: Schema, max_slots: int, live=None):
     """One-pass hash aggregation over the open-addressing slot table
     (kernels.hash_grouped_aggregate): every row probes to its key's slot and
     folds its values into per-slot accumulators in the same pass. Null keys
@@ -229,7 +274,8 @@ def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
     if T > max_slots:
         return None
     dev = batch.device
-    live = batch.row_mask()
+    if live is None:
+        live = batch.row_mask()
     pos = _arange(capacity, dev)
 
     imgs: List[torch.Tensor] = []
@@ -313,7 +359,7 @@ def _hash_payload_reduce(batch: DeviceBatch, key_idx: List[int],
 
 def _dict_reduce(batch: DeviceBatch, key_idx: List[int],
                  reductions: List[Tuple[str, int, DType]],
-                 out_schema: Schema, dict_info) -> DeviceBatch:
+                 out_schema: Schema, dict_info, live=None) -> DeviceBatch:
     """Direct-addressed aggregation over dictionary codes: the slot id is
     arithmetic on the host-computed codes (exact by construction), every
     count and sum runs through ops/densered.py, and the key output columns
@@ -328,7 +374,8 @@ def _dict_reduce(batch: DeviceBatch, key_idx: List[int],
     cards, strides, T = dict_info
     capacity = batch.capacity
     dev = batch.device
-    live = batch.row_mask()
+    if live is None:
+        live = batch.row_mask()
     slot = torch.zeros(capacity, dtype=torch.int64, device=dev)
     for ki, stride in zip(key_idx, strides):
         slot += batch.columns[ki].dict_codes.to(torch.int64) * stride
@@ -462,14 +509,15 @@ def _seg_reduce_kind(kind: str, vs, valid, live, seg, order_vec, to_row,
 
 def _single_group_reduce(batch: DeviceBatch,
                          reductions: List[Tuple[str, int, DType]],
-                         out_schema: Schema) -> DeviceBatch:
+                         out_schema: Schema, live=None) -> DeviceBatch:
     """Global aggregate: plain masked reductions (SQL: the global aggregate
     of empty input is one row). The output batch has MIN_CAPACITY."""
     from spark_rapids_tpu_torch.columnar.batch import MIN_CAPACITY
     capacity = batch.capacity
     dev = batch.device
     out_cap = MIN_CAPACITY
-    live = batch.row_mask()
+    if live is None:
+        live = batch.row_mask()
     pos = _arange(capacity, dev)
     out_cols: List[DeviceColumn] = []
     true = torch.ones((), dtype=torch.bool, device=dev)
@@ -552,7 +600,7 @@ def _key_images(col: DeviceColumn) -> List[torch.Tensor]:
 
 def _sorted_payload_reduce(batch: DeviceBatch, key_idx: List[int],
                            reductions: List[Tuple[str, int, DType]],
-                           out_schema: Schema) -> DeviceBatch:
+                           out_schema: Schema, live=None) -> DeviceBatch:
     """High-cardinality keyed aggregation in sorted space:
 
       1. ``group_rows`` sorts the rows by (dead, h1, h2);
@@ -573,7 +621,8 @@ def _sorted_payload_reduce(batch: DeviceBatch, key_idx: List[int],
     )
     capacity = batch.capacity
     dev = batch.device
-    live = batch.row_mask()
+    if live is None:
+        live = batch.row_mask()
     pos = _arange(capacity, dev)
     info = gb.group_rows(batch, key_idx, compute_rep=False, live=live)
     perm = info.perm
@@ -658,12 +707,12 @@ def _trivial_group_info(batch: DeviceBatch, live) -> "gb.GroupInfo":
 
 def _sorted_space_reduce(batch: DeviceBatch, key_idx: List[int],
                          reductions: List[Tuple[str, int, DType]],
-                         out_schema: Schema) -> DeviceBatch:
+                         out_schema: Schema, live=None) -> DeviceBatch:
     """The sorted-space branch: string reductions need the ordered slots
     of ``segment_select_string``."""
     from spark_rapids_tpu_torch.ops.rowops import gather_column
     capacity = batch.capacity
-    info = gb.group_rows(batch, key_idx)
+    info = gb.group_rows(batch, key_idx, live=live)
     out_cols: List[DeviceColumn] = gb.gather_keys(batch, key_idx, info)
     group_live = _arange(capacity, batch.device) < info.num_groups
     for kind, ci, out_dt in reductions:
@@ -752,7 +801,7 @@ def _slot_hash_attempt(batch: DeviceBatch, key_idx: List[int], live):
 
 def _rowspace_reduce(batch: DeviceBatch, key_idx: List[int],
                      reductions: List[Tuple[str, int, DType]],
-                     out_schema: Schema) -> DeviceBatch:
+                     out_schema: Schema, live=None) -> DeviceBatch:
     """Keyed aggregation without per-column permutation gathers: each row
     gets its group's segment id in row space, and every reduction runs on
     the unpermuted columns. When every key is dictionary-encoded the
@@ -763,7 +812,8 @@ def _rowspace_reduce(batch: DeviceBatch, key_idx: List[int],
     from spark_rapids_tpu_torch.ops.rowops import gather_column
     capacity = batch.capacity
     dev = batch.device
-    live = batch.row_mask()
+    if live is None:
+        live = batch.row_mask()
     pos = _arange(capacity, dev)
 
     def pad(x):
@@ -893,3 +943,96 @@ def count_distinct_reduce(batch: DeviceBatch, g2_idx: List[int],
     cperm, n_groups = compact_permutation(g2_b)
     rep_rows = perm[cperm.long()]
     return rep_rows, counts, n_groups
+
+
+def dense_composite(batch: DeviceBatch, key_idx: List[int],
+                    los: torch.Tensor, sizes: Tuple[int, ...], live):
+    """One exact int64 composite grouping key for a tuple of bounded
+    integer keys: slot_i = key_i - lo_i (a value) or size_i (NULL), the
+    composite mixed-radix over (size_i + 1). Bijective with the key tuple,
+    null-ness included, so adjacent equality on the sorted composite is an
+    exact group boundary: no hashes, no image refinement. The product of
+    (size_i + 1) is at most 2^62 (``exec/statsutil.dense_group_plan``),
+    so the composite fits int64, whose order matches the JAX package's
+    uint64 composite.
+
+    ``los``: int64 device vector (k,), the advisory scan-stat lower
+    bounds; ``sizes``: per-key slot counts. Returns (composite int64, ok
+    bool 0-d): ok is False when a live valid key falls outside its range,
+    and the caller defers it to the speculation verification, so
+    correctness never depends on the stats."""
+    capacity = batch.capacity
+    dev = batch.device
+    comp = torch.zeros(capacity, dtype=torch.int64, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for j, ki in enumerate(key_idx):
+        col = batch.columns[ki]
+        size = int(sizes[j])
+        off = col.data.to(torch.int64) - los[j]
+        in_rng = (off >= 0) & (off < size)
+        ok = ok & (in_rng | ~col.validity | ~live).all()
+        slot = torch.where(col.validity, off.clamp(0, size - 1),
+                           torch.full_like(off, size))
+        comp = comp * (size + 1) + slot
+    return comp, ok
+
+
+def _dense_payload_reduce(batch: DeviceBatch, key_idx: List[int],
+                          reductions: List[Tuple[str, int, DType]],
+                          out_schema: Schema, live,
+                          comp: torch.Tensor) -> DeviceBatch:
+    """``_sorted_payload_reduce`` specialized to an exact composite key:
+    one stable sort of the composite (dead rows last) replaces the hash
+    sort and the image refinement, since boundaries are exact by
+    construction. Reduction semantics stay single-sourced through
+    ``_seg_reduce_kind``; B1 compacts the boundaries into each group's
+    first row."""
+    from spark_rapids_tpu_torch.ops.kernels import compact_permutation
+    from spark_rapids_tpu_torch.ops.rowops import (
+        gather_columns, packed_gather_vectors,
+    )
+    capacity = batch.capacity
+    dev = batch.device
+    pos = _arange(capacity, dev)
+    # dead rows sort last: the composite is below 2^62 < int64 max
+    comp2 = torch.where(live, comp, torch.full_like(
+        comp, torch.iinfo(torch.int64).max))
+    comp_s, perm = torch.sort(comp2, stable=True)
+    perm = perm.to(torch.int32)
+    n_live = live.sum(dtype=torch.int32)
+    dead_slot = pos >= n_live
+    boundary = torch.ones(capacity, dtype=torch.bool, device=dev)
+    boundary[1:] = comp_s[1:] != comp_s[:-1]
+    boundary &= ~dead_slot
+
+    payload_pos: dict = {}
+    vectors: List[torch.Tensor] = []
+    for _kind, ci, _dt in reductions:
+        if ci not in payload_pos:
+            payload_pos[ci] = len(vectors)
+            col = batch.columns[ci]
+            vectors.extend([col.validity if col.dtype.is_string
+                            else col.data, col.validity])
+    gathered = packed_gather_vectors(vectors, perm) if vectors else []
+
+    gid = torch.cumsum(boundary, 0, dtype=torch.int32) - 1
+    sid = torch.where(dead_slot, capacity, gid.clamp(0, capacity - 1))
+    num_groups = boundary.sum(dtype=torch.int32)
+    group_live = pos < num_groups
+    seg = _seg_by(sid, capacity)
+
+    slot_perm, _n = compact_permutation(boundary)
+    rep_row = perm[slot_perm.long()]
+    out_cols = gather_columns([batch.columns[ki] for ki in key_idx],
+                              rep_row, group_live)
+    live_slot = ~dead_slot
+    for kind, ci, out_dt in reductions:
+        pi = payload_pos[ci]
+        data_s, valid_s = gathered[pi], gathered[pi + 1]
+        if batch.columns[ci].dtype.is_string:
+            kind, data_s = "count_valid", valid_s
+        data, validity = _seg_reduce_kind(
+            kind, data_s, valid_s & live_slot, live_slot, seg, pos, _same,
+            capacity, capacity, out_dt)
+        out_cols.append(DeviceColumn(out_dt, data, validity & group_live))
+    return DeviceBatch(out_schema, out_cols, num_groups)

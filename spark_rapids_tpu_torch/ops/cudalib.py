@@ -70,6 +70,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas's resource report (registers, shared memory, spills) per library
 # built by this process
 BUILD_LOGS: Dict[str, str] = {}
+# the nvcc build cache's counters of this process: libraries compiled
+# (misses) and their summed wall seconds, libraries found built (hits)
+BUILD_STATS = {"builds": 0, "seconds": 0.0, "hits": 0}
 
 
 def _nvcc() -> str:
@@ -110,6 +113,7 @@ def _build(names: List[str]) -> Dict[str, float]:
     for name in secs:
         out = library_path(name)
         if out.exists():
+            BUILD_STATS["hits"] += 1
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -125,6 +129,8 @@ def _build(names: List[str]) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
         secs[name] = time.perf_counter() - t0
+        BUILD_STATS["builds"] += 1
+        BUILD_STATS["seconds"] += secs[name]
     if failed:
         raise RuntimeError("\n".join(failed))
     return secs

@@ -373,15 +373,16 @@ def slice_batch(batch: DeviceBatch, start: Count, count: Count
 
 
 def slice_batch_to(batch: DeviceBatch, start: Count, count: Count,
-                   out_capacity: int) -> DeviceBatch:
+                   out_capacity: int, char_caps=None) -> DeviceBatch:
     """``slice_batch`` gathering into an ``out_capacity``-row batch. ``start``
     and ``count`` are host ints or 0-d device tensors; the row count stays
-    on the device."""
+    on the device. ``char_caps``: ``gather_columns``' per-column char
+    capacities (a plain string column's, None for the default)."""
     dev = batch.device
     idx = torch.arange(out_capacity, dtype=torch.int32, device=dev)
     start, count = _dev_int(start, dev), _dev_int(count, dev)
     perm = (idx + start).clamp(0, batch.capacity - 1)
     n = torch.minimum(count, (batch.num_rows - start).clamp(min=0))
     live = idx < n
-    cols = gather_columns(batch.columns, perm, live)
+    cols = gather_columns(batch.columns, perm, live, char_caps)
     return DeviceBatch(batch.schema, cols, n.to(torch.int32))

@@ -66,11 +66,24 @@ and a server, all over the session's ``buffer_catalog``); a query's
 shuffles are unregistered when it ends (failed ones too) and ``stop()``
 closes the environments (transports shut down, sockets closed).
 
+Adaptive execution is the JAX package's (A.10): capacity speculation
+(``spark.rapids.sql.adaptiveCapacity.enabled``, on by default) lets a warm
+run of a plan expand its joins into the sizes ``capacity_cache`` holds
+from earlier runs, take the exchange's shrink counts from it and group
+bounded integer keys densely (``agg.denseKeys``), deferring every check
+to ONE counted ``speculation.verify`` fetch at the query's end; a miss
+drops and blocklists the entries at fault and re-runs the same physical
+plan without speculation (``capacity_spec_reruns``; hits in
+``capacity_spec_hits``). ``spark.rapids.sql.adaptive.enabled`` runs the
+query stage by stage (``sql/adaptive/executor.py``: coalesced reads,
+broadcast demotion, skew splits; ``last_aqe`` holds the last record);
+``spark.rapids.sql.fusion.stageEnabled`` fuses project/filter chains
+(``exec/stagecompiler``).
+
 Left out of the JAX package's session, each a later ROADMAP item: the
-device mesh (A.9); AQE and the speculation
-verification (A.10; the within-query subtree reuse is ported,
-``exec/reuse.py``); the live monitor, the compile ledger and cache,
-prewarm and the serving caches (A.11). Unlike the JAX
+device mesh (A.9); the small-query fast path; the live monitor, the
+compile ledger and cache, prewarm and the serving caches, the
+cross-query exchange reuse among them (A.11). Unlike the JAX
 package's, ``get_or_create`` makes a new session each call (sessions of
 the port are independent, each with its own confs, device and memory
 runtime); the newest is ``TpuSparkSession.active()``. ``with_column``
@@ -108,6 +121,46 @@ from spark_rapids_tpu_torch.sql.sources import (
 
 _SPILL_DIRECTIONS = ("device_to_host", "host_to_disk")
 
+
+class OrderedSet:
+    """Insertion-ordered set (dict-backed), so the size sweep evicts
+    oldest first: an arbitrary ``set.pop()`` could drop a hot entry or
+    re-enable a blocklisted speculation key."""
+
+    def __init__(self):
+        self._d: dict = {}
+
+    def add(self, k) -> None:
+        self._d[k] = True
+
+    def __contains__(self, k) -> bool:
+        return k in self._d
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def pop_oldest(self) -> None:
+        del self._d[next(iter(self._d))]
+
+
+class LruDict(dict):
+    """dict whose reads move the key to the end, so the size sweep's
+    oldest-first eviction approximates LRU instead of FIFO (a stable hot
+    query set inserted early outlives churned dead keys)."""
+
+    def get(self, k, default=None):
+        try:
+            return self[k]
+        except KeyError:
+            return default
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        if next(reversed(self)) != k:
+            super().__delitem__(k)
+            super().__setitem__(k, v)
+        return v
+
 # join type aliases of DataFrame.join
 _JOIN_ALIASES = {"outer": "full", "full_outer": "full", "left_outer": "left",
                  "right_outer": "right", "semi": "leftsemi",
@@ -127,7 +180,26 @@ class TpuSparkSession:
         self.device_scan_cache: Dict = {}
         # each partial aggregate's measured reduction ratio, by plan
         # fingerprint (the runtime partial-aggregation skip)
-        self.agg_ratio_cache: Dict[str, float] = {}
+        self.agg_ratio_cache: LruDict = LruDict()
+        # adaptive capacity speculation (spark.rapids.sql.adaptiveCapacity
+        # .enabled): data-stamped plan fingerprint -> the join expansion
+        # sizes and exchange shrink counts an execution observed; later
+        # executions skip those syncs and verify in one deferred fetch
+        # (_verify_speculation). Reruns count verification misses (each
+        # re-executed without speculation), hits the speculated sites.
+        self.capacity_cache: LruDict = LruDict()
+        self.capacity_spec_reruns = 0
+        self.capacity_spec_hits = 0
+        # speculation keys that failed verification and must not retry
+        # ("nocache|" prefix: dense grouping keys, whose chronically stale
+        # stats would otherwise re-execute every run)
+        self.capacity_spec_blocklist: OrderedSet = OrderedSet()
+        # plan fingerprints that have executed once: dense grouping only
+        # engages from a plan's second execution
+        self.dense_plans_seen: OrderedSet = OrderedSet()
+        # the last adaptive (AQE) query's record: stage count, rule
+        # decisions, final plan tree (sql/adaptive/executor.py)
+        self.last_aqe: Optional[dict] = None
         # scanned integer columns' (min, max), unioned over every scanned
         # batch of that name: advisory bounds the dense join sizes its
         # table from and verifies on the device (exec/tpujoin.py)
@@ -403,25 +475,33 @@ class TpuSparkSession:
     def _convert(self, logical: lp.LogicalPlan):
         """(physical plan, the tag pass's TpuOverrides or None where the
         device path is off)."""
-        from spark_rapids_tpu_torch.sql.overrides import (
-            TpuOverrides, TransitionOverrides, assert_is_on_tpu,
-        )
+        return self._convert_cpu(self._cpu_plan(logical))
+
+    def _cpu_plan(self, logical: lp.LogicalPlan):
+        """logical -> pruned -> the CPU physical plan."""
         from spark_rapids_tpu_torch.sql.pushdown import (
             annotate_scan_pruning, prune_filter_columns,
         )
-        conf = self.conf
         self._note_rename_aliases(logical)
         logical = prune_filter_columns(logical)
         annotate_scan_pruning(logical)
-        planner = Planner(conf)
+        planner = Planner(self.conf)
         if isinstance(logical, lp.LogicalLimit):
-            plan = planner.plan_collect_limit(logical)
-        else:
-            plan = planner.plan(logical)
+            return planner.plan_collect_limit(logical)
+        return planner.plan(logical)
+
+    def _convert_cpu(self, plan):
+        """A CPU physical plan's device rewrite: (plan, TpuOverrides or
+        None)."""
+        from spark_rapids_tpu_torch.sql.overrides import (
+            TpuOverrides, TransitionOverrides, assert_is_on_tpu,
+        )
+        conf = self.conf
         overrides = None
         if conf.sql_enabled:
             overrides = TpuOverrides(conf)
-            plan = TransitionOverrides(conf).apply(overrides.apply(plan))
+            plan = TransitionOverrides(conf, self).apply(
+                overrides.apply(plan))
             if conf.get_bool(FUSE_COUNT_DISTINCT.key,
                              FUSE_COUNT_DISTINCT.default):
                 from spark_rapids_tpu_torch.exec.aggfuse import (
@@ -513,13 +593,18 @@ class TpuSparkSession:
         before = {d: (REGISTRY.value("spill.events", direction=d),
                       REGISTRY.value("spill.bytes", direction=d))
                   for d in _SPILL_DIRECTIONS}
+        from spark_rapids_tpu_torch.utils import kernelcache
+        kernelcache.configure_shape_buckets_from_conf(conf)
+        self.last_aqe = None
         try:
             # the transfer guard: on a CUDA device a host wait outside a
             # sync_scope warns or raises while the query body runs
             with syncledger.guard_context(guard, self.device):
-                plan = self._plan_query(logical, ctx)
-                with TRACER.span("Query"):
-                    outs = self._drain(plan, ctx, collect)
+                cpu_plan = self._cpu_plan(logical)
+                if self._adaptive_applies(cpu_plan):
+                    plan, outs = self._run_adaptive(cpu_plan, ctx, collect)
+                else:
+                    plan, outs, ctx = self._run_plan(cpu_plan, ctx, collect)
         except BaseException as e:
             wall_s = round(time.perf_counter() - t_query0, 6)
             err = f"{type(e).__name__}: {e}"[:300]
@@ -530,6 +615,8 @@ class TpuSparkSession:
                 PROGRESS.finish(qp, "failed", error=err)
             raise
         finally:
+            # a speculation re-run swapped in its own context
+            ctx = self._current_ctx() or ctx
             self.release_active_shuffles(ctx)
             self.release_transient_buffers(ctx)
             self.semaphore.release()
@@ -546,14 +633,184 @@ class TpuSparkSession:
         self._note_tenant(tenant, "success", wall_s, rows_out)
         if qp is not None:
             PROGRESS.finish(qp, "success")
+        self._sweep_adaptive_caches()
         return outs
 
-    def _plan_query(self, logical: lp.LogicalPlan, ctx: ExecContext):
+    def _run_plan(self, cpu_plan, ctx: ExecContext, collect: bool):
+        """The single-shot path: convert, drain and verify the query's
+        speculation (``_verify_speculation``). On a miss the same physical
+        plan re-runs with a fresh context and ``speculate=False``, after
+        the speculative run's shuffles and transient buffers are released
+        and its ratio-cache writes dropped. Returns (plan, outputs, the
+        context that produced them)."""
+        from spark_rapids_tpu_torch.obs.trace import TRACER
+        plan = self._plan_query(cpu_plan, ctx)
+        if ctx.speculate and any(
+                type(n).__name__ in ("TpuWriteExec", "CpuWriteExec")
+                for n in plan.walk()):
+            # a write commits files DURING the drain: a miss found after
+            # it would have committed truncated output, and the re-run
+            # would collide with the committed path. Capacity syncs stay
+            # exact under a write.
+            ctx.speculate = False
+        with TRACER.span("Query", speculative=bool(ctx.speculate)):
+            outs = self._drain(plan, ctx, collect)
+        if ctx.spec_pending and not self._verify_speculation(ctx):
+            self.capacity_spec_reruns += 1
+            # ratios learned from a misspeculated run may be wrong (a
+            # dense-group miss collapses group counts)
+            for sig in ctx.ratio_writes:
+                self.agg_ratio_cache.pop(sig, None)
+            self.release_active_shuffles(ctx)
+            self.release_transient_buffers(ctx)
+            prev_progress = ctx.progress
+            ctx = ExecContext(self.conf, self, self.device, speculate=False)
+            ctx.progress = prev_progress  # same query, same record
+            # this thread's execution scope points at the fresh context,
+            # so the re-run's registrations release with it
+            self._exec_scope.ctx = ctx
+            with TRACER.span("Query", speculative=False, rerun=True):
+                outs = self._drain(plan, ctx, collect)
+        return plan, outs, ctx
+
+    def _adaptive_applies(self, cpu_plan) -> bool:
+        if not (self.conf.sql_enabled and self.conf.adaptive_enabled):
+            return False
+        from spark_rapids_tpu_torch.sql.adaptive.executor import (
+            has_adaptive_stages,
+        )
+        return has_adaptive_stages(cpu_plan)
+
+    def _run_adaptive(self, cpu_plan, ctx: ExecContext, collect: bool):
+        """The adaptive path (``spark.rapids.sql.adaptive.enabled``): the
+        executor converts and materializes stage by stage and re-plans
+        from the observed sizes. Capacity speculation is off: AQE's stage
+        barriers are the syncs speculation avoids, and a speculative
+        re-execution would invalidate the statistics its own re-planning
+        read. The static and the final plans each get a ``queryPlan``
+        event (``phase``)."""
+        from spark_rapids_tpu_torch.obs.events import EVENTS, plan_digest
+        from spark_rapids_tpu_torch.obs.trace import TRACER
+        from spark_rapids_tpu_torch.sql.adaptive.executor import (
+            AdaptiveExecutor,
+        )
+        ctx.speculate = False
+        adaptive = AdaptiveExecutor(self, self.conf, ctx)
+        # the static shape first, so a query that dies mid-stage still
+        # leaves a plan record
+        EVENTS.emit("queryPlan", planDigest=plan_digest(cpu_plan),
+                    adaptive=True, phase="static")
+        if ctx.progress is not None:
+            ctx.progress.set_plan(cpu_plan)
+        with TRACER.span("Query", adaptive=True):
+            plan, outs = adaptive.execute(cpu_plan, collect)
+        # the digest of the runtime-re-planned FINAL plan: it differs from
+        # the static shape exactly when a rule fired
+        EVENTS.emit("queryPlan", planDigest=plan_digest(plan),
+                    planTree=plan.tree_string()[:20000],
+                    adaptive=True, phase="final",
+                    aqeStages=len(adaptive.stages),
+                    aqeDecisions=len(adaptive.decisions),
+                    **self._coverage_fields(plan))
+        if ctx.progress is not None:
+            ctx.progress.set_plan(plan)
+        return plan, outs
+
+    # adaptive-state size cap: fingerprints embed per-upload data uids, so
+    # a workload that keeps creating DataFrames mints fresh keys every
+    # query. The LruDict caches touch keys on read, so oldest-first
+    # half-eviction approximates LRU; the ordered sets evict oldest first
+    # (never arbitrarily: a random blocklist eviction would re-enable a
+    # known-bad speculation).
+    ADAPTIVE_CACHE_CAP = 4096
+
+    def _sweep_adaptive_caches(self) -> None:
+        cap = self.ADAPTIVE_CACHE_CAP
+        for d in (self.capacity_cache, self.agg_ratio_cache,
+                  self.column_stats, self.column_aliases):
+            if len(d) > cap:
+                for k in list(d.keys())[:len(d) - cap // 2]:
+                    del d[k]
+        for st in (self.capacity_spec_blocklist, self.dense_plans_seen):
+            if len(st) > cap:
+                while len(st) > cap // 2:
+                    st.pop_oldest()
+
+    def _verify_speculation(self, ctx: ExecContext) -> bool:
+        """ONE deferred fetch validating every capacity the query
+        speculated (``exec/tpujoin.py``, the exchange shrink, the dense
+        grouping key): the host copies started at each site are waited
+        for inside one counted ``speculation.verify`` scope. A covered
+        join speculation is exact (capacities only pad), so success means
+        the speculative output stands; a shortfall, a dense ok flag gone
+        false or a shrink count that drifted drops the entry at fault
+        (blocklisting a ``nocache|`` key) and returns False, and the
+        caller re-runs the plan without speculation. When every entry
+        held, the join entries are refreshed with the actual sizes, so
+        the cache follows data drift while it stays inside the buckets
+        (the JAX package refreshes the covered entries of a failed run
+        too, from sizes a truncated input below them produced, which
+        undersizes the next run and costs it a second re-execution)."""
+        from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+        copies = [c for _k, tot, _w, _caps, oks, _ex in ctx.spec_pending
+                  for c in ([tot] if tot is not None else []) + list(oks)]
+        fetched = {}
+        if copies:
+            with sync_scope("speculation.verify",
+                            nbytes=sum(c.nbytes for c in copies),
+                            detail=f"arrays={len(copies)}"):
+                for c in copies:
+                    c.wait()
+                    fetched[id(c)] = c.tolist()
+        all_good = True
+        refresh = []
+        for key, tot, width, caps, oks, exact in ctx.spec_pending:
+            flat = fetched[id(tot)] if tot is not None else []
+            good = all(bool(fetched[id(o)]) for o in oks)
+            if good and exact is not None:
+                # the shrink's counts were used as EXACT host metadata, so
+                # any drift (not only an overflow) invalidates
+                good = [int(v) for v in flat] == [int(v) for v in exact]
+            elif good:
+                # join expansion: the entry stands while the actual sizes
+                # stay covered; the CONSUMED prefix is checked (a
+                # CollectLimit may stop the expansion early)
+                sizes = [flat[i * width:(i + 1) * width]
+                         for i in range(len(flat) // width)] if width else []
+                for cap, sz in zip(caps, sizes):
+                    if cap is None:  # speculated-empty batch
+                        if sz[0] != 0:
+                            good = False
+                            break
+                        continue
+                    out_cap, char_caps = cap
+                    if (sz[0] > out_cap or len(sz) - 1 != len(char_caps)
+                            or any(c > cc for c, cc in zip(sz[1:],
+                                                           char_caps))):
+                        good = False
+                        break
+                if good:
+                    refresh.append((key, sizes))
+            if not good:
+                self.capacity_cache.pop(key, None)
+                if key.startswith("nocache|"):
+                    self.capacity_spec_blocklist.add(key)
+                all_good = False
+        # refresh only from a run that stood whole: a join below a missed
+        # one saw truncated input, and its sizes would undersize the next
+        # run
+        for key, sizes in (refresh if all_good else ()):
+            ent = self.capacity_cache.get(key)
+            if ent is not None and len(sizes) == ent.get("n"):
+                ent["sizes"] = [[int(x) for x in sz] for sz in sizes]
+        return all_good
+
+    def _plan_query(self, cpu_plan, ctx: ExecContext):
         """The physical plan, with its journal facts: the queryPlan event
         (digest, tree, operator coverage) and one cpuFallback event per
         operator the tag pass left on the CPU."""
         from spark_rapids_tpu_torch.obs.events import EVENTS, plan_digest
-        plan, overrides = self._convert(logical)
+        plan, overrides = self._convert_cpu(cpu_plan)
         EVENTS.emit("queryPlan", planDigest=plan_digest(plan),
                     planTree=plan.tree_string()[:20000],
                     **self._coverage_fields(plan))

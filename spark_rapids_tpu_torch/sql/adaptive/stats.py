@@ -1,20 +1,23 @@
-"""Runtime shuffle statistics (counterpart of part of the JAX package's
-``sql/adaptive/stats.py``).
+"""Runtime shuffle statistics for adaptive execution (counterpart of the
+JAX package's ``sql/adaptive/stats.py``).
 
-Ported: ``MapOutputStatistics``, the host-side twin of what the
-reference's GpuShuffleExchangeExec reports to Spark (MapStatus
-.partition_sizes folded per reduce partition), which the shuffle
-manager's ``aggregate_map_statistics`` builds, and
-``estimate_frame_bytes``, the CPU exchange's partition sizes for the skew
-record (``obs/shuffleobs.py``). The rest of the module (the canonical
-map-side split, the stage statistics) belongs to adaptive execution
-(ROADMAP A.10).
+``MapOutputStatistics`` is the host-side twin of what the reference's
+GpuShuffleExchangeExec reports to Spark (MapStatus.partition_sizes folded
+per reduce partition); the shuffle manager's ``aggregate_map_statistics``
+and the AQE stages build it, and ``estimate_frame_bytes`` sizes a host
+partition for it and for the CPU exchange's skew record
+(``obs/shuffleobs.py``). ``split_frame`` is the canonical map-side
+partitioner every AQE stage uses on both engine paths, so the
+device-converted and CPU executions of one query land every row in the
+same reduce partition: ``hash_partition_ids`` canonicalizes the key
+columns (pandas' hash differs between plain numpy and masked extension
+dtypes) before hashing, bit for bit as the JAX package does.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -89,3 +92,58 @@ def estimate_frame_bytes(df: pd.DataFrame, sample: int = 1024) -> int:
         else:
             total += vals.nbytes
     return int(total)
+
+
+def hash_partition_ids(df: pd.DataFrame, key_idx: Sequence[int],
+                       n: int) -> np.ndarray:
+    """Canonical reduce-partition id per row: key columns are reduced to
+    (values, validity) via host_unary_values, canonicalized (-0.0 -> 0.0,
+    one NaN bit pattern, NULL -> type zero) and hashed as PLAIN numpy
+    columns. Nulls sharing a partition with genuine zeros is fine: the
+    partitioner only owes co-location of equal keys, and SQL null keys
+    never match anyway."""
+    from spark_rapids_tpu_torch.sql.exprs.hostutil import host_unary_values
+    m = len(df)
+    if not key_idx or m == 0:
+        return np.zeros(m, dtype=np.int64)
+    cols = []
+    for i in key_idx:
+        vals, validity, _dt = host_unary_values(df.iloc[:, i])
+        if vals.dtype == object:
+            canon = np.where(validity, vals, "")
+        elif vals.dtype.kind == "f":
+            v = vals.astype(np.float64)
+            v = np.where(v == 0.0, 0.0, v)
+            v = np.where(np.isnan(v), np.float64("nan"), v)
+            canon = np.where(validity, v, 0.0)
+        elif vals.dtype.kind == "M":
+            canon = np.where(validity, vals.astype("datetime64[us]")
+                             .astype(np.int64), 0)
+        elif vals.dtype.kind == "b":
+            canon = np.where(validity, vals.astype(np.int64), 0)
+        else:
+            canon = np.where(validity, vals.astype(np.int64), 0)
+        cols.append(pd.Series(canon).reset_index(drop=True))
+    frame = pd.concat(cols, axis=1)
+    h = pd.util.hash_pandas_object(frame, index=False).to_numpy()
+    return (h % np.uint64(n)).astype(np.int64)
+
+
+def split_frame(df: pd.DataFrame, key_idx: Sequence[int],
+                n: int) -> List[pd.DataFrame]:
+    """One map task's output split into n reduce-partition frames."""
+    pids = hash_partition_ids(df, key_idx, n)
+    out = []
+    for pid in range(n):
+        sel = df[pids == pid]
+        out.append(sel.reset_index(drop=True))
+    return out
+
+
+def stats_from_map_outputs(
+        map_outputs: List[List[pd.DataFrame]]) -> MapOutputStatistics:
+    """Fold per-(map, partition) frames into MapOutputStatistics."""
+    bytes_by_map = [[estimate_frame_bytes(f) for f in pids]
+                    for pids in map_outputs]
+    rows_by_map = [[len(f) for f in pids] for pids in map_outputs]
+    return MapOutputStatistics(bytes_by_map, rows_by_map)

@@ -491,17 +491,37 @@ class TpuOverrides:
 
 
 class TransitionOverrides:
-    """Transitions at the CPU/device boundaries, then batch coalescing
-    above fragmenting producers. The JAX package also runs its filter and
-    selection fusion and the whole-stage compiler here (ROADMAP A.10);
-    the port runs neither, so ``apply`` is ``insert_coalesce`` of the
-    transitions."""
+    """postColumnarTransitions, in the JAX package's order: transitions
+    at the CPU/device boundaries (``_apply``), the selection fusion and
+    the filter->aggregate fusion (``exec/fusion.py``), batch coalescing
+    above fragmenting producers (``insert_coalesce``) and, under
+    ``spark.rapids.sql.fusion.stageEnabled``, the whole-stage cutter
+    (``exec/stagecompiler``)."""
 
-    def __init__(self, conf: TpuConf):
+    def __init__(self, conf: TpuConf, session=None):
         self.conf = conf
+        # the session the plan runs in: the cutter reads its exchanges'
+        # routes (None outside a session)
+        self.session = session
 
     def apply(self, plan: PhysicalPlan) -> PhysicalPlan:
-        return insert_coalesce(self._apply(plan), self.conf)
+        from spark_rapids_tpu_torch.exec.fusion import (
+            fuse_filter_into_aggregate, fuse_selection_into_filter,
+        )
+        from spark_rapids_tpu_torch.exec.stagecompiler import compile_stages
+        # fuse BEFORE coalesce insertion: a fused-away Filter is no longer
+        # a fragmenting producer. Whole-stage fusion runs last, over the
+        # final operator layout (coalesce nodes included: the stage
+        # absorbs them), so the single-shot and AQE per-stage paths cut
+        # identically.
+        return compile_stages(
+            insert_coalesce(
+                fuse_filter_into_aggregate(
+                    fuse_selection_into_filter(self._apply(plan),
+                                               self.conf),
+                    self.conf),
+                self.conf),
+            self.conf, self.session)
 
     def _apply(self, plan: PhysicalPlan) -> PhysicalPlan:
         # a terminal command that consumes device batches (a write) says

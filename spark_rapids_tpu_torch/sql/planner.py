@@ -16,8 +16,14 @@ answer on the scan (``pushed_filters``, ``sql/pushdown``), which prunes
 its splits by them; the filter still runs. The device rewrite
 (``sql/overrides.py``) then tags and converts this CPU plan node by node.
 A generator over a computed source projects the source first and drops it
-after. The JAX package's small-query fast path is not ported (the port's
-exchange collapse makes no sync for it to save).
+after. A build side whose size estimate raises or is not an integer
+reads as unknown and plans the shuffled join (``_estimated_size``).
+
+The JAX package's small-query fast path (``note_input_size``,
+``spark.rapids.sql.smallQuery.*``) is not ported: the port's exchanges
+keep their capacity shrink (one counted ``exchange.shrink`` sync where a
+padded producer feeds a collapse) on every query, where the JAX package
+skips it for one resident batch under its threshold (ROADMAP).
 """
 
 from __future__ import annotations
@@ -164,7 +170,7 @@ class Planner:
         # -1 disables; an unknown estimate plans the shuffled join.
         threshold = self.conf.broadcast_threshold
         build_node = node.children[0] if jt == "right" else node.children[1]
-        est = build_node.estimated_size_bytes()
+        est = _estimated_size(build_node)
         if (jt != "full" and threshold >= 0 and est is not None
                 and est <= threshold):
             if jt == "right":
@@ -252,3 +258,19 @@ def _key_indices(child: PhysicalPlan, keys, schema):
         exprs.append((f"_jk{j}", k))
         key_cols.append(len(exprs) - 1)
     return key_cols, cpu.CpuProjectExec(child, exprs)
+
+
+def _estimated_size(node: lp.LogicalPlan):
+    """Broadcast size hint, hardened: a raising or non-integer estimate
+    reads as unknown (None), so planning falls back to the shuffled join
+    instead of failing the query."""
+    try:
+        est = node.estimated_size_bytes()
+    except Exception:  # noqa: BLE001 - estimates are advisory
+        return None
+    if est is None:
+        return None
+    try:
+        return int(est)
+    except (TypeError, ValueError):
+        return None

@@ -37,8 +37,12 @@ The column-pruning half:
   * ``annotate_scan_pruning`` marks each scan with the columns the query
     references (join keys included), and the planner scans only those.
 
-The JAX package's coordination of logical subtrees shared by several
-branches is not ported: the plans of this slice share none.
+  * a logical subtree shared by several branches (Q2's min-cost
+    subquery, Q11's threshold, Q17's average) is pruned once, by the
+    union of every requirement reaching it, and every parent gets the
+    same rewritten object, so the planner makes structurally identical
+    physical subtrees that ``exec/reuse.py`` runs once (the JAX package's
+    shared-subtree coordination).
 """
 
 from __future__ import annotations
@@ -244,10 +248,61 @@ def _with_children(node, kids):
 
 def prune_filter_columns(root):
     """Top-down column pruning at Filters (and Project outputs no ancestor
-    reads). Returns the rewritten root."""
+    reads). Returns the rewritten root.
+
+    A node referenced from several parents is pruned with the UNION of
+    every requirement reaching it (requirement propagation is
+    union-distributive node by node, so the union is exact) and every
+    parent receives the SAME rewritten object: pruning each occurrence on
+    its own would make the branches structurally different and defeat
+    the physical subtree reuse (``exec/reuse.py``). A first pass collects
+    the requirements at the shared nodes, nested ones included; the
+    second rewrites."""
+    refs: dict = {}
+
+    def count_refs(n) -> None:
+        refs[id(n)] = refs.get(id(n), 0) + 1
+        if refs[id(n)] == 1:
+            for c in n.children:
+                count_refs(c)
+    count_refs(root)
+    shared_ids = {i for i, c in refs.items() if c > 1}
+    state = {"collecting": bool(shared_ids)}
+    collected: dict = {}     # id(shared node) -> [required per occurrence]
+    shared_memo: dict = {}   # id(shared node) -> its one rewritten subtree
+    collect_memo: set = set()
 
     def rewrite(node, required):
         # ``required``: the names the parent needs; None = all
+        if id(node) in shared_ids:
+            if state["collecting"]:
+                collected.setdefault(id(node), []).append(
+                    None if required is None else set(required))
+                # descend so nested shared nodes collect too, each
+                # (node, requirement) pair once: without the memo nested
+                # shared nodes walk 2^depth times
+                mkey = (id(node), None if required is None
+                        else frozenset(required))
+                if mkey in collect_memo:
+                    return node
+                collect_memo.add(mkey)
+            else:
+                got = shared_memo.get(id(node))
+                if got is None:
+                    reqs = collected.get(id(node), [None])
+                    union = (None if any(r is None for r in reqs)
+                             else set().union(*reqs))
+                    sid = id(node)
+                    shared_ids.discard(sid)  # rewrite the body plainly
+                    got = rewrite(node, union)
+                    if union is not None and node.children:
+                        # a shared scan stays bare, so a filter above each
+                        # occurrence still reaches it (pushed filters);
+                        # annotate_scan_pruning prunes its columns
+                        got = _narrow(got, union)
+                    shared_ids.add(sid)
+                    shared_memo[sid] = got
+                return got
         if isinstance(node, lp.LogicalFilter):
             child_req = (None if required is None else
                          (required | _cols_of(node.condition))
@@ -335,6 +390,9 @@ def prune_filter_columns(root):
         return _with_children(node, [rewrite(c, None)
                                      for c in node.children])
 
+    if state["collecting"]:
+        rewrite(root, None)   # pass A: the requirements at shared nodes
+        state["collecting"] = False
     return rewrite(root, None)
 
 

@@ -1,15 +1,17 @@
 """Warm walls of the session's upload-path queries, for comparing two
-checkouts on one card: Q1 and Q6 at SF10 (2^23-row batches), the Q18
+checkouts on one card: Q1 and Q6 at SF10 (2^23-row batches), Q4 at SF10
+(2^23-row batches, ``tpch.HASH_AGG_CONFS``, shuffled joins), the Q18
 group-by at SF1 (2^22-row batches, ``tpch.HASH_AGG_CONFS``) and the
 Mortgage ``aggregates_with_join`` at SF 500 (2^20-row batches,
 ``mortgage.ETL_CONFS``), each through ``TpuSparkSession`` in test mode
 with cached device scans, as ``chip_smoke.py`` runs them. Each query runs
 once cold (the upload), then ``--runs`` times, synchronized; prints one
-JSON line per query with the median and every run, then the card's name
+JSON line per query with the median, every run, and the warm runs' peak
+device bytes past what was allocated before them, then the card's name
 and power limit.
 
     python3 spark_rapids_tpu_torch/tools/session_walls.py --root CHECKOUT \
-        [--queries q1 q6 q18_groupby mortgage_aggregates_with_join]
+        [--queries q1 q6 q4 q18_groupby mortgage_aggregates_with_join]
 
 ``--root`` imports the port from another checkout (run this file by its
 path); alternate the checkouts in one call (parent, tree, tree, parent):
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 
-QUERIES = ("q1", "q6", "q18_groupby", "mortgage_aggregates_with_join")
+QUERIES = ("q1", "q6", "q4", "q18_groupby",
+           "mortgage_aggregates_with_join")
 
 
 def main() -> None:
@@ -63,6 +66,8 @@ def main() -> None:
         df.collect()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(args.runs + 1):
             torch.cuda.synchronize()
@@ -73,19 +78,30 @@ def main() -> None:
         walls = walls[1:]
         print(json.dumps({"query": name, "sf": sf, "root": args.root or "",
                           "wall_s": float(np.median(walls)),
-                          "wall_runs_s": walls, "cold_s": cold}),
+                          "wall_runs_s": walls, "cold_s": cold,
+                          "peak_bytes": torch.cuda.max_memory_allocated()
+                          - base}),
               flush=True)
 
     want = set(args.queries)
-    if want & {"q1", "q6"}:
+    if want & {"q1", "q6", "q4"}:
         df = G.gen_lineitem(10)
-        s = session(1 << 23)
-        t = {"lineitem": s.create_dataframe(df)}
-        for q in ("q1", "q6"):
-            if q in want:
-                timed(f"session_{q}", getattr(T, q)(s, t), 10)
-        del s, t, df
-        torch.cuda.empty_cache()
+        if want & {"q1", "q6"}:
+            s = session(1 << 23)
+            t = {"lineitem": s.create_dataframe(df)}
+            for q in ("q1", "q6"):
+                if q in want:
+                    timed(f"session_{q}", getattr(T, q)(s, t), 10)
+            del s, t
+            torch.cuda.empty_cache()
+        if "q4" in want:
+            s = session(1 << 23, **T.HASH_AGG_CONFS)
+            t = {"lineitem": s.create_dataframe(df),
+                 "orders": s.create_dataframe(G.gen_orders(10))}
+            timed("session_q4", T.q4(s, t), 10)
+            del s, t
+            torch.cuda.empty_cache()
+        del df
     if "q18_groupby" in want:
         df = G.gen_lineitem(1)
         s = session(1 << 22, **T.HASH_AGG_CONFS)

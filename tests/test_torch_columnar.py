@@ -284,6 +284,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "t = {'lineitem': oo.create_dataframe(fr['lineitem'])}\n"
         "assert len(T.q1(oo, t).collect()) == 6\n"
         "oo.stop()\n"
+        "aq = TpuSparkSession.builder().device('cpu').config(\n"
+        "    'spark.rapids.sql.adaptive.enabled', True).config(\n"
+        "    'spark.rapids.sql.fusion.stageEnabled', True).config(\n"
+        "    'spark.rapids.sql.autoBroadcastJoinThreshold', -1\n"
+        "    ).get_or_create()\n"
+        "t = {n: aq.create_dataframe(f, 2) for n, f in fr.items()}\n"
+        "assert len(T.q3(aq, t).collect()) == 10\n"
+        "assert aq.last_aqe['stages'] >= 3, aq.last_aqe\n"
         "import json, os\n"
         "from spark_rapids_tpu_torch.obs.events import read_events\n"
         "from spark_rapids_tpu_torch.obs.progress import PROGRESS\n"

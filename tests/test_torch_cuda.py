@@ -675,7 +675,10 @@ def _same_by_key(got, want, keys):
 def test_session_queries_on_the_card(cuda_device, qname):
     """Through the port's session in test mode (no fallback), at SF 0.05
     in 2^16-row batches: equal to the query runners' answers, through
-    kernels B1 (and B2 for the Q18 group-by)."""
+    kernels B1 (and B2 for the Q18 group-by). Q6's filter fuses into its
+    global aggregate (``spark.rapids.sql.agg.fuseFilter``, the JAX
+    package's default) and compacts nothing: it takes B1 only with the
+    fusion off."""
     from spark_rapids_tpu_torch.models import q1_step as Q
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.models import tpch_data as G
@@ -691,6 +694,11 @@ def test_session_queries_on_the_card(cuda_device, qname):
     query = tpch.QUERIES[qname](s, {"lineitem": s.create_dataframe(df)})
     K.reset_launches()
     got = query.collect()
+    if qname == "q6":
+        assert K.LAUNCHES["compact_permutation"] == 0
+        s.set_conf("spark.rapids.sql.agg.fuseFilter", False)
+        K.reset_launches()
+        _same_by_key(query.collect(), got, ["revenue"])
     assert K.LAUNCHES["compact_permutation"] > 0
     if qname == "q1":
         want = Q.q1_from_batches(Q.upload_batches(df, Q.Q1_COLUMNS, batch))
@@ -1692,10 +1700,12 @@ def _obs_session(**conf):
 def test_transfer_guard_catches_an_uncounted_wait(cuda_device, monkeypatch):
     """Under ``spark.rapids.tpu.debug.transferGuard=disallow`` (the sync
     debug mode "error" around the query body) a session Q1 completes with
-    its counted syncs, and a filter that reads its row count with a bare
-    ``.item()`` (no ``sync_scope``) raises; without the guard the same
-    query completes."""
-    from spark_rapids_tpu_torch.exec.tpu import TpuFilterExec
+    its counted syncs, and an aggregate that reads its input's row count
+    with a bare ``.item()`` (no ``sync_scope``) raises; without the guard
+    the same query completes. (Q1's filter fuses into its aggregate,
+    ``spark.rapids.sql.agg.fuseFilter``: the leak sits in the aggregate,
+    which runs either way.)"""
+    from spark_rapids_tpu_torch.exec.tpu import TpuHashAggregateExec
     from spark_rapids_tpu_torch.models import tpch
     from spark_rapids_tpu_torch.models import tpch_data as G
     from spark_rapids_tpu_torch.obs.syncledger import SYNCS
@@ -1712,7 +1722,7 @@ def test_transfer_guard_catches_an_uncounted_wait(cuda_device, monkeypatch):
     s.set_conf("spark.rapids.tpu.debug.transferGuard", "disallow")
     assert counted_q1() == plain and plain["scan.upload"] == 1
     assert torch.cuda.get_sync_debug_mode() == 0  # restored
-    orig = TpuFilterExec.partitions
+    orig = TpuHashAggregateExec.partitions
 
     def leaky(self, ctx):
         def wrap(part):
@@ -1722,7 +1732,7 @@ def test_transfer_guard_catches_an_uncounted_wait(cuda_device, monkeypatch):
                     yield b
             return run
         return [wrap(p) for p in orig(self, ctx)]
-    monkeypatch.setattr(TpuFilterExec, "partitions", leaky)
+    monkeypatch.setattr(TpuHashAggregateExec, "partitions", leaky)
     with pytest.raises(RuntimeError, match="synchroniz"):
         tpch.q1(s, {"lineitem": s.create_dataframe(li)}).collect()
     assert torch.cuda.get_sync_debug_mode() == 0
@@ -1802,7 +1812,11 @@ def test_obs_phase_checks_at_a_small_size(cuda_device, tmp_path,
               "customer": G.gen_customer(sf)}
     sess = cs.session_of(1 << 16, **tpch.HASH_AGG_CONFS)
     tables = {n: sess.create_dataframe(f) for n, f in frames.items()}
-    tpch.q3(sess, tables).collect()
+    # the uploads, and the capacity speculation's learning runs (the
+    # shrink counts speculate once two runs agree): the modes' runs are
+    # then all warm, as the smoke's cell is
+    for _ in range(3):
+        tpch.q3(sess, tables).collect()
     framesh = dict(frames, supplier=G.gen_supplier(sf),
                    part=G.gen_part(sf), partsupp=G.gen_partsupp(sf),
                    nation=G.gen_nation())
@@ -1816,7 +1830,7 @@ def test_obs_phase_checks_at_a_small_size(cuda_device, tmp_path,
         framesh["lineitem"], 1 << 16, 1, {}, report)
     rec = report["obs_phase"]
     assert rec["session_q3"]["syncs_before_collect"] == {
-        "join.expandTotals": 2}
+        "speculation.verify": 1}
     assert rec["q3_sync_each_op"]["worst_breakdown_gap_s"] <= 1e-3
     assert rec["q9_parquet"]["sync_by_site"]
     assert 0.0 <= rec["q9_parquet"]["occupancy_pct"] <= 100.0
@@ -1874,9 +1888,12 @@ def test_socket_manager_q3_under_the_transfer_guard(cuda_device):
     from spark_rapids_tpu_torch.models import tpch_data as G
     sf = 0.05
     li, o, c = G.gen_lineitem(sf), G.gen_orders(sf), G.gen_customer(sf)
+    # capacity speculation off, as in the smoke's manager cells: the
+    # stated syncs are those of runs that read their sizes exactly
     s = cs.session_of(1 << 23, **dict(
         tpch.HASH_AGG_CONFS, **cs.SHUFFLE_MANAGER_CONFS, **cs.GUARD,
-        **{"spark.rapids.shuffle.transport.class": "socket"}))
+        **{"spark.rapids.shuffle.transport.class": "socket",
+           "spark.rapids.sql.adaptiveCapacity.enabled": False}))
     try:
         t = {"lineitem": s.create_dataframe(li, cs.SHUFFLE_MAP_PARTS),
              "orders": s.create_dataframe(o, cs.SHUFFLE_MAP_PARTS),
@@ -1919,6 +1936,147 @@ def test_shuffle_phase_checks_at_a_small_size(cuda_device, tmp_path,
     rec = report["shuffle_phase"]
     assert rec["q3_buckets_hash"]["syncs_before_collect"] == \
         cs.q3_bucket_syncs(cs.SHUFFLE_PARTS)
+    assert rec["q3_buckets_speculated"]["reruns"] == 0
+    assert rec["q3_buckets_speculated"]["warm_syncs"] == {
+        "exchange.split": 6, "exchange.rangeBounds": 1,
+        "limit.remaining": 1, "speculation.verify": 1}
     assert rec["repartition_write"]["files"] == 4
     assert rec["q3_manager_socket"]["drop_retry"]["retries"] == 1
     sess.stop()
+
+
+def _card_syncs(fn):
+    """(fn's result, its counted syncs by site), under the sync debug
+    mode "error"."""
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    before = dict(SYNCS.syncs)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+def test_speculative_warm_join_and_forced_miss_on_the_card(cuda_device):
+    """Session Q3 on the card under the sync debug mode "error": warm runs
+    defer both joins' totals to one ``speculation.verify`` (the pinned
+    host copies read only after their events); a cut capacity re-runs the
+    query once with the same answer."""
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    li, o, c = G.gen_lineitem(0.05), G.gen_orders(0.05), G.gen_customer(0.05)
+    sess = cs.session_of(1 << 16, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1})
+    t = {"lineitem": sess.create_dataframe(li),
+         "orders": sess.create_dataframe(o),
+         "customer": sess.create_dataframe(c)}
+    q = tpch.q3(sess, t)
+    want = q.collect()
+    for _ in range(3):
+        q.collect_batches()
+    _out, syncs = _card_syncs(q.collect_batches)
+    assert syncs == {"speculation.verify": 1}
+    key = next(k for k, e in sess.capacity_cache.items() if e.get("sizes")
+               and any(sz[0] > 4 for sz in e["sizes"]))
+    sess.capacity_cache[key]["sizes"] = [
+        [max(sz[0] // 4, 1)] + sz[1:]
+        for sz in sess.capacity_cache[key]["sizes"]]
+    got, syncs = _card_syncs(q.collect)
+    assert sess.capacity_spec_reruns == 1
+    assert syncs["speculation.verify"] == 1
+    assert syncs["join.expandTotals"] == 2
+    cs.check_q3(got, cs.q3_reference(li, o, c))
+    cs.check_q3(want, cs.q3_reference(li, o, c))
+    sess.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 300_000])
+def test_dense_composite_on_the_card_equals_cpu(cuda_device, n):
+    from spark_rapids_tpu_torch.columnar import dtypes
+    from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
+    from spark_rapids_tpu_torch.ops import aggregate
+    rng = np.random.default_rng(n)
+    frame = pd.DataFrame({
+        "a": pd.Series(rng.integers(-50, 200, n)).astype("Int64")
+               .mask(pd.Series(rng.random(n) < 0.1)),
+        "b": rng.integers(0, 9000, n).astype(np.int32)})
+    schema = Schema(["a", "b"], [dtypes.INT64, dtypes.INT32])
+    cpu = DeviceBatch.from_pandas(frame, {}, device="cpu", schema=schema)
+    card = DeviceBatch.from_pandas(frame, {}, device="cuda", schema=schema)
+    for los, sizes in (([-50, 0], (256, 16384)), ([0, 100], (128, 4096))):
+        pc, pok = aggregate.dense_composite(
+            cpu, [0, 1], torch.tensor(los), sizes, cpu.row_mask())
+        gc, gok = aggregate.dense_composite(
+            card, [0, 1], torch.tensor(los, device="cuda"), sizes,
+            card.row_mask())
+        assert torch.equal(gc.cpu(), pc) and bool(gok) == bool(pok)
+
+
+@pytest.mark.cuda
+def test_fused_filter_aggregate_on_b2_equals_unfused(cuda_device):
+    """A filter fused into a partial aggregate on the hash branch (B2):
+    the same groups and sums as the filter compacting first, and B2
+    launched."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.sql import functions as F
+    rng = np.random.default_rng(5)
+    n = 200_000
+    frame = pd.DataFrame({"k": rng.integers(0, 20000, n).astype(np.int64),
+                          "v": rng.uniform(0, 1, n)})
+    b = TpuSparkSession.builder().config("spark.rapids.sql.test.enabled",
+                                         True)
+    for k, v in tpch.HASH_AGG_CONFS.items():
+        b.config(k, v)
+    s = b.get_or_create()
+    d = s.create_dataframe(frame)
+    q = d.filter(F.col("v") > 0.25).group_by("k").agg(
+        F.sum("v").alias("sv"), F.count("*").alias("n"))
+    K.reset_launches()
+    on = q.collect().sort_values("k").reset_index(drop=True)
+    assert K.LAUNCHES["hash_grouped_aggregate"] > 0
+    assert any(getattr(x, "pre_mask", None) is not None
+               for x in s.last_plan.walk())
+    s.set_conf("spark.rapids.sql.agg.fuseFilter", False)
+    off = q.collect().sort_values("k").reset_index(drop=True)
+    assert list(on.k) == list(off.k) and list(on.n) == list(off.n)
+    np.testing.assert_allclose(on.sv, off.sv, rtol=F64_RTOL)
+    s.stop()
+
+
+@pytest.mark.cuda
+def test_adaptive_phase_checks_at_a_small_size(cuda_device):
+    """``chip_smoke.adaptive_phase`` at SF 0.05 with the skewed join at
+    its own size: every stated sync count, the dense branch, the AQE
+    decisions and the fused stage."""
+    import chip_smoke as cs
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    sf = 0.05
+    li, o, c = G.gen_lineitem(sf), G.gen_orders(sf), G.gen_customer(sf)
+    sess = cs.session_of(1 << 16, **dict(tpch.HASH_AGG_CONFS, **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1}))
+    tables = {"lineitem": sess.create_dataframe(li),
+              "orders": sess.create_dataframe(o),
+              "customer": sess.create_dataframe(c)}
+    tpch.q3(sess, tables).collect()
+    qs = cs.session_of(1 << 16)
+    qt = {"lineitem": qs.create_dataframe(li)}
+    report = {}
+    cs.fusion_cells(qs, qt, cs.q1_reference(li), cs.q6_reference(li),
+                    -(-len(li) // (1 << 16)), 1, report)
+    cs.adaptive_phase((sess, tables, cs.q3_reference(li, o, c)), li, o, c,
+                      1 << 16, {}, report, shared=False)
+    rec = report["adaptive"]
+    assert rec["speculation"]["runs"][-1]["syncs"] == {
+        "speculation.verify": 1}
+    assert rec["dense"]["runs"][2]["branches"].get("dense", 0) > 0
+    assert rec["aqe"]["q3"]["stages"] >= 1
+    assert len(rec["whole_stage"]["members"]) >= 4
+    for s in (sess, qs):
+        s.stop()

@@ -158,7 +158,10 @@ def test_dense_route_falls_back_on_stale_bounds():
     a stale registry would be): the build verifies them, finds a key
     outside, and the join takes the hash route; the answer is exact. The
     expanding join makes two counted syncs (the failed verification with
-    its totals, then the totals again), the semi join one."""
+    its totals, then the totals again), the semi join one. Capacity
+    speculation is off here: this is the in-query fallback of a run that
+    reads its sizes exactly (``test_dense_route_stale_bounds_under_
+    speculation`` holds the default)."""
     rng = np.random.default_rng(3)
     left = pd.DataFrame({"lk": rng.integers(0, 5000, 800)})
     right = pd.DataFrame({"rk": rng.integers(0, 5000, 300),
@@ -166,6 +169,7 @@ def test_dense_route_falls_back_on_stale_bounds():
     s = (TpuSparkSession.builder().device("cpu")
          .config("spark.rapids.sql.test.enabled", True)
          .config("spark.rapids.sql.cacheDeviceScans", True)
+         .config("spark.rapids.sql.adaptiveCapacity.enabled", False)
          .get_or_create())
     want = {}
     for how, syncs in (("inner", 2), ("leftsemi", 1)):
@@ -186,3 +190,41 @@ def test_dense_route_falls_back_on_stale_bounds():
             how=how).collect()
         got = pd.concat([b.to_pandas() for b in got], ignore_index=True)
         assert _rows(got) == _rows(want[how])
+
+
+def test_dense_route_stale_bounds_under_speculation():
+    """The same stale bounds at the default confs: the warm run speculates
+    the dense route's flag with the cached sizes, the one
+    ``speculation.verify`` fetch finds it false, and the query re-executes
+    once without speculation (the failed verification with its totals,
+    then the totals again for the expanding join; the verification alone
+    for the semi join); the answer is exact."""
+    rng = np.random.default_rng(3)
+    left = pd.DataFrame({"lk": rng.integers(0, 5000, 800)})
+    right = pd.DataFrame({"rk": rng.integers(0, 5000, 300),
+                          "rv": rng.integers(0, 9, 300)})
+    s = (TpuSparkSession.builder().device("cpu")
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.cacheDeviceScans", True)
+         .get_or_create())
+    cpu = (TpuSparkSession.builder().device("cpu")
+           .config("spark.rapids.sql.enabled", False).get_or_create())
+    for how, rerun in (("inner", {"join.expandTotals": 2}),
+                       ("leftsemi", {"join.denseVerify": 1})):
+        df = s.create_dataframe(left).join(s.create_dataframe(right),
+                                           left_on="lk", right_on="rk",
+                                           how=how)
+        df.collect()  # uploads; the scan records the true bounds
+        s.column_stats["rk"] = (0, 2000)
+        reruns = s.capacity_spec_reruns
+        before = dict(SYNCS.syncs)
+        got = df.collect_batches()
+        grew = {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                if v != before.get(k, 0)}
+        assert grew == dict(rerun, **{"speculation.verify": 1}), how
+        assert s.capacity_spec_reruns == reruns + 1
+        want = cpu.create_dataframe(left).join(
+            cpu.create_dataframe(right), left_on="lk", right_on="rk",
+            how=how).collect()
+        got = pd.concat([b.to_pandas() for b in got], ignore_index=True)
+        assert _rows(got) == _rows(want)

@@ -220,8 +220,15 @@ def test_session_q18_without_hash_agg_raises(lineitem):
 
 def test_session_syncs_match_the_runners(lineitem):
     """Warm executions with cached scans make no host sync before the
-    collect, as the query runners make none; the first Q18 execution makes
-    one counted sync per sampled batch (the runtime partial skip)."""
+    collect but their exchanges' capacity shrink and its speculation, as
+    the query runners make none: one ``exchange.shrink`` a run for each
+    exchange over a partial or final aggregate (Q1's two, Q6's and the
+    Q18 group-by's one) until two runs agree on its counts, then one
+    ``speculation.verify`` a run. The Q18 group-by's integer key takes the
+    dense composite from the plan's second run (its ok flag deferred to
+    the verify), which changes the partials' counts, so its shrink learns
+    over runs two and three. The first Q18 execution makes one counted
+    sync per sampled batch (the runtime partial skip)."""
     batch = 1 << 12
     s = _port_session(**{"spark.rapids.sql.cacheDeviceScans": True,
                          "spark.rapids.sql.batchSizeRows": batch})
@@ -230,12 +237,19 @@ def test_session_syncs_match_the_runners(lineitem):
                "q18_groupby": Q.q18_agg_from_batches}
     cols = {"q1": Q.Q1_COLUMNS, "q6": Q.Q6_COLUMNS,
             "q18_groupby": Q.Q18_COLUMNS}
+    warm = {"q1": [{"exchange.shrink": 2}, {"speculation.verify": 1}],
+            "q6": [{"exchange.shrink": 1}, {"speculation.verify": 1}],
+            "q18_groupby": [{"exchange.shrink": 1,
+                             "speculation.verify": 1}] * 2
+            + [{"speculation.verify": 1}]}
     for qname, runner in runners.items():
         df = tpch.QUERIES[qname](s, t)
         df.collect_batches()  # uploads, and learns the skip decision
-        before = SYNCS.total()
-        df.collect_batches()
-        assert SYNCS.total() - before == 0, qname
+        for want in warm[qname]:
+            before = dict(SYNCS.syncs)
+            df.collect_batches()
+            assert {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                    if v != before.get(k, 0)} == want, qname
         batches = Q.upload_batches(lineitem, cols[qname], batch, "cpu")
         before = SYNCS.total()
         runner(batches)
@@ -247,10 +261,13 @@ def test_session_syncs_match_the_runners(lineitem):
     first.collect_batches()
     grew = {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
             if v != before.get(k, 0)}
-    # one upload a batch, and one sample a batch until the skip decides
-    assert set(grew) == {"scan.upload", "agg.runtimeSkip"}
+    # one upload a batch, one sample a batch until the skip decides, and
+    # the exchange's shrink of the partials
+    assert set(grew) == {"scan.upload", "agg.runtimeSkip",
+                         "exchange.shrink"}
     assert grew["scan.upload"] == -(-len(lineitem) // batch)
     assert 1 <= grew["agg.runtimeSkip"] <= 3
+    assert grew["exchange.shrink"] == 1
 
 
 def test_session_range_union_limit_coalesce_expand():

@@ -145,14 +145,20 @@ def _with_tables(s, fr):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_join_query_syncs(frames, mode):
-    """Warm executions over cached scans: Q3 makes one counted sync a
-    join (its expansion totals, with the dense route's verification flag);
+    """Warm executions over cached scans with capacity speculation off
+    (the runs read their sizes exactly): Q3 makes one counted sync a join
+    (its expansion totals, with the dense route's verification flag);
     Q4's semi join takes the dense route (l_orderkey's scan statistics
     bound it) and makes one, its verification, read once for all stream
     batches; a broadcast join over P stream partitions makes one a
-    partition."""
+    partition. Both queries also make one ``exchange.shrink`` for each of
+    their two exchanges over a padded producer (the partial aggregate's
+    and the final aggregate's range exchange), which read their live rows
+    so the consumers run at the real size.
+    ``test_join_query_syncs_speculated`` holds the default confs."""
     s = _port_session(**dict(MODES[mode], **{
-        "spark.rapids.sql.cacheDeviceScans": True}))
+        "spark.rapids.sql.cacheDeviceScans": True,
+        "spark.rapids.sql.adaptiveCapacity.enabled": False}))
     for parts in (1, 4):
         t = _tables(s, frames, parts)
         for qname, most in (("q3", 2), ("q4", 1)):
@@ -165,7 +171,33 @@ def test_join_query_syncs(frames, mode):
             # Q4's verification is read once for its shared build
             per_join = parts if mode == "broadcast" and qname == "q3" \
                 else 1
-            assert syncs == most * per_join, (qname, parts)
+            assert syncs == most * per_join + 2, (qname, parts)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_join_query_syncs_speculated(frames, mode):
+    """The default confs: once a plan's join sizes and shrink counts are
+    cached and its shrink counts proved stable over two runs, a warm run
+    makes one counted sync, ``speculation.verify``, for every join and
+    exchange of every partition; the answer stays the cold run's."""
+    s = _port_session(**dict(MODES[mode], **{
+        "spark.rapids.sql.cacheDeviceScans": True}))
+    for parts in (1, 4):
+        t = _tables(s, frames, parts)
+        for qname in ("q3", "q4"):
+            df = tpch.QUERIES[qname](s, t)
+            want = df.collect()
+            # a broadcast semi join's P stream partitions learn their
+            # dense flags one run each (its build verifies once a run)
+            for _ in range(2 + (parts if qname == "q4" else 0)):
+                df.collect_batches()
+            before = dict(SYNCS.syncs)
+            df.collect_batches()
+            grew = {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+                    if v != before.get(k, 0)}
+            assert grew == {"speculation.verify": 1}, (qname, parts, grew)
+            _check_query(qname, want, df.collect())
+            assert s.capacity_spec_reruns == 0
 
 
 # ---------------------------------------------------------------------------

@@ -177,17 +177,21 @@ def test_parquet_scan_packs_row_groups_and_coalesces(files, layout):
 
 @pytest.mark.parametrize("qname", ["q1", "q3", "q4", "q6", "q18_groupby"])
 def test_parquet_query_syncs(files, qname):
-    """A second execution from the files: one counted sync a row group
-    read (its upload), plus one a join that expands (Q3's two shuffled
-    joins), as the query runners make, plus Q4's semi join's dense-route
-    verification (the row groups' footer statistics bound l_orderkey).
-    The encoded-page cache is off here: with it, a warm row group whose
-    buffers the cache's device tier holds uploads nothing
-    (``tests/test_torch_pagecache.py``)."""
+    """A second execution from the files with capacity speculation off:
+    one counted sync a row group read (its upload), plus one a join that
+    expands (Q3's two shuffled joins), as the query runners make, plus
+    Q4's semi join's dense-route verification (the row groups' footer
+    statistics bound l_orderkey), plus one ``exchange.shrink`` for each
+    exchange over a partial or final aggregate (Q1, Q3 and Q4 two, Q6 and
+    the Q18 group-by one). The encoded-page cache is off here: with it, a
+    warm row group whose buffers the cache's device tier holds uploads
+    nothing (``tests/test_torch_pagecache.py``).
+    ``test_parquet_query_syncs_speculated`` holds the default confs."""
     paths = files["small_row_groups"]
     s = _port_session(**dict(LAYOUTS["small_row_groups"], **{
         "spark.rapids.sql.autoBroadcastJoinThreshold": -1,
-        "spark.rapids.sql.scan.pageCache.enabled": False}))
+        "spark.rapids.sql.scan.pageCache.enabled": False,
+        "spark.rapids.sql.adaptiveCapacity.enabled": False}))
     df = tpch.QUERIES[qname](s, _read(s, paths))
     df.collect_batches()  # learns the partial-skip decision
     tables = {"q1": ["lineitem"], "q6": ["lineitem"],
@@ -198,7 +202,36 @@ def test_parquet_query_syncs(files, qname):
     before = SYNCS.total()
     df.collect_batches()
     assert SYNCS.total() - before == row_groups + {"q3": 2, "q4": 1}.get(
-        qname, 0)
+        qname, 0) + SHRINKS[qname]
+
+
+# exchanges over a partial or final aggregate, each one exchange.shrink
+SHRINKS = {"q1": 2, "q3": 2, "q4": 2, "q6": 1, "q18_groupby": 1}
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3", "q4", "q6", "q18_groupby"])
+def test_parquet_query_syncs_speculated(files, qname):
+    """The default confs from the files: once the join sizes and the
+    shrink counts are cached and proved stable, a warm execution makes
+    one counted sync a row group read and one ``speculation.verify``."""
+    paths = files["small_row_groups"]
+    s = _port_session(**dict(LAYOUTS["small_row_groups"], **{
+        "spark.rapids.sql.autoBroadcastJoinThreshold": -1,
+        "spark.rapids.sql.scan.pageCache.enabled": False}))
+    df = tpch.QUERIES[qname](s, _read(s, paths))
+    for _ in range(3):
+        df.collect_batches()
+    tables = {"q1": ["lineitem"], "q6": ["lineitem"],
+              "q18_groupby": ["lineitem"], "q4": ["orders", "lineitem"],
+              "q3": ["customer", "orders", "lineitem"]}[qname]
+    row_groups = sum(praw.file_metadata(paths[t]).num_row_groups
+                     for t in tables)
+    before = dict(SYNCS.syncs)
+    df.collect_batches()
+    assert {k: v - before.get(k, 0) for k, v in SYNCS.syncs.items()
+            if v != before.get(k, 0)} == {"scan.upload": row_groups,
+                                          "speculation.verify": 1}
+    assert s.capacity_spec_reruns == 0
 
 
 def test_parquet_scan_disabled_by_conf_stays_on_cpu(files):
