@@ -48,9 +48,9 @@ port's main path through its query runners:
     replace over the review text, each equal to pandas, and the string
     functions and casts of ``testing/stringcases.py`` over a plain column
     at 2^16 rows, equal to the CPU session), Q9 from Parquet and the 19
-    TPCxBB queries at SF 20;
+    TPCxBB queries at SF 10;
   * the four Mortgage queries (``models/mortgage.py``) through the
-    session in 2^20-row batches, the ETL at SF 150 (3.6M performance rows
+    session in 2^20-row batches, the ETL at SF 50 (1.2M performance rows
     expanded 12 times) and the other three at SF 500, each against its
     pandas reference (``testing/mortgagecases.py``), with its peak device
     memory, join routes and launches;
@@ -96,6 +96,21 @@ port's main path through its query runners:
     skewed-key join under ``spark.rapids.sql.adaptive.enabled`` (stages,
     broadcast demotion, skew split, one ``aqe.stageFetch`` a stage) and a
     project/filter chain as one fused stage;
+  * the serving phase (``serving_phase``, after the adaptive phase;
+    ``--serving-only`` runs it alone at SF1): on the session Q1 cell's
+    SF10 uploads (Q3's tables added), Q1, Q6 and Q3 and Q6 over the SF 0.5
+    Parquet lineitem
+    first single threaded (walls, launches, syncs by site), then 24 jobs
+    through a two-worker ``QueryScheduler`` of three weighted tenants
+    under the sync debug mode "error": answers equal to pandas, launches
+    and syncs the sum of the jobs', plan-cache hits jobs - distinct
+    plans; the live monitor read meanwhile; a result-cache repeat with
+    no launch and no sync; a cancelled and a timed-out Q3 whose buffers
+    are released; a shed burst; then two fleet worker processes on the
+    card from the seeded nvcc build directory (no nvcc run), Q1 and Q6
+    at SF1 for two tenants equal to their oracles, a rolling restart
+    pre-warmed from the fleet's manifest with nothing shed, and a killed
+    worker whose job ends "lost" and whose tenant moves;
   * the expression phase (``expression_phase``, after the session's
     Parquet cells): TPC-H Q1 as a rollup and a three-key cube over SF10
     lineitem (the session Q1 cell's cached upload) through B1 and B2,
@@ -162,6 +177,7 @@ result, when no CUDA device is present or any phase fails. Details go to
     python3 chip_smoke.py --obs-only          # the observability phase
     python3 chip_smoke.py --shuffle-only      # the shuffle phase, SF1
     python3 chip_smoke.py --adaptive-only     # the adaptive phase, SF1
+    python3 chip_smoke.py --serving-only      # the serving phase, SF1
 """
 
 from __future__ import annotations
@@ -3210,11 +3226,11 @@ def _measured_run(sess, query) -> tuple:
     return out, rec
 
 
-def keep_scans_of(sess, df) -> None:
-    """Free every cached scan of ``sess`` that the query ``df`` does not
-    read."""
+def keep_scans_of(sess, *dfs) -> None:
+    """Free every cached scan of ``sess`` that none of the queries ``dfs``
+    reads."""
     from spark_rapids_tpu_torch.exec.tpu import TpuScanExec
-    read = {tuple(n.output_schema().names)
+    read = {tuple(n.output_schema().names) for df in dfs
             for n in sess.physical_plan(df._plan).walk()
             if isinstance(n, TpuScanExec)}
     for key in list(sess.device_scan_cache):
@@ -5194,6 +5210,595 @@ def _rollup_q1(li):
                  SF_.count("*").alias("count_order")))
 
 
+
+# ---------------------------------------------------------------------------
+# Serving (A.11's serving half): scheduler, caches, monitor, fleet
+# ---------------------------------------------------------------------------
+
+SERVING_DIR = os.path.join("spark_rapids_tpu_torch", "build", "serving")
+SERVING_WORKERS = 2
+# tenant -> weight; jobs go round the tenants
+SERVING_WEIGHTS = {"a": 1.0, "b": 1.0, "c": 3.0}
+# each round submits one job of every kind: 6 rounds, 24 jobs
+SERVING_ROUNDS = 6
+SERVING_KINDS = ("q1", "q6", "q3", "q6_parquet")
+# the fleet workers' share of the card each: with the parent's uploads
+# the three processes stay well inside the 80 GB
+SERVING_FLEET_FRACTION = 0.1
+SERVING_FLEET_SF = 1
+# where the fleet workers run (a rehearsal off the card sets "cpu")
+SERVING_FLEET_DEVICE = "cuda"
+_PROM_SAMPLE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*='
+                r'"(?:\\.|[^"\\])*"(,[a-zA-Z_][a-zA-Z0-9_]*='
+                r'"(?:\\.|[^"\\])*")*\})? -?[0-9]+(\.[0-9]+)?'
+                r'([eE][+-]?[0-9]+)?$')
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as r:
+        require(r.status == 200, f"{url}: HTTP {r.status}")
+        return r.read().decode()
+
+
+def _read_monitor(base: str, expect_scheduler: bool) -> dict:
+    """/healthz, /metrics (every line parsed as Prometheus text),
+    /api/status (the card's name and memory) and /api/scheduler."""
+    import re
+    health = json.loads(_http_get(base + "/healthz"))
+    require(health["status"] == "ok", f"/healthz: {health}")
+    body = _http_get(base + "/metrics")
+    families = 0
+    for line in body.splitlines():
+        if line.startswith("# TYPE "):
+            families += 1
+        else:
+            require(bool(re.match(_PROM_SAMPLE, line)),
+                    f"/metrics: not Prometheus text: {line!r}")
+    status = json.loads(_http_get(base + "/api/status"))
+    dev = status.get("device") or {}
+    require(dev.get("name") == torch.cuda.get_device_name(0)
+            and 0 < dev.get("freeBytes", 0) <= dev.get("totalBytes", 0),
+            f"/api/status: device {dev}")
+    sched = json.loads(_http_get(base + "/api/scheduler"))["schedulers"]
+    require(not expect_scheduler or any(
+        s["workers"] == SERVING_WORKERS for s in sched),
+        f"/api/scheduler: {sched}")
+    return {"families": families, "device": dev,
+            "memory": status.get("memory"),
+            "running": [len(s["running"]) for s in sched]}
+
+
+# the fleet's queries: generated and run once in each worker as it boots
+# (its prime queries), then submitted by two tenants
+FLEET_QUERIES = {q: {"kind": "suite", "suite": "tpch", "query": q,
+                     "sf": SERVING_FLEET_SF} for q in ("q1", "q6")}
+
+
+class _FleetBoot:
+    """``launch_process_fleet(2, ...)`` on a thread of its own, so that
+    the two workers boot (imports, CUDA context, session, their SF1
+    tables and a first run of each query) while the in-process part of
+    the serving phase runs; the nvcc build directory is seeded with this
+    process's libraries first."""
+
+    def __init__(self):
+        import shutil
+        import threading
+
+        from spark_rapids_tpu_torch.models import tpch as T
+        from spark_rapids_tpu_torch.ops import cudalib
+        self.rec: dict = {}
+        self.router = None
+        self.error = None
+        fleet_dir = os.path.abspath(os.path.join(SERVING_DIR, "fleet"))
+        shutil.rmtree(fleet_dir, ignore_errors=True)
+        cc = os.path.join(fleet_dir, "compilecache")
+        os.makedirs(cc)
+        seeded = [f for f in os.listdir(cudalib.BUILD)
+                  if f.startswith("lib")
+                  and (f.endswith(".so") or f.endswith(".so.json"))]
+        for f in seeded:
+            shutil.copy2(os.path.join(cudalib.BUILD, f),
+                         os.path.join(cc, f))
+        self.rec["seeded_files"] = sorted(seeded)
+        self.conf = dict(T.HASH_AGG_CONFS, **{
+            "spark.rapids.memory.tpu.allocFraction": SERVING_FLEET_FRACTION,
+            "spark.rapids.sql.cacheDeviceScans": True,
+            "spark.rapids.sql.test.enabled": True})
+        self._dir = fleet_dir
+        self._thread = threading.Thread(target=self._boot, daemon=True)
+        self._t0 = time.perf_counter()
+        self._thread.start()
+
+    def _boot(self) -> None:
+        from spark_rapids_tpu_torch.serving.fleet.router import (
+            launch_process_fleet,
+        )
+        try:
+            # a tenant on each worker, carol pinned to r0 for the kill
+            self.router = launch_process_fleet(
+                2, self._dir, base_conf=self.conf,
+                spec_extras={"device": SERVING_FLEET_DEVICE,
+                             "schedulerWorkers": 2,
+                             "primeQueries": list(FLEET_QUERIES.values())},
+                overrides="alice=r0,bob=r1,carol=r0", start_timeout=180.0)
+        except BaseException as e:  # noqa: BLE001 — raised by join
+            self.error = e
+        self.rec["launch_s"] = time.perf_counter() - self._t0
+
+    def join(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.router
+
+
+def _serving_fleet(boot: _FleetBoot, li1, report: dict) -> dict:
+    """Two ``fleet/worker.py`` processes on this card from one seeded
+    nvcc build directory (``_FleetBoot``): their answers against their
+    oracles and pandas, a rolling restart and a killed worker."""
+    import threading
+
+    from spark_rapids_tpu_torch.obs.events import EVENTS
+    from spark_rapids_tpu_torch.serving.fleet.worker import (
+        deserialize_frame,
+    )
+    t_wait = time.perf_counter()
+    router = boot.join()
+    rec = boot.rec
+    rec["boot_wait_s"] = time.perf_counter() - t_wait
+    try:
+        rec["boot"] = {}
+        for rid in ("r0", "r1"):
+            st = router.worker(rid).status()
+            rec["boot"][rid] = {"boot_s": st.get("bootSeconds"),
+                                "compiles": st["compiles"]}
+            require(st["compiles"]["backend"] == 0,
+                    f"fleet {rid} ran nvcc at boot: {st['compiles']}")
+        log(f"serving fleet: 2 workers up in {rec['launch_s']:.1f} s "
+            f"(waited {rec['boot_wait_s']:.1f} s for them) {rec['boot']}")
+        queries = FLEET_QUERIES
+        t0 = time.perf_counter()
+        jobs = [router.submit(spec, tenant=t, want_result=True,
+                              description=q)
+                for t in ("alice", "bob") for q, spec in queries.items()]
+        require(router.drain(timeout=300), "fleet jobs did not finish")
+        rec["jobs_s"] = time.perf_counter() - t0
+        oracles: dict = {}
+
+        def oracle(rid, q):
+            got = router.worker(rid).oracle(queries[q], timeout=300)
+            oracles[(rid, q)] = deserialize_frame(got["result"])
+        pairs = {(j.replica, j.description) for j in jobs}
+        threads = [threading.Thread(target=oracle, args=p) for p in pairs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        want = {"q1": q1_reference(li1), "q6": q6_reference(li1)}
+        for j in jobs:
+            require(j.status == "succeeded", f"fleet {j.description} "
+                    f"{j.tenant}: {j.status} {j.error}")
+            got, ora = j.result(), oracles[(j.replica, j.description)]
+            if j.description == "q1":
+                check_q1(got, ora)
+                check_q1(got, want["q1"])
+            else:
+                for other in (float(ora.revenue[0]), want["q6"]):
+                    require(_rel_err([got.revenue[0]], [other])
+                            <= F64_RTOL, f"fleet q6 differs: {got}")
+        rec["placement"] = {j.tenant: j.replica for j in jobs}
+        log(f"serving fleet: {len(jobs)} jobs on "
+            f"{sorted(set(rec['placement'].values()))} in "
+            f"{rec['jobs_s']:.1f} s, equal to the oracles and pandas")
+        # a rolling restart of r1, pre-warmed from the fleet's manifest,
+        # jobs in flight around it
+        before = [router.submit(spec, tenant=t) for t in ("alice", "bob")
+                  for spec in queries.values()]
+        t0 = time.perf_counter()
+        out = router.restart_process_worker("r1", prewarm=True,
+                                            drain_timeout=120.0,
+                                            ready_timeout=120.0)
+        rec["restart_s"] = time.perf_counter() - t0
+        after = [router.submit(spec, tenant=t) for t in ("alice", "bob")
+                 for spec in queries.values()]
+        require(router.drain(timeout=300), "fleet jobs did not finish")
+        for j in before + after:
+            require(j.status == "succeeded",
+                    f"fleet job around the restart: {j.status} {j.error}")
+        st = router.worker("r1").status()
+        rec["restart"] = {"aot": out["aot"], "ready": out["ready"],
+                          "compiles": st["compiles"],
+                          "boot_s": st.get("bootSeconds"),
+                          "shed": router.snapshot(
+                              include_workers=False)["shedTotal"]}
+        aot = out["aot"] or {}
+        require(out["ready"] and rec["restart"]["shed"] == 0
+                and st["compiles"]["backend"] == 0
+                and aot.get("failed", 0) == 0 and aot.get("warmed", 0) > 0,
+                f"rolling restart: {rec['restart']}")
+        log(f"serving fleet: r1 restarted in {rec['restart_s']:.1f} s, "
+            f"pre-warm warmed {aot.get('warmed')} skipped "
+            f"{aot.get('skipped')} pending {aot.get('pending')}, "
+            f"{rec['restart']['compiles']} compiles, shed 0")
+        # a worker killed with a job in flight
+        seq = max((e["seq"] for e in EVENTS.flight_events()), default=0)
+        hang = router.submit({"kind": "sleep", "seconds": 30},
+                             tenant="carol")
+        deadline = time.monotonic() + 30
+        while hang.status == "queued" and time.monotonic() < deadline:
+            time.sleep(0.01)
+        require(hang.replica == "r0", f"carol not on r0: {hang.replica}")
+        time.sleep(0.2)
+        router.worker("r0").proc.kill()
+        require(hang.wait(60) == "lost" and "lost" in (hang.error or ""),
+                f"killed worker's job: {hang.status} {hang.error}")
+        again = router.submit(queries["q6"], tenant="carol",
+                              want_result=True)
+        require(again.wait(300) == "succeeded" and again.replica == "r1",
+                f"carol after the kill: {again.status} {again.replica} "
+                f"{again.error}")
+        lost = [e for e in EVENTS.flight_events()
+                if e["seq"] > seq and e["kind"] == "workerLost"]
+        require(lost and lost[0]["replica"] == "r0"
+                and lost[0]["inflightFailed"] == 1,
+                f"no workerLost event: {lost}")
+        rec["kill"] = {"status": hang.status, "error": hang.error,
+                       "replaced_on": again.replica}
+        log("serving fleet: r0 killed, its job lost, carol re-placed on r1")
+    finally:
+        router.shutdown(timeout=30.0)
+    return rec
+
+
+def serving_phase(q1_cell, q3_frames: dict, wants: dict, pq_path: str,
+                  li1, report: dict, hash_joins: bool = True) -> None:
+    """A.11's serving half on the card, on the session Q1 cell (its SF10
+    lineitem with Q1's and Q6's uploads cached; orders and customer added
+    from ``q3_frames``, uploaded by the first Q3; ``HASH_AGG_CONFS`` for
+    the phase, its confs and its cache put back after; ``wants``: the
+    pandas answers by kind):
+
+      1. the live monitor on port 0, and each job kind once single
+         threaded: Q1, Q6 and Q3 on the SF10 tables, Q6 over a fresh read
+         of the Parquet file (so each run decodes it: B5-B7), cold, then
+         two warm walls, its launches and its counted syncs by site under
+         the sync debug mode "error" (the SF10 kinds' warm syncs: one
+         ``speculation.verify``);
+      2. a ``QueryScheduler`` of ``SERVING_WORKERS`` workers, tenants a, b
+         and c at weights 1, 1 and 3, takes 24 jobs (every kind six times)
+         under the sync debug mode "error", with the plan cache cleared:
+         every answer equals pandas, the launches by kernel and the syncs
+         by site are the sum of the jobs' single-threaded ones, plan-cache
+         hits are jobs - distinct plans with no tag and convert on a hit;
+         /healthz, /metrics, /api/status and /api/scheduler read meanwhile;
+      3. the result cache: a repeat of Q3 makes no launch and no sync;
+      4. one running Q3 cancelled and one past its deadline: statuses,
+         events, and the catalog's and the meter's bytes back where they
+         were; a burst past ``maxQueuedQueries`` shed;
+      5. the fleet (``_serving_fleet``), booted from the phase's start
+         (``_FleetBoot``).
+    ``hash_joins``: Q3's lineitem join takes B3/B4 (at SF10 its
+    l_orderkey range passes the dense route's 2^24; at SF1 it is dense).
+    Records go to ``report["serving"]``."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.obs import monitor
+    from spark_rapids_tpu_torch.obs.events import EVENTS
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    from spark_rapids_tpu_torch.obs.progress import PROGRESS
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    from spark_rapids_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    sess, q1_tables = q1_cell
+    tables = dict(q1_tables, **{n: sess.create_dataframe(f)
+                                for n, f in q3_frames.items()})
+    rec: dict = {"workers": SERVING_WORKERS, "weights": SERVING_WEIGHTS}
+    report["serving"] = rec
+    # the fleet's workers boot meanwhile (their imports and CUDA contexts
+    # share the host with the walls below: PERF.md §6)
+    boot = _FleetBoot()
+    saved = dict(sess.conf._settings)
+    for k, v in T.HASH_AGG_CONFS.items():
+        sess.set_conf(k, v)
+    permits = sess.semaphore.permits
+    sess.semaphore.resize(SERVING_WORKERS)
+    for t, w in SERVING_WEIGHTS.items():
+        sess.set_conf(f"spark.rapids.tpu.serving.tenant.{t}.weight", w)
+    sess.set_conf("spark.rapids.tpu.ui.enabled", True)
+    sess.set_conf("spark.rapids.tpu.ui.port", 0)
+    make = {
+        "q1": lambda s: T.q1(s, tables),
+        "q6": lambda s: T.q6(s, tables),
+        "q3": lambda s: T.q3(s, tables),
+        "q6_parquet": lambda s: T.q6(
+            s, {"lineitem": s.read.parquet(pq_path)}),
+    }
+
+    def check(kind, out) -> float:
+        if kind == "q1":
+            return check_q1(out, wants["q1"])
+        if kind == "q3":
+            return check_q3(out, wants["q3"])
+        err = _rel_err([out.revenue[0]], [wants[kind]])
+        require(len(out) == 1 and err <= F64_RTOL,
+                f"served {kind} differs: {err}")
+        return err
+
+    def counts_of(fn) -> tuple:
+        K.reset_launches()
+        syncs = _syncs_by_site(fn)
+        return dict(K.LAUNCHES), syncs
+    try:
+        # 1. single-threaded
+        single = {}
+        for kind in SERVING_KINDS:
+            make[kind](sess).collect()  # cold: uploads, speculation
+            walls = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = make[kind](sess).collect()
+                walls.append(time.perf_counter() - t0)
+            err = check(kind, out)
+            launches, syncs = counts_of(lambda: make[kind](sess).collect())
+            again = counts_of(lambda: make[kind](sess).collect())
+            require((launches, syncs) == again,
+                    f"serving {kind}: launches or syncs differ between "
+                    f"runs: {launches} {syncs} / {again}")
+            if kind != "q6_parquet":
+                require({k: v for k, v in syncs.items()
+                         if k == "speculation.verify"} == VERIFY,
+                        f"serving {kind}: warm syncs {syncs}")
+            single[kind] = {"wall_s": float(np.median(walls)),
+                            "walls_s": walls, "launches": launches,
+                            "syncs": syncs, "max_rel_err": err}
+            log(f"serving {kind} single-threaded: {np.median(walls):.4f} s,"
+                f" launches {launches}, syncs {syncs}")
+        rec["single"] = single
+        base = monitor.server().url
+        # 2. the served run
+        sess.clear_serving_caches()
+
+        def plan_hits() -> int:
+            return sum(m.value for m in REGISTRY.metrics()
+                       if m.name == "plancache.hits")
+        hits0 = plan_hits()
+        conversions = []
+        orig_convert = sess._convert_cpu
+
+        def counting_convert(plan):
+            # a miss's tag and convert, timed: what a hit saves
+            t0 = time.perf_counter()
+            out = orig_convert(plan)
+            conversions.append(time.perf_counter() - t0)
+            return out
+        sess._convert_cpu = counting_convert
+        sched = sess.serving_scheduler(workers=SERVING_WORKERS)
+        tenants = list(SERVING_WEIGHTS)
+        plan = [SERVING_KINDS[i % len(SERVING_KINDS)]
+                for i in range(SERVING_ROUNDS * len(SERVING_KINDS))]
+        mid = None
+        try:
+            K.reset_launches()
+            syncs0 = dict(SYNCS.syncs)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                jobs = [(kind, sched.submit(make[kind],
+                                            tenant=tenants[i % 3],
+                                            description=kind))
+                        for i, kind in enumerate(plan)]
+                while mid is None and not all(j.done() for _, j in jobs):
+                    if any(j.status == "running" for _, j in jobs):
+                        mid = _read_monitor(base, True)
+                    time.sleep(0.005)
+                require(sched.drain(timeout=600), "served jobs unfinished")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            served_s = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            syncs = {k: v - syncs0.get(k, 0) for k, v in SYNCS.syncs.items()
+                     if v != syncs0.get(k, 0)}
+            snap = sched.snapshot()
+        finally:
+            sched.close()
+            del sess._convert_cpu
+        if mid is None:
+            mid = _read_monitor(base, False)
+        by_kind: dict = {k: [] for k in SERVING_KINDS}
+        for kind, j in jobs:
+            require(j.status == "succeeded",
+                    f"served {kind} ({j.tenant}): {j.status} {j.error}")
+            check(kind, j.get())
+            by_kind[kind].append(j.finished_ts - j.started_ts)
+        want_launches = {k: sum(single[kind]["launches"][k]
+                                for kind in plan) for k in launches}
+        want_syncs: dict = {}
+        for kind in plan:
+            for site, n in single[kind]["syncs"].items():
+                want_syncs[site] = want_syncs.get(site, 0) + n
+        require(launches == want_launches,
+                f"served launches {launches}, stated {want_launches}")
+        require(syncs == want_syncs,
+                f"served syncs {syncs}, stated {want_syncs}")
+        for name in ("compact_permutation", "hash_grouped_aggregate",
+                     "hybrid_expand", "plain_fixed") + (
+                         ("hash_table_build", "hash_table_probe")
+                         if hash_joins else ()):
+            require(launches[name] > 0, f"served jobs never ran {name}")
+        distinct = len(set(SERVING_KINDS) - {"q6_parquet"}) \
+            + plan.count("q6_parquet")
+        hits = plan_hits() - hits0
+        require(hits == len(plan) - distinct
+                and len(conversions) == distinct,
+                f"plan cache: {hits} hits, {len(conversions)} conversions "
+                f"for {len(plan)} jobs of {distinct} plans")
+        require(snap["peakRunning"] == SERVING_WORKERS,
+                f"served jobs never ran {SERVING_WORKERS} at once: {snap}")
+        rec["served"] = {
+            "jobs": len(plan), "wall_s": served_s,
+            "single_sum_s": sum(single[k]["wall_s"] for k in plan),
+            "per_kind_wall_s": {k: float(np.median(v))
+                                for k, v in by_kind.items()},
+            "launches": launches, "syncs": syncs, "plan_cache_hits": hits,
+            "conversions": len(conversions),
+            "convert_ms": [round(1e3 * c, 3) for c in conversions],
+            "monitor": mid,
+            "tenants": {t: {k: snap["tenants"][t][k]
+                            for k in ("succeeded", "weight")}
+                        for t in tenants}}
+        report["serving_launches"] = launches
+        log(f"serving: {len(plan)} jobs on {SERVING_WORKERS} workers in "
+            f"{served_s:.3f} s (single-threaded sum "
+            f"{rec['served']['single_sum_s']:.3f} s); per query served "
+            f"{rec['served']['per_kind_wall_s']} against single "
+            f"{ {k: round(v['wall_s'], 4) for k, v in single.items()} }; "
+            f"plan-cache hits {hits}, conversions {len(conversions)} "
+            f"(tag and convert median {1e3 * np.median(conversions):.2f} "
+            f"ms, max {1e3 * max(conversions):.2f} ms); "
+            f"syncs {syncs}; monitor {mid['families']} families")
+        # 3. the result cache
+        sess.set_conf("spark.rapids.tpu.serving.resultCache.enabled", True)
+        make["q3"](sess).collect()
+        launches, syncs = counts_of(lambda: check("q3", make["q3"](
+            sess).collect()))
+        require(not any(launches.values()) and not syncs,
+                f"result-cache repeat: launches {launches} syncs {syncs}")
+        sess.set_conf("spark.rapids.tpu.serving.resultCache.enabled",
+                      False)
+        rec["result_cache_repeat"] = {"launches": 0, "syncs": 0}
+        # 4. cancel, deadline, shed
+        cat, dm = sess.buffer_catalog, sess.device_manager
+        sched = sess.serving_scheduler(workers=SERVING_WORKERS)
+        try:
+            stops = {}
+            for what in ("cancelled", "timeout"):
+                seq = max((e["seq"] for e in EVENTS.flight_events()),
+                          default=0)
+                torch.cuda.synchronize()
+                before = (cat.device_store.total_size, dm.allocated)
+                if what == "cancelled":
+                    job = sched.submit(make["q3"], tenant="stop")
+                    # cancelled once its query has pulled a batch
+                    deadline = time.monotonic() + 60
+                    while not job.done() and time.monotonic() < deadline:
+                        live = [q for q in PROGRESS.queries()
+                                if q["tenant"] == "stop"
+                                and q["status"] == "running"
+                                and q["heartbeats"] > 0]
+                        if live:
+                            job.cancel("stopped by the smoke")
+                            break
+                        time.sleep(0.0005)
+                else:
+                    job = sched.submit(
+                        make["q3"], tenant="stop",
+                        deadline_s=0.1 * min(by_kind["q3"]))
+                require(job.wait(120) == what,
+                        f"the {what} job ended {job.status} {job.error}")
+                torch.cuda.synchronize()
+                after = (cat.device_store.total_size, dm.allocated)
+                kind = "queryCancelled" if what == "cancelled" \
+                    else "queryTimeout"
+                evs = [e for e in EVENTS.flight_events()
+                       if e["seq"] > seq and e["kind"] == kind]
+                require(evs and "events" in evs[-1],
+                        f"no {kind} event with its flight tail")
+                require(after == before, f"the {what} job left buffers: "
+                        f"catalog and meter {before} -> {after}")
+                stops[what] = {"error": job.error, "bytes": after}
+            rec["stops"] = stops
+        finally:
+            sched.close()
+        sched = sess.serving_scheduler(workers=1, max_queue=2)
+        try:
+            burst = [sched.submit(make["q3"], tenant="burst")] + [
+                sched.submit(make["q6"], tenant="burst") for _ in range(5)]
+            require(sched.drain(timeout=300), "burst unfinished")
+            statuses = [j.status for j in burst]
+            shed = statuses.count("shed")
+            require(shed >= 1 and statuses.count("succeeded")
+                    == len(burst) - shed
+                    and sched.snapshot()["shedTotal"] == shed
+                    and any(e["kind"] == "queryShed"
+                            for e in EVENTS.flight_events()),
+                    f"burst past maxQueuedQueries: {statuses}")
+            rec["shed"] = {"statuses": statuses}
+        finally:
+            sched.close()
+        log(f"serving: result-cache repeat 0 launches 0 syncs; cancel "
+            f"{rec['stops']['cancelled']['error']!r}, timeout "
+            f"{rec['stops']['timeout']['error']!r}, buffers back; burst "
+            f"{rec['shed']['statuses']}")
+    except BaseException:
+        # no worker process outlives a failed phase
+        try:
+            router = boot.join()
+            if router is not None:
+                router.shutdown(timeout=30.0)
+        except BaseException:  # noqa: BLE001 — the first error stands
+            pass
+        raise
+    finally:
+        sess.set_conf("spark.rapids.tpu.ui.enabled", False)
+        monitor.stop()
+        sess.conf._settings = saved
+        sess.semaphore.resize(permits)
+        sess.clear_serving_caches()
+        # the phase's uploads go (Q3's tables, Q6, the Parquet reads):
+        # Q1's stays for the later phases
+        keep_scans_of(sess, T.q1(sess, q1_tables))
+        torch.cuda.set_sync_debug_mode("default")
+    rec["in_process_s"] = time.perf_counter() - t_phase
+    # 5. the fleet
+    rec["fleet"] = _serving_fleet(boot, li1, report)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    report["serving_phase_s"] = rec["phase_s"]
+    log(f"serving phase: {rec['phase_s']:.1f} s (in process "
+        f"{rec['in_process_s']:.1f} s)")
+    print(json.dumps({"serving_launches": report["serving_launches"]}))
+
+
+def serving_only() -> int:
+    """The serving phase alone, on SF1 frames and an SF 0.5 Parquet
+    lineitem made here (its Q1 cell at SF1 in place of SF10). Details go
+    to ``chiprun_out/chip_smoke_serving.json``."""
+    from spark_rapids_tpu_torch.models import tpch as T
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    frames = {"lineitem": G.gen_lineitem(1), "orders": G.gen_orders(1),
+              "customer": G.gen_customer(1)}
+    sfh = SESSION_PARQUET_SF
+    lih = G.gen_lineitem(sfh)
+    pq = G.write_parquet(os.path.join(SERVING_DIR, f"sf{sfh}"), sfh,
+                         tables=["lineitem"],
+                         frames={"lineitem": lih})["lineitem"]
+    sess = session_of(1 << 23)
+    tables = {"lineitem": sess.create_dataframe(frames["lineitem"])}
+    for q in (T.q1, T.q6):
+        q(sess, tables).collect()  # the cold runs: the cached uploads
+    li = frames["lineitem"]
+    log(f"frames, file and uploads: {time.perf_counter() - t0:.1f} s")
+    report: dict = {}
+    serving_phase((sess, tables),
+                  {n: frames[n] for n in ("orders", "customer")},
+                  {"q1": q1_reference(li), "q6": q6_reference(li),
+                   "q3": q3_reference(li, frames["orders"],
+                                      frames["customer"]),
+                   "q6_parquet": q6_reference(lih)},
+                  pq, li, report, hash_joins=False)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_serving.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
 def adaptive_only() -> int:
     """The adaptive phase alone, on SF1 frames made here (its Q3 cell at
     SF1 with shuffled joins in place of SF10, its Q1 cell and rollup at
@@ -5286,6 +5891,10 @@ def main() -> int:
     ap.add_argument("--adaptive-only", action="store_true",
                     help="build the kernels and run only the adaptive "
                          "phase (SF1 frames made here); prints no result")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="build the kernels and run only the serving "
+                         "phase (SF1 frames, an SF 0.5 file and the fleet "
+                         "made here); prints no result")
     args = ap.parse_args()
     if args.window_cpu:
         return window_cpu_child(args.window_cpu)
@@ -5309,6 +5918,8 @@ def main() -> int:
         return shuffle_only()
     if args.adaptive_only:
         return adaptive_only()
+    if args.serving_only:
+        return serving_only()
     children: list = []
     try:
         return run(args, children)
@@ -5353,17 +5964,18 @@ WINDOW_ROWS = 1 << 20
 # smoke's time (PERF.md)
 SESSION_PARQUET_SF = 0.5
 WINDOW_ROWS_QUICK = 1 << 16
-# the ETL at SF 150, the other three at SF 500: the smoke keeps within
+# the ETL at SF 50, the other three at SF 500: the smoke keeps within
 # its time limit (the ETL at SF 500 on one H100: 7.46 s warm, 31.0 GiB
 # peak, equal to pandas; PERF.md); the ETL cut from SF 250 once the
-# shuffle phase came (PERF.md §4)
+# shuffle phase came, to SF 50 once the serving phase did (PERF.md §4)
 MORTGAGE_SF = 500
-MORTGAGE_ETL_SF = 150
+MORTGAGE_ETL_SF = 50
 # cut from SF 250 for the smoke's time once the plain-strings phase came
 # in, to SF 150 once the expression phase did, to SF 50 once the
 # scan-and-write phase did, to SF 30 once the observability phase did,
-# then to SF 20 once the shuffle phase did (PERF.md §4)
-TPCXBB_SF = 20
+# to SF 20 once the shuffle phase did, then to SF 10 once the serving
+# phase did (PERF.md §4)
+TPCXBB_SF = 10
 MORTGAGE_RUNS = 2
 MORTGAGE_BATCH_ROWS = 1 << 20
 
@@ -5549,8 +6161,9 @@ def run(args, children: list) -> int:
                                      "session rowspace group-by")
     queries["session_rowspace_groupby"] = rec
     # the memory phase's spill cell runs Q1 again on this session's cached
-    # upload (4.07 GB on the card until then): the rest of its cache goes
-    keep_scans_of(sess, T.q1(sess, tables))
+    # upload (4.07 GB on the card until then), the serving phase Q1 and Q6:
+    # the rest of its cache goes (Q6's after the serving phase)
+    keep_scans_of(sess, T.q1(sess, tables), T.q6(sess, tables))
     earlier["q1_session"] = (sess, tables)
     del sess, tables
     torch.cuda.empty_cache()
@@ -5935,6 +6548,17 @@ def run(args, children: list) -> int:
     # upload, the SF1 frames and the TPC-H cells' records
     adaptive_phase(q3_cell, df, o1, c1, q1_batch, queries, report)
     report["adaptive_phase_s"] += report["adaptive_fusion_s"]
+    torch.cuda.empty_cache()
+    # serving, on the session Q1 cell's cached uploads (Q3's tables added:
+    # the Q3 cell's cache holds none of Q1's and Q6's columns, 52 s of
+    # SF10 uploads), the SF 0.5 Parquet lineitem and, in the fleet, SF1
+    # lineitem
+    serving_phase(earlier["q1_session"],
+                  {n: memory_frames[n] for n in ("orders", "customer")},
+                  {"q1": earlier["q1_want"], "q6": q6_want,
+                   "q3": earlier["q3_want"],
+                   "q6_parquet": q6_reference(framesh["lineitem"])},
+                  pathsh["lineitem"], df, report)
     q3_cell[0].clear_device_cache()
     del framesh, q3_cell
     torch.cuda.empty_cache()

@@ -65,6 +65,10 @@ def _positive(v: Any) -> Optional[str]:
     return None if v > 0 else f"must be positive, got {v}"
 
 
+def _non_negative(v: Any) -> Optional[str]:
+    return None if v >= 0 else f"must be >= 0, got {v}"
+
+
 def register(key: str, conv: Callable[[str], Any], default: Any,
              doc: str,
              validator: Optional[Callable[[Any], Optional[str]]] = None
@@ -574,6 +578,196 @@ DEBUG_TRANSFER_GUARD = register(
     "so every tracked site passes). Off by default - a debugging "
     "instrument, not a production conf. It has no effect on a CPU "
     "device, where no host wait exists to catch.")
+
+# --- the live monitor (obs/monitor.py) --------------------------------------
+UI_ENABLED = register(
+    "spark.rapids.tpu.ui.enabled", _to_bool, False,
+    "Serve the embedded live monitor (obs/monitor.py): GET /metrics (the "
+    "process registry in Prometheus text format), /healthz, /api/status "
+    "(the card's name and memory, the device budget, the spill catalog's "
+    "tiers, semaphore permits, the journal's drop counts, the pre-warm "
+    "and the shared compile cache), /api/queries and /api/query/<id> "
+    "(live per-query progress), /api/tenants, /api/scheduler, /api/fleet "
+    "and an HTML live view at /. false (default): no server thread, and "
+    "the progress heartbeats stay off.")
+UI_PORT = register(
+    "spark.rapids.tpu.ui.port", int, 4040,
+    "TCP port of the live monitor; 0 binds an ephemeral port (its bound "
+    "port is obs.monitor.server().port). A bind failure warns once and "
+    "leaves the monitor off instead of failing queries.",
+    validator=_non_negative)
+UI_HOST = register(
+    "spark.rapids.tpu.ui.host", str, "127.0.0.1",
+    "Bind address of the live monitor (loopback by default; the service "
+    "is read-only and unauthenticated).")
+UI_RECENT_QUERIES = register(
+    "spark.rapids.tpu.ui.recentQueries", int, 64,
+    "Finished queries /api/queries keeps beside the in-flight ones (a "
+    "bounded ring, oldest evicted first).", validator=_positive)
+UI_SIGNAL_DIAGNOSTICS = register(
+    "spark.rapids.tpu.ui.signalDiagnostics", _to_bool, True,
+    "Install a SIGUSR1 handler at session creation that dumps the flight "
+    "recorder, every thread's stack and the in-flight queries' progress "
+    "into the journal (kill -USR1 <pid>). Main-thread sessions only; an "
+    "application's own SIGUSR1 handler is never replaced.")
+
+# --- the nvcc compile cache and the pre-warm (obs/compilecache.py,
+# serving/prewarm.py) --------------------------------------------------------
+COMPILE_SHARED_CACHE_DIR = register(
+    "spark.rapids.tpu.compile.sharedCache.dir", str, "",
+    "Directory the CUDA libraries are built into and loaded from, shared "
+    "by processes (obs/compilecache.py): each library builds under an "
+    "flock of its own, so of two processes one runs nvcc and the other "
+    "waits and loads its library; every nvcc run appends a record to "
+    "<dir>/manifest.jsonl. Counters compileCache.* (nvcc runs and "
+    "seconds, libraries found or not, the build seconds a found library "
+    "saved, load seconds) and sharedCache.* (a steal is a library another "
+    "process built). Empty (default): the package's own build directory.")
+COMPILE_SHARED_CACHE_MIN_S = register(
+    "spark.rapids.tpu.compile.sharedCache.minCompileSeconds", float, 0.0,
+    "The JAX package's floor of compile seconds before an executable is "
+    "kept; the port keeps every library it builds, so this key is read "
+    "and has no effect.", validator=_non_negative)
+COMPILE_AOT_MANIFEST = register(
+    "spark.rapids.tpu.compile.aot.manifest", str, "",
+    "Path of a pre-warm manifest (serving/prewarm.py; the fleet's warm "
+    "manifest is one): the kernel wrappers' recorded first launches, each "
+    "with its library and a replayable argument spec (utils/argspec.py). "
+    "When set, the session starts a background pass that loads every "
+    "manifested library (building it where missing) and replays each "
+    "replayable launch once on zero-filled, all-invalid inputs, paying "
+    "the first-launch costs (the nvcc build or load, CUDA's lazy module "
+    "load, the caching allocator's first segments) before traffic. "
+    "Cancellable, capped by compile.aot.budgetSeconds; warmed, skipped "
+    "and pending at /api/status and as aot.* counters. Empty (default) "
+    "disables.")
+COMPILE_AOT_BUDGET = register(
+    "spark.rapids.tpu.compile.aot.budgetSeconds", float, 120.0,
+    "Wall budget of the pre-warm pass; what is left when it is spent "
+    "stays pending and warms on first use. 0 disables the cap.",
+    validator=_non_negative)
+
+# --- concurrent serving (serving/) ------------------------------------------
+SERVING_WORKERS = register(
+    "spark.rapids.tpu.serving.workers", int, 4,
+    "Worker threads of the admission scheduler (serving/scheduler.py): "
+    "how many queries run at once. The device admission is bounded "
+    "apart by spark.rapids.sql.concurrentTpuTasks and the tenant "
+    "budgets.", validator=_positive)
+SERVING_MAX_QUEUED = register(
+    "spark.rapids.tpu.serving.maxQueuedQueries", int, 128,
+    "Bound on the jobs queued over all tenant lanes; a submission past it "
+    "is shed at once (status 'shed', a queryShed event, serving.shed).",
+    validator=_positive)
+SERVING_DEFAULT_DEADLINE = register(
+    "spark.rapids.tpu.serving.defaultDeadlineSeconds", float, 0.0,
+    "Default deadline of a scheduled job, counted from submission; 0 "
+    "disables. A job still queued past it never starts; a running one "
+    "stops at its next batch pull (a queryTimeout event with the flight "
+    "recorder's tail). A job's deadline_s overrides it.",
+    validator=_non_negative)
+SERVING_TENANT_DEFAULT_PERMITS = register(
+    "spark.rapids.tpu.serving.tenant.defaultPermits", int, 0,
+    "Default per-tenant budget of task semaphore permits, so that one "
+    "tenant cannot hold every concurrentTpuTasks slot; 0 = the global "
+    "limit only. Per tenant: spark.rapids.tpu.serving.tenant.<name>"
+    ".permits.", validator=_non_negative)
+SERVING_TENANT_DEFAULT_WEIGHT = register(
+    "spark.rapids.tpu.serving.tenant.defaultWeight", float, 1.0,
+    "Default weighted-fair share of a tenant's lane: the scheduler serves "
+    "the non-empty lane with the least virtual time and advances it by "
+    "1/weight. Per tenant: spark.rapids.tpu.serving.tenant.<name>"
+    ".weight.", validator=_positive)
+SERVING_PLAN_CACHE = register(
+    "spark.rapids.tpu.serving.planCache.enabled", _to_bool, True,
+    "Cross-query plan cache (serving/caches.py): a repeat of the same CPU "
+    "plan under the same explicit conf over the same source versions "
+    "(file stamps, in-memory data ids) skips the tag and convert pass and "
+    "runs a clone of the cached physical plan (a planCacheHit event). A "
+    "conf change or a rewritten table misses. Adaptive queries are "
+    "planned per stage and never cached (see exchangeReuse).")
+SERVING_PLAN_CACHE_MAX = register(
+    "spark.rapids.tpu.serving.planCache.maxEntries", int, 256,
+    "LRU entry bound of the plan cache.", validator=_positive)
+SERVING_RESULT_CACHE = register(
+    "spark.rapids.tpu.serving.resultCache.enabled", _to_bool, False,
+    "Opt-in cross-query result cache: a repeat under the same key "
+    "answers from the cached host frames with no execution (a "
+    "resultCacheHit event). Deterministic plans that write nothing only; "
+    "hits return copies.")
+SERVING_RESULT_CACHE_MAX = register(
+    "spark.rapids.tpu.serving.resultCache.maxEntries", int, 64,
+    "LRU entry bound of the result cache.", validator=_positive)
+SERVING_RESULT_CACHE_MAX_BYTES = register(
+    "spark.rapids.tpu.serving.resultCache.maxBytes", _to_bytes, 256 << 20,
+    "Byte bound of the result cache (pandas deep memory of the frames).",
+    validator=_positive)
+SERVING_EXCHANGE_REUSE = register(
+    "spark.rapids.tpu.serving.exchangeReuse.enabled", _to_bool, False,
+    "Opt-in cross-query AQE exchange reuse: an adaptive query whose "
+    "exchange subtree (structure, source versions, conf) matches a "
+    "materialized stage adopts its map output and statistics (an "
+    "aqeExchangeReuse event). Stages are reference-counted. Needs "
+    "spark.rapids.sql.adaptive.enabled.")
+SERVING_EXCHANGE_REUSE_MAX_BYTES = register(
+    "spark.rapids.tpu.serving.exchangeReuse.maxBytes", _to_bytes,
+    256 << 20,
+    "Byte bound of the stage output kept for exchange reuse (oldest "
+    "evicted first).", validator=_positive)
+
+# --- the fleet (serving/fleet/) ---------------------------------------------
+FLEET_WORKERS = register(
+    "spark.rapids.tpu.fleet.workers", int, 0,
+    "Worker processes of the fleet tier (serving/fleet/): a router "
+    "spreads tenants over this many worker processes, each a whole "
+    "session from the shared conf. 0 (default): no fleet; the fleet "
+    "package is never imported.", validator=_non_negative)
+FLEET_DIR = register(
+    "spark.rapids.tpu.fleet.dir", str, "",
+    "The fleet's shared directory: the nvcc build directory in "
+    "<dir>/compilecache, the warm manifest (the pre-warm source of a "
+    "rolling restart) in <dir>/warm.jsonl, per-replica journals in "
+    "<dir>/events-<replica>.jsonl and the workers' spec files.")
+FLEET_SPILLOVER_DEPTH = register(
+    "spark.rapids.tpu.fleet.spillover.queueDepth", int, 4,
+    "Queue depth at which the router sends a tenant's submission to the "
+    "least-loaded replica instead of its sticky one (placement reason "
+    "'spillover', a fleetPlacement event).", validator=_positive)
+FLEET_PLACEMENT_OVERRIDES = register(
+    "spark.rapids.tpu.fleet.placement.overrides", str, "",
+    "Tenant -> replica pins over the consistent-hash ring, as "
+    "'tenantA=r0,tenantB=r2'. A pinned tenant still spills over and is "
+    "re-placed when its replica is lost or draining.")
+FLEET_ROUTER_HOST = register(
+    "spark.rapids.tpu.fleet.router.host", str, "127.0.0.1",
+    "Bind host of the router's HTTP endpoint (/api/fleet, /metrics, "
+    "/healthz).")
+FLEET_ROUTER_PORT = register(
+    "spark.rapids.tpu.fleet.router.port", int, 0,
+    "TCP port of the router's HTTP endpoint; 0 (default) binds an "
+    "ephemeral port (FleetMonitor.url).", validator=_non_negative)
+FLEET_WARM_MANIFEST = register(
+    "spark.rapids.tpu.fleet.warmManifest", str, "",
+    "Path of the fleet's warm manifest: each kernel wrapper's first "
+    "launch of a signature in a process appends one flock-serialized "
+    "JSONL record (wrapper, library, argument spec; obs/compilecache.py). "
+    "It is a spark.rapids.tpu.compile.aot.manifest as it stands, so a "
+    "rolling restart's replacement replays it before taking traffic. "
+    "Empty (default) disables the recording.")
+FLEET_DRAIN_TIMEOUT = register(
+    "spark.rapids.tpu.fleet.restart.drainTimeoutSeconds", float, 60.0,
+    "Rolling restart: how long the quiesced worker's in-flight jobs may "
+    "run before the swap goes on anyway.", validator=_non_negative)
+FLEET_READY_TIMEOUT = register(
+    "spark.rapids.tpu.fleet.prewarm.readyTimeoutSeconds", float, 120.0,
+    "Rolling restart: how long to wait for the replacement's pre-warm "
+    "before it takes traffic (the workerReady event records its state "
+    "either way).", validator=_non_negative)
+FLEET_WORKER_START_TIMEOUT = register(
+    "spark.rapids.tpu.fleet.worker.startTimeoutSeconds", float, 120.0,
+    "How long the router waits for a spawned worker's ready line (its "
+    "session boot included).", validator=_positive)
+
 
 class TpuConf:
     """Settings with typed accessors."""

@@ -38,6 +38,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
+from spark_rapids_tpu_torch.obs.metrics import bump
 
 ROUTES = {"hash": 0, "sorted": 0}
 # the widest key B3 builds (csrc/hash_table.cuh kMaxKeys): a G1 tuple of
@@ -121,11 +122,11 @@ class TpuCountDistinctExec(PhysicalPlan):
         if (any(batch.columns[ci].dtype.is_string
                 and batch.columns[ci].dict_values is None for ci in keys)
                 or len(keys) + 1 > MAX_KEY_WORDS):
-            ROUTES["sorted"] += 1
+            bump(ROUTES, "sorted")
             rep_rows, counts, n_groups = count_distinct_reduce(
                 batch, self.g2_idx, self.rest_idx)
         else:
-            ROUTES["hash"] += 1
+            bump(ROUTES, "hash")
             rep_rows, counts, n_groups = _hash_count_distinct(
                 batch, self.g2_idx, self.rest_idx)
         cap = batch.capacity

@@ -26,9 +26,14 @@ and syncEachOp all off, the partitions pass through untouched.
 A batch's row count is recorded only where the host knows it without a
 sync (``DeviceBatch.host_rows``, a pandas frame's length) or under
 syncEachOp, whose wait reads it: the wrapper never adds a host sync of
-its own otherwise. The JAX package's small-query lite bookkeeping and its
-cancellation checks are not ported (the port has no small-query planner
-and no serving layer). An operator adds what it counts itself to its
+its own otherwise. A query running under a cancel scope (the serving
+scheduler's, ``serving/cancellation.py``, taken by ``ExecContext``) checks
+it before every batch pull, so a cancelled or late query raises
+``QueryCancelled``/``QueryTimeout`` there and never inside a kernel; a
+live scope keeps the wrapper on even with metrics, tracing and progress
+off. The JAX package's small-query lite bookkeeping is not ported (the
+port has no small-query planner). An operator adds what it counts itself
+to its
 query's metrics (``ExecContext.metric_add``: a scan's pruned row groups, a
 write's files and rows), which the session keeps as
 ``last_query_metrics``.
@@ -90,8 +95,9 @@ class PhysicalPlan:
         prog = ctx.progress
         sync_each = ctx.profile_sync
         record = ctx.metrics_enabled
+        cancel = ctx.cancel
         if not record and not TRACER.enabled and prog is None \
-                and not sync_each:
+                and not sync_each and cancel is None:
             return parts
         op = self.describe()
         node_id = id(self)
@@ -101,6 +107,11 @@ class PhysicalPlan:
             def run():
                 it = part()
                 while True:
+                    if cancel is not None:
+                        # the batch-pull boundary: a cancelled or late
+                        # query stops here, and the session's failure
+                        # path releases its buffers and shuffles
+                        cancel.check()
                     t0 = time.perf_counter()
                     with TRACER.span(name, op=op, partition=pidx) as sp:
                         # the operator scope: a sync or a transfer inside
@@ -295,6 +306,13 @@ class ExecContext:
         # the live QueryProgress record (obs/progress.py), set by the
         # session only while PROGRESS is enabled
         self.progress = None
+        # the cooperative cancel scope (serving/cancellation.py) the
+        # scheduler's worker installed on this thread, checked at every
+        # batch pull; None outside the scheduler
+        from spark_rapids_tpu_torch.serving.cancellation import (
+            current_scope,
+        )
+        self.cancel = current_scope()
 
     def metric_add(self, op: str, name: str, value) -> None:
         """Add ``value`` to metric ``name`` of operator ``op`` (its

@@ -84,6 +84,7 @@ from spark_rapids_tpu_torch.columnar.column import char_bucket
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext, Partition, PhysicalPlan,
 )
+from spark_rapids_tpu_torch.obs.metrics import bump
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import joins as join_ops
 from spark_rapids_tpu_torch.ops import kernels, rowops
@@ -154,7 +155,7 @@ class BuiltSide:
 
     def hash_table(self) -> kernels.JoinTable:
         if self.table is None:
-            BUILDS["hash"] += 1
+            bump(BUILDS, "hash")
             self.table = kernels.hash_join_build(
                 _key_images(self.batch, self.keys),
                 join_ops._key_valid(self.batch, self.keys),
@@ -173,7 +174,7 @@ def build_side(batches: Sequence[DeviceBatch], keys: Sequence[int],
              "union" if any(build.schema.dtypes[k].is_string for k in keys)
              else "dense" if dense is not None else "hash")
     if route != "hash":
-        BUILDS[route] += 1
+        bump(BUILDS, route)
     if route in ("cross", "union"):
         return BuiltSide(build, keys, route)
     if route == "dense":
@@ -188,7 +189,7 @@ def _probe(built: BuiltSide, stream: DeviceBatch,
            stream_keys: Sequence[int], route: str):
     """(counts, bstart, bperm) of one stream batch on ``route``."""
     build = built.batch
-    ROUTES[route] += 1
+    bump(ROUTES, route)
     if route == "cross":
         return join_ops.cross_probe(build, stream)
     if route == "union":

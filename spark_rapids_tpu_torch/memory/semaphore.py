@@ -12,9 +12,9 @@ two generalizations:
     admits waiters at once;
   * **per-tenant permit budgets**: a tenant's tasks are additionally
     bounded by that tenant's budget (``configure_tenants``), 0 meaning
-    the global limit only. The JAX package resolves the tenant from its
-    serving layer's thread-local context; the serving layer is ROADMAP
-    A.11, so here the caller passes it.
+    the global limit only. A caller that passes no tenant gets the one
+    of the thread's serving context (``serving/cancellation.
+    current_tenant``: the scheduler's worker sets it per job).
 
 Each session holds its own semaphore (the JAX package's process-wide
 singleton would share one bound between sessions of different confs).
@@ -22,8 +22,9 @@ A single condition variable over a holder census rather than a raw
 ``threading.Semaphore``: resize and tenant bounds are plain predicate
 changes, impossible to over-admit by construction. A contended acquire
 waits inside ``sync_scope("semaphore.wait")``, as the JAX package counts
-it, and a ``semaphore.wait`` tracer span; the JAX package's cancellation
-checks wait for its serving layer (ROADMAP A.11).
+it, and a ``semaphore.wait`` tracer span; under a cancel scope the wait
+wakes every 50 ms to check it, so a cancel or a deadline reaches a task
+parked behind a tenant budget.
 """
 
 from __future__ import annotations
@@ -112,6 +113,11 @@ class TpuSemaphore:
     def acquire_if_necessary(self, task_id: Optional[int] = None,
                              tenant: Optional[str] = None) -> None:
         tid = task_id if task_id is not None else threading.get_ident()
+        if tenant is None:
+            from spark_rapids_tpu_torch.serving.cancellation import (
+                current_tenant,
+            )
+            tenant = current_tenant()
         tkey = str(tenant) if tenant is not None else None
         with self._cond:
             held = self._holders.get(tid)
@@ -132,15 +138,25 @@ class TpuSemaphore:
         from spark_rapids_tpu_torch.obs.metrics import REGISTRY
         from spark_rapids_tpu_torch.obs.syncledger import sync_scope
         from spark_rapids_tpu_torch.obs.trace import TRACER
+        from spark_rapids_tpu_torch.serving.cancellation import (
+            current_scope,
+        )
+        # a parked wait stays cancellable: tenant budgets make exactly the
+        # contention where a cancel or deadline fires before the next
+        # batch pull could see it
+        scope = current_scope()
         t0 = time.perf_counter()
         try:
             with TRACER.span("semaphore.wait", permits=self.permits,
                              tenant=tkey or ""), \
-                    sync_scope("semaphore.wait"):
+                    sync_scope("semaphore.wait", detail=tkey or None):
                 with self._cond:
                     try:
                         while not self._admissible_locked(tkey):
-                            self._cond.wait()
+                            self._cond.wait(
+                                0.05 if scope is not None else None)
+                            if scope is not None:
+                                scope.check()
                     finally:
                         if tkey is not None:
                             self._tenant_waiting[tkey] -= 1

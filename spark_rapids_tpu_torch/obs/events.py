@@ -41,8 +41,42 @@ the JAX package's names and fields:
                                  materialized shuffle's size distribution
                                  (obs/shuffleobs.py)
 
-The JAX package's AQE, serving, compile and fleet kinds wait for their
-modules (ROADMAP A.10-A.11).
+  aqeStageStats     adaptive     stage, partitions, maps, totalBytes,
+                                 maxBytes, medianBytes, rows, compiles,
+                                 syncs (sql/adaptive/executor.py; also
+                                 aqeCoalesce, aqeBroadcastDemote,
+                                 aqeSkewSplit with each rule's decision)
+  queryCancelled    serving      reason, wall_s, events[] (the flight
+                                 recorder's tail), syncs[], compiles[]
+                                 (a cancelled job, at a batch pull; a job
+                                 cancelled while queued: jobId, queued)
+  queryTimeout      serving      deadlineSeconds, reason, events[], syncs[]
+                                 (a job past its deadline; queued=true when
+                                 it never started)
+  planCacheHit      serving      planDigest (tag and convert skipped,
+                                 serving/caches.py)
+  resultCacheHit    serving      planDigest, rows (answered from the
+                                 result cache: no launch, no sync)
+  aqeExchangeReuse  serving      stage, reusedFrom, totalBytes, partitions
+                                 (a stage adopted from another query)
+  queryShed         serving      tenant, queueDepth, jobId (the admission
+                                 queue was full; the router's carries
+                                 replica)
+  compileCacheMiss  compile      library (an nvcc library not built in the
+                                 build directory, obs/compilecache.py)
+  backendCompile    compile      library, seconds (one nvcc run)
+  diagnostics       monitor      reason, threads{name: stack[]},
+                                 queries[], syncs[] (SIGUSR1 or
+                                 obs/monitor.dump_diagnostics)
+  fleetPlacement    fleet        tenant, replica, reason sticky|override|
+                                 spillover, previous (serving/fleet/)
+  workerDrain       fleet        replica, inflight (a rolling restart
+                                 quiesced a worker)
+  workerReady       fleet        replica, aot{warmed, pending, skipped,
+                                 ...}, ready, waitSeconds (a replacement
+                                 worker booted and pre-warmed)
+  workerLost        fleet        replica, inflightFailed (a worker process
+                                 died; its in-flight jobs end "lost")
 
 Journal mechanics, as in the JAX package:
 
@@ -120,6 +154,8 @@ class EventLog:
         # its window; threads without one (the scan's planning pool)
         # fall back to the most recently opened window
         self._windows: Dict[int, tuple] = {}
+        # the query id last opened on each thread (the scheduler reads it)
+        self._last_by_thread: Dict[int, str] = {}
         # gzip rotated segments (spark.rapids.tpu.eventLog.compress)
         self.compress = False
         # truncation visibility (profile "observability" section)
@@ -306,6 +342,7 @@ class EventLog:
             self._query_counter += 1
             qid = f"q-{self._query_counter}"
             self._windows[tid] = (qid, tenant or None)
+            self._last_by_thread[tid] = qid
             self._current_query = qid
             self._current_tenant = tenant or None
         self.emit("queryStart", query=qid, **fields)
@@ -327,6 +364,11 @@ class EventLog:
             else:
                 self._current_query = None
                 self._current_tenant = None
+
+    def last_query_on_thread(self) -> Optional[str]:
+        """The query id last opened on this thread (kept after its
+        queryEnd: the serving scheduler's job-to-journal key)."""
+        return self._last_by_thread.get(threading.get_ident())
 
     @property
     def current_query(self) -> Optional[str]:
@@ -378,6 +420,7 @@ class EventLog:
             self._current_query = None
             self._current_tenant = None
             self._windows.clear()
+            self._last_by_thread.clear()
             self._ring.clear()
 
 

@@ -310,3 +310,14 @@ registry_delta = delta
 
 
 REGISTRY = MetricsRegistry()
+
+_BUMP_LOCK = threading.Lock()
+
+
+def bump(counts: Dict[str, int], key: str, n: int = 1) -> None:
+    """``counts[key] += n`` under one process lock: the module-level
+    route and branch counters (``ops/aggregate.BRANCHES``,
+    ``exec/tpujoin.ROUTES``/``BUILDS``) stay exact when queries run on
+    several threads (the serving scheduler's workers)."""
+    with _BUMP_LOCK:
+        counts[key] = counts.get(key, 0) + n

@@ -140,6 +140,9 @@ def build_profile(plan, ctx, global_delta: Optional[Dict[str, Any]] = None,
     summary["shuffle"] = take("shuffle.")
     summary["scan"] = take("scan.")
     summary["pageCache"] = take("pagecache.")
+    # the nvcc build's counters of this query (obs/compilecache.py): the
+    # warm-up the trace summary attributes
+    summary["compileCache"] = take("compileCache.")
     if summary["shuffleSkew"]:
         gauges(summary["shuffleSkew"], "shuffle.skew.")
     if summary["scan"]:

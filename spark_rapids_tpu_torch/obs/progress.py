@@ -333,6 +333,14 @@ class ProgressTracker:
         return ([qp.snapshot(full=full) for qp in inflight]
                 + [qp.snapshot(full=full) for qp in reversed(recent)])
 
+    def inflight_by_tenant(self) -> Dict[str, int]:
+        """In-flight queries by tenant (the monitor's census)."""
+        with self._lock:
+            out: Dict[str, int] = {}
+            for qp in self._inflight.values():
+                out[qp.tenant] = out.get(qp.tenant, 0) + 1
+            return out
+
     def reset_for_tests(self) -> None:
         with self._lock:
             self.enabled = False

@@ -91,16 +91,22 @@ def _restore_mode() -> None:
 
 
 class SyncCounter:
+    """Counted scopes and declared bytes by site, exact under concurrent
+    threads (one lock)."""
+
     def __init__(self):
         self.syncs: Dict[str, int] = {}
         self.bytes: Dict[str, int] = {}
+        self._lock = threading.Lock()
 
     def add(self, site: str, nbytes: int) -> None:
-        self.syncs[site] = self.syncs.get(site, 0) + 1
-        self.bytes[site] = self.bytes.get(site, 0) + int(nbytes)
+        with self._lock:
+            self.syncs[site] = self.syncs.get(site, 0) + 1
+            self.bytes[site] = self.bytes.get(site, 0) + int(nbytes)
 
     def total(self) -> int:
-        return sum(self.syncs.values())
+        with self._lock:
+            return sum(self.syncs.values())
 
 
 SYNCS = SyncCounter()

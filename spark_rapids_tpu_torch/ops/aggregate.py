@@ -57,6 +57,7 @@ import torch
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, host_to_device
 from spark_rapids_tpu_torch.columnar.dtype import DType, torch_dtype
+from spark_rapids_tpu_torch.obs.metrics import bump
 from spark_rapids_tpu_torch.obs.syncledger import sync_scope
 from spark_rapids_tpu_torch.ops import groupby as gb
 from spark_rapids_tpu_torch.ops.groupby import segment_op
@@ -206,17 +207,17 @@ def _grouped_reduce(batch: DeviceBatch, key_idx: List[int],
             return res
         return res, torch.ones((), dtype=torch.bool, device=batch.device)
     if not key_idx:
-        BRANCHES["single"] += 1
+        bump(BRANCHES, "single")
         return out(_single_group_reduce(batch, reductions, out_schema,
                                         live))
     if any(batch.columns[ci].dtype.is_string and kind != "count_valid"
            for kind, ci, _dt in reductions):
-        BRANCHES["sorted_space"] += 1
+        bump(BRANCHES, "sorted_space")
         return out(_sorted_space_reduce(batch, key_idx, reductions,
                                         out_schema, live))
     dict_info = _dict_path_info(batch, key_idx)
     if dict_info is not None:
-        BRANCHES["dict"] += 1
+        bump(BRANCHES, "dict")
         return out(_dict_reduce(batch, key_idx, reductions, out_schema,
                                 dict_info, live))
     if dense is not None:
@@ -224,7 +225,7 @@ def _grouped_reduce(batch: DeviceBatch, key_idx: List[int],
         # composite key; the ok flag rides the deferred speculation
         # verification and a stale-stats miss re-executes the query
         # without dense grouping
-        BRANCHES["dense"] += 1
+        bump(BRANCHES, "dense")
         los, sizes = dense
         lv = batch.row_mask() if live is None else live
         comp, ok = dense_composite(batch, key_idx, los, sizes, lv)
@@ -234,14 +235,14 @@ def _grouped_reduce(batch: DeviceBatch, key_idx: List[int],
         res = _hash_payload_reduce(batch, key_idx, reductions, out_schema,
                                    hash_table, live)
         if res is not None:
-            BRANCHES["hash"] += 1
+            bump(BRANCHES, "hash")
             return out(res)
     if len(key_idx) <= 32 and not all(
             batch.columns[ki].dict_values is not None for ki in key_idx):
-        BRANCHES["sorted_payload"] += 1
+        bump(BRANCHES, "sorted_payload")
         return out(_sorted_payload_reduce(batch, key_idx, reductions,
                                           out_schema, live))
-    BRANCHES["rowspace"] += 1
+    bump(BRANCHES, "rowspace")
     return out(_rowspace_reduce(batch, key_idx, reductions, out_schema,
                                 live))
 
@@ -849,12 +850,12 @@ def _rowspace_reduce(batch: DeviceBatch, key_idx: List[int],
         with sync_scope("agg.slotAttempt", nbytes=1):
             take_slots = bool(fast_ok.item())
         if take_slots:
-            BRANCHES["rowspace_slot"] += 1
+            bump(BRANCHES, "rowspace_slot")
             width = min(SLOT_TABLE, capacity)
             slot_perm, _cnt = compact_permutation(used)
             return reduce_core(width, _seg_by(slot, width, slot_perm), pos,
                                _same, n_used)
-    BRANCHES["rowspace_sort"] += 1
+    bump(BRANCHES, "rowspace_sort")
     info = gb.group_rows(batch, key_idx, compute_rep=False, live=live)
     # one scatter each carries a row's group id and sorted position back
     # to row space (the permutation is a bijection)

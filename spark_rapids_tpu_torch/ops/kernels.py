@@ -37,7 +37,14 @@ raises: there is no switch and no fallback. The plain versions
 card. The three hash kernels share
 the plain versions' hash and slot chain but claim slots in another order,
 so their outputs compare by key, not by slot. ``LAUNCHES`` counts kernel
-launches per wrapper.
+launches per wrapper, exactly under concurrent threads (one lock); a
+launch of the pre-warm pass (``serving/prewarm.py``, inside
+``prewarm_launches()``) counts in ``PREWARM_LAUNCHES`` instead. With the
+fleet's warm manifest on (``obs/compilecache.py``) each wrapper's first
+launch of a signature in the process is recorded there with its
+arguments' spec (``utils/argspec.py``): B1-B4 and B8 replay on zero-filled
+all-invalid inputs; the decode wrappers B5-B7, whose descriptor tables
+cannot be made up, are recorded without one.
 
 64-bit key images are int64 tensors holding uint64 bit patterns (see
 ops/hashing.py). The decode kernels take the encoded streams as int32
@@ -49,13 +56,16 @@ plain versions widen words to int64 and mask them with 0xFFFFFFFF.
 from __future__ import annotations
 
 import array
+import contextlib
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.obs.compilecache import SHARED as COMPILE_CACHE
 from spark_rapids_tpu_torch.ops import cudalib
 from spark_rapids_tpu_torch.ops.hashing import as_signed, splitmix64
 
@@ -69,9 +79,43 @@ LAUNCHES: Dict[str, int] = {"compact_permutation": 0,
                             "slab_pack": 0}
 
 
+# the pre-warm pass's launches, apart from the main path's
+PREWARM_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+_COUNT_LOCK = threading.Lock()
+_TLS = threading.local()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def prewarm_launches():
+    """Count this thread's launches in ``PREWARM_LAUNCHES`` (and record
+    none in the warm manifest) for the duration."""
+    prev = getattr(_TLS, "prewarm", False)
+    _TLS.prewarm = True
+    try:
+        yield
+    finally:
+        _TLS.prewarm = prev
+
+
+def _launched(name: str, fn: str, library: str,
+              args: Optional[tuple]) -> None:
+    """One launch of kernel ``name`` by wrapper ``fn``: its count, and its
+    record in the warm manifest where that is on (``args`` None: not
+    replayable)."""
+    if getattr(_TLS, "prewarm", False):
+        with _COUNT_LOCK:
+            PREWARM_LAUNCHES[name] += 1
+        return
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+    if COMPILE_CACHE.warm_manifest_path:
+        COMPILE_CACHE.note_launch(name, fn, library, args)
 
 
 def _require_cuda(t: torch.Tensor, what: str) -> None:
@@ -146,7 +190,8 @@ def compact_permutation(keep: torch.Tensor
         keep.data_ptr(), n, tiles, tiles + 4 * ntiles, base + 4 * n,
         ticket.data_ptr(), base, stream)
     cudalib.check(lib, err, "compact_permutation")
-    LAUNCHES["compact_permutation"] += 1
+    _launched("compact_permutation", "compact_permutation", "compact",
+              (keep,))
     return buf[:n], buf[n]
 
 
@@ -296,7 +341,8 @@ def hash_table_build(images: Sequence[torch.Tensor], valid: torch.Tensor,
                              None if state is None else state.data_ptr(), T,
                              counts.data_ptr(), slot.data_ptr(), _stream(dev))
     cudalib.check(lib, err, what)
-    LAUNCHES["hash_table_build"] += 1
+    _launched("hash_table_build", "hash_table_build", "hash_join",
+              (list(images), valid, table_size))
     return slot, None, table, counts[:T]
 
 
@@ -365,7 +411,8 @@ def _probe_launch(table: torch.Tensor, counts: torch.Tensor,
         None if starts is None else starts.data_ptr(), keys.data_ptr(), k, n,
         valid.data_ptr(), T, *outs, _stream(dev))
     cudalib.check(lib, err, what)
-    LAUNCHES["hash_table_probe"] += 1
+    _launched("hash_table_probe", "hash_table_lookup", "hash_join",
+              (table, counts, starts, list(images), valid, table_size))
     return slot if starts is None else (both[0], both[1])
 
 
@@ -378,11 +425,8 @@ def hash_table_probe(table: torch.Tensor, counts: torch.Tensor,
     word is the all-ones fill, so the table must come from the card's
     build (unused key words all ones); the plain version reads the count
     first and takes either build's table."""
-    if valid.is_cpu:
-        return hash_table_probe_plain(table, counts, images, valid,
-                                      table_size)
-    return _probe_launch(table, counts, None, images, valid, table_size,
-                         "hash_table_probe")
+    return hash_table_lookup(table, counts, None, images, valid,
+                             table_size)
 
 
 class JoinTable:
@@ -426,6 +470,23 @@ def _lookup(slot_s: torch.Tensor, counts_t: torch.Tensor,
             torch.where(hit, starts[safe], zero))
 
 
+def hash_table_lookup(table: torch.Tensor, counts: torch.Tensor,
+                      starts, images: Sequence[torch.Tensor],
+                      valid: torch.Tensor, table_size: int):
+    """B4 in either of its forms: with ``starts`` None each row's slot
+    (``hash_table_probe``), else each row's (match count, first bperm
+    position) (``hash_join_lookup``): on the CPU the plain probe (then
+    ``_lookup``), on the card one launch. The pre-warm replays B4
+    through it."""
+    if valid.is_cpu:
+        slot = hash_table_probe_plain(table, counts, images, valid,
+                                      table_size)
+        return slot if starts is None else _lookup(slot, counts, starts)
+    return _probe_launch(table, counts, starts, images, valid, table_size,
+                         "hash_table_probe" if starts is None
+                         else "hash_join_lookup")
+
+
 def hash_join_build(build_images: Sequence[torch.Tensor],
                     build_valid: torch.Tensor,
                     table_size: int) -> JoinTable:
@@ -443,12 +504,8 @@ def hash_join_lookup(jt: JoinTable, stream_images: Sequence[torch.Tensor],
     and the first ``bperm`` position of its group (both int32, 0 where it
     has no match). On the card one B4 launch, which reads a hit's count and
     start itself; on the CPU the plain probe, then ``_lookup``."""
-    if stream_valid.is_cpu:
-        slot_s = hash_table_probe_plain(jt.table, jt.counts, stream_images,
-                                        stream_valid, jt.size)
-        return _lookup(slot_s, jt.counts, jt.starts)
-    return _probe_launch(jt.table, jt.counts, jt.starts, stream_images,
-                         stream_valid, jt.size, "hash_join_lookup")
+    return hash_table_lookup(jt.table, jt.counts, jt.starts, stream_images,
+                             stream_valid, jt.size)
 
 
 def hash_join_probe(build_images: Sequence[torch.Tensor],
@@ -682,7 +739,9 @@ def hash_grouped_aggregate(images: Sequence[torch.Tensor],
     desc.extend(layout.init([kind for kind, _d, _e in jobs], n).tolist())
     err = lib.srt_hash_agg(desc.buffer_info()[0], _stream(dev))
     cudalib.check(lib, err, what)
-    LAUNCHES["hash_grouped_aggregate"] += 1
+    _launched("hash_grouped_aggregate", "hash_grouped_aggregate",
+              "hash_agg", (list(images), valid,
+                           [tuple(j) for j in jobs], table_size))
     return layout.views(rec, T)
 
 
@@ -824,7 +883,8 @@ def hybrid_expand_many(streams) -> List[torch.Tensor]:
         part = min(HYBRID_MAX_STREAMS, nrows - i)
         err = lib.srt_hybrid_expand_many(addr + 88 * i, part, stream)
         cudalib.check(lib, err, what)
-        LAUNCHES["hybrid_expand"] += 1
+        _launched("hybrid_expand", "hybrid_expand_many", "parquet_decode",
+                  None)
     return outs
 
 
@@ -962,7 +1022,8 @@ def delta_unpack_many(chunks) -> List[torch.Tensor]:
             addr + 96 * i, min(max_chunks, len(tiles) - i),
             scratch.data_ptr(), scratch.shape[0], state[1], stream)
         cudalib.check(lib, err, what)
-        LAUNCHES["delta_unpack"] += 1
+        _launched("delta_unpack", "delta_unpack_many", "parquet_decode",
+                  None)
     return outs
 
 
@@ -1073,7 +1134,8 @@ def plain_fixed_many(streams) -> List[torch.Tensor]:
             *[v for row in part for v in row])
         err = lib.srt_plain_fixed_many(rows, len(part), stream)
         cudalib.check(lib, err, what)
-        LAUNCHES["plain_fixed"] += 1
+        _launched("plain_fixed", "plain_fixed_many", "parquet_decode",
+                  None)
     return outs
 
 
@@ -1127,5 +1189,6 @@ def slab_pack(chars, starts, lens, cap: int, stride: int) -> torch.Tensor:
                             stride // 8, out.data_ptr(),
                             _stream(chars.device))
     cudalib.check(lib, err, what)
-    LAUNCHES["slab_pack"] += 1
+    _launched("slab_pack", "slab_pack", "parquet_decode",
+              (chars, starts, lens, cap, stride))
     return out

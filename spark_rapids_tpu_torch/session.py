@@ -80,10 +80,26 @@ broadcast demotion, skew splits; ``last_aqe`` holds the last record);
 ``spark.rapids.sql.fusion.stageEnabled`` fuses project/filter chains
 (``exec/stagecompiler``).
 
+Serving is the JAX package's (A.11's serving half, ``serving/``):
+``serving_scheduler()`` builds an admission scheduler over the session
+(jobs on worker threads, per-tenant weighted-fair lanes, load shed,
+deadlines and cooperative cancellation: a cancelled or late query ends
+``cancelled``/``timeout`` with a ``queryCancelled``/``queryTimeout``
+event carrying the flight recorder's tail); the plan cache
+(``spark.rapids.tpu.serving.planCache.enabled``, on by default) skips the
+tag and convert pass on a repeat and runs a clone of the cached plan, the
+result cache (``...resultCache.enabled``) answers a repeat from its
+frames with no launch and no sync, and ``...exchangeReuse.enabled`` lets
+an adaptive query adopt another's materialized stage
+(``clear_serving_caches()``). At each query start the session points the
+nvcc build at ``spark.rapids.tpu.compile.sharedCache.dir``
+(``obs/compilecache.py``), starts the pre-warm of
+``spark.rapids.tpu.compile.aot.manifest`` (``serving/prewarm.py``) and
+the live monitor of ``spark.rapids.tpu.ui.enabled`` (``obs/monitor.py``).
+
 Left out of the JAX package's session, each a later ROADMAP item: the
-device mesh (A.9); the small-query fast path; the live monitor, the
-compile ledger and cache, prewarm and the serving caches, the
-cross-query exchange reuse among them (A.11). Unlike the JAX
+device mesh (A.9); the small-query fast path; the compile ledger proper.
+Unlike the JAX
 package's, ``get_or_create`` makes a new session each call (sessions of
 the port are independent, each with its own confs, device and memory
 runtime); the newest is ``TpuSparkSession.active()``. ``with_column``
@@ -260,6 +276,24 @@ class TpuSparkSession:
         # the tenant tag (set_job_group): the session's, or this thread's
         self._job_group_default: tuple = (None, "")
         self._job_group_tls = threading.local()
+        # the serving caches (serving/caches.py), built at first use
+        self._serving_caches = None
+        self._serving_lock = threading.Lock()
+        # every executed physical plan, while capture_plans is on (tests)
+        self.captured_plans: List = []
+        self.capture_plans = False
+        # the shared nvcc build directory and the pre-warm pass of the
+        # conf (obs/compilecache.py, serving/prewarm.py); SIGUSR1 dumps
+        # the diagnostics into the journal (obs/monitor.py)
+        from spark_rapids_tpu_torch.obs import compilecache
+        from spark_rapids_tpu_torch.serving import prewarm
+        compilecache.SHARED.configure_from_conf(conf)
+        prewarm.maybe_start_from_conf(conf, device)
+        if conf.get_bool("spark.rapids.tpu.ui.signalDiagnostics", True):
+            from spark_rapids_tpu_torch.obs.monitor import (
+                install_signal_diagnostics,
+            )
+            install_signal_diagnostics()
 
     class Builder:
         def __init__(self):
@@ -317,6 +351,9 @@ class TpuSparkSession:
         the spill handler and close the catalog (its arena and spill
         files)."""
         self.clear_device_cache()
+        self.clear_serving_caches()
+        from spark_rapids_tpu_torch.serving import prewarm
+        prewarm.cancel_active()
         self.release_transient_buffers()
         self.release_active_shuffles()
         if self._shuffle_env is not None:
@@ -580,6 +617,14 @@ class TpuSparkSession:
         dictionary.configure_from_conf(conf)
         EVENTS.configure_from_conf(conf)
         syncledger.SYNC_LEDGER.configure_from_conf(conf)
+        # the shared nvcc build directory, the pre-warm pass and the live
+        # monitor (which keeps PROGRESS in step) follow the conf: a few
+        # conf reads each when nothing changed
+        from spark_rapids_tpu_torch.obs import compilecache, monitor
+        from spark_rapids_tpu_torch.serving import prewarm
+        compilecache.SHARED.configure_from_conf(conf)
+        prewarm.maybe_start_from_conf(conf, self.device)
+        monitor.maybe_serve(conf)
         tenant, job_desc = self._job_group
         EVENTS.query_start(tenant=tenant,
                            confFingerprint=conf_fingerprint(conf._settings))
@@ -604,15 +649,36 @@ class TpuSparkSession:
                 if self._adaptive_applies(cpu_plan):
                     plan, outs = self._run_adaptive(cpu_plan, ctx, collect)
                 else:
-                    plan, outs, ctx = self._run_plan(cpu_plan, ctx, collect)
+                    plan, outs, ctx = self._run_plan(cpu_plan, ctx, collect,
+                                                     logical)
         except BaseException as e:
             wall_s = round(time.perf_counter() - t_query0, 6)
             err = f"{type(e).__name__}: {e}"[:300]
-            EVENTS.query_end(status="failed", flight_dump=True, error=err,
-                             wall_s=wall_s)
-            self._note_tenant(tenant, "failed", wall_s)
+            # a cancel or a deadline is a terminal state of its own, not a
+            # failure: its event carries the flight recorder's and the
+            # sync ledger's tails, so a stopped query leaves its last
+            # moments on record
+            from spark_rapids_tpu_torch.serving.cancellation import (
+                QueryCancelled, QueryTimeout,
+            )
+            if isinstance(e, QueryTimeout):
+                status, kind = "timeout", "queryTimeout"
+            elif isinstance(e, QueryCancelled):
+                status, kind = "cancelled", "queryCancelled"
+            else:
+                status, kind = "failed", None
+            if kind is not None:
+                extra = {}
+                if status == "timeout" and ctx.cancel is not None:
+                    extra["deadlineSeconds"] = ctx.cancel.deadline_s
+                EVENTS.emit(kind, reason=err, wall_s=wall_s,
+                            events=EVENTS.flight_events(), compiles=[],
+                            syncs=syncledger.SYNC_LEDGER.tail(), **extra)
+            EVENTS.query_end(status=status, flight_dump=kind is None,
+                             error=err, wall_s=wall_s)
+            self._note_tenant(tenant, status, wall_s)
             if qp is not None:
-                PROGRESS.finish(qp, "failed", error=err)
+                PROGRESS.finish(qp, status, error=err)
             raise
         finally:
             # a speculation re-run swapped in its own context
@@ -636,15 +702,32 @@ class TpuSparkSession:
         self._sweep_adaptive_caches()
         return outs
 
-    def _run_plan(self, cpu_plan, ctx: ExecContext, collect: bool):
-        """The single-shot path: convert, drain and verify the query's
-        speculation (``_verify_speculation``). On a miss the same physical
-        plan re-runs with a fresh context and ``speculate=False``, after
-        the speculative run's shuffles and transient buffers are released
-        and its ratio-cache writes dropped. Returns (plan, outputs, the
-        context that produced them)."""
+    def _run_plan(self, cpu_plan, ctx: ExecContext, collect: bool,
+                  logical: Optional[lp.LogicalPlan] = None):
+        """The single-shot path: convert (or take the plan cache's clone),
+        drain and verify the query's speculation
+        (``_verify_speculation``). On a miss the same physical plan re-runs
+        with a fresh context and ``speculate=False``, after the speculative
+        run's shuffles and transient buffers are released and its
+        ratio-cache writes dropped. A collected query may be answered by
+        the result cache instead, and offers its frames to it. Returns
+        (plan, outputs, the context that produced them)."""
+        from spark_rapids_tpu_torch.obs.events import EVENTS
         from spark_rapids_tpu_torch.obs.trace import TRACER
-        plan = self._plan_query(cpu_plan, ctx)
+        caches = self._serving() if logical is not None else None
+        key = caches.key_for(cpu_plan, self.conf, logical) \
+            if caches is not None else None
+        tenant = self._job_group[0]
+        if key is not None and collect:
+            hit = caches.result_cache.get(key, self.conf, tenant)
+            if hit is not None:
+                plan, outs = hit
+                EVENTS.emit("resultCacheHit", planDigest=key[0],
+                            rows=self._count_rows(outs))
+                if self.capture_plans:
+                    self.captured_plans.append(plan)
+                return plan, outs, ctx
+        plan = self._plan_query(cpu_plan, ctx, caches, key)
         if ctx.speculate and any(
                 type(n).__name__ in ("TpuWriteExec", "CpuWriteExec")
                 for n in plan.walk()):
@@ -671,6 +754,9 @@ class TpuSparkSession:
             self._exec_scope.ctx = ctx
             with TRACER.span("Query", speculative=False, rerun=True):
                 outs = self._drain(plan, ctx, collect)
+        if key is not None and collect:
+            caches.result_cache.maybe_put(key, cpu_plan, plan, outs,
+                                          self.conf, tenant)
         return plan, outs, ctx
 
     def _adaptive_applies(self, cpu_plan) -> bool:
@@ -704,6 +790,8 @@ class TpuSparkSession:
             ctx.progress.set_plan(cpu_plan)
         with TRACER.span("Query", adaptive=True):
             plan, outs = adaptive.execute(cpu_plan, collect)
+        if self.capture_plans:
+            self.captured_plans.append(plan)
         # the digest of the runtime-re-planned FINAL plan: it differs from
         # the static shape exactly when a rule fired
         EVENTS.emit("queryPlan", planDigest=plan_digest(plan),
@@ -805,14 +893,29 @@ class TpuSparkSession:
                 ent["sizes"] = [[int(x) for x in sz] for sz in sizes]
         return all_good
 
-    def _plan_query(self, cpu_plan, ctx: ExecContext):
+    def _plan_query(self, cpu_plan, ctx: ExecContext, caches=None,
+                    key=None):
         """The physical plan, with its journal facts: the queryPlan event
-        (digest, tree, operator coverage) and one cpuFallback event per
-        operator the tag pass left on the CPU."""
+        (digest, tree, operator coverage, planCacheHit) and one
+        cpuFallback event per operator the tag pass left on the CPU. With
+        the serving caches, a plan-cache hit is a clone of the cached plan
+        (no tag and convert, a ``planCacheHit`` event) and a miss puts
+        its conversion in the cache."""
         from spark_rapids_tpu_torch.obs.events import EVENTS, plan_digest
-        plan, overrides = self._convert_cpu(cpu_plan)
+        plan = overrides = None
+        if key is not None:
+            plan = caches.plan_cache.get(key, self.conf, self._job_group[0])
+        hit = plan is not None
+        if hit:
+            EVENTS.emit("planCacheHit", planDigest=plan_digest(plan))
+        else:
+            plan, overrides = self._convert_cpu(cpu_plan)
+            if key is not None:
+                caches.plan_cache.put(key, plan, self.conf)
+        if self.capture_plans:
+            self.captured_plans.append(plan)
         EVENTS.emit("queryPlan", planDigest=plan_digest(plan),
-                    planTree=plan.tree_string()[:20000],
+                    planCacheHit=hit, planTree=plan.tree_string()[:20000],
                     **self._coverage_fields(plan))
         if ctx.progress is not None:
             ctx.progress.set_plan(plan)
@@ -905,10 +1008,54 @@ class TpuSparkSession:
         self._job_group_default = group
         self._job_group_tls.value = group
 
+    def clear_job_group(self) -> None:
+        self.set_job_group(None)
+
+    def _set_thread_job_group(self, tenant, description: str = "") -> None:
+        """Tag THIS THREAD's queries only (the serving workers' form: each
+        runs another tenant's job at once, and a session-wide tag would
+        cross-attribute them)."""
+        self._job_group_tls.value = (str(tenant) if tenant else None,
+                                     str(description or ""))
+
     @property
     def _job_group(self) -> tuple:
         return getattr(self._job_group_tls, "value",
                        self._job_group_default)
+
+    # --- serving ------------------------------------------------------------
+    def _serving(self):
+        """The serving caches (serving/caches.py), or None while the plan
+        and the result cache are both off (then planning does no extra
+        work per query)."""
+        from spark_rapids_tpu_torch.serving import caches as sc
+        conf = self.conf
+        if not (conf.get_bool(sc.PLAN_CACHE_ENABLED, True)
+                or conf.get_bool(sc.RESULT_CACHE_ENABLED, False)):
+            return None
+        return self._serving_bundle()
+
+    def _serving_bundle(self):
+        if self._serving_caches is None:
+            with self._serving_lock:
+                if self._serving_caches is None:
+                    from spark_rapids_tpu_torch.serving.caches import (
+                        ServingCaches,
+                    )
+                    self._serving_caches = ServingCaches()
+        return self._serving_caches
+
+    def serving_scheduler(self, **kwargs):
+        """An admission scheduler over this session
+        (serving/scheduler.py): submit/status/cancel with per-tenant
+        weighted-fair lanes, load shed, deadlines and tenant budgets. The
+        caller owns it (``close()``)."""
+        from spark_rapids_tpu_torch.serving.scheduler import QueryScheduler
+        return QueryScheduler(self, **kwargs)
+
+    def clear_serving_caches(self) -> None:
+        if self._serving_caches is not None:
+            self._serving_caches.clear()
 
     def dump_flight_recorder(self) -> List[dict]:
         """The always-on flight recorder's snapshot (the last N events,

@@ -23,9 +23,14 @@ Loop (Spark's AdaptiveSparkPlanExec.getFinalPhysicalPlan shape):
 Capacity speculation is forced off for adaptive queries (the session's
 ``_run_adaptive``): stage materializations are statistics barriers, the
 very syncs speculation exists to avoid, and a speculative re-execution
-would invalidate the statistics its own re-planning read. The JAX
-package's cross-query exchange reuse (its serving caches) belongs to
-A.11: ``_exchange_cache`` stays None here, so every stage materializes.
+would invalidate the statistics its own re-planning read. Under
+``spark.rapids.tpu.serving.exchangeReuse.enabled`` a stage whose exchange
+subtree matches one an earlier query materialized
+(``serving/caches.exchange_reuse_key``: structure, source versions, conf)
+is adopted from the session's ``ExchangeReuseCache`` instead (an
+``exchangeReuse`` decision, an ``aqeExchangeReuse`` event), and every
+fresh keyed stage is offered to it at the query's end; the cache holds a
+reference of its own, so the query's release leaves the frames it keeps.
 The per-stage ``compiles``/``compileSeconds`` fields report the nvcc
 builds a stage triggered (``utils/kernelcache.cache_snapshot``), normally
 none.
@@ -80,9 +85,14 @@ class AdaptiveExecutor:
         self.stages: List[ShuffleStage] = []
         self.decisions: List[dict] = []
         self._stage_counter = 0
-        # the cross-query exchange reuse of the JAX package's serving
-        # layer (A.11): not ported, so no stage is adopted or offered
+        # cross-query exchange reuse (serving/caches.py, opt-in): adopt a
+        # materialized stage whose subtree matches instead of running it,
+        # and offer fresh stages back
         self._exchange_cache = None
+        from spark_rapids_tpu_torch.serving import caches as sc
+        if conf.get_bool(sc.EXCHANGE_REUSE_ENABLED, False):
+            self._exchange_cache = \
+                session._serving_bundle().exchange_cache
 
     # -- stage discovery ----------------------------------------------------
     def _next_ready_exchange(self, plan: PhysicalPlan
@@ -120,6 +130,33 @@ class AdaptiveExecutor:
         self._stage_counter += 1
         sid = self._stage_counter
         prog = self.ctx.progress  # live stage view (obs/progress.py)
+        # cross-query exchange reuse: a cached stage of the same subtree
+        # (stage refs substituted, source-versioned, conf-fingerprinted)
+        # is adopted with its map output and statistics, and nothing
+        # below runs
+        reuse_key = None
+        if self._exchange_cache is not None:
+            from spark_rapids_tpu_torch.serving.caches import (
+                exchange_reuse_key,
+            )
+            reuse_key = exchange_reuse_key(exchange, self.conf)
+            adopted = self._exchange_cache.get(
+                reuse_key, tenant=self.session._job_group[0])
+            if adopted is not None:
+                self.stages.append(adopted)  # retained by the get
+                decision = {"rule": "exchangeReuse", "stage": sid,
+                            "reusedFrom": adopted.uid,
+                            "totalBytes": int(adopted.total_bytes),
+                            "partitions": adopted.stats.num_partitions}
+                self._note(decision, "aqeExchangeReuse",
+                           counter="aqe.exchangeReuses")
+                if prog is not None:
+                    prog.aqe_stage_done(
+                        sid, partitions=adopted.stats.num_partitions,
+                        maps=adopted.stats.num_maps,
+                        totalBytes=adopted.stats.total_bytes,
+                        reused=True, compiles=0, compileSeconds=0.0)
+                return adopted
         if prog is not None:
             prog.aqe_stage_running(sid)
         prepared = self._finalize_reads(exchange)
@@ -140,6 +177,7 @@ class AdaptiveExecutor:
         sync_s = round(sum(e["seconds"] for e in stage_syncs), 4)
         stage = ShuffleStage(sid, exchange.output_schema(),
                              exchange.partitioning, map_outputs, stats)
+        stage.reuse_key = reuse_key
         self.stages.append(stage)
         if prog is not None:
             prog.aqe_stage_done(sid, partitions=stats.num_partitions,
@@ -297,7 +335,19 @@ class AdaptiveExecutor:
             outs = self.session._drain(final, self.ctx, collect)
         finally:
             # stage outputs are per-query host materializations: a failed
-            # query must not pin them
+            # query must not pin them. With exchange reuse on, fresh keyed
+            # stages are offered to the cache first (it takes a reference
+            # of its own); this query's reference drops either way.
+            if self._exchange_cache is not None:
+                from spark_rapids_tpu_torch.serving.caches import (
+                    EXCHANGE_REUSE_MAX_BYTES,
+                )
+                max_bytes = int(self.conf.get(EXCHANGE_REUSE_MAX_BYTES,
+                                              256 << 20))
+                for st in self.stages:
+                    if st.reuse_key is not None:
+                        self._exchange_cache.put(st.reuse_key, st,
+                                                 max_bytes)
             for st in self.stages:
                 st.release()
         self.session.last_aqe = {

@@ -126,8 +126,8 @@ def _summarize_profile(doc: Dict[str, Any], top_n: int) -> None:
     cc = doc.get("summary", {}).get("compileCache") or {}
     if cc:
         # warmup attribution at a glance: compile time that ran vs
-        # compile time the persistent cache avoided (a JAX package's
-        # profile; the port's have no compileCache section)
+        # compile time the persistent cache avoided (the port's: nvcc
+        # runs and libraries found built, obs/compilecache.py)
         ran = cc.get("compileCache.backendCompileTime", 0.0)
         n = cc.get("compileCache.backendCompiles", 0)
         hits = cc.get("compileCache.persistentHits", 0)

@@ -322,6 +322,28 @@ def test_port_imports_no_jax_and_no_reference_package():
         "assert len(T.q3(sk, t).collect()) == 10\n"
         "assert sk.shuffle_envs[1].transport.stats['tagged_frames'] > 0\n"
         "sk.stop()\n"
+        "import spark_rapids_tpu_torch.serving.cancellation\n"
+        "import spark_rapids_tpu_torch.serving.caches\n"
+        "import spark_rapids_tpu_torch.serving.scheduler\n"
+        "import spark_rapids_tpu_torch.serving.prewarm\n"
+        "import spark_rapids_tpu_torch.serving.fleet.placement\n"
+        "import spark_rapids_tpu_torch.serving.fleet.warmstate\n"
+        "import spark_rapids_tpu_torch.serving.fleet.worker\n"
+        "import spark_rapids_tpu_torch.serving.fleet.router\n"
+        "import spark_rapids_tpu_torch.obs.monitor\n"
+        "import spark_rapids_tpu_torch.obs.compilecache\n"
+        "import spark_rapids_tpu_torch.utils.argspec\n"
+        "import spark_rapids_tpu_torch.memory.discovery\n"
+        "sv = TpuSparkSession.builder().device('cpu').config(\n"
+        "    'spark.rapids.tpu.serving.resultCache.enabled', True\n"
+        "    ).get_or_create()\n"
+        "t = {'lineitem': sv.create_dataframe(fr['lineitem'])}\n"
+        "sch = sv.serving_scheduler(workers=2)\n"
+        "jb = [sch.submit(lambda s: T.q1(s, t), tenant=x) for x in 'abc']\n"
+        "assert [j.wait(300) for j in jb] == ['succeeded'] * 3\n"
+        "assert all(len(j.result) == 6 for j in jb)\n"
+        "sch.close()\n"
+        "sv.stop()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'spark_rapids_tpu'"
         " or m.startswith('spark_rapids_tpu.')]\n"

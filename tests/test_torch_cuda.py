@@ -2080,3 +2080,119 @@ def test_adaptive_phase_checks_at_a_small_size(cuda_device):
     assert len(rec["whole_stage"]["members"]) >= 4
     for s in (sess, qs):
         s.stop()
+
+
+@pytest.mark.cuda
+def test_two_threads_serve_q3_on_the_card(cuda_device):
+    """A two-worker scheduler serving Q3 six times on the card: every
+    answer equals the single-threaded one, the launches are exactly six
+    times one run's, and five of the six runs are plan-cache clones."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import tpch_data as G
+    from spark_rapids_tpu_torch.obs.metrics import REGISTRY
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    sf = 0.05
+    fr = {"lineitem": G.gen_lineitem(sf), "orders": G.gen_orders(sf),
+          "customer": G.gen_customer(sf)}
+    s = (TpuSparkSession.builder()
+         .config("spark.rapids.sql.test.enabled", True)
+         .config("spark.rapids.sql.cacheDeviceScans", True)
+         .config("spark.rapids.sql.concurrentTpuTasks", 2)
+         .get_or_create())
+    try:
+        t = {n: s.create_dataframe(f) for n, f in fr.items()}
+        q = tpch.q3(s, t)
+        want = q.collect()
+        q.collect()
+        K.reset_launches()
+        one = q.collect()
+        torch.cuda.synchronize()
+        per_run = dict(K.LAUNCHES)
+        assert per_run["hash_table_build"] > 0 \
+            or per_run["compact_permutation"] > 0
+        hits0 = sum(m.value for m in REGISTRY.metrics()
+                    if m.name == "plancache.hits")
+        sched = s.serving_scheduler(workers=2)
+        K.reset_launches()
+        try:
+            jobs = [sched.submit(lambda ss: tpch.q3(ss, t), tenant=f"t{i % 2}")
+                    for i in range(6)]
+            outs = [j.get(300) for j in jobs]
+        finally:
+            sched.close()
+        torch.cuda.synchronize()
+        for out in outs + [one]:
+            pd.testing.assert_frame_equal(out.reset_index(drop=True),
+                                          want.reset_index(drop=True))
+        assert K.LAUNCHES == {k: 6 * v for k, v in per_run.items()}
+        hits = sum(m.value for m in REGISTRY.metrics()
+                   if m.name == "plancache.hits") - hits0
+        assert hits == 6
+    finally:
+        s.stop()
+
+
+@pytest.mark.cuda
+def test_prewarm_replays_b1_to_b4_on_the_card(cuda_device, tmp_path):
+    """Launches recorded in a warm manifest on the card replay through the
+    pre-warm on zero-filled inputs: no error, the launches counted apart
+    from the main path's."""
+    from spark_rapids_tpu_torch.obs.compilecache import SHARED
+    from spark_rapids_tpu_torch.serving import prewarm
+    path = str(tmp_path / "warm.jsonl")
+    SHARED.configure_warm_manifest(path)
+    try:
+        n = 5000
+        keep = torch.rand(n, device=cuda_device) < 0.5
+        K.compact_permutation(keep)
+        img = [torch.randint(0, 100, (n,), device=cuda_device)]
+        valid = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        T = K.hash_table_size(n)
+        jt = K.hash_join_build(img, valid, T)
+        K.hash_join_lookup(jt, img, valid)
+        K.hash_table_probe(jt.table, jt.counts, img, valid, T)
+        jobs = [("sum", torch.rand(n, dtype=torch.float64,
+                                   device=cuda_device), valid)]
+        K.hash_grouped_aggregate(img, valid, jobs, T)
+        torch.cuda.synchronize()
+    finally:
+        SHARED.configure_warm_manifest("")
+    kernels = {e["kernel"] for e in prewarm.load_manifest(path)}
+    assert {"compact_permutation", "hash_table_build", "hash_table_probe",
+            "hash_grouped_aggregate"} <= kernels
+    K.reset_launches()
+    before = dict(K.PREWARM_LAUNCHES)
+    p = prewarm.AotPrewarmer(path, budget_s=60.0, device="cuda").start()
+    assert p.wait_idle(120)
+    torch.cuda.synchronize()
+    snap = p.snapshot()
+    assert snap["failed"] == 0 and snap["warmed"] >= 5, snap
+    assert snap["librariesLoaded"] == len(snap["libraries"])
+    assert not any(K.LAUNCHES.values())
+    for k in ("compact_permutation", "hash_table_build", "hash_table_probe",
+              "hash_grouped_aggregate"):
+        assert K.PREWARM_LAUNCHES[k] > before[k]
+
+
+@pytest.mark.cuda
+def test_monitor_status_reports_the_card(cuda_device):
+    import json
+    import urllib.request
+
+    from spark_rapids_tpu_torch.obs import monitor
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    s = (TpuSparkSession.builder().config("spark.rapids.tpu.ui.enabled", True)
+         .config("spark.rapids.tpu.ui.port", 0).get_or_create())
+    try:
+        s.create_dataframe(pd.DataFrame({"a": [1, 2, 3]})).collect()
+        with urllib.request.urlopen(monitor.server().url + "/api/status",
+                                    timeout=10) as r:
+            status = json.loads(r.read())
+        dev = status["device"]
+        assert dev["platform"] == "gpu"
+        assert dev["name"] == torch.cuda.get_device_name(0)
+        assert 0 < dev["freeBytes"] <= dev["totalBytes"]
+        assert status["memory"]["budgetBytes"] <= dev["totalBytes"]
+    finally:
+        monitor.stop()
+        s.stop()
