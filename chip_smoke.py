@@ -54,6 +54,11 @@ port's main path through its query runners:
     expanded 12 times) and the other three at SF 500, each against its
     pandas reference (``testing/mortgagecases.py``), with its peak device
     memory, join routes and launches;
+  * the export phase (``export_phase``, right after): the ETL's
+    ColumnarRdd export (``ml/columnar_rdd.py``) on the same session's
+    SF 50 uploads into the trainer's matrices on the card, held to the
+    ETL's collect, its counted syncs by site to the ETL's cold run, B1
+    launched;
   * the memory phase (``memory_phase``): under a 2 GiB metered budget,
     Q1 at SF10 spilled device -> host -> disk and faulted back, the
     grace join on Q3 and on Mortgage ``aggregates_with_join``, the
@@ -178,6 +183,7 @@ result, when no CUDA device is present or any phase fails. Details go to
     python3 chip_smoke.py --shuffle-only      # the shuffle phase, SF1
     python3 chip_smoke.py --adaptive-only     # the adaptive phase, SF1
     python3 chip_smoke.py --serving-only      # the serving phase, SF1
+    python3 chip_smoke.py --export-only       # the export phase, SF 50
 """
 
 from __future__ import annotations
@@ -3064,7 +3070,9 @@ def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
     ``run_session_cell`` counts. Peak device memory, the
     join routes and the launches by kernel are read per query; the phase
     must launch B1. Returns the frames at ``sf`` and the answer of
-    ``aggregates_with_join`` (the memory phase reuses both)."""
+    ``aggregates_with_join`` (the memory phase reuses both), and the ETL's
+    session, DataFrame and collected answer (``export_phase`` exports the
+    same ETL on the same cached uploads)."""
     from spark_rapids_tpu_torch.config import conf as CONF
     from spark_rapids_tpu_torch.models import mortgage as M
     from spark_rapids_tpu_torch.models import mortgage_data as MD
@@ -3114,13 +3122,112 @@ def mortgage_phase(sf, sf_etl, runs: int, queries: dict,
         queries[f"session_mortgage_{name}"] = rec
         if name == "aggregates_with_join":
             answers[name] = out
+        if name == "etl":
+            etl = (sess, qdf, out)
         del out, want, qdf, sess
         torch.cuda.empty_cache()
     report["mortgage_launches"] = totals
     log(f"Mortgage launches: {totals}")
     require(totals.get("compact_permutation", 0) > 0,
             "Mortgage: B1 never ran")
-    return tables[sf], answers
+    return (tables[sf], answers), etl
+
+
+# the ColumnarRdd export: the ETL's answer through
+# ``ml/columnar_rdd.py`` to the trainer's matrices on the card
+EXPORT_CONF = {"spark.rapids.sql.exportColumnarRdd": True}
+# a sync of these sites moves batches to the host: none may be the
+# export's
+TRANSFER_SITES = ("batch.fetch", "batch.rowCount", "write.fetch",
+                  "aqe.stageFetch")
+EXPORT_BUDGET_S = 30.0
+
+
+def _forget_speculation(sess) -> None:
+    """Drop what the session learned from earlier runs (capacities,
+    shrink counts, dense keys, skip ratios), so the next run is cold as
+    its first was; the cached uploads and scan statistics stay."""
+    for d in (sess.capacity_cache, sess.agg_ratio_cache):
+        d.clear()
+    for st in (sess.capacity_spec_blocklist, sess.dense_plans_seen):
+        while len(st):
+            st.pop_oldest()
+
+
+def export_phase(etl, report: dict) -> dict:
+    """The Mortgage ETL's ColumnarRdd export on its SF 50 session (the JAX
+    package's default confs, test mode, cached uploads, no new upload)
+    with ``spark.rapids.sql.exportColumnarRdd``: every partition of
+    ``ColumnarRdd.convert`` drained into the trainer's matrices
+    (``testing/exportcheck.drain``: ``to_feature_matrix`` over the ETL's
+    numeric and boolean columns, label ``delinquency_12``) under the sync
+    debug mode "error", with nothing learned (``_forget_speculation``)
+    and the launch counts zeroed before and read after. Requires: every
+    ``x``, ``y`` and ``mask`` a CUDA tensor; the live rows equal to the
+    ETL's collect of ``mortgage_phase`` (``exportcheck.same_rows``: keys
+    and integer-valued columns exact, floats at rtol 1e-6 after the
+    float32 cast); the counted syncs by site those of the same ETL's cold
+    run up to its collect, none of a site that moves batches to the host;
+    B1 launched. Logs the wall, the matrices' rows and bytes and the peak
+    device bytes."""
+    from spark_rapids_tpu_torch.ml import ColumnarRdd
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.testing import exportcheck as X
+    sess, qdf, want = etl
+    t_phase = time.perf_counter()
+    for k, v in EXPORT_CONF.items():
+        sess.set_conf(k, v)
+    drained: list = []
+
+    def export():
+        drained.extend(X.drain(ColumnarRdd.convert(qdf)))
+    _forget_speculation(sess)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    syncs = _syncs_by_site(export)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require(bool(drained), "export: no batch")
+    for d in drained:
+        require(d["x"].is_cuda and d["y"].is_cuda and d["mask"].is_cuda,
+                "export: a matrix is not on the card")
+    stats = X.matrix_stats(drained)
+    got = X.live_rows(drained)
+    del drained
+    same = X.same_rows(got, want)
+    _forget_speculation(sess)
+    cold = _syncs_by_site(qdf.collect_batches)
+    require(syncs == cold, f"export: counted syncs by site {syncs}, the "
+            f"ETL's cold run up to its collect {cold}")
+    moved = {k: v for k, v in syncs.items() if k in TRANSFER_SITES}
+    require(not moved, f"export: syncs that move batches to the host "
+            f"{moved}")
+    require(launches.get("compact_permutation", 0) > 0,
+            f"export: B1 never ran ({launches})")
+    for k, v in EXPORT_CONF.items():
+        sess.set_conf(k, False)
+    rec = {"sf": MORTGAGE_ETL_SF, "wall_s": wall, "rows": same["rows"],
+           "max_rel_err": same["max_rel_err"], "syncs_by_site": syncs,
+           "cold_syncs_by_site": cold, "launches": launches,
+           "peak_device_bytes": peak, "features": len(X.ETL_FEATURES),
+           **stats, "card": card_line()}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    require(rec["phase_s"] <= EXPORT_BUDGET_S,
+            f"export: the phase took {rec['phase_s']:.1f} s, over its "
+            f"{EXPORT_BUDGET_S} s")
+    log(f"export: {same['rows']} live rows in {stats['batches']} batches "
+        f"equal to the ETL's collect (max rel err "
+        f"{same['max_rel_err']:.3g}); wall {wall:.4f} s; matrices "
+        f"{stats['matrix_rows']} rows x {len(X.ETL_FEATURES)} features, "
+        f"{stats['matrix_bytes']} bytes; peak device memory {peak} bytes; "
+        f"counted syncs {syncs} (cold collect_batches {cold}); launches "
+        f"{launches}; phase {rec['phase_s']:.1f} s ({card_line()})")
+    report["export"] = rec
+    return rec
 
 
 # the memory phase: a 2 GiB metered budget (allocFraction from the card's
@@ -5799,6 +5906,34 @@ def serving_only() -> int:
         json.dump(report, f, indent=1, default=str)
     return 0
 
+def export_only() -> int:
+    """The export phase alone: the Mortgage ETL at SF 50 through a session
+    of its own (one cold run, its uploads cached), then ``export_phase``.
+    Details go to ``chiprun_out/chip_smoke_export.json``."""
+    from spark_rapids_tpu_torch.models import mortgage as M
+    from spark_rapids_tpu_torch.models import mortgage_data as MD
+    from spark_rapids_tpu_torch.ops import cudalib
+    log(f"card: {card_line()}")
+    log(f"build: {cudalib.build()}")
+    t0 = time.perf_counter()
+    perf = MD.gen_performance(MORTGAGE_ETL_SF)
+    acq = MD.gen_acquisition(MORTGAGE_ETL_SF)
+    sess = session_of(MORTGAGE_BATCH_ROWS, **M.ETL_CONFS)
+    qdf = M.run_query("etl", sess, sess.create_dataframe(perf),
+                      sess.create_dataframe(acq))
+    out = qdf.collect()
+    log(f"ETL SF{MORTGAGE_ETL_SF}: tables and the cold collect "
+        f"({len(out)} rows): {time.perf_counter() - t0:.1f} s")
+    report: dict = {}
+    export_phase((sess, qdf, out), report)
+    sess.stop()
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_export.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def adaptive_only() -> int:
     """The adaptive phase alone, on SF1 frames made here (its Q3 cell at
     SF1 with shuffled joins in place of SF10, its Q1 cell and rollup at
@@ -5891,6 +6026,10 @@ def main() -> int:
     ap.add_argument("--adaptive-only", action="store_true",
                     help="build the kernels and run only the adaptive "
                          "phase (SF1 frames made here); prints no result")
+    ap.add_argument("--export-only", action="store_true",
+                    help="build the kernels and run only the export phase "
+                         "(the Mortgage ETL's tables at SF 50 made here); "
+                         "prints no result")
     ap.add_argument("--serving-only", action="store_true",
                     help="build the kernels and run only the serving "
                          "phase (SF1 frames, an SF 0.5 file and the fleet "
@@ -5920,6 +6059,8 @@ def main() -> int:
         return adaptive_only()
     if args.serving_only:
         return serving_only()
+    if args.export_only:
+        return export_only()
     children: list = []
     try:
         return run(args, children)
@@ -6639,11 +6780,18 @@ def run(args, children: list) -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    mortgage = mortgage_phase(1 if args.quick else MORTGAGE_SF,
-                              1 if args.quick else MORTGAGE_ETL_SF,
-                              1 if args.quick else MORTGAGE_RUNS, queries,
-                              report)
+    mortgage, etl = mortgage_phase(1 if args.quick else MORTGAGE_SF,
+                                   1 if args.quick else MORTGAGE_ETL_SF,
+                                   1 if args.quick else MORTGAGE_RUNS,
+                                   queries, report)
     report["mortgage_phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    export_phase(etl, report)
+    report["export_phase_s"] = time.perf_counter() - t0
+    log(f"export phase: {report['export_phase_s']:.1f} s")
+    etl[0].stop()
+    del etl
     torch.cuda.empty_cache()
     # out-of-core off and the default budget in every phase before this
     # one: nothing may have spilled

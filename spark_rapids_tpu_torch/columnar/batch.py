@@ -143,15 +143,17 @@ class DeviceBatch:
     def from_pandas(df: pd.DataFrame, dict_state: Optional[dict] = None,
                     dict_numerics: bool = True, device="cuda",
                     slab_stride: int = 0,
-                    schema: Optional[Schema] = None) -> "DeviceBatch":
+                    schema: Optional[Schema] = None,
+                    dict_encode: bool = True) -> "DeviceBatch":
         """Host -> device upload (reference: GpuRowToColumnarExec), padded
         to ``bucket_capacity(len(df))``.
 
         Each column is probed for low cardinality and gets a host
         dictionary, as in the JAX package: ``dict_state`` makes every batch
         of one scan share one dictionary; ``dict_numerics=False`` probes
-        only string columns. A string column that does not
-        dictionary-encode uploads, by the JAX package's rule, as a char
+        only string columns, ``dict_encode=False`` none
+        (``spark.rapids.sql.dict.enabled=false``). A string column that
+        does not dictionary-encode uploads, by the JAX package's rule, as a char
         slab when its longest value fits ``slab_stride`` bytes (0: never),
         else as plain offsets and chars. Under ``dict_state`` a column's
         slab stride is the widest any earlier batch of the scan took, and a
@@ -167,7 +169,9 @@ class DeviceBatch:
             values, validity = _pandas_to_numpy(df.iloc[:, i], dt)
             data, vpad = DeviceColumn.build_host_buffers(values, validity,
                                                          dt, cap)
-            if dt.is_string and not validity[:n].any():
+            if not dict_encode:
+                enc = None
+            elif dt.is_string and not validity[:n].any():
                 # an empty or all-null string column: an empty dictionary,
                 # every code the NULL sentinel; the registry stays open
                 enc = (np.zeros(cap, dtype=np.int32), ())

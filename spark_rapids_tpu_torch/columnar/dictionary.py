@@ -40,11 +40,26 @@ _PREFIX_CHUNKS = 8  # keep in sync with ops/sortops.STRING_PREFIX_CHUNKS
 # process-wide, like the session conf it mirrors: concurrent queries of one
 # session share one conf; every combination is correct (v1 and v2 frames
 # both deserialize), only the representation on the wire changes
-_FLAGS = {"wire": True}
+# ``hash_values`` gates a value-identical path (per-value hash tables
+# against char scans); ``merge_exchange`` changes a concat's output
+# representation (codes or chars), never its values
+_FLAGS = {"hash_values": True, "merge_exchange": True, "wire": True}
 
 
 def configure_from_conf(conf) -> None:
+    _FLAGS["hash_values"] = conf.get_bool(
+        "spark.rapids.sql.dict.hashValues", True)
+    _FLAGS["merge_exchange"] = conf.get_bool(
+        "spark.rapids.sql.dict.mergeOnExchange", True)
     _FLAGS["wire"] = conf.get_bool("spark.rapids.sql.dict.wire", True)
+
+
+def hash_values_enabled() -> bool:
+    return _FLAGS["hash_values"]
+
+
+def merge_exchange_enabled() -> bool:
+    return _FLAGS["merge_exchange"]
 
 
 def wire_enabled() -> bool:
@@ -67,6 +82,29 @@ def union_dictionaries(dicts: Sequence[tuple]
         r[len(d)] = ucard
         remaps.append(r)
     return tuple(union), remaps
+
+
+# bounded memo of union results keyed by the input dictionary tuples:
+# exchanges re-concat the same per-scan dictionaries every execution
+@functools.lru_cache(maxsize=256)
+def _union_cached(dict_tuple_of_tuples: tuple):
+    vals, remaps = union_dictionaries(list(dict_tuple_of_tuples))
+    return vals, tuple(r.tobytes() for r in remaps)
+
+
+def union_dictionaries_cached(dicts: Sequence[tuple]
+                              ) -> Tuple[tuple, List[np.ndarray]]:
+    """``union_dictionaries`` memoized on the input tuples (fresh remap
+    arrays each call)."""
+    vals, blobs = _union_cached(tuple(dicts))
+    return vals, [np.frombuffer(b, np.int32).copy() for b in blobs]
+
+
+def mergeable(parts) -> bool:
+    """True when every column in ``parts`` carries a dictionary (possibly
+    different ones): the precondition for the union+remap merge."""
+    return all(p.dict_values is not None and p.dict_codes is not None
+               for p in parts)
 
 
 def _value_bytes(v) -> bytes:

@@ -1,5 +1,7 @@
 """Typed configuration registry (counterpart of the JAX package's
-``config/conf.py``, holding only the keys the port reads).
+``config/conf.py``): every key the JAX package registers is registered
+here with its name, type and default, or listed in ``IGNORED_KEYS``
+with the reason it means nothing in the port.
 
 Every knob is a registered ``ConfEntry`` with a key, a converter, the JAX
 package's default, a doc string and, where the JAX package has one, its
@@ -769,6 +771,200 @@ FLEET_WORKER_START_TIMEOUT = register(
     "session boot included).", validator=_positive)
 
 
+# --- the rest of the JAX package's keys (A.11b) ----------------------------
+# the JAX package's constant names for three keys registered above
+AGG_FUSE_COUNT_DISTINCT = FUSE_COUNT_DISTINCT
+ENABLE_CAST_STRING_TO_NUMERIC = CAST_STRING_TO_INTEGER
+ENABLE_CAST_STRING_TO_DATE = CAST_STRING_TO_DATE
+
+REUSE_SUBTREES = register(
+    "spark.rapids.sql.reuseSubtrees.enabled", _to_bool, True,
+    "Within-query reuse of identical deterministic subtrees (the "
+    "ReuseExchange analogue, exec/reuse.py): branches referencing the "
+    "same joined/aggregated intermediate (scalar-subquery thresholds, "
+    "self-join views) materialize it once and replay the batches.")
+AGG_RUNTIME_SKIP = register(
+    "spark.rapids.sql.agg.runtimeSkip", _to_bool, True,
+    "Runtime decision for the partial-aggregation skip: the partial pass "
+    "measures output_groups/input_rows per batch and flips to passthrough "
+    "mid-stream once the cumulative measured ratio exceeds "
+    "spark.rapids.sql.agg.skipAggPassReductionRatio; each decision is "
+    "journaled (aggSkipDecision) and seeds the session cache. false "
+    "restores the first-batch-only heuristic.")
+HBM_DEBUG = register(
+    "spark.rapids.memory.tpu.debug", _to_bool, False,
+    "If true, log every device-store allocation/free for leak hunting: "
+    "the leak tracker (memory/leak.py) keeps each live buffer's creation "
+    "stack.")
+PINNED_POOL_SIZE = register(
+    "spark.rapids.memory.pinnedPool.size", _to_bytes, 0,
+    "Size of the aligned host staging pool used for device transfers. 0 "
+    "disables pooling and allocates on demand. (Read nowhere, as in the "
+    "JAX package: the pinned host memory is the spill arena of "
+    "spark.rapids.memory.host.spillStorageSize.)")
+MAX_READER_BATCH_SIZE_ROWS = register(
+    "spark.rapids.sql.reader.batchSizeRows", int, 1 << 21,
+    "Maximum rows a file reader materializes per batch. (Read nowhere, "
+    "as in the JAX package: a file split is one row group or stripe.)",
+    validator=_positive)
+INCOMPATIBLE_OPS = register(
+    "spark.rapids.sql.incompatibleOps.enabled", _to_bool, False,
+    "Enable operators that produce results that differ from standard CPU "
+    "semantics in corner cases (e.g. float aggregation ordering).")
+IMPROVED_FLOAT_OPS = register(
+    "spark.rapids.sql.improvedFloatOps.enabled", _to_bool, False,
+    "Use device-optimized float operations that may not be bit-identical "
+    "to the CPU implementations. (Read nowhere, as in the JAX package.)")
+ALLOW_FLOAT32_EXEC = register(
+    "spark.rapids.sql.fast32BitFloat.enabled", _to_bool, False,
+    "Execute float64 expressions in float32 on the device for speed. "
+    "Results are approximate; off by default. (Read nowhere, as in the "
+    "JAX package.)")
+HAS_NANS = register(
+    "spark.rapids.sql.hasNans", _to_bool, True,
+    "If float data may contain NaN; some ops tag themselves off the "
+    "device when NaNs are possible and the kernel cannot match CPU NaN "
+    "semantics. (Read nowhere, as in the JAX package: no operator of "
+    "either package tags on it.)")
+ENABLE_CAST_STRING_TO_FLOAT = register(
+    "spark.rapids.sql.castStringToFloat.enabled", _to_bool, False,
+    "Enable casting strings to floating point on the device. (Read "
+    "nowhere, as in the JAX package: the cast stays on the CPU.)")
+ENABLE_CAST_FLOAT_TO_STRING = register(
+    "spark.rapids.sql.castFloatToString.enabled", _to_bool, False,
+    "Enable casting floating point to strings on the device; formatting "
+    "differs from Java's in corner cases. (Read nowhere, as in the JAX "
+    "package: the cast stays on the CPU.)")
+SCAN_PREFETCH_DEPTH = register(
+    "spark.rapids.sql.scan.prefetchDepth", int, 2,
+    "How many scan splits (Parquet row groups, ORC stripes, CSV files) "
+    "may be planned on the shared host pool ahead of the consuming task, "
+    "overlapping host planning with the device decode "
+    "(sql/scan_pipeline.py). 0 selects the serial reader: each split is "
+    "planned on the consuming thread when it is pulled.",
+    validator=_non_negative)
+SCAN_DECODE_THREADS = register(
+    "spark.rapids.sql.scan.decodeThreads", int, 0,
+    "Worker threads in the process-wide scan planning pool. 0 = auto: "
+    "min(4, max(2, cpu_count - 1)), leaving a core for the consuming "
+    "task thread.",
+    validator=_non_negative)
+SCAN_PREFETCH_MAX_BYTES = register(
+    "spark.rapids.sql.scan.prefetchMaxBytes", _to_bytes, 256 << 20,
+    "Host-memory budget for planned-but-unconsumed prefetched splits "
+    "across one scan; submission stalls past it (clamped to "
+    "spark.rapids.memory.host.spillStorageSize).")
+DICT_ENABLED = register(
+    "spark.rapids.sql.dict.enabled", _to_bool, True,
+    "Dictionary-encode low-cardinality columns at a pandas upload and "
+    "carry the codes through filter/join/agg/sort/exchange, decoding to "
+    "chars only at collect()/write. false uploads no dictionary and no "
+    "char slab: every string column goes as plain offsets and chars. "
+    "(The device Parquet decode keeps its dictionary pages' codes, as "
+    "the JAX package's deviceDecode does.)")
+DICT_MERGE_EXCHANGE = register(
+    "spark.rapids.sql.dict.mergeOnExchange", _to_bool, True,
+    "When batches with DIFFERENT dictionaries for the same column meet at "
+    "an exchange/concat boundary, union the (static, host-side) "
+    "dictionaries and remap each part's codes through an O(cardinality) "
+    "table instead of decoding. false decodes at the boundary.")
+DICT_HASH_VALUES = register(
+    "spark.rapids.sql.dict.hashValues", _to_bool, True,
+    "Hash dictionary-encoded string columns for exchange partitioning and "
+    "join keys through per-VALUE hash tables (the dictionary's values "
+    "hashed once, rows gather by code) instead of the char-scanning "
+    "polynomial hashes. Bit-identical hash values by construction. false "
+    "recomputes hashes from chars.")
+HASH_AGG_REPLACE_MODE = register(
+    "spark.rapids.sql.hashAgg.replaceMode", str, "all",
+    "Which aggregation modes to replace: 'all', 'partial', or 'final'.")
+NUM_TASK_THREADS = register(
+    "spark.rapids.sql.taskThreads", int, 4,
+    "Host-side worker threads executing partitions (Spark task "
+    "equivalent). (Read nowhere, as in the JAX package: partitions drain "
+    "on the query's thread.)",
+    validator=_positive)
+STAGE_FUSION = register(
+    "spark.rapids.sql.stageFusion.enabled", _to_bool, True,
+    "Trace chains of narrow operators into one compiled unit. (Read "
+    "nowhere, as in the JAX package: whole-stage fusion is "
+    "spark.rapids.sql.fusion.stageEnabled.)")
+EXPORT_COLUMNAR_RDD = register(
+    "spark.rapids.sql.exportColumnarRdd", _to_bool, False,
+    "Expose query output as device-resident columnar data for ML "
+    "frameworks (ml/columnar_rdd.py; the reference's ColumnarRdd "
+    "zero-copy export, ColumnarRdd.scala:41-50).")
+
+# Keys the JAX package registers that have no meaning in the port: set,
+# they are accepted (TpuConf.set keeps unregistered keys as given) and
+# change nothing. Key -> why.
+IGNORED_KEYS: Dict[str, str] = {
+    "spark.rapids.sql.scan.deviceDecode":
+        "the port always decodes Parquet on the card (B5-B8); the host "
+        "decode is the CPU scan under spark.rapids.sql.enabled=false",
+    "spark.rapids.sql.scan.dictEncodeNumerics":
+        "a device-decoded Parquet column keeps its dictionary pages' "
+        "codes; the CSV and ORC uploads probe every column, as the JAX "
+        "package's serial reader does",
+    "spark.rapids.sql.scan.directDecode":
+        "a value-identical shortcut of the JAX package's host arrow->"
+        "pandas decode; the port's CSV and ORC readers convert through "
+        "pyarrow, and Parquet decodes on the card",
+    "spark.rapids.sql.smallQuery.enabled":
+        "the small-query fast path is left out on purpose (ROADMAP, "
+        "A.10): the port's exchanges shrink on every query",
+    "spark.rapids.sql.smallQuery.maxRows":
+        "the small-query fast path is left out on purpose (ROADMAP, "
+        "A.10)",
+    "spark.rapids.sql.smallQuery.liteBookkeeping":
+        "the small-query fast path is left out on purpose (ROADMAP, "
+        "A.10)",
+    "spark.rapids.sql.fusion.hashKernels":
+        "it chooses between Pallas hash kernels and sort spellings; the "
+        "port's joins and fused count distinct always run their hand "
+        "kernels (B3, B4) where the key allows, and the union lexsort "
+        "for string keys",
+    "spark.rapids.sql.collect.fusedFetchBytes":
+        "the port's collect reads each batch's row count, then copies "
+        "only its live rows; no result is fetched at full capacity",
+    "spark.rapids.sql.join.exactLongStrings":
+        "the port's string join keys always compare in full (exact "
+        "images past 64 bytes, ops/sortops.string_images); false selects "
+        "the JAX package's hash tiebreak, which approximates that answer",
+    "spark.rapids.tpu.trace.jaxAnnotations":
+        "jax.profiler annotations; spark.rapids.tpu.trace.nvtx mirrors "
+        "the spans into NVTX ranges instead",
+    "spark.rapids.tpu.compileLedger.enabled":
+        "the port compiles no XLA program; its one compile is the nvcc "
+        "build, which obs/compilecache records",
+    "spark.rapids.tpu.compileLedger.maxEntries":
+        "the compile ledger is left out (obs/compilecache records the "
+        "nvcc build)",
+    "spark.rapids.tpu.compileLedger.costAnalysis":
+        "XLA cost_analysis has no counterpart; the kernels' bounds are "
+        "computed by chip_smoke.py",
+}
+
+
+def conf_entries() -> Dict[str, ConfEntry]:
+    """Every registered key's entry."""
+    return dict(_REGISTRY)
+
+
+def help_text() -> str:
+    """The configs doc table, as the JAX package's ``help_text`` writes it
+    (name | description | default, sorted by key), then the keys of the
+    JAX package the port accepts and ignores, with the reason."""
+    lines = ["Name | Description | Default", "-----|-------------|--------"]
+    for key in sorted(_REGISTRY):
+        e = _REGISTRY[key]
+        lines.append(f"{e.key} | {e.doc} | {e.default}")
+    lines += ["", "Accepted and ignored | Why", "-----|-----"]
+    for key in sorted(IGNORED_KEYS):
+        lines.append(f"{key} | {IGNORED_KEYS[key]}")
+    return "\n".join(lines)
+
+
 class TpuConf:
     """Settings with typed accessors."""
 
@@ -869,9 +1065,24 @@ class TpuConf:
     def adaptive_skew_threshold(self) -> int:
         return int(self.get(ADAPTIVE_SKEW_THRESHOLD.key))
 
-    def is_operator_enabled(self, key: str,
+    @property
+    def incompatible_ops_enabled(self) -> bool:
+        return self.get_bool(INCOMPATIBLE_OPS.key, False)
+
+    @property
+    def hash_agg_replace_mode(self) -> str:
+        return str(self.get(HASH_AGG_REPLACE_MODE.key))
+
+    def is_operator_enabled(self, key: str, incompat: bool = False,
                             disabled_by_default: bool = False) -> bool:
-        """Per-operator enable check (spark.rapids.sql.exec.<Name>): on
-        unless set false, or for a rule disabled by default, off unless
-        set true."""
-        return self.get_bool(key, not disabled_by_default)
+        """Per-operator enable check with the JAX package's taxonomy
+        (spark.rapids.sql.exec.<Name>): a key set wins; else a rule
+        disabled by default is off, and an incompatible one is off unless
+        spark.rapids.sql.incompatibleOps.enabled."""
+        if key in self._settings:
+            return self.get_bool(key, True)
+        if disabled_by_default:
+            return False
+        if incompat and not self.incompatible_ops_enabled:
+            return False
+        return True

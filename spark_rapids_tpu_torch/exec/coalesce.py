@@ -23,7 +23,12 @@ from spark_rapids_tpu_torch.exec.base import (
 )
 
 
-class TargetSize:
+class CoalesceGoal:
+    """Target for coalescing (reference: CoalesceGoal/TargetSize/
+    RequireSingleBatch, GpuCoalesceBatches.scala)."""
+
+
+class TargetSize(CoalesceGoal):
     """Coalesce to batches of at least ``rows`` rows."""
 
     def __init__(self, rows: int):
@@ -33,7 +38,14 @@ class TargetSize:
         return f"TargetSize({self.rows})"
 
 
-def coalesce_iter(batches, goal: TargetSize, schema: Schema,
+class RequireSingleBatch(CoalesceGoal):
+    """Coalesce a partition's whole stream into one batch."""
+
+    def __repr__(self) -> str:
+        return "RequireSingleBatch"
+
+
+def coalesce_iter(batches, goal: CoalesceGoal, schema: Schema,
                   growth: float, device, dm=None,
                   coarse: bool = False) -> Iterator[DeviceBatch]:
     """Accumulate a batch stream to ``goal`` and concatenate: the one
@@ -46,6 +58,7 @@ def coalesce_iter(batches, goal: TargetSize, schema: Schema,
     (``utils/kernelcache.bucket_dim``; the identity while
     ``spark.rapids.tpu.compile.shapeBuckets`` is off)."""
     from spark_rapids_tpu_torch.exec.tpu import concat_device
+    single = isinstance(goal, RequireSingleBatch)
     pending: List[DeviceBatch] = []
     pending_rows = 0
 
@@ -58,7 +71,7 @@ def coalesce_iter(batches, goal: TargetSize, schema: Schema,
             continue  # a known-empty fragment
         pending.append(batch)
         pending_rows += rows
-        if pending_rows >= goal.rows:
+        if not single and pending_rows >= goal.rows:
             yield flush()
             pending, pending_rows = [], 0
     if pending:
@@ -68,7 +81,7 @@ def coalesce_iter(batches, goal: TargetSize, schema: Schema,
 class TpuCoalesceBatchesExec(PhysicalPlan):
     columnar_output = True
 
-    def __init__(self, child: PhysicalPlan, goal: TargetSize):
+    def __init__(self, child: PhysicalPlan, goal: CoalesceGoal):
         super().__init__([child])
         self.goal = goal
 

@@ -1,7 +1,11 @@
 """Within-query reuse of identical subtrees (counterpart of the JAX
-package's ``exec/reuse.py``). The JAX package's switch,
-``spark.rapids.sql.reuseSubtrees.enabled`` (on by default), is not
-registered: the session always reuses, until a workload needs it off.
+package's ``exec/reuse.py``), run only while
+``spark.rapids.sql.reuseSubtrees.enabled`` is true (the default), as in
+the JAX package. The JAX package reads the switch at three places: its
+session's and its AQE executor's rewrite (here both go through
+``session._convert_cpu``, which AQE's executor calls for every stage),
+and its whole-stage cutter, where it only keeps input donation off while
+reuse is on; the port's cutter donates nothing, so reads nothing.
 
 Spark's ReuseExchange analogue: TPC-H Q2's min-cost subquery, Q11's
 threshold, Q15's revenue view and Q17's per-part average each read one

@@ -26,7 +26,8 @@ fusions:
 
 The JAX package's input donation (``fusion.donateInputs``) has no
 counterpart in eager PyTorch: the conf is accepted and the cutter never
-reads it.
+reads it, nor ``spark.rapids.sql.reuseSubtrees.enabled``, which the JAX
+package's cutter reads only to keep donation off while reuse is on.
 """
 
 from __future__ import annotations

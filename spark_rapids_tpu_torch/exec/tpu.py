@@ -547,8 +547,8 @@ class TpuHashAggregateExec(TpuExec):
     def _partial(self, ctx: ExecContext, part: Partition, update, merge,
                  skip_ratio: float) -> Iterator[DeviceBatch]:
         """The partial pass with the runtime partial-aggregation skip (the
-        JAX package's agg.runtimeSkip, its default; its first-batch
-        alternative is not ported): measure output groups / input rows as
+        JAX package's agg.runtimeSkip, its default; ``false`` takes
+        ``_first_batch_partial``): measure output groups / input rows as
         batches stream, one counted sync a sampled batch, and switch to
         passthrough mid-stream once the cumulative ratio exceeds the
         threshold. The decision seeds the session's ratio cache, keyed on
@@ -622,10 +622,59 @@ class TpuHashAggregateExec(TpuExec):
                 partials, self.plan.partial_schema, ctx.conf.capacity_growth,
                 ctx.device, dm=device_manager_of(ctx)))
 
+    def _first_batch_partial(self, ctx: ExecContext, part: Partition,
+                             update, merge, skip_ratio: float
+                             ) -> Iterator[DeviceBatch]:
+        """The partial pass under ``spark.rapids.sql.agg.runtimeSkip=
+        false``: the JAX package's first-batch heuristic. A plan whose
+        ratio the session's cache holds skips or updates from batch 0;
+        otherwise the first batch's pass learns the ratio (one counted
+        ``batch.rowCount`` sync, only where the partial kept its input's
+        capacity), and past the threshold every later batch passes
+        through. No ``aggSkipDecision`` events."""
+        it = iter(part())
+        first = next(it, None)
+        if first is None:
+            yield update(empty_batch(self.children[0].output_schema(),
+                                     ctx.device))
+            return
+        cache = ctx.session.agg_ratio_cache if ctx.session else None
+        sig = plan_fingerprint(self) + "|ratio"
+        adaptive = (skip_ratio < 1.0 and cache is not None
+                    and self.plan.num_keys > 0)
+        if adaptive and cache.get(sig) is not None \
+                and cache[sig] > skip_ratio:
+            yield self._passthrough(first)
+            for b in it:
+                yield self._passthrough(b)
+            return
+        p0 = update(first)
+        second = next(it, None)
+        ratio = None
+        if adaptive and sig not in cache and p0.capacity >= first.capacity:
+            ratio = p0.num_rows_host() / max(first.num_rows_hint(), 1)
+            cache[sig] = ratio
+            ctx.ratio_writes.append(sig)
+        if second is None:
+            yield p0
+            return
+        if ratio is not None and ratio > skip_ratio:
+            yield p0
+            while second is not None:
+                yield self._passthrough(second)
+                second = next(it, None)
+            return
+        partials = [p0, update(second)]
+        partials.extend(update(b) for b in it)
+        yield merge(concat_device(
+            partials, self.plan.partial_schema, ctx.conf.capacity_growth,
+            ctx.device, dm=device_manager_of(ctx)))
+
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec import outofcore as ooc
         conf = ctx.conf
         skip_ratio = float(conf.get(C.AGG_SKIP_RATIO.key))
+        runtime_skip = conf.get_bool(C.AGG_RUNTIME_SKIP.key, True)
         dense = self._dense_group_plan(ctx)
         # dense keys outrank the hash table (an exact composite key, one
         # sort operand); the hash table engages where dense cannot
@@ -681,8 +730,9 @@ class TpuHashAggregateExec(TpuExec):
                         return
                     src = lambda pre=prefix: iter(pre)  # noqa: E731
                 if self.mode == "partial":
-                    yield from self._partial(ctx, src, update, merge,
-                                             skip_ratio)
+                    partial = (self._partial if runtime_skip
+                               else self._first_batch_partial)
+                    yield from partial(ctx, src, update, merge, skip_ratio)
                     return
                 merged = concat_device(list(src()), self.plan.partial_schema,
                                        growth, ctx.device,
@@ -954,15 +1004,16 @@ class TpuScanExec(TpuExec):
     def partitions(self, ctx: ExecContext) -> List[Partition]:
         from spark_rapids_tpu_torch.exec.cpu import kept_splits
         from spark_rapids_tpu_torch.exec.transitions import (
-            cache_uploads, chain_partitions, pack_splits, replay_cached,
-            scan_cache_for, upload_blocked_chars, upload_frames,
-            upload_partition,
+            cache_uploads, chain_partitions, dict_enabled, pack_splits,
+            replay_cached, scan_cache_for, upload_blocked_chars,
+            upload_frames, upload_partition,
         )
         max_rows = ctx.conf.batch_size_rows
         cache = scan_cache_for(ctx, self.source, self._schema, max_rows,
                                self.pushed_filters)
         dict_state: dict = {}
         max_stride = upload_blocked_chars(ctx.conf)
+        dict_encode = dict_enabled(ctx.conf)
         splits = kept_splits(ctx, self.source, self.pushed_filters)
         raw_parts = self.source.raw_partitions(
             max_stride, splits=splits,
@@ -982,7 +1033,7 @@ class TpuScanExec(TpuExec):
                                         ctx.device, ctx.session, meter)
             return upload_frames(part, max_rows, dict_state, ctx.device,
                                  ctx.session, meter, max_stride,
-                                 self._schema)
+                                 self._schema, dict_encode)
 
         def make(i: int, part: Partition) -> Partition:
             def run() -> Iterator[DeviceBatch]:

@@ -78,13 +78,22 @@ def upload_blocked_chars(conf=None) -> int:
     """Max byte stride of the char-slab layout for string columns that do
     not dictionary-encode (``spark.rapids.sql.dict.blockedChars`` and its
     ``.maxStride``, as the JAX package reads them), or 0 when slabs are
-    off; a longer column uploads as plain offsets and chars."""
+    off (or ``spark.rapids.sql.dict.enabled`` is false, as in the JAX
+    package); a longer column uploads as plain offsets and chars."""
     if conf is None:
         return MAX_SLAB_STRIDE
+    if not conf.get_bool("spark.rapids.sql.dict.enabled", True):
+        return 0
     if not conf.get_bool("spark.rapids.sql.dict.blockedChars", True):
         return 0
     return max(0, conf.get_int("spark.rapids.sql.dict.blockedChars.maxStride",
                                MAX_SLAB_STRIDE))
+
+
+def dict_enabled(conf) -> bool:
+    """``spark.rapids.sql.dict.enabled``: whether a pandas upload
+    dictionary-encodes its columns."""
+    return conf.get_bool("spark.rapids.sql.dict.enabled", True)
 
 
 def _as_rowgroup(df, schema: Schema) -> RawRowGroup:
@@ -257,7 +266,8 @@ def note_bounds(session, name: str, lo: int, hi: int) -> None:
 def upload_frames(part: Partition, max_rows: int, dict_state: dict,
                   device, session=None, meter: bool = True,
                   max_stride: int = MAX_SLAB_STRIDE,
-                  schema: Optional[Schema] = None
+                  schema: Optional[Schema] = None,
+                  dict_encode: bool = True
                   ) -> Iterator[DeviceBatch]:
     """DeviceBatches of a partition of pandas frames, at most ``max_rows``
     rows each. ``dict_state`` is shared by every partition of one upload,
@@ -268,7 +278,9 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
     (a cached upload, metered by the catalog). ``max_stride`` is the
     widest char slab (``upload_blocked_chars``). A file scan passes its
     ``schema``, whose types the columns then take (a host reader's date
-    column is a column of ``datetime.date`` objects)."""
+    column is a column of ``datetime.date`` objects). ``dict_encode``
+    off (``spark.rapids.sql.dict.enabled=false``) uploads no
+    dictionary."""
     for df in part():
         note_scan_stats(session, df)
         for lo in range(0, max(len(df), 1), max_rows):
@@ -279,7 +291,8 @@ def upload_frames(part: Partition, max_rows: int, dict_state: dict,
                 with sync_scope("scan.upload") as sc:
                     batch = DeviceBatch.from_pandas(
                         chunk, dict_state, device=device,
-                        slab_stride=max_stride, schema=schema)
+                        slab_stride=max_stride, schema=schema,
+                        dict_encode=dict_encode)
                     sc.add_bytes(batch.device_memory_size())
                 compileledger.note_transfer(time.perf_counter() - t0, "h2d")
             if PROGRESS.enabled:
@@ -310,7 +323,8 @@ class HostToDeviceExec(PhysicalPlan):
                     ctx.session.semaphore.acquire_if_necessary()
                 for batch in upload_frames(
                         part, max_rows, dict_state, ctx.device,
-                        max_stride=upload_blocked_chars(ctx.conf)):
+                        max_stride=upload_blocked_chars(ctx.conf),
+                        dict_encode=dict_enabled(ctx.conf)):
                     _meter(ctx.session, batch)
                     yield batch
             return run

@@ -50,7 +50,8 @@ class TpuDeviceManager:
     # --- the budget ---------------------------------------------------------
     def _probe_total_bytes(self) -> int:
         if self.device.type == "cuda":
-            return int(torch.cuda.mem_get_info(self.device)[1])
+            from spark_rapids_tpu_torch.shims.loader import shims
+            return shims().mem_get_info(self.device)[1]
         if self.device.type == "cpu":
             return CPU_ASSUMED_BYTES
         raise ValueError(f"no memory budget for device {self.device}")

@@ -8,7 +8,8 @@ executors never share a device
 GpuDeviceManager.scala:72-96). As in the JAX package, a claim is an
 exclusive OS file lock per device ordinal: two executor processes racing
 for one card resolve through ``flock``. The ordinals are the CUDA
-devices PyTorch sees, ``range(torch.cuda.device_count())``.
+devices PyTorch sees, ``range(torch.cuda.device_count())`` (through
+the shims, ``shims/loader.py``).
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def _try_claim(ordinal: int) -> Optional[DeviceClaim]:
 
 
 def visible_device_ordinals() -> List[int]:
-    import torch
-    return list(range(torch.cuda.device_count()))
+    from spark_rapids_tpu_torch.shims.loader import shims
+    return list(range(shims().device_count()))
 
 
 def discover_and_claim(ordinals: Optional[List[int]] = None) -> DeviceClaim:

@@ -462,6 +462,41 @@ def customer_segment(s, t, segment: str = "BUILDING"):
     return t["customer"].filter(F.col("c_mktsegment") == segment)
 
 
+class TpchTables:
+    """Load or generate the TPC-H tables as DataFrames."""
+
+    @staticmethod
+    def generate(session, sf: float, num_partitions: int = 4):
+        from spark_rapids_tpu_torch.models import tpch_data as gen
+        return {
+            "lineitem": session.create_dataframe(gen.gen_lineitem(sf),
+                                                 num_partitions),
+            "orders": session.create_dataframe(gen.gen_orders(sf),
+                                               num_partitions),
+            "customer": session.create_dataframe(gen.gen_customer(sf),
+                                                 num_partitions),
+            "supplier": session.create_dataframe(gen.gen_supplier(sf),
+                                                 num_partitions),
+            "part": session.create_dataframe(gen.gen_part(sf),
+                                             num_partitions),
+            "partsupp": session.create_dataframe(gen.gen_partsupp(sf),
+                                                 num_partitions),
+            "nation": session.create_dataframe(gen.gen_nation(), 1),
+            "region": session.create_dataframe(gen.gen_region(), 1),
+        }
+
+    @staticmethod
+    def from_parquet(session, path: str):
+        import os
+        out = {}
+        for name in ("lineitem", "orders", "customer", "supplier", "part",
+                     "nation", "region"):
+            f = os.path.join(path, f"{name}.parquet")
+            if os.path.exists(f):
+                out[name] = session.read.parquet(f)
+        return out
+
+
 QUERIES = {
     "q1": q1, "q2": q2, "q3": q3, "q4": q4, "q5": q5, "q6": q6, "q7": q7,
     "q8": q8, "q9": q9, "q10": q10, "q11": q11, "q12": q12, "q13": q13,

@@ -56,8 +56,8 @@ class HostArena:
 
     def _tensor(self) -> torch.Tensor:
         if self._base is None:
-            self._base = torch.empty(self.capacity, dtype=torch.uint8,
-                                     pin_memory=self.pinned)
+            from spark_rapids_tpu_torch.shims.loader import shims
+            self._base = shims().empty_host(self.capacity, self.pinned)
         return self._base
 
     def _round(self, size: int) -> int:

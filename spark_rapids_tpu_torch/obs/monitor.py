@@ -150,7 +150,8 @@ def _device_info(device) -> Dict[str, Any]:
     if dev.type != "cuda":
         return {"platform": dev.type, "name": dev.type}
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    free, total = torch.cuda.mem_get_info(idx)
+    from spark_rapids_tpu_torch.shims.loader import shims
+    free, total = shims().mem_get_info(idx)
     return {"platform": "gpu", "name": torch.cuda.get_device_name(idx),
             "index": idx, "count": torch.cuda.device_count(),
             "freeBytes": int(free), "totalBytes": int(total),
@@ -616,9 +617,43 @@ def install_signal_diagnostics() -> bool:
         except Exception:  # noqa: BLE001 — a handler must never raise
             pass
 
+    # the handler carries what it replaced, so that
+    # ``uninstall_signal_diagnostics`` can hand the signal back
+    _handler.replaced = current
     try:
         signal.signal(signal.SIGUSR1, _handler)
     except (ValueError, OSError):
         return False
     _SIGNAL_INSTALLED = True
     return True
+
+
+def uninstall_signal_diagnostics() -> bool:
+    """Hand SIGUSR1 back: while the handler in place is one that
+    ``install_signal_diagnostics`` installed, put back the handler it
+    replaced and clear the installed flag; a handler installed after it,
+    by anyone, stays. Main thread only. Returns whether a port handler
+    was removed. A process holding both packages needs it: the JAX
+    package's install never replaces a foreign handler."""
+    global _SIGNAL_INSTALLED
+    import signal
+    if not hasattr(signal, "SIGUSR1"):
+        return False
+    if threading.current_thread() is not threading.main_thread():
+        return False
+    removed = False
+    current = signal.getsignal(signal.SIGUSR1)
+    # nested installs (a test that reset the flag) each replaced the one
+    # before: unwind to the first foreign handler
+    while (getattr(current, "__module__", None) == __name__
+           and hasattr(current, "replaced")):
+        previous = current.replaced
+        try:
+            signal.signal(signal.SIGUSR1, previous if previous is not None
+                          else signal.SIG_DFL)
+        except (ValueError, OSError):
+            return removed
+        removed = True
+        current = signal.getsignal(signal.SIGUSR1)
+    _SIGNAL_INSTALLED = False
+    return removed

@@ -351,6 +351,21 @@ def occupancy_pct(sync_seconds: float,
 # ---------------------------------------------------------------------------
 
 _DEBUG_MODES = {"log": "warn", "disallow": "error"}
+# the audit mode in force ("log", "disallow" or None), as the JAX
+# package's guard_mode reports it; the query body's guard_context arms it
+_GUARD = {"mode": None}
+
+
+def set_guard_mode(mode: Optional[str]) -> None:
+    """Record the audit mode (``spark.rapids.tpu.debug.transferGuard``):
+    "log" or "disallow", anything else None. ``guard_context`` sets it
+    for the query body; every ``sync_scope`` lifts the card's sync debug
+    mode whatever it is."""
+    _GUARD["mode"] = mode if mode in ("log", "disallow") else None
+
+
+def guard_mode() -> Optional[str]:
+    return _GUARD["mode"]
 
 
 @contextlib.contextmanager
@@ -360,14 +375,19 @@ def guard_context(mode: Optional[str], device="cuda"):
     on exit; every ``sync_scope`` lifts it. No effect for ``off``, or on a
     CPU device, where no host wait exists to catch."""
     debug = _DEBUG_MODES.get(mode)
-    if debug is None or torch.device(device).type != "cuda":
-        yield
-        return
-    prev = _set_guard_mode(debug)
+    audit = guard_mode()
+    set_guard_mode(mode)
     try:
-        yield
+        if debug is None or torch.device(device).type != "cuda":
+            yield
+            return
+        prev = _set_guard_mode(debug)
+        try:
+            yield
+        finally:
+            _set_guard_mode(prev)
     finally:
-        _set_guard_mode(prev)
+        set_guard_mode(audit)
 
 
 def _set_guard_mode(mode):

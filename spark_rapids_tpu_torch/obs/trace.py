@@ -68,8 +68,8 @@ class Span:
             self.args["parent"] = stack[-1].name
         stack.append(self)
         if tr.nvtx:
-            import torch
-            torch.cuda.nvtx.range_push(self.name)
+            from spark_rapids_tpu_torch.shims.loader import shims
+            shims().nvtx_push(self.name)
             self._nvtx = True
         self._t0 = time.perf_counter()
         return self
@@ -77,8 +77,8 @@ class Span:
     def __exit__(self, exc_type, exc, tb):
         dur = time.perf_counter() - self._t0
         if self._nvtx:
-            import torch
-            torch.cuda.nvtx.range_pop()
+            from spark_rapids_tpu_torch.shims.loader import shims
+            shims().nvtx_pop()
         stack = self.tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()

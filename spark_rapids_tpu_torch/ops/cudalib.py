@@ -34,12 +34,17 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from spark_rapids_tpu_torch.shims.loader import ShimLoader
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("compact", "hash_agg", "hash_join", "parquet_decode")
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the architecture flag comes from the running release's shims
+# (shims/loader.py); the string is the compile cache's and the pre-warm
+# manifest's key, byte for byte
+NVCC_FLAGS = (*ShimLoader.get_shims().nvcc_arch_flags(), "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: name -> {function: (restype, argtypes)}

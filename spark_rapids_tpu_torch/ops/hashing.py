@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar import dictionary as _dictionary
+
 _M64 = (1 << 64) - 1
 
 
@@ -193,11 +195,20 @@ def string_poly_hashes(offsets: torch.Tensor, chars: torch.Tensor,
 def string_poly_hashes_col(col):
     """The two polynomial hashes of a string column: a dictionary column
     gathers its per-value tables by code (``columnar/dictionary.py``), a
-    slab column hashes its words. All are bit-identical to the JAX
-    package's char-scanning hashes of the same values. The packed-chars
-    layout hashes its chars (``string_poly_hashes``)."""
-    from spark_rapids_tpu_torch.columnar.column import host_to_device
+    slab column hashes its words (under ``dict.hashValues=false`` a
+    dictionary column hashes its decoded chars). All are bit-identical to
+    the JAX package's char-scanning hashes of the same values. The
+    packed-chars layout hashes its chars (``string_poly_hashes``)."""
+    from spark_rapids_tpu_torch.columnar import dictionary
+    from spark_rapids_tpu_torch.columnar.column import (
+        host_to_device, plain_parts,
+    )
     if col.dict_values is not None and col.dict_codes is not None:
+        if not dictionary.hash_values_enabled():
+            # spark.rapids.sql.dict.hashValues=false: the same values from
+            # the decoded chars
+            chars, offsets = plain_parts(col)
+            return string_poly_hashes(offsets, chars, col.validity)
         from spark_rapids_tpu_torch.columnar.dictionary import (
             value_hash_tables,
         )
@@ -286,3 +297,8 @@ def np_combine_hashes(hs) -> np.ndarray:
     for h in hs:
         out = np_splitmix64(np.asarray(out ^ h))
     return out
+
+
+# the host splitmix64 of the dictionaries' value hashes, under the JAX
+# package's name here
+np_splitmix64 = _dictionary.np_splitmix64

@@ -140,14 +140,18 @@ DICT_MERGE_MAX_CARD = 1 << 14
 def _concat_dict(parts: Sequence[DeviceColumn]):
     """(values, per-part codes) for a concat keeping dictionary codes, or
     (None, None): identical dictionaries pass through; different ones merge
-    by union + an O(cardinality) remap per part."""
+    by union + an O(cardinality) remap per part, under
+    ``spark.rapids.sql.dict.mergeOnExchange`` (else the caller decodes)."""
+    from spark_rapids_tpu_torch.columnar import dictionary
     d0 = parts[0].dict_values
-    if d0 is None or any(p.dict_values is None for p in parts):
+    if d0 is None or not dictionary.mergeable(parts):
         return None, None
     if all(p.dict_values == d0 for p in parts):
         return d0, [p.dict_codes for p in parts]
-    from spark_rapids_tpu_torch.columnar.dictionary import union_dictionaries
-    vals, remaps = union_dictionaries([p.dict_values for p in parts])
+    if not dictionary.merge_exchange_enabled():
+        return None, None
+    vals, remaps = dictionary.union_dictionaries_cached(
+        [p.dict_values for p in parts])
     if len(vals) > DICT_MERGE_MAX_CARD:
         return None, None
     codes = []
@@ -188,10 +192,16 @@ MAX_PLAIN_CHARS = (1 << 31) - 1
 
 def _goes_plain(parts: Sequence[DeviceColumn]) -> bool:
     """A concat of these string parts makes plain chars: some part is
-    plain, or a slab of them would pass the stride limit."""
-    return any(p.is_plain for p in parts) or (
-        any(p.has_slab for p in parts)
-        and _concat_stride(parts) > MAX_SLAB_STRIDE)
+    plain, a slab of them would pass the stride limit, or they are
+    dictionaries that differ and do not merge (``_concat_dict``: the
+    merge is off, or the union passes its cardinality bound)."""
+    if any(p.is_plain for p in parts):
+        return True
+    if any(p.has_slab for p in parts):
+        return _concat_stride(parts) > MAX_SLAB_STRIDE
+    d0 = parts[0].dict_values
+    return (d0 is not None and any(p.dict_values != d0 for p in parts)
+            and _concat_dict(parts)[0] is None)
 
 
 def _char_capacity(p: DeviceColumn) -> int:

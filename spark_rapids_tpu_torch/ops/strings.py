@@ -685,6 +685,65 @@ def _zero_invalid(lens: torch.Tensor, validity: torch.Tensor):
 # Lengths, case maps, trim, pad, locate, replace
 # ---------------------------------------------------------------------------
 
+def civil_from_days(days: torch.Tensor):
+    """days since the epoch -> (year, month, day), Hinnant's
+    civil_from_days with floor division (``sql/exprs/datetimeexprs``)."""
+    from spark_rapids_tpu_torch.sql.exprs.datetimeexprs import (
+        civil_from_days as civil,
+    )
+    return civil(days)
+
+
+def compare_extents(data_a: torch.Tensor, sa: torch.Tensor, la: torch.Tensor,
+                    data_b: torch.Tensor, sb: torch.Tensor,
+                    lb: torch.Tensor) -> torch.Tensor:
+    """Exact elementwise lexicographic byte-order compare of string extents
+    (starts + lengths into uint8 char buffers), int8 in {-1, 0, 1}: 8
+    bytes at a time, as many rounds as the longest extent needs (its
+    length read in one counted ``strings.compareExtents`` sync). Past-end
+    bytes pack as 0x00; where every compared byte ties, the lengths
+    decide, which is exact for 0-padding."""
+    from spark_rapids_tpu_torch.obs.syncledger import sync_scope
+    n = int(sa.shape[0])
+    la, lb = la.to(torch.int64), lb.to(torch.int64)
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int8, device=sa.device)
+    with sync_scope("strings.compareExtents", nbytes=8):
+        longest = int(torch.maximum(la, lb).max().item())
+    sa, sb = sa.to(torch.int64), sb.to(torch.int64)
+
+    def pack(data, starts, lens, k):
+        img = torch.zeros(n, dtype=torch.int64, device=starts.device)
+        last = max(int(data.shape[0]) - 1, 0)
+        for b in range(8):
+            pos = k * 8 + b
+            idx = (starts + pos).clamp(0, last)
+            byte = torch.where(pos < lens, data[idx].to(torch.int64),
+                               torch.zeros_like(idx))
+            img = (img << 8) | byte
+        return img ^ _SIGN  # unsigned order as signed
+    cmp = torch.zeros(n, dtype=torch.int8, device=sa.device)
+    done = torch.zeros(n, dtype=torch.bool, device=sa.device)
+    for k in range(-(-longest // 8)):
+        au, bu = pack(data_a, sa, la, k), pack(data_b, sb, lb, k)
+        newly = ~done & (au != bu)
+        cmp = torch.where(newly, torch.where(au < bu, -1, 1).to(torch.int8),
+                          cmp)
+        done = done | newly
+    return torch.where(done, cmp, torch.sign(la - lb).to(torch.int8))
+
+
+def compare_rows(col: DevCol, rows_a: torch.Tensor,
+                 rows_b: torch.Tensor) -> torch.Tensor:
+    """Exact compare of row selections a against b of one string column
+    (any form: its plain chars and offsets, ``plain_parts``)."""
+    chars, offsets = plain_parts(col)
+    starts = offsets[:-1].to(torch.int64)
+    lens = offsets[1:].to(torch.int64) - starts
+    return compare_extents(chars, starts[rows_a], lens[rows_a],
+                           chars, starts[rows_b], lens[rows_b])
+
+
 def lengths_of(col: DevCol) -> torch.Tensor:
     """int32 byte length of each row (0 where invalid)."""
     return string_lens(col)

@@ -120,8 +120,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import DeviceBatch, Schema
 from spark_rapids_tpu_torch.config.conf import (
-    DEBUG_TRANSFER_GUARD, FUSE_COUNT_DISTINCT, SPILL_DIR, TRACE_ENABLED,
-    TRACE_NVTX, TRACE_PATH, TpuConf,
+    DEBUG_TRANSFER_GUARD, FUSE_COUNT_DISTINCT, HBM_DEBUG, REUSE_SUBTREES,
+    SPILL_DIR, TRACE_ENABLED, TRACE_NVTX, TRACE_PATH, TpuConf,
 )
 from spark_rapids_tpu_torch.exec.base import ExecContext
 from spark_rapids_tpu_torch.exec.cpu import concat_host_frames
@@ -289,6 +289,10 @@ class TpuSparkSession:
         from spark_rapids_tpu_torch.serving import prewarm
         compilecache.SHARED.configure_from_conf(conf)
         prewarm.maybe_start_from_conf(conf, device)
+        if conf.get_bool(HBM_DEBUG.key, False):
+            # creation stacks on every tracked buffer (memory/leak.py)
+            from spark_rapids_tpu_torch.memory.leak import TRACKER
+            TRACKER.capture_stacks = True
         if conf.get_bool("spark.rapids.tpu.ui.signalDiagnostics", True):
             from spark_rapids_tpu_torch.obs.monitor import (
                 install_signal_diagnostics,
@@ -348,8 +352,9 @@ class TpuSparkSession:
 
     def stop(self) -> None:
         """Tear the session down: free cached and spilled buffers, detach
-        the spill handler and close the catalog (its arena and spill
-        files)."""
+        the spill handler, close the catalog (its arena and spill files)
+        and hand SIGUSR1 back to the handler the session's install
+        replaced."""
         self.clear_device_cache()
         self.clear_serving_caches()
         from spark_rapids_tpu_torch.serving import prewarm
@@ -367,6 +372,11 @@ class TpuSparkSession:
         self.buffer_catalog.close()
         if TpuSparkSession._active is self:
             TpuSparkSession._active = None
+        # SIGUSR1 goes back to the handler the install replaced (C.7)
+        from spark_rapids_tpu_torch.obs.monitor import (
+            uninstall_signal_diagnostics,
+        )
+        uninstall_signal_diagnostics()
 
     # --- the accelerated shuffle manager ----------------------------------
     def _make_transport(self, executor_id: str):
@@ -545,10 +555,11 @@ class TpuSparkSession:
                     fuse_count_distinct,
                 )
                 plan = fuse_count_distinct(plan)
-            from spark_rapids_tpu_torch.exec.reuse import (
-                reuse_common_subtrees,
-            )
-            plan = reuse_common_subtrees(plan)
+            if conf.get_bool(REUSE_SUBTREES.key, REUSE_SUBTREES.default):
+                from spark_rapids_tpu_torch.exec.reuse import (
+                    reuse_common_subtrees,
+                )
+                plan = reuse_common_subtrees(plan)
             if conf.test_enabled:
                 assert_is_on_tpu(plan, conf,
                                  overrides.explain_text("NOT_ON_TPU"))
@@ -614,7 +625,9 @@ class TpuSparkSession:
             REGISTRY.gauge("scan.prefetch.queueDepthPeak").set(0)
         t_query0 = time.perf_counter()
         from spark_rapids_tpu_torch.columnar import dictionary
+        from spark_rapids_tpu_torch.sql import scan_pipeline
         dictionary.configure_from_conf(conf)
+        scan_pipeline.configure_from_conf(conf)
         EVENTS.configure_from_conf(conf)
         syncledger.SYNC_LEDGER.configure_from_conf(conf)
         # the shared nvcc build directory, the pre-warm pass and the live

@@ -10,8 +10,9 @@ Loop (Spark's AdaptiveSparkPlanExec.getFinalPhysicalPlan shape):
   2. finalize reads inside that subtree (earlier stages it consumes),
      convert it through the full rewrite engine (the session's
      ``_convert_cpu``: TpuOverrides, TransitionOverrides with the
-     fusions, the fused count distinct and subtree reuse, applied per
-     query stage) and call the converted exchange's
+     fusions, the fused count distinct and, under
+     ``spark.rapids.sql.reuseSubtrees.enabled``, subtree reuse, applied
+     per query stage) and call the converted exchange's
      ``materialize_stage`` (one counted ``aqe.stageFetch`` sync a device
      stage);
   3. replace the exchange with a ``ShuffleStageRef`` and re-optimize the

@@ -332,3 +332,8 @@ def find_aggregates(expr: Expression) -> List[AggregateFunction]:
     for c in expr.children:
         out.extend(find_aggregates(c))
     return out
+
+
+def has_aggregate(expr: Expression) -> bool:
+    """True when ``expr`` holds an aggregate function."""
+    return len(find_aggregates(expr)) > 0

@@ -337,3 +337,8 @@ def first_unsupported(expr: Expression, schema: Schema,
                 return f"{node.pretty_name} has no TPU implementation"
             return f"{node.pretty_name}: {reason}"
     return None
+
+
+def is_nullable_series(s: pd.Series) -> bool:
+    """True when a pandas column holds a NULL."""
+    return bool(s.isna().any())

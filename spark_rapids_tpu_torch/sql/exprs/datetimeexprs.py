@@ -27,6 +27,7 @@ import torch
 from spark_rapids_tpu_torch.columnar import dtypes
 from spark_rapids_tpu_torch.columnar.batch import Schema, _pandas_col_dtype
 from spark_rapids_tpu_torch.columnar.dtype import DType
+from spark_rapids_tpu_torch.sql.exprs import cast as _cast
 from spark_rapids_tpu_torch.sql.exprs.core import (
     DevCol, DevValue, EvalContext, Expression,
 )
@@ -645,3 +646,8 @@ class NextDay(_DateUnit):
     def _compute(self, days):
         ahead = (self.UNITS[self.unit] - (days + 3) % 7) % 7
         return days + _where(ahead == 0, ahead * 0 + 7, ahead)
+
+
+# to_date lives beside the casts it shares its string parse with
+# (sql/exprs/cast.py); the JAX package's name here
+ToDate = _cast.ToDate

@@ -58,3 +58,8 @@ def rebuild_series(data: np.ndarray, validity: np.ndarray, dt: DType,
         s = _numpy_to_pandas(data, validity, dt)
     s.index = index
     return s
+
+
+def series_dtype(s: pd.Series) -> DType:
+    """The engine dtype of a pandas column."""
+    return _pandas_col_dtype(s)

@@ -52,17 +52,66 @@ class ExecRule:
                  tag_fn: Callable[["ExecMeta"], None],
                  convert_fn: Callable[["ExecMeta", List[PhysicalPlan]],
                                       PhysicalPlan],
-                 disabled_by_default: bool = False):
+                 disabled_by_default: bool = False,
+                 incompat: Optional[str] = None):
         self.cpu_class = cpu_class
         self.desc = desc
         self.tag_fn = tag_fn
         self.convert_fn = convert_fn
         self.disabled_by_default = disabled_by_default
+        # why the operator's results may differ from the CPU's: such a
+        # rule runs only under spark.rapids.sql.incompatibleOps.enabled
+        # or its own key (no rule of either package is incompatible yet)
+        self.incompat = incompat
 
     @property
     def conf_key(self) -> str:
         name = self.cpu_class.__name__.removeprefix("Cpu")
         return f"spark.rapids.sql.exec.{name}"
+
+
+class ExprMeta:
+    """Per-expression meta tree of the tag pass (the JAX package's
+    ``ExprMeta``; reference: BaseExprMeta, RapidsMeta.scala:566-726):
+    each node's own reason under ``conf``, so a caller can name the exact
+    offending node. ``first_reason`` is ``first_unsupported``'s answer."""
+
+    def __init__(self, expr: Expression, schema, conf=None):
+        self.expr = expr
+        reason = expr.device_supported_in(schema, conf)
+        if reason is None and type(expr).eval_device is Expression.eval_device:
+            reason = "has no TPU implementation"
+        self.reason = reason
+        self.children = [ExprMeta(c, schema, conf) for c in expr.children]
+
+    @property
+    def subtree_ok(self) -> bool:
+        return self.reason is None and all(c.subtree_ok
+                                           for c in self.children)
+
+    def first_reason(self) -> Optional[str]:
+        """The pre-order first failing node's message, worded as
+        ``first_unsupported`` words it."""
+        if self.reason is not None:
+            if self.reason == "has no TPU implementation":
+                return f"{self.expr.pretty_name} has no TPU implementation"
+            return f"{self.expr.pretty_name}: {self.reason}"
+        for c in self.children:
+            r = c.first_reason()
+            if r:
+                return r
+        return None
+
+    def explain_lines(self, depth: int = 0) -> List[str]:
+        marker = "*" if self.reason is None else "!"
+        line = "  " * depth + f"{marker} <{self.expr.pretty_name}> " \
+            f"{self.expr!r}"
+        if self.reason:
+            line += f"  <-- {self.reason}"
+        out = [line]
+        for c in self.children:
+            out.extend(c.explain_lines(depth + 1))
+        return out
 
 
 class ExecMeta:
@@ -95,9 +144,16 @@ class ExecMeta:
                 f"no TPU replacement rule for {self.plan.name}")
             return
         if not self.conf.is_operator_enabled(
-                self.rule.conf_key, self.rule.disabled_by_default):
+                self.rule.conf_key,
+                incompat=self.rule.incompat is not None,
+                disabled_by_default=self.rule.disabled_by_default):
+            extra = ""
+            if self.rule.incompat and not self.conf.incompatible_ops_enabled:
+                extra = (f" (incompatible: {self.rule.incompat}; enable with "
+                         f"{self.rule.conf_key}=true or "
+                         "spark.rapids.sql.incompatibleOps.enabled=true)")
             self.will_not_work(f"{self.plan.name} is disabled by conf "
-                               f"{self.rule.conf_key}")
+                               f"{self.rule.conf_key}{extra}")
             return
         self.rule.tag_fn(self)
 
@@ -161,6 +217,10 @@ _STRING_RED_KINDS = ("count_valid", "min", "max", "first", "last",
 def _tag_agg(meta: ExecMeta) -> None:
     plan = meta.plan.plan  # AggPlan
     mode = meta.plan.mode
+    replace = meta.conf.hash_agg_replace_mode
+    if replace != "all" and replace != mode:
+        meta.will_not_work(
+            f"hashAgg replace mode {replace!r} excludes {mode} aggregation")
     schema = plan.child_schema
     for name, e in plan.grouping:
         meta.check_exprs([e], f"group key {name}", schema)

@@ -21,7 +21,10 @@ Contract (as in the JAX package):
     consuming thread when it is pulled.
 
 Backpressure: planned-but-unconsumed splits are host memory; submission
-stalls once their bytes exceed ``max_bytes``.
+stalls once their bytes exceed ``max_bytes``. Depth, threads and the
+byte budget are the JAX package's ``spark.rapids.sql.scan.prefetchDepth``,
+``decodeThreads`` and ``prefetchMaxBytes`` (``pipeline_config``), which
+the session applies per query.
 
 Observability, as in the JAX package: each split's planning is a
 ``scan.decode`` span on its planning thread, and a ``PROGRESS.scan_split``
@@ -45,7 +48,7 @@ import os
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
-from typing import Callable, Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
@@ -55,9 +58,18 @@ from spark_rapids_tpu_torch.obs.trace import TRACER
 # one planning task per split: () -> a RawRowGroup or a pandas frame
 DecodeFn = Callable[[], object]
 Partition = Callable[[], Iterator[object]]
+# a split's (file, planning task), the JAX package's task shape; here
+# ``build_partitions`` takes the two as parallel lists
+ScanTask = Tuple[Optional[str], DecodeFn]
 
 DEFAULT_DEPTH = 2
 DEFAULT_MAX_BYTES = 256 << 20
+
+# the conf's (depth, threads, max bytes), set per query by the session
+# (``configure_from_conf``); process-wide, like the session conf it
+# mirrors. A scan that passes no depth reads it.
+_CONFIG = {"depth": DEFAULT_DEPTH, "threads": 0,
+           "max_bytes": DEFAULT_MAX_BYTES}
 
 _POOL: Optional[ThreadPoolExecutor] = None
 _POOL_SIZE = 0
@@ -72,6 +84,36 @@ _SPLITS = REGISTRY.counter("scan.prefetch.splits")
 _CANCELLED = REGISTRY.counter("scan.prefetch.cancelled")
 _BYTES = REGISTRY.counter("scan.prefetch.bytesDecoded")
 _BUDGET_STALLS = REGISTRY.counter("scan.prefetch.budgetStalls")
+
+
+def _conf_int(conf, key: str, default: int) -> int:
+    try:
+        return int(conf.get(key, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def pipeline_config(conf):
+    """(prefetch_depth, decode_threads, max_bytes) from a TpuConf
+    (``spark.rapids.sql.scan.prefetchDepth``, ``decodeThreads``, 0 =
+    auto, and ``prefetchMaxBytes``, clamped to the host spill budget so
+    planned splits never outgrow the spill framework's host memory)."""
+    depth = _conf_int(conf, "spark.rapids.sql.scan.prefetchDepth",
+                      DEFAULT_DEPTH)
+    threads = _conf_int(conf, "spark.rapids.sql.scan.decodeThreads", 0)
+    if threads <= 0:
+        threads = default_threads()
+    max_bytes = _conf_int(conf, "spark.rapids.sql.scan.prefetchMaxBytes",
+                          DEFAULT_MAX_BYTES)
+    spill = _conf_int(conf, "spark.rapids.memory.host.spillStorageSize",
+                      1 << 30)
+    return depth, threads, min(max_bytes, spill)
+
+
+def configure_from_conf(conf) -> None:
+    """Make the conf's pipeline the one scans without their own take."""
+    depth, threads, max_bytes = pipeline_config(conf)
+    _CONFIG.update(depth=depth, threads=threads, max_bytes=max_bytes)
 
 
 def default_threads() -> int:
@@ -243,11 +285,14 @@ class ScanPrefetcher:
 
 
 def build_partitions(tasks: List[DecodeFn], paths: List[str],
-                     depth: int = DEFAULT_DEPTH,
-                     threads: Optional[int] = None) -> List[Partition]:
+                     depth: Optional[int] = None,
+                     threads: Optional[int] = None,
+                     max_bytes: Optional[int] = None) -> List[Partition]:
     """One partition per split. ``depth`` > 0 pulls each split from a
-    shared ScanPrefetcher on ``threads`` planning threads; ``depth`` 0 is
-    the serial reader, planning on the consuming thread at pull time.
+    shared ScanPrefetcher on ``threads`` planning threads under a
+    ``max_bytes`` budget; ``depth`` 0 is the serial reader, planning on
+    the consuming thread at pull time. What the caller leaves None comes
+    from the conf of the session's last query (``configure_from_conf``).
     A partition publishes its split's file (``paths``) to the task
     context (``exec/taskctx``) on the consuming thread while its yield is
     pending, so input_file_name() reads the file of the rows being
@@ -261,6 +306,8 @@ def build_partitions(tasks: List[DecodeFn], paths: List[str],
         finally:
             taskctx.clear_input_file()
 
+    if depth is None:
+        depth = _CONFIG["depth"]
     if depth <= 0:
         def make_serial(i: int) -> Partition:
             def run():
@@ -268,9 +315,10 @@ def build_partitions(tasks: List[DecodeFn], paths: List[str],
             return run
         return [make_serial(i) for i in range(len(tasks))]
 
-    prefetcher = ScanPrefetcher(tasks, depth,
-                                decode_pool(threads or default_threads()),
-                                DEFAULT_MAX_BYTES)
+    prefetcher = ScanPrefetcher(
+        tasks, depth,
+        decode_pool(threads or _CONFIG["threads"] or default_threads()),
+        max_bytes if max_bytes is not None else _CONFIG["max_bytes"])
 
     def make(i: int) -> Partition:
         def run():

@@ -41,7 +41,7 @@ from spark_rapids_tpu_torch.columnar import dtype as dtmod
 from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.sql import parquet_raw as praw
 from spark_rapids_tpu_torch.sql.scan_pipeline import (
-    DEFAULT_DEPTH, Partition, build_partitions,
+    Partition, build_partitions,
 )
 
 
@@ -82,7 +82,7 @@ class DataSource:
         kept part of a source with ``prune_splits``; default all)."""
         raise NotImplementedError
 
-    def raw_partitions(self, blocked: int, depth: int = DEFAULT_DEPTH,
+    def raw_partitions(self, blocked: int, depth: Optional[int] = None,
                        threads: Optional[int] = None, splits=None,
                        page_cache=None) -> Optional[List[Partition]]:
         """Device-decode partitions (``ops/parquet_decode.RawRowGroup``
@@ -343,7 +343,7 @@ class ParquetSource(DataSource):
                 keep.append((p, rg, pvals))
         return keep, len(self.splits) - len(keep)
 
-    def raw_partitions(self, blocked: int, depth: int = DEFAULT_DEPTH,
+    def raw_partitions(self, blocked: int, depth: Optional[int] = None,
                        threads: Optional[int] = None, splits=None,
                        page_cache=None) -> List[Partition]:
         """Device-decode split plan of ``splits`` (default all): planning

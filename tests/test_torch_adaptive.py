@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.testing.datagen import gen_skewed_join_frames
 from tests.querytest import assert_frames_equal, with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 AQE_ON = {"spark.rapids.sql.adaptive.enabled": True}
 

@@ -26,6 +26,7 @@ from spark_rapids_tpu_torch.ops import aggregate, densered, rowops
 from spark_rapids_tpu_torch.sql import functions as PF
 from spark_rapids_tpu_torch.sql.exprs import core, evalbridge
 from spark_rapids_tpu_torch.testing.reference import batch_from_reference
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 

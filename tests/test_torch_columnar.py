@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.ops import rowops
 from spark_rapids_tpu_torch.testing.reference import (
     batch_from_reference, batch_to_numpy,
 )
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -257,6 +258,13 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import spark_rapids_tpu_torch.nativelib\n"
         "import spark_rapids_tpu_torch.parallel.distributed\n"
         "import spark_rapids_tpu_torch.exec.outofcore\n"
+        "import spark_rapids_tpu_torch.ml\n"
+        "import spark_rapids_tpu_torch.ml.columnar_rdd\n"
+        "import spark_rapids_tpu_torch.shims\n"
+        "import spark_rapids_tpu_torch.shims.loader\n"
+        "import spark_rapids_tpu_torch.tools.api_validation\n"
+        "import spark_rapids_tpu_torch.testing.exportcheck\n"
+        "import spark_rapids_tpu_torch.testing.signals\n"
         "import importlib, pkgutil, spark_rapids_tpu_torch\n"
         "for m in pkgutil.walk_packages(spark_rapids_tpu_torch.__path__,\n"
         "                               'spark_rapids_tpu_torch.'):\n"

@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.obs.compilecache import SHARED, locked_append
 from spark_rapids_tpu_torch.obs.events import EVENTS
 from spark_rapids_tpu_torch.obs.metrics import REGISTRY
 from spark_rapids_tpu_torch.ops import cudalib
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIB = "compact"

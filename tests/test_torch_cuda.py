@@ -16,6 +16,7 @@ import torch
 
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.testing import hashcheck
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 
@@ -2196,3 +2197,65 @@ def test_monitor_status_reports_the_card(cuda_device):
     finally:
         monitor.stop()
         s.stop()
+
+
+@pytest.mark.cuda
+def test_columnar_rdd_export_on_the_card(cuda_device):
+    """The ColumnarRdd export of a filtered frame (``ml/columnar_rdd.py``):
+    batches whose columns are CUDA tensors, CUDA feature matrices, and no
+    counted sync (a filter-only plan over cached uploads: the row counts
+    stay on the card; an upload itself is one counted ``scan.upload``)."""
+    from spark_rapids_tpu_torch.ml import ColumnarRdd
+    from spark_rapids_tpu_torch.ml.columnar_rdd import to_feature_matrix
+    from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+    from spark_rapids_tpu_torch.session import TpuSparkSession
+    from spark_rapids_tpu_torch.sql import functions as F
+    s = (TpuSparkSession.builder()
+         .config("spark.rapids.sql.exportColumnarRdd", True)
+         .config("spark.rapids.sql.cacheDeviceScans", True)
+         .config("spark.rapids.sql.test.enabled", True).get_or_create())
+    try:
+        pdf = pd.DataFrame({"f1": np.linspace(0, 1, 4096),
+                            "f2": np.linspace(2, 3, 4096),
+                            "label": (np.arange(4096) % 2).astype(float)})
+        df = s.create_dataframe(pdf, 2).filter(F.col("f1") > 0.25)
+        df.collect()  # the uploads, cached
+        torch.cuda.synchronize()
+        before = SYNCS.total()
+        mats = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for part in ColumnarRdd.convert(df):
+                for batch in part():
+                    assert all(c.data.is_cuda for c in batch.columns)
+                    mats.append(to_feature_matrix(batch, ["f1", "f2"],
+                                                  "label"))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert SYNCS.total() == before
+        assert all(t.is_cuda for m in mats for t in m)
+        rows = sum(int(m[2].sum()) for m in mats)
+        assert rows == int((pdf.f1 > 0.25).sum())
+        x = torch.cat([m[0][m[2]] for m in mats]).cpu().numpy()
+        want = pdf[pdf.f1 > 0.25][["f1", "f2"]].to_numpy(np.float32)
+        np.testing.assert_array_equal(np.sort(x, axis=0),
+                                      np.sort(want, axis=0))
+    finally:
+        s.stop()
+
+
+@pytest.mark.cuda
+def test_shims_equal_the_direct_calls(cuda_device):
+    from spark_rapids_tpu_torch.ops import cudalib
+    from spark_rapids_tpu_torch.shims.loader import ShimLoader
+    shims = ShimLoader.get_shims()
+    free, total = shims.mem_get_info(cuda_device)
+    assert total == torch.cuda.mem_get_info(cuda_device)[1]
+    assert 0 < free <= total
+    assert shims.device_count() == torch.cuda.device_count()
+    assert shims.nvcc_arch_flags()[0] in cudalib.NVCC_FLAGS
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cudalib.NVCC_FLAGS
+    buf = shims.empty_host(4096, pinned=True)
+    assert buf.is_pinned() and buf.numel() == 4096
+    shims.nvtx_push("srt-shim-test")
+    shims.nvtx_pop()

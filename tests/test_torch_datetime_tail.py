@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.testing import exprcases as E
 from tests.test_torch_exprs_tail import (
     _DATE_WORDS, assert_same_reasons, port_session, run_all,
 )
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 500
 NAMES = [n for n in E.CASES if n.startswith(_DATE_WORDS)]

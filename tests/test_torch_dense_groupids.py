@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.ops.aggregate import count_distinct_reduce
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.testing.reference import batch_from_reference
 from tests.test_torch_session_joins import _rows
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _keyed(n: int, lo: int, hi: int, seed: int, nulls: float = 0.1,

@@ -22,6 +22,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.testing.tpcxbbcases import same_rows
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _frame(n: int = 400, seed: int = 7) -> pd.DataFrame:

@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.testing import exprcases as E
 from tests.querytest import with_cpu_session, with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 400
 _DATE_WORDS = ("date", "add_months", "months", "trunc", "unix", "from_unixtime",

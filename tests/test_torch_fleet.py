@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.serving.fleet.router import (
     FleetRouter, LocalWorker, snapshot_all,
 )
 from spark_rapids_tpu_torch.session import TpuSparkSession
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -23,6 +23,7 @@ from spark_rapids_tpu.sql import functions as RF
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import assert_frames_equal, with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _session(**conf):

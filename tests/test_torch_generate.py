@@ -27,6 +27,7 @@ from spark_rapids_tpu_torch.ops import generate as gen_ops
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import assert_frames_equal, with_tpu_session
 from tests.test_torch_exprs_tail import assert_same_reasons, port_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 300
 WORDS = ["a", "bb", "ccc", "dé", "e", "", "ff", "ggg", "h" * 9]

@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.columnar.batch import Schema
 from spark_rapids_tpu_torch.ops import aggregate, groupby, hashing, sortops
 from spark_rapids_tpu_torch.testing import datagen
 from spark_rapids_tpu_torch.testing.reference import batch_from_reference
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 

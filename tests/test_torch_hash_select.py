@@ -31,6 +31,7 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql.exprs.core import DevCol
 from spark_rapids_tpu_torch.sql.exprs.evalbridge import make_context
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 300
 

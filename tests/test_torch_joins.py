@@ -41,6 +41,7 @@ from spark_rapids_tpu_torch.ops import joins, kernels as K
 from spark_rapids_tpu_torch.testing import hashcheck
 from spark_rapids_tpu_torch.testing.reference import batch_from_reference
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 SF = 0.002

@@ -20,6 +20,7 @@ from spark_rapids_tpu.ops import pallas_kernels as ref_pk
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.ops.floatbits import f64_bits
 from spark_rapids_tpu_torch.ops.hashing import splitmix64
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 

@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore
 from spark_rapids_tpu_torch.nativelib import HashedPriorityQueue, HostArena
 from spark_rapids_tpu_torch.obs.metrics import MetricsRegistry
 from spark_rapids_tpu_torch.obs.syncledger import SYNCS
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 # --- leak tracker (the JAX package's tests/test_leak_tracker.py) ----------

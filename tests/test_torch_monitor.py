@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.obs.events import EVENTS, read_events
 from spark_rapids_tpu_torch.obs.progress import PROGRESS
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -372,3 +373,97 @@ def test_never_replaces_an_application_handler(own_sigusr1):
     signal.signal(signal.SIGUSR1, app_handler)
     assert monitor.install_signal_diagnostics() is False
     assert signal.getsignal(signal.SIGUSR1) is app_handler
+
+
+# ---------------------------------------------------------------------------
+# C.7: a port session hands SIGUSR1 back
+# ---------------------------------------------------------------------------
+
+def _jax_install_returns_true() -> None:
+    """The JAX package's install takes SIGUSR1 (it never replaces a
+    foreign handler); its handler and flag are put back afterwards."""
+    import signal
+
+    from spark_rapids_tpu.obs import monitor as ref_monitor
+    before = signal.getsignal(signal.SIGUSR1)
+    flag = ref_monitor._SIGNAL_INSTALLED
+    ref_monitor._SIGNAL_INSTALLED = False
+    try:
+        assert ref_monitor.install_signal_diagnostics() is True
+        assert signal.getsignal(signal.SIGUSR1) is not before
+    finally:
+        signal.signal(signal.SIGUSR1, before)
+        ref_monitor._SIGNAL_INSTALLED = flag
+
+
+def _port_session_holding_sigusr1():
+    import signal
+    s = (TpuSparkSession.builder().device("cpu")
+         .config("spark.rapids.tpu.ui.signalDiagnostics", True)
+         .get_or_create())
+    _df(s).filter(F.col("v") > 0.5).collect()
+    assert monitor._SIGNAL_INSTALLED
+    assert getattr(signal.getsignal(signal.SIGUSR1), "__module__", "") \
+        == monitor.__name__
+    return s
+
+
+def test_stop_hands_sigusr1_back(own_sigusr1):
+    import signal
+    s = _port_session_holding_sigusr1()
+    s.stop()
+    assert not monitor._SIGNAL_INSTALLED
+    assert signal.getsignal(signal.SIGUSR1) is signal.SIG_DFL
+    _jax_install_returns_true()
+
+
+def test_fixture_teardown_hands_sigusr1_back(own_sigusr1):
+    """The module-scoped fixture every port test module imports
+    (``testing/signals.release_sigusr1``) hands the signal back at the
+    module's end for sessions that are never stopped."""
+    import signal
+
+    from spark_rapids_tpu_torch.testing import signals
+    _port_session_holding_sigusr1()
+    fixture = getattr(signals.release_sigusr1, "__pytest_wrapped__", None)
+    fn = fixture.obj if fixture is not None else \
+        signals.release_sigusr1.__wrapped__
+    teardown = fn()
+    next(teardown)
+    with pytest.raises(StopIteration):
+        next(teardown)
+    assert not monitor._SIGNAL_INSTALLED
+    assert signal.getsignal(signal.SIGUSR1) is signal.SIG_DFL
+    _jax_install_returns_true()
+
+
+def test_jax_monitor_tests_install_after_a_port_module(tmp_path):
+    """In a fresh process, as a pytest-xdist worker under ``--dist
+    loadfile`` runs files one after another: a port test module makes a session and never stops it; the
+    next module, as the JAX package's SIGUSR1 tests do, installs the JAX
+    package's handler."""
+    import subprocess
+    import sys
+    (tmp_path / "test_a_port.py").write_text(
+        "from spark_rapids_tpu_torch.session import TpuSparkSession\n"
+        "from spark_rapids_tpu_torch.testing.signals import "
+        "release_sigusr1  # noqa: F401\n"
+        "def test_port_session():\n"
+        "    TpuSparkSession.builder().device('cpu').get_or_create()\n"
+        "    from spark_rapids_tpu_torch.obs import monitor\n"
+        "    assert monitor._SIGNAL_INSTALLED\n")
+    (tmp_path / "test_b_jax.py").write_text(
+        "def test_jax_install():\n"
+        "    from spark_rapids_tpu.obs import monitor\n"
+        "    assert monitor.install_signal_diagnostics() is True\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:randomly", "-p", "no:xdist", "--rootdir",
+         str(tmp_path), str(tmp_path / "test_a_port.py"),
+         str(tmp_path / "test_b_jax.py")],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+        env=env)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "2 passed" in out.stdout

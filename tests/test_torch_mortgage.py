@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.models import mortgage_data as D
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.testing import mortgagecases
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.03
 ETL_REF_SF = 0.02

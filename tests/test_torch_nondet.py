@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.obs.syncledger import SYNCS
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import with_tpu_session
 from tests.test_torch_exprs_tail import port_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 3000
 BATCH = 256

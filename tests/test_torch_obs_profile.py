@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.obs.progress import PROGRESS
 from spark_rapids_tpu_torch.obs.trace import TRACER
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 PARITY_CONF = {"spark.rapids.sql.agg.fuseFilter": False,
                "spark.rapids.sql.exchange.fuseFilter": False,

@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.obs.syncledger import (
 )
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

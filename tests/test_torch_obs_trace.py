@@ -25,6 +25,7 @@ from spark_rapids_tpu_torch.obs import metrics as port_metrics
 from spark_rapids_tpu_torch.obs.trace import TRACER, Tracer
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch.obs.syncledger import SYNCS
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import assert_frames_equal
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _metric(name):

@@ -51,6 +51,7 @@ from spark_rapids_tpu_torch.ops import parquet_decode as PD
 from spark_rapids_tpu_torch.sql import parquet_raw as praw
 from spark_rapids_tpu_torch.sql.sources import ParquetSource
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 SF = 0.005  # 30,000 lineitem rows: two data pages per column chunk

@@ -39,6 +39,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import with_tpu_session
 from tests.test_torch_session_joins import _rows
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 HEAD = "h" * 64  # the shared 64-byte prefix of the tied values
 JOIN_TYPES = ["inner", "left", "right", "full", "leftsemi", "leftanti"]

@@ -31,6 +31,7 @@ from spark_rapids_tpu_torch.obs.compilecache import SHARED
 from spark_rapids_tpu_torch.ops import kernels as K
 from spark_rapids_tpu_torch.serving import prewarm
 from spark_rapids_tpu_torch.utils import argspec
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _batch(n=6):

@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql import pushdown as P
 from spark_rapids_tpu_torch.sql.sources import ParquetSource
 from tests.querytest import assert_frames_equal
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 10_000
 RG = 2_500

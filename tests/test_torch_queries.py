@@ -30,6 +30,7 @@ from spark_rapids_tpu.sql.exprs.evalbridge import (
 from spark_rapids_tpu.sql.planner import _bind_non_agg as ref_bind_non_agg
 from spark_rapids_tpu_torch.models import q1_step as Q
 from spark_rapids_tpu_torch.models.tpch_data import gen_lineitem
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 F64_RTOL = 1e-9
 SF = 8000 / 6_000_000

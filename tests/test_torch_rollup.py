@@ -27,6 +27,7 @@ from tests.querytest import (
     assert_frames_equal, with_cpu_session, with_tpu_session,
 )
 from tests.test_torch_exprs_tail import port_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 400
 

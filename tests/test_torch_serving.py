@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.serving.cancellation import (
 )
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from tests.querytest import assert_frames_equal, with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.005
 

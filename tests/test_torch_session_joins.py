@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import with_cpu_session, with_tpu_session
 from tests.test_torch_joins import _assert_ordered, _pandas_q3, _pandas_q4
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.002
 THRESHOLD = "spark.rapids.sql.autoBroadcastJoinThreshold"

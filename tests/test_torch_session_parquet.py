@@ -30,6 +30,7 @@ from spark_rapids_tpu_torch.sql import parquet_raw as praw
 from tests.querytest import with_tpu_session
 from tests.test_torch_joins import _assert_ordered, _pandas_q3, _pandas_q4
 from tests.test_torch_session import _assert_same, _pandas
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.005
 SMALL_RG = 4096

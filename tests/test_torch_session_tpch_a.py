@@ -37,6 +37,7 @@ from spark_rapids_tpu_torch.testing.tpchcases import (
     ORDERS, in_query_order, same_rows,
 )
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.002
 SF_LARGE = 0.01

@@ -14,6 +14,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from tests.test_torch_session_tpch_a import (
     SF, SF_LARGE, _tables, check_query, query_frames, tpch_frames,
 )
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 @pytest.mark.parametrize("qname,sf", [

@@ -45,6 +45,7 @@ from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.testing.reference import batch_same_forms
 from tests.querytest import assert_frames_equal, with_tpu_session
 from tests.test_torch_shuffle_wire import with_slab
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N_PARTS = 5
 

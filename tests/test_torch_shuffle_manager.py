@@ -53,6 +53,7 @@ from spark_rapids_tpu_torch.shuffle.transport import (
 )
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import assert_frames_equal
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT = 10  # seconds, every socket wait

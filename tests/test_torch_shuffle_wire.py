@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.exec.tpu import empty_batch
 from spark_rapids_tpu_torch.obs.syncledger import SYNCS
 from spark_rapids_tpu_torch.shuffle import wire as pwire
 from spark_rapids_tpu_torch.testing.reference import batch_same_forms
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def with_slab(jb, name: str):

@@ -18,6 +18,7 @@ from spark_rapids_tpu.ops import rowops as ref_rowops
 from spark_rapids_tpu.ops import sortops as ref_sortops
 from spark_rapids_tpu_torch.ops import rowops, sortops
 from spark_rapids_tpu_torch.testing.reference import batch_from_reference
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 EDGE_F64 = [0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -1.5, 1e-300]
 

@@ -23,6 +23,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.sql import sources as S
 from tests.querytest import assert_frames_equal
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 HIVE = "__HIVE_DEFAULT_PARTITION__"
 

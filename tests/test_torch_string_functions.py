@@ -22,6 +22,7 @@ from spark_rapids_tpu.sql import functions as RF
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 400
 FORMS = {"d": "dict", "s": "slab", "p": "plain"}

@@ -23,6 +23,7 @@ from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.sql import functions as F
 from spark_rapids_tpu_torch.testing import stringcases
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 N = 600
 LONG = stringcases.LONG

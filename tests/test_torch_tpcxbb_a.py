@@ -33,6 +33,7 @@ from spark_rapids_tpu_torch.models import tpcxbb_data as D
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from spark_rapids_tpu_torch.testing import tpcxbbcases
 from tests.querytest import with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 SF = 0.05
 

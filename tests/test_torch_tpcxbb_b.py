@@ -5,6 +5,7 @@ conventions are ``test_torch_tpcxbb_a.py``'s)."""
 import pytest
 
 from tests.test_torch_tpcxbb_a import check_query
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 @pytest.mark.parametrize("qname", ["q14", "q15", "q16", "q17", "q20"])

@@ -35,6 +35,7 @@ from spark_rapids_tpu_torch.testing.windowcases import (
     CASES, FALLBACKS, N, frame,
 )
 from tests.querytest import assert_frames_equal, with_tpu_session
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 
 def _port_session(**conf) -> TpuSparkSession:

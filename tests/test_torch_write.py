@@ -27,6 +27,7 @@ import pytest
 from spark_rapids_tpu_torch.exec import write as W
 from spark_rapids_tpu_torch.session import TpuSparkSession
 from tests.querytest import assert_frames_equal
+from spark_rapids_tpu_torch.testing.signals import release_sigusr1  # noqa: F401
 
 ROWS = 300
 FORMATS = ["parquet", "orc", "csv"]
